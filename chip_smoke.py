@@ -5,14 +5,18 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``--kernels-only`` stops after phase 2 and prints no result line: for
+timing kernel variants side by side, not a run of the contract.)
+
 Phases (any failure exits non-zero; nothing is caught and turned into a
 pass):
 1. build the CUDA kernels from tpullm_torch/csrc (build seconds, registers
    and spills from ptxas);
 2. hold each kernel against its plain PyTorch version at Llama-3-8B Q4_K
-   shapes (and Q6_K for the matmuls), and time kernel, plain version, one
-   PyTorch library call as a yardstick, and the roofline bound; check the
-   matmul kernels for every K-major type at one shape;
+   shapes (and Q6_K for the matmuls), and kernel F at Mixtral-8x7B's
+   prefill shapes, and time kernel, plain version, one PyTorch library call
+   as a yardstick, and the roofline bound; check the matmul kernels (A, B
+   and F) for every K-major type at one shape;
 3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
    (tolerance: 4x the error of the same plain path in bf16);
@@ -23,14 +27,25 @@ pass):
    spread of ms/step over single steps, the CPU share of the main thread,
    of the process and of its busiest threads, a fixed host-only workload
    timed before and after, the CPUs' busy and steal shares, and the
-   device-busy time and launches per step under torch.profiler.
+   device-busy time and launches per step under torch.profiler;
+6. the 8B model is freed; full-width Mixtral-8x7B with 2 layers: one
+   128-token prefill (ragged MoE through kernel F) + 1 greedy decode step
+   (every expert through kernel A) against the plain path on a CPU copy in
+   f32, with phase 3's tolerance rule, counting the (token, layer)
+   routings that differ between the card and the CPU;
+7. the MoE slice: the 32-layer Mixtral-8x7B model answers phase 4's 4
+   requests through InferenceEngine.generate, three times for the rates'
+   spread, with kernels A, B, C and F launched and D not;
+8. phase 5's decode-step profile on the MoE slice.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
-activations stay in range through 32 layers and greedy tokens vary). The
-last lines are the kernel table as JSON, the card's name and power limit,
-and the result line.
+activations stay in range through 32 layers and greedy tokens vary;
+synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
+card). The last lines are the kernel table as JSON, the card's name and
+power limit, and the result line.
 """
+import gc
 import json
 import math
 import os
@@ -48,6 +63,9 @@ BF16_FLOPS = 989e12
 
 # Llama-3-8B shape (bench.py:34)
 VOCAB, D, N_LAYER, H, HKV, HD, N_FF = 128256, 4096, 32, 32, 8, 128, 14336
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json): the same attention
+# widths, vocab 32000, 8 experts of n_ff 14336, top-2
+M_VOCAB, M_EXPERT, M_USED = 32000, 8, 2
 
 TOL_QMM_NMSE = 1e-5  # same bf16 weights, f32 sums in another order, bf16 out
 TOL_ATTN_NMSE = 1e-4  # p rounded to bf16 before vs after normalization
@@ -66,7 +84,10 @@ SOURCES = {
     "flash_attention": ("tpullm_torch/csrc/flash_attention.cu",
                         "tpullm/ops/flash_attention.py:28"),
     "layer_kernel": ("tpullm_torch/csrc/layer_kernel.cu", "tpullm/ops/layer_kernel.py:182"),
+    "moe_gmm": ("tpullm_torch/csrc/moe_gmm.cu", "tpullm/ops/moe_gmm.py:33"),
 }
+DENSE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel")
+MOE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "moe_gmm")  # and no layer_kernel
 
 
 def log(msg: str) -> None:
@@ -81,7 +102,8 @@ def card_line() -> str:
 
 
 def short_kernel(mangled: str) -> str:
-    m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_kernel|flash_kernel|layer_kernel)"
+    m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_kernel|flash_kernel|layer_kernel|"
+                  r"moe_gmm_kernel)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
     if not m:
         return mangled
@@ -295,6 +317,105 @@ def phase_kernels(torch, timer, entries):
     _cuda.reset_counts()
 
 
+def _expert_offsets(torch, top_i, E):
+    """Row ends of each expert's padded range in sort_by_expert's layout."""
+    from tpullm_torch.ops.moe_gmm import TM
+
+    counts = (top_i.reshape(-1)[:, None] == torch.arange(E, device=top_i.device)).sum(0)
+    return torch.cumsum((counts + TM - 1) // TM * TM, 0).to(torch.int32)
+
+
+def phase_moe_kernels(torch, timer, entries):
+    """Phase 2, kernel F: Mixtral-8x7B's prefill shapes (4 prompts bucketed
+    to 512 = 2048 tokens, top-2 of 8 experts: 4096 assignments, 5120 rows
+    with the static padding), then every K-major type at one shape."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops.moe_gmm import (grouped_qmm, grouped_qmm_plain, live_tiles,
+                                          sort_by_expert)
+    from tpullm_torch.quant.kmajor import KM_SPECS, dequant_kmajor_torch
+    from tpullm_torch.utils.synth import random_kmajor
+
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    E, used = M_EXPERT, M_USED
+
+    def ragged(M, K, routing="random"):
+        if routing == "random":
+            top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
+        else:  # skewed: 3/4 of the tokens to expert 5 and their second pick to 0
+            top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
+            top_i[: 3 * M // 4] = torch.tensor([5, 0], device="cuda")
+        order, dest, te, Mp = sort_by_expert(top_i, E, M)
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        xs = torch.zeros((Mp, K), dtype=torch.bfloat16, device="cuda")
+        xs[dest] = x[order // used]
+        return xs, te, live_tiles(dest), _expert_offsets(torch, top_i, E)
+
+    M = 2048
+    A = M * used
+    for name, parts, K in (("gate/up", [N_FF], D), ("down", [D], N_FF)):
+        qt = random_kmajor(GGMLType.Q4_K, parts, K, (E,), g, "cuda")
+        N = qt.n_out
+        xs, te, live, offs = ragged(M, K)
+        run = lambda: grouped_qmm(xs, te, qt, N, None, live)
+        plain = lambda: grouped_qmm_plain(xs, te, qt, N)
+        got, want = run(), plain()
+        again = run()
+        torch.cuda.synchronize()
+        err = nmse(torch, got, want)
+        mae = float((got.float() - want.float()).abs().max())
+        same = bool(torch.equal(got, again))
+        flops = 2.0 * A * N * K  # the rows this routing needs, not the padding
+        nbytes = weight_bytes(qt) * E + A * K * 2 + A * N * 2
+        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        ms = timer(run, 10)
+        pms = timer(plain, 3, warmup=1)
+        # library yardstick on the pre-dequantized bf16 experts
+        wd = torch.stack([dequant_kmajor_torch({k: v[e] for k, v in qt.data.items()},
+                                               GGMLType.Q4_K, torch.bfloat16)
+                          for e in range(E)])
+        rows = int(offs[-1])
+        try:
+            lib_fn = lambda: torch._grouped_mm(xs[:rows], wd.transpose(1, 2), offs=offs)
+            lib_fn()
+            library = "torch._grouped_mm"
+        except (AttributeError, RuntimeError) as exc:
+            ends = [0] + offs.tolist()
+            lib_fn = lambda: [torch.matmul(xs[a:b], wd[e].t())
+                              for e, (a, b) in enumerate(zip(ends[:-1], ends[1:]))]
+            library = f"torch.matmul per expert ({type(exc).__name__} from _grouped_mm)"
+        lms = timer(lib_fn, 10)
+        label = f"moe_gmm[{name},Q4_K,E={E},Mp={xs.shape[0]},live={int(live[0]) * 128}]"
+        by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
+        log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
+            f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
+            f"({library}) bound_ms {bound:.4f} ({by}; {A} assignment rows)")
+        if err >= TOL_QMM_NMSE or not same:
+            raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
+        entries.append(dict(
+            name=label, route="cuda", source=SOURCES["moe_gmm"][0],
+            replaces=SOURCES["moe_gmm"][1], kernel="moe_gmm", path="mixtral",
+            max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library=library,
+            bound_ms=bound, bound_by=by))
+        del qt, wd, xs, got, want, again
+        torch.cuda.empty_cache()
+
+    # every K-major type through F at 4096 x 4096, random and skewed routing
+    for qtype in KM_SPECS:
+        qt = random_kmajor(qtype, [D], D, (E,), g, "cuda")
+        errs = []
+        for routing in ("random", "skewed"):
+            xs, te, live, _ = ragged(256, D, routing)
+            got = grouped_qmm(xs, te, qt, D, None, live)
+            want = grouped_qmm_plain(xs, te, qt, D)
+            torch.cuda.synchronize()
+            errs.append(nmse(torch, got, want))
+        log(f"type {qtype.name}: moe_gmm nmse random {errs[0]:.3e}, skewed {errs[1]:.3e} "
+            f"(tol {TOL_QMM_NMSE:g}) at E={E} {D}x{D}")
+        if max(errs) >= TOL_QMM_NMSE:
+            raise AssertionError(f"{qtype.name} moe_gmm: nmse {errs}")
+        del qt
+
+
 def phase_parity(torch):
     """Phase 3: 2-layer full-width 8B, kernels on the card vs the plain path
     on a CPU copy, on the same tokens (teacher-forced with the card's
@@ -360,29 +481,113 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
-def phase_slice(torch):
-    """Phase 4: the 32-layer 8B model answers 4 requests through generate."""
+def phase_moe_parity(torch):
+    """Phase 6: 2-layer full-width Mixtral-8x7B, kernels on the card vs the
+    plain path on a CPU copy (teacher-forced with the card's greedy picks):
+    a 128-token prefill (ragged MoE, kernel F) and 1 decode step (every
+    expert, kernel A). Counts the (token, layer) top-2 sets that differ
+    between the card and the CPU f32 path."""
+    import numpy as np
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.utils.synth import synth_mixtral_q4k
+
+    cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=2, n_head=H,
+                                    n_head_kv=HKV, n_ff=N_FF, n_expert=M_EXPERT,
+                                    n_expert_used=M_USED, seed=7, device="cuda")
+    cpu = {k: (v.to("cpu") if not isinstance(v, dict) else
+               {n: t.to("cpu") for n, t in v.items()}) for k, v in params.items()}
+    rng = np.random.default_rng(3)
+    B, T, S = 2, 128, 256
+    lens = [128, 100]
+    tok = np.zeros((B, T), np.int64)
+    posn = np.zeros((B, T), np.int64)
+    for b, n in enumerate(lens):
+        tok[b, T - n:] = rng.integers(0, M_VOCAB, n)
+        posn[b, T - n:] = np.arange(n)
+    vf = np.asarray([T - n for n in lens], np.int64)
+    sides = {}
+    for name, dev, dtype in (("card", "cuda", torch.bfloat16), ("cpu", "cpu", torch.float32),
+                             ("cpu_bf16", "cpu", torch.bfloat16)):
+        p = params if dev == "cuda" else cpu
+        sides[name] = dict(p=p, dev=dev, cache=KVCache.create(cfg, B, S, dtype, dev),
+                           dtype=dtype, vf=torch.from_numpy(vf).to(dev))
+    top_k = llama.top_k
+    routes = []
+
+    def recording_top_k(probs, k):
+        idx = top_k(probs, k)
+        routes.append(idx.to("cpu"))
+        return idx
+
+    errs, ref_errs, agree, flips = [], [], [], []
+    cur_tok = torch.from_numpy(tok)
+    cur_pos = torch.from_numpy(posn)
+    slot, T_step = 0, T
+    llama.top_k = recording_top_k
+    try:
+        with torch.inference_mode():
+            for step in range(2):
+                out, picked = {}, {}
+                for name, s in sides.items():
+                    dev = s["dev"]
+                    routes.clear()
+                    t0 = time.perf_counter()
+                    lg, _ = forward(s["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), s["cache"],
+                                    slot, s["vf"], s["dtype"],
+                                    kv_view_len=None if step == 0 else S)
+                    out[name] = lg[:, -1].float().cpu()
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    s.setdefault("sec", []).append(time.perf_counter() - t0)
+                    picked[name] = [r.sort(-1).values for r in routes]
+                # real tokens only: left padding routes too, but is masked
+                real = torch.zeros(cur_tok.shape, dtype=torch.bool)
+                for b, n in enumerate(lens):
+                    real[b, cur_tok.shape[1] - (n if step == 0 else 1):] = True
+                flips.append(sum(int(((a != c).any(-1) & real).sum())
+                                 for a, c in zip(picked["card"], picked["cpu"])))
+                errs.append(nmse(torch, out["card"], out["cpu"]))
+                ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
+                agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
+                nxt = out["card"].argmax(-1)
+                slot += T_step
+                T_step = 1
+                cur_tok = nxt[:, None].to(torch.int64)
+                cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
+    finally:
+        llama.top_k = top_k
+    tol = TOL_E2E_FACTOR * max(ref_errs)
+    n_routes = [sum(lens) * 2, B * 2]
+    log(f"parity 2-layer Mixtral-8x7B (prefill T={T} + 1 decode step): card vs CPU f32 "
+        f"logits nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
+        f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the largest); "
+        f"(token, layer) routings differing card vs CPU f32 {flips} of {n_routes}; "
+        f"greedy agree {agree}; card s {[round(x, 3) for x in sides['card']['sec']]} "
+        f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]}")
+    if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
+        raise AssertionError(f"2-layer Mixtral parity: nmse {errs}, tolerance {tol}, "
+                             f"routing flips {flips}")
+    del params, cpu, sides
+    torch.cuda.empty_cache()
+
+
+def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
+    """Phases 4 and 7: a 32-layer model answers 4 requests through
+    generate: one run with the launch counts (set to 0 just before it), then
+    ``repeats`` timed runs (prefill alone, then prefill + 32 decode steps)."""
     import numpy as np
 
     from tpullm_torch.ops import _cuda
     from tpullm_torch.runtime.engine import InferenceEngine
-    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
 
-    t0 = time.perf_counter()
-    cfg, params = synth_kmajor_q4k_fast(vocab_size=VOCAB, n_embd=D, n_layer=N_LAYER,
-                                        n_head=H, n_head_kv=HKV, n_ff=N_FF, seed=0,
-                                        centred=True, device="cuda")
-    torch.cuda.synchronize()
-    qts = [params["tok_embd"], params["output"]] + [
-        v for v in params["layers"].values() if hasattr(v, "data")]
-    wgb = sum(q.nbytes for q in qts) / 1e9
-    log(f"slice: synthesized 8B Q4_K kmajor weights {wgb:.3f} GB in "
-        f"{time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(42)
     lens = [512, 300, 200, 100]
-    prompts = [rng.integers(0, VOCAB, n).tolist() for n in lens]
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
     eng = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=32)
     new = 33  # the first token from prefill + one chunk of 32 decode steps
+    dec_steps = new - 1
 
     def timed(n):
         torch.cuda.synchronize()
@@ -392,31 +597,41 @@ def phase_slice(torch):
         return r, time.perf_counter() - t
 
     timed(1)  # warm-up: first use of each kernel shape
-    _, t_pre = timed(1)
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
-    r1, t_all = timed(new)
+    r1, _ = timed(new)
     counts = dict(_cuda.COUNTS)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    r2, t_all2 = timed(new)
+    pre, step_ms = [], []
+    for _ in range(repeats):
+        _, t_pre = timed(1)
+        r2, t_all = timed(new)
+        pre.append(sum(lens) / t_pre)
+        step_ms.append((t_all - t_pre) / dec_steps * 1e3)
     flat = [t for row in r1.tokens for t in row]
-    in_range = all(0 <= t < VOCAB for t in flat)
+    in_range = all(0 <= t < vocab for t in flat)
     same = r1.tokens == r2.tokens
-    dec_steps = new - 1
-    t_dec = t_all - t_pre
-    log(f"slice: prefill {sum(lens)} tokens (bucket 4x512) {t_pre:.3f} s = "
-        f"{sum(lens) / t_pre:.1f} tok/s; decode {len(lens)}x{dec_steps} tokens "
-        f"{t_dec:.3f} s = {len(lens) * dec_steps / t_dec:.1f} tok/s "
-        f"({t_dec / dec_steps * 1e3:.2f} ms/step; the repeat "
-        f"{(t_all2 - t_pre) / dec_steps * 1e3:.2f} ms/step); peak memory {peak:.3f} GB; "
-        f"launches {counts}; tokens in range {in_range}; repeat identical {same}")
-    log(f"slice: first tokens {[row[:8] for row in r1.tokens]}")
+    log(f"slice {label}: prefill {sum(lens)} tokens (bucket 4x512) "
+        f"{[round(x, 1) for x in pre]} tok/s; decode {len(lens)}x{dec_steps} tokens "
+        f"{[round(x, 2) for x in step_ms]} ms/step "
+        f"({[round(len(lens) * 1e3 / x, 1) for x in step_ms]} tok/s); peak memory "
+        f"{peak:.3f} GB; launches {counts}; tokens in range {in_range}; repeat identical {same}")
+    log(f"slice {label}: first tokens {[row[:8] for row in r1.tokens]}")
     if not (in_range and same and all(len(t) == new for t in r1.tokens)):
-        raise AssertionError("slice output check failed")
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"slice {label}: output check failed")
+    missing = [k for k in must if counts[k] <= 0]
+    extra = [k for k in must_not if counts[k] > 0]
+    if missing or extra:
+        raise AssertionError(f"slice {label}: kernels not launched {missing}, "
+                             f"launched but off this path {extra}")
     return counts, eng, prompts
+
+
+def model_gb(params) -> float:
+    """GB of a synthesized model's quantized weights."""
+    qts = [params["tok_embd"], params["output"]] + [
+        v for v in params["layers"].values() if hasattr(v, "data")]
+    return sum(q.nbytes for q in qts) / 1e9
 
 
 def cpu_jiffies():
@@ -463,7 +678,7 @@ def quartiles(xs):
     return q[n // 4], q[n // 2], q[(3 * n) // 4]
 
 
-def phase_decode(torch, eng, prompts):
+def phase_decode(torch, eng, prompts, label=""):
     """Phase 5: where a decode step's time goes, on the slice's model and
     batch. Each step is the engine's decode step (forward over one token per
     row at the engine's kv view, then greedy sampling), synchronized, so its
@@ -542,7 +757,7 @@ def phase_decode(torch, eng, prompts):
         tot = max(jif1[0] - jif0[0], 1)
         out["cpus_busy_share"] = 1 - (jif1[1] - jif0[1]) / tot
         out["cpus_steal_share"] = (jif1[2] - jif0[2]) / tot
-    log(f"decode steps: {json.dumps(out)}")
+    log(f"decode steps{label}: {json.dumps(out)}")
     if not (busy > 0 and all(math.isfinite(x) for x in wall)):
         raise AssertionError(f"decode profile saw no device time: {out}")
 
@@ -575,21 +790,59 @@ def main() -> int:
 
     t = time.perf_counter()
     entries = []
-    phase_kernels(torch, Timer(torch), entries)
+    timer = Timer(torch)
+    phase_kernels(torch, timer, entries)
+    phase_moe_kernels(torch, timer, entries)
+    del timer  # its 256 MB L2-flush buffer would count in the slices' peak memory
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
     t = time.perf_counter()
     phase_parity(torch)
     log(f"phase parity: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    counts, eng, prompts = phase_slice(torch)
-    log(f"phase slice: {time.perf_counter() - t:.1f} s")
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast, synth_mixtral_q4k
+
+    cfg, params = synth_kmajor_q4k_fast(vocab_size=VOCAB, n_embd=D, n_layer=N_LAYER,
+                                        n_head=H, n_head_kv=HKV, n_ff=N_FF, seed=0,
+                                        centred=True, device="cuda")
+    log(f"slice 8B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
+        f"{time.perf_counter() - t:.3f} s")
+    counts, eng, prompts = phase_slice(torch, "8B", cfg, params, VOCAB, DENSE_KERNELS)
+    del cfg, params
+    log(f"phase slice 8B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_decode(torch, eng, prompts)
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase decode steps: {time.perf_counter() - t:.1f} s")
 
-    for e in entries:
-        e["launches"] = counts[e.pop("kernel")]
+    t = time.perf_counter()
+    phase_moe_parity(torch)
+    log(f"phase parity Mixtral: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=N_LAYER, n_head=H,
+                                    n_head_kv=HKV, n_ff=N_FF, n_expert=M_EXPERT,
+                                    n_expert_used=M_USED, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"slice Mixtral: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
+        f"{time.perf_counter() - t:.3f} s")
+    moe_counts, eng, prompts = phase_slice(torch, "Mixtral-8x7B", cfg, params, M_VOCAB,
+                                           MOE_KERNELS, ("layer_kernel",), repeats=3)
+    del cfg, params
+    log(f"phase slice Mixtral: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_decode(torch, eng, prompts, " Mixtral-8x7B")
+    del eng
+    log(f"phase decode steps Mixtral: {time.perf_counter() - t:.1f} s")
+
+    for e in entries:  # each row's launches on the slice of its shapes
+        k = e.pop("kernel")
+        e["launches_by_path"] = {"8B": counts[k], "Mixtral-8x7B": moe_counts[k]}
+        e["launches"] = moe_counts[k] if e.pop("path", "8B") == "mixtral" else counts[k]
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

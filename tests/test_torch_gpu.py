@@ -13,6 +13,7 @@ from tpullm_torch.ops import _cuda
 from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
 from tpullm_torch.ops.layer_kernel import _plain as layer_plain
 from tpullm_torch.ops.layer_kernel import ffn_block, ffn_block_qkv
+from tpullm_torch.ops.moe_gmm import grouped_qmm, grouped_qmm_plain, live_tiles, sort_by_expert
 from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
 from tpullm_torch.quant.kmajor import KM_SPECS
 from tpullm_torch.utils.synth import random_kmajor
@@ -38,7 +39,8 @@ def _nmse(a, b):
 def test_build_reports_ptxas(cuda):
     info = _cuda.build()
     names = " ".join(n for n, _, _ in info["ptxas"])
-    for k in ("qmm_splitk_kernel", "qmm_kernel", "flash_kernel", "layer_kernel"):
+    for k in ("qmm_splitk_kernel", "qmm_kernel", "flash_kernel", "layer_kernel",
+              "moe_gmm_kernel"):
         assert k in names or info["cached"], (k, names)
 
 
@@ -178,7 +180,7 @@ def test_kernels_deterministic(cuda):
 
 def test_engine_on_card_matches_cpu(cuda):
     """The slice end to end at a small width: the card's bf16 path through
-    all four kernels against the plain path on the CPU in f32. Tolerance:
+    the dense path's four kernels (A-D; F is the MoE path's) against the plain path on the CPU in f32. Tolerance:
     4x the NMSE of the same plain path run in bf16 on the CPU (the error
     bf16 arithmetic alone brings); the same first greedy token on every
     row whose top two f32 logits are more than 0.05 apart."""
@@ -205,10 +207,102 @@ def test_engine_on_card_matches_cpu(cuda):
         if dev == "cuda":
             counts = dict(_cuda.COUNTS)
         logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("qmm_splitk", "qmm", "flash_attention",
+                                       "layer_kernel")), counts
+    assert counts["moe_gmm"] == 0, counts
     ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
     assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
     top2 = torch.topk(logits["cpu"][0], 2, dim=-1).values
     for b, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
         if gap > 0.05:
             assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
+
+
+def _ragged(cuda, g, routing, E, M=150, K=2048, used=2):
+    """Expert-sorted rows for a routing: random, all to one expert
+    (skewed), or with experts 0 and E-1 never chosen (empty)."""
+    if routing == "random":
+        top_i = torch.rand((M, E), generator=g, device=cuda).argsort(-1)[:, :used]
+    elif routing == "skewed":
+        top_i = torch.full((M, used), 1, device=cuda)
+    else:
+        top_i = torch.randint(1, E - 1, (M, used), generator=g, device=cuda)
+    order, dest, te, Mp = sort_by_expert(top_i, E, M)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    xs = torch.zeros((Mp, K), dtype=torch.bfloat16, device=cuda)
+    xs[dest] = x[order // used]
+    return xs, te, live_tiles(dest)
+
+
+@pytest.mark.parametrize("qtype", sorted(KM_SPECS, key=lambda t: t.name))
+@pytest.mark.parametrize("layered", [False, True])
+def test_moe_gmm_kernel_vs_plain(cuda, qtype, layered):
+    """Kernel F vs its plain version (same bf16 weights, f32 sums in another
+    order: NMSE < 1e-5) for random, skewed and empty-expert routings, with
+    and without the live-tile count; two calls give identical bits. K is
+    2048, the smallest K tile every type takes (TQ2_0's)."""
+    g = torch.Generator(device=cuda).manual_seed(int(qtype))
+    E = 4
+    qt = random_kmajor(qtype, [300], 2048, (3, E) if layered else (E,), g, cuda)
+    layer = 2 if layered else None
+    for routing in ("random", "skewed", "empty"):
+        xs, te, live = _ragged(cuda, g, routing, E)
+        want = grouped_qmm_plain(xs, te, qt, 300, layer)
+        for lv in (None, live):
+            before = _cuda.COUNTS["moe_gmm"]
+            y1 = grouped_qmm(xs, te, qt, 300, layer, lv)
+            y2 = grouped_qmm(xs, te, qt, 300, layer, lv)
+            torch.cuda.synchronize()
+            assert _cuda.COUNTS["moe_gmm"] == before + 2
+            assert y1.shape == want.shape == (xs.shape[0], 300)
+            assert torch.equal(y1, y2)
+            assert _nmse(y1, want) < 1e-5, (routing, lv is not None)
+
+
+def test_moe_gmm_unsupported_raises(cuda):
+    """On the card there is no fallback: a weight kernel F does not take
+    raises (here Q4_K at K=256, under its K tile, and a dense weight)."""
+    from tpullm_torch.ops.qtensor import QTensor
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    te = torch.zeros(2, dtype=torch.int32, device=cuda)
+    short = random_kmajor(GGMLType.Q4_K, [256], 256, (2,), g, cuda)
+    with pytest.raises(NotImplementedError, match="kernel F"):
+        grouped_qmm(torch.zeros((256, 256), dtype=torch.bfloat16, device=cuda), te, short, 256)
+    dense = QTensor(GGMLType.F32, (2, 256, 1024),
+                    {"w": torch.zeros((2, 256, 1024), device=cuda)})
+    with pytest.raises(NotImplementedError, match="kernel F"):
+        grouped_qmm(torch.zeros((256, 1024), dtype=torch.bfloat16, device=cuda), te, dense, 256)
+
+
+def test_moe_engine_on_card_matches_cpu(cuda):
+    """The MoE slice at a small width: prefill through kernels B, C and F,
+    decode through A on every expert, no D; the card's bf16 logits within
+    4x the NMSE of the CPU's bf16 plain path against its f32 one."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_mixtral_q4k
+
+    cfg, params = synth_mixtral_q4k(vocab_size=512, n_embd=512, n_layer=2, n_head=4,
+                                    n_head_kv=2, n_ff=1024, n_expert=4, n_expert_used=2,
+                                    seed=3, device="cpu")
+    card = {k: (v.to("cuda") if not isinstance(v, dict) else
+                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    prompts = [list(range(1, 101)), list(range(7, 67)), list(range(40, 70))]
+    logits = {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        if dev == "cuda":
+            _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev)
+        r = eng.generate(prompts, max_new_tokens=5, return_logits=True)
+        if dev == "cuda":
+            counts = dict(_cuda.COUNTS)
+        logits[name] = torch.from_numpy(np.asarray(r.logits))
+    assert counts["layer_kernel"] == 0, counts
+    assert all(counts[k] > 0 for k in ("qmm_splitk", "qmm", "flash_attention", "moe_gmm"))
+    ref = _nmse(logits["cpu_bf16"], logits["cpu"])
+    assert _nmse(logits["card"], logits["cpu"]) < 4 * ref

@@ -1,6 +1,6 @@
-"""What the port's slice does not cover raises instead of being ignored:
-config flags outside the dense llama path, other archs, tensors the dense
-path does not read, weight layouts and cache types not ported yet."""
+"""What the port's slices do not cover raises instead of being ignored:
+config flags outside the dense llama and MoE paths, other archs, tensors
+those paths do not read, weight types and cache types not ported yet."""
 import dataclasses
 
 import numpy as np
@@ -8,9 +8,10 @@ import pytest
 import torch
 
 from tpullm.gguf.constants import GGMLType
+from tpullm.gguf.writer import GGUFWriter
 from tpullm.utils.synth import build_llama_gguf
 from tpullm_torch.models.config import ModelConfig, config_from_gguf
-from tpullm_torch.models.llama import KVCache, check_dense
+from tpullm_torch.models.llama import KVCache, check_dense, forward
 from tpullm_torch.ops.qtensor import qtensor_from_bytes
 from tpullm_torch.runtime.loader import load_model
 
@@ -19,7 +20,7 @@ torch.set_num_threads(2)
 
 @pytest.mark.parametrize("field,value", [
     ("sliding_window", 128), ("attn_logit_softcap", 30.0), ("n_expert", 8),
-    ("attn_bias", True), ("attn_qk_norm", True), ("post_norms", True),
+    ("n_expert_shared", 2), ("attn_bias", True), ("attn_qk_norm", True), ("post_norms", True),
     ("parallel_residual", True), ("act_fn", "gelu"), ("norm_type", "layernorm"),
     ("embedding_scale", 2.0), ("kv_lora_rank", 64), ("alibi_max_bias", 8.0)])
 def test_flag_outside_dense_path_raises(field, value):
@@ -27,6 +28,21 @@ def test_flag_outside_dense_path_raises(field, value):
     check_dense(cfg)
     with pytest.raises(NotImplementedError, match=field):
         check_dense(dataclasses.replace(cfg, **{field: value}))
+
+
+MIXTRAL = ModelConfig(arch="mixtral", n_expert=8, n_expert_used=2, expert_weights_norm=True)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("n_expert_shared", 2), ("n_group_experts", 2), ("n_layer_dense_lead", 1),
+    ("moe_router_pre_norm", True), ("moe_dense_parallel", "grok"), ("act_fn", "gelu"),
+    ("n_expert_used", 9), ("expert_gating", "softmax_weight")])
+def test_flag_outside_moe_path_raises(field, value):
+    """The MoE fields pass only with MoE tensors (moe=True); the other MoE
+    features still raise."""
+    check_dense(MIXTRAL, moe=True)
+    with pytest.raises(NotImplementedError, match="n_expert|MoE|" + field):
+        check_dense(dataclasses.replace(MIXTRAL, **{field: value}), moe=True)
 
 
 def _gguf(tmp_path, **kw):
@@ -59,9 +75,10 @@ def test_dense_keys_parse():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("llama.expert_count", 8), ("llama.attention.sliding_window", 4096),
-    ("llama.attention.layer_norm_epsilon", 1e-5), ("llama.rope.scaling.finetuned", True),
-    ("llama.embedding_scale", 2.0), ("xielu.alpha_n", [0.8])])
+    ("llama.expert_shared_count", 2), ("llama.attention.sliding_window", 4096),
+    ("llama.attention.clamp_kqv", 8.0), ("llama.rope.scaling.finetuned", True),
+    ("llama.embedding_scale", 2.0), ("xielu.alpha_n", [0.8]),
+    ("llama.leading_dense_block_count", 1), ("llama.experts_per_group", 2)])
 def test_gguf_key_outside_dense_path_raises(key, value):
     with pytest.raises(NotImplementedError, match=key):
         config_from_gguf(_Meta({key: value}))
@@ -88,14 +105,61 @@ def test_tied_embeddings_load(tmp_path):
 
 
 def test_planar_only_weights_raise():
-    """Q8_K has no K-major layout; Q4_K at K=256 is too short for it."""
-    raw = np.zeros(292 * 4, np.uint8)
-    with pytest.raises(NotImplementedError, match="Q8_K"):
-        qtensor_from_bytes(raw, GGMLType.Q8_K, (4, 256))
-    with pytest.raises(NotImplementedError, match="Q4_K"):
-        qtensor_from_bytes(np.zeros(144 * 4, np.uint8), GGMLType.Q4_K, (4, 256))
+    """Q8_K has no K-major layout and Q4_K at K=256 is too short for it:
+    both load in the planar layout, which no kernel reads (plain dequant
+    and product, tests/test_torch_dequant.py). The codebook types, which
+    the JAX package dequantizes at load, raise."""
+    q8k = qtensor_from_bytes(np.zeros(292 * 4, np.uint8), GGMLType.Q8_K, (4, 256))
+    q4k = qtensor_from_bytes(np.zeros(144 * 4, np.uint8), GGMLType.Q4_K, (4, 256))
+    assert q8k.layout == q4k.layout == "planar"
+    with pytest.raises(NotImplementedError, match="IQ2_XXS"):
+        qtensor_from_bytes(np.zeros(66 * 4, np.uint8), GGMLType.IQ2_XXS, (4, 256))
 
 
 def test_int8_kv_cache_raises():
     with pytest.raises(NotImplementedError, match="KV cache"):
         KVCache.create(ModelConfig(), 1, 16, torch.int8, "cpu")
+
+
+def _moe_gguf(tmp_path, monkeypatch, extra):
+    """A 1-layer mixtral GGUF with ``extra`` {name: f32 array} tensors."""
+    write = GGUFWriter.write
+
+    def write_extra(self):
+        for name, arr in extra.items():
+            self.add_tensor(name, arr)
+        return write(self)
+
+    monkeypatch.setattr(GGUFWriter, "write", write_extra)
+    return _gguf(tmp_path, arch="mixtral", n_expert=4, n_expert_used=2)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("blk.0.ffn_gate_exps.bias", (4, 512)), ("blk.0.ffn_down_exps.bias", (4, 512)),
+    ("blk.0.ffn_gate_inp.bias", (4,)), ("blk.0.ffn_gate_shexp.weight", (512, 512)),
+    ("blk.0.ffn_up_shexp.weight", (512, 512)), ("blk.0.ffn_norm_exps.weight", (512,)),
+    ("blk.0.ffn_gate_chexps.weight", (2, 512, 512))])
+def test_moe_tensor_outside_path_raises(tmp_path, monkeypatch, name, shape):
+    """Expert biases, shared experts, the arctic expert norm and chunk
+    experts are not on the covered MoE path: the loader raises."""
+    path = _moe_gguf(tmp_path, monkeypatch, {name: np.zeros(shape, np.float32)})
+    with pytest.raises(NotImplementedError, match=name.split(".")[1]):
+        load_model(path, device="cpu")
+
+
+def test_moe_config_and_tensors_go_together(tmp_path, monkeypatch):
+    """MoE fields without MoE tensors, and MoE tensors without the full
+    set, raise in forward."""
+    cfg, params, _ = load_model(_moe_gguf(tmp_path, monkeypatch, {}), device="cpu")
+    cache = KVCache.create(cfg, 1, 16, torch.float32, "cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    vf = torch.zeros(1, dtype=torch.int64)
+    forward(params, cfg, tok, tok, cache, 0, vf, torch.float32)
+    partial = dict(params, layers={k: v for k, v in params["layers"].items()
+                                   if k != "moe_up_exps"})
+    with pytest.raises(NotImplementedError, match="MoE layers"):
+        forward(partial, cfg, tok, tok, cache, 0, vf, torch.float32)
+    dense = dict(params, layers={k: v for k, v in params["layers"].items()
+                                 if not k.startswith("moe_")})
+    with pytest.raises(NotImplementedError, match="n_expert"):
+        forward(dense, cfg, tok, tok, cache, 0, vf, torch.float32)

@@ -3,9 +3,9 @@
 Copy of tpullm/models/config.py for the PyTorch port. ``ModelConfig`` keeps
 every field of the JAX package's (so a config carried across with
 ``dataclasses.asdict`` round-trips); ``config_from_gguf`` reads only the
-keys of the dense llama path and raises on any other key of the arch.
-Fields the dense llama path never sets are rejected by models/llama.py
-rather than ignored.
+keys of the paths the port covers (dense llama and the routed-expert MoE
+FFN) and raises on any other key of the arch. Fields those paths never set
+are rejected by models/llama.py rather than ignored.
 
 Counterpart of the reference's hparams loader (src/llama-hparams.h:1-359 +
 per-arch KV reads in src/llama-model.cpp). One flat dataclass covers the
@@ -185,16 +185,25 @@ class ModelConfig:
         return self.n_head // max(self.n_head_kv, 1)
 
 
-# {arch}.* keys the dense llama path reads. Any other {arch}.* key, and the
-# arch-unprefixed xielu.* keys, configure a feature the port does not run:
-# config_from_gguf raises on them rather than parsing and ignoring them.
+# {arch}.* keys the covered paths read. Any other {arch}.* key, and the
+# arch-unprefixed xielu.* keys, configure a feature the port does not run
+# (shared experts, expert groups, dense lead layers, ...): config_from_gguf
+# raises on them rather than parsing and ignoring them.
+# attention.layer_norm_epsilon goes to norm_eps as in the JAX parser; only
+# layernorm paths read it, and those raise in models/llama.py.
 DENSE_KEYS = frozenset({
     "context_length", "embedding_length", "block_count", "feed_forward_length",
     "vocab_size", "attention.head_count", "attention.head_count_kv",
     "attention.key_length", "attention.value_length",
-    "attention.layer_norm_rms_epsilon", "attention.scale", "rope.freq_base",
+    "attention.layer_norm_rms_epsilon", "attention.layer_norm_epsilon",
+    "attention.scale", "rope.freq_base",
     "rope.dimension_count", "rope.scaling.type", "rope.scaling.factor",
     "rope.scaling.original_context_length",
+})
+# the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser)
+MOE_KEYS = frozenset({
+    "expert_count", "expert_used_count", "expert_feed_forward_length",
+    "expert_weights_scale", "expert_weights_norm", "expert_gating_func",
 })
 
 
@@ -206,15 +215,15 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
         raise NotImplementedError(
             f"arch {arch!r}: the PyTorch port covers {sorted(ARCH_REGISTRY)}")
     other = sorted(k for k in g.metadata if k.startswith("xielu.") or (
-        k.startswith(arch + ".") and k[len(arch) + 1:] not in DENSE_KEYS))
+        k.startswith(arch + ".") and k[len(arch) + 1:] not in DENSE_KEYS | MOE_KEYS))
     if other:
-        raise NotImplementedError(f"GGUF keys outside the dense {arch} path: {other}")
+        raise NotImplementedError(f"GGUF keys outside the covered {arch} paths: {other}")
 
     def get(key: str, default: Any = None) -> Any:
         v = g.get(f"{arch}.{key}", default)
         if isinstance(v, (list, tuple, np.ndarray)):
             raise NotImplementedError(
-                f"{arch}.{key}: per-layer values are not on the dense {arch} path")
+                f"{arch}.{key}: per-layer values are not on the covered {arch} paths")
         return v
 
     n_embd = int(get("embedding_length", 2048))
@@ -236,15 +245,28 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
         n_ff=int(get("feed_forward_length", 4 * n_embd)),
         n_ctx_train=int(get("context_length", 2048)),
         rms_eps=float(get("attention.layer_norm_rms_epsilon", 1e-5)),
+        norm_eps=float(get("attention.layer_norm_epsilon", 0.0)),
         rope_base=float(get("rope.freq_base", 10000.0)),
         rope_dim=int(get("rope.dimension_count", head_dim)),
         rope_scaling=str(get("rope.scaling.type", "none") or "none"),
         rope_scale=float(get("rope.scaling.factor", 1.0)),
         rope_orig_ctx=int(get("rope.scaling.original_context_length", 0)),
+        n_expert=int(get("expert_count", 0)),
+        n_expert_used=int(get("expert_used_count", 0)),
+        n_ff_exp=int(get("expert_feed_forward_length", 0)),
         raw_kv=dict(g.metadata),
     )
     asc = get("attention.scale")
     if asc is not None:
         cfg.attn_scale = float(asc)
+    ew_scale = get("expert_weights_scale")
+    if ew_scale is not None:
+        cfg.expert_weights_scale = float(ew_scale)
+    ew_norm = get("expert_weights_norm")
+    if ew_norm is not None:
+        cfg.expert_weights_norm = bool(ew_norm)
+    gf = get("expert_gating_func")
+    if gf is not None:
+        cfg.expert_gating = {2: "sigmoid"}.get(int(gf), "softmax")
     apply_arch_defaults(cfg)
     return cfg

@@ -1,17 +1,21 @@
-"""Decoder-only transformer graph (dense Llama path) in PyTorch.
+"""Decoder-only transformer graph (dense Llama and Mixtral-style MoE) in
+PyTorch.
 
 Counterpart of tpullm/models/llama.py for the configurations the port
 covers: RMSNorm -> fused QKV -> RoPE (neox or interleaved) -> GQA attention
-over a head-major KV cache -> output projection -> gated SiLU FFN. A Python
-loop over layers takes the place of ``lax.scan``; the KV cache is updated
-in place. Every flag of the JAX graph that the dense llama path never sets
-raises (``check_dense``) instead of being ignored.
+over a head-major KV cache -> output projection -> gated SiLU FFN, or the
+routed-expert MoE FFN (softmax or sigmoid router, top-k, optional
+renormalization and scale; no shared experts, biases, latent or chunk
+experts). A Python loop over layers takes the place of ``lax.scan``; the KV
+cache is updated in place. Every flag of the JAX graph that these paths
+never set raises (``check_dense``) instead of being ignored.
 
 Kernel gates are the JAX package's own, with "the tensors are on the card"
 in place of "the default backend is the TPU": prefill attention takes the
 flash kernel when flash_supported holds (llama.py:268-274); decode layers
 take the layer kernel, folded with the next layer's QKV when the weights
-are fused in one group (llama.py:1382-1423).
+are fused in one group (llama.py:1382-1423); MoE prefill (B*T > 16) takes
+the grouped kernel F over expert-sorted rows (llama.py:455-460).
 """
 from __future__ import annotations
 
@@ -32,26 +36,41 @@ from ..ops.qtensor import QTensor
 from .config import ModelConfig
 
 # ModelConfig fields the dense llama path reads; every other field must keep
-# its default (check_dense)
+# its default (check_dense). norm_eps is read only by layernorm paths, which
+# raise through norm_type.
 DENSE_FIELDS = frozenset({
     "arch", "vocab_size", "n_embd", "n_layer", "n_head", "n_head_kv",
-    "head_dim", "head_dim_v", "n_ff", "n_ctx_train", "rms_eps",
+    "head_dim", "head_dim_v", "n_ff", "n_ctx_train", "rms_eps", "norm_eps",
     "rope_base", "rope_dim", "rope_type", "rope_scaling", "rope_scale",
     "rope_orig_ctx", "rope_yarn_low", "rope_yarn_high", "rope_attn_factor",
     "attn_scale", "tie_embeddings", "raw_kv",
 })
+# the routed-expert MoE FFN's fields, accepted only with MoE tensors
+MOE_FIELDS = frozenset({
+    "n_expert", "n_expert_used", "expert_gating", "expert_weights_norm",
+    "expert_weights_scale", "n_ff_exp",
+})
+MOE_KEYS = frozenset({"moe_gate_inp", "moe_gate_exps", "moe_up_exps", "moe_down_exps"})
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise on any config flag outside the dense llama path."""
+def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
+    """Raise on any config flag outside the covered paths: the dense llama
+    path, and with ``moe`` (the layers carry MoE tensors) the MoE FFN."""
+    allowed = DENSE_FIELDS | MOE_FIELDS if moe else DENSE_FIELDS
     for f in dataclasses.fields(ModelConfig):
-        if f.name in DENSE_FIELDS:
+        if f.name in allowed:
             continue
         default = f.default if f.default is not dataclasses.MISSING else f.default_factory()
         if getattr(cfg, f.name) != default:
             raise NotImplementedError(
-                f"ModelConfig.{f.name}={getattr(cfg, f.name)!r}: not on the dense "
-                "llama path the PyTorch port covers")
+                f"ModelConfig.{f.name}={getattr(cfg, f.name)!r}: not on the "
+                f"{'dense llama or MoE' if moe else 'dense llama'} path the PyTorch "
+                "port covers")
+    if moe and (cfg.n_expert < 1 or not 1 <= cfg.n_expert_used <= cfg.n_expert
+                or cfg.expert_gating not in ("softmax", "sigmoid")):
+        raise NotImplementedError(
+            f"MoE with n_expert={cfg.n_expert}, n_expert_used={cfg.n_expert_used}, "
+            f"gating {cfg.expert_gating!r}: not on the covered MoE path")
 
 
 @dataclass
@@ -168,8 +187,105 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype):
     return qmm(h, qw["ffn_down"], dtype, li)
 
 
+def top_k(probs, k: int):
+    """Indices of the k largest along the last axis, ties to the lower
+    index first, as jax.lax.top_k orders them (torch.topk on CUDA promises
+    no order among equal values)."""
+    return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def moe_ffn(x, qw, li, cfg: ModelConfig, dtype):
+    """Mixture-of-experts FFN (llama.py:371-515; build_moe_ffn contract,
+    src/llama-graph.h:831), gated SiLU experts only.
+
+    Router: logits = x @ gate_inp^T -> softmax|sigmoid, top-k, optional
+    weight renorm and scale. Prefill on the card (B*T > 16) takes the ragged
+    grouped GEMM (kernel F). Otherwise every expert is evaluated and
+    mask-combined in expert order: the JAX package skips an unselected
+    expert with lax.cond at decode (llama.py:447-454), which here would read
+    the routing back to the host once per expert; an unselected expert's
+    weight is exactly 0, so its term adds nothing and the sum is the same.
+    On the CPU this is the JAX package's dense path off the TPU."""
+    B, T, D = x.shape
+    E, used = cfg.n_expert, cfg.n_expert_used
+    router = qmm(x, qw["moe_gate_inp"], dtype, li)[..., :E].to(torch.float32)
+    if cfg.expert_gating == "sigmoid":
+        probs = torch.sigmoid(router)
+    else:
+        probs = torch.softmax(router, dim=-1)
+    top_i = top_k(probs, used)  # (B, T, used)
+    w = torch.gather(probs, -1, top_i)
+    if cfg.expert_weights_norm:
+        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    w = w * cfg.expert_weights_scale
+    gate_w, up_w, down_w = qw["moe_gate_exps"], qw["moe_up_exps"], qw["moe_down_exps"]
+    if B * T > 16 and x.is_cuda and _ragged_moe_ok(gate_w, up_w, down_w, D):
+        return _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg, dtype)
+
+    def one_expert(e):
+        ue = _expert_mm(x, up_w, li, e, dtype)
+        ge = _expert_mm(x, gate_w, li, e, dtype)
+        h = torch.nn.functional.silu(ge.to(torch.float32)).to(dtype) * ue
+        de = _expert_mm(h, down_w, li, e, dtype)
+        we = (w * (top_i == e)).sum(-1)  # (B, T)
+        return de * we[..., None].to(dtype)
+
+    out = one_expert(0)
+    for e in range(1, E):
+        out = out + one_expert(e)
+    return out
+
+
+def _ragged_moe_ok(gate_w, up_w, down_w, D) -> bool:
+    from ..ops.moe_gmm import gmm_supported
+
+    return (gmm_supported(gate_w, D) and gmm_supported(up_w, D)
+            and gmm_supported(down_w, gate_w.shape[-2]))
+
+
+def _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg: ModelConfig, dtype):
+    """Sorted-by-expert grouped MoE FFN (llama.py:531-563, ops/moe_gmm.py).
+
+    The JAX package combines with a scatter-add over the sorted rows
+    (``out.at[tok_s].add``), which CUDA would run with atomics in no fixed
+    order. Here each token's ``used`` rows are gathered through the inverse
+    permutation and summed in slot order from 0, the same sums bit for bit
+    at top-2 and deterministic at any k."""
+    from ..ops.moe_gmm import grouped_qmm, live_tiles, sort_by_expert
+
+    B, T, D = x.shape
+    M = B * T
+    used = top_i.shape[-1]
+    xf = x.reshape(M, D).to(torch.bfloat16)
+    order, dest, tile_expert, Mp = sort_by_expert(top_i.reshape(M, used), cfg.n_expert, M)
+    tok_s = order // used  # source token of each sorted assignment
+    live = live_tiles(dest)
+    xs_pad = torch.zeros((Mp, D), dtype=torch.bfloat16, device=x.device)
+    xs_pad[dest] = xf[tok_s]
+    n_ff_e = gate_w.shape[-2]
+    g = grouped_qmm(xs_pad, tile_expert, gate_w, n_ff_e, layer=li, live=live)
+    u = grouped_qmm(xs_pad, tile_expert, up_w, n_ff_e, layer=li, live=live)
+    h = torch.nn.functional.silu(g.to(torch.float32)) * u.to(torch.float32)
+    y = grouped_qmm(h.to(torch.bfloat16), tile_expert, down_w, D, layer=li, live=live)
+    row_of = torch.empty_like(dest)  # padded row of assignment m * used + j
+    row_of[order] = dest
+    contrib = (y[row_of].to(torch.float32) * w.reshape(M * used, 1)).reshape(M, used, D)
+    out = torch.zeros((M, D), dtype=torch.float32, device=x.device)
+    for j in range(used):
+        out = out + contrib[:, j]
+    return out.reshape(B, T, D).to(dtype)
+
+
+def _expert_mm(x, qt: QTensor, li, e: int, dtype):
+    """x @ W_e^T for expert e of a stacked (L, E, n, k) QTensor (kernel A
+    or B on the card for K-major weights)."""
+    data = qt.data if li is None else {k: v[li] for k, v in qt.data.items()}
+    sub = QTensor(qt.qtype, tuple(qt.shape[-2:]), {k: v[e] for k, v in data.items()})
+    return qmm(x, sub, dtype)
+
+
 _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
-                         "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down"})
+                         "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down"}) | MOE_KEYS
 
 
 def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
@@ -180,7 +296,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     [cache_pos, cache_pos + T) (the batch engine's left-padded layout);
     valid_from (B,) is each row's first valid slot. kv_view_len bounds the
     cache slots attention reads (the engine buckets it by depth)."""
-    check_dense(cfg)
+    groups = params["layers"].get("__groups__") or [params["layers"]]
+    moe = [MOE_KEYS & set(gl) for gl in groups]
+    if any(m and m != MOE_KEYS for m in moe):
+        raise NotImplementedError(f"MoE layers need all of {sorted(MOE_KEYS)}")
+    check_dense(cfg, moe=any(moe))
     B, T = tokens.shape
     if B != cache.k.shape[1]:
         raise NotImplementedError("per-slot cache rows (server layout) are not ported")
@@ -215,12 +335,12 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             return y[..., :nq], y[..., ok: ok + nk], y[..., ov: ov + nv]
         return tuple(qmm(h, qw[k], dtype, li) for k in ("wq", "wk", "wv"))
 
-    groups = params["layers"].get("__groups__") or [params["layers"]]
     off = 0
     for gl in groups:
         extra = set(gl) - _LAYER_KEYS
         if extra:
-            raise NotImplementedError(f"layer tensors {sorted(extra)}: not on the dense llama path")
+            raise NotImplementedError(
+                f"layer tensors {sorted(extra)}: not on the dense llama or MoE path")
         qw = {k: v for k, v in gl.items() if isinstance(v, QTensor)}
         anrm, fnrm = gl["attn_norm"], gl["ffn_norm"]
         L_g = anrm.shape[0]
@@ -244,7 +364,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                     x = ffn_block(att, x, fnrm[li], qw, li, cfg).to(dtype)
                     continue
                 x = x + qmm(att, qw["wo"], dtype, li)
-                x = x + ffn(rms_norm(x, fnrm[li], cfg.rms_eps), qw, li, cfg, dtype)
+                h2 = rms_norm(x, fnrm[li], cfg.rms_eps)
+                if cfg.n_expert > 0 and "moe_gate_inp" in qw:  # llama.py:1273-1276
+                    x = x + moe_ffn(h2, qw, li, cfg, dtype)
+                else:
+                    x = x + ffn(h2, qw, li, cfg, dtype)
         off += L_g
     x = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     logits = qmm(x, params["output"], dtype).to(torch.float32)

@@ -8,6 +8,11 @@ from __future__ import annotations
 ARCH_REGISTRY: dict[str, dict] = {
     # rope_type: "norm" = interleaved pairs (ggml GGML_ROPE_TYPE_NORM)
     "llama": dict(rope_type="norm"),
+    # mixtral (llama MoE branch, src/models/llama.cpp:208): top-k
+    # router weights are RENORMALIZED (build_moe_ffn norm_w=true). The
+    # "llama" row has no such default, as in the JAX registry, so a llama
+    # GGUF with experts is computed without renormalization there and here.
+    "mixtral": dict(rope_type="norm", expert_weights_norm=True),
 }
 
 

@@ -33,7 +33,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each hand-written kernel, by wrapper
-COUNTS = {"qmm_splitk": 0, "qmm": 0, "flash_attention": 0, "layer_kernel": 0}
+COUNTS = {"qmm_splitk": 0, "qmm": 0, "flash_attention": 0, "layer_kernel": 0,
+          "moe_gmm": 0}
 
 def reset_counts() -> None:
     for k in COUNTS:
@@ -152,6 +153,9 @@ _SIGNATURES = {
     # w_ptrs(4 pools), w_ints, w_floats, att, res, ffn_norm, anrm_next,
     # out, qkv_out, scratch, M, D, Hd, n_ff, act, fold, eps, stream
     "tpq_layer_kernel": [_P] * 3 + [_P] * 7 + [_I] * 6 + [_F, _P],
+    # x, Mp, K, w_ptrs, w_ints, w_floats, expert strides, tile_expert, live,
+    # layer, E, out, Nout, stream
+    "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
 }
 
 
@@ -221,6 +225,15 @@ def km_descriptor(data: dict, qtype, K: int):
             _BIAS[spec.bias], 1 if spec.lut else 0]
     floats = [float(spec.off)] + list(spec.lut or (0.0,) * 16)
     return ptrs, ints, floats
+
+
+def expert_strides(data: dict):
+    """Per-expert element strides of the K-major arrays of a (L?, E, rows,
+    Npad) expert weight, in _KEYS order (0 for an absent array), as the
+    ctypes array kernel F takes."""
+    st = [0 if data.get(k) is None else data[k].shape[-2] * data[k].shape[-1]
+          for k in _KEYS]
+    return (ctypes.c_longlong * len(st))(*st)
 
 
 def c_km(descs: list) -> tuple:

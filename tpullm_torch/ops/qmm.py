@@ -166,12 +166,12 @@ def qmm_kmajor(x, data: dict, qtype: GGMLType, n_logical: int,
 
 def qmm(x, qt, out_dtype=torch.bfloat16, layer=None):
     """x (..., n_in) @ W^T for a QTensor W (n_out, n_in): the fused kernels
-    for K-major weights (plain version on the CPU); float weights take the
-    plain product, as the JAX package's dense fallback does."""
+    for K-major weights (plain version on the CPU); planar and float
+    weights are dequantized whole and take the plain product, as the JAX
+    package leaves them to XLA (qmm.py:461-469)."""
     if qt.layout == "kmajor":
         return qmm_kmajor(x, qt.data, qt.qtype, qt.n_out, out_dtype, layer)
-    if qt.layout != "dense":
-        raise NotImplementedError("planar QTensor layout is not ported")
-    w = qt.data["w"] if layer is None else qt.data["w"][layer]
-    y = torch.matmul(x.to(torch.float32), w.to(out_dtype).to(torch.float32).t())
+    data = qt.data if layer is None else {k: v[layer] for k, v in qt.data.items()}
+    w = type(qt)(qt.qtype, qt.shape[-2:], data).dequant(out_dtype)
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32).t())
     return y.to(out_dtype)

@@ -3,11 +3,17 @@
 Counterpart of tpullm/ops/qtensor.py. Logical shape (..., n_out, n_in)
 row-major. Layouts:
 - "kmajor": the fused-kernel layout of tpullm_torch.quant.kmajor, read
-  in place by the hand-written dequant-matmul kernels (ops/qmm.py) and
-  dequantized by ``dequant_kmajor_torch`` on the plain path;
+  in place by the hand-written dequant-matmul kernels (ops/qmm.py,
+  ops/moe_gmm.py) and dequantized by ``dequant_kmajor_torch`` on the plain
+  path; 3-D (E, n_out, n_in) expert weights are packed per expert and
+  stacked on E;
+- "planar": quant/layout.py's arrays, for weights the K-major kernels do
+  not take (block types outside KM_SPECS, rows too short for a K tile);
+  dequantized whole by ops/dequant.py before a plain matmul, as the JAX
+  package leaves them to XLA;
 - "dense": float weights ({"w": tensor}).
-The planar layout (block types outside KM_SPECS) is not ported yet and
-raises.
+Codebook types (IQ1/IQ2/IQ3), which the JAX package dequantizes at load,
+raise.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 from ..gguf.constants import GGML_QUANT_SIZES, GGMLType
 from ..quant.kmajor import KMAJOR_TYPES, dequant_kmajor_torch, pack_kmajor
 from ..quant.layout import PLANAR_TYPES, decode_planar
+from .dequant import dequant_torch
 
 _FLOAT_TYPES = frozenset({GGMLType.F32, GGMLType.F16, GGMLType.BF16})
 
@@ -61,8 +68,8 @@ class QTensor:
         """Full dense materialization (the plain path)."""
         if self.layout == "dense":
             return self.data["w"].to(dtype)
-        if self.layout != "kmajor":
-            raise NotImplementedError("planar QTensor layout is not ported")
+        if self.layout == "planar":  # leading dims follow the leaves
+            return dequant_torch(self.data, self.qtype, dtype)
         q = self.data["q"]
         if q.dim() > 2:  # stacked leaves: dequant each
             lead = tuple(q.shape[:-2])
@@ -79,19 +86,28 @@ class QTensor:
         lookup). kmajor stores rows as columns: a column gather + dequant."""
         if self.layout == "dense":
             return self.data["w"][idx].to(dtype)
-        if self.layout != "kmajor":
-            raise NotImplementedError("planar QTensor layout is not ported")
+        if self.layout == "planar":
+            return dequant_torch({k: v[idx] for k, v in self.data.items()}, self.qtype, dtype)
         flat = idx.reshape(-1)
         sub = {k: v.index_select(1, flat) for k, v in self.data.items()}
         w = dequant_kmajor_torch(sub, self.qtype, dtype)  # (nidx, K)
         return w.reshape(*idx.shape, self.n_in)
 
 
-def qtensor_from_bytes(raw: np.ndarray, qtype: GGMLType, shape: tuple[int, ...]) -> QTensor:
-    """Raw GGUF payload bytes -> host (CPU) QTensor, K-major for the
-    block types the fused kernels read."""
+def _choose_layout(qtype: GGMLType, shape: tuple[int, ...]) -> str:
+    """The JAX package's rule (qtensor.py:117-127): K-major for 2-D weights
+    and 3-D (E, n_out, n_in) experts whose type and row length the kernels
+    take, planar otherwise."""
     from .qmm import qmm_supported
 
+    if len(shape) in (2, 3) and qtype in KMAJOR_TYPES and qmm_supported(qtype, shape[-1]):
+        return "kmajor"
+    return "planar"
+
+
+def qtensor_from_bytes(raw: np.ndarray, qtype: GGMLType, shape: tuple[int, ...]) -> QTensor:
+    """Raw GGUF payload bytes -> host (CPU) QTensor: K-major where the
+    fused kernels take the weight, planar otherwise."""
     qtype = GGMLType(qtype)
     if qtype == GGMLType.F32:
         w = raw.view(np.float32).reshape(shape)
@@ -103,12 +119,22 @@ def qtensor_from_bytes(raw: np.ndarray, qtype: GGMLType, shape: tuple[int, ...])
         u = raw.view(np.uint16).astype(np.uint32) << 16
         w = u.view(np.float32).reshape(shape)
         return QTensor(qtype, tuple(shape), {"w": torch.from_numpy(w.copy())})
-    if (qtype not in PLANAR_TYPES or qtype not in KMAJOR_TYPES or len(shape) != 2
-            or not qmm_supported(qtype, shape[-1])):
+    if qtype not in PLANAR_TYPES:
         raise NotImplementedError(
-            f"{qtype.name} {tuple(shape)}: only 2-D K-major weights are ported")
+            f"{qtype.name} {tuple(shape)}: codebook types (dequantized at load by "
+            "the JAX package) are not ported")
     blk, bs = GGML_QUANT_SIZES[qtype]
     row_bytes = shape[-1] // blk * bs
-    planar = decode_planar(raw.reshape(shape[0], row_bytes), qtype)
-    data = pack_kmajor(planar, qtype)
-    return QTensor(qtype, tuple(shape), {k: torch.from_numpy(v) for k, v in data.items()})
+    lead = tuple(shape[:-1]) if len(shape) > 1 else (1,)
+    planar = decode_planar(raw.reshape(*lead, row_bytes), qtype)
+    if _choose_layout(qtype, tuple(shape)) == "kmajor":
+        if len(lead) == 1:
+            data = pack_kmajor(planar, qtype)
+        else:  # (E, n_out, n_in) experts: pack each slice, stack on E
+            packed = [pack_kmajor({k: v[e] for k, v in planar.items()}, qtype)
+                      for e in range(lead[0])]
+            data = {k: np.stack([pe[k] for pe in packed]) for k in packed[0]}
+    else:
+        data = planar
+    return QTensor(qtype, tuple(shape),
+                   {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in data.items()})

@@ -1,10 +1,14 @@
-"""GGUF checkpoint -> params on the device (dense llama path).
+"""GGUF checkpoint -> params on the device (dense llama and MoE paths).
 
 Counterpart of tpullm/runtime/loader.py:291-450: reads each tensor from the
-mmap, repacks quantized weights into the K-major kernel layout, stacks
-per-layer tensors along a leading layer axis (split into groups where the
-per-layer quant types change), fuses QKV and gate/up, then places
-everything on ``device``.
+mmap, repacks quantized weights into the K-major kernel layout (planar
+where the kernels do not take them), stacks per-layer tensors along a
+leading layer axis (split into groups where the per-layer quant types
+change), fuses QKV and gate/up, then places everything on ``device``.
+Expert weights (E, n, k) are repacked per expert and stacked to
+(L, E, Npad, K); the expert gate/up stay unfused, as in the JAX package.
+Every other tensor (expert biases, shared experts, ffn_norm_exps, chunk
+experts, ...) raises.
 """
 from __future__ import annotations
 
@@ -31,6 +35,12 @@ LAYER_TENSORS = {
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    # routed experts (loader.py:91-94); the router is F32 in real GGUFs and
+    # takes the dense layout
+    "ffn_gate_inp.weight": "moe_gate_inp",
+    "ffn_gate_exps.weight": "moe_gate_exps",
+    "ffn_up_exps.weight": "moe_up_exps",
+    "ffn_down_exps.weight": "moe_down_exps",
 }
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm"}
 
@@ -91,7 +101,7 @@ def load_model(path: str, device="cuda"):
     unknown = sorted(set(g.tensors) - known)
     if unknown:
         raise NotImplementedError(
-            f"tensors outside the dense llama path: {unknown[:8]}")
+            f"tensors outside the dense llama and MoE paths: {unknown[:8]}")
 
     for tname, key in GLOBAL_TENSORS.items():
         if tname not in g.tensors:

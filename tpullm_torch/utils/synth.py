@@ -5,6 +5,10 @@
   from a numpy seed in the same order as the JAX package's, so both
   packages build identical weights from one seed; with ``centred=True`` the
   weights have mean ~0, like trained ones (the runs on the card);
+- ``synth_mixtral_q4k``: the same attention, norms and embeddings with a
+  routed-expert FFN in place of the dense one (Mixtral's layout: F32
+  router, unfused Q4_K gate/up/down experts stacked to (L, E, Npad, K)),
+  the experts drawn on the device so no host array holds them;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks.
 Every array has the dtype, shape and value range pack_kmajor +
@@ -12,11 +16,14 @@ fuse_layer_weights would produce.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..gguf.constants import GGMLType
 from ..models.config import ModelConfig
+from ..models.registry import apply_arch_defaults
 from ..ops._cuda import resolve_device
 from ..ops.fuse import pad256
 from ..ops.qtensor import QTensor
@@ -25,7 +32,7 @@ from ..quant.kmajor import KM_SPECS, dstore_for
 
 def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
                           n_head: int, n_head_kv: int, n_ff: int, seed: int = 0,
-                          centred: bool = False, device="cuda"):
+                          centred: bool = False, device="cuda", dense_ffn: bool = True):
     """-> (ModelConfig, params) with every tensor on ``device``. Each weight
     is drawn on the host, moved to the device and released before the next,
     so host memory holds one weight at a time.
@@ -35,7 +42,9 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     and the activations drift into one direction through depth.
     ``centred=True`` draws Q4_K the way random_kmajor does: sub-scales in
     [1, 8), sub-mins round(7.5 * s8) and dmin = d, so each group's grid is
-    centred on 0, with d putting the weights' std near 1/sqrt(4096)."""
+    centred on 0, with d putting the weights' std near 1/sqrt(4096).
+    ``dense_ffn=False`` leaves out the FFN weights (synth_mixtral_q4k's
+    experts take their place); the other draws do not move."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     head_dim = n_embd // n_head
@@ -78,15 +87,60 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
             "ffn_norm": ones(n_layer, n_embd),
             "wqkv": qt([nq, nkv, nkv], n_embd, L),
             "wo": qt([n_embd], nq, L),
-            "ffn_gateup": qt([n_ff, n_ff], n_embd, L),
-            "ffn_down": qt([n_embd], n_ff, L),
         },
     }
+    if dense_ffn:
+        params["layers"]["ffn_gateup"] = qt([n_ff, n_ff], n_embd, L)
+        params["layers"]["ffn_down"] = qt([n_embd], n_ff, L)
     cfg = ModelConfig(
         arch="llama", vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
         n_head=n_head, n_head_kv=n_head_kv, head_dim=head_dim,
         head_dim_v=head_dim, n_ff=n_ff, rope_dim=head_dim,
     )
+    return cfg, params
+
+
+def synth_mixtral_q4k(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int,
+                      n_head_kv: int, n_ff: int, n_expert: int, n_expert_used: int,
+                      seed: int = 0, device="cuda"):
+    """-> (ModelConfig, params) of a Mixtral-shaped Q4_K model on ``device``.
+
+    Attention, norms and embeddings are synth_kmajor_q4k_fast's
+    (centred=True) from ``seed``. Each layer's experts are random_kmajor
+    Q4_K draws with lead (E,), from a torch.Generator seeded with ``seed``
+    on ``device``, written into preallocated (L, E, ...) arrays, so the
+    largest transient is one layer's draw. The router is F32 dense (E,
+    n_embd) per layer, normal with std 0.02 (logits of std ~1.3 for
+    unit-RMS inputs at n_embd 4096). cfg.arch is "mixtral", so the top-k
+    weights are renormalized; rope_base is Mixtral's rope_theta, 1e6."""
+    cfg, params = synth_kmajor_q4k_fast(
+        vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer, n_head=n_head,
+        n_head_kv=n_head_kv, n_ff=n_ff, seed=seed, centred=True, device=device,
+        dense_ffn=False)
+    device = params["output_norm"].device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    E = n_expert
+
+    def experts(parts, K):
+        first = random_kmajor(GGMLType.Q4_K, parts, K, (E,), gen, device)
+        data = {k: torch.empty((n_layer,) + tuple(v.shape), dtype=v.dtype, device=device)
+                for k, v in first.data.items()}
+        for li in range(n_layer):
+            qt = first if li == 0 else random_kmajor(GGMLType.Q4_K, parts, K, (E,), gen, device)
+            for k, v in qt.data.items():
+                data[k][li] = v
+            del qt
+        return QTensor(GGMLType.Q4_K, (n_layer, E, pad256(parts[0]), K), data)
+
+    layers = params["layers"]
+    layers["moe_gate_inp"] = QTensor(GGMLType.F32, (n_layer, E, n_embd), {
+        "w": torch.randn((n_layer, E, n_embd), generator=gen, device=device) * 0.02})
+    layers["moe_gate_exps"] = experts([n_ff], n_embd)
+    layers["moe_up_exps"] = experts([n_ff], n_embd)
+    layers["moe_down_exps"] = experts([n_embd], n_ff)
+    cfg = dataclasses.replace(cfg, arch="mixtral", n_expert=E, n_expert_used=n_expert_used,
+                              rope_base=1e6)
+    apply_arch_defaults(cfg)
     return cfg, params
 
 

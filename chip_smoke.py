@@ -5,18 +5,17 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``--kernels-only`` stops after phase 2 and prints no result line: for
-timing kernel variants side by side, not a run of the contract.)
-
 Phases (any failure exits non-zero; nothing is caught and turned into a
 pass):
 1. build the CUDA kernels from tpullm_torch/csrc (build seconds, registers
    and spills from ptxas);
 2. hold each kernel against its plain PyTorch version at Llama-3-8B Q4_K
-   shapes (and Q6_K for the matmuls), and kernel F at Mixtral-8x7B's
-   prefill shapes, and time kernel, plain version, one PyTorch library call
-   as a yardstick, and the roofline bound; check the matmul kernels (A, B
-   and F) for every K-major type at one shape;
+   shapes (and Q6_K for the matmuls), and kernels A, B and F at the
+   Mixtral-8x7B path's own shapes (an expert indexed out of its (L, E)
+   stack as the path does, the 32000-row lm_head, F on layer 1 of a
+   stack), and time kernel, plain version, one PyTorch library call as a
+   yardstick, and the roofline bound; check the matmul kernels (A, B and
+   F) for every K-major type at one shape;
 3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
    (tolerance: 4x the error of the same plain path in bf16);
@@ -27,7 +26,9 @@ pass):
    spread of ms/step over single steps, the CPU share of the main thread,
    of the process and of its busiest threads, a fixed host-only workload
    timed before and after, the CPUs' busy and steal shares, and the
-   device-busy time and launches per step under torch.profiler;
+   device-busy time and launches per step under torch.profiler; then one
+   profiled prefill: each kernel's device time, the device time outside
+   the kernels and the device's idle share;
 6. the 8B model is freed; full-width Mixtral-8x7B with 2 layers: one
    128-token prefill (ragged MoE through kernel F) + 1 greedy decode step
    (every expert through kernel A) against the plain path on a CPU copy in
@@ -36,7 +37,8 @@ pass):
 7. the MoE slice: the 32-layer Mixtral-8x7B model answers phase 4's 4
    requests through InferenceEngine.generate, three times for the rates'
    spread, with kernels A, B, C and F launched and D not;
-8. phase 5's decode-step profile on the MoE slice.
+8. phase 5's decode-step and prefill profiles on the MoE slice (the
+   prefill's device time outside the kernels is the routing's cost).
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
@@ -150,8 +152,43 @@ def nmse(torch, a, b) -> float:
 
 
 def weight_bytes(qt) -> int:
-    """Bytes of one layer of a (possibly layer-stacked) K-major weight."""
-    return sum((v[0] if v.dim() == 3 else v).nbytes for v in qt.data.values())
+    """Bytes of a K-major weight's arrays (all of its stacked slices)."""
+    return sum(v.nbytes for v in qt.data.values())
+
+
+def bound_of(nbytes: float, flops: float):
+    """(bound ms, what bounds it) on the H100's peaks."""
+    by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
+    return max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3, by
+
+
+def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=None):
+    """One row of kernel A or B: the kernel (through ``run``, the path's own
+    call, where given) against its plain version on x (..., K) and qt's
+    K-major arrays, timed beside the plain version and torch.matmul on the
+    pre-dequantized bf16 weight ``w_bf16``; the bound reads qt's bytes once."""
+    from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
+
+    run = run or (lambda: qmm_kmajor(x, qt.data, qt.qtype, qt.n_out, torch.bfloat16))
+    plain = lambda: qmm_plain(x, qt.data, qt.qtype, qt.n_out, torch.bfloat16)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = nmse(torch, got, want)
+    mae = float((got.float() - want.float()).abs().max())
+    K, N = x.shape[-1], qt.n_out
+    M = x.numel() // K
+    bound, by = bound_of(weight_bytes(qt) + M * K * 2 + M * N * 2, 2.0 * M * N * K)
+    ms = timer(run, 20 if M <= 32 else 10)
+    pms = timer(plain, 3, warmup=1)
+    lms = timer(lambda: torch.matmul(x, w_bf16.t()), 10)
+    log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) max_abs_err {mae:.4g} "
+        f"ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by})")
+    if not err < TOL_QMM_NMSE:
+        raise AssertionError(f"{label}: nmse {err} >= {TOL_QMM_NMSE}")
+    entries.append(dict(
+        name=label, route="cuda", source=SOURCES[kname][0], replaces=SOURCES[kname][1],
+        kernel=kname, path=path, max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms,
+        bound_ms=bound, bound_by=by))
 
 
 def phase_kernels(torch, timer, entries):
@@ -174,35 +211,11 @@ def phase_kernels(torch, timer, entries):
     for qtype, name in checks:
         parts, K = pools[name]
         qt = random_kmajor(qtype, parts, K, (), g, "cuda")
-        wb = weight_bytes(qt)
         w_bf16 = dequant_kmajor_torch(qt.data, qtype, torch.bfloat16)  # library yardstick
         for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
             x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            run = lambda: qmm_kmajor(x, qt.data, qtype, qt.n_out, torch.bfloat16)
-            plain = lambda: qmm_plain(x, qt.data, qtype, qt.n_out, torch.bfloat16)
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = nmse(torch, got, want)
-            mae = float((got.float() - want.float()).abs().max())
-            ok = err < TOL_QMM_NMSE
-            N = qt.n_out
-            flops = 2.0 * M * N * K
-            nbytes = wb + M * K * 2 + M * N * 2
-            bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
-            ms = timer(run, 20 if M <= 32 else 10)
-            pms = timer(plain, 3, warmup=1)
-            lms = timer(lambda: torch.matmul(x, w_bf16.t()), 10)
-            label = f"{kname}[{name},{qtype.name},M={M}]"
-            log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) max_abs_err {mae:.4g} "
-                f"ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} "
-                f"({'bytes' if nbytes / HBM_BPS >= flops / BF16_FLOPS else 'operations'})")
-            if not ok:
-                raise AssertionError(f"{label}: nmse {err} >= {TOL_QMM_NMSE}")
-            entries.append(dict(
-                name=label, route="cuda", source=SOURCES[kname][0], replaces=SOURCES[kname][1],
-                kernel=kname, max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms,
-                bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"))
+            qmm_row(torch, timer, entries, kname, f"{kname}[{name},{qtype.name},M={M}]",
+                    x, qt, w_bf16)
             del x
         del qt, w_bf16
         torch.cuda.empty_cache()
@@ -229,8 +242,7 @@ def phase_kernels(torch, timer, entries):
     pairs = int(mask.sum()) * H
     flops = 4.0 * HD * pairs
     kv_rows = sum(T - f for f in vf.tolist()) * HKV
-    nbytes = 2 * (2 * B * T * H * HD + 2 * kv_rows * HD)
-    bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+    bound, by = bound_of(2 * (2 * B * T * H * HD + 2 * kv_rows * HD), flops)
     ms = timer(run, 20)
     pms = timer(plain, 3, warmup=1)
     qt_ = q.transpose(1, 2)
@@ -246,8 +258,7 @@ def phase_kernels(torch, timer, entries):
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["flash_attention"][0],
         replaces=SOURCES["flash_attention"][1], kernel="flash_attention", max_abs_err=mae,
-        ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-        bound_by="bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"))
+        ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by))
     del q, k, v, got, want, mask, am
     torch.cuda.empty_cache()
 
@@ -294,11 +305,11 @@ def phase_kernels(torch, timer, entries):
         errs = [nmse(torch, a, b) for a, b in zip(got, want)]
         mae = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
         used = ["wo", "ffn_gateup", "ffn_down"] + (["wqkv"] if fold else [])
-        wb = sum(weight_bytes(qw[k]) for k in used)
+        wb = sum(weight_bytes(qw[k]) for k in used) // L  # one layer's
         ncols = sum(qw[k].data["q"].shape[-1] * qw[k].shape[-1] for k in used)
         flops = 2.0 * M * ncols
         nbytes = wb + M * (H * HD + 2 * D) * 2 + (M * qw["wqkv"].n_out * 2 if fold else 0)
-        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        bound, by = bound_of(nbytes, flops)
         ms = timer(run, 20)
         pms = timer(plain, 3, warmup=1)
         label = f"layer_kernel[{'folded' if fold else 'plain'},Q4_K,M={M}]"
@@ -310,72 +321,88 @@ def phase_kernels(torch, timer, entries):
         entries.append(dict(
             name=label, route="cuda", source=SOURCES["layer_kernel"][0],
             replaces=SOURCES["layer_kernel"][1], kernel="layer_kernel", max_abs_err=mae,
-            ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound,
-            bound_by="bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"))
+            ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, bound_by=by))
     del qw
     torch.cuda.empty_cache()
     _cuda.reset_counts()
 
 
-def _expert_offsets(torch, top_i, E):
-    """Row ends of each expert's padded range in sort_by_expert's layout."""
-    from tpullm_torch.ops.moe_gmm import TM
-
-    counts = (top_i.reshape(-1)[:, None] == torch.arange(E, device=top_i.device)).sum(0)
-    return torch.cumsum((counts + TM - 1) // TM * TM, 0).to(torch.int32)
-
-
 def phase_moe_kernels(torch, timer, entries):
-    """Phase 2, kernel F: Mixtral-8x7B's prefill shapes (4 prompts bucketed
-    to 512 = 2048 tokens, top-2 of 8 experts: 4096 assignments, 5120 rows
-    with the static padding), then every K-major type at one shape."""
+    """Phase 2 at the Mixtral-8x7B path's own shapes: kernel A on an
+    expert's gate (or up) and down at decode (M = 4, the expert indexed out
+    of an (L, E) stack by the path's _expert_mm) and on the 32000-row
+    lm_head, kernel B on that lm_head at prefill (M = 2048), and kernel F at
+    the prefill's shapes (4 prompts bucketed to 512 = 2048 tokens, top-2 of
+    8 experts: 4096 assignments, 5120 rows with the static padding) on
+    layer 1 of a 2-layer (L, E) stack; then every K-major type through F at
+    one shape. Rows taken from a stack use layer 1 and the last expert, so
+    the layer and expert strides both count."""
     from tpullm_torch.gguf.constants import GGMLType
-    from tpullm_torch.ops.moe_gmm import (grouped_qmm, grouped_qmm_plain, live_tiles,
+    from tpullm_torch.models.llama import _expert_mm, expert_weight
+    from tpullm_torch.ops.moe_gmm import (TM, grouped_qmm, grouped_qmm_plain, live_tiles,
                                           sort_by_expert)
     from tpullm_torch.quant.kmajor import KM_SPECS, dequant_kmajor_torch
     from tpullm_torch.utils.synth import random_kmajor
 
     g = torch.Generator(device="cuda").manual_seed(4321)
-    E, used = M_EXPERT, M_USED
+    E, used, q4k = M_EXPERT, M_USED, GGMLType.Q4_K
+
+    def dequant(qt):
+        return dequant_kmajor_torch(qt.data, qt.qtype, torch.bfloat16)
+
+    for name, parts, K in (("expert gate/up", [N_FF], D), ("expert down", [D], N_FF)):
+        stack = random_kmajor(q4k, parts, K, (2, E), g, "cuda")
+        qt = expert_weight(stack, 1, E - 1)
+        x = torch.randn((4, 1, K), generator=g, device="cuda").to(torch.bfloat16)
+        qmm_row(torch, timer, entries, "qmm_splitk",
+                f"qmm_splitk[{name},Q4_K,M=4,expert {E - 1} of layer 1]", x, qt, dequant(qt),
+                path="mixtral", run=lambda: _expert_mm(x, stack, 1, E - 1, torch.bfloat16))
+        del stack, qt, x
+    lm = random_kmajor(q4k, [M_VOCAB], D, (), g, "cuda")
+    w_bf16 = dequant(lm)
+    for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
+        x = torch.randn((M, D), generator=g, device="cuda").to(torch.bfloat16)
+        qmm_row(torch, timer, entries, kname, f"{kname}[lm_head {M_VOCAB},Q4_K,M={M}]", x,
+                lm, w_bf16, path="mixtral")
+    del lm, w_bf16, x
+    torch.cuda.empty_cache()
 
     def ragged(M, K, routing="random"):
-        if routing == "random":
-            top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
-        else:  # skewed: 3/4 of the tokens to expert 5 and their second pick to 0
-            top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
+        top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
+        if routing == "skewed":  # 3/4 of the tokens to expert 5 and their second pick to 0
             top_i[: 3 * M // 4] = torch.tensor([5, 0], device="cuda")
         order, dest, te, Mp = sort_by_expert(top_i, E, M)
         x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
         xs = torch.zeros((Mp, K), dtype=torch.bfloat16, device="cuda")
         xs[dest] = x[order // used]
-        return xs, te, live_tiles(dest), _expert_offsets(torch, top_i, E)
+        return xs, te, live_tiles(dest)
 
     M = 2048
     A = M * used
     for name, parts, K in (("gate/up", [N_FF], D), ("down", [D], N_FF)):
-        qt = random_kmajor(GGMLType.Q4_K, parts, K, (E,), g, "cuda")
+        qt = random_kmajor(q4k, parts, K, (2, E), g, "cuda")
         N = qt.n_out
-        xs, te, live, offs = ragged(M, K)
-        run = lambda: grouped_qmm(xs, te, qt, N, None, live)
-        plain = lambda: grouped_qmm_plain(xs, te, qt, N)
+        xs, te, live = ragged(M, K)
+        run = lambda: grouped_qmm(xs, te, qt, N, 1, live)
+        plain = lambda: grouped_qmm_plain(xs, te, qt, N, 1)
         got, want = run(), plain()
         again = run()
         torch.cuda.synchronize()
         err = nmse(torch, got, want)
         mae = float((got.float() - want.float()).abs().max())
         same = bool(torch.equal(got, again))
-        flops = 2.0 * A * N * K  # the rows this routing needs, not the padding
-        nbytes = weight_bytes(qt) * E + A * K * 2 + A * N * 2
-        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        # layer 1's 8 experts read once; the rows this routing needs, not the padding
+        bound, by = bound_of(weight_bytes(qt) // 2 + A * K * 2 + A * N * 2, 2.0 * A * N * K)
         ms = timer(run, 10)
         pms = timer(plain, 3, warmup=1)
-        # library yardstick on the pre-dequantized bf16 experts
-        wd = torch.stack([dequant_kmajor_torch({k: v[e] for k, v in qt.data.items()},
-                                               GGMLType.Q4_K, torch.bfloat16)
-                          for e in range(E)])
-        rows = int(offs[-1])
+        # library yardstick on layer 1's experts pre-dequantized to bf16, over
+        # the live rows: each expert's padded range, read off tile_expert
+        wd = torch.stack([dequant(expert_weight(qt, 1, e)) for e in range(E)])
+        n_live = int(live[0])
+        offs = torch.cumsum(torch.bincount(te[:n_live].long(), minlength=E) * TM, 0)
+        offs = offs.to(torch.int32)
         try:
-            lib_fn = lambda: torch._grouped_mm(xs[:rows], wd.transpose(1, 2), offs=offs)
+            lib_fn = lambda: torch._grouped_mm(xs[: n_live * TM], wd.transpose(1, 2), offs=offs)
             lib_fn()
             library = "torch._grouped_mm"
         except (AttributeError, RuntimeError) as exc:
@@ -384,8 +411,7 @@ def phase_moe_kernels(torch, timer, entries):
                               for e, (a, b) in enumerate(zip(ends[:-1], ends[1:]))]
             library = f"torch.matmul per expert ({type(exc).__name__} from _grouped_mm)"
         lms = timer(lib_fn, 10)
-        label = f"moe_gmm[{name},Q4_K,E={E},Mp={xs.shape[0]},live={int(live[0]) * 128}]"
-        by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
+        label = f"moe_gmm[{name} of layer 1,Q4_K,E={E},Mp={xs.shape[0]},live={n_live * TM}]"
         log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
             f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
             f"({library}) bound_ms {bound:.4f} ({by}; {A} assignment rows)")
@@ -399,18 +425,19 @@ def phase_moe_kernels(torch, timer, entries):
         del qt, wd, xs, got, want, again
         torch.cuda.empty_cache()
 
-    # every K-major type through F at 4096 x 4096, random and skewed routing
+    # every K-major type through F at 4096 x 4096: random routing on (E,)
+    # experts, skewed routing on layer 1 of (2, E)
     for qtype in KM_SPECS:
-        qt = random_kmajor(qtype, [D], D, (E,), g, "cuda")
         errs = []
-        for routing in ("random", "skewed"):
-            xs, te, live, _ = ragged(256, D, routing)
-            got = grouped_qmm(xs, te, qt, D, None, live)
-            want = grouped_qmm_plain(xs, te, qt, D)
+        for routing, lead, layer in (("random", (E,), None), ("skewed", (2, E), 1)):
+            qt = random_kmajor(qtype, [D], D, lead, g, "cuda")
+            xs, te, live = ragged(256, D, routing)
+            got = grouped_qmm(xs, te, qt, D, layer, live)
+            want = grouped_qmm_plain(xs, te, qt, D, layer)
             torch.cuda.synchronize()
             errs.append(nmse(torch, got, want))
-        log(f"type {qtype.name}: moe_gmm nmse random {errs[0]:.3e}, skewed {errs[1]:.3e} "
-            f"(tol {TOL_QMM_NMSE:g}) at E={E} {D}x{D}")
+        log(f"type {qtype.name}: moe_gmm nmse random {errs[0]:.3e}, skewed on layer 1 "
+            f"{errs[1]:.3e} (tol {TOL_QMM_NMSE:g}) at E={E} {D}x{D}")
         if max(errs) >= TOL_QMM_NMSE:
             raise AssertionError(f"{qtype.name} moe_gmm: nmse {errs}")
         del qt
@@ -487,6 +514,8 @@ def phase_moe_parity(torch):
     a 128-token prefill (ragged MoE, kernel F) and 1 decode step (every
     expert, kernel A). Counts the (token, layer) top-2 sets that differ
     between the card and the CPU f32 path."""
+    from unittest import mock
+
     import numpy as np
 
     import tpullm_torch.models.llama as llama
@@ -514,50 +543,40 @@ def phase_moe_parity(torch):
         sides[name] = dict(p=p, dev=dev, cache=KVCache.create(cfg, B, S, dtype, dev),
                            dtype=dtype, vf=torch.from_numpy(vf).to(dev))
     top_k = llama.top_k
-    routes = []
-
-    def recording_top_k(probs, k):
-        idx = top_k(probs, k)
-        routes.append(idx.to("cpu"))
-        return idx
-
     errs, ref_errs, agree, flips = [], [], [], []
     cur_tok = torch.from_numpy(tok)
     cur_pos = torch.from_numpy(posn)
     slot, T_step = 0, T
-    llama.top_k = recording_top_k
-    try:
-        with torch.inference_mode():
-            for step in range(2):
-                out, picked = {}, {}
-                for name, s in sides.items():
-                    dev = s["dev"]
-                    routes.clear()
-                    t0 = time.perf_counter()
-                    lg, _ = forward(s["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), s["cache"],
-                                    slot, s["vf"], s["dtype"],
-                                    kv_view_len=None if step == 0 else S)
-                    out[name] = lg[:, -1].float().cpu()
-                    if dev == "cuda":
-                        torch.cuda.synchronize()
-                    s.setdefault("sec", []).append(time.perf_counter() - t0)
-                    picked[name] = [r.sort(-1).values for r in routes]
-                # real tokens only: left padding routes too, but is masked
-                real = torch.zeros(cur_tok.shape, dtype=torch.bool)
-                for b, n in enumerate(lens):
-                    real[b, cur_tok.shape[1] - (n if step == 0 else 1):] = True
-                flips.append(sum(int(((a != c).any(-1) & real).sum())
-                                 for a, c in zip(picked["card"], picked["cpu"])))
-                errs.append(nmse(torch, out["card"], out["cpu"]))
-                ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
-                agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
-                nxt = out["card"].argmax(-1)
-                slot += T_step
-                T_step = 1
-                cur_tok = nxt[:, None].to(torch.int64)
-                cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
-    finally:
-        llama.top_k = top_k
+    # each layer's routing: the router probabilities the path hands top_k
+    with mock.patch.object(llama, "top_k", wraps=top_k) as spy, torch.inference_mode():
+        for step in range(2):
+            out, picked = {}, {}
+            for name, s in sides.items():
+                dev = s["dev"]
+                spy.reset_mock()
+                t0 = time.perf_counter()
+                lg, _ = forward(s["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), s["cache"],
+                                slot, s["vf"], s["dtype"], kv_view_len=None if step == 0 else S)
+                out[name] = lg[:, -1].float().cpu()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                s.setdefault("sec", []).append(time.perf_counter() - t0)
+                picked[name] = [top_k(*c.args).cpu().sort(-1).values
+                                for c in spy.call_args_list]
+            # real tokens only: left padding routes too, but is masked
+            real = torch.zeros(cur_tok.shape, dtype=torch.bool)
+            for b, n in enumerate(lens):
+                real[b, cur_tok.shape[1] - (n if step == 0 else 1):] = True
+            flips.append(sum(int(((a != c).any(-1) & real).sum())
+                             for a, c in zip(picked["card"], picked["cpu"])))
+            errs.append(nmse(torch, out["card"], out["cpu"]))
+            ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
+            agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
+            nxt = out["card"].argmax(-1)
+            slot += T_step
+            T_step = 1
+            cur_tok = nxt[:, None].to(torch.int64)
+            cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
     tol = TOL_E2E_FACTOR * max(ref_errs)
     n_routes = [sum(lens) * 2, B * 2]
     log(f"parity 2-layer Mixtral-8x7B (prefill T={T} + 1 decode step): card vs CPU f32 "
@@ -678,6 +697,62 @@ def quartiles(xs):
     return q[n // 4], q[n // 2], q[(3 * n) // 4]
 
 
+def device_kernels(prof):
+    """[(kernel name, device ms, launches)] of a torch.profiler run, most
+    time first; device events only (a host op's device time repeats its
+    kernels')."""
+    ev = prof.key_averages()
+    self_dev = ("self_device_time_total" if hasattr(ev[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    rows = [(short_kernel(e.key), getattr(e, self_dev) / 1e3, e.count) for e in ev
+            if e.device_type.name == "CUDA" and getattr(e, self_dev) > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+# the port's kernels by their CUDA names (kernel A's split-K sum included)
+KERNEL_OF = {"qmm_splitk_kernel": "qmm_splitk", "qmm_reduce": "qmm_splitk", "qmm_kernel": "qmm",
+             "flash_kernel": "flash_attention", "layer_kernel": "layer_kernel",
+             "moe_gmm_kernel": "moe_gmm"}
+
+
+def phase_prefill_profile(torch, eng, prompts, must, label):
+    """Where a prefill's time goes, on the slice's model and batch: the
+    engine's prefill timed alone (synchronized), then once more under
+    torch.profiler. Reports each kernel's device ms and launches, the
+    device ms of everything else (routing, sorting, gathers, norms, RoPE,
+    elementwise: the torch ops between the kernels) with its largest
+    items, and the share of the wall time the device sat idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens, positions, vf, T, lens = eng.prepare_batch(prompts)
+    cache = eng.new_cache(len(prompts))
+    with torch.inference_mode():
+        eng._prefill(tokens, positions, cache, vf)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng._prefill(tokens, positions, cache, vf)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng._prefill(tokens, positions, cache, vf)
+            torch.cuda.synchronize()
+    by, other = {}, []
+    for name, ms, n in device_kernels(prof):
+        k = KERNEL_OF.get(name.split("<")[0], "other")
+        tot, cnt = by.get(k, (0.0, 0))
+        by[k] = (tot + ms, cnt + n)
+        if k == "other":
+            other.append((name[:60], ms, n))
+    busy = sum(ms for ms, _ in by.values())
+    out = {"tokens": int(sum(lens)), "rows": int(tokens.numel()), "wall_ms": wall,
+           "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+           "device_ms_launches": by, "top_other": other[:8]}
+    log(f"prefill profile{label}: {json.dumps(out)}")
+    missing = [k for k in must if k not in by]
+    if missing or not busy > 0:
+        raise AssertionError(f"prefill profile{label}: no device time for {missing}: {out}")
+
+
 def phase_decode(torch, eng, prompts, label=""):
     """Phase 5: where a decode step's time goes, on the slice's model and
     batch. Each step is the engine's decode step (forward over one token per
@@ -729,14 +804,9 @@ def phase_decode(torch, eng, prompts, label=""):
             for _ in range(PROFILED_STEPS):
                 step()
             torch.cuda.synchronize()
-    ev = prof.key_averages()
-    self_dev = ("self_device_time_total" if hasattr(ev[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    # device events only: a host op's device time repeats its kernels'
-    kernels = [e for e in ev if e.device_type.name == "CUDA" and getattr(e, self_dev) > 0]
-    busy = sum(getattr(e, self_dev) for e in kernels) / 1e3 / PROFILED_STEPS
-    launches = sum(e.count for e in kernels) / PROFILED_STEPS
-    top = sorted(kernels, key=lambda e: -getattr(e, self_dev))[:6]
+    kernels = device_kernels(prof)
+    busy = sum(ms for _, ms, _ in kernels) / PROFILED_STEPS
+    launches = sum(n for _, _, n in kernels) / PROFILED_STEPS
     w1, wm, w3 = quartiles(wall)
     hz = os.sysconf("SC_CLK_TCK")
     busiest = sorted(((n, (k - ticks0.get(tid, (n, 0))[1]) / hz / (t1 - t0))
@@ -749,8 +819,7 @@ def phase_decode(torch, eng, prompts, label=""):
         "host_yardstick_ms_before_after": [yard0, yard1],
         "profiled_steps": PROFILED_STEPS, "device_busy_ms_per_step": busy,
         "device_busy_share": busy / wm, "kernel_launches_per_step": launches,
-        "top_device_ms_per_step": [
-            (short_kernel(e.key)[:60], getattr(e, self_dev) / 1e3 / PROFILED_STEPS) for e in top],
+        "top_device_ms_per_step": [(k[:60], ms / PROFILED_STEPS) for k, ms, _ in kernels[:6]],
         "cpus": len(os.sched_getaffinity(0)), "torch_threads": torch.get_num_threads(),
     }
     if jif0 and jif1:
@@ -797,8 +866,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     _cuda.reset_counts()
     log(f"phase kernels: {time.perf_counter() - t:.1f} s")
-    if "--kernels-only" in sys.argv[1:]:
-        return 0
     t = time.perf_counter()
     phase_parity(torch)
     log(f"phase parity: {time.perf_counter() - t:.1f} s")
@@ -815,6 +882,7 @@ def main() -> int:
     log(f"phase slice 8B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_decode(torch, eng, prompts)
+    phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention"), " 8B")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -836,6 +904,8 @@ def main() -> int:
     log(f"phase slice Mixtral: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_decode(torch, eng, prompts, " Mixtral-8x7B")
+    phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "moe_gmm"),
+                          " Mixtral-8x7B")
     del eng
     log(f"phase decode steps Mixtral: {time.perf_counter() - t:.1f} s")
 

@@ -1,65 +1,54 @@
 """The port's planar layout held against the JAX package: ops/dequant.py
-bit-exact with tpullm/ops/dequant.py for every planar block type, and
-planar weights (too short for a K tile, or of a type without a K-major
-layout) loading, dequantizing, gathering rows and multiplying as the JAX
-package's do."""
+bit-exact with tpullm/ops/dequant.py for Q8_0, the one planar type the port
+covers, and Q8_0 weights too short for a K tile loading, dequantizing,
+gathering rows and multiplying as the JAX package's do. Every other weight
+that would be planar raises at load."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tpullm.gguf.constants import GGMLType
+from tpullm.gguf.constants import GGML_QUANT_SIZES, GGMLType
 from tpullm.ops.dequant import dequant_jax
 from tpullm.ops.qmm import qmm as jqmm
 from tpullm.ops.qtensor import qtensor_from_bytes as jfrom_bytes
-from tpullm.quant.layout import PLANAR_TYPES
-from tpullm.quant.numpy_impl import quant_supported
-from tpullm.utils.synth import random_payload
+from tpullm.quant import quantize
 from tpullm_torch.ops.dequant import dequant_torch
 from tpullm_torch.ops.qmm import qmm
 from tpullm_torch.ops.qtensor import qtensor_from_bytes
 
 torch.set_num_threads(2)
 
-TYPES = sorted(PLANAR_TYPES, key=lambda t: t.name)
 
-
-def _raw(qtype, shape, seed=0):
+def _raw(shape, seed=0):
     rng = np.random.default_rng(seed)
     rows = int(np.prod(shape[:-1]))
-    if qtype in quant_supported():
-        from tpullm.quant import quantize
-
-        w = (rng.standard_normal((rows, shape[-1])) * 0.02).astype(np.float32)
-        return quantize(w, qtype).reshape(-1)
-    return random_payload(qtype, rows, shape[-1], rng).reshape(-1)
+    w = (rng.standard_normal((rows, shape[-1])) * 0.02).astype(np.float32)
+    return quantize(w, GGMLType.Q8_0).reshape(-1)
 
 
-@pytest.mark.parametrize("qtype", TYPES, ids=lambda t: t.name)
-def test_dequant_planar_bit_exact(qtype):
-    """(3, 5, 256) weights from the JAX package's planar arrays: f32
-    dequant equal bit for bit, leading dims kept."""
-    shape = (3, 5, 256)
-    raw = _raw(qtype, shape)
-    jq = jfrom_bytes(raw, qtype, shape, device_put=False, layout="planar")
+@pytest.mark.parametrize("shape", [(3, 5, 256), (40, 64), (4, 96, 64), (7, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dequant_planar_bit_exact(shape):
+    """Q8_0 weights from the JAX package's planar arrays: f32 dequant equal
+    bit for bit, leading dims kept."""
+    jq = jfrom_bytes(_raw(shape), GGMLType.Q8_0, shape, device_put=False, layout="planar")
     planar = {k: torch.from_numpy(np.array(v)) for k, v in jq.data.items()}
-    want = np.asarray(dequant_jax(jq.data, qtype, jnp.float32))
-    got = dequant_torch(planar, qtype, torch.float32)
+    want = np.asarray(dequant_jax(jq.data, GGMLType.Q8_0, jnp.float32))
+    got = dequant_torch(planar, GGMLType.Q8_0, torch.float32)
     assert got.shape == want.shape == shape
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("qtype,K", [(GGMLType.Q8_0, 64), (GGMLType.Q4_K, 256),
-                                     (GGMLType.Q8_K, 256)], ids=["Q8_0", "Q4_K", "Q8_K"])
-def test_planar_qtensor_matches_jax(qtype, K):
-    """A weight the kernels do not take (rows shorter than the type's K
-    tile; Q8_K has no K-major layout) loads planar in both packages; the
-    port's qmm (dequant, then the f32-accumulated product) and row gather
-    give the JAX package's values."""
+@pytest.mark.parametrize("K", [32, 64, 96])
+def test_planar_qtensor_matches_jax(K):
+    """A Q8_0 weight with rows shorter than the type's K tile loads planar
+    in both packages; the port's qmm (dequant, then the f32-accumulated
+    product) and row gather give the JAX package's values."""
     shape = (40, K)
-    raw = _raw(qtype, shape, seed=2)
-    jq = jfrom_bytes(raw, qtype, shape, device_put=False)
-    q = qtensor_from_bytes(raw, qtype, shape)
+    raw = _raw(shape, seed=2)
+    jq = jfrom_bytes(raw, GGMLType.Q8_0, shape, device_put=False)
+    q = qtensor_from_bytes(raw, GGMLType.Q8_0, shape)
     assert jq.layout == q.layout == "planar"
     for k, v in jq.data.items():
         np.testing.assert_array_equal(q.data[k].numpy(), np.asarray(v))
@@ -77,9 +66,29 @@ def test_planar_experts_stacked():
     """(E, n, k) experts too short for a K tile stay planar, per expert, as
     in the JAX package (the Mixtral snapshot's Q8_0 experts at n_embd 64)."""
     shape = (4, 96, 64)
-    raw = _raw(GGMLType.Q8_0, shape, seed=4)
+    raw = _raw(shape, seed=4)
     jq = jfrom_bytes(raw, GGMLType.Q8_0, shape, device_put=False)
     q = qtensor_from_bytes(raw, GGMLType.Q8_0, shape)
     assert q.layout == jq.layout == "planar" and q.shape == shape
     np.testing.assert_array_equal(q.dequant(torch.float32).numpy(),
                                   np.asarray(jq.dequant(jnp.float32)))
+
+
+# block types that the JAX package would hold planar at these rows: no
+# K-major layout (Q8_K, IQ4_XS, TQ2_0) or rows too short for a K tile
+PLANAR_ELSEWHERE = [(GGMLType.Q4_0, 64), (GGMLType.Q4_1, 64), (GGMLType.Q5_0, 64),
+                    (GGMLType.Q5_1, 64), (GGMLType.IQ4_NL, 64), (GGMLType.MXFP4, 64),
+                    (GGMLType.Q4_K, 256), (GGMLType.Q8_K, 256), (GGMLType.IQ4_XS, 256),
+                    (GGMLType.TQ2_0, 256)]
+
+
+@pytest.mark.parametrize("qtype,K", PLANAR_ELSEWHERE, ids=lambda v: getattr(v, "name", v))
+def test_other_planar_types_raise(qtype, K):
+    """The planar layout is ported for Q8_0 only: a weight of another type
+    that the JAX package would hold planar raises at load, naming its type."""
+    shape = (4, K)
+    blk, bs = GGML_QUANT_SIZES[qtype]
+    raw = np.zeros(4 * K // blk * bs, np.uint8)
+    assert jfrom_bytes(raw, qtype, shape, device_put=False).layout == "planar"
+    with pytest.raises(NotImplementedError, match=qtype.name):
+        qtensor_from_bytes(raw, qtype, shape)

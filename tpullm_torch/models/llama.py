@@ -276,12 +276,16 @@ def _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg: ModelConfig,
     return out.reshape(B, T, D).to(dtype)
 
 
+def expert_weight(qt: QTensor, li, e: int) -> QTensor:
+    """Expert e of layer li of a stacked (L, E, n, k) QTensor, as views."""
+    data = qt.data if li is None else {k: v[li] for k, v in qt.data.items()}
+    return QTensor(qt.qtype, tuple(qt.shape[-2:]), {k: v[e] for k, v in data.items()})
+
+
 def _expert_mm(x, qt: QTensor, li, e: int, dtype):
     """x @ W_e^T for expert e of a stacked (L, E, n, k) QTensor (kernel A
     or B on the card for K-major weights)."""
-    data = qt.data if li is None else {k: v[li] for k, v in qt.data.items()}
-    sub = QTensor(qt.qtype, tuple(qt.shape[-2:]), {k: v[e] for k, v in data.items()})
-    return qmm(x, sub, dtype)
+    return qmm(x, expert_weight(qt, li, e), dtype)
 
 
 _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",

@@ -4,190 +4,24 @@ Counterpart of tpullm/ops/dequant.py. The planar layout (quant/layout.py)
 holds weights that the K-major kernels do not take: block types outside
 KM_SPECS and rows too short for a K tile. Like the JAX package, which leaves
 them to XLA, the port dequantizes the whole tensor and multiplies
-(ops/qmm.py:qmm); no hand-written kernel reads this layout. Numerics are
-bit-exact with tpullm/ops/dequant.py:dequant_jax in float32.
+(ops/qmm.py:qmm); no hand-written kernel reads this layout. It is ported for
+Q8_0 only, the type of the small architecture fixtures
+(tpullm/utils/synth.py:build_arch_gguf); every other planar type raises at
+load (ops/qtensor.py). Numerics are bit-exact with
+tpullm/ops/dequant.py:dequant_jax in float32.
 """
 from __future__ import annotations
 
 import torch
 
 from ..gguf.constants import GGMLType
-from ..quant.numpy_impl import KVALUES_IQ4NL, KVALUES_MXFP4
 
-
-def _f32(d):
-    """f16-stored scale -> f32 for arithmetic."""
-    return d.to(torch.float32)
-
-
-def _nibbles(qs):
-    """uint8 (..., n) -> lo/hi int32 each (..., n)."""
-    q = qs.to(torch.int32)
-    return q & 0xF, q >> 4
-
-
-def _lut(values, like):
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
-
-
-def _dq_q4_0(p):
-    lo, hi = _nibbles(p["qs"])
-    q = torch.cat([lo, hi], dim=-1) - 8
-    return _f32(p["d"])[..., None] * q.to(torch.float32)
-
-
-def _dq_q4_1(p):
-    lo, hi = _nibbles(p["qs"])
-    q = torch.cat([lo, hi], dim=-1)
-    return _f32(p["d"])[..., None] * q.to(torch.float32) + _f32(p["m"])[..., None]
-
-
-def _qh_bits32(qh):
-    """(..., 4) uint8 -> (..., 32) bits in element order."""
-    q = qh.to(torch.int64)
-    q = q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | (q[..., 3] << 24)
-    shifts = torch.arange(32, device=qh.device)
-    return ((q[..., None] >> shifts) & 1).to(torch.int32)
-
-
-def _dq_q5_0(p):
-    lo, hi = _nibbles(p["qs"])
-    q = (torch.cat([lo, hi], dim=-1) | (_qh_bits32(p["qh"]) << 4)) - 16
-    return _f32(p["d"])[..., None] * q.to(torch.float32)
-
-
-def _dq_q5_1(p):
-    lo, hi = _nibbles(p["qs"])
-    q = torch.cat([lo, hi], dim=-1) | (_qh_bits32(p["qh"]) << 4)
-    return _f32(p["d"])[..., None] * q.to(torch.float32) + _f32(p["m"])[..., None]
-
-
-def _dq_q8_0(p):
-    return _f32(p["d"])[..., None] * p["qs"].to(torch.float32)
-
-
-def _dq_q8_K(p):
-    return p["d"][..., None] * p["qs"].to(torch.float32)
-
-
-def _2bit_grid(qs):
-    """(..., 64) uint8 -> (..., 256) 2-bit values in ggml element order."""
-    q = qs.reshape(*qs.shape[:-1], 2, 32).to(torch.int32)
-    parts = [(q >> s) & 3 for s in (0, 2, 4, 6)]
-    return torch.stack(parts, dim=-2).reshape(*qs.shape[:-1], 256)
-
-
-def _dq_q2_K(p):
-    bits = _2bit_grid(p["qs"]).to(torch.float32)
-    sc = p["sc"].to(torch.int32)
-    dl = _f32(p["d"])[..., None] * (sc & 0xF).to(torch.float32)
-    ml = _f32(p["dmin"])[..., None] * (sc >> 4).to(torch.float32)
-    return (torch.repeat_interleave(dl, 16, dim=-1) * bits
-            - torch.repeat_interleave(ml, 16, dim=-1))
-
-
-def _dq_q3_K(p):
-    bits = _2bit_grid(p["qs"])
-    e = torch.arange(256, device=bits.device)
-    hm = p["hmask"].to(torch.int32)[..., e % 32]
-    hbit = (hm >> (e // 32)) & 1
-    q = (bits - torch.where(hbit == 1, 0, 4)).to(torch.float32)
-    sc16 = torch.repeat_interleave(p["sc"].to(torch.float32), 16, dim=-1)
-    return _f32(p["d"])[..., None] * sc16 * q
-
-
-def _4bit_groups(qs):
-    """(..., 128) uint8 -> (..., 256) in ggml q4_K element order."""
-    g = qs.reshape(*qs.shape[:-1], 4, 32).to(torch.int32)
-    return torch.cat([g & 0xF, g >> 4], dim=-1).reshape(*qs.shape[:-1], 256)
-
-
-def _dq_q4_K(p):
-    q = _4bit_groups(p["qs"]).to(torch.float32)
-    d_sub = _f32(p["d"])[..., None] * p["sc"].to(torch.float32)
-    m_sub = _f32(p["dmin"])[..., None] * p["mn"].to(torch.float32)
-    return (torch.repeat_interleave(d_sub, 32, dim=-1) * q
-            - torch.repeat_interleave(m_sub, 32, dim=-1))
-
-
-def _dq_q5_K(p):
-    qs = p["qs"].reshape(*p["qs"].shape[:-1], 4, 32).to(torch.int32)
-    qh = p["qh"].to(torch.int32)[..., None, :]  # (..., 1, 32)
-    g = torch.arange(4, device=qs.device)[:, None]
-    lob = (qh >> (2 * g)) & 1
-    hib = (qh >> (2 * g + 1)) & 1
-    q = torch.cat([(qs & 0xF) + 16 * lob, (qs >> 4) + 16 * hib], dim=-1)
-    q = q.reshape(*p["qs"].shape[:-1], 256).to(torch.float32)
-    d_sub = _f32(p["d"])[..., None] * p["sc"].to(torch.float32)
-    m_sub = _f32(p["dmin"])[..., None] * p["mn"].to(torch.float32)
-    return (torch.repeat_interleave(d_sub, 32, dim=-1) * q
-            - torch.repeat_interleave(m_sub, 32, dim=-1))
-
-
-def _dq_q6_K(p):
-    ql = p["ql"].reshape(*p["ql"].shape[:-1], 2, 64).to(torch.int32)
-    qh = p["qh"].reshape(*p["qh"].shape[:-1], 2, 32).to(torch.int32)
-    l_lo, l2_lo = ql[..., :32] & 0xF, ql[..., 32:] & 0xF
-    l_hi, l2_hi = ql[..., :32] >> 4, ql[..., 32:] >> 4
-    q1 = (l_lo | ((qh & 3) << 4)) - 32
-    q2 = (l2_lo | (((qh >> 2) & 3) << 4)) - 32
-    q3 = (l_hi | (((qh >> 4) & 3) << 4)) - 32
-    q4 = (l2_hi | (((qh >> 6) & 3) << 4)) - 32
-    q = torch.cat([q1, q2, q3, q4], dim=-1).reshape(*p["ql"].shape[:-1], 256)
-    sc16 = torch.repeat_interleave(p["sc"].to(torch.float32), 16, dim=-1)
-    return _f32(p["d"])[..., None] * sc16 * q.to(torch.float32)
-
-
-def _dq_iq4_nl(p):
-    lut = _lut(KVALUES_IQ4NL, p["qs"])
-    lo, hi = _nibbles(p["qs"])
-    return _f32(p["d"])[..., None] * torch.cat([lut[lo], lut[hi]], dim=-1)
-
-
-def _dq_iq4_xs(p):
-    lut = _lut(KVALUES_IQ4NL, p["qs"])
-    qs = p["qs"].reshape(*p["qs"].shape[:-1], 8, 16).to(torch.int32)
-    q = torch.cat([lut[qs & 0xF], lut[qs >> 4]], dim=-1)  # (..., 8, 32)
-    dl = _f32(p["d"])[..., None] * p["sc"].to(torch.float32)  # (..., 8)
-    return (dl[..., None] * q).reshape(*p["qs"].shape[:-1], 256)
-
-
-def _dq_mxfp4(p):
-    lut = _lut(KVALUES_MXFP4, p["qs"])
-    e = p["e"].to(torch.int32)
-    bits = torch.where(e < 2, torch.full_like(e, 0x00200000) << e, (e - 1) << 23)
-    d = bits.view(torch.float32)[..., None]
-    lo, hi = _nibbles(p["qs"])
-    return d * torch.cat([lut[lo], lut[hi]], dim=-1)
-
-
-def _dq_tq2_0(p):
-    q = p["qs"].reshape(*p["qs"].shape[:-1], 2, 32).to(torch.int32)
-    parts = [((q >> s) & 3) - 1 for s in (0, 2, 4, 6)]
-    grid = torch.stack(parts, dim=-2).reshape(*p["qs"].shape[:-1], 256)
-    return _f32(p["d"])[..., None] * grid.to(torch.float32)
-
-
-_DEQUANT = {
-    GGMLType.Q4_0: _dq_q4_0,
-    GGMLType.Q4_1: _dq_q4_1,
-    GGMLType.Q5_0: _dq_q5_0,
-    GGMLType.Q5_1: _dq_q5_1,
-    GGMLType.Q8_0: _dq_q8_0,
-    GGMLType.Q2_K: _dq_q2_K,
-    GGMLType.Q3_K: _dq_q3_K,
-    GGMLType.Q4_K: _dq_q4_K,
-    GGMLType.Q5_K: _dq_q5_K,
-    GGMLType.Q6_K: _dq_q6_K,
-    GGMLType.Q8_K: _dq_q8_K,
-    GGMLType.IQ4_NL: _dq_iq4_nl,
-    GGMLType.IQ4_XS: _dq_iq4_xs,
-    GGMLType.MXFP4: _dq_mxfp4,
-    GGMLType.TQ2_0: _dq_tq2_0,
-}
+PLANAR_PORTED = frozenset({GGMLType.Q8_0})
 
 
 def dequant_torch(planar: dict, qtype: GGMLType, dtype=torch.float32) -> torch.Tensor:
     """planar arrays (..., nb, ...) -> (..., nb*block) dense, in ``dtype``."""
-    y = _DEQUANT[GGMLType(qtype)](planar)
+    if GGMLType(qtype) not in PLANAR_PORTED:
+        raise NotImplementedError(f"planar {GGMLType(qtype).name}: only Q8_0 is ported")
+    y = planar["d"].to(torch.float32)[..., None] * planar["qs"].to(torch.float32)
     return y.reshape(*y.shape[:-2], y.shape[-2] * y.shape[-1]).to(dtype)

@@ -10,10 +10,9 @@ row-major. Layouts:
 - "planar": quant/layout.py's arrays, for weights the K-major kernels do
   not take (block types outside KM_SPECS, rows too short for a K tile);
   dequantized whole by ops/dequant.py before a plain matmul, as the JAX
-  package leaves them to XLA;
+  package leaves them to XLA. Ported for Q8_0 only: any other weight that
+  would be planar raises;
 - "dense": float weights ({"w": tensor}).
-Codebook types (IQ1/IQ2/IQ3), which the JAX package dequantizes at load,
-raise.
 """
 from __future__ import annotations
 
@@ -24,8 +23,8 @@ import torch
 
 from ..gguf.constants import GGML_QUANT_SIZES, GGMLType
 from ..quant.kmajor import KMAJOR_TYPES, dequant_kmajor_torch, pack_kmajor
-from ..quant.layout import PLANAR_TYPES, decode_planar
-from .dequant import dequant_torch
+from ..quant.layout import decode_planar
+from .dequant import PLANAR_PORTED, dequant_torch
 
 _FLOAT_TYPES = frozenset({GGMLType.F32, GGMLType.F16, GGMLType.BF16})
 
@@ -119,15 +118,16 @@ def qtensor_from_bytes(raw: np.ndarray, qtype: GGMLType, shape: tuple[int, ...])
         u = raw.view(np.uint16).astype(np.uint32) << 16
         w = u.view(np.float32).reshape(shape)
         return QTensor(qtype, tuple(shape), {"w": torch.from_numpy(w.copy())})
-    if qtype not in PLANAR_TYPES:
+    layout = _choose_layout(qtype, tuple(shape))
+    if layout == "planar" and qtype not in PLANAR_PORTED:
         raise NotImplementedError(
-            f"{qtype.name} {tuple(shape)}: codebook types (dequantized at load by "
-            "the JAX package) are not ported")
+            f"{qtype.name} {tuple(shape)}: no K-major layout for this type and row "
+            "length, and the planar layout is ported for Q8_0 only")
     blk, bs = GGML_QUANT_SIZES[qtype]
     row_bytes = shape[-1] // blk * bs
     lead = tuple(shape[:-1]) if len(shape) > 1 else (1,)
     planar = decode_planar(raw.reshape(*lead, row_bytes), qtype)
-    if _choose_layout(qtype, tuple(shape)) == "kmajor":
+    if layout == "kmajor":
         if len(lead) == 1:
             data = pack_kmajor(planar, qtype)
         else:  # (E, n_out, n_in) experts: pack each slice, stack on E

@@ -15,13 +15,24 @@ pass):
    stack as the path does, the 32000-row lm_head, F on layer 1 of a
    stack), and time kernel, plain version, one PyTorch library call as a
    yardstick, and the roofline bound; check the matmul kernels (A, B and
-   F) for every K-major type at one shape;
+   F) for every K-major type at one shape; kernel E (decode attention) at
+   the server slice's decode shape on bf16 and int8 K/V, and its flag
+   cases (T = 4 and 8, windows, softcap, sinks) at a smaller one;
 3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
-   (tolerance: 4x the error of the same plain path in bf16);
+   (tolerance: 4x the error of the same plain path in bf16); then the
+   server layout on an int8 cache (per-slot prefills through slot0, 4
+   decode steps at per-row depths through kernel E) with the same rule;
 4. the slice: the 32-layer 8B model answers 4 requests (prompts of 512,
    300, 200 and 100 tokens, 32 greedy decode steps) through
    InferenceEngine.generate, with every kernel's launch count above 0;
+   then the server slice on the same model: ServerContext (4 slots of
+   8192, int8 KV, kernel E through TPULLM_FLASH_DECODE=1) behind the HTTP
+   front end answers a burst of 6 concurrent requests (prompts of 6000 to
+   40 tokens, 64 new tokens each, one streamed, one sampled) and a
+   sequential pair that must reuse its prefix, with A-E launched; the
+   burst again with kernel E off (the einsum path), and a profile of the
+   server's decode chunks each way;
 5. where a decode step's time goes, on the slice's model and batch: the
    spread of ms/step over single steps, the CPU share of the main thread,
    of the process and of its busiest threads, a fixed host-only workload
@@ -44,8 +55,10 @@ Weights are random, drawn from fixed seeds
 bench.py's generator, with each Q4_K group centred like trained weights so
 activations stay in range through 32 layers and greedy tokens vary;
 synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
-card). The last lines are the kernel table as JSON, the card's name and
-power limit, and the result line.
+card). The last lines are the kernel table as JSON (each row's launches
+on the run of its path: the 8B engine slice, the 8B server slice for
+kernel E, the Mixtral slice), the card's name and power limit, and the
+result line.
 """
 import gc
 import json
@@ -72,6 +85,7 @@ M_VOCAB, M_EXPERT, M_USED = 32000, 8, 2
 TOL_QMM_NMSE = 1e-5  # same bf16 weights, f32 sums in another order, bf16 out
 TOL_ATTN_NMSE = 1e-4  # p rounded to bf16 before vs after normalization
 TOL_LAYER_NMSE = 1e-4  # kernel rounds weights to bf16, plain keeps f32
+TOL_DECODE_NMSE = 1e-4  # p rounded to bf16 per 64-slot tile vs once per row
 # bf16 path on the card vs the f32 plain path on the CPU: at most this many
 # times the NMSE of the same plain path run in bf16 on the CPU (the error
 # that bf16 arithmetic alone brings on these inputs)
@@ -87,6 +101,7 @@ SOURCES = {
                         "tpullm/ops/flash_attention.py:28"),
     "layer_kernel": ("tpullm_torch/csrc/layer_kernel.cu", "tpullm/ops/layer_kernel.py:182"),
     "moe_gmm": ("tpullm_torch/csrc/moe_gmm.cu", "tpullm/ops/moe_gmm.py:33"),
+    "flash_decode": ("tpullm_torch/csrc/flash_decode.cu", "tpullm/ops/flash_decode.py:41"),
 }
 DENSE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel")
 MOE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "moe_gmm")  # and no layer_kernel
@@ -105,7 +120,7 @@ def card_line() -> str:
 
 def short_kernel(mangled: str) -> str:
     m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_kernel|flash_kernel|layer_kernel|"
-                  r"moe_gmm_kernel)"
+                  r"moe_gmm_kernel|flash_decode_kernel|flash_decode_merge)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
     if not m:
         return mangled
@@ -443,6 +458,133 @@ def phase_moe_kernels(torch, timer, entries):
         del qt
 
 
+def phase_flash_decode(torch, timer, entries):
+    """Phase 2, kernel E at the server slice's decode shape (B = 4, 32/8
+    heads of 128, T = 1, an 8192-slot view, rows at slots 6000, 2000, 700
+    and 40), bf16 and int8 K/V read as strided views of a layer-stacked
+    cache, against its plain version (NMSE 1e-4, repeats bit-identical),
+    timed beside the plain version and SDPA with a boolean mask over the
+    pre-dequantized bf16 views. The bound reads the K/V rows (and 8 B of
+    scales per (head, slot) for int8) up to each row's slot once. Then T = 4
+    and 8, windows (plain, chunked), softcap and sinks at a smaller shape."""
+    from tpullm_torch.models.config import ModelConfig
+    from tpullm_torch.models.llama import dequant_view
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(99)
+
+    def operands(B, T, Hq, Hk, S, slots, q8, vf=None):
+        q = torch.randn((B, T, Hq, HD), generator=g, device="cuda").to(torch.bfloat16)
+        if q8:  # layer 1 of a 2-layer stacked cache, as the path's views
+            kv = torch.randint(-127, 128, (2, 2, B, Hk, S, HD), generator=g, device="cuda",
+                               dtype=torch.int8)
+            sc = torch.rand((2, 2, B, Hk, S), generator=g, device="cuda") * 0.03
+            k, v, ks, vs = kv[0, 1], kv[1, 1], sc[0, 1], sc[1, 1]
+        else:
+            kv = torch.randn((2, 2, B, Hk, S, HD), generator=g, device="cuda").to(
+                torch.bfloat16)
+            k, v, ks, vs = kv[0, 1], kv[1, 1], None, None
+        qs = torch.tensor(slots, device="cuda")[:, None] + torch.arange(T, device="cuda")[None]
+        vf = torch.zeros(B, dtype=torch.int64, device="cuda") if vf is None else \
+            torch.tensor(vf, device="cuda")
+        return q, k, v, ks, vs, qs, qs - vf[:, None], vf
+
+    slots = [6000, 2000, 700, 40]
+    B, S = len(slots), 8192
+    cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD)
+    for q8 in (False, True):
+        q, k, v, ks, vs, qs, pos, vf = operands(B, 1, H, HKV, S, slots, q8)
+        run = lambda: flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+        plain = lambda: flash_decode_plain(q, k, v, qs, pos, vf, 1.0 / math.sqrt(HD), 0.0, 0,
+                                           False, None, ks, vs)
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        err = nmse(torch, got, want)
+        same = bool(torch.equal(got, again))
+        mae = float((got.float() - want.float()).abs().max())
+        rows = sum(n + 1 for n in slots)  # slots each row must read
+        kv_bytes = rows * HKV * 2 * HD * (1 if q8 else 2) + (rows * HKV * 8 if q8 else 0)
+        bound, by = bound_of(kv_bytes + 2 * B * H * HD * 2, 4.0 * HD * H * rows)
+        ms = timer(run, 20)
+        pms = timer(plain, 3, warmup=1)
+        kd = dequant_view(k, ks, torch.bfloat16) if q8 else k
+        vd = dequant_view(v, vs, torch.bfloat16) if q8 else v
+        mask = (torch.arange(S, device="cuda")[None, None, None, :] <= qs[:, None, :, None])
+        qt = q.transpose(1, 2)
+        lms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, enable_gqa=True), 20)
+        label = (f"flash_decode[{'int8' if q8 else 'bf16'},B={B},H={H},Hkv={HKV},T=1,S={S},"
+                 f"D={HD},slots {'/'.join(map(str, slots))}]")
+        log(f"kernel {label}: nmse {err:.3e} (tol {TOL_DECODE_NMSE:g}) repeat identical {same} "
+            f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
+            f"(SDPA, bf16 views) bound_ms {bound:.5f} ({by}; {rows} slots x {HKV} heads)")
+        if not (err < TOL_DECODE_NMSE and same):
+            raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
+        entries.append(dict(
+            name=label, route="cuda", source=SOURCES["flash_decode"][0],
+            replaces=SOURCES["flash_decode"][1], kernel="flash_decode", path="8B server",
+            max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library="SDPA",
+            bound_ms=bound, bound_by=by))
+        del q, k, v, ks, vs, kd, vd, mask, got, again, want
+        torch.cuda.empty_cache()
+
+    # the flag cases at a smaller shape: rows at mixed depths, one (slot 5,
+    # valid_from 7, T = 1) with no visible key
+    errs = {}
+    for T in (1, 4, 8):
+        for q8 in (False, True):
+            for flags in ("plain", "window", "chunked", "softcap+sinks"):
+                window = {"window": 200, "chunked": 128}.get(flags, 0)
+                c = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD,
+                                attn_logit_softcap=30.0 if flags == "softcap+sinks" else 0.0,
+                                swa_chunked=flags == "chunked")
+                sk = torch.randn(H, generator=g, device="cuda") if "sinks" in flags else None
+                q, k, v, ks, vs, qs, pos, vf = operands(4, T, H, HKV, 2048, [1500, 600, 90, 5],
+                                                        q8, vf=[0, 3, 1, 7])
+                got = flash_decode(q, k, v, qs, pos, vf, c, window, sk, k_scales=ks,
+                                   v_scales=vs)
+                again = flash_decode(q, k, v, qs, pos, vf, c, window, sk, k_scales=ks,
+                                     v_scales=vs)
+                want = flash_decode_plain(q, k, v, qs, pos, vf, 1.0 / math.sqrt(HD),
+                                          c.attn_logit_softcap, window, c.swa_chunked, sk,
+                                          ks, vs)
+                torch.cuda.synchronize()
+                key = f"T={T},{'int8' if q8 else 'bf16'},{flags}"
+                errs[key] = nmse(torch, got, want)
+                zero = T > 1 or int(torch.count_nonzero(got[3])) == 0
+                if not (errs[key] < TOL_DECODE_NMSE and torch.equal(got, again) and zero):
+                    raise AssertionError(f"flash_decode {key}: nmse {errs[key]}, repeat "
+                                         f"identical {torch.equal(got, again)}, empty row 0 {zero}")
+    log(f"kernel flash_decode flag cases (B=4, S=2048, slots 1500/600/90/5): max nmse "
+        f"{max(errs.values()):.3e} (tol {TOL_DECODE_NMSE:g}) over {len(errs)} cases, repeats "
+        f"identical, the row with no visible key 0")
+
+
+def plain_cpu_copy(torch, params):
+    """The model on the CPU for the plain path, with each K-major weight but
+    the embedding dequantized once to a dense f32 QTensor of the same type.
+    The plain path dequantizes K-major weights to f32 then casts to the
+    compute dtype (qmm_plain); a dense weight is cast the same way
+    (QTensor.dequant) and held in the same memory order, so the products
+    are bit-identical, without
+    dequantizing the 128256-row lm_head and each layer's weights on every
+    call."""
+    from tpullm_torch.ops.qtensor import QTensor
+
+    def conv(k, v):
+        if isinstance(v, dict):
+            return {n: conv(n, t) for n, t in v.items()}
+        v = v.to("cpu")
+        if isinstance(v, QTensor) and v.layout == "kmajor" and k != "tok_embd":
+            # stored K-major in memory, as dequant_kmajor_torch returns it:
+            # the same operand layout, so the same BLAS summation order
+            w = v.dequant(torch.float32).transpose(-1, -2).contiguous().transpose(-1, -2)
+            return QTensor(v.qtype, v.shape, {"w": w})
+        return v
+
+    return {k: conv(k, v) for k, v in params.items()}
+
+
 def phase_parity(torch):
     """Phase 3: 2-layer full-width 8B, kernels on the card vs the plain path
     on a CPU copy, on the same tokens (teacher-forced with the card's
@@ -455,8 +597,7 @@ def phase_parity(torch):
     cfg, params = synth_kmajor_q4k_fast(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H,
                                         n_head_kv=HKV, n_ff=N_FF, seed=7, centred=True,
                                         device="cuda")
-    cpu = {k: (v.to("cpu") if not isinstance(v, dict) else
-               {n: t.to("cpu") for n, t in v.items()}) for k, v in params.items()}
+    cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(3)
     B, T, S = 2, 128, 256
     lens = [128, 100]
@@ -508,6 +649,94 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
+def server_prefill(params, cfg, cache, slot, prompt, dtype, chunk=512):
+    """One slot's prompt through the server's own prefill step
+    (server/context.py:prefill_chunk, the body of ServerContext._prefill_step),
+    in chunks of up to ``chunk`` tokens as the server feeds them. -> the last
+    chunk's logits (1, vocab) f32 on the CPU."""
+    from tpullm_torch.server.context import prefill_chunk
+
+    for n_past in range(0, len(prompt), chunk):
+        lg = prefill_chunk(params, cfg, cache, slot, n_past, prompt[n_past: n_past + chunk],
+                           dtype)
+    return lg[:, 0].float().cpu()
+
+
+def phase_server_parity(torch):
+    """Phase 3b: the server layout at full width, 2 layers of the 8B model,
+    on an int8 cache of 4 slots x 1024: per-slot prefills through slot0
+    (prompts of 700, 300, 100 and 40 tokens, the 700 in two chunks), then 4
+    decode steps with a per-row cache_pos, kernel E on the card
+    (TPULLM_FLASH_DECODE=1), against the plain path on a CPU copy in f32 on
+    its own int8 cache, teacher-forced with the card's greedy picks;
+    tolerance 4x the NMSE of the same plain path in bf16 (phase 3's rule)."""
+    import numpy as np
+
+    from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    cfg, params = synth_kmajor_q4k_fast(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H,
+                                        n_head_kv=HKV, n_ff=N_FF, seed=8, centred=True,
+                                        device="cuda")
+    cpu = plain_cpu_copy(torch, params)
+    rng = np.random.default_rng(5)
+    lens = [700, 300, 100, 40]
+    prompts = [rng.integers(0, VOCAB, n).tolist() for n in lens]
+    S, n_steps = 1024, 4
+    sides = {name: dict(p=params if dev == "cuda" else cpu, dev=dev, dtype=dt,
+                        cache=KVCache.create(cfg, len(lens), S, "q8", dev))
+             for name, dev, dt in (("card", "cuda", torch.bfloat16),
+                                   ("cpu", "cpu", torch.float32),
+                                   ("cpu_bf16", "cpu", torch.bfloat16))}
+    errs, ref_errs, agree = [], [], []
+    _cuda.reset_counts()
+    set_flash_decode("1")
+    try:
+        with torch.inference_mode():
+            out = {}
+            for name, sd in sides.items():
+                out[name] = torch.cat([server_prefill(sd["p"], cfg, sd["cache"], i, pr, sd["dtype"])
+                                       for i, pr in enumerate(prompts)])
+                sd["sec"] = []
+            cp = torch.tensor(lens)
+            for step in range(n_steps + 1):
+                errs.append(nmse(torch, out["card"], out["cpu"]))
+                ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
+                agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
+                if step == n_steps:
+                    break
+                tok = out["card"].argmax(-1)
+                for name, sd in sides.items():
+                    dev = sd["dev"]
+                    t0 = time.perf_counter()
+                    lg, _ = forward(sd["p"], cfg, tok[:, None].to(dev), cp[:, None].to(dev),
+                                    sd["cache"], cp.to(dev),
+                                    torch.zeros(len(lens), dtype=torch.int64, device=dev),
+                                    sd["dtype"], kv_view_len=S)
+                    out[name] = lg[:, -1].float().cpu()
+                    sd["sec"].append(time.perf_counter() - t0)
+                cp = cp + 1
+    finally:
+        set_flash_decode(None)
+    counts = dict(_cuda.COUNTS)
+    tol = TOL_E2E_FACTOR * max(ref_errs)
+    log(f"server parity 2-layer 8B (q8 cache, per-slot prefills of {lens} tokens through "
+        f"slot0, then {n_steps} decode steps at per-row depths with kernel E): card vs CPU "
+        f"f32 logits nmse [prefill, steps] {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
+        f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the largest); "
+        f"greedy agree {agree}; card decode s {[round(x, 3) for x in sides['card']['sec']]}; "
+        f"launches {counts}")
+    if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
+        raise AssertionError(f"server parity: nmse {errs}, tolerance {tol}")
+    if counts["flash_decode"] != 2 * n_steps:
+        raise AssertionError(f"server parity: kernel E launched {counts['flash_decode']} "
+                             f"times, expected {2 * n_steps}")
+    _cuda.reset_counts()
+    del params, cpu, sides
+    torch.cuda.empty_cache()
+
+
 def phase_moe_parity(torch):
     """Phase 6: 2-layer full-width Mixtral-8x7B, kernels on the card vs the
     plain path on a CPU copy (teacher-forced with the card's greedy picks):
@@ -525,8 +754,7 @@ def phase_moe_parity(torch):
     cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=2, n_head=H,
                                     n_head_kv=HKV, n_ff=N_FF, n_expert=M_EXPERT,
                                     n_expert_used=M_USED, seed=7, device="cuda")
-    cpu = {k: (v.to("cpu") if not isinstance(v, dict) else
-               {n: t.to("cpu") for n, t in v.items()}) for k, v in params.items()}
+    cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(3)
     B, T, S = 2, 128, 256
     lens = [128, 100]
@@ -646,6 +874,244 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     return counts, eng, prompts
 
 
+SERVER_PROMPTS = [6000, 2000, 700, 300, 120, 40]  # the burst: 6 requests on 4 slots
+SERVER_NEW = 64  # max_tokens of every request
+SERVER_STREAMED, SERVER_SAMPLED = 2, 3  # indices of the streamed and the sampled request
+
+
+def http_json(url, body, timeout=600):
+    """POST body as JSON -> (status, parsed JSON or SSE events list)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read().decode()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    if body.get("stream"):
+        return status, [json.loads(x[6:]) for x in raw.splitlines()
+                        if x.startswith("data: ") and x != "data: [DONE]"]
+    return status, json.loads(raw)
+
+
+def server_burst(base, prompts, label):
+    """The burst: one thread per request, all sent at once. Request
+    SERVER_STREAMED streams, SERVER_SAMPLED samples (temperature 0.8, top_k
+    40, seed 1234), the rest are greedy. Fails on any non-200, error event,
+    or completion that is not SERVER_NEW tokens. -> (results, wall s)."""
+    import threading
+
+    results = [None] * len(prompts)
+
+    def one(i):
+        body = {"prompt": prompts[i], "max_tokens": SERVER_NEW, "temperature": 0.0}
+        if i == SERVER_SAMPLED:
+            body.update(temperature=0.8, top_k=40, seed=1234)
+        if i == SERVER_STREAMED:
+            body["stream"] = True
+        results[i] = http_json(base + "/v1/completions", body)
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    out = []
+    for i, (status, r) in enumerate(results):
+        if status != 200:
+            raise AssertionError(f"server {label}: request {i} answered {status}: {r}")
+        if i == SERVER_STREAMED:
+            if any("error" in e for e in r):
+                raise AssertionError(f"server {label}: stream {i} carried an error: {r}")
+            text = "".join(e["choices"][0]["text"] for e in r)
+            ids = [int(x) for x in text.split()]
+            stats = r[-1]["timings"]
+            ok = (len(ids) == SERVER_NEW == stats["completion_tokens"]
+                  and text == " ".join(map(str, ids))
+                  and r[-1]["choices"][0]["finish_reason"] == "length"
+                  and sum(1 for e in r if e["choices"][0]["text"]) >= 2)
+        else:
+            ids = r["choices"][0]["tokens"]
+            stats = r["timings"]
+            ok = (len(ids) == SERVER_NEW == r["usage"]["completion_tokens"]
+                  and r["choices"][0]["text"] == " ".join(map(str, ids)))
+        if not ok or not all(0 <= x < VOCAB for x in ids):
+            raise AssertionError(f"server {label}: request {i} output check failed: "
+                                 f"{len(ids)} ids, stats {stats}")
+        out.append(dict(prompt_tokens=stats["prompt_tokens"], prefill_s=stats["prefill_s"],
+                        decode_s=stats["decode_s"], cached=stats["cached_tokens"], ids=ids))
+    return out, wall
+
+
+def server_chunk_profile(torch, ctx, prompts, modes):
+    """Decode chunks of the server's own loop body, driven from this thread
+    with the loop stopped: 4 slots prefilled once with the burst's 4
+    longest prompts; then for each (label, TPULLM_FLASH_DECODE value) in
+    modes, one chunk of warm-up, 3 chunks timed (synchronized) and 2 under
+    torch.profiler (the rows deepen by 6 chunks a mode). -> {label: device
+    ms, launches and wall ms per step, the device-busy share, the rows'
+    depths}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpullm_torch.server.context import GenParams, Task
+
+    n = ctx.decode_chunk
+    for pr in prompts[:ctx.n_slots]:
+        ctx.submit(Task(tokens=pr, params=GenParams(max_tokens=10 ** 6, temperature=0.0)))
+    out = {}
+    with torch.inference_mode():
+        ctx._admit()
+        while any(r.pending for r in ctx.rt):
+            for i, r in enumerate(ctx.rt):
+                if r.pending:
+                    ctx._prefill_step(i)
+        for label, flag in modes:
+            set_flash_decode(flag)
+            depths = [int(x) for x in ctx._pos]
+            ctx._decode_step()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(3):
+                ctx._decode_step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / (3 * n)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    ctx._decode_step()
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof)
+            busy = sum(ms for _, ms, _ in kernels) / (2 * n)
+            by = {}
+            for name, ms, cnt in kernels:
+                k = KERNEL_OF.get(name.split("<")[0], "other")
+                tot, c = by.get(k, (0.0, 0))
+                by[k] = (tot + ms / (2 * n), c + cnt / (2 * n))
+            out[label] = {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+                          "device_busy_share": busy / wall, "depths_at_start": depths,
+                          "kv_view": ctx._kv_view_bucket(n),
+                          "kernel_launches_per_step": sum(c for _, _, c in kernels) / (2 * n),
+                          "device_ms_launches_per_step_by_kernel": by}
+        for i in range(ctx.n_slots):
+            ctx._finish(i, "stop")
+            ctx.memory.clear_slot(i)
+    return out
+
+
+def set_flash_decode(flag) -> None:
+    """Kernel E's gate is read at each decode call: set or clear it."""
+    if flag:
+        os.environ["TPULLM_FLASH_DECODE"] = flag
+    else:
+        os.environ.pop("TPULLM_FLASH_DECODE", None)
+
+
+def phase_server(torch, cfg, params):
+    """Phase 4b, the server slice on the 32-layer 8B model: ServerContext
+    with 4 slots of 8192 and an int8 cache behind serve() on a free local
+    port. With TPULLM_FLASH_DECODE=1 (kernel E): a warm-up request, then,
+    with the launch counts set to 0, the burst of SERVER_PROMPTS (2 wait
+    for a slot) and a sequential pair on the idle server (both land in slot
+    0; the second prompt extends the first's prompt and completion and must
+    reuse it), with A-E all launched. Then the same burst with the variable
+    unset (the einsum path over dequantized views), and each way the decode
+    chunk profile. -> the launch counts of the E-on run."""
+    import numpy as np
+    import socket
+
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.server.context import ServerContext
+    from tpullm_torch.server.http import serve
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, VOCAB, n).tolist() for n in SERVER_PROMPTS]
+    pair = rng.integers(0, VOCAB, 500).tolist()
+    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=8192, decode_chunk=8,
+                        prefill_chunk=512, kv_dtype="q8", model_name="llama-3-8b-shape")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = f"http://127.0.0.1:{port}"
+    modes = (("kernel E", "1"), ("einsum", None))
+    set_flash_decode("1")
+    srv = serve(ctx, "127.0.0.1", port, block=False)
+    report = {}
+
+    def clear_slots():  # no prefix reuse across bursts: each starts cold
+        ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
+
+    try:
+        status, r = http_json(base + "/completion", {"prompt": prompts[-1], "max_tokens": 8,
+                                                     "temperature": 0.0})
+        if status != 200:
+            raise AssertionError(f"server warm-up answered {status}: {r}")
+        for label, flag in modes:
+            set_flash_decode(flag)
+            clear_slots()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m0 = dict(ctx.metrics)
+            _cuda.reset_counts()
+            res, wall = server_burst(base, prompts, label)
+            if flag:  # the sequential pair, on the idle server
+                status, first = http_json(base + "/v1/completions", {
+                    "prompt": pair, "max_tokens": SERVER_NEW, "temperature": 0.0})
+                ext = pair + first["choices"][0]["tokens"] + [17, 23, 99]
+                status2, second = http_json(base + "/v1/completions", {
+                    "prompt": ext, "max_tokens": SERVER_NEW, "temperature": 0.0})
+                cached = second["timings"]["cached_tokens"] if status2 == 200 else None
+                if (status, status2) != (200, 200) or not cached or cached < len(pair) or any(
+                        x["usage"]["completion_tokens"] != SERVER_NEW for x in (first, second)):
+                    raise AssertionError(f"server pair: {status} {status2}, cached {cached}")
+                counts = dict(_cuda.COUNTS)
+                report["pair"] = {"prompt_tokens": [len(pair), len(ext)],
+                                  "cached_tokens": [first["timings"]["cached_tokens"], cached],
+                                  "prefill_s": [first["timings"]["prefill_s"],
+                                                second["timings"]["prefill_s"]]}
+            torch.cuda.synchronize()
+            gen = ctx.metrics["generated_tokens_total"] - m0["generated_tokens_total"]
+            dec_s = ctx.metrics["decode_seconds_total"] - m0["decode_seconds_total"]
+            report[label] = {
+                "requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
+                "burst_wall_s": wall,
+                "burst_completion_tok_per_s": len(prompts) * SERVER_NEW / wall,
+                "decode_tok_per_s": gen / dec_s if dec_s else None,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            report[label]["ids"] = [x["ids"] for x in res]
+        ids_on, ids_off = report["kernel E"].pop("ids"), report["einsum"].pop("ids")
+        # greedy requests: the first position where E on and off pick
+        # different tokens (SERVER_NEW if none); after it the two continue
+        # from different prefixes
+        report["greedy_first_difference_e_on_off"] = [
+            next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), SERVER_NEW)
+            if i != SERVER_SAMPLED else None for i, (x, y) in enumerate(zip(ids_on, ids_off))]
+        ctx.stop()  # the loop thread; the chunk profiles drive its body from here
+        clear_slots()
+        for label, prof in server_chunk_profile(torch, ctx, prompts, modes).items():
+            report[label]["decode_chunk_profile"] = prof
+    finally:
+        set_flash_decode(None)
+        srv.shutdown()
+        srv.server_close()
+        ctx.stop()
+    log(f"server slice 8B (4 slots x 8192, q8 KV, decode_chunk 8, prefill_chunk 512; "
+        f"prompts {SERVER_PROMPTS}, {SERVER_NEW} new tokens each): {json.dumps(report)}")
+    log(f"server slice 8B: launches with kernel E on (burst + pair) {counts}")
+    missing = [k for k in DENSE_KERNELS + ("flash_decode",) if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"server slice: kernels not launched {missing}")
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights."""
     qts = [params["tok_embd"], params["output"]] + [
@@ -712,7 +1178,8 @@ def device_kernels(prof):
 # the port's kernels by their CUDA names (kernel A's split-K sum included)
 KERNEL_OF = {"qmm_splitk_kernel": "qmm_splitk", "qmm_reduce": "qmm_splitk", "qmm_kernel": "qmm",
              "flash_kernel": "flash_attention", "layer_kernel": "layer_kernel",
-             "moe_gmm_kernel": "moe_gmm"}
+             "moe_gmm_kernel": "moe_gmm", "flash_decode_kernel": "flash_decode",
+             "flash_decode_merge": "flash_decode"}
 
 
 def phase_prefill_profile(torch, eng, prompts, must, label):
@@ -862,6 +1329,7 @@ def main() -> int:
     timer = Timer(torch)
     phase_kernels(torch, timer, entries)
     phase_moe_kernels(torch, timer, entries)
+    phase_flash_decode(torch, timer, entries)
     del timer  # its 256 MB L2-flush buffer would count in the slices' peak memory
     torch.cuda.empty_cache()
     _cuda.reset_counts()
@@ -869,6 +1337,9 @@ def main() -> int:
     t = time.perf_counter()
     phase_parity(torch)
     log(f"phase parity: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_server_parity(torch)
+    log(f"phase server parity: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     from tpullm_torch.utils.synth import synth_kmajor_q4k_fast, synth_mixtral_q4k
 
@@ -878,8 +1349,11 @@ def main() -> int:
     log(f"slice 8B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
         f"{time.perf_counter() - t:.3f} s")
     counts, eng, prompts = phase_slice(torch, "8B", cfg, params, VOCAB, DENSE_KERNELS)
-    del cfg, params
     log(f"phase slice 8B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    server_counts = phase_server(torch, cfg, params)
+    del cfg, params
+    log(f"phase server 8B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_decode(torch, eng, prompts)
     phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention"), " 8B")
@@ -909,10 +1383,13 @@ def main() -> int:
     del eng
     log(f"phase decode steps Mixtral: {time.perf_counter() - t:.1f} s")
 
+    by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
-        e["launches_by_path"] = {"8B": counts[k], "Mixtral-8x7B": moe_counts[k]}
-        e["launches"] = moe_counts[k] if e.pop("path", "8B") == "mixtral" else counts[k]
+        e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
+        e["launches"] = by_path[{"mixtral": "Mixtral-8x7B"}.get(e.get("path"),
+                                                               e.get("path", "8B"))][k]
+        e.pop("path", None)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

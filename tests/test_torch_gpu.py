@@ -40,7 +40,7 @@ def test_build_reports_ptxas(cuda):
     info = _cuda.build()
     names = " ".join(n for n, _, _ in info["ptxas"])
     for k in ("qmm_splitk_kernel", "qmm_kernel", "flash_kernel", "layer_kernel",
-              "moe_gmm_kernel"):
+              "moe_gmm_kernel", "flash_decode_kernel"):
         assert k in names or info["cached"], (k, names)
 
 
@@ -306,3 +306,142 @@ def test_moe_engine_on_card_matches_cpu(cuda):
     assert all(counts[k] > 0 for k in ("qmm_splitk", "qmm", "flash_attention", "moe_gmm"))
     ref = _nmse(logits["cpu_bf16"], logits["cpu"])
     assert _nmse(logits["card"], logits["cpu"]) < 4 * ref
+
+
+def _decode_inputs(cuda, q8, B=4, T=1, H=8, Hkv=2, S=1024, D=128, slots=(900, 300, 40, 5),
+                   valid_from=(0, 3, 1, 7), seed=0):
+    """Kernel E's operands: K/V (B, Hkv, S, D) as strided views of a
+    layer-stacked cache (layer 1 of 2), bf16 or int8 with f32 row scales."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, T, H, D), generator=g, device=cuda).to(torch.bfloat16)
+    if q8:
+        kv = torch.randint(-127, 128, (2, 2, B, Hkv, S, D), generator=g, device=cuda,
+                           dtype=torch.int8)
+        sc = torch.rand((2, 2, B, Hkv, S), generator=g, device=cuda) * 0.02
+        k, v, ks, vs = kv[0, 1], kv[1, 1], sc[0, 1], sc[1, 1]
+    else:
+        kv = torch.randn((2, 2, B, Hkv, S, D), generator=g, device=cuda).to(torch.bfloat16)
+        k, v, ks, vs = kv[0, 1], kv[1, 1], None, None
+    qs = torch.tensor(slots[:B], device=cuda)[:, None] + torch.arange(T, device=cuda)[None]
+    vf = torch.tensor(valid_from[:B], device=cuda)
+    return q, k, v, ks, vs, qs, qs - vf[:, None], vf, g
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("T", [1, 4, 8])
+@pytest.mark.parametrize("flags", ["plain", "window", "chunked", "softcap_sinks"])
+def test_flash_decode_kernel_vs_plain(cuda, q8, T, flags):
+    """Kernel E vs its plain version: the same arithmetic, with f32 sums in
+    another order and p rounded to bf16 per 64-slot tile against once per
+    row (the tile max differs from the row max): NMSE < 1e-4. At T = 1 row
+    3 (slot 5, valid_from 7) sees no key and outputs exactly 0. Two calls
+    give identical bits."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    q, k, v, ks, vs, qs, pos, vf, g = _decode_inputs(cuda, q8, T=T)
+    window = {"window": 100, "chunked": 64}.get(flags, 0)
+    cfg = ModelConfig(n_head=8, n_head_kv=2, head_dim=128, head_dim_v=128,
+                      attn_logit_softcap=30.0 if flags == "softcap_sinks" else 0.0,
+                      swa_chunked=flags == "chunked")
+    sinks = (torch.randn(8, generator=g, device=cuda) if flags == "softcap_sinks" else None)
+    before = _cuda.COUNTS["flash_decode"]
+    a = flash_decode(q, k, v, qs, pos, vf, cfg, window, sinks, k_scales=ks, v_scales=vs)
+    b = flash_decode(q, k, v, qs, pos, vf, cfg, window, sinks, k_scales=ks, v_scales=vs)
+    want = flash_decode_plain(q, k, v, qs, pos, vf, 128 ** -0.5, cfg.attn_logit_softcap,
+                              window, cfg.swa_chunked, sinks, ks, vs)
+    torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_decode"] == before + 2
+    assert torch.equal(a, b)
+    assert a.shape == want.shape == (4, T, 8, 128)
+    if T == 1:
+        assert torch.count_nonzero(a[3]) == 0 and torch.count_nonzero(want[3]) == 0
+    assert _nmse(a, want) < 1e-4
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_flash_decode_kernel_big_head_mqa(cuda, q8):
+    """Head dim 256 with one kv head (MQA), G * T = 8 rows per kv head."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, q8, B=2, T=2, H=4, Hkv=1, S=512,
+                                                     D=256, slots=(400, 100))
+    cfg = ModelConfig(n_head=4, n_head_kv=1, head_dim=256, head_dim_v=256)
+    got = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    want = flash_decode_plain(q, k, v, qs, pos, vf, 256 ** -0.5, 0.0, 0, False, None, ks, vs)
+    torch.cuda.synchronize()
+    assert _nmse(got, want) < 1e-4
+
+
+def test_flash_decode_kernel_refuses(cuda):
+    """No fallback on the card: head dims not built, too many rows per kv
+    head, or K/V of another type raise."""
+    from tpullm_torch.ops.flash_decode import flash_decode
+
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, False, B=1, T=1, S=256)
+    cfg = ModelConfig(n_head=8, n_head_kv=2, head_dim=128, head_dim_v=128)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        flash_decode(q[..., :64].contiguous(), k[..., :64], v[..., :64], qs, pos, vf, cfg)
+    with pytest.raises(ValueError, match="expected"):
+        flash_decode(q, k.float(), v.float(), qs, pos, vf, cfg)
+    q9 = torch.zeros((1, 9, 8, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="T=9"):
+        flash_decode(q9, k, v, qs.expand(1, 9), pos.expand(1, 9), vf, cfg)
+
+
+def test_flash_decode_kernel_refuses_other_split(cuda, monkeypatch):
+    """The kernel writes its partials for the split count the wrapper
+    sized them for, and rejects one that is not its own 128-slot split."""
+    import tpullm_torch.ops.flash_decode as fd
+
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, False, B=1, T=1, S=256)
+    cfg = ModelConfig(n_head=8, n_head_kv=2, head_dim=128, head_dim_v=128)
+    monkeypatch.setattr(fd, "E_CH", 64)
+    with pytest.raises(RuntimeError, match="flash_decode: CUDA error"):
+        fd.flash_decode(q, k, v, qs, pos, vf, cfg)
+
+
+def test_server_layout_forward_kernel_e_on_vs_off(cuda, monkeypatch):
+    """The server layout on the card with a q8 cache: per-slot prefills
+    through slot0, then decode steps with a per-row cache_pos, once with
+    TPULLM_FLASH_DECODE set (kernel E reads the int8 rows) and once without
+    (the einsum path over dequantized views). Same inputs, logits within
+    NMSE 1e-4 of each other, kernel E launched only in the first run."""
+    from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    cfg, params = synth_kmajor_q4k_fast(vocab_size=512, n_embd=512, n_layer=2, n_head=4,
+                                        n_head_kv=2, n_ff=1024, seed=3, centred=True,
+                                        device="cuda")
+    lens = [100, 37, 300]
+    out = {}
+    for flag in ("1", None):
+        if flag:
+            monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+        else:
+            monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+        cache = KVCache.create(cfg, 3, 512, "q8", cuda)
+        _cuda.reset_counts()
+        with torch.inference_mode():
+            for slot, n in enumerate(lens):
+                Tb = 128 if n <= 128 else 512
+                tok = torch.zeros((1, Tb), dtype=torch.int64, device=cuda)
+                tok[0, :n] = torch.arange(n, device=cuda) % 500 + slot
+                pos = torch.arange(Tb, device=cuda)[None]
+                forward(params, cfg, tok, pos, cache, 0, torch.zeros(1, dtype=torch.int64,
+                                                                     device=cuda),
+                        slot0=slot, logits_idx=n - 1)
+            cp = torch.tensor(lens, device=cuda)
+            tok = torch.tensor([[7], [8], [9]], device=cuda)
+            logits = []
+            for _ in range(3):
+                lg, _ = forward(params, cfg, tok, cp[:, None], cache, cp,
+                                torch.zeros(3, dtype=torch.int64, device=cuda),
+                                kv_view_len=512)
+                logits.append(lg[:, -1].float())
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+                cp = cp + 1
+        torch.cuda.synchronize()
+        out[flag] = (torch.stack(logits), dict(_cuda.COUNTS))
+    assert out["1"][1]["flash_decode"] == 3 * cfg.n_layer, out["1"][1]
+    assert out[None][1]["flash_decode"] == 0
+    assert _nmse(out["1"][0], out[None][0]) < 1e-4

@@ -160,3 +160,117 @@ def test_moe_config_and_tensors_go_together(tmp_path, monkeypatch):
                                  if not k.startswith("moe_")})
     with pytest.raises(NotImplementedError, match="n_expert"):
         forward(dense, cfg, tok, tok, cache, 0, vf, torch.float32)
+
+
+@pytest.fixture(scope="module")
+def small_model():
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    return synth_kmajor_q4k_fast(vocab_size=256, n_embd=256, n_layer=1, n_head=2,
+                                 n_head_kv=1, n_ff=512, device="cpu")
+
+
+@pytest.mark.parametrize("option,value", [
+    ("lora", [("adapter.gguf", 1.0)]), ("mmproj_path", "mmproj.gguf"), ("spec", "ngram"),
+    ("draft", ("cfg", "params")), ("slot_save_path", "slots"), ("tokenizer", object())])
+def test_server_option_not_ported_raises(small_model, option, value):
+    from tpullm_torch.server.context import ServerContext
+
+    cfg, params = small_model
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServerContext(cfg, params, **{option: value}, device="cpu")
+
+
+@pytest.mark.parametrize("field,value,family", [
+    ("arch", "t5", "t5"), ("wkv_head_size", 64, "rwkv"), ("ssm_d_conv", 4, "hybrid"),
+    ("hybrid_graph", True, "hybrid")])
+def test_server_family_not_ported_raises(small_model, field, value, family):
+    from tpullm_torch.server.context import ServerContext
+
+    cfg, params = small_model
+    with pytest.raises(NotImplementedError, match=family):
+        ServerContext(dataclasses.replace(cfg, **{field: value}), params, device="cpu")
+
+
+def test_server_iswa_with_swa_layers_raises(small_model):
+    """iswa is a no-op without SWA layers (as in the JAX package); with them
+    the dual cache is not ported."""
+    from tpullm_torch.server.context import ServerContext
+
+    cfg, params = small_model
+    ServerContext(cfg, params, iswa=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="iswa"):
+        ServerContext(dataclasses.replace(cfg, sliding_window=64), params, iswa=True,
+                      device="cpu")
+
+
+@pytest.mark.parametrize("request_params,what", [
+    (dict(grammar='root ::= "a"'), "grammar"), (dict(json_schema={"type": "object"}),
+                                               "json_schema"),
+    (dict(infill_sampler=True), "infill"), (dict(grammar_lazy=True), "grammar")])
+def test_server_request_not_ported_fails(small_model, request_params, what):
+    from tpullm_torch.server.context import GenParams, ServerContext
+
+    cfg, params = small_model
+    ctx = ServerContext(cfg, params, max_seq_len=64, compute_dtype=torch.float32, device="cpu")
+    ctx.start()
+    try:
+        with pytest.raises(RuntimeError, match=f"{what}.*not ported"):
+            ctx.generate([1, 2, 3], GenParams(max_tokens=2, **request_params))
+        assert len(ctx.generate([1, 2, 3], GenParams(max_tokens=2))["tokens"]) == 2
+    finally:
+        ctx.stop()
+
+
+@pytest.mark.parametrize("method,args", [
+    ("save_slot", (0,)), ("load_slot", (0, {})), ("save_slot_file", (0, "f")),
+    ("load_slot_file", (0, "f")), ("save_state", ()), ("load_state", ({},)),
+    ("save_state_file", ("f",)), ("load_state_file", ("f",))])
+def test_slot_save_restore_raises(small_model, method, args):
+    from tpullm_torch.runtime.memory import SlotMemory
+
+    cfg, _ = small_model
+    m = SlotMemory(cfg, 2, 32, device="cpu")
+    with pytest.raises(NotImplementedError, match="save/restore"):
+        getattr(m, method)(*args)
+
+
+@pytest.mark.parametrize("flag", [["--hf-repo", "org/repo"], ["--lora", "a.gguf"],
+                                  ["--mmproj", "p.gguf"], ["--spec", "ngram"],
+                                  ["--model-url", "u"], ["--model-draft", "d.gguf"],
+                                  ["--slot-save-path", "s"]])
+def test_server_cli_flag_not_ported_raises(flag):
+    from tpullm_torch.server.__main__ import main
+
+    with pytest.raises(NotImplementedError, match=flag[0]):
+        main(["-m", "model.gguf"] + flag)
+
+
+def test_text_prompt_without_tokenizer_answers_501(small_model):
+    import json
+    import socket
+    import urllib.error
+    import urllib.request
+
+    from tpullm_torch.server.context import ServerContext
+    from tpullm_torch.server.http import serve
+
+    cfg, params = small_model
+    ctx = ServerContext(cfg, params, max_seq_len=64, compute_dtype=torch.float32, device="cpu")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    srv = serve(ctx, "127.0.0.1", port, block=False)
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                     json.dumps({"prompt": "hello"}).encode(),
+                                     {"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=60)
+        assert e.value.code == 501
+        assert "tokenizer" in json.loads(e.value.read())["error"]["message"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ctx.stop()

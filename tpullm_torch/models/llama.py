@@ -7,12 +7,16 @@ over a head-major KV cache -> output projection -> gated SiLU FFN, or the
 routed-expert MoE FFN (softmax or sigmoid router, top-k, optional
 renormalization and scale; no shared experts, biases, latent or chunk
 experts). A Python loop over layers takes the place of ``lax.scan``; the KV
-cache is updated in place. Every flag of the JAX graph that these paths
-never set raises (``check_dense``) instead of being ignored.
+cache (bf16, f32 or int8 with row scales) is updated in place, in the batch
+engine's layout or the server's per-slot rows. Every flag of the JAX graph
+that these paths never set raises (``check_dense``) instead of being
+ignored.
 
 Kernel gates are the JAX package's own, with "the tensors are on the card"
 in place of "the default backend is the TPU": prefill attention takes the
-flash kernel when flash_supported holds (llama.py:268-274); decode layers
+flash kernel when flash_supported holds (llama.py:268-274); decode
+attention takes kernel E when flash_decode_supported holds (off unless
+TPULLM_FLASH_DECODE is set, llama.py:277-294); decode layers
 take the layer kernel, folded with the next layer's QKV when the weights
 are fused in one group (llama.py:1382-1423); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460).
@@ -20,7 +24,6 @@ the grouped kernel F over expert-sorted rows (llama.py:455-460).
 from __future__ import annotations
 
 import dataclasses
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,6 +31,7 @@ import torch
 
 from ..ops.flash_attention import (attention_params, flash_attention, flash_supported,
                                    masked_attention)
+from ..ops.flash_decode import flash_decode, flash_decode_supported
 from ..ops.fuse import pad256
 from ..ops.layer_kernel import ffn_block, ffn_block_qkv
 from ..ops.layer_kernel import supported as block_supported
@@ -75,25 +79,57 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
 
 @dataclass
 class KVCache:
-    """Per-model KV cache: k/v HEAD-MAJOR (L, B, H_kv, S_max, D), bf16 or
-    f32, written in place. The int8 cache and the iSWA ring wait."""
+    """Per-model KV cache: k/v HEAD-MAJOR (L, B, H_kv, S_max, D), written in
+    place. bf16 or f32, or the int8 cache (``create(..., dtype="q8")``,
+    llama.py:52-57): int8 k/v with per-(head, slot) f32 row scales ks/vs
+    (L, B, H_kv, S_max), rows quantized on write (``_kv_quant``). The iSWA
+    ring waits."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: torch.Tensor | None = None
+    vs: torch.Tensor | None = None
 
     @staticmethod
     def create(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> "KVCache":
-        if dtype not in (torch.bfloat16, torch.float32):
-            raise NotImplementedError(f"KV cache dtype {dtype}: bf16 and f32 only")
         shape_k = (cfg.n_layer, batch, cfg.n_head_kv, max_len, cfg.head_dim)
         shape_v = (cfg.n_layer, batch, cfg.n_head_kv, max_len, cfg.head_dim_v)
+        if dtype in ("q8", "int8"):
+            return KVCache(torch.zeros(shape_k, dtype=torch.int8, device=device),
+                           torch.zeros(shape_v, dtype=torch.int8, device=device),
+                           torch.zeros(shape_k[:-1], dtype=torch.float32, device=device),
+                           torch.zeros(shape_v[:-1], dtype=torch.float32, device=device))
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise NotImplementedError(f"KV cache dtype {dtype}: bf16, f32 and 'q8' only")
         return KVCache(torch.zeros(shape_k, dtype=dtype, device=device),
                        torch.zeros(shape_v, dtype=dtype, device=device))
 
     @property
+    def quantized(self) -> bool:
+        return self.ks is not None
+
+    @property
     def max_len(self) -> int:
         return self.k.shape[3]
+
+
+def _kv_quant(x):
+    """(..., D) -> (int8 values, (...) f32 scales), bit-exact with
+    llama.py:132-138: scale = amax / 127, values round(x / scale) clipped to
+    [-127, 127] (round half to even, as jnp.round)."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1) / 127.0
+    pos = scale > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, scale, torch.ones_like(scale)),
+                      torch.zeros_like(scale))
+    q = torch.clamp(torch.round(xf * inv[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequant_view(q, scale, dtype):
+    """int8 rows and their f32 scales -> rows in ``dtype`` (llama.py:904-907)."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
 
 
 def rms_norm(x, w, eps):
@@ -157,16 +193,33 @@ def apply_rope(x, cos, sin, rope_type: str, rope_dim: int):
 
 
 def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
-              cfg: ModelConfig, layer_is_swa: bool = False):
+              cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv).
 
-    Slot mask valid_from[b] <= s <= q_slots[b, t]. Prefill on the card takes
-    the flash kernel (gate of llama.py:268-274); otherwise the einsum path
-    with masks runs (the JAX package leaves it to XLA the same way)."""
-    T, Dk = q.shape[1], q.shape[3]
-    S, Dv = k_all.shape[2], v_all.shape[-1]
-    if os.environ.get("TPULLM_FLASH_DECODE"):
-        raise NotImplementedError("flash decode (ops/flash_decode.py) is not ported")
+    Slot mask valid_from[b] <= s <= q_slots[b, t]. The JAX package's gates
+    with "the tensors are on the card" in place of "the default backend is
+    the TPU": prefill takes kernel C (llama.py:268-274), decode kernel E when
+    flash_decode_supported holds (llama.py:277-294; off unless
+    TPULLM_FLASH_DECODE is set); otherwise the einsum path with masks runs
+    (the JAX package leaves it to XLA the same way).
+
+    kv_q8: the raw int8 cache views (k, v, k scales, v scales), with k_all
+    and v_all None. Kernel E reads them as they are; the other branches
+    dequantize them here, so the dequantized views exist only where they
+    are read (XLA drops the unused one; eager PyTorch would not)."""
+    B, T, Dk = q.shape[0], q.shape[1], q.shape[3]
+    kref, vref = (kv_q8[0], kv_q8[1]) if kv_q8 is not None else (k_all, v_all)
+    Hkv, S, Dv = kref.shape[1], kref.shape[2], vref.shape[-1]
+    if q.is_cuda and flash_decode_supported(B, T, S, Dk, Dv, Hkv):
+        window = cfg.sliding_window if layer_is_swa else 0
+        if kv_q8 is not None:
+            kq, vq, ksc, vsc = kv_q8
+            return flash_decode(q, kq, vq, q_slots, positions, valid_from, cfg, window,
+                                k_scales=ksc, v_scales=vsc)
+        return flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window)
+    if kv_q8 is not None:
+        k_all = dequant_view(kv_q8[0], kv_q8[2], q.dtype)
+        v_all = dequant_view(kv_q8[1], kv_q8[3], q.dtype)
     if q.is_cuda and flash_supported(T, S, Dk, Dv):
         return flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                                valid_from, cfg, layer_is_swa)
@@ -293,21 +346,32 @@ _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo"
 
 
 def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
-            cache_pos: int, valid_from, dtype=torch.bfloat16, kv_view_len=None):
+            cache_pos, valid_from, dtype=torch.bfloat16, kv_view_len=None, slot0=None,
+            logits_idx=None):
     """Returns (logits (B, T, vocab) f32, cache), the cache updated in place.
 
-    tokens/positions (B, T) int; every row writes cache slots
-    [cache_pos, cache_pos + T) (the batch engine's left-padded layout);
-    valid_from (B,) is each row's first valid slot. kv_view_len bounds the
-    cache slots attention reads (the engine buckets it by depth)."""
+    tokens/positions (B, T) int; valid_from (B,) is each row's first valid
+    slot; kv_view_len bounds the cache slots attention reads. Layouts
+    (llama.py:697-703, 769-775):
+    - batch engine: an int ``cache_pos``, every row writes slots
+      [cache_pos, cache_pos + T) (left-padded rows share slot indices);
+    - server slots: ``slot0`` (int) selects cache batch rows
+      [slot0, slot0 + B), so a one-sequence prefill writes just its slot; a
+      (B,) tensor ``cache_pos`` gives each row its own first slot (rows at
+      different depths), written by a per-row scatter.
+    With an int cache_pos, writes past the cache's last slot are dropped,
+    as the JAX scatter drops them (a bucketed prefill chunk near the end).
+    ``logits_idx`` (int) computes the lm_head for that position only
+    (logits (B, 1, vocab))."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
     moe = [MOE_KEYS & set(gl) for gl in groups]
     if any(m and m != MOE_KEYS for m in moe):
         raise NotImplementedError(f"MoE layers need all of {sorted(MOE_KEYS)}")
     check_dense(cfg, moe=any(moe))
     B, T = tokens.shape
-    if B != cache.k.shape[1]:
-        raise NotImplementedError("per-slot cache rows (server layout) are not ported")
+    b0 = 0 if slot0 is None else int(slot0)
+    if not 0 <= b0 <= cache.k.shape[1] - B:
+        raise ValueError(f"cache rows [{b0}, {b0 + B}) outside the cache's {cache.k.shape[1]}")
     dev = tokens.device
     x = params["tok_embd"].take_rows(tokens, dtype)
     # cast once here rather than in each apply_rope (same values: q and k
@@ -315,22 +379,50 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     cos, sin = (t.to(dtype) for t in rope_cache(cfg, positions))
     S = cache.max_len
     L_view = kv_view_len if (kv_view_len is not None and kv_view_len < S) else S
-    q_slots = cache_pos + torch.arange(T, device=dev)[None, :].expand(B, T)
+    per_row = torch.is_tensor(cache_pos)
+    t_ar = torch.arange(T, device=dev)[None, :]
+    if per_row:
+        q_slots = cache_pos.to(device=dev, dtype=torch.int64)[:, None] + t_ar
+        rows = torch.arange(b0, b0 + B, device=dev)[:, None, None]
+        heads = torch.arange(cfg.n_head_kv, device=dev)[None, :, None]
+        slots = q_slots[:, None, :]
+    else:
+        q_slots = cache_pos + t_ar.expand(B, T)
+        n_in = max(0, min(T, S - cache_pos))
     kv_positions = torch.arange(S, device=dev)[None, :] - valid_from[:, None]
     H, Hkv, hd, hdv = cfg.n_head, cfg.n_head_kv, cfg.head_dim, cfg.head_dim_v
     nq, nk, nv = H * hd, Hkv * hd, Hkv * hdv
     ok, ov = pad256(nq), pad256(nq) + pad256(nk)
 
-    def attend(q, k, v, bank):
+    def store(bank, val):
+        """val (B, T, Hkv[, D]) into one layer's bank (B_cache, Hkv, S[, D])
+        (_store, llama.py:803-818)."""
+        vt = val.transpose(1, 2).to(bank.dtype)
+        if per_row:
+            bank[rows, heads, slots] = vt
+        else:
+            bank[b0: b0 + B, :, cache_pos: cache_pos + n_in] = vt[:, :, :n_in]
+
+    def view(bank):
+        """This ubatch's cache rows, first L_view slots (_view, llama.py:820-831)."""
+        return bank[b0: b0 + B, :, :L_view]
+
+    def attend(q, k, v, li):
         q = apply_rope(q.reshape(B, T, H, hd), cos, sin, cfg.rope_type, cfg.rope_dim)
         k = apply_rope(k.reshape(B, T, Hkv, hd), cos, sin, cfg.rope_type, cfg.rope_dim)
         v = v.reshape(B, T, Hkv, hdv)
-        cache.k[bank, :, :, cache_pos: cache_pos + T] = k.transpose(1, 2).to(cache.k.dtype)
-        cache.v[bank, :, :, cache_pos: cache_pos + T] = v.transpose(1, 2).to(cache.v.dtype)
-        k_view = cache.k[bank, :, :, :L_view].to(dtype)
-        v_view = cache.v[bank, :, :, :L_view].to(dtype)
-        att = attention(q, k_view, v_view, q_slots, kv_positions, positions,
-                        valid_from, cfg)
+        kv_q8 = k_view = v_view = None
+        if cache.quantized:  # llama.py:896-910
+            (kq, ksc), (vq, vsc) = _kv_quant(k), _kv_quant(v)
+            for bank, val in ((cache.k, kq), (cache.v, vq), (cache.ks, ksc), (cache.vs, vsc)):
+                store(bank[li], val)
+            kv_q8 = tuple(view(t[li]) for t in (cache.k, cache.v, cache.ks, cache.vs))
+        else:
+            store(cache.k[li], k)
+            store(cache.v[li], v)
+            k_view, v_view = view(cache.k[li]).to(dtype), view(cache.v[li]).to(dtype)
+        att = attention(q, k_view, v_view, q_slots, kv_positions, positions, valid_from,
+                        cfg, kv_q8=kv_q8)
         return att.reshape(B, T, H * hdv)
 
     def qkv_of(h, qw, li):
@@ -374,6 +466,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 else:
                     x = x + ffn(h2, qw, li, cfg, dtype)
         off += L_g
+    if logits_idx is not None:  # llama.py:1527-1530
+        x = x[:, logits_idx: logits_idx + 1]
     x = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     logits = qmm(x, params["output"], dtype).to(torch.float32)
     return logits, cache

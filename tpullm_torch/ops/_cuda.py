@@ -34,7 +34,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each hand-written kernel, by wrapper
 COUNTS = {"qmm_splitk": 0, "qmm": 0, "flash_attention": 0, "layer_kernel": 0,
-          "moe_gmm": 0}
+          "moe_gmm": 0, "flash_decode": 0}
 
 def reset_counts() -> None:
     for k in COUNTS:
@@ -156,6 +156,9 @@ _SIGNATURES = {
     # x, Mp, K, w_ptrs, w_ints, w_floats, expert strides, tile_expert, live,
     # layer, E, out, Nout, stream
     "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # q k v ks vs sinks qslots qpos valid_from part_ml part_acc o,
+    # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks, stream
+    "tpq_flash_decode": [_P] * 12 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _P],
 }
 
 

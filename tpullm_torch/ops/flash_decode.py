@@ -1,0 +1,168 @@
+"""Decode attention over the head-major KV cache: kernel E.
+
+Counterpart of tpullm/ops/flash_decode.py. The hand-written CUDA kernel
+(csrc/flash_decode.cu) takes the place of its Pallas kernel: T <= 8 query
+tokens per batch row against K/V (B, Hkv, S, D), bf16 or int8 with f32 row
+scales (B, Hkv, S), read in place with their strides. Each batch row reads
+only the slots up to its newest query slot (and from its window's start),
+so a decode step over rows at different depths moves the bytes those rows
+need, not the bucketed view's.
+
+``flash_decode_plain`` is the same function in plain PyTorch: the TPU
+kernel's arithmetic (f32 scores of bf16 or int8 operands, the K scale
+folded into the scores and the V scale into the probabilities, p rounded to
+bf16 before the PV product, a sink as a value-less key in the denominator)
+over the slots up to the newest query slot. The wrapper takes it for
+tensors on the CPU only.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+
+from . import _cuda
+
+E_CH = 128  # slots per split of the CUDA kernel, which rejects any other split count
+E_RMAX = 64  # most query rows (G * T) per kv head the kernel takes
+NEG = -1e30
+
+
+def _scale_of(cfg, scale):
+    if scale is not None:
+        return float(scale)
+    return float(cfg.attn_scale) if cfg.attn_scale else 1.0 / math.sqrt(cfg.head_dim)
+
+
+def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: float,
+                       softcap: float = 0.0, window: int = 0, chunked: bool = False,
+                       sinks=None, k_scales=None, v_scales=None):
+    """q (B,T,H,Dk), K/V head-major (B,Hkv,S,D*) bf16 or int8 [+ (B,Hkv,S)
+    f32 scales] -> (B,T,H,Dv) bf16. Reads slots up to the newest query slot
+    of the batch (one host read of its value)."""
+    B, T, H, Dk = q.shape
+    Hkv, S = k_all.shape[1], k_all.shape[2]
+    G, Dv = H // Hkv, v_all.shape[-1]
+    hi = min(S, int(q_slots.max()) + 1)
+    R = G * T
+    # query row r = g * T + t of kv head h is token t of query head h * G + g
+    qr = (q.to(torch.bfloat16).float().reshape(B, T, Hkv, G, Dk)
+          .permute(0, 2, 3, 1, 4).reshape(B, Hkv, R, Dk))
+    k = k_all[:, :, :hi].float()
+    v = v_all[:, :, :hi].float()
+    sc = torch.matmul(qr, k.transpose(-1, -2))  # (B, Hkv, R, hi)
+    if k_scales is not None:
+        sc = sc * k_scales[:, :, None, :hi].float()
+    sc = sc * scale
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    dev = q.device
+    kv_slot = torch.arange(hi, device=dev)
+    row_slot = q_slots.repeat(1, G).reshape(B, 1, R, 1)  # r = g * T + t -> t
+    row_pos = positions.repeat(1, G).reshape(B, 1, R, 1)
+    vf = valid_from.reshape(B, 1, 1, 1)
+    mask = (kv_slot <= row_slot) & (kv_slot >= vf)
+    if window:
+        kv_pos = kv_slot - vf
+        if chunked:
+            mask = mask & (kv_pos >= torch.div(row_pos, window, rounding_mode="floor") * window)
+        else:
+            mask = mask & (kv_pos > row_pos - window)
+    sc = torch.where(mask, sc, torch.full_like(sc, NEG))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), torch.zeros_like(sc))
+    l = p.sum(-1, keepdim=True)
+    if v_scales is not None:
+        p = p * v_scales[:, :, None, :hi].float()
+    acc = torch.matmul(p.to(torch.bfloat16).float(), v)  # (B, Hkv, R, Dv)
+    if sinks is not None:
+        sk = sinks.float().reshape(Hkv, G, 1).repeat_interleave(T, 1).reshape(1, Hkv, R, 1)
+        m2 = torch.maximum(m, sk)
+        l = l * torch.exp(m - m2) + torch.exp(sk - m2)
+        acc = acc * torch.exp(m - m2)
+    norm = torch.where(l > 0, 1.0 / torch.where(l > 0, l, torch.ones_like(l)),
+                       torch.zeros_like(l))
+    out = (acc * norm).reshape(B, Hkv, G, T, Dv).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, T, H, Dv).to(torch.bfloat16)
+
+
+def _kv_strides(t: torch.Tensor, what: str):
+    """(batch, head, slot) element strides of a K or V view whose rows are
+    contiguous and 16-byte aligned."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            (s * t.element_size()) % 16 for s in t.stride()[:-1]):
+        raise ValueError(f"flash_decode {what}: rows must be contiguous and 16-byte aligned")
+    return t.stride()[:-1]
+
+
+def _scale_strides(t: torch.Tensor, what: str):
+    if t.dtype != torch.float32 or t.stride(-1) != 1:
+        raise ValueError(f"flash_decode {what}: f32 with slot stride 1 expected")
+    return t.stride()[:-1]
+
+
+def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: int = 0,
+                 sinks=None, scale=None, k_scales=None, v_scales=None):
+    """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) [+ (B,Hkv,S) scales when
+    int8] -> (B,T,H,Dv) bf16. Same masking contract as
+    models.llama.attention: valid_from[b] <= slot <= q_slots[b, t], a window
+    on the positions slot - valid_from (chunked with cfg.swa_chunked)."""
+    scale = _scale_of(cfg, scale)
+    softcap = float(cfg.attn_logit_softcap)
+    chunked = bool(cfg.swa_chunked and window)
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("flash_decode: k_scales and v_scales go together")
+    if not q.is_cuda:
+        return flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale,
+                                  softcap, window, chunked, sinks, k_scales, v_scales)
+    B, T, H, Dk = q.shape
+    Hkv, S = k_all.shape[1], k_all.shape[2]
+    Dv = v_all.shape[-1]
+    q8 = k_scales is not None
+    if Dk != Dv or Dk not in (128, 256):
+        raise NotImplementedError(
+            f"flash_decode kernel: head dims {Dk}/{Dv}; 128 and 256 are built")
+    want = torch.int8 if q8 else torch.bfloat16
+    if k_all.dtype != want or v_all.dtype != want:
+        raise ValueError(f"flash_decode kernel: K/V {k_all.dtype}/{v_all.dtype}, "
+                         f"expected {want}")
+    if H % Hkv or (H // Hkv) * T > E_RMAX or not 1 <= T <= 8:
+        raise ValueError(f"flash_decode kernel: H={H} Hkv={Hkv} T={T}")
+    qh = q.to(torch.bfloat16).contiguous()
+    k_sb, k_sh, k_ss = _kv_strides(k_all, "k")
+    v_sb, v_sh, v_ss = _kv_strides(v_all, "v")
+    ks_sb = ks_sh = vs_sb = vs_sh = 0
+    if q8:
+        ks_sb, ks_sh = _scale_strides(k_scales, "k_scales")
+        vs_sb, vs_sh = _scale_strides(v_scales, "v_scales")
+    sk = None
+    if sinks is not None:
+        sk = sinks.to(torch.float32).contiguous()
+    i32 = [t.to(torch.int32).contiguous() for t in (q_slots, positions, valid_from)]
+    NS = -(-S // E_CH)
+    R = (H // Hkv) * T
+    part_ml = torch.empty((B, Hkv, NS, R, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, Hkv, NS, R, Dk), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, T, H, Dv), dtype=torch.bfloat16, device=q.device)
+    err = _cuda.lib().tpq_flash_decode(
+        qh.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+        k_scales.data_ptr() if q8 else 0, v_scales.data_ptr() if q8 else 0,
+        sk.data_ptr() if sk is not None else 0, *(t.data_ptr() for t in i32),
+        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        B, T, H, Hkv, S, NS, Dk, int(q8), k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+        ks_sb, ks_sh, vs_sb, vs_sh, scale, softcap, int(window), int(chunked),
+        int(sk is not None), _cuda.stream_ptr(qh))
+    _cuda.COUNTS["flash_decode"] += 1
+    _cuda.check(err, "flash_decode")
+    return out
+
+
+def flash_decode_supported(B: int, T: int, S: int, Dk: int, Dv: int, Hkv: int) -> bool:
+    """The JAX package's gate as it is (flash_decode.py:243-255): off unless
+    TPULLM_FLASH_DECODE is set, then T <= 8, S a multiple of 256, head dims
+    multiples of 128 up to 512."""
+    if not os.environ.get("TPULLM_FLASH_DECODE"):
+        return False
+    return (T <= 8 and S % 256 == 0 and Dk % 128 == 0 and Dv % 128 == 0
+            and Dk <= 512 and Dv <= 512 and S >= 256)

@@ -1,0 +1,155 @@
+"""Slot-based KV memory for the serving engine.
+
+Counterpart of tpullm/runtime/memory.py: one preallocated device KV cache
+(L, n_slots, Hkv, S_max, D) whose batch rows are the slots (slot ==
+sequence), with host-side metadata (lengths and token history). Admitting a
+sequence is a host-side free-slot pop; the cache is updated in place.
+
+Sequence ops: truncate (seq_rm p0..), clear, prefix reuse (the longest
+common prefix with the slot's previous content), copy_slot (seq_cp), and
+context_shift (seq_rm + seq_add with K re-roped by the shift, on the
+device, dequantizing and requantizing an int8 cache). Saving and restoring
+slots and whole-context state are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from ..models.config import ModelConfig
+from ..models.llama import KVCache, _kv_quant, apply_rope, rope_cache
+
+
+@dataclass
+class SlotState:
+    n_past: int = 0  # tokens currently materialized in the cache
+    tokens: list = field(default_factory=list)  # token history (prompt + generated)
+
+    def clear(self):
+        self.n_past = 0
+        self.tokens = []
+
+
+_NOT_PORTED = "slot and state save/restore are not ported to tpullm_torch yet"
+
+
+class SlotMemory:
+    """Host bookkeeping + device KV cache for n_slots sequences."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, max_seq_len: int,
+                 kv_dtype=torch.bfloat16, device="cuda"):
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.max_seq_len = max_seq_len
+        self.cache = KVCache.create(cfg, n_slots, max_seq_len, kv_dtype, device)
+        self.slots = [SlotState() for _ in range(n_slots)]
+
+    def prefix_match(self, slot: int, tokens: list[int]) -> int:
+        """Longest reusable prefix of ``tokens`` already in the slot's
+        cache; leaves at least one token to decode so logits exist."""
+        st = self.slots[slot]
+        n = 0
+        limit = min(st.n_past, len(tokens) - 1)
+        hist = st.tokens
+        while n < limit and n < len(hist) and hist[n] == tokens[n]:
+            n += 1
+        return n
+
+    def truncate(self, slot: int, n_keep: int):
+        """seq_rm(slot, n_keep, -1): drop cached tokens >= n_keep."""
+        st = self.slots[slot]
+        st.n_past = min(st.n_past, n_keep)
+        st.tokens = st.tokens[:n_keep]
+
+    def clear_slot(self, slot: int):
+        self.slots[slot].clear()
+
+    def copy_slot(self, src: int, dst: int):
+        """seq_cp of a whole sequence: cache rows dst <- src and metadata."""
+        for buf in (self.cache.k, self.cache.v, self.cache.ks, self.cache.vs):
+            if buf is not None:
+                buf[:, dst] = buf[:, src]
+        self.slots[dst].n_past = self.slots[src].n_past
+        self.slots[dst].tokens = list(self.slots[src].tokens)
+
+    def save_slot(self, slot: int) -> dict:
+        raise NotImplementedError(_NOT_PORTED)
+
+    def load_slot(self, slot: int, blob: dict) -> int:
+        raise NotImplementedError(_NOT_PORTED)
+
+    def save_slot_file(self, slot: int, path: str):
+        raise NotImplementedError(_NOT_PORTED)
+
+    def load_slot_file(self, slot: int, path: str) -> int:
+        raise NotImplementedError(_NOT_PORTED)
+
+    def save_state(self) -> dict:
+        raise NotImplementedError(_NOT_PORTED)
+
+    def load_state(self, blob: dict) -> None:
+        raise NotImplementedError(_NOT_PORTED)
+
+    def save_state_file(self, path: str) -> None:
+        raise NotImplementedError(_NOT_PORTED)
+
+    def load_state_file(self, path: str) -> None:
+        raise NotImplementedError(_NOT_PORTED)
+
+    def context_shift(self, slot: int, n_keep: int, n_discard: int):
+        """Discard tokens [n_keep, n_keep + n_discard); roll the tail left and
+        re-rope the moved K rows by -n_discard (on the device)."""
+        st = self.slots[slot]
+        n_past = st.n_past
+        assert n_keep + n_discard <= n_past
+        _context_shift(self.cache, self.cfg, slot, n_keep, n_discard, n_past)
+        st.tokens = st.tokens[:n_keep] + st.tokens[n_keep + n_discard:]
+        st.n_past = n_past - n_discard
+
+
+@torch.inference_mode()
+def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
+                   n_discard: int, n_past: int):
+    """Roll rows [n_keep + nd, n_past) of one slot to [n_keep, n_past - nd)
+    and rotate the moved K rows by the RoPE angle of -nd (memory.py:270-334,
+    in place). The slot is taken seq-major (L, S, Hkv, D) for the roll. As
+    in the JAX package, the K rows are rounded to bf16 for the rotation, and
+    an int8 cache is dequantized, shifted and requantized whole."""
+    S = cache.max_len
+    dev = cache.k.device
+    idx = torch.arange(S, device=dev)
+    moved = (idx >= n_keep) & (idx < n_past - n_discard)
+    src = torch.where(moved, idx + n_discard, idx)
+    k_slot = cache.k[:, slot].transpose(1, 2)  # (L, S, Hkv, D)
+    v_slot = cache.v[:, slot].transpose(1, 2)
+    if cache.quantized:
+        ks = cache.ks[:, slot].transpose(1, 2)[:, src]  # (L, S, Hkv)
+        vs = cache.vs[:, slot].transpose(1, 2)[:, src]
+        k_slot, v_slot = k_slot.to(torch.float32), v_slot.to(torch.float32)
+    k_rolled = k_slot[:, src]
+    v_rolled = v_slot[:, src]
+    if cache.quantized:
+        k_rolled = k_rolled * ks[..., None]
+        v_rolled = v_rolled * vs[..., None]
+    L = k_rolled.shape[0]
+    # rotating a post-rope K from position p to p - nd is the rotation at -nd
+    cos, sin = rope_cache(cfg, torch.full((1, 1), -n_discard, dtype=torch.float32,
+                                          device=dev))
+    half = cos.shape[-1]
+    k_shifted = apply_rope(k_rolled.to(torch.bfloat16), cos.expand(L, S, half),
+                           sin.expand(L, S, half), cfg.rope_type, cfg.rope_dim)
+    mv = moved[None, :, None, None]
+
+    def put(buf, val):  # seq-major (L, S, Hkv[, D]) -> the slot's head-major rows
+        buf[:, slot] = val.transpose(1, 2).to(buf.dtype)
+
+    if cache.quantized:
+        k_new = torch.where(mv, k_shifted.to(torch.float32), k_rolled)
+        (kq, ksc), (vq, vsc) = _kv_quant(k_new), _kv_quant(v_rolled)
+        for buf, val in ((cache.k, kq), (cache.v, vq), (cache.ks, ksc), (cache.vs, vsc)):
+            put(buf, val)
+        return
+    k_new = torch.where(mv, k_shifted.to(cache.k.dtype), k_rolled)
+    put(cache.k, k_new)
+    put(cache.v, v_rolled)

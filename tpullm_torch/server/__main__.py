@@ -1,0 +1,76 @@
+"""`python -m tpullm_torch.server -m model.gguf [--host H] [--port P] ...`
+
+The port's llama-server entry point (counterpart of tpullm/server/__main__.py):
+loads the GGUF through the port's ``load_model`` onto the card and serves
+token-id completions over HTTP (``server/http.py``). Every flag has an
+environment fallback (TPULLM_<DEST>) and can come from a --preset JSON
+profile (``utils/args.py``). Flags of the JAX server whose features are not
+ported (downloads, LoRA, multimodal, speculation, slot files, the iSWA
+cache) raise instead of being ignored.
+"""
+import logging
+import sys
+
+from ..utils.args import ArgLayer
+
+# flags of the JAX server whose features the port does not have yet
+NOT_PORTED = {"hf_repo": "--hf-repo", "hf_file": "--hf-file", "model_url": "--model-url",
+              "lora": "--lora", "mmproj": "--mmproj", "spec": "--spec",
+              "model_draft": "--model-draft", "slot_save_path": "--slot-save-path",
+              "override_kv": "--override-kv"}
+
+
+def build_args():
+    ap = ArgLayer("tpullm_torch.server")
+    ap.add("-m", "--model", default=None, help="GGUF checkpoint path")
+    ap.add("-hf", "--hf-repo", default=None, help="not ported (no downloads)")
+    ap.add("--hf-file", default=None, help="not ported (no downloads)")
+    ap.add("-mu", "--model-url", default=None, help="not ported (no downloads)")
+    ap.add("--host", default="127.0.0.1")
+    ap.add("--port", type=int, default=8080)
+    ap.add("-c", "--ctx-size", type=int, default=2048)
+    ap.add("-np", "--parallel", type=int, default=4, help="slots")
+    ap.add("--decode-chunk", type=int, default=8)
+    ap.add("--prefill-chunk", type=int, default=512)
+    ap.add("--alias", default=None, help="model name in the API")
+    ap.add("--lora", action="append", default=[], help="not ported")
+    ap.add("--kv-type", default="bf16", choices=("bf16", "f32", "q8"),
+           help="KV cache storage type")
+    ap.add("--spec", default=None, choices=("ngram", "draft"), help="not ported")
+    ap.add("-md", "--model-draft", default=None, help="not ported")
+    ap.add("--override-kv", action="append", default=[], help="not ported")
+    ap.add("--slot-save-path", default=None, help="not ported")
+    ap.add("--mmproj", default=None, help="not ported")
+    ap.add("--log-level", default=None, help="debug|info|warning|error")
+    return ap
+
+
+def main(argv=None):
+    args = build_args().parse(argv)
+    for dest, flag in NOT_PORTED.items():
+        if getattr(args, dest):
+            raise NotImplementedError(f"{flag}: not ported to tpullm_torch yet")
+    if not args.model:
+        raise SystemExit("tpullm_torch.server: -m/--model is required")
+    import torch
+
+    from ..runtime.loader import load_model
+    from .context import ServerContext
+    from .http import serve
+
+    logging.basicConfig(level=(args.log_level or "info").upper())
+    log = logging.getLogger("tpullm_torch.server")
+    log.info("loading %s ...", args.model)
+    cfg, params, _ = load_model(args.model, device="cuda")
+    kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "q8": "q8"}[args.kv_type]
+    ctx = ServerContext(cfg, params, None, n_slots=args.parallel, max_seq_len=args.ctx_size,
+                        decode_chunk=args.decode_chunk, prefill_chunk=args.prefill_chunk,
+                        model_name=args.alias or args.model.rsplit("/", 1)[-1],
+                        kv_dtype=kv_dtype, device="cuda")
+    log.info("serving %s on http://%s:%s (%d slots, ctx %d, kv %s; token-id prompts only)",
+             cfg.arch, args.host, args.port, args.parallel, args.ctx_size, args.kv_type)
+    serve(ctx, args.host, args.port)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

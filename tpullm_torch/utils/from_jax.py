@@ -38,3 +38,24 @@ def params_from_numpy(cfg_dict: dict, params: dict, device="cuda"):
     device = resolve_device(device)
     cfg = ModelConfig(**cfg_dict)
     return cfg, {k: _convert(v, device) for k, v in params.items()}
+
+
+def kv_cache_from_numpy(k, v, ks=None, vs=None, device="cuda"):
+    """A JAX KVCache's arrays (k, v and, for the int8 cache, the ks/vs row
+    scales, all as numpy; head-major (L, B, Hkv, S, D)) -> the port's
+    KVCache on ``device``. bf16 arrives as ml_dtypes bfloat16 and is carried
+    through its bits."""
+    from ..models.llama import KVCache
+
+    device = resolve_device(device)
+
+    def conv(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return KVCache(conv(k), conv(v), conv(ks), conv(vs))

@@ -96,7 +96,7 @@ DECODE_STEPS, PROFILED_STEPS = 64, 8
 
 SOURCES = {
     "qmm_splitk": ("tpullm_torch/csrc/qmm.cu", "tpullm/ops/qmm.py:181"),
-    "qmm": ("tpullm_torch/csrc/qmm.cu", "tpullm/ops/qmm.py:239"),
+    "qmm": ("tpullm_torch/csrc/qmm_prefill.cu", "tpullm/ops/qmm.py:239"),
     "flash_attention": ("tpullm_torch/csrc/flash_attention.cu",
                         "tpullm/ops/flash_attention.py:28"),
     "layer_kernel": ("tpullm_torch/csrc/layer_kernel.cu", "tpullm/ops/layer_kernel.py:182"),
@@ -119,7 +119,7 @@ def card_line() -> str:
 
 
 def short_kernel(mangled: str) -> str:
-    m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_kernel|flash_kernel|layer_kernel|"
+    m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_wgmma_kernel|flash_kernel|layer_kernel|"
                   r"moe_gmm_kernel|flash_decode_kernel|flash_decode_merge)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
     if not m:
@@ -1176,7 +1176,8 @@ def device_kernels(prof):
 
 
 # the port's kernels by their CUDA names (kernel A's split-K sum included)
-KERNEL_OF = {"qmm_splitk_kernel": "qmm_splitk", "qmm_reduce": "qmm_splitk", "qmm_kernel": "qmm",
+KERNEL_OF = {"qmm_splitk_kernel": "qmm_splitk", "qmm_reduce": "qmm_splitk",
+             "qmm_wgmma_kernel": "qmm",
              "flash_kernel": "flash_attention", "layer_kernel": "layer_kernel",
              "moe_gmm_kernel": "moe_gmm", "flash_decode_kernel": "flash_decode",
              "flash_decode_merge": "flash_decode"}

@@ -1,6 +1,6 @@
 // Fused dequant-matmul over K-major quantized weights: y = x @ dequant(W)^T.
 //
-// Replaces the two Pallas kernels of tpullm/ops/qmm.py:
+// Kernel A of the two that replace the Pallas kernels of tpullm/ops/qmm.py:
 //
 // A. qmm_splitk_kernel  <- _build_qmm_splitk (qmm.py:181, pallas_call :226)
 //    Decode GEMV, M <= 32 rows. Bound on this card: bytes. Every weight
@@ -18,19 +18,10 @@
 //    bias is folded per element (the TPU kernel hoists it out as
 //    group_sums(x) @ bias; equal up to float order).
 //
-// B. qmm_kernel  <- _build_qmm (qmm.py:239, pallas_call :294)
-//    Prefill GEMM, M > 32. Bound on this card: operations at large M (2048
-//    rows do ~2048 flops per weight byte). Design: a 128 x 128 output tile
-//    per block of 8 warps (each 32 x 64); per 64-deep K step the block computes the step's
-//    (scale group, column) scales and biases once into shared memory,
-//    dequantizes the (64, 128) weight tile into shared memory as bf16 (the
-//    _plane_tile counterpart, shared with layer_kernel.cu through
-//    kmajor.cuh), stages the (128, 64) x tile, and multiplies with WMMA bf16
-//    tensor-core fragments, f32 accumulation. Ragged M is masked inside.
-//    Simple and right first: no cp.async/TMA pipelining, no wgmma. The tile
-//    body is qmm_tile.cuh, which kernel F (moe_gmm.cu) runs per expert.
+// B. <- _build_qmm (qmm.py:239, pallas_call :294), the prefill GEMM for
+//    M > 32, is qmm_prefill.cu (a warp-specialised wgmma kernel, with the
+//    tpq_qmm entry point).
 #include "kmajor.cuh"
-#include "qmm_tile.cuh"
 
 using namespace tpk;
 
@@ -146,13 +137,6 @@ int splitk_mt(const __nv_bfloat16* x, int M, const KmW& w, float* part, int nS,
   return launch_splitk<32, KIND>(x, M, w, part, nS, gps, st);
 }
 
-// ---------------------------------------------------------------- kernel B
-__global__ void __launch_bounds__(G_THREADS)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, int M, KmW w, void* out, int Nout,
-           int out_bf16) {
-  qmm_tile(x, M, w, out, Nout, out_bf16, blockIdx.y * BM, blockIdx.x * BN);
-}
-
 }  // namespace
 
 extern "C" {
@@ -178,18 +162,6 @@ int tpq_qmm_splitk(const void* x, int M, int K, const unsigned long long* wp,
   const size_t total = (size_t)M * Nout;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
   qmm_reduce<<<blocks, 256, 0, st>>>(pb, nS, M, w.Npad, Nout, out, out_bf16);
-  return (int)cudaGetLastError();
-}
-
-// B: x (M, K) bf16 -> out (M, Nout).
-int tpq_qmm(const void* x, int M, int K, const unsigned long long* wp, const int* wi,
-            const float* wf, void* out, int Nout, int out_bf16, void* stream) {
-  cudaGetLastError();
-  KmW w = make_kmw(wp, wi, wf);
-  if (M < 1 || !qmm_tile_ok(w, K)) return (int)cudaErrorInvalidValue;
-  dim3 grid(w.Npad / BN, (M + BM - 1) / BM);
-  qmm_kernel<<<grid, G_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), M, w, out, Nout, out_bf16);
   return (int)cudaGetLastError();
 }
 

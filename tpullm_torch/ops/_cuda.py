@@ -2,7 +2,8 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` into an object, and the objects are linked into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
+shared library with a plain C interface, loaded with ``ctypes`` (linked
+against the driver library for kernel B's TMA descriptor). The build
 runs at first use, into ``tpullm_torch/_build/`` keyed by a hash of the
 sources and flags, so importing the package never needs ``nvcc``.
 
@@ -124,7 +125,7 @@ def build() -> dict:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = BUILD / f"{lib.name}.{os.getpid()}.tmp"
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-            *[str(o) for _, o, _ in procs], "-lcudart"]
+            *[str(o) for _, o, _ in procs], "-lcudart", "-lcuda"]
     r = subprocess.run(link, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + r.stdout + r.stderr)

@@ -1,11 +1,12 @@
 """Fused dequant-matmul over K-major quantized weights: y = x @ dequant(W)^T.
 
-Counterpart of tpullm/ops/qmm.py. Two hand-written CUDA kernels
-(csrc/qmm.cu) take the place of its two Pallas kernels:
+Counterpart of tpullm/ops/qmm.py. Two hand-written CUDA kernels take the
+place of its two Pallas kernels:
 
-- kernel A, split-K decode GEMV (``_build_qmm_splitk``), when the padded M
-  is at most 32;
-- kernel B, tiled prefill GEMM (``_build_qmm``), for larger M.
+- kernel A, split-K decode GEMV (``_build_qmm_splitk``, csrc/qmm.cu), when
+  the padded M is at most 32;
+- kernel B, prefill GEMM on wgmma (``_build_qmm``, csrc/qmm_prefill.cu),
+  for larger M.
 
 The plain version (``qmm_plain``) dequantizes with ``dequant_kmajor_torch``
 and multiplies with f32 accumulation, as qmm.py:461-469 does. A wrapper

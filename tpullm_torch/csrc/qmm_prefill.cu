@@ -3,11 +3,37 @@
 //
 // Replaces tpullm/ops/qmm.py:239 _build_qmm (pallas_call :294).
 //
-// One block owns a 256-row x 128-column output tile and walks K in 64-deep
-// chunks. Per chunk the x tile (256 x 64 bf16) arrives by TMA, 128-byte
-// swizzled, and the block dequantizes the (64, 128) weight chunk once into
-// a bf16 tile in the same swizzled K-major layout; two warpgroups (128 rows
-// each) multiply with wgmma.mma_async m64n128k16, f32 sums in registers.
+// Bound on this card: operations. At the engine's prefill (M = 2048) a
+// weight byte feeds ~2048 flops, far above the ~295 flop/byte where the
+// tensor cores become the limit: 2 M N K / 989 TFLOP/s, 0.49 ms for
+// gateup (28672 x 4096).
+//
+// What the design does about it. The tensor cores must never wait for the
+// dequant, and the dequant must be paid as rarely as possible:
+// - A block owns a 256-row x 128-column output tile, so each dequantized
+//   64 x 128 weight chunk feeds 256 rows (wgmma's M is the tokens, its N
+//   the weight columns). Blocks of one column tile run side by side (the
+//   grid's fast axis is the row tile), so the weight bytes come from HBM
+//   about once and x stays in L2.
+// - Warp specialisation, 384 threads. Two consumer warpgroups (128 rows
+//   each, two m64n128 f32 accumulators = 128 registers a thread) only
+//   issue wgmma.mma_async m64n128k16 from shared memory and keep one chunk
+//   of them in flight. One producer warpgroup, which setmaxnreg leaves
+//   with few registers, keeps the copies in flight and dequantizes ahead:
+//   the x tile (256 x 64 bf16) by TMA, 128-byte swizzled, rows past M
+//   arriving as zeros; the raw quantized chunk (64 x 128 bytes: one nibble
+//   plane for u4) and its scale rows by cp.async, R chunks ahead; then the
+//   chunk's (group, column) scales once, and the bf16 weight tile written
+//   into the same swizzled K-major layout that the wgmma descriptor names.
+// - A ring of S stages (x tile + weight tile) hands chunks over with a full
+//   and an empty mbarrier per stage.
+// - A stored integer becomes a float with one byte permute and one exact
+//   add (0x4B0000bb is 2^23 + bb); val * scale + bias in rounded steps and
+//   one rounding to bf16, bit-exact with dequant_kmajor_torch.
+// No split-K and no atomics: each output element is summed over K in one
+// fixed order, so repeats are bit-identical. The epilogue stores pairs of
+// adjacent columns straight from the accumulators, masking rows >= M and
+// columns >= Nout.
 #include <cuda.h>
 
 #include "kmajor.cuh"
@@ -17,10 +43,20 @@ using namespace tpk;
 namespace {
 
 constexpr int BM = 256, BN = 128, BK = 64;
-constexpr int X_BYTES = BM * BK * 2;  // x tile: 256 rows of 128 B
-constexpr int W_BYTES = BN * BK * 2;  // weight tile: 128 rows (columns n) of 128 B
-constexpr int THREADS = 256;
-constexpr int SMEM = 1024 + X_BYTES + W_BYTES + 16 + 64;  // + align slack, barrier, lut
+constexpr int S = 3;                   // stages of the x / weight-tile ring
+constexpr int R = 4;                   // stages of the raw-chunk ring
+constexpr int X_BYTES = BM * BK * 2;   // x tile: 256 rows of 128 B
+constexpr int W_BYTES = BN * BK * 2;   // weight tile: 128 rows (columns n) of 128 B
+constexpr int Q_BYTES = BK * BN;       // raw chunk: 64 rows of 128 bytes
+constexpr int MAXG = 4;                // scale groups in a chunk (gs >= 16)
+// staged scale rows of a chunk: d, then dmin or bm (f32 x 128 each), s8, m8
+constexpr int META_D = 0, META_B = MAXG * BN * 4, META_S8 = 2 * MAXG * BN * 4,
+              META_M8 = META_S8 + MAXG * BN, META_BYTES = META_M8 + MAXG * BN;
+constexpr int RAW_BYTES = Q_BYTES + META_BYTES;
+constexpr int THREADS = 384;
+constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
+constexpr int SMEM = 1024 + S * (X_BYTES + W_BYTES) + R * RAW_BYTES + 2 * S * 8 + 64;
+static_assert(RAW_BYTES % 1024 == 0, "raw stages keep the ring 1024-aligned");
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -189,88 +225,204 @@ __device__ __forceinline__ void store_half(const float (&d)[64], int mrow, int n
   }
 }
 
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// barrier of the producer warpgroup alone
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, 128;" ::: "memory");
+}
+
+
+// Producer: raw chunk kc (q rows of its plane, and the d / dmin / bm / s8 /
+// m8 rows of its scale groups) into a raw stage by cp.async.
+__device__ __forceinline__ void load_raw(const KmW& w, int kc, int n0, int Kr, int lgs,
+                                         int lds, uint32_t raw, int t) {
+  const int N = w.Npad, k0 = kc * BK;
+  const int r0 = k0 - (k0 / Kr) * Kr;
+#pragma unroll
+  for (int i = 0; i < Q_BYTES / 16 / 128; ++i) {
+    const int p = t + 128 * i, row = p / 8, c16 = p % 8;
+    cp_async16(raw + row * 128 + c16 * 16, w.q + (size_t)(r0 + row) * N + n0 + c16 * 16);
+  }
+  const int g0 = k0 >> lgs;
+  const int ng = (BK >> lgs) > 0 ? (BK >> lgs) : 1;
+  const uint32_t meta = raw + Q_BYTES;
+  for (int p = t; p < ng * 80; p += 128) {
+    const int gi = p / 80, e = p % 80;
+    const int g = g0 + gi;
+    const size_t drow = (size_t)((g << lgs) >> lds);
+    if (e < 32) {
+      cp_async16(meta + META_D + gi * 512 + e * 16, w.d + drow * N + n0 + e * 4);
+    } else if (e < 64) {
+      if (w.bias == BIAS_I8D)
+        cp_async16(meta + META_B + gi * 512 + (e - 32) * 16,
+                   w.dmin + drow * N + n0 + (e - 32) * 4);
+      else if (w.bias == BIAS_F32)
+        cp_async16(meta + META_B + gi * 512 + (e - 32) * 16,
+                   w.bm + (size_t)g * N + n0 + (e - 32) * 4);
+    } else if (e < 72) {
+      if (w.sb)
+        cp_async16(meta + META_S8 + gi * 128 + (e - 64) * 16,
+                   w.s8 + (size_t)g * N + n0 + (e - 64) * 16);
+    } else if (w.bias == BIAS_I8D) {
+      cp_async16(meta + META_M8 + gi * 128 + (e - 72) * 16,
+                 w.m8 + (size_t)g * N + n0 + (e - 72) * 16);
+    }
+  }
+}
+
+// Producer: the scales and biases of 4 columns [nl, nl + 4) in staged group gi
+__device__ __forceinline__ void stage_scales(const KmW& w, const uint8_t* meta, int gi, int nl,
+                                             float (&sc)[4], float (&bi)[4]) {
+  const float4 d = *reinterpret_cast<const float4*>(meta + META_D + gi * 512 + nl * 4);
+  sc[0] = d.x, sc[1] = d.y, sc[2] = d.z, sc[3] = d.w;
+  bi[0] = bi[1] = bi[2] = bi[3] = 0.f;
+  if (w.sb) {
+    const uint32_t s = *reinterpret_cast<const uint32_t*>(meta + META_S8 + gi * 128 + nl);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sc[c] = __fmul_rn((float)(int8_t)(s >> (8 * c)), sc[c]);
+  }
+  if (w.bias != BIAS_NONE) {
+    const float4 b = *reinterpret_cast<const float4*>(meta + META_B + gi * 512 + nl * 4);
+    bi[0] = b.x, bi[1] = b.y, bi[2] = b.z, bi[3] = b.w;
+  }
+  if (w.bias == BIAS_I8D) {
+    const uint32_t m = *reinterpret_cast<const uint32_t*>(meta + META_M8 + gi * 128 + nl);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) bi[c] = -__fmul_rn((float)(int8_t)(m >> (8 * c)), bi[c]);
+  }
+}
+
 template <int KIND>
 __global__ void __launch_bounds__(THREADS, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, KmW w, void* out, int Nout,
-                 int out_bf16) {
+                 int out_bf16, int lgs, int lds) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (saddr(smem_raw) & 1023u)) & 1023u;
-  uint8_t* xs = smem_raw + pad;
-  uint8_t* ws = xs + X_BYTES;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(ws + W_BYTES);
-  float* lut = reinterpret_cast<float*>(bar + 2);
-  const uint32_t xs_a = saddr(xs), ws_a = saddr(ws), bar_a = saddr(bar);
+  uint8_t* ring = smem_raw + pad;                  // S x (x tile, weight tile)
+  uint8_t* raws = ring + S * (X_BYTES + W_BYTES);  // R x (raw chunk, scale rows)
+  uint64_t* full = reinterpret_cast<uint64_t*>(raws + R * RAW_BYTES);
+  uint64_t* empty = full + S;
+  float* lut = reinterpret_cast<float*>(empty + S);
+  const uint32_t ring_a = saddr(ring), raws_a = saddr(raws);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int K = w.K, N = w.Npad;
-  const int P = KIND == KIND_U4 ? 2 : 1;
-  const int Kr = K / P;
-  const int mode = w.has_lut ? MODE_LUT : (w.bias != BIAS_NONE ? MODE_BIAS : MODE_OFF);
-  const float offc = __fadd_rn(w.off, KIND == KIND_U4 ? -8388608.f : -8388736.f);
-
+  const int nK = w.K / BK;
   if (tid == 0) {
-    mbar_init(bar_a, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(saddr(full + s), 128 + 1);  // producer threads + the TMA's expect_tx
+      mbar_init(saddr(empty + s), 2);       // one thread of each consumer warpgroup
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (tid < 16) lut[tid] = w.lut[tid];
   __syncthreads();
 
-  float acc[2][64];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  if (tid < 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    const int lane = tid % 32, nl = lane * 4;
+    const int Kr = w.K / (KIND == KIND_U4 ? 2 : 1);
+    const int mode = w.has_lut ? MODE_LUT : (w.bias != BIAS_NONE ? MODE_BIAS : MODE_OFF);
+    const float offc = __fadd_rn(w.off, KIND == KIND_U4 ? -8388608.f : -8388736.f);
+#pragma unroll 1
+    for (int c = 0; c < R - 1; ++c) {
+      if (c < nK) load_raw(w, c, n0, Kr, lgs, lds, raws_a + c * RAW_BYTES, tid);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int kc = 0; kc < nK; ++kc) {
+      cp_async_wait<R - 2>();  // this thread's copies of chunk kc have landed
+      producer_sync();         // everyone's have, and chunk kc - 1 is dequantized
+      const int ahead = kc + R - 1;
+      if (ahead < nK) load_raw(w, ahead, n0, Kr, lgs, lds, raws_a + (ahead % R) * RAW_BYTES, tid);
+      cp_async_commit();
 
-  const int cw = tid / 128;   // consumer warpgroup: rows [128 cw, 128 cw + 128)
-  const int oct = warp;       // dequant: 8 rows of the chunk ...
-  const int nl = lane * 4;    // ... x 4 columns
-  const int nK = K / BK;
-  for (int kc = 0; kc < nK; ++kc) {
-    const int k0 = kc * BK;
-    if (tid == 0) {
-      mbar_expect_tx(bar_a, X_BYTES);
-      tma_load_x(xs_a, &xmap, bar_a, k0, m0);
+      const int s = kc % S;
+      mbar_wait(saddr(empty + s), ((kc / S) & 1) ^ 1);  // chunk kc - S consumed
+      uint8_t* stage = ring + s * (X_BYTES + W_BYTES);
+      if (tid == 0) {
+        mbar_expect_tx(saddr(full + s), X_BYTES);
+        tma_load_x(saddr(stage), &xmap, saddr(full + s), kc * BK, m0);
+      }
+      const int k0 = kc * BK;
+      const int plane = k0 / Kr;
+      const uint8_t* raw = raws + (kc % R) * RAW_BYTES;
+      uint8_t* wt = stage + X_BYTES;
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int oct = tid / 32 + 4 * half;
+        const int gi = ((k0 + oct * 8) >> lgs) - (k0 >> lgs);
+        float sc[4], bi[4];
+        stage_scales(w, raw + Q_BYTES, gi, nl, sc, bi);
+        uint32_t v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          v[i] = to_bytes<KIND>(*reinterpret_cast<const uint32_t*>(raw + (oct * 8 + i) * 128 + nl),
+                                plane);
+        if (mode == MODE_LUT)
+          dequant_octet<MODE_LUT>(v, sc, bi, offc, lut, wt, oct, nl);
+        else if (mode == MODE_BIAS)
+          dequant_octet<MODE_BIAS>(v, sc, bi, offc, lut, wt, oct, nl);
+        else
+          dequant_octet<MODE_OFF>(v, sc, bi, offc, lut, wt, oct, nl);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // tile -> wgmma's view
+      mbar_arrive(saddr(full + s));
     }
-    const int plane = k0 / Kr;
-    const int kk = k0 + oct * 8;
-    float sc[4], bi[4];
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int cw = tid / 128 - 1;  // rows [128 cw, 128 cw + 128) of the tile
+    float acc[2][64];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) km_group(w, kk / w.gs, n0 + nl + c, sc[c], bi[c]);
-    uint32_t v[8];
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = kk - plane * Kr + i;
-      v[i] = to_bytes<KIND>(
-          __ldg(reinterpret_cast<const uint32_t*>(w.q + (size_t)r * N + n0 + nl)), plane);
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+#pragma unroll 1
+    for (int kc = 0; kc < nK; ++kc) {
+      const int s = kc % S;
+      mbar_wait(saddr(full + s), (kc / S) & 1);
+      const uint32_t xa = ring_a + s * (X_BYTES + W_BYTES) + cw * 128 * 128;
+      const uint32_t wa = ring_a + s * (X_BYTES + W_BYTES) + X_BYTES;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k) {
+        const uint64_t db = sw128_desc(wa + k * 32);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma_m64n128k16(acc[h], sw128_desc(xa + h * 64 * 128 + k * 32), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // chunk kc - 1's products are done: release its stage
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (kc > 0 && tid % 128 == 0) mbar_arrive(saddr(empty + (kc - 1) % S));
     }
-    if (mode == MODE_LUT)
-      dequant_octet<MODE_LUT>(v, sc, bi, offc, lut, ws, oct, nl);
-    else if (mode == MODE_BIAS)
-      dequant_octet<MODE_BIAS>(v, sc, bi, offc, lut, ws, oct, nl);
-    else
-      dequant_octet<MODE_OFF>(v, sc, bi, offc, lut, ws, oct, nl);
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    mbar_wait(bar_a, kc & 1);
-
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < BK / 16; ++s) {
-      const uint64_t db = sw128_desc(ws_a + s * 32);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        wgmma_m64n128k16(acc[h], sw128_desc(xs_a + (cw * 128 + h * 64) * 128 + s * 32), db);
-    }
-    wgmma_commit();
     wgmma_wait<0>();
     fence_acc(acc[0]);
     fence_acc(acc[1]);
-    __syncthreads();
-  }
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
-    store_half(acc[h], m0 + cw * 128 + h * 64, n0, M, Nout, out, out_bf16);
+    for (int h = 0; h < 2; ++h)
+      store_half(acc[h], m0 + cw * 128 + h * 64, n0, M, Nout, out, out_bf16);
+  }
 }
 
 // x (M, K) bf16, row-major -> its TMA map: box {BK, BM}, 128-byte swizzle
@@ -294,8 +446,12 @@ int launch(const CUtensorMap& xmap, int M, const KmW& w, void* out, int Nout, in
   cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<KIND>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
+  int lgs = 0, lds = 0;
+  while ((1 << lgs) < w.gs) ++lgs;
+  while ((1 << lds) < w.ds) ++lds;
   dim3 grid((M + BM - 1) / BM, w.Npad / BN);
-  qmm_wgmma_kernel<KIND><<<grid, THREADS, SMEM, st>>>(xmap, M, w, out, Nout, out_bf16);
+  qmm_wgmma_kernel<KIND><<<grid, THREADS, SMEM, st>>>(xmap, M, w, out, Nout, out_bf16, lgs,
+                                                      lds);
   return (int)cudaGetLastError();
 }
 

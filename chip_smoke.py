@@ -181,7 +181,9 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
     """One row of kernel A or B: the kernel (through ``run``, the path's own
     call, where given) against its plain version on x (..., K) and qt's
     K-major arrays, timed beside the plain version and torch.matmul on the
-    pre-dequantized bf16 weight ``w_bf16``; the bound reads qt's bytes once."""
+    pre-dequantized bf16 weight ``w_bf16``; the bound reads qt's bytes once.
+    The log line gives the kernel's share of its bound (bound / ms) and its
+    time over the library call's."""
     from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
 
     run = run or (lambda: qmm_kmajor(x, qt.data, qt.qtype, qt.n_out, torch.bfloat16))
@@ -197,7 +199,8 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
     pms = timer(plain, 3, warmup=1)
     lms = timer(lambda: torch.matmul(x, w_bf16.t()), 10)
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) max_abs_err {mae:.4g} "
-        f"ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by})")
+        f"ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) "
+        f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}")
     if not err < TOL_QMM_NMSE:
         raise AssertionError(f"{label}: nmse {err} >= {TOL_QMM_NMSE}")
     entries.append(dict(

@@ -53,9 +53,10 @@ constexpr int MAXG = 4;                // scale groups in a chunk (gs >= 16)
 constexpr int META_D = 0, META_B = MAXG * BN * 4, META_S8 = 2 * MAXG * BN * 4,
               META_M8 = META_S8 + MAXG * BN, META_BYTES = META_M8 + MAXG * BN;
 constexpr int RAW_BYTES = Q_BYTES + META_BYTES;
-constexpr int THREADS = 384;
-constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
-constexpr int SMEM = 1024 + S * (X_BYTES + W_BYTES) + R * RAW_BYTES + 2 * S * 8 + 64;
+constexpr int THREADS = 384;           // producer warpgroup, then two consumer warpgroups
+constexpr int PRODUCER_REGS = 120, CONSUMER_REGS = 192;
+constexpr int SMEM = 1024 + S * (X_BYTES + W_BYTES) + R * RAW_BYTES + (2 * S + R) * 8 + 64;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "register file");
 static_assert(RAW_BYTES % 1024 == 0, "raw stages keep the ring 1024-aligned");
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -71,29 +72,43 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-// Waits for the phase of the given parity to complete. A barrier that never
-// completes aborts the launch (an error at the next sync) instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 26)) __trap();
-  }
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  // the suspend-time hint lets the hardware park the warp until the phase
+  // completes, so waiting warps take no issue slots from working ones
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 10000000;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
 }
 
-// 2-D TMA load of box {BK, BM} at (k0, m0); rows past the tensor arrive as 0
-__device__ __forceinline__ void tma_load_x(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                           int k0, int m0) {
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of the given parity to complete. A barrier that does
+// not complete within 4 s aborts the launch (an error at the next sync)
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer() - t0 > 4000000000ull) __trap();
+}
+
+// 2-D TMA load of the map's box at (inner c0, outer c1), completing on bar;
+// rows past the tensor arrive as 0
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(m0)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -230,104 +245,126 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // barrier of the producer warpgroup alone
-__device__ __forceinline__ void producer_sync() {
-  asm volatile("bar.sync 1, 128;" ::: "memory");
-}
+__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
 
+// TMA maps of a weight's arrays: q rows, d rows, dmin (per d row) or bm
+// (per group) rows, s8 and m8 rows; a box is one chunk's rows x 128 columns
+struct WMaps {
+  CUtensorMap q, d, b, s8, m8;
+};
 
-// Producer: raw chunk kc (q rows of its plane, and the d / dmin / bm / s8 /
-// m8 rows of its scale groups) into a raw stage by cp.async.
-__device__ __forceinline__ void load_raw(const KmW& w, int kc, int n0, int Kr, int lgs,
-                                         int lds, uint32_t raw, int t) {
-  const int N = w.Npad, k0 = kc * BK;
-  const int r0 = k0 - (k0 / Kr) * Kr;
-#pragma unroll
-  for (int i = 0; i < Q_BYTES / 16 / 128; ++i) {
-    const int p = t + 128 * i, row = p / 8, c16 = p % 8;
-    cp_async16(raw + row * 128 + c16 * 16, w.q + (size_t)(r0 + row) * N + n0 + c16 * 16);
-  }
-  const int g0 = k0 >> lgs;
-  const int ng = (BK >> lgs) > 0 ? (BK >> lgs) : 1;
-  const uint32_t meta = raw + Q_BYTES;
-  for (int p = t; p < ng * 80; p += 128) {
-    const int gi = p / 80, e = p % 80;
-    const int g = g0 + gi;
-    const size_t drow = (size_t)((g << lgs) >> lds);
-    if (e < 32) {
-      cp_async16(meta + META_D + gi * 512 + e * 16, w.d + drow * N + n0 + e * 4);
-    } else if (e < 64) {
-      if (w.bias == BIAS_I8D)
-        cp_async16(meta + META_B + gi * 512 + (e - 32) * 16,
-                   w.dmin + drow * N + n0 + (e - 32) * 4);
-      else if (w.bias == BIAS_F32)
-        cp_async16(meta + META_B + gi * 512 + (e - 32) * 16,
-                   w.bm + (size_t)g * N + n0 + (e - 32) * 4);
-    } else if (e < 72) {
-      if (w.sb)
-        cp_async16(meta + META_S8 + gi * 128 + (e - 64) * 16,
-                   w.s8 + (size_t)g * N + n0 + (e - 64) * 16);
-    } else if (w.bias == BIAS_I8D) {
-      cp_async16(meta + META_M8 + gi * 128 + (e - 72) * 16,
-                 w.m8 + (size_t)g * N + n0 + (e - 72) * 16);
-    }
+// Producer warp wp's share of raw chunk kc's copies (the q rows of its
+// plane; its d rows; its dmin or bm rows; its s8 and m8 rows) into a raw
+// stage by TMA. Each warp arrives once on bar (count 4) with its bytes, so
+// the stage completes when all four shares have landed.
+__device__ __forceinline__ void load_raw(const WMaps& wm, const KmW& w, int wp, int kc, int n0,
+                                         int Kr, int lgs, int lds, uint32_t raw, uint32_t bar) {
+  const int k0 = kc * BK;
+  const int drows = lds >= 6 ? 1 : BK >> lds, grows = lgs >= 6 ? 1 : BK >> lgs;
+  if (wp == 0) {
+    mbar_expect_tx(bar, Q_BYTES);
+    tma_2d(raw, &wm.q, bar, n0, k0 - (k0 / Kr) * Kr);
+  } else if (wp == 1) {
+    mbar_expect_tx(bar, drows * BN * 4);
+    tma_2d(raw + Q_BYTES + META_D, &wm.d, bar, n0, k0 >> lds);
+  } else if (wp == 2) {
+    const bool by_d = w.bias == BIAS_I8D;
+    mbar_expect_tx(bar, w.bias == BIAS_NONE ? 0 : (by_d ? drows : grows) * BN * 4);
+    if (w.bias != BIAS_NONE)
+      tma_2d(raw + Q_BYTES + META_B, &wm.b, bar, n0, k0 >> (by_d ? lds : lgs));
+  } else {
+    mbar_expect_tx(bar, ((w.sb ? 1 : 0) + (w.bias == BIAS_I8D ? 1 : 0)) * grows * BN);
+    if (w.sb) tma_2d(raw + Q_BYTES + META_S8, &wm.s8, bar, n0, k0 >> lgs);
+    if (w.bias == BIAS_I8D) tma_2d(raw + Q_BYTES + META_M8, &wm.m8, bar, n0, k0 >> lgs);
   }
 }
 
-// Producer: the scales and biases of 4 columns [nl, nl + 4) in staged group gi
-__device__ __forceinline__ void stage_scales(const KmW& w, const uint8_t* meta, int gi, int nl,
-                                             float (&sc)[4], float (&bi)[4]) {
-  const float4 d = *reinterpret_cast<const float4*>(meta + META_D + gi * 512 + nl * 4);
+// a signed byte of a word -> float, exactly, as in dequant_octet
+__device__ __forceinline__ float i8_to_f32(uint32_t word, int c) {
+  return __fadd_rn(__int_as_float(__byte_perm(word ^ 0x80808080u, 0x4B000000u, 0x7440u | c)),
+                   -8388736.f);
+}
+
+// Producer: the scales and biases of 4 columns [nl, nl + 4) from the staged
+// rows: dl is the d row in the chunk, gl the group
+__device__ __forceinline__ void stage_scales(const KmW& w, const uint8_t* meta, int dl, int gl,
+                                             int nl, float (&sc)[4], float (&bi)[4]) {
+  const float4 d = *reinterpret_cast<const float4*>(meta + META_D + dl * 512 + nl * 4);
   sc[0] = d.x, sc[1] = d.y, sc[2] = d.z, sc[3] = d.w;
   bi[0] = bi[1] = bi[2] = bi[3] = 0.f;
   if (w.sb) {
-    const uint32_t s = *reinterpret_cast<const uint32_t*>(meta + META_S8 + gi * 128 + nl);
+    const uint32_t s = *reinterpret_cast<const uint32_t*>(meta + META_S8 + gl * 128 + nl);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sc[c] = __fmul_rn((float)(int8_t)(s >> (8 * c)), sc[c]);
+    for (int c = 0; c < 4; ++c) sc[c] = __fmul_rn(i8_to_f32(s, c), sc[c]);
   }
   if (w.bias != BIAS_NONE) {
-    const float4 b = *reinterpret_cast<const float4*>(meta + META_B + gi * 512 + nl * 4);
+    const int bl = w.bias == BIAS_I8D ? dl : gl;
+    const float4 b = *reinterpret_cast<const float4*>(meta + META_B + bl * 512 + nl * 4);
     bi[0] = b.x, bi[1] = b.y, bi[2] = b.z, bi[3] = b.w;
   }
   if (w.bias == BIAS_I8D) {
-    const uint32_t m = *reinterpret_cast<const uint32_t*>(meta + META_M8 + gi * 128 + nl);
+    const uint32_t m = *reinterpret_cast<const uint32_t*>(meta + META_M8 + gl * 128 + nl);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) bi[c] = -__fmul_rn((float)(int8_t)(m >> (8 * c)), bi[c]);
+    for (int c = 0; c < 4; ++c) bi[c] = -__fmul_rn(i8_to_f32(m, c), bi[c]);
   }
+}
+
+// Producer thread t's share of a chunk: two octets x 4 columns [nl, nl + 4)
+// of the weight tile, from the raw stage to the swizzled bf16 tile. Lanes of
+// one warp take different octets (xor of lane bits 1-2), so that any 8
+// neighbouring lanes store to 8 distinct 16-byte slots of the swizzled rows:
+// no bank conflicts. Both octets' loads come before their arithmetic.
+template <int KIND, int MODE>
+__device__ __forceinline__ void dequant_chunk(const KmW& w, const uint8_t* raw, uint8_t* wt,
+                                              int k0, int plane, int lgs, int lds, int t,
+                                              float offc, const float* lut) {
+  const int lane = t % 32, nl = lane * 4;
+  int oct[2];
+  float sc[2][4], bi[2][4];
+  uint32_t v[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    oct[h] = (t / 32 + 4 * h) ^ ((lane >> 1) & 3);
+    const int k = k0 + oct[h] * 8;
+    stage_scales(w, raw + Q_BYTES, (k >> lds) - (k0 >> lds), (k >> lgs) - (k0 >> lgs), nl,
+                 sc[h], bi[h]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[h][i] = to_bytes<KIND>(
+          *reinterpret_cast<const uint32_t*>(raw + (oct[h] * 8 + i) * 128 + nl), plane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) dequant_octet<MODE>(v[h], sc[h], bi[h], offc, lut, wt, oct[h], nl);
 }
 
 template <int KIND>
 __global__ void __launch_bounds__(THREADS, 1)
-qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, KmW w, void* out, int Nout,
-                 int out_bf16, int lgs, int lds) {
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ WMaps wm,
+                 int M, KmW w, void* out, int Nout, int out_bf16, int lgs, int lds) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (saddr(smem_raw) & 1023u)) & 1023u;
   uint8_t* ring = smem_raw + pad;                  // S x (x tile, weight tile)
   uint8_t* raws = ring + S * (X_BYTES + W_BYTES);  // R x (raw chunk, scale rows)
   uint64_t* full = reinterpret_cast<uint64_t*>(raws + R * RAW_BYTES);
   uint64_t* empty = full + S;
-  float* lut = reinterpret_cast<float*>(empty + S);
-  const uint32_t ring_a = saddr(ring), raws_a = saddr(raws);
+  uint64_t* rfull = empty + S;  // R: a raw stage has landed
+  float* lut = reinterpret_cast<float*>(rfull + R);
+  const uint32_t ring_a = saddr(ring);
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int nK = w.K / BK;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(saddr(full + s), 128 + 1);  // producer threads + the TMA's expect_tx
+      mbar_init(saddr(full + s), 128 + 1);  // producer threads + the x TMA's expect_tx
       mbar_init(saddr(empty + s), 2);       // one thread of each consumer warpgroup
     }
+    for (int r = 0; r < R; ++r) mbar_init(saddr(rfull + r), 4);  // one per producer warp
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (tid < 16) lut[tid] = w.lut[tid];
@@ -336,52 +373,50 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, KmW w, void* o
   if (tid < 128) {
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
-    const int lane = tid % 32, nl = lane * 4;
+    const int t = tid, wp = t / 32;
+    const uint32_t raws_a = saddr(raws), rfull_a = saddr(rfull);
     const int Kr = w.K / (KIND == KIND_U4 ? 2 : 1);
     const int mode = w.has_lut ? MODE_LUT : (w.bias != BIAS_NONE ? MODE_BIAS : MODE_OFF);
     const float offc = __fadd_rn(w.off, KIND == KIND_U4 ? -8388608.f : -8388736.f);
-#pragma unroll 1
-    for (int c = 0; c < R - 1; ++c) {
-      if (c < nK) load_raw(w, c, n0, Kr, lgs, lds, raws_a + c * RAW_BYTES, tid);
-      cp_async_commit();
+    // lane 0 of each warp issues its share of the raw chunks' copies, thread
+    // 0 also the x tiles'
+    const bool loader = t % 32 == 0;
+    if (t == 0) {
+      prefetch_map(&xmap);
+      prefetch_map(&wm.q);
+      prefetch_map(&wm.d);
+      if (w.bias != BIAS_NONE) prefetch_map(&wm.b);
+      if (w.sb) prefetch_map(&wm.s8);
+      if (w.bias == BIAS_I8D) prefetch_map(&wm.m8);
     }
+    if (loader)
+      for (int c = 0; c < R - 1 && c < nK; ++c)
+        load_raw(wm, w, wp, c, n0, Kr, lgs, lds, raws_a + c * RAW_BYTES, rfull_a + c * 8);
 #pragma unroll 1
     for (int kc = 0; kc < nK; ++kc) {
-      cp_async_wait<R - 2>();  // this thread's copies of chunk kc have landed
-      producer_sync();         // everyone's have, and chunk kc - 1 is dequantized
+      producer_sync();  // chunk kc - 1 is dequantized: its raw stage is free
       const int ahead = kc + R - 1;
-      if (ahead < nK) load_raw(w, ahead, n0, Kr, lgs, lds, raws_a + (ahead % R) * RAW_BYTES, tid);
-      cp_async_commit();
-
+      if (loader && ahead < nK)
+        load_raw(wm, w, wp, ahead, n0, Kr, lgs, lds, raws_a + (ahead % R) * RAW_BYTES,
+                 rfull_a + (ahead % R) * 8);
       const int s = kc % S;
       mbar_wait(saddr(empty + s), ((kc / S) & 1) ^ 1);  // chunk kc - S consumed
       uint8_t* stage = ring + s * (X_BYTES + W_BYTES);
-      if (tid == 0) {
+      if (t == 0) {
         mbar_expect_tx(saddr(full + s), X_BYTES);
-        tma_load_x(saddr(stage), &xmap, saddr(full + s), kc * BK, m0);
+        tma_2d(saddr(stage), &xmap, saddr(full + s), kc * BK, m0);
       }
+      mbar_wait(rfull_a + (kc % R) * 8, (kc / R) & 1);  // raw chunk kc has landed
       const int k0 = kc * BK;
       const int plane = k0 / Kr;
       const uint8_t* raw = raws + (kc % R) * RAW_BYTES;
       uint8_t* wt = stage + X_BYTES;
-#pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        const int oct = tid / 32 + 4 * half;
-        const int gi = ((k0 + oct * 8) >> lgs) - (k0 >> lgs);
-        float sc[4], bi[4];
-        stage_scales(w, raw + Q_BYTES, gi, nl, sc, bi);
-        uint32_t v[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          v[i] = to_bytes<KIND>(*reinterpret_cast<const uint32_t*>(raw + (oct * 8 + i) * 128 + nl),
-                                plane);
-        if (mode == MODE_LUT)
-          dequant_octet<MODE_LUT>(v, sc, bi, offc, lut, wt, oct, nl);
-        else if (mode == MODE_BIAS)
-          dequant_octet<MODE_BIAS>(v, sc, bi, offc, lut, wt, oct, nl);
-        else
-          dequant_octet<MODE_OFF>(v, sc, bi, offc, lut, wt, oct, nl);
-      }
+      if (mode == MODE_LUT)
+        dequant_chunk<KIND, MODE_LUT>(w, raw, wt, k0, plane, lgs, lds, t, offc, lut);
+      else if (mode == MODE_BIAS)
+        dequant_chunk<KIND, MODE_BIAS>(w, raw, wt, k0, plane, lgs, lds, t, offc, lut);
+      else
+        dequant_chunk<KIND, MODE_OFF>(w, raw, wt, k0, plane, lgs, lds, t, offc, lut);
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // tile -> wgmma's view
       mbar_arrive(saddr(full + s));
     }
@@ -425,32 +460,56 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, int M, KmW w, void* o
   }
 }
 
-// x (M, K) bf16, row-major -> its TMA map: box {BK, BM}, 128-byte swizzle
-int make_xmap(CUtensorMap* map, const void* x, int M, int K) {
-  cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  cuuint32_t box[2] = {BK, BM};
+// A row-major (rows, cols) array -> its TMA map with a box of box_rows x
+// box_cols elements
+int make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
+             long long cols, long long rows, int box_cols, int box_rows,
+             CUtensorMapSwizzle swizzle) {
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   cuuint32_t estr[2] = {1, 1};
-  CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides, box, estr,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = cuTensorMapEncodeTiled(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                                      estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 template <int KIND>
-int launch(const CUtensorMap& xmap, int M, const KmW& w, void* out, int Nout, int out_bf16,
+int launch(const void* x, int M, const KmW& w, void* out, int Nout, int out_bf16,
            cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<KIND>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return (int)e;
+  const int P = KIND == KIND_U4 ? 2 : 1;
+  const int K = w.K, N = w.Npad;
   int lgs = 0, lds = 0;
   while ((1 << lgs) < w.gs) ++lgs;
   while ((1 << lds) < w.ds) ++lds;
-  dim3 grid((M + BM - 1) / BM, w.Npad / BN);
-  qmm_wgmma_kernel<KIND><<<grid, THREADS, SMEM, st>>>(xmap, M, w, out, Nout, out_bf16, lgs,
+  const int drows = w.ds >= BK ? 1 : BK / w.ds;  // d rows in a chunk
+  const int grows = w.gs >= BK ? 1 : BK / w.gs;  // scale groups in a chunk
+  const CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                            F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapSwizzle NONE = CU_TENSOR_MAP_SWIZZLE_NONE;
+  CUtensorMap xmap;
+  WMaps wm{};  // maps of absent arrays stay zero and unused
+  int err = make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, BK, BM,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  err = err ? err : make_map(&wm.q, U8, 1, w.q, N, K / P, BN, BK, NONE);
+  err = err ? err : make_map(&wm.d, F32, 4, w.d, N, K / w.ds, BN, drows, NONE);
+  if (w.bias == BIAS_I8D) {
+    err = err ? err : make_map(&wm.b, F32, 4, w.dmin, N, K / w.ds, BN, drows, NONE);
+    err = err ? err : make_map(&wm.m8, U8, 1, w.m8, N, K / w.gs, BN, grows, NONE);
+  } else if (w.bias == BIAS_F32) {
+    err = err ? err : make_map(&wm.b, F32, 4, w.bm, N, K / w.gs, BN, grows, NONE);
+  }
+  if (w.sb) err = err ? err : make_map(&wm.s8, U8, 1, w.s8, N, K / w.gs, BN, grows, NONE);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<KIND>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((M + BM - 1) / BM, N / BN);
+  qmm_wgmma_kernel<KIND><<<grid, THREADS, SMEM, st>>>(xmap, wm, M, w, out, Nout, out_bf16, lgs,
                                                       lds);
   return (int)cudaGetLastError();
 }
@@ -466,16 +525,13 @@ int tpq_qmm(const void* x, int M, int K, const unsigned long long* wp, const int
   KmW w = make_kmw(wp, wi, wf);
   const int P = w.kind == KIND_U4 ? 2 : 1;
   // N in whole tiles, each 64-deep chunk inside one plane, scale groups of
-  // at least 16 and power-of-two group and d-row sizes, 16-byte x rows
+  // 16 to 256 and power-of-two group and d-row sizes, 16-byte x rows
   if (M < 1 || w.K != K || w.Npad % BN || (K / P) % BK || K % 8 || Nout > w.Npad ||
-      w.gs < 16 || !pow2(w.gs) || !pow2(w.ds))
+      w.gs < 16 || !pow2(w.gs) || !pow2(w.ds) || w.ds < w.gs)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap xmap;
-  int err = make_xmap(&xmap, x, M, K);
-  if (err) return err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return w.kind == KIND_U4 ? launch<KIND_U4>(xmap, M, w, out, Nout, out_bf16, st)
-                           : launch<KIND_I8>(xmap, M, w, out, Nout, out_bf16, st);
+  return w.kind == KIND_U4 ? launch<KIND_U4>(x, M, w, out, Nout, out_bf16, st)
+                           : launch<KIND_I8>(x, M, w, out, Nout, out_bf16, st);
 }
 
 }  // extern "C"

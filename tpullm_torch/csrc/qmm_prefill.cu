@@ -44,7 +44,7 @@ namespace {
 
 constexpr int BM = 256, BN = 128, BK = 64;
 constexpr int S = 3;                   // stages of the x / weight-tile ring
-constexpr int R = 4;                   // stages of the raw-chunk ring
+constexpr int R = 5;                   // stages of the raw-chunk ring
 constexpr int X_BYTES = BM * BK * 2;   // x tile: 256 rows of 128 B
 constexpr int W_BYTES = BN * BK * 2;   // weight tile: 128 rows (columns n) of 128 B
 constexpr int Q_BYTES = BK * BN;       // raw chunk: 64 rows of 128 bytes
@@ -249,30 +249,27 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// barrier of the producer warpgroup alone
-__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
-
 // TMA maps of a weight's arrays: q rows, d rows, dmin (per d row) or bm
 // (per group) rows, s8 and m8 rows; a box is one chunk's rows x 128 columns
 struct WMaps {
   CUtensorMap q, d, b, s8, m8;
 };
 
-// Producer warp wp's share of raw chunk kc's copies (the q rows of its
-// plane; its d rows; its dmin or bm rows; its s8 and m8 rows) into a raw
-// stage by TMA. Each warp arrives once on bar (count 4) with its bytes, so
-// the stage completes when all four shares have landed.
-__device__ __forceinline__ void load_raw(const WMaps& wm, const KmW& w, int wp, int kc, int n0,
+// Share `part` (0-3) of raw chunk kc's copies into a raw stage by TMA: the
+// q rows of its plane; its d rows; its dmin or bm rows; its s8 and m8 rows.
+// Each share's issuing thread arrives once on bar (count 4) with its bytes,
+// so the stage completes when all four shares have landed.
+__device__ __forceinline__ void load_raw(const WMaps& wm, const KmW& w, int part, int kc, int n0,
                                          int Kr, int lgs, int lds, uint32_t raw, uint32_t bar) {
   const int k0 = kc * BK;
   const int drows = lds >= 6 ? 1 : BK >> lds, grows = lgs >= 6 ? 1 : BK >> lgs;
-  if (wp == 0) {
+  if (part == 0) {
     mbar_expect_tx(bar, Q_BYTES);
     tma_2d(raw, &wm.q, bar, n0, k0 - (k0 / Kr) * Kr);
-  } else if (wp == 1) {
+  } else if (part == 1) {
     mbar_expect_tx(bar, drows * BN * 4);
     tma_2d(raw + Q_BYTES + META_D, &wm.d, bar, n0, k0 >> lds);
-  } else if (wp == 2) {
+  } else if (part == 2) {
     const bool by_d = w.bias == BIAS_I8D;
     mbar_expect_tx(bar, w.bias == BIAS_NONE ? 0 : (by_d ? drows : grows) * BN * 4);
     if (w.bias != BIAS_NONE)
@@ -359,12 +356,13 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int nK = w.K / BK;
+  const int Kr = w.K / (KIND == KIND_U4 ? 2 : 1);  // rows of a q plane
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(saddr(full + s), 128 + 1);  // producer threads + the x TMA's expect_tx
       mbar_init(saddr(empty + s), 2);       // one thread of each consumer warpgroup
     }
-    for (int r = 0; r < R; ++r) mbar_init(saddr(rfull + r), 4);  // one per producer warp
+    for (int r = 0; r < R; ++r) mbar_init(saddr(rfull + r), 4);  // one per share
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (tid < 16) lut[tid] = w.lut[tid];
@@ -373,32 +371,13 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   if (tid < 128) {
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
-    const int t = tid, wp = t / 32;
-    const uint32_t raws_a = saddr(raws), rfull_a = saddr(rfull);
-    const int Kr = w.K / (KIND == KIND_U4 ? 2 : 1);
+    const int t = tid;
+    const uint32_t rfull_a = saddr(rfull);
     const int mode = w.has_lut ? MODE_LUT : (w.bias != BIAS_NONE ? MODE_BIAS : MODE_OFF);
     const float offc = __fadd_rn(w.off, KIND == KIND_U4 ? -8388608.f : -8388736.f);
-    // lane 0 of each warp issues its share of the raw chunks' copies, thread
-    // 0 also the x tiles'
-    const bool loader = t % 32 == 0;
-    if (t == 0) {
-      prefetch_map(&xmap);
-      prefetch_map(&wm.q);
-      prefetch_map(&wm.d);
-      if (w.bias != BIAS_NONE) prefetch_map(&wm.b);
-      if (w.sb) prefetch_map(&wm.s8);
-      if (w.bias == BIAS_I8D) prefetch_map(&wm.m8);
-    }
-    if (loader)
-      for (int c = 0; c < R - 1 && c < nK; ++c)
-        load_raw(wm, w, wp, c, n0, Kr, lgs, lds, raws_a + c * RAW_BYTES, rfull_a + c * 8);
+    if (t == 0) prefetch_map(&xmap);  // thread 0 issues the x tiles' copies
 #pragma unroll 1
     for (int kc = 0; kc < nK; ++kc) {
-      producer_sync();  // chunk kc - 1 is dequantized: its raw stage is free
-      const int ahead = kc + R - 1;
-      if (loader && ahead < nK)
-        load_raw(wm, w, wp, ahead, n0, Kr, lgs, lds, raws_a + (ahead % R) * RAW_BYTES,
-                 rfull_a + (ahead % R) * 8);
       const int s = kc % S;
       mbar_wait(saddr(empty + s), ((kc / S) & 1) ^ 1);  // chunk kc - S consumed
       uint8_t* stage = ring + s * (X_BYTES + W_BYTES);
@@ -424,6 +403,22 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
     // ----------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int cw = tid / 128 - 1;  // rows [128 cw, 128 cw + 128) of the tile
+    // Lane 0 of the first two warps of each consumer warpgroup issues one
+    // share of the raw chunks' copies: chunk kc + R into chunk kc's raw stage
+    // once full[kc] shows the producer done with it. This keeps the TMA
+    // issue, which stalls the issuing warp, off the producer's path.
+    const int part = cw * 2 + (tid / 32) % 4;
+    const bool loader = tid % 32 == 0 && (tid / 32) % 4 < 2;
+    const uint32_t raws_a = saddr(raws), rfull_a = saddr(rfull);
+    if (loader) {
+      if (part == 0) prefetch_map(&wm.q);
+      if (part == 1) prefetch_map(&wm.d);
+      if (part == 2 && w.bias != BIAS_NONE) prefetch_map(&wm.b);
+      if (part == 3 && w.sb) prefetch_map(&wm.s8);
+      if (part == 3 && w.bias == BIAS_I8D) prefetch_map(&wm.m8);
+      for (int c = 0; c < R && c < nK; ++c)
+        load_raw(wm, w, part, c, n0, Kr, lgs, lds, raws_a + c * RAW_BYTES, rfull_a + c * 8);
+    }
     float acc[2][64];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -446,6 +441,9 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
           wgmma_m64n128k16(acc[h], sw128_desc(xa + h * 64 * 128 + k * 32), db);
       }
       wgmma_commit();
+      if (loader && kc + R < nK)
+        load_raw(wm, w, part, kc + R, n0, Kr, lgs, lds, raws_a + (kc % R) * RAW_BYTES,
+                 rfull_a + (kc % R) * 8);
       wgmma_wait<1>();  // chunk kc - 1's products are done: release its stage
       fence_acc(acc[0]);
       fence_acc(acc[1]);

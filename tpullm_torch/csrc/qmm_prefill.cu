@@ -8,25 +8,29 @@
 // tensor cores become the limit: 2 M N K / 989 TFLOP/s, 0.49 ms for
 // gateup (28672 x 4096).
 //
-// What the design does about it. The tensor cores must never wait for the
-// dequant, and the dequant must be paid as rarely as possible:
+// What the design does about it. The tensor cores should not wait for the
+// dequant, and the dequant is paid as rarely as possible:
 // - A block owns a 256-row x 128-column output tile, so each dequantized
 //   64 x 128 weight chunk feeds 256 rows (wgmma's M is the tokens, its N
 //   the weight columns). Blocks of one column tile run side by side (the
 //   grid's fast axis is the row tile), so the weight bytes come from HBM
 //   about once and x stays in L2.
-// - Warp specialisation, 384 threads. Two consumer warpgroups (128 rows
-//   each, two m64n128 f32 accumulators = 128 registers a thread) only
-//   issue wgmma.mma_async m64n128k16 from shared memory and keep one chunk
-//   of them in flight. One producer warpgroup, which setmaxnreg leaves
-//   with few registers, keeps the copies in flight and dequantizes ahead:
-//   the x tile (256 x 64 bf16) by TMA, 128-byte swizzled, rows past M
-//   arriving as zeros; the raw quantized chunk (64 x 128 bytes: one nibble
-//   plane for u4) and its scale rows by cp.async, R chunks ahead; then the
-//   chunk's (group, column) scales once, and the bf16 weight tile written
-//   into the same swizzled K-major layout that the wgmma descriptor names.
-// - A ring of S stages (x tile + weight tile) hands chunks over with a full
-//   and an empty mbarrier per stage.
+// - Warp specialisation, 384 threads. One producer warpgroup, which
+//   setmaxnreg leaves with 120 registers, dequantizes: per chunk it
+//   computes the (group, column) scales once from the staged scale rows
+//   and writes the bf16 weight tile into the 128-byte swizzled K-major
+//   layout that the wgmma descriptor names; its thread 0 also asks TMA for
+//   the x tile (256 x 64 bf16, 128-byte swizzled, rows past M arriving as
+//   zeros). Two consumer warpgroups (128 rows each, two m64n128 f32
+//   accumulators = 128 registers a thread) issue wgmma.mma_async
+//   m64n128k16 from shared memory with one chunk of products kept in
+//   flight, and the raw chunks' TMA copies, R chunks ahead: the quantized
+//   chunk (64 x 128 bytes: one nibble plane for u4) and its scale rows,
+//   in four shares. Issuing a TMA copy stalls the issuing warp for
+//   hundreds of cycles, and the consumers have that time to spare.
+// - Rings: S stages of (x tile, weight tile) with a full and an empty
+//   mbarrier each, R raw stages with one mbarrier each. A raw stage is
+//   refilled once full[kc] shows the producer done with it.
 // - A stored integer becomes a float with one byte permute and one exact
 //   add (0x4B0000bb is 2^23 + bb); val * scale + bias in rounded steps and
 //   one rounding to bf16, bit-exact with dequant_kmajor_torch.
@@ -72,10 +76,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
-  // the suspend-time hint lets the hardware park the warp until the phase
-  // completes, so waiting warps take no issue slots from working ones
+  // with a suspend-time hint: the hardware may park the warp until the
+  // phase completes
   asm volatile(
       "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, 10000000;\n"
       " selp.u32 %0, 1, 0, p;\n}\n"
@@ -110,6 +118,10 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uin
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // wgmma descriptor of a K-major operand: rows of 128 B, 128-byte swizzle,
@@ -240,14 +252,6 @@ __device__ __forceinline__ void store_half(const float (&d)[64], int mrow, int n
   }
 }
 
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
 
 // TMA maps of a weight's arrays: q rows, d rows, dmin (per d row) or bm
 // (per group) rows, s8 and m8 rows; a box is one chunk's rows x 128 columns

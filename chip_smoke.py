@@ -10,7 +10,8 @@ pass):
 1. build the CUDA kernels from tpullm_torch/csrc (build seconds, registers
    and spills from ptxas);
 2. hold each kernel against its plain PyTorch version at Llama-3-8B Q4_K
-   shapes (and Q6_K for the matmuls), and kernels A, B and F at the
+   shapes (and Q6_K for the matmuls; B also on wqkv at the server's
+   512-row prefill chunk), and kernels A, B and F at the
    Mixtral-8x7B path's own shapes (an expert indexed out of its (L, E)
    stack as the path does, the 32000-row lm_head, F on layer 1 of a
    stack), and time kernel, plain version, one PyTorch library call as a
@@ -230,7 +231,10 @@ def phase_kernels(torch, timer, entries):
         parts, K = pools[name]
         qt = random_kmajor(qtype, parts, K, (), g, "cuda")
         w_bf16 = dequant_kmajor_torch(qt.data, qtype, torch.bfloat16)  # library yardstick
-        for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
+        shapes = [("qmm_splitk", 4), ("qmm", 2048)]
+        if (qtype, name) == (GGMLType.Q4_K, "wqkv"):
+            shapes.append(("qmm", 512))  # B at the server's prefill chunk
+        for kname, M in shapes:
             x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
             qmm_row(torch, timer, entries, kname, f"{kname}[{name},{qtype.name},M={M}]",
                     x, qt, w_bf16)

@@ -88,24 +88,26 @@ def test_qmm_kernel_all_types(cuda, qtype, M):
 @pytest.mark.parametrize("M", [48, 256, 512, 2048])
 @pytest.mark.parametrize("K", [1024, 14336])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_qmm_prefill_tile_edges(cuda, qtype, M, K, out_dtype):
+@pytest.mark.parametrize("nout", [300, 299])
+def test_qmm_prefill_tile_edges(cuda, qtype, M, K, out_dtype, nout):
     """Kernel B's 256-row tile at its edges: one mostly masked tile (48
     rows), exactly one (256), two (the server's 512-row chunk) and eight
     (the engine's 2048); 16 and 224 chunks of K (the long K wraps the ring
-    of stages many times); 300 of 512 columns written (Nout < Npad); layer
-    2 of a 3-layer stack; bf16 and f32 out. Against the plain version
+    of stages many times); 300 or 299 of 512 columns written (Nout < Npad;
+    an odd Nout leaves odd rows' column pairs unaligned for paired stores);
+    layer 2 of a 3-layer stack; bf16 and f32 out. Against the plain version
     within NMSE 1e-5 (the plain f32 product keeps f32 weights, the kernel
     rounds them to bf16), and two calls give identical bits."""
     g = torch.Generator(device=cuda).manual_seed(M + K)
     qt = random_kmajor(qtype, [300], K, (3,), g, cuda)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
     before = _cuda.COUNTS["qmm"]
-    y1 = qmm_kmajor(x, qt.data, qtype, 300, out_dtype, 2)
-    y2 = qmm_kmajor(x, qt.data, qtype, 300, out_dtype, 2)
-    want = qmm_plain(x, qt.data, qtype, 300, out_dtype, 2)
+    y1 = qmm_kmajor(x, qt.data, qtype, nout, out_dtype, 2)
+    y2 = qmm_kmajor(x, qt.data, qtype, nout, out_dtype, 2)
+    want = qmm_plain(x, qt.data, qtype, nout, out_dtype, 2)
     torch.cuda.synchronize()
     assert _cuda.COUNTS["qmm"] == before + 2
-    assert y1.shape == want.shape == (M, 300) and y1.dtype == out_dtype
+    assert y1.shape == want.shape == (M, nout) and y1.dtype == out_dtype
     assert torch.equal(y1, y2)
     assert _nmse(y1, want) < 1e-5
 

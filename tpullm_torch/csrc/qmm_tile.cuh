@@ -1,6 +1,6 @@
 // One 128 x 128 output tile of y = x @ dequant(W)^T over K-major weights:
 // the body of kernel F (moe_gmm.cu) alone, which runs it on one expert's
-// weights per row tile. (Kernel B, which first used it, is qmm_prefill.cu.)
+// weights per row tile.
 //
 // A block of 8 warps (each 32 x 64) walks K in 64-deep steps. Per step it
 // computes the step's (scale group, column) scales and biases once into

@@ -101,7 +101,7 @@ SOURCES = {
     "flash_attention": ("tpullm_torch/csrc/flash_attention.cu",
                         "tpullm/ops/flash_attention.py:28"),
     "layer_kernel": ("tpullm_torch/csrc/layer_kernel.cu", "tpullm/ops/layer_kernel.py:182"),
-    "moe_gmm": ("tpullm_torch/csrc/moe_gmm.cu", "tpullm/ops/moe_gmm.py:33"),
+    "moe_gmm": ("tpullm_torch/csrc/qmm_prefill.cu", "tpullm/ops/moe_gmm.py:33"),
     "flash_decode": ("tpullm_torch/csrc/flash_decode.cu", "tpullm/ops/flash_decode.py:41"),
 }
 DENSE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel")
@@ -355,10 +355,12 @@ def phase_moe_kernels(torch, timer, entries):
     of an (L, E) stack by the path's _expert_mm) and on the 32000-row
     lm_head, kernel B on that lm_head at prefill (M = 2048), and kernel F at
     the prefill's shapes (4 prompts bucketed to 512 = 2048 tokens, top-2 of
-    8 experts: 4096 assignments, 5120 rows with the static padding) on
-    layer 1 of a 2-layer (L, E) stack; then every K-major type through F at
-    one shape. Rows taken from a stack use layer 1 and the last expert, so
-    the layer and expert strides both count."""
+    8 experts: 4096 assignments, 6144 rows with the static padding of
+    256-row tiles) on layer 1 of a 2-layer (L, E) stack, each row with its
+    share of the bound and its ratio to the library call as B's rows; then
+    every K-major type through F at one shape. Rows taken from a stack use
+    layer 1 and the last expert, so the layer and expert offsets both
+    count."""
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.models.llama import _expert_mm, expert_weight
     from tpullm_torch.ops.moe_gmm import (TM, grouped_qmm, grouped_qmm_plain, live_tiles,
@@ -397,7 +399,7 @@ def phase_moe_kernels(torch, timer, entries):
         x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
         xs = torch.zeros((Mp, K), dtype=torch.bfloat16, device="cuda")
         xs[dest] = x[order // used]
-        return xs, te, live_tiles(dest)
+        return xs, te, live_tiles(dest, te, Mp)
 
     M = 2048
     A = M * used
@@ -436,7 +438,8 @@ def phase_moe_kernels(torch, timer, entries):
         label = f"moe_gmm[{name} of layer 1,Q4_K,E={E},Mp={xs.shape[0]},live={n_live * TM}]"
         log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
             f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
-            f"({library}) bound_ms {bound:.4f} ({by}; {A} assignment rows)")
+            f"({library}) bound_ms {bound:.4f} ({by}; {A} assignment rows) "
+            f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}")
         if err >= TOL_QMM_NMSE or not same:
             raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
         entries.append(dict(

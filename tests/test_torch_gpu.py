@@ -37,15 +37,17 @@ def _nmse(a, b):
 
 
 def test_build_reports_ptxas(cuda):
-    """Every kernel is compiled, and kernel B's 128 f32 sums a thread stay
-    in registers: ptxas reports 0 spill bytes for each of its builds."""
+    """Every kernel is compiled, and the 128 f32 sums a thread of kernels B
+    and F (one body) stay in registers: ptxas reports 0 spill bytes for
+    each of their builds."""
     info = _cuda.build()
     names = " ".join(n for n, _, _ in info["ptxas"])
     for k in ("qmm_splitk_kernel", "qmm_wgmma_kernel", "flash_kernel", "layer_kernel",
               "moe_gmm_kernel", "flash_decode_kernel"):
         assert k in names or info["cached"], (k, names)
-    b = [(n, spill) for n, _, spill in info["ptxas"] if "qmm_wgmma_kernel" in n]
-    assert b and all(spill == 0 for _, spill in b), b
+    for k in ("qmm_wgmma_kernel", "moe_gmm_kernel"):
+        b = [(n, spill) for n, _, spill in info["ptxas"] if k in n]
+        assert b and all(spill == 0 for _, spill in b), (k, b)
 
 
 @pytest.mark.parametrize("qtype", QTYPES)
@@ -250,45 +252,62 @@ def test_engine_on_card_matches_cpu(cuda):
             assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
 
 
-def _ragged(cuda, g, routing, E, M=150, K=2048, used=2):
+def _ragged(cuda, g, routing, E, M=150, K=2048, used=2, tm=256):
     """Expert-sorted rows for a routing: random, all to one expert
-    (skewed), or with experts 0 and E-1 never chosen (empty)."""
+    (skewed), or with experts 0 and E-1 never chosen (empty), on row tiles
+    of tm."""
     if routing == "random":
         top_i = torch.rand((M, E), generator=g, device=cuda).argsort(-1)[:, :used]
     elif routing == "skewed":
         top_i = torch.full((M, used), 1, device=cuda)
     else:
         top_i = torch.randint(1, E - 1, (M, used), generator=g, device=cuda)
-    order, dest, te, Mp = sort_by_expert(top_i, E, M)
+    order, dest, te, Mp = sort_by_expert(top_i, E, M, tm)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
     xs = torch.zeros((Mp, K), dtype=torch.bfloat16, device=cuda)
     xs[dest] = x[order // used]
-    return xs, te, live_tiles(dest)
+    return xs, te, live_tiles(dest, te, Mp)
 
 
 @pytest.mark.parametrize("qtype", sorted(KM_SPECS, key=lambda t: t.name))
 @pytest.mark.parametrize("layered", [False, True])
-def test_moe_gmm_kernel_vs_plain(cuda, qtype, layered):
+@pytest.mark.parametrize("M,nout", [(150, 300), (600, 300), (600, 299)])
+def test_moe_gmm_kernel_vs_plain(cuda, qtype, layered, M, nout):
     """Kernel F vs its plain version (same bf16 weights, f32 sums in another
     order: NMSE < 1e-5) for random, skewed and empty-expert routings, with
     and without the live-tile count; two calls give identical bits. K is
-    2048, the smallest K tile every type takes (TQ2_0's)."""
-    g = torch.Generator(device=cuda).manual_seed(int(qtype))
+    2048, the smallest K tile every type takes (TQ2_0's). M = 600 tokens
+    (1200 assignments over 4 experts) puts expert counts across 256-row
+    tile boundaries; an odd Nout (299 of 384 columns) takes the epilogue's
+    and the dead tiles' unpaired stores."""
+    g = torch.Generator(device=cuda).manual_seed(int(qtype) + M)
     E = 4
     qt = random_kmajor(qtype, [300], 2048, (3, E) if layered else (E,), g, cuda)
     layer = 2 if layered else None
     for routing in ("random", "skewed", "empty"):
-        xs, te, live = _ragged(cuda, g, routing, E)
-        want = grouped_qmm_plain(xs, te, qt, 300, layer)
+        xs, te, live = _ragged(cuda, g, routing, E, M=M)
+        want = grouped_qmm_plain(xs, te, qt, nout, layer)
         for lv in (None, live):
             before = _cuda.COUNTS["moe_gmm"]
-            y1 = grouped_qmm(xs, te, qt, 300, layer, lv)
-            y2 = grouped_qmm(xs, te, qt, 300, layer, lv)
+            y1 = grouped_qmm(xs, te, qt, nout, layer, lv)
+            y2 = grouped_qmm(xs, te, qt, nout, layer, lv)
             torch.cuda.synchronize()
             assert _cuda.COUNTS["moe_gmm"] == before + 2
-            assert y1.shape == want.shape == (xs.shape[0], 300)
+            assert y1.shape == want.shape == (xs.shape[0], nout)
             assert torch.equal(y1, y2)
             assert _nmse(y1, want) < 1e-5, (routing, lv is not None)
+
+
+def test_moe_gmm_refuses_other_tile(cuda):
+    """Kernel F takes 256-row tiles only: the JAX package's 128-row
+    bookkeeping raises on the card (no fallback), whether its row count is
+    a multiple of 256 or not."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qt = random_kmajor(GGMLType.Q4_K, [300], 2048, (4,), g, cuda)
+    for M in (150, 128):  # Mp 896 and 768 at 128-row tiles
+        xs, te, live = _ragged(cuda, g, "random", 4, M=M, tm=128)
+        with pytest.raises(ValueError, match="256-row tiles"):
+            grouped_qmm(xs, te, qt, 300, None, live)
 
 
 def test_moe_gmm_unsupported_raises(cuda):

@@ -18,6 +18,7 @@ import torch
 from tpullm.gguf.constants import GGMLType
 from tpullm.models.config import ModelConfig as JConfig
 from tpullm.models.llama import moe_ffn as jmoe_ffn
+from tpullm.ops.moe_gmm import TM as JTM
 from tpullm.ops.moe_gmm import grouped_qmm as jgrouped_qmm
 from tpullm.ops.moe_gmm import sort_by_expert as jsort_by_expert
 from tpullm.ops.qtensor import QTensor as JQTensor
@@ -96,18 +97,48 @@ def _routing(kind, M=64, used=USED, n_expert=E, seed=0):
 
 @pytest.mark.parametrize("kind", ["random", "skewed", "empty"])
 def test_sort_by_expert_matches_jax(kind):
+    """At the JAX package's 128-row tile the port's bookkeeping is the JAX
+    package's, array for array."""
     top_i = _routing(kind)
     jo, jd, jt, jMp = jsort_by_expert(jnp.asarray(top_i), E, top_i.shape[0])
-    o, d, t, Mp = sort_by_expert(torch.from_numpy(top_i), E, top_i.shape[0])
-    assert Mp == jMp and Mp % TM == 0
+    o, d, t, Mp = sort_by_expert(torch.from_numpy(top_i), E, top_i.shape[0], tm=JTM)
+    assert JTM == 128 and Mp == jMp and Mp % JTM == 0
     np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
     np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(t.numpy(), np.asarray(jt))
     # live tiles: every tile up to the last holding a row, and no further
-    used_tiles = set((d.numpy() // TM).tolist())
-    n_live = int(live_tiles(d)[0])
-    assert max(used_tiles) == n_live - 1 and n_live <= Mp // TM
+    used_tiles = set((d.numpy() // JTM).tolist())
+    n_live = int(live_tiles(d, t, Mp)[0])
+    assert max(used_tiles) == n_live - 1 and n_live <= Mp // JTM
+
+
+@pytest.mark.parametrize("kind", ["random", "skewed", "empty"])
+def test_sort_by_expert_whole_256_row_tiles(kind):
+    """Kernel F's bookkeeping (TM = 256, 600 assignments, so expert counts
+    straddle tile boundaries): the JAX package's sort order; each expert's
+    rows contiguous from a tile boundary, in expert order, filling
+    ceil(count / 256) tiles that tile_expert names; tiles past them dead,
+    clamped to the last expert; live_tiles counts the live ones."""
+    M = 300
+    top_i = _routing(kind, M=M)
+    jo, _, _, _ = jsort_by_expert(jnp.asarray(top_i), E, M)
+    o, d, t, Mp = sort_by_expert(torch.from_numpy(top_i), E, M)
+    assert TM == 256 and Mp == (-(-M * USED // TM) + E) * TM
+    assert t.dtype == torch.int32 and t.shape == (Mp // TM,)
+    np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
+    ef = top_i.reshape(-1)[o.numpy()]  # expert of each sorted assignment
+    d, t = d.numpy(), t.numpy()
+    assert np.all(np.diff(ef) >= 0)
+    start = 0
+    for e in range(E):
+        n = int((ef == e).sum())
+        np.testing.assert_array_equal(d[ef == e], start + np.arange(n))
+        tiles = -(-n // TM)
+        assert (t[start // TM: start // TM + tiles] == e).all()
+        start += tiles * TM
+    n_live = int(live_tiles(torch.from_numpy(d), torch.from_numpy(t), Mp)[0])
+    assert n_live == start // TM and (t[n_live:] == E - 1).all()
 
 
 # ------------------------------------------------------------ kernel F's plain version
@@ -149,9 +180,40 @@ def test_grouped_qmm_plain_matches_pallas_interpret(qtype, layered):
     assert torch.equal(got, same)
     want = np.asarray(want.astype(jnp.float32))
     assert _nmse(got.float().numpy(), want) < 1e-5
-    live = sorted(set((np.asarray(d) // TM).tolist()))
-    dead = [r for r in range(Mp) if r // TM > live[-1]]
+    live = sorted(set((np.asarray(d) // JTM).tolist()))
+    dead = [r for r in range(Mp) if r // JTM > live[-1]]
     assert not got.float().numpy()[dead].any() and not want[dead].any()
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q8_0])
+@pytest.mark.parametrize("layered", [False, True])
+def test_grouped_qmm_plain_tile_256_matches_128(qtype, layered):
+    """grouped_qmm_plain on kernel F's 256-row bookkeeping gives every
+    assignment, read through dest, the same bits as on the JAX package's
+    128-row bookkeeping (a row's product does not depend on the padding
+    around it), and so agrees with the Pallas kernel in interpret mode on
+    that bookkeeping within the NMSE 1e-5 of the test above. 300 tokens,
+    so expert counts straddle both tiles' boundaries."""
+    gate, _, _ = _expert_weights(qtype, layered)
+    rng = np.random.default_rng(4)
+    M = 300
+    top_i = _routing("random", M=M, seed=6)
+    x = (rng.standard_normal((M, D)) * 0.3).astype(np.float32)
+    layer = 1 if layered else None
+    got = {}
+    for tm in (JTM, TM):
+        o, d, t, Mp = sort_by_expert(torch.from_numpy(top_i), E, M, tm=tm)
+        xs = torch.zeros((Mp, D), dtype=torch.bfloat16)
+        xs[d] = torch.from_numpy(x).to(torch.bfloat16)[o // USED]
+        got[tm] = grouped_qmm_plain(xs, t, _port(gate), NFF, layer)[d]
+    assert torch.equal(got[TM], got[JTM])
+    jo, jd, jt, jMp = jsort_by_expert(jnp.asarray(top_i), E, M)
+    xs_pad = jnp.zeros((jMp, D), jnp.bfloat16).at[jd].set(
+        jnp.asarray(x, jnp.bfloat16)[np.asarray(jo) // USED])
+    want = jgrouped_qmm(xs_pad, jt, gate, NFF, layer=None if layer is None else jnp.int32(layer),
+                        interpret=True)
+    want = np.asarray(want.astype(jnp.float32))[np.asarray(jd)]
+    assert _nmse(got[TM].float().numpy(), want) < 1e-5
 
 
 # ------------------------------------------------------------ the MoE FFN

@@ -1,12 +1,20 @@
-// Kernel B: the prefill dequant-GEMM over K-major weights,
-// y[m, n] = sum_k x[m, k] * bf16(dequant(W)[n, k]), on Hopper's wgmma.
+// Kernels B and F: the prefill dequant-GEMM over K-major weights,
+// y[m, n] = sum_k x[m, k] * bf16(dequant(W)[n, k]), on Hopper's wgmma, and
+// its grouped form over expert-sorted rows.
 //
-// Replaces tpullm/ops/qmm.py:239 _build_qmm (pallas_call :294).
+// B replaces tpullm/ops/qmm.py:239 _build_qmm (pallas_call :294).
+// F replaces tpullm/ops/moe_gmm.py:33 _build_gmm (pallas_call :109), the MoE
+// prefill's MUL_MAT_ID: rows arrive sorted by routed expert and padded per
+// expert to whole 256-row tiles (ops/moe_gmm.py:sort_by_expert), and row
+// tile t multiplies by expert tile_expert[t]'s weight. Both run one body
+// (qmm_tile); F puts an expert indirection in front of it.
 //
 // Bound on this card: operations. At the engine's prefill (M = 2048) a
 // weight byte feeds ~2048 flops, far above the ~295 flop/byte where the
 // tensor cores become the limit: 2 M N K / 989 TFLOP/s, 0.49 ms for
-// gateup (28672 x 4096).
+// gateup (28672 x 4096). F at the Mixtral prefill (4096 assignments of
+// 2048 tokens to 8 experts, ~512 rows an expert) feeds ~512 flops a weight
+// byte: also operations, 0.49 ms for a gate or up call.
 //
 // What the design does about it. The tensor cores should not wait for the
 // dequant, and the dequant is paid as rarely as possible:
@@ -34,6 +42,13 @@
 // - A stored integer becomes a float with one byte permute and one exact
 //   add (0x4B0000bb is 2^23 + bb); val * scale + bias in rounded steps and
 //   one rounding to bf16, bit-exact with dequant_kmajor_torch.
+// - F's weights are one (L?, E, rows, Npad) stack: each array's TMA map
+//   covers the whole stack as (slots x rows, Npad), and a block moves every
+//   weight coordinate to its expert's rows, (layer x E + expert) x rows + r,
+//   read from tile_expert[blockIdx.x] (the TPU kernel's scalar prefetch).
+//   A 64-deep chunk never crosses into the next slot's rows. A tile at or
+//   past the live count writes its zeros and returns before any barrier
+//   exists.
 // No split-K and no atomics: each output element is summed over K in one
 // fixed order, so repeats are bit-identical. The epilogue stores pairs of
 // adjacent columns straight from the accumulators, masking rows >= M and
@@ -260,28 +275,31 @@ struct WMaps {
 };
 
 // Share `part` (0-3) of raw chunk kc's copies into a raw stage by TMA: the
-// q rows of its plane; its d rows; its dmin or bm rows; its s8 and m8 rows.
-// Each share's issuing thread arrives once on bar (count 4) with its bytes,
-// so the stage completes when all four shares have landed.
+// q rows of its plane; its d rows; its dmin or bm rows; its s8 and m8 rows;
+// all of weight `slot` of the stack the maps cover. Each share's issuing
+// thread arrives once on bar (count 4) with its bytes, so the stage
+// completes when all four shares have landed.
 __device__ __forceinline__ void load_raw(const WMaps& wm, const KmW& w, int part, int kc, int n0,
-                                         int Kr, int lgs, int lds, uint32_t raw, uint32_t bar) {
+                                         int Kr, int lgs, int lds, int slot, uint32_t raw,
+                                         uint32_t bar) {
   const int k0 = kc * BK;
+  const int ks = slot * w.K + k0;  // K is whole d rows and scale groups
   const int drows = lds >= 6 ? 1 : BK >> lds, grows = lgs >= 6 ? 1 : BK >> lgs;
   if (part == 0) {
     mbar_expect_tx(bar, Q_BYTES);
-    tma_2d(raw, &wm.q, bar, n0, k0 - (k0 / Kr) * Kr);
+    tma_2d(raw, &wm.q, bar, n0, slot * Kr + k0 - (k0 / Kr) * Kr);
   } else if (part == 1) {
     mbar_expect_tx(bar, drows * BN * 4);
-    tma_2d(raw + Q_BYTES + META_D, &wm.d, bar, n0, k0 >> lds);
+    tma_2d(raw + Q_BYTES + META_D, &wm.d, bar, n0, ks >> lds);
   } else if (part == 2) {
     const bool by_d = w.bias == BIAS_I8D;
     mbar_expect_tx(bar, w.bias == BIAS_NONE ? 0 : (by_d ? drows : grows) * BN * 4);
     if (w.bias != BIAS_NONE)
-      tma_2d(raw + Q_BYTES + META_B, &wm.b, bar, n0, k0 >> (by_d ? lds : lgs));
+      tma_2d(raw + Q_BYTES + META_B, &wm.b, bar, n0, ks >> (by_d ? lds : lgs));
   } else {
     mbar_expect_tx(bar, ((w.sb ? 1 : 0) + (w.bias == BIAS_I8D ? 1 : 0)) * grows * BN);
-    if (w.sb) tma_2d(raw + Q_BYTES + META_S8, &wm.s8, bar, n0, k0 >> lgs);
-    if (w.bias == BIAS_I8D) tma_2d(raw + Q_BYTES + META_M8, &wm.m8, bar, n0, k0 >> lgs);
+    if (w.sb) tma_2d(raw + Q_BYTES + META_S8, &wm.s8, bar, n0, ks >> lgs);
+    if (w.bias == BIAS_I8D) tma_2d(raw + Q_BYTES + META_M8, &wm.m8, bar, n0, ks >> lgs);
   }
 }
 
@@ -343,10 +361,13 @@ __device__ __forceinline__ void dequant_chunk(const KmW& w, const uint8_t* raw, 
   for (int h = 0; h < 2; ++h) dequant_octet<MODE>(v[h], sc[h], bi[h], offc, lut, wt, oct[h], nl);
 }
 
+// The block's 256 x 128 output tile, out[m0:, n0:] = x[m0:] @ W[slot]^T,
+// with (m0, n0) from the block's place in the grid: B's whole kernel and
+// F's live tiles.
 template <int KIND>
-__global__ void __launch_bounds__(THREADS, 1)
-qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ WMaps wm,
-                 int M, KmW w, void* out, int Nout, int out_bf16, int lgs, int lds) {
+__device__ __forceinline__ void qmm_tile(const CUtensorMap& xmap, const WMaps& wm, int M,
+                                         const KmW& w, void* out, int Nout, int out_bf16,
+                                         int lgs, int lds, int slot) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (saddr(smem_raw) & 1023u)) & 1023u;
   uint8_t* ring = smem_raw + pad;                  // S x (x tile, weight tile)
@@ -421,7 +442,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
       if (part == 3 && w.sb) prefetch_map(&wm.s8);
       if (part == 3 && w.bias == BIAS_I8D) prefetch_map(&wm.m8);
       for (int c = 0; c < R && c < nK; ++c)
-        load_raw(wm, w, part, c, n0, Kr, lgs, lds, raws_a + c * RAW_BYTES, rfull_a + c * 8);
+        load_raw(wm, w, part, c, n0, Kr, lgs, lds, slot, raws_a + c * RAW_BYTES,
+                 rfull_a + c * 8);
     }
     float acc[2][64];
 #pragma unroll
@@ -446,7 +468,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
       }
       wgmma_commit();
       if (loader && kc + R < nK)
-        load_raw(wm, w, part, kc + R, n0, Kr, lgs, lds, raws_a + (kc % R) * RAW_BYTES,
+        load_raw(wm, w, part, kc + R, n0, Kr, lgs, lds, slot, raws_a + (kc % R) * RAW_BYTES,
                  rfull_a + (kc % R) * 8);
       wgmma_wait<1>();  // chunk kc - 1's products are done: release its stage
       fence_acc(acc[0]);
@@ -460,6 +482,57 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
     for (int h = 0; h < 2; ++h)
       store_half(acc[h], m0 + cw * 128 + h * 64, n0, M, Nout, out, out_bf16);
   }
+}
+
+// B: x (M, K) @ W^T, one 256 x 128 tile a block
+template <int KIND>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ WMaps wm,
+                 int M, KmW w, void* out, int Nout, int out_bf16, int lgs, int lds) {
+  qmm_tile<KIND>(xmap, wm, M, w, out, Nout, out_bf16, lgs, lds, 0);
+}
+
+// F's expert indirection: row tile t multiplies by weight
+// layer * E + tile_expert[t] of the stack; tiles at or past *live (when
+// given) hold no row
+struct Moe {
+  const int* tile_expert;
+  const int* live;
+  int layer, E;
+};
+
+// bf16 zeros over out[m0:m0 + 256, n0:n0 + 128], columns >= Nout masked
+__device__ __forceinline__ void store_zeros(int m0, int n0, int Nout, __nv_bfloat16* out) {
+  if (Nout % 8 == 0) {  // 16-byte stores: rows start 16-byte aligned
+    for (int i = threadIdx.x; i < BM * BN / 8; i += THREADS) {
+      const int n = n0 + (i % (BN / 8)) * 8;
+      if (n < Nout)
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + i / (BN / 8)) * Nout + n) =
+            make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
+      const int n = n0 + i % BN;
+      if (n < Nout) out[(size_t)(m0 + i / BN) * Nout + n] = __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// F: xs (Mp, K) expert-sorted rows @ W[layer, tile_expert[t]]^T per row
+// tile, bf16 out. A dead tile returns before the body's barriers exist, all
+// of its threads together, so no warp waits on a barrier that never
+// completes.
+template <int KIND>
+__global__ void __launch_bounds__(THREADS, 1)
+moe_gmm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ WMaps wm,
+               int M, KmW w, void* out, int Nout, int lgs, int lds, Moe moe) {
+  const int t = blockIdx.x;
+  if (moe.live != nullptr && t >= __ldg(moe.live)) {
+    store_zeros(t * BM, blockIdx.y * BN, Nout, reinterpret_cast<__nv_bfloat16*>(out));
+    return;
+  }
+  qmm_tile<KIND>(xmap, wm, M, w, out, Nout, 1, lgs, lds,
+                 moe.layer * moe.E + __ldg(moe.tile_expert + t));
 }
 
 // A row-major (rows, cols) array -> its TMA map with a box of box_rows x
@@ -480,9 +553,21 @@ int make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* 
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+// The body's shape rule: N in whole tiles, each 64-deep chunk inside one
+// plane (and so inside one weight of a stack), K in whole d rows, scale
+// groups of 16 to 256 and power-of-two group and d-row sizes, 16-byte x rows
+bool takes(const KmW& w, int M, int K, int Nout) {
+  const int P = w.kind == KIND_U4 ? 2 : 1;
+  return M >= 1 && w.K == K && w.Npad % BN == 0 && (K / P) % BK == 0 && K % 8 == 0 &&
+         K % w.ds == 0 && Nout <= w.Npad && w.gs >= 16 && pow2(w.gs) && pow2(w.ds) &&
+         w.ds >= w.gs;
+}
+
+// Maps over a stack of `slots` weights (1 for B), then B's kernel, or F's
+// when moe is given
 template <int KIND>
-int launch(const void* x, int M, const KmW& w, void* out, int Nout, int out_bf16,
-           cudaStream_t st) {
+int launch(const void* x, int M, const KmW& w, int slots, void* out, int Nout, int out_bf16,
+           const Moe* moe, cudaStream_t st) {
   const int P = KIND == KIND_U4 ? 2 : 1;
   const int K = w.K, N = w.Npad;
   int lgs = 0, lds = 0;
@@ -490,6 +575,7 @@ int launch(const void* x, int M, const KmW& w, void* out, int Nout, int out_bf16
   while ((1 << lds) < w.ds) ++lds;
   const int drows = w.ds >= BK ? 1 : BK / w.ds;  // d rows in a chunk
   const int grows = w.gs >= BK ? 1 : BK / w.gs;  // scale groups in a chunk
+  const long long SK = (long long)slots * K;
   const CUtensorMapDataType U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8,
                             F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUtensorMapSwizzle NONE = CU_TENSOR_MAP_SWIZZLE_NONE;
@@ -497,22 +583,31 @@ int launch(const void* x, int M, const KmW& w, void* out, int Nout, int out_bf16
   WMaps wm{};  // maps of absent arrays stay zero and unused
   int err = make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, BK, BM,
                  CU_TENSOR_MAP_SWIZZLE_128B);
-  err = err ? err : make_map(&wm.q, U8, 1, w.q, N, K / P, BN, BK, NONE);
-  err = err ? err : make_map(&wm.d, F32, 4, w.d, N, K / w.ds, BN, drows, NONE);
+  err = err ? err : make_map(&wm.q, U8, 1, w.q, N, SK / P, BN, BK, NONE);
+  err = err ? err : make_map(&wm.d, F32, 4, w.d, N, SK / w.ds, BN, drows, NONE);
   if (w.bias == BIAS_I8D) {
-    err = err ? err : make_map(&wm.b, F32, 4, w.dmin, N, K / w.ds, BN, drows, NONE);
-    err = err ? err : make_map(&wm.m8, U8, 1, w.m8, N, K / w.gs, BN, grows, NONE);
+    err = err ? err : make_map(&wm.b, F32, 4, w.dmin, N, SK / w.ds, BN, drows, NONE);
+    err = err ? err : make_map(&wm.m8, U8, 1, w.m8, N, SK / w.gs, BN, grows, NONE);
   } else if (w.bias == BIAS_F32) {
-    err = err ? err : make_map(&wm.b, F32, 4, w.bm, N, K / w.gs, BN, grows, NONE);
+    err = err ? err : make_map(&wm.b, F32, 4, w.bm, N, SK / w.gs, BN, grows, NONE);
   }
-  if (w.sb) err = err ? err : make_map(&wm.s8, U8, 1, w.s8, N, K / w.gs, BN, grows, NONE);
+  if (w.sb) err = err ? err : make_map(&wm.s8, U8, 1, w.s8, N, SK / w.gs, BN, grows, NONE);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(qmm_wgmma_kernel<KIND>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid((M + BM - 1) / BM, N / BN);
-  qmm_wgmma_kernel<KIND><<<grid, THREADS, SMEM, st>>>(xmap, wm, M, w, out, Nout, out_bf16, lgs,
-                                                      lds);
+  cudaError_t e;
+  if (moe) {
+    e = cudaFuncSetAttribute(moe_gmm_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
+    if (e != cudaSuccess) return (int)e;
+    moe_gmm_kernel<KIND><<<grid, THREADS, SMEM, st>>>(xmap, wm, M, w, out, Nout, lgs, lds,
+                                                      *moe);
+  } else {
+    e = cudaFuncSetAttribute(qmm_wgmma_kernel<KIND>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    qmm_wgmma_kernel<KIND><<<grid, THREADS, SMEM, st>>>(xmap, wm, M, w, out, Nout, out_bf16,
+                                                        lgs, lds);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -525,15 +620,27 @@ int tpq_qmm(const void* x, int M, int K, const unsigned long long* wp, const int
             const float* wf, void* out, int Nout, int out_bf16, void* stream) {
   cudaGetLastError();
   KmW w = make_kmw(wp, wi, wf);
-  const int P = w.kind == KIND_U4 ? 2 : 1;
-  // N in whole tiles, each 64-deep chunk inside one plane, scale groups of
-  // 16 to 256 and power-of-two group and d-row sizes, 16-byte x rows
-  if (M < 1 || w.K != K || w.Npad % BN || (K / P) % BK || K % 8 || Nout > w.Npad ||
-      w.gs < 16 || !pow2(w.gs) || !pow2(w.ds) || w.ds < w.gs)
-    return (int)cudaErrorInvalidValue;
+  if (!takes(w, M, K, Nout)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return w.kind == KIND_U4 ? launch<KIND_U4>(x, M, w, out, Nout, out_bf16, st)
-                           : launch<KIND_I8>(x, M, w, out, Nout, out_bf16, st);
+  return w.kind == KIND_U4 ? launch<KIND_U4>(x, M, w, 1, out, Nout, out_bf16, nullptr, st)
+                           : launch<KIND_I8>(x, M, w, 1, out, Nout, out_bf16, nullptr, st);
+}
+
+// F: xs (Mp, K) bf16 expert-sorted rows, tile_expert (Mp / 256,) int32,
+// live (1,) int32 or null, weights a contiguous stack of `slots` (L?, E)
+// weights of (rows, Npad) arrays, layer (0 without L) -> out (Mp, Nout) bf16.
+int tpq_moe_gmm(const void* x, int Mp, int K, const unsigned long long* wp, const int* wi,
+                const float* wf, const void* tile_expert, const void* live, int layer, int E,
+                int slots, void* out, int Nout, void* stream) {
+  cudaGetLastError();
+  KmW w = make_kmw(wp, wi, wf);
+  if (!takes(w, Mp, K, Nout) || Mp % BM || E < 1 || layer < 0 || (layer + 1) * E > slots)
+    return (int)cudaErrorInvalidValue;
+  const Moe moe{reinterpret_cast<const int*>(tile_expert), reinterpret_cast<const int*>(live),
+                layer, E};
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return w.kind == KIND_U4 ? launch<KIND_U4>(x, Mp, w, slots, out, Nout, 1, &moe, st)
+                           : launch<KIND_I8>(x, Mp, w, slots, out, Nout, 1, &moe, st);
 }
 
 }  // extern "C"

@@ -312,7 +312,7 @@ def _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg: ModelConfig,
     xf = x.reshape(M, D).to(torch.bfloat16)
     order, dest, tile_expert, Mp = sort_by_expert(top_i.reshape(M, used), cfg.n_expert, M)
     tok_s = order // used  # source token of each sorted assignment
-    live = live_tiles(dest)
+    live = live_tiles(dest, tile_expert, Mp)
     xs_pad = torch.zeros((Mp, D), dtype=torch.bfloat16, device=x.device)
     xs_pad[dest] = xf[tok_s]
     n_ff_e = gate_w.shape[-2]

@@ -3,7 +3,7 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` into an object, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes`` (linked
-against the driver library for kernel B's TMA descriptor). The build
+against the driver library for kernels B and F's TMA descriptors). The build
 runs at first use, into ``tpullm_torch/_build/`` keyed by a hash of the
 sources and flags, so importing the package never needs ``nvcc``.
 
@@ -154,9 +154,9 @@ _SIGNATURES = {
     # w_ptrs(4 pools), w_ints, w_floats, att, res, ffn_norm, anrm_next,
     # out, qkv_out, scratch, M, D, Hd, n_ff, act, fold, eps, stream
     "tpq_layer_kernel": [_P] * 3 + [_P] * 7 + [_I] * 6 + [_F, _P],
-    # x, Mp, K, w_ptrs, w_ints, w_floats, expert strides, tile_expert, live,
-    # layer, E, out, Nout, stream
-    "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # x, Mp, K, w_ptrs, w_ints, w_floats, tile_expert, live, layer, E,
+    # slots (the stack's L x E or E weights), out, Nout, stream
+    "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     # q k v ks vs sinks qslots qpos valid_from part_ml part_acc o,
     # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks, stream
     "tpq_flash_decode": [_P] * 12 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _P],
@@ -229,15 +229,6 @@ def km_descriptor(data: dict, qtype, K: int):
             _BIAS[spec.bias], 1 if spec.lut else 0]
     floats = [float(spec.off)] + list(spec.lut or (0.0,) * 16)
     return ptrs, ints, floats
-
-
-def expert_strides(data: dict):
-    """Per-expert element strides of the K-major arrays of a (L?, E, rows,
-    Npad) expert weight, in _KEYS order (0 for an absent array), as the
-    ctypes array kernel F takes."""
-    st = [0 if data.get(k) is None else data[k].shape[-2] * data[k].shape[-1]
-          for k in _KEYS]
-    return (ctypes.c_longlong * len(st))(*st)
 
 
 def c_km(descs: list) -> tuple:

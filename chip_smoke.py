@@ -14,8 +14,10 @@ pass):
    512-row prefill chunk), and kernels A, B and F at the
    Mixtral-8x7B path's own shapes (an expert indexed out of its (L, E)
    stack as the path does, the 32000-row lm_head, F on layer 1 of a
-   stack), and time kernel, plain version, one PyTorch library call as a
-   yardstick, and the roofline bound; check the matmul kernels (A, B and
+   stack), kernel C at the engine's prefill shape and at the server's
+   last chunk of its 6000-token prompt (query slots 5632-6143 over an
+   8192-slot view), and time kernel, plain version, one PyTorch library
+   call as a yardstick, and the roofline bound; check the matmul kernels (A, B and
    F) for every K-major type at one shape; kernel E (decode attention) at
    the server slice's decode shape on bf16 and int8 K/V, and its flag
    cases (T = 4 and 8, windows, softcap, sinks) at a smaller one;
@@ -32,7 +34,8 @@ pass):
    front end answers a burst of 6 concurrent requests (prompts of 6000 to
    40 tokens, 64 new tokens each, one streamed, one sampled) and a
    sequential pair that must reuse its prefix, with A-E launched; the
-   burst again with kernel E off (the einsum path), and a profile of the
+   burst again with kernel E off (the einsum path), a profile of the
+   6000-token prompt's prefill alone (device ms by kernel) and of the
    server's decode chunks each way;
 5. where a decode step's time goes, on the slice's model and batch: the
    spread of ms/step over single steps, the CPU share of the main thread,
@@ -210,12 +213,66 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
         bound_ms=bound, bound_by=by))
 
 
+def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
+    """One row of kernel C at Llama-3-8B's heads: query slots n_past ..
+    n_past + T - 1 of each batch row over an S-slot cache, K/V live from
+    valid_from to the last query slot. Held against masked_attention (NMSE
+    on rows with a visible key, padding rows exactly 0, two calls
+    bit-identical) and timed beside it and SDPA on the same mask. The bound
+    reads q and o once and each batch row's live K/V rows once, and counts
+    4 D flops a visible (query head, key) pair."""
+    from tpullm_torch.models.config import ModelConfig
+    from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
+
+    vf = torch.tensor(vf, device="cuda")
+    q = torch.randn((B, T, H, HD), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
+    qs = n_past + torch.arange(T, device="cuda")[None].expand(B, T)
+    pos = (qs - vf[:, None]).clamp_min(0)
+    kvp = torch.arange(S, device="cuda")[None] - vf[:, None]
+    cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD)
+    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
+    plain = lambda: masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / math.sqrt(HD))
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    live = qs >= vf[:, None]
+    errs = [nmse(torch, got[b][live[b]], want[b][live[b]]) for b in range(B)]
+    pad_zero = all(torch.count_nonzero(got[b][~live[b]]) == 0 for b in range(B))
+    same = torch.equal(got, again)
+    mae = float((got.float() - want.float()).abs().max())
+    slot = torch.arange(S, device="cuda")
+    mask = (slot[None, None, :] <= qs[:, :, None]) & (slot[None, None, :] >= vf[:, None, None])
+    flops = 4.0 * HD * int(mask.sum()) * H
+    kv_rows = sum(max(0, int(qs[b].max()) + 1 - f) for b, f in enumerate(vf.tolist())) * HKV
+    bound, by = bound_of(2 * (2 * B * T * H * HD + 2 * kv_rows * HD), flops)
+    ms = timer(run, 20)
+    pms = timer(plain, 3, warmup=1)
+    qt_ = q.transpose(1, 2)
+    am = mask[:, None]
+    lms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt_, k, v, attn_mask=am, enable_gqa=True), 20)
+    label = f"flash_attention[B={B},H={H},Hkv={HKV},T={T},slots={n_past}+,S={S},D={HD}]"
+    log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_ATTN_NMSE:g}) padding rows zero "
+        f"{pad_zero} repeat identical {same} max_abs_err {mae:.4g} ms {ms:.4f} "
+        f"plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) "
+        f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}")
+    if max(errs) >= TOL_ATTN_NMSE or not pad_zero or not same:
+        raise AssertionError(f"{label}: nmse {errs}, padding rows zero {pad_zero}, "
+                             f"repeat identical {same}")
+    entries.append(dict(
+        name=label, route="cuda", source=SOURCES["flash_attention"][0],
+        replaces=SOURCES["flash_attention"][1], kernel="flash_attention", path=path,
+        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by))
+    del q, k, v, got, again, want, mask, am
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, timer, entries):
     """Phase 2: every kernel vs its plain version at 8B shapes, timed."""
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.ops import _cuda
-    from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
     from tpullm_torch.ops.layer_kernel import _plain as layer_plain
     from tpullm_torch.ops.layer_kernel import ffn_block, ffn_block_qkv
     from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
@@ -242,47 +299,11 @@ def phase_kernels(torch, timer, entries):
         del qt, w_bf16
         torch.cuda.empty_cache()
 
-    # C: prefill flash attention, the slice's shape (4 prompts bucketed to 512)
-    B, T, S = 4, 512, 1024
-    vf = torch.tensor([0, 212, 312, 412], device="cuda")
-    q = torch.randn((B, T, H, HD), generator=g, device="cuda").to(torch.bfloat16)
-    k = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
-    v = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
-    qs = torch.arange(T, device="cuda")[None].expand(B, T)
-    pos = (qs - vf[:, None]).clamp_min(0)
-    kvp = torch.arange(S, device="cuda")[None] - vf[:, None]
-    cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD)
-    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
-    plain = lambda: masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / math.sqrt(HD))
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    errs = [nmse(torch, got[b, f:], want[b, f:]) for b, f in enumerate(vf.tolist())]
-    pad_zero = all(torch.count_nonzero(got[b, :f]) == 0 for b, f in enumerate(vf.tolist()))
-    mae = float((got.float() - want.float()).abs().max())
-    slot = torch.arange(S, device="cuda")
-    mask = (slot[None, None, :] <= qs[:, :, None]) & (slot[None, None, :] >= vf[:, None, None])
-    pairs = int(mask.sum()) * H
-    flops = 4.0 * HD * pairs
-    kv_rows = sum(T - f for f in vf.tolist()) * HKV
-    bound, by = bound_of(2 * (2 * B * T * H * HD + 2 * kv_rows * HD), flops)
-    ms = timer(run, 20)
-    pms = timer(plain, 3, warmup=1)
-    qt_ = q.transpose(1, 2)
-    am = mask[:, None]
-    lms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt_, k, v, attn_mask=am, enable_gqa=True), 20)
-    label = f"flash_attention[B={B},H={H},Hkv={HKV},T={T},S={S},D={HD}]"
-    log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_ATTN_NMSE:g}) padding rows zero "
-        f"{pad_zero} max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} "
-        f"library_ms {lms:.4f} bound_ms {bound:.4f}")
-    if max(errs) >= TOL_ATTN_NMSE or not pad_zero:
-        raise AssertionError(f"{label}: nmse {errs}, padding rows zero {pad_zero}")
-    entries.append(dict(
-        name=label, route="cuda", source=SOURCES["flash_attention"][0],
-        replaces=SOURCES["flash_attention"][1], kernel="flash_attention", max_abs_err=mae,
-        ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by))
-    del q, k, v, got, want, mask, am
-    torch.cuda.empty_cache()
+    # C: prefill flash attention at the slice's shape (4 prompts bucketed to
+    # 512) and at the server's last chunk of its 6000-token prompt
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412])
+    attn_row(torch, timer, entries, g, B=1, T=512, S=8192, n_past=5632, vf=[0],
+             path="8B server")
 
     # every K-major type through A and B at the wo shape (errors only)
     from tpullm_torch.quant.kmajor import KM_SPECS
@@ -962,11 +983,13 @@ def server_burst(base, prompts, label):
 def server_chunk_profile(torch, ctx, prompts, modes):
     """Decode chunks of the server's own loop body, driven from this thread
     with the loop stopped: 4 slots prefilled once with the burst's 4
-    longest prompts; then for each (label, TPULLM_FLASH_DECODE value) in
-    modes, one chunk of warm-up, 3 chunks timed (synchronized) and 2 under
-    torch.profiler (the rows deepen by 6 chunks a mode). -> {label: device
-    ms, launches and wall ms per step, the device-busy share, the rows'
-    depths}."""
+    longest prompts, the longest alone and under torch.profiler (its
+    prefill chunks' device ms by kernel, wall ms with the profiler on);
+    then for each (label, TPULLM_FLASH_DECODE value) in modes, one chunk
+    of warm-up, 3 chunks timed (synchronized) and 2 under torch.profiler
+    (the rows deepen by 6 chunks a mode). -> {label: device ms, launches
+    and wall ms per step, the device-busy share, the rows' depths} and
+    {"lone_prefill": the longest prompt's prefill profile}."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpullm_torch.server.context import GenParams, Task
@@ -977,6 +1000,25 @@ def server_chunk_profile(torch, ctx, prompts, modes):
     out = {}
     with torch.inference_mode():
         ctx._admit()
+        torch.cuda.synchronize()
+        n0 = len(ctx.rt[0].pending)
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chunks = 0
+            while ctx.rt[0].pending:
+                ctx._prefill_step(0)
+                chunks += 1
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        by = {}
+        for name, ms, cnt in device_kernels(prof):
+            k = KERNEL_OF.get(name.split("<")[0], "other")
+            tot, c = by.get(k, (0.0, 0))
+            by[k] = (tot + ms, c + cnt)
+        out["lone_prefill"] = {"tokens": n0, "chunks": chunks,
+                               "wall_ms_profiled": wall,
+                               "device_busy_ms": sum(ms for ms, _ in by.values()),
+                               "device_ms_launches": by}
         while any(r.pending for r in ctx.rt):
             for i, r in enumerate(ctx.rt):
                 if r.pending:
@@ -1103,7 +1145,9 @@ def phase_server(torch, cfg, params):
             if i != SERVER_SAMPLED else None for i, (x, y) in enumerate(zip(ids_on, ids_off))]
         ctx.stop()  # the loop thread; the chunk profiles drive its body from here
         clear_slots()
-        for label, prof in server_chunk_profile(torch, ctx, prompts, modes).items():
+        profs = server_chunk_profile(torch, ctx, prompts, modes)
+        report["lone_prefill_profile"] = profs.pop("lone_prefill")
+        for label, prof in profs.items():
             report[label]["decode_chunk_profile"] = prof
     finally:
         set_flash_decode(None)

@@ -1,7 +1,8 @@
 """The plain version of the port's flash attention (kernel C) held against
 the JAX package's Pallas kernel in interpret mode and its einsum path, on
-CPU: T = 128, S = 256, GQA (4 query heads over 2 KV heads), head dim 128,
-a nonzero valid_from, and softcap / sliding-window cases."""
+CPU: T = 128, head dim 128, a nonzero valid_from, softcap / sliding-window
+cases, query-head groups of 1, 2 and 4 (MHA and GQA), and query slots at
+0-127 over S = 256 or at 256-383 over S = 512 (a server chunk at depth)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,13 +21,13 @@ B, T, S, H, HKV, D = 2, 128, 256, 4, 2, 128
 VALID_FROM = (0, 37)
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, H=H, HKV=HKV, S=S, n_past=0):
     r = np.random.default_rng(seed)
     q = (r.standard_normal((B, T, H, D)) * 0.5).astype(np.float32)
     k = (r.standard_normal((B, HKV, S, D)) * 0.5).astype(np.float32)
     v = (r.standard_normal((B, HKV, S, D)) * 0.5).astype(np.float32)
     vf = np.asarray(VALID_FROM, np.int32)
-    qs = np.broadcast_to(np.arange(T, dtype=np.int32)[None], (B, T)).copy()
+    qs = np.broadcast_to(n_past + np.arange(T, dtype=np.int32)[None], (B, T)).copy()
     pos = qs - vf[:, None]
     kvp = np.arange(S, dtype=np.int32)[None] - vf[:, None]
     return q, k, v, qs, kvp, pos, vf
@@ -38,13 +39,17 @@ def _nmse(a, b):
 
 
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 0), (0.0, 40)])
-def test_flash_plain_vs_pallas(softcap, window):
+@pytest.mark.parametrize("heads", [(4, 2), (4, 4), (8, 2)], ids=["G2", "G1", "G4"])
+@pytest.mark.parametrize("n_past,kv_len", [(0, 256), (256, 512)], ids=["slot0", "slot256"])
+def test_flash_plain_vs_pallas(softcap, window, heads, n_past, kv_len):
     """Both sides take bf16 q/k/v. The Pallas kernel rounds unnormalized
     probabilities to bf16 and its output to bf16; the plain version rounds
     normalized probabilities: NMSE < 2e-4 (tests/test_flash_attention.py's
     bound for the kernel against the einsum path) on every row that has a
     visible key."""
-    q, k, v, qs, kvp, pos, vf = _inputs()
+    H, HKV = heads
+    S = kv_len
+    q, k, v, qs, kvp, pos, vf = _inputs(H=H, HKV=HKV, S=S, n_past=n_past)
     kw = dict(n_head=H, n_head_kv=HKV, head_dim=D, head_dim_v=D, n_embd=H * D,
               attn_logit_softcap=softcap, sliding_window=window)
     jb = lambda a: jnp.asarray(a, jnp.bfloat16)
@@ -58,7 +63,9 @@ def test_flash_plain_vs_pallas(softcap, window):
                           ModelConfig(**kw), bool(window)).float().numpy()
     assert got.shape == want.shape == (B, T, H, D)
     for b, f in enumerate(VALID_FROM):
-        assert _nmse(got[b, f:], want[b, f:]) < 2e-4
+        live = qs[b] >= f  # rows with a visible key
+        assert live.any()
+        assert _nmse(got[b, live], want[b, live]) < 2e-4
 
 
 def test_padding_rows_zero_and_f32_einsum_match():

@@ -38,14 +38,14 @@ def _nmse(a, b):
 
 def test_build_reports_ptxas(cuda):
     """Every kernel is compiled, and the 128 f32 sums a thread of kernels B
-    and F (one body) stay in registers: ptxas reports 0 spill bytes for
-    each of their builds."""
+    and F (one body) and kernel C's S and O accumulators stay in registers:
+    ptxas reports 0 spill bytes for each of their builds."""
     info = _cuda.build()
     names = " ".join(n for n, _, _ in info["ptxas"])
     for k in ("qmm_splitk_kernel", "qmm_wgmma_kernel", "flash_kernel", "layer_kernel",
               "moe_gmm_kernel", "flash_decode_kernel"):
         assert k in names or info["cached"], (k, names)
-    for k in ("qmm_wgmma_kernel", "moe_gmm_kernel"):
+    for k in ("qmm_wgmma_kernel", "moe_gmm_kernel", "flash_kernel"):
         b = [(n, spill) for n, _, spill in info["ptxas"] if k in n]
         assert b and all(spill == 0 for _, spill in b), (k, b)
 
@@ -114,33 +114,52 @@ def test_qmm_prefill_tile_edges(cuda, qtype, M, K, out_dtype, nout):
     assert _nmse(y1, want) < 1e-5
 
 
-def _attn_inputs(cuda, B=2, H=4, Hkv=2, T=128, S=256, D=128, valid_from=(0, 37)):
+def _attn_inputs(cuda, H, Hkv, T, S, S_full, valid_from, n_past, D=128):
+    """K/V are a view of the first S slots of an S_full-slot cache (read in
+    place, as the server's chunks read theirs); query slots start at
+    n_past."""
     g = torch.Generator(device=cuda).manual_seed(7)
+    B = len(valid_from)
     q = torch.randn((B, T, H, D), generator=g, device=cuda).to(torch.bfloat16)
-    k = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(torch.bfloat16)
-    v = torch.randn((B, Hkv, S, D), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, Hkv, S_full, D), generator=g, device=cuda).to(torch.bfloat16)[:, :, :S]
+    v = torch.randn((B, Hkv, S_full, D), generator=g, device=cuda).to(torch.bfloat16)[:, :, :S]
     vf = torch.tensor(valid_from, device=cuda)
-    q_slots = torch.arange(T, device=cuda)[None].expand(B, T)
+    q_slots = n_past + torch.arange(T, device=cuda)[None].expand(B, T)
     positions = q_slots - vf[:, None]
     kv_positions = torch.arange(S, device=cuda)[None] - vf[:, None]
     return q, k, v, q_slots, kv_positions, positions, vf
 
 
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (20.0, 0), (0.0, 48)])
-def test_flash_attention_kernel_vs_plain(cuda, softcap, window):
-    """Kernel C vs the masked softmax. Both round p to bf16 before PV, at
-    different points (unnormalized vs normalized): NMSE < 1e-4 over rows
-    with a visible key; left-padding rows are exactly 0 in both."""
-    q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda)
-    cfg = ModelConfig(n_head=4, n_head_kv=2, head_dim=128, head_dim_v=128,
+@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (8, 2), (8, 1)],
+                         ids=["G1", "G3", "G4", "G8"])
+@pytest.mark.parametrize("T", [128, 512])
+@pytest.mark.parametrize("n_past", [0, 1000])
+def test_flash_attention_kernel_vs_plain(cuda, softcap, window, heads, T, n_past):
+    """Kernel C vs the masked softmax, for query-head groups of 1, 3, 4
+    and 8, query slots from 0 (over S = 2T) or from 1000 (over a 2048-slot
+    view of a 2560-slot cache: a depth that is no multiple of 64), and
+    valid_from 0, 37 and 100 (straddling 64- and 128-key tiles). Both round
+    p to bf16 before PV, at different points (unnormalized vs normalized):
+    NMSE < 1e-4 over rows with a visible key; rows with none (left padding)
+    are exactly 0 in both; two calls give identical bits."""
+    H, Hkv = heads
+    S, S_full = (2 * T, 2 * T) if n_past == 0 else (2048, 2560)
+    q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda, H, Hkv, T, S, S_full, (0, 37, 100), n_past)
+    cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=128, head_dim_v=128,
                       attn_logit_softcap=softcap, sliding_window=window)
+    before = _cuda.COUNTS["flash_attention"]
     got = flash_attention(q, k, v, qs, kvp, pos, vf, cfg, layer_is_swa=bool(window))
+    again = flash_attention(q, k, v, qs, kvp, pos, vf, cfg, layer_is_swa=bool(window))
     want = masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / 128 ** 0.5, softcap, window)
     torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_attention"] == before + 2
+    assert torch.equal(got, again)
     for b, f in enumerate(vf.tolist()):
-        assert torch.count_nonzero(got[b, :f]) == 0
-        assert torch.count_nonzero(want[b, :f]) == 0
-        assert _nmse(got[b, f:], want[b, f:]) < 1e-4
+        live = qs[b] >= f
+        assert torch.count_nonzero(got[b, ~live]) == 0
+        assert torch.count_nonzero(want[b, ~live]) == 0
+        assert _nmse(got[b, live], want[b, live]) < 1e-4
 
 
 def _layer_setup(cuda, qtype, L=3, D=512, n_ff=1024):

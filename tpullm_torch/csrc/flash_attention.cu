@@ -1,204 +1,341 @@
-// Causal prefill flash attention over a head-major KV cache.
+// Kernel C: causal prefill flash attention over a head-major KV cache, on
+// Hopper's TMA and wgmma.
 //
 // Replaces the Pallas kernel tpullm/ops/flash_attention.py:_build
 // (flash_attention.py:28, pallas_call :117): online softmax over KV tiles,
 // GQA by head index (KV head h / G), slot mask valid_from <= kv_slot <=
 // q_slot, optional sliding window on real positions and logit softcap.
 //
-// Bound on this card: operations (4*D flops per unmasked query/key pair on
-// the tensor cores; the bytes are q, k, v and o once). Design: one block of
-// 4 warps per (query tile of 64 rows, head, batch row). The block loops over
-// 64-row K/V tiles from the tile holding valid_from up to the causal bound
-// (the largest query slot of the tile), which replaces the TPU kernel's
-// skipped grid steps: fully masked tiles are never read. QK^T and PV run as
-// WMMA bf16 fragments with f32 accumulation; each warp owns 16 query rows
-// and keeps their running max, sum and f32 output rows in shared memory,
-// where the per-row rescale by alpha is a plain loop. Masked scores use
-// -1e30, not -inf. A masked key contributes exactly 0, so a row with no
-// unmasked key (left padding) has sum 0 and outputs 0, not NaN.
-#include <mma.h>
+// Bound on this card. Shallow (the engine's prefill: 4 prompts bucketed to
+// 512, at most 512 live keys): bytes, mostly q and o, with K/V once per
+// batch row and KV head. Deep (a server chunk of 512 queries at slot 5632
+// over ~6000 live keys): operations, 4 D flops a visible query/key pair on
+// the tensor cores.
+//
+// What the design does about it:
+// - A block holds one batch row and one KV head. Its two consumer
+//   warpgroups each own one (64-slot query tile, query head of the group)
+//   pair; pairs are enumerated tile-major (all G heads of tile 0, then of
+//   tile 1), and a block takes two consecutive pairs. So the heads of a
+//   GQA group share every K/V tile a block loads, and at G = 1 a block
+//   takes neighbouring tiles of one head.
+// - One producer warp (setmaxnreg leaves its warpgroup few registers)
+//   feeds Q once and 128-key K and V tiles by 4-D TMA over the (D, slot,
+//   head, batch) strides the wrapper passes, so a cache view is read in
+//   place. A 256-byte row of D = 128 takes two 128-byte-swizzled boxes.
+//   K and V land in a ring of stages with full barriers of their own, so
+//   S = Q K^T starts before V has landed; both consumers release a stage
+//   on its empty barrier, including stages their rows never see.
+// - S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//   memory (a k16 step is a 32-byte advance, the second 64-column atom
+//   starts after the fourth step). The softmax runs on the accumulator
+//   registers: a thread holds parts of two rows, whose max and sum take
+//   two xor-shuffles over the quad; exp2 with log2(e) folded into the
+//   scale (after the tanh with softcap). P is rounded to bf16
+//   unnormalised, as the Pallas kernel does, and packed straight into the
+//   k16 A-fragment registers: O += P V is wgmma with A from registers and
+//   V as an MN-major B operand (the transpose bit). S, P, the running max
+//   and sum and O never leave the registers until the end, when O / l
+//   goes out as bf16 through the warpgroup's Q tile in whole 256-byte rows.
+// - Masks (causal, valid_from, window) are evaluated only on tiles that
+//   straddle a boundary. A masked key contributes exactly 0 and a row with
+//   no visible key outputs 0. The KV loop runs from the tile holding
+//   valid_from to the block's largest query slot: no fully masked tile is
+//   read. A block whose rows all lie before valid_from writes zeros and
+//   returns before any barrier exists.
+// No split over keys and no atomics: repeats are bit-identical.
+#include "hopper.cuh"
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-using namespace nvcuda;
+using namespace tph;
 
 namespace {
 
-constexpr int FQ = 64, FKV = 64, FD = 128, F_THREADS = 128;
-constexpr int QLD = FD + 8;   // bf16
-constexpr int SLD = FKV + 4;  // f32
-constexpr int PLD = FKV + 8;  // bf16
-constexpr int OLD = FD + 4;   // f32
+constexpr int TQ = 64, TK = 128, HD = 128;
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;  // producer warpgroup, then two consumer warpgroups
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int Q_BYTES = TQ * HD * 2;   // one warpgroup's Q: two 64 x 64 atoms
+constexpr int KV_BYTES = TK * HD * 2;  // one K or V tile: two 128 x 64 atoms
+constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + (1 + 3 * STAGES) * 8 +
+                     2 * 2 * TQ * 4 + 2 * 4 * 4;
 constexpr float NEG = -1e30f;
-
-constexpr size_t SMEM_BYTES =
-    (size_t)FQ * QLD * 2 + 2 * (size_t)FKV * QLD * 2 + (size_t)FQ * SLD * 4 +
-    (size_t)FQ * PLD * 2 + (size_t)FQ * OLD * 4 + 4 * FQ * 4;
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "register file");
 
 struct FaArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
   const int* qslots;      // (B, T)
   const int* kvpos;       // (B, S)
   const int* qpos;        // (B, T)
   const int* valid_from;  // (B,)
-  int B, H, Hkv, T, S;
-  long long q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_st;
-  float scale, softcap;
+  __nv_bfloat16* o;
+  long long o_sb, o_sh, o_st;
+  int T, S, G;
+  float scale_log2, softcap_in, softcap_out;  // softcap_in 0: no softcap
   int window;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-__global__ void __launch_bounds__(F_THREADS) flash_kernel(FaArgs a) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm);
-  __nv_bfloat16* Ks = Qs + FQ * QLD;
-  __nv_bfloat16* Vs = Ks + FKV * QLD;
-  float* Ss = reinterpret_cast<float*>(Vs + FKV * QLD);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + FQ * SLD);
-  float* Os = reinterpret_cast<float*>(Ps + FQ * PLD);
-  float* m_s = Os + FQ * OLD;
-  float* l_s = m_s + FQ;
-  int* qs_s = reinterpret_cast<int*>(l_s + FQ);
-  int* qp_s = qs_s + FQ;
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
-  const int t0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  const __nv_bfloat16* qb = a.q + b * a.q_sb + h * a.q_sh;
-  for (int i = tid; i < FQ * FD / 8; i += F_THREADS) {
-    const int r = i / (FD / 8), c = (i % (FD / 8)) * 8;
-    *reinterpret_cast<uint4*>(Qs + r * QLD + c) =
-        *reinterpret_cast<const uint4*>(qb + (t0 + r) * a.q_st + c);
+// bf16 zeros over the 64 output rows of one (query tile, head) pair
+__device__ __forceinline__ void store_zero_rows(const FaArgs& a, __nv_bfloat16* ob, int tile,
+                                                int head) {
+  for (int i = threadIdx.x; i < TQ * HD / 8; i += THREADS) {
+    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    *reinterpret_cast<uint4*>(ob + (long long)(tile * TQ + r) * a.o_st + head * a.o_sh + c) =
+        make_uint4(0, 0, 0, 0);
   }
-  for (int i = tid; i < FQ * FD; i += F_THREADS) Os[(i / FD) * OLD + i % FD] = 0.f;
-  if (tid < FQ) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-    qs_s[tid] = a.qslots[b * a.T + t0 + tid];
-    qp_s[tid] = a.qpos[b * a.T + t0 + tid];
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, FaArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (saddr(smem_raw) & 1023u)) & 1023u;
+  uint8_t* qsm = smem_raw + pad;            // 2 x Q (one per consumer warpgroup)
+  uint8_t* ring = qsm + 2 * Q_BYTES;        // STAGES x (K tile, V tile)
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * KV_BYTES);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+  int* qs_s = reinterpret_cast<int*>(empty + STAGES);  // 128 query slots, then positions
+  int* qp_s = qs_s + 2 * TQ;
+  int* red = qp_s + 2 * TQ;  // each warp's least and largest slot of its 32 rows
+
+  const int tid = threadIdx.x;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int n_pairs = (a.T / TQ) * a.G;
+  int tile[2], head[2];
+  bool present[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const int p = blockIdx.x * 2 + w;
+    present[w] = p < n_pairs;
+    tile[w] = p / a.G;
+    head[w] = hk * a.G + p % a.G;
+  }
+  const int vf = a.valid_from[b];
+  if (tid < 2 * TQ) {
+    const int w = tid / TQ, t = (w ? tile[1] : tile[0]) * TQ + tid % TQ;
+    const bool in = w ? present[1] : present[0];
+    const int qs = in ? a.qslots[b * a.T + t] : -1;
+    qs_s[tid] = qs;
+    qp_s[tid] = in ? a.qpos[b * a.T + t] : 0;
+    const int wl = __reduce_min_sync(0xffffffffu, in ? qs : 0x7fffffff);
+    const int wh = __reduce_max_sync(0xffffffffu, qs);
+    if (tid % 32 == 0) {
+      red[tid / 32] = wl;
+      red[4 + tid / 32] = wh;
+    }
+  }
+  __syncthreads();
+  // rows of pair slot w are warps 2w and 2w + 1 of the first warpgroup
+  const int lo[2] = {min(red[0], red[1]), min(red[2], red[3])};
+  const int hi[2] = {max(red[4], red[5]), max(red[6], red[7])};
+  const int max_q = max(hi[0], hi[1]);  // an absent pair's rows hold slot -1
+  const int s_begin = (max(vf, 0) / TK) * TK;
+  const int s_end = min(a.S, max_q + 1);
+  __nv_bfloat16* ob = a.o + b * a.o_sb;
+  if (max_q < vf || s_end <= s_begin) {  // no row of the block sees a key
+    for (int w = 0; w < 2; ++w)
+      if (present[w]) store_zero_rows(a, ob, tile[w], head[w]);
+    return;
+  }
+  const int n_it = (s_end - s_begin + TK - 1) / TK;
+
+  if (tid == 0) {
+    mbar_init(saddr(qbar), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(saddr(kfull + s), 1);
+      mbar_init(saddr(vfull + s), 1);
+      mbar_init(saddr(empty + s), 2);  // one thread of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  int max_qs = qs_s[0];
-  for (int r = 1; r < FQ; ++r) max_qs = max(max_qs, qs_s[r]);
-  const int vf = a.valid_from[b];
-  const int s_begin = (max(vf, 0) / FKV) * FKV;
-  const int s_end = min(a.S, max_qs + 1);
-
-  const __nv_bfloat16* kb = a.k + b * a.k_sb + hk * a.k_sh;
-  const __nv_bfloat16* vb = a.v + b * a.v_sb + hk * a.v_sh;
-  const int* kvp = a.kvpos + (size_t)b * a.S;
-
-  for (int s0 = s_begin; s0 < s_end; s0 += FKV) {
-    for (int i = tid; i < FKV * FD / 8; i += F_THREADS) {
-      const int r = i / (FD / 8), c = (i % (FD / 8)) * 8;
-      *reinterpret_cast<uint4*>(Ks + r * QLD + c) =
-          *reinterpret_cast<const uint4*>(kb + (s0 + r) * a.k_ss + c);
-      *reinterpret_cast<uint4*>(Vs + r * QLD + c) =
-          *reinterpret_cast<const uint4*>(vb + (s0 + r) * a.v_ss + c);
+  if (tid < 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      const uint32_t qb = saddr(qbar);
+      mbar_expect_tx(qb, (present[1] ? 2 : 1) * Q_BYTES);
+      for (int w = 0; w < 2; ++w)
+        if (present[w])
+          for (int h = 0; h < 2; ++h)
+            tma_4d(saddr(qsm + w * Q_BYTES + h * (Q_BYTES / 2)), &qmap, qb, h * 64,
+                   tile[w] * TQ, head[w], b);
+#pragma unroll 1
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES, s0 = s_begin + it * TK;
+        mbar_wait(saddr(empty + s), ((it / STAGES) & 1) ^ 1);  // tile it - STAGES consumed
+        const uint32_t kd = saddr(ring + s * 2 * KV_BYTES), vd = kd + KV_BYTES;
+        mbar_expect_tx(saddr(kfull + s), KV_BYTES);
+        tma_4d(kd, &kmap, saddr(kfull + s), 0, s0, hk, b);
+        tma_4d(kd + KV_BYTES / 2, &kmap, saddr(kfull + s), 64, s0, hk, b);
+        mbar_expect_tx(saddr(vfull + s), KV_BYTES);
+        tma_4d(vd, &vmap, saddr(vfull + s), 0, s0, hk, b);
+        tma_4d(vd + KV_BYTES / 2, &vmap, saddr(vfull + s), 64, s0, hk, b);
+      }
     }
-    __syncthreads();
+    return;
+  }
 
-    // scores for this warp's 16 rows: (16 x 128) @ (128 x 64)
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc[FKV / 16];
+  // ------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int cw = tid / 128 - 1, tw = tid % 128, lane = tw % 32;
+  const int r0 = (tw / 32) * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+  const int q0 = qs_s[cw * TQ + r0], q1 = qs_s[cw * TQ + r0 + 8];
+  const int p0 = qp_s[cw * TQ + r0], p1 = qp_s[cw * TQ + r0 + 8];
+  const bool mine = cw ? present[1] : present[0];
+  const int my_lo = cw ? lo[1] : lo[0], my_hi = cw ? hi[1] : hi[0];
+  const int my_tile = cw ? tile[1] : tile[0], my_head = cw ? head[1] : head[0];
+  const int* kvp = a.kvpos + (long long)b * a.S;
+  const uint32_t qa = saddr(qsm + cw * Q_BYTES), ring_a = saddr(ring);
+
+  float o[64];
 #pragma unroll
-      for (int j = 0; j < FKV / 16; ++j) wmma::fill_fragment(sc[j], 0.f);
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sums
+  mbar_wait(saddr(qbar), 0);
+
+#pragma unroll 1
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % STAGES, s0 = s_begin + it * TK;
+    const uint32_t ph = (it / STAGES) & 1;
+    const uint32_t ka = ring_a + s * 2 * KV_BYTES, va = ka + KV_BYTES;
+    mbar_wait(saddr(kfull + s), ph);
+    if (mine && s0 <= my_hi) {
+      float sc[64];
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < FD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qa;
-        wmma::load_matrix_sync(qa, Qs + warp * 16 * QLD + kk, QLD);
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_m64n128k16(sc, sw128_desc(qa + (k / 4) * (Q_BYTES / 2) + (k % 4) * 32),
+                         sw128_desc(ka + (k / 4) * (KV_BYTES / 2) + (k % 4) * 32), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+
+      // scores in the log2 domain; masks only where the tile straddles one
+      if (a.softcap_in != 0.f) {
 #pragma unroll
-        for (int j = 0; j < FKV / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, Ks + j * 16 * QLD + kk, QLD);
-          wmma::mma_sync(sc[j], qa, kf, sc[j]);
+        for (int i = 0; i < 64; ++i) sc[i] = tanhf(sc[i] * a.softcap_in) * a.softcap_out;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] *= a.scale_log2;
+      }
+      const bool visible = s0 >= vf && s0 + TK - 1 <= my_lo && s0 + TK <= a.S && a.window == 0;
+      if (!visible) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = s0 + 8 * j + 2 * (lane % 4) + e;
+            bool ok0 = key >= vf && key <= q0 && key < a.S;
+            bool ok1 = key >= vf && key <= q1 && key < a.S;
+            if (a.window && key < a.S) {
+              const int kp = __ldg(kvp + key);
+              ok0 = ok0 && kp > p0 - a.window;
+              ok1 = ok1 && kp > p1 - a.window;
+            }
+            if (!ok0) sc[4 * j + e] = NEG;
+            if (!ok1) sc[4 * j + 2 + e] = NEG;
+          }
         }
       }
+      float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-      for (int j = 0; j < FKV / 16; ++j)
-        wmma::store_matrix_sync(Ss + warp * 16 * SLD + j * 16, sc[j], SLD,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
+      // a row with no visible key so far keeps p = 0 (its max is still NEG)
+      const bool dead0 = mn0 == NEG, dead1 = mn1 == NEG;
+      float sum0 = 0.f, sum1 = 0.f;
+      uint32_t pr[32];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float x0 = dead0 ? 0.f : ex2(sc[4 * j] - mn0);
+        const float x1 = dead0 ? 0.f : ex2(sc[4 * j + 1] - mn0);
+        const float x2 = dead1 ? 0.f : ex2(sc[4 * j + 2] - mn1);
+        const float x3 = dead1 ? 0.f : ex2(sc[4 * j + 3] - mn1);
+        sum0 += x0 + x1;
+        sum1 += x2 + x3;
+        pr[2 * j] = pack_bf16(x0, x1);
+        pr[2 * j + 1] = pack_bf16(x2, x3);
+      }
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
+      }
 
-    // online softmax, one row at a time across the warp (2 keys per lane)
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qslot = qs_s[r], qp = qp_s[r];
-      float sv[2];
-      bool ok[2];
+      mbar_wait(saddr(vfull + s), ph);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = lane + 32 * e, s = s0 + c;
-        float x = Ss[r * SLD + c] * a.scale;
-        if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
-        bool valid = s <= qslot && s >= vf;
-        if (a.window) valid = valid && kvp[s] > qp - a.window;
-        ok[e] = valid;
-        sv[e] = valid ? x : NEG;
-      }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(sv[0], sv[1])));
-      float psum = 0.f;
+      for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(pr[i])::"memory");
+      fence_acc(o);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = ok[e] ? expf(sv[e] - m_new) : 0.f;
-        psum += p;
-        Ps[r * PLD + lane + 32 * e] = __float2bfloat16_rn(p);
+      for (int k = 0; k < TK / 16; ++k) {
+        const uint32_t frag[4] = {pr[4 * k], pr[4 * k + 1], pr[4 * k + 2], pr[4 * k + 3]};
+        wgmma_m64n128k16_rs(o, frag, sw128_mn_desc(va + k * 16 * 128, KV_BYTES / 2));
       }
-      psum = warp_sum(psum);
-      const float alpha = expf(m_prev - m_new);
-      for (int c = lane; c < FD; c += 32) Os[r * OLD + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = alpha * l_s[r] + psum;
-        m_s[r] = m_new;
-      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+    } else {
+      mbar_wait(saddr(vfull + s), ph);
     }
-    __syncwarp();
-
-    // O(16 x 128) += P(16 x 64) @ V(64 x 128)
-#pragma unroll
-    for (int n = 0; n < FD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, Os + warp * 16 * OLD + n * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < FKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf_;
-        wmma::load_matrix_sync(pa, Ps + warp * 16 * PLD + kk, PLD);
-        wmma::load_matrix_sync(vf_, Vs + kk * QLD + n * 16, QLD);
-        wmma::mma_sync(of, pa, vf_, of);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * OLD + n * 16, of, OLD, wmma::mem_row_major);
-    }
-    __syncthreads();
+    if (tw == 0) mbar_arrive(saddr(empty + s));
   }
-  __syncthreads();
+  if (!mine) return;
 
-  __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh;
-  for (int i = tid; i < FQ * FD; i += F_THREADS) {
-    const int r = i / FD, c = i % FD;
-    const float l = l_s[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    ob[(t0 + r) * a.o_st + c] = __float2bfloat16_rn(Os[r * OLD + c] * inv);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  // O leaves through this warpgroup's Q tile (its last read is done), so
+  // that rows go out as whole 256-byte lines. 16-byte chunk c of row r sits
+  // at c ^ (r & 7): the quads of a warp write 32 distinct banks.
+  uint8_t* ot = qsm + cw * Q_BYTES;
+  const int sw = r0 & 7;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    uint8_t* p = ot + r0 * 256 + ((j ^ sw) << 4) + (lane % 4) * 4;
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(p + 8 * 256) =
+        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");  // this warpgroup only
+  __nv_bfloat16* orows = ob + (long long)(my_tile * TQ) * a.o_st + my_head * a.o_sh;
+#pragma unroll
+  for (int i = tw; i < TQ * HD / 8; i += 128) {
+    const int r = i / (HD / 8), c = i % (HD / 8);
+    *reinterpret_cast<uint4*>(orows + r * a.o_st + c * 8) =
+        *reinterpret_cast<const uint4*>(ot + r * 256 + ((c ^ (r & 7)) << 4));
   }
 }
 
@@ -212,29 +349,38 @@ extern "C" int tpq_flash_attention(
     long long v_ss, long long o_sb, long long o_sh, long long o_st, float scale,
     float softcap, int window, void* stream) {
   cudaGetLastError();
-  if (D != FD || T % FQ || S % FKV || H % Hkv) return (int)cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)SMEM_BYTES);
-    attr = true;
-  }
+  if (D != HD || T % TQ || S % 64 || Hkv < 1 || H % Hkv || (o_sb | o_sh | o_st) % 8)
+    return (int)cudaErrorInvalidValue;
+  // 4-D maps, innermost first: (D, T, H, B) for q, (D, S, Hkv, B) for k and v
+  const CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
+  const long long qd[4] = {HD, T, H, B}, qs[3] = {q_st * 2, q_sh * 2, q_sb * 2};
+  const long long kd[4] = {HD, S, Hkv, B}, ks[3] = {k_ss * 2, k_sh * 2, k_sb * 2},
+                  vs[3] = {v_ss * 2, v_sh * 2, v_sb * 2};
+  const int qbox[4] = {64, TQ, 1, 1}, kbox[4] = {64, TK, 1, 1};
+  CUtensorMap qmap, kmap, vmap;
+  int err = make_map(&qmap, BF16, q, 4, qd, qs, qbox, SW);
+  err = err ? err : make_map(&kmap, BF16, k, 4, kd, ks, kbox, SW);
+  err = err ? err : make_map(&vmap, BF16, v, 4, kd, vs, kbox, SW);
+  if (err) return err;
+  cudaError_t e =
+      cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
   FaArgs a;
-  a.q = reinterpret_cast<const __nv_bfloat16*>(q);
-  a.k = reinterpret_cast<const __nv_bfloat16*>(k);
-  a.v = reinterpret_cast<const __nv_bfloat16*>(v);
-  a.o = reinterpret_cast<__nv_bfloat16*>(o);
   a.qslots = reinterpret_cast<const int*>(qslots);
   a.kvpos = reinterpret_cast<const int*>(kvpos);
   a.qpos = reinterpret_cast<const int*>(qpos);
   a.valid_from = reinterpret_cast<const int*>(valid_from);
-  a.B = B; a.H = H; a.Hkv = Hkv; a.T = T; a.S = S;
-  a.q_sb = q_sb; a.q_sh = q_sh; a.q_st = q_st;
-  a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
-  a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
+  a.o = reinterpret_cast<__nv_bfloat16*>(o);
   a.o_sb = o_sb; a.o_sh = o_sh; a.o_st = o_st;
-  a.scale = scale; a.softcap = softcap; a.window = window;
-  dim3 grid(T / FQ, H, B);
-  flash_kernel<<<grid, F_THREADS, SMEM_BYTES, reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  a.T = T; a.S = S; a.G = H / Hkv;
+  a.scale_log2 = scale * LOG2E;
+  a.softcap_in = softcap != 0.f ? scale / softcap : 0.f;
+  a.softcap_out = softcap * LOG2E;
+  a.window = window;
+  const int n_pairs = (T / TQ) * (H / Hkv);
+  dim3 grid((n_pairs + 1) / 2, Hkv, B);
+  flash_kernel<<<grid, THREADS, SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(qmap, kmap, vmap,
+                                                                                a);
   return (int)cudaGetLastError();
 }

@@ -218,9 +218,13 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
     n_past + T - 1 of each batch row over an S-slot cache, K/V live from
     valid_from to the last query slot. Held against masked_attention (NMSE
     on rows with a visible key, padding rows exactly 0, two calls
-    bit-identical) and timed beside it and SDPA on the same mask. The bound
-    reads q and o once and each batch row's live K/V rows once, and counts
-    4 D flops a visible (query head, key) pair."""
+    bit-identical) and timed beside it and SDPA. SDPA takes a dense mask
+    over the view; where valid_from is 0 everywhere it also takes the live
+    key prefix under a lower-right causal bias (which may reach a fused
+    backend), with K/V of the group's heads as they are and expanded, and
+    the fastest call is the yardstick. The bound reads q of the rows with a
+    visible key, writes o once, reads each batch row's live K/V rows once,
+    and counts 4 D flops a visible (query head, key) pair."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
 
@@ -245,18 +249,35 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
     mask = (slot[None, None, :] <= qs[:, :, None]) & (slot[None, None, :] >= vf[:, None, None])
     flops = 4.0 * HD * int(mask.sum()) * H
     kv_rows = sum(max(0, int(qs[b].max()) + 1 - f) for b, f in enumerate(vf.tolist())) * HKV
-    bound, by = bound_of(2 * (2 * B * T * H * HD + 2 * kv_rows * HD), flops)
+    nbytes = 2 * (int(live.sum()) * H * HD + B * T * H * HD + 2 * kv_rows * HD)
+    bound, by = bound_of(nbytes, flops)
     ms = timer(run, 20)
     pms = timer(plain, 3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     qt_ = q.transpose(1, 2)
     am = mask[:, None]
-    lms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt_, k, v, attn_mask=am, enable_gqa=True), 20)
+    calls = {"masked": lambda: sdpa(qt_, k, v, attn_mask=am, enable_gqa=True)}
+    if not any(vf.tolist()):
+        from torch.nn.attention.bias import causal_lower_right
+
+        n_kv = n_past + T
+        kl, vl = k[:, :, :n_kv], v[:, :, :n_kv]
+        ke, ve = (t.repeat_interleave(H // HKV, dim=1) for t in (kl, vl))
+        bias = causal_lower_right(T, n_kv)
+        calls["lower_right"] = lambda: sdpa(qt_, kl, vl, attn_mask=bias, enable_gqa=True)
+        calls["lower_right_expanded"] = lambda: sdpa(qt_, ke, ve, attn_mask=bias)
+        for name, call in list(calls.items())[1:]:
+            e = nmse(torch, call().transpose(1, 2)[live], want[live])
+            if not e < TOL_ATTN_NMSE:
+                raise AssertionError(f"SDPA {name}: nmse {e} against the plain version")
+    lib = {name: timer(call, 20) for name, call in calls.items()}
+    lms = min(lib.values())
     label = f"flash_attention[B={B},H={H},Hkv={HKV},T={T},slots={n_past}+,S={S},D={HD}]"
     log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_ATTN_NMSE:g}) padding rows zero "
         f"{pad_zero} repeat identical {same} max_abs_err {mae:.4g} ms {ms:.4f} "
         f"plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) "
-        f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}")
+        f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} SDPA calls "
+        + " ".join(f"{n} {t:.4f}" for n, t in lib.items()))
     if max(errs) >= TOL_ATTN_NMSE or not pad_zero or not same:
         raise AssertionError(f"{label}: nmse {errs}, padding rows zero {pad_zero}, "
                              f"repeat identical {same}")
@@ -264,7 +285,7 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
         name=label, route="cuda", source=SOURCES["flash_attention"][0],
         replaces=SOURCES["flash_attention"][1], kernel="flash_attention", path=path,
         max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by))
-    del q, k, v, got, again, want, mask, am
+    del q, k, v, got, again, want, mask, am, calls
     torch.cuda.empty_cache()
 
 

@@ -131,20 +131,25 @@ def _attn_inputs(cuda, H, Hkv, T, S, S_full, valid_from, n_past, D=128):
 
 
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (20.0, 0), (0.0, 48)])
-@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (8, 2), (8, 1)],
-                         ids=["G1", "G3", "G4", "G8"])
-@pytest.mark.parametrize("T", [128, 512])
-@pytest.mark.parametrize("n_past", [0, 1000])
-def test_flash_attention_kernel_vs_plain(cuda, softcap, window, heads, T, n_past):
-    """Kernel C vs the masked softmax, for query-head groups of 1, 3, 4
-    and 8, query slots from 0 (over S = 2T) or from 1000 (over a 2048-slot
-    view of a 2560-slot cache: a depth that is no multiple of 64), and
-    valid_from 0, 37 and 100 (straddling 64- and 128-key tiles). Both round
-    p to bf16 before PV, at different points (unnormalized vs normalized):
-    NMSE < 1e-4 over rows with a visible key; rows with none (left padding)
-    are exactly 0 in both; two calls give identical bits."""
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (6, 2), (8, 2), (8, 1)],
+                         ids=["G1", "G2", "G3", "G4", "G8"])
+@pytest.mark.parametrize("T,n_past,S,S_full", [
+    (128, 0, 256, 256), (512, 0, 1024, 1024), (128, 1000, 2048, 2560),
+    (512, 1000, 2048, 2560), (192, 128, 320, 448)],
+    ids=["T128", "T512", "T128-deep", "T512-deep", "T192-odd"])
+def test_flash_attention_kernel_vs_plain(cuda, softcap, window, heads, T, n_past, S, S_full):
+    """Kernel C vs the masked softmax, for query-head groups of 1, 2, 3, 4
+    and 8, with valid_from 0, 37 and 100 (straddling 64- and 128-key
+    tiles). Query slots from 0 (over S = 2T), from 1000 (over a 2048-slot
+    view of a 2560-slot cache: a depth that is no multiple of 64), or at
+    T = 192 from 128 over a 320-slot view of a 448-slot cache: at G 1 and
+    3 an odd count of (64-slot tile, head) pairs, so the last block holds
+    one pair, and a view that ends halfway through a 128-key tile, which
+    the last query slots reach. Both round p to bf16 before PV, at
+    different points (unnormalized vs normalized): NMSE < 1e-4 over rows
+    with a visible key; rows with none (left padding) are exactly 0 in
+    both; two calls give identical bits."""
     H, Hkv = heads
-    S, S_full = (2 * T, 2 * T) if n_past == 0 else (2048, 2560)
     q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda, H, Hkv, T, S, S_full, (0, 37, 100), n_past)
     cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=128, head_dim_v=128,
                       attn_logit_softcap=softcap, sliding_window=window)

@@ -69,6 +69,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -125,11 +126,66 @@ def card_line() -> str:
 def short_kernel(mangled: str) -> str:
     m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_wgmma_kernel|flash_kernel|layer_kernel|"
                   r"moe_gmm_kernel|flash_decode_kernel|flash_decode_merge)"
-                  r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", mangled)
+                  r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?)?", mangled)
     if not m:
         return mangled
     args = [a for a in m.groups()[1:] if a]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def sass_per_weight(lib_path) -> dict:
+    """Kernel A's instances in the built library -> {short name: (SASS
+    instructions in the loop that holds its products, weights a thread
+    takes in one pass of it, instructions a weight)}, from ``cuobjdump
+    -sass``: the innermost backward-branch loop that holds tensor-core
+    products (HMMA: 8 weights a thread, once for each n8 tile of batch
+    rows) or, without them, f32 FMAs (one for each of the MT batch rows a
+    weight meets). A static count: code that runs once a scale group, on a
+    branch inside the loop, counts in full. {} where cuobjdump is missing or
+    gives nothing."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name = short_kernel(block.split(None, 1)[0])
+        if not name.startswith("qmm_splitk_kernel"):
+            continue
+        ins, labels, pending = [], {}, []
+        for line in block.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                addr = int(m.group(1), 16)
+                labels.update((p, addr) for p in pending)
+                pending = []
+                ins.append((addr, m.group(2)))
+        key = "HMMA" if any("HMMA" in t for _, t in ins) else "FFMA"
+        loops = []
+        for addr, t in ins:
+            b = re.search(r"BRA\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", t)
+            if b:
+                tgt = labels.get(b.group(1)) if b.group(1).startswith(".") else int(b.group(1), 16)
+                if tgt is not None and tgt <= addr:
+                    loops.append((tgt, addr))
+        body = lambda lo, hi: [t for a, t in ins if lo <= a <= hi]
+        hot = [(lo, hi) for lo, hi in loops if any(key in t for t in body(lo, hi))]
+        inner = [(lo, hi) for lo, hi in hot
+                 if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in hot)]
+        if not inner:
+            continue
+        lo, hi = max(inner, key=lambda r: sum(key in t for t in body(r[0], r[1])))
+        n_ins = len(body(lo, hi))
+        n_key = sum(key in t for t in body(lo, hi))
+        mt = int(re.search(r"<(\d+)", name).group(1))
+        weights = n_key * 8 * 8 // mt if key == "HMMA" else n_key // mt
+        out[name] = (n_ins, weights, n_ins / max(weights, 1))
+    return out
 
 
 class Timer:
@@ -181,18 +237,39 @@ def bound_of(nbytes: float, flops: float):
     return max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3, by
 
 
+def splitk_split(torch, timer, run, iters=10):
+    """Device ms a call of kernel A's two launches, qmm_splitk_kernel and
+    qmm_reduce, apart: one torch.profiler pass over ``iters`` calls, L2
+    flushed before each as the Timer does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            run()
+        torch.cuda.synchronize()
+    split = {"qmm_splitk_kernel": 0.0, "qmm_reduce": 0.0}
+    for name, ms, _ in device_kernels(prof):
+        base = name.split("<")[0]
+        if base in split:
+            split[base] += ms / iters
+    return split
+
+
 def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=None):
     """One row of kernel A or B: the kernel (through ``run``, the path's own
     call, where given) against its plain version on x (..., K) and qt's
     K-major arrays, timed beside the plain version and torch.matmul on the
     pre-dequantized bf16 weight ``w_bf16``; the bound reads qt's bytes once.
     The log line gives the kernel's share of its bound (bound / ms) and its
-    time over the library call's."""
+    time over the library call's; for kernel A also whether two calls give
+    the same bits and the device ms of its two launches apart."""
     from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
 
     run = run or (lambda: qmm_kmajor(x, qt.data, qt.qtype, qt.n_out, torch.bfloat16))
     plain = lambda: qmm_plain(x, qt.data, qt.qtype, qt.n_out, torch.bfloat16)
     got, want = run(), plain()
+    same = bool(torch.equal(got, run()))
     torch.cuda.synchronize()
     err = nmse(torch, got, want)
     mae = float((got.float() - want.float()).abs().max())
@@ -202,15 +279,17 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
     ms = timer(run, 20 if M <= 32 else 10)
     pms = timer(plain, 3, warmup=1)
     lms = timer(lambda: torch.matmul(x, w_bf16.t()), 10)
-    log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) max_abs_err {mae:.4g} "
-        f"ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) "
-        f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}")
-    if not err < TOL_QMM_NMSE:
-        raise AssertionError(f"{label}: nmse {err} >= {TOL_QMM_NMSE}")
+    split = splitk_split(torch, timer, run) if kname == "qmm_splitk" else {}
+    log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
+        f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
+        f"bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}"
+        + "".join(f" {k}_ms {v:.4f}" for k, v in split.items()))
+    if not (err < TOL_QMM_NMSE and same):
+        raise AssertionError(f"{label}: nmse {err} (tol {TOL_QMM_NMSE}), repeat identical {same}")
     entries.append(dict(
         name=label, route="cuda", source=SOURCES[kname][0], replaces=SOURCES[kname][1],
         kernel=kname, path=path, max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms,
-        bound_ms=bound, bound_by=by))
+        bound_ms=bound, bound_by=by, **({"device_ms": split} if split else {})))
 
 
 def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
@@ -289,14 +368,11 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
     torch.cuda.empty_cache()
 
 
-def phase_kernels(torch, timer, entries):
-    """Phase 2: every kernel vs its plain version at 8B shapes, timed."""
+def matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
+    """Phase 2's rows of kernels A and B (or of those named) at Llama-3-8B's
+    weights: A at decode (M = 4) and at its largest padded M (32, gateup),
+    B at prefill (M = 2048) and at the server's 512-row chunk (wqkv)."""
     from tpullm_torch.gguf.constants import GGMLType
-    from tpullm_torch.models.config import ModelConfig
-    from tpullm_torch.ops import _cuda
-    from tpullm_torch.ops.layer_kernel import _plain as layer_plain
-    from tpullm_torch.ops.layer_kernel import ffn_block, ffn_block_qkv
-    from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
     from tpullm_torch.quant.kmajor import dequant_kmajor_torch
     from tpullm_torch.utils.synth import random_kmajor
 
@@ -312,13 +388,31 @@ def phase_kernels(torch, timer, entries):
         shapes = [("qmm_splitk", 4), ("qmm", 2048)]
         if (qtype, name) == (GGMLType.Q4_K, "wqkv"):
             shapes.append(("qmm", 512))  # B at the server's prefill chunk
+        if (qtype, name) == (GGMLType.Q4_K, "gateup"):
+            shapes.append(("qmm_splitk", 32))  # A's largest padded M
         for kname, M in shapes:
+            if kname not in kernels:
+                continue
             x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
             qmm_row(torch, timer, entries, kname, f"{kname}[{name},{qtype.name},M={M}]",
                     x, qt, w_bf16)
             del x
         del qt, w_bf16
         torch.cuda.empty_cache()
+
+
+def phase_kernels(torch, timer, entries):
+    """Phase 2: every kernel vs its plain version at 8B shapes, timed."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.models.config import ModelConfig
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.ops.layer_kernel import _plain as layer_plain
+    from tpullm_torch.ops.layer_kernel import ffn_block, ffn_block_qkv
+    from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
+    from tpullm_torch.utils.synth import random_kmajor
+
+    matmul_rows(torch, timer, entries)
+    g = torch.Generator(device="cuda").manual_seed(1234)
 
     # C: prefill flash attention at the slice's shape (4 prompts bucketed to
     # 512) and at the server's last chunk of its 6000-token prompt
@@ -391,6 +485,45 @@ def phase_kernels(torch, timer, entries):
     _cuda.reset_counts()
 
 
+def moe_matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
+    """Phase 2's rows of kernels A and B (or of those named) at the
+    Mixtral-8x7B path's weights: A on an expert's gate (or up) and down,
+    indexed out of an (L, E) stack by the path's _expert_mm (layer 1, the
+    last expert), and A and B on the 32000-row lm_head."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.models.llama import _expert_mm, expert_weight
+    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
+    from tpullm_torch.utils.synth import random_kmajor
+
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    E, q4k = M_EXPERT, GGMLType.Q4_K
+
+    def dequant(qt):
+        return dequant_kmajor_torch(qt.data, qt.qtype, torch.bfloat16)
+
+    if "qmm_splitk" in kernels:
+        for name, parts, K in (("expert gate/up", [N_FF], D), ("expert down", [D], N_FF)):
+            stack = random_kmajor(q4k, parts, K, (2, E), g, "cuda")
+            qt = expert_weight(stack, 1, E - 1)
+            x = torch.randn((4, 1, K), generator=g, device="cuda").to(torch.bfloat16)
+            qmm_row(torch, timer, entries, "qmm_splitk",
+                    f"qmm_splitk[{name},Q4_K,M=4,expert {E - 1} of layer 1]", x, qt,
+                    dequant(qt), path="mixtral",
+                    run=lambda: _expert_mm(x, stack, 1, E - 1, torch.bfloat16))
+            del stack, qt, x
+    lm = random_kmajor(q4k, [M_VOCAB], D, (), g, "cuda")
+    w_bf16 = dequant(lm)
+    for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
+        if kname not in kernels:
+            continue
+        x = torch.randn((M, D), generator=g, device="cuda").to(torch.bfloat16)
+        qmm_row(torch, timer, entries, kname, f"{kname}[lm_head {M_VOCAB},Q4_K,M={M}]", x,
+                lm, w_bf16, path="mixtral")
+        del x
+    del lm, w_bf16
+    torch.cuda.empty_cache()
+
+
 def phase_moe_kernels(torch, timer, entries):
     """Phase 2 at the Mixtral-8x7B path's own shapes: kernel A on an
     expert's gate (or up) and down at decode (M = 4, the expert indexed out
@@ -404,34 +537,18 @@ def phase_moe_kernels(torch, timer, entries):
     layer 1 and the last expert, so the layer and expert offsets both
     count."""
     from tpullm_torch.gguf.constants import GGMLType
-    from tpullm_torch.models.llama import _expert_mm, expert_weight
+    from tpullm_torch.models.llama import expert_weight
     from tpullm_torch.ops.moe_gmm import (TM, grouped_qmm, grouped_qmm_plain, live_tiles,
                                           sort_by_expert)
     from tpullm_torch.quant.kmajor import KM_SPECS, dequant_kmajor_torch
     from tpullm_torch.utils.synth import random_kmajor
 
+    moe_matmul_rows(torch, timer, entries)
     g = torch.Generator(device="cuda").manual_seed(4321)
     E, used, q4k = M_EXPERT, M_USED, GGMLType.Q4_K
 
     def dequant(qt):
         return dequant_kmajor_torch(qt.data, qt.qtype, torch.bfloat16)
-
-    for name, parts, K in (("expert gate/up", [N_FF], D), ("expert down", [D], N_FF)):
-        stack = random_kmajor(q4k, parts, K, (2, E), g, "cuda")
-        qt = expert_weight(stack, 1, E - 1)
-        x = torch.randn((4, 1, K), generator=g, device="cuda").to(torch.bfloat16)
-        qmm_row(torch, timer, entries, "qmm_splitk",
-                f"qmm_splitk[{name},Q4_K,M=4,expert {E - 1} of layer 1]", x, qt, dequant(qt),
-                path="mixtral", run=lambda: _expert_mm(x, stack, 1, E - 1, torch.bfloat16))
-        del stack, qt, x
-    lm = random_kmajor(q4k, [M_VOCAB], D, (), g, "cuda")
-    w_bf16 = dequant(lm)
-    for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
-        x = torch.randn((M, D), generator=g, device="cuda").to(torch.bfloat16)
-        qmm_row(torch, timer, entries, kname, f"{kname}[lm_head {M_VOCAB},Q4_K,M={M}]", x,
-                lm, w_bf16, path="mixtral")
-    del lm, w_bf16, x
-    torch.cuda.empty_cache()
 
     def ragged(M, K, routing="random"):
         top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
@@ -1398,6 +1515,8 @@ def main() -> int:
     regs = " ".join(f"{short_kernel(n)}:{r}r/{s}B" for n, r, s in info["ptxas"])
     log(f"build: {info['seconds']:.1f} s (cached {info['cached']}); "
         f"registers/spill bytes {regs}")
+    log("kernel A SASS (loop instructions, weights a thread, per weight): " + " ".join(
+        f"{k}:{n}/{w}/{r:.2f}" for k, (n, w, r) in sass_per_weight(info["path"]).items()))
     _cuda.lib()
 
     t = time.perf_counter()

@@ -88,4 +88,48 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// The dequant's three forms, as compile-time modes of the GEMM kernels (A, B
+// and F): val from the LUT, or u + off with a bias added after the scale, or
+// u + off alone.
+enum { MODE_OFF = 0, MODE_BIAS = 1, MODE_LUT = 2 };
+
+__host__ __device__ inline int km_mode(const KmW& w) {
+  return w.has_lut ? MODE_LUT : (w.bias != BIAS_NONE ? MODE_BIAS : MODE_OFF);
+}
+
+// The stored integers of a q word as one byte each: u4 plane `plane`'s
+// nibbles, or the i8 values xor 0x80 (so that each byte is unsigned).
+template <int KIND>
+__device__ __forceinline__ uint32_t to_bytes(uint32_t word, int plane) {
+  return KIND == KIND_U4 ? (word >> (4 * plane)) & 0x0F0F0F0Fu : word ^ 0x80808080u;
+}
+
+// The one exact add after the byte-permute int-to-float of km_val: -2^23
+// (-2^23 - 128 for i8, whose bytes hold value ^ 0x80) and the kind's offset.
+template <int KIND>
+__device__ __forceinline__ float km_offc(float off) {
+  return __fadd_rn(off, KIND == KIND_U4 ? -8388608.f : -8388736.f);
+}
+
+// Byte c of a to_bytes word -> val, exactly: 0x4B0000bb is the float 2^23 +
+// bb, and offc takes the 2^23 back off with the offset (or val = lut[u]).
+template <int MODE>
+__device__ __forceinline__ float km_val(uint32_t bytes, int c, float offc, const float* lut) {
+  if (MODE == MODE_LUT) return lut[(bytes >> (8 * c)) & 15u];
+  return __fadd_rn(__int_as_float(__byte_perm(bytes, 0x4B000000u, 0x7440u | c)), offc);
+}
+
+// val -> the weight before its rounding to bf16: val * scale, then + bias,
+// in rounded f32 steps (no FMA contraction), as dequant_kmajor_torch does.
+template <int MODE>
+__device__ __forceinline__ float km_dq(float val, float sc, float bi) {
+  const float x = __fmul_rn(val, sc);
+  return MODE == MODE_BIAS ? __fadd_rn(x, bi) : x;
+}
+
+// A signed byte c of a word -> float, exactly (the scales' s8 and m8 rows).
+__device__ __forceinline__ float i8_to_f32(uint32_t word, int c) {
+  return km_val<MODE_OFF>(to_bytes<KIND_I8>(word, 0), c, -8388736.f, nullptr);
+}
+
 }  // namespace tpk

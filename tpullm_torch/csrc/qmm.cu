@@ -30,13 +30,16 @@ namespace {
 constexpr int SK_THREADS = 64;   // split-K block: 64 threads x 4 columns
 constexpr int SK_COLS = 4 * SK_THREADS;
 
-template <int MT, int KIND>
+template <int MT, int KIND, int MODE>
 __global__ void __launch_bounds__(SK_THREADS)
 qmm_splitk_kernel(const __nv_bfloat16* __restrict__ x, int M, KmW w,
                   float* __restrict__ part, int gps) {
   constexpr int P = KIND == KIND_U4 ? 2 : 1;
   constexpr int RB = MT >= 16 ? 4 : 8;  // packed rows loaded ahead
   extern __shared__ float xs[];  // [row in slab][plane][MT]
+  __shared__ float lut[16];
+  if (MODE == MODE_LUT && threadIdx.x < 16) lut[threadIdx.x] = w.lut[threadIdx.x];
+  const float offc = km_offc<KIND>(w.off);
   const int K = w.K, N = w.Npad, gs = w.gs;
   const int Kr = K / P;     // packed rows
   const int G = Kr / gs;    // scale groups per plane
@@ -76,12 +79,12 @@ qmm_splitk_kernel(const __nv_bfloat16* __restrict__ x, int M, KmW w,
       for (int i = 0; i < RB; ++i) {
         const float* xr = xs + (size_t)(g * gs + rr + i - r0) * P * MT;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint32_t b = (qv[i] >> (8 * c)) & 0xFFu;
+        for (int j = 0; j < P; ++j) {
+          const uint32_t bytes = to_bytes<KIND>(qv[i], j);
 #pragma unroll
-          for (int j = 0; j < P; ++j) {
-            const int u = KIND == KIND_U4 ? (int)((b >> (4 * j)) & 15u) : (int)(int8_t)b;
-            const float wv = km_weight(w, u, sc[j][c], bi[j][c]);
+          for (int c = 0; c < 4; ++c) {
+            const float wv =
+                bf16_round(km_dq<MODE>(km_val<MODE>(bytes, c, offc, lut), sc[j][c], bi[j][c]));
 #pragma unroll
             for (int m = 0; m < MT; ++m) acc[m][c] = fmaf(xr[j * MT + m], wv, acc[m][c]);
           }
@@ -112,29 +115,38 @@ __global__ void qmm_reduce(const float* __restrict__ part, int nS, int M, int N,
   }
 }
 
-template <int MT, int KIND>
+template <int MT, int KIND, int MODE>
 int launch_splitk(const __nv_bfloat16* x, int M, const KmW& w, float* part,
                   int nS, int gps, cudaStream_t st) {
   constexpr int P = KIND == KIND_U4 ? 2 : 1;
   const size_t smem = (size_t)gps * w.gs * P * MT * sizeof(float);
   static bool attr = false;
   if (!attr) {
-    cudaFuncSetAttribute(qmm_splitk_kernel<MT, KIND>,
+    cudaFuncSetAttribute(qmm_splitk_kernel<MT, KIND, MODE>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, 96 * 1024);
     attr = true;
   }
   dim3 grid(w.Npad / SK_COLS, nS);
-  qmm_splitk_kernel<MT, KIND><<<grid, SK_THREADS, smem, st>>>(x, M, w, part, gps);
+  qmm_splitk_kernel<MT, KIND, MODE><<<grid, SK_THREADS, smem, st>>>(x, M, w, part, gps);
   return 0;
 }
 
-template <int KIND>
+template <int KIND, int MODE>
 int splitk_mt(const __nv_bfloat16* x, int M, const KmW& w, float* part, int nS,
               int gps, cudaStream_t st) {
-  if (M <= 4) return launch_splitk<4, KIND>(x, M, w, part, nS, gps, st);
-  if (M <= 8) return launch_splitk<8, KIND>(x, M, w, part, nS, gps, st);
-  if (M <= 16) return launch_splitk<16, KIND>(x, M, w, part, nS, gps, st);
-  return launch_splitk<32, KIND>(x, M, w, part, nS, gps, st);
+  if (M <= 4) return launch_splitk<4, KIND, MODE>(x, M, w, part, nS, gps, st);
+  if (M <= 8) return launch_splitk<8, KIND, MODE>(x, M, w, part, nS, gps, st);
+  if (M <= 16) return launch_splitk<16, KIND, MODE>(x, M, w, part, nS, gps, st);
+  return launch_splitk<32, KIND, MODE>(x, M, w, part, nS, gps, st);
+}
+
+template <int KIND>
+int splitk_mode(const __nv_bfloat16* x, int M, const KmW& w, float* part, int nS,
+                int gps, cudaStream_t st) {
+  const int mode = km_mode(w);
+  if (mode == MODE_LUT) return splitk_mt<KIND, MODE_LUT>(x, M, w, part, nS, gps, st);
+  if (mode == MODE_BIAS) return splitk_mt<KIND, MODE_BIAS>(x, M, w, part, nS, gps, st);
+  return splitk_mt<KIND, MODE_OFF>(x, M, w, part, nS, gps, st);
 }
 
 }  // namespace
@@ -154,9 +166,9 @@ int tpq_qmm_splitk(const void* x, int M, int K, const unsigned long long* wp,
   const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
   float* pb = reinterpret_cast<float*>(part);
   if (w.kind == KIND_U4)
-    splitk_mt<KIND_U4>(xb, M, w, pb, nS, gps, st);
+    splitk_mode<KIND_U4>(xb, M, w, pb, nS, gps, st);
   else
-    splitk_mt<KIND_I8>(xb, M, w, pb, nS, gps, st);
+    splitk_mode<KIND_I8>(xb, M, w, pb, nS, gps, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t total = (size_t)M * Nout;

@@ -79,15 +79,11 @@ constexpr int SMEM = 1024 + S * (X_BYTES + W_BYTES) + R * RAW_BYTES + (2 * S + R
 static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "register file");
 static_assert(RAW_BYTES % 1024 == 0, "raw stages keep the ring 1024-aligned");
 
-enum { MODE_OFF = 0, MODE_BIAS = 1, MODE_LUT = 2 };
-
 // One octet (8 consecutive k) x 4 columns of the weight tile: v[i] holds the
 // 4 columns' stored integers of row i as bytes (u4: one nibble a byte;
 // i8: the value xor 0x80). The dequantized weight is bit-exact with
 // dequant_kmajor_torch: val * scale, then + bias, rounded steps, one
-// rounding to bf16. A stored integer becomes a float as the low byte of
-// 2^23: 0x4B0000bb is 2^23 + bb exactly, and offc folds -2^23 (-2^23 - 128
-// for i8) and the kind's offset into one exact add.
+// rounding to bf16 (kmajor.cuh: km_val's byte-permute int-to-float, km_dq).
 template <int MODE>
 __device__ __forceinline__ void dequant_octet(const uint32_t (&v)[8], const float (&sc)[4],
                                               const float (&bi)[4], float offc,
@@ -96,26 +92,12 @@ __device__ __forceinline__ void dequant_octet(const uint32_t (&v)[8], const floa
   for (int c = 0; c < 4; ++c) {
     float f[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float val;
-      if (MODE == MODE_LUT)
-        val = lut[(v[i] >> (8 * c)) & 15u];
-      else
-        val = __fadd_rn(__int_as_float(__byte_perm(v[i], 0x4B000000u, 0x7440u | c)), offc);
-      float x = __fmul_rn(val, sc[c]);
-      if (MODE == MODE_BIAS) x = __fadd_rn(x, bi[c]);
-      f[i] = x;
-    }
+    for (int i = 0; i < 8; ++i) f[i] = km_dq<MODE>(km_val<MODE>(v[i], c, offc, lut), sc[c], bi[c]);
     const int n = nl + c;
     uint4 p = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
                          pack_bf16(f[6], f[7]));
     *reinterpret_cast<uint4*>(wt + n * 128 + ((oct ^ (n & 7)) << 4)) = p;
   }
-}
-
-template <int KIND>
-__device__ __forceinline__ uint32_t to_bytes(uint32_t word, int plane) {
-  return KIND == KIND_U4 ? (word >> (4 * plane)) & 0x0F0F0F0Fu : word ^ 0x80808080u;
 }
 
 // the 64 accumulators of one m64n128 half -> out rows [mrow, mrow + 64),
@@ -190,12 +172,6 @@ __device__ __forceinline__ void load_raw(const WMaps& wm, const KmW& w, int part
     if (w.sb) tma_2d(raw + Q_BYTES + META_S8, &wm.s8, bar, n0, ks >> lgs);
     if (w.bias == BIAS_I8D) tma_2d(raw + Q_BYTES + META_M8, &wm.m8, bar, n0, ks >> lgs);
   }
-}
-
-// a signed byte of a word -> float, exactly, as in dequant_octet
-__device__ __forceinline__ float i8_to_f32(uint32_t word, int c) {
-  return __fadd_rn(__int_as_float(__byte_perm(word ^ 0x80808080u, 0x4B000000u, 0x7440u | c)),
-                   -8388736.f);
 }
 
 // Producer: the scales and biases of 4 columns [nl, nl + 4) from the staged
@@ -287,8 +263,8 @@ __device__ __forceinline__ void qmm_tile(const CUtensorMap& xmap, const WMaps& w
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     const int t = tid;
     const uint32_t rfull_a = saddr(rfull);
-    const int mode = w.has_lut ? MODE_LUT : (w.bias != BIAS_NONE ? MODE_BIAS : MODE_OFF);
-    const float offc = __fadd_rn(w.off, KIND == KIND_U4 ? -8388608.f : -8388736.f);
+    const int mode = km_mode(w);
+    const float offc = km_offc<KIND>(w.off);
     if (t == 0) prefetch_map(&xmap);  // thread 0 issues the x tiles' copies
 #pragma unroll 1
     for (int kc = 0; kc < nK; ++kc) {

@@ -38,26 +38,28 @@ def _nmse(a, b):
 
 def test_build_reports_ptxas(cuda):
     """Every kernel is compiled, and the 128 f32 sums a thread of kernels B
-    and F (one body) and kernel C's S and O accumulators stay in registers:
+    and F (one body), kernel C's S and O accumulators and kernel A's mma
+    accumulators, prefetched q words and group scales stay in registers:
     ptxas reports 0 spill bytes for each of their builds."""
     info = _cuda.build()
     names = " ".join(n for n, _, _ in info["ptxas"])
     for k in ("qmm_splitk_kernel", "qmm_wgmma_kernel", "flash_kernel", "layer_kernel",
               "moe_gmm_kernel", "flash_decode_kernel"):
         assert k in names or info["cached"], (k, names)
-    for k in ("qmm_wgmma_kernel", "moe_gmm_kernel", "flash_kernel"):
+    for k in ("qmm_wgmma_kernel", "moe_gmm_kernel", "flash_kernel", "qmm_splitk_kernel"):
         b = [(n, spill) for n, _, spill in info["ptxas"] if k in n]
         assert b and all(spill == 0 for _, spill in b), (k, b)
 
 
 @pytest.mark.parametrize("qtype", QTYPES)
-@pytest.mark.parametrize("M", [1, 4, 7, 32, 33, 64, 200])
+@pytest.mark.parametrize("M", [1, 4, 7, 8, 9, 16, 17, 32, 33, 64, 200])
 @pytest.mark.parametrize("stacked", [False, True])
 def test_qmm_kernel_vs_plain(cuda, qtype, M, stacked):
     """Kernel A (M <= 32) or B (M > 32) vs dequantize-then-matmul. Both
     round the weight to bf16 identically and write bf16; they differ in f32
     summation order and hence in rare last-bit flips of the bf16 output:
-    NMSE < 1e-5."""
+    NMSE < 1e-5. M 8/9, 16/17 and 32 are the edges of kernel A's 1, 2 and 4
+    n8 tiles of batch rows."""
     g = torch.Generator(device=cuda).manual_seed(M)
     K = 1024
     qt = random_kmajor(qtype, [300, 200], K, (3,) if stacked else (), g, cuda)
@@ -74,14 +76,17 @@ def test_qmm_kernel_vs_plain(cuda, qtype, M, stacked):
 
 
 @pytest.mark.parametrize("qtype", sorted(KM_SPECS, key=lambda t: t.name))
-@pytest.mark.parametrize("M", [4, 64, 200])
-def test_qmm_kernel_all_types(cuda, qtype, M):
-    """Every K-major type through kernels A and B (same tolerance)."""
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 17, 32, 64, 200])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_qmm_kernel_all_types(cuda, qtype, M, stacked):
+    """Every K-major type through kernels A (M <= 32, each edge of its n8
+    tiles) and B (same tolerance), flat and as layer 1 of a stack."""
     g = torch.Generator(device=cuda).manual_seed(int(qtype))
-    qt = random_kmajor(qtype, [256], 1024, (), g, cuda)
+    qt = random_kmajor(qtype, [256], 1024, (2,) if stacked else (), g, cuda)
+    layer = 1 if stacked else None
     x = torch.randn((M, 1024), generator=g, device=cuda).to(torch.bfloat16)
-    y = qmm_kmajor(x, qt.data, qtype, qt.n_out, torch.bfloat16)
-    want = qmm_plain(x, qt.data, qtype, qt.n_out, torch.bfloat16)
+    y = qmm_kmajor(x, qt.data, qtype, qt.n_out, torch.bfloat16, layer)
+    want = qmm_plain(x, qt.data, qtype, qt.n_out, torch.bfloat16, layer)
     torch.cuda.synchronize()
     assert _nmse(y, want) < 1e-5
 
@@ -234,6 +239,13 @@ def test_kernels_deterministic(cuda):
     y1 = qmm_kmajor(x.reshape(4, 512), w.data, w.qtype, w.n_out, torch.float32, 0)
     y2 = qmm_kmajor(x.reshape(4, 512), w.data, w.qtype, w.n_out, torch.float32, 0)
     assert torch.equal(y1, y2)
+    # kernel A at its largest padded M, bf16 out, on each dequant mode
+    for qtype in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.IQ4_NL):
+        qt = random_kmajor(qtype, [300, 200], 1024, (), g, cuda)
+        x32 = torch.randn((32, 1024), generator=g, device=cuda).to(torch.bfloat16)
+        y1 = qmm_kmajor(x32, qt.data, qtype, qt.n_out, torch.bfloat16)
+        y2 = qmm_kmajor(x32, qt.data, qtype, qt.n_out, torch.bfloat16)
+        assert torch.equal(y1, y2), qtype
 
 
 def test_engine_on_card_matches_cpu(cuda):

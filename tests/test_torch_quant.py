@@ -72,10 +72,11 @@ def _nmse(a, b):
 
 
 @pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K])
-@pytest.mark.parametrize("M", [1, 7, 64])
+@pytest.mark.parametrize("M", [1, 7, 32, 64])
 @pytest.mark.parametrize("stacked", [False, True])
 def test_qmm_plain_vs_pallas(qtype, M, stacked):
-    """M in {1, 7} is kernel A's regime (padded M <= 32), 64 kernel B's.
+    """M in {1, 7, 32} is kernel A's regime (padded M <= 32; 32 its top),
+    64 kernel B's.
     The Pallas kernels round the dequantized tile to bf16; the plain
     version (f32 out) keeps f32 weights: NMSE < 5e-5, the bound
     tests/test_qmm.py holds the kernels to against the f32 oracle. Against

@@ -113,10 +113,15 @@ __device__ __forceinline__ float km_offc(float off) {
 
 // Byte c of a to_bytes word -> val, exactly: 0x4B0000bb is the float 2^23 +
 // bb, and offc takes the 2^23 back off with the offset (or val = lut[u]).
+// The exponent bits 0x4B000000 are read off offc (whose magnitude lies in
+// [2^23, 2^24)) at run time: a constant there would take the permute's one
+// immediate slot, and the compiler then moves the byte selector into a
+// register before every permute.
 template <int MODE>
 __device__ __forceinline__ float km_val(uint32_t bytes, int c, float offc, const float* lut) {
   if (MODE == MODE_LUT) return lut[(bytes >> (8 * c)) & 15u];
-  return __fadd_rn(__int_as_float(__byte_perm(bytes, 0x4B000000u, 0x7440u | c)), offc);
+  const uint32_t two23 = __float_as_uint(offc) & 0x7F800000u;
+  return __fadd_rn(__int_as_float(__byte_perm(bytes, two23, 0x7440u | c)), offc);
 }
 
 // val -> the weight before its rounding to bf16: val * scale, then + bias,

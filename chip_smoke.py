@@ -135,14 +135,16 @@ def short_kernel(mangled: str) -> str:
 
 def sass_per_weight(lib_path) -> dict:
     """Kernel A's instances in the built library -> {short name: (SASS
-    instructions in the loop that holds its products, weights a thread
-    takes in one pass of it, instructions a weight)}, from ``cuobjdump
-    -sass``: the innermost backward-branch loop that holds tensor-core
-    products (HMMA: 8 weights a thread, once for each n8 tile of batch
-    rows) or, without them, f32 FMAs (one for each of the MT batch rows a
-    weight meets). A static count: code that runs once a scale group, on a
-    branch inside the loop, counts in full. {} where cuobjdump is missing or
-    gives nothing."""
+    instructions in the loop that holds its products, those of them that a
+    forward branch inside it can skip and that hold no product, weights a
+    thread takes in one pass, the instructions off those branches a
+    weight)}, from ``cuobjdump -sass``:
+    the innermost backward-branch loop that holds tensor-core products
+    (HMMA: 8 weights a thread, once for each n8 tile of batch rows) or,
+    without them, f32 FMAs (one for each of the MT batch rows a weight
+    meets). A static count: such branches hold the code that runs once a
+    scale group and the loads skipped at the slab's end. {} where cuobjdump
+    is missing or gives nothing."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return {}
@@ -182,9 +184,17 @@ def sass_per_weight(lib_path) -> dict:
         lo, hi = max(inner, key=lambda r: sum(key in t for t in body(r[0], r[1])))
         n_ins = len(body(lo, hi))
         n_key = sum(key in t for t in body(lo, hi))
+        cond = set()
+        for addr, t in ins:
+            b = re.search(r"@!?U?P\d\s+BRA\s+(?:`\()?(\.L_x_\d+|0x[0-9a-f]+)", t)
+            if b and lo <= addr < hi:
+                tgt = labels.get(b.group(1)) if b.group(1).startswith(".") else int(b.group(1), 16)
+                span = [(a, t2) for a, t2 in ins if addr < a < tgt]
+                if tgt is not None and addr < tgt <= hi and not any(key in t2 for _, t2 in span):
+                    cond.update(a for a, _ in span)
         mt = int(re.search(r"<(\d+)", name).group(1))
         weights = n_key * 8 * 8 // mt if key == "HMMA" else n_key // mt
-        out[name] = (n_ins, weights, n_ins / max(weights, 1))
+        out[name] = (n_ins, len(cond), weights, (n_ins - len(cond)) / max(weights, 1))
     return out
 
 
@@ -371,12 +381,16 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
 def matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
     """Phase 2's rows of kernels A and B (or of those named) at Llama-3-8B's
     weights: A at decode (M = 4) and at its largest padded M (32, gateup),
-    B at prefill (M = 2048) and at the server's 512-row chunk (wqkv)."""
+    B at prefill (M = 2048) and at the server's 512-row chunk (wqkv). Every
+    row's inputs are drawn whether it runs or not, so each row sees the
+    same inputs in every run; returns the generator for the rest of the
+    phase."""
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.quant.kmajor import dequant_kmajor_torch
     from tpullm_torch.utils.synth import random_kmajor
 
     g = torch.Generator(device="cuda").manual_seed(1234)
+    g32 = torch.Generator(device="cuda").manual_seed(32)
     pools = {"wqkv": ([D, HKV * HD, HKV * HD], D), "wo": ([D], H * HD),
              "gateup": ([N_FF, N_FF], D), "down": ([D], N_FF), "lm_head": ([VOCAB], D)}
     checks = [(GGMLType.Q4_K, name) for name in pools]
@@ -391,14 +405,15 @@ def matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
         if (qtype, name) == (GGMLType.Q4_K, "gateup"):
             shapes.append(("qmm_splitk", 32))  # A's largest padded M
         for kname, M in shapes:
-            if kname not in kernels:
-                continue
-            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            qmm_row(torch, timer, entries, kname, f"{kname}[{name},{qtype.name},M={M}]",
-                    x, qt, w_bf16)
+            gx = g32 if M == 32 else g  # the M = 32 row leaves the other rows' draws as they were
+            x = torch.randn((M, K), generator=gx, device="cuda").to(torch.bfloat16)
+            if kname in kernels:
+                qmm_row(torch, timer, entries, kname, f"{kname}[{name},{qtype.name},M={M}]",
+                        x, qt, w_bf16)
             del x
         del qt, w_bf16
         torch.cuda.empty_cache()
+    return g
 
 
 def phase_kernels(torch, timer, entries):
@@ -411,8 +426,7 @@ def phase_kernels(torch, timer, entries):
     from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
     from tpullm_torch.utils.synth import random_kmajor
 
-    matmul_rows(torch, timer, entries)
-    g = torch.Generator(device="cuda").manual_seed(1234)
+    g = matmul_rows(torch, timer, entries)
 
     # C: prefill flash attention at the slice's shape (4 prompts bucketed to
     # 512) and at the server's last chunk of its 6000-token prompt
@@ -489,7 +503,8 @@ def moe_matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
     """Phase 2's rows of kernels A and B (or of those named) at the
     Mixtral-8x7B path's weights: A on an expert's gate (or up) and down,
     indexed out of an (L, E) stack by the path's _expert_mm (layer 1, the
-    last expert), and A and B on the 32000-row lm_head."""
+    last expert), and A and B on the 32000-row lm_head. As matmul_rows,
+    every row's inputs are drawn; returns the generator."""
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.models.llama import _expert_mm, expert_weight
     from tpullm_torch.quant.kmajor import dequant_kmajor_torch
@@ -501,27 +516,27 @@ def moe_matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
     def dequant(qt):
         return dequant_kmajor_torch(qt.data, qt.qtype, torch.bfloat16)
 
-    if "qmm_splitk" in kernels:
-        for name, parts, K in (("expert gate/up", [N_FF], D), ("expert down", [D], N_FF)):
-            stack = random_kmajor(q4k, parts, K, (2, E), g, "cuda")
-            qt = expert_weight(stack, 1, E - 1)
-            x = torch.randn((4, 1, K), generator=g, device="cuda").to(torch.bfloat16)
+    for name, parts, K in (("expert gate/up", [N_FF], D), ("expert down", [D], N_FF)):
+        stack = random_kmajor(q4k, parts, K, (2, E), g, "cuda")
+        qt = expert_weight(stack, 1, E - 1)
+        x = torch.randn((4, 1, K), generator=g, device="cuda").to(torch.bfloat16)
+        if "qmm_splitk" in kernels:
             qmm_row(torch, timer, entries, "qmm_splitk",
                     f"qmm_splitk[{name},Q4_K,M=4,expert {E - 1} of layer 1]", x, qt,
                     dequant(qt), path="mixtral",
                     run=lambda: _expert_mm(x, stack, 1, E - 1, torch.bfloat16))
-            del stack, qt, x
+        del stack, qt, x
     lm = random_kmajor(q4k, [M_VOCAB], D, (), g, "cuda")
     w_bf16 = dequant(lm)
     for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
-        if kname not in kernels:
-            continue
         x = torch.randn((M, D), generator=g, device="cuda").to(torch.bfloat16)
-        qmm_row(torch, timer, entries, kname, f"{kname}[lm_head {M_VOCAB},Q4_K,M={M}]", x,
-                lm, w_bf16, path="mixtral")
+        if kname in kernels:
+            qmm_row(torch, timer, entries, kname, f"{kname}[lm_head {M_VOCAB},Q4_K,M={M}]", x,
+                    lm, w_bf16, path="mixtral")
         del x
     del lm, w_bf16
     torch.cuda.empty_cache()
+    return g
 
 
 def phase_moe_kernels(torch, timer, entries):
@@ -543,8 +558,7 @@ def phase_moe_kernels(torch, timer, entries):
     from tpullm_torch.quant.kmajor import KM_SPECS, dequant_kmajor_torch
     from tpullm_torch.utils.synth import random_kmajor
 
-    moe_matmul_rows(torch, timer, entries)
-    g = torch.Generator(device="cuda").manual_seed(4321)
+    g = moe_matmul_rows(torch, timer, entries)
     E, used, q4k = M_EXPERT, M_USED, GGMLType.Q4_K
 
     def dequant(qt):
@@ -1515,8 +1529,9 @@ def main() -> int:
     regs = " ".join(f"{short_kernel(n)}:{r}r/{s}B" for n, r, s in info["ptxas"])
     log(f"build: {info['seconds']:.1f} s (cached {info['cached']}); "
         f"registers/spill bytes {regs}")
-    log("kernel A SASS (loop instructions, weights a thread, per weight): " + " ".join(
-        f"{k}:{n}/{w}/{r:.2f}" for k, (n, w, r) in sass_per_weight(info["path"]).items()))
+    log("kernel A SASS (loop instructions, of them on branches, weights a thread, per weight "
+        "off the branches): " + " ".join(f"{k}:{n}/{c}/{w}/{r:.2f}" for k, (n, c, w, r)
+                                         in sass_per_weight(info["path"]).items()))
     _cuda.lib()
 
     t = time.perf_counter()

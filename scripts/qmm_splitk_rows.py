@@ -44,8 +44,10 @@ def one(root: Path) -> None:
     cs.log(f"checkout {root}: {cs.card_line()}; build {info['seconds']:.1f} s; "
            + " ".join(f"{cs.short_kernel(n)}:{r}r/{s}B" for n, r, s in info["ptxas"]
                       if "qmm_splitk" in n or "qmm_reduce" in n))
-    cs.log("kernel A SASS (loop instructions, weights a thread, per weight): " + " ".join(
-        f"{k}:{n}/{w}/{r:.2f}" for k, (n, w, r) in cs.sass_per_weight(info["path"]).items()))
+    cs.log("kernel A SASS (loop instructions, of them on branches, weights a thread, per "
+           "weight off the branches): " + " ".join(
+               f"{k}:{n}/{c}/{w}/{r:.2f}" for k, (n, c, w, r)
+               in cs.sass_per_weight(info["path"]).items()))
     _cuda.lib()
     timer = cs.Timer(torch)
     entries = []

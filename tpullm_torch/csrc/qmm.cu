@@ -6,8 +6,8 @@
 //    Decode GEMV, M <= 32 rows. Bound on this card: bytes. Every weight
 //    byte is read once and feeds 2 M flops, far below the ~295 flop/byte
 //    where the tensor cores would be the limit; what stands between the
-//    kernel and the memory rate is the instruction issue of the dequant and
-//    the bytes each SM keeps in flight. Design:
+//    kernel and the memory rate is the dequant's instructions (~5 a weight)
+//    and the latency each warp waits out. Design:
 //    - A block of 4 warps owns 256 neighbouring columns (64 a warp, 8 a
 //      lane) and one K slab of whole scale groups. K is split so that the
 //      grid has ~1000 blocks even for N = 4096; the f32 slabs are summed by
@@ -30,12 +30,14 @@
 //      a bf16x2 pack, and no branch: the kernel is templated on the kind
 //      and the dequant mode (kmajor.cuh, shared with kernel B), bit-exact
 //      with dequant_kmajor_torch.
-//    - Latency, not issue, bounds blocks this short (8-32 k16 steps), so
-//      nothing waits once the loop runs: a lane keeps 8 packed rows (64 B)
-//      of loads in flight, streamed past L1 with 256-byte L2 fetches, the
-//      next ones issued before the current ones are used; the slab's raw
-//      scale rows come into shared memory by cp.async beside the first
-//      weight loads, and each group's scales are computed from there.
+//    - Blocks are short (8-32 k16 steps), so nothing waits once the loop
+//      runs: the slab's raw scale rows come into shared memory by cp.async
+//      beside the first weight loads, and each group's scales are computed
+//      from there; a lane issues the next k step's loads (16 or 32 bytes,
+//      streamed past L1 with 256-byte L2 fetches) before it dequantizes the
+//      current one's. Warps hide the latency: registers are held to 85 at
+//      MT = 8 so that an SM holds 6 blocks (24 warps). More loads ahead
+//      cost registers, so blocks, and were slower (PERF.md, PR 9).
 //    The affine bias is folded per element (the TPU kernel hoists it out
 //    as group_sums(x) @ bias; equal up to float order).
 //
@@ -53,9 +55,8 @@ namespace {
 constexpr int SK_WARPS = 4;             // split-K block: 4 warps x 64 columns
 constexpr int SK_THREADS = 32 * SK_WARPS;
 constexpr int SK_COLS = 64 * SK_WARPS;  // ops/qmm.py SPLITK_COLS
-constexpr int AHEAD_ROWS = 8;           // packed rows a lane keeps in flight
 constexpr int STAGE = 4;                // staging entries a thread loads at once
-constexpr int MIN_BLOCKS = 5;           // blocks an SM holds at MT = 8: caps registers at 96
+constexpr int MIN_BLOCKS = 6;           // blocks an SM holds at MT = 8: caps registers at 85
 
 // 8 bytes of q (a lane's 8 columns of one packed row), streamed: no L1
 // allocation, and L2 fetches the 256-byte line the block's warps share
@@ -162,7 +163,6 @@ qmm_splitk_kernel(const __nv_bfloat16* __restrict__ x, int M, KmW w,
   constexpr int NT = MT / 8;           // n8 tiles of batch rows
   constexpr int KR = 16 / P;           // packed rows of a k16 step
   constexpr int NR = KR / 4;           // of them a lane's: rows tq + 4j
-  constexpr int RB = AHEAD_ROWS / NR;  // k steps of loads in flight
   extern __shared__ __align__(16) uint8_t sm[];
   uint2* xf = reinterpret_cast<uint2*>(sm);  // x's B fragments: [k step][n8 tile][lane]
   __shared__ float lut[16];
@@ -176,15 +176,9 @@ qmm_splitk_kernel(const __nv_bfloat16* __restrict__ x, int M, KmW w,
   const size_t step = (size_t)KR * N;  // bytes of q between k steps
   const uint8_t* qn = w.q + (size_t)(r0 + tq) * N + n0 + nl;
 
-  uint2 buf[RB][NR];  // the first RB k steps' loads go out before anything else
+  uint2 buf[NR];  // the first k step's loads go out before anything else
 #pragma unroll
-  for (int i = 0; i < RB; ++i) {
-    if (i < nks) {
-#pragma unroll
-      for (int j = 0; j < NR; ++j) buf[i][j] = ld_q(qn + (size_t)4 * j * N);
-      qn += step;
-    }
-  }
+  for (int j = 0; j < NR; ++j) buf[j] = ld_q(qn + (size_t)4 * j * N);
 
   // The slab's raw scale rows by cp.async, in flight beside those loads
   const SlabSmem o = slab_smem(w, gps, MT);
@@ -240,56 +234,51 @@ qmm_splitk_kernel(const __nv_bfloat16* __restrict__ x, int M, KmW w,
   float sc[P][8], bi[P][8];
   int gl = -1;  // the slab's scale group of the current k step
 #pragma unroll 1
-  for (int ks0 = 0; ks0 < nks; ks0 += RB) {
+  for (int ks = 0; ks < nks; ++ks) {
+    // v[pair][element][half]: the stored integers as bytes, half 0 the
+    // columns nl..nl+3, half 1 nl+4..nl+7
+    uint32_t v[2][2][2];
 #pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      const int ks = ks0 + i;
-      if (ks >= nks) break;
-      // v[pair][element][half]: the stored integers as bytes, half 0 the
-      // columns nl..nl+3, half 1 nl+4..nl+7
-      uint32_t v[2][2][2];
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint2 word = buf[P == 2 ? q : 2 * q + e];
+        v[q][e][0] = to_bytes<KIND>(word.x, P == 2 ? e : 0);
+        v[q][e][1] = to_bytes<KIND>(word.y, P == 2 ? e : 0);
+      }
+    if (ks + 1 < nks) {  // the next k step's loads, in flight while this one computes
+      qn += step;
+#pragma unroll
+      for (int j = 0; j < NR; ++j) buf[j] = ld_q(qn + (size_t)4 * j * N);
+    }
+    if ((ks & (kpg - 1)) == 0) {  // a new scale group
+      ++gl;
+      const int dl = ((r0 + gl * gs) >> lds) - dlo;
+#pragma unroll
+      for (int p = 0; p < P; ++p) group_scales<MODE>(w, sm, o, gps, gl, p, dl, nl, sc[p], bi[p]);
+    }
+    uint2 b[NT];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) b[t] = xf[(ks * NT + t) * 32 + lane];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      uint32_t a[4];
 #pragma unroll
       for (int q = 0; q < 2; ++q)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const uint2 word = buf[i][P == 2 ? q : 2 * q + e];
-          v[q][e][0] = to_bytes<KIND>(word.x, P == 2 ? e : 0);
-          v[q][e][1] = to_bytes<KIND>(word.y, P == 2 ? e : 0);
-        }
-      if (ks + RB < nks) {
+        for (int cc = 0; cc < 2; ++cc) {
+          const int c = 2 * mi + cc;
+          float f[2];
 #pragma unroll
-        for (int j = 0; j < NR; ++j) buf[i][j] = ld_q(qn + (size_t)4 * j * N);
-        qn += step;
-      }
-      if ((ks & (kpg - 1)) == 0) {  // a new scale group
-        ++gl;
-        const int dl = ((r0 + gl * gs) >> lds) - dlo;
-#pragma unroll
-        for (int p = 0; p < P; ++p) group_scales<MODE>(w, sm, o, gps, gl, p, dl, nl, sc[p], bi[p]);
-      }
-      uint2 b[NT];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) b[t] = xf[(ks * NT + t) * 32 + lane];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        uint32_t a[4];
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const int c = 2 * mi + cc;
-            float f[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int p = P == 2 ? e : 0;
-              f[e] = km_dq<MODE>(km_val<MODE>(v[q][e][c / 4], c % 4, offc, lut), sc[p][c],
-                                 bi[p][c]);
-            }
-            a[2 * q + cc] = pack_bf16(f[0], f[1]);
+          for (int e = 0; e < 2; ++e) {
+            const int p = P == 2 ? e : 0;
+            f[e] = km_dq<MODE>(km_val<MODE>(v[q][e][c / 4], c % 4, offc, lut), sc[p][c],
+                               bi[p][c]);
           }
+          a[2 * q + cc] = pack_bf16(f[0], f[1]);
+        }
 #pragma unroll
-        for (int t = 0; t < NT; ++t) mma_16816(acc[mi][t], a, b[t]);
-      }
+      for (int t = 0; t < NT; ++t) mma_16816(acc[mi][t], a, b[t]);
     }
   }
   const int n = n0 + nl;

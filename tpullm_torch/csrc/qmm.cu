@@ -37,7 +37,7 @@
 //      streamed past L1 with 256-byte L2 fetches) before it dequantizes the
 //      current one's. Warps hide the latency: registers are held to 85 at
 //      MT = 8 so that an SM holds 6 blocks (24 warps). More loads ahead
-//      cost registers, so blocks, and were slower (PERF.md, PR 9).
+//      cost registers, so blocks, and were slower (PERF.md, kernel A).
 //    The affine bias is folded per element (the TPU kernel hoists it out
 //    as group_sums(x) @ bias; equal up to float order).
 //

@@ -16,8 +16,10 @@ pass):
    stack as the path does, the 32000-row lm_head, F on layer 1 of a
    stack), kernel C at the engine's prefill shape and at the server's
    last chunk of its 6000-token prompt (query slots 5632-6143 over an
-   8192-slot view), and time kernel, plain version, one PyTorch library
-   call as a yardstick, and the roofline bound; check the matmul kernels (A, B and
+   8192-slot view), kernel D at the 8B layer (M = 4, plain and folded;
+   its yardstick is the same layer through the port's unfused path), and
+   time kernel, plain version, one PyTorch library call as a yardstick,
+   and the roofline bound; check the matmul kernels (A, B and
    F) for every K-major type at one shape; kernel E (decode attention) at
    the server slice's decode shape on bf16 and int8 K/V, and its flag
    cases (T = 4 and 8, windows, softcap, sinks) at a smaller one;
@@ -65,6 +67,7 @@ kernel E, the Mixtral slice), the card's name and power limit, and the
 result line.
 """
 import gc
+import hashlib
 import json
 import math
 import os
@@ -272,8 +275,10 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
     K-major arrays, timed beside the plain version and torch.matmul on the
     pre-dequantized bf16 weight ``w_bf16``; the bound reads qt's bytes once.
     The log line gives the kernel's share of its bound (bound / ms) and its
-    time over the library call's; for kernel A also whether two calls give
-    the same bits and the device ms of its two launches apart."""
+    time over the library call's, and a digest of its output bits (two
+    checkouts' kernels compared bit for bit on the same inputs); for kernel
+    A also whether two calls give the same bits and the device ms of its
+    two launches apart."""
     from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
 
     run = run or (lambda: qmm_kmajor(x, qt.data, qt.qtype, qt.n_out, torch.bfloat16))
@@ -281,6 +286,7 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
     got, want = run(), plain()
     same = bool(torch.equal(got, run()))
     torch.cuda.synchronize()
+    bits = hashlib.sha1(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:12]
     err = nmse(torch, got, want)
     mae = float((got.float() - want.float()).abs().max())
     K, N = x.shape[-1], qt.n_out
@@ -293,13 +299,13 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
         f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
         f"bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}"
-        + "".join(f" {k}_ms {v:.4f}" for k, v in split.items()))
+        + "".join(f" {k}_ms {v:.4f}" for k, v in split.items()) + f" bits {bits}")
     if not (err < TOL_QMM_NMSE and same):
         raise AssertionError(f"{label}: nmse {err} (tol {TOL_QMM_NMSE}), repeat identical {same}")
     entries.append(dict(
         name=label, route="cuda", source=SOURCES[kname][0], replaces=SOURCES[kname][1],
         kernel=kname, path=path, max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms,
-        bound_ms=bound, bound_by=by, **({"device_ms": split} if split else {})))
+        bound_ms=bound, bound_by=by, bits=bits, **({"device_ms": split} if split else {})))
 
 
 def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
@@ -416,13 +422,86 @@ def matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
     return g
 
 
-def phase_kernels(torch, timer, entries):
-    """Phase 2: every kernel vs its plain version at 8B shapes, timed."""
+def layer_rows(torch, timer, entries, g, M=4):
+    """Phase 2's rows of kernel D at Llama-3-8B's widths, Q4_K, plain and
+    folded: held against its plain version (NMSE, two calls bit-identical)
+    and timed beside it and beside the same layer through the port's own
+    unfused path (models/llama.py: qmm on wo with the residual, rms_norm,
+    ffn with the residual; folded, also rms_norm and qmm on the next
+    layer's wqkv), the launches D saves. No single library call computes
+    D's function, so library_ms is null. The bound reads one layer's
+    weights, att, resid and the outputs once."""
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.models.config import ModelConfig
-    from tpullm_torch.ops import _cuda
+    from tpullm_torch.models.llama import ffn, rms_norm
     from tpullm_torch.ops.layer_kernel import _plain as layer_plain
     from tpullm_torch.ops.layer_kernel import ffn_block, ffn_block_qkv
+    from tpullm_torch.ops.qmm import qmm
+    from tpullm_torch.utils.synth import random_kmajor
+
+    L = 2
+    qtype = GGMLType.Q4_K
+    cfg = ModelConfig(n_embd=D, n_layer=L, n_head=H, n_head_kv=HKV, head_dim=HD,
+                      head_dim_v=HD, n_ff=N_FF)
+    qw = {"wo": random_kmajor(qtype, [D], H * HD, (L,), g, "cuda"),
+          "ffn_gateup": random_kmajor(qtype, [N_FF, N_FF], D, (L,), g, "cuda"),
+          "ffn_down": random_kmajor(qtype, [D], N_FF, (L,), g, "cuda"),
+          "wqkv": random_kmajor(qtype, [H * HD, HKV * HD, HKV * HD], D, (L,), g, "cuda")}
+    norms = 1 + 0.1 * torch.randn((2, L, D), generator=g, device="cuda")
+    att = (0.5 * torch.randn((M, 1, H * HD), generator=g, device="cuda")).to(torch.bfloat16)
+    x = torch.randn((M, 1, D), generator=g, device="cuda").to(torch.bfloat16)
+    bf = torch.bfloat16
+
+    def unfused(fold):
+        y = x + qmm(att, qw["wo"], bf, 0)
+        y = y + ffn(rms_norm(y, norms[0, 0], cfg.rms_eps), qw, 0, cfg, bf)
+        if not fold:
+            return y
+        return y, qmm(rms_norm(y, norms[1, 1], cfg.rms_eps), qw["wqkv"], bf, 1)
+
+    for fold in (False, True):
+        if fold:
+            run = lambda: ffn_block_qkv(att, x, norms[0, 0], norms[1], qw, 0, cfg)
+            plain = lambda: layer_plain(att, x, norms[0, 0], qw, 0, cfg, norms[1])
+        else:
+            run = lambda: ffn_block(att, x, norms[0, 0], qw, 0, cfg)
+            plain = lambda: layer_plain(att, x, norms[0, 0], qw, 0, cfg)
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = [nmse(torch, a, b) for a, b in zip(got, want)]
+        mae = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        used = ["wo", "ffn_gateup", "ffn_down"] + (["wqkv"] if fold else [])
+        wb = sum(weight_bytes(qw[k]) for k in used) // L  # one layer's
+        ncols = sum(qw[k].data["q"].shape[-1] * qw[k].shape[-1] for k in used)
+        flops = 2.0 * M * ncols
+        nbytes = wb + M * (H * HD + 2 * D) * 2 + (M * qw["wqkv"].n_out * 2 if fold else 0)
+        bound, by = bound_of(nbytes, flops)
+        ms = timer(run, 20)
+        pms = timer(plain, 3, warmup=1)
+        ums = timer(lambda: unfused(fold), 20)
+        label = f"layer_kernel[{'folded' if fold else 'plain'},Q4_K,M={M}]"
+        log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_LAYER_NMSE:g}) repeat identical "
+            f"{same} max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms null "
+            f"bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.3f} unfused_ms {ums:.4f} "
+            f"x_unfused {ms / ums:.2f}")
+        if max(errs) >= TOL_LAYER_NMSE or not same:
+            raise AssertionError(f"{label}: nmse {errs}, repeat identical {same}")
+        entries.append(dict(
+            name=label, route="cuda", source=SOURCES["layer_kernel"][0],
+            replaces=SOURCES["layer_kernel"][1], kernel="layer_kernel", max_abs_err=mae,
+            ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, bound_by=by,
+            share_of_bound=bound / ms, unfused_ms=ums))
+    del qw
+    torch.cuda.empty_cache()
+
+
+def phase_kernels(torch, timer, entries):
+    """Phase 2: every kernel vs its plain version at 8B shapes, timed."""
+    from tpullm_torch.ops import _cuda
     from tpullm_torch.ops.qmm import qmm_kmajor, qmm_plain
     from tpullm_torch.utils.synth import random_kmajor
 
@@ -452,50 +531,7 @@ def phase_kernels(torch, timer, entries):
             raise AssertionError(f"{qtype.name}: nmse {errs}")
 
     # D: the decode layer kernel at M = 4, plain and folded
-    L, M = 2, 4
-    qtype = GGMLType.Q4_K
-    cfg = ModelConfig(n_embd=D, n_layer=L, n_head=H, n_head_kv=HKV, head_dim=HD,
-                      head_dim_v=HD, n_ff=N_FF)
-    qw = {"wo": random_kmajor(qtype, [D], H * HD, (L,), g, "cuda"),
-          "ffn_gateup": random_kmajor(qtype, [N_FF, N_FF], D, (L,), g, "cuda"),
-          "ffn_down": random_kmajor(qtype, [D], N_FF, (L,), g, "cuda"),
-          "wqkv": random_kmajor(qtype, [H * HD, HKV * HD, HKV * HD], D, (L,), g, "cuda")}
-    norms = 1 + 0.1 * torch.randn((2, L, D), generator=g, device="cuda")
-    att = (0.5 * torch.randn((M, 1, H * HD), generator=g, device="cuda")).to(torch.bfloat16)
-    x = torch.randn((M, 1, D), generator=g, device="cuda").to(torch.bfloat16)
-    for fold in (False, True):
-        if fold:
-            run = lambda: ffn_block_qkv(att, x, norms[0, 0], norms[1], qw, 0, cfg)
-            plain = lambda: layer_plain(att, x, norms[0, 0], qw, 0, cfg, norms[1])
-        else:
-            run = lambda: ffn_block(att, x, norms[0, 0], qw, 0, cfg)
-            plain = lambda: layer_plain(att, x, norms[0, 0], qw, 0, cfg)
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        errs = [nmse(torch, a, b) for a, b in zip(got, want)]
-        mae = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
-        used = ["wo", "ffn_gateup", "ffn_down"] + (["wqkv"] if fold else [])
-        wb = sum(weight_bytes(qw[k]) for k in used) // L  # one layer's
-        ncols = sum(qw[k].data["q"].shape[-1] * qw[k].shape[-1] for k in used)
-        flops = 2.0 * M * ncols
-        nbytes = wb + M * (H * HD + 2 * D) * 2 + (M * qw["wqkv"].n_out * 2 if fold else 0)
-        bound, by = bound_of(nbytes, flops)
-        ms = timer(run, 20)
-        pms = timer(plain, 3, warmup=1)
-        label = f"layer_kernel[{'folded' if fold else 'plain'},Q4_K,M={M}]"
-        log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_LAYER_NMSE:g}) "
-            f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms null "
-            f"bound_ms {bound:.4f}")
-        if max(errs) >= TOL_LAYER_NMSE:
-            raise AssertionError(f"{label}: nmse {errs}")
-        entries.append(dict(
-            name=label, route="cuda", source=SOURCES["layer_kernel"][0],
-            replaces=SOURCES["layer_kernel"][1], kernel="layer_kernel", max_abs_err=mae,
-            ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, bound_by=by))
-    del qw
-    torch.cuda.empty_cache()
+    layer_rows(torch, timer, entries, g)
     _cuda.reset_counts()
 
 

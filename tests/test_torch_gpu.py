@@ -227,6 +227,64 @@ def test_layer_kernel_mixed_types(cuda):
     assert _nmse(out, want) < 1e-4 and _nmse(qkv, want_qkv) < 1e-4
 
 
+def _check_layer(qw, cfg, norms, g, M, layer, tol=1e-4):
+    """Kernel D, plain and folded, at one layer of qw against the plain
+    composition: NMSE < tol on the output and the next layer's qkv, the
+    plain and folded outputs equal, two calls bit-identical."""
+    Hd = qw["wo"].shape[-1]
+    D = cfg.n_embd
+    att = (0.5 * torch.randn((M, 1, Hd), generator=g, device="cuda")).to(torch.bfloat16)
+    x = torch.randn((M, 1, D), generator=g, device="cuda").to(torch.bfloat16)
+    out = ffn_block(att, x, norms[0, layer], qw, layer, cfg)
+    out_f, qkv = ffn_block_qkv(att, x, norms[0, layer], norms[1], qw, layer, cfg)
+    out_f2, qkv2 = ffn_block_qkv(att, x, norms[0, layer], norms[1], qw, layer, cfg)
+    want = layer_plain(att, x, norms[0, layer], qw, layer, cfg)
+    want_f, want_qkv = layer_plain(att, x, norms[0, layer], qw, layer, cfg, norms[1])
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_f) and torch.equal(out_f, out_f2) and torch.equal(qkv, qkv2)
+    assert _nmse(out, want) < tol and _nmse(out_f, want_f) < tol
+    assert qkv.shape == want_qkv.shape and _nmse(qkv, want_qkv) < tol
+
+
+# (D, heads, kv heads, n_ff): Llama-3-8B, Llama-2-7B, Llama-2-13B
+_WIDTHS = {"8B": (4096, 32, 8, 14336), "7B": (4096, 32, 32, 11008),
+           "13B": (5120, 40, 40, 13824)}
+
+
+@pytest.mark.parametrize("width,M", [("8B", 1), ("8B", 4), ("8B", 16), ("7B", 4),
+                                     ("13B", 4)])
+def test_layer_kernel_full_width(cuda, width, M):
+    """Kernel D at published widths, Q4_K, plain and folded: the 8B slab
+    plan and the two Llama-2 ones, whose slab counts differ from the 8B
+    plan (uneven splits of the down pool's K)."""
+    D, H, Hkv, n_ff = _WIDTHS[width]
+    L, hd = 2, 128
+    g = torch.Generator(device=cuda).manual_seed(D + n_ff + M)
+    cfg = ModelConfig(n_embd=D, n_layer=L, n_head=H, n_head_kv=Hkv, head_dim=hd,
+                      head_dim_v=hd, n_ff=n_ff)
+    q = GGMLType.Q4_K
+    qw = {"wo": random_kmajor(q, [D], H * hd, (L,), g, cuda),
+          "ffn_gateup": random_kmajor(q, [n_ff, n_ff], D, (L,), g, cuda),
+          "ffn_down": random_kmajor(q, [D], n_ff, (L,), g, cuda),
+          "wqkv": random_kmajor(q, [H * hd, Hkv * hd, Hkv * hd], D, (L,), g, cuda)}
+    norms = 1 + 0.1 * torch.randn((2, L, D), generator=g, device=cuda)
+    _check_layer(qw, cfg, norms, g, M, 0)
+
+
+@pytest.mark.parametrize("qtype", sorted(KM_SPECS, key=lambda t: t.name))
+def test_layer_kernel_all_types(cuda, qtype):
+    """Kernel D with every K-major type in all four pools (512 widths, M =
+    4, folded and plain), through each of the slab body's kind and dequant
+    modes."""
+    cfg, _, norms, g = _layer_setup(cuda, GGMLType.Q4_K)
+    L, D, Hd, n_ff = 3, 512, 512, 1024
+    qw = {"wo": random_kmajor(qtype, [D], Hd, (L,), g, cuda),
+          "ffn_gateup": random_kmajor(qtype, [n_ff, n_ff], D, (L,), g, cuda),
+          "ffn_down": random_kmajor(qtype, [D], n_ff, (L,), g, cuda),
+          "wqkv": random_kmajor(qtype, [512, 256, 256], D, (L,), g, cuda)}
+    _check_layer(qw, cfg, norms, g, 4, 1)
+
+
 def test_kernels_deterministic(cuda):
     """No atomics: two identical calls give identical bits."""
     cfg, qw, norms, g = _layer_setup(cuda, GGMLType.Q4_K)

@@ -16,8 +16,12 @@ from tpullm.ops.layer_kernel import supported as jsupported
 from tpullm.ops.qtensor import QTensor as JQTensor
 from tpullm.utils.synth import synth_qparams
 from tpullm_torch.models.config import ModelConfig
-from tpullm_torch.ops.layer_kernel import ffn_block, ffn_block_qkv, supported
+from tpullm_torch.ops.fuse import pad256
+from tpullm_torch.ops.layer_kernel import (LAYER_MAX_ROWS, LAYER_TILE, MAX_ROWS, ffn_block,
+                                           ffn_block_qkv, layer_plan, scratch_floats,
+                                           supported)
 from tpullm_torch.ops.qtensor import QTensor
+from tpullm_torch.quant.kmajor import KM_SPECS
 
 torch.set_num_threads(2)
 
@@ -80,3 +84,48 @@ def test_ffn_block_qkv_plain_vs_pallas(layer):
     assert gqkv.shape == tuple(wqkv.shape)
     assert _nmse(gx.float().numpy(), np.asarray(wx, np.float32)) < 5e-4
     assert _nmse(gqkv.float().numpy(), np.asarray(wqkv, np.float32)) < 5e-3
+
+
+# (D, Hd, n_ff, Nqkv_pad) of Llama-3-8B, Llama-2-7B, Llama-2-13B and the
+# tests' 512 widths
+_WIDTHS = {"8B": (4096, 4096, 14336, 6144), "7B": (4096, 4096, 11008, 12288),
+           "13B": (5120, 5120, 13824, 15360), "512": (512, 512, 1024, 1024)}
+
+
+def _pools(width):
+    """(K, Npad) of wo, gateup, down and qkv at a width."""
+    D, Hd, n_ff, nq = _WIDTHS[width]
+    return [(Hd, pad256(D)), (D, 2 * pad256(n_ff)), (n_ff, pad256(D)), (D, nq)]
+
+
+@pytest.mark.parametrize("width", sorted(_WIDTHS))
+@pytest.mark.parametrize("qtype", sorted(KM_SPECS, key=lambda t: t.name))
+def test_layer_plan_covers_k_with_whole_groups(width, qtype):
+    """Kernel D's slab plan: every pool's K split into slabs of whole scale
+    groups (gps x nS = the groups of a plane), a slab's packed rows within
+    LAYER_MAX_ROWS (or one group), and whole k16 steps a slab."""
+    spec = KM_SPECS[qtype]
+    P = 2 if spec.kind == "u4" else 1
+    for K, Npad in _pools(width):
+        assert Npad % LAYER_TILE == 0
+        gps, nS = layer_plan(qtype, K, Npad, 132 * 6)
+        assert gps * nS * spec.gs * P == K
+        assert gps == 1 or gps * spec.gs <= LAYER_MAX_ROWS
+        assert gps * spec.gs % (16 // P) == 0
+
+
+@pytest.mark.parametrize("width", sorted(_WIDTHS))
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_layer_scratch_holds_every_partial(width, M):
+    """The scratch kernel D asks for holds the residual streams, the sums
+    of squares, hmid and every pool's slab partials (nS, M, Npad), at
+    Q4_K and Q6_K plans."""
+    D, Hd, n_ff, _ = _WIDTHS[width]
+    pools = _pools(width)
+    for qtype in (GGMLType.Q4_K, GGMLType.Q6_K):
+        parts = [(layer_plan(qtype, K, Npad, 132 * 6)[1], Npad) for K, Npad in pools]
+        total = scratch_floats(M, D, n_ff, pools[0][1], parts)
+        fixed = 2 * M * D + 2 * (pools[0][1] // LAYER_TILE) * MAX_ROWS + M * n_ff / 2
+        for nS, Npad in parts:
+            assert total >= fixed + nS * M * Npad
+        assert total <= fixed + max(nS * M * Npad for nS, Npad in parts) + 16

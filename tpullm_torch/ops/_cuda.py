@@ -151,9 +151,10 @@ _SIGNATURES = {
     # q k v o qslots kvpos qpos valid_from, B H Hkv T S D,
     # 12 strides, scale softcap window, stream
     "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _P],
-    # w_ptrs(4 pools), w_ints, w_floats, att, res, ffn_norm, anrm_next,
-    # out, qkv_out, scratch, M, D, Hd, n_ff, act, fold, eps, stream
-    "tpq_layer_kernel": [_P] * 3 + [_P] * 7 + [_I] * 6 + [_F, _P],
+    # w_ptrs(4 pools), w_ints, w_floats, plan, att, res, ffn_norm, anrm_next,
+    # out, qkv_out, scratch, counters, M, D, Hd, n_ff, act, fold, nscratch,
+    # eps, stream
+    "tpq_layer_kernel": [_P] * 4 + [_P] * 8 + [_I] * 6 + [_L, _F, _P],
     # x, Mp, K, w_ptrs, w_ints, w_floats, tile_expert, live, layer, E,
     # slots (the stack's L x E or E weights), out, Nout, stream
     "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],

@@ -3,24 +3,39 @@
 Counterpart of tpullm/ops/layer_kernel.py: wo + residual + rmsnorm +
 gate/up + activation + down + residual (and, folded, the next layer's
 attention rmsnorm and fused QKV) as ONE launch per decode layer. The
-hand-written cooperative CUDA kernel lives in csrc/layer_kernel.cu. The
-plain version composes plain qmm, rmsnorm and the activation with the TPU
-kernel's rounding points: the residual stays f32; h2, hmid and the next
-layer's normed input are rounded to bf16.
+hand-written cooperative CUDA kernel lives in csrc/layer_kernel.cu; each
+of its phases is split-K over (column tile, K slab) work items, and
+``layer_plan`` picks each pool's slabs. The plain version composes plain
+qmm, rmsnorm and the activation with the TPU kernel's rounding points: the
+residual stays f32; h2, hmid and the next layer's normed input are rounded
+to bf16.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 
 from ..gguf.constants import GGMLType
+from ..quant.kmajor import KM_SPECS
 from . import _cuda
 from .fuse import pad256
 from .qmm import qmm_plain, tile_k_ok
 
 _ACT_CODES = {"silu": 0, "gelu": 1, "swiglu_oai": 2}
 MAX_ROWS = 16  # the kernel serves B*T <= 16 (layer_kernel.py:438)
+LAYER_TILE = 128  # columns of a work item (csrc/layer_kernel.cu TC)
+LAYER_WARPS_K = 2  # warps along K in an item (csrc/layer_kernel.cu LK)
+LAYER_MAX_ROWS = 512  # packed rows per K slab (bounds x's slab in shared memory)
+BLOCKS_PER_SM = 4  # resident blocks an SM (csrc/layer_kernel.cu L_MIN_BLOCKS)
+N_COUNTERS = 1024  # per-tile arrival counters (csrc/layer_kernel.cu MAX_TILES)
+# layer_plan's cost model, in units of one k step of a warp: an item's fixed
+# cost (first loads, scale rows, x's slab, the partial store) and one round
+# of 8 slabs in the tile's reduce, which the phase's last tile waits out
+ITEM_COST = 4
+REDUCE_ROUND_COST = 2
 
 
 def _best_tk(K: int, qtype, cap: int) -> int:
@@ -99,6 +114,56 @@ def _plain(att, resid, ffn_norm, qw, layer, cfg, attn_norm=None):
     return out, qkv.to(torch.bfloat16).reshape(B, T, -1)
 
 
+@functools.cache
+def layer_plan(qtype, K: int, Npad: int, blocks: int) -> tuple[int, int]:
+    """-> (scale groups per K slab, number of slabs) of one pool of kernel
+    D, whose persistent grid of ``blocks`` walks the pool's (tile, slab)
+    items: whole scale groups a slab, at most LAYER_MAX_ROWS packed rows,
+    and the least of waves x (ITEM_COST + k steps a warp) + REDUCE_ROUND_COST
+    x rounds of the last tile's reduce."""
+    spec = KM_SPECS[GGMLType(qtype)]
+    P = 2 if spec.kind == "u4" else 1
+    G = K // P // spec.gs
+    tiles = Npad // LAYER_TILE
+    steps = spec.gs // (16 // P)  # k16 steps of a scale group
+    best = None
+    for gps in range(1, G + 1):
+        if G % gps or (gps > 1 and gps * spec.gs > LAYER_MAX_ROWS):
+            continue
+        nS = G // gps
+        cost = (math.ceil(tiles * nS / blocks) * (ITEM_COST + gps * steps / LAYER_WARPS_K)
+                + REDUCE_ROUND_COST * math.ceil(nS / 8))
+        if best is None or cost < best[0]:
+            best = (cost, gps, nS)
+    return best[1], best[2]
+
+
+def scratch_floats(M: int, D: int, n_ff: int, Npad_D: int, parts) -> int:
+    """Floats of kernel D's scratch, carved as csrc/layer_kernel.cu does:
+    x2 and x_out (M, D) f32, two sums of squares (Npad_D / LAYER_TILE
+    tiles, MAX_ROWS each), hmid (M, n_ff) bf16, then the partials of the
+    largest pool; ``parts`` holds each pool's (slabs, Npad). Each part
+    starts 16-byte aligned."""
+    a4 = lambda n: -(-n // 4) * 4
+    part = max(nS * M * Npad for nS, Npad in parts)
+    return (2 * a4(M * D) + 2 * (Npad_D // LAYER_TILE) * MAX_ROWS
+            + a4(-(-M * n_ff // 2)) + part)
+
+
+@functools.cache
+def _grid_blocks(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count * BLOCKS_PER_SM
+
+
+@functools.cache
+def _counters(index: int):
+    """The arrival counters of one device: zero at first use, and each
+    launch leaves them zero (the last block of each tile resets its
+    counter). Kernel D's launches on a device run one at a time, on one
+    stream."""
+    return torch.zeros(N_COUNTERS, dtype=torch.int32, device=torch.device("cuda", index))
+
+
 def _launch(att, resid, ffn_norm, qw, layer: int, cfg, attn_norm=None):
     B, T, D = resid.shape
     M = B * T
@@ -121,23 +186,31 @@ def _launch(att, resid, ffn_norm, qw, layer: int, cfg, attn_norm=None):
         nxt = min(layer + 1, qk.data["q"].shape[0] - 1)
         descs.append(_cuda.km_descriptor({k: v[nxt] for k, v in qk.data.items()},
                                          qk.qtype, D))
+        pools.append(qk)
+        Ks.append(D)
         anrm = attn_norm[nxt].to(torch.float32).contiguous()
         _cuda.require_cuda(anrm, "attn_norm")
         qkv = torch.empty((M, qk.data["q"].shape[-1]), dtype=torch.bfloat16, device=dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    blocks = _grid_blocks(index)
+    npads = [p.data["q"].shape[-1] for p in pools]
+    plans = [layer_plan(p.qtype, K, n, blocks) for p, K, n in zip(pools, Ks, npads)]
     att2 = att.reshape(M, Hd).to(torch.bfloat16).contiguous()
     res2 = resid.reshape(M, D).to(torch.bfloat16).contiguous()
     nrm = ffn_norm.to(torch.float32).contiguous()
     for t, what in ((att2, "att"), (res2, "resid"), (nrm, "ffn_norm")):
         _cuda.require_cuda(t, what)
-    # phase inputs and residual streams (csrc/layer_kernel.cu:launch), plus
-    # per-tile sums of squares for tiles of at least 8 columns
-    scratch = torch.empty(MAX_ROWS * (Hd + 5 * D + n_ff) + 2 * MAX_ROWS * math.ceil(D / 8),
-                          dtype=torch.float32, device=dev)
+    nscratch = scratch_floats(M, D, n_ff, npads[0],
+                              [(nS, n) for (_, nS), n in zip(plans, npads)])
+    scratch = torch.empty(nscratch, dtype=torch.float32, device=dev)
+    plan = (ctypes.c_int * 8)(*[v for p in plans for v in p])
     err = _cuda.lib().tpq_layer_kernel(
-        *_cuda.c_km(descs), att2.data_ptr(), res2.data_ptr(), nrm.data_ptr(),
+        *_cuda.c_km(descs), plan, att2.data_ptr(), res2.data_ptr(), nrm.data_ptr(),
         anrm.data_ptr() if fold else None, out.data_ptr(),
-        qkv.data_ptr() if fold else None, scratch.data_ptr(), M, D, Hd, n_ff,
-        _ACT_CODES[cfg.act_fn], int(fold), float(cfg.rms_eps), _cuda.stream_ptr(out))
+        qkv.data_ptr() if fold else None, scratch.data_ptr(),
+        _counters(index).data_ptr(),
+        M, D, Hd, n_ff, _ACT_CODES[cfg.act_fn], int(fold), nscratch, float(cfg.rms_eps),
+        _cuda.stream_ptr(out))
     _cuda.COUNTS["layer_kernel"] += 1
     _cuda.check(err, "layer_kernel (cooperative launch)")
     if not fold:

@@ -21,8 +21,10 @@ pass):
    time kernel, plain version, one PyTorch library call as a yardstick,
    and the roofline bound; check the matmul kernels (A, B and
    F) for every K-major type at one shape; kernel E (decode attention) at
-   the server slice's decode shape on bf16 and int8 K/V, and its flag
-   cases (T = 4 and 8, windows, softcap, sinks) at a smaller one;
+   the server slice's decode shape on bf16 and int8 K/V and at the engine
+   slice's on bf16 (timed beside SDPA and the einsum path the model takes
+   with E off), and its flag cases (T = 1, 4 and 8, windows, softcap,
+   sinks, a row with no visible key) at head dims 128 and 256;
 3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
    (tolerance: 4x the error of the same plain path in bf16); then the
@@ -93,7 +95,7 @@ M_VOCAB, M_EXPERT, M_USED = 32000, 8, 2
 TOL_QMM_NMSE = 1e-5  # same bf16 weights, f32 sums in another order, bf16 out
 TOL_ATTN_NMSE = 1e-4  # p rounded to bf16 before vs after normalization
 TOL_LAYER_NMSE = 1e-4  # kernel rounds weights to bf16, plain keeps f32
-TOL_DECODE_NMSE = 1e-4  # p rounded to bf16 per 64-slot tile vs once per row
+TOL_DECODE_NMSE = 1e-4  # p rounded to bf16 per 16-slot chunk vs once per row
 # bf16 path on the card vs the f32 plain path on the CPU: at most this many
 # times the NMSE of the same plain path run in bf16 on the CPU (the error
 # that bf16 arithmetic alone brings on these inputs)
@@ -250,10 +252,11 @@ def bound_of(nbytes: float, flops: float):
     return max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3, by
 
 
-def splitk_split(torch, timer, run, iters=10):
-    """Device ms a call of kernel A's two launches, qmm_splitk_kernel and
-    qmm_reduce, apart: one torch.profiler pass over ``iters`` calls, L2
-    flushed before each as the Timer does."""
+def launch_split(torch, timer, run, names, iters=10):
+    """Device ms a call of each kernel in ``names`` (CUDA base names, for
+    kernel A qmm_splitk_kernel and qmm_reduce, for kernel E its main and
+    merge launches), apart: one torch.profiler pass over ``iters`` calls,
+    L2 flushed before each as the Timer does."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -261,7 +264,7 @@ def splitk_split(torch, timer, run, iters=10):
             timer.flush.zero_()
             run()
         torch.cuda.synchronize()
-    split = {"qmm_splitk_kernel": 0.0, "qmm_reduce": 0.0}
+    split = dict.fromkeys(names, 0.0)
     for name, ms, _ in device_kernels(prof):
         base = name.split("<")[0]
         if base in split:
@@ -295,7 +298,8 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
     ms = timer(run, 20 if M <= 32 else 10)
     pms = timer(plain, 3, warmup=1)
     lms = timer(lambda: torch.matmul(x, w_bf16.t()), 10)
-    split = splitk_split(torch, timer, run) if kname == "qmm_splitk" else {}
+    split = (launch_split(torch, timer, run, ("qmm_splitk_kernel", "qmm_reduce"))
+             if kname == "qmm_splitk" else {})
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
         f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
         f"bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}"
@@ -677,106 +681,153 @@ def phase_moe_kernels(torch, timer, entries):
         del qt
 
 
-def phase_flash_decode(torch, timer, entries):
-    """Phase 2, kernel E at the server slice's decode shape (B = 4, 32/8
-    heads of 128, T = 1, an 8192-slot view, rows at slots 6000, 2000, 700
-    and 40), bf16 and int8 K/V read as strided views of a layer-stacked
-    cache, against its plain version (NMSE 1e-4, repeats bit-identical),
-    timed beside the plain version and SDPA with a boolean mask over the
-    pre-dequantized bf16 views. The bound reads the K/V rows (and 8 B of
-    scales per (head, slot) for int8) up to each row's slot once. Then T = 4
-    and 8, windows (plain, chunked), softcap and sinks at a smaller shape."""
+def decode_operands(torch, g, B, T, Hq, Hk, S, hd, slots, q8, vf=None):
+    """Kernel E's operands: q (B, T, Hq, hd) bf16; K/V (B, Hk, S, hd) as
+    layer 1 of a 2-layer stacked cache, bf16 or int8 with f32 row scales
+    (strided views, as the path reads them); token t of row b at slot
+    slots[b] + t."""
+    q = torch.randn((B, T, Hq, hd), generator=g, device="cuda").to(torch.bfloat16)
+    if q8:
+        kv = torch.randint(-127, 128, (2, 2, B, Hk, S, hd), generator=g, device="cuda",
+                           dtype=torch.int8)
+        sc = torch.rand((2, 2, B, Hk, S), generator=g, device="cuda") * 0.03
+        k, v, ks, vs = kv[0, 1], kv[1, 1], sc[0, 1], sc[1, 1]
+    else:
+        kv = torch.randn((2, 2, B, Hk, S, hd), generator=g, device="cuda").to(torch.bfloat16)
+        k, v, ks, vs = kv[0, 1], kv[1, 1], None, None
+    qs = torch.tensor(slots, device="cuda")[:, None] + torch.arange(T, device="cuda")[None]
+    vf = torch.zeros(B, dtype=torch.int64, device="cuda") if vf is None else \
+        torch.tensor(vf, device="cuda")
+    return q, k, v, ks, vs, qs, qs - vf[:, None], vf
+
+
+def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, check=True):
+    """One row of kernel E at Llama-3-8B's heads (32/8 of 128, T = 1) over
+    an S-slot view, row b's query at slots[b] with keys from vf[b]: against
+    its plain version (NMSE 1e-4, two calls bit-identical), timed beside
+    the plain version, SDPA with a boolean mask over the bf16 views
+    (pre-dequantized for int8; the library yardstick) and the einsum path
+    the model takes with E off (masked_attention over the same views), with
+    the device ms of E's main and merge launches apart (profiler) and a
+    digest of its output bits. The bound reads each row's visible K/V rows
+    (and 8 B of scales a (head, slot) for int8) and q once and writes o
+    once; 4 D flops a visible (query head, key) pair. check=False times the
+    row without holding it to the plain version."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.models.llama import dequant_view
+    from tpullm_torch.ops.flash_attention import masked_attention
     from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
 
-    g = torch.Generator(device="cuda").manual_seed(99)
-
-    def operands(B, T, Hq, Hk, S, slots, q8, vf=None):
-        q = torch.randn((B, T, Hq, HD), generator=g, device="cuda").to(torch.bfloat16)
-        if q8:  # layer 1 of a 2-layer stacked cache, as the path's views
-            kv = torch.randint(-127, 128, (2, 2, B, Hk, S, HD), generator=g, device="cuda",
-                               dtype=torch.int8)
-            sc = torch.rand((2, 2, B, Hk, S), generator=g, device="cuda") * 0.03
-            k, v, ks, vs = kv[0, 1], kv[1, 1], sc[0, 1], sc[1, 1]
-        else:
-            kv = torch.randn((2, 2, B, Hk, S, HD), generator=g, device="cuda").to(
-                torch.bfloat16)
-            k, v, ks, vs = kv[0, 1], kv[1, 1], None, None
-        qs = torch.tensor(slots, device="cuda")[:, None] + torch.arange(T, device="cuda")[None]
-        vf = torch.zeros(B, dtype=torch.int64, device="cuda") if vf is None else \
-            torch.tensor(vf, device="cuda")
-        return q, k, v, ks, vs, qs, qs - vf[:, None], vf
-
-    slots = [6000, 2000, 700, 40]
-    B, S = len(slots), 8192
+    B = len(slots)
+    scale = 1.0 / math.sqrt(HD)
     cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD)
-    for q8 in (False, True):
-        q, k, v, ks, vs, qs, pos, vf = operands(B, 1, H, HKV, S, slots, q8)
-        run = lambda: flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
-        plain = lambda: flash_decode_plain(q, k, v, qs, pos, vf, 1.0 / math.sqrt(HD), 0.0, 0,
-                                           False, None, ks, vs)
-        got, again, want = run(), run(), plain()
-        torch.cuda.synchronize()
-        err = nmse(torch, got, want)
-        same = bool(torch.equal(got, again))
-        mae = float((got.float() - want.float()).abs().max())
-        rows = sum(n + 1 for n in slots)  # slots each row must read
-        kv_bytes = rows * HKV * 2 * HD * (1 if q8 else 2) + (rows * HKV * 8 if q8 else 0)
-        bound, by = bound_of(kv_bytes + 2 * B * H * HD * 2, 4.0 * HD * H * rows)
-        ms = timer(run, 20)
-        pms = timer(plain, 3, warmup=1)
-        kd = dequant_view(k, ks, torch.bfloat16) if q8 else k
-        vd = dequant_view(v, vs, torch.bfloat16) if q8 else v
-        mask = (torch.arange(S, device="cuda")[None, None, None, :] <= qs[:, None, :, None])
-        qt = q.transpose(1, 2)
-        lms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask, enable_gqa=True), 20)
-        label = (f"flash_decode[{'int8' if q8 else 'bf16'},B={B},H={H},Hkv={HKV},T=1,S={S},"
-                 f"D={HD},slots {'/'.join(map(str, slots))}]")
-        log(f"kernel {label}: nmse {err:.3e} (tol {TOL_DECODE_NMSE:g}) repeat identical {same} "
-            f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
-            f"(SDPA, bf16 views) bound_ms {bound:.5f} ({by}; {rows} slots x {HKV} heads)")
-        if not (err < TOL_DECODE_NMSE and same):
-            raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
-        entries.append(dict(
-            name=label, route="cuda", source=SOURCES["flash_decode"][0],
-            replaces=SOURCES["flash_decode"][1], kernel="flash_decode", path="8B server",
-            max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library="SDPA",
-            bound_ms=bound, bound_by=by))
-        del q, k, v, ks, vs, kd, vd, mask, got, again, want
-        torch.cuda.empty_cache()
+    q, k, v, ks, vs, qs, pos, vft = decode_operands(torch, g, B, 1, H, HKV, S, HD, slots, q8,
+                                                    vf)
+    run = lambda: flash_decode(q, k, v, qs, pos, vft, cfg, k_scales=ks, v_scales=vs)
+    plain = lambda: flash_decode_plain(q, k, v, qs, pos, vft, scale, 0.0, 0, False, None, ks,
+                                       vs)
+    got, again, want = run(), run(), plain()
+    torch.cuda.synchronize()
+    err = nmse(torch, got, want)
+    same = bool(torch.equal(got, again))
+    bits = hashlib.sha1(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:12]
+    mae = float((got.float() - want.float()).abs().max())
+    rows = sum(n + 1 - f for n, f in zip(slots, vft.tolist()))  # visible slots of the rows
+    kv_bytes = rows * HKV * 2 * HD * (1 if q8 else 2) + (rows * HKV * 8 if q8 else 0)
+    bound, by = bound_of(kv_bytes + 2 * B * H * HD * 2, 4.0 * HD * H * rows)
+    ms = timer(run, 20)
+    pms = timer(plain, 3, warmup=1)
+    split = launch_split(torch, timer, run, ("flash_decode_kernel", "flash_decode_merge"))
+    kd = dequant_view(k, ks, torch.bfloat16) if q8 else k
+    vd = dequant_view(v, vs, torch.bfloat16) if q8 else v
+    slot = torch.arange(S, device="cuda")
+    mask = (slot[None, None, None, :] <= qs[:, None, :, None]) & \
+        (slot[None, None, None, :] >= vft[:, None, None, None])
+    qt = q.transpose(1, 2)
+    lms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=True), 20)
+    kvp = slot[None] - vft[:, None]
+    ems = timer(lambda: masked_attention(q, kd, vd, qs, kvp, pos, vft, scale), 10)
+    label = (f"flash_decode[{'int8' if q8 else 'bf16'},{where},B={B},H={H},Hkv={HKV},T=1,"
+             f"S={S},D={HD},slots {'/'.join(map(str, slots))},valid_from "
+             f"{'/'.join(map(str, vft.tolist()))}]")
+    log(f"kernel {label}: nmse {err:.3e} (tol {TOL_DECODE_NMSE:g}) repeat identical {same} "
+        f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
+        f"(SDPA, bf16 views) einsum_ms {ems:.4f} bound_ms {bound:.5f} ({by}; {rows} slots x "
+        f"{HKV} heads) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} x_einsum "
+        f"{ms / ems:.3f}" + "".join(f" {n}_ms {t:.4f}" for n, t in split.items())
+        + f" bits {bits}")
+    if check and not (err < TOL_DECODE_NMSE and same):
+        raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
+    entries.append(dict(
+        name=label, route="cuda", source=SOURCES["flash_decode"][0],
+        replaces=SOURCES["flash_decode"][1], kernel="flash_decode", path="8B server",
+        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library="SDPA",
+        bound_ms=bound, bound_by=by, einsum_ms=ems, device_ms=split, bits=bits))
+    del q, k, v, ks, vs, kd, vd, mask, got, again, want
+    torch.cuda.empty_cache()
 
-    # the flag cases at a smaller shape: rows at mixed depths, one (slot 5,
-    # valid_from 7, T = 1) with no visible key
+
+def decode_flag_cases(torch, g, hd):
+    """Kernel E's flag cases at head dim hd (B = 4, 32/8 heads, a 2048-slot
+    view, rows at slots 1500/600/90/5 from valid_from 0/3/1/7, so the last
+    row has no visible key at T = 1): T 1/4/8 x bf16/int8 x plain, window,
+    chunked window, softcap with sinks; each within NMSE 1e-4 of the plain
+    version, two calls bit-identical, the empty row exactly 0."""
+    from tpullm_torch.models.config import ModelConfig
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
     errs = {}
     for T in (1, 4, 8):
         for q8 in (False, True):
             for flags in ("plain", "window", "chunked", "softcap+sinks"):
                 window = {"window": 200, "chunked": 128}.get(flags, 0)
-                c = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD,
+                c = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=hd, head_dim_v=hd,
                                 attn_logit_softcap=30.0 if flags == "softcap+sinks" else 0.0,
                                 swa_chunked=flags == "chunked")
                 sk = torch.randn(H, generator=g, device="cuda") if "sinks" in flags else None
-                q, k, v, ks, vs, qs, pos, vf = operands(4, T, H, HKV, 2048, [1500, 600, 90, 5],
-                                                        q8, vf=[0, 3, 1, 7])
+                q, k, v, ks, vs, qs, pos, vf = decode_operands(
+                    torch, g, 4, T, H, HKV, 2048, hd, [1500, 600, 90, 5], q8, vf=[0, 3, 1, 7])
                 got = flash_decode(q, k, v, qs, pos, vf, c, window, sk, k_scales=ks,
                                    v_scales=vs)
                 again = flash_decode(q, k, v, qs, pos, vf, c, window, sk, k_scales=ks,
                                      v_scales=vs)
-                want = flash_decode_plain(q, k, v, qs, pos, vf, 1.0 / math.sqrt(HD),
+                want = flash_decode_plain(q, k, v, qs, pos, vf, 1.0 / math.sqrt(hd),
                                           c.attn_logit_softcap, window, c.swa_chunked, sk,
                                           ks, vs)
                 torch.cuda.synchronize()
-                key = f"T={T},{'int8' if q8 else 'bf16'},{flags}"
+                key = f"D={hd},T={T},{'int8' if q8 else 'bf16'},{flags}"
                 errs[key] = nmse(torch, got, want)
                 zero = T > 1 or int(torch.count_nonzero(got[3])) == 0
                 if not (errs[key] < TOL_DECODE_NMSE and torch.equal(got, again) and zero):
                     raise AssertionError(f"flash_decode {key}: nmse {errs[key]}, repeat "
                                          f"identical {torch.equal(got, again)}, empty row 0 {zero}")
-    log(f"kernel flash_decode flag cases (B=4, S=2048, slots 1500/600/90/5): max nmse "
+    log(f"kernel flash_decode flag cases (D={hd}, B=4, S=2048, slots 1500/600/90/5): max nmse "
         f"{max(errs.values()):.3e} (tol {TOL_DECODE_NMSE:g}) over {len(errs)} cases, repeats "
         f"identical, the row with no visible key 0")
+
+
+def decode_rows(torch, timer, entries, check=True):
+    """Kernel E's timed rows: the server slice's decode shape (an 8192-slot
+    view, rows at slots 6000/2000/700/40) on bf16 and int8 K/V, and the
+    engine slice's (bf16, a 1024-slot view, the left-padded 512/300/200/
+    100-token prompts at their 16th decode step: every row at slot 527,
+    valid_from 0/212/312/412). Returns the generator."""
+    g = torch.Generator(device="cuda").manual_seed(99)
+    for q8 in (False, True):
+        decode_row(torch, timer, entries, g, "server", 8192, [6000, 2000, 700, 40],
+                   [0, 0, 0, 0], q8, check)
+    decode_row(torch, timer, entries, g, "engine", 1024, [527] * 4, [0, 212, 312, 412], False,
+               check)
+    return g
+
+
+def phase_flash_decode(torch, timer, entries):
+    """Phase 2, kernel E: its timed rows (decode_rows), then its flag cases
+    at head dims 128 and 256."""
+    g = decode_rows(torch, timer, entries)
+    for hd in (HD, 2 * HD):
+        decode_flag_cases(torch, g, hd)
 
 
 def plain_cpu_copy(torch, params):

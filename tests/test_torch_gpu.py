@@ -346,6 +346,54 @@ def test_engine_on_card_matches_cpu(cuda):
             assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
 
 
+@pytest.mark.parametrize("flag", [None, "1"])
+def test_engine_head_dim_256_on_card_matches_cpu(cuda, monkeypatch, flag):
+    """A Llama-family model with head dim 256 (n_embd 1024, 4/2 heads) runs
+    on the card: its prefill (prompts bucketed to 128 tokens) takes the
+    einsum path, as kernel C builds head dim 128 only, and decode takes
+    kernel E when TPULLM_FLASH_DECODE is set. Held to
+    test_engine_on_card_matches_cpu's rule: 4x the NMSE of the plain path
+    in bf16 against the plain path in f32, and the same first greedy token
+    on every row whose top two f32 logits are more than 0.05 apart."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = synth_kmajor_q4k_fast(vocab_size=512, n_embd=1024, n_layer=2, n_head=4,
+                                        n_head_kv=2, n_ff=1024, seed=3, centred=True,
+                                        device="cpu")
+    assert cfg.head_dim == 256
+    card = {k: (v.to("cuda") if not isinstance(v, dict) else
+                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    prompts = [list(range(1, 101)), list(range(7, 67)), list(range(40, 70))]
+    logits = {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        if dev == "cuda":
+            _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev)
+        r = eng.generate(prompts, max_new_tokens=5, return_logits=True)
+        if dev == "cuda":
+            counts = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    assert counts["flash_attention"] == 0, counts
+    assert (counts["flash_decode"] > 0) == bool(flag), counts
+    assert counts["qmm"] > 0 and counts["layer_kernel"] > 0, counts
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+    top2 = torch.topk(logits["cpu"][0], 2, dim=-1).values
+    for b, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+        if gap > 0.05:
+            assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
+
+
 def _ragged(cuda, g, routing, E, M=150, K=2048, used=2, tm=256):
     """Expert-sorted rows for a routing: random, all to one expert
     (skewed), or with experts 0 and E-1 never chosen (empty), on row tiles
@@ -477,10 +525,10 @@ def _decode_inputs(cuda, q8, B=4, T=1, H=8, Hkv=2, S=1024, D=128, slots=(900, 30
 @pytest.mark.parametrize("flags", ["plain", "window", "chunked", "softcap_sinks"])
 def test_flash_decode_kernel_vs_plain(cuda, q8, T, flags):
     """Kernel E vs its plain version: the same arithmetic, with f32 sums in
-    another order and p rounded to bf16 per 64-slot tile against once per
-    row (the tile max differs from the row max): NMSE < 1e-4. At T = 1 row
-    3 (slot 5, valid_from 7) sees no key and outputs exactly 0. Two calls
-    give identical bits."""
+    another order and p rounded to bf16 against each 16-slot chunk's
+    running max instead of the row max: NMSE < 1e-4. At T = 1 row 3 (slot
+    5, valid_from 7) sees no key and outputs exactly 0. Two calls give
+    identical bits."""
     from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
 
     q, k, v, ks, vs, qs, pos, vf, g = _decode_inputs(cuda, q8, T=T)
@@ -517,6 +565,76 @@ def test_flash_decode_kernel_big_head_mqa(cuda, q8):
     assert _nmse(got, want) < 1e-4
 
 
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("heads,T", [((16, 2), 8), ((64, 1), 1), ((12, 4), 4), ((40, 8), 8)],
+                         ids=["G8T8", "G64T1", "G3T4", "G5T8"])
+def test_flash_decode_kernel_query_rows(cuda, D, q8, heads, T):
+    """Every count of query rows a kv head may have, up to E_RMAX = 64:
+    G * T = 64 (one m-tile a warp), 12 (one m-tile, its rows padded) and 40
+    (three m-tiles, so one warp has no rows), at head dims 128 and 256,
+    bf16 and int8, against the plain version (NMSE < 1e-4), two calls
+    bit-identical."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    H, Hkv = heads
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, q8, B=2, T=T, H=H, Hkv=Hkv, S=768,
+                                                     D=D, slots=(700, 300), valid_from=(0, 5))
+    cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=D, head_dim_v=D)
+    got = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    again = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    want = flash_decode_plain(q, k, v, qs, pos, vf, D ** -0.5, 0.0, 0, False, None, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _nmse(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_flash_decode_kernel_server_shape(cuda, q8):
+    """The server's decode shape (4 rows at slots 6000/2000/700/40 of an
+    8192-slot view, 32/8 heads): up to 47 live splits a row, merged in two
+    levels, with many blocks in flight at once. Three calls give identical
+    bits, within NMSE 1e-4 of the plain version."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(
+        cuda, q8, B=4, T=1, H=32, Hkv=8, S=8192, slots=(6000, 2000, 700, 40),
+        valid_from=(0, 0, 0, 0))
+    cfg = ModelConfig(n_head=32, n_head_kv=8, head_dim=128, head_dim_v=128)
+    outs = [flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs) for _ in range(3)]
+    want = flash_decode_plain(q, k, v, qs, pos, vf, 128 ** -0.5, 0.0, 0, False, None, ks, vs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert _nmse(outs[0], want) < 1e-4
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("q8", [False, True])
+def test_flash_decode_kernel_split_edges(cuda, D, q8):
+    """Rows whose newest slot sits on a 128-slot split's edges (127, 128,
+    129, 255, 256), at slot 0 and at the view's last slot (S - 1), some with
+    their first visible slot mid-split: each row within NMSE 1e-4 of the
+    plain version, two calls bit-identical."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    slots = (127, 128, 129, 255, 256, 0, 511)
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(
+        cuda, q8, B=len(slots), T=1, H=8, Hkv=2, S=512, D=D, slots=slots,
+        valid_from=(0, 120, 127, 1, 200, 0, 130))
+    cfg = ModelConfig(n_head=8, n_head_kv=2, head_dim=D, head_dim_v=D)
+    got = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    again = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for b in range(len(slots)):
+        # each row alone, so the plain version reads only that row's slots
+        sl = slice(b, b + 1)
+        want = flash_decode_plain(q[sl], k[sl], v[sl], qs[sl], pos[sl], vf[sl], D ** -0.5, 0.0,
+                                  0, False, None, None if ks is None else ks[sl],
+                                  None if vs is None else vs[sl])
+        assert _nmse(got[sl], want) < 1e-4, (b, slots[b])
+
+
 def test_flash_decode_kernel_refuses(cuda):
     """No fallback on the card: head dims not built, too many rows per kv
     head, or K/V of another type raise."""
@@ -534,15 +652,18 @@ def test_flash_decode_kernel_refuses(cuda):
 
 
 def test_flash_decode_kernel_refuses_other_split(cuda, monkeypatch):
-    """The kernel writes its partials for the split count the wrapper
-    sized them for, and rejects one that is not its own 128-slot split."""
+    """The wrapper sizes the partials for ceil(S / E_CH) splits; the kernel
+    writes one partial a split of its own 128 slots and rejects any other
+    split count, so a wrapper out of step with it raises instead of writing
+    past the partials."""
     import tpullm_torch.ops.flash_decode as fd
 
     q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, False, B=1, T=1, S=256)
     cfg = ModelConfig(n_head=8, n_head_kv=2, head_dim=128, head_dim_v=128)
-    monkeypatch.setattr(fd, "E_CH", 64)
-    with pytest.raises(RuntimeError, match="flash_decode: CUDA error"):
-        fd.flash_decode(q, k, v, qs, pos, vf, cfg)
+    for ch in (64, 256):
+        monkeypatch.setattr(fd, "E_CH", ch)
+        with pytest.raises(RuntimeError, match="flash_decode: CUDA error"):
+            fd.flash_decode(q, k, v, qs, pos, vf, cfg)
 
 
 def test_server_layout_forward_kernel_e_on_vs_off(cuda, monkeypatch):

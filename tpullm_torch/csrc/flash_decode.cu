@@ -9,35 +9,79 @@
 // key. With int8 K/V the K scale folds into the scores and the V scale into
 // the probabilities, which are rounded to bf16 before the PV product.
 //
-// Bound on this card: bytes (each visible K/V row, plus its two f32 scales
-// when int8, is read once; the score and PV work is 4*D flops per query and
-// key, far below the card's operations per byte). Design: one block per
-// (split of E_CH slots, kv head, batch row). The block's G*T query rows
-// (every query head of that kv head, every token) share each K/V tile it
-// stages in shared memory, so GQA costs no reread. A block reads only the
-// slots in [max(split start, valid_from, window start), min(split end,
-// newest q_slot + 1)): tiles past a row's newest slot (or before its window)
-// are never read, and a split with no such slot exits at once. Each thread
-// issues all of its 16-byte loads of a tile before it stores any, so a
-// tile's loads are in flight together. Within the block an online softmax
-// runs over 64-slot tiles (scores one thread per (row, slot), softmax one
-// warp per row, PV one thread per output column). Each split leaves (m, l,
-// acc) per row; a second pass, one block per (row, kv head, batch row),
-// reduces the splits' (m, l) in a fixed tree order, then sums the weighted
-// acc of the splits that saw a key, adds the sink and normalizes, so two
-// calls give identical bits. Masked scores use -1e30, and a masked key
-// contributes exactly 0: a row with no visible key outputs 0.
+// Bound on this card: bytes. Each visible K/V row (plus its two f32 scales
+// when int8) is read once; the score and PV work is 4*D flops a (query row,
+// key), some 8 flops a byte at G*T = 4, far below the card's ~295. So the
+// design keeps every byte of a split in flight before anything waits on it,
+// and spends few issued instructions a byte:
+// - One block per (split of E_CH slots, kv head, batch row). The block's
+//   R = G*T query rows (every query head of that kv head, every token) share
+//   each K/V row it stages, so GQA costs no reread. A block reads only the
+//   slots in [max(split start, valid_from, window start), min(split end,
+//   newest q_slot + 1)); a split with no such slot exits at once, touching
+//   nothing (the live splits of a batch row are a range every block can
+//   compute). The grid is a function of S alone: no host read of the depths.
+// - The 4 warps are (m-tile, slot group) pairs: MT = ceil(R / 16) m-tiles of
+//   16 query rows (padded to 1, 2 or 4), and 4 / MT slot groups, each owning
+//   every (4 / MT)-th 16-slot chunk of the split. A slot group loads its own
+//   chunks and only its warps read them, so warps sync on a named barrier of
+//   the group (one warp at R <= 16, the server's shape), never the block.
+// - At block start each slot group issues every one of its chunks' K and V
+//   rows as 16-byte cp.async copies into shared memory, K before V, chunk by
+//   chunk, one commit group each (int8: both scale rows with K; rows past
+//   the visible range zero-filled, never read from memory); chunk i is
+//   computed while chunks i+1.. land.
+//   Strided, layer-stacked views are read in place through their strides.
+// - Products on the tensor cores, mma.sync m16n8k16 bf16 -> f32: S = Q K^T
+//   with the query rows on the 16-row side, so S's accumulator is already
+//   P's A fragment for P V (the FlashAttention-2 layout; the tensor cores are
+//   there to cut instructions a byte, not for their rate, so the padding of
+//   R = 4 rows to 16 costs nothing that bounds the kernel; wgmma's 64-row
+//   tile would be 94% padding). Q's fragments are loaded once per block and
+//   held in registers. bf16 K and V fragments come by ldmatrix (.trans for
+//   V) from rows swizzled by 16-byte chunk (chunk ^ row % 8), so both reads
+//   are free of bank conflicts.
+// - int8 K and V are converted to bf16 in registers as the fragments are
+//   built (a byte permute into 2^23 + byte and one exact add; exact, as every
+//   int8 value is a bf16). The order of k inside an mma is free as long as
+//   both operands follow it, so a lane's 16-byte load of a K row holds its B
+//   fragments of 4 k steps and Q's fragments take the same order; a lane's
+//   4-byte load of a V row holds one slot of 4 n8 tiles (columns permuted
+//   within 32, undone at the store). The int8 rows use a swizzle that keeps
+//   both of those reads free of bank conflicts.
+// - Scores are scaled (K scale, then the softmax scale), softcapped and
+//   masked in the accumulator registers; the online softmax runs there, the
+//   row max and sum by shuffles across the 4 lanes of a row. p (times the V
+//   scale) is rounded to bf16 and packed straight into P V's A fragment.
+// - The slot groups' (m, l, acc) meet in shared memory after the last chunk
+//   and are summed in group order; each live split leaves (m, l, acc) per
+//   row. The merge runs in the same launch (a second launch cost 15-16% of
+//   the old E's time): the last live split of a (batch row, kv head) to
+//   arrive, found by an arrival counter (the only atomic; one zeroed buffer
+//   a device, which every launch leaves zero), reduces the splits' (m, l) in
+//   a fixed tree order, sums the weighted acc of the splits that saw a key
+//   in split order, adds the sink and normalizes. No atomics touch the sums:
+//   two calls give identical bits. Masked scores use -1e30 and a masked key
+//   contributes exactly 0: a row with no visible key outputs 0 (written by
+//   split 0 when the batch row has no visible slot at all).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int E_TS = 64;        // slots per tile
-constexpr int E_CH = 128;       // slots per split (one block)
+using tph::saddr;
+
+constexpr int E_CH = 128;     // slots per split (one block); ops/flash_decode.py E_CH
+constexpr int E_CK = 16;      // slots per chunk (one k step of P V)
+constexpr int E_NC = E_CH / E_CK;
 constexpr int E_THREADS = 128;
-constexpr int E_RMAX = 64;      // query rows (G * T) per kv head
+constexpr int E_RMAX = 64;    // query rows (G * T) per kv head
 constexpr float E_NEG = -1e30f;
+constexpr int E_NSMAX = 8192;  // splits the merge's weights fit in shared memory
+constexpr int E_GRP = 8;       // live splits a first-level merge takes; ops/flash_decode.py
 
 struct FdArgs {
   const __nv_bfloat16* q;  // (B, T, H, D) contiguous
@@ -46,39 +90,52 @@ struct FdArgs {
   const float* ks;         // (B, Hkv, S) row scales, slot stride 1 (int8 only)
   const float* vs;
   const float* sinks;      // (H,) or null
-  const int* qslots;       // (B, T)
-  const int* qpos;         // (B, T)
-  const int* valid_from;   // (B,)
-  float* part_ml;          // (B, Hkv, NS, R, 2)
-  float* part_acc;         // (B, Hkv, NS, R, D)
-  __nv_bfloat16* o;        // (B, T, H, D)
+  const long long* qslots;      // (B, T)
+  const long long* qpos;        // (B, T)
+  const long long* valid_from;  // (B,)
+  float* part_ml;               // (B, Hkv, NS, R, 2)
+  float* part_acc;              // (B, Hkv, NS, R, D)
+  int* cnt;                     // (B, Hkv, NS / E_GRP + 2) arrival counters, 0 at launch and exit
+  __nv_bfloat16* o;             // (B, T, H, D)
   int B, T, H, Hkv, S, NS;
   long long k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb, vs_sh;
   float scale, softcap;
   int window, chunked, has_sinks;
 };
 
-__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
-
-// words of one K row in shared memory: odd, so the threads of a warp that
-// read 32 different rows at one column hit 32 different banks
+// Shared memory: K rows (E_CH x D x esize), V rows, (int8) the K and V
+// scales of the split's slots; after the last chunk the same bytes hold each
+// warp's acc (4 x 16 rows of D + 4 f32: the pad spreads a store's rows over
+// the banks), then a merge's weights. Then each warp's (m, l) of its 16
+// rows, the slot groups' factors, a merge's per-row (M, L, 1 / L) and the
+// arrival flag.
 template <int D, bool Q8>
-__host__ __device__ constexpr int k_words() { return D * (Q8 ? 1 : 2) / 4 + 1; }
+struct Smem {
+  static constexpr int RB = D * (Q8 ? 1 : 2);  // bytes of one K or V row
+  static constexpr int K = 0;
+  static constexpr int V = E_CH * RB;
+  static constexpr int KS = 2 * E_CH * RB;
+  static constexpr int VS = KS + (Q8 ? E_CH * 4 : 0);
+  static constexpr int AW = D + 4;             // floats of a row of a warp's acc
+  static constexpr int KV_END = VS + (Q8 ? E_CH * 4 : 0);
+  static constexpr int ACC_END = 4 * 16 * AW * 4;
+  static constexpr int ML = KV_END > ACC_END ? KV_END : ACC_END;
+  static constexpr int FAC = ML + 4 * 16 * 2 * 4;
+  static constexpr int MRG = FAC + 4 * E_RMAX * 4;
+  static constexpr int LAST = MRG + 3 * E_RMAX * 4;
+  static constexpr int BYTES = LAST + 16;
+  static constexpr int WCAP = ML / 4;          // floats of a merge's weights
+};
 
-// byte offset of the K tile and of the V tile in shared memory, for R rows
-template <int D, bool Q8>
-__host__ __device__ size_t kt_offset(int R) {
-  return align16(((size_t)2 * R * D + (size_t)R * E_TS + 3 * R + 2 * E_TS) * 4 + (size_t)2 * R * 4);
-}
-
-template <int D, bool Q8>
-__host__ __device__ size_t vt_offset(int R) {
-  return align16(kt_offset<D, Q8>(R) + (size_t)E_TS * k_words<D, Q8>() * 4);
-}
-
-template <int D, bool Q8>
-__host__ __device__ size_t smem_bytes(int R) {
-  return vt_offset<D, Q8>(R) + (size_t)E_TS * D * (Q8 ? 1 : 2);
+// 16-byte chunk c of buffer row j, as stored: bf16 rows (read by ldmatrix,
+// 8 rows at one chunk) xor the chunk with j % 8; int8 rows (read as 16-byte
+// K pieces by 4 lanes on each of 2 rows, and as 4-byte V words by 8 lanes on
+// each of 4 rows 2 apart) with a pattern that spreads both reads over the
+// 32 banks
+template <bool Q8>
+__device__ __forceinline__ int swz(int j, int c) {
+  if (!Q8) return c ^ (j & 7);
+  return c ^ ((((j >> 1) & 3) << 1) ^ ((j & 1) << 2));
 }
 
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -98,280 +155,523 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-__device__ __forceinline__ float i8_at(uint32_t w, int i) {
-  return (float)(int8_t)((w >> (8 * i)) & 0xffu);
+// 16 bytes global -> shared, or 16 zero bytes where !ok (nothing is read)
+__device__ __forceinline__ void cp16z(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4z(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// waits until at most n of this thread's commit groups are pending
+__device__ __forceinline__ void cp_wait(int n) {
+  switch (n) {
+#define E_WAIT(i) \
+  case i: asm volatile("cp.async.wait_group " #i ";" ::: "memory"); break;
+    E_WAIT(0) E_WAIT(1) E_WAIT(2) E_WAIT(3) E_WAIT(4) E_WAIT(5) E_WAIT(6) E_WAIT(7)
+    E_WAIT(8) E_WAIT(9) E_WAIT(10) E_WAIT(11) E_WAIT(12) E_WAIT(13) E_WAIT(14)
+#undef E_WAIT
+    default: asm volatile("cp.async.wait_group 15;" ::: "memory");
+  }
+}
+
+// the threads of one slot group: named barrier 1 + group, or the warp alone
+__device__ __forceinline__ void group_sync(int sg, int nthreads) {
+  if (nthreads == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + sg), "r"(nthreads) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// byte c of x (an int8 word xor 0x80808080) -> its int8 value as a float,
+// exactly: 0x4B0000bb is 2^23 + bb; two23 holds 0x4B000000 in a register so
+// that the selector stays the permute's immediate
+__device__ __forceinline__ float i8f(uint32_t x, uint32_t two23, int c) {
+  return __fadd_rn(__uint_as_float(__byte_perm(x, two23, 0x7440u | c)), -8388736.f);
+}
+
+// the bf16 pair (lo, hi) of two floats that hold small integers (exact: the
+// low 16 bits are zero), as one permute of their high halves
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One split's partial (m, l, acc) of every query row, over the visible
+// slots [lo, hi) of the split
+template <int D, bool Q8>
+__device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm, int lo, int hi,
+                                              size_t prow) {
+  using L = Smem<D, Q8>;
+  constexpr int RB = L::RB;
+  constexpr int VEC = RB / 16;  // 16-byte pieces of a row
+  constexpr int KS = D / 16;    // k steps of Q K^T
+  constexpr int NT = D / 8;     // n8 tiles of P V
+  const uint32_t sbase = saddr(sm);
+  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int T = a.T, G = a.H / a.Hkv, R = G * T;
+  const int MT = (R + 15) / 16, MTp = MT == 3 ? 4 : MT, SG = 4 / MTp;
+  const int mt = warp % MTp, sg = warp / MTp, gthreads = 32 * MTp;
+  const int vf = (int)a.valid_from[b], s0 = sp * E_CH;
+  // this slot group's chunks c = sg + SG * i that hold a slot of [lo, hi)
+  const int c_lo = (lo - s0) / E_CK, c_hi = (hi - 1 - s0) / E_CK;
+  const int ncw = E_NC / SG;
+
+  // Q's A fragments for the warp's rows r0 = 16 mt + g and r0 + 8 (query row
+  // r = gq * T + t is token t of query head hk * G + gq), loaded first so
+  // that they do not queue behind the K/V copies
+  const int r0 = mt * 16 + g, r1 = r0 + 8;
+  uint32_t qa[KS][4];
+  {
+    const __nv_bfloat16* q0 = a.q + ((size_t)(b * T + r0 % T) * a.H + hk * G + r0 / T) * D;
+    const __nv_bfloat16* q1 = a.q + ((size_t)(b * T + r1 % T) * a.H + hk * G + r1 / T) * D;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      // logical k 2c + {0, 1} and 2c + 8 + {0, 1} of k step s, at these d
+      const int d0 = Q8 ? (s / 4) * 64 + 16 * c + 4 * (s % 4) : 16 * s + 2 * c;
+      const int d1 = Q8 ? d0 + 2 : d0 + 8;
+      qa[s][0] = r0 < R ? ld_u32(q0 + d0) : 0u;
+      qa[s][1] = r1 < R ? ld_u32(q1 + d0) : 0u;
+      qa[s][2] = r0 < R ? ld_u32(q0 + d1) : 0u;
+      qa[s][3] = r1 < R ? ld_u32(q1 + d1) : 0u;
+    }
+  }
+  // issue every load of the group's chunks: K then V, chunk by chunk
+  {
+    constexpr int ESZ = Q8 ? 1 : 2;
+    const unsigned char* kb = a.k + ((size_t)b * a.k_sb + (size_t)hk * a.k_sh) * ESZ;
+    const unsigned char* vb = a.v + ((size_t)b * a.v_sb + (size_t)hk * a.v_sh) * ESZ;
+    const float* ksb = Q8 ? a.ks + (size_t)b * a.ks_sb + (size_t)hk * a.ks_sh : nullptr;
+    const float* vsb = Q8 ? a.vs + (size_t)b * a.vs_sb + (size_t)hk * a.vs_sh : nullptr;
+    const int lt = mt * 32 + lane;
+    for (int i = 0; i < ncw; ++i) {
+      const int ch = sg + SG * i;
+      const bool live = ch >= c_lo && ch <= c_hi;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        if (live) {
+          const unsigned char* base = kv ? vb : kb;
+          const long long ss = (kv ? a.v_ss : a.k_ss) * ESZ;
+          for (int e = lt; e < E_CK * VEC; e += gthreads) {
+            const int j = ch * E_CK + e / VEC, piece = e % VEC, slot = s0 + j;
+            const bool ok = slot >= lo && slot < hi;
+            cp16z(sbase + (kv ? L::V : L::K) + j * RB + swz<Q8>(j, piece) * 16,
+                  base + (size_t)(ok ? slot : lo) * ss + piece * 16, ok);
+          }
+          if (Q8 && kv == 0 && lt < 2 * E_CK) {
+            // both scale rows come with K: p takes the V scale before P V
+            // waits for the V rows
+            const int j = ch * E_CK + lt % E_CK, slot = s0 + j;
+            const bool ok = slot >= lo && slot < hi;
+            cp4z(sbase + (lt < E_CK ? L::KS : L::VS) + j * 4,
+                 (lt < E_CK ? ksb : vsb) + (ok ? slot : lo), ok);
+          }
+        }
+        cp_commit();
+      }
+    }
+  }
+
+  // each of the two rows' visible slots: [slo, shi]
+  int slo[2], shi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r1 : r0;
+    if (r >= R) {
+      slo[h] = 0x7fffffff;
+      shi[h] = -1;
+      continue;
+    }
+    const int qs = (int)a.qslots[b * T + r % T], qp = (int)a.qpos[b * T + r % T];
+    int l0 = vf;
+    if (a.window > 0)
+      l0 = max(l0, vf + (a.chunked ? floordiv(qp, a.window) * a.window : qp - a.window + 1));
+    slo[h] = l0;
+    shi[h] = min(qs, a.S - 1);
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {E_NEG, E_NEG}, l_run[2] = {0.f, 0.f};
+  const uint32_t two23 = 0x4B000000u;
+  const float* kss = reinterpret_cast<const float*>(sm + L::KS);
+  const float* vss = reinterpret_cast<const float*>(sm + L::VS);
+
+  for (int i = 0; i < ncw; ++i) {
+    const int ch = sg + SG * i;
+    if (ch < c_lo || ch > c_hi) continue;  // the same for the whole group
+    const int j0 = ch * E_CK;  // the chunk's first buffer row
+    cp_wait(2 * (ncw - i) - 1);  // this chunk's K rows are in
+    group_sync(sg, gthreads);
+
+    // S = Q K^T over the chunk's 16 slots: two n8 tiles of slots
+    float sc[2][4];
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      sc[jn][0] = sc[jn][1] = sc[jn][2] = sc[jn][3] = 0.f;
+      const int jr = j0 + 8 * jn + g;  // this lane's K row in B fragments
+      if (Q8) {
+#pragma unroll
+        for (int p = 0; p < D / 64; ++p) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              sm + L::K + jr * RB + swz<true>(jr, 4 * p + c) * 16);
+          const uint32_t wv[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
+                                  w.w ^ 0x80808080u};
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const uint32_t b0 = bf16_pair(i8f(wv[h], two23, 0), i8f(wv[h], two23, 1));
+            const uint32_t b1 = bf16_pair(i8f(wv[h], two23, 2), i8f(wv[h], two23, 3));
+            mma_16816(sc[jn], qa[4 * p + h], b0, b1);
+          }
+        }
+      } else {
+        const int jl = j0 + 8 * jn + (lane & 7);  // the row this lane addresses
+#pragma unroll
+        for (int s = 0; s < KS; s += 2) {
+          uint32_t r[4];
+          ldsm_x4(r, sbase + L::K + jl * RB + swz<false>(jl, 2 * s + (lane >> 3)) * 16);
+          mma_16816(sc[jn], qa[s], r[0], r[1]);
+          mma_16816(sc[jn], qa[s + 1], r[2], r[3]);
+        }
+      }
+    }
+
+    // scale, softcap and mask in the registers; the chunk's row max
+    float mx[2] = {E_NEG, E_NEG};
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int jb = j0 + 8 * jn + 2 * c;  // buffer row of element 0 (and 2)
+      float2 ksc = make_float2(1.f, 1.f);
+      if (Q8) ksc = *reinterpret_cast<const float2*>(kss + jb);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, slot = s0 + jb + (e & 1);
+        float x = sc[jn][e];
+        if (Q8) x *= (e & 1) ? ksc.y : ksc.x;
+        x *= a.scale;
+        if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
+        const bool ok = slot >= slo[h] && slot <= shi[h];
+        sc[jn][e] = ok ? x : E_NEG;
+        mx[h] = fmaxf(mx[h], sc[jn][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+    // p = exp(s - m) on visible keys (0 elsewhere), summed unrounded; p times
+    // the V scale, rounded to bf16, is P V's A fragment
+    uint32_t pa[4];
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int jb = j0 + 8 * jn + 2 * c;
+      float2 vsc = make_float2(1.f, 1.f);
+      if (Q8) vsc = *reinterpret_cast<const float2*>(vss + jb);
+      float ph[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const float p = sc[jn][e] > 0.5f * E_NEG ? expf(sc[jn][e] - m_run[h]) : 0.f;
+        l_run[h] += p;
+        ph[e] = Q8 ? p * ((e & 1) ? vsc.y : vsc.x) : p;
+      }
+      pa[2 * jn] = tph::pack_bf16(ph[0], ph[1]);
+      pa[2 * jn + 1] = tph::pack_bf16(ph[2], ph[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    cp_wait(2 * (ncw - i) - 2);  // this chunk's V rows are in
+    group_sync(sg, gthreads);
+
+    // acc += P V: k = the chunk's 16 slots
+    if (Q8) {
+#pragma unroll
+      for (int tb = 0; tb < D / 32; ++tb) {
+        // one 4-byte word of each of the lane's 4 slots: 4 n8 tiles' bytes
+        uint32_t w[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int jr = j0 + 2 * c + (u & 1) + 8 * (u >> 1);
+          w[u] = *reinterpret_cast<const uint32_t*>(
+                     sm + L::V + jr * RB + swz<true>(jr, 2 * tb + (g >> 2)) * 16 + (g & 3) * 4) ^
+                 0x80808080u;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t b0 = bf16_pair(i8f(w[0], two23, u), i8f(w[1], two23, u));
+          const uint32_t b1 = bf16_pair(i8f(w[2], two23, u), i8f(w[3], two23, u));
+          mma_16816(acc[4 * tb + u], pa, b0, b1);
+        }
+      }
+    } else {
+      // lanes 0-7 / 8-15 address slots 0-7 / 8-15 of d chunk n, 16-31 chunk n + 1
+      const int jl = j0 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t r[4];
+        ldsm_x4_t(r, sbase + L::V + jl * RB + swz<false>(jl, n + (lane >> 4)) * 16);
+        mma_16816(acc[n], pa, r[0], r[1]);
+        mma_16816(acc[n + 1], pa, r[2], r[3]);
+      }
+    }
+  }
+
+  // the slot groups' (m, l, acc) meet in shared memory (acc over the K/V
+  // bytes, once every warp is done reading them; rows past R are not
+  // stored) and are summed in group order
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+  __syncthreads();
+  float* ml = reinterpret_cast<float*>(sm + L::ML);    // (warp, 16 rows, 2)
+  float* fac = reinterpret_cast<float*>(sm + L::FAC);  // (slot group, R)
+  float* wacc = reinterpret_cast<float*>(sm);          // (warp, 16 rows, AW)
+  if (c == 0) {
+    ml[(warp * 16 + g) * 2] = m_run[0];
+    ml[(warp * 16 + g) * 2 + 1] = l_run[0];
+    ml[(warp * 16 + g + 8) * 2] = m_run[1];
+    ml[(warp * 16 + g + 8) * 2 + 1] = l_run[1];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (mt * 16 + g + 8 * (e / 2) >= R) continue;
+    float* row = wacc + (warp * 16 + g + 8 * (e / 2)) * L::AW;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      // column 2c + (e & 1) of n8 tile n, at its d
+      const int col = 2 * c + (e & 1);
+      row[Q8 ? (n / 4) * 32 + 4 * col + n % 4 : 8 * n + col] = acc[n][e];
+    }
+  }
+  __syncthreads();
+  if (tid < R) {  // each row's factors exp(m - M), and its (M, l)
+    const int rm = tid / 16, rr = tid % 16;
+    float M = E_NEG, l = 0.f;
+    for (int s = 0; s < SG; ++s) M = fmaxf(M, ml[((s * MTp + rm) * 16 + rr) * 2]);
+    for (int s = 0; s < SG; ++s) {
+      const int w = (s * MTp + rm) * 16 + rr;
+      const float f = expf(ml[w * 2] - M);
+      fac[s * R + tid] = f;
+      l += f * ml[w * 2 + 1];
+    }
+    a.part_ml[2 * (prow + tid)] = M;
+    a.part_ml[2 * (prow + tid) + 1] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < R * D; i += E_THREADS) {
+    const int r = i / D, d = i % D;
+    float o = 0.f;
+    for (int s = 0; s < SG; ++s)
+      o += fac[s * R + r] * wacc[((s * MTp + r / 16) * 16 + r % 16) * L::AW + d];
+    a.part_acc[prow * D + i] = o;
+  }
+}
+
+// Merges n partials of a (batch row, kv head), at splits first + k * stride,
+// for each query row: the partials' maxima and sums reduce in a fixed order
+// (one warp a row), each partial's weight exp(m - M) goes to shared memory
+// (0 for a partial whose row saw no key, l = 0), then each thread sums 4
+// output columns over the partials in order. With final, the sink is added,
+// the rows normalized and written out in bf16; otherwise (M, L, acc) is
+// written over partial `first` (each thread writes only what it read).
+// Rows go in batches whose weights fit in ws (wcap floats).
+template <int D>
+__device__ __forceinline__ void merge_parts(const FdArgs& a, int b, int hk, int first,
+                                            int stride, int n, bool final, float* ws, int wcap,
+                                            float* mrg) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int T = a.T, G = a.H / a.Hkv, R = G * T;
+  const size_t base = (size_t)(b * a.Hkv + hk) * a.NS;  // partial row (base + sp) * R + r
+  float2* ml = reinterpret_cast<float2*>(a.part_ml);
+  float4* acc = reinterpret_cast<float4*>(a.part_acc);
+  const int rbm = max(1, min(R, wcap / n));
+  for (int r0 = 0; r0 < R; r0 += rbm) {
+    const int rb = min(rbm, R - r0);
+    for (int rr = warp; rr < rb; rr += E_THREADS / 32) {
+      const int r = r0 + rr;
+      float mx = E_NEG;
+      for (int k = lane; k < n; k += 32) {
+        const float2 v = __ldcg(ml + (base + first + k * stride) * R + r);
+        if (v.y > 0.f) mx = fmaxf(mx, v.x);
+      }
+      mx = warp_max(mx);
+      float ls = 0.f;
+      for (int k = lane; k < n; k += 32) {
+        const float2 v = __ldcg(ml + (base + first + k * stride) * R + r);
+        const float w = v.y > 0.f ? expf(v.x - mx) : 0.f;
+        ws[rr * n + k] = w;
+        ls += v.y > 0.f ? v.y * w : 0.f;
+      }
+      ls = warp_sum(ls);
+      if (lane == 0) {
+        float L = ls, out_scale = 1.f;
+        if (final && a.has_sinks) {
+          const float sk = a.sinks[hk * G + r / T];
+          const float M2 = fmaxf(mx, sk);
+          L = L * expf(mx - M2) + expf(sk - M2);
+          out_scale = expf(mx - M2);
+        }
+        mrg[3 * rr] = mx;
+        mrg[3 * rr + 1] = ls;
+        mrg[3 * rr + 2] = final ? (L > 0.f ? out_scale / L : 0.f) : 1.f;
+      }
+    }
+    __syncthreads();
+    for (int f = tid; f < rb * D / 4; f += E_THREADS) {
+      const int rr = f / (D / 4), d4 = f % (D / 4), r = r0 + rr;
+      const float* w = ws + rr * n;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int k = 0; k < n; ++k) {
+        if (w[k] > 0.f) {
+          const float4 x = __ldcg(acc + ((base + first + k * stride) * R + r) * (D / 4) + d4);
+          o.x += w[k] * x.x;
+          o.y += w[k] * x.y;
+          o.z += w[k] * x.z;
+          o.w += w[k] * x.w;
+        }
+      }
+      if (final) {
+        const float inv = mrg[3 * rr + 2];
+        uint2 packed;
+        packed.x = tph::pack_bf16(o.x * inv, o.y * inv);
+        packed.y = tph::pack_bf16(o.z * inv, o.w * inv);
+        *reinterpret_cast<uint2*>(a.o + (((size_t)b * T + r % T) * a.H + hk * G + r / T) * D +
+                                  4 * d4) = packed;
+      } else {
+        acc[((base + first) * R + r) * (D / 4) + d4] = o;
+      }
+    }
+    if (!final)
+      for (int rr = tid; rr < rb; rr += E_THREADS)
+        ml[(base + first) * R + r0 + rr] = make_float2(mrg[3 * rr], mrg[3 * rr + 1]);
+    __syncthreads();  // ws and mrg are free for the next batch
+  }
+}
+
+// The arrival of a block at counter cnt, which expects `expect` arrivals:
+// the block's writes are ordered before thread 0's fence by the barrier (a
+// fence is cumulative), so one thread fences, counts, and fences again
+// before the last block reads the others' partials. True in the last block,
+// which sets the counter back to 0.
+__device__ __forceinline__ bool arrive(int* cnt, int expect, int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *flag = atomicAdd(cnt, 1) == expect - 1;
+    if (*flag) *cnt = 0;  // ready for the next launch
+    __threadfence();
+  }
+  __syncthreads();
+  return *flag;
 }
 
 template <int D, bool Q8>
-__global__ void __launch_bounds__(E_THREADS) flash_decode_kernel(FdArgs a) {
-  constexpr int ESZ = Q8 ? 1 : 2;
-  constexpr int KW = k_words<D, Q8>();
-  constexpr int VEC = D * ESZ / 16;  // 16-byte pieces of one K or V row
-  extern __shared__ __align__(16) unsigned char sm[];
+__global__ void __launch_bounds__(E_THREADS, D == 128 ? 3 : 1) flash_decode_kernel(FdArgs a) {
+  extern __shared__ __align__(128) unsigned char sm[];
+  using L = Smem<D, Q8>;
+  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z, tid = threadIdx.x;
   const int T = a.T, G = a.H / a.Hkv, R = G * T;
-  float* qs = reinterpret_cast<float*>(sm);  // (R, D) query rows, f32
-  float* acc = qs + R * D;                   // (R, D) running PV sums
-  float* sc = acc + R * D;                   // (R, E_TS) scores, then p
-  float* m_s = sc + R * E_TS;
-  float* l_s = m_s + R;
-  float* al_s = l_s + R;
-  float* ksc = al_s + R;                     // (E_TS) this tile's K scales
-  float* vsc = ksc + E_TS;
-  int* qslot_s = reinterpret_cast<int*>(vsc + E_TS);
-  int* qpos_s = qslot_s + R;
-  uint32_t* kt = reinterpret_cast<uint32_t*>(sm + kt_offset<D, Q8>(R));  // (E_TS, KW)
-  unsigned char* vt = sm + vt_offset<D, Q8>(R);                          // (E_TS, D)
-
-  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  // query row r = g * T + t is token t of query head hk * G + g
-  for (int r = tid; r < R; r += E_THREADS) {
-    qslot_s[r] = a.qslots[b * T + r % T];
-    qpos_s[r] = a.qpos[b * T + r % T];
-    m_s[r] = E_NEG;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-  int newest = qslot_s[0], minpos = qpos_s[0];
+  int newest = (int)a.qslots[b * T], minpos = (int)a.qpos[b * T];
   for (int t = 1; t < T; ++t) {
-    newest = max(newest, qslot_s[t]);
-    minpos = min(minpos, qpos_s[t]);
+    newest = max(newest, (int)a.qslots[b * T + t]);
+    minpos = min(minpos, (int)a.qpos[b * T + t]);
   }
-  const int vf = a.valid_from[b];
-  int lo = max(sp * E_CH, vf);
-  if (a.window > 0) {
-    const int wlo = a.chunked ? floordiv(minpos, a.window) * a.window : minpos - a.window + 1;
-    lo = max(lo, vf + wlo);
-  }
-  const int hi = min(min((sp + 1) * E_CH, newest + 1), a.S);
-  const size_t prow = ((size_t)(b * a.Hkv + hk) * a.NS + sp) * R;
-  if (hi <= lo) {  // nothing this split may read: an empty partial
-    for (int r = tid; r < R; r += E_THREADS) {
-      a.part_ml[2 * (prow + r)] = E_NEG;
-      a.part_ml[2 * (prow + r) + 1] = 0.f;
-    }
+  // the slots any of the row's queries may see: [lo_b, hi_b); the live
+  // splits are those that hold one, the others exit at once
+  const int vf = (int)a.valid_from[b];
+  int lo_b = vf;
+  if (a.window > 0)
+    lo_b = max(lo_b, vf + (a.chunked ? floordiv(minpos, a.window) * a.window
+                                     : minpos - a.window + 1));
+  const int hi_b = min(newest + 1, a.S);
+  if (hi_b <= lo_b) {  // no visible key: split 0 writes the rows' zeros
+    if (sp == 0)
+      for (int i = tid; i < R * D; i += E_THREADS) {
+        const int r = i / D;
+        a.o[(((size_t)b * T + r % T) * a.H + hk * G + r / T) * D + i % D] =
+            __float2bfloat16_rn(0.f);
+      }
     return;
   }
-
-  const __nv_bfloat16* qb = a.q + (size_t)b * T * a.H * D;
-  for (int i = tid; i < R * D; i += E_THREADS) {
-    const int r = i / D, d = i % D;
-    qs[i] = __bfloat162float(qb[((size_t)(r % T) * a.H + hk * G + r / T) * D + d]);
-    acc[i] = 0.f;
-  }
-  const unsigned char* kb = a.k + ((size_t)b * a.k_sb + (size_t)hk * a.k_sh) * ESZ;
-  const unsigned char* vb = a.v + ((size_t)b * a.v_sb + (size_t)hk * a.v_sh) * ESZ;
-  const float* ksb = Q8 ? a.ks + (size_t)b * a.ks_sb + (size_t)hk * a.ks_sh : nullptr;
-  const float* vsb = Q8 ? a.vs + (size_t)b * a.vs_sb + (size_t)hk * a.vs_sh : nullptr;
-
-  for (int t0 = lo; t0 < hi; t0 += E_TS) {
-    const int nv = min(E_TS, hi - t0);
-    __syncthreads();  // the previous tile's readers are done
-    {  // K then V: each thread's pieces of the tile are loaded, then stored
-      constexpr int PER = E_TS * VEC / E_THREADS;
-      uint4 buf[PER];
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * E_THREADS, j = i / VEC, c = i % VEC;
-        if (j < nv) buf[u] = *reinterpret_cast<const uint4*>(kb + (size_t)(t0 + j) * a.k_ss * ESZ + c * 16);
-      }
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * E_THREADS, j = i / VEC, c = i % VEC;
-        if (j < nv) {
-          uint32_t* kd = kt + j * KW + c * 4;
-          kd[0] = buf[u].x;
-          kd[1] = buf[u].y;
-          kd[2] = buf[u].z;
-          kd[3] = buf[u].w;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * E_THREADS, j = i / VEC, c = i % VEC;
-        if (j < nv) buf[u] = *reinterpret_cast<const uint4*>(vb + (size_t)(t0 + j) * a.v_ss * ESZ + c * 16);
-      }
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int i = tid + u * E_THREADS, j = i / VEC, c = i % VEC;
-        if (j < nv) *reinterpret_cast<uint4*>(vt + (size_t)j * D * ESZ + c * 16) = buf[u];
-      }
-    }
-    if (Q8) {
-      for (int j = tid; j < nv; j += E_THREADS) {
-        ksc[j] = ksb[t0 + j];
-        vsc[j] = vsb[t0 + j];
-      }
-    }
-    __syncthreads();
-
-    // raw scores q . k, one thread per (row, slot) of the tile
-    for (int i = tid; i < R * E_TS; i += E_THREADS) {
-      const int r = i / E_TS, j = i % E_TS;
-      float s = 0.f;
-      if (j < nv) {
-        const float* qr = qs + r * D;
-        const uint32_t* kr = kt + j * KW;
-        if (Q8) {
-#pragma unroll 8
-          for (int w = 0; w < D / 4; ++w) {
-            const uint32_t x = kr[w];
-            s += qr[4 * w] * i8_at(x, 0) + qr[4 * w + 1] * i8_at(x, 1) +
-                 qr[4 * w + 2] * i8_at(x, 2) + qr[4 * w + 3] * i8_at(x, 3);
-          }
-        } else {
-#pragma unroll 8
-          for (int w = 0; w < D / 2; ++w) {
-            const uint32_t x = kr[w];
-            s += qr[2 * w] * bf16_lo(x) + qr[2 * w + 1] * bf16_hi(x);
-          }
-        }
-      }
-      sc[i] = s;
-    }
-    __syncthreads();
-
-    // scale folds, mask and the online softmax update, one warp per row
-    for (int r = warp; r < R; r += E_THREADS / 32) {
-      const int qslot = qslot_s[r], qp = qpos_s[r];
-      float sv[2];
-      bool ok[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = lane + 32 * e, s = t0 + j;
-        bool valid = j < nv && s <= qslot && s >= vf;
-        if (a.window > 0) {
-          const int kp = s - vf;
-          valid = valid && (a.chunked ? kp >= floordiv(qp, a.window) * a.window
-                                      : kp > qp - a.window);
-        }
-        float x = sc[r * E_TS + j];
-        if (Q8) x *= valid ? ksc[j] : 0.f;
-        x *= a.scale;
-        if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
-        ok[e] = valid;
-        sv[e] = valid ? x : E_NEG;
-      }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(sv[0], sv[1])));
-      float psum = 0.f;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = lane + 32 * e;
-        const float p = ok[e] ? expf(sv[e] - m_new) : 0.f;
-        psum += p;
-        const float ph = Q8 ? p * (ok[e] ? vsc[j] : 0.f) : p;
-        sc[r * E_TS + j] = __bfloat162float(__float2bfloat16_rn(ph));
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        al_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + psum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ V, one thread per output column
-    for (int d = tid; d < D; d += E_THREADS) {
-      for (int r = 0; r < R; ++r) {
-        const float* pr = sc + r * E_TS;
-        float o = acc[r * D + d] * al_s[r];
-        if (Q8) {
-          const int8_t* vv = reinterpret_cast<const int8_t*>(vt) + d;
-          for (int j = 0; j < nv; ++j) o += pr[j] * (float)vv[j * D];
-        } else {
-          const __nv_bfloat16* vv = reinterpret_cast<const __nv_bfloat16*>(vt) + d;
-          for (int j = 0; j < nv; ++j) o += pr[j] * __bfloat162float(vv[j * D]);
-        }
-        acc[r * D + d] = o;
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int r = tid; r < R; r += E_THREADS) {
-    a.part_ml[2 * (prow + r)] = m_s[r];
-    a.part_ml[2 * (prow + r) + 1] = l_s[r];
-  }
-  for (int i = tid; i < R * D; i += E_THREADS) a.part_acc[prow * D + i] = acc[i];
-}
-
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  v = is_max ? warp_max(v) : warp_sum(v);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // red is free again
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = red[0];
-  for (int w = 1; w < E_THREADS / 32; ++w) t = is_max ? fmaxf(t, red[w]) : t + red[w];
-  return t;
-}
-
-// Merge the splits of one query row of one (batch row, kv head): the
-// splits' maxima and sums reduce in a fixed order, each split's weight
-// exp(m - M) goes to shared memory, then each thread sums its output
-// columns over the splits whose row saw a key (l > 0: the others are zero
-// or were never written), adds the sink and normalizes.
-template <int D>
-__global__ void __launch_bounds__(E_THREADS) flash_decode_merge(FdArgs a) {
-  extern __shared__ float w_s[];  // (NS) split weights
-  __shared__ float red[E_THREADS / 32];
-  const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int T = a.T, G = a.H / a.Hkv, R = G * T;
-  const int h = hk * G + r / T, t = r % T;
-  const size_t base = (size_t)(b * a.Hkv + hk) * a.NS;
-  float mx = E_NEG;
-  for (int s = tid; s < a.NS; s += E_THREADS) {
-    const float* ml = a.part_ml + 2 * ((base + s) * R + r);
-    if (ml[1] > 0.f) mx = fmaxf(mx, ml[0]);
-  }
-  const float M = block_reduce(mx, red, true);
-  float lsum = 0.f;
-  for (int s = tid; s < a.NS; s += E_THREADS) {
-    const float* ml = a.part_ml + 2 * ((base + s) * R + r);
-    const float w = ml[1] > 0.f ? expf(ml[0] - M) : 0.f;
-    w_s[s] = w;
-    lsum += ml[1] > 0.f ? ml[1] * w : 0.f;
-  }
-  float L = block_reduce(lsum, red, false);  // its barriers also publish w_s
-  float out_scale = 1.f;
-  if (a.has_sinks) {
-    const float sk = a.sinks[h];
-    const float M2 = fmaxf(M, sk);
-    L = L * expf(M - M2) + expf(sk - M2);
-    out_scale = expf(M - M2);
-  }
-  const float inv = L > 0.f ? out_scale / L : 0.f;
-  const float* acc = a.part_acc + (base * R + r) * D;
-  for (int d = tid; d < D; d += E_THREADS) {
-    float o = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < a.NS; ++s) {
-      const float w = w_s[s];
-      if (w > 0.f) o += w * acc[(size_t)s * R * D + d];
-    }
-    a.o[(((size_t)b * T + t) * a.H + h) * D + d] = __float2bfloat16_rn(o * inv);
-  }
+  const int sp0 = lo_b / E_CH, nl = (hi_b - 1) / E_CH - sp0 + 1;
+  if (sp < sp0 || sp >= sp0 + nl) return;
+  const int s0 = sp * E_CH;
+  split_partial<D, Q8>(a, sm, max(s0, lo_b), min(s0 + E_CH, hi_b),
+                       ((size_t)(b * a.Hkv + hk) * a.NS + sp) * R);
+  // two merge levels, in a fixed order: the last split of each group of
+  // E_GRP live splits to arrive merges the group into the group's first
+  // partial, then the last group merges the groups and writes the rows
+  int* cnt = a.cnt + (size_t)(b * a.Hkv + hk) * (a.NS / E_GRP + 2);
+  int* flag = reinterpret_cast<int*>(sm + L::LAST);
+  float* ws = reinterpret_cast<float*>(sm);
+  float* mrg = reinterpret_cast<float*>(sm + L::MRG);
+  const int gi = (sp - sp0) / E_GRP, ng = (nl + E_GRP - 1) / E_GRP;
+  const int g0 = sp0 + gi * E_GRP, gn = min(E_GRP, sp0 + nl - g0);
+  if (!arrive(cnt + gi, gn, flag)) return;
+  merge_parts<D>(a, b, hk, g0, 1, gn, ng == 1, ws, L::WCAP, mrg);
+  if (ng == 1 || !arrive(cnt + a.NS / E_GRP + 1, ng, flag)) return;
+  merge_parts<D>(a, b, hk, sp0, E_GRP, ng, true, ws, L::WCAP, mrg);
 }
 
 template <int D, bool Q8>
 int launch(const FdArgs& a, cudaStream_t stream) {
-  const int R = (a.H / a.Hkv) * a.T;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(flash_decode_kernel<D, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem_bytes<D, Q8>(E_RMAX));
-    attr = true;
-  }
-  flash_decode_kernel<D, Q8><<<dim3(a.NS, a.Hkv, a.B), E_THREADS, smem_bytes<D, Q8>(R), stream>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_decode_merge<D><<<dim3(R, a.Hkv, a.B), E_THREADS, a.NS * sizeof(float), stream>>>(a);
+  constexpr int SMEM = Smem<D, Q8>::BYTES;
+  // set on every launch, on the current device (a per-process flag would
+  // leave a second card's launches refused)
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_decode_kernel<D, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // split slowest: the live splits of every row (the low ones) start first
+  flash_decode_kernel<D, Q8><<<dim3(a.Hkv, a.B, a.NS), E_THREADS, SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -380,15 +680,16 @@ int launch(const FdArgs& a, cudaStream_t stream) {
 extern "C" int tpq_flash_decode(
     const void* q, const void* k, const void* v, const void* ks, const void* vs,
     const void* sinks, const void* qslots, const void* qpos, const void* valid_from,
-    void* part_ml, void* part_acc, void* o, int B, int T, int H, int Hkv, int S, int NS, int D,
+    void* part_ml, void* part_acc, void* counters, void* o, int B, int T, int H, int Hkv, int S,
+    int NS, int D,
     int q8, long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
     float scale, float softcap, int window, int chunked, int has_sinks, void* stream) {
   cudaGetLastError();
   // the caller sized part_ml/part_acc for NS splits: they must be this
   // kernel's E_CH-slot splits of S, or the blocks would write past them
-  if (Hkv <= 0 || H % Hkv || (H / Hkv) * T > E_RMAX || T < 1 || (D != 128 && D != 256) ||
-      S < 1 || NS != (S + E_CH - 1) / E_CH)
+  if (Hkv <= 0 || H % Hkv || (H / Hkv) * T > E_RMAX || T < 1 || T > 8 ||
+      (D != 128 && D != 256) || S < 1 || NS != (S + E_CH - 1) / E_CH || NS > E_NSMAX)
     return (int)cudaErrorInvalidValue;
   FdArgs a;
   a.q = reinterpret_cast<const __nv_bfloat16*>(q);
@@ -397,11 +698,12 @@ extern "C" int tpq_flash_decode(
   a.ks = reinterpret_cast<const float*>(ks);
   a.vs = reinterpret_cast<const float*>(vs);
   a.sinks = reinterpret_cast<const float*>(sinks);
-  a.qslots = reinterpret_cast<const int*>(qslots);
-  a.qpos = reinterpret_cast<const int*>(qpos);
-  a.valid_from = reinterpret_cast<const int*>(valid_from);
+  a.qslots = reinterpret_cast<const long long*>(qslots);
+  a.qpos = reinterpret_cast<const long long*>(qpos);
+  a.valid_from = reinterpret_cast<const long long*>(valid_from);
   a.part_ml = reinterpret_cast<float*>(part_ml);
   a.part_acc = reinterpret_cast<float*>(part_acc);
+  a.cnt = reinterpret_cast<int*>(counters);
   a.o = reinterpret_cast<__nv_bfloat16*>(o);
   a.B = B; a.T = T; a.H = H; a.Hkv = Hkv; a.S = S; a.NS = NS;
   a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;

@@ -16,7 +16,8 @@ Kernel gates are the JAX package's own, with "the tensors are on the card"
 in place of "the default backend is the TPU": prefill attention takes the
 flash kernel when flash_supported holds (llama.py:268-274); decode
 attention takes kernel E when flash_decode_supported holds (off unless
-TPULLM_FLASH_DECODE is set, llama.py:277-294); decode layers
+TPULLM_FLASH_DECODE is set, llama.py:277-294), each only on the shapes its
+kernel builds (attention_route; the rest take the einsum path); decode layers
 take the layer kernel, folded with the next layer's QKV when the weights
 are fused in one group (llama.py:1382-1423); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460).
@@ -29,9 +30,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.flash_attention import (attention_params, flash_attention, flash_supported,
-                                   masked_attention)
-from ..ops.flash_decode import flash_decode, flash_decode_supported
+from ..ops.flash_attention import (attention_params, flash_attention, flash_builds,
+                                   flash_supported, masked_attention)
+from ..ops.flash_decode import flash_decode, flash_decode_builds, flash_decode_supported
 from ..ops.fuse import pad256
 from ..ops.layer_kernel import ffn_block, ffn_block_qkv
 from ..ops.layer_kernel import supported as block_supported
@@ -192,25 +193,46 @@ def apply_rope(x, cos, sin, rope_type: str, rope_dim: int):
     return torch.cat([out, rest], dim=-1) if rest.shape[-1] else out
 
 
+def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: int,
+                    Hkv: int, kv_dtype) -> str:
+    """Which attention path a call takes: "flash_decode" (kernel E),
+    "flash_attention" (kernel C) or "einsum". A kernel only on the card, and
+    only where both the JAX package's gate (flash_decode_supported,
+    flash_supported) and the shapes the kernel builds (flash_decode_builds,
+    flash_builds) hold; every other shape, and every call on the CPU, takes
+    the einsum path. kv_dtype is the cache's (int8 for the q8 cache, whose
+    views C and the einsum path read dequantized)."""
+    if not is_cuda:
+        return "einsum"
+    if (flash_decode_supported(B, T, S, Dk, Dv, Hkv)
+            and flash_decode_builds(T, Dk, Dv, H, Hkv, kv_dtype)):
+        return "flash_decode"
+    if flash_supported(T, S, Dk, Dv) and flash_builds(T, S, Dk, Dv, H, Hkv):
+        return "flash_attention"
+    return "einsum"
+
+
 def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
               cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv).
 
-    Slot mask valid_from[b] <= s <= q_slots[b, t]. The JAX package's gates
-    with "the tensors are on the card" in place of "the default backend is
-    the TPU": prefill takes kernel C (llama.py:268-274), decode kernel E when
-    flash_decode_supported holds (llama.py:277-294; off unless
-    TPULLM_FLASH_DECODE is set); otherwise the einsum path with masks runs
-    (the JAX package leaves it to XLA the same way).
+    Slot mask valid_from[b] <= s <= q_slots[b, t]. The path is
+    attention_route's: the JAX package's gates with "the tensors are on the
+    card" in place of "the default backend is the TPU" (prefill kernel C,
+    llama.py:268-274; decode kernel E, llama.py:277-294, off unless
+    TPULLM_FLASH_DECODE is set), narrowed to the shapes each kernel builds;
+    otherwise the einsum path with masks runs (the JAX package leaves it to
+    XLA the same way).
 
     kv_q8: the raw int8 cache views (k, v, k scales, v scales), with k_all
     and v_all None. Kernel E reads them as they are; the other branches
     dequantize them here, so the dequantized views exist only where they
     are read (XLA drops the unused one; eager PyTorch would not)."""
-    B, T, Dk = q.shape[0], q.shape[1], q.shape[3]
+    B, T, H, Dk = q.shape
     kref, vref = (kv_q8[0], kv_q8[1]) if kv_q8 is not None else (k_all, v_all)
     Hkv, S, Dv = kref.shape[1], kref.shape[2], vref.shape[-1]
-    if q.is_cuda and flash_decode_supported(B, T, S, Dk, Dv, Hkv):
+    route = attention_route(q.is_cuda, B, T, S, Dk, Dv, H, Hkv, kref.dtype)
+    if route == "flash_decode":
         window = cfg.sliding_window if layer_is_swa else 0
         if kv_q8 is not None:
             kq, vq, ksc, vsc = kv_q8
@@ -220,7 +242,7 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
     if kv_q8 is not None:
         k_all = dequant_view(kv_q8[0], kv_q8[2], q.dtype)
         v_all = dequant_view(kv_q8[1], kv_q8[3], q.dtype)
-    if q.is_cuda and flash_supported(T, S, Dk, Dv):
+    if route == "flash_attention":
         return flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                                valid_from, cfg, layer_is_swa)
     return masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,

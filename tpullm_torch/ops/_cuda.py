@@ -158,9 +158,9 @@ _SIGNATURES = {
     # x, Mp, K, w_ptrs, w_ints, w_floats, tile_expert, live, layer, E,
     # slots (the stack's L x E or E weights), out, Nout, stream
     "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
-    # q k v ks vs sinks qslots qpos valid_from part_ml part_acc o,
+    # q k v ks vs sinks qslots qpos valid_from (int64) part_ml part_acc counters o,
     # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks, stream
-    "tpq_flash_decode": [_P] * 12 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _P],
+    "tpq_flash_decode": [_P] * 13 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _P],
 }
 
 

@@ -98,6 +98,13 @@ def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
     return out
 
 
+def flash_builds(T: int, S: int, Dk: int, Dv: int, H: int, Hkv: int) -> bool:
+    """The shapes the CUDA kernel builds (the wrapper raises on the rest):
+    Dk = Dv = 128, T and S multiples of 64, H a multiple of Hkv."""
+    return Dk == Dv == 128 and T % 64 == 0 and S % 64 == 0 and Hkv > 0 and H % Hkv == 0
+
+
 def flash_supported(T: int, S: int, Dk: int, Dv: int) -> bool:
+    """The JAX package's gate as it is (flash_attention.py:170-172)."""
     return (T % 128 == 0 and S % 256 == 0 and Dk % 128 == 0 and Dv % 128 == 0
             and T >= 128)

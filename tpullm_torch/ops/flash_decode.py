@@ -6,7 +6,8 @@ tokens per batch row against K/V (B, Hkv, S, D), bf16 or int8 with f32 row
 scales (B, Hkv, S), read in place with their strides. Each batch row reads
 only the slots up to its newest query slot (and from its window's start),
 so a decode step over rows at different depths moves the bytes those rows
-need, not the bucketed view's.
+need, not the bucketed view's. ``flash_decode_builds`` says which shapes the
+kernel builds; the wrapper raises on any other.
 
 ``flash_decode_plain`` is the same function in plain PyTorch: the TPU
 kernel's arithmetic (f32 scores of bf16 or int8 operands, the K scale
@@ -25,7 +26,10 @@ import torch
 from . import _cuda
 
 E_CH = 128  # slots per split of the CUDA kernel, which rejects any other split count
+E_GRP = 8  # live splits a first-level merge of the kernel takes (csrc/flash_decode.cu)
 E_RMAX = 64  # most query rows (G * T) per kv head the kernel takes
+E_HEAD_DIMS = (128, 256)  # head dims the kernel is built for (Dk = Dv)
+E_KV_DTYPES = (torch.bfloat16, torch.int8)
 NEG = -1e30
 
 
@@ -87,6 +91,30 @@ def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: f
     return out.reshape(B, T, H, Dv).to(torch.bfloat16)
 
 
+def counters_per_row(S: int) -> int:
+    """Arrival counters the kernel uses for one (batch row, kv head) over an
+    S-slot view: one for each group of E_GRP live splits (the live splits
+    are a range of the NS = ceil(S / E_CH) splits, so at most NS // E_GRP +
+    1 groups) and one for the groups."""
+    return -(-S // E_CH) // E_GRP + 2
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The arrival counters of one device: zero when made, and each launch
+    leaves them zero (the last block to arrive at a counter resets it).
+    Kernel E's launches on a device run one at a time, on one stream. Grown
+    (made anew, zero) when a launch needs more."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    t = _COUNTERS.get(key)
+    if t is None or t.numel() < n:
+        t = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=torch.device("cuda", key))
+    return t
+
+
 def _kv_strides(t: torch.Tensor, what: str):
     """(batch, head, slot) element strides of a K or V view whose rows are
     contiguous and 16-byte aligned."""
@@ -120,14 +148,14 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
     Hkv, S = k_all.shape[1], k_all.shape[2]
     Dv = v_all.shape[-1]
     q8 = k_scales is not None
-    if Dk != Dv or Dk not in (128, 256):
+    if Dk != Dv or Dk not in E_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_decode kernel: head dims {Dk}/{Dv}; 128 and 256 are built")
     want = torch.int8 if q8 else torch.bfloat16
     if k_all.dtype != want or v_all.dtype != want:
         raise ValueError(f"flash_decode kernel: K/V {k_all.dtype}/{v_all.dtype}, "
                          f"expected {want}")
-    if H % Hkv or (H // Hkv) * T > E_RMAX or not 1 <= T <= 8:
+    if not _rows_built(T, H, Hkv):
         raise ValueError(f"flash_decode kernel: H={H} Hkv={Hkv} T={T}")
     qh = q.to(torch.bfloat16).contiguous()
     k_sb, k_sh, k_ss = _kv_strides(k_all, "k")
@@ -139,7 +167,8 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
     sk = None
     if sinks is not None:
         sk = sinks.to(torch.float32).contiguous()
-    i32 = [t.to(torch.int32).contiguous() for t in (q_slots, positions, valid_from)]
+    # int64 as the model passes them: no conversion launches on the path
+    i64 = [t.to(torch.int64).contiguous() for t in (q_slots, positions, valid_from)]
     NS = -(-S // E_CH)
     R = (H // Hkv) * T
     part_ml = torch.empty((B, Hkv, NS, R, 2), dtype=torch.float32, device=q.device)
@@ -148,14 +177,28 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
     err = _cuda.lib().tpq_flash_decode(
         qh.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
         k_scales.data_ptr() if q8 else 0, v_scales.data_ptr() if q8 else 0,
-        sk.data_ptr() if sk is not None else 0, *(t.data_ptr() for t in i32),
-        part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        sk.data_ptr() if sk is not None else 0, *(t.data_ptr() for t in i64),
+        part_ml.data_ptr(), part_acc.data_ptr(),
+        _counters(q.device, B * Hkv * counters_per_row(S)).data_ptr(),
+        out.data_ptr(),
         B, T, H, Hkv, S, NS, Dk, int(q8), k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         ks_sb, ks_sh, vs_sb, vs_sh, scale, softcap, int(window), int(chunked),
         int(sk is not None), _cuda.stream_ptr(qh))
     _cuda.COUNTS["flash_decode"] += 1
     _cuda.check(err, "flash_decode")
     return out
+
+
+def _rows_built(T: int, H: int, Hkv: int) -> bool:
+    return 1 <= T <= 8 and Hkv > 0 and H % Hkv == 0 and (H // Hkv) * T <= E_RMAX
+
+
+def flash_decode_builds(T: int, Dk: int, Dv: int, H: int, Hkv: int, kv_dtype) -> bool:
+    """The shapes the CUDA kernel builds (the wrapper raises on the rest):
+    Dk = Dv in {128, 256}, 1 <= T <= 8, H a multiple of Hkv with G * T <=
+    E_RMAX query rows per kv head, bf16 or int8 K/V."""
+    return (Dk == Dv and Dk in E_HEAD_DIMS and _rows_built(T, H, Hkv)
+            and kv_dtype in E_KV_DTYPES)
 
 
 def flash_decode_supported(B: int, T: int, S: int, Dk: int, Dv: int, Hkv: int) -> bool:

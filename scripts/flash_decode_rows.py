@@ -21,9 +21,11 @@ summed ns of the tile loads, the score pass, the softmax pass and the PV
 pass over its tiles, the partial store's ns, the block's end stamp and its
 tile count; a build may name the first 7 otherwise through
 ``tpq_flash_decode_stamp_fields()``, a comma-separated string, a field
-named "end" or "t_..." being a time stamp), one more launch at the server's shape on
+named "end" or "t_..." being a time stamp, 0 where a block left none, and
+field 0 the block's start), one more launch at the server's shape on
 each K/V type is read back and the median and largest value of each field
-over the blocks that read a tile are printed. ``--no-check`` times rows
+over the blocks that read a tile are printed (time stamps as their range
+after the first block's start). ``--no-check`` times rows
 without holding them to the plain version (for an ablated copy whose
 output is knowingly wrong). The last line of each checkout's output is its
 rows as JSON.
@@ -43,6 +45,7 @@ def stamps(torch, cs, lib) -> dict:
     """Per-phase medians (us) over the working blocks of one launch at the
     server's shape, bf16 and int8, from an instrumented build's stamps."""
     from tpullm_torch.models.config import ModelConfig
+    from tpullm_torch.ops import flash_decode as fd
     from tpullm_torch.ops.flash_decode import flash_decode
 
     lib.tpq_flash_decode_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -61,27 +64,39 @@ def stamps(torch, cs, lib) -> dict:
                                                           cs.HD, slots, q8)
         flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
         torch.cuda.synchronize()
-        n = -(-S // 128) * cs.HKV * B * 8
+        n = -(-S // fd.E_CH[q8]) * cs.HKV * B * 8
         buf = (ctypes.c_ulonglong * n)()
         if lib.tpq_flash_decode_stamps(ctypes.addressof(buf), n) != 0:
             raise SystemExit("flash_decode_rows: reading the stamps failed")
         blocks = [list(buf[i: i + 8]) for i in range(0, n, 8)]
         work = [b for b in blocks if b[7] > 0]
         med, top, spread = {}, {}, {}
+        t0 = min(b[0] for b in work)
         for f, name in enumerate(fields):
             vals = sorted(b[f] for b in work)
             if name == "end" or name.startswith("t_"):
-                spread[name] = (vals[-1] - vals[0]) / 1e3
+                vals = [v for v in vals if v]  # 0: not stamped in that block
+                spread[name] = ((vals[0] - t0) / 1e3, (vals[-1] - t0) / 1e3)
                 continue
             med[name], top[name] = vals[len(vals) // 2] / 1e3, vals[-1] / 1e3
+        # blocks that read no tile but left a stamp (field 0 its start, field 1
+        # its duration): the splits with no visible slot
+        idle = [b for b in blocks if b[7] == 0 and b[1] > 0]
+        if idle and fields[0].startswith("t_"):
+            t0 = min(b[0] for b in work)
+            dur = sorted(b[1] for b in idle)
+            cs.log(f"stamps {'int8' if q8 else 'bf16'}: {len(idle)} blocks read no tile; us each, "
+                   f"median {dur[len(dur) // 2] / 1e3:.2f} (largest {dur[-1] / 1e3:.2f}); they start "
+                   f"{(min(b[0] for b in idle) - t0) / 1e3:.1f}-{(max(b[0] for b in idle) - t0) / 1e3:.1f}"
+                   " us after the first block that reads one")
         key = "int8" if q8 else "bf16"
         out[key] = dict(median_us=med, max_us=top, working_blocks=len(work),
                         tiles_median=sorted(b[7] for b in work)[len(work) // 2],
                         end_spread_us=spread)
         cs.log(f"stamps {key}: {len(work)} working blocks; us a block, median (largest) "
                + " ".join(f"{k} {v:.2f} ({top[k]:.2f})" for k, v in med.items())
-               + "".join(f"; {k}: the last block's {v:.1f} us after the first"
-                         for k, v in spread.items()))
+               + "".join(f"; {k} {a:.1f}-{b:.1f} us after the first start"
+                         for k, (a, b) in spread.items()))
         del q, k, v, ks, vs
     return out
 

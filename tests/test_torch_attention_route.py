@@ -121,8 +121,9 @@ def test_head_dim_256_on_cpu_takes_einsum_path(monkeypatch, q8):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("S", [1, 127, 128, 129, 1000, 1024, 1025, 2048, 8192, 8193])
-def test_counters_per_row_covers_every_live_range(S):
+def test_counters_per_row_covers_every_live_range(S, q8):
     """Kernel E's arrival counters for one (batch row, kv head): for every
     range of live splits [sp0, sp1] the kernel can see over an S-slot view,
     the counter indices it touches (group (sp - sp0) // E_GRP of each live
@@ -130,8 +131,8 @@ def test_counters_per_row_covers_every_live_range(S):
     counters_per_row(S), counted by brute force."""
     from tpullm_torch.ops.flash_decode import E_CH, E_GRP, counters_per_row
 
-    NS = -(-S // E_CH)
-    n = counters_per_row(S)
+    NS = -(-S // E_CH[q8])
+    n = counters_per_row(S, q8)
     need = 0
     for sp0 in range(NS):
         for sp1 in range(sp0, NS):

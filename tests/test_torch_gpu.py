@@ -652,16 +652,16 @@ def test_flash_decode_kernel_refuses(cuda):
 
 
 def test_flash_decode_kernel_refuses_other_split(cuda, monkeypatch):
-    """The wrapper sizes the partials for ceil(S / E_CH) splits; the kernel
-    writes one partial a split of its own 128 slots and rejects any other
-    split count, so a wrapper out of step with it raises instead of writing
-    past the partials."""
+    """The wrapper sizes the partials for ceil(S / E_CH[int8]) splits; the
+    kernel writes one partial a split of its own length and rejects any
+    other split count, so a wrapper out of step with it raises instead of
+    writing past the partials."""
     import tpullm_torch.ops.flash_decode as fd
 
     q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, False, B=1, T=1, S=256)
     cfg = ModelConfig(n_head=8, n_head_kv=2, head_dim=128, head_dim_v=128)
     for ch in (64, 256):
-        monkeypatch.setattr(fd, "E_CH", ch)
+        monkeypatch.setattr(fd, "E_CH", {False: ch, True: ch})
         with pytest.raises(RuntimeError, match="flash_decode: CUDA error"):
             fd.flash_decode(q, k, v, qs, pos, vf, cfg)
 

@@ -14,7 +14,7 @@
 // key), some 8 flops a byte at G*T = 4, far below the card's ~295. So the
 // design keeps every byte of a split in flight before anything waits on it,
 // and spends few issued instructions a byte:
-// - One block per (split of E_CH slots, kv head, batch row). The block's
+// - One block per (split, kv head, batch row). The block's
 //   R = G*T query rows (every query head of that kv head, every token) share
 //   each K/V row it stages, so GQA costs no reread. A block reads only the
 //   slots in [max(split start, valid_from, window start), min(split end,
@@ -56,14 +56,18 @@
 // - The slot groups' (m, l, acc) meet in shared memory after the last chunk
 //   and are summed in group order; each live split leaves (m, l, acc) per
 //   row. The merge runs in the same launch (a second launch cost 15-16% of
-//   the old E's time): the last live split of a (batch row, kv head) to
-//   arrive, found by an arrival counter (the only atomic; one zeroed buffer
-//   a device, which every launch leaves zero), reduces the splits' (m, l) in
-//   a fixed tree order, sums the weighted acc of the splits that saw a key
-//   in split order, adds the sink and normalizes. No atomics touch the sums:
-//   two calls give identical bits. Masked scores use -1e30 and a masked key
-//   contributes exactly 0: a row with no visible key outputs 0 (written by
-//   split 0 when the batch row has no visible slot at all).
+//   the old E's time), in two levels found by arrival counters (the only
+//   atomics; one zeroed buffer a device, which every launch leaves zero):
+//   the last of each group of E_GRP live splits to arrive merges the group
+//   into its first partial, and the last group merges the groups, adds the
+//   sink and normalizes. A merge reads 8 partials' (m, l) and acc at once,
+//   one round trip to L2, and sums them in partial order. No atomics touch
+//   the sums: two calls give identical bits. Masked scores use -1e30 and a
+//   masked key contributes exactly 0: a row with no visible key outputs 0
+//   (written by split 0 when the batch row has no visible slot at all).
+// - Splits are 128 slots for bf16 K/V (64 KB a block, 3 blocks an SM) and
+//   256 for int8 (the same bytes: at the server's shape every live block is
+//   resident at once, and the merges halve).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,13 +78,14 @@ namespace {
 
 using tph::saddr;
 
-constexpr int E_CH = 128;     // slots per split (one block); ops/flash_decode.py E_CH
+// slots per split (one block), bf16 and int8 K/V; ops/flash_decode.py E_CH
+template <bool Q8>
+constexpr int split_of() { return Q8 ? 256 : 128; }
 constexpr int E_CK = 16;      // slots per chunk (one k step of P V)
-constexpr int E_NC = E_CH / E_CK;
 constexpr int E_THREADS = 128;
 constexpr int E_RMAX = 64;    // query rows (G * T) per kv head
 constexpr float E_NEG = -1e30f;
-constexpr int E_NSMAX = 8192;  // splits the merge's weights fit in shared memory
+constexpr int E_NSMAX = 8192;  // most splits a view may have
 constexpr int E_GRP = 8;       // live splits a first-level merge takes; ops/flash_decode.py
 
 struct FdArgs {
@@ -103,28 +108,26 @@ struct FdArgs {
   int window, chunked, has_sinks;
 };
 
-// Shared memory: K rows (E_CH x D x esize), V rows, (int8) the K and V
+// Shared memory: K rows (CH x D x esize), V rows, (int8) the K and V
 // scales of the split's slots; after the last chunk the same bytes hold each
 // warp's acc (4 x 16 rows of D + 4 f32: the pad spreads a store's rows over
-// the banks), then a merge's weights. Then each warp's (m, l) of its 16
-// rows, the slot groups' factors, a merge's per-row (M, L, 1 / L) and the
-// arrival flag.
+// the banks). Then each warp's (m, l) of its 16 rows, the slot groups'
+// factors (later a merge's rows' (M, L)) and the arrival flag.
 template <int D, bool Q8>
 struct Smem {
+  static constexpr int CH = split_of<Q8>();
   static constexpr int RB = D * (Q8 ? 1 : 2);  // bytes of one K or V row
   static constexpr int K = 0;
-  static constexpr int V = E_CH * RB;
-  static constexpr int KS = 2 * E_CH * RB;
-  static constexpr int VS = KS + (Q8 ? E_CH * 4 : 0);
+  static constexpr int V = CH * RB;
+  static constexpr int KS = 2 * CH * RB;
+  static constexpr int VS = KS + (Q8 ? CH * 4 : 0);
   static constexpr int AW = D + 4;             // floats of a row of a warp's acc
-  static constexpr int KV_END = VS + (Q8 ? E_CH * 4 : 0);
+  static constexpr int KV_END = VS + (Q8 ? CH * 4 : 0);
   static constexpr int ACC_END = 4 * 16 * AW * 4;
   static constexpr int ML = KV_END > ACC_END ? KV_END : ACC_END;
   static constexpr int FAC = ML + 4 * 16 * 2 * 4;
-  static constexpr int MRG = FAC + 4 * E_RMAX * 4;
-  static constexpr int LAST = MRG + 3 * E_RMAX * 4;
+  static constexpr int LAST = FAC + 4 * E_RMAX * 4;
   static constexpr int BYTES = LAST + 16;
-  static constexpr int WCAP = ML / 4;          // floats of a merge's weights
 };
 
 // 16-byte chunk c of buffer row j, as stored: bf16 rows (read by ldmatrix,
@@ -245,10 +248,10 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
   const int T = a.T, G = a.H / a.Hkv, R = G * T;
   const int MT = (R + 15) / 16, MTp = MT == 3 ? 4 : MT, SG = 4 / MTp;
   const int mt = warp % MTp, sg = warp / MTp, gthreads = 32 * MTp;
-  const int vf = (int)a.valid_from[b], s0 = sp * E_CH;
+  const int vf = (int)a.valid_from[b], s0 = sp * L::CH;
   // this slot group's chunks c = sg + SG * i that hold a slot of [lo, hi)
   const int c_lo = (lo - s0) / E_CK, c_hi = (hi - 1 - s0) / E_CK;
-  const int ncw = E_NC / SG;
+  const int ncw = L::CH / E_CK / SG;
 
   // Q's A fragments for the warp's rows r0 = 16 mt + g and r0 + 8 (query row
   // r = gq * T + t is token t of query head hk * G + gq), loaded first so
@@ -515,85 +518,84 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
   }
 }
 
-// Merges n partials of a (batch row, kv head), at splits first + k * stride,
-// for each query row: the partials' maxima and sums reduce in a fixed order
-// (one warp a row), each partial's weight exp(m - M) goes to shared memory
-// (0 for a partial whose row saw no key, l = 0), then each thread sums 4
-// output columns over the partials in order. With final, the sink is added,
-// the rows normalized and written out in bf16; otherwise (M, L, acc) is
-// written over partial `first` (each thread writes only what it read).
-// Rows go in batches whose weights fit in ws (wcap floats).
+// Merges n partials of a (batch row, kv head), at splits first + k * stride.
+// Each thread takes 4 output columns of one query row and reads, 8 partials
+// at a time, their (m, l) and those columns of their acc together, so a merge
+// of up to 8 partials costs one round trip to L2 and no barrier: over each
+// batch of 8 the maximum M of the m whose l > 0 is taken and the running sum
+// rescaled to it, then the batch is added in partial order with weights
+// exp(m - M) (0 for a partial whose row saw no key, l = 0, whose acc is 0).
+// With final, the sink is added, the row normalized and written out in
+// bf16; otherwise (M, L, acc) is written over partial `first`: each thread
+// writes only the acc it read, and the rows' (M, L) wait in shared memory
+// (mls, R float2) until every thread has read partial `first`'s.
 template <int D>
 __device__ __forceinline__ void merge_parts(const FdArgs& a, int b, int hk, int first,
-                                            int stride, int n, bool final, float* ws, int wcap,
-                                            float* mrg) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+                                            int stride, int n, bool final, float2* mls) {
   const int T = a.T, G = a.H / a.Hkv, R = G * T;
-  const size_t base = (size_t)(b * a.Hkv + hk) * a.NS;  // partial row (base + sp) * R + r
+  const size_t base = (size_t)(b * a.Hkv + hk) * a.NS + first;  // partial k: base + k * stride
   float2* ml = reinterpret_cast<float2*>(a.part_ml);
   float4* acc = reinterpret_cast<float4*>(a.part_acc);
-  const int rbm = max(1, min(R, wcap / n));
-  for (int r0 = 0; r0 < R; r0 += rbm) {
-    const int rb = min(rbm, R - r0);
-    for (int rr = warp; rr < rb; rr += E_THREADS / 32) {
-      const int r = r0 + rr;
-      float mx = E_NEG;
-      for (int k = lane; k < n; k += 32) {
-        const float2 v = __ldcg(ml + (base + first + k * stride) * R + r);
-        if (v.y > 0.f) mx = fmaxf(mx, v.x);
-      }
-      mx = warp_max(mx);
-      float ls = 0.f;
-      for (int k = lane; k < n; k += 32) {
-        const float2 v = __ldcg(ml + (base + first + k * stride) * R + r);
-        const float w = v.y > 0.f ? expf(v.x - mx) : 0.f;
-        ws[rr * n + k] = w;
-        ls += v.y > 0.f ? v.y * w : 0.f;
-      }
-      ls = warp_sum(ls);
-      if (lane == 0) {
-        float L = ls, out_scale = 1.f;
-        if (final && a.has_sinks) {
-          const float sk = a.sinks[hk * G + r / T];
-          const float M2 = fmaxf(mx, sk);
-          L = L * expf(mx - M2) + expf(sk - M2);
-          out_scale = expf(mx - M2);
+  for (int f = threadIdx.x; f < R * D / 4; f += E_THREADS) {
+    const int r = f / (D / 4), d4 = f % (D / 4);
+    float M = E_NEG, L = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = 0; k0 < n; k0 += 8) {
+      float2 v[8];
+      float4 x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (k0 + u < n) {
+          const size_t row = (base + (size_t)(k0 + u) * stride) * R + r;
+          v[u] = __ldcg(ml + row);
+          x[u] = __ldcg(acc + row * (D / 4) + d4);
         }
-        mrg[3 * rr] = mx;
-        mrg[3 * rr + 1] = ls;
-        mrg[3 * rr + 2] = final ? (L > 0.f ? out_scale / L : 0.f) : 1.f;
       }
+      float Mb = M;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k0 + u < n && v[u].y > 0.f) Mb = fmaxf(Mb, v[u].x);
+      const float al = expf(M - Mb);
+      L *= al;
+      o.x *= al;
+      o.y *= al;
+      o.z *= al;
+      o.w *= al;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (k0 + u < n) {  // w = 0 adds an exact 0: the partial's acc is finite
+          const float w = v[u].y > 0.f ? expf(v[u].x - Mb) : 0.f;
+          L += v[u].y > 0.f ? v[u].y * w : 0.f;
+          o.x += w * x[u].x;
+          o.y += w * x[u].y;
+          o.z += w * x[u].z;
+          o.w += w * x[u].w;
+        }
+      }
+      M = Mb;
     }
+    if (final) {
+      float inv = 1.f;
+      if (a.has_sinks) {
+        const float sk = a.sinks[hk * G + r / T];
+        const float M2 = fmaxf(M, sk);
+        L = L * expf(M - M2) + expf(sk - M2);
+        inv = expf(M - M2);
+      }
+      inv = L > 0.f ? inv / L : 0.f;
+      uint2 packed;
+      packed.x = tph::pack_bf16(o.x * inv, o.y * inv);
+      packed.y = tph::pack_bf16(o.z * inv, o.w * inv);
+      *reinterpret_cast<uint2*>(a.o + (((size_t)b * T + r % T) * a.H + hk * G + r / T) * D +
+                                4 * d4) = packed;
+    } else {
+      acc[(base * R + r) * (D / 4) + d4] = o;
+      if (d4 == 0) mls[r] = make_float2(M, L);
+    }
+  }
+  if (!final) {
     __syncthreads();
-    for (int f = tid; f < rb * D / 4; f += E_THREADS) {
-      const int rr = f / (D / 4), d4 = f % (D / 4), r = r0 + rr;
-      const float* w = ws + rr * n;
-      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-      for (int k = 0; k < n; ++k) {
-        if (w[k] > 0.f) {
-          const float4 x = __ldcg(acc + ((base + first + k * stride) * R + r) * (D / 4) + d4);
-          o.x += w[k] * x.x;
-          o.y += w[k] * x.y;
-          o.z += w[k] * x.z;
-          o.w += w[k] * x.w;
-        }
-      }
-      if (final) {
-        const float inv = mrg[3 * rr + 2];
-        uint2 packed;
-        packed.x = tph::pack_bf16(o.x * inv, o.y * inv);
-        packed.y = tph::pack_bf16(o.z * inv, o.w * inv);
-        *reinterpret_cast<uint2*>(a.o + (((size_t)b * T + r % T) * a.H + hk * G + r / T) * D +
-                                  4 * d4) = packed;
-      } else {
-        acc[((base + first) * R + r) * (D / 4) + d4] = o;
-      }
-    }
-    if (!final)
-      for (int rr = tid; rr < rb; rr += E_THREADS)
-        ml[(base + first) * R + r0 + rr] = make_float2(mrg[3 * rr], mrg[3 * rr + 1]);
-    __syncthreads();  // ws and mrg are free for the next batch
+    for (int r = threadIdx.x; r < R; r += E_THREADS) ml[base * R + r] = mls[r];
   }
 }
 
@@ -642,24 +644,22 @@ __global__ void __launch_bounds__(E_THREADS, D == 128 ? 3 : 1) flash_decode_kern
       }
     return;
   }
-  const int sp0 = lo_b / E_CH, nl = (hi_b - 1) / E_CH - sp0 + 1;
+  const int sp0 = lo_b / L::CH, nl = (hi_b - 1) / L::CH - sp0 + 1;
   if (sp < sp0 || sp >= sp0 + nl) return;
-  const int s0 = sp * E_CH;
-  split_partial<D, Q8>(a, sm, max(s0, lo_b), min(s0 + E_CH, hi_b),
+  const int s0 = sp * L::CH;
+  split_partial<D, Q8>(a, sm, max(s0, lo_b), min(s0 + L::CH, hi_b),
                        ((size_t)(b * a.Hkv + hk) * a.NS + sp) * R);
   // two merge levels, in a fixed order: the last split of each group of
   // E_GRP live splits to arrive merges the group into the group's first
   // partial, then the last group merges the groups and writes the rows
   int* cnt = a.cnt + (size_t)(b * a.Hkv + hk) * (a.NS / E_GRP + 2);
   int* flag = reinterpret_cast<int*>(sm + L::LAST);
-  float* ws = reinterpret_cast<float*>(sm);
-  float* mrg = reinterpret_cast<float*>(sm + L::MRG);
   const int gi = (sp - sp0) / E_GRP, ng = (nl + E_GRP - 1) / E_GRP;
   const int g0 = sp0 + gi * E_GRP, gn = min(E_GRP, sp0 + nl - g0);
   if (!arrive(cnt + gi, gn, flag)) return;
-  merge_parts<D>(a, b, hk, g0, 1, gn, ng == 1, ws, L::WCAP, mrg);
+  merge_parts<D>(a, b, hk, g0, 1, gn, ng == 1, reinterpret_cast<float2*>(sm + L::FAC));
   if (ng == 1 || !arrive(cnt + a.NS / E_GRP + 1, ng, flag)) return;
-  merge_parts<D>(a, b, hk, sp0, E_GRP, ng, true, ws, L::WCAP, mrg);
+  merge_parts<D>(a, b, hk, sp0, E_GRP, ng, true, nullptr);
 }
 
 template <int D, bool Q8>
@@ -687,9 +687,10 @@ extern "C" int tpq_flash_decode(
     float scale, float softcap, int window, int chunked, int has_sinks, void* stream) {
   cudaGetLastError();
   // the caller sized part_ml/part_acc for NS splits: they must be this
-  // kernel's E_CH-slot splits of S, or the blocks would write past them
+  // kernel's splits of S, or the blocks would write past them
+  const int ch = q8 ? split_of<true>() : split_of<false>();
   if (Hkv <= 0 || H % Hkv || (H / Hkv) * T > E_RMAX || T < 1 || T > 8 ||
-      (D != 128 && D != 256) || S < 1 || NS != (S + E_CH - 1) / E_CH || NS > E_NSMAX)
+      (D != 128 && D != 256) || S < 1 || NS != (S + ch - 1) / ch || NS > E_NSMAX)
     return (int)cudaErrorInvalidValue;
   FdArgs a;
   a.q = reinterpret_cast<const __nv_bfloat16*>(q);

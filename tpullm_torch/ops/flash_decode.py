@@ -25,7 +25,9 @@ import torch
 
 from . import _cuda
 
-E_CH = 128  # slots per split of the CUDA kernel, which rejects any other split count
+# slots per split of the CUDA kernel by K/V type (int8: True); it rejects any
+# other split count (csrc/flash_decode.cu split_of)
+E_CH = {False: 128, True: 256}
 E_GRP = 8  # live splits a first-level merge of the kernel takes (csrc/flash_decode.cu)
 E_RMAX = 64  # most query rows (G * T) per kv head the kernel takes
 E_HEAD_DIMS = (128, 256)  # head dims the kernel is built for (Dk = Dv)
@@ -91,12 +93,12 @@ def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: f
     return out.reshape(B, T, H, Dv).to(torch.bfloat16)
 
 
-def counters_per_row(S: int) -> int:
+def counters_per_row(S: int, q8: bool) -> int:
     """Arrival counters the kernel uses for one (batch row, kv head) over an
     S-slot view: one for each group of E_GRP live splits (the live splits
-    are a range of the NS = ceil(S / E_CH) splits, so at most NS // E_GRP +
-    1 groups) and one for the groups."""
-    return -(-S // E_CH) // E_GRP + 2
+    are a range of the NS = ceil(S / E_CH[q8]) splits, so at most NS // E_GRP
+    + 1 groups) and one for the groups."""
+    return -(-S // E_CH[q8]) // E_GRP + 2
 
 
 _COUNTERS: dict = {}
@@ -169,7 +171,7 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
         sk = sinks.to(torch.float32).contiguous()
     # int64 as the model passes them: no conversion launches on the path
     i64 = [t.to(torch.int64).contiguous() for t in (q_slots, positions, valid_from)]
-    NS = -(-S // E_CH)
+    NS = -(-S // E_CH[q8])
     R = (H // Hkv) * T
     part_ml = torch.empty((B, Hkv, NS, R, 2), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((B, Hkv, NS, R, Dk), dtype=torch.float32, device=q.device)
@@ -179,7 +181,7 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
         k_scales.data_ptr() if q8 else 0, v_scales.data_ptr() if q8 else 0,
         sk.data_ptr() if sk is not None else 0, *(t.data_ptr() for t in i64),
         part_ml.data_ptr(), part_acc.data_ptr(),
-        _counters(q.device, B * Hkv * counters_per_row(S)).data_ptr(),
+        _counters(q.device, B * Hkv * counters_per_row(S, q8)).data_ptr(),
         out.data_ptr(),
         B, T, H, Hkv, S, NS, Dk, int(q8), k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         ks_sb, ks_sh, vs_sb, vs_sh, scale, softcap, int(window), int(chunked),

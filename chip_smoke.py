@@ -701,7 +701,7 @@ def decode_operands(torch, g, B, T, Hq, Hk, S, hd, slots, q8, vf=None):
     return q, k, v, ks, vs, qs, qs - vf[:, None], vf
 
 
-def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, check=True):
+def decode_row(torch, timer, entries, g, where, S, slots, vf, q8):
     """One row of kernel E at Llama-3-8B's heads (32/8 of 128, T = 1) over
     an S-slot view, row b's query at slots[b] with keys from vf[b]: against
     its plain version (NMSE 1e-4, two calls bit-identical), timed beside
@@ -711,8 +711,9 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, check=True):
     the device ms of E's main and merge launches apart (profiler) and a
     digest of its output bits. The bound reads each row's visible K/V rows
     (and 8 B of scales a (head, slot) for int8) and q once and writes o
-    once; 4 D flops a visible (query head, key) pair. check=False times the
-    row without holding it to the plain version."""
+    once; 4 D flops a visible (query head, key) pair. The merge's device ms
+    is 0 since the merge runs in the main launch (an older checkout's
+    separate merge launch shows there)."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.models.llama import dequant_view
     from tpullm_torch.ops.flash_attention import masked_attention
@@ -757,7 +758,7 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, check=True):
         f"{HKV} heads) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} x_einsum "
         f"{ms / ems:.3f}" + "".join(f" {n}_ms {t:.4f}" for n, t in split.items())
         + f" bits {bits}")
-    if check and not (err < TOL_DECODE_NMSE and same):
+    if not (err < TOL_DECODE_NMSE and same):
         raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["flash_decode"][0],
@@ -807,7 +808,7 @@ def decode_flag_cases(torch, g, hd):
         f"identical, the row with no visible key 0")
 
 
-def decode_rows(torch, timer, entries, check=True):
+def decode_rows(torch, timer, entries):
     """Kernel E's timed rows: the server slice's decode shape (an 8192-slot
     view, rows at slots 6000/2000/700/40) on bf16 and int8 K/V, and the
     engine slice's (bf16, a 1024-slot view, the left-padded 512/300/200/
@@ -816,9 +817,8 @@ def decode_rows(torch, timer, entries, check=True):
     g = torch.Generator(device="cuda").manual_seed(99)
     for q8 in (False, True):
         decode_row(torch, timer, entries, g, "server", 8192, [6000, 2000, 700, 40],
-                   [0, 0, 0, 0], q8, check)
-    decode_row(torch, timer, entries, g, "engine", 1024, [527] * 4, [0, 212, 312, 412], False,
-               check)
+                   [0, 0, 0, 0], q8)
+    decode_row(torch, timer, entries, g, "engine", 1024, [527] * 4, [0, 212, 312, 412], False)
     return g
 
 
@@ -1472,8 +1472,7 @@ def device_kernels(prof):
 KERNEL_OF = {"qmm_splitk_kernel": "qmm_splitk", "qmm_reduce": "qmm_splitk",
              "qmm_wgmma_kernel": "qmm",
              "flash_kernel": "flash_attention", "layer_kernel": "layer_kernel",
-             "moe_gmm_kernel": "moe_gmm", "flash_decode_kernel": "flash_decode",
-             "flash_decode_merge": "flash_decode"}
+             "moe_gmm_kernel": "moe_gmm", "flash_decode_kernel": "flash_decode"}
 
 
 def phase_prefill_profile(torch, eng, prompts, must, label):

@@ -25,10 +25,8 @@ named "end" or "t_..." being a time stamp, 0 where a block left none, and
 field 0 the block's start), one more launch at the server's shape on
 each K/V type is read back and the median and largest value of each field
 over the blocks that read a tile are printed (time stamps as their range
-after the first block's start). ``--no-check`` times rows
-without holding them to the plain version (for an ablated copy whose
-output is knowingly wrong). The last line of each checkout's output is its
-rows as JSON.
+after the first block's start). The last line of each checkout's output is
+its rows as JSON.
 """
 import ctypes
 import importlib.util
@@ -101,7 +99,7 @@ def stamps(torch, cs, lib) -> dict:
     return out
 
 
-def one(root: Path, check: bool) -> None:
+def one(root: Path) -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -122,7 +120,7 @@ def one(root: Path, check: bool) -> None:
     lib = _cuda.lib()
     timer = cs.Timer(torch)
     entries = []
-    cs.decode_rows(torch, timer, entries, check=check)
+    cs.decode_rows(torch, timer, entries)
     result = {"checkout": str(root), "rows": entries}
     if hasattr(lib, "tpq_flash_decode_stamps"):
         result["stamps"] = stamps(torch, cs, lib)
@@ -131,14 +129,11 @@ def one(root: Path, check: bool) -> None:
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        one(Path(argv[1]), argv[2] == "check")
+        one(Path(argv[1]))
         return 0
-    check = "check"
-    if argv[:1] == ["--no-check"]:
-        check, argv = "no-check", argv[1:]
     rc = 0
     for root in argv or [str(HERE)]:
-        rc |= subprocess.run([sys.executable, __file__, "--one", root, check]).returncode
+        rc |= subprocess.run([sys.executable, __file__, "--one", root]).returncode
     return rc
 
 

@@ -85,7 +85,6 @@ constexpr int E_CK = 16;      // slots per chunk (one k step of P V)
 constexpr int E_THREADS = 128;
 constexpr int E_RMAX = 64;    // query rows (G * T) per kv head
 constexpr float E_NEG = -1e30f;
-constexpr int E_NSMAX = 8192;  // most splits a view may have
 constexpr int E_GRP = 8;       // live splits a first-level merge takes; ops/flash_decode.py
 
 struct FdArgs {
@@ -146,18 +145,6 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // 16 bytes global -> shared, or 16 zero bytes where !ok (nothing is read)
 __device__ __forceinline__ void cp16z(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
@@ -173,7 +160,8 @@ __device__ __forceinline__ void cp4z(uint32_t dst, const void* src, bool ok) {
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 
-// waits until at most n of this thread's commit groups are pending
+// waits until at most n of this thread's commit groups are pending (past 15,
+// until 15: more than asked, never less)
 __device__ __forceinline__ void cp_wait(int n) {
   switch (n) {
 #define E_WAIT(i) \
@@ -690,7 +678,7 @@ extern "C" int tpq_flash_decode(
   // kernel's splits of S, or the blocks would write past them
   const int ch = q8 ? split_of<true>() : split_of<false>();
   if (Hkv <= 0 || H % Hkv || (H / Hkv) * T > E_RMAX || T < 1 || T > 8 ||
-      (D != 128 && D != 256) || S < 1 || NS != (S + ch - 1) / ch || NS > E_NSMAX)
+      (D != 128 && D != 256) || S < 1 || NS != (S + ch - 1) / ch)
     return (int)cudaErrorInvalidValue;
   FdArgs a;
   a.q = reinterpret_cast<const __nv_bfloat16*>(q);

@@ -32,20 +32,25 @@ pass):
    decode steps at per-row depths through kernel E) with the same rule;
 4. the slice: the 32-layer 8B model answers 4 requests (prompts of 512,
    300, 200 and 100 tokens, 32 greedy decode steps) through
-   InferenceEngine.generate, with every kernel's launch count above 0;
-   then the server slice on the same model: ServerContext (4 slots of
-   8192, int8 KV, kernel E through TPULLM_FLASH_DECODE=1) behind the HTTP
+   InferenceEngine.generate, each decode step a replay of the engine's
+   CUDA graph, with every kernel's launch count above 0 (a replay adds the
+   counts of its capture); one eager pass of the same requests
+   (cuda_graphs=False) must give the same tokens and launch counts; then
+   the server slice on the same model: ServerContext (4 slots of 8192,
+   int8 KV, kernel E through TPULLM_FLASH_DECODE=1) behind the HTTP
    front end answers a burst of 6 concurrent requests (prompts of 6000 to
    40 tokens, 64 new tokens each, one streamed, one sampled) and a
    sequential pair that must reuse its prefix, with A-E launched; the
    burst again with kernel E off (the einsum path), a profile of the
    6000-token prompt's prefill alone (device ms by kernel) and of the
    server's decode chunks each way;
-5. where a decode step's time goes, on the slice's model and batch: the
-   spread of ms/step over single steps, the CPU share of the main thread,
-   of the process and of its busiest threads, a fixed host-only workload
-   timed before and after, the CPUs' busy and steal shares, and the
-   device-busy time and launches per step under torch.profiler; then one
+5. where a decode step's time goes, on the slice's model and batch, as
+   graph replays and as eager steps: the spread of ms/step over single
+   steps, the CPU share of the main thread, of the process and of its
+   busiest threads, a fixed host-only workload timed before and after, the
+   CPUs' busy and steal shares, ms per step back to back between CUDA
+   events, the device-busy time, kernels and runtime launch calls per step
+   under torch.profiler, and peak memory with the graph pool; then one
    profiled prefill: each kernel's device time, the device time outside
    the kernels and the device's idle share;
 6. the 8B model is freed; full-width Mixtral-8x7B with 2 layers: one
@@ -54,10 +59,12 @@ pass):
    f32, with phase 3's tolerance rule, counting the (token, layer)
    routings that differ between the card and the CPU;
 7. the MoE slice: the 32-layer Mixtral-8x7B model answers phase 4's 4
-   requests through InferenceEngine.generate, three times for the rates'
-   spread, with kernels A, B, C and F launched and D not;
-8. phase 5's decode-step and prefill profiles on the MoE slice (the
-   prefill's device time outside the kernels is the routing's cost).
+   requests through InferenceEngine.generate (graph replays), three times
+   for the rates' spread, with kernels A, B, C and F launched and D not,
+   and once eagerly with the same tokens and launch counts;
+8. phase 5's decode-step (graph and eager) and prefill profiles on the MoE
+   slice (the prefill's device time outside the kernels is the routing's
+   cost).
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
@@ -1092,8 +1099,13 @@ def phase_moe_parity(torch):
 
 def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     """Phases 4 and 7: a 32-layer model answers 4 requests through
-    generate: one run with the launch counts (set to 0 just before it), then
-    ``repeats`` timed runs (prefill alone, then prefill + 32 decode steps)."""
+    generate, each decode step a replay of the engine's CUDA graph: one run
+    with the launch counts (set to 0 just before it; replays add their
+    capture's counts), then ``repeats`` timed runs (prefill alone, then
+    prefill + 32 decode steps). Then one eager pass of the same requests
+    (cuda_graphs=False), which must give the same greedy tokens, 4 x 33,
+    and the same launch counts. -> (counts, graph engine, eager engine,
+    prompts)."""
     import numpy as np
 
     from tpullm_torch.ops import _cuda
@@ -1103,45 +1115,62 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     lens = [512, 300, 200, 100]
     prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
     eng = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=32)
+    eager = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=32, cuda_graphs=False)
     new = 33  # the first token from prefill + one chunk of 32 decode steps
     dec_steps = new - 1
 
-    def timed(n):
+    def timed(e, n):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        r = eng.generate(prompts, max_new_tokens=n)
+        r = e.generate(prompts, max_new_tokens=n)
         torch.cuda.synchronize()
         return r, time.perf_counter() - t
 
-    timed(1)  # warm-up: first use of each kernel shape
+    timed(eng, 1)  # warm-up: first use of each kernel shape
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
-    r1, _ = timed(new)
+    r1, t_capture = timed(eng, new)  # its first step is the warm-up, then the capture
     counts = dict(_cuda.COUNTS)
     peak = torch.cuda.max_memory_allocated() / 1e9
     pre, step_ms = [], []
     for _ in range(repeats):
-        _, t_pre = timed(1)
-        r2, t_all = timed(new)
+        _, t_pre = timed(eng, 1)
+        r2, t_all = timed(eng, new)
         pre.append(sum(lens) / t_pre)
         step_ms.append((t_all - t_pre) / dec_steps * 1e3)
     flat = [t for row in r1.tokens for t in row]
     in_range = all(0 <= t < vocab for t in flat)
     same = r1.tokens == r2.tokens
+    _cuda.reset_counts()
+    r_eager, _ = timed(eager, new)
+    eager_counts = dict(_cuda.COUNTS)
+    _, t_pre = timed(eager, 1)
+    _, t_all = timed(eager, new)
+    eager_ms = (t_all - t_pre) / dec_steps * 1e3
+    graph_eq = r_eager.tokens == r1.tokens
     log(f"slice {label}: prefill {sum(lens)} tokens (bucket 4x512) "
         f"{[round(x, 1) for x in pre]} tok/s; decode {len(lens)}x{dec_steps} tokens "
         f"{[round(x, 2) for x in step_ms]} ms/step "
-        f"({[round(len(lens) * 1e3 / x, 1) for x in step_ms]} tok/s); peak memory "
-        f"{peak:.3f} GB; launches {counts}; tokens in range {in_range}; repeat identical {same}")
+        f"({[round(len(lens) * 1e3 / x, 1) for x in step_ms]} tok/s) as graph replays "
+        f"(first run with its capture {t_capture:.3f} s), eager {eager_ms:.2f} ms/step; "
+        f"graphs {len(eng.graphs)}; peak memory {peak:.3f} GB; launches {counts}; "
+        f"eager launches equal {eager_counts == counts}; tokens in range {in_range}; "
+        f"repeat identical {same}; graph tokens == eager tokens {graph_eq}")
     log(f"slice {label}: first tokens {[row[:8] for row in r1.tokens]}")
     if not (in_range and same and all(len(t) == new for t in r1.tokens)):
         raise AssertionError(f"slice {label}: output check failed")
+    if not (graph_eq and all(len(t) == new for t in r_eager.tokens)):
+        raise AssertionError(f"slice {label}: graph tokens differ from eager: "
+                             f"{r1.tokens} vs {r_eager.tokens}")
+    if eager_counts != counts or len(eng.graphs) != 1:
+        raise AssertionError(f"slice {label}: launches graph {counts} vs eager {eager_counts}, "
+                             f"{len(eng.graphs)} graphs")
     missing = [k for k in must if counts[k] <= 0]
     extra = [k for k in must_not if counts[k] > 0]
     if missing or extra:
         raise AssertionError(f"slice {label}: kernels not launched {missing}, "
                              f"launched but off this path {extra}")
-    return counts, eng, prompts
+    return counts, eng, eager, prompts
 
 
 SERVER_PROMPTS = [6000, 2000, 700, 300, 120, 40]  # the burst: 6 requests on 4 slots
@@ -1513,41 +1542,64 @@ def phase_prefill_profile(torch, eng, prompts, must, label):
         raise AssertionError(f"prefill profile{label}: no device time for {missing}: {out}")
 
 
+def graph_pool_gb(torch, eng):
+    """GB the caching allocator holds in the engine's graph memory pool (its
+    segments stay reserved while the graphs live, and replays allocate
+    nothing), or None where the snapshot does not name segment pools."""
+    if eng.pool is None:
+        return 0.0
+    snap = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in snap):
+        return None
+    return sum(seg["total_size"] for seg in snap
+               if tuple(seg["segment_pool_id"]) == tuple(eng.pool)) / 1e9
+
+
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
 def phase_decode(torch, eng, prompts, label=""):
-    """Phase 5: where a decode step's time goes, on the slice's model and
-    batch. Each step is the engine's decode step (forward over one token per
-    row at the engine's kv view, then greedy sampling), synchronized, so its
-    host clock can be read alone. Over the timed steps it also reads what
-    the host did: the CPU seconds of the main thread, of the whole process
-    and of each of its threads, and the busy and steal shares of all CPUs."""
-    import numpy as np
+    """Phases 5 and 8: where a decode step's time goes, on the slice's model
+    and batch, through the engine's own decode step (``decode_step``: a
+    graph replay, or the same step run eagerly with cuda_graphs=False) at
+    the engine's kv view, greedy, synchronized, so its host clock can be
+    read alone. Over the timed steps it also reads what the host did: the
+    CPU seconds of the main thread, of the whole process and of each of its
+    threads, and the busy and steal shares of all CPUs. Then the same steps
+    back to back between CUDA events (no host wait between steps) and under
+    torch.profiler: device ms, kernels and runtime launch calls per step,
+    device-busy share; peak memory over the window (allocated, plus the
+    engine's graph pool, whose blocks replays use without allocating)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpullm_torch.models.llama import forward
     from tpullm_torch.ops.sampling import GREEDY, make_sample_fn
     from tpullm_torch.runtime.engine import kv_view_bucket
 
     sample = make_sample_fn(GREEDY)
     tokens, positions, vf, T, lens = eng.prepare_batch(prompts)
-    cache = eng.new_cache(len(prompts))
+    st = eng.decode_state(len(prompts))
     view = kv_view_bucket(T, eng.decode_chunk, eng.max_seq_len)
-    state = {}
+    n = [0]
 
     def step():
-        lg, _ = forward(eng.params, eng.cfg, state["tok"][:, None].to(torch.int64),
-                        state["pos"][:, None], cache, state["slot"], vf, eng.dtype,
-                        kv_view_len=view)
-        state["tok"] = sample(lg[:, -1, :])
-        state["pos"] = state["pos"] + 1
-        state["slot"] += 1
+        if n[0] % eng.decode_chunk == 0:  # the chunk's token rows are reused
+            st.step.zero_()
+        n[0] += 1
+        eng.decode_step(st, GREEDY, view)
 
+    gc.collect()  # what an earlier phase left (the server's cache) stays out of the peak
+    torch.cuda.empty_cache()
     with torch.inference_mode():
-        logits, _ = eng._prefill(tokens, positions, cache, vf)
-        state.update(tok=sample(logits), slot=T,
-                     pos=torch.from_numpy(lens.astype(np.int64)).to(eng.device))
-        for _ in range(2):  # warm-up
+        logits, _ = eng._prefill(tokens, positions, st.cache, vf)
+        st.tok.copy_(sample(logits))
+        st.pos.copy_(torch.from_numpy(lens.astype("int64")))
+        st.valid_from.copy_(vf)
+        st.slot.fill_(T)
+        for _ in range(2):  # warm-up (the graph of this key exists from the slice)
             step()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         yard0 = host_yardstick_ms()
         jif0, ticks0 = cpu_jiffies(), thread_ticks()
         c0, p0, t0 = time.thread_time(), time.process_time(), time.perf_counter()
@@ -1560,28 +1612,50 @@ def phase_decode(torch, eng, prompts, label=""):
         c1, p1, t1 = time.thread_time(), time.process_time(), time.perf_counter()
         jif1, ticks1 = cpu_jiffies(), thread_ticks()
         yard1 = host_yardstick_ms()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        for _ in range(PROFILED_STEPS):
+            step()
+        ev1.record()
+        torch.cuda.synchronize()
+        stream_ms = ev0.elapsed_time(ev1) / PROFILED_STEPS
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED_STEPS):
                 step()
             torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    pool = graph_pool_gb(torch, eng)
     kernels = device_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels) / PROFILED_STEPS
-    launches = sum(n for _, _, n in kernels) / PROFILED_STEPS
+    launches = sum(c for _, _, c in kernels) / PROFILED_STEPS
+    calls = {}
+    for e in prof.key_averages():
+        if e.key in RUNTIME_LAUNCHES:
+            calls[e.key] = calls.get(e.key, 0) + e.count / PROFILED_STEPS
     w1, wm, w3 = quartiles(wall)
     hz = os.sysconf("SC_CLK_TCK")
-    busiest = sorted(((n, (k - ticks0.get(tid, (n, 0))[1]) / hz / (t1 - t0))
-                      for tid, (n, k) in ticks1.items()), key=lambda x: -x[1])[:4]
+    busiest = sorted(((nm, (k - ticks0.get(tid, (nm, 0))[1]) / hz / (t1 - t0))
+                      for tid, (nm, k) in ticks1.items()), key=lambda x: -x[1])[:4]
     out = {
+        "way": "graph" if eng.cuda_graphs else "eager",
         "steps": DECODE_STEPS, "wall_ms_q1_median_q3": [w1, wm, w3],
         "main_thread_cpu_share": (c1 - c0) / (t1 - t0),
         "process_cpus_busy": (p1 - p0) / (t1 - t0),
         "busiest_threads_cpu_share": busiest,
         "host_yardstick_ms_before_after": [yard0, yard1],
+        "back_to_back_ms_per_step": stream_ms,
         "profiled_steps": PROFILED_STEPS, "device_busy_ms_per_step": busy,
         "device_busy_share": busy / wm, "kernel_launches_per_step": launches,
+        "runtime_launch_calls_per_step": calls,
+        "peak_allocated_gb": peak, "graph_pool_gb": pool,
+        "peak_gb_with_graph_pool": peak + pool if pool is not None else None,
         "top_device_ms_per_step": [(k[:60], ms / PROFILED_STEPS) for k, ms, _ in kernels[:6]],
         "cpus": len(os.sched_getaffinity(0)), "torch_threads": torch.get_num_threads(),
     }
+    if eng.cuda_graphs:
+        out["graph_capture_counts_per_step"] = {
+            k: c for k, c in next(iter(eng.graphs.values())).counts.items() if c} if len(
+                eng.graphs) == 1 else None
     if jif0 and jif1:
         tot = max(jif1[0] - jif0[0], 1)
         out["cpus_busy_share"] = 1 - (jif1[1] - jif0[1]) / tot
@@ -1589,6 +1663,7 @@ def phase_decode(torch, eng, prompts, label=""):
     log(f"decode steps{label}: {json.dumps(out)}")
     if not (busy > 0 and all(math.isfinite(x) for x in wall)):
         raise AssertionError(f"decode profile saw no device time: {out}")
+    return out
 
 
 def main() -> int:
@@ -1644,16 +1719,17 @@ def main() -> int:
                                         centred=True, device="cuda")
     log(f"slice 8B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
         f"{time.perf_counter() - t:.3f} s")
-    counts, eng, prompts = phase_slice(torch, "8B", cfg, params, VOCAB, DENSE_KERNELS)
+    counts, eng, eager, prompts = phase_slice(torch, "8B", cfg, params, VOCAB, DENSE_KERNELS)
     log(f"phase slice 8B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     server_counts = phase_server(torch, cfg, params)
     del cfg, params
     log(f"phase server 8B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_decode(torch, eng, prompts)
+    phase_decode(torch, eng, prompts, " 8B graph")
+    phase_decode(torch, eager, prompts, " 8B eager")
     phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention"), " 8B")
-    del eng
+    del eng, eager
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase decode steps: {time.perf_counter() - t:.1f} s")
@@ -1668,15 +1744,16 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"slice Mixtral: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
         f"{time.perf_counter() - t:.3f} s")
-    moe_counts, eng, prompts = phase_slice(torch, "Mixtral-8x7B", cfg, params, M_VOCAB,
-                                           MOE_KERNELS, ("layer_kernel",), repeats=3)
+    moe_counts, eng, eager, prompts = phase_slice(torch, "Mixtral-8x7B", cfg, params, M_VOCAB,
+                                                  MOE_KERNELS, ("layer_kernel",), repeats=3)
     del cfg, params
     log(f"phase slice Mixtral: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_decode(torch, eng, prompts, " Mixtral-8x7B")
+    phase_decode(torch, eng, prompts, " Mixtral-8x7B graph")
+    phase_decode(torch, eager, prompts, " Mixtral-8x7B eager")
     phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "moe_gmm"),
                           " Mixtral-8x7B")
-    del eng
+    del eng, eager
     log(f"phase decode steps Mixtral: {time.perf_counter() - t:.1f} s")
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts}

@@ -711,3 +711,132 @@ def test_server_layout_forward_kernel_e_on_vs_off(cuda, monkeypatch):
     assert out["1"][1]["flash_decode"] == 3 * cfg.n_layer, out["1"][1]
     assert out[None][1]["flash_decode"] == 0
     assert _nmse(out["1"][0], out[None][0]) < 1e-4
+
+
+def _synth_card(kind):
+    """The 2-layer synth models of the engine tests above, on the card:
+    "dense" (n_embd 512, head dim 128), "hd256" (n_embd 1024, head dim 256)
+    and "moe" (4 experts, top-2)."""
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast, synth_mixtral_q4k
+
+    if kind == "moe":
+        return synth_mixtral_q4k(vocab_size=512, n_embd=512, n_layer=2, n_head=4, n_head_kv=2,
+                                 n_ff=1024, n_expert=4, n_expert_used=2, seed=3, device="cuda")
+    return synth_kmajor_q4k_fast(vocab_size=512, n_embd=1024 if kind == "hd256" else 512,
+                                 n_layer=2, n_head=4, n_head_kv=2, n_ff=1024, seed=3,
+                                 centred=True, device="cuda")
+
+
+ENGINE_PROMPTS = [list(range(1, 101)), list(range(7, 67)), list(range(40, 70))]
+
+
+def _counters_zero():
+    """Kernel D's and every buffer of kernel E's arrival counters read 0."""
+    from tpullm_torch.ops import flash_decode, layer_kernel
+
+    torch.cuda.synchronize()
+    bufs = list(flash_decode._HELD)
+    if layer_kernel._counters.cache_info().currsize:
+        bufs.append(layer_kernel._counters(torch.cuda.current_device()))
+    return all(int(b.abs().sum()) == 0 for b in bufs)
+
+
+@pytest.mark.parametrize("kind,flag", [("dense", None), ("dense", "1"), ("hd256", None),
+                                       ("hd256", "1"), ("moe", None)])
+def test_engine_graph_matches_eager(cuda, monkeypatch, kind, flag):
+    """The decode step as a replayed CUDA graph against the same step run
+    eagerly (cuda_graphs=False), on the engine tests' 2-layer models: 128
+    steps in chunks of 24 and a short one of 8 that ends at the cache's last
+    slot; identical greedy tokens and first logits, equal launch counts
+    (each replay adds its capture's), one graph for the one key, sampled
+    tokens equal at one seed and a repeat identical, and D's and E's
+    arrival counters all zero after the mix."""
+    from tpullm_torch.ops.sampling import SamplerConfig
+    from tpullm_torch.runtime.engine import InferenceEngine
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = _synth_card(kind)
+    res, counts = {}, {}
+    engines = {}
+    for graphs in (True, False):
+        eng = engines[graphs] = InferenceEngine(cfg, params, max_seq_len=256,
+                                                decode_chunk=24, cuda_graphs=graphs)
+        _cuda.reset_counts()
+        res[graphs] = eng.generate(ENGINE_PROMPTS, max_new_tokens=129, return_logits=True)
+        counts[graphs] = dict(_cuda.COUNTS)
+    assert all(len(t) == 129 for t in res[True].tokens)
+    assert res[True].tokens == res[False].tokens
+    assert (res[True].logits == res[False].logits).all()
+    assert counts[True] == counts[False], counts
+    assert (counts[True]["flash_decode"] > 0) == bool(flag), counts
+    assert (counts[True]["layer_kernel"] > 0) == (kind != "moe"), counts
+    assert len(engines[True].graphs) == 1 and not engines[False].graphs
+    sampled = SamplerConfig(temperature=0.8, top_k=40, top_p=0.9)
+    s = {g: engines[g].generate(ENGINE_PROMPTS, max_new_tokens=40, sampler=sampled, seed=3)
+         for g in (True, False)}
+    again = engines[True].generate(ENGINE_PROMPTS, max_new_tokens=40, sampler=sampled, seed=3)
+    assert again.tokens == s[True].tokens
+    assert s[True].tokens == s[False].tokens
+    assert len(engines[True].graphs) == 2
+    assert _counters_zero()
+
+
+def test_engine_graphs_across_batch_sizes_and_lengths(cuda, monkeypatch):
+    """A second generate with another batch size and prompt bucket adds its
+    own graph and buffers; a third with the first batch reuses the first
+    graph; with kernel E's flag flipped between calls the route keys a
+    graph of its own; every call's tokens equal the eager engine's, and D's
+    and E's counters read zero after the mix of replays and eager runs."""
+    from tpullm_torch.runtime.engine import InferenceEngine
+
+    monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = _synth_card("dense")
+    g, e = (InferenceEngine(cfg, params, max_seq_len=512, decode_chunk=16, cuda_graphs=c)
+            for c in (True, False))
+    calls = [(ENGINE_PROMPTS, None), ([list(range(3, 203)), list(range(9, 29))], None),
+             (ENGINE_PROMPTS, None), (ENGINE_PROMPTS, "1"),
+             ([list(range(3, 203)), list(range(9, 29))], "1")]
+    keys = []
+    for prompts, flag in calls:
+        if flag:
+            monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+        else:
+            monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+        a = g.generate(prompts, max_new_tokens=40)
+        b = e.generate(prompts, max_new_tokens=40)
+        assert a.tokens == b.tokens
+        keys.append(sorted(g.graphs, key=str))
+    assert [len(k) for k in keys] == [1, 2, 2, 3, 4]
+    assert sorted(g.states) == [2, 3]
+    assert _counters_zero()
+
+
+def test_engine_capture_failure_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here a sampler that reads a value
+    back to the host) raises from generate; no graph is kept and the engine
+    never falls back to eager steps: the next call raises too."""
+    from tpullm_torch.runtime import engine as engine_mod
+
+    make = engine_mod.make_sample_fn
+
+    def reading_sampler(cfg):
+        fn = make(cfg)
+
+        def sample(logits, gen=None):
+            tok = fn(logits, gen)
+            float(logits.sum())  # a host read: refused inside a capture
+            return tok
+
+        return sample
+
+    monkeypatch.setattr(engine_mod, "make_sample_fn", reading_sampler)
+    cfg, params = _synth_card("dense")
+    eng = engine_mod.InferenceEngine(cfg, params, max_seq_len=256, decode_chunk=4)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            eng.generate(ENGINE_PROMPTS, max_new_tokens=5)
+        assert eng.graphs == {}
+    torch.cuda.synchronize()

@@ -38,6 +38,7 @@ from ..ops.layer_kernel import ffn_block, ffn_block_qkv
 from ..ops.layer_kernel import supported as block_supported
 from ..ops.qmm import qmm
 from ..ops.qtensor import QTensor
+from ..quant.kmajor import f32_on_device
 from .config import ModelConfig
 
 # ModelConfig fields the dense llama path reads; every other field must keep
@@ -152,7 +153,7 @@ def rope_cache(cfg: ModelConfig, positions):
     (ggml_rope_ext semantics, with linear or YaRN frequency scaling)."""
     half = cfg.rope_dim // 2
     inv_freq = cfg.rope_base ** (-np.arange(0, half, dtype=np.float32) * 2.0 / cfg.rope_dim)
-    inv_freq = torch.from_numpy(np.asarray(inv_freq, np.float32)).to(positions.device)
+    inv_freq = f32_on_device(tuple(np.asarray(inv_freq, np.float32).tolist()), positions.device)
     pos = positions.to(torch.float32)[..., None]
     if cfg.rope_scaling == "linear" and cfg.rope_scale != 1.0:
         pos = pos / cfg.rope_scale
@@ -167,7 +168,7 @@ def rope_cache(cfg: ModelConfig, positions):
         ramp = np.clip(
             (d - _rot_dim(low_rot, cfg))
             / max(_rot_dim(high_rot, cfg) - _rot_dim(low_rot, cfg), 1e-3), 0, 1)
-        ramp = torch.from_numpy(np.asarray(1 - ramp, np.float32)).to(positions.device)
+        ramp = f32_on_device(tuple(np.asarray(1 - ramp, np.float32).tolist()), positions.device)
         theta_extrap = pos * inv_freq
         theta_interp = pos * inv_freq / cfg.rope_scale
         theta = theta_interp * (1 - ramp) + theta_extrap * ramp
@@ -376,13 +377,16 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     slot; kv_view_len bounds the cache slots attention reads. Layouts
     (llama.py:697-703, 769-775):
     - batch engine: an int ``cache_pos``, every row writes slots
-      [cache_pos, cache_pos + T) (left-padded rows share slot indices);
+      [cache_pos, cache_pos + T) (left-padded rows share slot indices); its
+      decode step passes a (B,) tensor with every row at the same slot
+      instead, so that a captured step reads the slot from the device;
     - server slots: ``slot0`` (int) selects cache batch rows
       [slot0, slot0 + B), so a one-sequence prefill writes just its slot; a
       (B,) tensor ``cache_pos`` gives each row its own first slot (rows at
       different depths), written by a per-row scatter.
     With an int cache_pos, writes past the cache's last slot are dropped,
-    as the JAX scatter drops them (a bucketed prefill chunk near the end).
+    as the JAX scatter drops them (a bucketed prefill chunk near the end);
+    a tensor cache_pos must keep every row's slots inside the cache.
     ``logits_idx`` (int) computes the lm_head for that position only
     (logits (B, 1, vocab))."""
     groups = params["layers"].get("__groups__") or [params["layers"]]

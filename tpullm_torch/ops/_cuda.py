@@ -11,10 +11,13 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
 
 Launch counts: every kernel wrapper adds one to ``COUNTS[name]`` where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else. A CUDA graph's replay runs no
+Python, so ``CountedGraph`` takes back the counts its capture added (the
+capture launches nothing) and adds them again at every replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -40,6 +43,52 @@ COUNTS = {"qmm_splitk": 0, "qmm": 0, "flash_attention": 0, "layer_kernel": 0,
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+@contextlib.contextmanager
+def counts_taken_back(out: dict):
+    """Within the block, wrappers count as usual; on leaving it, ``out``
+    holds what they added and COUNTS is as it was before the block."""
+    before = dict(COUNTS)
+    try:
+        yield out
+    finally:
+        out.clear()
+        out.update({k: COUNTS[k] - before[k] for k in COUNTS})
+        COUNTS.update(before)
+
+
+def add_counts(delta: dict) -> None:
+    for k, n in delta.items():
+        COUNTS[k] += n
+
+
+class CountedGraph:
+    """A CUDA graph whose replays count the kernel launches they make: the
+    counts of its capture (which launches nothing) are taken back and added
+    again at every replay."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.counts: dict = {}
+
+    @contextlib.contextmanager
+    def capture(self, stream, pool=None, generators=()):
+        """Capture the block on ``stream`` into the graph (a private memory
+        pool, or ``pool`` shared with other graphs). Each generator the
+        block draws from is registered, so that every replay draws anew
+        from its state at that replay."""
+        for g in generators:
+            self.graph.register_generator_state(g)
+        # thread_local: a host read or sync in this thread still breaks the
+        # capture (and raises); other threads' CUDA calls (a server's) do not
+        with counts_taken_back(self.counts), torch.cuda.graph(
+                self.graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+            yield self
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_counts(self.counts)
 
 
 def resolve_device(device) -> torch.device:

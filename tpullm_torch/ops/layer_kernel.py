@@ -159,8 +159,13 @@ def _grid_blocks(index: int) -> int:
 def _counters(index: int):
     """The arrival counters of one device: zero at first use, and each
     launch leaves them zero (the last block of each tile resets its
-    counter). Kernel D's launches on a device run one at a time, on one
-    stream."""
+    counter). Kernel D's launches on a device, eager or replayed in a CUDA
+    graph, run one at a time, on one stream. Made by an eager launch: a
+    buffer first made inside a graph capture would live in the graph's
+    private pool while eager launches share it, so that raises."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("layer_kernel: the arrival counters would be made during a CUDA "
+                           "graph capture; launch the kernel once before capturing")
     return torch.zeros(N_COUNTERS, dtype=torch.int32, device=torch.device("cuda", index))
 
 

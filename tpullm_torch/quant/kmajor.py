@@ -24,6 +24,7 @@ in f32.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -276,13 +277,20 @@ def scale_rows_torch(data: dict, spec: KmSpec):
     return scale, bias
 
 
+@functools.cache
+def f32_on_device(values: tuple, device: torch.device) -> torch.Tensor:
+    """A constant's f32 copy on ``device``, made once: a copy from the host
+    inside a CUDA graph capture (a captured decode step's embedding lookup
+    or RoPE) would raise."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def dequant_kmajor_torch(data: dict, qtype: GGMLType, dtype) -> torch.Tensor:
     """Kernel arrays -> dense (Npad, K) weight (the plain path and oracle)."""
     spec = KM_SPECS[GGMLType(qtype)]
     grid = unpack_grid_torch(data["q"], spec.kind)  # (K, Npad) i32
     if spec.lut is not None:
-        lut = torch.tensor(spec.lut, dtype=torch.float32, device=grid.device)
-        val = lut[grid]
+        val = f32_on_device(spec.lut, grid.device)[grid]
     else:
         val = grid.to(torch.float32)
         if spec.off:

@@ -3,9 +3,30 @@
 Counterpart of tpullm/runtime/engine.py. Prompts are left-padded to a
 power-of-two bucket; one prefill writes the cache, then decode runs in
 chunks of ``decode_chunk`` steps. Each step is a forward over one token per
-row and an on-device sample; the host reads the chunk's tokens once, at
-its end. (The JAX engine runs the chunk as one on-device lax.scan; CUDA
-graphs, its counterpart here, wait for a later change.)
+row, an on-device sample and the advance of the carried state; the host
+reads the chunk's tokens once, at its end.
+
+The JAX engine runs a chunk as one jitted ``lax.scan``, compiled per
+(sampler, chunk, eos, kv_view) (engine.py:112-158). Here, on the card, each
+step is one replay of a CUDA graph of ``_step``, captured once per
+``step_key`` (batch size, sampler, kv view, attention route) and replayed
+``chunk`` times a chunk, so chunks of any length share it. A graph keeps
+every pointer it saw, so the engine owns the step's buffers (``DecodeState``:
+the KV cache, the carried token, position and slot, the chunk's tokens) for
+each batch size and reuses them across ``generate`` calls; slots an earlier
+call left in the cache are masked as the JAX engine's donated cache is (by
+``valid_from`` and the query slots). Prefill stays eager: its bucketed
+shapes vary. The first step of a new key runs eagerly on a side stream (the
+warm-up: every kernel's first use, and its counters, before capture), then
+the step is captured there; eager steps and replays run on the caller's
+stream, fenced from the side stream, so no two launches of kernel D or E
+overlap. There is no fallback: a failed capture raises. ``cuda_graphs=False``
+runs the same step eagerly on the card, to hold the graph against; on the
+CPU the step always runs eagerly.
+
+The JAX chunk skips the layer stack once every row has sampled EOS
+(``lax.cond``); here the chunk runs to its end and the host trims the
+tokens after EOS, so the output is the same.
 """
 from __future__ import annotations
 
@@ -15,8 +36,10 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import KVCache, forward
+from ..models.llama import KVCache, attention_route, forward
+from ..ops import _cuda
 from ..ops._cuda import resolve_device
+from ..ops.flash_decode import reserve_counters
 from ..ops.sampling import GREEDY, SamplerConfig, make_sample_fn
 
 
@@ -37,12 +60,54 @@ def kv_view_bucket(slot: int, chunk: int, max_seq_len: int) -> int:
     return min(view, max_seq_len)
 
 
+def decode_chunks(T: int, max_new_tokens: int, max_seq_len: int, decode_chunk: int):
+    """-> [(slot, chunk, kv_view)] of the decode chunks after a prefill of T
+    slots (engine.py:228-249): full chunks, then power-of-two chunks that
+    fill the cache's last slots. ``max_new_tokens`` counts the prefill's
+    token."""
+    out = []
+    produced, slot = 1, T
+    while produced < max_new_tokens and slot < max_seq_len:
+        room = max_seq_len - slot
+        chunk = decode_chunk if room >= decode_chunk else 1 << (room.bit_length() - 1)
+        out.append((slot, chunk, kv_view_bucket(slot, chunk, max_seq_len)))
+        produced += chunk
+        slot += chunk
+    return out
+
+
+def step_key(cfg: ModelConfig, B: int, sampler: SamplerConfig, kv_view: int, kv_dtype,
+             on_card: bool) -> tuple:
+    """What a captured decode step depends on beyond its buffers: the batch
+    size, the sampler, the kv view and the attention route that forward
+    takes there (models/llama.py:attention_route, which reads
+    TPULLM_FLASH_DECODE). The JAX key (sampler, chunk, eos, kv_view) less
+    chunk and eos, as one step is captured, not a chunk."""
+    route = attention_route(on_card, B, 1, kv_view, cfg.head_dim, cfg.head_dim_v,
+                            cfg.n_head, cfg.n_head_kv, kv_dtype)
+    return (B, sampler, kv_view, route)
+
+
 @dataclass
 class GenerationResult:
     tokens: list[list[int]]
     logits: np.ndarray | None = None  # (B, vocab) logits after the prompt
     n_prefill: int = 0
     n_decode: int = 0
+
+
+@dataclass
+class DecodeState:
+    """The decode step's buffers for one batch size B. A captured step
+    reads and writes these in place, so they live as long as the engine."""
+
+    cache: KVCache
+    tok: torch.Tensor  # (B,) int64: the last sampled token of each row
+    pos: torch.Tensor  # (B,) int64: its position
+    slot: torch.Tensor  # (B,) int64: the cache slot it is written to (every row the same)
+    valid_from: torch.Tensor  # (B,) int64: each row's first valid slot
+    toks: torch.Tensor  # (decode_chunk, B) int32: the chunk's tokens
+    step: torch.Tensor  # (1,) int64: the row of toks the next step writes
 
 
 def _params_device(params: dict) -> torch.device:
@@ -54,7 +119,7 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq_len: int = 1024,
                  compute_dtype=torch.bfloat16, kv_dtype=None, decode_chunk: int = 32,
-                 device="cuda"):
+                 device="cuda", cuda_graphs: bool = True):
         self.device = resolve_device(device)
         pdev = _params_device(params)
         if pdev.type != self.device.type:
@@ -65,9 +130,32 @@ class InferenceEngine:
         self.dtype = compute_dtype
         self.kv_dtype = kv_dtype or compute_dtype
         self.decode_chunk = decode_chunk
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self.gen = torch.Generator(device=self.device)  # every draw, eager or replayed
+        self.states: dict[int, DecodeState] = {}  # by batch size
+        self.graphs: dict[tuple, _cuda.CountedGraph] = {}  # by step_key
+        self._side = None  # the stream warm-ups and captures run on
+        self.pool = None  # the memory pool every graph of the engine shares
 
     def new_cache(self, batch: int) -> KVCache:
         return KVCache.create(self.cfg, batch, self.max_seq_len, self.kv_dtype, self.device)
+
+    def decode_state(self, B: int) -> DecodeState:
+        """The engine's decode buffers for batch size B, made at first use;
+        on the card kernel E's arrival counters are sized for them then
+        (ops/flash_decode.py:reserve_counters), before any capture."""
+        st = self.states.get(B)
+        if st is None:
+            z = lambda *shape: torch.zeros(shape, dtype=torch.int64, device=self.device)
+            cache = self.new_cache(B)
+            st = DecodeState(cache, z(B), z(B), z(B), z(B),
+                             torch.zeros((self.decode_chunk, B), dtype=torch.int32,
+                                         device=self.device), z(1))
+            if self.device.type == "cuda":
+                reserve_counters(self.device, B, self.cfg.n_head_kv, self.max_seq_len,
+                                 cache.quantized)
+            self.states[B] = st
+        return st
 
     def prepare_batch(self, prompts: list[list[int]]):
         """Left-pad to a power-of-two bucket; returns device inputs."""
@@ -89,44 +177,79 @@ class InferenceEngine:
                                 valid_from, self.dtype)
         return logits[:, -1, :], cache
 
+    def _step(self, st: DecodeState, sample, kv_view: int) -> None:
+        """One decode step on the state's buffers, all on the device: the
+        function a graph captures. Every row writes the cache at st.slot."""
+        logits, _ = forward(self.params, self.cfg, st.tok[:, None], st.pos[:, None], st.cache,
+                            st.slot, st.valid_from, self.dtype, kv_view_len=kv_view)
+        nxt = sample(logits[:, -1, :], self.gen)
+        st.toks.index_copy_(0, st.step, nxt[None])
+        st.tok.copy_(nxt)
+        st.pos.add_(1)
+        st.slot.add_(1)
+        st.step.add_(1)
+
+    def decode_step(self, st: DecodeState, sampler: SamplerConfig, kv_view: int) -> None:
+        """One decode step: a replay of the key's graph; for a new key, one
+        eager step as the warm-up and the capture; eager without graphs."""
+        if not self.cuda_graphs:
+            self._step(st, make_sample_fn(sampler), kv_view)
+            return
+        key = step_key(self.cfg, st.tok.shape[0], sampler, kv_view, st.cache.k.dtype, True)
+        graph = self.graphs.get(key)
+        if graph is None:
+            self._warm_up_and_capture(key, st, sampler, kv_view)
+        else:
+            graph.replay()
+
+    def _warm_up_and_capture(self, key, st, sampler, kv_view) -> None:
+        """Run the step eagerly on the side stream (a real step: its tokens
+        count), then capture it there as the key's graph."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(self.device)
+        sample = make_sample_fn(sampler)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            self._step(st, sample, kv_view)
+        graph = _cuda.CountedGraph()
+        with graph.capture(self._side, self.pool, generators=(self.gen,)):
+            self._step(st, sample, kv_view)
+        main.wait_stream(self._side)
+        self.graphs[key] = graph
+
     @torch.inference_mode()
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
                  sampler: SamplerConfig | None = None, seed: int = 0,
                  eos_id: int | None = None, return_logits: bool = False) -> GenerationResult:
         sampler = sampler or GREEDY
         sample = make_sample_fn(sampler)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        self.gen.manual_seed(seed)
         tokens, positions, valid_from, T, lens = self.prepare_batch(prompts)
         B = tokens.shape[0]
         if T >= self.max_seq_len:
             raise ValueError(f"prompt bucket {T} >= max_seq_len {self.max_seq_len}")
         max_new_tokens = min(max_new_tokens, self.max_seq_len - T + 1)
-        cache = self.new_cache(B)
-        logits, cache = self._prefill(tokens, positions, cache, valid_from)
+        st = self.decode_state(B)
+        logits, _ = self._prefill(tokens, positions, st.cache, valid_from)
         first_logits = logits.cpu().numpy() if return_logits else None
-        tok = sample(logits, gen)
+        tok = sample(logits, self.gen)
+        st.tok.copy_(tok)
+        st.pos.copy_(torch.from_numpy(lens.astype(np.int64)))
+        st.valid_from.copy_(valid_from)
 
         out_chunks = [tok.cpu().numpy()[None]]  # (1, B)
-        produced = 1
-        slot = T
-        pos = torch.from_numpy(lens.astype(np.int64)).to(self.device)
-        while produced < max_new_tokens and slot < self.max_seq_len:
-            room = self.max_seq_len - slot
-            chunk = self.decode_chunk if room >= self.decode_chunk else 1 << (room.bit_length() - 1)
-            kv_view = kv_view_bucket(slot, chunk, self.max_seq_len)
-            toks = []
-            for step in range(chunk):
-                logits, cache = forward(self.params, self.cfg, tok[:, None].to(torch.int64),
-                                        pos[:, None], cache, slot + step, valid_from,
-                                        self.dtype, kv_view_len=kv_view)
-                tok = sample(logits[:, -1, :], gen)
-                toks.append(tok)
-                pos = pos + 1
-            toks_np = torch.stack(toks).cpu().numpy()  # (chunk, B): one host read
-            out_chunks.append(toks_np)
-            produced += chunk
-            slot += chunk
+        for slot, chunk, kv_view in decode_chunks(T, max_new_tokens, self.max_seq_len,
+                                                  self.decode_chunk):
+            if slot + chunk > self.max_seq_len:  # decode_chunks keeps to the cache
+                raise RuntimeError(f"chunk of {chunk} at slot {slot} past {self.max_seq_len}")
+            st.slot.fill_(slot)
+            st.step.zero_()
+            for _ in range(chunk):
+                self.decode_step(st, sampler, kv_view)
+            # (chunk, B): one host read, copied (on the CPU .numpy() shares st.toks)
+            out_chunks.append(st.toks[:chunk].cpu().numpy().copy())
             if eos_id is not None:
                 flat = np.concatenate(out_chunks, axis=0)
                 if all((flat[:, b] == eos_id).any() for b in range(B)):

@@ -24,7 +24,10 @@ pass):
    the server slice's decode shape on bf16 and int8 K/V and at the engine
    slice's on bf16 (timed beside SDPA and the einsum path the model takes
    with E off), and its flag cases (T = 1, 4 and 8, windows, softcap,
-   sinks, a row with no visible key) at head dims 128 and 256;
+   sinks, a row with no visible key) at head dims 128 and 256; the KV
+   store kernel (one launch a layer for every cache write) at the server's
+   decode step and at a 512-row prefill chunk on the int8 cache, bit for
+   bit against its plain version;
 3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
    (tolerance: 4x the error of the same plain path in bf16); then the
@@ -37,13 +40,16 @@ pass):
    counts of its capture); one eager pass of the same requests
    (cuda_graphs=False) must give the same tokens and launch counts; then
    the server slice on the same model: ServerContext (4 slots of 8192,
-   int8 KV, kernel E through TPULLM_FLASH_DECODE=1) behind the HTTP
-   front end answers a burst of 6 concurrent requests (prompts of 6000 to
-   40 tokens, 64 new tokens each, one streamed, one sampled) and a
-   sequential pair that must reuse its prefix, with A-E launched; the
-   burst again with kernel E off (the einsum path), a profile of the
-   6000-token prompt's prefill alone (device ms by kernel) and of the
-   server's decode chunks each way;
+   int8 KV, kernel E through TPULLM_FLASH_DECODE=1, each decode step a
+   replay of the server's CUDA graph) behind the HTTP front end answers a
+   burst of 6 concurrent requests (prompts of 6000 to 40 tokens, 64 new
+   tokens each, one streamed, one sampled) and a sequential pair that must
+   reuse its prefix, with A-E and the store kernel launched; the burst
+   again with kernel E off (the einsum path), a profile of the 6000-token
+   prompt's prefill alone (device ms by kernel), and each way one decode
+   chunk as graph replays against the same chunk as eager steps (same
+   tokens and launch counts) and the chunk profile as graph replays (one
+   cudaGraphLaunch a step) and as eager steps;
 5. where a decode step's time goes, on the slice's model and batch, as
    graph replays and as eager steps: the spread of ms/step over single
    steps, the CPU share of the main thread, of the process and of its
@@ -119,9 +125,12 @@ SOURCES = {
     "layer_kernel": ("tpullm_torch/csrc/layer_kernel.cu", "tpullm/ops/layer_kernel.py:182"),
     "moe_gmm": ("tpullm_torch/csrc/qmm_prefill.cu", "tpullm/ops/moe_gmm.py:33"),
     "flash_decode": ("tpullm_torch/csrc/flash_decode.cu", "tpullm/ops/flash_decode.py:41"),
+    # the port's own kernel: no pallas_call, the work XLA fuses into _store
+    "kv_store": ("tpullm_torch/csrc/kv_store.cu", "tpullm/models/llama.py:803"),
 }
-DENSE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel")
-MOE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "moe_gmm")  # and no layer_kernel
+DENSE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel", "kv_store")
+# and no layer_kernel
+MOE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "moe_gmm", "kv_store")
 
 
 def log(msg: str) -> None:
@@ -137,7 +146,7 @@ def card_line() -> str:
 
 def short_kernel(mangled: str) -> str:
     m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_wgmma_kernel|flash_kernel|layer_kernel|"
-                  r"moe_gmm_kernel|flash_decode_kernel|flash_decode_merge)"
+                  r"moe_gmm_kernel|flash_decode_kernel|flash_decode_merge|kv_store_kernel)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?)?", mangled)
     if not m:
         return mangled
@@ -837,6 +846,61 @@ def phase_flash_decode(torch, timer, entries):
         decode_flag_cases(torch, g, hd)
 
 
+def store_row(torch, timer, entries, g, where, T, slots, b0):
+    """One row of the KV store kernel on the server's int8 cache (8192 slots,
+    4 rows, Llama-3-8B's 8 kv heads of 128) for one layer: bf16 K rows and V
+    rows sliced out of a fused QKV output (as forward passes them), batch
+    row b from slots[b], into cache rows from b0. Held bit for bit against
+    its plain version on values and scales; timed beside it. No single
+    PyTorch call computes the quantize-and-store, so library_ms is null.
+    The bound reads each K/V value once (2 B) and the slots, and writes
+    each once (1 B) with its row's two f32 scales."""
+    from tpullm_torch.ops.kv_store import kv_store, kv_store_plain
+
+    B, S, B_cache = len(slots), 8192, 4
+    y = (torch.randn((B, T, (H + 2 * HKV) * HD), generator=g, device="cuda") * 2).to(
+        torch.bfloat16)
+    k = y[..., H * HD: (H + HKV) * HD].reshape(B, T, HKV, HD)
+    v = y[..., (H + HKV) * HD:].reshape(B, T, HKV, HD)
+    k = k.contiguous()  # RoPE's output is contiguous; V stays a slice
+    banks = [torch.zeros((B_cache, HKV, S, HD), dtype=torch.int8, device="cuda")
+             for _ in range(2)] + [torch.zeros((B_cache, HKV, S), device="cuda")
+                                   for _ in range(2)]
+    twin = [b.clone() for b in banks]
+    slot = torch.tensor(slots, dtype=torch.int64, device="cuda")
+    run = lambda: kv_store(banks[0], banks[1], k, v, slot, b0, banks[2], banks[3])
+    plain = lambda: kv_store_plain(twin[0], twin[1], k, v, slot, b0, twin[2], twin[3])
+    run()
+    plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(banks, twin))
+    mae = max(float((a.float() - b.float()).abs().max()) for a, b in zip(banks, twin))
+    rows = B * T * HKV
+    bound, by = bound_of(rows * 2 * HD * (2 + 1) + rows * 2 * 4 + B * 8, 0.0)
+    ms = timer(run, 20)
+    pms = timer(plain, 3, warmup=1)
+    label = (f"kv_store[int8,{where},B={B},T={T},Hkv={HKV},D={HD},S={S},slots "
+             f"{'/'.join(map(str, slots))},cache rows from {b0}]")
+    log(f"kernel {label}: bit-identical to plain {same} max_abs_err {mae:.4g} ms {ms:.4f} "
+        f"plain_ms {pms:.4f} library_ms null bound_ms {bound:.5f} ({by}) share_of_bound "
+        f"{bound / ms:.3f}")
+    if not same:
+        raise AssertionError(f"{label}: the kernel's banks differ from the plain version's")
+    entries.append(dict(
+        name=label, route="cuda", source=SOURCES["kv_store"][0],
+        replaces=SOURCES["kv_store"][1], kernel="kv_store", path="8B server",
+        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, bound_by=by))
+
+
+def phase_kv_store(torch, timer, entries):
+    """Phase 2, the KV store kernel: the server's decode step (4 rows at
+    slots 6000/2000/700/40, one token each) and a 512-row prefill chunk
+    (slots 5632-6143 of cache row 2), bit-exact against the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    store_row(torch, timer, entries, g, "server decode", 1, [6000, 2000, 700, 40], 0)
+    store_row(torch, timer, entries, g, "server prefill chunk", 512, [5632], 2)
+
+
 def plain_cpu_copy(torch, params):
     """The model on the CPU for the plain path, with each K-major weight but
     the embedding dequantized once to a dense f32 QTensor of the same type.
@@ -1248,16 +1312,98 @@ def server_burst(base, prompts, label):
     return out, wall
 
 
+def launch_calls(prof, steps):
+    """Runtime launch calls per step of a torch.profiler run, by API name."""
+    calls = {}
+    for e in prof.key_averages():
+        if e.key in RUNTIME_LAUNCHES:
+            calls[e.key] = calls.get(e.key, 0) + e.count / steps
+    return calls
+
+
+def graph_against_eager(torch, ctx, n, view):
+    """One decode chunk from the same state as graph replays and as eager
+    steps (the state the chunk changes, the cache, the step buffers and the
+    penalty ring, is restored before each and after, and the draw stream
+    reseeded: a greedy row draws too, and its noise breaks exact ties of
+    the bf16 logits): identical greedy tokens and launch counts, or raise.
+    -> the chunk's launch counts."""
+    import numpy as np
+
+    from tpullm_torch.ops import _cuda
+
+    st, pen, cache = ctx.state, ctx.penalties, ctx.memory.cache
+    live = [t for t in (cache.k, cache.v, cache.ks, cache.vs, st.logits, st.ctl, st.mu,
+                        st.toks, pen.counts, pen.ring, pen.pos) if t is not None]
+    saved = [t.clone() for t in live]
+    res = {}
+    for way in ("graph", "eager"):
+        ctx.cuda_graphs = way == "graph"
+        for t, c in zip(live, saved):
+            t.copy_(c)
+        ctx._gen.manual_seed(ctx._seed)
+        before = dict(_cuda.COUNTS)
+        toks = ctx._decode(n, view, False)[0]
+        res[way] = (toks, {k: _cuda.COUNTS[k] - before[k] for k in before})
+    for t, c in zip(live, saved):
+        t.copy_(c)
+    del saved
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    (tg, cg), (te, ce) = res["graph"], res["eager"]
+    if not (np.array_equal(tg, te) and cg == ce):
+        raise AssertionError(f"server chunk graph vs eager: tokens {tg.tolist()} vs "
+                             f"{te.tolist()}, launch counts {cg} vs {ce}")
+    return cg
+
+
+def chunk_profile(torch, ctx, n):
+    """The server's own decode chunks (ctx._decode_step, the loop's body)
+    as they run now (graph replays or eager steps): one chunk of warm-up, 3
+    timed (synchronized) and 2 under torch.profiler -> wall and device ms a
+    step, the busy share, kernels and runtime launch calls a step, device ms
+    and launches a step by kernel, the rows' depths at the start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    depths = [int(x) for x in ctx._pos]
+    ctx._decode_step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        ctx._decode_step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / (3 * n)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            ctx._decode_step()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy = sum(ms for _, ms, _ in kernels) / (2 * n)
+    by = {}
+    for name, ms, cnt in kernels:
+        k = KERNEL_OF.get(name.split("<")[0], "other")
+        tot, c = by.get(k, (0.0, 0))
+        by[k] = (tot + ms / (2 * n), c + cnt / (2 * n))
+    return {"way": "graph" if ctx.cuda_graphs else "eager", "wall_ms_per_step": wall,
+            "device_busy_ms_per_step": busy, "device_busy_share": busy / wall,
+            "depths_at_start": depths, "kv_view": ctx._kv_view_bucket(n),
+            "kernel_launches_per_step": sum(c for _, _, c in kernels) / (2 * n),
+            "runtime_launch_calls_per_step": launch_calls(prof, 2 * n),
+            "device_ms_launches_per_step_by_kernel": by}
+
+
 def server_chunk_profile(torch, ctx, prompts, modes):
     """Decode chunks of the server's own loop body, driven from this thread
     with the loop stopped: 4 slots prefilled once with the burst's 4
     longest prompts, the longest alone and under torch.profiler (its
     prefill chunks' device ms by kernel, wall ms with the profiler on);
-    then for each (label, TPULLM_FLASH_DECODE value) in modes, one chunk
-    of warm-up, 3 chunks timed (synchronized) and 2 under torch.profiler
-    (the rows deepen by 6 chunks a mode). -> {label: device ms, launches
-    and wall ms per step, the device-busy share, the rows' depths} and
-    {"lone_prefill": the longest prompt's prefill profile}."""
+    then for each (label, TPULLM_FLASH_DECODE value) in modes, one chunk as
+    graph replays against the same chunk as eager steps from the same state
+    (graph_against_eager), then chunk_profile as graph replays and as eager
+    steps (cuda_graphs toggled; the rows deepen by 12 chunks a mode). A
+    graph step must be one cudaGraphLaunch. -> {label: {"graph": ...,
+    "eager": ..., "launch_counts_per_chunk": ...}} and {"lone_prefill": the
+    longest prompt's prefill profile}."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpullm_torch.server.context import GenParams, Task
@@ -1293,30 +1439,16 @@ def server_chunk_profile(torch, ctx, prompts, modes):
                     ctx._prefill_step(i)
         for label, flag in modes:
             set_flash_decode(flag)
-            depths = [int(x) for x in ctx._pos]
-            ctx._decode_step()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(3):
-                ctx._decode_step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3 / (3 * n)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    ctx._decode_step()
-                torch.cuda.synchronize()
-            kernels = device_kernels(prof)
-            busy = sum(ms for _, ms, _ in kernels) / (2 * n)
-            by = {}
-            for name, ms, cnt in kernels:
-                k = KERNEL_OF.get(name.split("<")[0], "other")
-                tot, c = by.get(k, (0.0, 0))
-                by[k] = (tot + ms / (2 * n), c + cnt / (2 * n))
-            out[label] = {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
-                          "device_busy_share": busy / wall, "depths_at_start": depths,
-                          "kv_view": ctx._kv_view_bucket(n),
-                          "kernel_launches_per_step": sum(c for _, _, c in kernels) / (2 * n),
-                          "device_ms_launches_per_step_by_kernel": by}
+            out[label] = {"launch_counts_per_chunk": graph_against_eager(
+                torch, ctx, n, ctx._kv_view_bucket(n))}
+            for way in ("graph", "eager"):
+                ctx.cuda_graphs = way == "graph"
+                out[label][way] = chunk_profile(torch, ctx, n)
+            calls = out[label]["graph"]["runtime_launch_calls_per_step"]
+            if calls.get("cudaGraphLaunch") != 1.0:
+                raise AssertionError(f"server chunk {label}: a graph step made launch calls "
+                                     f"{calls}, not one cudaGraphLaunch")
+        ctx.cuda_graphs = True
         for i in range(ctx.n_slots):
             ctx._finish(i, "stop")
             ctx.memory.clear_slot(i)
@@ -1334,13 +1466,15 @@ def set_flash_decode(flag) -> None:
 def phase_server(torch, cfg, params):
     """Phase 4b, the server slice on the 32-layer 8B model: ServerContext
     with 4 slots of 8192 and an int8 cache behind serve() on a free local
-    port. With TPULLM_FLASH_DECODE=1 (kernel E): a warm-up request, then,
-    with the launch counts set to 0, the burst of SERVER_PROMPTS (2 wait
-    for a slot) and a sequential pair on the idle server (both land in slot
-    0; the second prompt extends the first's prompt and completion and must
-    reuse it), with A-E all launched. Then the same burst with the variable
-    unset (the einsum path over dequantized views), and each way the decode
-    chunk profile. -> the launch counts of the E-on run."""
+    port, its decode steps CUDA graph replays. With TPULLM_FLASH_DECODE=1
+    (kernel E): a warm-up request, then, with the launch counts set to 0,
+    the burst of SERVER_PROMPTS (2 wait for a slot) and a sequential pair
+    on the idle server (both land in slot 0; the second prompt extends the
+    first's prompt and completion and must reuse it), with A-E and the
+    store kernel all launched. Then the same burst with the variable unset
+    (the einsum path over dequantized views), and each way the decode chunk
+    profile, graph and eager (server_chunk_profile). -> the launch counts
+    of the E-on run."""
     import numpy as np
     import socket
 
@@ -1501,7 +1635,8 @@ def device_kernels(prof):
 KERNEL_OF = {"qmm_splitk_kernel": "qmm_splitk", "qmm_reduce": "qmm_splitk",
              "qmm_wgmma_kernel": "qmm",
              "flash_kernel": "flash_attention", "layer_kernel": "layer_kernel",
-             "moe_gmm_kernel": "moe_gmm", "flash_decode_kernel": "flash_decode"}
+             "moe_gmm_kernel": "moe_gmm", "flash_decode_kernel": "flash_decode",
+             "kv_store_kernel": "kv_store"}
 
 
 def phase_prefill_profile(torch, eng, prompts, must, label):
@@ -1628,10 +1763,7 @@ def phase_decode(torch, eng, prompts, label=""):
     kernels = device_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels) / PROFILED_STEPS
     launches = sum(c for _, _, c in kernels) / PROFILED_STEPS
-    calls = {}
-    for e in prof.key_averages():
-        if e.key in RUNTIME_LAUNCHES:
-            calls[e.key] = calls.get(e.key, 0) + e.count / PROFILED_STEPS
+    calls = launch_calls(prof, PROFILED_STEPS)
     w1, wm, w3 = quartiles(wall)
     hz = os.sysconf("SC_CLK_TCK")
     busiest = sorted(((nm, (k - ticks0.get(tid, (nm, 0))[1]) / hz / (t1 - t0))
@@ -1701,6 +1833,7 @@ def main() -> int:
     phase_kernels(torch, timer, entries)
     phase_moe_kernels(torch, timer, entries)
     phase_flash_decode(torch, timer, entries)
+    phase_kv_store(torch, timer, entries)
     del timer  # its 256 MB L2-flush buffer would count in the slices' peak memory
     torch.cuda.empty_cache()
     _cuda.reset_counts()

@@ -252,9 +252,10 @@ def test_capture_counts_are_taken_back_and_added_per_replay():
 
 @pytest.mark.parametrize("which", ["layer_kernel", "flash_decode", "flash_decode_reserve"])
 def test_counters_refuse_to_be_made_during_capture(monkeypatch, which):
-    """Kernel D's and E's arrival counters are made by an eager launch (or
-    E's reserve_counters), never inside a graph capture: a buffer first made
-    there would belong to the graph's pool while eager launches share it."""
+    """Kernel D's and E's arrival counters are made by an eager launch (a
+    device's shared buffer, or an owner's own_counters), never inside a
+    graph capture: a buffer first made there would belong to the graph's
+    pool while eager launches share it."""
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     with pytest.raises(RuntimeError, match="capture"):
         if which == "layer_kernel":
@@ -262,5 +263,5 @@ def test_counters_refuse_to_be_made_during_capture(monkeypatch, which):
         elif which == "flash_decode":
             flash_decode._counters(torch.device("cuda", 97), 16)
         else:
-            flash_decode.reserve_counters(torch.device("cuda", 97), 4, 8, 1024, False)
+            _cuda.own_counters(torch.device("cuda", 97), 4, 8, 1024)
     assert 97 not in flash_decode._COUNTERS

@@ -730,14 +730,21 @@ def _synth_card(kind):
 ENGINE_PROMPTS = [list(range(1, 101)), list(range(7, 67)), list(range(40, 70))]
 
 
-def _counters_zero():
-    """Kernel D's and every buffer of kernel E's arrival counters read 0."""
+def _counters_zero(*owners):
+    """Kernel D's and every buffer of kernel E's arrival counters read 0: the
+    devices' shared ones and those of each owner (an engine's decode states,
+    a server)."""
     from tpullm_torch.ops import flash_decode, layer_kernel
 
     torch.cuda.synchronize()
     bufs = list(flash_decode._HELD)
     if layer_kernel._counters.cache_info().currsize:
         bufs.append(layer_kernel._counters(torch.cuda.current_device()))
+    for o in owners:
+        if hasattr(o, "states"):  # an engine: each batch size's own
+            bufs += [t for st in o.states.values() for t in st.counters.values()]
+        else:
+            bufs += list(o.counters.values())
     return all(int(b.abs().sum()) == 0 for b in bufs)
 
 
@@ -781,7 +788,7 @@ def test_engine_graph_matches_eager(cuda, monkeypatch, kind, flag):
     assert again.tokens == s[True].tokens
     assert s[True].tokens == s[False].tokens
     assert len(engines[True].graphs) == 2
-    assert _counters_zero()
+    assert _counters_zero(*engines.values())
 
 
 def test_engine_graphs_across_batch_sizes_and_lengths(cuda, monkeypatch):
@@ -811,7 +818,7 @@ def test_engine_graphs_across_batch_sizes_and_lengths(cuda, monkeypatch):
         keys.append(sorted(g.graphs, key=str))
     assert [len(k) for k in keys] == [1, 2, 2, 3, 4]
     assert sorted(g.states) == [2, 3]
-    assert _counters_zero()
+    assert _counters_zero(g, e)
 
 
 def test_engine_capture_failure_raises(cuda, monkeypatch):
@@ -840,3 +847,205 @@ def test_engine_capture_failure_raises(cuda, monkeypatch):
             eng.generate(ENGINE_PROMPTS, max_new_tokens=5)
         assert eng.graphs == {}
     torch.cuda.synchronize()
+
+
+def _store_case(cuda, g, B, T, Hkv, D, Dv, rows_dtype, bank, S, B_cache, strided):
+    """Rows (B, T, Hkv, D/Dv) (V a slice of a fused output when strided) and
+    banks of one layer holding random content."""
+    y = torch.randn((B, T, Hkv * (D + Dv) + 64), generator=g, device=cuda) * 3
+    y[0, 0, :D] = 0  # an all-zero K row: scale 0, values 0
+    y = y.to(rows_dtype)
+    k = y[..., : Hkv * D].reshape(B, T, Hkv, D).contiguous()
+    v = y[..., Hkv * D: Hkv * (D + Dv)].reshape(B, T, Hkv, Dv)
+    if not strided:
+        v = v.contiguous()
+    if bank == "q8":
+        banks = [torch.randint(-127, 128, (B_cache, Hkv, S, d), generator=g, device=cuda,
+                               dtype=torch.int8) for d in (D, Dv)]
+        banks += [torch.rand((B_cache, Hkv, S), generator=g, device=cuda) for _ in range(2)]
+    else:
+        banks = [torch.randn((B_cache, Hkv, S, d), generator=g, device=cuda).to(bank)
+                 for d in (D, Dv)] + [None, None]
+    return k, v, banks
+
+
+# (B, T, Hkv, D, Dv, first slots, b0, S, cache rows): the server's decode step,
+# a 512-row prefill chunk, head dim 256, and writes past the cache's end
+STORE_SHAPES = {
+    "server_decode": (4, 1, 8, 128, 128, [6000, 2000, 700, 40], 0, 8192, 4),
+    "prefill_512": (1, 512, 8, 128, 128, [5632], 2, 8192, 4),
+    "head_dim_256": (4, 1, 4, 256, 256, [1000, 17, 0, 1023], 0, 1024, 4),
+    "past_the_end": (2, 16, 2, 128, 64, [1016, 1030], 1, 1024, 3),
+}
+
+
+@pytest.mark.parametrize("shape", list(STORE_SHAPES))
+@pytest.mark.parametrize("bank,rows_dtype", [("q8", torch.bfloat16), ("q8", torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("strided", [False, True])
+def test_kv_store_kernel_vs_plain(cuda, shape, bank, rows_dtype, strided):
+    """The store kernel equals its plain version bit for bit on every bank
+    (int8 values and f32 row scales, bf16, f32), rows left alone included,
+    in one launch for K and V; writes at or past the cache's end dropped."""
+    from tpullm_torch.ops.kv_store import kv_store, kv_store_plain
+
+    B, T, Hkv, D, Dv, first, b0, S, B_cache = STORE_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(sum(first) + T)
+    k, v, banks = _store_case(cuda, g, B, T, Hkv, D, Dv, rows_dtype, bank, S, B_cache,
+                              strided)
+    twin = [None if b is None else b.clone() for b in banks]
+    before = banks[0].clone()
+    slot = torch.tensor(first, dtype=torch.int64, device=cuda)
+    _cuda.reset_counts()
+    kv_store(banks[0], banks[1], k, v, slot, b0, banks[2], banks[3])
+    assert _cuda.COUNTS["kv_store"] == 1
+    kv_store_plain(twin[0], twin[1], k, v, slot, b0, twin[2], twin[3])
+    torch.cuda.synchronize()
+    for a, b in zip(banks, twin):
+        if a is not None:
+            assert torch.equal(a, b)
+    assert (banks[0] != before).any()
+    _cuda.reset_counts()
+
+
+def test_kv_store_kernel_refuses(cuda):
+    """Rows or banks of a type the kernel does not build, mismatched heads,
+    or a slot tensor that is not int64 raise on the card."""
+    from tpullm_torch.ops.kv_store import kv_store
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    k, v, banks = _store_case(cuda, g, 2, 1, 2, 128, 128, torch.bfloat16, "q8", 64, 2, False)
+    slot = torch.tensor([3, 4], device=cuda)
+    with pytest.raises(ValueError, match="not built"):
+        kv_store(banks[0], banks[1], k.half(), v.half(), slot, 0, banks[2], banks[3])
+    with pytest.raises(ValueError, match="not built"):
+        kv_store(banks[0], banks[1], k, v, slot, 0)  # int8 banks without their scales
+    with pytest.raises(ValueError, match="slot"):
+        kv_store(banks[0], banks[1], k, v, slot.int(), 0, banks[2], banks[3])
+    with pytest.raises(ValueError, match="cache rows"):
+        kv_store(banks[0], banks[1], k, v, slot, 1, banks[2], banks[3])
+
+
+SERVER_REQS = [  # (prompt length, GenParams kwargs): 6 requests on 4 slots
+    (100, dict(max_tokens=20, temperature=0.0, n_probs=4, seed=0)),
+    (300, dict(max_tokens=11, temperature=0.8, top_k=40, seed=7)),
+    (37, dict(max_tokens=16, temperature=0.0, penalty_repeat=1.3, dry_multiplier=0.8, seed=0)),
+    (64, dict(max_tokens=9, temperature=1.0, mirostat=2, mirostat_tau=4.0, seed=3)),
+    (45, dict(max_tokens=14, temperature=0.7, top_p=0.9, seed=11, n_probs=2)),
+    (200, dict(max_tokens=12, temperature=0.0, seed=0)),
+]
+
+
+def _server_run(ctx, prompts):
+    """The requests, submitted at once to a running loop -> [done payload]."""
+    from tpullm_torch.server.context import GenParams, Task
+
+    tasks = [Task(tokens=p, params=GenParams(**kw))
+             for p, (_, kw) in zip(prompts, SERVER_REQS)]
+    ctx.start()
+    try:
+        ctx.control(lambda: [ctx.submit(t) for t in tasks])
+        out = []
+        for t in tasks:
+            done = [p for k, p in t.events() if k == "done"]
+            assert done, "task failed"
+            out.append(done[0])
+        return out
+    finally:
+        ctx.stop()
+
+
+@pytest.mark.parametrize("flag", [None, "1"])
+def test_server_graph_matches_eager(cuda, monkeypatch, flag):
+    """The server's decode step as replayed CUDA graphs against the same
+    step run eagerly (cuda_graphs=False) on the 2-layer synth model with an
+    int8 cache: 6 requests on 4 slots, the last two admitted between chunks
+    with another sampler and a reseed of the draw stream, which the replays
+    follow; identical greedy and sampled tokens, equal logprobs, equal
+    launch counts (the store kernel among them), one graph a key, and D's
+    and E's arrival counters all zero after."""
+    from tpullm_torch.server.context import ServerContext
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = _synth_card("dense")
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n, _ in SERVER_REQS]
+    res, counts, ctxs = {}, {}, {}
+    for graphs in (True, False):
+        ctx = ctxs[graphs] = ServerContext(cfg, params, None, n_slots=4, max_seq_len=1024,
+                                           decode_chunk=8, prefill_chunk=128, kv_dtype="q8",
+                                           cuda_graphs=graphs)
+        _cuda.reset_counts()
+        res[graphs] = _server_run(ctx, prompts)
+        counts[graphs] = dict(_cuda.COUNTS)
+    for a, b, (_, kw) in zip(res[True], res[False], SERVER_REQS):
+        assert a["tokens"] == b["tokens"] and len(a["tokens"]) == kw["max_tokens"]
+        assert a.get("logprobs") == b.get("logprobs")
+    assert counts[True] == counts[False], counts
+    assert counts[True]["kv_store"] > 0 and counts[True]["layer_kernel"] > 0
+    assert (counts[True]["flash_decode"] > 0) == bool(flag), counts
+    assert ctxs[True].graphs and not ctxs[False].graphs
+    assert all(k[3] == ("flash_decode" if flag else "einsum") for k in ctxs[True].graphs)
+    assert _counters_zero(*ctxs.values())
+
+
+def test_counters_race_engine_and_server(cuda, monkeypatch):
+    """An engine's generate and a server's decode chunks run at once from two
+    threads on two streams, both through kernels D and E and as graph
+    replays: each gives the tokens it gives alone, and every arrival
+    counter reads zero after (each owner launches on its own)."""
+    import threading
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.server.context import GenParams, ServerContext, Task
+
+    monkeypatch.setenv("TPULLM_FLASH_DECODE", "1")
+    cfg, params = _synth_card("dense")
+    eng = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=16)
+    prompts = [list(range(1, 301)), list(range(7, 207)), list(range(40, 90)), [5] * 30]
+
+    def server_tokens():
+        ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=1024, decode_chunk=8,
+                            prefill_chunk=512, kv_dtype="q8")
+        with torch.inference_mode():
+            for p in prompts:
+                ctx.submit(Task(tokens=p, params=GenParams(max_tokens=10 ** 6,
+                                                           temperature=0.0, seed=0)))
+            ctx._admit()
+            while any(r.pending for r in ctx.rt):
+                for i, r in enumerate(ctx.rt):
+                    if r.pending:
+                        ctx._prefill_step(i)
+            for _ in range(12):
+                ctx._decode_step()
+            torch.cuda.synchronize()
+        return ctx, [list(r.gen) for r in ctx.rt]
+
+    alone_eng = eng.generate(prompts, max_new_tokens=120).tokens
+    _, alone_srv = server_tokens()
+    out = {}
+
+    def run(name, fn):
+        s = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(s):
+            out[name] = fn()
+        s.synchronize()
+
+    threads = [threading.Thread(target=run, args=("eng", lambda: eng.generate(
+                   prompts, max_new_tokens=120).tokens)),
+               threading.Thread(target=run, args=("srv", server_tokens))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive(), "a thread did not finish"
+    ctx, together_srv = out["srv"]
+    assert out["eng"] == alone_eng
+    assert together_srv == alone_srv and all(len(x) == 96 for x in together_srv)
+    assert _counters_zero(eng, ctx)

@@ -34,6 +34,8 @@ from ..ops.flash_attention import (attention_params, flash_attention, flash_buil
                                    flash_supported, masked_attention)
 from ..ops.flash_decode import flash_decode, flash_decode_builds, flash_decode_supported
 from ..ops.fuse import pad256
+from ..ops.kv_store import kv_quant as _kv_quant  # noqa: F401 (the JAX name)
+from ..ops.kv_store import kv_store
 from ..ops.layer_kernel import ffn_block, ffn_block_qkv
 from ..ops.layer_kernel import supported as block_supported
 from ..ops.qmm import qmm
@@ -82,7 +84,8 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
 @dataclass
 class KVCache:
     """Per-model KV cache: k/v HEAD-MAJOR (L, B, H_kv, S_max, D), written in
-    place. bf16 or f32, or the int8 cache (``create(..., dtype="q8")``,
+    place by ``ops/kv_store.py:kv_store`` (one launch a layer on the card).
+    bf16 or f32, or the int8 cache (``create(..., dtype="q8")``,
     llama.py:52-57): int8 k/v with per-(head, slot) f32 row scales ks/vs
     (L, B, H_kv, S_max), rows quantized on write (``_kv_quant``). The iSWA
     ring waits."""
@@ -114,19 +117,6 @@ class KVCache:
     @property
     def max_len(self) -> int:
         return self.k.shape[3]
-
-
-def _kv_quant(x):
-    """(..., D) -> (int8 values, (...) f32 scales), bit-exact with
-    llama.py:132-138: scale = amax / 127, values round(x / scale) clipped to
-    [-127, 127] (round half to even, as jnp.round)."""
-    xf = x.to(torch.float32)
-    scale = xf.abs().amax(dim=-1) / 127.0
-    pos = scale > 0
-    inv = torch.where(pos, 1.0 / torch.where(pos, scale, torch.ones_like(scale)),
-                      torch.zeros_like(scale))
-    q = torch.clamp(torch.round(xf * inv[..., None]), -127, 127)
-    return q.to(torch.int8), scale
 
 
 def dequant_view(q, scale, dtype):
@@ -383,10 +373,12 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     - server slots: ``slot0`` (int) selects cache batch rows
       [slot0, slot0 + B), so a one-sequence prefill writes just its slot; a
       (B,) tensor ``cache_pos`` gives each row its own first slot (rows at
-      different depths), written by a per-row scatter.
-    With an int cache_pos, writes past the cache's last slot are dropped,
-    as the JAX scatter drops them (a bucketed prefill chunk near the end);
-    a tensor cache_pos must keep every row's slots inside the cache.
+      different depths).
+    Each layer's K/V rows go to the cache in one ``kv_store`` (on the card
+    its CUDA kernel, K and V together, quantized on the int8 cache; an int
+    cache_pos becomes a (B,) tensor first). Writes past the cache's last
+    slot are dropped, as the JAX scatter drops them (a bucketed prefill
+    chunk near the end).
     ``logits_idx`` (int) computes the lm_head for that position only
     (logits (B, 1, vocab))."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
@@ -405,29 +397,15 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     cos, sin = (t.to(dtype) for t in rope_cache(cfg, positions))
     S = cache.max_len
     L_view = kv_view_len if (kv_view_len is not None and kv_view_len < S) else S
-    per_row = torch.is_tensor(cache_pos)
-    t_ar = torch.arange(T, device=dev)[None, :]
-    if per_row:
-        q_slots = cache_pos.to(device=dev, dtype=torch.int64)[:, None] + t_ar
-        rows = torch.arange(b0, b0 + B, device=dev)[:, None, None]
-        heads = torch.arange(cfg.n_head_kv, device=dev)[None, :, None]
-        slots = q_slots[:, None, :]
+    if torch.is_tensor(cache_pos):
+        first = cache_pos.to(device=dev, dtype=torch.int64)
     else:
-        q_slots = cache_pos + t_ar.expand(B, T)
-        n_in = max(0, min(T, S - cache_pos))
+        first = torch.full((B,), int(cache_pos), dtype=torch.int64, device=dev)
+    q_slots = first[:, None] + torch.arange(T, device=dev)[None, :]
     kv_positions = torch.arange(S, device=dev)[None, :] - valid_from[:, None]
     H, Hkv, hd, hdv = cfg.n_head, cfg.n_head_kv, cfg.head_dim, cfg.head_dim_v
     nq, nk, nv = H * hd, Hkv * hd, Hkv * hdv
     ok, ov = pad256(nq), pad256(nq) + pad256(nk)
-
-    def store(bank, val):
-        """val (B, T, Hkv[, D]) into one layer's bank (B_cache, Hkv, S[, D])
-        (_store, llama.py:803-818)."""
-        vt = val.transpose(1, 2).to(bank.dtype)
-        if per_row:
-            bank[rows, heads, slots] = vt
-        else:
-            bank[b0: b0 + B, :, cache_pos: cache_pos + n_in] = vt[:, :, :n_in]
 
     def view(bank):
         """This ubatch's cache rows, first L_view slots (_view, llama.py:820-831)."""
@@ -439,13 +417,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         v = v.reshape(B, T, Hkv, hdv)
         kv_q8 = k_view = v_view = None
         if cache.quantized:  # llama.py:896-910
-            (kq, ksc), (vq, vsc) = _kv_quant(k), _kv_quant(v)
-            for bank, val in ((cache.k, kq), (cache.v, vq), (cache.ks, ksc), (cache.vs, vsc)):
-                store(bank[li], val)
+            kv_store(cache.k[li], cache.v[li], k, v, first, b0, cache.ks[li], cache.vs[li])
             kv_q8 = tuple(view(t[li]) for t in (cache.k, cache.v, cache.ks, cache.vs))
-        else:
-            store(cache.k[li], k)
-            store(cache.v[li], v)
+        else:  # _store, llama.py:803-818
+            kv_store(cache.k[li], cache.v[li], k, v, first, b0)
             k_view, v_view = view(cache.k[li]).to(dtype), view(cache.v[li]).to(dtype)
         att = attention(q, k_view, v_view, q_slots, kv_positions, positions, valid_from,
                         cfg, kv_q8=kv_q8)

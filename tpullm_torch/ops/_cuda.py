@@ -10,6 +10,13 @@ sources and flags, so importing the package never needs ``nvcc``.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0.
 
+Arrival counters: kernels D and E find the last block of a tile or a
+split group by counters in device memory, which every launch leaves zero.
+Two launches in flight on one buffer would race on them, so each owner
+that may run beside another (an ``InferenceEngine``, a ``ServerContext``)
+makes its own buffers (``own_counters``) and launches inside
+``counters_scope``; bare kernel calls use one buffer a device.
+
 Launch counts: every kernel wrapper adds one to ``COUNTS[name]`` where it
 launches its kernel, and nowhere else. A CUDA graph's replay runs no
 Python, so ``CountedGraph`` takes back the counts its capture added (the
@@ -25,6 +32,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -38,7 +46,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each hand-written kernel, by wrapper
 COUNTS = {"qmm_splitk": 0, "qmm": 0, "flash_attention": 0, "layer_kernel": 0,
-          "moe_gmm": 0, "flash_decode": 0}
+          "moe_gmm": 0, "flash_decode": 0, "kv_store": 0}
 
 def reset_counts() -> None:
     for k in COUNTS:
@@ -89,6 +97,62 @@ class CountedGraph:
     def replay(self) -> None:
         self.graph.replay()
         add_counts(self.counts)
+
+
+_SCOPE = threading.local()
+
+
+def own_counters(device, B: int, Hkv: int, S: int) -> dict:
+    """An owner's arrival counters for kernels D and E, zero, made by an eager
+    launch before any capture (a buffer first made inside a capture would
+    belong to the graph's pool): {"layer_kernel": D's, "flash_decode": E's,
+    sized for B rows, Hkv heads and views of up to S slots}."""
+    from .flash_decode import counters_per_row
+    from .layer_kernel import N_COUNTERS
+
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("arrival counters would be made during a CUDA graph capture")
+    z = lambda n: torch.zeros(n, dtype=torch.int32, device=device)
+    return {"layer_kernel": z(N_COUNTERS),
+            "flash_decode": z(B * Hkv * counters_per_row(S, False))}
+
+
+@contextlib.contextmanager
+def counters_scope(owned: dict):
+    """Within the block, in this thread, kernels D and E launch on the
+    counters of ``owned`` (an ``own_counters`` result); a capture in the
+    block keeps them."""
+    prev = getattr(_SCOPE, "owned", None)
+    _SCOPE.owned = owned
+    try:
+        yield owned
+    finally:
+        _SCOPE.owned = prev
+
+
+def scoped_counters(kernel: str):
+    """The counters of the current thread's scope for ``kernel``
+    ("layer_kernel" or "flash_decode"), or None outside any scope."""
+    owned = getattr(_SCOPE, "owned", None)
+    return None if owned is None else owned[kernel]
+
+
+def warm_up_and_capture(step, side, pool, generators=()) -> CountedGraph:
+    """Run ``step()`` eagerly on the side stream (a real step: every kernel's
+    first use, before any capture), then capture it there into a graph of
+    the shared memory pool ``pool``, each generator registered. The side
+    stream waits for the caller's stream first, and the caller's stream for
+    it after, so the two never overlap. A failed capture raises."""
+    main = torch.cuda.current_stream(side.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        step()
+    graph = CountedGraph()
+    with graph.capture(side, pool, generators=generators):
+        step()
+    main.wait_stream(side)
+    return graph
 
 
 def resolve_device(device) -> torch.device:
@@ -210,6 +274,8 @@ _SIGNATURES = {
     # q k v ks vs sinks qslots qpos valid_from (int64) part_ml part_acc counters o,
     # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks, stream
     "tpq_flash_decode": [_P] * 13 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _P],
+    # k v, 6 strides, k_bank v_bank ks vs slot, B T Hkv S Dk Dv b0, in_f32 bank, stream
+    "tpq_kv_store": [_P, _P] + [_L] * 6 + [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

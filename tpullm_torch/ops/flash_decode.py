@@ -101,37 +101,36 @@ def counters_per_row(S: int, q8: bool) -> int:
     return -(-S // E_CH[q8]) // E_GRP + 2
 
 
-_COUNTERS: dict = {}  # device index -> the buffer launches use now
-_HELD: list = []  # every buffer made: a captured graph keeps the one it saw
+_COUNTERS: dict = {}  # device index -> the buffer launches outside a scope use now
+_HELD: list = []  # every such buffer made: a captured graph keeps the one it saw
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The arrival counters of one device: zero when made, and each launch
-    leaves them zero (the last block to arrive at a counter resets it).
-    Kernel E's launches on a device, eager or replayed in a CUDA graph, run
-    one at a time, on one stream. A launch that needs more counters than
-    the buffer holds makes a larger one (zero); the old one stays alive,
-    since a graph captured earlier points at it. Growing inside a capture
-    raises: the graph would own a buffer that eager launches share
-    (``reserve_counters`` sizes the buffer before any capture)."""
+    """The arrival counters a launch needing ``n`` of them uses: the current
+    thread's owner's (``_cuda.counters_scope``; too small raises), else one
+    buffer a device. Each launch leaves them zero (the last block to arrive
+    at a counter resets it). The device's buffer serves launches that run
+    one at a time, on one stream; a launch that needs more than it holds
+    makes a larger one (zero), and the old one stays alive, since a graph
+    captured earlier points at it. Making or growing it inside a capture
+    raises: the graph would own a buffer that eager launches share."""
+    owned = _cuda.scoped_counters("flash_decode")
+    if owned is not None:
+        if owned.numel() < n:
+            raise ValueError(f"flash_decode: {owned.numel()} arrival counters in scope, "
+                             f"{n} needed")
+        return owned
     key = device.index if device.index is not None else torch.cuda.current_device()
     t = _COUNTERS.get(key)
     if t is None or t.numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 f"flash_decode: the arrival counters would be made or grown to {n} during a "
-                "CUDA graph capture; reserve_counters first")
+                "CUDA graph capture; launch in an owner's counters_scope")
         t = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                          device=torch.device("cuda", key))
         _HELD.append(t)
     return t
-
-
-def reserve_counters(device: torch.device, B: int, Hkv: int, S: int, q8: bool) -> None:
-    """Size the device's counters for every launch over B rows, Hkv heads
-    and views of up to S slots, so that no later launch (or capture) grows
-    them."""
-    _counters(device, B * Hkv * counters_per_row(S, q8))
 
 
 def _kv_strides(t: torch.Tensor, what: str):

@@ -157,10 +157,10 @@ def _grid_blocks(index: int) -> int:
 
 @functools.cache
 def _counters(index: int):
-    """The arrival counters of one device: zero at first use, and each
-    launch leaves them zero (the last block of each tile resets its
-    counter). Kernel D's launches on a device, eager or replayed in a CUDA
-    graph, run one at a time, on one stream. Made by an eager launch: a
+    """The arrival counters of one device, for launches outside an owner's
+    ``_cuda.counters_scope``: zero at first use, and each launch leaves them
+    zero (the last block of each tile resets its counter). Such launches
+    on a device run one at a time, on one stream. Made by an eager launch: a
     buffer first made inside a graph capture would live in the graph's
     private pool while eager launches share it, so that raises."""
     if torch.cuda.is_current_stream_capturing():
@@ -197,6 +197,12 @@ def _launch(att, resid, ffn_norm, qw, layer: int, cfg, attn_norm=None):
         _cuda.require_cuda(anrm, "attn_norm")
         qkv = torch.empty((M, qk.data["q"].shape[-1]), dtype=torch.bfloat16, device=dev)
     index = torch.cuda.current_device() if dev.index is None else dev.index
+    counters = _cuda.scoped_counters("layer_kernel")
+    if counters is None:
+        counters = _counters(index)
+    elif counters.numel() < N_COUNTERS:
+        raise ValueError(f"layer_kernel: {counters.numel()} arrival counters, "
+                         f"{N_COUNTERS} needed")
     blocks = _grid_blocks(index)
     npads = [p.data["q"].shape[-1] for p in pools]
     plans = [layer_plan(p.qtype, K, n, blocks) for p, K, n in zip(pools, Ks, npads)]
@@ -213,7 +219,7 @@ def _launch(att, resid, ffn_norm, qw, layer: int, cfg, attn_norm=None):
         *_cuda.c_km(descs), plan, att2.data_ptr(), res2.data_ptr(), nrm.data_ptr(),
         anrm.data_ptr() if fold else None, out.data_ptr(),
         qkv.data_ptr() if fold else None, scratch.data_ptr(),
-        _counters(index).data_ptr(),
+        counters.data_ptr(),
         M, D, Hd, n_ff, _ACT_CODES[cfg.act_fn], int(fold), nscratch, float(cfg.rms_eps),
         _cuda.stream_ptr(out))
     _cuda.COUNTS["layer_kernel"] += 1

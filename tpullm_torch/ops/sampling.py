@@ -213,7 +213,14 @@ class BatchSamplerParams:
             for k, v in vals.items()})
 
     def with_row(self, i: int, cfg: SamplerConfig) -> "BatchSamplerParams":
-        """A copy with row i set from a SamplerConfig."""
+        """A copy with row i set from a SamplerConfig (the JAX call shape)."""
+        new = BatchSamplerParams(**{f.name: getattr(self, f.name).clone()
+                                    for f in dataclasses.fields(self)})
+        return new.set_row_(i, cfg)
+
+    def set_row_(self, i: int, cfg: SamplerConfig) -> "BatchSamplerParams":
+        """Row i set from a SamplerConfig in place, so that a captured step,
+        which keeps every field's tensor, reads the new row."""
         vals = dict(
             temperature=0.0 if cfg.greedy else cfg.temperature, top_k=cfg.top_k,
             top_p=cfg.top_p, min_p=cfg.min_p, typical_p=cfg.typical_p,
@@ -223,12 +230,9 @@ class BatchSamplerParams:
             mirostat_tau=cfg.mirostat_tau, mirostat_eta=cfg.mirostat_eta,
             mirostat_v=cfg.mirostat_v, dry_multiplier=cfg.dry_multiplier,
             dry_base=cfg.dry_base, dry_allowed=cfg.dry_allowed)
-        new = {}
         for f in dataclasses.fields(self):
-            t = getattr(self, f.name).clone()
-            t[i] = vals[f.name]
-            new[f.name] = t
-        return BatchSamplerParams(**new)
+            getattr(self, f.name)[i] = vals[f.name]
+        return self
 
 
 def _col(x):
@@ -284,7 +288,7 @@ def sample_batch(logits, p: BatchSamplerParams, generator=None, counts=None, mu=
         logits = apply_dry(logits, dry_ctx, p)
 
     K = min(256, V)
-    ninf = torch.tensor(NEG_INF, device=dev)
+    ninf = torch.full((), NEG_INF, device=dev)  # a fill, not a copy: a capture takes it
     mx_full = logits.amax(-1, keepdim=True)
     mean = logits.mean(-1, keepdim=True)
     std = torch.sqrt(((logits - mean) ** 2).mean(-1, keepdim=True).clamp_min(0.0))
@@ -393,7 +397,7 @@ class PenaltyState:
         self.counts.index_put_((rows, tokens.to(torch.int64)),
                                torch.ones_like(rows, dtype=torch.int32), accumulate=True)
         self.ring[rows, self.pos] = tokens.to(torch.int32)
-        self.pos = (self.pos + 1) % N
+        self.pos.add_(1).remainder_(N)  # in place: a captured step keeps this tensor
         return self
 
     def clear_row(self, i: int) -> "PenaltyState":

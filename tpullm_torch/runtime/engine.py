@@ -20,9 +20,12 @@ shapes vary. The first step of a new key runs eagerly on a side stream (the
 warm-up: every kernel's first use, and its counters, before capture), then
 the step is captured there; eager steps and replays run on the caller's
 stream, fenced from the side stream, so no two launches of kernel D or E
-overlap. There is no fallback: a failed capture raises. ``cuda_graphs=False``
-runs the same step eagerly on the card, to hold the graph against; on the
-CPU the step always runs eagerly.
+on the engine's arrival counters overlap; those counters are the engine's
+own (``DecodeState.counters``, ``_cuda.counters_scope``), so a server or
+another engine in another thread never shares them. There is no fallback:
+a failed capture raises. ``cuda_graphs=False`` runs the same step eagerly
+on the card, to hold the graph against; on the CPU the step always runs
+eagerly.
 
 The JAX chunk skips the layer stack once every row has sampled EOS
 (``lax.cond``); here the chunk runs to its end and the host trims the
@@ -39,7 +42,6 @@ from ..models.config import ModelConfig
 from ..models.llama import KVCache, attention_route, forward
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
-from ..ops.flash_decode import reserve_counters
 from ..ops.sampling import GREEDY, SamplerConfig, make_sample_fn
 
 
@@ -108,6 +110,7 @@ class DecodeState:
     valid_from: torch.Tensor  # (B,) int64: each row's first valid slot
     toks: torch.Tensor  # (decode_chunk, B) int32: the chunk's tokens
     step: torch.Tensor  # (1,) int64: the row of toks the next step writes
+    counters: dict  # kernel D's and E's arrival counters (_cuda.own_counters)
 
 
 def _params_device(params: dict) -> torch.device:
@@ -141,19 +144,18 @@ class InferenceEngine:
         return KVCache.create(self.cfg, batch, self.max_seq_len, self.kv_dtype, self.device)
 
     def decode_state(self, B: int) -> DecodeState:
-        """The engine's decode buffers for batch size B, made at first use;
-        on the card kernel E's arrival counters are sized for them then
-        (ops/flash_decode.py:reserve_counters), before any capture."""
+        """The engine's decode buffers for batch size B, made at first use
+        (before any capture), with kernel D's and E's arrival counters sized
+        for B rows and max_seq_len."""
         st = self.states.get(B)
         if st is None:
             z = lambda *shape: torch.zeros(shape, dtype=torch.int64, device=self.device)
             cache = self.new_cache(B)
             st = DecodeState(cache, z(B), z(B), z(B), z(B),
                              torch.zeros((self.decode_chunk, B), dtype=torch.int32,
-                                         device=self.device), z(1))
-            if self.device.type == "cuda":
-                reserve_counters(self.device, B, self.cfg.n_head_kv, self.max_seq_len,
-                                 cache.quantized)
+                                         device=self.device), z(1),
+                             _cuda.own_counters(self.device, B, self.cfg.n_head_kv,
+                                                self.max_seq_len))
             self.states[B] = st
         return st
 
@@ -193,12 +195,14 @@ class InferenceEngine:
         """One decode step: a replay of the key's graph; for a new key, one
         eager step as the warm-up and the capture; eager without graphs."""
         if not self.cuda_graphs:
-            self._step(st, make_sample_fn(sampler), kv_view)
+            with _cuda.counters_scope(st.counters):
+                self._step(st, make_sample_fn(sampler), kv_view)
             return
         key = step_key(self.cfg, st.tok.shape[0], sampler, kv_view, st.cache.k.dtype, True)
         graph = self.graphs.get(key)
         if graph is None:
-            self._warm_up_and_capture(key, st, sampler, kv_view)
+            with _cuda.counters_scope(st.counters):
+                self._warm_up_and_capture(key, st, sampler, kv_view)
         else:
             graph.replay()
 
@@ -208,16 +212,9 @@ class InferenceEngine:
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
             self.pool = torch.cuda.graph_pool_handle()
-        main = torch.cuda.current_stream(self.device)
         sample = make_sample_fn(sampler)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            self._step(st, sample, kv_view)
-        graph = _cuda.CountedGraph()
-        with graph.capture(self._side, self.pool, generators=(self.gen,)):
-            self._step(st, sample, kv_view)
-        main.wait_stream(self._side)
-        self.graphs[key] = graph
+        self.graphs[key] = _cuda.warm_up_and_capture(lambda: self._step(st, sample, kv_view),
+                                                     self._side, self.pool, (self.gen,))
 
     @torch.inference_mode()
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
@@ -232,7 +229,8 @@ class InferenceEngine:
             raise ValueError(f"prompt bucket {T} >= max_seq_len {self.max_seq_len}")
         max_new_tokens = min(max_new_tokens, self.max_seq_len - T + 1)
         st = self.decode_state(B)
-        logits, _ = self._prefill(tokens, positions, st.cache, valid_from)
+        with _cuda.counters_scope(st.counters):
+            logits, _ = self._prefill(tokens, positions, st.cache, valid_from)
         first_logits = logits.cpu().numpy() if return_logits else None
         tok = sample(logits, self.gen)
         st.tok.copy_(tok)

@@ -8,10 +8,21 @@ Counterpart of tpullm/server/context.py for the attention family:
   pending slot, written into that slot's cache row (``forward(slot0=i)``).
 - Decode runs ``decode_chunk`` steps for all slots at once, each row at its
   own depth (a per-row ``cache_pos``), with per-row sampler parameters
-  (``sample_batch``). The JAX package runs the chunk as one ``lax.scan`` on
-  the device; here it is a Python loop of steps that stay on the device,
-  and the host reads the chunk's tokens (and top-8 logprobs, when a request
-  asks for them) once, at its end.
+  (``sample_batch``). The JAX package runs the chunk as one jitted
+  ``lax.scan`` (context.py:267-310); here, on the card, each step is one
+  replay of a CUDA graph of ``_step``, captured once per ``step_key``
+  (slots, kv view, logprobs or not, attention route) and replayed
+  ``decode_chunk`` times a chunk; the host reads the chunk's tokens (and
+  top-8 logprobs, when a request asks for them) once, at its end. A graph
+  keeps every pointer it saw, so every tensor the step reads or writes is
+  made once and updated in place (``ServerDecodeState``, the sampler rows,
+  the penalty ring, the logit bias, the cache); admissions write them
+  between chunks, and the draw generator is registered with each graph, so
+  a reseed reaches the replays. The first step of a new key runs eagerly on
+  a side stream, then is captured there (``_cuda.warm_up_and_capture``);
+  kernels D and E launch on the server's own arrival counters.
+  ``cuda_graphs=False`` runs the same step eagerly; on the CPU it always
+  runs eagerly. Prefill stays eager: its chunk lengths vary.
 - Stops (EOS, stop strings, limits) are handled on the host between chunks;
   the bounded overrun tokens are discarded (cache rows past n_past are
   masked by position).
@@ -35,7 +46,8 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import MOE_KEYS, check_dense, forward
+from ..models.llama import MOE_KEYS, attention_route, check_dense, forward
+from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import BatchSamplerParams, PenaltyState, SamplerConfig, sample_batch
 from ..runtime.memory import SlotMemory
@@ -135,6 +147,47 @@ class _SlotRt:
     prefill_done_at: float = 0.0
 
 
+@dataclass
+class ServerDecodeState:
+    """The decode step's buffers, made once per server. A captured step reads
+    and writes these in place, so none is ever rebound."""
+
+    logits: torch.Tensor  # (B, V) f32: the carried next-token logits
+    ctl: torch.Tensor  # (2B + 1,) int64: pos, active and step, one host copy a chunk
+    pos: torch.Tensor  # (B,) view of ctl: each row's next position
+    active: torch.Tensor  # (B,) view of ctl, 0 or 1: the rows that advance
+    step: torch.Tensor  # (1,) view of ctl: the row of the chunk's outputs the step writes
+    valid_from: torch.Tensor  # (B,) int64 zeros
+    mu: torch.Tensor  # (B,) f32: mirostat's carried target surprise
+    toks: torch.Tensor  # (decode_chunk, B) int32: the chunk's tokens
+    tok_lp: torch.Tensor  # (decode_chunk, B) f32: each token's logprob
+    top_v: torch.Tensor  # (decode_chunk, B, 8) f32: the top-8 logprobs
+    top_i: torch.Tensor  # (decode_chunk, B, 8) int64: and their ids
+
+    @staticmethod
+    def create(B: int, V: int, chunk: int, device) -> "ServerDecodeState":
+        f32 = dict(dtype=torch.float32, device=device)
+        ctl = torch.zeros((2 * B + 1,), dtype=torch.int64, device=device)
+        return ServerDecodeState(
+            torch.zeros((B, V), **f32), ctl, ctl[:B], ctl[B: 2 * B], ctl[2 * B:],
+            torch.zeros((B,), dtype=torch.int64, device=device), torch.zeros((B,), **f32),
+            torch.zeros((chunk, B), dtype=torch.int32, device=device),
+            torch.zeros((chunk, B), **f32), torch.zeros((chunk, B, 8), **f32),
+            torch.zeros((chunk, B, 8), dtype=torch.int64, device=device))
+
+
+def step_key(cfg: ModelConfig, n_slots: int, kv_view: int, want_probs: bool, kv_dtype,
+             on_card: bool) -> tuple:
+    """What a captured server decode step depends on beyond its buffers: the
+    slots, the kv view, whether it writes logprobs, and the attention route
+    forward takes there (models/llama.py:attention_route, which reads
+    TPULLM_FLASH_DECODE at each call). The per-row sampler parameters are
+    tensors, so admissions never need a new graph."""
+    route = attention_route(on_card, n_slots, 1, kv_view, cfg.head_dim, cfg.head_dim_v,
+                            cfg.n_head, cfg.n_head_kv, kv_dtype)
+    return (n_slots, kv_view, want_probs, route)
+
+
 def _bucket(n: int, minimum: int = 32) -> int:
     b = minimum
     while b < n:
@@ -181,10 +234,11 @@ class ServerContext:
                  compute_dtype=torch.bfloat16, kv_dtype=None, model_name: str = "tpullm",
                  slot_save_path: str | None = None, mmproj_path: str | None = None,
                  iswa: bool = False, spec: str | None = None, draft: tuple | None = None,
-                 lora: list | None = None, device="cuda"):
+                 lora: list | None = None, device="cuda", cuda_graphs: bool = True):
         """The JAX ServerContext's signature; every option not ported raises.
         kv_dtype "q8" selects the int8 cache. Runs on the card unless
-        device="cpu"."""
+        device="cpu"; there each decode step is a CUDA graph replay unless
+        cuda_graphs=False."""
         self.device = resolve_device(device)
         pdev = params["output_norm"].device
         if pdev.type != self.device.type:
@@ -222,10 +276,14 @@ class ServerContext:
         self._gen = torch.Generator(device=dev)
         self._seed = 0
         self._gen.manual_seed(self._seed)
-        self._mu = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
-        self._logits_buf = torch.zeros((n_slots, V), dtype=torch.float32, device=dev)
         self._bias = torch.zeros((n_slots, V), dtype=torch.float32, device=dev)
         self._bias_set = np.zeros(n_slots, bool)
+        self.state = ServerDecodeState.create(n_slots, V, decode_chunk, dev)
+        self.counters = _cuda.own_counters(dev, n_slots, cfg.n_head_kv, max_seq_len)
+        self.cuda_graphs = cuda_graphs and dev.type == "cuda"
+        self.graphs: dict[tuple, _cuda.CountedGraph] = {}  # by step_key
+        self._side = None  # the stream warm-ups and captures run on
+        self.pool = None  # the memory pool every graph of the server shares
         self.metrics = {
             "requests_total": 0, "prompt_tokens_total": 0,
             "generated_tokens_total": 0, "prefill_seconds_total": 0.0,
@@ -299,7 +357,7 @@ class ServerContext:
             # a parked row's decode-step scratch write lands at its own
             # n_past, so _pos must never lag behind the cache content
             self._pos[i] = reuse
-            self.sparams = self.sparams.with_row(i, task.params.sampler_config())
+            self.sparams.set_row_(i, task.params.sampler_config())
             row = self._bias_row(task.params.logit_bias)
             if row is not None:
                 self._bias[i] = torch.from_numpy(row).to(self.device)
@@ -307,12 +365,12 @@ class ServerContext:
             elif self._bias_set[i]:  # clear a stale bias of a prior task
                 self._bias[i] = 0
                 self._bias_set[i] = False
-            self.penalties = self.penalties.clear_row(i)
+            self.penalties.clear_row(i)
             seed = task.params.seed if task.params.seed >= 0 else time.time_ns() % (2 ** 31)
             # fold the request's seed into the shared draw stream
             self._seed = (self._seed * 1_000_003 + int(seed) + 1) % (2 ** 63)
             self._gen.manual_seed(self._seed)
-            self._mu[i] = 2.0 * task.params.mirostat_tau
+            self.state.mu[i] = 2.0 * task.params.mirostat_tau
 
     def _prefill_step(self, i: int):
         """One bucketed prompt chunk for slot i; on the last chunk keep the
@@ -323,8 +381,9 @@ class ServerContext:
         is_last = len(chunk) == len(r.pending)
         Tc = len(chunk)
         t0 = time.time()
-        logits = prefill_chunk(self.params, self.cfg, self.memory.cache, i, st.n_past, chunk,
-                               self.dtype)
+        with _cuda.counters_scope(self.counters):
+            logits = prefill_chunk(self.params, self.cfg, self.memory.cache, i, st.n_past,
+                                   chunk, self.dtype)
         self.metrics["prefill_seconds_total"] += time.time() - t0
         self.metrics["prompt_tokens_total"] += Tc
         st.tokens.extend(chunk)
@@ -332,7 +391,7 @@ class ServerContext:
         self._pos[i] = st.n_past
         r.pending = r.pending[Tc:]
         if is_last:
-            self._logits_buf[i] = logits[0, 0]
+            self.state.logits[i] = logits[0, 0]
             self._active[i] = True
             r.prefill_done_at = time.time()
 
@@ -432,42 +491,68 @@ class ServerContext:
             v *= 2
         return min(v, self.max_seq_len)
 
-    def _decode(self, n_steps: int, kv_view: int, want_probs: bool):
-        """Sample-then-forward for n_steps: each step samples from the
-        carried logits (first step: the prefill's), writes the sampled
-        token's K/V at its row's position and computes the next logits.
-        Parked rows write at their own n_past, which the next prompt chunk
-        or token of that slot overwrites. Returns host arrays (tokens
-        (n_steps, B), and with want_probs the token logprob and top-8)."""
-        dev = self.device
-        B, S = self.n_slots, self.max_seq_len
-        pos = torch.from_numpy(self._pos).to(dev)
-        active = torch.from_numpy(self._active).to(dev)
-        vf = torch.zeros((B,), dtype=torch.int64, device=dev)
-        logits = self._logits_buf
-        toks, lps = [], []
-        for _ in range(n_steps):
-            nxt, self._mu = sample_batch(logits, self.sparams, self._gen,
-                                         self.penalties.counts, self._mu,
-                                         dry_ctx=self.penalties.ordered(), bias=self._bias)
-            self.penalties = self.penalties.push(nxt)
-            if want_probs:
-                lp = torch.log_softmax(logits, dim=-1)
-                topv, topi = torch.topk(lp, 8, dim=-1)
-                tok_lp = torch.gather(lp, -1, nxt[:, None].to(torch.int64))[:, 0]
-                lps.append((tok_lp, topv, topi))
-            pos_eff = torch.where(active, pos, pos.clamp_max(S - 1))
-            lg, _ = forward(self.params, self.cfg, nxt[:, None].to(torch.int64),
-                            pos_eff[:, None], self.memory.cache, pos_eff, vf, self.dtype,
-                            kv_view_len=kv_view)
-            logits = lg[:, -1, :]
-            pos = pos + active.to(torch.int64)
-            toks.append(nxt)
-        self._logits_buf = logits
-        out = [torch.stack(toks).cpu().numpy()]  # the chunk's one host read
+    def _step(self, kv_view: int, want_probs: bool) -> None:
+        """One sample-then-forward step on the state's buffers, all on the
+        device: the function a graph captures. It samples from the carried
+        logits (first step: the prefill's), writes the sampled token's K/V at
+        its row's position and carries the next logits. Parked rows write at
+        their own n_past, which the next prompt chunk or token of that slot
+        overwrites."""
+        st, pen = self.state, self.penalties
+        nxt, mu = sample_batch(st.logits, self.sparams, self._gen, pen.counts, st.mu,
+                               dry_ctx=pen.ordered(), bias=self._bias)
+        st.mu.copy_(mu)
+        pen.push(nxt)
         if want_probs:
-            out += [torch.stack([x[j] for x in lps]).cpu().numpy() for j in range(3)]
-        return out
+            lp = torch.log_softmax(st.logits, dim=-1)
+            topv, topi = torch.topk(lp, 8, dim=-1)
+            tok_lp = torch.gather(lp, -1, nxt[:, None].to(torch.int64))[:, 0]
+            for buf, val in ((st.tok_lp, tok_lp), (st.top_v, topv), (st.top_i, topi)):
+                buf.index_copy_(0, st.step, val[None])
+        active = st.active != 0
+        pos_eff = torch.where(active, st.pos, st.pos.clamp_max(self.max_seq_len - 1))
+        lg, _ = forward(self.params, self.cfg, nxt[:, None].to(torch.int64), pos_eff[:, None],
+                        self.memory.cache, pos_eff, st.valid_from, self.dtype,
+                        kv_view_len=kv_view)
+        st.logits.copy_(lg[:, -1, :])
+        st.pos.add_(st.active)
+        st.toks.index_copy_(0, st.step, nxt[None])
+        st.step.add_(1)
+
+    def decode_step(self, kv_view: int, want_probs: bool) -> None:
+        """One decode step: a replay of the key's graph; for a new key, one
+        eager step as the warm-up and the capture; eager without graphs."""
+        if not self.cuda_graphs:
+            self._step(kv_view, want_probs)
+            return
+        key = step_key(self.cfg, self.n_slots, kv_view, want_probs,
+                       self.memory.cache.k.dtype, True)
+        graph = self.graphs.get(key)
+        if graph is None:
+            self._warm_up_and_capture(key, kv_view, want_probs)
+        else:
+            graph.replay()
+
+    def _warm_up_and_capture(self, key, kv_view: int, want_probs: bool) -> None:
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        self.graphs[key] = _cuda.warm_up_and_capture(
+            lambda: self._step(kv_view, want_probs), self._side, self.pool, (self._gen,))
+
+    def _decode(self, n_steps: int, kv_view: int, want_probs: bool):
+        """n_steps decode steps from the slots' positions and activity on the
+        host. Returns host arrays (tokens (n_steps, B), and with want_probs
+        the token logprob and the top-8 values and ids)."""
+        st = self.state
+        st.ctl.copy_(torch.from_numpy(np.concatenate(
+            [self._pos, self._active.astype(np.int64), np.zeros(1, np.int64)])))
+        with _cuda.counters_scope(self.counters):
+            for _ in range(n_steps):
+                self.decode_step(kv_view, want_probs)
+        # the chunk's host reads, copied (on the CPU .numpy() shares the buffers)
+        bufs = (st.toks, st.tok_lp, st.top_v, st.top_i) if want_probs else (st.toks,)
+        return [b[:n_steps].cpu().numpy().copy() for b in bufs]
 
     def _decode_step(self):
         self._context_shift_overdue(self.decode_chunk)

@@ -25,9 +25,11 @@ pass):
    slice's on bf16 (timed beside SDPA and the einsum path the model takes
    with E off), and its flag cases (T = 1, 4 and 8, windows, softcap,
    sinks, a row with no visible key) at head dims 128 and 256; the KV
-   store kernel (one launch a layer for every cache write) at the server's
-   decode step and at a 512-row prefill chunk on the int8 cache, bit for
-   bit against its plain version;
+   store kernel (one launch a layer for every cache write of forward) at
+   the server's decode step and a 512-row prefill chunk on its int8
+   cache, and at the 8B and Mixtral engines' decode step and 4x512
+   prefill on their bf16 cache (there beside one ``index_put_`` a bank),
+   bit for bit against its plain version;
 3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
    (tolerance: 4x the error of the same plain path in bf16); then the
@@ -846,59 +848,94 @@ def phase_flash_decode(torch, timer, entries):
         decode_flag_cases(torch, g, hd)
 
 
-def store_row(torch, timer, entries, g, where, T, slots, b0):
-    """One row of the KV store kernel on the server's int8 cache (8192 slots,
-    4 rows, Llama-3-8B's 8 kv heads of 128) for one layer: bf16 K rows and V
-    rows sliced out of a fused QKV output (as forward passes them), batch
-    row b from slots[b], into cache rows from b0. Held bit for bit against
-    its plain version on values and scales; timed beside it. No single
-    PyTorch call computes the quantize-and-store, so library_ms is null.
-    The bound reads each K/V value once (2 B) and the slots, and writes
-    each once (1 B) with its row's two f32 scales."""
+def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8):
+    """One row of the KV store kernel for one layer (Llama-3-8B's and
+    Mixtral's 8 kv heads of 128, 4 cache rows of S slots): bf16 K rows and
+    V rows sliced out of a fused QKV output (as forward passes them), batch
+    row b from slots[b], into cache rows from b0, on the int8 cache (``q8``:
+    quantized, with f32 row scales) or the bf16 one. Held bit for bit
+    against its plain version on values and scales; timed beside it. On the
+    bf16 cache the store is one ``index_put_`` a bank, timed as library_ms
+    and held bit for bit too; no PyTorch call quantizes and stores, so on
+    the int8 cache library_ms is null. The bound reads each K/V value once
+    (2 B) and the slots, and writes each once (int8 with its row's two f32
+    scales, or bf16)."""
     from tpullm_torch.ops.kv_store import kv_store, kv_store_plain
 
-    B, S, B_cache = len(slots), 8192, 4
+    B, B_cache = len(slots), 4
     y = (torch.randn((B, T, (H + 2 * HKV) * HD), generator=g, device="cuda") * 2).to(
         torch.bfloat16)
     k = y[..., H * HD: (H + HKV) * HD].reshape(B, T, HKV, HD)
     v = y[..., (H + HKV) * HD:].reshape(B, T, HKV, HD)
     k = k.contiguous()  # RoPE's output is contiguous; V stays a slice
-    banks = [torch.zeros((B_cache, HKV, S, HD), dtype=torch.int8, device="cuda")
-             for _ in range(2)] + [torch.zeros((B_cache, HKV, S), device="cuda")
-                                   for _ in range(2)]
-    twin = [b.clone() for b in banks]
+    bank_dtype = torch.int8 if q8 else torch.bfloat16
+    banks = [torch.zeros((B_cache, HKV, S, HD), dtype=bank_dtype, device="cuda")
+             for _ in range(2)]
+    banks += ([torch.zeros((B_cache, HKV, S), device="cuda") for _ in range(2)] if q8
+              else [None, None])
+    twin = [None if b is None else b.clone() for b in banks]
     slot = torch.tensor(slots, dtype=torch.int64, device="cuda")
     run = lambda: kv_store(banks[0], banks[1], k, v, slot, b0, banks[2], banks[3])
     plain = lambda: kv_store_plain(twin[0], twin[1], k, v, slot, b0, twin[2], twin[3])
     run()
     plain()
     torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(banks, twin))
-    mae = max(float((a.float() - b.float()).abs().max()) for a, b in zip(banks, twin))
+    live = [(a, b) for a, b in zip(banks, twin) if a is not None]
+    same = all(torch.equal(a, b) for a, b in live)
+    mae = max(float((a.float() - b.float()).abs().max()) for a, b in live)
+    lms = lib_same = None
+    if not q8:  # one index_put_ a bank, its indices made before the timing
+        lib = [torch.zeros_like(banks[0]) for _ in range(2)]
+        sl = slot[:, None] + torch.arange(T, device="cuda")[None, :]  # all inside the cache
+        idx = ((b0 + torch.arange(B, device="cuda"))[:, None, None].expand(B, T, HKV),
+               torch.arange(HKV, device="cuda")[None, None, :].expand(B, T, HKV),
+               sl[:, :, None].expand(B, T, HKV))
+        library = lambda: (lib[0].index_put_(idx, k), lib[1].index_put_(idx, v))
+        library()
+        torch.cuda.synchronize()
+        lib_same = torch.equal(lib[0], banks[0]) and torch.equal(lib[1], banks[1])
+        lms = timer(library, 20)
     rows = B * T * HKV
-    bound, by = bound_of(rows * 2 * HD * (2 + 1) + rows * 2 * 4 + B * 8, 0.0)
+    bound, by = bound_of(rows * 2 * HD * (2 + bank_dtype.itemsize)
+                         + (rows * 2 * 4 if q8 else 0) + B * 8, 0.0)
     ms = timer(run, 20)
     pms = timer(plain, 3, warmup=1)
-    label = (f"kv_store[int8,{where},B={B},T={T},Hkv={HKV},D={HD},S={S},slots "
-             f"{'/'.join(map(str, slots))},cache rows from {b0}]")
+    label = (f"kv_store[{'int8' if q8 else 'bf16'},{where},B={B},T={T},Hkv={HKV},D={HD},"
+             f"S={S},slots {'/'.join(map(str, slots))},cache rows from {b0}]")
     log(f"kernel {label}: bit-identical to plain {same} max_abs_err {mae:.4g} ms {ms:.4f} "
-        f"plain_ms {pms:.4f} library_ms null bound_ms {bound:.5f} ({by}) share_of_bound "
+        f"plain_ms {pms:.4f} library_ms {'null' if lms is None else f'{lms:.4f}'} "
+        f"(bit-identical {lib_same}) bound_ms {bound:.5f} ({by}) share_of_bound "
         f"{bound / ms:.3f}")
-    if not same:
-        raise AssertionError(f"{label}: the kernel's banks differ from the plain version's")
+    if not same or lib_same is False:
+        raise AssertionError(f"{label}: the kernel's banks differ from the plain version's "
+                             f"({same}) or the library call's ({lib_same})")
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["kv_store"][0],
-        replaces=SOURCES["kv_store"][1], kernel="kv_store", path="8B server",
-        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, bound_by=by))
+        replaces=SOURCES["kv_store"][1], kernel="kv_store", path=path,
+        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by))
+
+
+ENGINE_DECODE_SLOT = 540  # a decode step of phase 4's chunk: prompts bucketed to 512
 
 
 def phase_kv_store(torch, timer, entries):
-    """Phase 2, the KV store kernel: the server's decode step (4 rows at
-    slots 6000/2000/700/40, one token each) and a 512-row prefill chunk
-    (slots 5632-6143 of cache row 2), bit-exact against the plain version."""
+    """Phase 2, the KV store kernel at each path's shapes, bit-exact against
+    the plain version: on the server's int8 cache of 8192 slots its decode
+    step (4 rows at slots 6000/2000/700/40, one token each) and a 512-row
+    prefill chunk (slots 5632-6143 of cache row 2); on the engines' bf16
+    cache of 1024 slots (8B and Mixtral-8x7B: the same kv heads) the
+    prefill of 4 rows bucketed to 512, and a decode step with every row at
+    one slot."""
     g = torch.Generator(device="cuda").manual_seed(13)
-    store_row(torch, timer, entries, g, "server decode", 1, [6000, 2000, 700, 40], 0)
-    store_row(torch, timer, entries, g, "server prefill chunk", 512, [5632], 2)
+    store_row(torch, timer, entries, g, "server decode", "8B server", 1,
+              [6000, 2000, 700, 40], 0, 8192, True)
+    store_row(torch, timer, entries, g, "server prefill chunk", "8B server", 512, [5632], 2,
+              8192, True)
+    for where, path in (("8B engine", "8B"), ("Mixtral engine", "mixtral")):
+        store_row(torch, timer, entries, g, f"{where} decode", path, 1,
+                  [ENGINE_DECODE_SLOT] * 4, 0, 1024, False)
+        store_row(torch, timer, entries, g, f"{where} prefill", path, 512, [0] * 4, 0, 1024,
+                  False)
 
 
 def plain_cpu_copy(torch, params):

@@ -870,10 +870,13 @@ def _store_case(cuda, g, B, T, Hkv, D, Dv, rows_dtype, bank, S, B_cache, strided
 
 
 # (B, T, Hkv, D, Dv, first slots, b0, S, cache rows): the server's decode step,
-# a 512-row prefill chunk, head dim 256, and writes past the cache's end
+# a 512-row prefill chunk, the engine's decode step and 4x512 prefill, head
+# dim 256, and writes past the cache's end
 STORE_SHAPES = {
     "server_decode": (4, 1, 8, 128, 128, [6000, 2000, 700, 40], 0, 8192, 4),
     "prefill_512": (1, 512, 8, 128, 128, [5632], 2, 8192, 4),
+    "engine_decode": (4, 1, 8, 128, 128, [540] * 4, 0, 1024, 4),
+    "engine_prefill": (4, 512, 8, 128, 128, [0] * 4, 0, 1024, 4),
     "head_dim_256": (4, 1, 4, 256, 256, [1000, 17, 0, 1023], 0, 1024, 4),
     "past_the_end": (2, 16, 2, 128, 64, [1016, 1030], 1, 1024, 3),
 }

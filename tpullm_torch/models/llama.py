@@ -203,6 +203,14 @@ def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: 
     return "einsum"
 
 
+def decode_route(cfg: ModelConfig, B: int, kv_view: int, kv_dtype, on_card: bool) -> str:
+    """attention_route of one decode step (T = 1) of B rows over a kv view:
+    the part of a captured decode step's key that TPULLM_FLASH_DECODE and
+    the built shapes decide."""
+    return attention_route(on_card, B, 1, kv_view, cfg.head_dim, cfg.head_dim_v, cfg.n_head,
+                           cfg.n_head_kv, kv_dtype)
+
+
 def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
               cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv).

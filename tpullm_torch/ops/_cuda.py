@@ -155,6 +155,25 @@ def warm_up_and_capture(step, side, pool, generators=()) -> CountedGraph:
     return graph
 
 
+class GraphOwner:
+    """The captured decode steps of one owner (an engine, a server): one
+    graph per step key in ``graphs``, all in one memory pool ``pool``,
+    warmed up and captured on one side stream, both made at the first
+    capture. The owner sets ``device`` and calls ``_init_graphs``."""
+
+    def _init_graphs(self) -> None:
+        self.graphs: dict[tuple, CountedGraph] = {}  # by the owner's step key
+        self._side = None  # the stream warm-ups and captures run on
+        self.pool = None  # the memory pool every graph of the owner shares
+
+    def _capture(self, key, step, generators=()) -> None:
+        """``warm_up_and_capture(step)`` as the graph of ``key``."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        self.graphs[key] = warm_up_and_capture(step, self._side, self.pool, generators)
+
+
 def resolve_device(device) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU; a
     CUDA device without a card raises (there is no fallback)."""

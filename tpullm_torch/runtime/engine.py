@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import KVCache, attention_route, forward
+from ..models.llama import KVCache, decode_route, forward
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import GREEDY, SamplerConfig, make_sample_fn
@@ -82,12 +82,10 @@ def step_key(cfg: ModelConfig, B: int, sampler: SamplerConfig, kv_view: int, kv_
              on_card: bool) -> tuple:
     """What a captured decode step depends on beyond its buffers: the batch
     size, the sampler, the kv view and the attention route that forward
-    takes there (models/llama.py:attention_route, which reads
+    takes there (models/llama.py:decode_route, which reads
     TPULLM_FLASH_DECODE). The JAX key (sampler, chunk, eos, kv_view) less
     chunk and eos, as one step is captured, not a chunk."""
-    route = attention_route(on_card, B, 1, kv_view, cfg.head_dim, cfg.head_dim_v,
-                            cfg.n_head, cfg.n_head_kv, kv_dtype)
-    return (B, sampler, kv_view, route)
+    return (B, sampler, kv_view, decode_route(cfg, B, kv_view, kv_dtype, on_card))
 
 
 @dataclass
@@ -117,7 +115,7 @@ def _params_device(params: dict) -> torch.device:
     return params["output_norm"].device
 
 
-class InferenceEngine:
+class InferenceEngine(_cuda.GraphOwner):
     """Single-model batch inference with on-device sampling."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq_len: int = 1024,
@@ -136,9 +134,7 @@ class InferenceEngine:
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self.gen = torch.Generator(device=self.device)  # every draw, eager or replayed
         self.states: dict[int, DecodeState] = {}  # by batch size
-        self.graphs: dict[tuple, _cuda.CountedGraph] = {}  # by step_key
-        self._side = None  # the stream warm-ups and captures run on
-        self.pool = None  # the memory pool every graph of the engine shares
+        self._init_graphs()  # by step_key
 
     def new_cache(self, batch: int) -> KVCache:
         return KVCache.create(self.cfg, batch, self.max_seq_len, self.kv_dtype, self.device)
@@ -209,12 +205,8 @@ class InferenceEngine:
     def _warm_up_and_capture(self, key, st, sampler, kv_view) -> None:
         """Run the step eagerly on the side stream (a real step: its tokens
         count), then capture it there as the key's graph."""
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-            self.pool = torch.cuda.graph_pool_handle()
         sample = make_sample_fn(sampler)
-        self.graphs[key] = _cuda.warm_up_and_capture(lambda: self._step(st, sample, kv_view),
-                                                     self._side, self.pool, (self.gen,))
+        self._capture(key, lambda: self._step(st, sample, kv_view), (self.gen,))
 
     @torch.inference_mode()
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,

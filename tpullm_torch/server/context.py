@@ -19,7 +19,7 @@ Counterpart of tpullm/server/context.py for the attention family:
   the penalty ring, the logit bias, the cache); admissions write them
   between chunks, and the draw generator is registered with each graph, so
   a reseed reaches the replays. The first step of a new key runs eagerly on
-  a side stream, then is captured there (``_cuda.warm_up_and_capture``);
+  a side stream, then is captured there (``_cuda.GraphOwner._capture``);
   kernels D and E launch on the server's own arrival counters.
   ``cuda_graphs=False`` runs the same step eagerly; on the CPU it always
   runs eagerly. Prefill stays eager: its chunk lengths vary.
@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import MOE_KEYS, attention_route, check_dense, forward
+from ..models.llama import MOE_KEYS, check_dense, decode_route, forward
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import BatchSamplerParams, PenaltyState, SamplerConfig, sample_batch
@@ -180,12 +180,10 @@ def step_key(cfg: ModelConfig, n_slots: int, kv_view: int, want_probs: bool, kv_
              on_card: bool) -> tuple:
     """What a captured server decode step depends on beyond its buffers: the
     slots, the kv view, whether it writes logprobs, and the attention route
-    forward takes there (models/llama.py:attention_route, which reads
+    forward takes there (models/llama.py:decode_route, which reads
     TPULLM_FLASH_DECODE at each call). The per-row sampler parameters are
     tensors, so admissions never need a new graph."""
-    route = attention_route(on_card, n_slots, 1, kv_view, cfg.head_dim, cfg.head_dim_v,
-                            cfg.n_head, cfg.n_head_kv, kv_dtype)
-    return (n_slots, kv_view, want_probs, route)
+    return (n_slots, kv_view, want_probs, decode_route(cfg, n_slots, kv_view, kv_dtype, on_card))
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -228,7 +226,7 @@ def _refuse_unported(cfg: ModelConfig, params: dict, **opts) -> None:
     check_dense(cfg, moe=any(MOE_KEYS & set(gl) for gl in layers))
 
 
-class ServerContext:
+class ServerContext(_cuda.GraphOwner):
     def __init__(self, cfg: ModelConfig, params: dict, tokenizer=None, n_slots: int = 4,
                  max_seq_len: int = 2048, decode_chunk: int = 8, prefill_chunk: int = 512,
                  compute_dtype=torch.bfloat16, kv_dtype=None, model_name: str = "tpullm",
@@ -281,9 +279,7 @@ class ServerContext:
         self.state = ServerDecodeState.create(n_slots, V, decode_chunk, dev)
         self.counters = _cuda.own_counters(dev, n_slots, cfg.n_head_kv, max_seq_len)
         self.cuda_graphs = cuda_graphs and dev.type == "cuda"
-        self.graphs: dict[tuple, _cuda.CountedGraph] = {}  # by step_key
-        self._side = None  # the stream warm-ups and captures run on
-        self.pool = None  # the memory pool every graph of the server shares
+        self._init_graphs()  # by step_key
         self.metrics = {
             "requests_total": 0, "prompt_tokens_total": 0,
             "generated_tokens_total": 0, "prefill_seconds_total": 0.0,
@@ -534,11 +530,7 @@ class ServerContext:
             graph.replay()
 
     def _warm_up_and_capture(self, key, kv_view: int, want_probs: bool) -> None:
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-            self.pool = torch.cuda.graph_pool_handle()
-        self.graphs[key] = _cuda.warm_up_and_capture(
-            lambda: self._step(kv_view, want_probs), self._side, self.pool, (self._gen,))
+        self._capture(key, lambda: self._step(kv_view, want_probs), (self._gen,))
 
     def _decode(self, n_steps: int, kv_view: int, want_probs: bool):
         """n_steps decode steps from the slots' positions and activity on the

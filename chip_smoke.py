@@ -43,11 +43,18 @@ pass):
    (cuda_graphs=False) must give the same tokens and launch counts; then
    the server slice on the same model: ServerContext (4 slots of 8192,
    int8 KV, kernel E through TPULLM_FLASH_DECODE=1, each decode step a
-   replay of the server's CUDA graph) behind the HTTP front end answers a
-   burst of 6 concurrent requests (prompts of 6000 to 40 tokens, 64 new
-   tokens each, one streamed, one sampled) and a sequential pair that must
-   reuse its prefix, with A-E and the store kernel launched; the burst
-   again with kernel E off (the einsum path), a profile of the 6000-token
+   replay of the server's CUDA graph, a byte-level BPE tokenizer at
+   Llama-3's layout from utils/synth.py:synth_bpe_vocab) behind the HTTP
+   front end answers a burst of 6 concurrent token-id requests (prompts of
+   6000 to 40 tokens, 64 new tokens each, one streamed, one sampled) and a
+   sequential pair that must reuse its prefix, with A-E and the store
+   kernel launched; the burst again with kernel E off (the einsum path);
+   the text and chat part with E on: /tokenize of a ~6000-token text
+   (host ms) against the in-process encode, /detokenize back,
+   /apply-template, and a burst of 4 concurrent chat completions
+   (streamed, with tools, with a stop string, with <|eot_id|> forced),
+   each prompt's length and text checked against the tokenizer and A-E
+   launched; a profile of the 6000-token
    prompt's prefill alone (device ms by kernel), and each way one decode
    chunk as graph replays against the same chunk as eager steps (same
    tokens and launch counts) and the chunk profile as graph replays (one
@@ -1277,6 +1284,55 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
 SERVER_PROMPTS = [6000, 2000, 700, 300, 120, 40]  # the burst: 6 requests on 4 slots
 SERVER_NEW = 64  # max_tokens of every request
 SERVER_STREAMED, SERVER_SAMPLED = 2, 3  # indices of the streamed and the sampled request
+TOKENIZE_TOKENS = 6000  # the /tokenize text's length in tokens
+CHAT_STOP = "e"  # the stop string of the chat burst's stop request
+WORDS = ("the of and to in is was that for on with as by at from it this be are have not "
+         "but or an which one all were her she there would their we him been has when who "
+         "will more no if out so said what up its about into than them can only other new "
+         "some could time these two may then do first any my now such like our over man me "
+         "even most made after also did many before must through back years where much your "
+         "way well down should because each just those people how too little state good very "
+         "make world still own see men work long get here between both life being under never "
+         "day same another know while last might us great old year off come since against go "
+         "came right used take three city river market power water house music language").split()
+
+
+def english_text(tok, n_tokens: int, seed: int) -> str:
+    """Sentences of common English words, numbers and punctuation drawn from
+    a seed, cut at the sentence where the tokenizer's count reaches
+    n_tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sents = []
+    for i in range(n_tokens // 4):  # more than n_tokens: 6-17 words a sentence
+        words = [WORDS[j] for j in rng.integers(0, len(WORDS), int(rng.integers(6, 18)))]
+        if rng.random() < 0.3:
+            words.insert(int(rng.integers(1, len(words))), str(int(rng.integers(1, 10 ** 5))))
+        if rng.random() < 0.3:
+            words[int(rng.integers(1, len(words)))] += ","
+        sents.append(" ".join(words).capitalize() + (". " if i % 7 else ".\n\n"))
+    lo, hi = 1, len(sents)
+    while lo < hi:  # the fewest sentences that reach n_tokens
+        mid = (lo + hi) // 2
+        if len(tok.encode("".join(sents[:mid]), add_special=False)) < n_tokens:
+            lo = mid + 1
+        else:
+            hi = mid
+    return "".join(sents[:lo])
+
+
+def visible(tok, ids, stop=()):
+    """The text the server returns for generated ids: their decode without
+    special tokens, a trailing partial UTF-8 character held back, cut at the
+    first stop string."""
+    text = tok.decode(ids, skip_special=True)
+    if text.endswith("\ufffd"):
+        text = text[: text.rfind("\ufffd")]
+    for st in stop:
+        if st in text:
+            text = text[: text.find(st)]
+    return text
 
 
 def http_json(url, body, timeout=600):
@@ -1298,17 +1354,20 @@ def http_json(url, body, timeout=600):
     return status, json.loads(raw)
 
 
-def server_burst(base, prompts, label):
-    """The burst: one thread per request, all sent at once. Request
+def server_burst(base, prompts, label, tok):
+    """The burst: one thread per request, all sent at once, token-id prompts
+    with ignore_eos (every request makes SERVER_NEW tokens). Request
     SERVER_STREAMED streams, SERVER_SAMPLED samples (temperature 0.8, top_k
     40, seed 1234), the rest are greedy. Fails on any non-200, error event,
-    or completion that is not SERVER_NEW tokens. -> (results, wall s)."""
+    completion that is not SERVER_NEW tokens, or text that is not the
+    tokenizer's (``visible``). -> (results, wall s)."""
     import threading
 
     results = [None] * len(prompts)
 
     def one(i):
-        body = {"prompt": prompts[i], "max_tokens": SERVER_NEW, "temperature": 0.0}
+        body = {"prompt": prompts[i], "max_tokens": SERVER_NEW, "temperature": 0.0,
+                "ignore_eos": True}
         if i == SERVER_SAMPLED:
             body.update(temperature=0.8, top_k=40, seed=1234)
         if i == SERVER_STREAMED:
@@ -1330,17 +1389,17 @@ def server_burst(base, prompts, label):
             if any("error" in e for e in r):
                 raise AssertionError(f"server {label}: stream {i} carried an error: {r}")
             text = "".join(e["choices"][0]["text"] for e in r)
-            ids = [int(x) for x in text.split()]
+            ids = r[-1]["choices"][0]["tokens"]
             stats = r[-1]["timings"]
             ok = (len(ids) == SERVER_NEW == stats["completion_tokens"]
-                  and text == " ".join(map(str, ids))
+                  and text == visible(tok, ids)
                   and r[-1]["choices"][0]["finish_reason"] == "length"
                   and sum(1 for e in r if e["choices"][0]["text"]) >= 2)
         else:
             ids = r["choices"][0]["tokens"]
             stats = r["timings"]
             ok = (len(ids) == SERVER_NEW == r["usage"]["completion_tokens"]
-                  and r["choices"][0]["text"] == " ".join(map(str, ids)))
+                  and r["choices"][0]["text"] == visible(tok, ids))
         if not ok or not all(0 <= x < VOCAB for x in ids):
             raise AssertionError(f"server {label}: request {i} output check failed: "
                                  f"{len(ids)} ids, stats {stats}")
@@ -1447,7 +1506,8 @@ def server_chunk_profile(torch, ctx, prompts, modes):
 
     n = ctx.decode_chunk
     for pr in prompts[:ctx.n_slots]:
-        ctx.submit(Task(tokens=pr, params=GenParams(max_tokens=10 ** 6, temperature=0.0)))
+        ctx.submit(Task(tokens=pr, params=GenParams(max_tokens=10 ** 6, temperature=0.0,
+                                                    ignore_eos=True)))
     out = {}
     with torch.inference_mode():
         ctx._admit()
@@ -1500,6 +1560,144 @@ def set_flash_decode(flag) -> None:
         os.environ.pop("TPULLM_FLASH_DECODE", None)
 
 
+CHAT_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "Get the current weather in a city",
+    "parameters": {"type": "object", "properties": {"city": {"type": "string"}},
+                   "required": ["city"]}}}]
+
+
+def phase_server_chat(torch, ctx, base, tok):
+    """The text and chat part of the 8B server phase, on the running server
+    (E on, slots cleared): /tokenize of a ~TOKENIZE_TOKENS-token English
+    text against the in-process encode (the host's ms for both and tokens
+    per second), /detokenize back to the text, /apply-template of a
+    two-turn conversation against the in-process render; then, with the
+    launch counts set to 0, a burst of 4 concurrent /v1/chat/completions of
+    SERVER_NEW tokens, greedy: one streamed, one with a tools list, one
+    with the stop string CHAT_STOP whose user message is a ~400-token
+    excerpt (its prefill takes a 512-row chunk), one whose logit_bias makes
+    <|eot_id|> the greedy choice. Every answer 200; each prompt_tokens the
+    length of the in-process encode of the rendered template (tools
+    injected where sent); each text the tokenizer's decode of the returned
+    ids (``visible``), cut at the stop string; the forced end of turn
+    finishes at once ("stop", no text, no tokens); A-E and the store
+    launched. -> the burst's launch counts."""
+    import threading
+
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.server.chat import apply_chat_template, get_template_src
+    from tpullm_torch.server.toolcall import detect_format, inject_tools, parse_tool_calls
+
+    report = {}
+    text = english_text(tok, TOKENIZE_TOKENS, seed=5)
+    enc_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        ids = tok.encode(text, add_special=False)
+        enc_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    status, r = http_json(base + "/tokenize", {"content": text})
+    http_ms = (time.perf_counter() - t) * 1e3
+    if status != 200 or r["tokens"] != ids:
+        raise AssertionError(f"/tokenize answered {status}, equal to encode: "
+                             f"{status == 200 and r['tokens'] == ids}")
+    t = time.perf_counter()
+    status, d = http_json(base + "/detokenize", {"tokens": ids})
+    detok_ms = (time.perf_counter() - t) * 1e3
+    if status != 200 or d["content"] != text:
+        raise AssertionError(f"/detokenize answered {status}: not the text back")
+    report["tokenize"] = {"tokens": len(ids), "chars": len(text),
+                          "host_encode_ms": sorted(enc_ms),
+                          "host_tokens_per_s": len(ids) / (min(enc_ms) / 1e3),
+                          "http_tokenize_ms": http_ms, "http_detokenize_ms": detok_ms}
+    convo = [{"role": "system", "content": "You are a helpful assistant."},
+             {"role": "user", "content": "Hello! Who are you?"},
+             {"role": "assistant", "content": "I am an assistant. How can I help?"},
+             {"role": "user", "content": "Tell me about the river in the city."}]
+    status, r = http_json(base + "/apply-template", {"messages": convo})
+    want = apply_chat_template(ctx, convo)
+    if status != 200 or r["prompt"] != want or not want.startswith(
+            "<|begin_of_text|><|start_header_id|>system<|end_header_id|>\n\n") or not \
+            want.endswith("<|start_header_id|>assistant<|end_header_id|>\n\n"):
+        raise AssertionError(f"/apply-template answered {status}: {r}")
+
+    excerpt = tok.decode(ids[:400])
+    eot = tok.vocab.eot_id
+    kinds = ("streamed", "tools", "stop", "forced_eot")
+    bodies = [
+        {"messages": [{"role": "user", "content": "Write a short story about a fox."}],
+         "stream": True},
+        {"messages": [{"role": "user", "content": "What is the weather in Paris today?"}],
+         "tools": CHAT_TOOLS},
+        {"messages": [{"role": "system", "content": "Summarize the document."},
+                      {"role": "user", "content": excerpt}], "stop": [CHAT_STOP]},
+        {"messages": [{"role": "user", "content": "Say nothing at all."}],
+         "logit_bias": {str(eot): 100.0}}]
+    for b in bodies:
+        b.update(max_tokens=SERVER_NEW, temperature=0.0)
+    fmt = detect_format(get_template_src(ctx))
+    want_prompt = [len(tok.encode(apply_chat_template(
+        ctx, inject_tools(b["messages"], b["tools"], fmt) if "tools" in b else b["messages"],
+        tools=b.get("tools")), add_special=True, parse_special=True)) for b in bodies]
+    results = [None] * len(bodies)
+
+    def one(i):
+        results[i] = http_json(base + "/v1/chat/completions", bodies[i])
+
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t
+    torch.cuda.synchronize()
+    counts = dict(_cuda.COUNTS)
+    rows = []
+    for kind, body, n_prompt, (status, r) in zip(kinds, bodies, want_prompt, results):
+        if status != 200:
+            raise AssertionError(f"chat {kind}: answered {status}: {r}")
+        if kind == "streamed":
+            if any("error" in e for e in r):
+                raise AssertionError(f"chat streamed: an error event: {r}")
+            choice, stats = r[-1]["choices"][0], r[-1]["timings"]
+            got = "".join(e["choices"][0]["delta"].get("content", "") for e in r)
+        else:
+            choice, stats = r["choices"][0], r["timings"]
+            got = choice["message"]["content"]
+        ids_out = choice["tokens"]
+        want_text = visible(tok, ids_out, body.get("stop", ()))
+        if kind == "tools" and choice["finish_reason"] == "tool_calls":  # a call's JSON
+            want_text = parse_tool_calls(want_text, fmt)[0] or None
+        ok = (stats["prompt_tokens"] == n_prompt and got == want_text
+              and stats["completion_tokens"] == len(ids_out) <= SERVER_NEW)
+        if kind == "stop":  # "length" only where neither the stop nor an end came
+            ends = CHAT_STOP in visible(tok, ids_out) or len(ids_out) < SERVER_NEW
+            ok = ok and choice["finish_reason"] == ("stop" if ends else "length")
+        if kind == "forced_eot":
+            ok = ok and choice["finish_reason"] == "stop" and got == "" and not ids_out
+        if not ok:
+            raise AssertionError(f"chat {kind}: check failed: prompt_tokens "
+                                 f"{stats['prompt_tokens']} (want {n_prompt}), text "
+                                 f"{got!r} (want {want_text!r}), finish "
+                                 f"{choice['finish_reason']}, {len(ids_out)} ids")
+        rows.append({"kind": kind, "prompt_tokens": stats["prompt_tokens"],
+                     "completion_tokens": stats["completion_tokens"],
+                     "finish_reason": choice["finish_reason"],
+                     "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"]})
+    report["chat_burst"] = {"requests": rows, "wall_s": wall,
+                            "completion_tok_per_s": sum(x["completion_tokens"] for x in rows)
+                            / wall}
+    log(f"server slice 8B text and chat: {json.dumps(report)}")
+    log(f"server slice 8B text and chat: launches in the chat burst {counts}")
+    missing = [k for k in DENSE_KERNELS + ("flash_decode",) if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"server chat: kernels not launched {missing}")
+    return counts
+
+
 def phase_server(torch, cfg, params):
     """Phase 4b, the server slice on the 32-layer 8B model: ServerContext
     with 4 slots of 8192 and an int8 cache behind serve() on a free local
@@ -1510,19 +1708,28 @@ def phase_server(torch, cfg, params):
     first's prompt and completion and must reuse it), with A-E and the
     store kernel all launched. Then the same burst with the variable unset
     (the einsum path over dequantized views), and each way the decode chunk
-    profile, graph and eager (server_chunk_profile). -> the launch counts
-    of the E-on run."""
+    profile, graph and eager (server_chunk_profile). The server carries a
+    byte-level BPE tokenizer at Llama-3's layout (synth_bpe_vocab(VOCAB)):
+    the token-id requests send ignore_eos, and between the bursts and the
+    profiles, with E on, the text and chat part runs (phase_server_chat).
+    -> the launch counts of the E-on run and of the chat part."""
     import numpy as np
     import socket
 
     from tpullm_torch.ops import _cuda
     from tpullm_torch.server.context import ServerContext
     from tpullm_torch.server.http import serve
+    from tpullm_torch.tokenizer import Tokenizer
+    from tpullm_torch.utils.synth import synth_bpe_vocab
 
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, VOCAB, n).tolist() for n in SERVER_PROMPTS]
     pair = rng.integers(0, VOCAB, 500).tolist()
-    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=8192, decode_chunk=8,
+    t = time.perf_counter()
+    tok = Tokenizer(synth_bpe_vocab(VOCAB, seed=0))
+    log(f"server slice 8B: synth_bpe_vocab({VOCAB}) and its tokenizer in "
+        f"{time.perf_counter() - t:.3f} s ({len(tok.vocab.merges)} merges)")
+    ctx = ServerContext(cfg, params, tok, n_slots=4, max_seq_len=8192, decode_chunk=8,
                         prefill_chunk=512, kv_dtype="q8", model_name="llama-3-8b-shape")
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
@@ -1549,13 +1756,15 @@ def phase_server(torch, cfg, params):
             torch.cuda.reset_peak_memory_stats()
             m0 = dict(ctx.metrics)
             _cuda.reset_counts()
-            res, wall = server_burst(base, prompts, label)
+            res, wall = server_burst(base, prompts, label, tok)
             if flag:  # the sequential pair, on the idle server
                 status, first = http_json(base + "/v1/completions", {
-                    "prompt": pair, "max_tokens": SERVER_NEW, "temperature": 0.0})
+                    "prompt": pair, "max_tokens": SERVER_NEW, "temperature": 0.0,
+                    "ignore_eos": True})
                 ext = pair + first["choices"][0]["tokens"] + [17, 23, 99]
                 status2, second = http_json(base + "/v1/completions", {
-                    "prompt": ext, "max_tokens": SERVER_NEW, "temperature": 0.0})
+                    "prompt": ext, "max_tokens": SERVER_NEW, "temperature": 0.0,
+                    "ignore_eos": True})
                 cached = second["timings"]["cached_tokens"] if status2 == 200 else None
                 if (status, status2) != (200, 200) or not cached or cached < len(pair) or any(
                         x["usage"]["completion_tokens"] != SERVER_NEW for x in (first, second)):
@@ -1582,6 +1791,9 @@ def phase_server(torch, cfg, params):
         report["greedy_first_difference_e_on_off"] = [
             next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), SERVER_NEW)
             if i != SERVER_SAMPLED else None for i, (x, y) in enumerate(zip(ids_on, ids_off))]
+        set_flash_decode("1")
+        clear_slots()
+        chat_counts = phase_server_chat(torch, ctx, base, tok)
         ctx.stop()  # the loop thread; the chunk profiles drive its body from here
         clear_slots()
         profs = server_chunk_profile(torch, ctx, prompts, modes)
@@ -1602,7 +1814,7 @@ def phase_server(torch, cfg, params):
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, chat_counts
 
 
 def model_gb(params) -> float:
@@ -1892,7 +2104,7 @@ def main() -> int:
     counts, eng, eager, prompts = phase_slice(torch, "8B", cfg, params, VOCAB, DENSE_KERNELS)
     log(f"phase slice 8B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    server_counts = phase_server(torch, cfg, params)
+    server_counts, chat_counts = phase_server(torch, cfg, params)
     del cfg, params
     log(f"phase server 8B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -1926,7 +2138,8 @@ def main() -> int:
     del eng, eager
     log(f"phase decode steps Mixtral: {time.perf_counter() - t:.1f} s")
 
-    by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts}
+    by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
+               "8B server chat": chat_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

@@ -1052,3 +1052,97 @@ def test_counters_race_engine_and_server(cuda, monkeypatch):
     assert out["eng"] == alone_eng
     assert together_srv == alone_srv and all(len(x) == 96 for x in together_srv)
     assert _counters_zero(eng, ctx)
+
+
+def test_server_chat_on_card_matches_cpu(cuda, monkeypatch):
+    """Chat on the card: a 2-layer synth Llama with a byte-level BPE vocab
+    (Llama-3's layout and chat template) served with an int8 cache and
+    kernel E, against the same server on the CPU at f32. The rendered
+    prompts' token ids are equal; each prompt's next-token logits are
+    within 4x the NMSE of the CPU path in bf16 (the engine test's bound);
+    greedy tokens from one generator state are equal up to the first step
+    whose top two CPU logprobs lie within 0.05; and the card's answer over
+    HTTP is 200 with its text the decode of its tokens."""
+    import json
+    import socket
+    import urllib.request
+
+    from tpullm_torch.server.chat import apply_chat_template
+    from tpullm_torch.server.context import GenParams, ServerContext, prefill_chunk
+    from tpullm_torch.server.http import serve
+    from tpullm_torch.tokenizer import Tokenizer
+    from tpullm_torch.utils.synth import synth_bpe_vocab, synth_kmajor_q4k_fast
+
+    monkeypatch.setenv("TPULLM_FLASH_DECODE", "1")
+    tok = Tokenizer(synth_bpe_vocab(1024, seed=4))
+    cfg, params = synth_kmajor_q4k_fast(vocab_size=1024, n_embd=512, n_layer=2, n_head=4,
+                                        n_head_kv=2, n_ff=1024, seed=3, centred=True,
+                                        device="cpu")
+    card = {k: (v.to("cuda") if not isinstance(v, dict) else
+                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    chats = [[{"role": "user", "content": "What is the capital of France?"}],
+             [{"role": "system", "content": "answer in one word"},
+              {"role": "user", "content": "Name a colour of the sky at noon."}]]
+    common = dict(n_slots=2, max_seq_len=512, decode_chunk=8, prefill_chunk=256,
+                  kv_dtype="q8")
+    ctxs = {"card": ServerContext(cfg, card, tok, **common),
+            "cpu": ServerContext(cfg, params, tok, compute_dtype=torch.float32, device="cpu",
+                                 **common),
+            "cpu_bf16": ServerContext(cfg, params, tok, device="cpu", **common)}
+    prompts = [tok.encode(apply_chat_template(ctxs["card"], m), True, True) for m in chats]
+    assert prompts == [tok.encode(apply_chat_template(ctxs["cpu"], m), True, True)
+                       for m in chats]
+    logits = {}
+    with torch.inference_mode():
+        for name, ctx in ctxs.items():
+            logits[name] = torch.cat([prefill_chunk(ctx.params, cfg, ctx.memory.cache, 0, 0, p,
+                                                    ctx.dtype)[0].float().cpu()
+                                      for p in prompts])
+            ctx.memory.clear_slot(0)
+    ref = _nmse(logits["cpu_bf16"], logits["cpu"])
+    assert _nmse(logits["card"], logits["cpu"]) < 4 * ref
+    out = {}
+    for name in ("card", "cpu"):
+        ctx = ctxs[name]
+        ctx.start()
+        try:
+            out[name] = [ctx.generate(list(p), GenParams(max_tokens=24, temperature=0.0,
+                                                         seed=0, n_probs=2))
+                         for p in prompts]
+        finally:
+            ctx.stop()
+    for a, b in zip(out["card"], out["cpu"]):
+        for j, e in enumerate(b["logprobs"]):
+            (_, l0), (_, l1) = e["top"][:2]
+            if l0 - l1 <= 0.05 or j >= len(a["tokens"]):
+                break
+            assert a["tokens"][j] == b["tokens"][j], (j, a["tokens"], b["tokens"])
+        text = tok.decode(a["tokens"], skip_special=True)
+        assert a["text"] == (text[: text.rfind("�")] if text.endswith("�") else text)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = ServerContext(cfg, card, tok, **common)
+    srv = serve(ctx, "127.0.0.1", port, block=False)
+    try:
+        _cuda.reset_counts()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/chat/completions",
+            json.dumps({"messages": chats[1], "max_tokens": 16, "temperature": 0}).encode(),
+            {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert r.status == 200
+            ans = json.loads(r.read())
+        counts = dict(_cuda.COUNTS)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ctx.stop()
+    assert ans["usage"]["prompt_tokens"] == len(prompts[1])
+    choice = ans["choices"][0]
+    text = tok.decode(choice["tokens"], skip_special=True)
+    held = text[: text.rfind("�")] if text.endswith("�") else text
+    assert choice["message"]["content"] == held
+    assert all(counts[k] > 0 for k in ("qmm_splitk", "layer_kernel", "flash_decode",
+                                       "kv_store")), counts

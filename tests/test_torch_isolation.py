@@ -72,3 +72,44 @@ def test_entry_points_default_to_cuda_and_raise_without_card(tmp_path):
         synth_kmajor_q4k_fast(vocab_size=256, n_embd=256, n_layer=1, n_head=2,
                               n_head_kv=1, n_ff=512)
     assert isinstance(cfg, ModelConfig)
+
+
+# the one module that reads the third-party regex: it rebuilds the tables
+REGEX_GENERATOR = "tpullm_torch/tokenizer/_gen_unicode_ranges.py"
+
+
+def test_no_module_but_the_range_generator_imports_regex():
+    """The port needs no third-party ``regex``: its pre-tokenizers run on
+    the standard ``re`` over tables written as data."""
+    users = set()
+    for p in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(p.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0
+                     else [])
+            if any(n.split(".")[0] == "regex" for n in names):
+                users.add(str(p.relative_to(ROOT)))
+    assert users == {REGEX_GENERATOR}
+
+
+def test_tokenizer_and_server_import_and_run_without_regex():
+    """With ``regex`` made unimportable, every module of the tokenizer and
+    the server imports, every pre-tokenizer pattern translates and compiles,
+    and a byte-level BPE tokenizer encodes and decodes text."""
+    mods = [m for m in MODULES if m.startswith(("tpullm_torch.tokenizer", "tpullm_torch.server"))
+            and not m.endswith("_gen_unicode_ranges")]
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['regex'] = None\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from tpullm_torch.tokenizer import Tokenizer, pretokenizers as P\n"
+        "from tpullm_torch.utils.synth import synth_bpe_vocab\n"
+        "for pre in P.PRE_REGEX: P.get_pre_regexes(pre)\n"
+        "tok = Tokenizer(synth_bpe_vocab(1024))\n"
+        "text = 'Hello, wörld! 123 中文\\r\\n'\n"
+        "assert tok.decode(tok.encode(text, add_special=False)) == text\n"
+        "assert sys.modules['regex'] is None\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

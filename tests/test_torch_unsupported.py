@@ -14,6 +14,7 @@ from tpullm_torch.models.config import ModelConfig, config_from_gguf
 from tpullm_torch.models.llama import KVCache, check_dense, forward
 from tpullm_torch.ops.qtensor import qtensor_from_bytes
 from tpullm_torch.runtime.loader import load_model
+from tpullm_torch.tokenizer import Tokenizer, Vocab
 
 torch.set_num_threads(2)
 
@@ -172,12 +173,18 @@ def small_model():
 
 @pytest.mark.parametrize("option,value", [
     ("lora", [("adapter.gguf", 1.0)]), ("mmproj_path", "mmproj.gguf"), ("spec", "ngram"),
-    ("draft", ("cfg", "params")), ("slot_save_path", "slots"), ("tokenizer", object())])
+    ("draft", ("cfg", "params")), ("slot_save_path", "slots"),
+    ("tokenizer", Vocab(model="t5", tokens=["<pad>", "</s>", "<unk>", "▁a"]))])
 def test_server_option_not_ported_raises(small_model, option, value):
+    """Every construction option not ported raises. The tokenizer is ported
+    for SPM and BPE: one of another family (here t5's UGM) raises as it is
+    built for the server."""
     from tpullm_torch.server.context import ServerContext
 
     cfg, params = small_model
     with pytest.raises(NotImplementedError, match="not ported"):
+        if option == "tokenizer":
+            value = Tokenizer(value)
         ServerContext(cfg, params, **{option: value}, device="cpu")
 
 

@@ -1,8 +1,10 @@
 """`python -m tpullm_torch.server -m model.gguf [--host H] [--port P] ...`
 
 The port's llama-server entry point (counterpart of tpullm/server/__main__.py):
-loads the GGUF through the port's ``load_model`` onto the card and serves
-token-id completions over HTTP (``server/http.py``). Every flag has an
+loads the GGUF through the port's ``load_model`` onto the card and its vocab
+through the port's tokenizer, and serves text, token-id and chat completions
+over HTTP (``server/http.py``; a GGUF without a vocab serves token ids
+only). Every flag has an
 environment fallback (TPULLM_<DEST>) and can come from a --preset JSON
 profile (``utils/args.py``). Flags of the JAX server whose features are not
 ported (downloads, LoRA, multimodal, speculation, slot files, the iSWA
@@ -55,20 +57,24 @@ def main(argv=None):
     import torch
 
     from ..runtime.loader import load_model
+    from ..tokenizer import Tokenizer
     from .context import ServerContext
     from .http import serve
 
     logging.basicConfig(level=(args.log_level or "info").upper())
     log = logging.getLogger("tpullm_torch.server")
     log.info("loading %s ...", args.model)
-    cfg, params, _ = load_model(args.model, device="cuda")
+    cfg, params, g = load_model(args.model, device="cuda")
+    tok = Tokenizer.from_gguf(g) if g.get("tokenizer.ggml.tokens") else None
     kv_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, "q8": "q8"}[args.kv_type]
-    ctx = ServerContext(cfg, params, None, n_slots=args.parallel, max_seq_len=args.ctx_size,
+    ctx = ServerContext(cfg, params, tok, n_slots=args.parallel, max_seq_len=args.ctx_size,
                         decode_chunk=args.decode_chunk, prefill_chunk=args.prefill_chunk,
                         model_name=args.alias or args.model.rsplit("/", 1)[-1],
                         kv_dtype=kv_dtype, device="cuda")
-    log.info("serving %s on http://%s:%s (%d slots, ctx %d, kv %s; token-id prompts only)",
-             cfg.arch, args.host, args.port, args.parallel, args.ctx_size, args.kv_type)
+    log.info("serving %s on http://%s:%s (%d slots, ctx %d, kv %s; %s)", cfg.arch,
+             args.host, args.port, args.parallel, args.ctx_size, args.kv_type,
+             f"{tok.vocab.model} tokenizer, {tok.vocab.n_tokens} tokens" if tok else
+             "no vocab in the file: token-id prompts only")
     serve(ctx, args.host, args.port)
 
 

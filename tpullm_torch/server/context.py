@@ -244,9 +244,7 @@ class ServerContext(_cuda.GraphOwner):
         _refuse_unported(cfg, params, lora=lora, mmproj_path=mmproj_path, spec=spec,
                          draft=draft, slot_save_path=slot_save_path,
                          iswa=iswa and bool(cfg.sliding_window))
-        if tokenizer is not None:
-            raise NotImplementedError("the tokenizer is not ported to tpullm_torch yet: "
-                                      "pass tokenizer=None and token-id prompts")
+        self.tok = tokenizer  # None: token-id prompts, the text is the ids
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots
@@ -413,14 +411,21 @@ class ServerContext(_cuda.GraphOwner):
         r.pending = []
 
     def _emit(self, i: int, new_tokens: list[int], probs=None):
-        """Append tokens, check stops, stream the text delta. Without a
-        tokenizer the text is the token ids joined by spaces."""
+        """Append tokens, check stops, stream the text delta. With a
+        tokenizer: stop at an end-of-generation token (unless ignore_eos),
+        re-decode the whole completion without special tokens and hold back
+        a trailing partial UTF-8 character. Without one the text is the
+        token ids joined by spaces."""
         r = self.rt[i]
         task = r.task
         p = task.params
+        vocab = self.tok.vocab if self.tok else None
         finished = None
         for step, t in enumerate(new_tokens):
             t = int(t)
+            if not p.ignore_eos and vocab is not None and vocab.is_eog(t):
+                finished = "stop"
+                break
             r.gen.append(t)
             if probs is not None and step < len(probs):
                 r.gen_probs.append({"token": t, **probs[step]})
@@ -428,7 +433,12 @@ class ServerContext(_cuda.GraphOwner):
             if len(r.gen) >= p.max_tokens:
                 finished = "length"
                 break
-        text = " ".join(map(str, r.gen))
+        if self.tok is not None:
+            text = self.tok.decode(r.gen, skip_special=True)
+            if text.endswith("\ufffd"):  # hold back partial utf-8
+                text = text[: text.rfind("\ufffd")]
+        else:
+            text = " ".join(map(str, r.gen))
         for s in p.stop:
             idx = text.find(s, max(0, len(r.sent_text) - len(s)))
             if idx >= 0:

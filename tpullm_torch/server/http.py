@@ -5,14 +5,20 @@ stdlib ThreadingHTTPServer whose request threads parse and validate, post a
 Task to the single inference loop, and answer with JSON or stream SSE
 chunks. Served:
 
-  POST /completion /completions /v1/completions   token-array prompts,
-                                                  plain or SSE-streamed
+  POST /completion /completions /v1/completions   text or token-array
+                                                  prompts, plain or SSE
+  POST /v1/chat/completions                       chat (the model's
+                                                  template), plain or SSE,
+                                                  with tools
+  POST /tokenize /detokenize /apply-template
   GET  /health /v1/models /props /metrics (Prometheus text) /slots
 
-Every other endpoint of the JAX server (chat, tokenize, embeddings, rerank,
-infill, slot and state actions, LoRA, the Anthropic and Responses APIs, the
-web UI), a text prompt (there is no tokenizer yet) and a grammar,
-JSON-schema or infill-sampler request answer 501 naming what is missing.
+Text, chat and the tokenizer endpoints need the context's tokenizer: a
+server started without one answers them 501. Every other endpoint of the
+JAX server (embeddings, rerank, infill, slot and state actions, LoRA, the
+Anthropic and Responses APIs, the web UI), media content parts and a
+grammar, JSON-schema or infill-sampler request answer 501 naming what is
+missing.
 """
 from __future__ import annotations
 
@@ -22,21 +28,23 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from .chat import apply_chat_template, get_template_src
 from .context import GenParams, ServerContext, Task
+from .toolcall import detect_format, inject_tools, parse_tool_calls
 
 COMPLETION_PATHS = ("/completion", "/completions", "/v1/completions")
+# what needs the context's tokenizer, by path
+TOKENIZER_PATHS = {"/v1/chat/completions": "chat completions", "/tokenize": "/tokenize",
+                   "/detokenize": "/detokenize", "/apply-template": "/apply-template"}
 # endpoints of the JAX server that the port does not serve yet
 NOT_PORTED = {
     "/": "the web UI", "/index.html": "the web UI", "/lora-adapters": "LoRA adapters",
-    "/v1/chat/completions": "chat completions (tokenizer and chat template)",
-    "/v1/messages": "the Anthropic Messages API (tokenizer and chat template)",
-    "/v1/messages/count_tokens": "the Anthropic Messages API (tokenizer)",
-    "/v1/responses": "the Responses API (tokenizer and chat template)",
-    "/tokenize": "the tokenizer", "/detokenize": "the tokenizer",
-    "/apply-template": "chat templates",
+    "/v1/messages": "the Anthropic Messages API",
+    "/v1/messages/count_tokens": "the Anthropic Messages API",
+    "/v1/responses": "the Responses API",
     "/embedding": "embeddings", "/embeddings": "embeddings", "/v1/embeddings": "embeddings",
     "/rerank": "reranking", "/reranking": "reranking", "/v1/rerank": "reranking",
-    "/v1/reranking": "reranking", "/infill": "infill (tokenizer and FIM tokens)",
+    "/v1/reranking": "reranking", "/infill": "infill (FIM prompts)",
     "/state": "state save/restore",
 }
 
@@ -113,6 +121,10 @@ class Handler(BaseHTTPRequestHandler):
     def _not_ported(self, what: str):
         self._error(501, f"{what}: not ported to tpullm_torch yet", "not_implemented_error")
 
+    def _no_tokenizer(self, what: str):
+        self._error(501, f"{what} need a tokenizer, and this server has none (start it "
+                    "from a GGUF that holds a vocab)", "not_implemented_error")
+
     def _body(self) -> dict:
         n = int(self.headers.get("Content-Length", 0))
         return json.loads(self.rfile.read(n)) if n else {}
@@ -168,6 +180,7 @@ class Handler(BaseHTTPRequestHandler):
             self._error(404, f"unknown path {path}")
 
     def do_POST(self):
+        ctx = self.ctx
         path = self.path.split("?")[0]
         try:
             body = self._body()
@@ -175,35 +188,85 @@ class Handler(BaseHTTPRequestHandler):
             return self._error(400, f"bad json: {e}")
         try:
             if path in COMPLETION_PATHS:
-                return self._completion(body)
+                return self._completion(body, chat=False)
             if path.startswith("/slots/"):
                 return self._not_ported("slot save/restore/erase")
             if path in NOT_PORTED:
                 return self._not_ported(NOT_PORTED[path])
-            return self._error(404, f"unknown path {path}")
+            if path not in TOKENIZER_PATHS:
+                return self._error(404, f"unknown path {path}")
+            if ctx.tok is None:
+                return self._no_tokenizer(TOKENIZER_PATHS[path])
+            if path == "/v1/chat/completions":
+                return self._completion(body, chat=True)
+            if path == "/tokenize":
+                toks = ctx.tok.encode(str(body.get("content", "")),
+                                      add_special=bool(body.get("add_special", False)))
+                return self._json(200, {"tokens": toks})
+            if path == "/detokenize":
+                toks = self._token_ids(body.get("tokens", []))
+                if toks is not None:
+                    self._json(200, {"content": ctx.tok.decode(toks)})
+                return
+            prompt = apply_chat_template(ctx, body.get("messages", []))
+            return self._json(200, {"prompt": prompt})
         except BrokenPipeError:
             pass
+        except NotImplementedError as e:  # a media part, a family's tokenizer
+            self._error(501, str(e), "not_implemented_error")
         except Exception as e:  # surface handler faults as 500s, keep serving
             try:
                 self._error(500, f"{type(e).__name__}: {e}")
             except Exception:
                 pass
 
-    def _completion(self, body: dict):
+    def _token_ids(self, ids) -> "list[int] | None":
+        """A token-id array within the vocabulary, else answer 400 -> None."""
+        V = self.ctx.cfg.vocab_size
+        if not (isinstance(ids, list) and all(isinstance(t, int) and not isinstance(t, bool)
+                                              and 0 <= t < V for t in ids)):
+            self._error(400, f"tokens must be an array of ids in [0, {V})")
+            return None
+        return ids
+
+    def _prompt_tokens(self, body: dict, chat: bool):
+        """The request's prompt as token ids -> (ids, tool-call format or
+        None); None in place of ids where the answer was already sent."""
+        ctx = self.ctx
+        if chat:
+            msgs = body.get("messages", [])
+            tools = body.get("tools")
+            tool_fmt = None
+            if tools and body.get("tool_choice") != "none":
+                tool_fmt = detect_format(get_template_src(ctx))
+                msgs = inject_tools(msgs, tools, tool_fmt)
+                text = apply_chat_template(ctx, msgs, tools=tools)
+            else:
+                text = apply_chat_template(ctx, msgs)
+            return ctx.tok.encode(text, add_special=True, parse_special=True), tool_fmt
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list) and prompt:
+            return self._token_ids(prompt), None
+        if not isinstance(prompt, str):
+            self._error(400, "prompt must be a string or an array of token ids")
+            return None, None
+        if ctx.tok is None:
+            self._no_tokenizer("text prompts")
+            return None, None
+        return ctx.tok.encode(prompt, add_special=True,
+                              parse_special=bool(body.get("parse_special", True))), None
+
+    def _completion(self, body: dict, chat: bool):
         ctx = self.ctx
         params = _gen_params(body)
         refused = params.unported()
         if refused:
             return self._not_ported(refused)
-        prompt = body.get("prompt", "")
-        if not (isinstance(prompt, list) and prompt
-                and all(isinstance(t, int) and not isinstance(t, bool) for t in prompt)):
-            return self._not_ported("text prompts (the tokenizer); send a token-id array")
-        tokens = [int(t) for t in prompt]
-        if not all(0 <= t < ctx.cfg.vocab_size for t in tokens):
-            return self._error(400, f"token ids must lie in [0, {ctx.cfg.vocab_size})")
+        tokens, tool_fmt = self._prompt_tokens(body, chat)
+        if tokens is None:
+            return
         created = int(time.time())
-        rid = "cmpl-" + uuid.uuid4().hex[:16]
+        rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:16]
         task = Task(tokens=tokens, params=params)
         ctx.submit(task)
         model = body.get("model") or ctx.model_name
@@ -216,10 +279,10 @@ class Handler(BaseHTTPRequestHandler):
                         self._sse({"error": payload})
                         break
                     if kind == "delta":
-                        self._sse(_chunk(rid, created, model, payload["text"], None))
+                        self._sse(_chunk(rid, created, model, payload["text"], None, chat))
                     elif kind == "done":
-                        self._sse(_chunk(rid, created, model, "", payload["reason"],
-                                         payload["stats"]))
+                        self._sse(_chunk(rid, created, model, "", payload["reason"], chat,
+                                         payload["stats"], payload["tokens"]))
                 self._sse_done()
             except BrokenPipeError:
                 task.cancelled.set()
@@ -235,12 +298,27 @@ class Handler(BaseHTTPRequestHandler):
         usage = {"prompt_tokens": stats["prompt_tokens"],
                  "completion_tokens": stats["completion_tokens"],
                  "total_tokens": stats["prompt_tokens"] + stats["completion_tokens"]}
+        if chat:
+            message = {"role": "assistant", "content": result["text"]}
+            finish = result["reason"]
+            if tool_fmt is not None:
+                content, calls = parse_tool_calls(result["text"], tool_fmt)
+                if calls:
+                    message = {"role": "assistant", "content": content or None,
+                               "tool_calls": calls}
+                    finish = "tool_calls"
+            return self._json(200, {
+                "id": rid, "object": "chat.completion", "created": created,
+                "model": model, "usage": usage, "timings": stats,
+                "choices": [{"index": 0, "finish_reason": finish, "message": message,
+                             "tokens": result["tokens"]}]})
         lp = None
         if result.get("logprobs"):
             tokp = result["logprobs"]
-            lp = {"tokens": None,
+            name = (lambda t: ctx.tok.decode([t])) if ctx.tok else str
+            lp = {"tokens": [name(e["token"]) for e in tokp] if ctx.tok else None,
                   "token_logprobs": [e["logprob"] for e in tokp],
-                  "top_logprobs": [{str(t): v for t, v in e["top"]} for e in tokp]}
+                  "top_logprobs": [{name(t): v for t, v in e["top"]} for e in tokp]}
         self._json(200, {
             "id": rid, "object": "text_completion", "created": created,
             "model": model, "usage": usage, "timings": stats,
@@ -250,9 +328,18 @@ class Handler(BaseHTTPRequestHandler):
         })
 
 
-def _chunk(rid, created, model, text, finish, stats=None):
-    obj = {"id": rid, "object": "text_completion", "created": created, "model": model,
-           "choices": [{"index": 0, "text": text, "finish_reason": finish}]}
+def _chunk(rid, created, model, text, finish, chat, stats=None, tokens=None):
+    """One SSE event; the last (finish set) also carries the timings and
+    every generated id."""
+    if chat:
+        choice = {"index": 0, "delta": {"content": text} if text else {},
+                  "finish_reason": finish}
+    else:
+        choice = {"index": 0, "text": text, "finish_reason": finish}
+    if tokens is not None:
+        choice["tokens"] = tokens
+    obj = {"id": rid, "object": "chat.completion.chunk" if chat else "text_completion",
+           "created": created, "model": model, "choices": [choice]}
     if stats:
         obj["timings"] = stats
     return obj

@@ -10,7 +10,10 @@
   router, unfused Q4_K gate/up/down experts stacked to (L, E, Npad, K)),
   the experts drawn on the device so no host array holds them;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
-  with a torch.Generator and centred the same way, for the kernel checks.
+  with a torch.Generator and centred the same way, for the kernel checks;
+- ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's layout (merges
+  drawn from a seed, Llama-3's special tokens and chat template), for the
+  server's text and chat paths.
 Every array has the dtype, shape and value range pack_kmajor +
 fuse_layer_weights would produce.
 """
@@ -28,6 +31,8 @@ from ..ops._cuda import resolve_device
 from ..ops.fuse import pad256
 from ..ops.qtensor import QTensor
 from ..quant.kmajor import KM_SPECS, dstore_for
+from ..tokenizer.tokenizer import _BYTE_ENC
+from ..tokenizer.vocab import TokenAttr, Vocab
 
 
 def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
@@ -195,3 +200,83 @@ def random_kmajor(qtype: GGMLType, parts: list[int], K: int, lead: tuple = (),
     elif spec.bias == "f32":
         data["bm"] = -mid * d
     return QTensor(qtype, lead + (npad, K), data)
+
+
+# the chat template of meta-llama/Meta-Llama-3-8B-Instruct (tokenizer_config.json)
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + '<|end_header_id|>\\n\\n'"
+    "+ message['content'] | trim + '<|eot_id|>' %}"
+    "{% if loop.index0 == 0 %}{% set content = bos_token + content %}{% endif %}"
+    "{{ content }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}"
+    "{% endif %}")
+# Llama-3's 256 special tokens, from id n_vocab - 256 (128000 at 128256)
+_LLAMA3_NAMED = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 6: "<|start_header_id|>",
+                 7: "<|end_header_id|>", 9: "<|eot_id|>"}
+
+
+# English letter frequencies (%), a-z: the 4-gram tokens are drawn by them
+_EN_FREQ = (8.2, 1.5, 2.8, 4.3, 12.7, 2.2, 2.0, 6.1, 7.0, 0.15, 0.8, 4.0, 2.4, 6.7, 7.5, 1.9,
+            0.1, 6.0, 6.3, 9.1, 2.8, 1.0, 2.4, 0.15, 2.0, 0.07)
+
+
+def synth_bpe_vocab(n_vocab: int = 128256, pre: str = "llama-bpe", seed: int = 0) -> Vocab:
+    """A byte-level BPE vocab at Llama-3's layout, built from ``seed``.
+
+    Ids 0-255 are the GPT-2 byte tokens. Then come tokens made of lowercase
+    ASCII letters, which may start with the space mark "Ġ", each with a
+    merge for every split into two shorter such tokens, so that English
+    words merge into multi-byte tokens and the rank loop does real work:
+    every 2- and 3-letter token, in an order drawn from the seed, then
+    4-letter tokens drawn by English letter frequencies, with one in ten
+    tokens instead the join of any two tokens. Ranks follow the order
+    drawn. The last 256 ids are Llama-3's special tokens (control tokens):
+    ``<|begin_of_text|>`` (BOS), ``<|end_of_text|>`` (EOS),
+    ``<|start_header_id|>``, ``<|end_header_id|>``, ``<|eot_id|>`` (EOT)
+    and reserved ones. The vocab carries Llama-3's chat template."""
+    n_special = 256
+    base = n_vocab - n_special
+    if base < 256:
+        raise ValueError(f"n_vocab {n_vocab} leaves no room for the byte tokens")
+    rng = np.random.default_rng(seed)
+    tokens = [_BYTE_ENC[b] for b in range(256)]
+    seen = set(tokens)
+    merges = []
+    sp = _BYTE_ENC[ord(" ")]
+    az = "abcdefghijklmnopqrstuvwxyz"
+
+    def add(t: str, n_split: int = 0) -> None:
+        """Token t with a merge for each split after its first n_split
+        characters (tokens of the letters; the space mark counts as one)."""
+        if len(tokens) < base and t not in seen:
+            seen.add(t)
+            tokens.append(t)
+            merges.extend(f"{t[:k]} {t[k:]}" for k in range(1, len(t)) if k <= n_split
+                          or t[:k] in seen and t[k:] in seen)
+
+    for n in (2, 3):
+        words = ["".join(c) for c in np.array(np.meshgrid(
+            *[list(sp + az)] + [list(az)] * (n - 1), indexing="ij")).reshape(n, -1).T]
+        for j in rng.permutation(len(words)):
+            add(words[j], n)
+    p = np.asarray(_EN_FREQ) / sum(_EN_FREQ)
+    while len(tokens) < base:
+        letters = rng.choice(26, size=(4096, 4), p=p)
+        lead = rng.random(4096) < 0.3  # a word's start: the space mark first
+        wide = rng.random((4096, 3))
+        for row, sp_first, (w, a, b) in zip(letters, lead, wide):
+            if w < 0.1:  # the join of any two tokens
+                add(tokens[int(a * len(tokens))] + tokens[int(b * len(tokens))])
+            else:
+                word = "".join(az[c] for c in row)
+                add(sp + word[1:] if sp_first else word, 3)
+    reserved = iter(range(n_special))
+    for k in range(n_special):
+        tokens.append(_LLAMA3_NAMED.get(k) or f"<|reserved_special_token_{next(reserved)}|>")
+    v = Vocab(model="gpt2", pre=pre, tokens=tokens, merges=merges,
+              attrs=[TokenAttr.NORMAL] * base + [TokenAttr.CONTROL] * n_special,
+              bos_id=base, eos_id=base + 1, eot_id=base + 9, add_bos=True,
+              add_space_prefix=False, chat_template=LLAMA3_CHAT_TEMPLATE)
+    v._build_caches()
+    return v

@@ -29,7 +29,10 @@ pass):
    the server's decode step and a 512-row prefill chunk on its int8
    cache, and at the 8B and Mixtral engines' decode step and 4x512
    prefill on their bf16 cache (there beside one ``index_put_`` a bank),
-   bit for bit against its plain version;
+   bit for bit against its plain version; A and B at Qwen3-8B's new
+   weights (gate/up N 24576, down K 12288, the 151936-row lm_head over
+   152064 padded rows) and at Qwen2.5-7B's widths (K 3584 and 18944), D at
+   Qwen3-8B's layer, C and E at Qwen2.5-7B's heads (a GQA group of 7);
 3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
    (tolerance: 4x the error of the same plain path in bf16); then the
@@ -79,16 +82,28 @@ pass):
    and once eagerly with the same tokens and launch counts;
 8. phase 5's decode-step (graph and eager) and prefill profiles on the MoE
    slice (the prefill's device time outside the kernels is the routing's
-   cost).
+   cost);
+9. the dense decoder's flags at full width: Qwen3-8B with 2 layers (per-head
+   QK norms, untied 151936-row lm_head) against the CPU as phase 3; a
+   4-layer run at Qwen2.5-7B's width (q/k/v biases, G = 7, depth cut from
+   28; kernel E in its decode steps, kernel D never) the same way; the
+   36-layer Qwen3-8B model answers phase 4's 4 requests (graph replays,
+   then eagerly: the same tokens and launch counts, A-D and the store
+   launched); then its server (4 slots of 4096, int8 KV, kernel E, a
+   byte-level BPE tokenizer at Qwen2's layout with ChatML) answers a burst
+   of 4 token-id completions and 2 chat completions, one of them stopped
+   at <|im_end|>, with A-E and the store launched.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
 activations stay in range through 32 layers and greedy tokens vary;
 synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
-card). The last lines are the kernel table as JSON (each row's launches
-on the run of its path: the 8B engine slice, the 8B server slice for
-kernel E, the Mixtral slice), the card's name and power limit, and the
-result line.
+card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
+q/k norms or biases). The last lines are the kernel table as JSON (each
+row's launches on the run of its path: the 8B engine slice, the 8B server
+slice for kernel E, the Mixtral slice, the Qwen3-8B slice, the
+Qwen2.5-7B-width run), the card's name and power limit, and the result
+line.
 """
 import gc
 import hashlib
@@ -113,6 +128,19 @@ VOCAB, D, N_LAYER, H, HKV, HD, N_FF = 128256, 4096, 32, 32, 8, 128, 14336
 # Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json): the same attention
 # widths, vocab 32000, 8 experts of n_ff 14336, top-2
 M_VOCAB, M_EXPERT, M_USED = 32000, 8, 2
+
+# Qwen3-8B (Qwen/Qwen3-8B config.json): hidden 4096, 36 layers, 32/8 heads of
+# 128 (the 8B's attention widths), intermediate 12288, vocab 151936 (the
+# lm_head's arrays padded to 152064), rope_theta 1e6, rms_norm_eps 1e-6,
+# untied embeddings, neox RoPE, per-head q/k RMS norms
+QWEN3 = dict(arch="qwen3", vocab_size=151936, n_embd=D, n_layer=36, n_head=H, n_head_kv=HKV,
+             n_ff=12288, rope_base=1e6, rms_eps=1e-6, exact_vocab=True)
+# Qwen2.5-7B (Qwen/Qwen2.5-7B config.json): hidden 3584, 28 layers, 28/4 heads
+# of 128 (a GQA group of 7), intermediate 18944, vocab 152064, rope_theta
+# 1e6, rms_norm_eps 1e-6, q/k/v biases
+QWEN25 = dict(arch="qwen2", vocab_size=152064, n_embd=3584, n_layer=28, n_head=28, n_head_kv=4,
+              n_ff=18944, rope_base=1e6, rms_eps=1e-6, exact_vocab=True)
+QWEN25_LAYERS = 4  # the Qwen2.5-7B-width run's depth, cut from 28
 
 TOL_QMM_NMSE = 1e-5  # same bf16 weights, f32 sums in another order, bf16 out
 TOL_ATTN_NMSE = 1e-4  # p rounded to bf16 before vs after normalization
@@ -337,8 +365,9 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
         bound_ms=bound, bound_by=by, bits=bits, **({"device_ms": split} if split else {})))
 
 
-def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
-    """One row of kernel C at Llama-3-8B's heads: query slots n_past ..
+def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H, HKV)):
+    """One row of kernel C at ``heads`` (query, kv; Llama-3-8B's unless
+    given): query slots n_past ..
     n_past + T - 1 of each batch row over an S-slot cache, K/V live from
     valid_from to the last query slot. Held against masked_attention (NMSE
     on rows with a visible key, padding rows exactly 0, two calls
@@ -352,6 +381,7 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B"):
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
 
+    H, HKV = heads
     vf = torch.tensor(vf, device="cuda")
     q = torch.randn((B, T, H, HD), generator=g, device="cuda").to(torch.bfloat16)
     k = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
@@ -451,8 +481,9 @@ def matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
     return g
 
 
-def layer_rows(torch, timer, entries, g, M=4):
-    """Phase 2's rows of kernel D at Llama-3-8B's widths, Q4_K, plain and
+def layer_rows(torch, timer, entries, g, M=4, n_ff=N_FF, path="8B"):
+    """Phase 2's rows of kernel D at Llama-3-8B's widths (or, with n_ff and
+    path, Qwen3-8B's: the same attention, n_ff 12288), Q4_K, plain and
     folded: held against its plain version (NMSE, two calls bit-identical)
     and timed beside it and beside the same layer through the port's own
     unfused path (models/llama.py: qmm on wo with the residual, rms_norm,
@@ -471,10 +502,10 @@ def layer_rows(torch, timer, entries, g, M=4):
     L = 2
     qtype = GGMLType.Q4_K
     cfg = ModelConfig(n_embd=D, n_layer=L, n_head=H, n_head_kv=HKV, head_dim=HD,
-                      head_dim_v=HD, n_ff=N_FF)
+                      head_dim_v=HD, n_ff=n_ff)
     qw = {"wo": random_kmajor(qtype, [D], H * HD, (L,), g, "cuda"),
-          "ffn_gateup": random_kmajor(qtype, [N_FF, N_FF], D, (L,), g, "cuda"),
-          "ffn_down": random_kmajor(qtype, [D], N_FF, (L,), g, "cuda"),
+          "ffn_gateup": random_kmajor(qtype, [n_ff, n_ff], D, (L,), g, "cuda"),
+          "ffn_down": random_kmajor(qtype, [D], n_ff, (L,), g, "cuda"),
           "wqkv": random_kmajor(qtype, [H * HD, HKV * HD, HKV * HD], D, (L,), g, "cuda")}
     norms = 1 + 0.1 * torch.randn((2, L, D), generator=g, device="cuda")
     att = (0.5 * torch.randn((M, 1, H * HD), generator=g, device="cuda")).to(torch.bfloat16)
@@ -512,7 +543,8 @@ def layer_rows(torch, timer, entries, g, M=4):
         ms = timer(run, 20)
         pms = timer(plain, 3, warmup=1)
         ums = timer(lambda: unfused(fold), 20)
-        label = f"layer_kernel[{'folded' if fold else 'plain'},Q4_K,M={M}]"
+        label = (f"layer_kernel[{'folded' if fold else 'plain'},Q4_K,M={M}"
+                 + ("]" if path == "8B" else f",{path}]"))
         log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_LAYER_NMSE:g}) repeat identical "
             f"{same} max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms null "
             f"bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.3f} unfused_ms {ums:.4f} "
@@ -521,7 +553,8 @@ def layer_rows(torch, timer, entries, g, M=4):
             raise AssertionError(f"{label}: nmse {errs}, repeat identical {same}")
         entries.append(dict(
             name=label, route="cuda", source=SOURCES["layer_kernel"][0],
-            replaces=SOURCES["layer_kernel"][1], kernel="layer_kernel", max_abs_err=mae,
+            replaces=SOURCES["layer_kernel"][1], kernel="layer_kernel", path=path,
+            max_abs_err=mae,
             ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound, bound_by=by,
             share_of_bound=bound / ms, unfused_ms=ums))
     del qw
@@ -561,6 +594,55 @@ def phase_kernels(torch, timer, entries):
 
     # D: the decode layer kernel at M = 4, plain and folded
     layer_rows(torch, timer, entries, g)
+    _cuda.reset_counts()
+
+
+def phase_qwen_kernels(torch, timer, entries):
+    """Phase 2's rows at the Qwen phase's shapes, Q4_K, each at the M its
+    path gives it: kernels A and B on Qwen3-8B's new weights (gate/up N
+    24576, down K 12288, the lm_head's 151936 rows over 152064 padded) at
+    the slice's decode (M = 4) and prefill (M = 2048), and at Qwen2.5-7B's
+    widths (wqkv at 28/4 heads, gate/up and down: K 3584 and 18944) at its
+    parity run's decode (M = 2) and prefill (M = 256); kernel D at
+    Qwen3-8B's layer (M = 4, plain and folded); kernels C and E at
+    Qwen2.5-7B's heads (a GQA group of 7) at that run's prefill (B 2, T 128,
+    S 256) and first decode step (bf16 K/V, queries at slot 128 from
+    valid_from 0 and 28)."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.ops.qtensor import QTensor
+    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
+    from tpullm_torch.utils.synth import random_kmajor
+
+    g = torch.Generator(device="cuda").manual_seed(1515)
+    q3, q25 = QWEN3, QWEN25
+    d25, hd25 = q25["n_embd"], q25["n_head_kv"] * HD
+    weights = [("Qwen3-8B", "gateup", [q3["n_ff"]] * 2, D),
+               ("Qwen3-8B", "down", [D], q3["n_ff"]),
+               ("Qwen3-8B", "lm_head", [q3["vocab_size"]], D),
+               ("Qwen2.5-7B", "wqkv", [d25, hd25, hd25], d25),
+               ("Qwen2.5-7B", "gateup", [q25["n_ff"]] * 2, d25),
+               ("Qwen2.5-7B", "down", [d25], q25["n_ff"])]
+    for path, name, parts, K in weights:
+        qtype = GGMLType.Q4_K
+        qt = random_kmajor(qtype, parts, K, (), g, "cuda")
+        if len(parts) == 1:  # the logical rows over the padded arrays, as loaded
+            qt = QTensor(qtype, (parts[0], K), qt.data)
+        w_bf16 = dequant_kmajor_torch(qt.data, qtype, torch.bfloat16)[: qt.n_out]
+        for kname, M in ((("qmm_splitk", 4), ("qmm", 2048)) if path == "Qwen3-8B" else
+                         (("qmm_splitk", 2), ("qmm", 256))):
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            qmm_row(torch, timer, entries, kname,
+                    f"{kname}[{name} {qt.n_out}x{K},{qtype.name},M={M},{path}]", x, qt, w_bf16,
+                    path=path)
+            del x
+        del qt, w_bf16
+        torch.cuda.empty_cache()
+    layer_rows(torch, timer, entries, g, n_ff=q3["n_ff"], path="Qwen3-8B")
+    attn_row(torch, timer, entries, g, B=2, T=128, S=256, n_past=0, vf=[0, 28],
+             path="Qwen2.5-7B", heads=(q25["n_head"], q25["n_head_kv"]))
+    decode_row(torch, timer, entries, g, "Qwen2.5-7B run", 256, [128, 128], [0, 28], False,
+               heads=(q25["n_head"], q25["n_head_kv"]), path="Qwen2.5-7B")
     _cuda.reset_counts()
 
 
@@ -726,8 +808,10 @@ def decode_operands(torch, g, B, T, Hq, Hk, S, hd, slots, q8, vf=None):
     return q, k, v, ks, vs, qs, qs - vf[:, None], vf
 
 
-def decode_row(torch, timer, entries, g, where, S, slots, vf, q8):
-    """One row of kernel E at Llama-3-8B's heads (32/8 of 128, T = 1) over
+def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV),
+               path="8B server"):
+    """One row of kernel E at ``heads`` (Llama-3-8B's 32/8 of 128 unless
+    given; T = 1) over
     an S-slot view, row b's query at slots[b] with keys from vf[b]: against
     its plain version (NMSE 1e-4, two calls bit-identical), timed beside
     the plain version, SDPA with a boolean mask over the bf16 views
@@ -744,6 +828,7 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8):
     from tpullm_torch.ops.flash_attention import masked_attention
     from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
 
+    H, HKV = heads
     B = len(slots)
     scale = 1.0 / math.sqrt(HD)
     cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD)
@@ -787,7 +872,7 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8):
         raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["flash_decode"][0],
-        replaces=SOURCES["flash_decode"][1], kernel="flash_decode", path="8B server",
+        replaces=SOURCES["flash_decode"][1], kernel="flash_decode", path=path,
         max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library="SDPA",
         bound_ms=bound, bound_by=by, einsum_ms=ems, device_ms=split, bits=bits))
     del q, k, v, ks, vs, kd, vd, mask, got, again, want
@@ -970,18 +1055,24 @@ def plain_cpu_copy(torch, params):
     return {k: conv(k, v) for k, v in params.items()}
 
 
-def phase_parity(torch):
-    """Phase 3: 2-layer full-width 8B, kernels on the card vs the plain path
-    on a CPU copy, on the same tokens (teacher-forced with the card's
-    greedy picks)."""
+def phase_parity(torch, label="8B", seed=7, flash_decode=None, **model):
+    """Phase 3 (and the Qwen phase's parity runs): a model cut to a few
+    layers at full width (``model``: synth_kmajor_q4k_fast's keywords, by
+    default the 8B's with 2 layers), kernels on the card vs the plain path
+    on a CPU copy, on the same tokens (teacher-forced with the card's greedy
+    picks): a 128-token prefill and 4 decode steps, the decode steps with
+    TPULLM_FLASH_DECODE set to ``flash_decode``. -> the card's launch
+    counts."""
     import numpy as np
 
     from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.ops import _cuda
     from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
 
-    cfg, params = synth_kmajor_q4k_fast(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H,
-                                        n_head_kv=HKV, n_ff=N_FF, seed=7, centred=True,
-                                        device="cuda")
+    spec = dict(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H, n_head_kv=HKV, n_ff=N_FF)
+    spec.update(model)
+    vocab = spec["vocab_size"]
+    cfg, params = synth_kmajor_q4k_fast(**spec, seed=seed, centred=True, device="cuda")
     cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(3)
     B, T, S = 2, 128, 256
@@ -989,7 +1080,7 @@ def phase_parity(torch):
     tok = np.zeros((B, T), np.int64)
     posn = np.zeros((B, T), np.int64)
     for b, n in enumerate(lens):
-        tok[b, T - n:] = rng.integers(0, VOCAB, n)
+        tok[b, T - n:] = rng.integers(0, vocab, n)
         posn[b, T - n:] = np.arange(n)
     vf = np.asarray([T - n for n in lens], np.int64)
     sides = {}
@@ -1002,36 +1093,47 @@ def phase_parity(torch):
     cur_tok = torch.from_numpy(tok)
     cur_pos = torch.from_numpy(posn)
     slot, T_step = 0, T
-    with torch.inference_mode():
-        for step in range(5):
-            out = {}
-            for name, s in sides.items():
-                dev = s["dev"]
-                t0 = time.perf_counter()
-                lg, _ = forward(s["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), s["cache"], slot,
-                                s["vf"], s["dtype"], kv_view_len=None if step == 0 else S)
-                out[name] = lg[:, -1].float().cpu()
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                s.setdefault("sec", []).append(time.perf_counter() - t0)
-            errs.append(nmse(torch, out["card"], out["cpu"]))
-            ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
-            agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
-            nxt = out["card"].argmax(-1)
-            slot += T_step
-            T_step = 1
-            cur_tok = nxt[:, None].to(torch.int64)
-            cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
+    _cuda.reset_counts()
+    try:
+        with torch.inference_mode():
+            for step in range(5):
+                set_flash_decode(flash_decode if step else None)
+                out = {}
+                for name, s in sides.items():
+                    dev = s["dev"]
+                    t0 = time.perf_counter()
+                    lg, _ = forward(s["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), s["cache"],
+                                    slot, s["vf"], s["dtype"],
+                                    kv_view_len=None if step == 0 else S)
+                    out[name] = lg[:, -1].float().cpu()
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    s.setdefault("sec", []).append(time.perf_counter() - t0)
+                errs.append(nmse(torch, out["card"], out["cpu"]))
+                ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
+                agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
+                nxt = out["card"].argmax(-1)
+                slot += T_step
+                T_step = 1
+                cur_tok = nxt[:, None].to(torch.int64)
+                cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
+    finally:
+        set_flash_decode(None)
+    counts = dict(_cuda.COUNTS)
     tol = TOL_E2E_FACTOR * max(ref_errs)
-    log(f"parity 2-layer 8B (prefill T={T} + 4 decode steps): card vs CPU f32 logits "
-        f"nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
+    width = {k: v for k, v in spec.items() if k != "n_layer"}
+    log(f"parity {spec['n_layer']}-layer {label} {width} (prefill T={T} + 4 decode steps"
+        f"{', TPULLM_FLASH_DECODE=' + flash_decode if flash_decode else ''}): card vs CPU f32 "
+        f"logits nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
         f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the "
         f"largest); greedy agree {agree}; card s {[round(x, 3) for x in sides['card']['sec']]} "
-        f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]}")
+        f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]}; launches {counts}")
     if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
-        raise AssertionError(f"2-layer parity: nmse {errs}, tolerance {tol}")
+        raise AssertionError(f"{label} parity: nmse {errs}, tolerance {tol}")
+    _cuda.reset_counts()
     del params, cpu, sides
     torch.cuda.empty_cache()
+    return counts
 
 
 def server_prefill(params, cfg, cache, slot, prompt, dtype, chunk=512):
@@ -1354,7 +1456,7 @@ def http_json(url, body, timeout=600):
     return status, json.loads(raw)
 
 
-def server_burst(base, prompts, label, tok):
+def server_burst(base, prompts, label, tok, vocab=VOCAB):
     """The burst: one thread per request, all sent at once, token-id prompts
     with ignore_eos (every request makes SERVER_NEW tokens). Request
     SERVER_STREAMED streams, SERVER_SAMPLED samples (temperature 0.8, top_k
@@ -1400,7 +1502,7 @@ def server_burst(base, prompts, label, tok):
             stats = r["timings"]
             ok = (len(ids) == SERVER_NEW == r["usage"]["completion_tokens"]
                   and r["choices"][0]["text"] == visible(tok, ids))
-        if not ok or not all(0 <= x < VOCAB for x in ids):
+        if not ok or not all(0 <= x < vocab for x in ids):
             raise AssertionError(f"server {label}: request {i} output check failed: "
                                  f"{len(ids)} ids, stats {stats}")
         out.append(dict(prompt_tokens=stats["prompt_tokens"], prefill_s=stats["prefill_s"],
@@ -1817,6 +1919,177 @@ def phase_server(torch, cfg, params):
     return counts, chat_counts
 
 
+QWEN_SERVER_PROMPTS = [2000, 700, 300, 40]  # the Qwen3 burst: 4 requests on 4 slots
+
+
+def phase_qwen_server(torch, cfg, params):
+    """The Qwen phase's server, on the 36-layer Qwen3-8B model:
+    ServerContext (4 slots of 4096, int8 KV, decode_chunk 8, prefill_chunk
+    512, its decode steps CUDA graph replays, kernel E on) with a byte-level
+    BPE tokenizer at Qwen2's layout (synth_bpe_vocab(151936, layout="qwen2"),
+    pre-type qwen2, ChatML) behind serve() on a free local port. With the
+    launch counts set to 0: a burst of QWEN_SERVER_PROMPTS token-id
+    completions (server_burst's checks: 64 tokens each, the tokenizer's
+    text, one streamed, one sampled), then /apply-template and 2 concurrent
+    chat completions: one greedy of 16 tokens, and one whose logit_bias
+    makes <|im_end|> the greedy choice, which must stop there at once
+    ("stop", no text, no tokens); each prompt_tokens the in-process encode
+    of the rendered template. A-E and the store launched. -> the launch
+    counts."""
+    import numpy as np
+    import socket
+    import threading
+
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.server.chat import apply_chat_template
+    from tpullm_torch.server.context import ServerContext
+    from tpullm_torch.server.http import serve
+    from tpullm_torch.tokenizer import Tokenizer
+    from tpullm_torch.utils.synth import synth_bpe_vocab
+
+    vocab = QWEN3["vocab_size"]
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in QWEN_SERVER_PROMPTS]
+    t = time.perf_counter()
+    tok = Tokenizer(synth_bpe_vocab(vocab, layout="qwen2"))
+    log(f"server Qwen3-8B: synth_bpe_vocab({vocab}, layout='qwen2') and its tokenizer in "
+        f"{time.perf_counter() - t:.3f} s")
+    ctx = ServerContext(cfg, params, tok, n_slots=4, max_seq_len=4096, decode_chunk=8,
+                        prefill_chunk=512, kv_dtype="q8", model_name="qwen3-8b-shape")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = f"http://127.0.0.1:{port}"
+    set_flash_decode("1")
+    srv = serve(ctx, "127.0.0.1", port, block=False)
+    report = {}
+    try:
+        status, r = http_json(base + "/completion", {"prompt": prompts[-1], "max_tokens": 8,
+                                                     "temperature": 0.0})
+        if status != 200:
+            raise AssertionError(f"server Qwen3-8B warm-up answered {status}: {r}")
+        ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        res, wall = server_burst(base, prompts, "Qwen3-8B", tok, vocab=vocab)
+        report["burst"] = {"requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
+                           "wall_s": wall,
+                           "completion_tok_per_s": len(prompts) * SERVER_NEW / wall}
+        convo = [{"role": "user", "content": "Hello! Who are you?"}]
+        status, r = http_json(base + "/apply-template", {"messages": convo})
+        want = apply_chat_template(ctx, convo)
+        if status != 200 or r["prompt"] != want or want != (
+                "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n<|im_start|>user"
+                "\nHello! Who are you?<|im_end|>\n<|im_start|>assistant\n"):
+            raise AssertionError(f"Qwen3 /apply-template answered {status}: {r}")
+        im_end = tok.vocab.eot_id
+        bodies = [{"messages": [{"role": "user", "content": "Write a short story about a fox."}],
+                   "max_tokens": 16, "temperature": 0.0},
+                  {"messages": [{"role": "user", "content": "Say nothing at all."}],
+                   "max_tokens": 16, "temperature": 0.0, "logit_bias": {str(im_end): 100.0}}]
+        want_prompt = [len(tok.encode(apply_chat_template(ctx, b["messages"]), add_special=True,
+                                      parse_special=True)) for b in bodies]
+        results = [None] * len(bodies)
+
+        def one(i):
+            results[i] = http_json(base + "/v1/chat/completions", bodies[i])
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        chat_wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        counts = dict(_cuda.COUNTS)
+        rows = []
+        for kind, n_prompt, (status, r) in zip(("greedy", "forced_im_end"), want_prompt, results):
+            if status != 200:
+                raise AssertionError(f"Qwen3 chat {kind}: answered {status}: {r}")
+            choice, stats = r["choices"][0], r["timings"]
+            ids_out, got = choice["tokens"], choice["message"]["content"]
+            ok = (stats["prompt_tokens"] == n_prompt and got == visible(tok, ids_out)
+                  and stats["completion_tokens"] == len(ids_out) <= 16
+                  and all(0 <= x < vocab for x in ids_out))
+            if kind == "forced_im_end":
+                ok = ok and choice["finish_reason"] == "stop" and got == "" and not ids_out
+            if not ok:
+                raise AssertionError(f"Qwen3 chat {kind}: check failed: prompt_tokens "
+                                     f"{stats['prompt_tokens']} (want {n_prompt}), text {got!r}, "
+                                     f"finish {choice['finish_reason']}, {len(ids_out)} ids")
+            rows.append({"kind": kind, "prompt_tokens": stats["prompt_tokens"],
+                         "completion_tokens": stats["completion_tokens"],
+                         "finish_reason": choice["finish_reason"],
+                         "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"]})
+        report["chat"] = {"requests": rows, "wall_s": chat_wall}
+    finally:
+        set_flash_decode(None)
+        srv.shutdown()
+        srv.server_close()
+        ctx.stop()
+    log(f"server Qwen3-8B (4 slots x 4096, q8 KV, decode_chunk 8, prefill_chunk 512, kernel E; "
+        f"prompts {QWEN_SERVER_PROMPTS}, {SERVER_NEW} new tokens each; 2 chats): "
+        f"{json.dumps(report)}")
+    log(f"server Qwen3-8B: launches (burst + chat) {counts}")
+    missing = [k for k in DENSE_KERNELS + ("flash_decode",) if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"server Qwen3-8B: kernels not launched {missing}")
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_qwen(torch):
+    """Phase 9, the dense decoder's flags at full width: the 2-layer
+    Qwen3-8B parity (per-head QK norms, untied 151936-row lm_head) and a
+    4-layer run at Qwen2.5-7B's width (q/k/v biases, GQA group 7, no kernel
+    D, kernel E on in its decode steps) against the CPU (phase 3's rule);
+    then the 36-layer Qwen3-8B model: the slice (4 requests, prefill 4x512,
+    decode as graph replays, graph and eager greedy tokens equal from the
+    same generator state, A-D and the store launched) with phase 5's
+    decode-step profile as graph replays, and its server. -> launch counts
+    by path."""
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    counts = {}
+    t = time.perf_counter()
+    phase_parity(torch, "Qwen3-8B", seed=9, **dict(QWEN3, n_layer=2))
+    log(f"phase parity Qwen3-8B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Qwen2.5-7B"] = c = phase_parity(
+        torch, f"Qwen2.5-7B (depth cut from {QWEN25['n_layer']})", seed=10, flash_decode="1",
+        **dict(QWEN25, n_layer=QWEN25_LAYERS))
+    missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "kv_store", "flash_decode")
+               if c[k] <= 0]
+    if missing or c["layer_kernel"]:
+        raise AssertionError(f"Qwen2.5-7B run: kernels not launched {missing}, layer kernel "
+                             f"{c['layer_kernel']} (the bias archs take no kernel D)")
+    log(f"phase parity Qwen2.5-7B width: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_kmajor_q4k_fast(**QWEN3, seed=0, centred=True, device="cuda")
+    torch.cuda.synchronize()
+    log(f"slice Qwen3-8B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
+        f"{time.perf_counter() - t:.3f} s; config {cfg.arch} rope {cfg.rope_type} "
+        f"base {cfg.rope_base:g} eps {cfg.rms_eps:g} qk_norm {cfg.attn_qk_norm}")
+    counts["Qwen3-8B"], eng, eager, prompts = phase_slice(torch, "Qwen3-8B", cfg, params,
+                                                          QWEN3["vocab_size"], DENSE_KERNELS)
+    phase_decode(torch, eng, prompts, " Qwen3-8B graph")
+    del eng, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice Qwen3-8B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Qwen3-8B server"] = phase_qwen_server(torch, cfg, params)
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase server Qwen3-8B: {time.perf_counter() - t:.1f} s")
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights."""
     qts = [params["tok_embd"], params["output"]] + [
@@ -2083,6 +2356,7 @@ def main() -> int:
     phase_moe_kernels(torch, timer, entries)
     phase_flash_decode(torch, timer, entries)
     phase_kv_store(torch, timer, entries)
+    phase_qwen_kernels(torch, timer, entries)
     del timer  # its 256 MB L2-flush buffer would count in the slices' peak memory
     torch.cuda.empty_cache()
     _cuda.reset_counts()
@@ -2137,9 +2411,12 @@ def main() -> int:
                           " Mixtral-8x7B")
     del eng, eager
     log(f"phase decode steps Mixtral: {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen_counts = phase_qwen(torch)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
-               "8B server chat": chat_counts}
+               "8B server chat": chat_counts, **qwen_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

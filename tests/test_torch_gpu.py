@@ -394,6 +394,61 @@ def test_engine_head_dim_256_on_card_matches_cpu(cuda, monkeypatch, flag):
             assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
 
 
+@pytest.mark.parametrize("flag", [None, "1"])
+@pytest.mark.parametrize("arch", ["qwen3", "qwen2"])
+def test_engine_arch_flags_on_card_matches_cpu(cuda, monkeypatch, arch, flag):
+    """The dense decoder's flags on the card: a 2-layer qwen3 synth (per-head
+    QK norms; n_embd 512, 4/2 heads) and a 2-layer qwen2 synth (q/k/v
+    biases; n_embd 1792, 14/2 heads of 128, so a GQA group of 7 as
+    Qwen2.5-7B's), each with a 500-row vocab over 512-row padded arrays
+    (logits 500 wide). Through the engine on the card against the plain
+    path on the CPU in f32, with test_engine_on_card_matches_cpu's rule;
+    qwen3 decodes on kernel D, qwen2 on A's unfused path (no D), both
+    prefill on C; then the same requests with cuda_graphs=False give the
+    graph's greedy tokens and launch counts."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    width = dict(n_embd=512, n_head=4, n_head_kv=2) if arch == "qwen3" else dict(
+        n_embd=1792, n_head=14, n_head_kv=2)
+    cfg, params = synth_kmajor_q4k_fast(vocab_size=500, n_layer=2, n_ff=1024, seed=3,
+                                        centred=True, device="cpu", arch=arch, rope_base=1e6,
+                                        rms_eps=1e-6, exact_vocab=True, **width)
+    card = {k: (v.to("cuda") if not isinstance(v, dict) else
+                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    prompts = [list(range(1, 101)), list(range(7, 67)), list(range(40, 70))]
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(prompts, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    assert logits["card"][0].shape[-1] == 500
+    assert all(0 <= t < 500 for row in logits["card"][1] for t in row)
+    assert c["qmm_splitk"] > 0 and c["qmm"] > 0 and c["flash_attention"] > 0, c
+    assert (c["layer_kernel"] > 0) == (arch == "qwen3"), c
+    assert (c["flash_decode"] > 0) == bool(flag), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+    top2 = torch.topk(logits["cpu"][0], 2, dim=-1).values
+    for b, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+        if gap > 0.05:
+            assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
+
+
 def _ragged(cuda, g, routing, E, M=150, K=2048, used=2, tm=256):
     """Expert-sorted rows for a routing: random, all to one expert
     (skewed), or with experts 0 and E-1 never chosen (empty), on row tiles

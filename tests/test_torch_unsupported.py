@@ -21,7 +21,8 @@ torch.set_num_threads(2)
 
 @pytest.mark.parametrize("field,value", [
     ("sliding_window", 128), ("attn_logit_softcap", 30.0), ("n_expert", 8),
-    ("n_expert_shared", 2), ("attn_bias", True), ("attn_qk_norm", True), ("post_norms", True),
+    ("n_expert_shared", 2), ("qk_l2_norm", True), ("residual_scale", 0.5),
+    ("attn_gate_proj", True),
     ("parallel_residual", True), ("act_fn", "gelu"), ("norm_type", "layernorm"),
     ("embedding_scale", 2.0), ("kv_lora_rank", 64), ("alibi_max_bias", 8.0)])
 def test_flag_outside_dense_path_raises(field, value):
@@ -91,8 +92,8 @@ def test_per_layer_head_counts_raise():
 
 
 def test_other_arch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="qwen2"):
-        load_model(_gguf(tmp_path, arch="qwen2"), device="cpu")
+    with pytest.raises(NotImplementedError, match="gemma2"):
+        load_model(_gguf(tmp_path, arch="gemma2"), device="cpu")
 
 
 def test_unread_tensor_raises(tmp_path):

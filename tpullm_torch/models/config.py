@@ -3,8 +3,9 @@
 Copy of tpullm/models/config.py for the PyTorch port. ``ModelConfig`` keeps
 every field of the JAX package's (so a config carried across with
 ``dataclasses.asdict`` round-trips); ``config_from_gguf`` reads only the
-keys of the paths the port covers (dense llama and the routed-expert MoE
-FFN) and raises on any other key of the arch. Fields those paths never set
+keys of the paths the port covers (the dense decoder with the flags its
+registry rows set, and the routed-expert MoE FFN) and raises on any other
+key of the arch. Fields those paths never set
 are rejected by models/llama.py rather than ignored.
 
 Counterpart of the reference's hparams loader (src/llama-hparams.h:1-359 +
@@ -268,5 +269,7 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     gf = get("expert_gating_func")
     if gf is not None:
         cfg.expert_gating = {2: "sigmoid"}.get(int(gf), "softmax")
+    if arch == "qwen":  # qwen-v1 GGUF stores DOUBLE the ffn width
+        cfg.n_ff //= 2
     apply_arch_defaults(cfg)
     return cfg

@@ -1,12 +1,16 @@
-"""Decoder-only transformer graph (dense Llama and Mixtral-style MoE) in
-PyTorch.
+"""Decoder-only transformer graph (dense Llama-family and Mixtral-style MoE)
+in PyTorch.
 
 Counterpart of tpullm/models/llama.py for the configurations the port
-covers: RMSNorm -> fused QKV -> RoPE (neox or interleaved) -> GQA attention
-over a head-major KV cache -> output projection -> gated SiLU FFN, or the
-routed-expert MoE FFN (softmax or sigmoid router, top-k, optional
-renormalization and scale; no shared experts, biases, latent or chunk
-experts). A Python loop over layers takes the place of ``lax.scan``; the KV
+covers: RMSNorm -> fused QKV (or the GGUF-fused attn_qkv) -> optional q/k/v
+biases -> optional q/k RMS norms (per head before or after RoPE, or over
+the flat rows) -> RoPE (neox or interleaved, full or partial) -> GQA
+attention over a head-major KV cache -> output projection -> gated SiLU
+FFN, or the routed-expert MoE FFN (softmax or sigmoid router, top-k,
+optional renormalization and scale; no shared experts, biases, latent or
+chunk experts); optional post-attention and post-FFN norms, with or
+without the pre-norms (``pre_norm``). A Python loop over layers takes the
+place of ``lax.scan``; the KV
 cache (bf16, f32 or int8 with row scales) is updated in place, in the batch
 engine's layout or the server's per-slot rows. Every flag of the JAX graph
 that these paths never set raises (``check_dense``) instead of being
@@ -19,7 +23,7 @@ attention takes kernel E when flash_decode_supported holds (off unless
 TPULLM_FLASH_DECODE is set, llama.py:277-294), each only on the shapes its
 kernel builds (attention_route; the rest take the einsum path); decode layers
 take the layer kernel, folded with the next layer's QKV when the weights
-are fused in one group (llama.py:1382-1423); MoE prefill (B*T > 16) takes
+are fused in one group (llama.py:1382-1423, ``layer_routes``); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460).
 """
 from __future__ import annotations
@@ -43,15 +47,19 @@ from ..ops.qtensor import QTensor
 from ..quant.kmajor import f32_on_device
 from .config import ModelConfig
 
-# ModelConfig fields the dense llama path reads; every other field must keep
-# its default (check_dense). norm_eps is read only by layernorm paths, which
-# raise through norm_type.
+# ModelConfig fields the dense decoder path reads; every other field must
+# keep its default (check_dense). norm_eps is read only by layernorm paths,
+# which raise through norm_type.
 DENSE_FIELDS = frozenset({
     "arch", "vocab_size", "n_embd", "n_layer", "n_head", "n_head_kv",
     "head_dim", "head_dim_v", "n_ff", "n_ctx_train", "rms_eps", "norm_eps",
     "rope_base", "rope_dim", "rope_type", "rope_scaling", "rope_scale",
     "rope_orig_ctx", "rope_yarn_low", "rope_yarn_high", "rope_attn_factor",
     "attn_scale", "tie_embeddings", "raw_kv",
+    # the flags of qwen2/qwen (biases), qwen3/hunyuan-dense/maincoder (q/k
+    # norms), olmo2 (flat q/k norms), glm4/exaone4/olmo2 (post-norms)
+    "attn_bias", "attn_qk_norm", "qk_norm_post_rope", "attn_qk_norm_flat",
+    "post_norms", "pre_norm",
 })
 # the routed-expert MoE FFN's fields, accepted only with MoE tensors
 MOE_FIELDS = frozenset({
@@ -62,7 +70,7 @@ MOE_KEYS = frozenset({"moe_gate_inp", "moe_gate_exps", "moe_up_exps", "moe_down_
 
 
 def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
-    """Raise on any config flag outside the covered paths: the dense llama
+    """Raise on any config flag outside the covered paths: the dense decoder
     path, and with ``moe`` (the layers carry MoE tensors) the MoE FFN."""
     allowed = DENSE_FIELDS | MOE_FIELDS if moe else DENSE_FIELDS
     for f in dataclasses.fields(ModelConfig):
@@ -72,7 +80,7 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
         if getattr(cfg, f.name) != default:
             raise NotImplementedError(
                 f"ModelConfig.{f.name}={getattr(cfg, f.name)!r}: not on the "
-                f"{'dense llama or MoE' if moe else 'dense llama'} path the PyTorch "
+                f"{'dense decoder or MoE' if moe else 'dense decoder'} path the PyTorch "
                 "port covers")
     if moe and (cfg.n_expert < 1 or not 1 <= cfg.n_expert_used <= cfg.n_expert
                 or cfg.expert_gating not in ("softmax", "sigmoid")):
@@ -363,7 +371,39 @@ def _expert_mm(x, qt: QTensor, li, e: int, dtype):
 
 
 _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
-                         "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down"}) | MOE_KEYS
+                         "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
+                         "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm",
+                         "post_attn_norm", "post_ffn_norm"}) | MOE_KEYS
+
+
+def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
+    """Layer tensors this config's graph would not read (the JAX package
+    ignores them; the port raises rather than drop weights)."""
+    unread = {"bq", "bk", "bv"} if not cfg.attn_bias else set()
+    if not (cfg.attn_qk_norm or cfg.attn_qk_norm_flat):
+        unread |= {"q_norm", "k_norm"}
+    if not cfg.post_norms:
+        unread |= {"post_attn_norm", "post_ffn_norm"}
+    if not cfg.pre_norm:
+        unread |= {"attn_norm", "ffn_norm"}
+    return sorted(unread & set(gl))
+
+
+def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
+                 n_groups: int) -> tuple[bool, bool]:
+    """(use_block, use_fold) of one layer group: the JAX package's gates
+    (llama.py:1382-1397, 1416-1423) with "the tensors are on the card" in
+    place of "the default backend is the TPU". The layer kernel runs a
+    decode step's wo, post-attention residual, ffn_norm and FFN; it takes
+    no bias and no flat q/k norm (the QK norm per head runs in attention,
+    on the QKV rows the kernel emits). Folded, it also emits the next
+    layer's norm and fused QKV. The JAX gate's other tensors (bo, the
+    norm biases, attn_norm_2) raise in forward before it is asked."""
+    use_block = (B * T <= 16 and on_card and "ffn_norm" in gl
+                 and not cfg.attn_bias and not cfg.attn_qk_norm_flat
+                 and block_supported(cfg, qw))
+    use_fold = use_block and "wqkv" in qw and n_groups == 1 and "attn_norm" in gl
+    return use_block, use_fold
 
 
 def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
@@ -419,9 +459,20 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         """This ubatch's cache rows, first L_view slots (_view, llama.py:820-831)."""
         return bank[b0: b0 + B, :, :L_view]
 
-    def attend(q, k, v, li):
-        q = apply_rope(q.reshape(B, T, H, hd), cos, sin, cfg.rope_type, cfg.rope_dim)
-        k = apply_rope(k.reshape(B, T, Hkv, hd), cos, sin, cfg.rope_type, cfg.rope_dim)
+    def attend(q, k, v, li, qn=None, kn=None):
+        """Flat q/k/v rows -> attention output (B, T, H * hdv), this layer's
+        K/V stored (_attend_qkv, llama.py:833-910). qn/kn: the layer's q/k
+        norm weights, over the flat rows (attn_qk_norm_flat) or per head,
+        before RoPE or after it (qk_norm_post_rope)."""
+        if cfg.attn_qk_norm_flat:
+            q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
+        q, k = q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd)
+        if cfg.attn_qk_norm and not cfg.qk_norm_post_rope:
+            q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
+        q = apply_rope(q, cos, sin, cfg.rope_type, cfg.rope_dim)
+        k = apply_rope(k, cos, sin, cfg.rope_type, cfg.rope_dim)
+        if cfg.attn_qk_norm and cfg.qk_norm_post_rope:
+            q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
         v = v.reshape(B, T, Hkv, hdv)
         kv_q8 = k_view = v_view = None
         if cache.quantized:  # llama.py:896-910
@@ -434,46 +485,76 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                         cfg, kv_q8=kv_q8)
         return att.reshape(B, T, H * hdv)
 
-    def qkv_of(h, qw, li):
+    def qkv_of(h, qw, li, lw):
+        """The layer's q, k, v rows (llama.py:1200-1229): the load-time
+        fused wqkv (padded offsets), the GGUF-fused wqkv_cat with its bias
+        (unpadded offsets) or separate weights; then the split biases. lw:
+        the layer's float tensors."""
         if "wqkv" in qw:
             y = qmm(h, qw["wqkv"], dtype, li)
-            return y[..., :nq], y[..., ok: ok + nk], y[..., ov: ov + nv]
-        return tuple(qmm(h, qw[k], dtype, li) for k in ("wq", "wk", "wv"))
+            q, k, v = y[..., :nq], y[..., ok: ok + nk], y[..., ov: ov + nv]
+        elif "wqkv_cat" in qw:
+            y = qmm(h, qw["wqkv_cat"], dtype, li)
+            if "bqkv_cat" in lw:
+                y = y + lw["bqkv_cat"].to(dtype)
+            q, k, v = y[..., :nq], y[..., nq: nq + nk], y[..., nq + nk: nq + nk + nv]
+        else:
+            q, k, v = (qmm(h, qw[k], dtype, li) for k in ("wq", "wk", "wv"))
+        if cfg.attn_bias and "bq" in lw:
+            q, k, v = (t + lw[b].to(dtype) for t, b in ((q, "bq"), (k, "bk"), (v, "bv")))
+        return q, k, v
+
+    def pre_norm(x, lw, key):
+        """The attention or FFN input: the residual stream, normed unless
+        pre_norm is off (olmo2, exaone4: llama.py:1157-1158, 1293-1294)."""
+        return rms_norm(x, lw.get(key), cfg.rms_eps) if cfg.pre_norm else x
+
+    def post_norm(y, lw, key):
+        """glm4/exaone4/olmo2 norm the attention and FFN outputs before the
+        residual add (llama.py:1270-1271, 1319-1320)."""
+        return rms_norm(y, lw[key], cfg.rms_eps) if cfg.post_norms and key in lw else y
 
     off = 0
     for gl in groups:
         extra = set(gl) - _LAYER_KEYS
         if extra:
             raise NotImplementedError(
-                f"layer tensors {sorted(extra)}: not on the dense llama or MoE path")
+                f"layer tensors {sorted(extra)}: not on the dense decoder or MoE path")
+        unread = _unread_tensors(cfg, gl)
+        if unread:
+            raise NotImplementedError(
+                f"layer tensors {unread}: the config of arch {cfg.arch!r} reads none of them")
         qw = {k: v for k, v in gl.items() if isinstance(v, QTensor)}
-        anrm, fnrm = gl["attn_norm"], gl["ffn_norm"]
-        L_g = anrm.shape[0]
-        use_block = B * T <= 16 and x.is_cuda and block_supported(cfg, qw)
-        use_fold = use_block and "wqkv" in qw and len(groups) == 1
+        fl = {k: v for k, v in gl.items() if k not in qw}  # norms, biases
+        L_g = next(iter(gl.values())).shape[0]
+        use_block, use_fold = layer_routes(cfg, gl, qw, B, T, x.is_cuda, len(groups))
         if use_fold:
             # prime layer 0's norm + fused qkv; each layer kernel then emits
             # the next layer's qkv
+            anrm = gl["attn_norm"]
             y = qmm(rms_norm(x, anrm[0], cfg.rms_eps), qw["wqkv"], dtype, 0)
             for li in range(L_g):
+                lw = {k: v[li] for k, v in fl.items()}
                 yd = y.to(dtype)
                 att = attend(yd[..., :nq], yd[..., ok: ok + nk], yd[..., ov: ov + nv],
-                             off + li)
-                x, y = ffn_block_qkv(att, x, fnrm[li], anrm, qw, li, cfg)
+                             off + li, lw.get("q_norm"), lw.get("k_norm"))
+                x, y = ffn_block_qkv(att, x, lw["ffn_norm"], anrm, qw, li, cfg)
                 x = x.to(dtype)
         else:
             for li in range(L_g):
-                h = rms_norm(x, anrm[li], cfg.rms_eps)
-                att = attend(*qkv_of(h, qw, li), off + li)
+                lw = {k: v[li] for k, v in fl.items()}
+                att = attend(*qkv_of(pre_norm(x, lw, "attn_norm"), qw, li, lw), off + li,
+                             lw.get("q_norm"), lw.get("k_norm"))
                 if use_block:
-                    x = ffn_block(att, x, fnrm[li], qw, li, cfg).to(dtype)
+                    x = ffn_block(att, x, lw["ffn_norm"], qw, li, cfg).to(dtype)
                     continue
-                x = x + qmm(att, qw["wo"], dtype, li)
-                h2 = rms_norm(x, fnrm[li], cfg.rms_eps)
+                x = x + post_norm(qmm(att, qw["wo"], dtype, li), lw, "post_attn_norm")
+                h2 = pre_norm(x, lw, "ffn_norm")
                 if cfg.n_expert > 0 and "moe_gate_inp" in qw:  # llama.py:1273-1276
-                    x = x + moe_ffn(h2, qw, li, cfg, dtype)
+                    f = moe_ffn(h2, qw, li, cfg, dtype)
                 else:
-                    x = x + ffn(h2, qw, li, cfg, dtype)
+                    f = ffn(h2, qw, li, cfg, dtype)
+                x = x + post_norm(f, lw, "post_ffn_norm")
         off += L_g
     if logits_idx is not None:  # llama.py:1527-1530
         x = x[:, logits_idx: logits_idx + 1]

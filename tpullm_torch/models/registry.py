@@ -6,13 +6,41 @@ runs. Rows are DEFAULTS: a value the GGUF set explicitly wins.
 from __future__ import annotations
 
 ARCH_REGISTRY: dict[str, dict] = {
-    # rope_type: "norm" = interleaved pairs (ggml GGML_ROPE_TYPE_NORM)
+    # rope_type: "norm" = interleaved pairs (ggml GGML_ROPE_TYPE_NORM),
+    # "neox" = half-split. Matches llama_model_rope_type() per arch.
     "llama": dict(rope_type="norm"),
+    "mistral": dict(rope_type="norm"),
+    # mistral3 (src/models/mistral3.cpp): llama graph + optional attention
+    # temperature scaling
+    "mistral3": dict(rope_type="norm"),
+    "qwen2": dict(rope_type="neox", attn_bias=True),
+    "qwen3": dict(rope_type="neox", attn_qk_norm=True),
     # mixtral (llama MoE branch, src/models/llama.cpp:208): top-k
     # router weights are RENORMALIZED (build_moe_ffn norm_w=true). The
     # "llama" row has no such default, as in the JAX registry, so a llama
     # GGUF with experts is computed without renormalization there and here.
     "mixtral": dict(rope_type="norm", expert_weights_norm=True),
+    # olmo2 (src/models/olmo2.cpp:45): FLAT q/k RMS norms over the
+    # full row ({n_embd} / {n_kv*head_dim}), applied before rope
+    "olmo2": dict(rope_type="neox", post_norms=True, pre_norm=False,
+                  attn_qk_norm_flat=True),
+    "internlm2": dict(rope_type="norm"),
+    "exaone": dict(rope_type="norm"),
+    # exaone4 (src/models/exaone4.cpp): post-norm ONLY like olmo2
+    "exaone4": dict(rope_type="neox", post_norms=True, pre_norm=False,
+                    attn_qk_norm=True),
+    # glm4 (src/models/glm4.cpp): partial rope; gemma2-style post norms
+    "glm4": dict(rope_type="norm", post_norms=True),
+    "baichuan": dict(rope_type="norm"),
+    "xverse": dict(rope_type="norm"),
+    "qwen": dict(rope_type="neox", attn_bias=True),
+    # llama-shaped singles (src/models/{ernie4-5,seed-oss,...}.cpp)
+    "ernie4_5": dict(rope_type="norm"),
+    "seed_oss": dict(rope_type="neox"),
+    "hunyuan-dense": dict(rope_type="neox", attn_qk_norm=True),
+    # maincoder (src/models/maincoder.cpp): per-head qk norm AFTER rope
+    "maincoder": dict(rope_type="norm", attn_qk_norm=True,
+                      qk_norm_post_rope=True),
 }
 
 

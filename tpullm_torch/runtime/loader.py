@@ -7,8 +7,10 @@ leading layer axis (split into groups where the per-layer quant types
 change), fuses QKV and gate/up, then places everything on ``device``.
 Expert weights (E, n, k) are repacked per expert and stacked to
 (L, E, Npad, K); the expert gate/up stay unfused, as in the JAX package.
+The dense decoder's flag tensors load as the JAX package names them: q/k
+biases and norms, the GGUF-fused attn_qkv with its bias, and the post-norms.
 Every other tensor (expert biases, shared experts, ffn_norm_exps, chunk
-experts, ...) raises.
+experts, the output bias, ...) raises.
 """
 from __future__ import annotations
 
@@ -30,11 +32,20 @@ LAYER_TENSORS = {
     "attn_q.weight": "wq",
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
+    "attn_qkv.weight": "wqkv_cat",  # GGUF-fused [q;k;v] (qwen)
+    "attn_qkv.bias": "bqkv_cat",
     "attn_output.weight": "wo",
+    "attn_q.bias": "bq",
+    "attn_k.bias": "bk",
+    "attn_v.bias": "bv",
+    "attn_q_norm.weight": "q_norm",
+    "attn_k_norm.weight": "k_norm",
     "ffn_norm.weight": "ffn_norm",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
     "ffn_down.weight": "ffn_down",
+    "post_attention_norm.weight": "post_attn_norm",
+    "post_ffw_norm.weight": "post_ffn_norm",
     # routed experts (loader.py:91-94); the router is F32 in real GGUFs and
     # takes the dense layout
     "ffn_gate_inp.weight": "moe_gate_inp",
@@ -42,7 +53,9 @@ LAYER_TENSORS = {
     "ffn_up_exps.weight": "moe_up_exps",
     "ffn_down_exps.weight": "moe_down_exps",
 }
-_FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm"}
+# norms and biases load as f32 arrays (loader.py:209-229)
+_FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
+                     "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat"}
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -54,7 +67,7 @@ _FLOAT_GLOBALS = {"output_norm", "rope_freqs"}
 
 
 def _to_float_array(g: GGUFFile, name: str) -> np.ndarray:
-    """Small norm tensors -> f32 numpy."""
+    """Small norm/bias tensors -> f32 numpy."""
     ti = g.tensors[name]
     raw = g.tensor_data(name)
     n_in = ti.shape[0]
@@ -101,7 +114,7 @@ def load_model(path: str, device="cuda"):
     unknown = sorted(set(g.tensors) - known)
     if unknown:
         raise NotImplementedError(
-            f"tensors outside the dense llama and MoE paths: {unknown[:8]}")
+            f"tensors outside the dense decoder and MoE paths: {unknown[:8]}")
 
     for tname, key in GLOBAL_TENSORS.items():
         if tname not in g.tensors:

@@ -11,9 +11,9 @@
   the experts drawn on the device so no host array holds them;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks;
-- ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's layout (merges
-  drawn from a seed, Llama-3's special tokens and chat template), for the
-  server's text and chat paths.
+- ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's or Qwen2's
+  layout (merges drawn from a seed, the family's special tokens and chat
+  template), for the server's text and chat paths.
 Every array has the dtype, shape and value range pack_kmajor +
 fuse_layer_weights would produce.
 """
@@ -37,10 +37,23 @@ from ..tokenizer.vocab import TokenAttr, Vocab
 
 def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
                           n_head: int, n_head_kv: int, n_ff: int, seed: int = 0,
-                          centred: bool = False, device="cuda", dense_ffn: bool = True):
+                          centred: bool = False, device="cuda", dense_ffn: bool = True,
+                          arch: str = "llama", rope_base: float = 10000.0,
+                          rms_eps: float = 1e-5,
+                          exact_vocab: bool = False):
     """-> (ModelConfig, params) with every tensor on ``device``. Each weight
     is drawn on the host, moved to the device and released before the next,
     so host memory holds one weight at a time.
+
+    ``arch`` takes the registry row's defaults (the RoPE type among them);
+    where the row sets ``attn_qk_norm`` the layers carry per-head
+    ``q_norm``/``k_norm`` weights (1 + N(0, 0.1)), and where it sets
+    ``attn_bias`` the biases ``bq``/``bk``/``bv`` (N(0, 0.5)), all f32 and
+    drawn after every other array, so the other draws do not move.
+    ``exact_vocab=True`` gives the embedding and lm_head their logical row
+    count (vocab_size) over the 256-padded arrays, as the loader's have, so
+    the logits are vocab_size wide; by default they have the padded count,
+    as the JAX package's synth gives them.
 
     ``centred=False`` draws the JAX package's weights. Their sub-mins are
     independent of the scales, so every weight row has a mean far from 0
@@ -76,16 +89,16 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         }
         return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
-    def qt(parts, K, lead=()):
+    def qt(parts, K, lead=(), n_out=None):
         npad = sum(pad256(p) for p in parts)
-        return QTensor(GGMLType.Q4_K, lead + (npad, K), planes(lead, npad, K))
+        return QTensor(GGMLType.Q4_K, lead + (n_out or npad, K), planes(lead, npad, K))
 
     L = (n_layer,)
     nq, nkv = n_head * head_dim, n_head_kv * head_dim
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
     params = {
-        "tok_embd": qt([vocab_size], n_embd),
-        "output": qt([vocab_size], n_embd),
+        "tok_embd": qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size),
+        "output": qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size),
         "output_norm": ones(n_embd),
         "layers": {
             "attn_norm": ones(n_layer, n_embd),
@@ -98,10 +111,20 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         params["layers"]["ffn_gateup"] = qt([n_ff, n_ff], n_embd, L)
         params["layers"]["ffn_down"] = qt([n_embd], n_ff, L)
     cfg = ModelConfig(
-        arch="llama", vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
+        arch=arch, vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
         n_head=n_head, n_head_kv=n_head_kv, head_dim=head_dim,
-        head_dim_v=head_dim, n_ff=n_ff, rope_dim=head_dim,
+        head_dim_v=head_dim, n_ff=n_ff, rope_dim=head_dim, rope_base=rope_base,
+        rms_eps=rms_eps,
     )
+    apply_arch_defaults(cfg)
+    layers = params["layers"]
+    normal = lambda n, std: torch.from_numpy(
+        rng.normal(0.0, std, (n_layer, n)).astype(np.float32)).to(device)
+    if cfg.attn_qk_norm:
+        layers["q_norm"] = 1.0 + normal(head_dim, 0.1)
+        layers["k_norm"] = 1.0 + normal(head_dim, 0.1)
+    if cfg.attn_bias:
+        layers["bq"], layers["bk"], layers["bv"] = (normal(n, 0.5) for n in (nq, nkv, nkv))
     return cfg, params
 
 
@@ -221,8 +244,22 @@ _EN_FREQ = (8.2, 1.5, 2.8, 4.3, 12.7, 2.2, 2.0, 6.1, 7.0, 0.15, 0.8, 4.0, 2.4, 6
             0.1, 6.0, 6.3, 9.1, 2.8, 1.0, 2.4, 0.15, 2.0, 0.07)
 
 
-def synth_bpe_vocab(n_vocab: int = 128256, pre: str = "llama-bpe", seed: int = 0) -> Vocab:
-    """A byte-level BPE vocab at Llama-3's layout, built from ``seed``.
+# the chat template of Qwen/Qwen2-7B-Instruct (tokenizer_config.json): ChatML
+QWEN2_CHAT_TEMPLATE = (
+    "{% for message in messages %}{% if loop.first and messages[0]['role'] != 'system' %}"
+    "{{ '<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n' }}{% endif %}"
+    "{{'<|im_start|>' + message['role'] + '\n' + message['content'] + '<|im_end|>' + '\n'}}"
+    "{% endfor %}{% if add_generation_prompt %}{{ '<|im_start|>assistant\n' }}{% endif %}")
+# Qwen2's vocab: 151643 ordinary ids, then <|endoftext|>, <|im_start|>,
+# <|im_end|> and reserved ids up to the model's 151936 rows
+QWEN2_N_ORDINARY, QWEN2_N_VOCAB = 151643, 151936
+_QWEN2_NAMED = {0: "<|endoftext|>", 1: "<|im_start|>", 2: "<|im_end|>"}
+
+
+def synth_bpe_vocab(n_vocab: int = 128256, pre: str = "llama-bpe", seed: int = 0,
+                    layout: str = "llama3") -> Vocab:
+    """A byte-level BPE vocab at Llama-3's or Qwen2's layout, built from
+    ``seed``.
 
     Ids 0-255 are the GPT-2 byte tokens. Then come tokens made of lowercase
     ASCII letters, which may start with the space mark "Ġ", each with a
@@ -231,11 +268,21 @@ def synth_bpe_vocab(n_vocab: int = 128256, pre: str = "llama-bpe", seed: int = 0
     every 2- and 3-letter token, in an order drawn from the seed, then
     4-letter tokens drawn by English letter frequencies, with one in ten
     tokens instead the join of any two tokens. Ranks follow the order
-    drawn. The last 256 ids are Llama-3's special tokens (control tokens):
-    ``<|begin_of_text|>`` (BOS), ``<|end_of_text|>`` (EOS),
-    ``<|start_header_id|>``, ``<|end_header_id|>``, ``<|eot_id|>`` (EOT)
-    and reserved ones. The vocab carries Llama-3's chat template."""
-    n_special = 256
+    drawn. The special tokens (control tokens) come last:
+    - ``layout="llama3"``: Llama-3's 256, ``<|begin_of_text|>`` (BOS, added),
+      ``<|end_of_text|>`` (EOS), ``<|start_header_id|>``,
+      ``<|end_header_id|>``, ``<|eot_id|>`` (EOT) and reserved ones, with
+      Llama-3's chat template;
+    - ``layout="qwen2"``: n_vocab - 293 ordinary ids (151643 at Qwen2's
+      151936), then ``<|endoftext|>`` (BOS, not added), ``<|im_start|>``,
+      ``<|im_end|>`` (EOS and EOT) and reserved ones, pre-type ``qwen2``,
+      with Qwen2's ChatML template."""
+    if layout == "qwen2":
+        n_special, named, pre = QWEN2_N_VOCAB - QWEN2_N_ORDINARY, _QWEN2_NAMED, "qwen2"
+    elif layout == "llama3":
+        n_special, named = 256, _LLAMA3_NAMED
+    else:
+        raise ValueError(f"synth_bpe_vocab: layout {layout!r} is 'llama3' or 'qwen2'")
     base = n_vocab - n_special
     if base < 256:
         raise ValueError(f"n_vocab {n_vocab} leaves no room for the byte tokens")
@@ -273,10 +320,15 @@ def synth_bpe_vocab(n_vocab: int = 128256, pre: str = "llama-bpe", seed: int = 0
                 add(sp + word[1:] if sp_first else word, 3)
     reserved = iter(range(n_special))
     for k in range(n_special):
-        tokens.append(_LLAMA3_NAMED.get(k) or f"<|reserved_special_token_{next(reserved)}|>")
-    v = Vocab(model="gpt2", pre=pre, tokens=tokens, merges=merges,
-              attrs=[TokenAttr.NORMAL] * base + [TokenAttr.CONTROL] * n_special,
-              bos_id=base, eos_id=base + 1, eot_id=base + 9, add_bos=True,
-              add_space_prefix=False, chat_template=LLAMA3_CHAT_TEMPLATE)
+        tokens.append(named.get(k) or f"<|reserved_special_token_{next(reserved)}|>")
+    attrs = [TokenAttr.NORMAL] * base + [TokenAttr.CONTROL] * n_special
+    if layout == "qwen2":
+        v = Vocab(model="gpt2", pre=pre, tokens=tokens, merges=merges, attrs=attrs,
+                  bos_id=base, eos_id=base + 2, eot_id=base + 2, add_bos=False,
+                  add_space_prefix=False, chat_template=QWEN2_CHAT_TEMPLATE)
+    else:
+        v = Vocab(model="gpt2", pre=pre, tokens=tokens, merges=merges, attrs=attrs,
+                  bos_id=base, eos_id=base + 1, eot_id=base + 9, add_bos=True,
+                  add_space_prefix=False, chat_template=LLAMA3_CHAT_TEMPLATE)
     v._build_caches()
     return v

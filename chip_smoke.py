@@ -73,13 +73,15 @@ pass):
    the kernels and the device's idle share;
 6. the 8B model is freed; full-width Mixtral-8x7B with 2 layers: one
    128-token prefill (ragged MoE through kernel F) + 1 greedy decode step
-   (every expert through kernel A) against the plain path on a CPU copy in
-   f32, with phase 3's tolerance rule, counting the (token, layer)
-   routings that differ between the card and the CPU;
+   (the selected experts through kernel A's expert-skip variant) against
+   the plain path on a CPU copy in f32, with phase 3's tolerance rule,
+   counting the (token, layer) routings that differ between the card and
+   the CPU;
 7. the MoE slice: the 32-layer Mixtral-8x7B model answers phase 4's 4
    requests through InferenceEngine.generate (graph replays), three times
-   for the rates' spread, with kernels A, B, C and F launched and D not,
-   and once eagerly with the same tokens and launch counts;
+   for the rates' spread, with kernels A, B, C, F and A's skip variant
+   launched and D not, and once eagerly with the same tokens and launch
+   counts;
 8. phase 5's decode-step (graph and eager) and prefill profiles on the MoE
    slice (the prefill's device time outside the kernels is the routing's
    cost);
@@ -92,18 +94,31 @@ pass):
    launched); then its server (4 slots of 4096, int8 KV, kernel E, a
    byte-level BPE tokenizer at Qwen2's layout with ChatML) answers a burst
    of 4 token-id completions and 2 chat completions, one of them stopped
-   at <|im_end|>, with A-E and the store launched.
+   at <|im_end|>, with A-E and the store launched;
+10. the Qwen MoE archs at full width: Qwen3-30B-A3B (qwen3moe: 128
+   experts of 768, top-8, q 4096 wide over a 2048-wide stream, Q6_K down
+   experts) and Qwen2-57B-A14B's widths (qwen2moe: 64 experts of 2560 and
+   a shared expert of 20480 with its sigmoid gate, biases), each with 2
+   layers against the CPU as phase 6; then the 48-layer Qwen3-30B-A3B
+   model: kernel rows on its own weights (A's expert-skip variant at M = 1
+   and 4, bit for bit against A called on each listed expert and timed
+   beside A over all 128 experts; F at 128 experts on a 4x512 prefill,
+   with its padding share; C and E at a GQA group of 8), the slice and its
+   decode (3 skip launches a layer a step, whatever E is) and prefill
+   profiles, and its server (4 slots of 4096, int8 KV, kernel E, a
+   Qwen2-layout tokenizer): 4 token-id completions and 2 chats, one
+   stopped at <|im_end|>, with A-C, E, F, the store and the skip launched.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
 activations stay in range through 32 layers and greedy tokens vary;
 synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
 card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
-q/k norms or biases). The last lines are the kernel table as JSON (each
-row's launches on the run of its path: the 8B engine slice, the 8B server
-slice for kernel E, the Mixtral slice, the Qwen3-8B slice, the
-Qwen2.5-7B-width run), the card's name and power limit, and the result
-line.
+q/k norms or biases, and the Qwen MoE models synth_moe_q4k's). The last
+lines are the kernel table as JSON (each row's launches on the run of its
+path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
+slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
+slice and server), the card's name and power limit, and the result line.
 """
 import gc
 import hashlib
@@ -141,6 +156,23 @@ QWEN3 = dict(arch="qwen3", vocab_size=151936, n_embd=D, n_layer=36, n_head=H, n_
 QWEN25 = dict(arch="qwen2", vocab_size=152064, n_embd=3584, n_layer=28, n_head=28, n_head_kv=4,
               n_ff=18944, rope_base=1e6, rms_eps=1e-6, exact_vocab=True)
 QWEN25_LAYERS = 4  # the Qwen2.5-7B-width run's depth, cut from 28
+# Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json): hidden 2048, 48 layers, 32/4
+# heads of 128 (q 4096 wide over the 2048-wide stream), 128 experts of
+# moe_intermediate_size 768, top-8, norm_topk_prob, intermediate_size 6144
+# (no dense layer reads it), vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6,
+# untied; Q4_K attention and gate/up, Q6_K down experts (Q4_K has no K tile
+# at 768; a Q4_K_M file gives down more bits on some layers)
+QWEN3MOE = dict(arch="qwen3moe", vocab_size=151936, n_embd=2048, n_layer=48, n_head=32,
+                n_head_kv=4, head_dim=128, n_ff=6144, n_ff_exp=768, n_expert=128,
+                n_expert_used=8, down_qtype="Q6_K", rope_base=1e6, rms_eps=1e-6,
+                exact_vocab=True)
+# Qwen2-57B-A14B (Qwen/Qwen2-57B-A14B config.json): hidden 3584, 28 layers,
+# 28/4 heads of 128, 64 experts of moe_intermediate_size 2560, top-8, not
+# renormalized, a shared expert of 20480 with its sigmoid gate, q/k/v
+# biases, vocab 151936, rope_theta 1e6, rms_norm_eps 1e-6; all Q4_K
+QWEN2MOE = dict(arch="qwen2moe", vocab_size=151936, n_embd=3584, n_layer=28, n_head=28,
+                n_head_kv=4, n_ff=18944, n_ff_exp=2560, n_expert=64, n_expert_used=8,
+                n_ff_shexp=20480, rope_base=1e6, rms_eps=1e-6, exact_vocab=True)
 
 TOL_QMM_NMSE = 1e-5  # same bf16 weights, f32 sums in another order, bf16 out
 TOL_ATTN_NMSE = 1e-4  # p rounded to bf16 before vs after normalization
@@ -164,10 +196,12 @@ SOURCES = {
     "flash_decode": ("tpullm_torch/csrc/flash_decode.cu", "tpullm/ops/flash_decode.py:41"),
     # the port's own kernel: no pallas_call, the work XLA fuses into _store
     "kv_store": ("tpullm_torch/csrc/kv_store.cu", "tpullm/models/llama.py:803"),
+    # A's expert-skip variant: the lax.cond around each expert's A calls
+    "qmm_experts": ("tpullm_torch/csrc/qmm.cu", "tpullm/models/llama.py:447"),
 }
 DENSE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel", "kv_store")
 # and no layer_kernel
-MOE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "moe_gmm", "kv_store")
+MOE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "moe_gmm", "kv_store", "qmm_experts")
 
 
 def log(msg: str) -> None:
@@ -183,7 +217,8 @@ def card_line() -> str:
 
 def short_kernel(mangled: str) -> str:
     m = re.search(r"(qmm_splitk_kernel|qmm_reduce|qmm_wgmma_kernel|flash_kernel|layer_kernel|"
-                  r"moe_gmm_kernel|flash_decode_kernel|flash_decode_merge|kv_store_kernel)"
+                  r"moe_gmm_kernel|flash_decode_kernel|flash_decode_merge|kv_store_kernel|"
+                  r"qmm_experts_kernel|qmm_experts_reduce|qmm_experts_combine)"
                   r"(?:ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?)?", mangled)
     if not m:
         return mangled
@@ -672,6 +707,9 @@ def moe_matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
                     f"qmm_splitk[{name},Q4_K,M=4,expert {E - 1} of layer 1]", x, qt,
                     dequant(qt), path="mixtral",
                     run=lambda: _expert_mm(x, stack, 1, E - 1, torch.bfloat16))
+        if "qmm_experts" in kernels:  # the decode step's path: top-2 of 8 at M = 4
+            skip_row(torch, timer, entries, name.split()[-1].split("/")[0], stack, 1, 4, g,
+                     used=M_USED, path="mixtral")
         del stack, qt, x
     lm = random_kmajor(q4k, [M_VOCAB], D, (), g, "cuda")
     w_bf16 = dequant(lm)
@@ -684,6 +722,64 @@ def moe_matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
     del lm, w_bf16
     torch.cuda.empty_cache()
     return g
+
+
+def gmm_row(torch, timer, entries, name, qt, layer, xs, te, live, A, path):
+    """One row of kernel F on ``layer`` of the (L, E) stack qt over the
+    expert-sorted rows xs (tile experts te, live tiles ``live``, A
+    assignment rows): against its plain version (NMSE, two calls
+    bit-identical), timed beside it and torch._grouped_mm on the layer's
+    experts pre-dequantized over the live rows (the library yardstick); the
+    bound reads the layer's experts once and the rows this routing needs,
+    not the padding. Logs the live tiles and their padding share."""
+    from tpullm_torch.models.llama import expert_weight
+    from tpullm_torch.ops.moe_gmm import TM, grouped_qmm, grouped_qmm_plain
+    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
+
+    E, N, K = qt.data["q"].shape[-3], qt.n_out, xs.shape[1]
+    run = lambda: grouped_qmm(xs, te, qt, N, layer, live)
+    plain = lambda: grouped_qmm_plain(xs, te, qt, N, layer)
+    got, want = run(), plain()
+    again = run()
+    torch.cuda.synchronize()
+    err = nmse(torch, got, want)
+    mae = float((got.float() - want.float()).abs().max())
+    same = bool(torch.equal(got, again))
+    layers = qt.data["q"].shape[0]
+    bound, by = bound_of(weight_bytes(qt) // layers + A * K * 2 + A * N * 2, 2.0 * A * N * K)
+    ms = timer(run, 10)
+    pms = timer(plain, 3, warmup=1)
+    wd = torch.stack([dequant_kmajor_torch(expert_weight(qt, layer, e).data, qt.qtype,
+                                           torch.bfloat16)[:N] for e in range(E)])
+    n_live = int(live[0])
+    offs = torch.cumsum(torch.bincount(te[:n_live].long(), minlength=E) * TM, 0)
+    offs = offs.to(torch.int32)
+    try:
+        lib_fn = lambda: torch._grouped_mm(xs[: n_live * TM], wd.transpose(1, 2), offs=offs)
+        lib_fn()
+        library = "torch._grouped_mm"
+    except (AttributeError, RuntimeError) as exc:
+        ends = [0] + offs.tolist()
+        lib_fn = lambda: [torch.matmul(xs[a:b], wd[e].t())
+                          for e, (a, b) in enumerate(zip(ends[:-1], ends[1:]))]
+        library = f"torch.matmul per expert ({type(exc).__name__} from _grouped_mm)"
+    lms = timer(lib_fn, 10)
+    label = (f"moe_gmm[{name},{qt.qtype.name},E={E},Mp={xs.shape[0]},"
+             f"live={n_live * TM}]")
+    log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
+        f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
+        f"({library}) bound_ms {bound:.4f} ({by}; {A} assignment rows) "
+        f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} live tiles {n_live} of "
+        f"{TM} rows, padding share {1 - A / (n_live * TM):.3f}")
+    if err >= TOL_QMM_NMSE or not same:
+        raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
+    entries.append(dict(
+        name=label, route="cuda", source=SOURCES["moe_gmm"][0],
+        replaces=SOURCES["moe_gmm"][1], kernel="moe_gmm", path=path,
+        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library=library,
+        bound_ms=bound, bound_by=by, live_tiles=n_live,
+        padding_share=1 - A / (n_live * TM)))
+    del wd, got, want, again
 
 
 def phase_moe_kernels(torch, timer, entries):
@@ -705,7 +801,7 @@ def phase_moe_kernels(torch, timer, entries):
     from tpullm_torch.quant.kmajor import KM_SPECS, dequant_kmajor_torch
     from tpullm_torch.utils.synth import random_kmajor
 
-    g = moe_matmul_rows(torch, timer, entries)
+    g = moe_matmul_rows(torch, timer, entries, ("qmm_splitk", "qmm", "qmm_experts"))
     E, used, q4k = M_EXPERT, M_USED, GGMLType.Q4_K
 
     def dequant(qt):
@@ -722,52 +818,12 @@ def phase_moe_kernels(torch, timer, entries):
         return xs, te, live_tiles(dest, te, Mp)
 
     M = 2048
-    A = M * used
     for name, parts, K in (("gate/up", [N_FF], D), ("down", [D], N_FF)):
         qt = random_kmajor(q4k, parts, K, (2, E), g, "cuda")
-        N = qt.n_out
         xs, te, live = ragged(M, K)
-        run = lambda: grouped_qmm(xs, te, qt, N, 1, live)
-        plain = lambda: grouped_qmm_plain(xs, te, qt, N, 1)
-        got, want = run(), plain()
-        again = run()
-        torch.cuda.synchronize()
-        err = nmse(torch, got, want)
-        mae = float((got.float() - want.float()).abs().max())
-        same = bool(torch.equal(got, again))
-        # layer 1's 8 experts read once; the rows this routing needs, not the padding
-        bound, by = bound_of(weight_bytes(qt) // 2 + A * K * 2 + A * N * 2, 2.0 * A * N * K)
-        ms = timer(run, 10)
-        pms = timer(plain, 3, warmup=1)
-        # library yardstick on layer 1's experts pre-dequantized to bf16, over
-        # the live rows: each expert's padded range, read off tile_expert
-        wd = torch.stack([dequant(expert_weight(qt, 1, e)) for e in range(E)])
-        n_live = int(live[0])
-        offs = torch.cumsum(torch.bincount(te[:n_live].long(), minlength=E) * TM, 0)
-        offs = offs.to(torch.int32)
-        try:
-            lib_fn = lambda: torch._grouped_mm(xs[: n_live * TM], wd.transpose(1, 2), offs=offs)
-            lib_fn()
-            library = "torch._grouped_mm"
-        except (AttributeError, RuntimeError) as exc:
-            ends = [0] + offs.tolist()
-            lib_fn = lambda: [torch.matmul(xs[a:b], wd[e].t())
-                              for e, (a, b) in enumerate(zip(ends[:-1], ends[1:]))]
-            library = f"torch.matmul per expert ({type(exc).__name__} from _grouped_mm)"
-        lms = timer(lib_fn, 10)
-        label = f"moe_gmm[{name} of layer 1,Q4_K,E={E},Mp={xs.shape[0]},live={n_live * TM}]"
-        log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
-            f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
-            f"({library}) bound_ms {bound:.4f} ({by}; {A} assignment rows) "
-            f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f}")
-        if err >= TOL_QMM_NMSE or not same:
-            raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
-        entries.append(dict(
-            name=label, route="cuda", source=SOURCES["moe_gmm"][0],
-            replaces=SOURCES["moe_gmm"][1], kernel="moe_gmm", path="mixtral",
-            max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library=library,
-            bound_ms=bound, bound_by=by))
-        del qt, wd, xs, got, want, again
+        gmm_row(torch, timer, entries, f"{name} of layer 1", qt, 1, xs, te, live, M * used,
+                "mixtral")
+        del qt, xs
         torch.cuda.empty_cache()
 
     # every K-major type through F at 4096 x 4096: random routing on (E,)
@@ -1224,23 +1280,42 @@ def phase_server_parity(torch):
     torch.cuda.empty_cache()
 
 
-def phase_moe_parity(torch):
-    """Phase 6: 2-layer full-width Mixtral-8x7B, kernels on the card vs the
-    plain path on a CPU copy (teacher-forced with the card's greedy picks):
-    a 128-token prefill (ragged MoE, kernel F) and 1 decode step (every
-    expert, kernel A). Counts the (token, layer) top-2 sets that differ
-    between the card and the CPU f32 path."""
+def synth_moe(spec: dict, **kw):
+    """synth_moe_q4k of a model spec (QWEN3MOE, QWEN2MOE: the down experts'
+    type by name), with ``kw`` over it."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.utils.synth import synth_moe_q4k
+
+    spec = dict(spec, **kw)
+    if "down_qtype" in spec:
+        spec["down_qtype"] = GGMLType[spec["down_qtype"]]
+    return synth_moe_q4k(**spec)
+
+
+def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
+    """Phase 6 (and phase 10's parity runs): a 2-layer full-width MoE model
+    (Mixtral-8x7B, or ``spec``, a synth_moe spec cut to 2 layers), kernels
+    on the card vs the plain path on a CPU copy (teacher-forced with the
+    card's greedy picks): a 128-token prefill (ragged MoE, kernel F) and 1
+    decode step (the selected experts, A's expert-skip variant). Counts the
+    (token, layer) top-k sets that differ between the card and the CPU f32
+    path. -> the card's launch counts."""
     from unittest import mock
 
     import numpy as np
 
     import tpullm_torch.models.llama as llama
     from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.ops import _cuda
     from tpullm_torch.utils.synth import synth_mixtral_q4k
 
-    cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=2, n_head=H,
-                                    n_head_kv=HKV, n_ff=N_FF, n_expert=M_EXPERT,
-                                    n_expert_used=M_USED, seed=7, device="cuda")
+    if spec is None:
+        cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=2, n_head=H,
+                                        n_head_kv=HKV, n_ff=N_FF, n_expert=M_EXPERT,
+                                        n_expert_used=M_USED, seed=seed, device="cuda")
+    else:
+        cfg, params = synth_moe(spec, n_layer=2, seed=seed, device="cuda")
+    vocab = cfg.vocab_size
     cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(3)
     B, T, S = 2, 128, 256
@@ -1248,7 +1323,7 @@ def phase_moe_parity(torch):
     tok = np.zeros((B, T), np.int64)
     posn = np.zeros((B, T), np.int64)
     for b, n in enumerate(lens):
-        tok[b, T - n:] = rng.integers(0, M_VOCAB, n)
+        tok[b, T - n:] = rng.integers(0, vocab, n)
         posn[b, T - n:] = np.arange(n)
     vf = np.asarray([T - n for n in lens], np.int64)
     sides = {}
@@ -1258,6 +1333,7 @@ def phase_moe_parity(torch):
         sides[name] = dict(p=p, dev=dev, cache=KVCache.create(cfg, B, S, dtype, dev),
                            dtype=dtype, vf=torch.from_numpy(vf).to(dev))
     top_k = llama.top_k
+    _cuda.reset_counts()
     errs, ref_errs, agree, flips = [], [], [], []
     cur_tok = torch.from_numpy(tok)
     cur_pos = torch.from_numpy(posn)
@@ -1292,19 +1368,28 @@ def phase_moe_parity(torch):
             T_step = 1
             cur_tok = nxt[:, None].to(torch.int64)
             cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
+    counts = dict(_cuda.COUNTS)
     tol = TOL_E2E_FACTOR * max(ref_errs)
-    n_routes = [sum(lens) * 2, B * 2]
-    log(f"parity 2-layer Mixtral-8x7B (prefill T={T} + 1 decode step): card vs CPU f32 "
+    n_routes = [sum(lens) * cfg.n_layer, B * cfg.n_layer]
+    width = {k: v for k, v in (spec or {}).items() if k != "n_layer"}
+    log(f"parity 2-layer {label} {width} (prefill T={T} + 1 decode step): card vs CPU f32 "
         f"logits nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
         f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the largest); "
         f"(token, layer) routings differing card vs CPU f32 {flips} of {n_routes}; "
         f"greedy agree {agree}; card s {[round(x, 3) for x in sides['card']['sec']]} "
-        f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]}")
+        f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]} cpu bf16 s "
+        f"{[round(x, 2) for x in sides['cpu_bf16']['sec']]}; launches {counts}")
     if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
-        raise AssertionError(f"2-layer Mixtral parity: nmse {errs}, tolerance {tol}, "
+        raise AssertionError(f"2-layer {label} parity: nmse {errs}, tolerance {tol}, "
                              f"routing flips {flips}")
+    missing = [k for k in MOE_KERNELS if counts[k] <= 0]
+    if missing or counts["layer_kernel"]:
+        raise AssertionError(f"2-layer {label} parity: kernels not launched {missing}, "
+                             f"layer kernel {counts['layer_kernel']}")
+    _cuda.reset_counts()
     del params, cpu, sides
     torch.cuda.empty_cache()
+    return counts
 
 
 def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
@@ -1922,8 +2007,10 @@ def phase_server(torch, cfg, params):
 QWEN_SERVER_PROMPTS = [2000, 700, 300, 40]  # the Qwen3 burst: 4 requests on 4 slots
 
 
-def phase_qwen_server(torch, cfg, params):
-    """The Qwen phase's server, on the 36-layer Qwen3-8B model:
+def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
+                      must=DENSE_KERNELS + ("flash_decode",)):
+    """The Qwen phases' server, on the 36-layer Qwen3-8B model (or the
+    model of ``label``; the kernels of ``must`` launched):
     ServerContext (4 slots of 4096, int8 KV, decode_chunk 8, prefill_chunk
     512, its decode steps CUDA graph replays, kernel E on) with a byte-level
     BPE tokenizer at Qwen2's layout (synth_bpe_vocab(151936, layout="qwen2"),
@@ -1934,8 +2021,8 @@ def phase_qwen_server(torch, cfg, params):
     chat completions: one greedy of 16 tokens, and one whose logit_bias
     makes <|im_end|> the greedy choice, which must stop there at once
     ("stop", no text, no tokens); each prompt_tokens the in-process encode
-    of the rendered template. A-E and the store launched. -> the launch
-    counts."""
+    of the rendered template. A-E and the store launched (for Qwen3-8B).
+    -> the launch counts."""
     import numpy as np
     import socket
     import threading
@@ -1947,15 +2034,15 @@ def phase_qwen_server(torch, cfg, params):
     from tpullm_torch.tokenizer import Tokenizer
     from tpullm_torch.utils.synth import synth_bpe_vocab
 
-    vocab = QWEN3["vocab_size"]
+    vocab = cfg.vocab_size
     rng = np.random.default_rng(15)
     prompts = [rng.integers(0, vocab, n).tolist() for n in QWEN_SERVER_PROMPTS]
     t = time.perf_counter()
     tok = Tokenizer(synth_bpe_vocab(vocab, layout="qwen2"))
-    log(f"server Qwen3-8B: synth_bpe_vocab({vocab}, layout='qwen2') and its tokenizer in "
+    log(f"server {label}: synth_bpe_vocab({vocab}, layout='qwen2') and its tokenizer in "
         f"{time.perf_counter() - t:.3f} s")
     ctx = ServerContext(cfg, params, tok, n_slots=4, max_seq_len=4096, decode_chunk=8,
-                        prefill_chunk=512, kv_dtype="q8", model_name="qwen3-8b-shape")
+                        prefill_chunk=512, kv_dtype="q8", model_name=label.lower() + "-shape")
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
@@ -1968,11 +2055,11 @@ def phase_qwen_server(torch, cfg, params):
         status, r = http_json(base + "/completion", {"prompt": prompts[-1], "max_tokens": 8,
                                                      "temperature": 0.0})
         if status != 200:
-            raise AssertionError(f"server Qwen3-8B warm-up answered {status}: {r}")
+            raise AssertionError(f"server {label} warm-up answered {status}: {r}")
         ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
         torch.cuda.synchronize()
         _cuda.reset_counts()
-        res, wall = server_burst(base, prompts, "Qwen3-8B", tok, vocab=vocab)
+        res, wall = server_burst(base, prompts, label, tok, vocab=vocab)
         report["burst"] = {"requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
                            "wall_s": wall,
                            "completion_tok_per_s": len(prompts) * SERVER_NEW / wall}
@@ -1982,7 +2069,7 @@ def phase_qwen_server(torch, cfg, params):
         if status != 200 or r["prompt"] != want or want != (
                 "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n<|im_start|>user"
                 "\nHello! Who are you?<|im_end|>\n<|im_start|>assistant\n"):
-            raise AssertionError(f"Qwen3 /apply-template answered {status}: {r}")
+            raise AssertionError(f"{label} /apply-template answered {status}: {r}")
         im_end = tok.vocab.eot_id
         bodies = [{"messages": [{"role": "user", "content": "Write a short story about a fox."}],
                    "max_tokens": 16, "temperature": 0.0},
@@ -2007,7 +2094,7 @@ def phase_qwen_server(torch, cfg, params):
         rows = []
         for kind, n_prompt, (status, r) in zip(("greedy", "forced_im_end"), want_prompt, results):
             if status != 200:
-                raise AssertionError(f"Qwen3 chat {kind}: answered {status}: {r}")
+                raise AssertionError(f"{label} chat {kind}: answered {status}: {r}")
             choice, stats = r["choices"][0], r["timings"]
             ids_out, got = choice["tokens"], choice["message"]["content"]
             ok = (stats["prompt_tokens"] == n_prompt and got == visible(tok, ids_out)
@@ -2016,7 +2103,7 @@ def phase_qwen_server(torch, cfg, params):
             if kind == "forced_im_end":
                 ok = ok and choice["finish_reason"] == "stop" and got == "" and not ids_out
             if not ok:
-                raise AssertionError(f"Qwen3 chat {kind}: check failed: prompt_tokens "
+                raise AssertionError(f"{label} chat {kind}: check failed: prompt_tokens "
                                      f"{stats['prompt_tokens']} (want {n_prompt}), text {got!r}, "
                                      f"finish {choice['finish_reason']}, {len(ids_out)} ids")
             rows.append({"kind": kind, "prompt_tokens": stats["prompt_tokens"],
@@ -2029,13 +2116,13 @@ def phase_qwen_server(torch, cfg, params):
         srv.shutdown()
         srv.server_close()
         ctx.stop()
-    log(f"server Qwen3-8B (4 slots x 4096, q8 KV, decode_chunk 8, prefill_chunk 512, kernel E; "
+    log(f"server {label} (4 slots x 4096, q8 KV, decode_chunk 8, prefill_chunk 512, kernel E; "
         f"prompts {QWEN_SERVER_PROMPTS}, {SERVER_NEW} new tokens each; 2 chats): "
         f"{json.dumps(report)}")
-    log(f"server Qwen3-8B: launches (burst + chat) {counts}")
-    missing = [k for k in DENSE_KERNELS + ("flash_decode",) if counts[k] <= 0]
+    log(f"server {label}: launches (burst + chat) {counts}")
+    missing = [k for k in must if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"server Qwen3-8B: kernels not launched {missing}")
+        raise AssertionError(f"server {label}: kernels not launched {missing}")
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -2087,6 +2174,200 @@ def phase_qwen(torch):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase server Qwen3-8B: {time.perf_counter() - t:.1f} s")
+    return counts
+
+
+def skip_row(torch, timer, entries, name, qt, layer, M, g, used=8, path="Qwen3-30B-A3B"):
+    """One row of A's expert-skip variant on ``layer`` of the (L, E) stack
+    qt, M decode rows routed top-``used`` of E at random (a seed): the gate/up
+    form (``qmm_experts``, x shared by the slots) or, for down, the
+    combining form (``experts_combine``, each slot's own rows, folded with
+    the routing). Held bit for bit against A called on each listed expert
+    (and, for down, the loop's ``out + de * we`` in expert order), and
+    against the plain version (NMSE); timed beside the plain version, that
+    per-expert A loop over the listed experts, A over all E experts (the
+    path before the skip) and, for gate/up, torch.bmm over the listed
+    experts pre-dequantized (the library yardstick; products only). The
+    bound reads the listed experts' weights, x and the routing once and
+    writes the output once."""
+    from tpullm_torch.models.llama import expert_weight
+    from tpullm_torch.ops.moe_decode import (expert_slots, experts_combine,
+                                             experts_combine_plain, partial_bytes, qmm_experts,
+                                             qmm_experts_plain)
+    from tpullm_torch.ops.qmm import qmm_kmajor
+    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
+
+    E, N, K = qt.data["q"].shape[-3], qt.n_out, qt.shape[-1]
+    top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
+    w = torch.rand((M, used), generator=g, device="cuda") + 0.1
+    w = w / w.sum(-1, keepdim=True)
+    ids = expert_slots(top_i, E)
+    listed = [e for e in ids.tolist() if e >= 0]
+    cap, n = ids.shape[0], len(listed)
+    bf = torch.bfloat16
+    one = lambda x, e: qmm_kmajor(x, expert_weight(qt, layer, e).data, qt.qtype, N, bf)
+    combine = name == "down"
+    if combine:
+        x = torch.randn((cap, M, K), generator=g, device="cuda").to(bf)
+        run = lambda: experts_combine(x, qt, layer, ids, top_i, w)
+        plain = lambda: experts_combine_plain(x, qt, layer, ids, top_i, w)
+
+        def loop(experts=listed):
+            out = torch.zeros((M, N), dtype=bf, device="cuda")
+            for slot, e in enumerate(experts):
+                we = (w * (top_i == e)).sum(-1)[:, None].to(bf)
+                out = out + one(x[min(slot, cap - 1)], e) * we
+            return out
+
+        kernels = ("qmm_experts_kernel", "qmm_experts_combine")
+        io_bytes = x[:n].nbytes + M * N * 2 + top_i.nbytes + w.nbytes
+    else:
+        x = torch.randn((M, K), generator=g, device="cuda").to(bf)
+        run = lambda: qmm_experts(x, qt, layer, ids)
+        plain = lambda: qmm_experts_plain(x, qt, layer, ids)
+
+        def loop(experts=listed):
+            return torch.stack([one(x, e) for e in experts])
+
+        kernels = ("qmm_experts_kernel", "qmm_experts_reduce")
+        io_bytes = x.nbytes + n * M * N * 2
+    got, want = run(), plain()
+    same = bool(torch.equal(got, run()))
+    ref = loop()
+    bitwise = bool(torch.equal(got if combine else got[:n], ref))
+    torch.cuda.synchronize()
+    err = nmse(torch, got, want)
+    mae = float((got.float() - want.float()).abs().max())
+    w_bytes = sum(weight_bytes(expert_weight(qt, layer, e)) for e in listed)
+    bound, by = bound_of(w_bytes + io_bytes, 2.0 * M * N * K * n)
+    ms = timer(run, 20)
+    pms = timer(plain, 3, warmup=1)
+    loop_ms = timer(loop, 5)
+    all_ms = timer(lambda: loop(list(range(E))), 3, warmup=1)
+    if combine:
+        lms = None
+    else:
+        wd = torch.stack([dequant_kmajor_torch(expert_weight(qt, layer, e).data, qt.qtype,
+                                               bf)[:N] for e in listed])
+        lms = timer(lambda: torch.bmm(x.expand(n, M, K), wd.transpose(1, 2)), 10)
+        del wd
+    split = launch_split(torch, timer, run, kernels)
+    label = (f"qmm_experts[{name} {N}x{K},{qt.qtype.name},M={M},{n} of {E} experts "
+             f"(capacity {cap}),layer {layer}]")
+    log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
+        f"== per-expert A loop bit for bit {bitwise} max_abs_err {mae:.4g} ms {ms:.4f} "
+        f"plain_ms {pms:.4f} loop_listed_ms {loop_ms:.4f} loop_all_{E}_ms {all_ms:.4f} "
+        f"library_ms {'null' if lms is None else f'{lms:.4f}'} bound_ms {bound:.4f} ({by}) "
+        f"share_of_bound {bound / ms:.3f} f32 slabs {partial_bytes(qt, K, M, cap) / 1e6:.2f} MB"
+        + "".join(f" {k}_ms {v:.4f}" for k, v in split.items()))
+    if not (err < TOL_QMM_NMSE and same and bitwise):
+        raise AssertionError(f"{label}: nmse {err} (tol {TOL_QMM_NMSE}), repeat identical "
+                             f"{same}, equal to the per-expert A loop {bitwise}")
+    entries.append(dict(
+        name=label, route="cuda", source=SOURCES["qmm_experts"][0],
+        replaces=SOURCES["qmm_experts"][1], kernel="qmm_experts", path=path, max_abs_err=mae,
+        ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by,
+        loop_listed_ms=loop_ms, loop_all_ms=all_ms, device_ms=split,
+        **({"library": "torch.bmm over the listed experts pre-dequantized"} if lms else {})))
+
+
+def phase_qwen_moe_kernels(torch, entries, cfg, params):
+    """Phase 10's kernel rows, on the 48-layer Qwen3-30B-A3B model's own
+    weights (the last layer of its (48, 128) stacks): A's expert-skip
+    variant on gate (N 768, K 2048, Q4_K) and down (N 2048, K 768, Q6_K,
+    combining) at M = 1 and 4 (a server step of 4 slots); kernel F at 128
+    experts on the slice's prefill (4 prompts bucketed to 512 = 2048 tokens,
+    top-8: 16384 assignments); kernel C at G = 8 on that prefill's shape and
+    kernel E at G = 8 on the server's decode step (int8 K/V, 4 slots of 4096)
+    and the engine's (bf16, a 1024-slot view)."""
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.ops.moe_gmm import live_tiles, sort_by_expert
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(1616)
+    lay, li = params["layers"], cfg.n_layer - 1
+    for M in (1, 4):
+        skip_row(torch, timer, entries, "gate", lay["moe_gate_exps"], li, M, g)
+        skip_row(torch, timer, entries, "down", lay["moe_down_exps"], li, M, g)
+    E, used, M = cfg.n_expert, cfg.n_expert_used, 2048
+    top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
+    order, dest, te, Mp = sort_by_expert(top_i, E, M)
+    live = live_tiles(dest, te, Mp)
+    for name, qt in (("gate", lay["moe_gate_exps"]), ("down", lay["moe_down_exps"])):
+        K = qt.shape[-1]
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        xs = torch.zeros((Mp, K), dtype=torch.bfloat16, device="cuda")
+        xs[dest] = x[order // used]
+        gmm_row(torch, timer, entries, f"{name} of layer {li}", qt, li, xs, te, live, M * used,
+                "Qwen3-30B-A3B")
+        del x, xs
+    heads = (cfg.n_head, cfg.n_head_kv)
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
+             path="Qwen3-30B-A3B", heads=heads)
+    decode_row(torch, timer, entries, g, "Qwen3-30B-A3B server", 4096, [2000, 700, 300, 40],
+               [0, 0, 0, 0], True, heads=heads, path="Qwen3-30B-A3B server")
+    decode_row(torch, timer, entries, g, "Qwen3-30B-A3B engine", 1024, [527] * 4,
+               [0, 212, 312, 412], False, heads=heads, path="Qwen3-30B-A3B")
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+
+
+def phase_qwen_moe(torch, entries):
+    """Phase 10, the Qwen MoE archs at full width: the 2-layer Qwen3-30B-A3B
+    and Qwen2-57B-A14B-width parities (phase 6's rule and routing count; the
+    shared expert, its gate and the biases in the second); then the 48-layer
+    Qwen3-30B-A3B model: its kernel rows (phase_qwen_moe_kernels), the slice
+    (4 requests, graph replays, then eagerly: the same tokens and launch
+    counts; A, B, C, F, the store and the skip launched, D not), phase 5's
+    decode-step profile as graph replays (the hand-written kernels a step
+    fixed whatever E is: 3 skip launches a layer) and a prefill profile;
+    then its server (4 slots of 4096, int8 KV, kernel E, the Qwen2-layout
+    tokenizer) with 4 token-id completions and 2 chats, one stopped at
+    <|im_end|>. -> launch counts by path."""
+    counts = {}
+    t = time.perf_counter()
+    counts["Qwen3-30B-A3B 2-layer"] = phase_moe_parity(torch, "Qwen3-30B-A3B", QWEN3MOE, seed=11)
+    log(f"phase parity Qwen3-30B-A3B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Qwen2-57B-A14B 2-layer"] = phase_moe_parity(
+        torch, f"Qwen2-57B-A14B (depth cut from {QWEN2MOE['n_layer']})", QWEN2MOE, seed=12)
+    log(f"phase parity Qwen2-57B-A14B width: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_moe(QWEN3MOE, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"slice Qwen3-30B-A3B: synthesized Q4_K kmajor weights (Q6_K down experts) "
+        f"{model_gb(params):.3f} GB in {time.perf_counter() - t:.3f} s; config {cfg.arch} "
+        f"head_dim {cfg.head_dim} experts {cfg.n_expert} top-{cfg.n_expert_used} of "
+        f"{cfg.n_ff_exp} renorm {cfg.expert_weights_norm} qk_norm {cfg.attn_qk_norm}")
+    t = time.perf_counter()
+    phase_qwen_moe_kernels(torch, entries, cfg, params)
+    log(f"phase kernels Qwen3-30B-A3B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Qwen3-30B-A3B"], eng, eager, prompts = phase_slice(
+        torch, "Qwen3-30B-A3B", cfg, params, cfg.vocab_size, MOE_KERNELS, ("layer_kernel",))
+    out = phase_decode(torch, eng, prompts, " Qwen3-30B-A3B graph")
+    step = out["graph_capture_counts_per_step"] or {}
+    want = {"qmm_experts": 3 * cfg.n_layer, "qmm_splitk": 2 * cfg.n_layer + 1}
+    if {k: step.get(k) for k in want} != want:
+        raise AssertionError(f"Qwen3-30B-A3B decode step: launches {step}, want {want} "
+                             "(one skip launch a projection a layer, whatever E is)")
+    phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "moe_gmm"),
+                          " Qwen3-30B-A3B")
+    del eng, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice Qwen3-30B-A3B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Qwen3-30B-A3B server"] = phase_qwen_server(
+        torch, cfg, params, "Qwen3-30B-A3B",
+        ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "moe_gmm", "kv_store",
+         "qmm_experts"))
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase server Qwen3-30B-A3B: {time.perf_counter() - t:.1f} s")
     return counts
 
 
@@ -2158,7 +2439,8 @@ KERNEL_OF = {"qmm_splitk_kernel": "qmm_splitk", "qmm_reduce": "qmm_splitk",
              "qmm_wgmma_kernel": "qmm",
              "flash_kernel": "flash_attention", "layer_kernel": "layer_kernel",
              "moe_gmm_kernel": "moe_gmm", "flash_decode_kernel": "flash_decode",
-             "kv_store_kernel": "kv_store"}
+             "kv_store_kernel": "kv_store", "qmm_experts_kernel": "qmm_experts",
+             "qmm_experts_reduce": "qmm_experts", "qmm_experts_combine": "qmm_experts"}
 
 
 def phase_prefill_profile(torch, eng, prompts, must, label):
@@ -2414,9 +2696,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     qwen_counts = phase_qwen(torch)
+    qwen_moe_counts = phase_qwen_moe(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
-               "8B server chat": chat_counts, **qwen_counts}
+               "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

@@ -70,7 +70,8 @@ def test_registry_rows_are_the_jax_rows():
     """Each of the port's rows is the JAX package's row as it is."""
     from tpullm.models.registry import ARCH_REGISTRY as JREG
 
-    assert set(FLAG_ARCHS + PLAIN_ARCHS + ["llama", "mixtral"]) == set(ARCH_REGISTRY)
+    assert set(FLAG_ARCHS + PLAIN_ARCHS + ["llama", "mixtral", "qwen3moe", "qwen2moe"]
+               ) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch
 

@@ -1,8 +1,9 @@
 """The port's planar layout held against the JAX package: ops/dequant.py
-bit-exact with tpullm/ops/dequant.py for Q8_0, the one planar type the port
-covers, and Q8_0 weights too short for a K tile loading, dequantizing,
-gathering rows and multiplying as the JAX package's do. Every other weight
-that would be planar raises at load."""
+bit-exact with tpullm/ops/dequant.py for Q8_0, and Q8_0 weights too short
+for a K tile loading, dequantizing, gathering rows and multiplying as the
+JAX package's do (Q4_K, the other planar type the port covers, is held in
+tests/test_torch_qwen_moe.py). Every other weight that would be planar
+raises at load."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,14 +79,15 @@ def test_planar_experts_stacked():
 # K-major layout (Q8_K, IQ4_XS, TQ2_0) or rows too short for a K tile
 PLANAR_ELSEWHERE = [(GGMLType.Q4_0, 64), (GGMLType.Q4_1, 64), (GGMLType.Q5_0, 64),
                     (GGMLType.Q5_1, 64), (GGMLType.IQ4_NL, 64), (GGMLType.MXFP4, 64),
-                    (GGMLType.Q4_K, 256), (GGMLType.Q8_K, 256), (GGMLType.IQ4_XS, 256),
+                    (GGMLType.Q4_1, 128), (GGMLType.Q8_K, 256), (GGMLType.IQ4_XS, 256),
                     (GGMLType.TQ2_0, 256)]
 
 
 @pytest.mark.parametrize("qtype,K", PLANAR_ELSEWHERE, ids=lambda v: getattr(v, "name", v))
 def test_other_planar_types_raise(qtype, K):
-    """The planar layout is ported for Q8_0 only: a weight of another type
-    that the JAX package would hold planar raises at load, naming its type."""
+    """The planar layout is ported for Q8_0 and Q4_K only: a weight of
+    another type that the JAX package would hold planar raises at load,
+    naming its type."""
     shape = (4, K)
     blk, bs = GGML_QUANT_SIZES[qtype]
     raw = np.zeros(4 * K // blk * bs, np.uint8)

@@ -525,8 +525,9 @@ def test_moe_gmm_unsupported_raises(cuda):
 
 def test_moe_engine_on_card_matches_cpu(cuda):
     """The MoE slice at a small width: prefill through kernels B, C and F,
-    decode through A on every expert, no D; the card's bf16 logits within
-    4x the NMSE of the CPU's bf16 plain path against its f32 one."""
+    decode through A and its expert-skip variant, no D; the card's bf16
+    logits within 4x the NMSE of the CPU's bf16 plain path against its f32
+    one."""
     import numpy as np
 
     from tpullm_torch.runtime.engine import InferenceEngine
@@ -551,9 +552,223 @@ def test_moe_engine_on_card_matches_cpu(cuda):
             counts = dict(_cuda.COUNTS)
         logits[name] = torch.from_numpy(np.asarray(r.logits))
     assert counts["layer_kernel"] == 0, counts
-    assert all(counts[k] > 0 for k in ("qmm_splitk", "qmm", "flash_attention", "moe_gmm"))
+    assert all(counts[k] > 0 for k in ("qmm_splitk", "qmm", "flash_attention", "moe_gmm",
+                                       "qmm_experts"))
     ref = _nmse(logits["cpu_bf16"], logits["cpu"])
     assert _nmse(logits["card"], logits["cpu"]) < 4 * ref
+
+
+# ------------------------------------------------------------ the expert skip
+
+def _routing(cuda, g, kind, M, E, used):
+    """top_i (M, used) and its renormalized weights: random picks, every row
+    the same experts, or one expert in every row's first pick."""
+    if kind == "same":
+        top_i = torch.arange(used, device=cuda).repeat(M, 1) * 3 % E
+    else:
+        top_i = torch.rand((M, E), generator=g, device=cuda).argsort(-1)[:, :used]
+        if kind == "one":
+            top_i[:, 0] = E - 1
+            top_i[:, 1:] = torch.where(top_i[:, 1:] == E - 1, 0, top_i[:, 1:])
+    w = torch.rand((M, used), generator=g, device=cuda) + 0.1
+    return top_i, w / w.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0])
+@pytest.mark.parametrize("M,E,used,routing", [
+    (1, 16, 2, "random"), (4, 16, 2, "random"), (4, 16, 2, "same"), (7, 16, 2, "one"),
+    (9, 16, 2, "random"), (16, 16, 2, "random"), (16, 8, 2, "one"), (4, 64, 8, "random"),
+    (16, 64, 8, "random")])
+def test_qmm_experts_vs_expert_loop(cuda, qtype, M, E, used, routing):
+    """Kernel A's expert-skip variant on layer 1 of a 2-layer (L, E) stack
+    (capacity min(E, M * used): below E and at it) against A called on each
+    listed expert: every slot's product bit for bit (A's split plan and
+    reduce order), padded slots 0; the down projection's combining pass bit
+    for bit against the loop's ``out + de * we`` in expert order; both
+    against the plain version (NMSE < 1e-5); one launch a call."""
+    from tpullm_torch.models.llama import expert_weight
+    from tpullm_torch.ops.moe_decode import (expert_slots, experts_combine,
+                                             experts_combine_plain, qmm_experts,
+                                             qmm_experts_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(M * 100 + E)
+    K, N = 1024, 512  # down's K = N: Q4_K's K tiles start at 512
+    up = random_kmajor(qtype, [N], K, (2, E), g, cuda)
+    down = random_kmajor(qtype, [K], N, (2, E), g, cuda)
+    top_i, w = _routing(cuda, g, routing, M, E, used)
+    ids = expert_slots(top_i, E)
+    assert ids.shape == (min(E, M * used),)
+    listed = [e for e in ids.tolist() if e >= 0]
+    assert listed == sorted(set(top_i.reshape(-1).tolist()))
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    before = _cuda.COUNTS["qmm_experts"]
+    u = qmm_experts(x, up, 1, ids)
+    assert _cuda.COUNTS["qmm_experts"] == before + 1
+    for slot in range(ids.shape[0]):
+        if slot < len(listed):
+            e = listed[slot]
+            want = qmm_kmajor(x, expert_weight(up, 1, e).data, qtype, N, torch.bfloat16)
+            assert torch.equal(u[slot], want), (slot, e)
+        else:
+            assert not u[slot].any()
+    assert _nmse(u, qmm_experts_plain(x, up, 1, ids)) < 1e-5
+    h = torch.randn((ids.shape[0], M, N), generator=g, device=cuda).to(torch.bfloat16)
+    out = experts_combine(h, down, 1, ids, top_i, w)
+    loop = torch.zeros((M, K), dtype=torch.bfloat16, device=cuda)
+    for slot, e in enumerate(listed):
+        de = qmm_kmajor(h[slot], expert_weight(down, 1, e).data, qtype, K, torch.bfloat16)
+        loop = loop + de * (w * (top_i == e)).sum(-1)[:, None].to(torch.bfloat16)
+    assert torch.equal(out, loop)
+    assert _nmse(out, experts_combine_plain(h, down, 1, ids, top_i, w)) < 1e-5
+    f32 = experts_combine(h, down, 1, ids, top_i, w, torch.float32)
+    assert f32.dtype == torch.float32
+    assert _nmse(f32, experts_combine_plain(h, down, 1, ids, top_i, w, torch.float32)) < 1e-5
+
+
+@pytest.mark.parametrize("qtype", sorted(KM_SPECS, key=lambda t: t.name))
+def test_qmm_experts_all_types(cuda, qtype):
+    """Every K-major type through the skip kernel and its combine on an
+    (E,) stack (N 1024, K 2048: TQ2_0's K tiles start at 2048), M = 4,
+    top-2 of 8, against the plain version (NMSE < 1e-5)."""
+    from tpullm_torch.ops.moe_decode import (expert_slots, experts_combine,
+                                             experts_combine_plain, qmm_experts,
+                                             qmm_experts_plain)
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    E, M, K = 8, 4, 2048
+    qt = random_kmajor(qtype, [1024], K, (E,), g, cuda)
+    top_i, w = _routing(cuda, g, "random", M, E, 2)
+    ids = expert_slots(top_i, E)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    assert _nmse(qmm_experts(x, qt, None, ids), qmm_experts_plain(x, qt, None, ids)) < 1e-5
+    h = torch.randn((ids.shape[0], M, K), generator=g, device=cuda).to(torch.bfloat16)
+    assert _nmse(experts_combine(h, qt, None, ids, top_i, w),
+                 experts_combine_plain(h, qt, None, ids, top_i, w)) < 1e-5
+
+
+def test_qmm_experts_builds_without_spills(cuda):
+    """The skip variant's instances keep A's registers: no spill bytes."""
+    info = _cuda.build()
+    b = [(n, spill) for n, _, spill in info["ptxas"] if "qmm_experts_kernel" in n]
+    assert info["cached"] or (b and all(spill == 0 for _, spill in b)), b
+
+
+def test_qmm_experts_refuses(cuda):
+    """A planar stack, a single weight, more than 16 rows and int64 slots
+    raise; the route sends the planar stack and B*T > 16 elsewhere."""
+    from tpullm_torch.models.llama import moe_route
+    from tpullm_torch.ops.moe_decode import expert_slots, qmm_experts
+    from tpullm_torch.ops.qtensor import QTensor
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qt = random_kmajor(GGMLType.Q4_K, [512], 512, (4,), g, cuda)
+    top_i = torch.tensor([[0, 2]], device=cuda)
+    ids = expert_slots(top_i, 4)
+    with pytest.raises(ValueError):
+        qmm_experts(torch.zeros((17, 512), device=cuda), qt, None, expert_slots(
+            torch.zeros((17, 2), dtype=torch.int64, device=cuda), 4))
+    with pytest.raises(ValueError):
+        qmm_experts(torch.zeros((1, 512), device=cuda), qt, None, ids.long())
+    flat = random_kmajor(GGMLType.Q4_K, [512], 512, (), g, cuda)
+    with pytest.raises(NotImplementedError):
+        qmm_experts(torch.zeros((1, 512), device=cuda), flat, None, ids)
+    planar = QTensor(GGMLType.Q8_0, (4, 512, 512), {"d": torch.zeros((4, 512, 16), device=cuda),
+                                                    "qs": torch.zeros((4, 512, 16, 32),
+                                                                      device=cuda)})
+    assert moe_route(True, 4, qt, qt, qt, 512) == "skip"
+    assert moe_route(True, 4, qt, qt, planar, 512) == "loop"
+    assert moe_route(True, 64, qt, qt, qt, 512) == "ragged"
+
+
+def _moe_card(arch, **kw):
+    from tpullm_torch.utils.synth import synth_moe_q4k
+
+    base = dict(vocab_size=500, n_embd=512, n_layer=2, n_head=4, n_head_kv=2, n_ff=1024,
+                n_expert=16, n_expert_used=4, n_ff_exp=512, rms_eps=1e-6, exact_vocab=True,
+                seed=3, device="cpu")
+    if arch == "qwen3moe":  # 8 heads of 128: q 1024 wide over the 512-wide stream
+        base.update(n_head=8, head_dim=128, down_qtype=GGMLType.Q6_K)
+    else:
+        base.update(n_ff_shexp=1024)
+    base.update(kw)
+    return synth_moe_q4k(arch=arch, **base)
+
+
+@pytest.mark.parametrize("arch", ["qwen3moe", "qwen2moe"])
+def test_qwen_moe_engine_on_card_matches_cpu(cuda, monkeypatch, arch):
+    """qwen3moe (per-head QK norms, renormalized top-4 of 16, q 1024 wide
+    over a 512-wide stream, Q6_K down experts) and qwen2moe (biases, a shared
+    expert with its sigmoid gate): the engine on the card against the plain
+    path on the CPU (test_engine_on_card_matches_cpu's rule), prefill
+    through F and decode through the skip kernel; the same requests with
+    cuda_graphs=False give the graph's tokens and launch counts."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+
+    monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = _moe_card(arch)
+    card = {k: (v.to("cuda") if not isinstance(v, dict) else
+                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    assert all(c[k] > 0 for k in ("qmm_splitk", "qmm", "flash_attention", "moe_gmm",
+                                  "qmm_experts")), c
+    assert c["layer_kernel"] == 0, c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+
+
+@pytest.mark.parametrize("arch", ["mixtral", "qwen3moe", "qwen2moe"])
+def test_moe_decode_skip_equals_loop_on_card(cuda, monkeypatch, arch):
+    """Decode steps (B = 4, T = 1, after a 40-token prefill) with the expert
+    skip against the same steps with every expert through A (moe_route
+    forced to the loop), on the card in bf16: logits equal bit for bit at
+    every step, and the skip launches A's variant three times a layer a
+    step (gate, up, down), whatever E is."""
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.utils.synth import synth_mixtral_q4k
+
+    if arch == "mixtral":
+        cfg, params = synth_mixtral_q4k(vocab_size=512, n_embd=512, n_layer=2, n_head=4,
+                                        n_head_kv=2, n_ff=1024, n_expert=4, n_expert_used=2,
+                                        seed=3, device="cuda")
+    else:
+        cfg, params = _moe_card(arch, device="cuda")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, T, steps = 4, 40, 4
+    tok = torch.randint(0, 500, (B, T + steps), generator=g, device=cuda)
+    pos = torch.arange(T + steps, device=cuda).repeat(B, 1)
+    vf = torch.zeros(B, dtype=torch.int64, device=cuda)
+    route = llama.moe_route
+    out = {}
+    for way in ("skip", "loop"):
+        if way == "loop":
+            monkeypatch.setattr(llama, "moe_route",
+                                lambda *a: "loop" if a[1] <= 16 else route(*a))
+        cache = KVCache.create(cfg, B, 64, torch.bfloat16, cuda)
+        with torch.inference_mode():
+            forward(params, cfg, tok[:, :T], pos[:, :T], cache, 0, vf)
+            _cuda.reset_counts()
+            out[way] = [forward(params, cfg, tok[:, T + i: T + i + 1], pos[:, T + i: T + i + 1],
+                                cache, T + i, vf, kv_view_len=64)[0] for i in range(steps)]
+            out[way + "_counts"] = dict(_cuda.COUNTS)
+    for a, b in zip(out["skip"], out["loop"]):
+        assert torch.equal(a, b)
+    assert out["skip_counts"]["qmm_experts"] == 3 * cfg.n_layer * steps, out["skip_counts"]
+    assert out["loop_counts"]["qmm_experts"] == 0
 
 
 def _decode_inputs(cuda, q8, B=4, T=1, H=8, Hkv=2, S=1024, D=128, slots=(900, 300, 40, 5),
@@ -770,10 +985,13 @@ def test_server_layout_forward_kernel_e_on_vs_off(cuda, monkeypatch):
 
 def _synth_card(kind):
     """The 2-layer synth models of the engine tests above, on the card:
-    "dense" (n_embd 512, head dim 128), "hd256" (n_embd 1024, head dim 256)
-    and "moe" (4 experts, top-2)."""
+    "dense" (n_embd 512, head dim 128), "hd256" (n_embd 1024, head dim 256),
+    "moe" (4 experts, top-2) and "qwen3moe" (16 experts, top-4, decode
+    through the expert skip)."""
     from tpullm_torch.utils.synth import synth_kmajor_q4k_fast, synth_mixtral_q4k
 
+    if kind == "qwen3moe":
+        return _moe_card("qwen3moe", vocab_size=512, exact_vocab=False, device="cuda")
     if kind == "moe":
         return synth_mixtral_q4k(vocab_size=512, n_embd=512, n_layer=2, n_head=4, n_head_kv=2,
                                  n_ff=1024, n_expert=4, n_expert_used=2, seed=3, device="cuda")
@@ -804,7 +1022,7 @@ def _counters_zero(*owners):
 
 
 @pytest.mark.parametrize("kind,flag", [("dense", None), ("dense", "1"), ("hd256", None),
-                                       ("hd256", "1"), ("moe", None)])
+                                       ("hd256", "1"), ("moe", None), ("qwen3moe", None)])
 def test_engine_graph_matches_eager(cuda, monkeypatch, kind, flag):
     """The decode step as a replayed CUDA graph against the same step run
     eagerly (cuda_graphs=False), on the engine tests' 2-layer models: 128
@@ -834,7 +1052,8 @@ def test_engine_graph_matches_eager(cuda, monkeypatch, kind, flag):
     assert (res[True].logits == res[False].logits).all()
     assert counts[True] == counts[False], counts
     assert (counts[True]["flash_decode"] > 0) == bool(flag), counts
-    assert (counts[True]["layer_kernel"] > 0) == (kind != "moe"), counts
+    assert (counts[True]["layer_kernel"] > 0) == (kind not in ("moe", "qwen3moe")), counts
+    assert (counts[True]["qmm_experts"] > 0) == (kind in ("moe", "qwen3moe")), counts
     assert len(engines[True].graphs) == 1 and not engines[False].graphs
     sampled = SamplerConfig(temperature=0.8, top_k=40, top_p=0.9)
     s = {g: engines[g].generate(ENGINE_PROMPTS, max_new_tokens=40, sampler=sampled, seed=3)

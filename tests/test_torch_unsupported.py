@@ -107,12 +107,13 @@ def test_tied_embeddings_load(tmp_path):
 
 
 def test_planar_only_weights_raise():
-    """Q8_K has no K-major layout; Q4_K at K=256 is too short for it."""
+    """Q8_K has no K-major layout; Q4_0 at K=128 is too short for it (the
+    planar layout is ported for Q8_0 and Q4_K only)."""
     raw = np.zeros(292 * 4, np.uint8)
     with pytest.raises(NotImplementedError, match="Q8_K"):
         qtensor_from_bytes(raw, GGMLType.Q8_K, (4, 256))
-    with pytest.raises(NotImplementedError, match="Q4_K"):
-        qtensor_from_bytes(np.zeros(144 * 4, np.uint8), GGMLType.Q4_K, (4, 256))
+    with pytest.raises(NotImplementedError, match="Q4_0"):
+        qtensor_from_bytes(np.zeros(18 * 4 * 4, np.uint8), GGMLType.Q4_0, (4, 128))
 
 
 def test_int8_kv_cache_raises():

@@ -201,10 +201,13 @@ DENSE_KEYS = frozenset({
     "rope.dimension_count", "rope.scaling.type", "rope.scaling.factor",
     "rope.scaling.original_context_length",
 })
-# the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser)
+# the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser).
+# expert_shared_feed_forward_length (qwen2moe) is read by neither parser:
+# the shared expert's width comes from its tensors
 MOE_KEYS = frozenset({
     "expert_count", "expert_used_count", "expert_feed_forward_length",
     "expert_weights_scale", "expert_weights_norm", "expert_gating_func",
+    "expert_shared_feed_forward_length",
 })
 
 

@@ -7,8 +7,9 @@ biases -> optional q/k RMS norms (per head before or after RoPE, or over
 the flat rows) -> RoPE (neox or interleaved, full or partial) -> GQA
 attention over a head-major KV cache -> output projection -> gated SiLU
 FFN, or the routed-expert MoE FFN (softmax or sigmoid router, top-k,
-optional renormalization and scale; no shared experts, biases, latent or
-chunk experts); optional post-attention and post-FFN norms, with or
+optional renormalization and scale, an optional gated SiLU shared expert
+with an optional per-token sigmoid gate; no expert biases, latent or chunk
+experts); optional post-attention and post-FFN norms, with or
 without the pre-norms (``pre_norm``). A Python loop over layers takes the
 place of ``lax.scan``; the KV
 cache (bf16, f32 or int8 with row scales) is updated in place, in the batch
@@ -24,7 +25,9 @@ TPULLM_FLASH_DECODE is set, llama.py:277-294), each only on the shapes its
 kernel builds (attention_route; the rest take the einsum path); decode layers
 take the layer kernel, folded with the next layer's QKV when the weights
 are fused in one group (llama.py:1382-1423, ``layer_routes``); MoE prefill (B*T > 16) takes
-the grouped kernel F over expert-sorted rows (llama.py:455-460).
+the grouped kernel F over expert-sorted rows (llama.py:455-460) and MoE
+decode (B*T <= 16) kernel A's expert-skip variant over the selected experts
+(llama.py:447-454, ``moe_route``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from ..ops.kv_store import kv_quant as _kv_quant  # noqa: F401 (the JAX name)
 from ..ops.kv_store import kv_store
 from ..ops.layer_kernel import ffn_block, ffn_block_qkv
 from ..ops.layer_kernel import supported as block_supported
+from ..ops.moe_decode import moe_decode, skip_supported
 from ..ops.qmm import qmm
 from ..ops.qtensor import QTensor
 from ..quant.kmajor import f32_on_device
@@ -67,6 +71,9 @@ MOE_FIELDS = frozenset({
     "expert_weights_scale", "n_ff_exp",
 })
 MOE_KEYS = frozenset({"moe_gate_inp", "moe_gate_exps", "moe_up_exps", "moe_down_exps"})
+# the shared expert of MoE layers (qwen2moe: with its sigmoid gate), read
+# only beside MOE_KEYS (llama.py:498-510)
+SHEXP_KEYS = frozenset({"ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"})
 
 
 def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
@@ -276,18 +283,42 @@ def top_k(probs, k: int):
     return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def moe_ffn(x, qw, li, cfg: ModelConfig, dtype):
+def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int) -> str:
+    """Which path the routed experts of a call take: "skip" (kernel A's
+    expert-skip variant over the selected experts, decode: B*T <= 16),
+    "ragged" (kernel F over expert-sorted rows, prefill) or "loop" (every
+    expert, mask-combined). The JAX package's gates (llama.py:447-464) with
+    "the tensors are on the card" in place of "the default backend is the
+    TPU", each kernel only on the stacks it takes; the CPU, and a stack a
+    kernel does not take (a planar one), run the loop."""
+    if not on_card:
+        return "loop"
+    n_ff_e = gate_w.shape[-2]
+    if rows <= 16:
+        ok = skip_supported(gate_w, D) and skip_supported(up_w, D) and skip_supported(
+            down_w, n_ff_e)
+        return "skip" if ok else "loop"
+    return "ragged" if _ragged_moe_ok(gate_w, up_w, down_w, D) else "loop"
+
+
+def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None):
     """Mixture-of-experts FFN (llama.py:371-515; build_moe_ffn contract,
     src/llama-graph.h:831), gated SiLU experts only.
 
     Router: logits = x @ gate_inp^T -> softmax|sigmoid, top-k, optional
-    weight renorm and scale. Prefill on the card (B*T > 16) takes the ragged
-    grouped GEMM (kernel F). Otherwise every expert is evaluated and
-    mask-combined in expert order: the JAX package skips an unselected
-    expert with lax.cond at decode (llama.py:447-454), which here would read
-    the routing back to the host once per expert; an unselected expert's
-    weight is exactly 0, so its term adds nothing and the sum is the same.
-    On the CPU this is the JAX package's dense path off the TPU."""
+    weight renorm and scale. The experts take ``moe_route``'s path: on the
+    card, decode (B*T <= 16) runs only the selected experts through kernel
+    A's expert-skip variant (the JAX package's lax.cond, llama.py:447-454,
+    moved onto the device; ops/moe_decode.py), prefill the ragged grouped
+    GEMM (kernel F). Otherwise every expert is evaluated and mask-combined
+    in expert order; an unselected expert's weight is exactly 0, so its
+    term adds nothing and the sum is the skip's. On the CPU this is the JAX
+    package's dense path off the TPU.
+
+    A shared expert (ffn_{gate,up,down}_shexp) runs on x beside them and is
+    added last, scaled first by the per-token sigmoid gate of
+    ``gate_shexp`` (the layer's f32 moe_gate_inp_shexp, qwen2moe) where
+    given (llama.py:498-510)."""
     B, T, D = x.shape
     E, used = cfg.n_expert, cfg.n_expert_used
     router = qmm(x, qw["moe_gate_inp"], dtype, li)[..., :E].to(torch.float32)
@@ -301,8 +332,29 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype):
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     w = w * cfg.expert_weights_scale
     gate_w, up_w, down_w = qw["moe_gate_exps"], qw["moe_up_exps"], qw["moe_down_exps"]
-    if B * T > 16 and x.is_cuda and _ragged_moe_ok(gate_w, up_w, down_w, D):
-        return _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg, dtype)
+    route = moe_route(x.is_cuda, B * T, gate_w, up_w, down_w, D)
+    if route == "skip":
+        out = moe_decode(x, w, top_i, gate_w, up_w, down_w, li, E, dtype)
+    elif route == "ragged":
+        out = _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg, dtype)
+    else:
+        out = _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E, dtype)
+    if "ffn_gate_shexp" in qw:
+        g = qmm(x, qw["ffn_gate_shexp"], dtype, li)
+        u = qmm(x, qw["ffn_up_shexp"], dtype, li)
+        h = torch.nn.functional.silu(g.to(torch.float32)).to(dtype) * u
+        sh = qmm(h, qw["ffn_down_shexp"], dtype, li)
+        if gate_shexp is not None:
+            sg = torch.sigmoid(torch.einsum("btd,d->bt", x.to(torch.float32),
+                                            gate_shexp.to(torch.float32)))
+            sh = sh * sg[..., None].to(sh.dtype)
+        out = out + sh
+    return out
+
+
+def _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E: int, dtype):
+    """Every expert on every row, each weighted by the rows' routing weight
+    of it (exactly 0 where unselected), summed in expert order."""
 
     def one_expert(e):
         ue = _expert_mm(x, up_w, li, e, dtype)
@@ -373,12 +425,15 @@ def _expert_mm(x, qt: QTensor, li, e: int, dtype):
 _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
                          "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
                          "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm",
-                         "post_attn_norm", "post_ffn_norm"}) | MOE_KEYS
+                         "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp"}
+                        ) | MOE_KEYS | SHEXP_KEYS
 
 
 def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     """Layer tensors this config's graph would not read (the JAX package
-    ignores them; the port raises rather than drop weights)."""
+    ignores them; the port raises rather than drop weights): among them the
+    shared expert of a layer without routed experts, and the shared
+    expert's gate without the shared expert."""
     unread = {"bq", "bk", "bv"} if not cfg.attn_bias else set()
     if not (cfg.attn_qk_norm or cfg.attn_qk_norm_flat):
         unread |= {"q_norm", "k_norm"}
@@ -386,6 +441,10 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
         unread |= {"post_attn_norm", "post_ffn_norm"}
     if not cfg.pre_norm:
         unread |= {"attn_norm", "ffn_norm"}
+    if not (cfg.n_expert > 0 and "moe_gate_inp" in gl):
+        unread |= SHEXP_KEYS | {"moe_gate_inp_shexp"}
+    if "ffn_gate_shexp" not in gl:
+        unread.add("moe_gate_inp_shexp")
     return sorted(unread & set(gl))
 
 
@@ -433,6 +492,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     moe = [MOE_KEYS & set(gl) for gl in groups]
     if any(m and m != MOE_KEYS for m in moe):
         raise NotImplementedError(f"MoE layers need all of {sorted(MOE_KEYS)}")
+    shexp = [SHEXP_KEYS & set(gl) for gl in groups]
+    if any(sh and sh != SHEXP_KEYS for sh in shexp):
+        raise NotImplementedError(
+            f"shared expert tensors {sorted(set().union(*shexp))}: the gated shared expert "
+            f"needs all of {sorted(SHEXP_KEYS)}")
     check_dense(cfg, moe=any(moe))
     B, T = tokens.shape
     b0 = 0 if slot0 is None else int(slot0)
@@ -551,7 +615,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 x = x + post_norm(qmm(att, qw["wo"], dtype, li), lw, "post_attn_norm")
                 h2 = pre_norm(x, lw, "ffn_norm")
                 if cfg.n_expert > 0 and "moe_gate_inp" in qw:  # llama.py:1273-1276
-                    f = moe_ffn(h2, qw, li, cfg, dtype)
+                    f = moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"))
                 else:
                     f = ffn(h2, qw, li, cfg, dtype)
                 x = x + post_norm(f, lw, "post_ffn_norm")

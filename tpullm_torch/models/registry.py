@@ -15,6 +15,9 @@ ARCH_REGISTRY: dict[str, dict] = {
     "mistral3": dict(rope_type="norm"),
     "qwen2": dict(rope_type="neox", attn_bias=True),
     "qwen3": dict(rope_type="neox", attn_qk_norm=True),
+    "qwen3moe": dict(rope_type="neox", attn_qk_norm=True,
+                     expert_weights_norm=True),
+    "qwen2moe": dict(rope_type="neox", attn_bias=True),
     # mixtral (llama MoE branch, src/models/llama.cpp:208): top-k
     # router weights are RENORMALIZED (build_moe_ffn norm_w=true). The
     # "llama" row has no such default, as in the JAX registry, so a llama

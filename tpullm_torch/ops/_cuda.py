@@ -46,7 +46,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each hand-written kernel, by wrapper
 COUNTS = {"qmm_splitk": 0, "qmm": 0, "flash_attention": 0, "layer_kernel": 0,
-          "moe_gmm": 0, "flash_decode": 0, "kv_store": 0}
+          "moe_gmm": 0, "flash_decode": 0, "kv_store": 0, "qmm_experts": 0}
 
 def reset_counts() -> None:
     for k in COUNTS:
@@ -280,6 +280,10 @@ _SIGNATURES = {
     "tpq_qmm_splitk": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
     # x, M, K, w_ptrs, w_ints, w_floats, out, Nout, out_bf16, stream
     "tpq_qmm": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P],
+    # x, xs, M, K, w_ptrs, w_ints, w_floats, expert strides, ids, cap, E, part, nS,
+    # gps, out, Nout, out_bf16, top_i, wts, used, combine, stream
+    "tpq_qmm_experts": [_P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I,
+                        _P, _P, _I, _I, _P],
     # q k v o qslots kvpos qpos valid_from, B H Hkv T S D,
     # 12 strides, scale softcap window, stream
     "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _P],

@@ -10,8 +10,8 @@ row-major. Layouts:
 - "planar": quant/layout.py's arrays, for weights the K-major kernels do
   not take (block types outside KM_SPECS, rows too short for a K tile);
   dequantized whole by ops/dequant.py before a plain matmul, as the JAX
-  package leaves them to XLA. Ported for Q8_0 only: any other weight that
-  would be planar raises;
+  package leaves them to XLA. Ported for Q8_0 and Q4_K only: any other
+  weight that would be planar raises;
 - "dense": float weights ({"w": tensor}).
 """
 from __future__ import annotations
@@ -122,7 +122,8 @@ def qtensor_from_bytes(raw: np.ndarray, qtype: GGMLType, shape: tuple[int, ...])
     if layout == "planar" and qtype not in PLANAR_PORTED:
         raise NotImplementedError(
             f"{qtype.name} {tuple(shape)}: no K-major layout for this type and row "
-            "length, and the planar layout is ported for Q8_0 only")
+            "length, and the planar layout is ported for "
+            f"{' and '.join(sorted(t.name for t in PLANAR_PORTED))} only")
     blk, bs = GGML_QUANT_SIZES[qtype]
     row_bytes = shape[-1] // blk * bs
     lead = tuple(shape[:-1]) if len(shape) > 1 else (1,)

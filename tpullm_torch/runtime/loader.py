@@ -6,11 +6,13 @@ where the kernels do not take them), stacks per-layer tensors along a
 leading layer axis (split into groups where the per-layer quant types
 change), fuses QKV and gate/up, then places everything on ``device``.
 Expert weights (E, n, k) are repacked per expert and stacked to
-(L, E, Npad, K); the expert gate/up stay unfused, as in the JAX package.
-The dense decoder's flag tensors load as the JAX package names them: q/k
-biases and norms, the GGUF-fused attn_qkv with its bias, and the post-norms.
-Every other tensor (expert biases, shared experts, ffn_norm_exps, chunk
-experts, the output bias, ...) raises.
+(L, E, Npad, K); the expert gate/up stay unfused, as in the JAX package,
+and so do the shared expert's (qwen2moe), whose sigmoid gate vector loads
+as f32 (loader.py:103-107, 362). The dense decoder's flag tensors load as
+the JAX package names them: q/k biases and norms, the GGUF-fused attn_qkv
+with its bias, and the post-norms. Every other tensor (expert biases,
+ffn_norm_exps, chunk experts, the output bias, ...) raises, and so does a
+shared expert without all of its gate, up and down.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from ..gguf.reader import GGUFFile
 from ..models.config import config_from_gguf
+from ..models.llama import SHEXP_KEYS
 from ..ops._cuda import resolve_device
 from ..ops.fuse import fuse_layer_weights
 from ..ops.qtensor import QTensor, qtensor_from_bytes
@@ -52,10 +55,16 @@ LAYER_TENSORS = {
     "ffn_gate_exps.weight": "moe_gate_exps",
     "ffn_up_exps.weight": "moe_up_exps",
     "ffn_down_exps.weight": "moe_down_exps",
+    # the shared expert and its per-token sigmoid gate (loader.py:103-107)
+    "ffn_gate_shexp.weight": "ffn_gate_shexp",
+    "ffn_up_shexp.weight": "ffn_up_shexp",
+    "ffn_down_shexp.weight": "ffn_down_shexp",
+    "ffn_gate_inp_shexp.weight": "moe_gate_inp_shexp",
 }
-# norms and biases load as f32 arrays (loader.py:209-229)
+# norms, biases and the shared expert's gate load as f32 arrays
+# (loader.py:209-229, 362)
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
-                     "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat"}
+                     "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp"}
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -137,6 +146,14 @@ def load_model(path: str, device="cuda"):
                 per_key.setdefault(key, {})[i] = torch.from_numpy(_to_float_array(g, tname))
             else:
                 per_key.setdefault(key, {})[i] = _load_qtensor(g, tname)
+
+    shexp = sorted(SHEXP_KEYS & set(per_key))
+    if shexp and (len(shexp) < len(SHEXP_KEYS) or any(
+            set(per_key[k]) != set(per_key[shexp[0]]) for k in shexp)):
+        names = [f"blk.{i}.{k}.weight" for k in shexp for i in sorted(per_key[k])]
+        raise NotImplementedError(
+            f"shared expert tensors {names[:8]}: the gated shared expert needs all of "
+            f"{sorted(SHEXP_KEYS)} in the same layers")
 
     # per-layer quant types may change with depth (ftype policies bump some
     # layers): stack each contiguous segment of uniform signature

@@ -5,10 +5,13 @@
   from a numpy seed in the same order as the JAX package's, so both
   packages build identical weights from one seed; with ``centred=True`` the
   weights have mean ~0, like trained ones (the runs on the card);
-- ``synth_mixtral_q4k``: the same attention, norms and embeddings with a
-  routed-expert FFN in place of the dense one (Mixtral's layout: F32
-  router, unfused Q4_K gate/up/down experts stacked to (L, E, Npad, K)),
-  the experts drawn on the device so no host array holds them;
+- ``synth_moe_q4k``: the same attention, norms and embeddings with a
+  routed-expert FFN in place of the dense one (F32 router, unfused Q4_K
+  gate/up experts and Q4_K or Q6_K down experts stacked to (L, E, Npad, K),
+  an optional Q4_K shared expert with its F32 sigmoid gate vector), the
+  experts drawn on the device so no host array holds them, for any MoE arch
+  of the registry (mixtral, qwen3moe, qwen2moe); ``synth_mixtral_q4k`` is
+  its Mixtral form;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks;
 - ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's or Qwen2's
@@ -40,7 +43,7 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
                           centred: bool = False, device="cuda", dense_ffn: bool = True,
                           arch: str = "llama", rope_base: float = 10000.0,
                           rms_eps: float = 1e-5,
-                          exact_vocab: bool = False):
+                          exact_vocab: bool = False, head_dim: int | None = None):
     """-> (ModelConfig, params) with every tensor on ``device``. Each weight
     is drawn on the host, moved to the device and released before the next,
     so host memory holds one weight at a time.
@@ -53,7 +56,9 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     ``exact_vocab=True`` gives the embedding and lm_head their logical row
     count (vocab_size) over the 256-padded arrays, as the loader's have, so
     the logits are vocab_size wide; by default they have the padded count,
-    as the JAX package's synth gives them.
+    as the JAX package's synth gives them. ``head_dim`` defaults to
+    n_embd // n_head; another value gives q n_head * head_dim wide over the
+    n_embd-wide stream (Qwen3-30B-A3B: 32 heads of 128 over 2048).
 
     ``centred=False`` draws the JAX package's weights. Their sub-mins are
     independent of the scales, so every weight row has a mean far from 0
@@ -65,7 +70,7 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     experts take their place); the other draws do not move."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
-    head_dim = n_embd // n_head
+    head_dim = head_dim or n_embd // n_head
     spec = KM_SPECS[GGMLType.Q4_K]
 
     def planes(lead, npad, K):
@@ -128,48 +133,81 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     return cfg, params
 
 
-def synth_mixtral_q4k(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int,
-                      n_head_kv: int, n_ff: int, n_expert: int, n_expert_used: int,
-                      seed: int = 0, device="cuda"):
-    """-> (ModelConfig, params) of a Mixtral-shaped Q4_K model on ``device``.
+def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_layer: int,
+                  n_head: int, n_head_kv: int, n_ff: int, n_expert: int, n_expert_used: int,
+                  n_ff_exp: int | None = None, head_dim: int | None = None,
+                  down_qtype: GGMLType = GGMLType.Q4_K, n_ff_shexp: int = 0,
+                  rope_base: float = 1e6, rms_eps: float = 1e-5, exact_vocab: bool = False,
+                  seed: int = 0, device="cuda"):
+    """-> (ModelConfig, params) of a routed-expert Q4_K model of ``arch`` on
+    ``device``.
 
     Attention, norms and embeddings are synth_kmajor_q4k_fast's
-    (centred=True) from ``seed``. Each layer's experts are random_kmajor
-    Q4_K draws with lead (E,), from a torch.Generator seeded with ``seed``
-    on ``device``, written into preallocated (L, E, ...) arrays, so the
-    largest transient is one layer's draw. The router is F32 dense (E,
-    n_embd) per layer, normal with std 0.02 (logits of std ~1.3 for
-    unit-RMS inputs at n_embd 4096). cfg.arch is "mixtral", so the top-k
-    weights are renormalized; rope_base is Mixtral's rope_theta, 1e6."""
+    (centred=True, ``head_dim``, the arch row's q/k norms or biases) from
+    ``seed``. Each layer's experts are random_kmajor draws with lead (E,),
+    from a torch.Generator seeded with ``seed`` on ``device``, written into
+    preallocated (L, E, ...) arrays, so the largest transient is one layer's
+    draw: gate and up Q4_K, down ``down_qtype`` (Q6_K where Q4_K has no K
+    tile at the expert width, as a Q4_K_M file gives some layers). The
+    experts are ``n_ff_exp`` wide, the GGUF's expert_feed_forward_length
+    (cfg.n_ff_exp), or with None ``n_ff`` wide (Mixtral's GGUF carries no
+    expert width). The router is F32 dense (E, n_embd) per layer, normal
+    with std 0.02 (logits of std ~1.3 for unit-RMS inputs at n_embd 4096).
+    With ``n_ff_shexp`` the layers also carry a Q4_K shared expert of that
+    width and its F32 gate vector (normal, std 0.02), drawn in that order
+    after the routed experts. The registry row of ``arch`` sets the top-k
+    renormalization; rope_base defaults to Mixtral's and Qwen's rope_theta,
+    1e6."""
     cfg, params = synth_kmajor_q4k_fast(
         vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer, n_head=n_head,
         n_head_kv=n_head_kv, n_ff=n_ff, seed=seed, centred=True, device=device,
-        dense_ffn=False)
+        dense_ffn=False, arch="llama" if arch == "mixtral" else arch, rms_eps=rms_eps,
+        exact_vocab=exact_vocab, head_dim=head_dim)
     device = params["output_norm"].device
     gen = torch.Generator(device=device).manual_seed(seed)
-    E = n_expert
+    E, width = n_expert, n_ff_exp or n_ff
 
-    def experts(parts, K):
-        first = random_kmajor(GGMLType.Q4_K, parts, K, (E,), gen, device)
+    def stacked(qtype, parts, K, lead=()):
+        """random_kmajor draws of lead per layer, into (L,) + lead arrays."""
+        first = random_kmajor(qtype, parts, K, lead, gen, device)
         data = {k: torch.empty((n_layer,) + tuple(v.shape), dtype=v.dtype, device=device)
                 for k, v in first.data.items()}
         for li in range(n_layer):
-            qt = first if li == 0 else random_kmajor(GGMLType.Q4_K, parts, K, (E,), gen, device)
+            qt = first if li == 0 else random_kmajor(qtype, parts, K, lead, gen, device)
             for k, v in qt.data.items():
                 data[k][li] = v
             del qt
-        return QTensor(GGMLType.Q4_K, (n_layer, E, pad256(parts[0]), K), data)
+        return QTensor(qtype, (n_layer,) + lead + (pad256(parts[0]), K), data)
 
     layers = params["layers"]
     layers["moe_gate_inp"] = QTensor(GGMLType.F32, (n_layer, E, n_embd), {
         "w": torch.randn((n_layer, E, n_embd), generator=gen, device=device) * 0.02})
-    layers["moe_gate_exps"] = experts([n_ff], n_embd)
-    layers["moe_up_exps"] = experts([n_ff], n_embd)
-    layers["moe_down_exps"] = experts([n_embd], n_ff)
-    cfg = dataclasses.replace(cfg, arch="mixtral", n_expert=E, n_expert_used=n_expert_used,
-                              rope_base=1e6)
+    layers["moe_gate_exps"] = stacked(GGMLType.Q4_K, [width], n_embd, (E,))
+    layers["moe_up_exps"] = stacked(GGMLType.Q4_K, [width], n_embd, (E,))
+    layers["moe_down_exps"] = stacked(GGMLType(down_qtype), [n_embd], width, (E,))
+    if n_ff_shexp:
+        layers["ffn_gate_shexp"] = stacked(GGMLType.Q4_K, [n_ff_shexp], n_embd)
+        layers["ffn_up_shexp"] = stacked(GGMLType.Q4_K, [n_ff_shexp], n_embd)
+        layers["ffn_down_shexp"] = stacked(GGMLType.Q4_K, [n_embd], n_ff_shexp)
+        layers["moe_gate_inp_shexp"] = torch.randn((n_layer, n_embd), generator=gen,
+                                                   device=device) * 0.02
+    cfg = dataclasses.replace(cfg, arch=arch, n_expert=E, n_expert_used=n_expert_used,
+                              n_ff_exp=n_ff_exp or 0, rope_base=rope_base)
     apply_arch_defaults(cfg)
     return cfg, params
+
+
+def synth_mixtral_q4k(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int,
+                      n_head_kv: int, n_ff: int, n_expert: int, n_expert_used: int,
+                      seed: int = 0, device="cuda"):
+    """-> (ModelConfig, params) of a Mixtral-shaped Q4_K model on ``device``:
+    synth_moe_q4k's Mixtral form (experts n_ff wide, all Q4_K, no shared
+    expert). cfg.arch is "mixtral", so the top-k weights are renormalized;
+    rope_base is Mixtral's rope_theta, 1e6."""
+    return synth_moe_q4k(arch="mixtral", vocab_size=vocab_size, n_embd=n_embd,
+                         n_layer=n_layer, n_head=n_head, n_head_kv=n_head_kv, n_ff=n_ff,
+                         n_expert=n_expert, n_expert_used=n_expert_used, seed=seed,
+                         device=device)
 
 
 # stored-integer ranges [lo, hi) of each K-major type ("q": the grid values

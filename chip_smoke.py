@@ -2185,11 +2185,16 @@ def skip_row(torch, timer, entries, name, qt, layer, M, g, used=8, path="Qwen3-3
     the routing). Held bit for bit against A called on each listed expert
     (and, for down, the loop's ``out + de * we`` in expert order), and
     against the plain version (NMSE); timed beside the plain version, that
-    per-expert A loop over the listed experts, A over all E experts (the
-    path before the skip) and, for gate/up, torch.bmm over the listed
-    experts pre-dequantized (the library yardstick; products only). The
+    per-expert A loop over the listed experts and A over all E experts (the
+    path before the skip; both Python loops of A calls, so host-dispatched:
+    the in-graph cost of the loop is the decode profiles' device ms) and one
+    library call over the listed experts pre-dequantized: torch.bmm for
+    gate/up (products only), for down the combining torch.einsum
+    ('smk,snk,sm->mn': out = sum over slots of we_s * (h_s @ W_s^T)). The
     bound reads the listed experts' weights, x and the routing once and
-    writes the output once."""
+    writes the output once. Logged beside it: the f32 slabs the call writes
+    and reads, and the card memory the call takes above what was allocated
+    before it (peak)."""
     from tpullm_torch.models.llama import expert_weight
     from tpullm_torch.ops.moe_decode import (expert_slots, experts_combine,
                                              experts_combine_plain, partial_bytes, qmm_experts,
@@ -2240,25 +2245,40 @@ def skip_row(torch, timer, entries, name, qt, layer, M, g, used=8, path="Qwen3-3
     mae = float((got.float() - want.float()).abs().max())
     w_bytes = sum(weight_bytes(expert_weight(qt, layer, e)) for e in listed)
     bound, by = bound_of(w_bytes + io_bytes, 2.0 * M * N * K * n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    slabs_mb = partial_bytes(qt, K, M, cap) / 1e6
     ms = timer(run, 20)
     pms = timer(plain, 3, warmup=1)
     loop_ms = timer(loop, 5)
     all_ms = timer(lambda: loop(list(range(E))), 3, warmup=1)
+    wd = torch.stack([dequant_kmajor_torch(expert_weight(qt, layer, e).data, qt.qtype,
+                                           bf)[:N] for e in listed])
     if combine:
-        lms = None
+        sel = torch.tensor(listed, device="cuda")
+        we = (w[None] * (top_i[None] == sel[:, None, None])).sum(-1).to(bf)  # (n, M)
+        hs = x[:n]
+        library = "torch.einsum('smk,snk,sm->mn') over the listed experts pre-dequantized"
+        lib = lambda: torch.einsum("smk,snk,sm->mn", hs, wd, we)
     else:
-        wd = torch.stack([dequant_kmajor_torch(expert_weight(qt, layer, e).data, qt.qtype,
-                                               bf)[:N] for e in listed])
-        lms = timer(lambda: torch.bmm(x.expand(n, M, K), wd.transpose(1, 2)), 10)
-        del wd
+        library = "torch.bmm over the listed experts pre-dequantized"
+        lib = lambda: torch.bmm(x.expand(n, M, K), wd.transpose(1, 2))
+    lib_err = nmse(torch, lib(), got if combine else got[:n])
+    lms = timer(lib, 10)
+    del wd
     split = launch_split(torch, timer, run, kernels)
     label = (f"qmm_experts[{name} {N}x{K},{qt.qtype.name},M={M},{n} of {E} experts "
              f"(capacity {cap}),layer {layer}]")
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_QMM_NMSE:g}) repeat identical {same} "
         f"== per-expert A loop bit for bit {bitwise} max_abs_err {mae:.4g} ms {ms:.4f} "
-        f"plain_ms {pms:.4f} loop_listed_ms {loop_ms:.4f} loop_all_{E}_ms {all_ms:.4f} "
-        f"library_ms {'null' if lms is None else f'{lms:.4f}'} bound_ms {bound:.4f} ({by}) "
-        f"share_of_bound {bound / ms:.3f} f32 slabs {partial_bytes(qt, K, M, cap) / 1e6:.2f} MB"
+        f"plain_ms {pms:.4f} host-dispatched A loop: listed_ms {loop_ms:.4f} all_{E}_ms "
+        f"{all_ms:.4f} library_ms {lms:.4f} (nmse against the kernel {lib_err:.3e}) "
+        f"bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.3f} f32 slabs "
+        f"{slabs_mb:.2f} MB peak {peak_mb:.2f} MB"
         + "".join(f" {k}_ms {v:.4f}" for k, v in split.items()))
     if not (err < TOL_QMM_NMSE and same and bitwise):
         raise AssertionError(f"{label}: nmse {err} (tol {TOL_QMM_NMSE}), repeat identical "
@@ -2266,16 +2286,17 @@ def skip_row(torch, timer, entries, name, qt, layer, M, g, used=8, path="Qwen3-3
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["qmm_experts"][0],
         replaces=SOURCES["qmm_experts"][1], kernel="qmm_experts", path=path, max_abs_err=mae,
-        ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by,
-        loop_listed_ms=loop_ms, loop_all_ms=all_ms, device_ms=split,
-        **({"library": "torch.bmm over the listed experts pre-dequantized"} if lms else {})))
+        ms=ms, plain_ms=pms, library_ms=lms, library=library, bound_ms=bound, bound_by=by,
+        host_loop_listed_ms=loop_ms, host_loop_all_ms=all_ms, slabs_mb=slabs_mb,
+        peak_mb=peak_mb, device_ms=split))
 
 
 def phase_qwen_moe_kernels(torch, entries, cfg, params):
     """Phase 10's kernel rows, on the 48-layer Qwen3-30B-A3B model's own
     weights (the last layer of its (48, 128) stacks): A's expert-skip
     variant on gate (N 768, K 2048, Q4_K) and down (N 2048, K 768, Q6_K,
-    combining) at M = 1 and 4 (a server step of 4 slots); kernel F at 128
+    combining) at M = 1, 4 (a server step of 4 slots) and 16 (the top of
+    the skip's range: capacity 128, the most f32 slabs); kernel F at 128
     experts on the slice's prefill (4 prompts bucketed to 512 = 2048 tokens,
     top-8: 16384 assignments); kernel C at G = 8 on that prefill's shape and
     kernel E at G = 8 on the server's decode step (int8 K/V, 4 slots of 4096)
@@ -2286,7 +2307,7 @@ def phase_qwen_moe_kernels(torch, entries, cfg, params):
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(1616)
     lay, li = params["layers"], cfg.n_layer - 1
-    for M in (1, 4):
+    for M in (1, 4, 16):
         skip_row(torch, timer, entries, "gate", lay["moe_gate_exps"], li, M, g)
         skip_row(torch, timer, entries, "down", lay["moe_down_exps"], li, M, g)
     E, used, M = cfg.n_expert, cfg.n_expert_used, 2048

@@ -654,10 +654,14 @@ def test_qmm_experts_builds_without_spills(cuda):
 
 
 def test_qmm_experts_refuses(cuda):
-    """A planar stack, a single weight, more than 16 rows and int64 slots
-    raise; the route sends the planar stack and B*T > 16 elsewhere."""
-    from tpullm_torch.models.llama import moe_route
-    from tpullm_torch.ops.moe_decode import expert_slots, qmm_experts
+    """A planar stack, a single weight, more than 16 rows, int64 slots and
+    more slots than the combine holds (MAX_SLOTS) raise; the route sends the
+    planar stack, B*T > 16 and min(E, B*T * used) > MAX_SLOTS elsewhere, and
+    gates on that slot count, not on E: a stack of more than MAX_SLOTS
+    experts takes the skip at decode, equal to A on each listed expert."""
+    from tpullm_torch.models.llama import expert_weight, moe_route
+    from tpullm_torch.ops.moe_decode import MAX_SLOTS, expert_slots, qmm_experts
+    from tpullm_torch.ops.qmm import qmm_kmajor
     from tpullm_torch.ops.qtensor import QTensor
 
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -675,9 +679,24 @@ def test_qmm_experts_refuses(cuda):
     planar = QTensor(GGMLType.Q8_0, (4, 512, 512), {"d": torch.zeros((4, 512, 16), device=cuda),
                                                     "qs": torch.zeros((4, 512, 16, 32),
                                                                       device=cuda)})
-    assert moe_route(True, 4, qt, qt, qt, 512) == "skip"
-    assert moe_route(True, 4, qt, qt, planar, 512) == "loop"
-    assert moe_route(True, 64, qt, qt, qt, 512) == "ragged"
+    assert moe_route(True, 4, qt, qt, qt, 512, 2) == "skip"
+    assert moe_route(True, 4, qt, qt, planar, 512, 2) == "loop"
+    assert moe_route(True, 64, qt, qt, qt, 512, 2) == "ragged"
+    E = MAX_SLOTS + 16
+    big = random_kmajor(GGMLType.Q4_K, [512], 512, (E,), g, cuda)  # gate, up and down
+    assert moe_route(True, 16, big, big, big, 512, 8) == "skip"  # 128 slots
+    assert moe_route(True, 16, big, big, big, 512, MAX_SLOTS // 16 + 1) == "loop"
+    with pytest.raises(NotImplementedError):
+        qmm_experts(torch.zeros((16, 512), device=cuda), big, None,
+                    torch.arange(MAX_SLOTS + 1, dtype=torch.int32, device=cuda))
+    top_i = torch.rand((16, E), generator=g, device=cuda).argsort(-1)[:, :8]
+    ids = expert_slots(top_i, E)
+    x = torch.randn((16, 512), generator=g, device=cuda).to(torch.bfloat16)
+    got = qmm_experts(x, big, None, ids)
+    for slot, e in enumerate(ids.tolist()):
+        if e >= 0:
+            want = qmm_kmajor(x, expert_weight(big, None, e).data, big.qtype, 512, torch.bfloat16)
+            assert torch.equal(got[slot], want), (slot, e)
 
 
 def _moe_card(arch, **kw):

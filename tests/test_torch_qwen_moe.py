@@ -41,8 +41,8 @@ from tpullm.utils.synth import _add_quant_tensor, build_arch_gguf
 from tpullm_torch.models.config import ModelConfig, config_from_gguf
 from tpullm_torch.models.llama import KVCache, _moe_loop, forward, moe_ffn, moe_route
 from tpullm_torch.ops.dequant import dequant_torch
-from tpullm_torch.ops.moe_decode import (expert_slots, experts_combine, moe_decode,
-                                         qmm_experts, skip_supported)
+from tpullm_torch.ops.moe_decode import (MAX_SLOTS, expert_slots, experts_combine,
+                                         moe_decode, qmm_experts, skip_supported)
 from tpullm_torch.ops.qmm import qmm
 from tpullm_torch.ops.qtensor import QTensor, qtensor_from_bytes
 from tpullm_torch.runtime.engine import InferenceEngine
@@ -317,7 +317,7 @@ def test_q4k_stack_at_k768_loads_planar():
     np.testing.assert_allclose(qmm(torch.from_numpy(x), one, torch.float32).numpy(),
                                np.asarray(jqmm(jnp.asarray(x), jone, jnp.float32)),
                                rtol=1e-5, atol=1e-6)
-    assert not skip_supported(q, 768)
+    assert not skip_supported(q, 768, 4)
 
 
 # -------------------------------------------------------------- the expert skip
@@ -402,20 +402,22 @@ def test_skip_wrappers_take_the_plain_version_on_the_cpu():
 def test_moe_route_gate():
     """The route of the routed experts: the CPU always loops; on the card
     B*T <= 16 takes the skip over K-major stacks and the loop over a planar
-    one (qwen3moe's Q4_K down experts at K 768), B*T > 16 kernel F where it
-    takes every stack, else the loop."""
+    one (qwen3moe's Q4_K down experts at K 768) or over more slots,
+    min(E, B*T * used), than the combine holds (MAX_SLOTS), B*T > 16 kernel
+    F where it takes every stack, else the loop."""
     _, qw, _ = _moe_layer(4, shexp=False)
     gate, up, down = qw["moe_gate_exps"], qw["moe_up_exps"], qw["moe_down_exps"]
     planar = qtensor_from_bytes(_q4k_raw((1, 2, 256, 768), 6), GGMLType.Q4_K, (1, 2, 256, 768))
-    assert moe_route(False, 4, gate, up, down, D) == "loop"
-    assert moe_route(False, 64, gate, up, down, D) == "loop"
-    assert moe_route(True, 1, gate, up, down, D) == "skip"
-    assert moe_route(True, 16, gate, up, down, D) == "skip"
-    assert moe_route(True, 17, gate, up, down, D) == "ragged"
-    assert moe_route(True, 4, gate, up, planar, D) == "loop"
-    assert moe_route(True, 2048, gate, up, planar, D) == "loop"
-    assert skip_supported(gate, D) and not skip_supported(
-        QTensor(GGMLType.Q4_K, (NFF, D), {k: v[1, 0] for k, v in gate.data.items()}), D)
+    assert moe_route(False, 4, gate, up, down, D, USED) == "loop"
+    assert moe_route(False, 64, gate, up, down, D, USED) == "loop"
+    assert moe_route(True, 1, gate, up, down, D, USED) == "skip"
+    assert moe_route(True, 16, gate, up, down, D, USED) == "skip"
+    assert moe_route(True, 17, gate, up, down, D, USED) == "ragged"
+    assert moe_route(True, 4, gate, up, planar, D, USED) == "loop"
+    assert moe_route(True, 2048, gate, up, planar, D, USED) == "loop"
+    assert skip_supported(gate, D, E) and not skip_supported(
+        QTensor(GGMLType.Q4_K, (NFF, D), {k: v[1, 0] for k, v in gate.data.items()}), D, E)
+    assert skip_supported(gate, D, MAX_SLOTS) and not skip_supported(gate, D, MAX_SLOTS + 1)
 
 
 # ------------------------------------------------------ config, loader, synth

@@ -283,20 +283,23 @@ def top_k(probs, k: int):
     return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int) -> str:
+def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int, used: int) -> str:
     """Which path the routed experts of a call take: "skip" (kernel A's
     expert-skip variant over the selected experts, decode: B*T <= 16),
     "ragged" (kernel F over expert-sorted rows, prefill) or "loop" (every
     expert, mask-combined). The JAX package's gates (llama.py:447-464) with
     "the tensors are on the card" in place of "the default backend is the
-    TPU", each kernel only on the stacks it takes; the CPU, and a stack a
-    kernel does not take (a planar one), run the loop."""
+    TPU", each kernel only on the stacks it takes (the skip over at most
+    MAX_SLOTS slots: min(E, rows * used) of the ``used`` experts a row
+    selects); the CPU, and a stack a kernel does not take (a planar one),
+    run the loop."""
     if not on_card:
         return "loop"
     n_ff_e = gate_w.shape[-2]
     if rows <= 16:
-        ok = skip_supported(gate_w, D) and skip_supported(up_w, D) and skip_supported(
-            down_w, n_ff_e)
+        cap = min(gate_w.shape[-3], rows * used)
+        ok = skip_supported(gate_w, D, cap) and skip_supported(up_w, D, cap) and skip_supported(
+            down_w, n_ff_e, cap)
         return "skip" if ok else "loop"
     return "ragged" if _ragged_moe_ok(gate_w, up_w, down_w, D) else "loop"
 
@@ -332,7 +335,7 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None):
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     w = w * cfg.expert_weights_scale
     gate_w, up_w, down_w = qw["moe_gate_exps"], qw["moe_up_exps"], qw["moe_down_exps"]
-    route = moe_route(x.is_cuda, B * T, gate_w, up_w, down_w, D)
+    route = moe_route(x.is_cuda, B * T, gate_w, up_w, down_w, D, used)
     if route == "skip":
         out = moe_decode(x, w, top_i, gate_w, up_w, down_w, li, E, dtype)
     elif route == "ragged":

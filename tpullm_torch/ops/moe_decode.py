@@ -43,14 +43,14 @@ MAX_SLOTS = 384  # the combine's shared memory: 32 outputs x slots x 4 bytes <= 
 _KEYS = ("q", "d", "s8", "m8", "dmin", "bm")
 
 
-def skip_supported(qt, K: int) -> bool:
+def skip_supported(qt, K: int, cap: int) -> bool:
     """The skip kernel's gate: an (L, E, ...) or (E, ...) K-major stack of a
-    type kernel A takes, at most MAX_SLOTS experts (a planar stack, or any
-    other weight, keeps the loop)."""
+    type kernel A takes, over at most MAX_SLOTS slots, cap = min(E, rows *
+    used) (a planar stack, or any other weight, keeps the loop)."""
     if qt.layout != "kmajor" or qt.data["q"].dim() not in (3, 4):
         return False
     qtype = GGMLType(qt.qtype)
-    return qtype in KM_SPECS and qmm_supported(qtype, K) and qt.data["q"].shape[-3] <= MAX_SLOTS
+    return qtype in KM_SPECS and qmm_supported(qtype, K) and 1 <= cap <= MAX_SLOTS
 
 
 def expert_slots(top_i, n_expert: int) -> torch.Tensor:
@@ -108,14 +108,14 @@ def _launch(x, qt, layer, ids, out_dtype, combine):
     data = qt.data
     if (data["q"].dim() == 4) != (layer is not None):
         raise ValueError("qmm_experts: pass layer exactly for (L, E, ...) stacks")
-    K = x.shape[-1]
-    if not skip_supported(qt, K):
+    K, cap = x.shape[-1], ids.shape[0]
+    if not skip_supported(qt, K, cap):
         raise NotImplementedError(
-            f"qmm_experts: {qtype.name} {tuple(qt.shape)} at K={K} is not a stack the "
-            "expert-skip kernel takes")
+            f"qmm_experts: {qtype.name} {tuple(qt.shape)} at K={K} over {cap} slots is not a "
+            f"stack the expert-skip kernel takes (at most {MAX_SLOTS} slots)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"qmm_experts writes bf16 or f32, not {out_dtype}")
-    cap, M = ids.shape[0], x.shape[-2]
+    M = x.shape[-2]
     if (x.dim() == 3 and x.shape[0] != cap) or M > MAX_ROWS or ids.dtype != torch.int32:
         raise ValueError(f"qmm_experts: x {tuple(x.shape)} and ids {tuple(ids.shape)} "
                          f"{ids.dtype} (int32 slots, rows <= {MAX_ROWS}, x shared or one a slot)")

@@ -107,18 +107,35 @@ pass):
    decode (3 skip launches a layer a step, whatever E is) and prefill
    profiles, and its server (4 slots of 4096, int8 KV, kernel E, a
    Qwen2-layout tokenizer): 4 token-id completions and 2 chats, one
-   stopped at <|im_end|>, with A-C, E, F, the store and the skip launched.
+   stopped at <|im_end|>, with A-C, E, F, the store and the skip launched;
+11. the gemma family at full width (head dim 256, gelu, the embedding
+   scale, softcaps, windows, tied lm_heads): Gemma-2-9B with 2 layers,
+   Gemma-3-4B's width with 6 (5 SWA layers at their own rope base under
+   linear scaling 8) and Gemma-7B's width with 2 (kernel D with gelu)
+   against the CPU as phase 3, the window cut to 256 so the prompts pass
+   it; kernel rows at Gemma-2-9B's weights and heads (C at head dim 256
+   with softcap 50 and windows of 0, 256 and 4096; E with window and
+   softcap; the store) and D at Gemma-7B's layer; then the 42-layer
+   Gemma-2-9B model: the slice with E on (every prefill attention call
+   routed to C, none to the einsum path; A, B, C, E and the store
+   launched, D not) and its decode profile, and its server (4 slots of
+   8192, int8 KV, full-context KV on every layer as --swa-full gives it,
+   E on): 4 token-id completions of 6000/2000/700/40 tokens, the 6000 past
+   the 4096 window, and the 6000-token prefill and a decode chunk
+   profiled.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
 activations stay in range through 32 layers and greedy tokens vary;
 synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
 card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
-q/k norms or biases, and the Qwen MoE models synth_moe_q4k's). The last
+q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
+tied lm_head, and the Qwen MoE models synth_moe_q4k's). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
-slice and server), the card's name and power limit, and the result line.
+slice and server, the Gemma-2-9B slice and server, the Gemma-7B-width
+run), the card's name and power limit, and the result line.
 """
 import gc
 import hashlib
@@ -173,6 +190,37 @@ QWEN3MOE = dict(arch="qwen3moe", vocab_size=151936, n_embd=2048, n_layer=48, n_h
 QWEN2MOE = dict(arch="qwen2moe", vocab_size=151936, n_embd=3584, n_layer=28, n_head=28,
                 n_head_kv=4, n_ff=18944, n_ff_exp=2560, n_expert=64, n_expert_used=8,
                 n_ff_shexp=20480, rope_base=1e6, rms_eps=1e-6, exact_vocab=True)
+
+# Gemma-2-9B (google/gemma-2-9b config.json): hidden 3584, 42 layers, 16/8 heads
+# of head_dim 256 (q 4096 wide over the 3584-wide stream), intermediate 14336,
+# vocab 256000, tied embeddings, gelu (tanh), post-attention and post-FFN
+# norms, sliding_window 4096 on every other layer (the GGUF's pattern 2:
+# layer il is SWA where (il + 1) % 2), attn_logit_softcapping 50,
+# final_logit_softcapping 30, query_pre_attn_scalar 256 (= head_dim: the
+# scale 1/sqrt(head_dim)), rope_theta 1e4, rms_norm_eps 1e-6; the arch row
+# gives the embedding scale sqrt(3584) and the softcaps
+GEMMA2 = dict(arch="gemma2", vocab_size=256000, n_embd=3584, n_layer=42, n_head=16, n_head_kv=8,
+              head_dim=256, n_ff=14336, rms_eps=1e-6, exact_vocab=True, tied=True,
+              cfg_fields=dict(sliding_window=4096))
+# Gemma-3-4B (google/gemma-3-4b-pt config.json, text_config): hidden 2560, 34
+# layers, 8/4 heads of 256 (q 2048 wide), intermediate 10240, vocab 262208,
+# tied, per-head q/k norms and the post-norms, sliding_window 1024 with every
+# 6th layer global (the arch row's pattern 6), rope_theta 1e6 with linear
+# scaling 8, rope_local_base_freq 1e4 (the GGUF's rope.freq_base_swa),
+# rms_norm_eps 1e-6
+GEMMA3_4B = dict(arch="gemma3", vocab_size=262208, n_embd=2560, n_layer=34, n_head=8,
+                 n_head_kv=4, head_dim=256, n_ff=10240, rope_base=1e6, rms_eps=1e-6,
+                 exact_vocab=True, tied=True,
+                 cfg_fields=dict(sliding_window=1024, rope_base_swa=1e4,
+                                 rope_scaling="linear", rope_scale=8.0))
+# Gemma-7B (google/gemma-7b config.json): hidden 3072, 28 layers, 16/16 heads
+# of 256 (q 4096 wide), intermediate 24576, vocab 256000, tied, gelu (tanh),
+# no window and no post-norms, so its decode takes kernel D (gelu, folded)
+GEMMA7B = dict(arch="gemma", vocab_size=256000, n_embd=3072, n_layer=28, n_head=16,
+               n_head_kv=16, head_dim=256, n_ff=24576, rms_eps=1e-6, exact_vocab=True,
+               tied=True)
+GEMMA_PARITY_WINDOW = 256  # the window of the parity runs, cut so prompts pass it
+GEMMA_SERVER_PROMPTS = [6000, 2000, 700, 40]  # the Gemma-2-9B burst: past its 4096 window
 
 TOL_QMM_NMSE = 1e-5  # same bf16 weights, f32 sums in another order, bf16 out
 TOL_ATTN_NMSE = 1e-4  # p rounded to bf16 before vs after normalization
@@ -340,6 +388,37 @@ def bound_of(nbytes: float, flops: float):
     return max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3, by
 
 
+FLEX = None  # flex_attention compiled once, the softcapped rows' library call
+
+
+def flex_call(torch, q, k, v, mask, scale, softcap):
+    """The library call of a softcapped row of kernel C or E: one call of
+    ``torch.nn.attention.flex_attention`` (compiled once, here only; the
+    port never calls it) on q (B, H, T, D) and K/V (B, Hkv, S, D) that
+    computes masked_attention's function: scores times ``scale``, then
+    softcap * tanh(s / softcap), under the (B, T, S) boolean ``mask`` as a
+    block mask, built here and not timed, as SDPA's dense mask is not.
+    Inductor's and Triton's caches go to the gitignored build directory.
+    -> a callable giving (B, H, T, D)."""
+    global FLEX
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "tpullm_torch" / "_build" / sub))
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    if FLEX is None:
+        FLEX = torch.compile(flex_attention, dynamic=False)
+    B, _, T, _ = q.shape
+    block_mask = create_block_mask(lambda b, h, i, j: mask[b, i, j], B, None, T, k.shape[2],
+                                   device=q.device)
+
+    def score_mod(s, b, h, i, j):
+        return torch.tanh(s / softcap) * softcap
+
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return lambda: FLEX(q, k, v, score_mod=score_mod, block_mask=block_mask, scale=scale,
+                        enable_gqa=True)
+
+
 def launch_split(torch, timer, run, names, iters=10):
     """Device ms a call of each kernel in ``names`` (CUDA base names, for
     kernel A qmm_splitk_kernel and qmm_reduce, for kernel E its main and
@@ -400,9 +479,11 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
         bound_ms=bound, bound_by=by, bits=bits, **({"device_ms": split} if split else {})))
 
 
-def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H, HKV)):
+def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H, HKV), hd=HD,
+             softcap=0.0, window=0):
     """One row of kernel C at ``heads`` (query, kv; Llama-3-8B's unless
-    given): query slots n_past ..
+    given), head dim ``hd``, a logit softcap and a window on real positions
+    where given: query slots n_past ..
     n_past + T - 1 of each batch row over an S-slot cache, K/V live from
     valid_from to the last query slot. Held against masked_attention (NMSE
     on rows with a visible key, padding rows exactly 0, two calls
@@ -412,11 +493,14 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     backend), with K/V of the group's heads as they are and expanded, and
     the fastest call is the yardstick. The bound reads q of the rows with a
     visible key, writes o once, reads each batch row's live K/V rows once,
-    and counts 4 D flops a visible (query head, key) pair."""
+    and counts 4 D flops a visible (query head, key) pair. A softcap row's
+    library call is flex_attention over the same mask (``flex_call``), held
+    against the plain version as the SDPA calls are."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
 
     H, HKV = heads
+    HD = hd
     vf = torch.tensor(vf, device="cuda")
     q = torch.randn((B, T, H, HD), generator=g, device="cuda").to(torch.bfloat16)
     k = torch.randn((B, HKV, S, HD), generator=g, device="cuda").to(torch.bfloat16)
@@ -424,9 +508,11 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     qs = n_past + torch.arange(T, device="cuda")[None].expand(B, T)
     pos = (qs - vf[:, None]).clamp_min(0)
     kvp = torch.arange(S, device="cuda")[None] - vf[:, None]
-    cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD)
-    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
-    plain = lambda: masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / math.sqrt(HD))
+    cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD,
+                      attn_logit_softcap=softcap, sliding_window=window)
+    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg, bool(window))
+    plain = lambda: masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / math.sqrt(HD), softcap,
+                                     window)
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
     live = qs >= vf[:, None]
@@ -436,8 +522,11 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     mae = float((got.float() - want.float()).abs().max())
     slot = torch.arange(S, device="cuda")
     mask = (slot[None, None, :] <= qs[:, :, None]) & (slot[None, None, :] >= vf[:, None, None])
+    if window:
+        mask &= kvp[:, None, :] > pos[:, :, None] - window
     flops = 4.0 * HD * int(mask.sum()) * H
-    kv_rows = sum(max(0, int(qs[b].max()) + 1 - f) for b, f in enumerate(vf.tolist())) * HKV
+    # each batch row's K/V rows that some query sees, read once
+    kv_rows = int(mask.any(dim=1).sum()) * HKV
     nbytes = 2 * (int(live.sum()) * H * HD + B * T * H * HD + 2 * kv_rows * HD)
     bound, by = bound_of(nbytes, flops)
     ms = timer(run, 20)
@@ -446,7 +535,10 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     qt_ = q.transpose(1, 2)
     am = mask[:, None]
     calls = {"masked": lambda: sdpa(qt_, k, v, attn_mask=am, enable_gqa=True)}
-    if not any(vf.tolist()):
+    if softcap:
+        calls = {"flex_attention": flex_call(torch, qt_, k, v, mask, 1.0 / math.sqrt(HD),
+                                             softcap)}
+    elif not any(vf.tolist()) and not window:
         from torch.nn.attention.bias import causal_lower_right
 
         n_kv = n_past + T
@@ -455,17 +547,19 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
         bias = causal_lower_right(T, n_kv)
         calls["lower_right"] = lambda: sdpa(qt_, kl, vl, attn_mask=bias, enable_gqa=True)
         calls["lower_right_expanded"] = lambda: sdpa(qt_, ke, ve, attn_mask=bias)
-        for name, call in list(calls.items())[1:]:
-            e = nmse(torch, call().transpose(1, 2)[live], want[live])
-            if not e < TOL_ATTN_NMSE:
-                raise AssertionError(f"SDPA {name}: nmse {e} against the plain version")
+    for name, call in list(calls.items())[0 if softcap else 1:]:
+        e = nmse(torch, call().transpose(1, 2)[live], want[live])
+        if not e < TOL_ATTN_NMSE:
+            raise AssertionError(f"library call {name}: nmse {e} against the plain version")
     lib = {name: timer(call, 20) for name, call in calls.items()}
     lms = min(lib.values())
-    label = f"flash_attention[B={B},H={H},Hkv={HKV},T={T},slots={n_past}+,S={S},D={HD}]"
+    label = (f"flash_attention[B={B},H={H},Hkv={HKV},T={T},slots={n_past}+,S={S},D={HD}"
+             + (f",softcap={softcap:g}" if softcap else "")
+             + (f",window={window}" if window else "") + "]")
     log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_ATTN_NMSE:g}) padding rows zero "
         f"{pad_zero} repeat identical {same} max_abs_err {mae:.4g} ms {ms:.4f} "
-        f"plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) "
-        f"share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} SDPA calls "
+        f"plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) share_of_bound "
+        f"{bound / ms:.3f} x_library {ms / lms:.2f} library calls "
         + " ".join(f"{n} {t:.4f}" for n, t in lib.items()))
     if max(errs) >= TOL_ATTN_NMSE or not pad_zero or not same:
         raise AssertionError(f"{label}: nmse {errs}, padding rows zero {pad_zero}, "
@@ -473,7 +567,8 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["flash_attention"][0],
         replaces=SOURCES["flash_attention"][1], kernel="flash_attention", path=path,
-        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound, bound_by=by))
+        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms,
+        library="flex_attention" if softcap else "SDPA", bound_ms=bound, bound_by=by))
     del q, k, v, got, again, want, mask, am, calls
     torch.cuda.empty_cache()
 
@@ -516,7 +611,8 @@ def matmul_rows(torch, timer, entries, kernels=("qmm_splitk", "qmm")):
     return g
 
 
-def layer_rows(torch, timer, entries, g, M=4, n_ff=N_FF, path="8B"):
+def layer_rows(torch, timer, entries, g, M=4, n_ff=N_FF, path="8B", d=D, heads=(H, HKV), hd=HD,
+               act="silu"):
     """Phase 2's rows of kernel D at Llama-3-8B's widths (or, with n_ff and
     path, Qwen3-8B's: the same attention, n_ff 12288), Q4_K, plain and
     folded: held against its plain version (NMSE, two calls bit-identical)
@@ -525,7 +621,8 @@ def layer_rows(torch, timer, entries, g, M=4, n_ff=N_FF, path="8B"):
     ffn with the residual; folded, also rms_norm and qmm on the next
     layer's wqkv), the launches D saves. No single library call computes
     D's function, so library_ms is null. The bound reads one layer's
-    weights, att, resid and the outputs once."""
+    weights, att, resid and the outputs once. ``d``, ``heads``, ``hd`` and
+    ``act`` give another model's layer (Gemma-7B's: gelu)."""
     from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.models.llama import ffn, rms_norm
@@ -535,9 +632,12 @@ def layer_rows(torch, timer, entries, g, M=4, n_ff=N_FF, path="8B"):
     from tpullm_torch.utils.synth import random_kmajor
 
     L = 2
+    D = d
+    H, HKV = heads
+    HD = hd
     qtype = GGMLType.Q4_K
     cfg = ModelConfig(n_embd=D, n_layer=L, n_head=H, n_head_kv=HKV, head_dim=HD,
-                      head_dim_v=HD, n_ff=n_ff)
+                      head_dim_v=HD, n_ff=n_ff, act_fn=act)
     qw = {"wo": random_kmajor(qtype, [D], H * HD, (L,), g, "cuda"),
           "ffn_gateup": random_kmajor(qtype, [n_ff, n_ff], D, (L,), g, "cuda"),
           "ffn_down": random_kmajor(qtype, [D], n_ff, (L,), g, "cuda"),
@@ -865,13 +965,15 @@ def decode_operands(torch, g, B, T, Hq, Hk, S, hd, slots, q8, vf=None):
 
 
 def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV),
-               path="8B server"):
+               path="8B server", hd=HD, softcap=0.0, window=0):
     """One row of kernel E at ``heads`` (Llama-3-8B's 32/8 of 128 unless
-    given; T = 1) over
+    given; T = 1), head dim ``hd``, a softcap and a window where given, over
     an S-slot view, row b's query at slots[b] with keys from vf[b]: against
     its plain version (NMSE 1e-4, two calls bit-identical), timed beside
-    the plain version, SDPA with a boolean mask over the bf16 views
-    (pre-dequantized for int8; the library yardstick) and the einsum path
+    the plain version, the library call over the bf16 views (pre-dequantized
+    for int8): SDPA with a boolean mask, or with a softcap flex_attention
+    over the same mask (``flex_call``, held against the plain version), and
+    the einsum path
     the model takes with E off (masked_attention over the same views), with
     the device ms of E's main and merge launches apart (profiler) and a
     digest of its output bits. The bound reads each row's visible K/V rows
@@ -885,21 +987,24 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
 
     H, HKV = heads
+    HD = hd
     B = len(slots)
     scale = 1.0 / math.sqrt(HD)
-    cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD)
+    cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD,
+                      attn_logit_softcap=softcap)
     q, k, v, ks, vs, qs, pos, vft = decode_operands(torch, g, B, 1, H, HKV, S, HD, slots, q8,
                                                     vf)
-    run = lambda: flash_decode(q, k, v, qs, pos, vft, cfg, k_scales=ks, v_scales=vs)
-    plain = lambda: flash_decode_plain(q, k, v, qs, pos, vft, scale, 0.0, 0, False, None, ks,
-                                       vs)
+    run = lambda: flash_decode(q, k, v, qs, pos, vft, cfg, window, k_scales=ks, v_scales=vs)
+    plain = lambda: flash_decode_plain(q, k, v, qs, pos, vft, scale, softcap, window, False,
+                                       None, ks, vs)
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
     err = nmse(torch, got, want)
     same = bool(torch.equal(got, again))
     bits = hashlib.sha1(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:12]
     mae = float((got.float() - want.float()).abs().max())
-    rows = sum(n + 1 - f for n, f in zip(slots, vft.tolist()))  # visible slots of the rows
+    # visible slots of the rows
+    rows = sum(min(n + 1 - f, window or n + 1) for n, f in zip(slots, vft.tolist()))
     kv_bytes = rows * HKV * 2 * HD * (1 if q8 else 2) + (rows * HKV * 8 if q8 else 0)
     bound, by = bound_of(kv_bytes + 2 * B * H * HD * 2, 4.0 * HD * H * rows)
     ms = timer(run, 20)
@@ -910,28 +1015,41 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     slot = torch.arange(S, device="cuda")
     mask = (slot[None, None, None, :] <= qs[:, None, :, None]) & \
         (slot[None, None, None, :] >= vft[:, None, None, None])
-    qt = q.transpose(1, 2)
-    lms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kd, vd, attn_mask=mask, enable_gqa=True), 20)
     kvp = slot[None] - vft[:, None]
-    ems = timer(lambda: masked_attention(q, kd, vd, qs, kvp, pos, vft, scale), 10)
+    if window:
+        mask &= kvp[:, None, None, :] > pos[:, None, :, None] - window
+    qt = q.transpose(1, 2)
+    if softcap:
+        library, call = "flex_attention", flex_call(torch, qt, kd, vd, mask[:, 0], scale,
+                                                    softcap)
+        lib_err = nmse(torch, call().transpose(1, 2), want)
+        if not lib_err < TOL_DECODE_NMSE:
+            raise AssertionError(f"flex_attention: nmse {lib_err} against the plain version")
+    else:
+        library, call = "SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, enable_gqa=True)
+    lms = timer(call, 20)
+    ems = timer(lambda: masked_attention(q, kd, vd, qs, kvp, pos, vft, scale, softcap, window),
+                10)
     label = (f"flash_decode[{'int8' if q8 else 'bf16'},{where},B={B},H={H},Hkv={HKV},T=1,"
              f"S={S},D={HD},slots {'/'.join(map(str, slots))},valid_from "
-             f"{'/'.join(map(str, vft.tolist()))}]")
+             f"{'/'.join(map(str, vft.tolist()))}"
+             + (f",softcap={softcap:g}" if softcap else "")
+             + (f",window={window}" if window else "") + "]")
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_DECODE_NMSE:g}) repeat identical {same} "
         f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
-        f"(SDPA, bf16 views) einsum_ms {ems:.4f} bound_ms {bound:.5f} ({by}; {rows} slots x "
-        f"{HKV} heads) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} x_einsum "
-        f"{ms / ems:.3f}" + "".join(f" {n}_ms {t:.4f}" for n, t in split.items())
+        f"({library}, bf16 views) einsum_ms {ems:.4f} bound_ms {bound:.5f} ({by}; {rows} "
+        f"slots x {HKV} heads) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} "
+        f"x_einsum {ms / ems:.3f}" + "".join(f" {n}_ms {t:.4f}" for n, t in split.items())
         + f" bits {bits}")
     if not (err < TOL_DECODE_NMSE and same):
         raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["flash_decode"][0],
         replaces=SOURCES["flash_decode"][1], kernel="flash_decode", path=path,
-        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library="SDPA",
+        max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library=library,
         bound_ms=bound, bound_by=by, einsum_ms=ems, device_ms=split, bits=bits))
-    del q, k, v, ks, vs, kd, vd, mask, got, again, want
+    del q, k, v, ks, vs, kd, vd, mask, got, again, want, call
     torch.cuda.empty_cache()
 
 
@@ -996,7 +1114,8 @@ def phase_flash_decode(torch, timer, entries):
         decode_flag_cases(torch, g, hd)
 
 
-def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8):
+def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=(H, HKV),
+              hd=HD):
     """One row of the KV store kernel for one layer (Llama-3-8B's and
     Mixtral's 8 kv heads of 128, 4 cache rows of S slots): bf16 K rows and
     V rows sliced out of a fused QKV output (as forward passes them), batch
@@ -1007,9 +1126,11 @@ def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8):
     and held bit for bit too; no PyTorch call quantizes and stores, so on
     the int8 cache library_ms is null. The bound reads each K/V value once
     (2 B) and the slots, and writes each once (int8 with its row's two f32
-    scales, or bf16)."""
+    scales, or bf16). ``heads`` and ``hd`` give another model's widths."""
     from tpullm_torch.ops.kv_store import kv_store, kv_store_plain
 
+    H, HKV = heads
+    HD = hd
     B, B_cache = len(slots), 4
     y = (torch.randn((B, T, (H + 2 * HKV) * HD), generator=g, device="cuda") * 2).to(
         torch.bfloat16)
@@ -1111,14 +1232,18 @@ def plain_cpu_copy(torch, params):
     return {k: conv(k, v) for k, v in params.items()}
 
 
-def phase_parity(torch, label="8B", seed=7, flash_decode=None, **model):
-    """Phase 3 (and the Qwen phase's parity runs): a model cut to a few
-    layers at full width (``model``: synth_kmajor_q4k_fast's keywords, by
-    default the 8B's with 2 layers), kernels on the card vs the plain path
-    on a CPU copy, on the same tokens (teacher-forced with the card's greedy
-    picks): a 128-token prefill and 4 decode steps, the decode steps with
-    TPULLM_FLASH_DECODE set to ``flash_decode``. -> the card's launch
-    counts."""
+def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), S=256,
+                 last_only=False, **model):
+    """Phase 3 (and the Qwen and Gemma phases' parity runs): a model cut to
+    a few layers at full width (``model``: synth_kmajor_q4k_fast's keywords,
+    by default the 8B's with 2 layers), kernels on the card vs the plain
+    path on a CPU copy, on the same tokens (teacher-forced with the card's
+    greedy picks): a prefill of 2 prompts of ``lens`` tokens (left-padded
+    to the longer) and 4 decode steps over an S-slot cache, the decode
+    steps with TPULLM_FLASH_DECODE set to ``flash_decode``; with
+    ``last_only`` the prefill computes the lm_head at the last position
+    alone (logits_idx), sparing the CPU a 256000-row product a token.
+    -> the card's launch counts."""
     import numpy as np
 
     from tpullm_torch.models.llama import KVCache, forward
@@ -1131,8 +1256,7 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, **model):
     cfg, params = synth_kmajor_q4k_fast(**spec, seed=seed, centred=True, device="cuda")
     cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(3)
-    B, T, S = 2, 128, 256
-    lens = [128, 100]
+    B, T = len(lens), max(lens)
     tok = np.zeros((B, T), np.int64)
     posn = np.zeros((B, T), np.int64)
     for b, n in enumerate(lens):
@@ -1160,7 +1284,8 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, **model):
                     t0 = time.perf_counter()
                     lg, _ = forward(s["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), s["cache"],
                                     slot, s["vf"], s["dtype"],
-                                    kv_view_len=None if step == 0 else S)
+                                    kv_view_len=None if step == 0 else S,
+                                    logits_idx=T_step - 1 if last_only else None)
                     out[name] = lg[:, -1].float().cpu()
                     if dev == "cuda":
                         torch.cuda.synchronize()
@@ -1178,7 +1303,8 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, **model):
     counts = dict(_cuda.COUNTS)
     tol = TOL_E2E_FACTOR * max(ref_errs)
     width = {k: v for k, v in spec.items() if k != "n_layer"}
-    log(f"parity {spec['n_layer']}-layer {label} {width} (prefill T={T} + 4 decode steps"
+    log(f"parity {spec['n_layer']}-layer {label} {width} (prefill T={T}, prompts {list(lens)}, "
+        f"S={S} + 4 decode steps"
         f"{', TPULLM_FLASH_DECODE=' + flash_decode if flash_decode else ''}): card vs CPU f32 "
         f"logits nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
         f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the "
@@ -1397,10 +1523,12 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     generate, each decode step a replay of the engine's CUDA graph: one run
     with the launch counts (set to 0 just before it; replays add their
     capture's counts), then ``repeats`` timed runs (prefill alone, then
-    prefill + 32 decode steps). Then one eager pass of the same requests
+    prefill + 32 decode steps, each the median of 3 samples, so that one
+    sample's host stall moves neither the prefill rate nor the decode ms,
+    their difference over 32). Then one eager pass of the same requests
     (cuda_graphs=False), which must give the same greedy tokens, 4 x 33,
-    and the same launch counts. -> (counts, graph engine, eager engine,
-    prompts)."""
+    and the same launch counts, and its median-of-3 timings. -> (counts,
+    graph engine, eager engine, prompts)."""
     import numpy as np
 
     from tpullm_torch.ops import _cuda
@@ -1421,6 +1549,10 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
         torch.cuda.synchronize()
         return r, time.perf_counter() - t
 
+    def median_timed(e, n, k=3):
+        runs = [timed(e, n) for _ in range(k)]
+        return runs[-1][0], sorted(t for _, t in runs)[k // 2]
+
     timed(eng, 1)  # warm-up: first use of each kernel shape
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
@@ -1429,8 +1561,8 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     peak = torch.cuda.max_memory_allocated() / 1e9
     pre, step_ms = [], []
     for _ in range(repeats):
-        _, t_pre = timed(eng, 1)
-        r2, t_all = timed(eng, new)
+        _, t_pre = median_timed(eng, 1)
+        r2, t_all = median_timed(eng, new)
         pre.append(sum(lens) / t_pre)
         step_ms.append((t_all - t_pre) / dec_steps * 1e3)
     flat = [t for row in r1.tokens for t in row]
@@ -1439,12 +1571,12 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     _cuda.reset_counts()
     r_eager, _ = timed(eager, new)
     eager_counts = dict(_cuda.COUNTS)
-    _, t_pre = timed(eager, 1)
-    _, t_all = timed(eager, new)
+    _, t_pre = median_timed(eager, 1)
+    _, t_all = median_timed(eager, new)
     eager_ms = (t_all - t_pre) / dec_steps * 1e3
     graph_eq = r_eager.tokens == r1.tokens
-    log(f"slice {label}: prefill {sum(lens)} tokens (bucket 4x512) "
-        f"{[round(x, 1) for x in pre]} tok/s; decode {len(lens)}x{dec_steps} tokens "
+    log(f"slice {label} (times: medians of 3 samples): prefill {sum(lens)} tokens (bucket "
+        f"4x512) {[round(x, 1) for x in pre]} tok/s; decode {len(lens)}x{dec_steps} tokens "
         f"{[round(x, 2) for x in step_ms]} ms/step "
         f"({[round(len(lens) * 1e3 / x, 1) for x in step_ms]} tok/s) as graph replays "
         f"(first run with its capture {t_capture:.3f} s), eager {eager_ms:.2f} ms/step; "
@@ -1512,7 +1644,9 @@ def english_text(tok, n_tokens: int, seed: int) -> str:
 def visible(tok, ids, stop=()):
     """The text the server returns for generated ids: their decode without
     special tokens, a trailing partial UTF-8 character held back, cut at the
-    first stop string."""
+    first stop string; without a tokenizer, the ids themselves."""
+    if tok is None:
+        return " ".join(map(str, ids))
     text = tok.decode(ids, skip_special=True)
     if text.endswith("\ufffd"):
         text = text[: text.rfind("\ufffd")]
@@ -2392,11 +2526,254 @@ def phase_qwen_moe(torch, entries):
     return counts
 
 
+def phase_gemma_kernels(torch, entries):
+    """Phase 2's rows at the Gemma phase's shapes (phase 11), each held
+    against its plain version and timed: kernels A (M = 4) and B (M = 2048)
+    on Gemma-2-9B's wqkv (8192 x 3584), gate/up (28672 x 3584), down
+    (3584 x 14336) and the tied 256000-row lm_head, Q4_K; kernel C at head
+    dim 256 with Gemma-2's softcap of 50 at the engine slice's prefill (B
+    4, T 512, S 1024, 16/8 heads) with no window and with a window of 256,
+    and at the server's last chunk of its 6000-token prompt (query slots
+    5632-6143 over an 8192-slot view, window 4096); kernel E at Gemma-2-9B's
+    decode shapes with the softcap: the server's int8 step (rows at
+    6000/2000/700/40 of 8192, the 4096 window biting on the deepest) and the
+    engine's bf16 step; the KV store at 8 kv heads of 256, bit for bit, at
+    the server's decode step and 512-row chunk and the engine's decode step;
+    kernel D with gelu at Gemma-7B's layer (3072 wide, 16/16 heads of 256,
+    n_ff 24576), M = 4, plain and folded."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.ops.qtensor import QTensor
+    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
+    from tpullm_torch.utils.synth import random_kmajor
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(1717)
+    gm = GEMMA2
+    d, hd, nq, nkv = gm["n_embd"], gm["head_dim"], gm["n_head"], gm["n_head_kv"]
+    heads = (nq, nkv)
+    for name, parts, K in (("wqkv", [nq * hd, nkv * hd, nkv * hd], d),
+                           ("gateup", [gm["n_ff"]] * 2, d), ("down", [d], gm["n_ff"]),
+                           ("lm_head", [gm["vocab_size"]], d)):
+        qtype = GGMLType.Q4_K
+        qt = random_kmajor(qtype, parts, K, (), g, "cuda")
+        if len(parts) == 1:  # the logical rows over the padded arrays, as loaded
+            qt = QTensor(qtype, (parts[0], K), qt.data)
+        w_bf16 = dequant_kmajor_torch(qt.data, qtype, torch.bfloat16)[: qt.n_out]
+        for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            qmm_row(torch, timer, entries, kname,
+                    f"{kname}[{name} {qt.n_out}x{K},{qtype.name},M={M},Gemma-2-9B]", x, qt,
+                    w_bf16, path="Gemma-2-9B")
+            del x
+        del qt, w_bf16
+        torch.cuda.empty_cache()
+    for window in (0, GEMMA_PARITY_WINDOW):
+        attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
+                 path="Gemma-2-9B", heads=heads, hd=hd, softcap=50.0, window=window)
+    attn_row(torch, timer, entries, g, B=1, T=512, S=8192, n_past=5632, vf=[0],
+             path="Gemma-2-9B server", heads=heads, hd=hd, softcap=50.0, window=4096)
+    decode_row(torch, timer, entries, g, "Gemma-2-9B server", 8192, [6000, 2000, 700, 40],
+               [0, 0, 0, 0], True, heads=heads, path="Gemma-2-9B server", hd=hd,
+               softcap=50.0, window=4096)
+    decode_row(torch, timer, entries, g, "Gemma-2-9B engine", 1024, [527] * 4,
+               [0, 212, 312, 412], False, heads=heads, path="Gemma-2-9B", hd=hd,
+               softcap=50.0, window=4096)
+    store_row(torch, timer, entries, g, "Gemma-2-9B server decode", "Gemma-2-9B server", 1,
+              [6000, 2000, 700, 40], 0, 8192, True, heads=heads, hd=hd)
+    store_row(torch, timer, entries, g, "Gemma-2-9B server prefill chunk", "Gemma-2-9B server",
+              512, [5632], 2, 8192, True, heads=heads, hd=hd)
+    store_row(torch, timer, entries, g, "Gemma-2-9B engine decode", "Gemma-2-9B", 1,
+              [ENGINE_DECODE_SLOT] * 4, 0, 1024, False, heads=heads, hd=hd)
+    g7 = GEMMA7B
+    layer_rows(torch, timer, entries, g, n_ff=g7["n_ff"], path="Gemma-7B", d=g7["n_embd"],
+               heads=(g7["n_head"], g7["n_head_kv"]), hd=g7["head_dim"], act="gelu")
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+
+
+def phase_gemma_server(torch, cfg, params, label="Gemma-2-9B"):
+    """Phase 11c: the 42-layer Gemma-2-9B model behind serve() on a free
+    local port: ServerContext with 4 slots of 8192, an int8 cache, no
+    tokenizer (token-id prompts; the text is the ids), iswa=False (the
+    CLI's --swa-full: full-context KV on every layer), kernel E on, each
+    decode step a CUDA graph replay. With the launch counts set to 0, a
+    burst of GEMMA_SERVER_PROMPTS (the 6000-token prompt past the 4096
+    window, in C's 512-row chunks and in E's steps), 64 new tokens each:
+    every request answered 200 with its 64 tokens; A, B, C, E and the store
+    launched, D not (the post-norms close it). Then, with the loop stopped,
+    the 6000-token prompt's prefill profiled alone and one decode chunk as
+    graph replays against eager steps and profiled both ways
+    (server_chunk_profile): device ms a step and the busy share.
+    -> the launch counts of the burst."""
+    import numpy as np
+    import socket
+
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.server.context import ServerContext
+    from tpullm_torch.server.http import serve
+
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in GEMMA_SERVER_PROMPTS]
+    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=8192, decode_chunk=8,
+                        prefill_chunk=512, kv_dtype="q8", iswa=False,
+                        model_name=label.lower() + "-shape")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = f"http://127.0.0.1:{port}"
+    set_flash_decode("1")
+    srv = serve(ctx, "127.0.0.1", port, block=False)
+    report = {}
+    try:
+        status, r = http_json(base + "/completion", {"prompt": prompts[-1], "max_tokens": 8,
+                                                     "temperature": 0.0})
+        if status != 200:
+            raise AssertionError(f"server {label} warm-up answered {status}: {r}")
+        ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = dict(ctx.metrics)
+        _cuda.reset_counts()
+        res, wall = server_burst(base, prompts, label, None, vocab=vocab)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.COUNTS)
+        gen = ctx.metrics["generated_tokens_total"] - m0["generated_tokens_total"]
+        dec_s = ctx.metrics["decode_seconds_total"] - m0["decode_seconds_total"]
+        report["burst"] = {
+            "requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
+            "burst_wall_s": wall, "burst_completion_tok_per_s": len(prompts) * SERVER_NEW / wall,
+            "decode_tok_per_s": gen / dec_s if dec_s else None,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        ctx.stop()  # the loop thread; the chunk profile drives its body from here
+        for i in range(ctx.n_slots):
+            ctx.memory.clear_slot(i)
+        profs = server_chunk_profile(torch, ctx, prompts, (("kernel E", "1"),))
+        report["lone_prefill_profile"] = profs.pop("lone_prefill")
+        report["decode_chunk_profile"] = profs["kernel E"]
+    finally:
+        set_flash_decode(None)
+        srv.shutdown()
+        srv.server_close()
+        ctx.stop()
+    log(f"server {label} (4 slots x 8192, q8 KV, iswa off (--swa-full), decode_chunk 8, "
+        f"prefill_chunk 512, kernel E; prompts {GEMMA_SERVER_PROMPTS}, {SERVER_NEW} new tokens "
+        f"each): {json.dumps(report)}")
+    log(f"server {label}: launches (burst) {counts}")
+    missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
+               if counts[k] <= 0]
+    if missing or counts["layer_kernel"]:
+        raise AssertionError(f"server {label}: kernels not launched {missing}, layer kernel "
+                             f"{counts['layer_kernel']} (the post-norms close it)")
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gemma(torch, entries):
+    """Phase 11, the gemma family at full width (gelu, the embedding scale,
+    logit softcaps, sliding windows every other or 5 of 6 layers, tied
+    lm_heads, head dim 256 through kernels C and E): (a) parities against
+    the CPU (phase 3's rule) with the window cut to 256 and prompts past it
+    (384 and 300 tokens): Gemma-2-9B with 2 layers, Gemma-3-4B's width with
+    6 layers (layers 0-4 SWA, layer 5 full; rope_base_swa 1e4 under a
+    global base of 1e6 with linear scaling 8), both with E in their decode
+    steps; and Gemma-7B's width with 2 layers (no window; prompts of 128
+    and 100: kernel D with gelu, folded, in its decode steps); then the kernel rows
+    (phase_gemma_kernels); (b) the 42-layer Gemma-2-9B model's engine slice
+    with TPULLM_FLASH_DECODE=1 (A, B, C, E and the store launched, D not;
+    every prefill attention call routed to C, none to the einsum path, C
+    launched once a layer for the counted run's one prefill) and its
+    decode-step profile as graph replays; (c) its server
+    (phase_gemma_server). -> launch counts by path."""
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    counts = {}
+    win = GEMMA_PARITY_WINDOW
+    # (label, spec, depth, config fields, TPULLM_FLASH_DECODE, seed, prompts, S)
+    runs = (("Gemma-2-9B", GEMMA2, 2, dict(sliding_window=win), "1", 13, (384, 300), 512),
+            ("Gemma-3-4B width", GEMMA3_4B, 6, dict(GEMMA3_4B["cfg_fields"], sliding_window=win),
+             "1", 14, (384, 300), 512),
+            ("Gemma-7B width", GEMMA7B, 2, None, None, 15, (128, 100), 256))
+    for label, spec, n_layer, fields, flag, seed, lens, S in runs:
+        t = time.perf_counter()
+        c = phase_parity(torch, f"{label} (depth cut from {spec['n_layer']}"
+                         + (f", window cut to {win})" if fields else ")"), seed=seed,
+                         flash_decode=flag, lens=lens, S=S, last_only=True,
+                         **dict(spec, n_layer=n_layer, cfg_fields=fields))
+        # the layer kernel's rows at Gemma-7B's layer take this run's launches
+        counts["Gemma-7B" if spec is GEMMA7B else f"{label} {n_layer}-layer"] = c
+        want = ["qmm_splitk", "qmm", "flash_attention", "kv_store"] + (
+            ["flash_decode"] if flag else ["layer_kernel"])
+        missing = [k for k in want if c[k] <= 0]
+        if missing or (flag and c["layer_kernel"]):
+            raise AssertionError(f"{label} parity: kernels not launched {missing}, layer "
+                                 f"kernel {c['layer_kernel']}")
+        log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_gemma_kernels(torch, entries)
+    log(f"phase kernels Gemma: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_kmajor_q4k_fast(**GEMMA2, seed=0, centred=True, device="cuda")
+    torch.cuda.synchronize()
+    log(f"slice Gemma-2-9B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
+        f"{time.perf_counter() - t:.3f} s; config {cfg.arch} head_dim {cfg.head_dim} act "
+        f"{cfg.act_fn} embedding_scale {cfg.embedding_scale:.4f} softcaps "
+        f"{cfg.attn_logit_softcap:g}/{cfg.final_logit_softcap:g} windows "
+        f"{llama.layer_windows(cfg)[:4]}... tied {cfg.tie_embeddings}")
+    routes = {}
+    real_route = llama.attention_route
+
+    def counted_route(is_cuda, B, T, *rest):
+        r = real_route(is_cuda, B, T, *rest)
+        key = ("prefill" if T > 1 else "decode", r)
+        routes[key] = routes.get(key, 0) + 1
+        return r
+
+    set_flash_decode("1")
+    try:
+        with mock.patch.object(llama, "attention_route", counted_route):
+            counts["Gemma-2-9B"], eng, eager, prompts = phase_slice(
+                torch, "Gemma-2-9B", cfg, params, cfg.vocab_size,
+                ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store"),
+                ("layer_kernel",))
+        log(f"slice Gemma-2-9B: attention routes of every call (prefill or decode, route) "
+            f"{ {f'{a} {b}': n for (a, b), n in routes.items()} }")
+        if set(r for (kind, r) in routes if kind == "prefill") != {"flash_attention"}:
+            raise AssertionError(f"Gemma-2-9B prefill: attention routes {routes}")
+        if counts["Gemma-2-9B"]["flash_attention"] != cfg.n_layer:
+            raise AssertionError(f"Gemma-2-9B slice: kernel C launched "
+                                 f"{counts['Gemma-2-9B']['flash_attention']} times for one "
+                                 f"prefill of {cfg.n_layer} layers")
+        phase_decode(torch, eng, prompts, " Gemma-2-9B graph")
+    finally:
+        set_flash_decode(None)
+    del eng, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice Gemma-2-9B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Gemma-2-9B server"] = phase_gemma_server(torch, cfg, params)
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase server Gemma-2-9B: {time.perf_counter() - t:.1f} s")
+    return counts
+
+
 def model_gb(params) -> float:
-    """GB of a synthesized model's quantized weights."""
+    """GB of a synthesized model's quantized weights (a tied lm_head once)."""
     qts = [params["tok_embd"], params["output"]] + [
         v for v in params["layers"].values() if hasattr(v, "data")]
-    return sum(q.nbytes for q in qts) / 1e9
+    return sum(q.nbytes for q in {id(q): q for q in qts}.values()) / 1e9
 
 
 def cpu_jiffies():
@@ -2718,9 +3095,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     qwen_counts = phase_qwen(torch)
     qwen_moe_counts = phase_qwen_moe(torch, entries)
+    gemma_counts = phase_gemma(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
-               "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts}
+               "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

@@ -43,6 +43,11 @@ FLAG_ARCHS = ["qwen2", "qwen", "qwen3", "hunyuan-dense", "maincoder", "glm4", "e
               "olmo2"]
 PLAIN_ARCHS = ["mistral", "mistral3", "internlm2", "exaone", "baichuan", "xverse", "seed_oss",
                "ernie4_5"]
+# the scale keys (granite, minicpm; granitemoe with experts and a residual
+# scale of 0.5) and the gemma family (gelu, embedding scale, softcaps,
+# sliding windows): their snapshots run the port's new fields
+SCALE_ARCHS = ["granite", "minicpm", "granitemoe"]
+GEMMA_ARCHS = ["gemma", "gemma2", "gemma3"]
 KMAJOR_ARCHS = ["qwen3", "qwen2", "qwen", "glm4", "olmo2"]
 PROMPTS = [[3, 9, 4, 17, 6], [5, 1, 2], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 2, 3, 4, 5,
                                          6, 7, 8, 9, 30]]
@@ -70,13 +75,13 @@ def test_registry_rows_are_the_jax_rows():
     """Each of the port's rows is the JAX package's row as it is."""
     from tpullm.models.registry import ARCH_REGISTRY as JREG
 
-    assert set(FLAG_ARCHS + PLAIN_ARCHS + ["llama", "mixtral", "qwen3moe", "qwen2moe"]
-               ) == set(ARCH_REGISTRY)
+    assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS
+               + ["llama", "mixtral", "qwen3moe", "qwen2moe"]) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch
 
 
-@pytest.mark.parametrize("arch", FLAG_ARCHS + PLAIN_ARCHS)
+@pytest.mark.parametrize("arch", FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS)
 def test_arch_snapshot(arch, tmp_path):
     """tests/snapshots/{arch}.npz (the JAX package's golden, from
     build_arch_gguf(seed=11): Q8_0 at n_embd 64, so planar weights) through
@@ -192,12 +197,15 @@ def test_server_context_matches_jax(kmajor_models, arch, kv):
 # out: qwen3 and hunyuan-dense decode on the layer kernel, folded (their QK
 # norm runs in attention on the rows the kernel emits); the bias archs
 # (qwen2, qwen) and the flat-norm arch (olmo2) do not; the post-norm archs
-# (glm4, exaone4, olmo2) fail the kernel's own gate (post_norms), and the
-# no-pre-norm archs (exaone4, olmo2) have no ffn_norm.
+# (glm4, exaone4, olmo2, gemma2, gemma3) fail the kernel's own gate
+# (post_norms), and the no-pre-norm archs (exaone4, olmo2) have no ffn_norm;
+# gemma v1 takes it with gelu; granite and minicpm at the synth's residual
+# scale of 1 take it (test_layer_kernel_off_scaled_residuals holds the rest).
 GATES = {"qwen3": (True, True), "hunyuan-dense": (True, True), "maincoder": (True, True),
          "qwen2": (False, False), "qwen": (False, False), "glm4": (False, False),
          "exaone4": (False, False), "olmo2": (False, False), "mistral": (True, True),
-         "seed_oss": (True, True)}
+         "seed_oss": (True, True), "gemma": (True, True), "gemma2": (False, False),
+         "gemma3": (False, False), "granite": (True, True), "minicpm": (True, True)}
 
 
 @pytest.mark.parametrize("arch", sorted(GATES))
@@ -227,6 +235,29 @@ def test_layer_kernel_gates_match_jax(arch, tmp_path):
     assert layer_routes(cfg, gl, qw, 4, 1, True, 1) == GATES[arch] == (j_block, j_fold)
     assert layer_routes(cfg, gl, qw, 1, 512, True, 1) == (False, False)
     assert layer_routes(cfg, gl, qw, 4, 1, False, 1) == (False, False)
+
+
+@pytest.mark.parametrize("arch", ["granite", "minicpm", "granitemoe"])
+def test_layer_kernel_off_scaled_residuals(arch, tmp_path):
+    """A residual_scale other than 1 keeps a decode layer off the layer
+    kernel, which adds its residuals unscaled. This departs from the JAX
+    gate, which does not ask (the TPU's decode would drop the scale there:
+    ROADMAP "Known weak spots of the reference"); granitemoe's MoE layers
+    take neither."""
+    path = str(tmp_path / f"{arch}.gguf")
+    build_arch_gguf(path, arch, n_embd=512, n_head=4, n_head_kv=2, n_ff=512,
+                    qtype=GGMLType.Q4_K, seed=11)
+    cfg, params, _ = load_model(path, device="cpu")
+    gl = params["layers"]
+    qw = {k: v for k, v in gl.items() if isinstance(v, QTensor)}
+    jcfg, jparams, _ = jload(path)
+    jqw = {k: v for k, v in jparams["layers"].items() if isinstance(v, JQTensor)}
+    scaled = dataclasses.replace(cfg, residual_scale=0.25)
+    jscaled = dataclasses.replace(jcfg, residual_scale=0.25)
+    moe = arch == "granitemoe"
+    assert cfg.residual_scale == (0.5 if moe else 1.0)
+    assert layer_routes(scaled, gl, qw, 4, 1, True, 1) == (False, False)
+    assert jblock_supported(jscaled, jqw) == (not moe)
 
 
 # ----------------------------------------------------- refusals and the synths

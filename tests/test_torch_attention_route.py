@@ -20,7 +20,7 @@ KV_DTYPES = [torch.bfloat16, torch.int8, torch.float32]
 
 
 def _c_builds(T, S, Dk, Dv, H, Hkv):
-    return Dk == 128 and Dv == 128 and T % 64 == 0 and S % 64 == 0 and H % Hkv == 0
+    return Dk == Dv and Dk in (128, 256) and T % 64 == 0 and S % 64 == 0 and H % Hkv == 0
 
 
 def _e_builds(T, Dk, Dv, H, Hkv, kv_dtype):
@@ -50,10 +50,8 @@ def test_route_takes_a_kernel_only_where_gate_and_build_hold(monkeypatch, flag, 
                     assert got == want, (T, S, H, Hkv, dt, got, want)
                     seen.add(got)
     # the grid reaches each kernel where the head dims are built
-    if (dk, dv) == (128, 128):
+    if (dk, dv) in ((128, 128), (256, 256)):
         assert seen == ({"flash_attention", "einsum"} | ({"flash_decode"} if flag else set()))
-    if (dk, dv) == (256, 256):
-        assert seen == ({"einsum"} | ({"flash_decode"} if flag else set()))
     if dk not in (128, 256) or dk != dv:
         assert seen == {"einsum"}
 

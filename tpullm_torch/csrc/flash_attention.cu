@@ -13,30 +13,42 @@
 // the tensor cores.
 //
 // What the design does about it:
-// - A block holds one batch row and one KV head. Its two consumer
-//   warpgroups each own one (64-slot query tile, query head of the group)
-//   pair; pairs are enumerated tile-major (all G heads of tile 0, then of
-//   tile 1), and a block takes two consecutive pairs. So the heads of a
-//   GQA group share every K/V tile a block loads, and at G = 1 a block
-//   takes neighbouring tiles of one head.
-// - One producer warp (setmaxnreg leaves its warpgroup few registers)
-//   feeds Q once and 128-key K and V tiles by 4-D TMA over the (D, slot,
-//   head, batch) strides the wrapper passes, so a cache view is read in
-//   place. A 256-byte row of D = 128 takes two 128-byte-swizzled boxes.
-//   K and V land in a ring of stages with full barriers of their own, so
-//   S = Q K^T starts before V has landed; both consumers release a stage
-//   on its empty barrier, including stages their rows never see.
-// - S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
-//   memory (a k16 step is a 32-byte advance, the second 64-column atom
-//   starts after the fourth step). The softmax runs on the accumulator
+// - A block holds one batch row and one KV head. Its consumer warpgroups
+//   (two at D = 128, one at D = 256) each own one (64-slot query tile,
+//   query head of the group) pair; pairs are enumerated tile-major (all G
+//   heads of tile 0, then of tile 1), and a block takes consecutive pairs.
+//   So the heads of a GQA group share every K/V tile a block loads, and at
+//   G = 1 a block takes neighbouring tiles of one head.
+// - One producer warp (at D = 128 setmaxnreg leaves its warpgroup few
+//   registers) feeds Q once and TK-key K and V tiles by 4-D TMA over the
+//   (D, slot, head, batch) strides the wrapper passes, so a cache view is
+//   read in place. A row of D bf16 values takes D / 64 128-byte-swizzled
+//   boxes. K and V land in a ring of stages with full barriers of their
+//   own, so S = Q K^T starts before V has landed; every consumer releases a
+//   stage on its empty barrier, including stages their rows never see.
+// - S = Q K^T is wgmma m64nTKk16 with both operands K-major in shared
+//   memory (a k16 step is a 32-byte advance, the next 64-column atom
+//   starts after every fourth step). The softmax runs on the accumulator
 //   registers: a thread holds parts of two rows, whose max and sum take
 //   two xor-shuffles over the quad; exp2 with log2(e) folded into the
 //   scale (after the tanh with softcap). P is rounded to bf16
 //   unnormalised, as the Pallas kernel does, and packed straight into the
 //   k16 A-fragment registers: O += P V is wgmma with A from registers and
-//   V as an MN-major B operand (the transpose bit). S, P, the running max
-//   and sum and O never leave the registers until the end, when O / l
-//   goes out as bf16 through the warpgroup's Q tile in whole 256-byte rows.
+//   V as an MN-major B operand (the transpose bit), one m64n128 product
+//   per 128 columns of D. S, P, the running max and sum and O never leave
+//   the registers until the end, when O / l goes out as bf16 through the
+//   warpgroup's Q tile in whole rows.
+// - Two instances, by head dim D = Dk = Dv. At D = 128 the key tile TK is
+//   128: Q 2 x 16 KB and 2 stages of K and V at 32 KB each, 160 KB, and
+//   ptxas fits O (64 f32 a thread), S (64) and P (32 words) in the 168
+//   registers a 384-thread block allows. At D = 256 that ring would need
+//   2 x 32 KB of Q and 2 x (K + V) x 64 KB, 320 KB, over the 227 KB a
+//   block may hold, so TK is 64 there; and O alone is 128 f32 a thread,
+//   which does not fit beside S in 168 registers (ptxas spilled 780 bytes
+//   a thread with two consumers at TK = 64, 384 at TK = 32, whatever
+//   setmaxnreg asked). So the D = 256 block has one consumer warpgroup
+//   (256 threads, up to 255 registers a thread, no setmaxnreg) and one
+//   pair: Q 32 KB and the ring 128 KB, 160 KB, one block an SM.
 // - Masks (causal, valid_from, window) are evaluated only on tiles that
 //   straddle a boundary. A masked key contributes exactly 0 and a row with
 //   no visible key outputs 0. The KV loop runs from the tile holding
@@ -50,17 +62,29 @@ using namespace tph;
 
 namespace {
 
-constexpr int TQ = 64, TK = 128, HD = 128;
+constexpr int TQ = 64;
 constexpr int STAGES = 2;
-constexpr int THREADS = 384;  // producer warpgroup, then two consumer warpgroups
-constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int Q_BYTES = TQ * HD * 2;   // one warpgroup's Q: two 64 x 64 atoms
-constexpr int KV_BYTES = TK * HD * 2;  // one K or V tile: two 128 x 64 atoms
-constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + (1 + 3 * STAGES) * 8 +
-                     2 * 2 * TQ * 4 + 2 * 4 * 4;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "register file");
+// the D = 128 instance's setmaxnreg split: producer warpgroup 40, consumers 232
+static_assert(128 * 40 + 256 * 232 <= 65536, "register file");
+
+// the tile sizes of the instance for head dim HD (128 or 256)
+template <int HD>
+struct Tiles {
+  static constexpr int TK = HD == 128 ? 128 : 64;  // keys a stage
+  // consumer warpgroups, each with its own (query tile, head) pair, after
+  // the producer warpgroup
+  static constexpr int NC = HD == 128 ? 2 : 1;
+  static constexpr int THREADS = 128 * (1 + NC);
+  static constexpr int Q_ATOM = TQ * 128;          // one 64-column atom of Q
+  static constexpr int KV_ATOM = TK * 128;         // one 64-column atom of K or V
+  static constexpr int Q_BYTES = TQ * HD * 2;      // one warpgroup's Q: HD / 64 atoms
+  static constexpr int KV_BYTES = TK * HD * 2;     // one K or V tile: HD / 64 atoms
+  static constexpr int SMEM = 1024 + NC * Q_BYTES + STAGES * 2 * KV_BYTES +
+                              (1 + 3 * STAGES) * 8 + 2 * 2 * TQ * 4 + 2 * 4 * 4;
+  static_assert(SMEM <= 232448, "shared memory of a block");
+};
 
 struct FaArgs {
   const int* qslots;      // (B, T)
@@ -91,22 +115,37 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // bf16 zeros over the 64 output rows of one (query tile, head) pair
+template <int HD>
 __device__ __forceinline__ void store_zero_rows(const FaArgs& a, __nv_bfloat16* ob, int tile,
                                                 int head) {
-  for (int i = threadIdx.x; i < TQ * HD / 8; i += THREADS) {
+  for (int i = threadIdx.x; i < TQ * HD / 8; i += Tiles<HD>::THREADS) {
     const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
     *reinterpret_cast<uint4*>(ob + (long long)(tile * TQ + r) * a.o_st + head * a.o_sh + c) =
         make_uint4(0, 0, 0, 0);
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// S = Q K^T over one stage: n = TK keys
+template <int TK>
+__device__ __forceinline__ void score_mma(float (&sc)[TK / 2], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  if constexpr (TK == 128)
+    wgmma_m64n128k16(sc, da, db, scale_d);
+  else
+    wgmma_m64n64k16(sc, da, db, scale_d);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Tiles<HD>::THREADS, 1)
 flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, FaArgs a) {
+  using TL = Tiles<HD>;
+  constexpr int TK = TL::TK, Q_BYTES = TL::Q_BYTES, KV_BYTES = TL::KV_BYTES;
+  constexpr int NJ = TK / 8, NH = HD / 128;  // 8-key column groups of S; 128-column parts of O
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (saddr(smem_raw) & 1023u)) & 1023u;
-  uint8_t* qsm = smem_raw + pad;            // 2 x Q (one per consumer warpgroup)
-  uint8_t* ring = qsm + 2 * Q_BYTES;        // STAGES x (K tile, V tile)
+  uint8_t* qsm = smem_raw + pad;            // NC x Q (one per consumer warpgroup)
+  uint8_t* ring = qsm + TL::NC * Q_BYTES;   // STAGES x (K tile, V tile)
   uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * KV_BYTES);
   uint64_t* kfull = qbar + 1;
   uint64_t* vfull = kfull + STAGES;
@@ -122,8 +161,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   bool present[2];
 #pragma unroll
   for (int w = 0; w < 2; ++w) {
-    const int p = blockIdx.x * 2 + w;
-    present[w] = p < n_pairs;
+    const int p = blockIdx.x * TL::NC + w;
+    present[w] = w < TL::NC && p < n_pairs;
     tile[w] = p / a.G;
     head[w] = hk * a.G + p % a.G;
   }
@@ -151,7 +190,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   __nv_bfloat16* ob = a.o + b * a.o_sb;
   if (max_q < vf || s_end <= s_begin) {  // no row of the block sees a key
     for (int w = 0; w < 2; ++w)
-      if (present[w]) store_zero_rows(a, ob, tile[w], head[w]);
+      if (present[w]) store_zero_rows<HD>(a, ob, tile[w], head[w]);
     return;
   }
   const int n_it = (s_end - s_begin + TK - 1) / TK;
@@ -161,7 +200,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(saddr(kfull + s), 1);
       mbar_init(saddr(vfull + s), 1);
-      mbar_init(saddr(empty + s), 2);  // one thread of each consumer warpgroup
+      mbar_init(saddr(empty + s), TL::NC);  // one thread of each consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -169,7 +208,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 
   if (tid < 128) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if constexpr (TL::NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(40));
     if (tid == 0) {
       prefetch_map(&qmap);
       prefetch_map(&kmap);
@@ -178,8 +217,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       mbar_expect_tx(qb, (present[1] ? 2 : 1) * Q_BYTES);
       for (int w = 0; w < 2; ++w)
         if (present[w])
-          for (int h = 0; h < 2; ++h)
-            tma_4d(saddr(qsm + w * Q_BYTES + h * (Q_BYTES / 2)), &qmap, qb, h * 64,
+          for (int h = 0; h < HD / 64; ++h)
+            tma_4d(saddr(qsm + w * Q_BYTES + h * TL::Q_ATOM), &qmap, qb, h * 64,
                    tile[w] * TQ, head[w], b);
 #pragma unroll 1
       for (int it = 0; it < n_it; ++it) {
@@ -187,18 +226,18 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         mbar_wait(saddr(empty + s), ((it / STAGES) & 1) ^ 1);  // tile it - STAGES consumed
         const uint32_t kd = saddr(ring + s * 2 * KV_BYTES), vd = kd + KV_BYTES;
         mbar_expect_tx(saddr(kfull + s), KV_BYTES);
-        tma_4d(kd, &kmap, saddr(kfull + s), 0, s0, hk, b);
-        tma_4d(kd + KV_BYTES / 2, &kmap, saddr(kfull + s), 64, s0, hk, b);
+        for (int h = 0; h < HD / 64; ++h)
+          tma_4d(kd + h * TL::KV_ATOM, &kmap, saddr(kfull + s), h * 64, s0, hk, b);
         mbar_expect_tx(saddr(vfull + s), KV_BYTES);
-        tma_4d(vd, &vmap, saddr(vfull + s), 0, s0, hk, b);
-        tma_4d(vd + KV_BYTES / 2, &vmap, saddr(vfull + s), 64, s0, hk, b);
+        for (int h = 0; h < HD / 64; ++h)
+          tma_4d(vd + h * TL::KV_ATOM, &vmap, saddr(vfull + s), h * 64, s0, hk, b);
       }
     }
     return;
   }
 
   // ------------------------------------------------------------- consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  if constexpr (TL::NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(232));
   const int cw = tid / 128 - 1, tw = tid % 128, lane = tw % 32;
   const int r0 = (tw / 32) * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
   const int q0 = qs_s[cw * TQ + r0], q1 = qs_s[cw * TQ + r0 + 8];
@@ -209,9 +248,11 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int* kvp = a.kvpos + (long long)b * a.S;
   const uint32_t qa = saddr(qsm + cw * Q_BYTES), ring_a = saddr(ring);
 
-  float o[64];
+  float o[NH][64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's share of the row sums
   mbar_wait(saddr(qbar), 0);
 
@@ -222,12 +263,12 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     const uint32_t ka = ring_a + s * 2 * KV_BYTES, va = ka + KV_BYTES;
     mbar_wait(saddr(kfull + s), ph);
     if (mine && s0 <= my_hi) {
-      float sc[64];
+      float sc[TK / 2];
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < HD / 16; ++k)
-        wgmma_m64n128k16(sc, sw128_desc(qa + (k / 4) * (Q_BYTES / 2) + (k % 4) * 32),
-                         sw128_desc(ka + (k / 4) * (KV_BYTES / 2) + (k % 4) * 32), k > 0);
+        score_mma<TK>(sc, sw128_desc(qa + (k / 4) * TL::Q_ATOM + (k % 4) * 32),
+                      sw128_desc(ka + (k / 4) * TL::KV_ATOM + (k % 4) * 32), k > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -235,15 +276,15 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       // scores in the log2 domain; masks only where the tile straddles one
       if (a.softcap_in != 0.f) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) sc[i] = tanhf(sc[i] * a.softcap_in) * a.softcap_out;
+        for (int i = 0; i < TK / 2; ++i) sc[i] = tanhf(sc[i] * a.softcap_in) * a.softcap_out;
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) sc[i] *= a.scale_log2;
+        for (int i = 0; i < TK / 2; ++i) sc[i] *= a.scale_log2;
       }
       const bool visible = s0 >= vf && s0 + TK - 1 <= my_lo && s0 + TK <= a.S && a.window == 0;
       if (!visible) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < NJ; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int key = s0 + 8 * j + 2 * (lane % 4) + e;
@@ -261,7 +302,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       }
       float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
         mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
@@ -270,9 +311,9 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       // a row with no visible key so far keeps p = 0 (its max is still NEG)
       const bool dead0 = mn0 == NEG, dead1 = mn1 == NEG;
       float sum0 = 0.f, sum1 = 0.f;
-      uint32_t pr[32];
+      uint32_t pr[TK / 4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float x0 = dead0 ? 0.f : ex2(sc[4 * j] - mn0);
         const float x1 = dead0 ? 0.f : ex2(sc[4 * j + 1] - mn0);
         const float x2 = dead1 ? 0.f : ex2(sc[4 * j + 2] - mn1);
@@ -287,26 +328,34 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       m0 = mn0;
       m1 = mn1;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        o[4 * j] *= al0;
-        o[4 * j + 1] *= al0;
-        o[4 * j + 2] *= al1;
-        o[4 * j + 3] *= al1;
-      }
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          o[h][4 * j] *= al0;
+          o[h][4 * j + 1] *= al0;
+          o[h][4 * j + 2] *= al1;
+          o[h][4 * j + 3] *= al1;
+        }
 
       mbar_wait(saddr(vfull + s), ph);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(pr[i])::"memory");
-      fence_acc(o);
+      for (int i = 0; i < TK / 4; ++i) asm volatile("" : "+r"(pr[i])::"memory");
+#pragma unroll
+      for (int h = 0; h < NH; ++h) fence_acc(o[h]);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < TK / 16; ++k) {
-        const uint32_t frag[4] = {pr[4 * k], pr[4 * k + 1], pr[4 * k + 2], pr[4 * k + 3]};
-        wgmma_m64n128k16_rs(o, frag, sw128_mn_desc(va + k * 16 * 128, KV_BYTES / 2));
-      }
+      for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int k = 0; k < TK / 16; ++k) {
+          const uint32_t frag[4] = {pr[4 * k], pr[4 * k + 1], pr[4 * k + 2], pr[4 * k + 3]};
+          // columns 128h..128h+127 of V: atoms 2h and 2h + 1; a k16 step is 16 rows
+          wgmma_m64n128k16_rs(o[h], frag,
+                              sw128_mn_desc(va + 2 * h * TL::KV_ATOM + k * 16 * 128, TL::KV_ATOM));
+        }
       wgmma_commit();
       wgmma_wait<0>();
-      fence_acc(o);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) fence_acc(o[h]);
     } else {
       mbar_wait(saddr(vfull + s), ph);
     }
@@ -318,25 +367,54 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   l1 = quad_sum(l1);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   // O leaves through this warpgroup's Q tile (its last read is done), so
-  // that rows go out as whole 256-byte lines. 16-byte chunk c of row r sits
-  // at c ^ (r & 7): the quads of a warp write 32 distinct banks.
+  // that rows go out as whole lines of RB bytes. 16-byte chunk c of row r
+  // sits at c ^ (r & 7): the quads of a warp write 32 distinct banks.
+  constexpr int RB = HD * 2;
   uint8_t* ot = qsm + cw * Q_BYTES;
   const int sw = r0 & 7;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    uint8_t* p = ot + r0 * 256 + ((j ^ sw) << 4) + (lane % 4) * 4;
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(p + 8 * 256) =
-        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-  }
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      uint8_t* p = ot + r0 * RB + (((16 * h + j) ^ sw) << 4) + (lane % 4) * 4;
+      *reinterpret_cast<uint32_t*>(p) = pack_bf16(o[h][4 * j] * inv0, o[h][4 * j + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(p + 8 * RB) =
+          pack_bf16(o[h][4 * j + 2] * inv1, o[h][4 * j + 3] * inv1);
+    }
   asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");  // this warpgroup only
   __nv_bfloat16* orows = ob + (long long)(my_tile * TQ) * a.o_st + my_head * a.o_sh;
 #pragma unroll
   for (int i = tw; i < TQ * HD / 8; i += 128) {
     const int r = i / (HD / 8), c = i % (HD / 8);
     *reinterpret_cast<uint4*>(orows + r * a.o_st + c * 8) =
-        *reinterpret_cast<const uint4*>(ot + r * 256 + ((c ^ (r & 7)) << 4));
+        *reinterpret_cast<const uint4*>(ot + r * RB + ((c ^ (r & 7)) << 4));
   }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const FaArgs& a, int B, int H, int Hkv,
+           long long q_sb, long long q_sh, long long q_st, long long k_sb, long long k_sh,
+           long long k_ss, long long v_sb, long long v_sh, long long v_ss, cudaStream_t stream) {
+  using TL = Tiles<HD>;
+  // 4-D maps, innermost first: (D, T, H, B) for q, (D, S, Hkv, B) for k and v
+  const CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
+  const long long qd[4] = {HD, a.T, H, B}, qs[3] = {q_st * 2, q_sh * 2, q_sb * 2};
+  const long long kd[4] = {HD, a.S, Hkv, B}, ks[3] = {k_ss * 2, k_sh * 2, k_sb * 2},
+                  vs[3] = {v_ss * 2, v_sh * 2, v_sb * 2};
+  const int qbox[4] = {64, TQ, 1, 1}, kbox[4] = {64, TL::TK, 1, 1};
+  CUtensorMap qmap, kmap, vmap;
+  int err = make_map(&qmap, BF16, q, 4, qd, qs, qbox, SW);
+  err = err ? err : make_map(&kmap, BF16, k, 4, kd, ks, kbox, SW);
+  err = err ? err : make_map(&vmap, BF16, v, 4, kd, vs, kbox, SW);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int n_pairs = (a.T / TQ) * a.G;
+  dim3 grid((n_pairs + TL::NC - 1) / TL::NC, Hkv, B);
+  flash_kernel<HD><<<grid, TL::THREADS, TL::SMEM, stream>>>(qmap, kmap, vmap, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -349,23 +427,9 @@ extern "C" int tpq_flash_attention(
     long long v_ss, long long o_sb, long long o_sh, long long o_st, float scale,
     float softcap, int window, void* stream) {
   cudaGetLastError();
-  if (D != HD || T % TQ || S % 64 || Hkv < 1 || H % Hkv || (o_sb | o_sh | o_st) % 8)
+  if ((D != 128 && D != 256) || T % TQ || S % 64 || Hkv < 1 || H % Hkv ||
+      (o_sb | o_sh | o_st) % 8)
     return (int)cudaErrorInvalidValue;
-  // 4-D maps, innermost first: (D, T, H, B) for q, (D, S, Hkv, B) for k and v
-  const CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
-  const long long qd[4] = {HD, T, H, B}, qs[3] = {q_st * 2, q_sh * 2, q_sb * 2};
-  const long long kd[4] = {HD, S, Hkv, B}, ks[3] = {k_ss * 2, k_sh * 2, k_sb * 2},
-                  vs[3] = {v_ss * 2, v_sh * 2, v_sb * 2};
-  const int qbox[4] = {64, TQ, 1, 1}, kbox[4] = {64, TK, 1, 1};
-  CUtensorMap qmap, kmap, vmap;
-  int err = make_map(&qmap, BF16, q, 4, qd, qs, qbox, SW);
-  err = err ? err : make_map(&kmap, BF16, k, 4, kd, ks, kbox, SW);
-  err = err ? err : make_map(&vmap, BF16, v, 4, kd, vs, kbox, SW);
-  if (err) return err;
-  cudaError_t e =
-      cudaFuncSetAttribute(flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return (int)e;
   FaArgs a;
   a.qslots = reinterpret_cast<const int*>(qslots);
   a.kvpos = reinterpret_cast<const int*>(kvpos);
@@ -378,9 +442,9 @@ extern "C" int tpq_flash_attention(
   a.softcap_in = softcap != 0.f ? scale / softcap : 0.f;
   a.softcap_out = softcap * LOG2E;
   a.window = window;
-  const int n_pairs = (T / TQ) * (H / Hkv);
-  dim3 grid((n_pairs + 1) / 2, Hkv, B);
-  flash_kernel<<<grid, THREADS, SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(qmap, kmap, vmap,
-                                                                                a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return D == 128 ? launch<128>(q, k, v, a, B, H, Hkv, q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb,
+                                v_sh, v_ss, st)
+                  : launch<256>(q, k, v, a, B, H, Hkv, q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb,
+                                v_sh, v_ss, st);
 }

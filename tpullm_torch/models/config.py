@@ -200,6 +200,12 @@ DENSE_KEYS = frozenset({
     "attention.scale", "rope.freq_base",
     "rope.dimension_count", "rope.scaling.type", "rope.scaling.factor",
     "rope.scaling.original_context_length",
+    # the gemma family's sliding windows (a scalar pattern only: a per-layer
+    # array raises in get), softcaps and SWA rope base; the granite/minicpm
+    # scales (gemma's embedding scale comes from its registry row)
+    "attention.sliding_window", "attention.sliding_window_pattern",
+    "attn_logit_softcapping", "final_logit_softcapping", "rope.freq_base_swa",
+    "embedding_scale", "residual_scale", "logit_scale",
 })
 # the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser).
 # expert_shared_feed_forward_length (qwen2moe) is read by neither parser:
@@ -258,8 +264,18 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
         n_expert=int(get("expert_count", 0)),
         n_expert_used=int(get("expert_used_count", 0)),
         n_ff_exp=int(get("expert_feed_forward_length", 0)),
+        sliding_window=int(get("attention.sliding_window", 0)),
         raw_kv=dict(g.metadata),
     )
+    for key, attr in (("embedding_scale", "embedding_scale"),
+                      ("residual_scale", "residual_scale"), ("logit_scale", "logit_scale"),
+                      ("attn_logit_softcapping", "attn_logit_softcap"),
+                      ("final_logit_softcapping", "final_logit_softcap")):
+        v = get(key)
+        if v is not None:
+            setattr(cfg, attr, float(v))
+    cfg.swa_pattern = int(get("attention.sliding_window_pattern", 0) or 1)
+    cfg.rope_base_swa = float(get("rope.freq_base_swa", 0.0) or 0.0)
     asc = get("attention.scale")
     if asc is not None:
         cfg.attn_scale = float(asc)

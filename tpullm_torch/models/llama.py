@@ -2,27 +2,36 @@
 in PyTorch.
 
 Counterpart of tpullm/models/llama.py for the configurations the port
-covers: RMSNorm -> fused QKV (or the GGUF-fused attn_qkv) -> optional q/k/v
-biases -> optional q/k RMS norms (per head before or after RoPE, or over
-the flat rows) -> RoPE (neox or interleaved, full or partial) -> GQA
-attention over a head-major KV cache -> output projection -> gated SiLU
-FFN, or the routed-expert MoE FFN (softmax or sigmoid router, top-k,
-optional renormalization and scale, an optional gated SiLU shared expert
-with an optional per-token sigmoid gate; no expert biases, latent or chunk
-experts); optional post-attention and post-FFN norms, with or
-without the pre-norms (``pre_norm``). A Python loop over layers takes the
-place of ``lax.scan``; the KV
-cache (bf16, f32 or int8 with row scales) is updated in place, in the batch
-engine's layout or the server's per-slot rows. Every flag of the JAX graph
-that these paths never set raises (``check_dense``) instead of being
-ignored.
+covers: the token embedding (times embedding_scale: gemma, granite,
+minicpm) -> RMSNorm -> fused QKV (or the GGUF-fused attn_qkv) -> optional
+q/k/v biases -> optional q/k RMS norms (per head before or after RoPE, or
+over the flat rows) -> RoPE (neox or interleaved, full or partial; SWA
+layers at rope_base_swa where the file gives one) -> GQA attention over a
+head-major KV cache (optional logit softcap; a sliding window on the layers
+swa_pattern marks) -> output projection -> gated SiLU or GELU FFN, or the
+routed-expert MoE FFN (softmax or sigmoid router, top-k, optional
+renormalization and scale, an optional gated SiLU shared expert with an
+optional per-token sigmoid gate; no expert biases, latent or chunk
+experts); optional post-attention and post-FFN norms, with or without the
+pre-norms (``pre_norm``); residual branches times residual_scale; logits
+times logit_scale, then the final softcap. A Python loop over layers takes
+the place of ``lax.scan``; the KV cache (bf16, f32 or int8 with row scales;
+full-context on every layer: the iSWA ring waits) is updated in place, in
+the batch engine's layout or the server's per-slot rows. Every flag of the
+JAX graph that these paths never set raises (``check_dense``) instead of
+being ignored.
 
 Kernel gates are the JAX package's own, with "the tensors are on the card"
 in place of "the default backend is the TPU": prefill attention takes the
 flash kernel when flash_supported holds (llama.py:268-274); decode
 attention takes kernel E when flash_decode_supported holds (off unless
 TPULLM_FLASH_DECODE is set, llama.py:277-294), each only on the shapes its
-kernel builds (attention_route; the rest take the einsum path); decode layers
+kernel builds (attention_route; the rest take the einsum path). A layer's
+window is a Python int here (``layer_windows``), so interleaved SWA layers
+take kernels C and E with their own window and the config's softcap, where
+the JAX package's scan passes a traced window and falls through to its
+einsum path (llama.py:268-277, 932-941): the same function on another
+route. Decode layers
 take the layer kernel, folded with the next layer's QKV when the weights
 are fused in one group (llama.py:1382-1423, ``layer_routes``); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460) and MoE
@@ -64,7 +73,14 @@ DENSE_FIELDS = frozenset({
     # norms), olmo2 (flat q/k norms), glm4/exaone4/olmo2 (post-norms)
     "attn_bias", "attn_qk_norm", "qk_norm_post_rope", "attn_qk_norm_flat",
     "post_norms", "pre_norm",
+    # the gemma family (gelu, the embedding scale, softcaps, sliding windows
+    # every swa_pattern-th layer full, the SWA layers' own rope base) and the
+    # granite/minicpm scales
+    "act_fn", "embedding_scale", "attn_logit_softcap", "final_logit_softcap",
+    "sliding_window", "swa_pattern", "rope_base_swa", "residual_scale", "logit_scale",
 })
+# act_fn values of the dense FFN (llama.py:624-629); the MoE FFN runs silu
+DENSE_ACTS = ("silu", "gelu")
 # the routed-expert MoE FFN's fields, accepted only with MoE tensors
 MOE_FIELDS = frozenset({
     "n_expert", "n_expert_used", "expert_gating", "expert_weights_norm",
@@ -89,11 +105,44 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
                 f"ModelConfig.{f.name}={getattr(cfg, f.name)!r}: not on the "
                 f"{'dense decoder or MoE' if moe else 'dense decoder'} path the PyTorch "
                 "port covers")
+    if cfg.act_fn not in (("silu",) if moe else DENSE_ACTS):
+        raise NotImplementedError(
+            f"ModelConfig.act_fn={cfg.act_fn!r}: the {'MoE' if moe else 'dense'} FFN of the "
+            "PyTorch port runs " + (" or ".join(("silu",) if moe else DENSE_ACTS)))
     if moe and (cfg.n_expert < 1 or not 1 <= cfg.n_expert_used <= cfg.n_expert
                 or cfg.expert_gating not in ("softmax", "sigmoid")):
         raise NotImplementedError(
             f"MoE with n_expert={cfg.n_expert}, n_expert_used={cfg.n_expert_used}, "
             f"gating {cfg.expert_gating!r}: not on the covered MoE path")
+
+
+def swa_flags(cfg: ModelConfig) -> list:
+    """Per-layer is-SWA flags for interleaved local/global models
+    (src/llama-hparams.h:132 set_swa_pattern: every swa_pattern-th layer
+    is full attention)."""
+    if cfg.sliding_window and cfg.swa_layer_pattern:
+        # explicit per-layer flags (mimo2/step35/gemma4 swa_layers array)
+        return [bool(f) for f in cfg.swa_layer_pattern[:cfg.n_layer]]
+    if cfg.sliding_window and cfg.swa_pattern > 1:
+        if cfg.swa_dense_first:  # smallthinker: layer il%p==0 is dense
+            return [(li % cfg.swa_pattern) != 0 for li in range(cfg.n_layer)]
+        return [((li + 1) % cfg.swa_pattern) != 0
+                for li in range(cfg.n_layer)]
+    return [False] * cfg.n_layer
+
+
+def layer_windows(cfg: ModelConfig) -> list:
+    """Each layer's window in tokens (0: none), as the JAX graph applies it
+    on a single cache (llama.py:932-950): interleaved layers (swa_pattern >
+    1) take the window where swa_flags says so, and no window elsewhere
+    (JAX's 1 << 30 there masks nothing); with swa_pattern 1 a window covers
+    every layer. The JAX package passes the interleaved window as a traced
+    value, which sends those layers to its einsum path; here each layer's
+    window is a Python int, so kernels C and E take it as the JAX kernels'
+    static window (the same function on another route)."""
+    if cfg.sliding_window and cfg.swa_pattern > 1:
+        return [cfg.sliding_window if f else 0 for f in swa_flags(cfg)]
+    return [cfg.sliding_window] * cfg.n_layer
 
 
 @dataclass
@@ -264,7 +313,8 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
 
 
 def ffn(x, qw, li, cfg: ModelConfig, dtype):
-    """Gated SiLU FFN on fused (or separate) gate/up weights."""
+    """Gated SiLU or GELU (tanh approximation, llama.py:624-629) FFN on fused
+    (or separate) gate/up weights."""
     if "ffn_gateup" in qw:
         y = qmm(x, qw["ffn_gateup"], dtype, li)
         g = y[..., : cfg.n_ff]
@@ -272,8 +322,11 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype):
     else:
         g = qmm(x, qw["ffn_gate"], dtype, li)
         u = qmm(x, qw["ffn_up"], dtype, li)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(dtype) * u
-    return qmm(h, qw["ffn_down"], dtype, li)
+    if cfg.act_fn == "gelu":
+        a = torch.nn.functional.gelu(g.to(torch.float32), approximate="tanh")
+    else:
+        a = torch.nn.functional.silu(g.to(torch.float32))
+    return qmm(a.to(dtype) * u, qw["ffn_down"], dtype, li)
 
 
 def top_k(probs, k: int):
@@ -460,10 +513,15 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     no bias and no flat q/k norm (the QK norm per head runs in attention,
     on the QKV rows the kernel emits). Folded, it also emits the next
     layer's norm and fused QKV. The JAX gate's other tensors (bo, the
-    norm biases, attn_norm_2) raise in forward before it is asked."""
+    norm biases, attn_norm_2) raise in forward before it is asked.
+
+    One condition is the port's own: the kernel adds its residuals unscaled,
+    so a residual_scale other than 1 (granite, minicpm) keeps the layer off
+    it. The JAX gate does not ask (ops/layer_kernel.py:410-428), so on the
+    TPU those layers' decode would drop the scale."""
     use_block = (B * T <= 16 and on_card and "ffn_norm" in gl
                  and not cfg.attn_bias and not cfg.attn_qk_norm_flat
-                 and block_supported(cfg, qw))
+                 and cfg.residual_scale == 1.0 and block_supported(cfg, qw))
     use_fold = use_block and "wqkv" in qw and n_groups == 1 and "attn_norm" in gl
     return use_block, use_fold
 
@@ -507,9 +565,19 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         raise ValueError(f"cache rows [{b0}, {b0 + B}) outside the cache's {cache.k.shape[1]}")
     dev = tokens.device
     x = params["tok_embd"].take_rows(tokens, dtype)
+    if cfg.embedding_scale != 1.0:  # llama.py:713-714
+        x = (x.to(torch.float32) * cfg.embedding_scale).to(dtype)
     # cast once here rather than in each apply_rope (same values: q and k
     # are in the compute dtype)
     cos, sin = (t.to(dtype) for t in rope_cache(cfg, positions))
+    # SWA layers rope at their own base where the file gives one
+    # (llama.py:722-731, 860-863)
+    cos_swa, sin_swa = cos, sin
+    if cfg.rope_base_swa and cfg.rope_base_swa != cfg.rope_base:
+        cfg_swa = dataclasses.replace(cfg, rope_base=cfg.rope_base_swa, raw_kv={})
+        cos_swa, sin_swa = (t.to(dtype) for t in rope_cache(cfg_swa, positions))
+    rope_swa = swa_flags(cfg)
+    windows = layer_windows(cfg)
     S = cache.max_len
     L_view = kv_view_len if (kv_view_len is not None and kv_view_len < S) else S
     if torch.is_tensor(cache_pos):
@@ -536,8 +604,9 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         q, k = q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd)
         if cfg.attn_qk_norm and not cfg.qk_norm_post_rope:
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
-        q = apply_rope(q, cos, sin, cfg.rope_type, cfg.rope_dim)
-        k = apply_rope(k, cos, sin, cfg.rope_type, cfg.rope_dim)
+        c, sn = (cos_swa, sin_swa) if rope_swa[li] else (cos, sin)
+        q = apply_rope(q, c, sn, cfg.rope_type, cfg.rope_dim)
+        k = apply_rope(k, c, sn, cfg.rope_type, cfg.rope_dim)
         if cfg.attn_qk_norm and cfg.qk_norm_post_rope:
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
         v = v.reshape(B, T, Hkv, hdv)
@@ -549,7 +618,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             kv_store(cache.k[li], cache.v[li], k, v, first, b0)
             k_view, v_view = view(cache.k[li]).to(dtype), view(cache.v[li]).to(dtype)
         att = attention(q, k_view, v_view, q_slots, kv_positions, positions, valid_from,
-                        cfg, kv_q8=kv_q8)
+                        cfg, bool(windows[li]), kv_q8=kv_q8)
         return att.reshape(B, T, H * hdv)
 
     def qkv_of(h, qw, li, lw):
@@ -577,9 +646,15 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         return rms_norm(x, lw.get(key), cfg.rms_eps) if cfg.pre_norm else x
 
     def post_norm(y, lw, key):
-        """glm4/exaone4/olmo2 norm the attention and FFN outputs before the
-        residual add (llama.py:1270-1271, 1319-1320)."""
-        return rms_norm(y, lw[key], cfg.rms_eps) if cfg.post_norms and key in lw else y
+        """The attention or FFN output as the residual adds it: normed by
+        glm4/exaone4/olmo2/gemma2/gemma3 (llama.py:1270-1271, 1319-1320),
+        then times residual_scale (granite/minicpm, llama.py:1278-1279,
+        1321-1322)."""
+        if cfg.post_norms and key in lw:
+            y = rms_norm(y, lw[key], cfg.rms_eps)
+        if cfg.residual_scale != 1.0:
+            y = (y.to(torch.float32) * cfg.residual_scale).to(dtype)
+        return y
 
     off = 0
     for gl in groups:
@@ -627,4 +702,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         x = x[:, logits_idx: logits_idx + 1]
     x = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
     logits = qmm(x, params["output"], dtype).to(torch.float32)
+    if cfg.logit_scale != 1.0:  # llama.py:1546-1547: a product, as in the JAX package
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcap:  # llama.py:1548-1549
+        logits = torch.tanh(logits / cfg.final_logit_softcap) * cfg.final_logit_softcap
     return logits, cache

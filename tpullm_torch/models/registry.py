@@ -18,6 +18,14 @@ ARCH_REGISTRY: dict[str, dict] = {
     "qwen3moe": dict(rope_type="neox", attn_qk_norm=True,
                      expert_weights_norm=True),
     "qwen2moe": dict(rope_type="neox", attn_bias=True),
+    "gemma": dict(rope_type="neox", act_fn="gelu", embedding_scale=-1.0),
+    "gemma2": dict(rope_type="neox", act_fn="gelu", post_norms=True,
+                   embedding_scale=-1.0, swa_pattern=2,
+                   # reference defaults when the GGUF lacks the keys
+                   # (src/models/gemma2.cpp: ml.get_key(..., false) over
+                   # hparams.h defaults 50/30)
+                   attn_logit_softcap=50.0, final_logit_softcap=30.0),
+    "gemma3": dict(rope_type="neox", act_fn="gelu", post_norms=True, attn_qk_norm=True, embedding_scale=-1.0, swa_pattern=6),
     # mixtral (llama MoE branch, src/models/llama.cpp:208): top-k
     # router weights are RENORMALIZED (build_moe_ffn norm_w=true). The
     # "llama" row has no such default, as in the JAX registry, so a llama
@@ -34,6 +42,9 @@ ARCH_REGISTRY: dict[str, dict] = {
                     attn_qk_norm=True),
     # glm4 (src/models/glm4.cpp): partial rope; gemma2-style post norms
     "glm4": dict(rope_type="norm", post_norms=True),
+    "granite": dict(rope_type="norm"),
+    "minicpm": dict(rope_type="norm"),
+    "granitemoe": dict(rope_type="norm"),
     "baichuan": dict(rope_type="norm"),
     "xverse": dict(rope_type="norm"),
     "qwen": dict(rope_type="neox", attn_bias=True),

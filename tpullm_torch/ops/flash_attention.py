@@ -13,6 +13,8 @@ import torch
 
 from . import _cuda
 
+C_HEAD_DIMS = (128, 256)  # the kernel's instances (Dk = Dv; csrc/flash_attention.cu)
+
 
 def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                      valid_from, scale: float, softcap: float = 0.0,
@@ -73,9 +75,9 @@ def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     Dv = v_all.shape[-1]
-    if Dk != 128 or Dv != 128:
+    if Dk != Dv or Dk not in C_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention kernel: head dims {Dk}/{Dv}; only 128 is built")
+            f"flash_attention kernel: head dims {Dk}/{Dv}; {C_HEAD_DIMS} are built (Dk = Dv)")
     if T % 64 or S % 64 or H % Hkv:
         raise ValueError(f"flash_attention kernel: T={T} S={S} H={H} Hkv={Hkv}")
     qh = q.to(torch.bfloat16)
@@ -100,8 +102,9 @@ def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
 
 def flash_builds(T: int, S: int, Dk: int, Dv: int, H: int, Hkv: int) -> bool:
     """The shapes the CUDA kernel builds (the wrapper raises on the rest):
-    Dk = Dv = 128, T and S multiples of 64, H a multiple of Hkv."""
-    return Dk == Dv == 128 and T % 64 == 0 and S % 64 == 0 and Hkv > 0 and H % Hkv == 0
+    Dk = Dv in C_HEAD_DIMS, T and S multiples of 64, H a multiple of Hkv."""
+    return (Dk == Dv and Dk in C_HEAD_DIMS and T % 64 == 0 and S % 64 == 0 and Hkv > 0
+            and H % Hkv == 0)
 
 
 def flash_supported(T: int, S: int, Dk: int, Dv: int) -> bool:

@@ -7,8 +7,11 @@ over HTTP (``server/http.py``; a GGUF without a vocab serves token ids
 only). Every flag has an
 environment fallback (TPULLM_<DEST>) and can come from a --preset JSON
 profile (``utils/args.py``). Flags of the JAX server whose features are not
-ported (downloads, LoRA, multimodal, speculation, slot files, the iSWA
-cache) raise instead of being ignored.
+ported (downloads, LoRA, multimodal, speculation, slot files) raise instead
+of being ignored. The JAX server gives a model with sliding-window layers
+the iSWA ring cache unless --swa-full is passed; the ring is not ported, so
+here such a model needs --swa-full (full-context KV on every layer, the
+same function) and raises without it, before any weight is loaded.
 """
 import logging
 import sys
@@ -43,6 +46,9 @@ def build_args():
     ap.add("--override-kv", action="append", default=[], help="not ported")
     ap.add("--slot-save-path", default=None, help="not ported")
     ap.add("--mmproj", default=None, help="not ported")
+    ap.add("--swa-full", action="store_true",
+           help="full-context KV for SWA layers (the reference's --swa-full); required "
+                "for models with SWA layers, as the window-sized iSWA ring is not ported")
     ap.add("--log-level", default=None, help="debug|info|warning|error")
     return ap
 
@@ -56,6 +62,8 @@ def main(argv=None):
         raise SystemExit("tpullm_torch.server: -m/--model is required")
     import torch
 
+    from ..gguf.reader import GGUFFile
+    from ..models.config import config_from_gguf
     from ..runtime.loader import load_model
     from ..tokenizer import Tokenizer
     from .context import ServerContext
@@ -63,6 +71,11 @@ def main(argv=None):
 
     logging.basicConfig(level=(args.log_level or "info").upper())
     log = logging.getLogger("tpullm_torch.server")
+    if config_from_gguf(GGUFFile(args.model)).sliding_window and not args.swa_full:
+        raise NotImplementedError(
+            f"{args.model}: a model with sliding-window layers is served on the iSWA ring "
+            "cache (window-sized SWA banks with their chunked prefill) unless --swa-full is "
+            "given; the ring is not ported to tpullm_torch yet: pass --swa-full")
     log.info("loading %s ...", args.model)
     cfg, params, g = load_model(args.model, device="cuda")
     tok = Tokenizer.from_gguf(g) if g.get("tokenizer.ggml.tokens") else None

@@ -215,7 +215,10 @@ def _refuse_unported(cfg: ModelConfig, params: dict, **opts) -> None:
     """Raise on every construction option and model family not ported."""
     for name, val in opts.items():
         if val:
-            raise NotImplementedError(f"ServerContext {name}={val!r}: not ported to "
+            what = (" (the iSWA ring cache: window-sized SWA banks with their chunked "
+                    "prefill; iswa=False keeps full-context KV on every layer)"
+                    if name == "iswa" else "")
+            raise NotImplementedError(f"ServerContext {name}={val!r}{what}: not ported to "
                                       "tpullm_torch yet")
     family = ("t5" if cfg.arch in ("t5", "t5encoder") else "rwkv" if cfg.wkv_head_size
               else "hybrid" if cfg.hybrid_graph or cfg.ssm_d_conv else None)

@@ -34,10 +34,18 @@ def _convert(v, device):
 
 
 def params_from_numpy(cfg_dict: dict, params: dict, device="cuda"):
-    """-> (ModelConfig, params on ``device``) for the port's forward."""
+    """-> (ModelConfig, params on ``device``) for the port's forward. Layer
+    tensors come across by name, the post-norms (gemma2/3's post_attn_norm,
+    post_ffn_norm) among them. A config with tied embeddings (gemma) gets
+    its lm_head as the embedding's own QTensor, as the port's loader binds
+    it, not as a second copy of the same weight."""
     device = resolve_device(device)
     cfg = ModelConfig(**cfg_dict)
-    return cfg, {k: _convert(v, device) for k, v in params.items()}
+    out = {k: _convert(v, device) for k, v in params.items() if not (
+        cfg.tie_embeddings and k == "output")}
+    if cfg.tie_embeddings:
+        out["output"] = out["tok_embd"]
+    return cfg, out
 
 
 def kv_cache_from_numpy(k, v, ks=None, vs=None, device="cuda"):

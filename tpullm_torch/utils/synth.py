@@ -43,7 +43,8 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
                           centred: bool = False, device="cuda", dense_ffn: bool = True,
                           arch: str = "llama", rope_base: float = 10000.0,
                           rms_eps: float = 1e-5,
-                          exact_vocab: bool = False, head_dim: int | None = None):
+                          exact_vocab: bool = False, head_dim: int | None = None,
+                          tied: bool = False, cfg_fields: dict | None = None):
     """-> (ModelConfig, params) with every tensor on ``device``. Each weight
     is drawn on the host, moved to the device and released before the next,
     so host memory holds one weight at a time.
@@ -59,6 +60,12 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     as the JAX package's synth gives them. ``head_dim`` defaults to
     n_embd // n_head; another value gives q n_head * head_dim wide over the
     n_embd-wide stream (Qwen3-30B-A3B: 32 heads of 128 over 2048).
+    Where the row sets ``post_norms`` (gemma2, gemma3) the layers also carry
+    ``post_attn_norm``/``post_ffn_norm`` (1 + N(0, 0.1)), drawn after the q/k
+    norms. ``tied=True`` makes the lm_head the embedding (one draw, as a
+    GGUF without output.weight loads: cfg.tie_embeddings). ``cfg_fields``
+    sets config fields as a file's keys would, before the row's defaults
+    apply (a window, its pattern, softcaps, rope_base_swa, rope scaling).
 
     ``centred=False`` draws the JAX package's weights. Their sub-mins are
     independent of the scales, so every weight row has a mean far from 0
@@ -101,9 +108,10 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     L = (n_layer,)
     nq, nkv = n_head * head_dim, n_head_kv * head_dim
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
+    embd = qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size)
     params = {
-        "tok_embd": qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size),
-        "output": qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size),
+        "tok_embd": embd,
+        "output": embd if tied else qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size),
         "output_norm": ones(n_embd),
         "layers": {
             "attn_norm": ones(n_layer, n_embd),
@@ -119,7 +127,7 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         arch=arch, vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
         n_head=n_head, n_head_kv=n_head_kv, head_dim=head_dim,
         head_dim_v=head_dim, n_ff=n_ff, rope_dim=head_dim, rope_base=rope_base,
-        rms_eps=rms_eps,
+        rms_eps=rms_eps, tie_embeddings=tied, **(cfg_fields or {}),
     )
     apply_arch_defaults(cfg)
     layers = params["layers"]
@@ -130,6 +138,9 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         layers["k_norm"] = 1.0 + normal(head_dim, 0.1)
     if cfg.attn_bias:
         layers["bq"], layers["bk"], layers["bv"] = (normal(n, 0.5) for n in (nq, nkv, nkv))
+    if cfg.post_norms:
+        layers["post_attn_norm"] = 1.0 + normal(n_embd, 0.1)
+        layers["post_ffn_norm"] = 1.0 + normal(n_embd, 0.1)
     return cfg, params
 
 

@@ -109,11 +109,9 @@ pass):
    Qwen2-layout tokenizer): 4 token-id completions and 2 chats, one
    stopped at <|im_end|>, with A-C, E, F, the store and the skip launched;
 11. the gemma family at full width (head dim 256, gelu, the embedding
-   scale, softcaps, windows, tied lm_heads): Gemma-2-9B with 2 layers,
-   Gemma-3-4B's width with 6 (5 SWA layers at their own rope base under
-   linear scaling 8) and Gemma-7B's width with 2 (kernel D with gelu)
-   against the CPU as phase 3, the window cut to 256 so the prompts pass
-   it; kernel rows at Gemma-2-9B's weights and heads (C at head dim 256
+   scale, softcaps, windows, tied lm_heads): Gemma-7B's width with 2
+   layers (kernel D with gelu) against the CPU as phase 3 (Gemma-2-9B's
+   and Gemma-3-4B's run in phase 12); kernel rows at Gemma-2-9B's weights and heads (C at head dim 256
    with softcap 50 and windows of 0, 256 and 4096; E with window and
    softcap; the store) and D at Gemma-7B's layer; then the 42-layer
    Gemma-2-9B model: the slice with E on (every prefill attention call
@@ -121,8 +119,28 @@ pass):
    launched, D not) and its decode profile, and its server (4 slots of
    8192, int8 KV, full-context KV on every layer as --swa-full gives it,
    E on): 4 token-id completions of 6000/2000/700/40 tokens, the 6000 past
-   the 4096 window, and the 6000-token prefill and a decode chunk
-   profiled.
+   the 4096 window, and a decode chunk, graph against eager and profiled
+   as graph replays;
+12. the iSWA ring (the server CLI's default for bf16 and f32 KV: the SWA
+   layers on a ring of window + prefill_chunk slots): ring rows at
+   Gemma-2-9B's heads (the store with wrap, a 512-row chunk across the end
+   of a 4608-slot ring, bit for bit beside one index_put_ a bank; E over
+   the ring at rows 12000/6000/2000/40 and C over it for a 512-row chunk at
+   11488, window 4096, softcap 50, beside flex_attention with the ring
+   mask; C's ring at head dim 128 beside SDPA); Gemma-2-9B with 2 layers
+   and Gemma-3-4B's width with 6 (5 SWA layers at their own rope base
+   under linear scaling 8), the window cut to 256 and prefill_chunk 128 (a
+   384-slot ring), prompts of 896 and 500 tokens, the ring engine's path
+   and the card's full cache each against the CPU f32 path (phase 3's
+   rule) and against each other, every ring-layer call on C or E, E in the
+   decode steps of both; then phase 11's 42-layer
+   Gemma-2-9B behind serve() on ServerContext(iswa=True): 4 slots of
+   16384, bf16 KV, prefill_chunk 512, E on, the dual cache's KV bytes
+   beside the full cache's, token-id completions of 12000/6000/2000/40
+   tokens and a follow-up that reuses the 12000-token prefix, every
+   request 200 and no ring-layer call on the einsum path, peak memory,
+   then a decode chunk at those depths, graph against eager and profiled
+   as graph replays.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
@@ -134,8 +152,8 @@ tied lm_head, and the Qwen MoE models synth_moe_q4k's). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
-slice and server, the Gemma-2-9B slice and server, the Gemma-7B-width
-run), the card's name and power limit, and the result line.
+slice and server, the Gemma-2-9B slice, server and ring server, the
+Gemma-7B-width run), the card's name and power limit, and the result line.
 """
 import gc
 import hashlib
@@ -480,7 +498,7 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
 
 
 def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H, HKV), hd=HD,
-             softcap=0.0, window=0):
+             softcap=0.0, window=0, ring=0):
     """One row of kernel C at ``heads`` (query, kv; Llama-3-8B's unless
     given), head dim ``hd``, a logit softcap and a window on real positions
     where given: query slots n_past ..
@@ -495,7 +513,9 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     visible key, writes o once, reads each batch row's live K/V rows once,
     and counts 4 D flops a visible (query head, key) pair. A softcap row's
     library call is flex_attention over the same mask (``flex_call``), held
-    against the plain version as the SDPA calls are."""
+    against the plain version as the SDPA calls are. With ``ring`` (= S)
+    K/V are an iSWA ring bank and every mask is the ring mask (position p
+    at slot p % ring, visible inside the window)."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
 
@@ -510,9 +530,10 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     kvp = torch.arange(S, device="cuda")[None] - vf[:, None]
     cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD,
                       attn_logit_softcap=softcap, sliding_window=window)
-    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg, bool(window))
+    rk = {"ring": ring} if ring else {}  # a checkout without the ring takes the rest
+    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg, bool(window), **rk)
     plain = lambda: masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / math.sqrt(HD), softcap,
-                                     window)
+                                     window, **rk)
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
     live = qs >= vf[:, None]
@@ -521,8 +542,13 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     same = torch.equal(got, again)
     mae = float((got.float() - want.float()).abs().max())
     slot = torch.arange(S, device="cuda")
-    mask = (slot[None, None, :] <= qs[:, :, None]) & (slot[None, None, :] >= vf[:, None, None])
-    if window:
+    if ring:
+        from tpullm_torch.ops.flash_attention import ring_mask
+
+        mask = ring_mask(slot[None, None, :], qs[:, :, None], vf[:, None, None], window, ring)
+    else:
+        mask = (slot[None, None, :] <= qs[:, :, None]) & (slot[None, None, :] >= vf[:, None, None])
+    if window and not ring:
         mask &= kvp[:, None, :] > pos[:, :, None] - window
     flops = 4.0 * HD * int(mask.sum()) * H
     # each batch row's K/V rows that some query sees, read once
@@ -538,7 +564,7 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     if softcap:
         calls = {"flex_attention": flex_call(torch, qt_, k, v, mask, 1.0 / math.sqrt(HD),
                                              softcap)}
-    elif not any(vf.tolist()) and not window:
+    elif not any(vf.tolist()) and not window and not ring:
         from torch.nn.attention.bias import causal_lower_right
 
         n_kv = n_past + T
@@ -555,7 +581,7 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     lms = min(lib.values())
     label = (f"flash_attention[B={B},H={H},Hkv={HKV},T={T},slots={n_past}+,S={S},D={HD}"
              + (f",softcap={softcap:g}" if softcap else "")
-             + (f",window={window}" if window else "") + "]")
+             + (f",window={window}" if window else "") + (f",ring={ring}" if ring else "") + "]")
     log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_ATTN_NMSE:g}) padding rows zero "
         f"{pad_zero} repeat identical {same} max_abs_err {mae:.4g} ms {ms:.4f} "
         f"plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) share_of_bound "
@@ -965,7 +991,7 @@ def decode_operands(torch, g, B, T, Hq, Hk, S, hd, slots, q8, vf=None):
 
 
 def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV),
-               path="8B server", hd=HD, softcap=0.0, window=0):
+               path="8B server", hd=HD, softcap=0.0, window=0, ring=0):
     """One row of kernel E at ``heads`` (Llama-3-8B's 32/8 of 128 unless
     given; T = 1), head dim ``hd``, a softcap and a window where given, over
     an S-slot view, row b's query at slots[b] with keys from vf[b]: against
@@ -980,7 +1006,9 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     (and 8 B of scales a (head, slot) for int8) and q once and writes o
     once; 4 D flops a visible (query head, key) pair. The merge's device ms
     is 0 since the merge runs in the main launch (an older checkout's
-    separate merge launch shows there)."""
+    separate merge launch shows there). With ``ring`` (= S) K/V are an iSWA
+    ring bank, row b's query at position slots[b], and every mask (the
+    library call's and the einsum path's) is the ring mask."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.models.llama import dequant_view
     from tpullm_torch.ops.flash_attention import masked_attention
@@ -994,9 +1022,11 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
                       attn_logit_softcap=softcap)
     q, k, v, ks, vs, qs, pos, vft = decode_operands(torch, g, B, 1, H, HKV, S, HD, slots, q8,
                                                     vf)
-    run = lambda: flash_decode(q, k, v, qs, pos, vft, cfg, window, k_scales=ks, v_scales=vs)
+    rk = {"ring": ring} if ring else {}  # a checkout without the ring takes the rest
+    run = lambda: flash_decode(q, k, v, qs, pos, vft, cfg, window, k_scales=ks, v_scales=vs,
+                               **rk)
     plain = lambda: flash_decode_plain(q, k, v, qs, pos, vft, scale, softcap, window, False,
-                                       None, ks, vs)
+                                       None, ks, vs, **rk)
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
     err = nmse(torch, got, want)
@@ -1004,7 +1034,8 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     bits = hashlib.sha1(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:12]
     mae = float((got.float() - want.float()).abs().max())
     # visible slots of the rows
-    rows = sum(min(n + 1 - f, window or n + 1) for n, f in zip(slots, vft.tolist()))
+    rows = sum(min(n + 1 - f, window or n + 1, ring or n + 1)
+               for n, f in zip(slots, vft.tolist()))
     kv_bytes = rows * HKV * 2 * HD * (1 if q8 else 2) + (rows * HKV * 8 if q8 else 0)
     bound, by = bound_of(kv_bytes + 2 * B * H * HD * 2, 4.0 * HD * H * rows)
     ms = timer(run, 20)
@@ -1013,10 +1044,16 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     kd = dequant_view(k, ks, torch.bfloat16) if q8 else k
     vd = dequant_view(v, vs, torch.bfloat16) if q8 else v
     slot = torch.arange(S, device="cuda")
-    mask = (slot[None, None, None, :] <= qs[:, None, :, None]) & \
-        (slot[None, None, None, :] >= vft[:, None, None, None])
+    if ring:
+        from tpullm_torch.ops.flash_attention import ring_mask
+
+        mask = ring_mask(slot[None, None, None, :], qs[:, None, :, None],
+                         vft[:, None, None, None], window, ring)
+    else:
+        mask = (slot[None, None, None, :] <= qs[:, None, :, None]) & \
+            (slot[None, None, None, :] >= vft[:, None, None, None])
     kvp = slot[None] - vft[:, None]
-    if window:
+    if window and not ring:
         mask &= kvp[:, None, None, :] > pos[:, None, :, None] - window
     qt = q.transpose(1, 2)
     if softcap:
@@ -1029,13 +1066,13 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
         library, call = "SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kd, vd, attn_mask=mask, enable_gqa=True)
     lms = timer(call, 20)
-    ems = timer(lambda: masked_attention(q, kd, vd, qs, kvp, pos, vft, scale, softcap, window),
-                10)
+    ems = timer(lambda: masked_attention(q, kd, vd, qs, kvp, pos, vft, scale, softcap, window,
+                                         **rk), 10)
     label = (f"flash_decode[{'int8' if q8 else 'bf16'},{where},B={B},H={H},Hkv={HKV},T=1,"
              f"S={S},D={HD},slots {'/'.join(map(str, slots))},valid_from "
              f"{'/'.join(map(str, vft.tolist()))}"
              + (f",softcap={softcap:g}" if softcap else "")
-             + (f",window={window}" if window else "") + "]")
+             + (f",window={window}" if window else "") + (f",ring={ring}" if ring else "") + "]")
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_DECODE_NMSE:g}) repeat identical {same} "
         f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
         f"({library}, bf16 views) einsum_ms {ems:.4f} bound_ms {bound:.5f} ({by}; {rows} "
@@ -1115,7 +1152,7 @@ def phase_flash_decode(torch, timer, entries):
 
 
 def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=(H, HKV),
-              hd=HD):
+              hd=HD, ring=0):
     """One row of the KV store kernel for one layer (Llama-3-8B's and
     Mixtral's 8 kv heads of 128, 4 cache rows of S slots): bf16 K rows and
     V rows sliced out of a fused QKV output (as forward passes them), batch
@@ -1126,7 +1163,9 @@ def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=
     and held bit for bit too; no PyTorch call quantizes and stores, so on
     the int8 cache library_ms is null. The bound reads each K/V value once
     (2 B) and the slots, and writes each once (int8 with its row's two f32
-    scales, or bf16). ``heads`` and ``hd`` give another model's widths."""
+    scales, or bf16). ``heads`` and ``hd`` give another model's widths.
+    With ``ring`` (= S) the banks are an iSWA ring: row t at slot
+    (slots[b] + t) % ring, the library call's indices taken the same way."""
     from tpullm_torch.ops.kv_store import kv_store, kv_store_plain
 
     H, HKV = heads
@@ -1144,8 +1183,9 @@ def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=
               else [None, None])
     twin = [None if b is None else b.clone() for b in banks]
     slot = torch.tensor(slots, dtype=torch.int64, device="cuda")
-    run = lambda: kv_store(banks[0], banks[1], k, v, slot, b0, banks[2], banks[3])
-    plain = lambda: kv_store_plain(twin[0], twin[1], k, v, slot, b0, twin[2], twin[3])
+    rk = {"ring": ring} if ring else {}  # a checkout without the ring takes the rest
+    run = lambda: kv_store(banks[0], banks[1], k, v, slot, b0, banks[2], banks[3], **rk)
+    plain = lambda: kv_store_plain(twin[0], twin[1], k, v, slot, b0, twin[2], twin[3], **rk)
     run()
     plain()
     torch.cuda.synchronize()
@@ -1156,6 +1196,8 @@ def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=
     if not q8:  # one index_put_ a bank, its indices made before the timing
         lib = [torch.zeros_like(banks[0]) for _ in range(2)]
         sl = slot[:, None] + torch.arange(T, device="cuda")[None, :]  # all inside the cache
+        if ring:
+            sl = sl % ring
         idx = ((b0 + torch.arange(B, device="cuda"))[:, None, None].expand(B, T, HKV),
                torch.arange(HKV, device="cuda")[None, None, :].expand(B, T, HKV),
                sl[:, :, None].expand(B, T, HKV))
@@ -1170,7 +1212,8 @@ def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=
     ms = timer(run, 20)
     pms = timer(plain, 3, warmup=1)
     label = (f"kv_store[{'int8' if q8 else 'bf16'},{where},B={B},T={T},Hkv={HKV},D={HD},"
-             f"S={S},slots {'/'.join(map(str, slots))},cache rows from {b0}]")
+             f"S={S},slots {'/'.join(map(str, slots))},cache rows from {b0}"
+             + (f",ring={ring}" if ring else "") + "]")
     log(f"kernel {label}: bit-identical to plain {same} max_abs_err {mae:.4g} ms {ms:.4f} "
         f"plain_ms {pms:.4f} library_ms {'null' if lms is None else f'{lms:.4f}'} "
         f"(bit-identical {lib_same}) bound_ms {bound:.5f} ({by}) share_of_bound "
@@ -1675,12 +1718,14 @@ def http_json(url, body, timeout=600):
     return status, json.loads(raw)
 
 
-def server_burst(base, prompts, label, tok, vocab=VOCAB):
+def server_burst(base, prompts, label, tok, vocab=VOCAB, first_admitted=None):
     """The burst: one thread per request, all sent at once, token-id prompts
     with ignore_eos (every request makes SERVER_NEW tokens). Request
     SERVER_STREAMED streams, SERVER_SAMPLED samples (temperature 0.8, top_k
-    40, seed 1234), the rest are greedy. Fails on any non-200, error event,
-    completion that is not SERVER_NEW tokens, or text that is not the
+    40, seed 1234), the rest are greedy. With ``first_admitted`` (a
+    callable) request 0 goes first and the others once it returns true (it
+    is admitted: the first free slot is its). Fails on any non-200, error
+    event, completion that is not SERVER_NEW tokens, or text that is not the
     tokenizer's (``visible``). -> (results, wall s)."""
     import threading
 
@@ -1697,8 +1742,12 @@ def server_burst(base, prompts, label, tok, vocab=VOCAB):
 
     t = time.perf_counter()
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
-    for th in threads:
+    for i, th in enumerate(threads):
         th.start()
+        while i == 0 and first_admitted is not None and not first_admitted():
+            if time.perf_counter() - t > 60:
+                raise AssertionError(f"server {label}: request 0 not admitted in 60 s")
+            time.sleep(0.01)
     for th in threads:
         th.join()
     wall = time.perf_counter() - t
@@ -1750,8 +1799,8 @@ def graph_against_eager(torch, ctx, n, view):
     from tpullm_torch.ops import _cuda
 
     st, pen, cache = ctx.state, ctx.penalties, ctx.memory.cache
-    live = [t for t in (cache.k, cache.v, cache.ks, cache.vs, st.logits, st.ctl, st.mu,
-                        st.toks, pen.counts, pen.ring, pen.pos) if t is not None]
+    live = [t for t in (cache.k, cache.v, cache.ks, cache.vs, cache.kw, cache.vw, st.logits,
+                        st.ctl, st.mu, st.toks, pen.counts, pen.ring, pen.pos) if t is not None]
     saved = [t.clone() for t in live]
     res = {}
     for way in ("graph", "eager"):
@@ -1809,7 +1858,7 @@ def chunk_profile(torch, ctx, n):
             "device_ms_launches_per_step_by_kernel": by}
 
 
-def server_chunk_profile(torch, ctx, prompts, modes):
+def server_chunk_profile(torch, ctx, prompts, modes, ways=("graph", "eager"), lone=True):
     """Decode chunks of the server's own loop body, driven from this thread
     with the loop stopped: 4 slots prefilled once with the burst's 4
     longest prompts, the longest alone and under torch.profiler (its
@@ -1817,10 +1866,11 @@ def server_chunk_profile(torch, ctx, prompts, modes):
     then for each (label, TPULLM_FLASH_DECODE value) in modes, one chunk as
     graph replays against the same chunk as eager steps from the same state
     (graph_against_eager), then chunk_profile as graph replays and as eager
-    steps (cuda_graphs toggled; the rows deepen by 12 chunks a mode). A
-    graph step must be one cudaGraphLaunch. -> {label: {"graph": ...,
-    "eager": ..., "launch_counts_per_chunk": ...}} and {"lone_prefill": the
-    longest prompt's prefill profile}."""
+    steps (cuda_graphs toggled; the rows deepen by 6 chunks a way), or only
+    the ``ways`` given. A graph step must be one cudaGraphLaunch. -> {label:
+    {"graph": ..., "eager": ..., "launch_counts_per_chunk": ...}} and, with
+    ``lone`` (else the longest is prefilled with the rest, unprofiled),
+    {"lone_prefill": the longest prompt's prefill profile}."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpullm_torch.server.context import GenParams, Task
@@ -1835,22 +1885,23 @@ def server_chunk_profile(torch, ctx, prompts, modes):
         torch.cuda.synchronize()
         n0 = len(ctx.rt[0].pending)
         t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            chunks = 0
-            while ctx.rt[0].pending:
-                ctx._prefill_step(0)
-                chunks += 1
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-        by = {}
-        for name, ms, cnt in device_kernels(prof):
-            k = KERNEL_OF.get(name.split("<")[0], "other")
-            tot, c = by.get(k, (0.0, 0))
-            by[k] = (tot + ms, c + cnt)
-        out["lone_prefill"] = {"tokens": n0, "chunks": chunks,
-                               "wall_ms_profiled": wall,
-                               "device_busy_ms": sum(ms for ms, _ in by.values()),
-                               "device_ms_launches": by}
+        if lone:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                chunks = 0
+                while ctx.rt[0].pending:
+                    ctx._prefill_step(0)
+                    chunks += 1
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            by = {}
+            for name, ms, cnt in device_kernels(prof):
+                k = KERNEL_OF.get(name.split("<")[0], "other")
+                tot, c = by.get(k, (0.0, 0))
+                by[k] = (tot + ms, c + cnt)
+            out["lone_prefill"] = {"tokens": n0, "chunks": chunks,
+                                   "wall_ms_profiled": wall,
+                                   "device_busy_ms": sum(ms for ms, _ in by.values()),
+                                   "device_ms_launches": by}
         while any(r.pending for r in ctx.rt):
             for i, r in enumerate(ctx.rt):
                 if r.pending:
@@ -1859,7 +1910,7 @@ def server_chunk_profile(torch, ctx, prompts, modes):
             set_flash_decode(flag)
             out[label] = {"launch_counts_per_chunk": graph_against_eager(
                 torch, ctx, n, ctx._kv_view_bucket(n))}
-            for way in ("graph", "eager"):
+            for way in ways:
                 ctx.cuda_graphs = way == "graph"
                 out[label][way] = chunk_profile(torch, ctx, n)
             calls = out[label]["graph"]["runtime_launch_calls_per_step"]
@@ -2603,11 +2654,13 @@ def phase_gemma_server(torch, cfg, params, label="Gemma-2-9B"):
     burst of GEMMA_SERVER_PROMPTS (the 6000-token prompt past the 4096
     window, in C's 512-row chunks and in E's steps), 64 new tokens each:
     every request answered 200 with its 64 tokens; A, B, C, E and the store
-    launched, D not (the post-norms close it). Then, with the loop stopped,
-    the 6000-token prompt's prefill profiled alone and one decode chunk as
-    graph replays against eager steps and profiled both ways
-    (server_chunk_profile): device ms a step and the busy share.
-    -> the launch counts of the burst."""
+    launched, D not (the post-norms close it). Then, with the loop stopped
+    and the prompts prefilled anew, one decode chunk as graph replays
+    against eager steps, then profiled as graph replays
+    (server_chunk_profile): device ms a step and the busy share. The
+    6000-token prefill's profile and the eager chunk's are left out for the
+    script's time limit (the profiler's host work on tens of thousands of
+    launches). -> the launch counts of the burst."""
     import numpy as np
     import socket
 
@@ -2652,9 +2705,8 @@ def phase_gemma_server(torch, cfg, params, label="Gemma-2-9B"):
         ctx.stop()  # the loop thread; the chunk profile drives its body from here
         for i in range(ctx.n_slots):
             ctx.memory.clear_slot(i)
-        profs = server_chunk_profile(torch, ctx, prompts, (("kernel E", "1"),))
-        report["lone_prefill_profile"] = profs.pop("lone_prefill")
-        report["decode_chunk_profile"] = profs["kernel E"]
+        report["decode_chunk_profile"] = server_chunk_profile(
+            torch, ctx, prompts, (("kernel E", "1"),), ("graph",), lone=False)["kernel E"]
     finally:
         set_flash_decode(None)
         srv.shutdown()
@@ -2675,22 +2727,39 @@ def phase_gemma_server(torch, cfg, params, label="Gemma-2-9B"):
     return counts
 
 
+def route_counter(routes: dict, key):
+    """A stand-in for models/llama.py:attention_route (patched in with
+    mock.patch.object) that adds one to routes[key(args, route)] for each
+    call, where key gives a key (None: not counted)."""
+    import tpullm_torch.models.llama as llama
+
+    real = llama.attention_route
+
+    def counted(*a):
+        r = real(*a)
+        k = key(a, r)
+        if k is not None:
+            routes[k] = routes.get(k, 0) + 1
+        return r
+
+    return counted
+
+
 def phase_gemma(torch, entries):
     """Phase 11, the gemma family at full width (gelu, the embedding scale,
     logit softcaps, sliding windows every other or 5 of 6 layers, tied
-    lm_heads, head dim 256 through kernels C and E): (a) parities against
-    the CPU (phase 3's rule) with the window cut to 256 and prompts past it
-    (384 and 300 tokens): Gemma-2-9B with 2 layers, Gemma-3-4B's width with
-    6 layers (layers 0-4 SWA, layer 5 full; rope_base_swa 1e4 under a
-    global base of 1e6 with linear scaling 8), both with E in their decode
-    steps; and Gemma-7B's width with 2 layers (no window; prompts of 128
-    and 100: kernel D with gelu, folded, in its decode steps); then the kernel rows
+    lm_heads, head dim 256 through kernels C and E): (a) the parity against
+    the CPU (phase 3's rule) of Gemma-7B's width with 2 layers (no window;
+    prompts of 128 and 100: kernel D with gelu, folded, in its decode
+    steps; Gemma-2-9B's and Gemma-3-4B's full-cache parities run in phase
+    12 beside the ring's, on the same tokens); then the kernel rows
     (phase_gemma_kernels); (b) the 42-layer Gemma-2-9B model's engine slice
     with TPULLM_FLASH_DECODE=1 (A, B, C, E and the store launched, D not;
     every prefill attention call routed to C, none to the einsum path, C
     launched once a layer for the counted run's one prefill) and its
     decode-step profile as graph replays; (c) its server
-    (phase_gemma_server). -> launch counts by path."""
+    (phase_gemma_server); then phase 12 on the same weights
+    (phase_gemma_ring). -> launch counts by path."""
     from unittest import mock
 
     import tpullm_torch.models.llama as llama
@@ -2698,11 +2767,10 @@ def phase_gemma(torch, entries):
 
     counts = {}
     win = GEMMA_PARITY_WINDOW
-    # (label, spec, depth, config fields, TPULLM_FLASH_DECODE, seed, prompts, S)
-    runs = (("Gemma-2-9B", GEMMA2, 2, dict(sliding_window=win), "1", 13, (384, 300), 512),
-            ("Gemma-3-4B width", GEMMA3_4B, 6, dict(GEMMA3_4B["cfg_fields"], sliding_window=win),
-             "1", 14, (384, 300), 512),
-            ("Gemma-7B width", GEMMA7B, 2, None, None, 15, (128, 100), 256))
+    # (label, spec, depth, config fields, TPULLM_FLASH_DECODE, seed, prompts, S); the
+    # Gemma-2-9B and Gemma-3-4B-width parities on the full cache run beside the
+    # ring's, on the same tokens (phase 12, phase_ring_parity)
+    runs = (("Gemma-7B width", GEMMA7B, 2, None, None, 15, (128, 100), 256),)
     for label, spec, n_layer, fields, flag, seed, lens, S in runs:
         t = time.perf_counter()
         c = phase_parity(torch, f"{label} (depth cut from {spec['n_layer']}"
@@ -2730,14 +2798,7 @@ def phase_gemma(torch, entries):
         f"{cfg.attn_logit_softcap:g}/{cfg.final_logit_softcap:g} windows "
         f"{llama.layer_windows(cfg)[:4]}... tied {cfg.tie_embeddings}")
     routes = {}
-    real_route = llama.attention_route
-
-    def counted_route(is_cuda, B, T, *rest):
-        r = real_route(is_cuda, B, T, *rest)
-        key = ("prefill" if T > 1 else "decode", r)
-        routes[key] = routes.get(key, 0) + 1
-        return r
-
+    counted_route = route_counter(routes, lambda a, r: ("prefill" if a[2] > 1 else "decode", r))
     set_flash_decode("1")
     try:
         with mock.patch.object(llama, "attention_route", counted_route):
@@ -2762,10 +2823,340 @@ def phase_gemma(torch, entries):
     log(f"phase slice Gemma-2-9B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     counts["Gemma-2-9B server"] = phase_gemma_server(torch, cfg, params)
+    log(f"phase server Gemma-2-9B: {time.perf_counter() - t:.1f} s")
+    counts.update(phase_gemma_ring(torch, entries, cfg, params))
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase server Gemma-2-9B: {time.perf_counter() - t:.1f} s")
+    return counts
+
+
+# the iSWA ring server (phase 12): Gemma-2-9B on 4 slots of 16384, bf16 KV, the
+# SWA layers on a ring of window 4096 + prefill_chunk 512 = 4608 slots
+RING_CTX, RING_CHUNK = 16384, 512
+RING_SERVER_PROMPTS = [12000, 6000, 2000, 40]  # the burst; the 12000 wraps the ring
+RING_FOLLOW = 200  # the follow-up's own tokens after the 12000-token prefix
+# the parity runs: the window cut to 256 and prefill_chunk 128 (a ring of 384),
+# prompts of 896 and 500 tokens, so the longer wraps the ring twice (and the
+# full cache's one-piece prefill of 896 = 7 x 128 rows takes kernel C)
+RING_PARITY_CHUNK, RING_PARITY_LENS = 128, (896, 500)
+
+
+def phase_ring_kernels(torch, entries):
+    """Phase 12a: the ring rows at Gemma-2-9B's heads (16/8 of 256), each
+    held against its plain version and timed beside the plain version, one
+    library call and the bound: the store with wrap (bf16 ring of 4608
+    slots, a 512-row chunk at positions 8960-9471, ring slots 4352-4607 then
+    0-255, cache row 2 of 4; bit for bit, beside one ``index_put_`` a bank);
+    kernel E on the ring (4 rows at positions 12000/6000/2000/40, softcap
+    50, window 4096; library: flex_attention with the ring mask and the
+    softcap); kernel C on the ring (B 1, T 512 at positions 11488-11999,
+    window 4096, softcap 50; and at head dim 128 with Llama-3-8B's heads,
+    no softcap: SDPA with the ring mask)."""
+    from tpullm_torch.ops import _cuda
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(1818)
+    gm = GEMMA2
+    heads, hd, win = (gm["n_head"], gm["n_head_kv"]), gm["head_dim"], 4096
+    ring = win + RING_CHUNK
+    path = "Gemma-2-9B ring server"
+    store_row(torch, timer, entries, g, "Gemma-2-9B ring prefill chunk across the ring's end",
+              path, 512, [2 * ring - 256], 2, ring, False, heads=heads, hd=hd, ring=ring)
+    decode_row(torch, timer, entries, g, "Gemma-2-9B ring server", ring, RING_SERVER_PROMPTS,
+               [0, 0, 0, 0], False, heads=heads, path=path, hd=hd, softcap=50.0, window=win,
+               ring=ring)
+    attn_row(torch, timer, entries, g, B=1, T=512, S=ring, n_past=11488, vf=[0], path=path,
+             heads=heads, hd=hd, softcap=50.0, window=win, ring=ring)
+    attn_row(torch, timer, entries, g, B=1, T=512, S=ring, n_past=11488, vf=[0], path=path,
+             window=win, ring=ring)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+
+
+def phase_ring_parity(torch, label, spec, n_layer, fields, seed):
+    """Phase 12b: the iSWA ring at full width with the depth and the window
+    cut (phase 3's rule): the ring engine's path on the card (a dual cache,
+    the window cut to 256, prefill in chunks of RING_PARITY_CHUNK: a ring of
+    384 slots) on 2 prompts of RING_PARITY_LENS tokens (left-padded, the
+    896 wrapping the ring twice) and 4 greedy decode steps with
+    TPULLM_FLASH_DECODE=1, against the plain path on a CPU copy in f32 on
+    the full cache, teacher-forced with the card's picks; the card's
+    full-cache path (phase 11's parity: its prefill in one piece through
+    C, its decode through E) on the same tokens within the same bound of
+    the CPU and of the ring's logits. Every ring-layer attention call on
+    the card goes to kernel C (prefill) or E (decode). -> the launch counts
+    of the ring run and of the full-cache run."""
+    import numpy as np
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    sp = dict(spec, n_layer=n_layer, cfg_fields=fields)
+    cfg, params = synth_kmajor_q4k_fast(**sp, seed=seed, centred=True, device="cuda")
+    cpu = plain_cpu_copy(torch, params)
+    rng = np.random.default_rng(5)
+    lens = RING_PARITY_LENS
+    B, T, C = len(lens), max(lens), RING_PARITY_CHUNK
+    S = 1280  # a multiple of 256 past the prompts and 4 steps: C and E on the full banks
+    tok = np.zeros((B, T), np.int64)
+    posn = np.zeros((B, T), np.int64)
+    for b, n in enumerate(lens):
+        tok[b, T - n:] = rng.integers(0, cfg.vocab_size, n)
+        posn[b, T - n:] = np.arange(n)
+    vf = np.asarray([T - n for n in lens], np.int64)
+    sides = {}
+    for name, dev, dtype, iswa in (("ring", "cuda", torch.bfloat16, True),
+                                   ("full", "cuda", torch.bfloat16, False),
+                                   ("cpu", "cpu", torch.float32, False),
+                                   ("cpu_bf16", "cpu", torch.bfloat16, False)):
+        sides[name] = dict(p=params if dev == "cuda" else cpu, dev=dev, dtype=dtype,
+                           cache=KVCache.create(cfg, B, S, dtype, dev, iswa=iswa,
+                                                max_chunk=C),
+                           vf=torch.from_numpy(vf).to(dev))
+    ring = sides["ring"]["cache"].ring
+    if not sides["ring"]["cache"].dual or ring != fields["sliding_window"] + C:
+        raise AssertionError(f"{label} ring parity: no dual cache ({ring})")
+    routes = {}  # the calls on a ring bank (attention_route's 10th argument)
+    counted_route = route_counter(routes, lambda a, r: (
+        "prefill" if a[2] > 1 else "decode", r) if len(a) > 9 and a[9] else None)
+
+    errs, full_errs, ring_full, ref_errs = [], [], [], []
+    counts = {"ring": {}, "full": {}}
+    cur = {n: (torch.from_numpy(tok), torch.from_numpy(posn)) for n in sides}
+    slot, T_step = 0, T
+    try:
+        with torch.inference_mode(), mock.patch.object(llama, "attention_route", counted_route):
+            for step in range(5):
+                set_flash_decode("1" if step else None)
+                out = {}
+                for name, s in sides.items():
+                    dev = s["dev"]
+                    tk, ps = cur[name]
+                    # the ring's prefill in chunks of C (no forward may write
+                    # more rows than ring - window); the others in one
+                    pieces = range(0, T_step, C if name == "ring" else T_step)
+                    _cuda.reset_counts()
+                    for o in pieces:
+                        n = min(T_step, o + (C if name == "ring" else T_step)) - o
+                        lg, _ = forward(s["p"], cfg, tk[:, o:o + n].to(dev),
+                                        ps[:, o:o + n].to(dev), s["cache"], slot + o, s["vf"],
+                                        s["dtype"], logits_idx=n - 1)
+                    for k, v in _cuda.COUNTS.items() if name in counts else ():
+                        counts[name][k] = counts[name].get(k, 0) + v
+                    out[name] = lg[:, -1].float().cpu()
+                errs.append(nmse(torch, out["ring"], out["cpu"]))
+                full_errs.append(nmse(torch, out["full"], out["cpu"]))
+                ring_full.append(nmse(torch, out["ring"], out["full"]))
+                ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
+                nxt = out["ring"].argmax(-1)[:, None].to(torch.int64)
+                p = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
+                slot += T_step
+                T_step = 1
+                cur = {n: (nxt, p) for n in sides}
+    finally:
+        set_flash_decode(None)
+    _cuda.reset_counts()
+    tol = TOL_E2E_FACTOR * max(ref_errs)
+    log(f"ring parity {n_layer}-layer {label} (window {fields['sliding_window']}, ring {ring} = "
+        f"window + prefill_chunk {C}; prompts {list(lens)} prefilled in chunks of {C}, + 4 "
+        f"decode steps, TPULLM_FLASH_DECODE=1): ring on the card vs CPU f32 (full cache) "
+        f"nmse per step {[f'{e:.3e}' for e in errs]}; full cache on the card vs CPU f32 "
+        f"{[f'{e:.3e}' for e in full_errs]}; ring vs full on the card "
+        f"{[f'{e:.3e}' for e in ring_full]}; CPU bf16 vs CPU f32 "
+        f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e}; ring-layer routes "
+        f"{ {f'{a} {b}': n for (a, b), n in routes.items()} }; launches {counts}")
+    bad = [e for e in errs + full_errs + ring_full if not (math.isfinite(e) and e < tol)]
+    if bad or not all(math.isfinite(e) for e in ref_errs):
+        raise AssertionError(f"{label} ring parity: nmse {errs} / {full_errs} / {ring_full}, "
+                             f"tolerance {tol}")
+    if set(routes) != {("prefill", "flash_attention"), ("decode", "flash_decode")}:
+        raise AssertionError(f"{label} ring parity: ring-layer routes {routes}")
+    for run, c in counts.items():
+        missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode",
+                               "kv_store") if c.get(k, 0) <= 0]
+        if missing or c.get("layer_kernel"):
+            raise AssertionError(f"{label} ring parity, {run} cache: kernels not launched "
+                                 f"{missing}, layer kernel {c.get('layer_kernel')}")
+    del params, cpu, sides
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kv_bytes_of(cfg, n_slots: int, ctx: int, ring: int = 0, esize: int = 2) -> int:
+    """K + V bytes of a cache from its bank shapes: full-context banks for
+    every layer, or with ``ring`` the SWA layers' ring banks."""
+    from tpullm_torch.models.llama import swa_flags
+
+    n_swa = sum(swa_flags(cfg)) if ring else 0
+    row = n_slots * cfg.n_head_kv * (cfg.head_dim + cfg.head_dim_v) * esize
+    return (cfg.n_layer - n_swa) * ctx * row + n_swa * ring * row
+
+
+def phase_gemma_ring_server(torch, cfg, params, label="Gemma-2-9B"):
+    """Phase 12c: the 42-layer Gemma-2-9B model behind serve() on the iSWA
+    ring, the path the CLI takes by default: ServerContext(iswa=True) with 4
+    slots of RING_CTX, bf16 KV, prefill_chunk 512 (a ring of 4608 slots on
+    the 21 SWA layers), decode_chunk 8, kernel E on, each decode step a CUDA
+    graph replay. The dual cache's KV bytes beside the full cache's (from
+    the bank shapes). With the launch counts set to 0, a burst of
+    RING_SERVER_PROMPTS, 64 new tokens each (the 12000-token prompt first,
+    in slot 0), then a follow-up of that prompt and RING_FOLLOW tokens more,
+    which must reuse the 12000-token prefix: every request 200; A, B, C, E
+    and the store launched, D not; every ring-layer attention call forward
+    makes (graph replays repeat the captured step's) on kernel C or E, none
+    on the einsum path. Peak device memory of the run, each request's
+    prefill_s and decode_s. Then, the loop stopped and the 4 prompts
+    prefilled anew, one decode chunk as graph replays against eager steps,
+    then profiled as graph replays (server_chunk_profile): wall and device
+    ms a step, kernels a step, the busy share. -> the launch counts of the
+    burst and the follow-up."""
+    import numpy as np
+    import socket
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.server.context import ServerContext
+    from tpullm_torch.server.http import serve
+
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in RING_SERVER_PROMPTS]
+    follow = prompts[0] + rng.integers(0, vocab, RING_FOLLOW).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=RING_CTX, decode_chunk=8,
+                        prefill_chunk=RING_CHUNK, kv_dtype=torch.bfloat16, iswa=True,
+                        model_name=label.lower() + "-ring")
+    cache = ctx.memory.cache
+    kv = {"dual_cache_bytes": cache.nbytes,
+          "dual_from_shapes": kv_bytes_of(cfg, 4, RING_CTX, cache.ring),
+          "full_cache_bytes_from_shapes": kv_bytes_of(cfg, 4, RING_CTX),
+          "ring": cache.ring, "full_banks": tuple(cache.k.shape),
+          "ring_banks": tuple(cache.kw.shape)}
+    if not cache.dual or kv["dual_cache_bytes"] != kv["dual_from_shapes"]:
+        raise AssertionError(f"server {label} ring: cache {kv}")
+    log(f"server {label} ring: KV bytes of the dual cache {kv['dual_cache_bytes']} "
+        f"({kv['dual_cache_bytes'] / 1e9:.3f} GB) and of the full cache "
+        f"{kv['full_cache_bytes_from_shapes']} "
+        f"({kv['full_cache_bytes_from_shapes'] / 1e9:.3f} GB), from the bank shapes "
+        f"(full banks {kv['full_banks']}, ring banks {kv['ring_banks']}); saving "
+        f"{1 - kv['dual_cache_bytes'] / kv['full_cache_bytes_from_shapes']:.3f}")
+    routes = {}
+    counted_route = route_counter(routes, lambda a, r: (
+        "ring" if len(a) > 9 and a[9] else "full", "prefill" if a[2] > 1 else "decode", r))
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = f"http://127.0.0.1:{port}"
+    set_flash_decode("1")
+    srv = serve(ctx, "127.0.0.1", port, block=False)
+    report = {"kv": kv}
+    try:
+        status, r = http_json(base + "/completion", {"prompt": prompts[-1], "max_tokens": 8,
+                                                     "temperature": 0.0})
+        if status != 200:
+            raise AssertionError(f"server {label} ring warm-up answered {status}: {r}")
+        ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
+        torch.cuda.synchronize()
+        m0 = dict(ctx.metrics)
+        _cuda.reset_counts()
+        with mock.patch.object(llama, "attention_route", counted_route):
+            res, wall = server_burst(base, prompts, label + " ring", None, vocab=vocab,
+                                     first_admitted=lambda: ctx.rt[0].task is not None)
+            t = time.perf_counter()
+            status, fr = http_json(base + "/v1/completions",
+                                   {"prompt": follow, "max_tokens": SERVER_NEW,
+                                    "temperature": 0.0, "ignore_eos": True})
+            follow_wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        counts = dict(_cuda.COUNTS)
+        if status != 200 or len(fr["choices"][0]["tokens"]) != SERVER_NEW:
+            raise AssertionError(f"server {label} ring follow-up answered {status}: {fr}")
+        gen = ctx.metrics["generated_tokens_total"] - m0["generated_tokens_total"]
+        dec_s = ctx.metrics["decode_seconds_total"] - m0["decode_seconds_total"]
+        report["burst"] = {
+            "requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
+            "burst_wall_s": wall, "burst_completion_tok_per_s": len(prompts) * SERVER_NEW / wall,
+            "decode_tok_per_s": gen / dec_s if dec_s else None,
+            "follow_up": {"prompt_tokens": fr["timings"]["prompt_tokens"],
+                          "cached": fr["timings"]["cached_tokens"],
+                          "prefill_s": fr["timings"]["prefill_s"],
+                          "decode_s": fr["timings"]["decode_s"], "wall_s": follow_wall},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if fr["timings"]["cached_tokens"] != RING_SERVER_PROMPTS[0]:
+            raise AssertionError(f"server {label} ring follow-up reused "
+                                 f"{fr['timings']['cached_tokens']} tokens, not the "
+                                 f"{RING_SERVER_PROMPTS[0]}-token prefix")
+        ctx.stop()  # the loop thread; the chunk profile drives its body from here
+        for i in range(ctx.n_slots):
+            ctx.memory.clear_slot(i)
+        t = time.perf_counter()
+        report["decode_chunk_profile"] = server_chunk_profile(
+            torch, ctx, prompts, (("kernel E", "1"),), ("graph",), lone=False)["kernel E"]
+        report["chunk_profile_s"] = time.perf_counter() - t
+    finally:
+        set_flash_decode(None)
+        srv.shutdown()
+        srv.server_close()
+        ctx.stop()
+    log(f"server {label} ring (4 slots x {RING_CTX}, bf16 KV, iswa on (the CLI's default): "
+        f"ring {cache.ring} on {cache.kw.shape[0]} SWA layers, decode_chunk 8, prefill_chunk "
+        f"{RING_CHUNK}, kernel E; prompts {RING_SERVER_PROMPTS} then a follow-up of the "
+        f"{RING_SERVER_PROMPTS[0]} + {RING_FOLLOW}, {SERVER_NEW} new tokens each): "
+        f"{json.dumps(report)}")
+    log(f"server {label} ring: attention routes of every call forward made (ring or full "
+        f"banks, prefill or decode, route) "
+        f"{ {' '.join(k): n for k, n in routes.items()} }; launches {counts}")
+    missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
+               if counts[k] <= 0]
+    ring_einsum = sum(n for (bank, _, r), n in routes.items() if bank == "ring" and r == "einsum")
+    if missing or counts["layer_kernel"] or ring_einsum or not any(
+            bank == "ring" and kind == "decode" and r == "flash_decode"
+            for bank, kind, r in routes):
+        raise AssertionError(f"server {label} ring: kernels not launched {missing}, layer "
+                             f"kernel {counts['layer_kernel']}, ring-layer calls on the einsum "
+                             f"path {ring_einsum}, routes {routes}")
+    del ctx, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gemma_ring(torch, entries, cfg, params):
+    """Phase 12, the iSWA ring (the server's default for bf16/f32 KV): its
+    kernel rows (phase_ring_kernels), the depth-cut parities against the
+    CPU of the ring and the full cache (phase_ring_parity: Gemma-2-9B with
+    2 layers, Gemma-3-4B's width with 6 layers, layers 0-4 SWA, layer 5
+    full, rope_base_swa 1e4 under a global base of 1e6 with linear scaling
+    8), and the 42-layer Gemma-2-9B ring server (phase_gemma_ring_server)
+    on phase 11's params. -> launch counts by path."""
+    counts = {}
+    t = time.perf_counter()
+    phase_ring_kernels(torch, entries)
+    log(f"phase kernels ring: {time.perf_counter() - t:.1f} s")
+    win = GEMMA_PARITY_WINDOW
+    for label, spec, n_layer, fields, seed in (
+            ("Gemma-2-9B", GEMMA2, 2, dict(sliding_window=win), 13),
+            ("Gemma-3-4B width", GEMMA3_4B, 6, dict(GEMMA3_4B["cfg_fields"], sliding_window=win),
+             14)):
+        t = time.perf_counter()
+        c = phase_ring_parity(torch, f"{label} (depth cut from {spec['n_layer']}, window cut "
+                              f"to {win})", spec, n_layer, fields, seed)
+        counts[f"{label} {n_layer}-layer"] = c["full"]
+        counts[f"{label} ring {n_layer}-layer"] = c["ring"]
+        log(f"phase ring parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Gemma-2-9B ring server"] = phase_gemma_ring_server(torch, cfg, params)
+    log(f"phase ring server Gemma-2-9B: {time.perf_counter() - t:.1f} s")
     return counts
 
 

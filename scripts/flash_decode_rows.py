@@ -8,9 +8,11 @@ checkout's tpullm_torch or for several in turns.
 Each checkout (a directory holding tpullm_torch/) runs in a process of its
 own: its kernels are built from its sources, then its build line (kernel
 E's registers and spills) and E's rows (the server's decode shape on bf16
-and int8 K/V, the engine's on bf16: ms, the device ms of the main and merge
-launches apart, the bound, SDPA and the einsum path, a digest of the output
-bits) are printed by this checkout's chip_smoke.py (decode_rows), so
+and int8 K/V, the engine's on bf16, and phase 11's two Gemma-2-9B rows at
+head dim 256 with softcap 50 and window 4096: ms, the device ms of the main
+and merge launches apart, the bound, the library call and the einsum path,
+a digest of the output bits) are printed by this checkout's chip_smoke.py
+(decode_rows, decode_row), so
 checkouts given in one call are compared on one card in the order given
 (for example: parent, change, change, parent).
 
@@ -120,7 +122,13 @@ def one(root: Path) -> None:
     lib = _cuda.lib()
     timer = cs.Timer(torch)
     entries = []
-    cs.decode_rows(torch, timer, entries)
+    g = cs.decode_rows(torch, timer, entries)
+    gm = cs.GEMMA2
+    heads, hd = (gm["n_head"], gm["n_head_kv"]), gm["head_dim"]
+    cs.decode_row(torch, timer, entries, g, "Gemma-2-9B server", 8192, [6000, 2000, 700, 40],
+                  [0, 0, 0, 0], True, heads=heads, hd=hd, softcap=50.0, window=4096)
+    cs.decode_row(torch, timer, entries, g, "Gemma-2-9B engine", 1024, [527] * 4,
+                  [0, 212, 312, 412], False, heads=heads, hd=hd, softcap=50.0, window=4096)
     result = {"checkout": str(root), "rows": entries}
     if hasattr(lib, "tpq_flash_decode_stamps"):
         result["stamps"] = stamps(torch, cs, lib)

@@ -140,3 +140,40 @@ def test_counters_per_row_covers_every_live_range(S, q8):
             need = max(need, max(groups) + 1, total + 1)
     assert need <= n
     assert n <= need + 1
+
+
+@pytest.mark.parametrize("flag", [None, "1"])
+@pytest.mark.parametrize("dk,dv", HEAD_DIMS)
+def test_ring_route_is_a_kernel_wherever_one_builds(monkeypatch, flag, dk, dv):
+    """A call on an iSWA ring bank (``ring`` = S) is the port's own route,
+    since the JAX package sends every ring call to its einsum path
+    (tpullm/models/llama.py:268, 277): kernel E where TPULLM_FLASH_DECODE
+    is set and E builds its ring (bf16 K/V), whatever the ring's slot
+    count (T <= 8, head dims multiples of 128 up to 512); else kernel C
+    wherever it builds over the ring (any T, the ring a multiple of 64);
+    the einsum path only where neither builds, and on the CPU. decode_route
+    gives the pair (full banks, ring) on a dual cache."""
+    from tpullm_torch.models.config import ModelConfig
+    from tpullm_torch.models.llama import decode_route
+
+    if flag is None:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    else:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    for T in (1, 4, 8, 9, 32, 40, 64, 512):
+        for ring in (4608, 4160, 384, 200):
+            for H, Hkv in ((16, 8), (8, 2), (64, 8), (6, 4)):
+                for dt in KV_DTYPES:
+                    assert attention_route(False, 2, T, ring, dk, dv, H, Hkv, dt,
+                                           ring) == "einsum"
+                    got = attention_route(True, 2, T, ring, dk, dv, H, Hkv, dt, ring)
+                    e = (bool(flag) and T <= 8 and dk % 128 == 0 and dv % 128 == 0
+                         and max(dk, dv) <= 512 and dt == torch.bfloat16
+                         and _e_builds(T, dk, dv, H, Hkv, dt))
+                    c = dk == dv and dk in (128, 256) and ring % 64 == 0 and H % Hkv == 0
+                    want = "flash_decode" if e else "flash_attention" if c else "einsum"
+                    assert got == want, (T, ring, H, Hkv, dt, got, want)
+    cfg = ModelConfig(n_head=16, n_head_kv=8, head_dim=256, head_dim_v=256)
+    full = decode_route(cfg, 4, 8192, torch.bfloat16, True)
+    assert decode_route(cfg, 4, 8192, torch.bfloat16, True, 4608) == (
+        full, "flash_decode" if flag else "flash_attention")

@@ -3,7 +3,7 @@ keys in the port, held against the JAX package on the CPU: the config keys
 parsed as the JAX parser parses them; gemma2 and gemma3 at Q4_K K-major
 widths through both engines and both servers (bf16 and q8 caches) with
 prompts longer than the synth's window of 32, SWA layers at their own rope
-base; the server CLI's --swa-full; kernel C's plain version at head dim
+base; the server CLI's ring default; kernel C's plain version at head dim
 256 against the Pallas kernel in interpret mode; the Gemma synth; and each
 place where the JAX package departs from llama.cpp, pinned as the JAX
 package computes it.
@@ -142,32 +142,48 @@ def test_gemma_server_context_matches_jax(gemma_models, arch, kv):
 
 
 def test_swa_full_refusal(gemma_models, tmp_path, monkeypatch):
-    """The iSWA ring is not ported: the server CLI refuses a model with
-    sliding-window layers unless --swa-full is given, before loading a
-    weight, and ServerContext(iswa=True) refuses it naming the ring. With
-    --swa-full it goes on to load the file (the loader is stubbed here, so
-    nothing goes to a card and no port is bound)."""
+    """The server CLI serves a model with sliding-window layers on the iSWA
+    ring by default, as the JAX CLI does (iswa = not --swa-full): a bf16
+    cache gets the dual cache (ring = window + --prefill-chunk), --swa-full
+    the full-context cache, and --kv-type q8 the full-context int8 cache
+    (the ring is bf16/f32 only), which the CLI once refused. The loader
+    returns the CPU model and the context is built on the CPU; serve is
+    stubbed, so nothing goes to a card and no port is bound."""
     import tpullm_torch.runtime.loader as loader
+    import tpullm_torch.server.context as context
+    import tpullm_torch.server.http as http
     from tpullm_torch.server.__main__ import main
 
-    class Loading(Exception):
-        pass
-
-    def stub(path, device):
-        raise Loading(path, device)
-
-    monkeypatch.setattr(loader, "load_model", stub)
-    path = str(tmp_path / "g2.gguf")
-    build_arch_gguf(path, "gemma2", n_embd=512, n_head=4, n_head_kv=2, n_ff=512,
-                    qtype=GGMLType.Q4_K, seed=11)
-    with pytest.raises(NotImplementedError, match="iSWA ring.*--swa-full"):
-        main(["-m", path])
-    with pytest.raises(Loading) as e:  # past the refusal, at the load
-        main(["-m", path, "--swa-full"])
-    assert e.value.args == (path, "cuda")
     cfg, params, _, _ = gemma_models["gemma2"]
-    with pytest.raises(NotImplementedError, match="iSWA ring"):
-        ServerContext(cfg, params, iswa=True, device="cpu")
+    loaded, served = [], []
+
+    def load_stub(path, device):
+        loaded.append((path, device))
+        return cfg, params, {}
+
+    class CpuContext(context.ServerContext):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, device="cpu"))
+
+    monkeypatch.setattr(loader, "load_model", load_stub)
+    monkeypatch.setattr(context, "ServerContext", CpuContext)
+    monkeypatch.setattr(http, "serve", lambda ctx, host, port: served.append(ctx))
+    path = str(tmp_path / "g2.gguf")
+    base = ["-m", path, "-c", "256", "-np", "2", "--prefill-chunk", "64"]
+    for extra, dual in (([], True), (["--swa-full"], False), (["--kv-type", "q8"], False),
+                        (["--kv-type", "f32"], True)):
+        main(base + extra)
+        cache = served[-1].memory.cache
+        assert cache.dual == dual, extra
+        assert cache.quantized == ("q8" in extra)
+        if dual:
+            assert cache.ring == cfg.sliding_window + 64
+            assert cache.kw.shape[0] == sum(swa_flags(cfg))
+            assert cache.k.shape[0] == cfg.n_layer - sum(swa_flags(cfg))
+        else:
+            assert cache.k.shape[0] == cfg.n_layer
+    assert loaded == [(path, "cuda")] * 4
+    assert ServerContext(cfg, params, iswa=True, device="cpu").memory.cache.dual
 
 
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 0), (0.0, 40), (50.0, 100)])

@@ -1476,3 +1476,180 @@ def test_server_chat_on_card_matches_cpu(cuda, monkeypatch):
     assert choice["message"]["content"] == held
     assert all(counts[k] > 0 for k in ("qmm_splitk", "layer_kernel", "flash_decode",
                                        "kv_store")), counts
+
+
+# ----------------------------------------------------------- the iSWA ring
+# (B, T, Hkv, D, first slots, ring): the ring server's decode step and a
+# 512-row chunk that crosses the end of Gemma-2-9B's 4608-slot ring, and a
+# small ring that a 16-row chunk wraps
+RING_STORE_SHAPES = {
+    "server_decode": (4, 1, 8, 256, [12000, 6000, 2000, 40], 4608),
+    "chunk_512_wraps": (1, 512, 8, 256, [4400], 4608),
+    "small_ring": (2, 16, 2, 128, [40, 100], 48),
+}
+
+
+@pytest.mark.parametrize("shape", list(RING_STORE_SHAPES))
+@pytest.mark.parametrize("bank,rows_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32)])
+def test_kv_store_kernel_ring_wrap(cuda, shape, bank, rows_dtype):
+    """The store on an iSWA ring bank (``ring``: row t of a call at slot
+    (first + t) % ring, none dropped) equals its plain version bit for bit,
+    in one launch, the rows past the ring's end landing at its start."""
+    from tpullm_torch.ops.kv_store import kv_store, kv_store_plain
+
+    B, T, Hkv, D, first, ring = RING_STORE_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(ring + T)
+    k, v, banks = _store_case(cuda, g, B, T, Hkv, D, D, rows_dtype, bank, ring, B, False)
+    twin = [b.clone() for b in banks[:2]]
+    slot = torch.tensor(first, dtype=torch.int64, device=cuda)
+    _cuda.reset_counts()
+    kv_store(banks[0], banks[1], k, v, slot, 0, ring=ring)
+    assert _cuda.COUNTS["kv_store"] == 1
+    kv_store_plain(twin[0], twin[1], k, v, slot, 0, ring=ring)
+    torch.cuda.synchronize()
+    assert torch.equal(banks[0], twin[0]) and torch.equal(banks[1], twin[1])
+    last = (first[0] + T - 1) % ring
+    assert torch.equal(banks[0][0, :, last], k[0, -1].to(bank))
+    _cuda.reset_counts()
+
+
+# (heads, D, ring, window, first slots, valid_from): Gemma-2-9B's ring (4608 =
+# 36 splits of 128), a ring that is no multiple of a split (4160) and a small
+# odd one (200), the rows past one or more wraps
+RING_DECODE_CASES = [
+    ((16, 8), 256, 4608, 4096, (12000, 6000, 2000, 40), (0, 0, 0, 0)),
+    ((8, 2), 128, 4160, 4096, (9000, 4200, 4159, 3), (0, 100, 0, 0)),
+    ((8, 2), 256, 200, 160, (1000, 450, 199, 10), (0, 3, 0, 12)),
+    ((4, 1), 128, 200, 160, (333, 201), (0, 250)),
+]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("case", range(len(RING_DECODE_CASES)))
+def test_flash_decode_kernel_ring(cuda, case, T, softcap):
+    """Kernel E over an iSWA ring bank against its plain version (the JAX
+    ring mask over the whole ring): rings a multiple of E's 128-slot split
+    and not, rows whose window wraps the ring's end, a row with no visible
+    key (valid_from past its slot), head dims 128 and 256, with and without
+    the softcap: NMSE < 1e-4 on every row, two calls bit-identical."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    (H, Hkv), D, ring, window, slots, vf = RING_DECODE_CASES[case]
+    q, k, v, _, _, qs, pos, vfa, _ = _decode_inputs(cuda, False, B=len(slots), T=T, H=H,
+                                                    Hkv=Hkv, S=ring, D=D, slots=slots,
+                                                    valid_from=vf, seed=case)
+    cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=D, head_dim_v=D,
+                      attn_logit_softcap=softcap, sliding_window=window)
+    before = _cuda.COUNTS["flash_decode"]
+    got = flash_decode(q, k, v, qs, pos, vfa, cfg, window, ring=ring)
+    again = flash_decode(q, k, v, qs, pos, vfa, cfg, window, ring=ring)
+    torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_decode"] == before + 2
+    assert torch.equal(got, again)
+    for b in range(len(slots)):
+        sl = slice(b, b + 1)
+        want = flash_decode_plain(q[sl], k[sl], v[sl], qs[sl], pos[sl], vfa[sl], D ** -0.5,
+                                  softcap, window, ring=ring)
+        if qs[b, -1] < vf[b]:
+            assert torch.count_nonzero(got[sl]) == 0 and torch.count_nonzero(want) == 0
+        else:
+            assert _nmse(got[sl], want) < 1e-4, b
+
+
+# (heads, D, B, T, ring, window, first slots, valid_from): the ring server's
+# last chunk of a 12000-token prompt over Gemma-2-9B's ring; a 128-key tile
+# that crosses the end of a 320-slot ring (2 boxes); a partial query tile
+# (T = 40) and a full one over a small ring, left padding in a row
+RING_PREFILL_CASES = [
+    ((4, 2), 256, 1, 512, 4608, 4096, (11488,), (0,)),
+    ((4, 2), 128, 1, 512, 4608, 4096, (11488,), (0,)),
+    ((8, 2), 128, 2, 128, 320, 192, (1000, 400), (0, 350)),
+    ((4, 4), 256, 2, 64, 192, 128, (300, 129), (0, 5)),
+    ((6, 2), 128, 2, 40, 192, 128, (1000, 77), (0, 60)),
+    ((16, 8), 256, 2, 40, 192, 128, (1000, 77), (0, 60)),
+]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("case", range(len(RING_PREFILL_CASES)))
+def test_flash_attention_kernel_ring(cuda, case, softcap):
+    """Kernel C over an iSWA ring bank (a prefill chunk of T <= ring -
+    window rows) against the masked softmax with the ring mask, at head
+    dims 128 and 256: NMSE < 1e-4 over rows with a visible key, rows with
+    none exactly 0 in both, two calls bit-identical, one launch a call."""
+    (H, Hkv), D, B, T, ring, window, first, vf = RING_PREFILL_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(case)
+    q = torch.randn((B, T, H, D), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, Hkv, ring, D), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, Hkv, ring, D), generator=g, device=cuda).to(torch.bfloat16)
+    vft = torch.tensor(vf, device=cuda)
+    qs = torch.tensor(first, device=cuda)[:, None] + torch.arange(T, device=cuda)[None]
+    pos = qs - vft[:, None]
+    kvp = torch.zeros((B, ring), dtype=torch.int64, device=cuda)  # not read on a ring
+    cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=D, head_dim_v=D,
+                      attn_logit_softcap=softcap, sliding_window=window)
+    before = _cuda.COUNTS["flash_attention"]
+    got = flash_attention(q, k, v, qs, kvp, pos, vft, cfg, True, ring)
+    again = flash_attention(q, k, v, qs, kvp, pos, vft, cfg, True, ring)
+    want = masked_attention(q, k, v, qs, kvp, pos, vft, D ** -0.5, softcap, window, ring)
+    torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_attention"] == before + 2
+    assert torch.equal(got, again)
+    for b, f in enumerate(vf):
+        live = qs[b] >= f
+        assert torch.count_nonzero(got[b, ~live]) == 0
+        assert _nmse(got[b, live], want[b, live]) < 1e-4
+
+
+@pytest.mark.parametrize("flag", [None, "1"])
+def test_ring_engine_graph_matches_eager(cuda, monkeypatch, flag):
+    """The iSWA engine on the card (a 2-layer gemma2 at head dim 256, layer
+    0 on a ring of window 64 + prefill_chunk 64): its decode step as a
+    replayed CUDA graph against the same step run eagerly, 129 steps that
+    wrap the ring, identical greedy tokens, first logits and launch counts;
+    every ring-layer call goes to a kernel (E in decode with the flag, C
+    otherwise; C in the chunked prefill), none to the einsum path; the
+    counters read zero after."""
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = synth_kmajor_q4k_fast(
+        arch="gemma2", vocab_size=512, n_embd=512, n_layer=2, n_head=4, n_head_kv=2,
+        head_dim=256, n_ff=1024, seed=3, centred=True, device="cuda", exact_vocab=True,
+        tied=True, cfg_fields=dict(sliding_window=64))
+    routes = []
+    real = llama.attention_route
+
+    def counted(*a):
+        r = real(*a)
+        routes.append((a[2], a[9] if len(a) > 9 else 0, r))  # (T, ring, route)
+        return r
+
+    res, counts, engines = {}, {}, {}
+    with mock.patch.object(llama, "attention_route", counted):
+        for graphs in (True, False):
+            eng = engines[graphs] = InferenceEngine(cfg, params, max_seq_len=384,
+                                                    decode_chunk=24, iswa=True,
+                                                    prefill_chunk=64, cuda_graphs=graphs)
+            _cuda.reset_counts()
+            res[graphs] = eng.generate(ENGINE_PROMPTS, max_new_tokens=129, return_logits=True)
+            counts[graphs] = dict(_cuda.COUNTS)
+    assert engines[True].states[3].cache.ring == 128
+    assert res[True].tokens == res[False].tokens
+    assert (res[True].logits == res[False].logits).all()
+    assert counts[True] == counts[False], counts
+    ring_routes = {(T > 1, r) for T, ring, r in routes if ring}
+    assert ring_routes == {(True, "flash_attention"),
+                           (False, "flash_decode" if flag else "flash_attention")}, ring_routes
+    assert len(engines[True].graphs) == 1
+    assert _counters_zero(*engines.values())

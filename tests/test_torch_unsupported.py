@@ -202,15 +202,29 @@ def test_server_family_not_ported_raises(small_model, field, value, family):
 
 
 def test_server_iswa_with_swa_layers_raises(small_model):
-    """iswa is a no-op without SWA layers (as in the JAX package); with them
-    the dual cache is not ported."""
-    from tpullm_torch.server.context import ServerContext
+    """iswa is a no-op without SWA layers and with a window on every layer
+    (swa_pattern 1), as in the JAX package; with interleaved SWA layers it
+    builds the dual cache, which once raised here (a 1-layer model whose
+    layer is SWA: no full bank, a ring of window + prefill_chunk slots) and
+    serves; the int8 cache stays full-context."""
+    from tpullm_torch.server.context import GenParams, ServerContext
 
     cfg, params = small_model
-    ServerContext(cfg, params, iswa=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="iswa"):
-        ServerContext(dataclasses.replace(cfg, sliding_window=64), params, iswa=True,
-                      device="cpu")
+    kw = dict(max_seq_len=128, prefill_chunk=16, compute_dtype=torch.float32, device="cpu")
+    assert not ServerContext(cfg, params, iswa=True, **kw).memory.cache.dual
+    every = dataclasses.replace(cfg, sliding_window=64)
+    assert not ServerContext(every, params, iswa=True, **kw).memory.cache.dual
+    swa = dataclasses.replace(cfg, sliding_window=64, swa_pattern=2)
+    assert not ServerContext(swa, params, iswa=True, kv_dtype="q8", **kw).memory.cache.dual
+    ctx = ServerContext(swa, params, iswa=True, **kw)
+    cache = ctx.memory.cache
+    assert cache.dual and cache.ring == 64 + 16
+    assert cache.k.shape[0] == 0 and cache.kw.shape[0] == 1
+    ctx.start()
+    try:
+        assert len(ctx.generate(list(range(1, 100)), GenParams(max_tokens=4))["tokens"]) == 4
+    finally:
+        ctx.stop()
 
 
 @pytest.mark.parametrize("request_params,what", [

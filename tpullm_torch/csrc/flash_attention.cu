@@ -55,6 +55,20 @@
 //   valid_from to the block's largest query slot: no fully masked tile is
 //   read. A block whose rows all lie before valid_from writes zeros and
 //   returns before any barrier exists.
+// - An iSWA ring bank (ring > 0, S = ring: the SWA layers' window + chunk
+//   slots, position p at slot p % ring; tpullm/models/llama.py:80-117,
+//   313-324) is read in position space: the KV loop runs over the positions
+//   [max(valid_from, least query slot - w + 1), largest query slot], w =
+//   min(window, ring), in TK-position tiles, and each tile's K and V come
+//   as 64-row TMA boxes from slot (p % ring): ring is a multiple of 64, so
+//   a box never crosses the ring's end, and a 128-key tile that does is two
+//   boxes from both ends. The mask is the JAX ring mask: position p is
+//   visible to the query at slot q where valid_from <= p <= q and q - p <
+//   w. A chunk of T <= ring - window rows writes no ring slot that one of
+//   its queries still sees (llama.py:315-319), so the positions are exact.
+//   The rows of a chunk need not fill the last 64-row query tile: the rows
+//   past T read as zeros (TMA fills past the tensor's end), see no key and
+//   are not written.
 // No split over keys and no atomics: repeats are bit-identical.
 #include "hopper.cuh"
 
@@ -96,6 +110,7 @@ struct FaArgs {
   int T, S, G;
   float scale_log2, softcap_in, softcap_out;  // softcap_in 0: no softcap
   int window;
+  int ring;  // > 0: S = ring slots of an iSWA ring bank, read by position
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -120,6 +135,7 @@ __device__ __forceinline__ void store_zero_rows(const FaArgs& a, __nv_bfloat16* 
                                                 int head) {
   for (int i = threadIdx.x; i < TQ * HD / 8; i += Tiles<HD>::THREADS) {
     const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    if (tile * TQ + r >= a.T) break;  // rows past T: none
     *reinterpret_cast<uint4*>(ob + (long long)(tile * TQ + r) * a.o_st + head * a.o_sh + c) =
         make_uint4(0, 0, 0, 0);
   }
@@ -156,7 +172,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 
   const int tid = threadIdx.x;
   const int hk = blockIdx.y, b = blockIdx.z;
-  const int n_pairs = (a.T / TQ) * a.G;
+  const int n_pairs = ((a.T + TQ - 1) / TQ) * a.G;
   int tile[2], head[2];
   bool present[2];
 #pragma unroll
@@ -169,7 +185,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int vf = a.valid_from[b];
   if (tid < 2 * TQ) {
     const int w = tid / TQ, t = (w ? tile[1] : tile[0]) * TQ + tid % TQ;
-    const bool in = w ? present[1] : present[0];
+    const bool in = (w ? present[1] : present[0]) && t < a.T;
     const int qs = in ? a.qslots[b * a.T + t] : -1;
     qs_s[tid] = qs;
     qp_s[tid] = in ? a.qpos[b * a.T + t] : 0;
@@ -185,8 +201,11 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int lo[2] = {min(red[0], red[1]), min(red[2], red[3])};
   const int hi[2] = {max(red[4], red[5]), max(red[6], red[7])};
   const int max_q = max(hi[0], hi[1]);  // an absent pair's rows hold slot -1
-  const int s_begin = (max(vf, 0) / TK) * TK;
-  const int s_end = min(a.S, max_q + 1);
+  // a ring's window in positions, and the first position any row sees
+  const int wr = a.ring > 0 ? (a.window > 0 ? min(a.window, a.ring) : a.ring) : 0;
+  const int s_first = a.ring > 0 ? max(vf, min(lo[0], lo[1]) - wr + 1) : max(vf, 0);
+  const int s_begin = (s_first / TK) * TK;
+  const int s_end = a.ring > 0 ? max_q + 1 : min(a.S, max_q + 1);
   __nv_bfloat16* ob = a.o + b * a.o_sb;
   if (max_q < vf || s_end <= s_begin) {  // no row of the block sees a key
     for (int w = 0; w < 2; ++w)
@@ -225,12 +244,18 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
         const int s = it % STAGES, s0 = s_begin + it * TK;
         mbar_wait(saddr(empty + s), ((it / STAGES) & 1) ^ 1);  // tile it - STAGES consumed
         const uint32_t kd = saddr(ring + s * 2 * KV_BYTES), vd = kd + KV_BYTES;
+        // a ring's tile: 64-row boxes, each from its own ring slot
+        const int nbox = a.ring > 0 ? TK / 64 : 1;
         mbar_expect_tx(saddr(kfull + s), KV_BYTES);
         for (int h = 0; h < HD / 64; ++h)
-          tma_4d(kd + h * TL::KV_ATOM, &kmap, saddr(kfull + s), h * 64, s0, hk, b);
+          for (int x = 0; x < nbox; ++x)
+            tma_4d(kd + h * TL::KV_ATOM + x * 64 * 128, &kmap, saddr(kfull + s), h * 64,
+                   a.ring > 0 ? (s0 + 64 * x) % a.ring : s0, hk, b);
         mbar_expect_tx(saddr(vfull + s), KV_BYTES);
         for (int h = 0; h < HD / 64; ++h)
-          tma_4d(vd + h * TL::KV_ATOM, &vmap, saddr(vfull + s), h * 64, s0, hk, b);
+          for (int x = 0; x < nbox; ++x)
+            tma_4d(vd + h * TL::KV_ATOM + x * 64 * 128, &vmap, saddr(vfull + s), h * 64,
+                   a.ring > 0 ? (s0 + 64 * x) % a.ring : s0, hk, b);
       }
     }
     return;
@@ -262,7 +287,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     const uint32_t ph = (it / STAGES) & 1;
     const uint32_t ka = ring_a + s * 2 * KV_BYTES, va = ka + KV_BYTES;
     mbar_wait(saddr(kfull + s), ph);
-    if (mine && s0 <= my_hi) {
+    // a ring tile wholly before every row's window is skipped too
+    if (mine && s0 <= my_hi && (a.ring == 0 || s0 + TK - 1 > my_lo - wr)) {
       float sc[TK / 2];
       wgmma_fence();
 #pragma unroll
@@ -281,8 +307,20 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #pragma unroll
         for (int i = 0; i < TK / 2; ++i) sc[i] *= a.scale_log2;
       }
-      const bool visible = s0 >= vf && s0 + TK - 1 <= my_lo && s0 + TK <= a.S && a.window == 0;
-      if (!visible) {
+      const bool visible =
+          s0 >= vf && s0 + TK - 1 <= my_lo &&
+          (a.ring > 0 ? s0 > my_hi - wr : s0 + TK <= a.S && a.window == 0);
+      if (!visible && a.ring > 0) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = s0 + 8 * j + 2 * (lane % 4) + e;  // a position
+            if (!(key >= vf && key <= q0 && key > q0 - wr)) sc[4 * j + e] = NEG;
+            if (!(key >= vf && key <= q1 && key > q1 - wr)) sc[4 * j + 2 + e] = NEG;
+          }
+        }
+      } else if (!visible) {
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -386,6 +424,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #pragma unroll
   for (int i = tw; i < TQ * HD / 8; i += 128) {
     const int r = i / (HD / 8), c = i % (HD / 8);
+    if (my_tile * TQ + r >= a.T) break;  // rows past T: none
     *reinterpret_cast<uint4*>(orows + r * a.o_st + c * 8) =
         *reinterpret_cast<const uint4*>(ot + r * RB + ((c ^ (r & 7)) << 4));
   }
@@ -402,7 +441,8 @@ int launch(const void* q, const void* k, const void* v, const FaArgs& a, int B, 
   const long long qd[4] = {HD, a.T, H, B}, qs[3] = {q_st * 2, q_sh * 2, q_sb * 2};
   const long long kd[4] = {HD, a.S, Hkv, B}, ks[3] = {k_ss * 2, k_sh * 2, k_sb * 2},
                   vs[3] = {v_ss * 2, v_sh * 2, v_sb * 2};
-  const int qbox[4] = {64, TQ, 1, 1}, kbox[4] = {64, TL::TK, 1, 1};
+  // a ring's K/V come in 64-row boxes (flash_kernel's producer)
+  const int qbox[4] = {64, TQ, 1, 1}, kbox[4] = {64, a.ring > 0 ? 64 : TL::TK, 1, 1};
   CUtensorMap qmap, kmap, vmap;
   int err = make_map(&qmap, BF16, q, 4, qd, qs, qbox, SW);
   err = err ? err : make_map(&kmap, BF16, k, 4, kd, ks, kbox, SW);
@@ -411,7 +451,7 @@ int launch(const void* q, const void* k, const void* v, const FaArgs& a, int B, 
   cudaError_t e = cudaFuncSetAttribute(flash_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int n_pairs = (a.T / TQ) * a.G;
+  const int n_pairs = ((a.T + TQ - 1) / TQ) * a.G;
   dim3 grid((n_pairs + TL::NC - 1) / TL::NC, Hkv, B);
   flash_kernel<HD><<<grid, TL::THREADS, TL::SMEM, stream>>>(qmap, kmap, vmap, a);
   return (int)cudaGetLastError();
@@ -425,10 +465,12 @@ extern "C" int tpq_flash_attention(
     int Hkv, int T, int S, int D, long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_st, float scale,
-    float softcap, int window, void* stream) {
+    float softcap, int window, int ring, void* stream) {
   cudaGetLastError();
-  if ((D != 128 && D != 256) || T % TQ || S % 64 || Hkv < 1 || H % Hkv ||
-      (o_sb | o_sh | o_st) % 8)
+  // T: any count of rows (the last query tile may be partial); S and a ring
+  // multiples of 64
+  if ((D != 128 && D != 256) || T < 1 || S % 64 || Hkv < 1 || H % Hkv ||
+      (o_sb | o_sh | o_st) % 8 || ring < 0 || (ring > 0 && ring != S))
     return (int)cudaErrorInvalidValue;
   FaArgs a;
   a.qslots = reinterpret_cast<const int*>(qslots);
@@ -442,6 +484,7 @@ extern "C" int tpq_flash_attention(
   a.softcap_in = softcap != 0.f ? scale / softcap : 0.f;
   a.softcap_out = softcap * LOG2E;
   a.window = window;
+  a.ring = ring;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return D == 128 ? launch<128>(q, k, v, a, B, H, Hkv, q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb,
                                 v_sh, v_ss, st)

@@ -68,6 +68,22 @@
 // - Splits are 128 slots for bf16 K/V (64 KB a block, 3 blocks an SM) and
 //   256 for int8 (the same bytes: at the server's shape every live block is
 //   resident at once, and the merges halve).
+// - An iSWA ring bank (ring > 0, S = ring: the SWA layers' window + chunk
+//   slots, position p at slot p % ring; tpullm/models/llama.py:80-117,
+//   313-324) is read in position space: a query at slot q sees the
+//   positions [max(valid_from, q - w + 1), q], w = min(window, ring), which
+//   is the JAX ring mask (slot j holds the newest position <= q congruent to
+//   j, visible while it is >= valid_from and inside the window). The splits
+//   tile that position range, CH positions each, from the split holding the
+//   batch row's lowest visible position; each copy reads slot p % ring, so a
+//   split that crosses the ring's end follows the wrap row by row, whatever
+//   ring is modulo CH. The grid holds ceil((ring + 7) / CH) + 1 splits, as
+//   many as a range of up to ring + 7 positions (T <= 8 consecutive query
+//   slots) can touch. The ring is a template parameter (bf16 only: the
+//   int8 cache has no ring), so a plain view's instances carry none of its
+//   arithmetic.
+// Partials are stored by live index (split - the row's first live split),
+// so a ring's splits and a plain view's take the same merges.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,6 +121,7 @@ struct FdArgs {
   long long k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb, vs_sh;
   float scale, softcap;
   int window, chunked, has_sinks;
+  int ring;  // > 0: S = ring slots of an iSWA ring bank, read by position
 };
 
 // Shared memory: K rows (CH x D x esize), V rows, (int8) the K and V
@@ -219,18 +236,24 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// the cache slot of a position (a ring's) or of a slot (a plain view's)
+template <bool RING>
+__device__ __forceinline__ int slot_of(const FdArgs& a, int p) {
+  return RING ? p % a.ring : p;
+}
+
 // One split's partial (m, l, acc) of every query row, over the visible
-// slots [lo, hi) of the split
-template <int D, bool Q8>
-__device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm, int lo, int hi,
-                                              size_t prow) {
+// slots [lo, hi) of split sp (on a ring: positions, read at p % ring)
+template <int D, bool Q8, bool RING>
+__device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm, int sp, int lo,
+                                              int hi, size_t prow) {
   using L = Smem<D, Q8>;
   constexpr int RB = L::RB;
   constexpr int VEC = RB / 16;  // 16-byte pieces of a row
   constexpr int KS = D / 16;    // k steps of Q K^T
   constexpr int NT = D / 8;     // n8 tiles of P V
   const uint32_t sbase = saddr(sm);
-  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int hk = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
   const int T = a.T, G = a.H / a.Hkv, R = G * T;
@@ -280,7 +303,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
             const int j = ch * E_CK + e / VEC, piece = e % VEC, slot = s0 + j;
             const bool ok = slot >= lo && slot < hi;
             cp16z(sbase + (kv ? L::V : L::K) + j * RB + swz<Q8>(j, piece) * 16,
-                  base + (size_t)(ok ? slot : lo) * ss + piece * 16, ok);
+                  base + (size_t)slot_of<RING>(a, ok ? slot : lo) * ss + piece * 16, ok);
           }
           if (Q8 && kv == 0 && lt < 2 * E_CK) {
             // both scale rows come with K: p takes the V scale before P V
@@ -288,7 +311,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
             const int j = ch * E_CK + lt % E_CK, slot = s0 + j;
             const bool ok = slot >= lo && slot < hi;
             cp4z(sbase + (lt < E_CK ? L::KS : L::VS) + j * 4,
-                 (lt < E_CK ? ksb : vsb) + (ok ? slot : lo), ok);
+                 (lt < E_CK ? ksb : vsb) + slot_of<RING>(a, ok ? slot : lo), ok);
           }
         }
         cp_commit();
@@ -307,6 +330,12 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
       continue;
     }
     const int qs = (int)a.qslots[b * T + r % T], qp = (int)a.qpos[b * T + r % T];
+    if (RING) {  // positions (q - w, q] from valid_from on
+      const int w = a.window > 0 ? min(a.window, a.ring) : a.ring;
+      slo[h] = max(vf, qs - w + 1);
+      shi[h] = qs;
+      continue;
+    }
     int l0 = vf;
     if (a.window > 0)
       l0 = max(l0, vf + (a.chunked ? floordiv(qp, a.window) * a.window : qp - a.window + 1));
@@ -604,27 +633,37 @@ __device__ __forceinline__ bool arrive(int* cnt, int expect, int* flag) {
   return *flag;
 }
 
-template <int D, bool Q8>
+template <int D, bool Q8, bool RING>
 __global__ void __launch_bounds__(E_THREADS, D == 128 ? 3 : 1) flash_decode_kernel(FdArgs a) {
   extern __shared__ __align__(128) unsigned char sm[];
   using L = Smem<D, Q8>;
-  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z, tid = threadIdx.x;
+  const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int T = a.T, G = a.H / a.Hkv, R = G * T;
-  int newest = (int)a.qslots[b * T], minpos = (int)a.qpos[b * T];
+  int newest = (int)a.qslots[b * T], minq = newest, minpos = (int)a.qpos[b * T];
   for (int t = 1; t < T; ++t) {
     newest = max(newest, (int)a.qslots[b * T + t]);
+    minq = min(minq, (int)a.qslots[b * T + t]);
     minpos = min(minpos, (int)a.qpos[b * T + t]);
   }
-  // the slots any of the row's queries may see: [lo_b, hi_b); the live
-  // splits are those that hold one, the others exit at once
+  // the slots (a ring's: positions) any of the row's queries may see:
+  // [lo_b, hi_b); the live splits are those that hold one, the others exit
+  // at once
   const int vf = (int)a.valid_from[b];
-  int lo_b = vf;
-  if (a.window > 0)
-    lo_b = max(lo_b, vf + (a.chunked ? floordiv(minpos, a.window) * a.window
-                                     : minpos - a.window + 1));
-  const int hi_b = min(newest + 1, a.S);
-  if (hi_b <= lo_b) {  // no visible key: split 0 writes the rows' zeros
-    if (sp == 0)
+  int lo_b = vf, hi_b;
+  if (RING) {
+    const int w = a.window > 0 ? min(a.window, a.ring) : a.ring;
+    hi_b = newest + 1;
+    // the query slots of a batch row are consecutive (first + t), so the
+    // range holds at most ring + 7 positions: the grid's splits
+    lo_b = max(max(lo_b, minq - w + 1), hi_b - (a.ring + 7));
+  } else {
+    if (a.window > 0)
+      lo_b = max(lo_b, vf + (a.chunked ? floordiv(minpos, a.window) * a.window
+                                       : minpos - a.window + 1));
+    hi_b = min(newest + 1, a.S);
+  }
+  if (hi_b <= lo_b) {  // no visible key: block 0 writes the rows' zeros
+    if (blockIdx.z == 0)
       for (int i = tid; i < R * D; i += E_THREADS) {
         const int r = i / D;
         a.o[(((size_t)b * T + r % T) * a.H + hk * G + r / T) * D + i % D] =
@@ -632,34 +671,37 @@ __global__ void __launch_bounds__(E_THREADS, D == 128 ? 3 : 1) flash_decode_kern
       }
     return;
   }
+  // live index k of this block: a plain view's grid holds every split of S
+  // (split sp0 + k is block sp0 + k), a ring's only the live range (block k)
   const int sp0 = lo_b / L::CH, nl = (hi_b - 1) / L::CH - sp0 + 1;
-  if (sp < sp0 || sp >= sp0 + nl) return;
-  const int s0 = sp * L::CH;
-  split_partial<D, Q8>(a, sm, max(s0, lo_b), min(s0 + L::CH, hi_b),
-                       ((size_t)(b * a.Hkv + hk) * a.NS + sp) * R);
+  const int k = RING ? (int)blockIdx.z : (int)blockIdx.z - sp0;
+  if (k < 0 || k >= nl) return;
+  const int sp = sp0 + k, s0 = sp * L::CH;
+  split_partial<D, Q8, RING>(a, sm, sp, max(s0, lo_b), min(s0 + L::CH, hi_b),
+                       ((size_t)(b * a.Hkv + hk) * a.NS + k) * R);
   // two merge levels, in a fixed order: the last split of each group of
   // E_GRP live splits to arrive merges the group into the group's first
   // partial, then the last group merges the groups and writes the rows
   int* cnt = a.cnt + (size_t)(b * a.Hkv + hk) * (a.NS / E_GRP + 2);
   int* flag = reinterpret_cast<int*>(sm + L::LAST);
-  const int gi = (sp - sp0) / E_GRP, ng = (nl + E_GRP - 1) / E_GRP;
-  const int g0 = sp0 + gi * E_GRP, gn = min(E_GRP, sp0 + nl - g0);
+  const int gi = k / E_GRP, ng = (nl + E_GRP - 1) / E_GRP;
+  const int g0 = gi * E_GRP, gn = min(E_GRP, nl - g0);
   if (!arrive(cnt + gi, gn, flag)) return;
   merge_parts<D>(a, b, hk, g0, 1, gn, ng == 1, reinterpret_cast<float2*>(sm + L::FAC));
   if (ng == 1 || !arrive(cnt + a.NS / E_GRP + 1, ng, flag)) return;
-  merge_parts<D>(a, b, hk, sp0, E_GRP, ng, true, nullptr);
+  merge_parts<D>(a, b, hk, 0, E_GRP, ng, true, nullptr);
 }
 
-template <int D, bool Q8>
+template <int D, bool Q8, bool RING>
 int launch(const FdArgs& a, cudaStream_t stream) {
   constexpr int SMEM = Smem<D, Q8>::BYTES;
   // set on every launch, on the current device (a per-process flag would
   // leave a second card's launches refused)
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_decode_kernel<D, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      flash_decode_kernel<D, Q8, RING>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   // split slowest: the live splits of every row (the low ones) start first
-  flash_decode_kernel<D, Q8><<<dim3(a.Hkv, a.B, a.NS), E_THREADS, SMEM, stream>>>(a);
+  flash_decode_kernel<D, Q8, RING><<<dim3(a.Hkv, a.B, a.NS), E_THREADS, SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -672,13 +714,17 @@ extern "C" int tpq_flash_decode(
     int NS, int D,
     int q8, long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
-    float scale, float softcap, int window, int chunked, int has_sinks, void* stream) {
+    float scale, float softcap, int window, int chunked, int has_sinks, int ring,
+    void* stream) {
   cudaGetLastError();
   // the caller sized part_ml/part_acc for NS splits: they must be this
-  // kernel's splits of S, or the blocks would write past them
+  // kernel's splits of S (of a ring's live range), or the blocks would
+  // write past them
   const int ch = q8 ? split_of<true>() : split_of<false>();
+  const int ns = ring > 0 ? (ring + 7 + ch - 1) / ch + 1 : (S + ch - 1) / ch;
   if (Hkv <= 0 || H % Hkv || (H / Hkv) * T > E_RMAX || T < 1 || T > 8 ||
-      (D != 128 && D != 256) || S < 1 || NS != (S + ch - 1) / ch)
+      (D != 128 && D != 256) || S < 1 || NS != ns || ring < 0 || (ring > 0 && ring != S) ||
+      (ring > 0 && (chunked || q8)))
     return (int)cudaErrorInvalidValue;
   FdArgs a;
   a.q = reinterpret_cast<const __nv_bfloat16*>(q);
@@ -700,7 +746,9 @@ extern "C" int tpq_flash_decode(
   a.ks_sb = ks_sb; a.ks_sh = ks_sh; a.vs_sb = vs_sb; a.vs_sh = vs_sh;
   a.scale = scale; a.softcap = softcap;
   a.window = window; a.chunked = chunked; a.has_sinks = has_sinks;
+  a.ring = ring;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 128) return q8 ? launch<128, true>(a, st) : launch<128, false>(a, st);
-  return q8 ? launch<256, true>(a, st) : launch<256, false>(a, st);
+  if (ring > 0) return D == 128 ? launch<128, false, true>(a, st) : launch<256, false, true>(a, st);
+  if (D == 128) return q8 ? launch<128, true, false>(a, st) : launch<128, false, false>(a, st);
+  return q8 ? launch<256, true, false>(a, st) : launch<256, false, false>(a, st);
 }

@@ -11,7 +11,9 @@
 //
 // What it computes: for every (batch row b, token t, kv head h), the row of
 // K (and of V) goes to bank[b0 + b, h, slot[b] + t]; a slot at or past the
-// cache's end is dropped, as the JAX scatter drops it. On the int8 cache the
+// cache's end is dropped, as the JAX scatter drops it. On an iSWA ring bank
+// (ring > 0: the bank holds ring slots) the row goes to slot (slot[b] + t) %
+// ring and none is dropped (_store(..., wrap=True), llama.py:894, 913). On the int8 cache the
 // row is stored as scale = amax / 127, values clamp(rint(x / scale), -127,
 // 127) (round half to even), with the scale in its f32 row-scale bank. The
 // arithmetic is the JAX formula's bit for bit: a true IEEE division for the
@@ -44,6 +46,7 @@ struct KsArgs {
   float* vs;
   const long long* slot;  // (B,): each batch row's first slot
   int B, T, Hkv, S, Dk, Dv, b0;
+  int ring;  // > 0: a ring bank of S = ring slots, written at (slot + t) % ring
 };
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -71,7 +74,8 @@ __global__ void __launch_bounds__(KS_WARPS * 32) kv_store_kernel(KsArgs a) {
   const long long bt = r / a.Hkv;
   const int t = (int)(bt % a.T);
   const int b = (int)(bt / a.T);
-  const long long s = a.slot[b] + t;
+  long long s = a.slot[b] + t;
+  if (a.ring > 0) s %= a.ring;     // the ring wraps (slots are never negative)
   if (s < 0 || s >= a.S) return;  // past the cache's end: dropped
   const int D = is_v ? a.Dv : a.Dk;
   const In* src = reinterpret_cast<const In*>(is_v ? a.v : a.k) +
@@ -114,15 +118,15 @@ int launch_bank(const KsArgs& a, int bank, cudaStream_t st) {
 }  // namespace
 
 // in_f32: K/V rows are f32 (else bf16); bank: 0 bf16, 1 f32, 2 int8 with
-// f32 row scales ks/vs
+// f32 row scales ks/vs; ring: 0, or the ring size S of an iSWA ring bank
 extern "C" int tpq_kv_store(const void* k, const void* v, long long k_sb, long long k_st,
                             long long k_sh, long long v_sb, long long v_st, long long v_sh,
                             void* kb, void* vb, void* ks, void* vs, const void* slot, int B,
                             int T, int Hkv, int S, int Dk, int Dv, int b0, int in_f32,
-                            int bank, void* stream) {
+                            int bank, int ring, void* stream) {
   cudaGetLastError();
   if (B < 1 || T < 1 || Hkv < 1 || S < 1 || Dk < 1 || Dv < 1 || b0 < 0 || bank < 0 ||
-      bank > 2 || (bank == 2 && (!ks || !vs)) ||
+      bank > 2 || (bank == 2 && (!ks || !vs)) || ring < 0 || (ring > 0 && ring != S) ||
       2LL * B * T * Hkv > (long long)KS_WARPS * 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   KsArgs a;
@@ -134,6 +138,7 @@ extern "C" int tpq_kv_store(const void* k, const void* v, long long k_sb, long l
   a.vs = reinterpret_cast<float*>(vs);
   a.slot = reinterpret_cast<const long long*>(slot);
   a.B = B; a.T = T; a.Hkv = Hkv; a.S = S; a.Dk = Dk; a.Dv = Dv; a.b0 = b0;
+  a.ring = ring;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return in_f32 ? launch_bank<float>(a, bank, st) : launch_bank<__nv_bfloat16>(a, bank, st);
 }

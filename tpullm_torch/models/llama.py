@@ -16,10 +16,11 @@ experts); optional post-attention and post-FFN norms, with or without the
 pre-norms (``pre_norm``); residual branches times residual_scale; logits
 times logit_scale, then the final softcap. A Python loop over layers takes
 the place of ``lax.scan``; the KV cache (bf16, f32 or int8 with row scales;
-full-context on every layer: the iSWA ring waits) is updated in place, in
-the batch engine's layout or the server's per-slot rows. Every flag of the
-JAX graph that these paths never set raises (``check_dense``) instead of
-being ignored.
+full-context on every layer, or the iSWA dual cache: full banks for the
+full-attention layers and a ring of window + chunk slots for the SWA
+layers) is updated in place, in the batch engine's layout or the server's
+per-slot rows. Every flag of the JAX graph that these paths never set
+raises (``check_dense``) instead of being ignored.
 
 Kernel gates are the JAX package's own, with "the tensors are on the card"
 in place of "the default backend is the TPU": prefill attention takes the
@@ -31,7 +32,10 @@ window is a Python int here (``layer_windows``), so interleaved SWA layers
 take kernels C and E with their own window and the config's softcap, where
 the JAX package's scan passes a traced window and falls through to its
 einsum path (llama.py:268-277, 932-941): the same function on another
-route. Decode layers
+route. Ring layers (the dual cache's SWA banks) take kernels E and C over
+the ring by position, and the store writes the ring with wrap, where the
+JAX package sends them to its einsum path (llama.py:268, 277: ``not
+ring``); that route is the port's own (attention_route). Decode layers
 take the layer kernel, folded with the next layer's QKV when the weights
 are fused in one group (llama.py:1382-1423, ``layer_routes``); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460) and MoE
@@ -48,7 +52,8 @@ import torch
 
 from ..ops.flash_attention import (attention_params, flash_attention, flash_builds,
                                    flash_supported, masked_attention)
-from ..ops.flash_decode import flash_decode, flash_decode_builds, flash_decode_supported
+from ..ops.flash_decode import (flash_decode, flash_decode_builds, flash_decode_ring_supported,
+                                flash_decode_supported)
 from ..ops.fuse import pad256
 from ..ops.kv_store import kv_quant as _kv_quant  # noqa: F401 (the JAX name)
 from ..ops.kv_store import kv_store
@@ -151,19 +156,37 @@ class KVCache:
     place by ``ops/kv_store.py:kv_store`` (one launch a layer on the card).
     bf16 or f32, or the int8 cache (``create(..., dtype="q8")``,
     llama.py:52-57): int8 k/v with per-(head, slot) f32 row scales ks/vs
-    (L, B, H_kv, S_max), rows quantized on write (``_kv_quant``). The iSWA
-    ring waits."""
+    (L, B, H_kv, S_max), rows quantized on write (``_kv_quant``).
+
+    The iSWA dual cache (``create(..., iswa=True, max_chunk=C)``,
+    llama.py:80-117; llama_kv_cache_iswa): k/v hold only the full-attention
+    layers (L_full, B, H_kv, S_max, D) and the ring banks kw/vw the SWA
+    layers (L_swa, B, H_kv, ring, D), ring = min(window + max(C, 1), S_max):
+    position p lives at ring slot p % ring. ``bank_map`` says which bank and
+    index each layer uses. ring must be >= window + the most rows one
+    forward writes (C), so that no slot a chunk overwrites holds a position
+    one of its queries still sees."""
 
     k: torch.Tensor
     v: torch.Tensor
     ks: torch.Tensor | None = None
     vs: torch.Tensor | None = None
+    kw: torch.Tensor | None = None  # (L_swa, B, H_kv, ring, D): the SWA layers' ring
+    vw: torch.Tensor | None = None
+    ring: int = 0  # the ring's slots (0: one full-context bank for every layer)
 
     @staticmethod
     def create(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cuda") -> "KVCache":
-        shape_k = (cfg.n_layer, batch, cfg.n_head_kv, max_len, cfg.head_dim)
-        shape_v = (cfg.n_layer, batch, cfg.n_head_kv, max_len, cfg.head_dim_v)
+               device="cuda", iswa: bool = False, max_chunk: int = 0) -> "KVCache":
+        """The JAX KVCache.create: with ``iswa`` the dual cache where the
+        config has SWA layers, except on the int8 cache and for chunked
+        windows, gemma4's attention and MLA, as in the JAX package."""
+        flags = swa_flags(cfg)
+        dual = (iswa and any(flags) and not cfg.swa_chunked and not cfg.gemma4_attn
+                and not cfg.kv_lora_rank and dtype not in ("q8", "int8"))
+        n_full = cfg.n_layer - sum(flags) if dual else cfg.n_layer
+        shape_k = (n_full, batch, cfg.n_head_kv, max_len, cfg.head_dim)
+        shape_v = (n_full, batch, cfg.n_head_kv, max_len, cfg.head_dim_v)
         if dtype in ("q8", "int8"):
             return KVCache(torch.zeros(shape_k, dtype=torch.int8, device=device),
                            torch.zeros(shape_v, dtype=torch.int8, device=device),
@@ -171,16 +194,48 @@ class KVCache:
                            torch.zeros(shape_v[:-1], dtype=torch.float32, device=device))
         if dtype not in (torch.bfloat16, torch.float32):
             raise NotImplementedError(f"KV cache dtype {dtype}: bf16, f32 and 'q8' only")
-        return KVCache(torch.zeros(shape_k, dtype=dtype, device=device),
-                       torch.zeros(shape_v, dtype=dtype, device=device))
+        z = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
+        if not dual:
+            return KVCache(z(shape_k), z(shape_v))
+        ring = min(cfg.sliding_window + max(max_chunk, 1), max_len)
+        n_swa = sum(flags)
+        return KVCache(z(shape_k), z(shape_v),
+                       kw=z((n_swa, batch, cfg.n_head_kv, ring, cfg.head_dim)),
+                       vw=z((n_swa, batch, cfg.n_head_kv, ring, cfg.head_dim_v)), ring=ring)
 
     @property
     def quantized(self) -> bool:
         return self.ks is not None
 
     @property
+    def dual(self) -> bool:
+        return self.kw is not None
+
+    @property
     def max_len(self) -> int:
         return self.k.shape[3]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every bank (rings and row scales included)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.ks, self.vs, self.kw, self.vw)
+                   if t is not None)
+
+
+def bank_map(cfg: ModelConfig, dual: bool) -> list:
+    """Each layer's bank and its index there, [(ring, index)]: on the dual
+    cache the SWA layers (swa_flags) index the ring banks in layer order and
+    the others the full banks (the JAX forward's bank_off, llama.py:1374-1508);
+    otherwise every layer its own index of the full banks."""
+    flags = swa_flags(cfg)
+    seen = {False: 0, True: 0}
+    out = []
+    for f in flags:
+        r = bool(dual and f)
+        out.append((r, seen[r]))
+        seen[r] += 1
+    return out
 
 
 def dequant_view(q, scale, dtype):
@@ -249,15 +304,27 @@ def apply_rope(x, cos, sin, rope_type: str, rope_dim: int):
 
 
 def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: int,
-                    Hkv: int, kv_dtype) -> str:
+                    Hkv: int, kv_dtype, ring: int = 0) -> str:
     """Which attention path a call takes: "flash_decode" (kernel E),
     "flash_attention" (kernel C) or "einsum". A kernel only on the card, and
     only where both the JAX package's gate (flash_decode_supported,
     flash_supported) and the shapes the kernel builds (flash_decode_builds,
     flash_builds) hold; every other shape, and every call on the CPU, takes
     the einsum path. kv_dtype is the cache's (int8 for the q8 cache, whose
-    views C and the einsum path read dequantized)."""
+    views C and the einsum path read dequantized).
+
+    A ring bank (``ring`` = S) is the port's own route, as the JAX package
+    sends every ring call to its einsum path: E where its gate less the
+    view's conditions holds (flash_decode_ring_supported, under
+    TPULLM_FLASH_DECODE), else C wherever it builds over the ring (any T)."""
     if not is_cuda:
+        return "einsum"
+    if ring:  # E builds its ring for bf16 only: the int8 cache has no ring
+        if (flash_decode_ring_supported(T, Dk, Dv) and kv_dtype == torch.bfloat16
+                and flash_decode_builds(T, Dk, Dv, H, Hkv, kv_dtype)):
+            return "flash_decode"
+        if flash_builds(T, S, Dk, Dv, H, Hkv, ring):
+            return "flash_attention"
         return "einsum"
     if (flash_decode_supported(B, T, S, Dk, Dv, Hkv)
             and flash_decode_builds(T, Dk, Dv, H, Hkv, kv_dtype)):
@@ -267,16 +334,22 @@ def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: 
     return "einsum"
 
 
-def decode_route(cfg: ModelConfig, B: int, kv_view: int, kv_dtype, on_card: bool) -> str:
+def decode_route(cfg: ModelConfig, B: int, kv_view: int, kv_dtype, on_card: bool,
+                 ring: int = 0):
     """attention_route of one decode step (T = 1) of B rows over a kv view:
     the part of a captured decode step's key that TPULLM_FLASH_DECODE and
-    the built shapes decide."""
-    return attention_route(on_card, B, 1, kv_view, cfg.head_dim, cfg.head_dim_v, cfg.n_head,
-                           cfg.n_head_kv, kv_dtype)
+    the built shapes decide. With a ring (a dual cache) the pair (the full
+    banks' route, the ring's route)."""
+    r = attention_route(on_card, B, 1, kv_view, cfg.head_dim, cfg.head_dim_v, cfg.n_head,
+                        cfg.n_head_kv, kv_dtype)
+    if not ring:
+        return r
+    return r, attention_route(on_card, B, 1, ring, cfg.head_dim, cfg.head_dim_v, cfg.n_head,
+                              cfg.n_head_kv, kv_dtype, ring)
 
 
 def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
-              cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None):
+              cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None, ring: int = 0):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv).
 
     Slot mask valid_from[b] <= s <= q_slots[b, t]. The path is
@@ -290,26 +363,31 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
     kv_q8: the raw int8 cache views (k, v, k scales, v scales), with k_all
     and v_all None. Kernel E reads them as they are; the other branches
     dequantize them here, so the dequantized views exist only where they
-    are read (XLA drops the unused one; eager PyTorch would not)."""
+    are read (XLA drops the unused one; eager PyTorch would not).
+
+    ring: k/v are a ring bank of that many slots (an SWA layer of the dual
+    cache), masked by the ring mask (llama.py:313-324) in place of the slot
+    and positional window masks."""
     B, T, H, Dk = q.shape
     kref, vref = (kv_q8[0], kv_q8[1]) if kv_q8 is not None else (k_all, v_all)
     Hkv, S, Dv = kref.shape[1], kref.shape[2], vref.shape[-1]
-    route = attention_route(q.is_cuda, B, T, S, Dk, Dv, H, Hkv, kref.dtype)
+    route = attention_route(q.is_cuda, B, T, S, Dk, Dv, H, Hkv, kref.dtype, ring)
     if route == "flash_decode":
         window = cfg.sliding_window if layer_is_swa else 0
         if kv_q8 is not None:
             kq, vq, ksc, vsc = kv_q8
             return flash_decode(q, kq, vq, q_slots, positions, valid_from, cfg, window,
                                 k_scales=ksc, v_scales=vsc)
-        return flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window)
+        return flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window,
+                            ring=ring)
     if kv_q8 is not None:
         k_all = dequant_view(kv_q8[0], kv_q8[2], q.dtype)
         v_all = dequant_view(kv_q8[1], kv_q8[3], q.dtype)
     if route == "flash_attention":
         return flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
-                               valid_from, cfg, layer_is_swa)
+                               valid_from, cfg, layer_is_swa, ring)
     return masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
-                            valid_from, *attention_params(cfg, layer_is_swa))
+                            valid_from, *attention_params(cfg, layer_is_swa), ring)
 
 
 def ffn(x, qw, li, cfg: ModelConfig, dtype):
@@ -546,7 +624,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     its CUDA kernel, K and V together, quantized on the int8 cache; an int
     cache_pos becomes a (B,) tensor first). Writes past the cache's last
     slot are dropped, as the JAX scatter drops them (a bucketed prefill
-    chunk near the end).
+    chunk near the end). On the dual cache each layer reads and writes its
+    own bank (``bank_map``): an SWA layer stores at q_slots % ring and
+    attends over its whole ring, never cut to kv_view_len (llama.py:825-826,
+    894, 913); T must then be <= ring - window.
     ``logits_idx`` (int) computes the lm_head for that position only
     (logits (B, 1, vocab))."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
@@ -559,6 +640,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             f"shared expert tensors {sorted(set().union(*shexp))}: the gated shared expert "
             f"needs all of {sorted(SHEXP_KEYS)}")
     check_dense(cfg, moe=any(moe))
+    banks = bank_map(cfg, cache.dual)
     B, T = tokens.shape
     b0 = 0 if slot0 is None else int(slot0)
     if not 0 <= b0 <= cache.k.shape[1] - B:
@@ -611,14 +693,20 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
         v = v.reshape(B, T, Hkv, hdv)
         kv_q8 = k_view = v_view = None
+        on_ring, bi = banks[li]
         if cache.quantized:  # llama.py:896-910
-            kv_store(cache.k[li], cache.v[li], k, v, first, b0, cache.ks[li], cache.vs[li])
-            kv_q8 = tuple(view(t[li]) for t in (cache.k, cache.v, cache.ks, cache.vs))
+            kv_store(cache.k[bi], cache.v[bi], k, v, first, b0, cache.ks[bi], cache.vs[bi])
+            kv_q8 = tuple(view(t[bi]) for t in (cache.k, cache.v, cache.ks, cache.vs))
+        elif on_ring:  # the SWA layer's ring: stored with wrap, read whole
+            kv_store(cache.kw[bi], cache.vw[bi], k, v, first, b0, ring=cache.ring)
+            k_view = cache.kw[bi][b0: b0 + B].to(dtype)
+            v_view = cache.vw[bi][b0: b0 + B].to(dtype)
         else:  # _store, llama.py:803-818
-            kv_store(cache.k[li], cache.v[li], k, v, first, b0)
-            k_view, v_view = view(cache.k[li]).to(dtype), view(cache.v[li]).to(dtype)
+            kv_store(cache.k[bi], cache.v[bi], k, v, first, b0)
+            k_view, v_view = view(cache.k[bi]).to(dtype), view(cache.v[bi]).to(dtype)
         att = attention(q, k_view, v_view, q_slots, kv_positions, positions, valid_from,
-                        cfg, bool(windows[li]), kv_q8=kv_q8)
+                        cfg, bool(windows[li]), kv_q8=kv_q8,
+                        ring=cache.ring if on_ring else 0)
         return att.reshape(B, T, H * hdv)
 
     def qkv_of(h, qw, li, lw):

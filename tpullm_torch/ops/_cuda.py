@@ -102,11 +102,12 @@ class CountedGraph:
 _SCOPE = threading.local()
 
 
-def own_counters(device, B: int, Hkv: int, S: int) -> dict:
+def own_counters(device, B: int, Hkv: int, S: int, ring: int = 0) -> dict:
     """An owner's arrival counters for kernels D and E, zero, made by an eager
     launch before any capture (a buffer first made inside a capture would
     belong to the graph's pool): {"layer_kernel": D's, "flash_decode": E's,
-    sized for B rows, Hkv heads and views of up to S slots}."""
+    sized for B rows, Hkv heads and views of up to S slots, and a ring bank
+    of ``ring`` slots where there is one}."""
     from .flash_decode import counters_per_row
     from .layer_kernel import N_COUNTERS
 
@@ -115,7 +116,8 @@ def own_counters(device, B: int, Hkv: int, S: int) -> dict:
         raise RuntimeError("arrival counters would be made during a CUDA graph capture")
     z = lambda n: torch.zeros(n, dtype=torch.int32, device=device)
     return {"layer_kernel": z(N_COUNTERS),
-            "flash_decode": z(B * Hkv * counters_per_row(S, False))}
+            "flash_decode": z(B * Hkv * max(counters_per_row(S, False),
+                                            counters_per_row(S, False, ring)))}
 
 
 @contextlib.contextmanager
@@ -285,8 +287,8 @@ _SIGNATURES = {
     "tpq_qmm_experts": [_P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I,
                         _P, _P, _I, _I, _P],
     # q k v o qslots kvpos qpos valid_from, B H Hkv T S D,
-    # 12 strides, scale softcap window, stream
-    "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _P],
+    # 12 strides, scale softcap window ring, stream
+    "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _I, _P],
     # w_ptrs(4 pools), w_ints, w_floats, plan, att, res, ffn_norm, anrm_next,
     # out, qkv_out, scratch, counters, M, D, Hd, n_ff, act, fold, nscratch,
     # eps, stream
@@ -295,10 +297,10 @@ _SIGNATURES = {
     # slots (the stack's L x E or E weights), out, Nout, stream
     "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     # q k v ks vs sinks qslots qpos valid_from (int64) part_ml part_acc counters o,
-    # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks, stream
-    "tpq_flash_decode": [_P] * 13 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _P],
-    # k v, 6 strides, k_bank v_bank ks vs slot, B T Hkv S Dk Dv b0, in_f32 bank, stream
-    "tpq_kv_store": [_P, _P] + [_L] * 6 + [_P] * 5 + [_I] * 9 + [_P],
+    # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks ring, stream
+    "tpq_flash_decode": [_P] * 13 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _I, _P],
+    # k v, 6 strides, k_bank v_bank ks vs slot, B T Hkv S Dk Dv b0, in_f32 bank ring, stream
+    "tpq_kv_store": [_P, _P] + [_L] * 6 + [_P] * 5 + [_I] * 10 + [_P],
 }
 
 

@@ -4,6 +4,10 @@ Counterpart of tpullm/ops/flash_attention.py. The hand-written CUDA kernel
 (csrc/flash_attention.cu) takes the place of its Pallas kernel; the plain
 version is the masked softmax of the einsum path (tpullm/models/llama.py
 attention, :295-360), which models/llama.py also uses as its own fallback.
+On an iSWA ring bank (``ring``) both take the JAX ring mask (``ring_mask``,
+llama.py:313-324) in place of the slot and window masks; the kernel reads
+the ring by position (csrc/flash_attention.cu), where the JAX package sends
+ring layers to its einsum path (llama.py:268).
 """
 from __future__ import annotations
 
@@ -16,15 +20,25 @@ from . import _cuda
 C_HEAD_DIMS = (128, 256)  # the kernel's instances (Dk = Dv; csrc/flash_attention.cu)
 
 
+def ring_mask(kv_slot, q_slot, valid_from, window: int, ring: int):
+    """The JAX ring mask (llama.py:313-324), broadcast over its operands:
+    ring slot j, seen from the query at slot q, holds the newest position
+    cand <= q congruent to j modulo ring; visible where cand >= valid_from
+    and q - cand < window (the ring itself with no window)."""
+    cand = q_slot - torch.remainder(q_slot - kv_slot, ring)
+    return (cand >= valid_from) & (q_slot - cand < (window or ring))
+
+
 def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                      valid_from, scale: float, softcap: float = 0.0,
-                     window: int = 0):
+                     window: int = 0, ring: int = 0):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv) in q's dtype.
 
     Key slot s is visible to the query at slot q_slots[b, t] iff
     valid_from[b] <= s <= q_slots[b, t] (and, with a window, its real
-    position is within the window). GQA groups query heads by reshape. A row
-    with no visible key outputs 0."""
+    position is within the window); on a ring bank (ring = S) by
+    ``ring_mask``. GQA groups query heads by reshape. A row with no visible
+    key outputs 0."""
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     G = H // Hkv
@@ -36,8 +50,12 @@ def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
         scores = torch.tanh(scores / softcap) * softcap
     kv_slot = torch.arange(S, device=q.device)[None, None, None, None, :]
     q_slot = q_slots[:, None, None, :, None]
-    mask = (kv_slot <= q_slot) & (kv_slot >= valid_from[:, None, None, None, None])
-    if window:
+    vf = valid_from[:, None, None, None, None]
+    if ring:
+        mask = ring_mask(kv_slot, q_slot, vf, window, ring)
+    else:
+        mask = (kv_slot <= q_slot) & (kv_slot >= vf)
+    if window and not ring:
         kv_pos = kv_positions[:, None, None, None, :]
         q_pos = positions[:, None, None, :, None]
         mask = mask & (kv_pos > q_pos - window)
@@ -64,22 +82,26 @@ def _strides3(t: torch.Tensor, what: str):
 
 
 def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
-                    valid_from, cfg, layer_is_swa: bool = False):
+                    valid_from, cfg, layer_is_swa: bool = False, ring: int = 0):
     """Same contract as masked_attention with the config's scale, softcap
     and window: q (B,T,H,Dk), K/V head-major (B,Hkv,S,D*) -> (B,T,H,Dv)
-    bf16. K/V are read in place from the cache layout."""
+    bf16. K/V are read in place from the cache layout. ``ring`` (= S): an
+    iSWA ring bank, whose query slots must be < ring - window apart in a
+    call (a chunk of T <= ring - window rows)."""
     scale, softcap, window = attention_params(cfg, layer_is_swa)
-    if not q.is_cuda:
-        return masked_attention(q, k_all, v_all, q_slots, kv_positions,
-                                positions, valid_from, scale, softcap, window)
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
+    if ring and ring != S:
+        raise ValueError(f"flash_attention: a ring of {ring} over {S} slots")
+    if not q.is_cuda:
+        return masked_attention(q, k_all, v_all, q_slots, kv_positions,
+                                positions, valid_from, scale, softcap, window, ring)
     Dv = v_all.shape[-1]
     if Dk != Dv or Dk not in C_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention kernel: head dims {Dk}/{Dv}; {C_HEAD_DIMS} are built (Dk = Dv)")
-    if T % 64 or S % 64 or H % Hkv:
-        raise ValueError(f"flash_attention kernel: T={T} S={S} H={H} Hkv={Hkv}")
+    if (T % 64 and not ring) or S % 64 or H % Hkv:
+        raise ValueError(f"flash_attention kernel: T={T} S={S} H={H} Hkv={Hkv} ring={ring}")
     qh = q.to(torch.bfloat16)
     kh = k_all.to(torch.bfloat16)
     vh = v_all.to(torch.bfloat16)
@@ -94,17 +116,18 @@ def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
         *(t.data_ptr() for t in i32), B, H, Hkv, T, S, Dk,
         q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_st,
-        scale, softcap, window, _cuda.stream_ptr(qh))
+        scale, softcap, window, int(ring), _cuda.stream_ptr(qh))
     _cuda.COUNTS["flash_attention"] += 1
     _cuda.check(err, "flash_attention")
     return out
 
 
-def flash_builds(T: int, S: int, Dk: int, Dv: int, H: int, Hkv: int) -> bool:
+def flash_builds(T: int, S: int, Dk: int, Dv: int, H: int, Hkv: int, ring: int = 0) -> bool:
     """The shapes the CUDA kernel builds (the wrapper raises on the rest):
-    Dk = Dv in C_HEAD_DIMS, T and S multiples of 64, H a multiple of Hkv."""
-    return (Dk == Dv and Dk in C_HEAD_DIMS and T % 64 == 0 and S % 64 == 0 and Hkv > 0
-            and H % Hkv == 0)
+    Dk = Dv in C_HEAD_DIMS, T and S multiples of 64, H a multiple of Hkv; on
+    a ring (S = ring a multiple of 64) any T >= 1."""
+    return (Dk == Dv and Dk in C_HEAD_DIMS and T >= 1 and (ring or T % 64 == 0)
+            and S % 64 == 0 and Hkv > 0 and H % Hkv == 0)
 
 
 def flash_supported(T: int, S: int, Dk: int, Dv: int) -> bool:

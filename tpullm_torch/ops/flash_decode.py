@@ -6,8 +6,13 @@ tokens per batch row against K/V (B, Hkv, S, D), bf16 or int8 with f32 row
 scales (B, Hkv, S), read in place with their strides. Each batch row reads
 only the slots up to its newest query slot (and from its window's start),
 so a decode step over rows at different depths moves the bytes those rows
-need, not the bucketed view's. ``flash_decode_builds`` says which shapes the
-kernel builds; the wrapper raises on any other.
+need, not the bucketed view's. On an iSWA ring bank (``ring``: S = ring
+slots, position p at slot p % ring) a row's query at slot q reads the
+positions [max(valid_from, q - window + 1), q], each at its ring slot: the
+JAX ring mask (tpullm/models/llama.py:313-324) on kernel E, where the JAX
+package sends ring layers to its einsum path (llama.py:277). A row's query
+slots must be consecutive (first + t). ``flash_decode_builds`` says which
+shapes the kernel builds; the wrapper raises on any other.
 
 ``flash_decode_plain`` is the same function in plain PyTorch: the TPU
 kernel's arithmetic (f32 scores of bf16 or int8 operands, the K scale
@@ -24,6 +29,7 @@ import os
 import torch
 
 from . import _cuda
+from .flash_attention import ring_mask
 
 # slots per split of the CUDA kernel by K/V type (int8: True); it rejects any
 # other split count (csrc/flash_decode.cu split_of)
@@ -43,14 +49,15 @@ def _scale_of(cfg, scale):
 
 def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: float,
                        softcap: float = 0.0, window: int = 0, chunked: bool = False,
-                       sinks=None, k_scales=None, v_scales=None):
+                       sinks=None, k_scales=None, v_scales=None, ring: int = 0):
     """q (B,T,H,Dk), K/V head-major (B,Hkv,S,D*) bf16 or int8 [+ (B,Hkv,S)
     f32 scales] -> (B,T,H,Dv) bf16. Reads slots up to the newest query slot
-    of the batch (one host read of its value)."""
+    of the batch (one host read of its value); a ring bank (ring = S) whole,
+    with the JAX ring mask."""
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     G, Dv = H // Hkv, v_all.shape[-1]
-    hi = min(S, int(q_slots.max()) + 1)
+    hi = S if ring else min(S, int(q_slots.max()) + 1)
     R = G * T
     # query row r = g * T + t of kv head h is token t of query head h * G + g
     qr = (q.to(torch.bfloat16).float().reshape(B, T, Hkv, G, Dk)
@@ -68,8 +75,11 @@ def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: f
     row_slot = q_slots.repeat(1, G).reshape(B, 1, R, 1)  # r = g * T + t -> t
     row_pos = positions.repeat(1, G).reshape(B, 1, R, 1)
     vf = valid_from.reshape(B, 1, 1, 1)
-    mask = (kv_slot <= row_slot) & (kv_slot >= vf)
-    if window:
+    if ring:
+        mask = ring_mask(kv_slot, row_slot, vf, window, ring)
+    else:
+        mask = (kv_slot <= row_slot) & (kv_slot >= vf)
+    if window and not ring:
         kv_pos = kv_slot - vf
         if chunked:
             mask = mask & (kv_pos >= torch.div(row_pos, window, rounding_mode="floor") * window)
@@ -93,12 +103,20 @@ def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: f
     return out.reshape(B, T, H, Dv).to(torch.bfloat16)
 
 
-def counters_per_row(S: int, q8: bool) -> int:
+def n_splits(S: int, q8: bool, ring: int = 0) -> int:
+    """The kernel's grid of splits over an S-slot view: ceil(S / E_CH[q8]);
+    over a ring (S = ring) the splits a range of ring + 7 positions can
+    touch (T <= 8 consecutive query slots)."""
+    ch = E_CH[q8]
+    return -(-(ring + 7) // ch) + 1 if ring else -(-S // ch)
+
+
+def counters_per_row(S: int, q8: bool, ring: int = 0) -> int:
     """Arrival counters the kernel uses for one (batch row, kv head) over an
-    S-slot view: one for each group of E_GRP live splits (the live splits
-    are a range of the NS = ceil(S / E_CH[q8]) splits, so at most NS // E_GRP
-    + 1 groups) and one for the groups."""
-    return -(-S // E_CH[q8]) // E_GRP + 2
+    S-slot view (or a ring): one for each group of E_GRP live splits (the
+    live splits are a range of the NS = n_splits splits, so at most NS //
+    E_GRP + 1 groups) and one for the groups."""
+    return n_splits(S, q8, ring) // E_GRP + 2
 
 
 _COUNTERS: dict = {}  # device index -> the buffer launches outside a scope use now
@@ -149,21 +167,26 @@ def _scale_strides(t: torch.Tensor, what: str):
 
 
 def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: int = 0,
-                 sinks=None, scale=None, k_scales=None, v_scales=None):
+                 sinks=None, scale=None, k_scales=None, v_scales=None, ring: int = 0):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) [+ (B,Hkv,S) scales when
     int8] -> (B,T,H,Dv) bf16. Same masking contract as
     models.llama.attention: valid_from[b] <= slot <= q_slots[b, t], a window
-    on the positions slot - valid_from (chunked with cfg.swa_chunked)."""
+    on the positions slot - valid_from (chunked with cfg.swa_chunked); on a
+    ring bank (ring = S) the ring mask (``ring_mask``)."""
     scale = _scale_of(cfg, scale)
     softcap = float(cfg.attn_logit_softcap)
     chunked = bool(cfg.swa_chunked and window)
     if (k_scales is None) != (v_scales is None):
         raise ValueError("flash_decode: k_scales and v_scales go together")
-    if not q.is_cuda:
-        return flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale,
-                                  softcap, window, chunked, sinks, k_scales, v_scales)
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
+    if ring and (ring != S or chunked or k_scales is not None):
+        raise ValueError(f"flash_decode: a ring of {ring} over {S} slots"
+                         + (", chunked" if chunked else "")
+                         + (", int8" if k_scales is not None else ""))
+    if not q.is_cuda:
+        return flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale,
+                                  softcap, window, chunked, sinks, k_scales, v_scales, ring)
     Dv = v_all.shape[-1]
     q8 = k_scales is not None
     if Dk != Dv or Dk not in E_HEAD_DIMS:
@@ -187,7 +210,7 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
         sk = sinks.to(torch.float32).contiguous()
     # int64 as the model passes them: no conversion launches on the path
     i64 = [t.to(torch.int64).contiguous() for t in (q_slots, positions, valid_from)]
-    NS = -(-S // E_CH[q8])
+    NS = n_splits(S, q8, ring)
     R = (H // Hkv) * T
     part_ml = torch.empty((B, Hkv, NS, R, 2), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((B, Hkv, NS, R, Dk), dtype=torch.float32, device=q.device)
@@ -197,11 +220,11 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
         k_scales.data_ptr() if q8 else 0, v_scales.data_ptr() if q8 else 0,
         sk.data_ptr() if sk is not None else 0, *(t.data_ptr() for t in i64),
         part_ml.data_ptr(), part_acc.data_ptr(),
-        _counters(q.device, B * Hkv * counters_per_row(S, q8)).data_ptr(),
+        _counters(q.device, B * Hkv * counters_per_row(S, q8, ring)).data_ptr(),
         out.data_ptr(),
         B, T, H, Hkv, S, NS, Dk, int(q8), k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         ks_sb, ks_sh, vs_sb, vs_sh, scale, softcap, int(window), int(chunked),
-        int(sk is not None), _cuda.stream_ptr(qh))
+        int(sk is not None), int(ring), _cuda.stream_ptr(qh))
     _cuda.COUNTS["flash_decode"] += 1
     _cuda.check(err, "flash_decode")
     return out
@@ -219,11 +242,19 @@ def flash_decode_builds(T: int, Dk: int, Dv: int, H: int, Hkv: int, kv_dtype) ->
             and kv_dtype in E_KV_DTYPES)
 
 
+def flash_decode_ring_supported(T: int, Dk: int, Dv: int) -> bool:
+    """The port's gate for a call on an iSWA ring bank, where the JAX
+    package's gate says no (``not ring``, llama.py:277): flash_decode_supported
+    less its conditions on the view's slot count, which a ring (window +
+    chunk slots) need not meet: off unless TPULLM_FLASH_DECODE is set, then
+    T <= 8 and head dims multiples of 128 up to 512."""
+    if not os.environ.get("TPULLM_FLASH_DECODE"):
+        return False
+    return T <= 8 and Dk % 128 == 0 and Dv % 128 == 0 and Dk <= 512 and Dv <= 512
+
+
 def flash_decode_supported(B: int, T: int, S: int, Dk: int, Dv: int, Hkv: int) -> bool:
     """The JAX package's gate as it is (flash_decode.py:243-255): off unless
     TPULLM_FLASH_DECODE is set, then T <= 8, S a multiple of 256, head dims
     multiples of 128 up to 512."""
-    if not os.environ.get("TPULLM_FLASH_DECODE"):
-        return False
-    return (T <= 8 and S % 256 == 0 and Dk % 128 == 0 and Dv % 128 == 0
-            and Dk <= 512 and Dv <= 512 and S >= 256)
+    return flash_decode_ring_supported(T, Dk, Dv) and S % 256 == 0 and S >= 256

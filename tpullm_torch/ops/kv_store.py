@@ -6,8 +6,11 @@ dynamic_update_slice or a scatter (``_store``, llama.py:803-818, 896-910);
 XLA fuses that into the step's program. csrc/kv_store.cu does the whole
 store of a layer in one launch, K and V together: rows (B, T, Hkv, D) go to
 bank[b0 + b, h, slot[b] + t], quantized with their row scales on the int8
-cache; writes at or past the cache's end are dropped. It takes rows in bf16
-or f32 and bf16, f32 or int8 banks; the wrapper raises on anything else.
+cache; writes at or past the cache's end are dropped. On an iSWA ring bank
+(``ring``: the bank's slot count) row t of a call lands at (slot[b] + t) %
+ring and none is dropped (the JAX ``_store(..., wrap=True)``, llama.py:894,
+913). It takes rows in bf16 or f32 and bf16, f32 or int8 banks; the wrapper
+raises on anything else.
 
 ``kv_store_plain`` is the same function in plain PyTorch (``kv_quant``
 and an indexed store). The wrapper takes it for tensors on the CPU only.
@@ -38,32 +41,36 @@ def kv_quant(x):
     return q.to(torch.int8), scale
 
 
-def _store_rows(bank, val, slot, b0: int) -> None:
+def _store_rows(bank, val, slot, b0: int, ring: int = 0) -> None:
     """val (B, T, Hkv[, D]) into bank (B_cache, Hkv, S[, D]) at
-    [b0 + b, h, slot[b] + t], dropping slots outside the cache."""
+    [b0 + b, h, slot[b] + t] (modulo ``ring`` on a ring bank), dropping
+    slots outside the cache."""
     B, T, Hkv = val.shape[:3]
     S = bank.shape[2]
     slots = slot.to(device=bank.device, dtype=torch.int64)[:, None] + torch.arange(
         T, device=bank.device)[None, :]
+    if ring:
+        slots = slots % ring
     bi, ti = ((slots >= 0) & (slots < S)).nonzero(as_tuple=True)
     heads = torch.arange(Hkv, device=bank.device)[None, :]
     bank[(bi + b0)[:, None], heads, slots[bi, ti][:, None]] = val[bi, ti].to(bank.dtype)
 
 
 def kv_store_plain(k_bank, v_bank, k, v, slot, b0: int = 0, ks_bank=None,
-                   vs_bank=None) -> None:
+                   vs_bank=None, ring: int = 0) -> None:
     """One layer's store in plain PyTorch, in place: k (B, T, Hkv, Dk) and v
     (B, T, Hkv, Dv) into the banks (B_cache, Hkv, S, D*) from each row's first
     slot ``slot`` (B,) at cache rows [b0, b0 + B); with int8 banks the rows
     are quantized (``kv_quant``) and their scales go to ks_bank / vs_bank
-    (B_cache, Hkv, S)."""
+    (B_cache, Hkv, S). ``ring`` (the banks' S) makes them a ring: row t goes
+    to slot (slot[b] + t) % ring."""
     if ks_bank is not None:
         (kq, ksc), (vq, vsc) = kv_quant(k), kv_quant(v)
         for bank, val in ((k_bank, kq), (v_bank, vq), (ks_bank, ksc), (vs_bank, vsc)):
-            _store_rows(bank, val, slot, b0)
+            _store_rows(bank, val, slot, b0, ring)
         return
-    _store_rows(k_bank, k, slot, b0)
-    _store_rows(v_bank, v, slot, b0)
+    _store_rows(k_bank, k, slot, b0, ring)
+    _store_rows(v_bank, v, slot, b0, ring)
 
 
 def kv_store_builds(k, v, k_bank, v_bank, quantized: bool) -> bool:
@@ -79,12 +86,15 @@ def kv_store_builds(k, v, k_bank, v_bank, quantized: bool) -> bool:
             and k.shape[-1] == k_bank.shape[-1] and v.shape[-1] == v_bank.shape[-1])
 
 
-def kv_store(k_bank, v_bank, k, v, slot, b0: int = 0, ks_bank=None, vs_bank=None) -> None:
+def kv_store(k_bank, v_bank, k, v, slot, b0: int = 0, ks_bank=None, vs_bank=None,
+             ring: int = 0) -> None:
     """``kv_store_plain``'s contract: on the card one launch of the CUDA
     kernel for K and V; on the CPU the plain version."""
     if not k.is_cuda:
-        kv_store_plain(k_bank, v_bank, k, v, slot, b0, ks_bank, vs_bank)
+        kv_store_plain(k_bank, v_bank, k, v, slot, b0, ks_bank, vs_bank, ring)
         return
+    if ring and ring != k_bank.shape[2]:
+        raise ValueError(f"kv_store: ring {ring} on banks of {k_bank.shape[2]} slots")
     q8 = ks_bank is not None
     if not kv_store_builds(k, v, k_bank, v_bank, q8):
         raise ValueError(
@@ -106,6 +116,6 @@ def kv_store(k_bank, v_bank, k, v, slot, b0: int = 0, ks_bank=None, vs_bank=None
         k.data_ptr(), v.data_ptr(), *k.stride()[:3], *v.stride()[:3], k_bank.data_ptr(),
         v_bank.data_ptr(), ks_bank.data_ptr() if q8 else 0, vs_bank.data_ptr() if q8 else 0,
         slot.data_ptr(), B, T, Hkv, k_bank.shape[2], k.shape[-1], v.shape[-1], int(b0),
-        KV_ROWS[k.dtype], KV_BANKS[k_bank.dtype], _cuda.stream_ptr(k))
+        KV_ROWS[k.dtype], KV_BANKS[k_bank.dtype], int(ring), _cuda.stream_ptr(k))
     _cuda.COUNTS["kv_store"] += 1
     _cuda.check(err, "kv_store")

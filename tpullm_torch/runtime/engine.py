@@ -30,6 +30,12 @@ eagerly.
 The JAX chunk skips the layer stack once every row has sampled EOS
 (``lax.cond``); here the chunk runs to its end and the host trims the
 tokens after EOS, so the output is the same.
+
+``iswa`` gives a model with SWA layers the dual cache (a ring of window +
+``prefill_chunk`` slots on its SWA layers; not on the int8 cache), as the
+JAX engine does (engine.py:53-66); its prefill then runs in pieces of at
+most ``prefill_chunk`` rows, so no forward writes more rows than the ring
+holds beyond the window.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import KVCache, decode_route, forward
+from ..models.llama import KVCache, decode_route, forward, swa_flags
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import GREEDY, SamplerConfig, make_sample_fn
@@ -79,13 +85,14 @@ def decode_chunks(T: int, max_new_tokens: int, max_seq_len: int, decode_chunk: i
 
 
 def step_key(cfg: ModelConfig, B: int, sampler: SamplerConfig, kv_view: int, kv_dtype,
-             on_card: bool) -> tuple:
+             on_card: bool, ring: int = 0) -> tuple:
     """What a captured decode step depends on beyond its buffers: the batch
-    size, the sampler, the kv view and the attention route that forward
+    size, the sampler, the kv view and the attention routes that forward
     takes there (models/llama.py:decode_route, which reads
-    TPULLM_FLASH_DECODE). The JAX key (sampler, chunk, eos, kv_view) less
-    chunk and eos, as one step is captured, not a chunk."""
-    return (B, sampler, kv_view, decode_route(cfg, B, kv_view, kv_dtype, on_card))
+    TPULLM_FLASH_DECODE; a dual cache's ring layers have their own). The JAX
+    key (sampler, chunk, eos, kv_view) less chunk and eos, as one step is
+    captured, not a chunk."""
+    return (B, sampler, kv_view, decode_route(cfg, B, kv_view, kv_dtype, on_card, ring))
 
 
 @dataclass
@@ -120,7 +127,8 @@ class InferenceEngine(_cuda.GraphOwner):
 
     def __init__(self, cfg: ModelConfig, params: dict, max_seq_len: int = 1024,
                  compute_dtype=torch.bfloat16, kv_dtype=None, decode_chunk: int = 32,
-                 device="cuda", cuda_graphs: bool = True):
+                 iswa: bool = False, prefill_chunk: int = 128, device="cuda",
+                 cuda_graphs: bool = True):
         self.device = resolve_device(device)
         pdev = _params_device(params)
         if pdev.type != self.device.type:
@@ -131,13 +139,18 @@ class InferenceEngine(_cuda.GraphOwner):
         self.dtype = compute_dtype
         self.kv_dtype = kv_dtype or compute_dtype
         self.decode_chunk = decode_chunk
+        # the JAX engine's gate (engine.py:64-66): the dual cache only where
+        # there are SWA layers, and never on the int8 cache
+        self.iswa = bool(iswa and any(swa_flags(cfg)) and self.kv_dtype not in ("q8", "int8"))
+        self.prefill_chunk = prefill_chunk
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         self.gen = torch.Generator(device=self.device)  # every draw, eager or replayed
         self.states: dict[int, DecodeState] = {}  # by batch size
         self._init_graphs()  # by step_key
 
     def new_cache(self, batch: int) -> KVCache:
-        return KVCache.create(self.cfg, batch, self.max_seq_len, self.kv_dtype, self.device)
+        return KVCache.create(self.cfg, batch, self.max_seq_len, self.kv_dtype, self.device,
+                              iswa=self.iswa, max_chunk=self.prefill_chunk)
 
     def decode_state(self, B: int) -> DecodeState:
         """The engine's decode buffers for batch size B, made at first use
@@ -151,7 +164,7 @@ class InferenceEngine(_cuda.GraphOwner):
                              torch.zeros((self.decode_chunk, B), dtype=torch.int32,
                                          device=self.device), z(1),
                              _cuda.own_counters(self.device, B, self.cfg.n_head_kv,
-                                                self.max_seq_len))
+                                                self.max_seq_len, cache.ring))
             self.states[B] = st
         return st
 
@@ -171,8 +184,13 @@ class InferenceEngine(_cuda.GraphOwner):
         return to(tokens), to(positions), to(valid_from), T, lens
 
     def _prefill(self, tokens, positions, cache, valid_from):
-        logits, cache = forward(self.params, self.cfg, tokens, positions, cache, 0,
-                                valid_from, self.dtype)
+        """The prompt's forward -> (last row's logits, cache); on a dual cache
+        in pieces of at most prefill_chunk rows (engine.py:199-206)."""
+        T = tokens.shape[1]
+        C = self.prefill_chunk if cache.dual and T > self.prefill_chunk else T
+        for o in range(0, T, C):
+            logits, cache = forward(self.params, self.cfg, tokens[:, o:o + C],
+                                    positions[:, o:o + C], cache, o, valid_from, self.dtype)
         return logits[:, -1, :], cache
 
     def _step(self, st: DecodeState, sample, kv_view: int) -> None:
@@ -194,7 +212,8 @@ class InferenceEngine(_cuda.GraphOwner):
             with _cuda.counters_scope(st.counters):
                 self._step(st, make_sample_fn(sampler), kv_view)
             return
-        key = step_key(self.cfg, st.tok.shape[0], sampler, kv_view, st.cache.k.dtype, True)
+        key = step_key(self.cfg, st.tok.shape[0], sampler, kv_view, st.cache.k.dtype, True,
+                       st.cache.ring)
         graph = self.graphs.get(key)
         if graph is None:
             with _cuda.counters_scope(st.counters):

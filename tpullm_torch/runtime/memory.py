@@ -8,8 +8,12 @@ sequence is a host-side free-slot pop; the cache is updated in place.
 Sequence ops: truncate (seq_rm p0..), clear, prefix reuse (the longest
 common prefix with the slot's previous content), copy_slot (seq_cp), and
 context_shift (seq_rm + seq_add with K re-roped by the shift, on the
-device, dequantizing and requantizing an int8 cache). Saving and restoring
-slots and whole-context state are not ported yet and raise.
+device, dequantizing and requantizing an int8 cache). With ``iswa`` the
+SWA layers keep a ring of window + ``max_chunk`` slots (the dual cache,
+llama_kv_cache_iswa): a prefix is reused only while the ring still holds
+its window, and context_shift refuses (the server reprocesses instead).
+Saving and restoring slots and whole-context state are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -38,11 +42,13 @@ class SlotMemory:
     """Host bookkeeping + device KV cache for n_slots sequences."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_seq_len: int,
-                 kv_dtype=torch.bfloat16, device="cuda"):
+                 kv_dtype=torch.bfloat16, device="cuda", iswa: bool = False,
+                 max_chunk: int = 0):
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq_len = max_seq_len
-        self.cache = KVCache.create(cfg, n_slots, max_seq_len, kv_dtype, device)
+        self.cache = KVCache.create(cfg, n_slots, max_seq_len, kv_dtype, device,
+                                    iswa=iswa, max_chunk=max_chunk)
         self.slots = [SlotState() for _ in range(n_slots)]
 
     def prefix_match(self, slot: int, tokens: list[int]) -> int:
@@ -54,6 +60,13 @@ class SlotMemory:
         hist = st.tokens
         while n < limit and n < len(hist) and hist[n] == tokens[n]:
             n += 1
+        if n and self.cache.dual:
+            # the ring's validity (memory.py:71-79): continuing from n reads
+            # the SWA window's rows [n - W, n); the row of position p lasts
+            # only while no position p + ring has been written
+            oldest = max(0, n - self.cfg.sliding_window)
+            if oldest + self.cache.ring < st.n_past:
+                return 0
         return n
 
     def truncate(self, slot: int, n_keep: int):
@@ -67,7 +80,8 @@ class SlotMemory:
 
     def copy_slot(self, src: int, dst: int):
         """seq_cp of a whole sequence: cache rows dst <- src and metadata."""
-        for buf in (self.cache.k, self.cache.v, self.cache.ks, self.cache.vs):
+        c = self.cache
+        for buf in (c.k, c.v, c.ks, c.vs, c.kw, c.vw):
             if buf is not None:
                 buf[:, dst] = buf[:, src]
         self.slots[dst].n_past = self.slots[src].n_past
@@ -103,6 +117,11 @@ class SlotMemory:
         st = self.slots[slot]
         n_past = st.n_past
         assert n_keep + n_discard <= n_past
+        if self.cache.dual:
+            # a ring row's slot is its position modulo ring: a shift moves
+            # every kept position, so the ring cannot be rolled in place
+            # (memory.py:245-250); the server reprocesses the kept tokens
+            raise RuntimeError("context_shift unsupported on an iSWA cache")
         _context_shift(self.cache, self.cfg, slot, n_keep, n_discard, n_past)
         st.tokens = st.tokens[:n_keep] + st.tokens[n_keep + n_discard:]
         st.n_past = n_past - n_discard

@@ -8,10 +8,10 @@ only). Every flag has an
 environment fallback (TPULLM_<DEST>) and can come from a --preset JSON
 profile (``utils/args.py``). Flags of the JAX server whose features are not
 ported (downloads, LoRA, multimodal, speculation, slot files) raise instead
-of being ignored. The JAX server gives a model with sliding-window layers
-the iSWA ring cache unless --swa-full is passed; the ring is not ported, so
-here such a model needs --swa-full (full-context KV on every layer, the
-same function) and raises without it, before any weight is loaded.
+of being ignored. As the JAX server does, a model with sliding-window
+layers gets the iSWA dual cache (a ring of window + --prefill-chunk slots
+on its SWA layers) unless --swa-full is passed; the int8 cache
+(--kv-type q8) has no ring and stays full-context on every layer.
 """
 import logging
 import sys
@@ -47,8 +47,8 @@ def build_args():
     ap.add("--slot-save-path", default=None, help="not ported")
     ap.add("--mmproj", default=None, help="not ported")
     ap.add("--swa-full", action="store_true",
-           help="full-context KV for SWA layers (the reference's --swa-full); required "
-                "for models with SWA layers, as the window-sized iSWA ring is not ported")
+           help="full-context KV for SWA layers (the reference's --swa-full) instead of "
+                "the window + prefill-chunk ring of the iSWA cache")
     ap.add("--log-level", default=None, help="debug|info|warning|error")
     return ap
 
@@ -62,8 +62,6 @@ def main(argv=None):
         raise SystemExit("tpullm_torch.server: -m/--model is required")
     import torch
 
-    from ..gguf.reader import GGUFFile
-    from ..models.config import config_from_gguf
     from ..runtime.loader import load_model
     from ..tokenizer import Tokenizer
     from .context import ServerContext
@@ -71,11 +69,6 @@ def main(argv=None):
 
     logging.basicConfig(level=(args.log_level or "info").upper())
     log = logging.getLogger("tpullm_torch.server")
-    if config_from_gguf(GGUFFile(args.model)).sliding_window and not args.swa_full:
-        raise NotImplementedError(
-            f"{args.model}: a model with sliding-window layers is served on the iSWA ring "
-            "cache (window-sized SWA banks with their chunked prefill) unless --swa-full is "
-            "given; the ring is not ported to tpullm_torch yet: pass --swa-full")
     log.info("loading %s ...", args.model)
     cfg, params, g = load_model(args.model, device="cuda")
     tok = Tokenizer.from_gguf(g) if g.get("tokenizer.ggml.tokens") else None
@@ -83,9 +76,11 @@ def main(argv=None):
     ctx = ServerContext(cfg, params, tok, n_slots=args.parallel, max_seq_len=args.ctx_size,
                         decode_chunk=args.decode_chunk, prefill_chunk=args.prefill_chunk,
                         model_name=args.alias or args.model.rsplit("/", 1)[-1],
-                        kv_dtype=kv_dtype, device="cuda")
-    log.info("serving %s on http://%s:%s (%d slots, ctx %d, kv %s; %s)", cfg.arch,
+                        kv_dtype=kv_dtype, iswa=not args.swa_full, device="cuda")
+    cache = ctx.memory.cache
+    log.info("serving %s on http://%s:%s (%d slots, ctx %d, kv %s%s; %s)", cfg.arch,
              args.host, args.port, args.parallel, args.ctx_size, args.kv_type,
+             f", iSWA ring of {cache.ring} slots" if cache.dual else "",
              f"{tok.vocab.model} tokenizer, {tok.vocab.n_tokens} tokens" if tok else
              "no vocab in the file: token-id prompts only")
     serve(ctx, args.host, args.port)

@@ -26,11 +26,16 @@ Counterpart of tpullm/server/context.py for the attention family:
 - Stops (EOS, stop strings, limits) are handled on the host between chunks;
   the bounded overrun tokens are discarded (cache rows past n_past are
   masked by position).
+- ``iswa`` gives a model with SWA layers the dual cache (a ring of window +
+  ``prefill_chunk`` slots on its SWA layers; not on the int8 cache), as the
+  JAX server does: a slot that would overflow is then reprocessed from its
+  kept tokens rather than shifted (context.py:877-896), and a prefix is
+  reused only while the ring still holds its window.
 
 Not ported, and refused rather than ignored: LoRA adapters, multimodal
-projectors, speculative decoding, the iSWA dual cache, slot save/restore,
-the recurrent, hybrid and encoder-decoder families, grammar, JSON-schema
-and infill-sampler requests, and embeddings.
+projectors, speculative decoding, slot save/restore, the recurrent, hybrid
+and encoder-decoder families, grammar, JSON-schema and infill-sampler
+requests, and embeddings.
 """
 from __future__ import annotations
 
@@ -177,13 +182,15 @@ class ServerDecodeState:
 
 
 def step_key(cfg: ModelConfig, n_slots: int, kv_view: int, want_probs: bool, kv_dtype,
-             on_card: bool) -> tuple:
+             on_card: bool, ring: int = 0) -> tuple:
     """What a captured server decode step depends on beyond its buffers: the
-    slots, the kv view, whether it writes logprobs, and the attention route
+    slots, the kv view, whether it writes logprobs, and the attention routes
     forward takes there (models/llama.py:decode_route, which reads
-    TPULLM_FLASH_DECODE at each call). The per-row sampler parameters are
-    tensors, so admissions never need a new graph."""
-    return (n_slots, kv_view, want_probs, decode_route(cfg, n_slots, kv_view, kv_dtype, on_card))
+    TPULLM_FLASH_DECODE at each call; a dual cache's ring layers have their
+    own). The per-row sampler parameters are tensors, so admissions never
+    need a new graph."""
+    return (n_slots, kv_view, want_probs,
+            decode_route(cfg, n_slots, kv_view, kv_dtype, on_card, ring))
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -215,10 +222,7 @@ def _refuse_unported(cfg: ModelConfig, params: dict, **opts) -> None:
     """Raise on every construction option and model family not ported."""
     for name, val in opts.items():
         if val:
-            what = (" (the iSWA ring cache: window-sized SWA banks with their chunked "
-                    "prefill; iswa=False keeps full-context KV on every layer)"
-                    if name == "iswa" else "")
-            raise NotImplementedError(f"ServerContext {name}={val!r}{what}: not ported to "
+            raise NotImplementedError(f"ServerContext {name}={val!r}: not ported to "
                                       "tpullm_torch yet")
     family = ("t5" if cfg.arch in ("t5", "t5encoder") else "rwkv" if cfg.wkv_head_size
               else "hybrid" if cfg.hybrid_graph or cfg.ssm_d_conv else None)
@@ -237,16 +241,17 @@ class ServerContext(_cuda.GraphOwner):
                  iswa: bool = False, spec: str | None = None, draft: tuple | None = None,
                  lora: list | None = None, device="cuda", cuda_graphs: bool = True):
         """The JAX ServerContext's signature; every option not ported raises.
-        kv_dtype "q8" selects the int8 cache. Runs on the card unless
-        device="cpu"; there each decode step is a CUDA graph replay unless
+        kv_dtype "q8" selects the int8 cache; iswa the dual cache where the
+        model has SWA layers and the cache is not int8 (its ring holds
+        window + prefill_chunk slots). Runs on the card unless device="cpu";
+        there each decode step is a CUDA graph replay unless
         cuda_graphs=False."""
         self.device = resolve_device(device)
         pdev = params["output_norm"].device
         if pdev.type != self.device.type:
             raise ValueError(f"params are on {pdev}, the server's device is {self.device}")
         _refuse_unported(cfg, params, lora=lora, mmproj_path=mmproj_path, spec=spec,
-                         draft=draft, slot_save_path=slot_save_path,
-                         iswa=iswa and bool(cfg.sliding_window))
+                         draft=draft, slot_save_path=slot_save_path)
         self.tok = tokenizer  # None: token-id prompts, the text is the ids
         self.cfg = cfg
         self.params = params
@@ -257,7 +262,7 @@ class ServerContext(_cuda.GraphOwner):
         self.dtype = compute_dtype
         self.model_name = model_name
         self.memory = SlotMemory(cfg, n_slots, max_seq_len, kv_dtype or compute_dtype,
-                                 self.device)
+                                 self.device, iswa=iswa, max_chunk=prefill_chunk)
         self.rt = [_SlotRt() for _ in range(n_slots)]
         self.queue: "queue.Queue[Task]" = queue.Queue()
         # closures run on the loop thread between decode chunks
@@ -278,7 +283,8 @@ class ServerContext(_cuda.GraphOwner):
         self._bias = torch.zeros((n_slots, V), dtype=torch.float32, device=dev)
         self._bias_set = np.zeros(n_slots, bool)
         self.state = ServerDecodeState.create(n_slots, V, decode_chunk, dev)
-        self.counters = _cuda.own_counters(dev, n_slots, cfg.n_head_kv, max_seq_len)
+        self.counters = _cuda.own_counters(dev, n_slots, cfg.n_head_kv, max_seq_len,
+                                           self.memory.cache.ring)
         self.cuda_graphs = cuda_graphs and dev.type == "cuda"
         self._init_graphs()  # by step_key
         self.metrics = {
@@ -476,7 +482,9 @@ class ServerContext(_cuda.GraphOwner):
         return row
 
     def _context_shift_overdue(self, n_steps: int):
-        """Shift slots that would overflow the cache this chunk."""
+        """Shift slots that would overflow the cache this chunk; on a dual
+        cache, whose ring cannot shift, reprocess the kept tokens through
+        the prompt path instead (context.py:877-896)."""
         S = self.max_seq_len
         for i in range(self.n_slots):
             if not self._active[i] or self._pos[i] + n_steps + 1 < S:
@@ -485,14 +493,22 @@ class ServerContext(_cuda.GraphOwner):
             st = self.memory.slots[i]
             keep = r.task.params.n_keep or min(r.n_prompt, S // 4)
             nd = max((st.n_past - keep) // 2, n_steps + 1)
-            self.memory.context_shift(i, keep, nd)
-            self._pos[i] = st.n_past
+            if self.memory.cache.dual:
+                kept = st.tokens[:keep] + st.tokens[keep + nd:]
+                self.memory.clear_slot(i)
+                self._active[i] = False
+                self._pos[i] = 0
+                r.pending = kept
+            else:
+                self.memory.context_shift(i, keep, nd)
+                self._pos[i] = st.n_past
             self.metrics["context_shifts_total"] = (
                 self.metrics.get("context_shifts_total", 0) + 1)
 
     def _kv_view_bucket(self, n_steps: int) -> int:
         """Power-of-two attention view (>= 512) covering every active slot's
-        furthest write this chunk."""
+        furthest write this chunk. It bounds the full banks only: forward
+        reads a ring bank whole."""
         pos = [int(self._pos[i]) for i in range(self.n_slots) if self._active[i]]
         need = (max(pos) if pos else 0) + n_steps + 1
         v = 512
@@ -535,7 +551,7 @@ class ServerContext(_cuda.GraphOwner):
             self._step(kv_view, want_probs)
             return
         key = step_key(self.cfg, self.n_slots, kv_view, want_probs,
-                       self.memory.cache.k.dtype, True)
+                       self.memory.cache.k.dtype, True, self.memory.cache.ring)
         graph = self.graphs.get(key)
         if graph is None:
             self._warm_up_and_capture(key, kv_view, want_probs)

@@ -48,11 +48,13 @@ def params_from_numpy(cfg_dict: dict, params: dict, device="cuda"):
     return cfg, out
 
 
-def kv_cache_from_numpy(k, v, ks=None, vs=None, device="cuda"):
+def kv_cache_from_numpy(k, v, ks=None, vs=None, device="cuda", kw=None, vw=None,
+                        ring: int = 0):
     """A JAX KVCache's arrays (k, v and, for the int8 cache, the ks/vs row
     scales, all as numpy; head-major (L, B, Hkv, S, D)) -> the port's
-    KVCache on ``device``. bf16 arrives as ml_dtypes bfloat16 and is carried
-    through its bits."""
+    KVCache on ``device``; a dual cache also brings its ring banks kw/vw
+    (L_swa, B, Hkv, ring, D) and ``ring``. bf16 arrives as ml_dtypes
+    bfloat16 and is carried through its bits."""
     from ..models.llama import KVCache
 
     device = resolve_device(device)
@@ -66,4 +68,4 @@ def kv_cache_from_numpy(k, v, ks=None, vs=None, device="cuda"):
                 torch.bfloat16).to(device)
         return torch.from_numpy(np.array(a)).to(device)
 
-    return KVCache(conv(k), conv(v), conv(ks), conv(vs))
+    return KVCache(conv(k), conv(v), conv(ks), conv(vs), conv(kw), conv(vw), int(ring))

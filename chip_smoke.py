@@ -78,8 +78,8 @@ pass):
    counting the (token, layer) routings that differ between the card and
    the CPU;
 7. the MoE slice: the 32-layer Mixtral-8x7B model answers phase 4's 4
-   requests through InferenceEngine.generate (graph replays), three times
-   for the rates' spread, with kernels A, B, C, F and A's skip variant
+   requests through InferenceEngine.generate (graph replays; each rate the
+   median of 3 samples), with kernels A, B, C, F and A's skip variant
    launched and D not, and once eagerly with the same tokens and launch
    counts;
 8. phase 5's decode-step (graph and eager) and prefill profiles on the MoE
@@ -140,7 +140,20 @@ pass):
    tokens and a follow-up that reuses the 12000-token prefix, every
    request 200 and no ring-layer call on the einsum path, peak memory,
    then a decode chunk at those depths, graph against eager and profiled
-   as graph replays.
+   as graph replays;
+13. the layernorm, bias and parallel-residual decoders at full width, the
+   Gemma weights freed first: Command-R 35B (layernorm without bias, the
+   parallel block off the attention's norm, 64/64 heads of 128, logit
+   scale 0.0625, a tied 256000-row lm_head) and StarCoder2-15B's width
+   (layernorm, q/k/v, output and FFN biases, the ungated gelu FFN), each
+   with 2 layers against the CPU as phase 3, D never launched; kernel rows
+   at Command-R's shapes (A and B on its five weights, C and E at a GQA
+   group of 1, the store at 64 kv heads); then the 40-layer Command-R 35B
+   model: the slice with E on (A, B, C, E and the store launched, D not;
+   every prefill attention call on C), its decode profile as graph replays
+   and a prefill profile, and its server (4 slots of 8192, int8 KV, E on):
+   token-id completions of 6000/2000/700/40 tokens, every request 200,
+   and a decode chunk, graph against eager and profiled as graph replays.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
@@ -148,12 +161,14 @@ activations stay in range through 32 layers and greedy tokens vary;
 synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
 card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
 q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
-tied lm_head, and the Qwen MoE models synth_moe_q4k's). The last
+tied lm_head, Command-R and StarCoder2 with their layernorms, biases and
+blocks, and the Qwen MoE models synth_moe_q4k's). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
 slice and server, the Gemma-2-9B slice, server and ring server, the
-Gemma-7B-width run), the card's name and power limit, and the result line.
+Gemma-7B-width run, the Command-R 35B slice and server), the card's name
+and power limit, and the result line.
 """
 import gc
 import hashlib
@@ -758,6 +773,32 @@ def phase_kernels(torch, timer, entries):
     _cuda.reset_counts()
 
 
+def weight_rows(torch, timer, entries, g, weights, path, ms=(("qmm_splitk", 4), ("qmm", 2048))):
+    """Rows of kernels A and B, each (kernel, M) of ``ms``, on random Q4_K
+    weights of a path's model: each (name, parts, K) of ``weights`` drawn
+    from ``g`` in turn (one part at its logical rows over the padded
+    arrays, as loaded), then each row's x."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops.qtensor import QTensor
+    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
+    from tpullm_torch.utils.synth import random_kmajor
+
+    qtype = GGMLType.Q4_K
+    for name, parts, K in weights:
+        qt = random_kmajor(qtype, parts, K, (), g, "cuda")
+        if len(parts) == 1:
+            qt = QTensor(qtype, (parts[0], K), qt.data)
+        w_bf16 = dequant_kmajor_torch(qt.data, qtype, torch.bfloat16)[: qt.n_out]
+        for kname, M in ms:
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            qmm_row(torch, timer, entries, kname,
+                    f"{kname}[{name} {qt.n_out}x{K},{qtype.name},M={M},{path}]", x, qt, w_bf16,
+                    path=path)
+            del x
+        del qt, w_bf16
+        torch.cuda.empty_cache()
+
+
 def phase_qwen_kernels(torch, timer, entries):
     """Phase 2's rows at the Qwen phase's shapes, Q4_K, each at the M its
     path gives it: kernels A and B on Qwen3-8B's new weights (gate/up N
@@ -769,36 +810,18 @@ def phase_qwen_kernels(torch, timer, entries):
     Qwen2.5-7B's heads (a GQA group of 7) at that run's prefill (B 2, T 128,
     S 256) and first decode step (bf16 K/V, queries at slot 128 from
     valid_from 0 and 28)."""
-    from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.ops import _cuda
-    from tpullm_torch.ops.qtensor import QTensor
-    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
-    from tpullm_torch.utils.synth import random_kmajor
 
     g = torch.Generator(device="cuda").manual_seed(1515)
     q3, q25 = QWEN3, QWEN25
     d25, hd25 = q25["n_embd"], q25["n_head_kv"] * HD
-    weights = [("Qwen3-8B", "gateup", [q3["n_ff"]] * 2, D),
-               ("Qwen3-8B", "down", [D], q3["n_ff"]),
-               ("Qwen3-8B", "lm_head", [q3["vocab_size"]], D),
-               ("Qwen2.5-7B", "wqkv", [d25, hd25, hd25], d25),
-               ("Qwen2.5-7B", "gateup", [q25["n_ff"]] * 2, d25),
-               ("Qwen2.5-7B", "down", [d25], q25["n_ff"])]
-    for path, name, parts, K in weights:
-        qtype = GGMLType.Q4_K
-        qt = random_kmajor(qtype, parts, K, (), g, "cuda")
-        if len(parts) == 1:  # the logical rows over the padded arrays, as loaded
-            qt = QTensor(qtype, (parts[0], K), qt.data)
-        w_bf16 = dequant_kmajor_torch(qt.data, qtype, torch.bfloat16)[: qt.n_out]
-        for kname, M in ((("qmm_splitk", 4), ("qmm", 2048)) if path == "Qwen3-8B" else
-                         (("qmm_splitk", 2), ("qmm", 256))):
-            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            qmm_row(torch, timer, entries, kname,
-                    f"{kname}[{name} {qt.n_out}x{K},{qtype.name},M={M},{path}]", x, qt, w_bf16,
-                    path=path)
-            del x
-        del qt, w_bf16
-        torch.cuda.empty_cache()
+    weight_rows(torch, timer, entries, g, [("gateup", [q3["n_ff"]] * 2, D),
+                                           ("down", [D], q3["n_ff"]),
+                                           ("lm_head", [q3["vocab_size"]], D)], "Qwen3-8B")
+    weight_rows(torch, timer, entries, g, [("wqkv", [d25, hd25, hd25], d25),
+                                           ("gateup", [q25["n_ff"]] * 2, d25),
+                                           ("down", [d25], q25["n_ff"])], "Qwen2.5-7B",
+                (("qmm_splitk", 2), ("qmm", 256)))
     layer_rows(torch, timer, entries, g, n_ff=q3["n_ff"], path="Qwen3-8B")
     attn_row(torch, timer, entries, g, B=2, T=128, S=256, n_past=0, vf=[0, 28],
              path="Qwen2.5-7B", heads=(q25["n_head"], q25["n_head_kv"]))
@@ -1258,19 +1281,22 @@ def plain_cpu_copy(torch, params):
     (QTensor.dequant) and held in the same memory order, so the products
     are bit-identical, without
     dequantizing the 128256-row lm_head and each layer's weights on every
-    call."""
+    call. The weights are dequantized on the card and copied to the host:
+    dequant_kmajor_torch is exact f32 products and sums, one op at a time,
+    so the card's bits are the CPU's (tests/test_torch_gpu.py holds them
+    equal for every K-major type) in a fraction of the host's time."""
     from tpullm_torch.ops.qtensor import QTensor
 
     def conv(k, v):
         if isinstance(v, dict):
             return {n: conv(n, t) for n, t in v.items()}
-        v = v.to("cpu")
         if isinstance(v, QTensor) and v.layout == "kmajor" and k != "tok_embd":
             # stored K-major in memory, as dequant_kmajor_torch returns it:
             # the same operand layout, so the same BLAS summation order
-            w = v.dequant(torch.float32).transpose(-1, -2).contiguous().transpose(-1, -2)
+            w = v.dequant(torch.float32).transpose(-1, -2).contiguous().cpu().transpose(-1, -2)
+            torch.cuda.empty_cache()
             return QTensor(v.qtype, v.shape, {"w": w})
-        return v
+        return v.to("cpu")
 
     return {k: conv(k, v) for k, v in params.items()}
 
@@ -1296,8 +1322,12 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
     spec = dict(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H, n_head_kv=HKV, n_ff=N_FF)
     spec.update(model)
     vocab = spec["vocab_size"]
+    t0 = time.perf_counter()
     cfg, params = synth_kmajor_q4k_fast(**spec, seed=seed, centred=True, device="cuda")
+    torch.cuda.synchronize()
+    t_synth = time.perf_counter() - t0
     cpu = plain_cpu_copy(torch, params)
+    t_copy = time.perf_counter() - t0 - t_synth
     rng = np.random.default_rng(3)
     B, T = len(lens), max(lens)
     tok = np.zeros((B, T), np.int64)
@@ -1352,7 +1382,9 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
         f"logits nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
         f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the "
         f"largest); greedy agree {agree}; card s {[round(x, 3) for x in sides['card']['sec']]} "
-        f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]}; launches {counts}")
+        f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]} cpu bf16 s "
+        f"{[round(x, 2) for x in sides['cpu_bf16']['sec']]}; synth {t_synth:.1f} s, CPU copy "
+        f"{t_copy:.1f} s; launches {counts}")
     if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
         raise AssertionError(f"{label} parity: nmse {errs}, tolerance {tol}")
     _cuda.reset_counts()
@@ -1561,11 +1593,11 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
     return counts
 
 
-def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
+def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
     """Phases 4 and 7: a 32-layer model answers 4 requests through
     generate, each decode step a replay of the engine's CUDA graph: one run
     with the launch counts (set to 0 just before it; replays add their
-    capture's counts), then ``repeats`` timed runs (prefill alone, then
+    capture's counts), then one timed run (prefill alone, then
     prefill + 32 decode steps, each the median of 3 samples, so that one
     sample's host stall moves neither the prefill rate nor the decode ms,
     their difference over 32). Then one eager pass of the same requests
@@ -1602,12 +1634,10 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     r1, t_capture = timed(eng, new)  # its first step is the warm-up, then the capture
     counts = dict(_cuda.COUNTS)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    pre, step_ms = [], []
-    for _ in range(repeats):
-        _, t_pre = median_timed(eng, 1)
-        r2, t_all = median_timed(eng, new)
-        pre.append(sum(lens) / t_pre)
-        step_ms.append((t_all - t_pre) / dec_steps * 1e3)
+    _, t_pre = median_timed(eng, 1)
+    r2, t_all = median_timed(eng, new)
+    pre = sum(lens) / t_pre
+    step_ms = (t_all - t_pre) / dec_steps * 1e3
     flat = [t for row in r1.tokens for t in row]
     in_range = all(0 <= t < vocab for t in flat)
     same = r1.tokens == r2.tokens
@@ -1619,9 +1649,8 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), repeats=1):
     eager_ms = (t_all - t_pre) / dec_steps * 1e3
     graph_eq = r_eager.tokens == r1.tokens
     log(f"slice {label} (times: medians of 3 samples): prefill {sum(lens)} tokens (bucket "
-        f"4x512) {[round(x, 1) for x in pre]} tok/s; decode {len(lens)}x{dec_steps} tokens "
-        f"{[round(x, 2) for x in step_ms]} ms/step "
-        f"({[round(len(lens) * 1e3 / x, 1) for x in step_ms]} tok/s) as graph replays "
+        f"4x512) {pre:.1f} tok/s; decode {len(lens)}x{dec_steps} tokens "
+        f"{step_ms:.2f} ms/step ({len(lens) * 1e3 / step_ms:.1f} tok/s) as graph replays "
         f"(first run with its capture {t_capture:.3f} s), eager {eager_ms:.2f} ms/step; "
         f"graphs {len(eng.graphs)}; peak memory {peak:.3f} GB; launches {counts}; "
         f"eager launches equal {eager_counts == counts}; tokens in range {in_range}; "
@@ -2592,33 +2621,17 @@ def phase_gemma_kernels(torch, entries):
     the server's decode step and 512-row chunk and the engine's decode step;
     kernel D with gelu at Gemma-7B's layer (3072 wide, 16/16 heads of 256,
     n_ff 24576), M = 4, plain and folded."""
-    from tpullm_torch.gguf.constants import GGMLType
     from tpullm_torch.ops import _cuda
-    from tpullm_torch.ops.qtensor import QTensor
-    from tpullm_torch.quant.kmajor import dequant_kmajor_torch
-    from tpullm_torch.utils.synth import random_kmajor
 
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(1717)
     gm = GEMMA2
     d, hd, nq, nkv = gm["n_embd"], gm["head_dim"], gm["n_head"], gm["n_head_kv"]
     heads = (nq, nkv)
-    for name, parts, K in (("wqkv", [nq * hd, nkv * hd, nkv * hd], d),
-                           ("gateup", [gm["n_ff"]] * 2, d), ("down", [d], gm["n_ff"]),
-                           ("lm_head", [gm["vocab_size"]], d)):
-        qtype = GGMLType.Q4_K
-        qt = random_kmajor(qtype, parts, K, (), g, "cuda")
-        if len(parts) == 1:  # the logical rows over the padded arrays, as loaded
-            qt = QTensor(qtype, (parts[0], K), qt.data)
-        w_bf16 = dequant_kmajor_torch(qt.data, qtype, torch.bfloat16)[: qt.n_out]
-        for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
-            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            qmm_row(torch, timer, entries, kname,
-                    f"{kname}[{name} {qt.n_out}x{K},{qtype.name},M={M},Gemma-2-9B]", x, qt,
-                    w_bf16, path="Gemma-2-9B")
-            del x
-        del qt, w_bf16
-        torch.cuda.empty_cache()
+    weight_rows(torch, timer, entries, g, [("wqkv", [nq * hd, nkv * hd, nkv * hd], d),
+                                           ("gateup", [gm["n_ff"]] * 2, d),
+                                           ("down", [d], gm["n_ff"]),
+                                           ("lm_head", [gm["vocab_size"]], d)], "Gemma-2-9B")
     for window in (0, GEMMA_PARITY_WINDOW):
         attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
                  path="Gemma-2-9B", heads=heads, hd=hd, softcap=50.0, window=window)
@@ -2645,16 +2658,18 @@ def phase_gemma_kernels(torch, entries):
     _cuda.reset_counts()
 
 
-def phase_gemma_server(torch, cfg, params, label="Gemma-2-9B"):
-    """Phase 11c: the 42-layer Gemma-2-9B model behind serve() on a free
-    local port: ServerContext with 4 slots of 8192, an int8 cache, no
-    tokenizer (token-id prompts; the text is the ids), iswa=False (the
-    CLI's --swa-full: full-context KV on every layer), kernel E on, each
+def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None):
+    """Phases 11c and 13c (Gemma-2-9B, Command-R 35B): the model behind
+    serve() on a free local port: ServerContext with 4 slots of 8192, an
+    int8 cache, no tokenizer (token-id prompts; the text is the ids),
+    iswa=False (on a model with SWA layers, the CLI's --swa-full:
+    full-context KV on every layer), kernel E on, each
     decode step a CUDA graph replay. With the launch counts set to 0, a
-    burst of GEMMA_SERVER_PROMPTS (the 6000-token prompt past the 4096
-    window, in C's 512-row chunks and in E's steps), 64 new tokens each:
-    every request answered 200 with its 64 tokens; A, B, C, E and the store
-    launched, D not (the post-norms close it). Then, with the loop stopped
+    burst of ``server_prompts`` (GEMMA_SERVER_PROMPTS by default: the
+    6000-token prompt past Gemma-2's 4096 window, in C's 512-row chunks and
+    in E's steps), 64 new tokens each: every request answered 200 with its
+    64 tokens; A, B, C, E and the store launched, D not (Gemma-2's
+    post-norms close it, and Command-R's layernorm). Then, with the loop stopped
     and the prompts prefilled anew, one decode chunk as graph replays
     against eager steps, then profiled as graph replays
     (server_chunk_profile): device ms a step and the busy share. The
@@ -2669,8 +2684,9 @@ def phase_gemma_server(torch, cfg, params, label="Gemma-2-9B"):
     from tpullm_torch.server.http import serve
 
     vocab = cfg.vocab_size
+    server_prompts = server_prompts or GEMMA_SERVER_PROMPTS
     rng = np.random.default_rng(17)
-    prompts = [rng.integers(0, vocab, n).tolist() for n in GEMMA_SERVER_PROMPTS]
+    prompts = [rng.integers(0, vocab, n).tolist() for n in server_prompts]
     ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=8192, decode_chunk=8,
                         prefill_chunk=512, kv_dtype="q8", iswa=False,
                         model_name=label.lower() + "-shape")
@@ -2712,15 +2728,16 @@ def phase_gemma_server(torch, cfg, params, label="Gemma-2-9B"):
         srv.shutdown()
         srv.server_close()
         ctx.stop()
-    log(f"server {label} (4 slots x 8192, q8 KV, iswa off (--swa-full), decode_chunk 8, "
-        f"prefill_chunk 512, kernel E; prompts {GEMMA_SERVER_PROMPTS}, {SERVER_NEW} new tokens "
+    swa = ", iswa off (--swa-full)" if cfg.sliding_window else ""
+    log(f"server {label} (4 slots x 8192, q8 KV{swa}, decode_chunk 8, "
+        f"prefill_chunk 512, kernel E; prompts {server_prompts}, {SERVER_NEW} new tokens "
         f"each): {json.dumps(report)}")
     log(f"server {label}: launches (burst) {counts}")
     missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
                if counts[k] <= 0]
     if missing or counts["layer_kernel"]:
         raise AssertionError(f"server {label}: kernels not launched {missing}, layer kernel "
-                             f"{counts['layer_kernel']} (the post-norms close it)")
+                             f"{counts['layer_kernel']} (off this model's path)")
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -2758,7 +2775,7 @@ def phase_gemma(torch, entries):
     every prefill attention call routed to C, none to the einsum path, C
     launched once a layer for the counted run's one prefill) and its
     decode-step profile as graph replays; (c) its server
-    (phase_gemma_server); then phase 12 on the same weights
+    (phase_q8_server); then phase 12 on the same weights
     (phase_gemma_ring). -> launch counts by path."""
     from unittest import mock
 
@@ -2822,7 +2839,7 @@ def phase_gemma(torch, entries):
     torch.cuda.empty_cache()
     log(f"phase slice Gemma-2-9B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    counts["Gemma-2-9B server"] = phase_gemma_server(torch, cfg, params)
+    counts["Gemma-2-9B server"] = phase_q8_server(torch, cfg, params)
     log(f"phase server Gemma-2-9B: {time.perf_counter() - t:.1f} s")
     counts.update(phase_gemma_ring(torch, entries, cfg, params))
     del cfg, params
@@ -3160,6 +3177,153 @@ def phase_gemma_ring(torch, entries, cfg, params):
     return counts
 
 
+# Command-R 35B (CohereForAI/c4ai-command-r-v01 config.json): hidden 8192, 40
+# layers, 64 heads and 64 kv heads of 128 (full multi-head attention, a GQA
+# group of 1), intermediate 22528, vocab 256000, tied embeddings, logit_scale
+# 0.0625, layernorm without bias at layer_norm_eps 1e-5, rope_theta 8e6,
+# use_parallel_block (attention and the gated silu FFN both off the
+# attention's norm); the arch row gives interleaved RoPE
+COMMAND_R = dict(arch="command-r", vocab_size=256000, n_embd=8192, n_layer=40, n_head=64,
+                 n_head_kv=64, n_ff=22528, rope_base=8e6, exact_vocab=True, tied=True,
+                 cfg_fields=dict(norm_eps=1e-5, logit_scale=0.0625))
+# StarCoder2-15B (bigcode/starcoder2-15b config.json): hidden 6144, 40 layers,
+# 48/4 heads of 128, intermediate 24576, vocab 49152, use_bias (q/k/v, the
+# output projection, the MLP's two projections, the layernorms), gelu (tanh)
+# without a gate, norm_epsilon 1e-5, rope_theta 1e5; an untied lm_head here
+STARCODER2 = dict(arch="starcoder2", vocab_size=49152, n_embd=6144, n_layer=40, n_head=48,
+                  n_head_kv=4, n_ff=24576, rope_base=1e5, exact_vocab=True,
+                  cfg_fields=dict(norm_eps=1e-5))
+CR_SERVER_PROMPTS = [6000, 2000, 700, 40]  # the Command-R burst (the Gemma server's)
+
+
+def phase_command_r_kernels(torch, entries):
+    """Phase 13a: phase 2's rows at Command-R 35B's shapes, each held
+    against its plain version and timed beside it, one library call and the
+    bound: kernels A (M = 4) and B (M = 2048) on its wqkv (24576 x 8192),
+    wo (8192 x 8192), gate/up (45056 x 8192), down (8192 x 22528) and the
+    tied 256000-row lm_head, Q4_K; kernel C at 64/64 heads of 128 (G = 1)
+    at the engine slice's prefill (B 4, T 512, S 1024) and at the server's
+    last chunk of its 6000-token prompt (query slots 5632-6143 over an
+    8192-slot view); kernel E at the server's int8 step (rows at
+    6000/2000/700/40 of 8192) and the engine's bf16 step (1024-slot view,
+    rows at 527); the KV store at 64 kv heads of 128, bit for bit, at the
+    server's int8 decode step and a 512-row chunk at 5632."""
+    from tpullm_torch.ops import _cuda
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(1919)
+    cr = COMMAND_R
+    d, nq, nkv = cr["n_embd"], cr["n_head"], cr["n_head_kv"]
+    hd = d // nq
+    heads = (nq, nkv)
+    weight_rows(torch, timer, entries, g, [("wqkv", [nq * hd, nkv * hd, nkv * hd], d),
+                                           ("wo", [d], nq * hd),
+                                           ("gateup", [cr["n_ff"]] * 2, d),
+                                           ("down", [d], cr["n_ff"]),
+                                           ("lm_head", [cr["vocab_size"]], d)], "Command-R 35B")
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
+             path="Command-R 35B", heads=heads, hd=hd)
+    attn_row(torch, timer, entries, g, B=1, T=512, S=8192, n_past=5632, vf=[0],
+             path="Command-R 35B server", heads=heads, hd=hd)
+    decode_row(torch, timer, entries, g, "Command-R 35B server", 8192, CR_SERVER_PROMPTS,
+               [0, 0, 0, 0], True, heads=heads, path="Command-R 35B server", hd=hd)
+    decode_row(torch, timer, entries, g, "Command-R 35B engine", 1024, [527] * 4,
+               [0, 212, 312, 412], False, heads=heads, path="Command-R 35B", hd=hd)
+    store_row(torch, timer, entries, g, "Command-R 35B server decode", "Command-R 35B server",
+              1, CR_SERVER_PROMPTS, 0, 8192, True, heads=heads, hd=hd)
+    store_row(torch, timer, entries, g, "Command-R 35B server prefill chunk",
+              "Command-R 35B server", 512, [5632], 2, 8192, True, heads=heads, hd=hd)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+
+
+def phase_command_r(torch, entries):
+    """Phase 13, the layernorm, bias and parallel-residual decoders at full
+    width: (a) the 2-layer parities against the CPU (phase 3's rule) of
+    Command-R 35B (layernorm without bias, the parallel block off the
+    attention's norm, logit_scale 0.0625, the tied 256000-row lm_head; E in
+    its decode steps, at a GQA group of 1) and of StarCoder2-15B's width
+    (layernorm biases, q/k/v biases, bo, the ungated gelu FFN with its
+    biases; the einsum decode), neither launching D; then the kernel rows
+    (phase_command_r_kernels); (b) the 40-layer Command-R 35B model's engine
+    slice with TPULLM_FLASH_DECODE=1 (A, B, C, E and the store launched, D
+    not; every prefill attention call routed to C), its decode-step profile
+    as graph replays and one prefill profile; (c) its server
+    (phase_q8_server: 4 slots of 8192, int8 KV, E on, a burst of
+    6000/2000/700/40 tokens, a decode chunk profiled). The Gemma weights
+    are freed before it; every model's Q4_K weights here are drawn on the
+    card (synth_kmajor_q4k_fast's generator: Command-R's 21.9 GB would take
+    ~47 s from numpy). -> launch counts by path."""
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    counts = {}
+    for label, spec, flag, seed in (("Command-R 35B", COMMAND_R, "1", 19),
+                                    ("StarCoder2-15B width", STARCODER2, None, 20)):
+        t = time.perf_counter()
+        c = phase_parity(torch, f"{label} (depth cut from {spec['n_layer']})", seed=seed,
+                         flash_decode=flag, last_only=True, **dict(spec, n_layer=2),
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+        counts[f"{label} 2-layer"] = c
+        want = ["qmm_splitk", "qmm", "flash_attention", "kv_store"] + (
+            ["flash_decode"] if flag else [])
+        missing = [k for k in want if c[k] <= 0]
+        if missing or c["layer_kernel"]:
+            raise AssertionError(f"{label} parity: kernels not launched {missing}, layer "
+                                 f"kernel {c['layer_kernel']} (layernorm closes it)")
+        log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_command_r_kernels(torch, entries)
+    log(f"phase kernels Command-R 35B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_kmajor_q4k_fast(**COMMAND_R, seed=0, centred=True, device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"slice Command-R 35B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
+        f"{time.perf_counter() - t:.3f} s; config {cfg.arch} norm {cfg.norm_type} eps "
+        f"{cfg.norm_eps:g} parallel_residual {cfg.parallel_residual} heads "
+        f"{cfg.n_head}/{cfg.n_head_kv} of {cfg.head_dim} rope {cfg.rope_type} "
+        f"{cfg.rope_base:g} logit_scale {cfg.logit_scale:g} tied {cfg.tie_embeddings}; layer "
+        f"tensors {sorted(params['layers'])}")
+    routes = {}
+    counted_route = route_counter(routes, lambda a, r: ("prefill" if a[2] > 1 else "decode", r))
+    set_flash_decode("1")
+    try:
+        with mock.patch.object(llama, "attention_route", counted_route):
+            counts["Command-R 35B"], eng, eager, prompts = phase_slice(
+                torch, "Command-R 35B", cfg, params, cfg.vocab_size,
+                ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store"),
+                ("layer_kernel",))
+        log(f"slice Command-R 35B: attention routes of every call (prefill or decode, route) "
+            f"{ {f'{a} {b}': n for (a, b), n in routes.items()} }")
+        if set(r for (kind, r) in routes if kind == "prefill") != {"flash_attention"}:
+            raise AssertionError(f"Command-R 35B prefill: attention routes {routes}")
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_decode(torch, eng, prompts, " Command-R 35B graph")
+        phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention"),
+                              " Command-R 35B")
+    finally:
+        set_flash_decode(None)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice Command-R 35B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["Command-R 35B server"] = phase_q8_server(torch, cfg, params, "Command-R 35B",
+                                                     CR_SERVER_PROMPTS)
+    log(f"phase server Command-R 35B: {time.perf_counter() - t:.1f} s")
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
     qts = [params["tok_embd"], params["output"]] + [
@@ -3472,7 +3636,7 @@ def main() -> int:
     log(f"slice Mixtral: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
         f"{time.perf_counter() - t:.3f} s")
     moe_counts, eng, eager, prompts = phase_slice(torch, "Mixtral-8x7B", cfg, params, M_VOCAB,
-                                                  MOE_KERNELS, ("layer_kernel",), repeats=3)
+                                                  MOE_KERNELS, ("layer_kernel",))
     del cfg, params
     log(f"phase slice Mixtral: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -3487,9 +3651,11 @@ def main() -> int:
     qwen_counts = phase_qwen(torch)
     qwen_moe_counts = phase_qwen_moe(torch, entries)
     gemma_counts = phase_gemma(torch, entries)
+    command_r_counts = phase_command_r(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
-               "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts}
+               "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
+               **command_r_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

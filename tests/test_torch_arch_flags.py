@@ -48,6 +48,11 @@ PLAIN_ARCHS = ["mistral", "mistral3", "internlm2", "exaone", "baichuan", "xverse
 # sliding windows): their snapshots run the port's new fields
 SCALE_ARCHS = ["granite", "minicpm", "granitemoe"]
 GEMMA_ARCHS = ["gemma", "gemma2", "gemma3"]
+# the layernorm, bias and parallel-residual rows (their snapshots and the
+# rest of their cases are in tests/test_torch_layernorm.py)
+LAYERNORM_ARCHS = ["stablelm", "orion", "cohere2", "olmo", "starcoder2", "codeshell",
+                   "nemotron", "jais2", "arcee", "phi2", "command-r", "gptneox", "falcon",
+                   "gptj", "plamo"]
 KMAJOR_ARCHS = ["qwen3", "qwen2", "qwen", "glm4", "olmo2"]
 PROMPTS = [[3, 9, 4, 17, 6], [5, 1, 2], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 2, 3, 4, 5,
                                          6, 7, 8, 9, 30]]
@@ -75,7 +80,7 @@ def test_registry_rows_are_the_jax_rows():
     """Each of the port's rows is the JAX package's row as it is."""
     from tpullm.models.registry import ARCH_REGISTRY as JREG
 
-    assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS
+    assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS + LAYERNORM_ARCHS
                + ["llama", "mixtral", "qwen3moe", "qwen2moe"]) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch

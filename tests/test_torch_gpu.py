@@ -1653,3 +1653,132 @@ def test_ring_engine_graph_matches_eager(cuda, monkeypatch, flag):
                            (False, "flash_decode" if flag else "flash_attention")}, ring_routes
     assert len(engines[True].graphs) == 1
     assert _counters_zero(*engines.values())
+
+
+# ------------------------------------------------ the layernorm slice's shapes
+
+@pytest.mark.parametrize("T,n_past,S,S_full,valid_from", [
+    (512, 0, 1024, 1024, (0, 212)), (512, 5632, 8192, 8192, (0,))],
+    ids=["engine", "server-deep"])
+def test_layernorm_heads_flash_attention_g1(cuda, T, n_past, S, S_full, valid_from):
+    """Kernel C at Command-R's heads: 64 query heads over 64 kv heads of
+    128 (a GQA group of 1, so each K/V tile serves one query head), at the
+    engine's prefill (T 512 from slot 0, valid_from 0 and 212) and the
+    server's last chunk of a 6000-token prompt (query slots 5632-6143 over
+    an 8192-slot view): NMSE < 1e-4 against the masked softmax over rows
+    with a visible key, rows with none exactly 0, two calls bit-identical."""
+    q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda, 64, 64, T, S, S_full, valid_from, n_past)
+    cfg = ModelConfig(n_head=64, n_head_kv=64, head_dim=128, head_dim_v=128)
+    got = flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
+    again = flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
+    want = masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / 128 ** 0.5, 0.0, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for b, f in enumerate(vf.tolist()):
+        live = qs[b] >= f
+        assert torch.count_nonzero(got[b, ~live]) == 0
+        assert _nmse(got[b, live], want[b, live]) < 1e-4
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("S,slots,valid_from", [
+    (8192, (6000, 2000, 700, 40), (0, 0, 0, 0)), (1024, (527,) * 4, (0, 212, 312, 412))],
+    ids=["server", "engine"])
+def test_layernorm_heads_flash_decode_g1(cuda, monkeypatch, q8, S, slots, valid_from):
+    """Kernel E at Command-R's heads, 64 over 64 kv heads of 128 (one query
+    row a kv head in E's 16-row mma tile): the server's step (rows at
+    6000/2000/700/40 of 8192) and the engine's (1024-slot view, rows at
+    527), bf16 and int8, NMSE < 1e-4 against the plain version, two calls
+    bit-identical."""
+    from tpullm_torch.models.llama import attention_route
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, q8, B=4, T=1, H=64, Hkv=64, S=S,
+                                                     slots=slots, valid_from=valid_from)
+    cfg = ModelConfig(n_head=64, n_head_kv=64, head_dim=128, head_dim_v=128)
+    monkeypatch.setenv("TPULLM_FLASH_DECODE", "1")
+    kv_dtype = torch.int8 if q8 else torch.bfloat16
+    assert attention_route(True, 4, 1, S, 128, 128, 64, 64, kv_dtype) == "flash_decode"
+    got = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    again = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    want = flash_decode_plain(q, k, v, qs, pos, vf, 128 ** -0.5, 0.0, 0, False, None, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _nmse(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("flag", [None, "1"])
+@pytest.mark.parametrize("arch", ["command-r", "starcoder2"])
+def test_layernorm_engine_on_card_matches_cpu(cuda, monkeypatch, arch, flag):
+    """The layernorm slice on the card: a 2-layer command-r synth (layernorm
+    without bias, the parallel block off the attention's norm, gated silu,
+    logit_scale 0.0625, tied embeddings; 8/8 heads of 128, G = 1) and a
+    2-layer starcoder2 synth (layernorm with biases, q/k/v biases, bo, the
+    ungated gelu FFN with its biases; 12/2 heads of 128), each with a
+    500-row vocab, through the engine on the card against the plain path
+    on the CPU in f32, within 4x the plain bf16 error; A, B, C and the
+    store launched (E with the flag), D never; then the same requests with
+    cuda_graphs=False give the graph's greedy tokens and launch counts."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    if arch == "command-r":
+        spec = dict(n_embd=1024, n_head=8, n_head_kv=8, n_ff=2816, tied=True,
+                    rope_base=8e6, cfg_fields=dict(norm_eps=1e-5, logit_scale=0.0625))
+    else:
+        spec = dict(n_embd=1536, n_head=12, n_head_kv=2, n_ff=6144,
+                    rope_base=1e5, cfg_fields=dict(norm_eps=1e-5))
+    cfg, params = synth_kmajor_q4k_fast(vocab_size=500, n_layer=2, seed=3, centred=True,
+                                        device="cpu", arch=arch, exact_vocab=True, **spec)
+    card = {k: (v.to("cuda") if not isinstance(v, dict) else
+                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    if cfg.tie_embeddings:
+        card["output"] = card["tok_embd"]
+    prompts = [list(range(1, 101)), list(range(7, 67)), list(range(40, 70))]
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(prompts, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    assert logits["card"][0].shape[-1] == 500
+    for k in ("qmm_splitk", "qmm", "flash_attention", "kv_store"):
+        assert c[k] > 0, (k, c)
+    assert c["layer_kernel"] == 0 and (c["flash_decode"] > 0) == bool(flag), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+    top2 = torch.topk(logits["cpu"][0], 2, dim=-1).values
+    for b, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+        if gap > 0.05:
+            assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
+
+
+@pytest.mark.parametrize("qtype", sorted(KM_SPECS, key=lambda t: t.name))
+def test_dequant_on_card_equals_cpu(cuda, qtype):
+    """dequant_kmajor_torch gives the same f32 bits on the card as on the
+    CPU for every K-major type (exact f32 products and sums, one op at a
+    time), stacked and flat: chip_smoke.py's plain CPU copy dequantizes on
+    the card and copies the weights to the host."""
+    from tpullm_torch.ops.qtensor import QTensor
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qt = random_kmajor(qtype, [300, 200], 1024, (2,), g, cuda)
+    on_card = qt.dequant(torch.float32).cpu()
+    on_cpu = qt.to("cpu").dequant(torch.float32)
+    assert on_card.dtype == on_cpu.dtype == torch.float32
+    assert torch.equal(on_card, on_cpu)
+    flat = QTensor(qt.qtype, qt.shape[1:], {k: v[1] for k, v in qt.data.items()})
+    assert torch.equal(flat.dequant(torch.float32).cpu(), flat.to("cpu").dequant(torch.float32))

@@ -449,7 +449,7 @@ def test_qwen_moe_keys_parse():
 
 @pytest.mark.parametrize("key,value", [
     ("qwen2moe.leading_dense_block_count", 1), ("qwen2moe.expert_shared_count", 2),
-    ("qwen3moe.expert_group_count", 4), ("qwen3moe.attention.clamp_kqv", 8.0)])
+    ("qwen3moe.expert_group_count", 4), ("qwen3moe.attention.value_scale", 2.0)])
 def test_graph_changing_key_raises(key, value):
     arch = key.split(".")[0]
     with pytest.raises(NotImplementedError, match=key):

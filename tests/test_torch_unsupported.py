@@ -20,10 +20,10 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("swa_chunked", True), ("clamp_kqv", 8.0), ("n_expert", 8),
+    ("swa_chunked", True), ("use_rope", False), ("n_expert", 8),
     ("n_expert_shared", 2), ("qk_l2_norm", True), ("attn_out_scale", 0.5),
     ("attn_gate_proj", True),
-    ("parallel_residual", True), ("act_fn", "relu2"), ("norm_type", "layernorm"),
+    ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
     ("swa_dense_first", True), ("kv_lora_rank", 64), ("alibi_max_bias", 8.0)])
 def test_flag_outside_dense_path_raises(field, value):
     cfg = ModelConfig()
@@ -78,7 +78,7 @@ def test_dense_keys_parse():
 
 @pytest.mark.parametrize("key,value", [
     ("llama.expert_shared_count", 2), ("llama.attention.sliding_window_pattern", [1, 0]),
-    ("llama.attention.clamp_kqv", 8.0), ("llama.rope.scaling.finetuned", True),
+    ("llama.attention.max_alibi_bias", 8.0), ("llama.rope.scaling.finetuned", True),
     ("llama.attention.value_scale", 2.0), ("xielu.alpha_n", [0.8]),
     ("llama.leading_dense_block_count", 1), ("llama.experts_per_group", 2)])
 def test_gguf_key_outside_dense_path_raises(key, value):
@@ -92,8 +92,8 @@ def test_per_layer_head_counts_raise():
 
 
 def test_other_arch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="phi2"):
-        load_model(_gguf(tmp_path, arch="phi2"), device="cpu")
+    with pytest.raises(NotImplementedError, match="bloom"):
+        load_model(_gguf(tmp_path, arch="bloom"), device="cpu")
 
 
 def test_unread_tensor_raises(tmp_path):

@@ -190,8 +190,8 @@ class ModelConfig:
 # arch-unprefixed xielu.* keys, configure a feature the port does not run
 # (shared experts, expert groups, dense lead layers, ...): config_from_gguf
 # raises on them rather than parsing and ignoring them.
-# attention.layer_norm_epsilon goes to norm_eps as in the JAX parser; only
-# layernorm paths read it, and those raise in models/llama.py.
+# attention.layer_norm_epsilon goes to norm_eps as in the JAX parser; the
+# layernorm archs read it (models/llama.py:_norm).
 DENSE_KEYS = frozenset({
     "context_length", "embedding_length", "block_count", "feed_forward_length",
     "vocab_size", "attention.head_count", "attention.head_count_kv",
@@ -206,6 +206,8 @@ DENSE_KEYS = frozenset({
     "attention.sliding_window", "attention.sliding_window_pattern",
     "attn_logit_softcapping", "final_logit_softcapping", "rope.freq_base_swa",
     "embedding_scale", "residual_scale", "logit_scale",
+    # olmo's clamp of q, k and v
+    "attention.clamp_kqv",
 })
 # the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser).
 # expert_shared_feed_forward_length (qwen2moe) is read by neither parser:
@@ -276,6 +278,9 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
             setattr(cfg, attr, float(v))
     cfg.swa_pattern = int(get("attention.sliding_window_pattern", 0) or 1)
     cfg.rope_base_swa = float(get("rope.freq_base_swa", 0.0) or 0.0)
+    cl = get("attention.clamp_kqv")
+    if cl is not None:
+        cfg.clamp_kqv = float(cl)
     asc = get("attention.scale")
     if asc is not None:
         cfg.attn_scale = float(asc)

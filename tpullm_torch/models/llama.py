@@ -3,12 +3,15 @@ in PyTorch.
 
 Counterpart of tpullm/models/llama.py for the configurations the port
 covers: the token embedding (times embedding_scale: gemma, granite,
-minicpm) -> RMSNorm -> fused QKV (or the GGUF-fused attn_qkv) -> optional
-q/k/v biases -> optional q/k RMS norms (per head before or after RoPE, or
-over the flat rows) -> RoPE (neox or interleaved, full or partial; SWA
-layers at rope_base_swa where the file gives one) -> GQA attention over a
+minicpm) -> RMSNorm or layernorm (with or without weight and bias) -> fused
+QKV (or the GGUF-fused attn_qkv) -> optional q/k/v biases -> optional q/k
+norms (per head before or after RoPE, or over the flat rows) -> RoPE (neox
+or interleaved, full or partial; SWA layers at rope_base_swa where the file
+gives one) -> an optional clamp of q, k and v -> GQA attention over a
 head-major KV cache (optional logit softcap; a sliding window on the layers
-swa_pattern marks) -> output projection -> gated SiLU or GELU FFN, or the
+swa_pattern marks) -> output projection and its optional bias -> gated
+SiLU or GELU FFN, ungated GELU or relu2 FFN (optional up and down biases),
+in sequence or in parallel with attention (the parallel residual), or the
 routed-expert MoE FFN (softmax or sigmoid router, top-k, optional
 renormalization and scale, an optional gated SiLU shared expert with an
 optional per-token sigmoid gate; no expert biases, latent or chunk
@@ -66,8 +69,7 @@ from ..quant.kmajor import f32_on_device
 from .config import ModelConfig
 
 # ModelConfig fields the dense decoder path reads; every other field must
-# keep its default (check_dense). norm_eps is read only by layernorm paths,
-# which raise through norm_type.
+# keep its default (check_dense). norm_eps is the layernorm archs' eps.
 DENSE_FIELDS = frozenset({
     "arch", "vocab_size", "n_embd", "n_layer", "n_head", "n_head_kv",
     "head_dim", "head_dim_v", "n_ff", "n_ctx_train", "rms_eps", "norm_eps",
@@ -83,9 +85,14 @@ DENSE_FIELDS = frozenset({
     # granite/minicpm scales
     "act_fn", "embedding_scale", "attn_logit_softcap", "final_logit_softcap",
     "sliding_window", "swa_pattern", "rope_base_swa", "residual_scale", "logit_scale",
+    # the layernorm, bias and parallel-residual decoders (stablelm, starcoder2,
+    # phi2, command-r, falcon, olmo's clamp, nemotron's relu2, ...)
+    "norm_type", "ffn_gate", "parallel_residual", "clamp_kqv",
 })
-# act_fn values of the dense FFN (llama.py:624-629); the MoE FFN runs silu
-DENSE_ACTS = ("silu", "gelu")
+# act_fn values of the dense FFN (llama.py:624-658): gated silu or gelu,
+# ungated gelu or relu2; the MoE FFN runs gated silu
+GATED_ACTS, UNGATED_ACTS = ("silu", "gelu"), ("gelu", "relu2")
+NORM_TYPES = ("rmsnorm", "layernorm")
 # the routed-expert MoE FFN's fields, accepted only with MoE tensors
 MOE_FIELDS = frozenset({
     "n_expert", "n_expert_used", "expert_gating", "expert_weights_norm",
@@ -110,10 +117,15 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
                 f"ModelConfig.{f.name}={getattr(cfg, f.name)!r}: not on the "
                 f"{'dense decoder or MoE' if moe else 'dense decoder'} path the PyTorch "
                 "port covers")
-    if cfg.act_fn not in (("silu",) if moe else DENSE_ACTS):
+    acts = ("silu",) if moe else GATED_ACTS if cfg.ffn_gate else UNGATED_ACTS
+    if cfg.act_fn not in acts:
         raise NotImplementedError(
-            f"ModelConfig.act_fn={cfg.act_fn!r}: the {'MoE' if moe else 'dense'} FFN of the "
-            "PyTorch port runs " + (" or ".join(("silu",) if moe else DENSE_ACTS)))
+            f"ModelConfig.act_fn={cfg.act_fn!r}: the {'MoE' if moe else 'dense'} "
+            f"{'gated' if cfg.ffn_gate else 'ungated'} FFN of the PyTorch port runs "
+            + " or ".join(acts))
+    if cfg.norm_type not in NORM_TYPES:
+        raise NotImplementedError(
+            f"ModelConfig.norm_type={cfg.norm_type!r}: the port runs " + " or ".join(NORM_TYPES))
     if moe and (cfg.n_expert < 1 or not 1 <= cfg.n_expert_used <= cfg.n_expert
                 or cfg.expert_gating not in ("softmax", "sigmoid")):
         raise NotImplementedError(
@@ -238,6 +250,12 @@ def bank_map(cfg: ModelConfig, dual: bool) -> list:
     return out
 
 
+def params_device(params: dict) -> torch.device:
+    """The device of a model's params: its embedding's (olmo's weightless
+    layernorm leaves no output_norm)."""
+    return next(iter(params["tok_embd"].data.values())).device
+
+
 def dequant_view(q, scale, dtype):
     """int8 rows and their f32 scales -> rows in ``dtype`` (llama.py:904-907)."""
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
@@ -250,6 +268,29 @@ def rms_norm(x, w, eps):
     if w is not None:
         y = y * w.to(torch.float32)
     return y.to(x.dtype)
+
+
+def layer_norm(x, w, b, eps):
+    """f32 mean and variance, then the optional weight and bias, cast back
+    (llama.py:150-159); olmo's weightless layernorm has neither."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) * (xf - mu)).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if w is not None:
+        y = y * w.to(torch.float32)
+    if b is not None:
+        y = y + b.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def _norm(x, w, b, cfg: ModelConfig):
+    """The stream's norm by cfg.norm_type (llama.py:667-670): layernorm at
+    norm_eps (rms_eps where the file gives none), else RMS, which reads no
+    bias."""
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, w, b, cfg.norm_eps or cfg.rms_eps)
+    return rms_norm(x, w, cfg.rms_eps)
 
 
 def _rot_dim(n_rot: float, cfg: ModelConfig) -> float:
@@ -390,21 +431,35 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
                             valid_from, *attention_params(cfg, layer_is_swa), ring)
 
 
-def ffn(x, qw, li, cfg: ModelConfig, dtype):
-    """Gated SiLU or GELU (tanh approximation, llama.py:624-629) FFN on fused
-    (or separate) gate/up weights."""
-    if "ffn_gateup" in qw:
+def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
+    """The dense FFN (llama.py:596-665): gated SiLU or GELU (tanh
+    approximation) on fused (or separate) gate/up weights, or with
+    cfg.ffn_gate off the ungated GELU or relu(u)**2 on up alone; the up and
+    down biases (lw: the layer's float tensors) added in the compute dtype
+    where the layer has them."""
+    lw = lw or {}
+    if not cfg.ffn_gate:
+        u = qmm(x, qw["ffn_up"], dtype, li)
+    elif "ffn_gateup" in qw:
         y = qmm(x, qw["ffn_gateup"], dtype, li)
         g = y[..., : cfg.n_ff]
         u = y[..., pad256(cfg.n_ff): pad256(cfg.n_ff) + cfg.n_ff]
     else:
         g = qmm(x, qw["ffn_gate"], dtype, li)
         u = qmm(x, qw["ffn_up"], dtype, li)
-    if cfg.act_fn == "gelu":
-        a = torch.nn.functional.gelu(g.to(torch.float32), approximate="tanh")
+    if "ffn_up_b" in lw:
+        u = u + lw["ffn_up_b"].to(dtype)
+    gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
+    if not cfg.ffn_gate:  # the activation of up itself
+        uf = u.to(torch.float32)
+        h = (gelu(uf) if cfg.act_fn == "gelu" else torch.relu(uf) ** 2).to(dtype)
     else:
-        a = torch.nn.functional.silu(g.to(torch.float32))
-    return qmm(a.to(dtype) * u, qw["ffn_down"], dtype, li)
+        gf = g.to(torch.float32)
+        h = (gelu(gf) if cfg.act_fn == "gelu" else torch.nn.functional.silu(gf)).to(dtype) * u
+    out = qmm(h, qw["ffn_down"], dtype, li)
+    if "ffn_down_b" in lw:
+        out = out + lw["ffn_down_b"].to(dtype)
+    return out
 
 
 def top_k(probs, k: int):
@@ -556,26 +611,45 @@ def _expert_mm(x, qt: QTensor, li, e: int, dtype):
     return qmm(x, expert_weight(qt, li, e), dtype)
 
 
+# the layernorm archs' biases of the stream norms
+NORM_BIAS_KEYS = frozenset({"attn_norm_b", "ffn_norm_b", "attn_norm_2_b"})
 _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
                          "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
                          "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm",
-                         "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp"}
-                        ) | MOE_KEYS | SHEXP_KEYS
+                         "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
+                         "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b"}
+                        ) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS
 
 
 def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     """Layer tensors this config's graph would not read (the JAX package
     ignores them; the port raises rather than drop weights): among them the
     shared expert of a layer without routed experts, and the shared
-    expert's gate without the shared expert."""
+    expert's gate without the shared expert; norm biases without
+    layernorm; attn_norm_2 without the parallel block, and ffn_norm or
+    post_ffn_norm in a parallel block that does not read them; gate
+    weights of an ungated FFN; the dense FFN's biases on a MoE layer."""
     unread = {"bq", "bk", "bv"} if not cfg.attn_bias else set()
     if not (cfg.attn_qk_norm or cfg.attn_qk_norm_flat):
         unread |= {"q_norm", "k_norm"}
     if not cfg.post_norms:
         unread |= {"post_attn_norm", "post_ffn_norm"}
     if not cfg.pre_norm:
-        unread |= {"attn_norm", "ffn_norm"}
-    if not (cfg.n_expert > 0 and "moe_gate_inp" in gl):
+        unread |= {"attn_norm", "ffn_norm", "attn_norm_b", "ffn_norm_b"}
+    if cfg.norm_type != "layernorm":
+        unread |= NORM_BIAS_KEYS
+    if not cfg.parallel_residual:
+        unread |= {"attn_norm_2", "attn_norm_2_b"}
+    else:  # llama.py:1280-1290: attn_norm_2, else ffn_norm, else h
+        unread.add("post_ffn_norm")
+        if "attn_norm_2" in gl:
+            unread |= {"ffn_norm", "ffn_norm_b"}
+    if not cfg.ffn_gate:
+        unread |= {"ffn_gate", "ffn_gateup"}
+    moe = cfg.n_expert > 0 and "moe_gate_inp" in gl
+    if moe:
+        unread |= {"ffn_up_b", "ffn_down_b"}
+    else:
         unread |= SHEXP_KEYS | {"moe_gate_inp_shexp"}
     if "ffn_gate_shexp" not in gl:
         unread.add("moe_gate_inp_shexp")
@@ -588,16 +662,19 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     (llama.py:1382-1397, 1416-1423) with "the tensors are on the card" in
     place of "the default backend is the TPU". The layer kernel runs a
     decode step's wo, post-attention residual, ffn_norm and FFN; it takes
-    no bias and no flat q/k norm (the QK norm per head runs in attention,
-    on the QKV rows the kernel emits). Folded, it also emits the next
-    layer's norm and fused QKV. The JAX gate's other tensors (bo, the
-    norm biases, attn_norm_2) raise in forward before it is asked.
+    no bias (q/k/v, bo, the FFN's or ffn_norm's), no attn_norm_2 and no
+    flat q/k norm (the QK norm per head runs in attention, on the QKV rows
+    the kernel emits); its own gate (block_supported) closes it to
+    layernorm, the parallel block and the ungated FFN. Folded, it also
+    emits the next layer's norm and fused QKV.
 
     One condition is the port's own: the kernel adds its residuals unscaled,
     so a residual_scale other than 1 (granite, minicpm) keeps the layer off
     it. The JAX gate does not ask (ops/layer_kernel.py:410-428), so on the
     TPU those layers' decode would drop the scale."""
-    use_block = (B * T <= 16 and on_card and "ffn_norm" in gl
+    use_block = (B * T <= 16 and on_card and "ffn_norm" in gl and "ffn_norm_b" not in gl
+                 and not any(k in gl for k in ("bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
+                                               "attn_norm_2"))
                  and not cfg.attn_bias and not cfg.attn_qk_norm_flat
                  and cfg.residual_scale == 1.0 and block_supported(cfg, qw))
     use_fold = use_block and "wqkv" in qw and n_groups == 1 and "attn_norm" in gl
@@ -679,10 +756,12 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     def attend(q, k, v, li, qn=None, kn=None):
         """Flat q/k/v rows -> attention output (B, T, H * hdv), this layer's
         K/V stored (_attend_qkv, llama.py:833-910). qn/kn: the layer's q/k
-        norm weights, over the flat rows (attn_qk_norm_flat) or per head,
-        before RoPE or after it (qk_norm_post_rope)."""
+        norm weights, over the flat rows (attn_qk_norm_flat: the stream's
+        norm type, as in the JAX package) or per head (RMS), before RoPE or
+        after it (qk_norm_post_rope). clamp_kqv clamps q, k and v after
+        RoPE (llama.py:889-892)."""
         if cfg.attn_qk_norm_flat:
-            q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
+            q, k = _norm(q, qn, None, cfg), _norm(k, kn, None, cfg)
         q, k = q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd)
         if cfg.attn_qk_norm and not cfg.qk_norm_post_rope:
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
@@ -692,6 +771,9 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         if cfg.attn_qk_norm and cfg.qk_norm_post_rope:
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
         v = v.reshape(B, T, Hkv, hdv)
+        if cfg.clamp_kqv:
+            c = cfg.clamp_kqv
+            q, k, v = (torch.clamp(t, -c, c) for t in (q, k, v))
         kv_q8 = k_view = v_view = None
         on_ring, bi = banks[li]
         if cache.quantized:  # llama.py:896-910
@@ -729,9 +811,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         return q, k, v
 
     def pre_norm(x, lw, key):
-        """The attention or FFN input: the residual stream, normed unless
-        pre_norm is off (olmo2, exaone4: llama.py:1157-1158, 1293-1294)."""
-        return rms_norm(x, lw.get(key), cfg.rms_eps) if cfg.pre_norm else x
+        """The attention or FFN input: the residual stream, normed (with the
+        norm's bias on layernorm archs) unless pre_norm is off (olmo2,
+        exaone4: llama.py:1157-1158, 1293-1294)."""
+        return _norm(x, lw.get(key), lw.get(key + "_b"), cfg) if cfg.pre_norm else x
 
     def post_norm(y, lw, key):
         """The attention or FFN output as the residual adds it: normed by
@@ -739,11 +822,21 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         then times residual_scale (granite/minicpm, llama.py:1278-1279,
         1321-1322)."""
         if cfg.post_norms and key in lw:
-            y = rms_norm(y, lw[key], cfg.rms_eps)
+            y = _norm(y, lw[key], None, cfg)
         if cfg.residual_scale != 1.0:
             y = (y.to(torch.float32) * cfg.residual_scale).to(dtype)
         return y
 
+    def ffn_of(h2, qw, li, lw):
+        """The layer's FFN: routed experts where it has them
+        (llama.py:1273-1276), else the dense FFN."""
+        if cfg.n_expert > 0 and "moe_gate_inp" in qw:
+            return moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"))
+        return ffn(h2, qw, li, cfg, dtype, lw)
+
+    if "output_norm_b" in params and cfg.norm_type != "layernorm":
+        raise NotImplementedError(
+            f"output_norm_b: the config of arch {cfg.arch!r} (RMS norm) reads no norm bias")
     off = 0
     for gl in groups:
         extra = set(gl) - _LAYER_KEYS
@@ -762,7 +855,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             # prime layer 0's norm + fused qkv; each layer kernel then emits
             # the next layer's qkv
             anrm = gl["attn_norm"]
-            y = qmm(rms_norm(x, anrm[0], cfg.rms_eps), qw["wqkv"], dtype, 0)
+            y = qmm(_norm(x, anrm[0], None, cfg), qw["wqkv"], dtype, 0)
             for li in range(L_g):
                 lw = {k: v[li] for k, v in fl.items()}
                 yd = y.to(dtype)
@@ -773,22 +866,32 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         else:
             for li in range(L_g):
                 lw = {k: v[li] for k, v in fl.items()}
-                att = attend(*qkv_of(pre_norm(x, lw, "attn_norm"), qw, li, lw), off + li,
-                             lw.get("q_norm"), lw.get("k_norm"))
+                h = pre_norm(x, lw, "attn_norm")
+                att = attend(*qkv_of(h, qw, li, lw), off + li, lw.get("q_norm"),
+                             lw.get("k_norm"))
                 if use_block:
                     x = ffn_block(att, x, lw["ffn_norm"], qw, li, cfg).to(dtype)
                     continue
-                x = x + post_norm(qmm(att, qw["wo"], dtype, li), lw, "post_attn_norm")
+                a = qmm(att, qw["wo"], dtype, li)
+                if "bo" in lw:  # llama.py:1264-1265
+                    a = a + lw["bo"].to(dtype)
+                a = post_norm(a, lw, "post_attn_norm")
+                if cfg.parallel_residual:  # llama.py:1280-1290
+                    if "attn_norm_2" in lw:  # falcon-40B
+                        h2 = _norm(x, lw["attn_norm_2"], lw.get("attn_norm_2_b"), cfg)
+                    elif "ffn_norm" in lw:  # gptneox
+                        h2 = _norm(x, lw["ffn_norm"], lw.get("ffn_norm_b"), cfg)
+                    else:  # phi2, command-r, falcon-7B, gptj, plamo: the attention's input
+                        h2 = h
+                    x = x + a + ffn_of(h2, qw, li, lw)
+                    continue
+                x = x + a
                 h2 = pre_norm(x, lw, "ffn_norm")
-                if cfg.n_expert > 0 and "moe_gate_inp" in qw:  # llama.py:1273-1276
-                    f = moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"))
-                else:
-                    f = ffn(h2, qw, li, cfg, dtype)
-                x = x + post_norm(f, lw, "post_ffn_norm")
+                x = x + post_norm(ffn_of(h2, qw, li, lw), lw, "post_ffn_norm")
         off += L_g
     if logits_idx is not None:  # llama.py:1527-1530
         x = x[:, logits_idx: logits_idx + 1]
-    x = rms_norm(x, params.get("output_norm"), cfg.rms_eps)
+    x = _norm(x, params.get("output_norm"), params.get("output_norm_b"), cfg)
     logits = qmm(x, params["output"], dtype).to(torch.float32)
     if cfg.logit_scale != 1.0:  # llama.py:1546-1547: a product, as in the JAX package
         logits = logits * cfg.logit_scale

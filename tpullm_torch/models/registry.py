@@ -55,6 +55,35 @@ ARCH_REGISTRY: dict[str, dict] = {
     # maincoder (src/models/maincoder.cpp): per-head qk norm AFTER rope
     "maincoder": dict(rope_type="norm", attn_qk_norm=True,
                       qk_norm_post_rope=True),
+    # layernorm, bias and parallel-residual decoders
+    "phi2": dict(rope_type="neox", parallel_residual=True, norm_type="layernorm", act_fn="gelu", ffn_gate=False, attn_bias=True),
+    "starcoder2": dict(rope_type="neox", norm_type="layernorm", act_fn="gelu", ffn_gate=False, attn_bias=True),
+    "gptneox": dict(rope_type="neox", norm_type="layernorm", act_fn="gelu", ffn_gate=False, parallel_residual=True, attn_bias=True),
+    "stablelm": dict(rope_type="neox", norm_type="layernorm"),
+    "cohere2": dict(rope_type="norm", norm_type="layernorm", swa_pattern=4),
+    "command-r": dict(rope_type="norm", norm_type="layernorm", parallel_residual=True),
+    "codeshell": dict(rope_type="neox", norm_type="layernorm", act_fn="gelu",
+                      ffn_gate=False, attn_bias=True),
+    # falcon (src/models/falcon.cpp): parallel attention+FFN off the attn
+    # norm (7B) or a second norm (40B, attn_norm_2)
+    "falcon": dict(rope_type="neox", norm_type="layernorm", act_fn="gelu",
+                   ffn_gate=False, parallel_residual=True),
+    # olmo-1 (src/models/olmo.cpp): weightless layernorm, optional clamp
+    "olmo": dict(rope_type="norm", norm_type="layernorm"),
+    "nemotron": dict(rope_type="neox", norm_type="layernorm", act_fn="relu2",
+                     ffn_gate=False, attn_bias=True),
+    "orion": dict(rope_type="neox", norm_type="layernorm"),
+    "plamo": dict(rope_type="neox", parallel_residual=True),
+    # gptj: enum-only in the reference (no loader/graph there,
+    # src/llama-arch.cpp:17 with no llama_model_gptj) — covered here by
+    # the flag table: parallel residual, gelu MLP, first-rot-dims rope
+    "gptj": dict(rope_type="norm", parallel_residual=True, act_fn="gelu",
+                 ffn_gate=False),
+    "arcee": dict(rope_type="norm", act_fn="relu2", ffn_gate=False),
+    # jais2 (src/models/jais2.cpp): layernorm + relu2 no-gate MLP, biases on
+    # attention and FFN projections
+    "jais2": dict(rope_type="neox", norm_type="layernorm", act_fn="relu2",
+                  ffn_gate=False, attn_bias=True),
 }
 
 

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import KVCache, decode_route, forward, swa_flags
+from ..models.llama import KVCache, decode_route, forward, params_device, swa_flags
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import GREEDY, SamplerConfig, make_sample_fn
@@ -118,10 +118,6 @@ class DecodeState:
     counters: dict  # kernel D's and E's arrival counters (_cuda.own_counters)
 
 
-def _params_device(params: dict) -> torch.device:
-    return params["output_norm"].device
-
-
 class InferenceEngine(_cuda.GraphOwner):
     """Single-model batch inference with on-device sampling."""
 
@@ -130,7 +126,7 @@ class InferenceEngine(_cuda.GraphOwner):
                  iswa: bool = False, prefill_chunk: int = 128, device="cuda",
                  cuda_graphs: bool = True):
         self.device = resolve_device(device)
-        pdev = _params_device(params)
+        pdev = params_device(params)
         if pdev.type != self.device.type:
             raise ValueError(f"params are on {pdev}, engine device is {self.device}")
         self.cfg = cfg

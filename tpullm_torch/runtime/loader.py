@@ -10,9 +10,12 @@ Expert weights (E, n, k) are repacked per expert and stacked to
 and so do the shared expert's (qwen2moe), whose sigmoid gate vector loads
 as f32 (loader.py:103-107, 362). The dense decoder's flag tensors load as
 the JAX package names them: q/k biases and norms, the GGUF-fused attn_qkv
-with its bias, and the post-norms. Every other tensor (expert biases,
-ffn_norm_exps, chunk experts, the output bias, ...) raises, and so does a
-shared expert without all of its gate, up and down.
+with its bias, the post-norms, the layernorm archs' norm biases (the
+output norm's too), falcon-40B's attn_norm_2, the output projection's bias
+and the dense FFN's up and down biases (loader.py:25, 35, 64, 189-215).
+Every other tensor (expert biases, ffn_norm_exps, chunk experts, the
+output bias that phi-2's file carries, ...) raises, and so does a shared
+expert without all of its gate, up and down.
 """
 from __future__ import annotations
 
@@ -32,21 +35,28 @@ from ..quant.numpy_impl import dequantize
 # GGUF tensor-name suffix -> params key, for the tensors of a dense llama
 LAYER_TENSORS = {
     "attn_norm.weight": "attn_norm",
+    "attn_norm.bias": "attn_norm_b",
+    "attn_norm_2.weight": "attn_norm_2",  # falcon-40B's parallel FFN norm
+    "attn_norm_2.bias": "attn_norm_2_b",
     "attn_q.weight": "wq",
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
     "attn_qkv.weight": "wqkv_cat",  # GGUF-fused [q;k;v] (qwen)
     "attn_qkv.bias": "bqkv_cat",
     "attn_output.weight": "wo",
+    "attn_output.bias": "bo",
     "attn_q.bias": "bq",
     "attn_k.bias": "bk",
     "attn_v.bias": "bv",
     "attn_q_norm.weight": "q_norm",
     "attn_k_norm.weight": "k_norm",
     "ffn_norm.weight": "ffn_norm",
+    "ffn_norm.bias": "ffn_norm_b",
     "ffn_gate.weight": "ffn_gate",
     "ffn_up.weight": "ffn_up",
+    "ffn_up.bias": "ffn_up_b",
     "ffn_down.weight": "ffn_down",
+    "ffn_down.bias": "ffn_down_b",
     "post_attention_norm.weight": "post_attn_norm",
     "post_ffw_norm.weight": "post_ffn_norm",
     # routed experts (loader.py:91-94); the router is F32 in real GGUFs and
@@ -64,15 +74,18 @@ LAYER_TENSORS = {
 # norms, biases and the shared expert's gate load as f32 arrays
 # (loader.py:209-229, 362)
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
-                     "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp"}
+                     "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp",
+                     "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
+                     "ffn_up_b", "ffn_down_b"}
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
     "output.weight": "output",
     "output_norm.weight": "output_norm",
+    "output_norm.bias": "output_norm_b",
     "rope_freqs.weight": "rope_freqs",
 }
-_FLOAT_GLOBALS = {"output_norm", "rope_freqs"}
+_FLOAT_GLOBALS = {"output_norm", "output_norm_b", "rope_freqs"}
 
 
 def _to_float_array(g: GGUFFile, name: str) -> np.ndarray:

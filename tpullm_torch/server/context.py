@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import MOE_KEYS, check_dense, decode_route, forward
+from ..models.llama import MOE_KEYS, check_dense, decode_route, forward, params_device
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import BatchSamplerParams, PenaltyState, SamplerConfig, sample_batch
@@ -247,7 +247,7 @@ class ServerContext(_cuda.GraphOwner):
         there each decode step is a CUDA graph replay unless
         cuda_graphs=False."""
         self.device = resolve_device(device)
-        pdev = params["output_norm"].device
+        pdev = params_device(params)
         if pdev.type != self.device.type:
             raise ValueError(f"params are on {pdev}, the server's device is {self.device}")
         _refuse_unported(cfg, params, lora=lora, mmproj_path=mmproj_path, spec=spec,

@@ -44,7 +44,8 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
                           arch: str = "llama", rope_base: float = 10000.0,
                           rms_eps: float = 1e-5,
                           exact_vocab: bool = False, head_dim: int | None = None,
-                          tied: bool = False, cfg_fields: dict | None = None):
+                          tied: bool = False, cfg_fields: dict | None = None,
+                          generator: torch.Generator | None = None):
     """-> (ModelConfig, params) with every tensor on ``device``. Each weight
     is drawn on the host, moved to the device and released before the next,
     so host memory holds one weight at a time.
@@ -65,7 +66,21 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     norms. ``tied=True`` makes the lm_head the embedding (one draw, as a
     GGUF without output.weight loads: cfg.tie_embeddings). ``cfg_fields``
     sets config fields as a file's keys would, before the row's defaults
-    apply (a window, its pattern, softcaps, rope_base_swa, rope scaling).
+    apply (a window, its pattern, softcaps, rope_base_swa, rope scaling,
+    norm_eps).
+
+    The layernorm, bias and parallel-residual rows: where the row sets
+    ``ffn_gate=False`` the FFN's up weight (n_ff wide) is drawn where the
+    fused gate/up would be; where it sets ``parallel_residual`` the layers
+    carry no ffn_norm (the FFN reads the attention's normed input: phi2,
+    command-r); where it sets layernorm the norm weights are 1 + N(0, 0.1)
+    (attn_norm, ffn_norm, then output_norm), drawn after every array above.
+    A layernorm row that sets ``attn_bias`` (starcoder2, nemotron, phi2:
+    biases everywhere) then draws, in this order, the layernorm biases
+    (attn_norm_b, ffn_norm_b, output_norm_b), the output projection's
+    ``bo`` and the FFN's ``ffn_up_b`` and ``ffn_down_b``, all N(0, 0.1).
+    The RMS-norm rows with ``attn_bias`` (the Qwen2 family) carry only
+    bq/bk/bv, as their files do.
 
     ``centred=False`` draws the JAX package's weights. Their sub-mins are
     independent of the scales, so every weight row has a mean far from 0
@@ -74,7 +89,12 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     [1, 8), sub-mins round(7.5 * s8) and dmin = d, so each group's grid is
     centred on 0, with d putting the weights' std near 1/sqrt(4096).
     ``dense_ffn=False`` leaves out the FFN weights (synth_mixtral_q4k's
-    experts take their place); the other draws do not move."""
+    experts take their place); the other draws do not move.
+
+    ``generator`` (a torch.Generator on ``device``) draws every Q4_K
+    weight there with random_kmajor, the centred recipe, so no host array
+    holds it: a 35B model's 21.9 GB take seconds there, against ~45 s from
+    numpy. The norms and biases still come from ``seed``'s numpy stream."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     head_dim = head_dim or n_embd // n_head
@@ -103,11 +123,20 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
 
     def qt(parts, K, lead=(), n_out=None):
         npad = sum(pad256(p) for p in parts)
-        return QTensor(GGMLType.Q4_K, lead + (n_out or npad, K), planes(lead, npad, K))
+        data = (planes(lead, npad, K) if generator is None else
+                random_kmajor(GGMLType.Q4_K, parts, K, lead, generator, device).data)
+        return QTensor(GGMLType.Q4_K, lead + (n_out or npad, K), data)
 
     L = (n_layer,)
     nq, nkv = n_head * head_dim, n_head_kv * head_dim
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
+    cfg = ModelConfig(
+        arch=arch, vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
+        n_head=n_head, n_head_kv=n_head_kv, head_dim=head_dim,
+        head_dim_v=head_dim, n_ff=n_ff, rope_dim=head_dim, rope_base=rope_base,
+        rms_eps=rms_eps, tie_embeddings=tied, **(cfg_fields or {}),
+    )
+    apply_arch_defaults(cfg)
     embd = qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size)
     params = {
         "tok_embd": embd,
@@ -121,18 +150,16 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         },
     }
     if dense_ffn:
-        params["layers"]["ffn_gateup"] = qt([n_ff, n_ff], n_embd, L)
+        if cfg.ffn_gate:
+            params["layers"]["ffn_gateup"] = qt([n_ff, n_ff], n_embd, L)
+        else:
+            params["layers"]["ffn_up"] = qt([n_ff], n_embd, L, n_out=n_ff)
         params["layers"]["ffn_down"] = qt([n_embd], n_ff, L)
-    cfg = ModelConfig(
-        arch=arch, vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
-        n_head=n_head, n_head_kv=n_head_kv, head_dim=head_dim,
-        head_dim_v=head_dim, n_ff=n_ff, rope_dim=head_dim, rope_base=rope_base,
-        rms_eps=rms_eps, tie_embeddings=tied, **(cfg_fields or {}),
-    )
-    apply_arch_defaults(cfg)
     layers = params["layers"]
-    normal = lambda n, std: torch.from_numpy(
-        rng.normal(0.0, std, (n_layer, n)).astype(np.float32)).to(device)
+    if cfg.parallel_residual:
+        del layers["ffn_norm"]
+    normal = lambda n, std, lead=L: torch.from_numpy(
+        rng.normal(0.0, std, lead + (n,)).astype(np.float32)).to(device)
     if cfg.attn_qk_norm:
         layers["q_norm"] = 1.0 + normal(head_dim, 0.1)
         layers["k_norm"] = 1.0 + normal(head_dim, 0.1)
@@ -141,6 +168,20 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     if cfg.post_norms:
         layers["post_attn_norm"] = 1.0 + normal(n_embd, 0.1)
         layers["post_ffn_norm"] = 1.0 + normal(n_embd, 0.1)
+    norms = [k for k in ("attn_norm", "ffn_norm") if k in layers]
+    layernorm = cfg.norm_type == "layernorm"
+    if layernorm:
+        for k in norms:
+            layers[k] = 1.0 + normal(n_embd, 0.1)
+        params["output_norm"] = 1.0 + normal(n_embd, 0.1, ())
+    if layernorm and cfg.attn_bias:
+        for k in norms:
+            layers[k + "_b"] = normal(n_embd, 0.1)
+        params["output_norm_b"] = normal(n_embd, 0.1, ())
+        layers["bo"] = normal(n_embd, 0.1)
+        if dense_ffn:
+            layers["ffn_up_b"] = normal(n_ff, 0.1)
+            layers["ffn_down_b"] = normal(n_embd, 0.1)
     return cfg, params
 
 

@@ -33,11 +33,12 @@ pass):
    weights (gate/up N 24576, down K 12288, the 151936-row lm_head over
    152064 padded rows) and at Qwen2.5-7B's widths (K 3584 and 18944), D at
    Qwen3-8B's layer, C and E at Qwen2.5-7B's heads (a GQA group of 7);
-3. full-width 8B with 2 layers: one 128-token prefill + 4 greedy decode
+3. full-width 8B with 2 layers: one 128-token prefill + 2 greedy decode
    steps through the kernels, against the plain path on a CPU copy in f32
    (tolerance: 4x the error of the same plain path in bf16); then the
-   server layout on an int8 cache (per-slot prefills through slot0, 4
-   decode steps at per-row depths through kernel E) with the same rule;
+   server layout on an int8 cache (per-slot prefills through slot0, 2
+   decode steps at per-row depths through kernel E) with the same rule
+   (every parity run: PARITY_STEPS decode steps, cut from 4);
 4. the slice: the 32-layer 8B model answers 4 requests (prompts of 512,
    300, 200 and 100 tokens, 32 greedy decode steps) through
    InferenceEngine.generate, each decode step a replay of the engine's
@@ -153,7 +154,27 @@ pass):
    every prefill attention call on C), its decode profile as graph replays
    and a prefill profile, and its server (4 slots of 8192, int8 KV, E on):
    token-id completions of 6000/2000/700/40 tokens, every request 200,
-   and a decode chunk, graph against eager and profiled as graph replays.
+   and a decode chunk, graph against eager and profiled as graph replays;
+14. the decoders without RoPE at full width, Command-R freed first:
+   StarCoder-15B (a learned 8192 x 6144 f32 position table, multi-query
+   attention: 48 query heads over one kv head of 128, a GQA group of 48,
+   layernorm and biases, the ungated gelu FFN, a tied 49152-row lm_head)
+   and BLOOM-7b1's width (ALiBi through kernels C and E, the embedding's
+   layernorm, biases, 32/32 heads), each with 2 layers against the CPU as
+   phase 3 (BLOOM with prompts of 896 and 500 and E on, so that C and E
+   both run ALiBi; every C and E call of both on its kernel, none on the
+   einsum path), D never launched; kernel rows at StarCoder's shapes (A
+   and B on its five weights, C and E at G = 48, the store at one kv
+   head) and C and E with ALiBi at BLOOM-7b1's heads (each also timed
+   without the slopes; C beside SDPA with a float mask and flex_attention
+   with ALiBi as its score_mod, E beside SDPA with a float mask); then
+   the 40-layer
+   StarCoder-15B model: the slice with E on (A, B, C, E and the store
+   launched, D not; every attention call on C or E), its decode profile as
+   graph replays and a prefill profile, and its server (4 slots of 8192,
+   bf16 KV, the CLI's default, E on): token-id completions of
+   6000/2000/700/40 tokens, every request 200, and a decode chunk, graph
+   against eager and profiled as graph replays.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
@@ -162,14 +183,17 @@ synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
 card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
 q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
 tied lm_head, Command-R and StarCoder2 with their layernorms, biases and
-blocks, and the Qwen MoE models synth_moe_q4k's). The last
+blocks, StarCoder-15B and BLOOM-7b1 with their position table, ALiBi and
+embedding norm, and the Qwen MoE models synth_moe_q4k's). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
 slice and server, the Gemma-2-9B slice, server and ring server, the
-Gemma-7B-width run, the Command-R 35B slice and server), the card's name
+Gemma-7B-width run, the Command-R 35B slice and server, the StarCoder-15B
+slice and server, the BLOOM-7b1-width run), the card's name
 and power limit, and the result line.
 """
+import dataclasses
 import gc
 import hashlib
 import json
@@ -184,9 +208,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 tensor flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor flop/s and
+# f32 flop/s outside the tensor cores (where ALiBi's FMA a score runs)
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # Llama-3-8B shape (bench.py:34)
 VOCAB, D, N_LAYER, H, HKV, HD, N_FF = 128256, 4096, 32, 32, 8, 128, 14336
@@ -264,8 +290,13 @@ TOL_DECODE_NMSE = 1e-4  # p rounded to bf16 per 16-slot chunk vs once per row
 # that bf16 arithmetic alone brings on these inputs)
 TOL_E2E_FACTOR = 4.0
 
-# phase 5: synchronized decode steps timed one by one, then steps profiled
-DECODE_STEPS, PROFILED_STEPS = 64, 8
+# greedy decode steps of each parity run against the CPU after its prefill
+# (phases 3, 9-14), cut from 4 for the script's time limit: a step's CPU
+# bf16 reference takes 1.5-8 s at these vocabularies
+PARITY_STEPS = 2
+# phase 5: synchronized decode steps timed one by one (cut from 64 for the
+# script's time limit), then steps profiled
+DECODE_STEPS, PROFILED_STEPS = 32, 8
 
 SOURCES = {
     "qmm_splitk": ("tpullm_torch/csrc/qmm.cu", "tpullm/ops/qmm.py:181"),
@@ -415,37 +446,55 @@ def weight_bytes(qt) -> int:
     return sum(v.nbytes for v in qt.data.values())
 
 
-def bound_of(nbytes: float, flops: float):
-    """(bound ms, what bounds it) on the H100's peaks."""
-    by = "bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS else "operations"
-    return max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3, by
+def bound_of(nbytes: float, flops: float, fp32_flops: float = 0.0):
+    """(bound ms, what bounds it) on the H100's peaks: ``flops`` on the
+    tensor cores in bf16, ``fp32_flops`` outside them, on their own pipe
+    (so the larger of the two times, not their sum)."""
+    ops_s = max(flops / BF16_FLOPS, fp32_flops / FP32_FLOPS)
+    by = "bytes" if nbytes / HBM_BPS >= ops_s else "operations"
+    return max(nbytes / HBM_BPS, ops_s) * 1e3, by
 
 
 FLEX = None  # flex_attention compiled once, the softcapped rows' library call
 
 
-def flex_call(torch, q, k, v, mask, scale, softcap):
-    """The library call of a softcapped row of kernel C or E: one call of
-    ``torch.nn.attention.flex_attention`` (compiled once, here only; the
-    port never calls it) on q (B, H, T, D) and K/V (B, Hkv, S, D) that
-    computes masked_attention's function: scores times ``scale``, then
-    softcap * tanh(s / softcap), under the (B, T, S) boolean ``mask`` as a
-    block mask, built here and not timed, as SDPA's dense mask is not.
-    Inductor's and Triton's caches go to the gitignored build directory.
-    -> a callable giving (B, H, T, D)."""
+def flex_call(torch, q, k, v, mask, scale, softcap, alibi=None):
+    """The library call of a softcapped or ALiBi row of kernel C or E: one
+    call of ``torch.nn.attention.flex_attention`` (compiled once, here
+    only; the port never calls it) on q (B, H, T, D) and K/V (B, Hkv, S, D)
+    that computes masked_attention's function: scores times ``scale``, then
+    softcap * tanh(s / softcap), or with ``alibi`` = (slopes (H,), key
+    positions (B, S), query positions (B, T)) s + slope_h * (key position -
+    query position), under the (B, T, S) boolean ``mask`` as a block mask,
+    built here and not timed, as SDPA's dense mask is not. Inductor's and
+    Triton's caches go to the gitignored build directory. -> a callable
+    giving (B, H, T, D)."""
     global FLEX
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "tpullm_torch" / "_build" / sub))
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     if FLEX is None:
+        import torch._dynamo
+
+        # one compile a row's shapes and score_mod: past dynamo's default of 8
+        # it would run flex_attention uncompiled
+        for name in ("recompile_limit", "cache_size_limit"):
+            if hasattr(torch._dynamo.config, name):
+                setattr(torch._dynamo.config, name, max(64, getattr(torch._dynamo.config, name)))
         FLEX = torch.compile(flex_attention, dynamic=False)
     B, _, T, _ = q.shape
     block_mask = create_block_mask(lambda b, h, i, j: mask[b, i, j], B, None, T, k.shape[2],
                                    device=q.device)
 
-    def score_mod(s, b, h, i, j):
-        return torch.tanh(s / softcap) * softcap
+    if alibi is not None:
+        sl, kvp, pos = (t.float().contiguous() for t in alibi)
+
+        def score_mod(s, b, h, i, j):
+            return s + sl[h] * (kvp[b, j] - pos[b, i])
+    else:
+        def score_mod(s, b, h, i, j):
+            return torch.tanh(s / softcap) * softcap
 
     q, k, v = (t.contiguous() for t in (q, k, v))
     return lambda: FLEX(q, k, v, score_mod=score_mod, block_mask=block_mask, scale=scale,
@@ -513,7 +562,7 @@ def qmm_row(torch, timer, entries, kname, label, x, qt, w_bf16, path="8B", run=N
 
 
 def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H, HKV), hd=HD,
-             softcap=0.0, window=0, ring=0):
+             softcap=0.0, window=0, ring=0, alibi=0.0):
     """One row of kernel C at ``heads`` (query, kv; Llama-3-8B's unless
     given), head dim ``hd``, a logit softcap and a window on real positions
     where given: query slots n_past ..
@@ -530,7 +579,14 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     library call is flex_attention over the same mask (``flex_call``), held
     against the plain version as the SDPA calls are. With ``ring`` (= S)
     K/V are an iSWA ring bank and every mask is the ring mask (position p
-    at slot p % ring, visible inside the window)."""
+    at slot p % ring, visible inside the window). With ``alibi`` (the
+    config's alibi_max_bias) the slopes' term is on every score, in the
+    kernel, the plain version and the library calls (SDPA with the bias and
+    mask as one bf16 float mask, and flex_attention with ALiBi as its
+    score_mod, each held against the plain version: the faster of those
+    within tolerance is the yardstick); the kernel is also timed on the same
+    inputs without the slopes, and the bound counts the term's FMA a
+    visible (query head, key) pair at the f32 rate."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
 
@@ -545,8 +601,15 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     kvp = torch.arange(S, device="cuda")[None] - vf[:, None]
     cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD,
                       attn_logit_softcap=softcap, sliding_window=window)
+    cfg0 = cfg
     rk = {"ring": ring} if ring else {}  # a checkout without the ring takes the rest
-    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg, bool(window), **rk)
+    if alibi:  # a checkout without ALiBi takes the rest
+        from tpullm_torch.ops.flash_attention import alibi_of
+
+        cfg = dataclasses.replace(cfg, use_rope=False, alibi_max_bias=alibi)
+        rk["slopes"] = alibi_of(cfg, "cuda")
+    run = lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg, bool(window),
+                                  **({"ring": ring} if ring else {}))
     plain = lambda: masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / math.sqrt(HD), softcap,
                                      window, **rk)
     got, again, want = run(), run(), plain()
@@ -555,6 +618,7 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     errs = [nmse(torch, got[b][live[b]], want[b][live[b]]) for b in range(B)]
     pad_zero = all(torch.count_nonzero(got[b][~live[b]]) == 0 for b in range(B))
     same = torch.equal(got, again)
+    bits = hashlib.sha1(got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:12]
     mae = float((got.float() - want.float()).abs().max())
     slot = torch.arange(S, device="cuda")
     if ring:
@@ -569,14 +633,30 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
     # each batch row's K/V rows that some query sees, read once
     kv_rows = int(mask.any(dim=1).sum()) * HKV
     nbytes = 2 * (int(live.sum()) * H * HD + B * T * H * HD + 2 * kv_rows * HD)
-    bound, by = bound_of(nbytes, flops)
+    bound, by = bound_of(nbytes, flops, 2.0 * int(mask.sum()) * H if alibi else 0.0)
     ms = timer(run, 20)
+    ms0 = timer(lambda: flash_attention(q, k, v, qs, kvp, pos, vf, cfg0, bool(window),
+                                        **({"ring": ring} if ring else {})), 20) if alibi else None
     pms = timer(plain, 3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt_ = q.transpose(1, 2)
     am = mask[:, None]
     calls = {"masked": lambda: sdpa(qt_, k, v, attn_mask=am, enable_gqa=True)}
-    if softcap:
+    lib_errs = {}
+    if alibi:  # the bias over (B, H, T, S) in the operands' bf16, -inf where masked
+        bias = rk["slopes"][None, :, None, None] * (kvp[:, None, None, :] - pos[:, None, :, None])
+        fm = bias.masked_fill(~am, -math.inf).to(torch.bfloat16)
+        del bias
+        calls = {"sdpa_float_mask": lambda: sdpa(qt_, k, v, attn_mask=fm, enable_gqa=True),
+                 "flex_attention": flex_call(torch, qt_, k, v, mask, 1.0 / math.sqrt(HD), 0.0,
+                                             (rk["slopes"], kvp, pos))}
+        for name, call in list(calls.items()):
+            lib_errs[name] = nmse(torch, call().transpose(1, 2)[live], want[live])
+            if not lib_errs[name] < TOL_ATTN_NMSE:
+                del calls[name]  # not the same function within the tolerance
+        if not calls:
+            raise AssertionError(f"no library call within tolerance: {lib_errs}")
+    elif softcap:
         calls = {"flex_attention": flex_call(torch, qt_, k, v, mask, 1.0 / math.sqrt(HD),
                                              softcap)}
     elif not any(vf.tolist()) and not window and not ring:
@@ -588,20 +668,22 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
         bias = causal_lower_right(T, n_kv)
         calls["lower_right"] = lambda: sdpa(qt_, kl, vl, attn_mask=bias, enable_gqa=True)
         calls["lower_right_expanded"] = lambda: sdpa(qt_, ke, ve, attn_mask=bias)
-    for name, call in list(calls.items())[0 if softcap else 1:]:
+    for name, call in list(calls.items())[0 if softcap else 1:] if not alibi else []:
         e = nmse(torch, call().transpose(1, 2)[live], want[live])
         if not e < TOL_ATTN_NMSE:
             raise AssertionError(f"library call {name}: nmse {e} against the plain version")
     lib = {name: timer(call, 20) for name, call in calls.items()}
     lms = min(lib.values())
     label = (f"flash_attention[B={B},H={H},Hkv={HKV},T={T},slots={n_past}+,S={S},D={HD}"
-             + (f",softcap={softcap:g}" if softcap else "")
+             + (f",softcap={softcap:g}" if softcap else "") + (f",alibi={alibi:g}" if alibi else "")
              + (f",window={window}" if window else "") + (f",ring={ring}" if ring else "") + "]")
     log(f"kernel {label}: nmse {max(errs):.3e} (tol {TOL_ATTN_NMSE:g}) padding rows zero "
         f"{pad_zero} repeat identical {same} max_abs_err {mae:.4g} ms {ms:.4f} "
         f"plain_ms {pms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) share_of_bound "
         f"{bound / ms:.3f} x_library {ms / lms:.2f} library calls "
-        + " ".join(f"{n} {t:.4f}" for n, t in lib.items()))
+        + " ".join(f"{n} {t:.4f}" for n, t in lib.items()) + f" bits {bits}"
+        + (f"; library nmse {({n: f'{e:.2e}' for n, e in lib_errs.items()})}; ms without "
+           f"the slopes {ms0:.4f} (ALiBi x{ms / ms0:.3f})" if alibi else ""))
     if max(errs) >= TOL_ATTN_NMSE or not pad_zero or not same:
         raise AssertionError(f"{label}: nmse {errs}, padding rows zero {pad_zero}, "
                              f"repeat identical {same}")
@@ -609,7 +691,9 @@ def attn_row(torch, timer, entries, g, B, T, S, n_past, vf, path="8B", heads=(H,
         name=label, route="cuda", source=SOURCES["flash_attention"][0],
         replaces=SOURCES["flash_attention"][1], kernel="flash_attention", path=path,
         max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms,
-        library="flex_attention" if softcap else "SDPA", bound_ms=bound, bound_by=by))
+        library=min(lib, key=lib.get) if alibi else "flex_attention" if softcap else "SDPA",
+        bound_ms=bound, bound_by=by, bits=bits,
+        **({"ms_without_alibi": ms0} if alibi else {})))
     del q, k, v, got, again, want, mask, am, calls
     torch.cuda.empty_cache()
 
@@ -1014,7 +1098,7 @@ def decode_operands(torch, g, B, T, Hq, Hk, S, hd, slots, q8, vf=None):
 
 
 def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV),
-               path="8B server", hd=HD, softcap=0.0, window=0, ring=0):
+               path="8B server", hd=HD, softcap=0.0, window=0, ring=0, alibi=0.0):
     """One row of kernel E at ``heads`` (Llama-3-8B's 32/8 of 128 unless
     given; T = 1), head dim ``hd``, a softcap and a window where given, over
     an S-slot view, row b's query at slots[b] with keys from vf[b]: against
@@ -1031,7 +1115,16 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     is 0 since the merge runs in the main launch (an older checkout's
     separate merge launch shows there). With ``ring`` (= S) K/V are an iSWA
     ring bank, row b's query at position slots[b], and every mask (the
-    library call's and the einsum path's) is the ring mask."""
+    library call's and the einsum path's) is the ring mask. With ``alibi``
+    (the config's alibi_max_bias) the slopes' term is on every score, in
+    the kernel, the plain version, the einsum path and the library call:
+    SDPA with the bias and mask as one bf16 float mask, held against the
+    plain version (flex_attention with ALiBi as its score_mod ran 1.2-1.4x
+    slower than it at all four of phase 14's E rows on an H100 80GB HBM3 at
+    700 W, and its compiles cost the script ~20 s, so it is left out here); the
+    kernel is also timed on the same inputs without the slopes, and the
+    bound counts the term's FMA a visible (query head, key) pair at the f32
+    rate."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.models.llama import dequant_view
     from tpullm_torch.ops.flash_attention import masked_attention
@@ -1043,13 +1136,20 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     scale = 1.0 / math.sqrt(HD)
     cfg = ModelConfig(n_head=H, n_head_kv=HKV, head_dim=HD, head_dim_v=HD,
                       attn_logit_softcap=softcap)
+    cfg0 = cfg
     q, k, v, ks, vs, qs, pos, vft = decode_operands(torch, g, B, 1, H, HKV, S, HD, slots, q8,
                                                     vf)
     rk = {"ring": ring} if ring else {}  # a checkout without the ring takes the rest
+    ak = {}  # and one without ALiBi the rest
+    if alibi:
+        from tpullm_torch.ops.flash_attention import alibi_of
+
+        cfg = dataclasses.replace(cfg, use_rope=False, alibi_max_bias=alibi)
+        ak["slopes"] = alibi_of(cfg, "cuda")
     run = lambda: flash_decode(q, k, v, qs, pos, vft, cfg, window, k_scales=ks, v_scales=vs,
                                **rk)
     plain = lambda: flash_decode_plain(q, k, v, qs, pos, vft, scale, softcap, window, False,
-                                       None, ks, vs, **rk)
+                                       None, ks, vs, **rk, **ak)
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
     err = nmse(torch, got, want)
@@ -1060,8 +1160,11 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     rows = sum(min(n + 1 - f, window or n + 1, ring or n + 1)
                for n, f in zip(slots, vft.tolist()))
     kv_bytes = rows * HKV * 2 * HD * (1 if q8 else 2) + (rows * HKV * 8 if q8 else 0)
-    bound, by = bound_of(kv_bytes + 2 * B * H * HD * 2, 4.0 * HD * H * rows)
+    bound, by = bound_of(kv_bytes + 2 * B * H * HD * 2, 4.0 * HD * H * rows,
+                         2.0 * H * rows if alibi else 0.0)
     ms = timer(run, 20)
+    ms0 = timer(lambda: flash_decode(q, k, v, qs, pos, vft, cfg0, window, k_scales=ks,
+                                     v_scales=vs, **rk), 20) if alibi else None
     pms = timer(plain, 3, warmup=1)
     split = launch_split(torch, timer, run, ("flash_decode_kernel", "flash_decode_merge"))
     kd = dequant_view(k, ks, torch.bfloat16) if q8 else k
@@ -1079,7 +1182,21 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     if window and not ring:
         mask &= kvp[:, None, None, :] > pos[:, None, :, None] - window
     qt = q.transpose(1, 2)
-    if softcap:
+    lib_errs, lib = {}, {}
+    if alibi:  # the bias over (B, H, 1, S) in the operands' bf16, -inf where masked
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        bias = ak["slopes"][None, :, None, None] * (kvp[:, None, None, :] - pos[:, None, :, None])
+        fm = bias.masked_fill(~mask, -math.inf).to(torch.bfloat16)
+        calls = {"sdpa_float_mask": lambda: sdpa(qt, kd, vd, attn_mask=fm, enable_gqa=True)}
+        for name, c in calls.items():
+            lib_errs[name] = nmse(torch, c().transpose(1, 2), want)
+            if lib_errs[name] < TOL_DECODE_NMSE:  # the same function within the tolerance
+                lib[name] = timer(c, 20)
+        if not lib:
+            raise AssertionError(f"no library call within tolerance: {lib_errs}")
+        library = min(lib, key=lib.get)
+        call = calls[library]
+    elif softcap:
         library, call = "flex_attention", flex_call(torch, qt, kd, vd, mask[:, 0], scale,
                                                     softcap)
         lib_err = nmse(torch, call().transpose(1, 2), want)
@@ -1088,27 +1205,31 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     else:
         library, call = "SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kd, vd, attn_mask=mask, enable_gqa=True)
-    lms = timer(call, 20)
+    lms = lib[library] if alibi else timer(call, 20)
     ems = timer(lambda: masked_attention(q, kd, vd, qs, kvp, pos, vft, scale, softcap, window,
-                                         **rk), 10)
+                                         **rk, **ak), 10)
     label = (f"flash_decode[{'int8' if q8 else 'bf16'},{where},B={B},H={H},Hkv={HKV},T=1,"
              f"S={S},D={HD},slots {'/'.join(map(str, slots))},valid_from "
              f"{'/'.join(map(str, vft.tolist()))}"
-             + (f",softcap={softcap:g}" if softcap else "")
+             + (f",softcap={softcap:g}" if softcap else "") + (f",alibi={alibi:g}" if alibi else "")
              + (f",window={window}" if window else "") + (f",ring={ring}" if ring else "") + "]")
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_DECODE_NMSE:g}) repeat identical {same} "
         f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
         f"({library}, bf16 views) einsum_ms {ems:.4f} bound_ms {bound:.5f} ({by}; {rows} "
         f"slots x {HKV} heads) share_of_bound {bound / ms:.3f} x_library {ms / lms:.2f} "
         f"x_einsum {ms / ems:.3f}" + "".join(f" {n}_ms {t:.4f}" for n, t in split.items())
-        + f" bits {bits}")
+        + f" bits {bits}"
+        + (f"; library calls {({n: f'{t:.4f}' for n, t in lib.items()})} nmse "
+           f"{({n: f'{e:.2e}' for n, e in lib_errs.items()})}; ms without the slopes "
+           f"{ms0:.4f} (ALiBi x{ms / ms0:.3f})" if alibi else ""))
     if not (err < TOL_DECODE_NMSE and same):
         raise AssertionError(f"{label}: nmse {err}, repeat identical {same}")
     entries.append(dict(
         name=label, route="cuda", source=SOURCES["flash_decode"][0],
         replaces=SOURCES["flash_decode"][1], kernel="flash_decode", path=path,
         max_abs_err=mae, ms=ms, plain_ms=pms, library_ms=lms, library=library,
-        bound_ms=bound, bound_by=by, einsum_ms=ems, device_ms=split, bits=bits))
+        bound_ms=bound, bound_by=by, einsum_ms=ems, device_ms=split, bits=bits,
+        **({"ms_without_alibi": ms0} if alibi else {})))
     del q, k, v, ks, vs, kd, vd, mask, got, again, want, call
     torch.cuda.empty_cache()
 
@@ -1308,7 +1429,7 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
     by default the 8B's with 2 layers), kernels on the card vs the plain
     path on a CPU copy, on the same tokens (teacher-forced with the card's
     greedy picks): a prefill of 2 prompts of ``lens`` tokens (left-padded
-    to the longer) and 4 decode steps over an S-slot cache, the decode
+    to the longer) and PARITY_STEPS decode steps over an S-slot cache, the decode
     steps with TPULLM_FLASH_DECODE set to ``flash_decode``; with
     ``last_only`` the prefill computes the lm_head at the last position
     alone (logits_idx), sparing the CPU a 256000-row product a token.
@@ -1349,7 +1470,7 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
     _cuda.reset_counts()
     try:
         with torch.inference_mode():
-            for step in range(5):
+            for step in range(PARITY_STEPS + 1):
                 set_flash_decode(flash_decode if step else None)
                 out = {}
                 for name, s in sides.items():
@@ -1377,7 +1498,7 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
     tol = TOL_E2E_FACTOR * max(ref_errs)
     width = {k: v for k, v in spec.items() if k != "n_layer"}
     log(f"parity {spec['n_layer']}-layer {label} {width} (prefill T={T}, prompts {list(lens)}, "
-        f"S={S} + 4 decode steps"
+        f"S={S} + {PARITY_STEPS} decode steps"
         f"{', TPULLM_FLASH_DECODE=' + flash_decode if flash_decode else ''}): card vs CPU f32 "
         f"logits nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
         f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the "
@@ -1409,8 +1530,8 @@ def server_prefill(params, cfg, cache, slot, prompt, dtype, chunk=512):
 def phase_server_parity(torch):
     """Phase 3b: the server layout at full width, 2 layers of the 8B model,
     on an int8 cache of 4 slots x 1024: per-slot prefills through slot0
-    (prompts of 700, 300, 100 and 40 tokens, the 700 in two chunks), then 4
-    decode steps with a per-row cache_pos, kernel E on the card
+    (prompts of 700, 300, 100 and 40 tokens, the 700 in two chunks), then
+    PARITY_STEPS decode steps with a per-row cache_pos, kernel E on the card
     (TPULLM_FLASH_DECODE=1), against the plain path on a CPU copy in f32 on
     its own int8 cache, teacher-forced with the card's greedy picks;
     tolerance 4x the NMSE of the same plain path in bf16 (phase 3's rule)."""
@@ -1427,7 +1548,7 @@ def phase_server_parity(torch):
     rng = np.random.default_rng(5)
     lens = [700, 300, 100, 40]
     prompts = [rng.integers(0, VOCAB, n).tolist() for n in lens]
-    S, n_steps = 1024, 4
+    S, n_steps = 1024, PARITY_STEPS
     sides = {name: dict(p=params if dev == "cuda" else cpu, dev=dev, dtype=dt,
                         cache=KVCache.create(cfg, len(lens), S, "q8", dev))
              for name, dev, dt in (("card", "cuda", torch.bfloat16),
@@ -1602,8 +1723,9 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
     sample's host stall moves neither the prefill rate nor the decode ms,
     their difference over 32). Then one eager pass of the same requests
     (cuda_graphs=False), which must give the same greedy tokens, 4 x 33,
-    and the same launch counts, and its median-of-3 timings. -> (counts,
-    graph engine, eager engine, prompts)."""
+    and the same launch counts, and its timings from one sample each (cut
+    from the median of 3 for the script's time limit: eager steps take
+    3-9x a replay's). -> (counts, graph engine, eager engine, prompts)."""
     import numpy as np
 
     from tpullm_torch.ops import _cuda
@@ -1644,12 +1766,12 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
     _cuda.reset_counts()
     r_eager, _ = timed(eager, new)
     eager_counts = dict(_cuda.COUNTS)
-    _, t_pre = median_timed(eager, 1)
-    _, t_all = median_timed(eager, new)
+    _, t_pre = median_timed(eager, 1, k=1)
+    _, t_all = median_timed(eager, new, k=1)
     eager_ms = (t_all - t_pre) / dec_steps * 1e3
     graph_eq = r_eager.tokens == r1.tokens
-    log(f"slice {label} (times: medians of 3 samples): prefill {sum(lens)} tokens (bucket "
-        f"4x512) {pre:.1f} tok/s; decode {len(lens)}x{dec_steps} tokens "
+    log(f"slice {label} (times: medians of 3 samples, eager one): prefill {sum(lens)} tokens "
+        f"(bucket 4x512) {pre:.1f} tok/s; decode {len(lens)}x{dec_steps} tokens "
         f"{step_ms:.2f} ms/step ({len(lens) * 1e3 / step_ms:.1f} tok/s) as graph replays "
         f"(first run with its capture {t_capture:.3f} s), eager {eager_ms:.2f} ms/step; "
         f"graphs {len(eng.graphs)}; peak memory {peak:.3f} GB; launches {counts}; "
@@ -1855,7 +1977,9 @@ def graph_against_eager(torch, ctx, n, view):
 def chunk_profile(torch, ctx, n):
     """The server's own decode chunks (ctx._decode_step, the loop's body)
     as they run now (graph replays or eager steps): one chunk of warm-up, 3
-    timed (synchronized) and 2 under torch.profiler -> wall and device ms a
+    timed (synchronized) and 1 under torch.profiler (cut from 2 for the
+    script's time limit: the profiler's work took up to 16 s a call on the
+    card's host) -> wall and device ms a
     step, the busy share, kernels and runtime launch calls a step, device ms
     and launches a step by kernel, the rows' depths at the start."""
     from torch.profiler import ProfilerActivity, profile
@@ -1869,21 +1993,20 @@ def chunk_profile(torch, ctx, n):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) * 1e3 / (3 * n)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            ctx._decode_step()
+        ctx._decode_step()
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
-    busy = sum(ms for _, ms, _ in kernels) / (2 * n)
+    busy = sum(ms for _, ms, _ in kernels) / n
     by = {}
     for name, ms, cnt in kernels:
         k = KERNEL_OF.get(name.split("<")[0], "other")
         tot, c = by.get(k, (0.0, 0))
-        by[k] = (tot + ms / (2 * n), c + cnt / (2 * n))
+        by[k] = (tot + ms / n, c + cnt / n)
     return {"way": "graph" if ctx.cuda_graphs else "eager", "wall_ms_per_step": wall,
             "device_busy_ms_per_step": busy, "device_busy_share": busy / wall,
             "depths_at_start": depths, "kv_view": ctx._kv_view_bucket(n),
-            "kernel_launches_per_step": sum(c for _, _, c in kernels) / (2 * n),
-            "runtime_launch_calls_per_step": launch_calls(prof, 2 * n),
+            "kernel_launches_per_step": sum(c for _, _, c in kernels) / n,
+            "runtime_launch_calls_per_step": launch_calls(prof, n),
             "device_ms_launches_per_step_by_kernel": by}
 
 
@@ -1895,7 +2018,7 @@ def server_chunk_profile(torch, ctx, prompts, modes, ways=("graph", "eager"), lo
     then for each (label, TPULLM_FLASH_DECODE value) in modes, one chunk as
     graph replays against the same chunk as eager steps from the same state
     (graph_against_eager), then chunk_profile as graph replays and as eager
-    steps (cuda_graphs toggled; the rows deepen by 6 chunks a way), or only
+    steps (cuda_graphs toggled; the rows deepen by 5 chunks a way), or only
     the ``ways`` given. A graph step must be one cudaGraphLaunch. -> {label:
     {"graph": ..., "eager": ..., "launch_counts_per_chunk": ...}} and, with
     ``lone`` (else the longest is prefilled with the rest, unprofiled),
@@ -2145,6 +2268,7 @@ def phase_server(torch, cfg, params):
     def clear_slots():  # no prefix reuse across bursts: each starts cold
         ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
 
+    secs, t0 = {}, time.perf_counter()  # the phase's wall time by part
     try:
         status, r = http_json(base + "/completion", {"prompt": prompts[-1], "max_tokens": 8,
                                                      "temperature": 0.0})
@@ -2192,13 +2316,17 @@ def phase_server(torch, cfg, params):
         report["greedy_first_difference_e_on_off"] = [
             next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), SERVER_NEW)
             if i != SERVER_SAMPLED else None for i, (x, y) in enumerate(zip(ids_on, ids_off))]
+        secs["bursts"] = time.perf_counter() - t0
         set_flash_decode("1")
         clear_slots()
         chat_counts = phase_server_chat(torch, ctx, base, tok)
+        secs["text_and_chat"] = time.perf_counter() - t0 - sum(secs.values())
         ctx.stop()  # the loop thread; the chunk profiles drive its body from here
         clear_slots()
         profs = server_chunk_profile(torch, ctx, prompts, modes)
+        secs["chunk_profiles"] = time.perf_counter() - t0 - sum(secs.values())
         report["lone_prefill_profile"] = profs.pop("lone_prefill")
+        report["seconds"] = secs
         for label, prof in profs.items():
             report[label]["decode_chunk_profile"] = prof
     finally:
@@ -2658,10 +2786,12 @@ def phase_gemma_kernels(torch, entries):
     _cuda.reset_counts()
 
 
-def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None):
-    """Phases 11c and 13c (Gemma-2-9B, Command-R 35B): the model behind
-    serve() on a free local port: ServerContext with 4 slots of 8192, an
-    int8 cache, no tokenizer (token-id prompts; the text is the ids),
+def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
+                    kv_dtype="q8"):
+    """Phases 11c, 13c and 14d (Gemma-2-9B, Command-R 35B, StarCoder-15B):
+    the model behind serve() on a free local port: ServerContext with 4
+    slots of 8192, an int8 cache (``kv_dtype``: or bf16, the CLI's default
+    without --kv-type q8), no tokenizer (token-id prompts; the text is the ids),
     iswa=False (on a model with SWA layers, the CLI's --swa-full:
     full-context KV on every layer), kernel E on, each
     decode step a CUDA graph replay. With the launch counts set to 0, a
@@ -2669,7 +2799,7 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None)
     6000-token prompt past Gemma-2's 4096 window, in C's 512-row chunks and
     in E's steps), 64 new tokens each: every request answered 200 with its
     64 tokens; A, B, C, E and the store launched, D not (Gemma-2's
-    post-norms close it, and Command-R's layernorm). Then, with the loop stopped
+    post-norms close it, and Command-R's and StarCoder's layernorm). Then, with the loop stopped
     and the prompts prefilled anew, one decode chunk as graph replays
     against eager steps, then profiled as graph replays
     (server_chunk_profile): device ms a step and the busy share. The
@@ -2688,7 +2818,7 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None)
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, vocab, n).tolist() for n in server_prompts]
     ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=8192, decode_chunk=8,
-                        prefill_chunk=512, kv_dtype="q8", iswa=False,
+                        prefill_chunk=512, kv_dtype=kv_dtype, iswa=False,
                         model_name=label.lower() + "-shape")
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
@@ -2729,7 +2859,8 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None)
         srv.server_close()
         ctx.stop()
     swa = ", iswa off (--swa-full)" if cfg.sliding_window else ""
-    log(f"server {label} (4 slots x 8192, q8 KV{swa}, decode_chunk 8, "
+    kv = "q8" if kv_dtype == "q8" else str(kv_dtype).replace("torch.", "")
+    log(f"server {label} (4 slots x 8192, {kv} KV{swa}, decode_chunk 8, "
         f"prefill_chunk 512, kernel E; prompts {server_prompts}, {SERVER_NEW} new tokens "
         f"each): {json.dumps(report)}")
     log(f"server {label}: launches (burst) {counts}")
@@ -2898,7 +3029,7 @@ def phase_ring_parity(torch, label, spec, n_layer, fields, seed):
     cut (phase 3's rule): the ring engine's path on the card (a dual cache,
     the window cut to 256, prefill in chunks of RING_PARITY_CHUNK: a ring of
     384 slots) on 2 prompts of RING_PARITY_LENS tokens (left-padded, the
-    896 wrapping the ring twice) and 4 greedy decode steps with
+    896 wrapping the ring twice) and PARITY_STEPS greedy decode steps with
     TPULLM_FLASH_DECODE=1, against the plain path on a CPU copy in f32 on
     the full cache, teacher-forced with the card's picks; the card's
     full-cache path (phase 11's parity: its prefill in one piece through
@@ -2949,7 +3080,7 @@ def phase_ring_parity(torch, label, spec, n_layer, fields, seed):
     slot, T_step = 0, T
     try:
         with torch.inference_mode(), mock.patch.object(llama, "attention_route", counted_route):
-            for step in range(5):
+            for step in range(PARITY_STEPS + 1):
                 set_flash_decode("1" if step else None)
                 out = {}
                 for name, s in sides.items():
@@ -2981,8 +3112,9 @@ def phase_ring_parity(torch, label, spec, n_layer, fields, seed):
     _cuda.reset_counts()
     tol = TOL_E2E_FACTOR * max(ref_errs)
     log(f"ring parity {n_layer}-layer {label} (window {fields['sliding_window']}, ring {ring} = "
-        f"window + prefill_chunk {C}; prompts {list(lens)} prefilled in chunks of {C}, + 4 "
-        f"decode steps, TPULLM_FLASH_DECODE=1): ring on the card vs CPU f32 (full cache) "
+        f"window + prefill_chunk {C}; prompts {list(lens)} prefilled in chunks of {C}, + "
+        f"{PARITY_STEPS} decode steps, TPULLM_FLASH_DECODE=1): ring on the card vs CPU f32 "
+        f"(full cache) "
         f"nmse per step {[f'{e:.3e}' for e in errs]}; full cache on the card vs CPU f32 "
         f"{[f'{e:.3e}' for e in full_errs]}; ring vs full on the card "
         f"{[f'{e:.3e}' for e in ring_full]}; CPU bf16 vs CPU f32 "
@@ -3324,6 +3456,180 @@ def phase_command_r(torch, entries):
     return counts
 
 
+# StarCoder-15B (bigcode/starcoder config.json; bigcode/starcoderbase has the
+# same shape): n_embd 6144, 40 layers, 48 heads with multi_query (one kv head
+# of 128: a GQA group of 48), n_inner 24576, gelu (tanh) without a gate,
+# layer_norm_epsilon 1e-5, biases on every projection and layernorm, vocab
+# 49152 tied to the embedding, n_positions 8192: a learned f32 position table
+# of 8192 x 6144, and no RoPE
+STARCODER = dict(arch="starcoder", vocab_size=49152, n_embd=6144, n_layer=40, n_head=48,
+                 n_head_kv=1, n_ff=24576, exact_vocab=True, tied=True, n_ctx=8192,
+                 cfg_fields=dict(norm_eps=1e-5))
+# BLOOM-7b1 (bigscience/bloom-7b1 config.json): hidden 4096, 30 layers, 32/32
+# heads of 128, 4 x 4096 MLP with gelu, layer_norm_epsilon 1e-5, vocab 250880
+# tied, word_embeddings_layernorm (the embedding's layernorm, with its bias),
+# biases everywhere, ALiBi (the GGUF's max_alibi_bias 8) in place of RoPE
+BLOOM = dict(arch="bloom", vocab_size=250880, n_embd=4096, n_layer=30, n_head=32,
+             n_head_kv=32, n_ff=16384, exact_vocab=True, tied=True, tok_norm=True,
+             cfg_fields=dict(norm_eps=1e-5, alibi_max_bias=8.0))
+SC_SERVER_PROMPTS = [6000, 2000, 700, 40]  # the StarCoder-15B burst (the Gemma server's)
+
+
+def phase_starcoder_kernels(torch, entries):
+    """Phase 14a: phase 2's rows at StarCoder-15B's shapes, each held
+    against its plain version and timed beside it, one library call and the
+    bound: kernels A (M = 4) and B (M = 2048) on its wqkv (6400 x 6144:
+    48 query heads and one kv head), wo (6144 x 6144), up (24576 x 6144),
+    down (6144 x 24576) and the tied 49152-row lm_head, Q4_K; kernel C at
+    48/1 heads of 128 (G = 48) at the engine slice's prefill (B 4, T 512,
+    S 1024) and at the server's last chunk of its 6000-token prompt (query
+    slots 5632-6143 over an 8192-slot view); kernel E at the server's bf16
+    step (rows at 6000/2000/700/40 of 8192) and the engine's (1024-slot
+    view, rows at 527); the KV store at one kv head, bit for bit, at the
+    server's bf16 decode step and a 512-row chunk at 5632. Then C and E
+    with ALiBi at BLOOM-7b1's heads (32/32 of 128, alibi_max_bias 8): the
+    same four shapes, E on bf16 and int8 K/V, each also timed without the
+    slopes on the same inputs (attn_row, decode_row: their library calls)."""
+    from tpullm_torch.ops import _cuda
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2020)
+    sc = STARCODER
+    d, nq, nkv = sc["n_embd"], sc["n_head"], sc["n_head_kv"]
+    hd = d // nq
+    heads = (nq, nkv)
+    weight_rows(torch, timer, entries, g, [("wqkv", [nq * hd, nkv * hd, nkv * hd], d),
+                                           ("wo", [d], nq * hd),
+                                           ("up", [sc["n_ff"]], d),
+                                           ("down", [d], sc["n_ff"]),
+                                           ("lm_head", [sc["vocab_size"]], d)], "StarCoder-15B")
+    engine_vf, server = [0, 212, 312, 412], "StarCoder-15B server"
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=engine_vf,
+             path="StarCoder-15B", heads=heads, hd=hd)
+    attn_row(torch, timer, entries, g, B=1, T=512, S=8192, n_past=5632, vf=[0], path=server,
+             heads=heads, hd=hd)
+    decode_row(torch, timer, entries, g, server, 8192, SC_SERVER_PROMPTS, [0, 0, 0, 0], False,
+               heads=heads, path=server, hd=hd)
+    decode_row(torch, timer, entries, g, "StarCoder-15B engine", 1024, [527] * 4, engine_vf,
+               False, heads=heads, path="StarCoder-15B", hd=hd)
+    store_row(torch, timer, entries, g, "StarCoder-15B server decode", server, 1,
+              SC_SERVER_PROMPTS, 0, 8192, False, heads=heads, hd=hd)
+    store_row(torch, timer, entries, g, "StarCoder-15B server prefill chunk", server, 512,
+              [5632], 2, 8192, False, heads=heads, hd=hd)
+    bl = BLOOM
+    bheads, bhd = (bl["n_head"], bl["n_head_kv"]), bl["n_embd"] // bl["n_head"]
+    alibi, bpath = bl["cfg_fields"]["alibi_max_bias"], "BLOOM-7b1 width 2-layer"
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=engine_vf, path=bpath,
+             heads=bheads, hd=bhd, alibi=alibi)
+    attn_row(torch, timer, entries, g, B=1, T=512, S=8192, n_past=5632, vf=[0], path=bpath,
+             heads=bheads, hd=bhd, alibi=alibi)
+    for q8 in (False, True):
+        decode_row(torch, timer, entries, g, "BLOOM-7b1 server", 8192, SC_SERVER_PROMPTS,
+                   [0, 0, 0, 0], q8, heads=bheads, path=bpath, hd=bhd, alibi=alibi)
+        decode_row(torch, timer, entries, g, "BLOOM-7b1 engine", 1024, [527] * 4, engine_vf,
+                   q8, heads=bheads, path=bpath, hd=bhd, alibi=alibi)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+
+
+def phase_starcoder(torch, entries):
+    """Phase 14, the decoders without RoPE at full width: (b) the 2-layer
+    parities against the CPU (phase 3's rule) of StarCoder-15B (the learned
+    position table, MQA at G = 48, layernorm and biases, the ungated gelu
+    FFN, the tied 49152-row lm_head; E in its decode steps) and of
+    BLOOM-7b1's width (ALiBi, the embedding's layernorm, biases; prompts of
+    896 and 500 over a 1024-slot cache, so that C runs ALiBi in the prefill
+    and E in the decode steps), every C and E call of both on its kernel,
+    none on the einsum path, D never launched; (a) the kernel rows
+    (phase_starcoder_kernels); (c) the 40-layer StarCoder-15B model's
+    engine slice with TPULLM_FLASH_DECODE=1 (A, B, C, E and the store
+    launched, D not; every attention call on C or E), its decode-step
+    profile as graph replays and one prefill profile; (d) its server
+    (phase_q8_server with bf16 KV: 4 slots of 8192, E on, a burst of
+    6000/2000/700/40 tokens, a decode chunk profiled). The Command-R
+    weights are freed before it; every model's Q4_K weights are drawn on
+    the card, the position table and the norms from numpy. -> launch
+    counts by path."""
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    counts = {}
+    kernel_route = {"prefill": "flash_attention", "decode": "flash_decode"}
+    for label, spec, lens, S, seed in (
+            ("StarCoder-15B", STARCODER, (128, 100), 256, 21),
+            ("BLOOM-7b1 width", BLOOM, (896, 500), 1024, 22)):
+        t = time.perf_counter()
+        routes = {}
+        # the card's calls only (the CPU sides take the einsum path)
+        counted = route_counter(routes, lambda a, r: (
+            "prefill" if a[2] > 1 else "decode", r) if a[0] else None)
+        with mock.patch.object(llama, "attention_route", counted):
+            c = phase_parity(torch, f"{label} (depth cut from {spec['n_layer']})", seed=seed,
+                             flash_decode="1", last_only=True, lens=lens, S=S,
+                             **dict(spec, n_layer=2),
+                             generator=torch.Generator(device="cuda").manual_seed(seed))
+        counts[f"{label} 2-layer"] = c
+        missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode",
+                               "kv_store") if c[k] <= 0]
+        off = {k: n for k, n in routes.items() if kernel_route[k[0]] != k[1]}
+        log(f"parity {label}: attention routes of the card's calls {routes}")
+        if missing or c["layer_kernel"] or off:
+            raise AssertionError(f"{label} parity: kernels not launched {missing}, layer "
+                                 f"kernel {c['layer_kernel']}, calls off C and E {off}")
+        log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_starcoder_kernels(torch, entries)
+    log(f"phase kernels StarCoder-15B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_kmajor_q4k_fast(**STARCODER, seed=0, centred=True, device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"slice StarCoder-15B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB and "
+        f"a {tuple(params['pos_embd'].shape)} f32 position table in "
+        f"{time.perf_counter() - t:.3f} s; config {cfg.arch} norm {cfg.norm_type} eps "
+        f"{cfg.norm_eps:g} use_rope {cfg.use_rope} heads {cfg.n_head}/{cfg.n_head_kv} of "
+        f"{cfg.head_dim} ffn_gate {cfg.ffn_gate} tied {cfg.tie_embeddings}; layer tensors "
+        f"{sorted(params['layers'])}")
+    routes = {}
+    counted_route = route_counter(routes, lambda a, r: ("prefill" if a[2] > 1 else "decode", r))
+    set_flash_decode("1")
+    try:
+        with mock.patch.object(llama, "attention_route", counted_route):
+            counts["StarCoder-15B"], eng, eager, prompts = phase_slice(
+                torch, "StarCoder-15B", cfg, params, cfg.vocab_size,
+                ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store"),
+                ("layer_kernel",))
+        log(f"slice StarCoder-15B: attention routes of every call (prefill or decode, route) "
+            f"{ {f'{a} {b}': n for (a, b), n in routes.items()} }")
+        off = {k: n for k, n in routes.items() if kernel_route[k[0]] != k[1]}
+        if off:
+            raise AssertionError(f"StarCoder-15B slice: attention calls off C and E {off}")
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_decode(torch, eng, prompts, " StarCoder-15B graph")
+        phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention"),
+                              " StarCoder-15B")
+    finally:
+        set_flash_decode(None)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice StarCoder-15B: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts["StarCoder-15B server"] = phase_q8_server(torch, cfg, params, "StarCoder-15B",
+                                                     SC_SERVER_PROMPTS, kv_dtype=torch.bfloat16)
+    log(f"phase server StarCoder-15B: {time.perf_counter() - t:.1f} s")
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
     qts = [params["tok_embd"], params["output"]] + [
@@ -3652,10 +3958,11 @@ def main() -> int:
     qwen_moe_counts = phase_qwen_moe(torch, entries)
     gemma_counts = phase_gemma(torch, entries)
     command_r_counts = phase_command_r(torch, entries)
+    starcoder_counts = phase_starcoder(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
-               **command_r_counts}
+               **command_r_counts, **starcoder_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

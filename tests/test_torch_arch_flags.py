@@ -53,6 +53,9 @@ GEMMA_ARCHS = ["gemma", "gemma2", "gemma3"]
 LAYERNORM_ARCHS = ["stablelm", "orion", "cohere2", "olmo", "starcoder2", "codeshell",
                    "nemotron", "jais2", "arcee", "phi2", "command-r", "gptneox", "falcon",
                    "gptj", "plamo"]
+# the rows without RoPE: learned positions and ALiBi (their cases are in
+# tests/test_torch_positions.py)
+POSITION_ARCHS = ["gpt2", "starcoder", "bloom", "mpt", "jais", "refact"]
 KMAJOR_ARCHS = ["qwen3", "qwen2", "qwen", "glm4", "olmo2"]
 PROMPTS = [[3, 9, 4, 17, 6], [5, 1, 2], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 2, 3, 4, 5,
                                          6, 7, 8, 9, 30]]
@@ -81,7 +84,8 @@ def test_registry_rows_are_the_jax_rows():
     from tpullm.models.registry import ARCH_REGISTRY as JREG
 
     assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS + LAYERNORM_ARCHS
-               + ["llama", "mixtral", "qwen3moe", "qwen2moe"]) == set(ARCH_REGISTRY)
+               + POSITION_ARCHS + ["llama", "mixtral", "qwen3moe", "qwen2moe"]
+               ) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch
 

@@ -4,13 +4,17 @@ without one (decided inside the ``cuda`` fixture). Run on the card with:
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
 """
+import dataclasses
+
 import pytest
 import torch
 
 from tpullm_torch.gguf.constants import GGMLType
 from tpullm_torch.models.config import ModelConfig
 from tpullm_torch.ops import _cuda
-from tpullm_torch.ops.flash_attention import flash_attention, masked_attention
+from tpullm_torch.ops import flash_attention as fa
+from tpullm_torch.ops import flash_decode as fd
+from tpullm_torch.ops.flash_attention import alibi_of, flash_attention, masked_attention
 from tpullm_torch.ops.layer_kernel import _plain as layer_plain
 from tpullm_torch.ops.layer_kernel import ffn_block, ffn_block_qkv
 from tpullm_torch.ops.moe_gmm import grouped_qmm, grouped_qmm_plain, live_tiles, sort_by_expert
@@ -39,7 +43,8 @@ def _nmse(a, b):
 def test_build_reports_ptxas(cuda):
     """Every kernel is compiled, and the 128 f32 sums a thread of kernels B
     and F (one body), kernel C's S and O accumulators (both head-dim
-    instances) and kernel A's mma
+    instances, the ALiBi term among their paths), kernel E's fragments and
+    running sums (every instance) and kernel A's mma
     accumulators, prefetched q words and group scales stay in registers:
     ptxas reports 0 spill bytes for each of their builds."""
     info = _cuda.build()
@@ -47,7 +52,8 @@ def test_build_reports_ptxas(cuda):
     for k in ("qmm_splitk_kernel", "qmm_wgmma_kernel", "flash_kernel", "layer_kernel",
               "moe_gmm_kernel", "flash_decode_kernel"):
         assert k in names or info["cached"], (k, names)
-    for k in ("qmm_wgmma_kernel", "moe_gmm_kernel", "flash_kernel", "qmm_splitk_kernel"):
+    for k in ("qmm_wgmma_kernel", "moe_gmm_kernel", "flash_kernel", "qmm_splitk_kernel",
+              "flash_decode_kernel"):
         b = [(n, spill) for n, _, spill in info["ptxas"] if k in n]
         assert b and all(spill == 0 for _, spill in b), (k, b)
     # kernel C's instances at head dims 128 and 256 (O of 64 x 256 is 128
@@ -207,6 +213,41 @@ def test_flash_attention_kernel_head_dim_256(cuda, softcap, window, heads, T, n_
         assert torch.count_nonzero(got[b, ~live]) == 0
         assert torch.count_nonzero(want[b, ~live]) == 0
         assert _nmse(got[b, live], want[b, live]) < 1e-4
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (8, 1), (48, 1)], ids=["G1", "G8", "G48"])
+@pytest.mark.parametrize("T,n_past,S,S_full", [
+    (128, 0, 256, 256), (512, 0, 1024, 1024), (128, 1000, 2048, 2560),
+    (512, 1000, 2048, 2560), (192, 128, 320, 448)],
+    ids=["T128", "T512", "T128-deep", "T512-deep", "T192-odd"])
+def test_flash_attention_kernel_alibi(cuda, monkeypatch, heads, T, n_past, S, S_full):
+    """Kernel C with ALiBi (alibi_max_bias 8: BLOOM's slopes by query head)
+    against the masked softmax with the same slopes, over the T/S edges of
+    the cases above, at GQA groups of 1, 8 and 48 (StarCoder's multi-query
+    attention): NMSE < 1e-4 over rows with a visible key, rows with none
+    exactly 0, two calls bit-identical. The term is one exact FMA: with
+    slopes of 0 the kernel gives its bits without slopes."""
+    H, Hkv = heads
+    q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda, H, Hkv, T, S, S_full, (0, 37, 100), n_past)
+    bare_cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=128, head_dim_v=128)
+    cfg = dataclasses.replace(bare_cfg, use_rope=False, alibi_max_bias=8.0)
+    before = _cuda.COUNTS["flash_attention"]
+    got = flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
+    again = flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
+    want = masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / 128 ** 0.5,
+                            slopes=alibi_of(cfg, cuda))
+    bare = flash_attention(q, k, v, qs, kvp, pos, vf, bare_cfg)
+    monkeypatch.setattr(fa, "alibi_of", lambda c, dev: torch.zeros(H, device=dev))
+    zero = flash_attention(q, k, v, qs, kvp, pos, vf, bare_cfg)
+    torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_attention"] == before + 4
+    assert torch.equal(got, again) and torch.equal(zero, bare)
+    for b, f in enumerate(vf.tolist()):
+        live = qs[b] >= f
+        assert torch.count_nonzero(got[b, ~live]) == 0
+        assert torch.count_nonzero(want[b, ~live]) == 0
+        assert _nmse(got[b, live], want[b, live]) < 1e-4
+    assert _nmse(bare[0], got[0]) > 1e-3  # the bias moves the output
 
 
 def _layer_setup(cuda, qtype, L=3, D=512, n_ff=1024):
@@ -961,6 +1002,62 @@ def test_flash_decode_kernel_split_edges(cuda, D, q8):
         assert _nmse(got[sl], want) < 1e-4, (b, slots[b])
 
 
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("heads,T", [((8, 8), 1), ((8, 8), 4), ((8, 8), 8), ((16, 2), 1),
+                                     ((16, 2), 4), ((16, 2), 8), ((48, 1), 1)],
+                         ids=["G1T1", "G1T4", "G1T8", "G8T1", "G8T4", "G8T8", "G48T1"])
+def test_flash_decode_kernel_alibi(cuda, monkeypatch, q8, heads, T):
+    """Kernel E with ALiBi (alibi_max_bias 8) against its plain version
+    with the same slopes, at GQA groups of 1, 8 and 48 (G * T <= 64), bf16
+    and int8: NMSE < 1e-4, two calls bit-identical, at T = 1 the row with no
+    visible key exactly 0. The term is one exact FMA: with slopes of 0 the
+    kernel gives its bits without slopes."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    H, Hkv = heads
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, q8, T=T, H=H, Hkv=Hkv)
+    bare_cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=128, head_dim_v=128)
+    cfg = dataclasses.replace(bare_cfg, use_rope=False, alibi_max_bias=8.0)
+    before = _cuda.COUNTS["flash_decode"]
+    a = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    b = flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs)
+    want = flash_decode_plain(q, k, v, qs, pos, vf, 128 ** -0.5, 0.0, 0, False, None, ks, vs,
+                              slopes=alibi_of(cfg, cuda))
+    bare = flash_decode(q, k, v, qs, pos, vf, bare_cfg, k_scales=ks, v_scales=vs)
+    monkeypatch.setattr(fd, "alibi_of", lambda c, dev: torch.zeros(H, device=dev))
+    zero = flash_decode(q, k, v, qs, pos, vf, bare_cfg, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_decode"] == before + 4
+    assert torch.equal(a, b) and torch.equal(zero, bare)
+    if T == 1:
+        assert torch.count_nonzero(a[3]) == 0 and torch.count_nonzero(want[3]) == 0
+    assert _nmse(a, want) < 1e-4
+    assert _nmse(bare, a) > 1e-3
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("heads", [(32, 32), (48, 1)], ids=["bloom", "starcoder"])
+def test_flash_decode_kernel_alibi_server_shape(cuda, q8, heads):
+    """ALiBi at the server's decode shape (4 rows at slots 6000/2000/700/40
+    of an 8192-slot view) at BLOOM-7b1's heads (32/32) and StarCoder's
+    (48/1): up to 47 live splits a row merged in two levels; three calls
+    bit-identical, within NMSE 1e-4 of the plain version."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    H, Hkv = heads
+    q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(
+        cuda, q8, B=4, T=1, H=H, Hkv=Hkv, S=8192, slots=(6000, 2000, 700, 40),
+        valid_from=(0, 0, 0, 0))
+    cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=128, head_dim_v=128, use_rope=False,
+                      alibi_max_bias=8.0)
+    outs = [flash_decode(q, k, v, qs, pos, vf, cfg, k_scales=ks, v_scales=vs) for _ in range(3)]
+    want = flash_decode_plain(q, k, v, qs, pos, vf, 128 ** -0.5, 0.0, 0, False, None, ks, vs,
+                              slopes=alibi_of(cfg, cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert _nmse(outs[0], want) < 1e-4
+
+
 def test_flash_decode_kernel_refuses(cuda):
     """No fallback on the card: head dims not built, too many rows per kv
     head, or K/V of another type raise."""
@@ -1209,6 +1306,9 @@ STORE_SHAPES = {
     "engine_prefill": (4, 512, 8, 128, 128, [0] * 4, 0, 1024, 4),
     "head_dim_256": (4, 1, 4, 256, 256, [1000, 17, 0, 1023], 0, 1024, 4),
     "past_the_end": (2, 16, 2, 128, 64, [1016, 1030], 1, 1024, 3),
+    # one kv head (StarCoder's multi-query attention): its decode step and chunk
+    "mqa_decode": (4, 1, 1, 128, 128, [6000, 2000, 700, 40], 0, 8192, 4),
+    "mqa_prefill_512": (1, 512, 1, 128, 128, [5632], 2, 8192, 4),
 }
 
 

@@ -20,11 +20,11 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("swa_chunked", True), ("use_rope", False), ("n_expert", 8),
+    ("swa_chunked", True), ("no_rope_interval", 4), ("n_expert", 8),
     ("n_expert_shared", 2), ("qk_l2_norm", True), ("attn_out_scale", 0.5),
     ("attn_gate_proj", True),
     ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
-    ("swa_dense_first", True), ("kv_lora_rank", 64), ("alibi_max_bias", 8.0)])
+    ("swa_dense_first", True), ("kv_lora_rank", 64), ("attn_temp_scale", 0.1)])
 def test_flag_outside_dense_path_raises(field, value):
     cfg = ModelConfig()
     check_dense(cfg)
@@ -78,7 +78,8 @@ def test_dense_keys_parse():
 
 @pytest.mark.parametrize("key,value", [
     ("llama.expert_shared_count", 2), ("llama.attention.sliding_window_pattern", [1, 0]),
-    ("llama.attention.max_alibi_bias", 8.0), ("llama.rope.scaling.finetuned", True),
+    ("llama.attention.sliding_window_pattern", np.array([True, True, False])),
+    ("llama.rope.scaling.finetuned", True),
     ("llama.attention.value_scale", 2.0), ("xielu.alpha_n", [0.8]),
     ("llama.leading_dense_block_count", 1), ("llama.experts_per_group", 2)])
 def test_gguf_key_outside_dense_path_raises(key, value):
@@ -92,8 +93,8 @@ def test_per_layer_head_counts_raise():
 
 
 def test_other_arch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="bloom"):
-        load_model(_gguf(tmp_path, arch="bloom"), device="cpu")
+    with pytest.raises(NotImplementedError, match="phi3"):
+        load_model(_gguf(tmp_path, arch="phi3"), device="cpu")
 
 
 def test_unread_tensor_raises(tmp_path):

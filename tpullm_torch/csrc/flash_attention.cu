@@ -69,6 +69,15 @@
 //   The rows of a chunk need not fill the last 64-row query tile: the rows
 //   past T read as zeros (TMA fills past the tensor's end), see no key and
 //   are not written.
+// - ALiBi (slopes set; the port's own route, as the JAX package sends ALiBi
+//   to its einsum path, tpullm/models/llama.py:268-279, 301-307): each
+//   score gets slope_h * (key position - query position) after the scale,
+//   in the log2 units of the scores (the slope times log2 e), one FMA a
+//   score. A key's position is its slot - valid_from, as forward's
+//   kv_positions are (never a ring: check_dense keeps ALiBi from
+//   windows). Without slopes
+//   the instance computes what it did before, bit for bit; with them no
+//   softcap (no arch has both).
 // No split over keys and no atomics: repeats are bit-identical.
 #include "hopper.cuh"
 
@@ -111,6 +120,7 @@ struct FaArgs {
   float scale_log2, softcap_in, softcap_out;  // softcap_in 0: no softcap
   int window;
   int ring;  // > 0: S = ring slots of an iSWA ring bank, read by position
+  const float* slopes;  // (H,) ALiBi slopes, or null
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -272,6 +282,9 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int my_tile = cw ? tile[1] : tile[0], my_head = cw ? head[1] : head[0];
   const int* kvp = a.kvpos + (long long)b * a.S;
   const uint32_t qa = saddr(qsm + cw * Q_BYTES), ring_a = saddr(ring);
+  // ALiBi: the head's slope in log2 units; key k's term is al * (k + ab)
+  const float al = a.slopes != nullptr && mine ? __ldg(a.slopes + my_head) * LOG2E : 0.f;
+  const int ab0 = -vf - p0, ab1 = -vf - p1;
 
   float o[NH][64];
 #pragma unroll
@@ -306,6 +319,17 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       } else {
 #pragma unroll
         for (int i = 0; i < TK / 2; ++i) sc[i] *= a.scale_log2;
+        if (a.slopes != nullptr) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = s0 + 8 * j + 2 * (lane % 4) + e;
+              sc[4 * j + e] = fmaf(al, (float)(key + ab0), sc[4 * j + e]);
+              sc[4 * j + 2 + e] = fmaf(al, (float)(key + ab1), sc[4 * j + 2 + e]);
+            }
+          }
+        }
       }
       const bool visible =
           s0 >= vf && s0 + TK - 1 <= my_lo &&
@@ -465,12 +489,13 @@ extern "C" int tpq_flash_attention(
     int Hkv, int T, int S, int D, long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_st, float scale,
-    float softcap, int window, int ring, void* stream) {
+    float softcap, int window, int ring, const void* slopes, void* stream) {
   cudaGetLastError();
   // T: any count of rows (the last query tile may be partial); S and a ring
   // multiples of 64
   if ((D != 128 && D != 256) || T < 1 || S % 64 || Hkv < 1 || H % Hkv ||
-      (o_sb | o_sh | o_st) % 8 || ring < 0 || (ring > 0 && ring != S))
+      (o_sb | o_sh | o_st) % 8 || ring < 0 || (ring > 0 && ring != S) ||
+      (slopes != nullptr && softcap != 0.f))
     return (int)cudaErrorInvalidValue;
   FaArgs a;
   a.qslots = reinterpret_cast<const int*>(qslots);
@@ -485,6 +510,7 @@ extern "C" int tpq_flash_attention(
   a.softcap_out = softcap * LOG2E;
   a.window = window;
   a.ring = ring;
+  a.slopes = reinterpret_cast<const float*>(slopes);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return D == 128 ? launch<128>(q, k, v, a, B, H, Hkv, q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb,
                                 v_sh, v_ss, st)

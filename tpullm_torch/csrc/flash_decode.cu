@@ -82,6 +82,14 @@
 //   slots) can touch. The ring is a template parameter (bf16 only: the
 //   int8 cache has no ring), so a plain view's instances carry none of its
 //   arithmetic.
+// - ALiBi (slopes set; the port's own route, as the JAX package sends ALiBi
+//   to its einsum path, tpullm/models/llama.py:277-279, 301-307): each
+//   score gets slope_h * (key position - query position) after the scale,
+//   in the split pass, as the scores the merge expects (natural units), one
+//   FMA a score. A key's position is its slot - valid_from (never a ring:
+//   check_dense keeps ALiBi from windows). Without slopes the kernel
+//   computes what it did before, bit for bit; with them no softcap (no
+//   arch has both).
 // Partials are stored by live index (split - the row's first live split),
 // so a ring's splits and a plain view's take the same merges.
 #include <cuda_bf16.h>
@@ -122,6 +130,7 @@ struct FdArgs {
   float scale, softcap;
   int window, chunked, has_sinks;
   int ring;  // > 0: S = ring slots of an iSWA ring bank, read by position
+  const float* slopes;  // (H,) ALiBi slopes, or null
 };
 
 // Shared memory: K rows (CH x D x esize), V rows, (int8) the K and V
@@ -342,6 +351,20 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
     slo[h] = l0;
     shi[h] = min(qs, a.S - 1);
   }
+  // ALiBi: each row's slope, and -(valid_from + its position): slot s's term
+  // is sl * (s + ab)
+  float sl[2] = {0.f, 0.f};
+  int ab[2] = {0, 0};
+  if (a.slopes != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? r1 : r0;
+      if (r < R) {
+        sl[h] = __ldg(a.slopes + hk * G + r / T);
+        ab[h] = -vf - (int)a.qpos[b * T + r % T];
+      }
+    }
+  }
 
   float acc[NT][4];
 #pragma unroll
@@ -404,6 +427,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
         if (Q8) x *= (e & 1) ? ksc.y : ksc.x;
         x *= a.scale;
         if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
+        if (a.slopes != nullptr) x = fmaf(sl[h], (float)(slot + ab[h]), x);
         const bool ok = slot >= slo[h] && slot <= shi[h];
         sc[jn][e] = ok ? x : E_NEG;
         mx[h] = fmaxf(mx[h], sc[jn][e]);
@@ -715,7 +739,7 @@ extern "C" int tpq_flash_decode(
     int q8, long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
     float scale, float softcap, int window, int chunked, int has_sinks, int ring,
-    void* stream) {
+    const void* slopes, void* stream) {
   cudaGetLastError();
   // the caller sized part_ml/part_acc for NS splits: they must be this
   // kernel's splits of S (of a ring's live range), or the blocks would
@@ -724,7 +748,7 @@ extern "C" int tpq_flash_decode(
   const int ns = ring > 0 ? (ring + 7 + ch - 1) / ch + 1 : (S + ch - 1) / ch;
   if (Hkv <= 0 || H % Hkv || (H / Hkv) * T > E_RMAX || T < 1 || T > 8 ||
       (D != 128 && D != 256) || S < 1 || NS != ns || ring < 0 || (ring > 0 && ring != S) ||
-      (ring > 0 && (chunked || q8)))
+      (ring > 0 && (chunked || q8)) || (slopes != nullptr && softcap != 0.f))
     return (int)cudaErrorInvalidValue;
   FdArgs a;
   a.q = reinterpret_cast<const __nv_bfloat16*>(q);
@@ -747,6 +771,7 @@ extern "C" int tpq_flash_decode(
   a.scale = scale; a.softcap = softcap;
   a.window = window; a.chunked = chunked; a.has_sinks = has_sinks;
   a.ring = ring;
+  a.slopes = reinterpret_cast<const float*>(slopes);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (ring > 0) return D == 128 ? launch<128, false, true>(a, st) : launch<256, false, true>(a, st);
   if (D == 128) return q8 ? launch<128, true, false>(a, st) : launch<128, false, false>(a, st);

@@ -208,6 +208,9 @@ DENSE_KEYS = frozenset({
     "embedding_scale", "residual_scale", "logit_scale",
     # olmo's clamp of q, k and v
     "attention.clamp_kqv",
+    # the ALiBi archs' bias (bloom, mpt, jais; baichuan-13b's files), which
+    # turns RoPE off
+    "attention.max_alibi_bias",
 })
 # the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser).
 # expert_shared_feed_forward_length (qwen2moe) is read by neither parser:
@@ -281,6 +284,7 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     cl = get("attention.clamp_kqv")
     if cl is not None:
         cfg.clamp_kqv = float(cl)
+    cfg.alibi_max_bias = float(get("attention.max_alibi_bias", 0.0) or 0.0)
     asc = get("attention.scale")
     if asc is not None:
         cfg.attn_scale = float(asc)
@@ -296,4 +300,6 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     if arch == "qwen":  # qwen-v1 GGUF stores DOUBLE the ffn width
         cfg.n_ff //= 2
     apply_arch_defaults(cfg)
+    if cfg.alibi_max_bias > 0:  # ALiBi replaces RoPE, after the row's defaults (refact's bias)
+        cfg.use_rope = False
     return cfg

@@ -3,14 +3,18 @@ in PyTorch.
 
 Counterpart of tpullm/models/llama.py for the configurations the port
 covers: the token embedding (times embedding_scale: gemma, granite,
-minicpm) -> RMSNorm or layernorm (with or without weight and bias) -> fused
+minicpm), plus a learned position table (gpt2, starcoder) and a layernorm
+on the embedding (bloom) -> RMSNorm or layernorm (with or without weight
+and bias) -> fused
 QKV (or the GGUF-fused attn_qkv) -> optional q/k/v biases -> optional q/k
-norms (per head before or after RoPE, or over the flat rows) -> RoPE (neox
-or interleaved, full or partial; SWA layers at rope_base_swa where the file
-gives one) -> an optional clamp of q, k and v -> GQA attention over a
-head-major KV cache (optional logit softcap; a sliding window on the layers
-swa_pattern marks) -> output projection and its optional bias -> gated
-SiLU or GELU FFN, ungated GELU or relu2 FFN (optional up and down biases),
+norms (per head before or after RoPE, or over the flat rows with their
+biases) -> RoPE (neox or interleaved, full or partial; SWA layers at
+rope_base_swa where the file gives one; none where use_rope is off) -> an
+optional clamp of q, k and v -> GQA attention over a head-major KV cache
+(optional logit softcap; a sliding window on the layers swa_pattern marks;
+or ALiBi, without either) -> output projection and its optional bias ->
+gated SiLU or GELU FFN (optional gate and up biases), ungated GELU or relu2
+FFN (optional up and down biases),
 in sequence or in parallel with attention (the parallel residual), or the
 routed-expert MoE FFN (softmax or sigmoid router, top-k, optional
 renormalization and scale, an optional gated SiLU shared expert with an
@@ -38,8 +42,10 @@ einsum path (llama.py:268-277, 932-941): the same function on another
 route. Ring layers (the dual cache's SWA banks) take kernels E and C over
 the ring by position, and the store writes the ring with wrap, where the
 JAX package sends them to its einsum path (llama.py:268, 277: ``not
-ring``); that route is the port's own (attention_route). Decode layers
-take the layer kernel, folded with the next layer's QKV when the weights
+ring``); that route is the port's own (attention_route). ALiBi takes
+kernels C and E with the slopes as one more term on each score, where the
+JAX package sends it to its einsum path (llama.py:268-279): the port's own
+route too. Decode layers take the layer kernel, folded with the next layer's QKV when the weights
 are fused in one group (llama.py:1382-1423, ``layer_routes``); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460) and MoE
 decode (B*T <= 16) kernel A's expert-skip variant over the selected experts
@@ -53,7 +59,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.flash_attention import (attention_params, flash_attention, flash_builds,
+from ..ops.flash_attention import (alibi_of, attention_params, flash_attention, flash_builds,
                                    flash_supported, masked_attention)
 from ..ops.flash_decode import (flash_decode, flash_decode_builds, flash_decode_ring_supported,
                                 flash_decode_supported)
@@ -88,6 +94,9 @@ DENSE_FIELDS = frozenset({
     # the layernorm, bias and parallel-residual decoders (stablelm, starcoder2,
     # phi2, command-r, falcon, olmo's clamp, nemotron's relu2, ...)
     "norm_type", "ffn_gate", "parallel_residual", "clamp_kqv",
+    # the decoders without RoPE: learned positions (gpt2, starcoder) or ALiBi
+    # (bloom, mpt, jais, refact, baichuan-13b's files)
+    "use_rope", "alibi_max_bias",
 })
 # act_fn values of the dense FFN (llama.py:624-658): gated silu or gelu,
 # ungated gelu or relu2; the MoE FFN runs gated silu
@@ -126,6 +135,12 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
     if cfg.norm_type not in NORM_TYPES:
         raise NotImplementedError(
             f"ModelConfig.norm_type={cfg.norm_type!r}: the port runs " + " or ".join(NORM_TYPES))
+    if cfg.alibi_max_bias > 0 and (cfg.sliding_window or cfg.attn_logit_softcap):
+        # no arch of the JAX registry has both; the kernels take ALiBi alone
+        raise NotImplementedError(
+            f"ModelConfig.alibi_max_bias={cfg.alibi_max_bias} with sliding_window="
+            f"{cfg.sliding_window}, attn_logit_softcap={cfg.attn_logit_softcap}: ALiBi runs "
+            "without a window, a ring or a softcap in the port")
     if moe and (cfg.n_expert < 1 or not 1 <= cfg.n_expert_used <= cfg.n_expert
                 or cfg.expert_gating not in ("softmax", "sigmoid")):
         raise NotImplementedError(
@@ -256,6 +271,20 @@ def params_device(params: dict) -> torch.device:
     return next(iter(params["tok_embd"].data.values())).device
 
 
+def check_positions(params: dict, max_seq_len: int, what: str) -> None:
+    """Raise ValueError where a model with a learned position table
+    (pos_embd) gets a context longer than the table: its real positions
+    (below ``max_seq_len``) must each have a row. Checked once, where an
+    engine or a server is built; forward clamps the gather, so the padding
+    and overshoot positions past the context read the last row and are
+    thrown away. The JAX package reads NaN rows past the table instead
+    (jnp.take) and builds with any context (ROADMAP §3)."""
+    table = params.get("pos_embd")
+    if table is not None and max_seq_len > table.shape[0]:
+        raise ValueError(f"{what}: a context of {max_seq_len}, the learned position table "
+                         f"has {table.shape[0]} rows")
+
+
 def dequant_view(q, scale, dtype):
     """int8 rows and their f32 scales -> rows in ``dtype`` (llama.py:904-907)."""
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
@@ -357,7 +386,13 @@ def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: 
     A ring bank (``ring`` = S) is the port's own route, as the JAX package
     sends every ring call to its einsum path: E where its gate less the
     view's conditions holds (flash_decode_ring_supported, under
-    TPULLM_FLASH_DECODE), else C wherever it builds over the ring (any T)."""
+    TPULLM_FLASH_DECODE), else C wherever it builds over the ring (any T).
+
+    ALiBi is the port's own route as well: the JAX gates add
+    ``cfg.alibi_max_bias == 0`` (llama.py:268-279), which sends every ALiBi
+    call to the einsum path; here C and E take the slopes as one more term
+    on each score and the route is the shapes' alone (check_dense keeps
+    ALiBi away from windows, rings and softcaps)."""
     if not is_cuda:
         return "einsum"
     if ring:  # E builds its ring for bf16 only: the int8 cache has no ring
@@ -428,15 +463,17 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
         return flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                                valid_from, cfg, layer_is_swa, ring)
     return masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
-                            valid_from, *attention_params(cfg, layer_is_swa), ring)
+                            valid_from, *attention_params(cfg, layer_is_swa), ring,
+                            alibi_of(cfg, q.device))
 
 
 def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
     """The dense FFN (llama.py:596-665): gated SiLU or GELU (tanh
     approximation) on fused (or separate) gate/up weights, or with
-    cfg.ffn_gate off the ungated GELU or relu(u)**2 on up alone; the up and
-    down biases (lw: the layer's float tensors) added in the compute dtype
-    where the layer has them."""
+    cfg.ffn_gate off the ungated GELU or relu(u)**2 on up alone; the gate,
+    up and down biases (lw: the layer's float tensors; jais's gate and up
+    each on its half of the fused product) added in the compute dtype where
+    the layer has them."""
     lw = lw or {}
     if not cfg.ffn_gate:
         u = qmm(x, qw["ffn_up"], dtype, li)
@@ -447,6 +484,8 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
     else:
         g = qmm(x, qw["ffn_gate"], dtype, li)
         u = qmm(x, qw["ffn_up"], dtype, li)
+    if "ffn_gate_b" in lw:  # llama.py:620-621
+        g = g + lw["ffn_gate_b"].to(dtype)
     if "ffn_up_b" in lw:
         u = u + lw["ffn_up_b"].to(dtype)
     gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
@@ -615,9 +654,9 @@ def _expert_mm(x, qt: QTensor, li, e: int, dtype):
 NORM_BIAS_KEYS = frozenset({"attn_norm_b", "ffn_norm_b", "attn_norm_2_b"})
 _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
                          "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
-                         "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm",
-                         "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
-                         "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b"}
+                         "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
+                         "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
+                         "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b"}
                         ) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS
 
 
@@ -628,10 +667,13 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     expert's gate without the shared expert; norm biases without
     layernorm; attn_norm_2 without the parallel block, and ffn_norm or
     post_ffn_norm in a parallel block that does not read them; gate
-    weights of an ungated FFN; the dense FFN's biases on a MoE layer."""
+    weights and the gate's bias on an ungated FFN; the dense FFN's biases on
+    a MoE layer; q/k norm biases outside flat layernorm q/k norms (mpt)."""
     unread = {"bq", "bk", "bv"} if not cfg.attn_bias else set()
     if not (cfg.attn_qk_norm or cfg.attn_qk_norm_flat):
         unread |= {"q_norm", "k_norm"}
+    if not (cfg.attn_qk_norm_flat and cfg.norm_type == "layernorm"):
+        unread |= {"q_norm_b", "k_norm_b"}
     if not cfg.post_norms:
         unread |= {"post_attn_norm", "post_ffn_norm"}
     if not cfg.pre_norm:
@@ -645,10 +687,10 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
         if "attn_norm_2" in gl:
             unread |= {"ffn_norm", "ffn_norm_b"}
     if not cfg.ffn_gate:
-        unread |= {"ffn_gate", "ffn_gateup"}
+        unread |= {"ffn_gate", "ffn_gateup", "ffn_gate_b"}
     moe = cfg.n_expert > 0 and "moe_gate_inp" in gl
     if moe:
-        unread |= {"ffn_up_b", "ffn_down_b"}
+        unread |= {"ffn_up_b", "ffn_down_b", "ffn_gate_b"}
     else:
         unread |= SHEXP_KEYS | {"moe_gate_inp_shexp"}
     if "ffn_gate_shexp" not in gl:
@@ -706,7 +748,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     attends over its whole ring, never cut to kv_view_len (llama.py:825-826,
     894, 913); T must then be <= ring - window.
     ``logits_idx`` (int) computes the lm_head for that position only
-    (logits (B, 1, vocab))."""
+    (logits (B, 1, vocab)). A learned position table (``pos_embd``) is
+    gathered at ``positions`` on the device (no host read, so a captured
+    step takes it), clamped to its last row: only padding and overshoot
+    positions reach past it, since InferenceEngine and ServerContext refuse
+    a context longer than the table (check_positions)."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
     moe = [MOE_KEYS & set(gl) for gl in groups]
     if any(m and m != MOE_KEYS for m in moe):
@@ -726,13 +772,21 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     x = params["tok_embd"].take_rows(tokens, dtype)
     if cfg.embedding_scale != 1.0:  # llama.py:713-714
         x = (x.to(torch.float32) * cfg.embedding_scale).to(dtype)
+    if "pos_embd" in params:  # learned absolute positions (llama.py:715-717)
+        table = params["pos_embd"]
+        x = x + torch.nn.functional.embedding(positions.clamp(max=table.shape[0] - 1),
+                                              table).to(dtype)
+    if "tok_norm" in params:  # bloom's layernorm on the embedding (llama.py:718-720)
+        x = _norm(x, params["tok_norm"], params.get("tok_norm_b"), cfg)
     # cast once here rather than in each apply_rope (same values: q and k
-    # are in the compute dtype)
-    cos, sin = (t.to(dtype) for t in rope_cache(cfg, positions))
+    # are in the compute dtype); none without RoPE
+    cos = sin = None
+    if cfg.use_rope:
+        cos, sin = (t.to(dtype) for t in rope_cache(cfg, positions))
     # SWA layers rope at their own base where the file gives one
     # (llama.py:722-731, 860-863)
     cos_swa, sin_swa = cos, sin
-    if cfg.rope_base_swa and cfg.rope_base_swa != cfg.rope_base:
+    if cfg.use_rope and cfg.rope_base_swa and cfg.rope_base_swa != cfg.rope_base:
         cfg_swa = dataclasses.replace(cfg, rope_base=cfg.rope_base_swa, raw_kv={})
         cos_swa, sin_swa = (t.to(dtype) for t in rope_cache(cfg_swa, positions))
     rope_swa = swa_flags(cfg)
@@ -753,21 +807,26 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         """This ubatch's cache rows, first L_view slots (_view, llama.py:820-831)."""
         return bank[b0: b0 + B, :, :L_view]
 
-    def attend(q, k, v, li, qn=None, kn=None):
+    def attend(q, k, v, li, lw):
         """Flat q/k/v rows -> attention output (B, T, H * hdv), this layer's
-        K/V stored (_attend_qkv, llama.py:833-910). qn/kn: the layer's q/k
-        norm weights, over the flat rows (attn_qk_norm_flat: the stream's
-        norm type, as in the JAX package) or per head (RMS), before RoPE or
-        after it (qk_norm_post_rope). clamp_kqv clamps q, k and v after
-        RoPE (llama.py:889-892)."""
+        K/V stored (_attend_qkv, llama.py:833-910). lw: the layer's float
+        tensors, among them its q/k norm weights, over the flat rows
+        (attn_qk_norm_flat: the stream's norm type with q_norm_b/k_norm_b, as
+        in the JAX package, llama.py:837-838) or per head (RMS), before RoPE
+        or after it (qk_norm_post_rope). No RoPE where use_rope is off
+        (llama.py:856-857). clamp_kqv clamps q, k and v after RoPE
+        (llama.py:889-892)."""
+        qn, kn = lw.get("q_norm"), lw.get("k_norm")
         if cfg.attn_qk_norm_flat:
-            q, k = _norm(q, qn, None, cfg), _norm(k, kn, None, cfg)
+            q = _norm(q, qn, lw.get("q_norm_b"), cfg)
+            k = _norm(k, kn, lw.get("k_norm_b"), cfg)
         q, k = q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd)
         if cfg.attn_qk_norm and not cfg.qk_norm_post_rope:
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
-        c, sn = (cos_swa, sin_swa) if rope_swa[li] else (cos, sin)
-        q = apply_rope(q, c, sn, cfg.rope_type, cfg.rope_dim)
-        k = apply_rope(k, c, sn, cfg.rope_type, cfg.rope_dim)
+        if cfg.use_rope:
+            c, sn = (cos_swa, sin_swa) if rope_swa[li] else (cos, sin)
+            q = apply_rope(q, c, sn, cfg.rope_type, cfg.rope_dim)
+            k = apply_rope(k, c, sn, cfg.rope_type, cfg.rope_dim)
         if cfg.attn_qk_norm and cfg.qk_norm_post_rope:
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
         v = v.reshape(B, T, Hkv, hdv)
@@ -834,9 +893,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             return moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"))
         return ffn(h2, qw, li, cfg, dtype, lw)
 
-    if "output_norm_b" in params and cfg.norm_type != "layernorm":
-        raise NotImplementedError(
-            f"output_norm_b: the config of arch {cfg.arch!r} (RMS norm) reads no norm bias")
+    for key in ("output_norm_b", "tok_norm_b"):
+        if key in params and (cfg.norm_type != "layernorm" or (
+                key == "tok_norm_b" and "tok_norm" not in params)):
+            raise NotImplementedError(
+                f"{key}: the config of arch {cfg.arch!r} ({cfg.norm_type}) reads no such bias")
     off = 0
     for gl in groups:
         extra = set(gl) - _LAYER_KEYS
@@ -860,15 +921,14 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 lw = {k: v[li] for k, v in fl.items()}
                 yd = y.to(dtype)
                 att = attend(yd[..., :nq], yd[..., ok: ok + nk], yd[..., ov: ov + nv],
-                             off + li, lw.get("q_norm"), lw.get("k_norm"))
+                             off + li, lw)
                 x, y = ffn_block_qkv(att, x, lw["ffn_norm"], anrm, qw, li, cfg)
                 x = x.to(dtype)
         else:
             for li in range(L_g):
                 lw = {k: v[li] for k, v in fl.items()}
                 h = pre_norm(x, lw, "attn_norm")
-                att = attend(*qkv_of(h, qw, li, lw), off + li, lw.get("q_norm"),
-                             lw.get("k_norm"))
+                att = attend(*qkv_of(h, qw, li, lw), off + li, lw)
                 if use_block:
                     x = ffn_block(att, x, lw["ffn_norm"], qw, li, cfg).to(dtype)
                     continue

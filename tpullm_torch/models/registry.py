@@ -64,6 +64,21 @@ ARCH_REGISTRY: dict[str, dict] = {
     "command-r": dict(rope_type="norm", norm_type="layernorm", parallel_residual=True),
     "codeshell": dict(rope_type="neox", norm_type="layernorm", act_fn="gelu",
                       ffn_gate=False, attn_bias=True),
+    # ---- legacy GPT family (layernorm + biases, learned/ALiBi positions,
+    # src/models/{gpt2,starcoder,bloom,mpt,jais,codeshell}.cpp) ----
+    "gpt2": dict(norm_type="layernorm", act_fn="gelu", ffn_gate=False,
+                 attn_bias=True, use_rope=False),
+    "starcoder": dict(norm_type="layernorm", act_fn="gelu", ffn_gate=False,
+                      attn_bias=True, use_rope=False),
+    "bloom": dict(norm_type="layernorm", act_fn="gelu", ffn_gate=False,
+                  attn_bias=True, use_rope=False),
+    "mpt": dict(norm_type="layernorm", act_fn="gelu", ffn_gate=False,
+                use_rope=False, attn_qk_norm_flat=True),
+    "jais": dict(norm_type="layernorm", act_fn="silu", attn_bias=True,
+                 use_rope=False),
+    # refact (src/models/refact.cpp): ALiBi hardcoded to 8.0 (no GGUF KV),
+    # which also disables rope (llama_model_rope_type -> NONE)
+    "refact": dict(alibi_max_bias=8.0),
     # falcon (src/models/falcon.cpp): parallel attention+FFN off the attn
     # norm (7B) or a second norm (40B, attn_norm_2)
     "falcon": dict(rope_type="neox", norm_type="layernorm", act_fn="gelu",

@@ -287,8 +287,8 @@ _SIGNATURES = {
     "tpq_qmm_experts": [_P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I,
                         _P, _P, _I, _I, _P],
     # q k v o qslots kvpos qpos valid_from, B H Hkv T S D,
-    # 12 strides, scale softcap window ring, stream
-    "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _I, _P],
+    # 12 strides, scale softcap window ring, slopes (ALiBi, or null), stream
+    "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _I, _P, _P],
     # w_ptrs(4 pools), w_ints, w_floats, plan, att, res, ffn_norm, anrm_next,
     # out, qkv_out, scratch, counters, M, D, Hd, n_ff, act, fold, nscratch,
     # eps, stream
@@ -297,8 +297,9 @@ _SIGNATURES = {
     # slots (the stack's L x E or E weights), out, Nout, stream
     "tpq_moe_gmm": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     # q k v ks vs sinks qslots qpos valid_from (int64) part_ml part_acc counters o,
-    # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks ring, stream
-    "tpq_flash_decode": [_P] * 13 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _I, _P],
+    # B T H Hkv S NS D q8, 10 strides, scale softcap, window chunked has_sinks ring,
+    # slopes (ALiBi, or null), stream
+    "tpq_flash_decode": [_P] * 13 + [_I] * 8 + [_L] * 10 + [_F, _F, _I, _I, _I, _I, _P, _P],
     # k v, 6 strides, k_bank v_bank ks vs slot, B T Hkv S Dk Dv b0, in_f32 bank ring, stream
     "tpq_kv_store": [_P, _P] + [_L] * 6 + [_P] * 5 + [_I] * 10 + [_P],
 }

@@ -7,17 +7,51 @@ attention, :295-360), which models/llama.py also uses as its own fallback.
 On an iSWA ring bank (``ring``) both take the JAX ring mask (``ring_mask``,
 llama.py:313-324) in place of the slot and window masks; the kernel reads
 the ring by position (csrc/flash_attention.cu), where the JAX package sends
-ring layers to its einsum path (llama.py:268).
+ring layers to its einsum path (llama.py:268). With ALiBi (a config's
+``alibi_max_bias``) both add slope_h * (key position - query position) to
+each score after the scale (llama.py:301-307); the kernel takes the slopes
+(``alibi_of``) where the JAX package sends ALiBi to its einsum path
+(llama.py:268-279).
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from . import _cuda
 
 C_HEAD_DIMS = (128, 256)  # the kernel's instances (Dk = Dv; csrc/flash_attention.cu)
+
+
+def alibi_slopes(n_head: int, max_bias: float) -> np.ndarray:
+    """Per-head ALiBi slopes (tpullm/models/llama.py:361-368, the
+    ggml_compute_forward_soft_max schedule): m0^(h+1) for the first n2 =
+    2^floor(log2 H) heads, then m1^(2(h - n2) + 1)."""
+    n2 = 1 << int(np.floor(np.log2(n_head)))
+    m0 = 2.0 ** (-max_bias / n2)
+    m1 = 2.0 ** (-(max_bias / 2.0) / n2)
+    return np.asarray(
+        [m0 ** (h + 1) if h < n2 else m1 ** (2 * (h - n2) + 1)
+         for h in range(n_head)], np.float32)
+
+
+def alibi_of(cfg, device):
+    """The config's (H,) f32 ALiBi slopes on ``device``, or None without
+    ALiBi."""
+    if not cfg.alibi_max_bias > 0:
+        return None
+    return _slopes_on(cfg.n_head, float(cfg.alibi_max_bias), torch.device(device))
+
+
+@functools.cache
+def _slopes_on(n_head: int, max_bias: float, device: torch.device) -> torch.Tensor:
+    """alibi_slopes on ``device``, made once: a copy from the host inside a
+    CUDA graph capture would raise, and each layer's call would rebuild
+    them."""
+    return torch.tensor(alibi_slopes(n_head, max_bias), device=device)
 
 
 def ring_mask(kv_slot, q_slot, valid_from, window: int, ring: int):
@@ -31,14 +65,15 @@ def ring_mask(kv_slot, q_slot, valid_from, window: int, ring: int):
 
 def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                      valid_from, scale: float, softcap: float = 0.0,
-                     window: int = 0, ring: int = 0):
+                     window: int = 0, ring: int = 0, slopes=None):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv) in q's dtype.
 
     Key slot s is visible to the query at slot q_slots[b, t] iff
     valid_from[b] <= s <= q_slots[b, t] (and, with a window, its real
     position is within the window); on a ring bank (ring = S) by
     ``ring_mask``. GQA groups query heads by reshape. A row with no visible
-    key outputs 0."""
+    key outputs 0. ``slopes`` (H,): the ALiBi term slope_h * (kv_positions -
+    positions), added after the scale and before the softcap."""
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     G = H // Hkv
@@ -46,6 +81,10 @@ def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
     qf = q.reshape(B, T, Hkv, G, Dk).to(torch.float32)
     scores = torch.einsum("bthgd,bhsd->bhgts", qf, k_all.to(torch.float32))
     scores = scores * scale
+    if slopes is not None:  # llama.py:301-307, by query head in the (Hkv, G) order
+        delta = (kv_positions[:, None, None, None, :S].to(torch.float32)
+                 - positions[:, None, None, :, None].to(torch.float32))
+        scores = scores + slopes.to(torch.float32).reshape(1, Hkv, G, 1, 1) * delta
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     kv_slot = torch.arange(S, device=q.device)[None, None, None, None, :]
@@ -83,19 +122,22 @@ def _strides3(t: torch.Tensor, what: str):
 
 def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                     valid_from, cfg, layer_is_swa: bool = False, ring: int = 0):
-    """Same contract as masked_attention with the config's scale, softcap
-    and window: q (B,T,H,Dk), K/V head-major (B,Hkv,S,D*) -> (B,T,H,Dv)
-    bf16. K/V are read in place from the cache layout. ``ring`` (= S): an
-    iSWA ring bank, whose query slots must be < ring - window apart in a
-    call (a chunk of T <= ring - window rows)."""
+    """Same contract as masked_attention with the config's scale, softcap,
+    window and ALiBi slopes: q (B,T,H,Dk), K/V head-major (B,Hkv,S,D*) ->
+    (B,T,H,Dv) bf16. K/V are read in place from the cache layout. ``ring``
+    (= S): an iSWA ring bank, whose query slots must be < ring - window
+    apart in a call (a chunk of T <= ring - window rows). The kernel takes a
+    key's position as its slot - valid_from (kv_positions as forward makes
+    it) and ALiBi without a softcap."""
     scale, softcap, window = attention_params(cfg, layer_is_swa)
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     if ring and ring != S:
         raise ValueError(f"flash_attention: a ring of {ring} over {S} slots")
+    slopes = alibi_of(cfg, q.device)
     if not q.is_cuda:
         return masked_attention(q, k_all, v_all, q_slots, kv_positions,
-                                positions, valid_from, scale, softcap, window, ring)
+                                positions, valid_from, scale, softcap, window, ring, slopes)
     Dv = v_all.shape[-1]
     if Dk != Dv or Dk not in C_HEAD_DIMS:
         raise NotImplementedError(
@@ -116,7 +158,8 @@ def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
         *(t.data_ptr() for t in i32), B, H, Hkv, T, S, Dk,
         q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_st,
-        scale, softcap, window, int(ring), _cuda.stream_ptr(qh))
+        scale, softcap, window, int(ring), slopes.data_ptr() if slopes is not None else 0,
+        _cuda.stream_ptr(qh))
     _cuda.COUNTS["flash_attention"] += 1
     _cuda.check(err, "flash_attention")
     return out

@@ -11,8 +11,12 @@ slots, position p at slot p % ring) a row's query at slot q reads the
 positions [max(valid_from, q - window + 1), q], each at its ring slot: the
 JAX ring mask (tpullm/models/llama.py:313-324) on kernel E, where the JAX
 package sends ring layers to its einsum path (llama.py:277). A row's query
-slots must be consecutive (first + t). ``flash_decode_builds`` says which
-shapes the kernel builds; the wrapper raises on any other.
+slots must be consecutive (first + t). With ALiBi (the config's
+``alibi_max_bias``) each score gets slope_h * (key position - query
+position) after the scale (llama.py:301-307), a key's position being its
+slot - valid_from: on kernel E, where the JAX package sends ALiBi to its
+einsum path (llama.py:277-279). ``flash_decode_builds`` says which shapes
+the kernel builds; the wrapper raises on any other.
 
 ``flash_decode_plain`` is the same function in plain PyTorch: the TPU
 kernel's arithmetic (f32 scores of bf16 or int8 operands, the K scale
@@ -29,7 +33,7 @@ import os
 import torch
 
 from . import _cuda
-from .flash_attention import ring_mask
+from .flash_attention import alibi_of, ring_mask
 
 # slots per split of the CUDA kernel by K/V type (int8: True); it rejects any
 # other split count (csrc/flash_decode.cu split_of)
@@ -49,11 +53,14 @@ def _scale_of(cfg, scale):
 
 def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: float,
                        softcap: float = 0.0, window: int = 0, chunked: bool = False,
-                       sinks=None, k_scales=None, v_scales=None, ring: int = 0):
+                       sinks=None, k_scales=None, v_scales=None, ring: int = 0,
+                       slopes=None):
     """q (B,T,H,Dk), K/V head-major (B,Hkv,S,D*) bf16 or int8 [+ (B,Hkv,S)
     f32 scales] -> (B,T,H,Dv) bf16. Reads slots up to the newest query slot
     of the batch (one host read of its value); a ring bank (ring = S) whole,
-    with the JAX ring mask."""
+    with the JAX ring mask. ``slopes`` (H,): the ALiBi term slope_h * ((slot
+    - valid_from) - position), added after the scale and before the
+    softcap."""
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     G, Dv = H // Hkv, v_all.shape[-1]
@@ -68,13 +75,17 @@ def flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale: f
     if k_scales is not None:
         sc = sc * k_scales[:, :, None, :hi].float()
     sc = sc * scale
-    if softcap:
-        sc = torch.tanh(sc / softcap) * softcap
     dev = q.device
     kv_slot = torch.arange(hi, device=dev)
     row_slot = q_slots.repeat(1, G).reshape(B, 1, R, 1)  # r = g * T + t -> t
     row_pos = positions.repeat(1, G).reshape(B, 1, R, 1)
     vf = valid_from.reshape(B, 1, 1, 1)
+    if slopes is not None:  # row r of kv head h: query head h * G + r // T
+        row_sl = slopes.float().reshape(1, Hkv, G, 1).repeat_interleave(T, 2).reshape(
+            1, Hkv, R, 1)
+        sc = sc + row_sl * ((kv_slot - vf).float() - row_pos.float())
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
     if ring:
         mask = ring_mask(kv_slot, row_slot, vf, window, ring)
     else:
@@ -172,7 +183,8 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
     int8] -> (B,T,H,Dv) bf16. Same masking contract as
     models.llama.attention: valid_from[b] <= slot <= q_slots[b, t], a window
     on the positions slot - valid_from (chunked with cfg.swa_chunked); on a
-    ring bank (ring = S) the ring mask (``ring_mask``)."""
+    ring bank (ring = S) the ring mask (``ring_mask``); the config's ALiBi
+    slopes (``alibi_of``), without a softcap on the card."""
     scale = _scale_of(cfg, scale)
     softcap = float(cfg.attn_logit_softcap)
     chunked = bool(cfg.swa_chunked and window)
@@ -184,9 +196,11 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
         raise ValueError(f"flash_decode: a ring of {ring} over {S} slots"
                          + (", chunked" if chunked else "")
                          + (", int8" if k_scales is not None else ""))
+    slopes = alibi_of(cfg, q.device)
     if not q.is_cuda:
         return flash_decode_plain(q, k_all, v_all, q_slots, positions, valid_from, scale,
-                                  softcap, window, chunked, sinks, k_scales, v_scales, ring)
+                                  softcap, window, chunked, sinks, k_scales, v_scales, ring,
+                                  slopes)
     Dv = v_all.shape[-1]
     q8 = k_scales is not None
     if Dk != Dv or Dk not in E_HEAD_DIMS:
@@ -224,7 +238,8 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
         out.data_ptr(),
         B, T, H, Hkv, S, NS, Dk, int(q8), k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
         ks_sb, ks_sh, vs_sb, vs_sh, scale, softcap, int(window), int(chunked),
-        int(sk is not None), int(ring), _cuda.stream_ptr(qh))
+        int(sk is not None), int(ring), slopes.data_ptr() if slopes is not None else 0,
+        _cuda.stream_ptr(qh))
     _cuda.COUNTS["flash_decode"] += 1
     _cuda.check(err, "flash_decode")
     return out

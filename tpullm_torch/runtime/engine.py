@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import KVCache, decode_route, forward, params_device, swa_flags
+from ..models.llama import (KVCache, check_positions, decode_route, forward, params_device,
+                            swa_flags)
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import GREEDY, SamplerConfig, make_sample_fn
@@ -129,6 +130,7 @@ class InferenceEngine(_cuda.GraphOwner):
         pdev = params_device(params)
         if pdev.type != self.device.type:
             raise ValueError(f"params are on {pdev}, engine device is {self.device}")
+        check_positions(params, max_seq_len, "InferenceEngine: max_seq_len")
         self.cfg = cfg
         self.params = params
         self.max_seq_len = max_seq_len

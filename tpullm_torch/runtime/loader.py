@@ -12,7 +12,9 @@ as f32 (loader.py:103-107, 362). The dense decoder's flag tensors load as
 the JAX package names them: q/k biases and norms, the GGUF-fused attn_qkv
 with its bias, the post-norms, the layernorm archs' norm biases (the
 output norm's too), falcon-40B's attn_norm_2, the output projection's bias
-and the dense FFN's up and down biases (loader.py:25, 35, 64, 189-215).
+and the dense FFN's gate, up and down biases (loader.py:25, 35, 64, 189-215),
+mpt's flat q/k norm biases (loader.py:37-38), the learned position table
+and bloom's embedding layernorm (loader.py:218-221, all f32).
 Every other tensor (expert biases, ffn_norm_exps, chunk experts, the
 output bias that phi-2's file carries, ...) raises, and so does a shared
 expert without all of its gate, up and down.
@@ -50,9 +52,12 @@ LAYER_TENSORS = {
     "attn_v.bias": "bv",
     "attn_q_norm.weight": "q_norm",
     "attn_k_norm.weight": "k_norm",
+    "attn_q_norm.bias": "q_norm_b",  # mpt's flat layernorm q/k norms
+    "attn_k_norm.bias": "k_norm_b",
     "ffn_norm.weight": "ffn_norm",
     "ffn_norm.bias": "ffn_norm_b",
     "ffn_gate.weight": "ffn_gate",
+    "ffn_gate.bias": "ffn_gate_b",  # jais
     "ffn_up.weight": "ffn_up",
     "ffn_up.bias": "ffn_up_b",
     "ffn_down.weight": "ffn_down",
@@ -76,7 +81,7 @@ LAYER_TENSORS = {
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
                      "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp",
                      "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
-                     "ffn_up_b", "ffn_down_b"}
+                     "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b"}
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -84,8 +89,12 @@ GLOBAL_TENSORS = {
     "output_norm.weight": "output_norm",
     "output_norm.bias": "output_norm_b",
     "rope_freqs.weight": "rope_freqs",
+    "position_embd.weight": "pos_embd",  # gpt2, starcoder: learned positions
+    "token_embd_norm.weight": "tok_norm",  # bloom: a layernorm on the embedding
+    "token_embd_norm.bias": "tok_norm_b",
 }
-_FLOAT_GLOBALS = {"output_norm", "output_norm_b", "rope_freqs"}
+_FLOAT_GLOBALS = {"output_norm", "output_norm_b", "rope_freqs", "pos_embd", "tok_norm",
+                  "tok_norm_b"}
 
 
 def _to_float_array(g: GGUFFile, name: str) -> np.ndarray:

@@ -8,7 +8,9 @@ sequence is a host-side free-slot pop; the cache is updated in place.
 Sequence ops: truncate (seq_rm p0..), clear, prefix reuse (the longest
 common prefix with the slot's previous content), copy_slot (seq_cp), and
 context_shift (seq_rm + seq_add with K re-roped by the shift, on the
-device, dequantizing and requantizing an int8 cache). With ``iswa`` the
+device, dequantizing and requantizing an int8 cache; on a model without
+RoPE the rows only move, as llama.cpp shifts K only when the rope type is
+not NONE, where the JAX package rotates them all the same). With ``iswa`` the
 SWA layers keep a ring of window + ``max_chunk`` slots (the dual cache,
 llama_kv_cache_iswa): a prefix is reused only while the ring still holds
 its window, and context_shift refuses (the server reprocesses instead).
@@ -113,7 +115,8 @@ class SlotMemory:
 
     def context_shift(self, slot: int, n_keep: int, n_discard: int):
         """Discard tokens [n_keep, n_keep + n_discard); roll the tail left and
-        re-rope the moved K rows by -n_discard (on the device)."""
+        re-rope the moved K rows by -n_discard (on the device; without RoPE
+        the rows move as they are)."""
         st = self.slots[slot]
         n_past = st.n_past
         assert n_keep + n_discard <= n_past
@@ -134,12 +137,25 @@ def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
     and rotate the moved K rows by the RoPE angle of -nd (memory.py:270-334,
     in place). The slot is taken seq-major (L, S, Hkv, D) for the roll. As
     in the JAX package, the K rows are rounded to bf16 for the rotation, and
-    an int8 cache is dequantized, shifted and requantized whole."""
+    an int8 cache is dequantized, shifted and requantized whole.
+
+    A model without RoPE (use_rope off: learned positions, ALiBi) has K
+    rows that carry no position, so the rows of every bank (and an int8
+    cache's row scales) move bit for bit and nothing is rotated, as
+    llama.cpp does (K is shifted only when the rope type is not NONE). The
+    JAX package rotates them all the same (memory.py:301-311: rope_cache
+    never reads use_rope), which corrupts K on such a model: a departure
+    from the reference (ROADMAP §3)."""
     S = cache.max_len
     dev = cache.k.device
     idx = torch.arange(S, device=dev)
     moved = (idx >= n_keep) & (idx < n_past - n_discard)
     src = torch.where(moved, idx + n_discard, idx)
+    if not cfg.use_rope:
+        for buf in (cache.k, cache.v, cache.ks, cache.vs):
+            if buf is not None:  # head-major (L, B, Hkv, S[, D]): the slot's rows by src
+                buf[:, slot] = buf[:, slot][:, :, src]
+        return
     k_slot = cache.k[:, slot].transpose(1, 2)  # (L, S, Hkv, D)
     v_slot = cache.v[:, slot].transpose(1, 2)
     if cache.quantized:

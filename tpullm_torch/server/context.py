@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import MOE_KEYS, check_dense, decode_route, forward, params_device
+from ..models.llama import (MOE_KEYS, check_dense, check_positions, decode_route, forward,
+                            params_device)
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import BatchSamplerParams, PenaltyState, SamplerConfig, sample_batch
@@ -252,6 +253,8 @@ class ServerContext(_cuda.GraphOwner):
             raise ValueError(f"params are on {pdev}, the server's device is {self.device}")
         _refuse_unported(cfg, params, lora=lora, mmproj_path=mmproj_path, spec=spec,
                          draft=draft, slot_save_path=slot_save_path)
+        # a slot's real positions stay below its context (a context shift lowers them)
+        check_positions(params, max_seq_len, "ServerContext: max_seq_len")
         self.tok = tokenizer  # None: token-id prompts, the text is the ids
         self.cfg = cfg
         self.params = params

@@ -45,7 +45,8 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
                           rms_eps: float = 1e-5,
                           exact_vocab: bool = False, head_dim: int | None = None,
                           tied: bool = False, cfg_fields: dict | None = None,
-                          generator: torch.Generator | None = None):
+                          generator: torch.Generator | None = None, n_ctx: int = 0,
+                          tok_norm: bool = False):
     """-> (ModelConfig, params) with every tensor on ``device``. Each weight
     is drawn on the host, moved to the device and released before the next,
     so host memory holds one weight at a time.
@@ -90,6 +91,15 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     centred on 0, with d putting the weights' std near 1/sqrt(4096).
     ``dense_ffn=False`` leaves out the FFN weights (synth_mixtral_q4k's
     experts take their place); the other draws do not move.
+
+    The rows without RoPE: ``n_ctx`` > 0 gives the model a learned f32
+    position table ``pos_embd`` of n_ctx rows (N(0, 0.02): gpt2,
+    starcoder), and ``tok_norm`` a layernorm on the embedding (``tok_norm``
+    1 + N(0, 0.1), with its bias ``tok_norm_b`` N(0, 0.1) where the row sets
+    attn_bias: bloom), drawn in that order after every array above. ALiBi
+    comes through ``cfg_fields`` (alibi_max_bias, or refact's row), which
+    turns RoPE off as config_from_gguf does; a single kv head (MQA) is
+    ``n_head_kv=1``.
 
     ``generator`` (a torch.Generator on ``device``) draws every Q4_K
     weight there with random_kmajor, the centred recipe, so no host array
@@ -137,6 +147,8 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         rms_eps=rms_eps, tie_embeddings=tied, **(cfg_fields or {}),
     )
     apply_arch_defaults(cfg)
+    if cfg.alibi_max_bias > 0:  # as config_from_gguf: ALiBi replaces RoPE
+        cfg.use_rope = False
     embd = qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size)
     params = {
         "tok_embd": embd,
@@ -182,6 +194,12 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         if dense_ffn:
             layers["ffn_up_b"] = normal(n_ff, 0.1)
             layers["ffn_down_b"] = normal(n_embd, 0.1)
+    if n_ctx:
+        params["pos_embd"] = normal(n_embd, 0.02, (n_ctx,))
+    if tok_norm:
+        params["tok_norm"] = 1.0 + normal(n_embd, 0.1, ())
+        if cfg.attn_bias:
+            params["tok_norm_b"] = normal(n_embd, 0.1, ())
     return cfg, params
 
 

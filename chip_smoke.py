@@ -88,7 +88,7 @@ pass):
    cost);
 9. the dense decoder's flags at full width: Qwen3-8B with 2 layers (per-head
    QK norms, untied 151936-row lm_head) against the CPU as phase 3; a
-   4-layer run at Qwen2.5-7B's width (q/k/v biases, G = 7, depth cut from
+   2-layer run at Qwen2.5-7B's width (q/k/v biases, G = 7, depth cut from
    28; kernel E in its decode steps, kernel D never) the same way; the
    36-layer Qwen3-8B model answers phase 4's 4 requests (graph replays,
    then eagerly: the same tokens and launch counts, A-D and the store
@@ -99,7 +99,7 @@ pass):
 10. the Qwen MoE archs at full width: Qwen3-30B-A3B (qwen3moe: 128
    experts of 768, top-8, q 4096 wide over a 2048-wide stream, Q6_K down
    experts) and Qwen2-57B-A14B's widths (qwen2moe: 64 experts of 2560 and
-   a shared expert of 20480 with its sigmoid gate, biases), each with 2
+   a shared expert of 20480 with its sigmoid gate, biases), with 2 and 1
    layers against the CPU as phase 6; then the 48-layer Qwen3-30B-A3B
    model: kernel rows on its own weights (A's expert-skip variant at M = 1
    and 4, bit for bit against A called on each listed expert and timed
@@ -147,7 +147,7 @@ pass):
    parallel block off the attention's norm, 64/64 heads of 128, logit
    scale 0.0625, a tied 256000-row lm_head) and StarCoder2-15B's width
    (layernorm, q/k/v, output and FFN biases, the ungated gelu FFN), each
-   with 2 layers against the CPU as phase 3, D never launched; kernel rows
+   with 1 layer against the CPU as phase 3, D never launched; kernel rows
    at Command-R's shapes (A and B on its five weights, C and E at a GQA
    group of 1, the store at 64 kv heads); then the 40-layer Command-R 35B
    model: the slice with E on (A, B, C, E and the store launched, D not;
@@ -174,7 +174,22 @@ pass):
    graph replays and a prefill profile, and its server (4 slots of 8192,
    bf16 KV, the CLI's default, E on): token-id completions of
    6000/2000/700/40 tokens, every request 200, and a decode chunk, graph
-   against eager and profiled as graph replays.
+   against eager and profiled as graph replays;
+15. leading dense layers and the MoE router's selection bias at full
+   width, StarCoder freed first: ERNIE-4.5-21B-A3B (layer 0 dense, 64
+   experts of 1536, top-6 by softmax with the selection bias and
+   renormalized, an ungated shared expert of 3072, 20/4 heads of 128, a
+   tied 103424-row lm_head) with 2 layers against the CPU as phase 6, the
+   bias live (the picks of at least half the rows differ from a copy with
+   it zeroed) and the decode step's combine weights taken from the unbiased
+   probabilities; kernel rows on the 28-layer model's weights (the expert
+   skip on gate and down at M = 1, 4 and 16, F at 64 experts for the 4x512
+   prefill, C and E at a GQA group of 5); the 28-layer slice (graph, then
+   eager: the same tokens and launches; A, B, C, F, the store and the skip
+   launched, D not), its decode profile (81 skip launches a step) and a
+   prefill profile; its server (4 slots of 4096, int8 KV, E on): token-id
+   completions of 2000/700/300/40 tokens, every request 200, and a decode
+   chunk profiled.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
@@ -184,13 +199,14 @@ card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
 q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
 tied lm_head, Command-R and StarCoder2 with their layernorms, biases and
 blocks, StarCoder-15B and BLOOM-7b1 with their position table, ALiBi and
-embedding norm, and the Qwen MoE models synth_moe_q4k's). The last
+embedding norm, and the Qwen MoE models and ERNIE synth_moe_q4k's). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
 slice and server, the Gemma-2-9B slice, server and ring server, the
 Gemma-7B-width run, the Command-R 35B slice and server, the StarCoder-15B
-slice and server, the BLOOM-7b1-width run), the card's name
+slice and server, the BLOOM-7b1-width run, the ERNIE-4.5-21B-A3B slice and
+server), the card's name
 and power limit, and the result line.
 """
 import dataclasses
@@ -231,7 +247,7 @@ QWEN3 = dict(arch="qwen3", vocab_size=151936, n_embd=D, n_layer=36, n_head=H, n_
 # 1e6, rms_norm_eps 1e-6, q/k/v biases
 QWEN25 = dict(arch="qwen2", vocab_size=152064, n_embd=3584, n_layer=28, n_head=28, n_head_kv=4,
               n_ff=18944, rope_base=1e6, rms_eps=1e-6, exact_vocab=True)
-QWEN25_LAYERS = 4  # the Qwen2.5-7B-width run's depth, cut from 28
+QWEN25_LAYERS = 2  # the Qwen2.5-7B-width run's depth, cut from 28
 # Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json): hidden 2048, 48 layers, 32/4
 # heads of 128 (q 4096 wide over the 2048-wide stream), 128 experts of
 # moe_intermediate_size 768, top-8, norm_topk_prob, intermediate_size 6144
@@ -294,6 +310,10 @@ TOL_E2E_FACTOR = 4.0
 # (phases 3, 9-14), cut from 4 for the script's time limit: a step's CPU
 # bf16 reference takes 1.5-8 s at these vocabularies
 PARITY_STEPS = 2
+# the depth of the parity runs of Qwen2-57B-A14B's, Command-R 35B's and
+# StarCoder2-15B's widths, cut for the script's time limit: no check of
+# theirs needs a second layer (none takes D)
+ONE_LAYER = 1
 # phase 5: synchronized decode steps timed one by one (cut from 64 for the
 # script's time limit), then steps profiled
 DECODE_STEPS, PROFILED_STEPS = 32, 8
@@ -1411,6 +1431,8 @@ def plain_cpu_copy(torch, params):
     def conv(k, v):
         if isinstance(v, dict):
             return {n: conv(n, t) for n, t in v.items()}
+        if isinstance(v, list):  # the layer groups (a dense lead, MoE layers)
+            return [conv(k, t) for t in v]
         if isinstance(v, QTensor) and v.layout == "kmajor" and k != "tok_embd":
             # stored K-major in memory, as dequant_kmajor_torch returns it:
             # the same operand layout, so the same BLAS summation order
@@ -1614,14 +1636,22 @@ def synth_moe(spec: dict, **kw):
     return synth_moe_q4k(**spec)
 
 
-def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
-    """Phase 6 (and phase 10's parity runs): a 2-layer full-width MoE model
-    (Mixtral-8x7B, or ``spec``, a synth_moe spec cut to 2 layers), kernels
+def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7, n_layer=2):
+    """Phase 6 (and phases 10 and 15's parity runs): a full-width MoE model
+    cut to ``n_layer`` layers (Mixtral-8x7B, or ``spec``, a synth_moe spec), kernels
     on the card vs the plain path on a CPU copy (teacher-forced with the
     card's greedy picks): a 128-token prefill (ragged MoE, kernel F) and 1
     decode step (the selected experts, A's expert-skip variant). Counts the
     (token, layer) top-k sets that differ between the card and the CPU f32
-    path. -> the card's launch counts."""
+    path. Where the MoE layers carry the router's selection bias
+    (moe_probs_b), each step also runs on the card once more on a copy with
+    the bias set to zero (its launches taken back; it writes the same K/V,
+    which no MoE output feeds), and the bias must be live: the selected
+    experts differ from the copy's on at least half of the real prefill
+    rows and of the decode rows; and the decode step's combine weights
+    (what moe_decode is handed) must be the router's unbiased probabilities
+    at the biased picks, renormalized and scaled, and not the biased ones.
+    -> the card's launch counts."""
     from unittest import mock
 
     import numpy as np
@@ -1632,11 +1662,11 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
     from tpullm_torch.utils.synth import synth_mixtral_q4k
 
     if spec is None:
-        cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=2, n_head=H,
-                                        n_head_kv=HKV, n_ff=N_FF, n_expert=M_EXPERT,
+        cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=n_layer,
+                                        n_head=H, n_head_kv=HKV, n_ff=N_FF, n_expert=M_EXPERT,
                                         n_expert_used=M_USED, seed=seed, device="cuda")
     else:
-        cfg, params = synth_moe(spec, n_layer=2, seed=seed, device="cuda")
+        cfg, params = synth_moe(spec, n_layer=n_layer, seed=seed, device="cuda")
     vocab = cfg.vocab_size
     cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(3)
@@ -1655,15 +1685,39 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
         sides[name] = dict(p=p, dev=dev, cache=KVCache.create(cfg, B, S, dtype, dev),
                            dtype=dtype, vf=torch.from_numpy(vf).to(dev))
     top_k = llama.top_k
+    groups = params["layers"].get("__groups__") or [params["layers"]]
+    bias = next((gl["moe_probs_b"] for gl in groups if "moe_probs_b" in gl), None)
+    free = None
+    if bias is not None:  # the copy with the bias set to zero (the same other tensors)
+        free = dict(params, layers={"__groups__": [
+            dict(gl, moe_probs_b=torch.zeros_like(gl["moe_probs_b"])) if "moe_probs_b" in gl
+            else gl for gl in groups]})
+    combine = []  # the card's decode step: (w, top_i) handed to moe_decode
+    moe_decode = llama.moe_decode
+
+    def recorded(*a):
+        combine.append((a[1].float().cpu(), a[2].cpu()))
+        return moe_decode(*a)
+
     _cuda.reset_counts()
-    errs, ref_errs, agree, flips = [], [], [], []
+    errs, ref_errs, agree, flips, live, sels = [], [], [], [], [], []
     cur_tok = torch.from_numpy(tok)
     cur_pos = torch.from_numpy(posn)
     slot, T_step = 0, T
     # each layer's routing: the router probabilities the path hands top_k
-    with mock.patch.object(llama, "top_k", wraps=top_k) as spy, torch.inference_mode():
+    with mock.patch.object(llama, "top_k", wraps=top_k) as spy, mock.patch.object(
+            llama, "moe_decode", recorded), torch.inference_mode():
         for step in range(2):
             out, picked = {}, {}
+            if bias is not None:
+                spy.reset_mock()
+                with _cuda.counts_taken_back({}):
+                    forward(free, cfg, cur_tok.cuda(), cur_pos.cuda(), sides["card"]["cache"],
+                            slot, sides["card"]["vf"], torch.bfloat16,
+                            kv_view_len=None if step == 0 else S)
+                picked["card_free"] = [top_k(*c.args).cpu().sort(-1).values
+                                       for c in spy.call_args_list]
+                combine.clear()
             for name, s in sides.items():
                 dev = s["dev"]
                 spy.reset_mock()
@@ -1676,12 +1730,17 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
                 s.setdefault("sec", []).append(time.perf_counter() - t0)
                 picked[name] = [top_k(*c.args).cpu().sort(-1).values
                                 for c in spy.call_args_list]
+                if dev == "cuda":
+                    sels.append([c.args[0].float().cpu() for c in spy.call_args_list])
             # real tokens only: left padding routes too, but is masked
             real = torch.zeros(cur_tok.shape, dtype=torch.bool)
             for b, n in enumerate(lens):
                 real[b, cur_tok.shape[1] - (n if step == 0 else 1):] = True
             flips.append(sum(int(((a != c).any(-1) & real).sum())
                              for a, c in zip(picked["card"], picked["cpu"])))
+            if bias is not None:
+                live.append(sum(int(((a != c).any(-1) & real).sum())
+                                for a, c in zip(picked["card"], picked["card_free"])))
             errs.append(nmse(torch, out["card"], out["cpu"]))
             ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
             agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
@@ -1692,9 +1751,10 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
             cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
     counts = dict(_cuda.COUNTS)
     tol = TOL_E2E_FACTOR * max(ref_errs)
-    n_routes = [sum(lens) * cfg.n_layer, B * cfg.n_layer]
+    n_moe = cfg.n_layer - cfg.n_layer_dense_lead
+    n_routes = [sum(lens) * n_moe, B * n_moe]
     width = {k: v for k, v in (spec or {}).items() if k != "n_layer"}
-    log(f"parity 2-layer {label} {width} (prefill T={T} + 1 decode step): card vs CPU f32 "
+    log(f"parity {n_layer}-layer {label} {width} (prefill T={T} + 1 decode step): card vs CPU f32 "
         f"logits nmse per step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
         f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the largest); "
         f"(token, layer) routings differing card vs CPU f32 {flips} of {n_routes}; "
@@ -1702,14 +1762,41 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7):
         f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]} cpu bf16 s "
         f"{[round(x, 2) for x in sides['cpu_bf16']['sec']]}; launches {counts}")
     if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
-        raise AssertionError(f"2-layer {label} parity: nmse {errs}, tolerance {tol}, "
+        raise AssertionError(f"{n_layer}-layer {label} parity: nmse {errs}, tolerance {tol}, "
                              f"routing flips {flips}")
+    if bias is not None:
+        # the decode step's one MoE call: the biased probabilities top_k got
+        # and the weights moe_decode got
+        (w, top_i), = combine
+        used = top_i.shape[-1]
+        w, top_i = w.reshape(-1, used), top_i.reshape(-1, used).long()
+        sel = sels[-1][0].reshape(top_i.shape[0], -1)
+        b = bias[-1].float().cpu()
+
+        def weights(p):
+            wt = torch.gather(p, -1, top_i)
+            if cfg.expert_weights_norm:
+                wt = wt / wt.sum(-1, keepdim=True).clamp_min(1e-9)
+            return wt * cfg.expert_weights_scale
+
+        w_err = float((w - weights(sel - b)).abs().max())
+        w_biased = float((w - weights(sel)).abs().max())
+        log(f"parity {n_layer}-layer {label}: selection bias (std {float(b.std()):.4g}) live: "
+            f"(token, MoE layer) routings that the zeroed copy picks otherwise {live} of "
+            f"{n_routes}; decode combine weights against the unbiased probabilities' "
+            f"max |diff| {w_err:.3e}, against the biased ones' {w_biased:.3e}")
+        if not (2 * live[0] >= n_routes[0] and 2 * live[1] >= n_routes[1]
+                and w_err < 1e-5 and w_biased > 1e-3):
+            raise AssertionError(f"{n_layer}-layer {label}: selection bias live {live} of "
+                                 f"{n_routes}, "
+                                 f"combine weights off the unbiased probabilities by {w_err}, "
+                                 f"off the biased ones by {w_biased}")
     missing = [k for k in MOE_KERNELS if counts[k] <= 0]
     if missing or counts["layer_kernel"]:
-        raise AssertionError(f"2-layer {label} parity: kernels not launched {missing}, "
+        raise AssertionError(f"{n_layer}-layer {label} parity: kernels not launched {missing}, "
                              f"layer kernel {counts['layer_kernel']}")
     _cuda.reset_counts()
-    del params, cpu, sides
+    del params, cpu, sides, groups, free, bias
     torch.cuda.empty_cache()
     return counts
 
@@ -2474,7 +2561,7 @@ def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
 def phase_qwen(torch):
     """Phase 9, the dense decoder's flags at full width: the 2-layer
     Qwen3-8B parity (per-head QK norms, untied 151936-row lm_head) and a
-    4-layer run at Qwen2.5-7B's width (q/k/v biases, GQA group 7, no kernel
+    2-layer run at Qwen2.5-7B's width (q/k/v biases, GQA group 7, no kernel
     D, kernel E on in its decode steps) against the CPU (phase 3's rule);
     then the 36-layer Qwen3-8B model: the slice (4 requests, prefill 4x512,
     decode as graph replays, graph and eager greedy tokens equal from the
@@ -2679,8 +2766,8 @@ def phase_qwen_moe_kernels(torch, entries, cfg, params):
 
 def phase_qwen_moe(torch, entries):
     """Phase 10, the Qwen MoE archs at full width: the 2-layer Qwen3-30B-A3B
-    and Qwen2-57B-A14B-width parities (phase 6's rule and routing count; the
-    shared expert, its gate and the biases in the second); then the 48-layer
+    and 1-layer Qwen2-57B-A14B-width parities (phase 6's rule and routing
+    count; the shared expert, its gate and the biases in the second); then the 48-layer
     Qwen3-30B-A3B model: its kernel rows (phase_qwen_moe_kernels), the slice
     (4 requests, graph replays, then eagerly: the same tokens and launch
     counts; A, B, C, F, the store and the skip launched, D not), phase 5's
@@ -2694,8 +2781,9 @@ def phase_qwen_moe(torch, entries):
     counts["Qwen3-30B-A3B 2-layer"] = phase_moe_parity(torch, "Qwen3-30B-A3B", QWEN3MOE, seed=11)
     log(f"phase parity Qwen3-30B-A3B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    counts["Qwen2-57B-A14B 2-layer"] = phase_moe_parity(
-        torch, f"Qwen2-57B-A14B (depth cut from {QWEN2MOE['n_layer']})", QWEN2MOE, seed=12)
+    counts[f"Qwen2-57B-A14B {ONE_LAYER}-layer"] = phase_moe_parity(
+        torch, f"Qwen2-57B-A14B (depth cut from {QWEN2MOE['n_layer']})", QWEN2MOE, seed=12,
+        n_layer=ONE_LAYER)
     log(f"phase parity Qwen2-57B-A14B width: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     cfg, params = synth_moe(QWEN3MOE, seed=0, device="cuda")
@@ -2787,10 +2875,11 @@ def phase_gemma_kernels(torch, entries):
 
 
 def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
-                    kv_dtype="q8"):
-    """Phases 11c, 13c and 14d (Gemma-2-9B, Command-R 35B, StarCoder-15B):
-    the model behind serve() on a free local port: ServerContext with 4
-    slots of 8192, an int8 cache (``kv_dtype``: or bf16, the CLI's default
+                    kv_dtype="q8", n_ctx=8192, must=()):
+    """Phases 11c, 13c, 14d and 15d (Gemma-2-9B, Command-R 35B,
+    StarCoder-15B, ERNIE-4.5-21B-A3B): the model behind serve() on a free
+    local port: ServerContext with 4 slots of ``n_ctx`` (8192; ERNIE's
+    4096), an int8 cache (``kv_dtype``: or bf16, the CLI's default
     without --kv-type q8), no tokenizer (token-id prompts; the text is the ids),
     iswa=False (on a model with SWA layers, the CLI's --swa-full:
     full-context KV on every layer), kernel E on, each
@@ -2798,8 +2887,9 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
     burst of ``server_prompts`` (GEMMA_SERVER_PROMPTS by default: the
     6000-token prompt past Gemma-2's 4096 window, in C's 512-row chunks and
     in E's steps), 64 new tokens each: every request answered 200 with its
-    64 tokens; A, B, C, E and the store launched, D not (Gemma-2's
-    post-norms close it, and Command-R's and StarCoder's layernorm). Then, with the loop stopped
+    64 tokens; A, B, C, E and the store launched, and those of ``must``
+    (ERNIE's: F and the skip), D not (Gemma-2's post-norms close it,
+    Command-R's and StarCoder's layernorm, ERNIE's experts). Then, with the loop stopped
     and the prompts prefilled anew, one decode chunk as graph replays
     against eager steps, then profiled as graph replays
     (server_chunk_profile): device ms a step and the busy share. The
@@ -2817,7 +2907,7 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
     server_prompts = server_prompts or GEMMA_SERVER_PROMPTS
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, vocab, n).tolist() for n in server_prompts]
-    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=8192, decode_chunk=8,
+    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=n_ctx, decode_chunk=8,
                         prefill_chunk=512, kv_dtype=kv_dtype, iswa=False,
                         model_name=label.lower() + "-shape")
     sock = socket.socket()
@@ -2860,12 +2950,12 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
         ctx.stop()
     swa = ", iswa off (--swa-full)" if cfg.sliding_window else ""
     kv = "q8" if kv_dtype == "q8" else str(kv_dtype).replace("torch.", "")
-    log(f"server {label} (4 slots x 8192, {kv} KV{swa}, decode_chunk 8, "
+    log(f"server {label} (4 slots x {n_ctx}, {kv} KV{swa}, decode_chunk 8, "
         f"prefill_chunk 512, kernel E; prompts {server_prompts}, {SERVER_NEW} new tokens "
         f"each): {json.dumps(report)}")
     log(f"server {label}: launches (burst) {counts}")
     missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
-               if counts[k] <= 0]
+               + tuple(must) if counts[k] <= 0]
     if missing or counts["layer_kernel"]:
         raise AssertionError(f"server {label}: kernels not launched {missing}, layer kernel "
                              f"{counts['layer_kernel']} (off this model's path)")
@@ -3373,7 +3463,7 @@ def phase_command_r_kernels(torch, entries):
 
 def phase_command_r(torch, entries):
     """Phase 13, the layernorm, bias and parallel-residual decoders at full
-    width: (a) the 2-layer parities against the CPU (phase 3's rule) of
+    width: (a) the 1-layer parities against the CPU (phase 3's rule) of
     Command-R 35B (layernorm without bias, the parallel block off the
     attention's norm, logit_scale 0.0625, the tied 256000-row lm_head; E in
     its decode steps, at a GQA group of 1) and of StarCoder2-15B's width
@@ -3398,9 +3488,9 @@ def phase_command_r(torch, entries):
                                     ("StarCoder2-15B width", STARCODER2, None, 20)):
         t = time.perf_counter()
         c = phase_parity(torch, f"{label} (depth cut from {spec['n_layer']})", seed=seed,
-                         flash_decode=flag, last_only=True, **dict(spec, n_layer=2),
+                         flash_decode=flag, last_only=True, **dict(spec, n_layer=ONE_LAYER),
                          generator=torch.Generator(device="cuda").manual_seed(seed))
-        counts[f"{label} 2-layer"] = c
+        counts[f"{label} {ONE_LAYER}-layer"] = c
         want = ["qmm_splitk", "qmm", "flash_attention", "kv_store"] + (
             ["flash_decode"] if flag else [])
         missing = [k for k in want if c[k] <= 0]
@@ -3630,10 +3720,145 @@ def phase_starcoder(torch, entries):
     return counts
 
 
+# ERNIE-4.5-21B-A3B (baidu/ERNIE-4.5-21B-A3B-PT config.json): hidden 2560, 28
+# layers, 20/4 heads of 128 (a GQA group of 5), layer 0 dense with
+# intermediate_size 12288 (moe_layer_start_index 1: the GGUF's
+# leading_dense_block_count), 64 experts of moe_intermediate_size 1536, top-6,
+# 2 shared experts (written as one ungated *_shexp of 3072), vocab 103424 tied
+# to the embedding, rope_theta 500000, rms_norm_eps 1e-5, interleaved RoPE (the
+# arch row); softmax routing with the router's selection bias on the choice
+# and the top-6 weights renormalized (the JAX row sets no renorm default, so
+# it comes as the expert_weights_norm key). The bias is drawn N(0, 0.01): the
+# softmax's 6th and 7th probabilities of 64 lie ~0.003 apart at these
+# router widths, so it moves most rows' picks without fixing them
+ERNIE = dict(arch="ernie4_5-moe", vocab_size=103424, n_embd=2560, n_layer=28, n_head=20,
+             n_head_kv=4, n_ff=12288, n_ff_exp=1536, n_expert=64, n_expert_used=6,
+             n_ff_shexp=3072, shexp_gate=False, n_dense_lead=1, probs_b_std=0.01,
+             rope_base=5e5, rms_eps=1e-5, exact_vocab=True, tied=True,
+             cfg_fields=dict(expert_weights_norm=True))
+ERNIE_SERVER_PROMPTS = [2000, 700, 300, 40]  # the ERNIE burst: 4 requests on 4 slots
+
+
+def phase_ernie_kernels(torch, entries, cfg, params):
+    """Phase 15's kernel rows, on the 28-layer ERNIE-4.5-21B-A3B model's own
+    weights (the last layer of its (27, 64) MoE stacks): A's expert-skip
+    variant on gate (N 1536, K 2560) and down (N 2560, K 1536, combining),
+    Q4_K, top-6 of 64, at M = 1, 4 (a server step of 4 slots) and 16
+    (capacity 64, the whole stack); kernel F at 64 experts on the
+    slice's prefill (4 prompts bucketed to 512 = 2048 tokens, top-6: 12288
+    assignments), with its padding share; kernel C at G = 5 on that
+    prefill's shape and kernel E at G = 5 on the server's decode step (int8
+    K/V, 4 slots of 4096) and the engine's (bf16, a 1024-slot view)."""
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.ops.moe_gmm import live_tiles, sort_by_expert
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2121)
+    lay = params["layers"]["__groups__"][1]
+    li = lay["moe_gate_exps"].data["q"].shape[0] - 1
+    path = "ERNIE-4.5-21B-A3B"
+    used = cfg.n_expert_used
+    for M in (1, 4, 16):
+        skip_row(torch, timer, entries, "gate", lay["moe_gate_exps"], li, M, g, used, path)
+        skip_row(torch, timer, entries, "down", lay["moe_down_exps"], li, M, g, used, path)
+    E, M = cfg.n_expert, 2048
+    top_i = torch.rand((M, E), generator=g, device="cuda").argsort(-1)[:, :used]
+    order, dest, te, Mp = sort_by_expert(top_i, E, M)
+    live = live_tiles(dest, te, Mp)
+    for name, qt in (("gate", lay["moe_gate_exps"]), ("down", lay["moe_down_exps"])):
+        K = qt.shape[-1]
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        xs = torch.zeros((Mp, K), dtype=torch.bfloat16, device="cuda")
+        xs[dest] = x[order // used]
+        gmm_row(torch, timer, entries, f"{name} of MoE layer {li}", qt, li, xs, te, live,
+                M * used, path)
+        del x, xs
+    heads = (cfg.n_head, cfg.n_head_kv)
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
+             path=path, heads=heads)
+    decode_row(torch, timer, entries, g, f"{path} server", 4096, [2000, 700, 300, 40],
+               [0, 0, 0, 0], True, heads=heads, path=f"{path} server")
+    decode_row(torch, timer, entries, g, f"{path} engine", 1024, [527] * 4,
+               [0, 212, 312, 412], False, heads=heads, path=path)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+
+
+def phase_ernie(torch, entries):
+    """Phase 15, leading dense layers and the router's selection bias at
+    full width, the StarCoder weights freed first: (a) the 2-layer
+    ERNIE-4.5-21B-A3B parity against the CPU (phase 6's rule and routing
+    count; layer 0 dense, layer 1 MoE with the bias; the bias live on at
+    least half of the rows against a copy with it zeroed, the decode
+    step's combine weights from the unbiased probabilities); then the
+    28-layer model, drawn on the card: (b) its kernel rows
+    (phase_ernie_kernels); (c) the slice (4 requests, graph replays, then
+    eagerly: the same tokens and launch counts; A, B, C, F, the store and
+    the skip launched, D not), phase 5's decode-step profile as graph
+    replays (3 skip launches for each of the 27 MoE layers a step, and A's
+    launches: wqkv and wo a layer, the dense lead's gate/up and down, the
+    shared expert's three a MoE layer, the lm_head) and a prefill profile;
+    (d) its server (phase_q8_server: 4 slots of 4096, int8 KV, E on, token
+    ids, a burst of 2000/700/300/40 tokens, a decode chunk profiled).
+    -> launch counts by path."""
+    counts = {}
+    label = "ERNIE-4.5-21B-A3B"
+    t = time.perf_counter()
+    counts[f"{label} 2-layer"] = phase_moe_parity(
+        torch, f"{label} (depth cut from {ERNIE['n_layer']})", ERNIE, seed=23)
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_moe(ERNIE, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    groups = params["layers"]["__groups__"]
+    log(f"slice {label}: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
+        f"{time.perf_counter() - t:.3f} s; config {cfg.arch} rope {cfg.rope_type} "
+        f"{cfg.rope_base:g} heads {cfg.n_head}/{cfg.n_head_kv} of {cfg.head_dim} experts "
+        f"{cfg.n_expert} top-{cfg.n_expert_used} of {cfg.n_ff_exp} gating "
+        f"{cfg.expert_gating} renorm {cfg.expert_weights_norm} dense lead "
+        f"{cfg.n_layer_dense_lead} tied {cfg.tie_embeddings}; layer groups "
+        f"{[sorted(gl) for gl in groups]}")
+    t = time.perf_counter()
+    phase_ernie_kernels(torch, entries, cfg, params)
+    log(f"phase kernels {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[label], eng, eager, prompts = phase_slice(
+        torch, label, cfg, params, cfg.vocab_size, MOE_KERNELS, ("layer_kernel",))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = phase_decode(torch, eng, prompts, f" {label} graph")
+    step = out["graph_capture_counts_per_step"] or {}
+    n_dense, n_moe = cfg.n_layer_dense_lead, cfg.n_layer - cfg.n_layer_dense_lead
+    want = {"qmm_experts": 3 * n_moe,
+            "qmm_splitk": 2 * cfg.n_layer + 2 * n_dense + 3 * n_moe + 1}
+    if {k: step.get(k) for k in want} != want or step.get("layer_kernel"):
+        raise AssertionError(f"{label} decode step: launches {step}, want {want} (one skip "
+                             "launch a projection a MoE layer; A on wqkv, wo, the dense "
+                             "lead's FFN, the shared expert and the lm_head)")
+    phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "moe_gmm"),
+                          f" {label}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[f"{label} server"] = phase_q8_server(torch, cfg, params, label, ERNIE_SERVER_PROMPTS,
+                                                n_ctx=4096, must=("moe_gmm", "qmm_experts"))
+    log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
+    del cfg, params, groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
+    groups = params["layers"].get("__groups__") or [params["layers"]]
     qts = [params["tok_embd"], params["output"]] + [
-        v for v in params["layers"].values() if hasattr(v, "data")]
+        v for gl in groups for v in gl.values() if hasattr(v, "data")]
     return sum(q.nbytes for q in {id(q): q for q in qts}.values()) / 1e9
 
 
@@ -3959,10 +4184,11 @@ def main() -> int:
     gemma_counts = phase_gemma(torch, entries)
     command_r_counts = phase_command_r(torch, entries)
     starcoder_counts = phase_starcoder(torch, entries)
+    ernie_counts = phase_ernie(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
-               **command_r_counts, **starcoder_counts}
+               **command_r_counts, **starcoder_counts, **ernie_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

@@ -56,6 +56,14 @@ LAYERNORM_ARCHS = ["stablelm", "orion", "cohere2", "olmo", "starcoder2", "codesh
 # the rows without RoPE: learned positions and ALiBi (their cases are in
 # tests/test_torch_positions.py)
 POSITION_ARCHS = ["gpt2", "starcoder", "bloom", "mpt", "jais", "refact"]
+# the rows whose files run on the paths above as they are (the dense and the
+# MoE ones), and the MoE rows with leading dense layers and the router's
+# selection bias (their other cases are in tests/test_torch_moe_bias.py)
+AS_IS_ARCHS = ["llama-embed", "qwen2vl", "qwen3vl", "smollm3", "hunyuan_vl", "paddleocr",
+               "pangu-embedded", "kimi-linear", "deepseek", "olmoe", "phimoe", "hunyuan-moe",
+               "qwen3vlmoe"]
+LEAD_BIAS_ARCHS = ["ernie4_5-moe", "glm4moe", "deepseek2-ocr", "exaone-moe", "dots1",
+                   "bailingmoe", "bailingmoe2", "minimax-m2"]
 KMAJOR_ARCHS = ["qwen3", "qwen2", "qwen", "glm4", "olmo2"]
 PROMPTS = [[3, 9, 4, 17, 6], [5, 1, 2], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 2, 3, 4, 5,
                                          6, 7, 8, 9, 30]]
@@ -84,13 +92,14 @@ def test_registry_rows_are_the_jax_rows():
     from tpullm.models.registry import ARCH_REGISTRY as JREG
 
     assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS + LAYERNORM_ARCHS
-               + POSITION_ARCHS + ["llama", "mixtral", "qwen3moe", "qwen2moe"]
-               ) == set(ARCH_REGISTRY)
+               + POSITION_ARCHS + AS_IS_ARCHS + LEAD_BIAS_ARCHS
+               + ["llama", "mixtral", "qwen3moe", "qwen2moe"]) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch
 
 
-@pytest.mark.parametrize("arch", FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS)
+@pytest.mark.parametrize("arch", FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS
+                         + AS_IS_ARCHS + LEAD_BIAS_ARCHS)
 def test_arch_snapshot(arch, tmp_path):
     """tests/snapshots/{arch}.npz (the JAX package's golden, from
     build_arch_gguf(seed=11): Q8_0 at n_embd 64, so planar weights) through

@@ -785,17 +785,31 @@ def _moe_card(arch, **kw):
                 seed=3, device="cpu")
     if arch == "qwen3moe":  # 8 heads of 128: q 1024 wide over the 512-wide stream
         base.update(n_head=8, head_dim=128, down_qtype=GGMLType.Q6_K)
+    elif arch == "ernie4_5-moe":  # a dense lead, the selection bias, an ungated shared expert
+        base.update(n_layer=3, n_ff_shexp=1024, n_dense_lead=1, probs_b_std=0.05,
+                    shexp_gate=False, tied=True, cfg_fields=dict(expert_weights_norm=True))
     else:
         base.update(n_ff_shexp=1024)
     base.update(kw)
     return synth_moe_q4k(arch=arch, **base)
 
 
-@pytest.mark.parametrize("arch", ["qwen3moe", "qwen2moe"])
+def _to(v, dev):
+    """params (QTensors, tensors, dicts and the layer groups' list) on dev."""
+    if isinstance(v, dict):
+        return {k: _to(x, dev) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_to(x, dev) for x in v]
+    return v.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["qwen3moe", "qwen2moe", "ernie4_5-moe"])
 def test_qwen_moe_engine_on_card_matches_cpu(cuda, monkeypatch, arch):
     """qwen3moe (per-head QK norms, renormalized top-4 of 16, q 1024 wide
-    over a 512-wide stream, Q6_K down experts) and qwen2moe (biases, a shared
-    expert with its sigmoid gate): the engine on the card against the plain
+    over a 512-wide stream, Q6_K down experts), qwen2moe (biases, a shared
+    expert with its sigmoid gate) and ernie4_5-moe (a dense first layer,
+    the router's selection bias inside the captured step, an ungated shared
+    expert, a tied lm_head): the engine on the card against the plain
     path on the CPU (test_engine_on_card_matches_cpu's rule), prefill
     through F and decode through the skip kernel; the same requests with
     cuda_graphs=False give the graph's tokens and launch counts."""
@@ -805,8 +819,9 @@ def test_qwen_moe_engine_on_card_matches_cpu(cuda, monkeypatch, arch):
 
     monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
     cfg, params = _moe_card(arch)
-    card = {k: (v.to("cuda") if not isinstance(v, dict) else
-                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    card = _to(params, "cuda")
+    if cfg.tie_embeddings:
+        card["output"] = card["tok_embd"]
     logits, counts = {}, {}
     for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
                              ("card_eager", card, "cuda", torch.bfloat16),
@@ -827,13 +842,48 @@ def test_qwen_moe_engine_on_card_matches_cpu(cuda, monkeypatch, arch):
     assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
 
 
-@pytest.mark.parametrize("arch", ["mixtral", "qwen3moe", "qwen2moe"])
+def test_biased_moe_synth_on_card_reads_bias_in_place(cuda, monkeypatch):
+    """synth_moe_q4k drawn on the card with a dense first layer, the
+    selection bias and an ungated shared expert: two groups (the dense
+    lead's fused gate/up, the MoE layers' bias), and the engine runs it
+    (F and the skip launched, D not: the dense lead stays off it with the
+    MoE rows). The captured decode step reads the bias where it lies: with
+    the bias zeroed in place, the same graph's replays give the eager
+    engine's tokens for the zeroed bias, which differ from the biased ones;
+    restored, the first tokens again."""
+    from tpullm_torch.runtime.engine import InferenceEngine
+
+    monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = _moe_card("ernie4_5-moe", device="cuda")
+    dense, moe = params["layers"]["__groups__"]
+    assert dense["ffn_gateup"].shape[0] == 1 and "moe_gate_inp_shexp" not in moe
+    bias = moe["moe_probs_b"]
+    assert bias.is_cuda and bias.shape == (2, 16)
+    eng = InferenceEngine(cfg, params, max_seq_len=256, decode_chunk=8)
+    eager = InferenceEngine(cfg, params, max_seq_len=256, decode_chunk=8, cuda_graphs=False)
+    _cuda.reset_counts()
+    first = eng.generate(ENGINE_PROMPTS, max_new_tokens=33)
+    c = dict(_cuda.COUNTS)
+    assert c["moe_gmm"] > 0 and c["qmm_experts"] > 0 and c["layer_kernel"] == 0, c
+    assert eager.generate(ENGINE_PROMPTS, max_new_tokens=33).tokens == first.tokens
+    saved = bias.clone()
+    bias.zero_()
+    free = eng.generate(ENGINE_PROMPTS, max_new_tokens=33)
+    assert free.tokens == eager.generate(ENGINE_PROMPTS, max_new_tokens=33).tokens
+    assert free.tokens != first.tokens
+    bias.copy_(saved)
+    assert eng.generate(ENGINE_PROMPTS, max_new_tokens=33).tokens == first.tokens
+    assert len(eng.graphs) == 1
+
+
+@pytest.mark.parametrize("arch", ["mixtral", "qwen3moe", "qwen2moe", "ernie4_5-moe"])
 def test_moe_decode_skip_equals_loop_on_card(cuda, monkeypatch, arch):
     """Decode steps (B = 4, T = 1, after a 40-token prefill) with the expert
     skip against the same steps with every expert through A (moe_route
     forced to the loop), on the card in bf16: logits equal bit for bit at
-    every step, and the skip launches A's variant three times a layer a
-    step (gate, up, down), whatever E is."""
+    every step, and the skip launches A's variant three times a MoE layer a
+    step (gate, up, down), whatever E is (ernie4_5-moe: the biased
+    selection, its dense first layer without a launch)."""
     import tpullm_torch.models.llama as llama
     from tpullm_torch.models.llama import KVCache, forward
     from tpullm_torch.utils.synth import synth_mixtral_q4k
@@ -864,7 +914,8 @@ def test_moe_decode_skip_equals_loop_on_card(cuda, monkeypatch, arch):
             out[way + "_counts"] = dict(_cuda.COUNTS)
     for a, b in zip(out["skip"], out["loop"]):
         assert torch.equal(a, b)
-    assert out["skip_counts"]["qmm_experts"] == 3 * cfg.n_layer * steps, out["skip_counts"]
+    n_moe = cfg.n_layer - cfg.n_layer_dense_lead
+    assert out["skip_counts"]["qmm_experts"] == 3 * n_moe * steps, out["skip_counts"]
     assert out["loop_counts"]["qmm_experts"] == 0
 
 

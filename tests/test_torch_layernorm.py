@@ -224,8 +224,9 @@ def test_layer_routes_match_jax_gate(arch, tmp_path):
     table above and the JAX package's conditions (llama.py:1382-1423, the
     TPU backend taken as present), evaluated on the JAX package's own
     params of the same GGUF; a prefill (T = 512) and the CPU take neither.
-    With tests/test_torch_arch_flags.py's table this covers every row of
-    the port's registry."""
+    With tests/test_torch_arch_flags.py's table and
+    tests/test_torch_moe_bias.py's rows this covers every row of the port's
+    registry."""
     path = str(tmp_path / f"{arch}.gguf")
     build_arch_gguf(path, arch, **KMAJOR)
     jcfg, jparams, _ = jload(path)

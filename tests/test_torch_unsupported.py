@@ -36,12 +36,13 @@ MIXTRAL = ModelConfig(arch="mixtral", n_expert=8, n_expert_used=2, expert_weight
 
 
 @pytest.mark.parametrize("field,value", [
-    ("n_expert_shared", 2), ("n_group_experts", 2), ("n_layer_dense_lead", 1),
+    ("n_expert_shared", 2), ("n_group_experts", 2), ("n_ff_chexp", 64),
     ("moe_router_pre_norm", True), ("moe_dense_parallel", "grok"), ("act_fn", "gelu"),
     ("n_expert_used", 9), ("expert_gating", "softmax_weight")])
 def test_flag_outside_moe_path_raises(field, value):
     """The MoE fields pass only with MoE tensors (moe=True); the other MoE
-    features still raise."""
+    features still raise. (The dense lead's count passes since the port
+    runs leading dense layers: test_dense_lead_passes_with_moe_only.)"""
     check_dense(MIXTRAL, moe=True)
     with pytest.raises(NotImplementedError, match="n_expert|MoE|" + field):
         check_dense(dataclasses.replace(MIXTRAL, **{field: value}), moe=True)
@@ -55,12 +56,20 @@ def _gguf(tmp_path, **kw):
     return build_llama_gguf(path, **base)
 
 
+def test_dense_lead_passes_with_moe_only():
+    """n_layer_dense_lead is a MoE field: it passes beside MoE tensors and
+    raises on the dense decoder path."""
+    check_dense(dataclasses.replace(MIXTRAL, n_layer_dense_lead=1), moe=True)
+    with pytest.raises(NotImplementedError, match="n_layer_dense_lead"):
+        check_dense(ModelConfig(n_layer_dense_lead=1))
+
+
 class _Meta:
     """The metadata face of a GGUFFile: all config_from_gguf reads."""
 
-    def __init__(self, metadata):
-        self.metadata = {"general.architecture": "llama", **metadata}
-        self.architecture = "llama"
+    def __init__(self, metadata, arch="llama"):
+        self.metadata = {"general.architecture": arch, **metadata}
+        self.architecture = arch
 
     def get(self, key, default=None):
         return self.metadata.get(key, default)
@@ -81,10 +90,113 @@ def test_dense_keys_parse():
     ("llama.attention.sliding_window_pattern", np.array([True, True, False])),
     ("llama.rope.scaling.finetuned", True),
     ("llama.attention.value_scale", 2.0), ("xielu.alpha_n", [0.8]),
-    ("llama.leading_dense_block_count", 1), ("llama.experts_per_group", 2)])
+    ("llama.rope.dimension_sections", [16, 24, 24, 0]), ("llama.pooling_type", 1),
+    ("llama.experts_per_group", 2)])
 def test_gguf_key_outside_dense_path_raises(key, value):
     with pytest.raises(NotImplementedError, match=key):
         config_from_gguf(_Meta({key: value}))
+
+
+@pytest.mark.parametrize("arch,key,value", [
+    ("qwen2vl", "rope.dimension_sections", [16, 24, 24, 0]),
+    ("qwen3vl", "rope.dimension_sections", [24, 20, 20, 0]),
+    ("hunyuan_vl", "rope.dimension_sections", [16, 24, 24, 0]),
+    ("llama-embed", "pooling_type", 1), ("kimi-linear", "kda.head_dim", 128),
+    ("kimi-linear", "attention.kv_lora_rank", 512)])
+def test_new_rows_keep_their_refusals(arch, key, value):
+    """The rows that run as they are still refuse what they carry beyond
+    the covered paths: M-RoPE's sections (text positions reduce to neox;
+    the image grid's do not), llama-embed's pooled output, kimi-linear's
+    KDA and MLA keys."""
+    with pytest.raises(NotImplementedError, match=key):
+        config_from_gguf(_Meta({f"{arch}.{key}": value}, arch))
+
+
+@pytest.mark.parametrize("arch,key", [("afmoe", "afmoe.attention.sliding_window"),
+                                      ("grovemoe", "grovemoe.experts_per_group"),
+                                      ("smallthinker", "smallthinker.expert_count")])
+def test_unported_moe_archs_raise(arch, key):
+    """afmoe, grovemoe and smallthinker stay out of the registry: a file of
+    theirs raises at the arch gate, whatever its keys."""
+    with pytest.raises(NotImplementedError, match=arch):
+        config_from_gguf(_Meta({key: 4}, arch))
+
+
+def test_afmoe_attention_gate_tensors_raise(tmp_path, monkeypatch):
+    """Even with its JAX row added and its keys let through (the dense lead
+    and the selection bias now load), an afmoe file raises at load on its
+    attention gate and its own post-norm names, which the port does not
+    run."""
+    from tpullm.models.registry import ARCH_REGISTRY as JREG
+    from tpullm.utils.synth import build_arch_gguf
+    from tpullm_torch.models.registry import ARCH_REGISTRY
+
+    path = str(tmp_path / "afmoe.gguf")
+    build_arch_gguf(path, "afmoe", seed=11)
+    with pytest.raises(NotImplementedError, match="afmoe"):
+        load_model(path, device="cpu")
+    monkeypatch.setitem(ARCH_REGISTRY, "afmoe", JREG["afmoe"])
+    with pytest.raises(NotImplementedError, match="attn_gate") as e:
+        load_model(path, device="cpu")
+    assert "attn_post_norm" in str(e.value) and "ffn_post_norm" in str(e.value)
+
+
+def _kimi_gguf(tmp_path, monkeypatch, extra):
+    """kimi-linear's arch snapshot GGUF (the dense layers it shares with
+    llama) with ``extra`` {name: f32 array} tensors."""
+    from tpullm.utils.synth import build_arch_gguf
+
+    write = GGUFWriter.write
+
+    def write_extra(self):
+        for name, arr in extra.items():
+            self.add_tensor(name, arr)
+        return write(self)
+
+    monkeypatch.setattr(GGUFWriter, "write", write_extra)
+    return build_arch_gguf(str(tmp_path / "kimi.gguf"), "kimi-linear", seed=11)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("blk.0.ssm_conv1d_q.weight", (64, 1, 4)), ("blk.0.ssm_f_a.weight", (16, 64)),
+    ("blk.0.ssm_beta.weight", (4, 64)), ("blk.0.ssm_norm.weight", (16,)),
+    ("blk.1.attn_kv_a_mqa.weight", (80, 64)), ("blk.1.attn_k_b.weight", (4, 64, 48)),
+    ("blk.1.attn_kv_a_norm.weight", (64,))])
+def test_kimi_linear_kda_and_mla_tensors_raise(tmp_path, monkeypatch, name, shape):
+    """kimi-linear's row runs its llama-shaped layers, but the tensors of
+    its KDA and MLA layers raise at load as outside the covered paths."""
+    path = _kimi_gguf(tmp_path, monkeypatch, {name: np.zeros(shape, np.float32)})
+    with pytest.raises(NotImplementedError, match=name.split(".")[2]):
+        load_model(path, device="cpu")
+
+
+def test_kimi_linear_file_raises(tmp_path):
+    """A kimi-linear file with its KDA and MLA layers (per-layer kv head
+    counts, the KDA and MLA keys) raises at load."""
+    from tpullm.utils.synth import build_kimi_linear_gguf
+
+    path = build_kimi_linear_gguf(str(tmp_path / "kimi.gguf"), pattern="kkak", seed=5)
+    with pytest.raises(NotImplementedError):
+        load_model(path, device="cpu")
+
+
+def test_selection_bias_on_dense_layer_raises(tmp_path, monkeypatch):
+    """The router's selection bias loads as moe_probs_b, but a layer
+    without routed experts reads none: forward raises."""
+    write = GGUFWriter.write
+
+    def write_extra(self):
+        self.add_tensor("blk.0.exp_probs_b.bias", np.zeros(4, np.float32))
+        return write(self)
+
+    monkeypatch.setattr(GGUFWriter, "write", write_extra)
+    cfg, params, _ = load_model(_gguf(tmp_path), device="cpu")
+    assert params["layers"]["moe_probs_b"].dtype == torch.float32
+    cache = KVCache.create(cfg, 1, 16, torch.float32, "cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="moe_probs_b"):
+        forward(params, cfg, tok, tok, cache, 0, torch.zeros(1, dtype=torch.int64),
+                torch.float32)
 
 
 def test_per_layer_head_counts_raise():

@@ -188,7 +188,7 @@ class ModelConfig:
 
 # {arch}.* keys the covered paths read. Any other {arch}.* key, and the
 # arch-unprefixed xielu.* keys, configure a feature the port does not run
-# (shared experts, expert groups, dense lead layers, ...): config_from_gguf
+# (the shared-expert count, expert groups, M-RoPE sections, ...): config_from_gguf
 # raises on them rather than parsing and ignoring them.
 # attention.layer_norm_epsilon goes to norm_eps as in the JAX parser; the
 # layernorm archs read it (models/llama.py:_norm).
@@ -219,6 +219,11 @@ MOE_KEYS = frozenset({
     "expert_count", "expert_used_count", "expert_feed_forward_length",
     "expert_weights_scale", "expert_weights_norm", "expert_gating_func",
     "expert_shared_feed_forward_length",
+    # the dense layers ahead of the MoE layers (config.py:258-259; which FFN
+    # a layer runs follows its tensors) and the NextN/MTP layers, which no
+    # graph runs: they come off n_layer and their tensors are not read
+    # (config.py:260-265)
+    "leading_dense_block_count", "nextn_predict_layers",
 })
 
 
@@ -297,6 +302,10 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     gf = get("expert_gating_func")
     if gf is not None:
         cfg.expert_gating = {2: "sigmoid"}.get(int(gf), "softmax")
+    cfg.n_layer_dense_lead = int(get("leading_dense_block_count", 0) or 0)
+    nextn = int(get("nextn_predict_layers", 0) or 0)
+    if nextn:
+        cfg.n_layer -= nextn
     if arch == "qwen":  # qwen-v1 GGUF stores DOUBLE the ffn width
         cfg.n_ff //= 2
     apply_arch_defaults(cfg)

@@ -16,18 +16,20 @@ or ALiBi, without either) -> output projection and its optional bias ->
 gated SiLU or GELU FFN (optional gate and up biases), ungated GELU or relu2
 FFN (optional up and down biases),
 in sequence or in parallel with attention (the parallel residual), or the
-routed-expert MoE FFN (softmax or sigmoid router, top-k, optional
-renormalization and scale, an optional gated SiLU shared expert with an
-optional per-token sigmoid gate; no expert biases, latent or chunk
-experts); optional post-attention and post-FFN norms, with or without the
-pre-norms (``pre_norm``); residual branches times residual_scale; logits
-times logit_scale, then the final softcap. A Python loop over layers takes
-the place of ``lax.scan``; the KV cache (bf16, f32 or int8 with row scales;
-full-context on every layer, or the iSWA dual cache: full banks for the
-full-attention layers and a ring of window + chunk slots for the SWA
-layers) is updated in place, in the batch engine's layout or the server's
-per-slot rows. Every flag of the JAX graph that these paths never set
-raises (``check_dense``) instead of being ignored.
+routed-expert MoE FFN (softmax or sigmoid router, an optional selection
+bias for the top-k choice, top-k, optional renormalization and scale, an
+optional gated SiLU shared expert with an optional per-token sigmoid gate;
+no expert biases, latent or chunk experts; dense layers ahead of the MoE
+layers, each run as its tensors say); optional post-attention and post-FFN
+norms, with or without the pre-norms (``pre_norm``); residual branches
+times residual_scale; logits times logit_scale, then the final softcap. A
+Python loop over layers takes the place of ``lax.scan``; the KV cache
+(bf16, f32 or int8 with row scales; full-context on every layer, or the
+iSWA dual cache: full banks for the full-attention layers and a ring of
+window + chunk slots for the SWA layers) is updated in place, in the
+batch engine's layout or the server's per-slot rows. Every flag of the JAX
+graph that these paths never set raises (``check_dense``) instead of being
+ignored.
 
 Kernel gates are the JAX package's own, with "the tensors are on the card"
 in place of "the default backend is the TPU": prefill attention takes the
@@ -102,10 +104,12 @@ DENSE_FIELDS = frozenset({
 # ungated gelu or relu2; the MoE FFN runs gated silu
 GATED_ACTS, UNGATED_ACTS = ("silu", "gelu"), ("gelu", "relu2")
 NORM_TYPES = ("rmsnorm", "layernorm")
-# the routed-expert MoE FFN's fields, accepted only with MoE tensors
+# the routed-expert MoE FFN's fields, accepted only with MoE tensors; the
+# dense lead's count is informational, as in the JAX graph: which FFN a
+# layer runs follows its tensors
 MOE_FIELDS = frozenset({
     "n_expert", "n_expert_used", "expert_gating", "expert_weights_norm",
-    "expert_weights_scale", "n_ff_exp",
+    "expert_weights_scale", "n_ff_exp", "n_layer_dense_lead",
 })
 MOE_KEYS = frozenset({"moe_gate_inp", "moe_gate_exps", "moe_up_exps", "moe_down_exps"})
 # the shared expert of MoE layers (qwen2moe: with its sigmoid gate), read
@@ -529,12 +533,17 @@ def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int, used: int)
     return "ragged" if _ragged_moe_ok(gate_w, up_w, down_w, D) else "loop"
 
 
-def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None):
+def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None):
     """Mixture-of-experts FFN (llama.py:371-515; build_moe_ffn contract,
     src/llama-graph.h:831), gated SiLU experts only.
 
     Router: logits = x @ gate_inp^T -> softmax|sigmoid, top-k, optional
-    weight renorm and scale. The experts take ``moe_route``'s path: on the
+    weight renorm and scale. ``probs_b`` (the layer's f32 (E,) selection
+    bias moe_probs_b: ernie4_5-moe, glm4moe, deepseek2-ocr, dots1, ...) is
+    added to the probabilities for the top-k choice only; the combine
+    weights are gathered from the unbiased probabilities
+    (llama.py:391-403). It is a device tensor read in place, so a captured
+    decode step takes it. The experts take ``moe_route``'s path: on the
     card, decode (B*T <= 16) runs only the selected experts through kernel
     A's expert-skip variant (the JAX package's lax.cond, llama.py:447-454,
     moved onto the device; ops/moe_decode.py), prefill the ragged grouped
@@ -554,7 +563,8 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None):
         probs = torch.sigmoid(router)
     else:
         probs = torch.softmax(router, dim=-1)
-    top_i = top_k(probs, used)  # (B, T, used)
+    sel = probs if probs_b is None else probs + probs_b.to(torch.float32)[None, None, :]
+    top_i = top_k(sel, used)  # (B, T, used)
     w = torch.gather(probs, -1, top_i)
     if cfg.expert_weights_norm:
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
@@ -656,16 +666,16 @@ _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo"
                          "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
                          "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
                          "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
-                         "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b"}
-                        ) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS
+                         "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
+                         "moe_probs_b"}) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS
 
 
 def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     """Layer tensors this config's graph would not read (the JAX package
     ignores them; the port raises rather than drop weights): among them the
-    shared expert of a layer without routed experts, and the shared
-    expert's gate without the shared expert; norm biases without
-    layernorm; attn_norm_2 without the parallel block, and ffn_norm or
+    shared expert and the router's selection bias of a layer without routed
+    experts, and the shared expert's gate without the shared expert; norm
+    biases without layernorm; attn_norm_2 without the parallel block, and ffn_norm or
     post_ffn_norm in a parallel block that does not read them; gate
     weights and the gate's bias on an ungated FFN; the dense FFN's biases on
     a MoE layer; q/k norm biases outside flat layernorm q/k norms (mpt)."""
@@ -692,7 +702,7 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     if moe:
         unread |= {"ffn_up_b", "ffn_down_b", "ffn_gate_b"}
     else:
-        unread |= SHEXP_KEYS | {"moe_gate_inp_shexp"}
+        unread |= SHEXP_KEYS | {"moe_gate_inp_shexp", "moe_probs_b"}
     if "ffn_gate_shexp" not in gl:
         unread.add("moe_gate_inp_shexp")
     return sorted(unread & set(gl))
@@ -890,7 +900,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         """The layer's FFN: routed experts where it has them
         (llama.py:1273-1276), else the dense FFN."""
         if cfg.n_expert > 0 and "moe_gate_inp" in qw:
-            return moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"))
+            return moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"),
+                           lw.get("moe_probs_b"))
         return ffn(h2, qw, li, cfg, dtype, lw)
 
     for key in ("output_norm_b", "tok_norm_b"):

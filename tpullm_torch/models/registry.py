@@ -99,6 +99,64 @@ ARCH_REGISTRY: dict[str, dict] = {
     # attention and FFN projections
     "jais2": dict(rope_type="neox", norm_type="layernorm", act_fn="relu2",
                   ffn_gate=False, attn_bias=True),
+    # ---- rows whose files run on the paths above as they are ----
+    # llama-embed (src/models/models.h llama_model_llama_embed): the llama
+    # graph in embedding mode — same weights/dataflow, pooled output (its
+    # pooling key still raises: no pooled output in the port)
+    "llama-embed": dict(rope_type="norm"),
+    # qwen2vl (src/models/qwen2vl.cpp): the qwen2 graph with M-RoPE
+    # (ggml_rope_multi + rope.dimension_sections). For TEXT tokens all
+    # position channels are equal, under which the M-RoPE sector walk
+    # (ggml-cpu/ops.cpp ggml_mrope_cache_init) reduces EXACTLY to neox
+    # rope; image-grid positions route through the mtmd path (the sections
+    # key still raises in the port)
+    "qwen2vl": dict(rope_type="neox", attn_bias=True),
+    # qwen3vl/qwen3vlmoe (src/models/qwen3vl.cpp): the qwen3 graph with
+    # interleaved M-RoPE (ggml_rope_multi IMROPE); text positions reduce to
+    # neox rope as above
+    "qwen3vl": dict(rope_type="neox", attn_qk_norm=True),
+    "qwen3vlmoe": dict(rope_type="neox", attn_qk_norm=True,
+                       expert_weights_norm=True),
+    "smollm3": dict(rope_type="norm"),
+    # hunyuan_vl (src/models/hunyuan-vl.cpp): qwen2vl-shaped with
+    # POST-rope per-head qk RMS norms and XDRoPE alpha freq-base scaling
+    "hunyuan_vl": dict(rope_type="neox", attn_qk_norm=True,
+                       qk_norm_post_rope=True),
+    # paddleocr (src/models/paddleocr.cpp): "same with qwen2vl.cpp, but
+    # bias tensors are optional" — M-RoPE text reduction applies
+    "paddleocr": dict(rope_type="neox", attn_bias=True),
+    # pangu-embedded (src/models/pangu-embed.cpp): llama-shape, wo bias
+    "pangu-embedded": dict(rope_type="neox"),
+    # kimi-linear (src/models/kimi-linear.cpp): KDA (per-key-channel-decay
+    # delta attention w/ separate q/k/v convs + sigmoid-gated output norm)
+    # on kv==0 layers, ROPELESS absorbed-MQA MLA on the rest, renormalized
+    # MoE + gated shared expert after a dense lead (the KDA and MLA layers'
+    # tensors and keys still raise in the port)
+    "kimi-linear": dict(),
+    # ---- MoE family batch (src/models/{deepseek,olmoe,phimoe,hunyuan-moe,
+    # ernie4-5-moe,glm4-moe,exaone-moe,dots1,bailingmoe}.cpp) ----
+    "deepseek": dict(rope_type="norm"),
+    "olmoe": dict(rope_type="neox", attn_qk_norm_flat=True),
+    "phimoe": dict(rope_type="neox", norm_type="layernorm"),
+    "hunyuan-moe": dict(rope_type="neox", attn_qk_norm=True),
+    # leading dense layers and the router's selection bias (exp_probs_b)
+    "ernie4_5-moe": dict(rope_type="norm"),
+    "glm4moe": dict(rope_type="neox", attn_qk_norm=True),
+    # deepseek2-ocr (src/models/deepseek2ocr.cpp + deepseek2.cpp is_ocr
+    # branch): PLAIN MHA (no MLA) with full-head neox rope hardcoded in
+    # the graph, deepseek-style gated MoE + shared experts after a dense
+    # lead
+    "deepseek2-ocr": dict(rope_type="neox"),
+    "exaone-moe": dict(rope_type="neox", attn_qk_norm=True),
+    "dots1": dict(rope_type="neox", attn_qk_norm=True),
+    "bailingmoe": dict(rope_type="norm"),
+    # bailingmoe2 (src/models/bailingmoe2.cpp): fused wqkv, per-head
+    # qk-norm, leading dense layers, router probs bias + shared experts,
+    # gating func from GGUF (sigmoid in shipped checkpoints)
+    "bailingmoe2": dict(rope_type="neox", attn_qk_norm=True),
+    # minimax-m2 (src/models/minimax-m2.cpp): flat (full-row) qk RMS before
+    # rope, every layer MoE with router probs bias
+    "minimax-m2": dict(rope_type="neox", attn_qk_norm_flat=True),
 }
 
 

@@ -3,18 +3,23 @@
 Counterpart of tpullm/runtime/loader.py:291-450: reads each tensor from the
 mmap, repacks quantized weights into the K-major kernel layout (planar
 where the kernels do not take them), stacks per-layer tensors along a
-leading layer axis (split into groups where the per-layer quant types
-change), fuses QKV and gate/up, then places everything on ``device``.
+leading layer axis (split into groups where the per-layer quant types or
+tensor sets change: a dense lead ahead of MoE layers is a group of its
+own), fuses QKV and gate/up, then places everything on ``device``. The
+NextN layers that config_from_gguf takes off n_layer (glm4moe) are not
+read.
 Expert weights (E, n, k) are repacked per expert and stacked to
 (L, E, Npad, K); the expert gate/up stay unfused, as in the JAX package,
 and so do the shared expert's (qwen2moe), whose sigmoid gate vector loads
-as f32 (loader.py:103-107, 362). The dense decoder's flag tensors load as
-the JAX package names them: q/k biases and norms, the GGUF-fused attn_qkv
+as f32 (loader.py:103-107, 362), as does the router's selection bias
+``moe_probs_b`` (loader.py:108, 355). The dense decoder's flag tensors load
+as the JAX package names them: q/k biases and norms, the GGUF-fused attn_qkv
 with its bias, the post-norms, the layernorm archs' norm biases (the
 output norm's too), falcon-40B's attn_norm_2, the output projection's bias
 and the dense FFN's gate, up and down biases (loader.py:25, 35, 64, 189-215),
 mpt's flat q/k norm biases (loader.py:37-38), the learned position table
-and bloom's embedding layernorm (loader.py:218-221, all f32).
+and bloom's embedding layernorm (loader.py:218-221, all f32); glm4moe's
+post_attention_norm becomes its ffn_norm (loader.py:410-414).
 Every other tensor (expert biases, ffn_norm_exps, chunk experts, the
 output bias that phi-2's file carries, ...) raises, and so does a shared
 expert without all of its gate, up and down.
@@ -75,11 +80,15 @@ LAYER_TENSORS = {
     "ffn_up_shexp.weight": "ffn_up_shexp",
     "ffn_down_shexp.weight": "ffn_down_shexp",
     "ffn_gate_inp_shexp.weight": "moe_gate_inp_shexp",
+    # the router's selection bias (loader.py:108), added to the
+    # probabilities for the top-k choice only
+    "exp_probs_b.bias": "moe_probs_b",
 }
-# norms, biases and the shared expert's gate load as f32 arrays
-# (loader.py:209-229, 362)
+# norms, biases, the shared expert's gate and the selection bias load as
+# f32 arrays (loader.py:209-229, 355-362)
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
                      "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp",
+                     "moe_probs_b",
                      "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
                      "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b"}
 
@@ -142,7 +151,11 @@ def load_model(path: str, device="cuda"):
     params: dict[str, Any] = {}
     known = set(GLOBAL_TENSORS) | {f"blk.{i}.{s}" for i in range(cfg.n_layer)
                                    for s in LAYER_TENSORS}
-    unknown = sorted(set(g.tensors) - known)
+    # the NextN layers past n_layer (config_from_gguf took them off it) are
+    # not read, as the JAX loader walks range(n_layer) (loader.py:341)
+    n_blocks = int(g.get(f"{cfg.arch}.block_count", cfg.n_layer))
+    nextn = tuple(f"blk.{i}." for i in range(cfg.n_layer, n_blocks))
+    unknown = sorted(t for t in set(g.tensors) - known if not t.startswith(nextn))
     if unknown:
         raise NotImplementedError(
             f"tensors outside the dense decoder and MoE paths: {unknown[:8]}")
@@ -197,6 +210,9 @@ def load_model(path: str, device="cuda"):
                 layers[key] = _stack_qtensors(seg)
             else:
                 layers[key] = torch.stack(seg)
+        if cfg.arch == "glm4moe" and "post_attn_norm" in layers and "ffn_norm" not in layers:
+            # glm4moe's post_attention_norm is its pre-FFN norm (loader.py:410-414)
+            layers["ffn_norm"] = layers.pop("post_attn_norm")
         return fuse_layer_weights(layers, cfg)
 
     groups = [build_group(lo, hi) for lo, hi in zip(bounds[:-1], bounds[1:])]

@@ -8,10 +8,11 @@
 - ``synth_moe_q4k``: the same attention, norms and embeddings with a
   routed-expert FFN in place of the dense one (F32 router, unfused Q4_K
   gate/up experts and Q4_K or Q6_K down experts stacked to (L, E, Npad, K),
-  an optional Q4_K shared expert with its F32 sigmoid gate vector), the
+  an optional Q4_K shared expert with or without its F32 sigmoid gate
+  vector, optional leading dense layers and a router selection bias), the
   experts drawn on the device so no host array holds them, for any MoE arch
-  of the registry (mixtral, qwen3moe, qwen2moe); ``synth_mixtral_q4k`` is
-  its Mixtral form;
+  of the registry (mixtral, qwen3moe, qwen2moe, ernie4_5-moe, ...);
+  ``synth_mixtral_q4k`` is its Mixtral form;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks;
 - ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's or Qwen2's
@@ -208,13 +209,16 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
                   n_ff_exp: int | None = None, head_dim: int | None = None,
                   down_qtype: GGMLType = GGMLType.Q4_K, n_ff_shexp: int = 0,
                   rope_base: float = 1e6, rms_eps: float = 1e-5, exact_vocab: bool = False,
-                  seed: int = 0, device="cuda"):
+                  seed: int = 0, device="cuda", n_dense_lead: int = 0,
+                  probs_b_std: float = 0.0, shexp_gate: bool = True, tied: bool = False,
+                  cfg_fields: dict | None = None):
     """-> (ModelConfig, params) of a routed-expert Q4_K model of ``arch`` on
     ``device``.
 
     Attention, norms and embeddings are synth_kmajor_q4k_fast's
-    (centred=True, ``head_dim``, the arch row's q/k norms or biases) from
-    ``seed``. Each layer's experts are random_kmajor draws with lead (E,),
+    (centred=True, ``head_dim``, the arch row's q/k norms or biases,
+    ``tied``) from ``seed``. Each MoE layer's experts are random_kmajor
+    draws with lead (E,),
     from a torch.Generator seeded with ``seed`` on ``device``, written into
     preallocated (L, E, ...) arrays, so the largest transient is one layer's
     draw: gate and up Q4_K, down ``down_qtype`` (Q6_K where Q4_K has no K
@@ -223,46 +227,80 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
     (cfg.n_ff_exp), or with None ``n_ff`` wide (Mixtral's GGUF carries no
     expert width). The router is F32 dense (E, n_embd) per layer, normal
     with std 0.02 (logits of std ~1.3 for unit-RMS inputs at n_embd 4096).
-    With ``n_ff_shexp`` the layers also carry a Q4_K shared expert of that
-    width and its F32 gate vector (normal, std 0.02), drawn in that order
-    after the routed experts. The registry row of ``arch`` sets the top-k
+    With ``n_ff_shexp`` the MoE layers also carry a Q4_K shared expert of
+    that width and (``shexp_gate``) its F32 gate vector (normal, std 0.02),
+    drawn in that order after the routed experts; ``shexp_gate=False``
+    leaves the gate out, as the files of ernie4_5-moe, glm4moe and the
+    deepseek family have it (the shared expert added ungated).
+
+    ``n_dense_lead`` > 0 makes the first n_dense_lead layers dense (a fused
+    Q4_K gate/up of ``n_ff`` and its down), as a file's
+    leading_dense_block_count does: params["layers"] is then the loader's
+    two groups, {"__groups__": [dense lead, MoE layers]}, the attention and
+    norms of both cut from one draw over n_layer layers, the experts,
+    router and shared expert drawn for the MoE layers alone. The dense
+    FFN is drawn after every array above, from the same torch.Generator;
+    then, with ``probs_b_std`` > 0, each MoE layer's router selection bias
+    ``moe_probs_b`` (E,) f32, normal with that std. ``cfg_fields`` sets
+    config fields as a file's keys would, before the row's defaults apply
+    (expert_weights_norm, expert_gating, ...). With the defaults every draw
+    is as it was. The registry row of ``arch`` sets the top-k
     renormalization; rope_base defaults to Mixtral's and Qwen's rope_theta,
     1e6."""
     cfg, params = synth_kmajor_q4k_fast(
         vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer, n_head=n_head,
         n_head_kv=n_head_kv, n_ff=n_ff, seed=seed, centred=True, device=device,
         dense_ffn=False, arch="llama" if arch == "mixtral" else arch, rms_eps=rms_eps,
-        exact_vocab=exact_vocab, head_dim=head_dim)
+        exact_vocab=exact_vocab, head_dim=head_dim, tied=tied)
     device = params["output_norm"].device
     gen = torch.Generator(device=device).manual_seed(seed)
     E, width = n_expert, n_ff_exp or n_ff
+    n_moe = n_layer - n_dense_lead
+    if not 0 <= n_dense_lead < n_layer:
+        raise ValueError(f"n_dense_lead {n_dense_lead} of {n_layer} layers")
 
-    def stacked(qtype, parts, K, lead=()):
-        """random_kmajor draws of lead per layer, into (L,) + lead arrays."""
+    def stacked(qtype, parts, K, lead=(), n=n_moe):
+        """random_kmajor draws of lead per layer, into (n,) + lead arrays."""
         first = random_kmajor(qtype, parts, K, lead, gen, device)
-        data = {k: torch.empty((n_layer,) + tuple(v.shape), dtype=v.dtype, device=device)
+        data = {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype, device=device)
                 for k, v in first.data.items()}
-        for li in range(n_layer):
+        for li in range(n):
             qt = first if li == 0 else random_kmajor(qtype, parts, K, lead, gen, device)
             for k, v in qt.data.items():
                 data[k][li] = v
             del qt
-        return QTensor(qtype, (n_layer,) + lead + (pad256(parts[0]), K), data)
+        return QTensor(qtype, (n,) + lead + (sum(pad256(p) for p in parts), K), data)
 
     layers = params["layers"]
-    layers["moe_gate_inp"] = QTensor(GGMLType.F32, (n_layer, E, n_embd), {
-        "w": torch.randn((n_layer, E, n_embd), generator=gen, device=device) * 0.02})
-    layers["moe_gate_exps"] = stacked(GGMLType.Q4_K, [width], n_embd, (E,))
-    layers["moe_up_exps"] = stacked(GGMLType.Q4_K, [width], n_embd, (E,))
-    layers["moe_down_exps"] = stacked(GGMLType(down_qtype), [n_embd], width, (E,))
+    moe = {"moe_gate_inp": QTensor(GGMLType.F32, (n_moe, E, n_embd), {
+        "w": torch.randn((n_moe, E, n_embd), generator=gen, device=device) * 0.02})}
+    moe["moe_gate_exps"] = stacked(GGMLType.Q4_K, [width], n_embd, (E,))
+    moe["moe_up_exps"] = stacked(GGMLType.Q4_K, [width], n_embd, (E,))
+    moe["moe_down_exps"] = stacked(GGMLType(down_qtype), [n_embd], width, (E,))
     if n_ff_shexp:
-        layers["ffn_gate_shexp"] = stacked(GGMLType.Q4_K, [n_ff_shexp], n_embd)
-        layers["ffn_up_shexp"] = stacked(GGMLType.Q4_K, [n_ff_shexp], n_embd)
-        layers["ffn_down_shexp"] = stacked(GGMLType.Q4_K, [n_embd], n_ff_shexp)
-        layers["moe_gate_inp_shexp"] = torch.randn((n_layer, n_embd), generator=gen,
-                                                   device=device) * 0.02
+        moe["ffn_gate_shexp"] = stacked(GGMLType.Q4_K, [n_ff_shexp], n_embd)
+        moe["ffn_up_shexp"] = stacked(GGMLType.Q4_K, [n_ff_shexp], n_embd)
+        moe["ffn_down_shexp"] = stacked(GGMLType.Q4_K, [n_embd], n_ff_shexp)
+        if shexp_gate:
+            moe["moe_gate_inp_shexp"] = torch.randn((n_moe, n_embd), generator=gen,
+                                                    device=device) * 0.02
+    dense = {}
+    if n_dense_lead:
+        dense["ffn_gateup"] = stacked(GGMLType.Q4_K, [n_ff, n_ff], n_embd, n=n_dense_lead)
+        dense["ffn_down"] = stacked(GGMLType.Q4_K, [n_embd], n_ff, n=n_dense_lead)
+    if probs_b_std:
+        moe["moe_probs_b"] = torch.randn((n_moe, E), generator=gen, device=device) * probs_b_std
+    if n_dense_lead:
+        cut = lambda v, lo, hi: (QTensor(v.qtype, (hi - lo,) + tuple(v.shape[1:]), {
+            k: d[lo:hi] for k, d in v.data.items()}) if isinstance(v, QTensor) else v[lo:hi])
+        params["layers"] = {"__groups__": [
+            {**{k: cut(v, 0, n_dense_lead) for k, v in layers.items()}, **dense},
+            {**{k: cut(v, n_dense_lead, n_layer) for k, v in layers.items()}, **moe}]}
+    else:
+        layers.update(moe)
     cfg = dataclasses.replace(cfg, arch=arch, n_expert=E, n_expert_used=n_expert_used,
-                              n_ff_exp=n_ff_exp or 0, rope_base=rope_base)
+                              n_ff_exp=n_ff_exp or 0, rope_base=rope_base,
+                              n_layer_dense_lead=n_dense_lead, **(cfg_fields or {}))
     apply_arch_defaults(cfg)
     return cfg, params
 

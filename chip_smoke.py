@@ -72,7 +72,7 @@ pass):
    under torch.profiler, and peak memory with the graph pool; then one
    profiled prefill: each kernel's device time, the device time outside
    the kernels and the device's idle share;
-6. the 8B model is freed; full-width Mixtral-8x7B with 2 layers: one
+6. the 8B model is freed; full-width Mixtral-8x7B with 1 layer: one
    128-token prefill (ragged MoE through kernel F) + 1 greedy decode step
    (the selected experts through kernel A's expert-skip variant) against
    the plain path on a CPU copy in f32, with phase 3's tolerance rule,
@@ -99,8 +99,8 @@ pass):
 10. the Qwen MoE archs at full width: Qwen3-30B-A3B (qwen3moe: 128
    experts of 768, top-8, q 4096 wide over a 2048-wide stream, Q6_K down
    experts) and Qwen2-57B-A14B's widths (qwen2moe: 64 experts of 2560 and
-   a shared expert of 20480 with its sigmoid gate, biases), with 2 and 1
-   layers against the CPU as phase 6; then the 48-layer Qwen3-30B-A3B
+   a shared expert of 20480 with its sigmoid gate, biases), each with 1
+   layer against the CPU as phase 6; then the 48-layer Qwen3-30B-A3B
    model: kernel rows on its own weights (A's expert-skip variant at M = 1
    and 4, bit for bit against A called on each listed expert and timed
    beside A over all 128 experts; F at 128 experts on a 4x512 prefill,
@@ -160,7 +160,7 @@ pass):
    attention: 48 query heads over one kv head of 128, a GQA group of 48,
    layernorm and biases, the ungated gelu FFN, a tied 49152-row lm_head)
    and BLOOM-7b1's width (ALiBi through kernels C and E, the embedding's
-   layernorm, biases, 32/32 heads), each with 2 layers against the CPU as
+   layernorm, biases, 32/32 heads), each with 1 layer against the CPU as
    phase 3 (BLOOM with prompts of 896 and 500 and E on, so that C and E
    both run ALiBi; every C and E call of both on its kernel, none on the
    einsum path), D never launched; kernel rows at StarCoder's shapes (A
@@ -189,6 +189,24 @@ pass):
    launched, D not), its decode profile (81 skip launches a step) and a
    prefill profile; its server (4 slots of 4096, int8 KV, E on): token-id
    completions of 2000/700/300/40 tokens, every request 200, and a decode
+   chunk profiled;
+16. MLA, the compressed-KV attention, at full width, ERNIE freed first:
+   DeepSeek-V2-Lite (16 heads, a direct wq, kv_lora 512 + rope 64: one
+   kv head of K 576 and V 512 in the cache; YaRN x40 with its mscale^2 in
+   the attention's scale; layer 0 dense, 64 experts of 1408, top-6,
+   shared 2816) with 2 layers against the CPU as phase 6, split
+   absorption banks on the bf16 cache and a legacy attn_kv_b split by the
+   loader on the int8 one; the context shift (only the k_pe tail rotated)
+   against a re-prefill of the kept tokens on both caches; kernel rows on
+   the 27-layer model's weights (A and B on wq, wkv_a and wo, the store at
+   one head of 576/512), the einsum MLA attention at the server's step
+   beside SDPA, and the expert loop's ms a MoE layer (the expert down
+   planar Q8_0 at K 1408: no K-major tile, so no skip or F); the slice
+   with 16 greedy steps (graph, then eager: the same tokens and launches;
+   A, B and the store launched, C, D, E, F and the skip not), its decode
+   profile (3463 A and 27 store launches a step) and a prefill profile;
+   its server (4 slots of 4096, int8 KV): token-id completions of
+   2000/700/300/40 tokens, 16 new each, every request 200, and a decode
    chunk profiled.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
@@ -199,14 +217,15 @@ card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
 q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
 tied lm_head, Command-R and StarCoder2 with their layernorms, biases and
 blocks, StarCoder-15B and BLOOM-7b1 with their position table, ALiBi and
-embedding norm, and the Qwen MoE models and ERNIE synth_moe_q4k's). The last
+embedding norm, the Qwen MoE models and ERNIE synth_moe_q4k's, and
+DeepSeek-V2-Lite synth_mla_q4k's, drawn on the card). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
 slice and server, the Gemma-2-9B slice, server and ring server, the
 Gemma-7B-width run, the Command-R 35B slice and server, the StarCoder-15B
 slice and server, the BLOOM-7b1-width run, the ERNIE-4.5-21B-A3B slice and
-server), the card's name
+server, the DeepSeek-V2-Lite slice and server), the card's name
 and power limit, and the result line.
 """
 import dataclasses
@@ -311,8 +330,9 @@ TOL_E2E_FACTOR = 4.0
 # bf16 reference takes 1.5-8 s at these vocabularies
 PARITY_STEPS = 2
 # the depth of the parity runs of Qwen2-57B-A14B's, Command-R 35B's and
-# StarCoder2-15B's widths, cut for the script's time limit: no check of
-# theirs needs a second layer (none takes D)
+# StarCoder2-15B's widths, and of Mixtral-8x7B's,
+# Qwen3-30B-A3B's, StarCoder-15B's and BLOOM-7b1's, cut for the script's
+# time limit: no check of theirs needs a second layer (none takes D)
 ONE_LAYER = 1
 # phase 5: synchronized decode steps timed one by one (cut from 64 for the
 # script's time limit), then steps profiled
@@ -1316,7 +1336,7 @@ def phase_flash_decode(torch, timer, entries):
 
 
 def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=(H, HKV),
-              hd=HD, ring=0):
+              hd=HD, ring=0, hdv=None):
     """One row of the KV store kernel for one layer (Llama-3-8B's and
     Mixtral's 8 kv heads of 128, 4 cache rows of S slots): bf16 K rows and
     V rows sliced out of a fused QKV output (as forward passes them), batch
@@ -1329,20 +1349,23 @@ def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=
     (2 B) and the slots, and writes each once (int8 with its row's two f32
     scales, or bf16). ``heads`` and ``hd`` give another model's widths.
     With ``ring`` (= S) the banks are an iSWA ring: row t at slot
-    (slots[b] + t) % ring, the library call's indices taken the same way."""
+    (slots[b] + t) % ring, the library call's indices taken the same way.
+    ``hdv``: V rows of another width than K's (MLA: K [c_kv; k_pe] 576, V
+    c_kv 512, one kv head)."""
     from tpullm_torch.ops.kv_store import kv_store, kv_store_plain
 
     H, HKV = heads
     HD = hd
+    HDV = hdv or hd
     B, B_cache = len(slots), 4
-    y = (torch.randn((B, T, (H + 2 * HKV) * HD), generator=g, device="cuda") * 2).to(
+    y = (torch.randn((B, T, H * HD + HKV * (HD + HDV)), generator=g, device="cuda") * 2).to(
         torch.bfloat16)
     k = y[..., H * HD: (H + HKV) * HD].reshape(B, T, HKV, HD)
-    v = y[..., (H + HKV) * HD:].reshape(B, T, HKV, HD)
+    v = y[..., (H + HKV) * HD:].reshape(B, T, HKV, HDV)
     k = k.contiguous()  # RoPE's output is contiguous; V stays a slice
     bank_dtype = torch.int8 if q8 else torch.bfloat16
-    banks = [torch.zeros((B_cache, HKV, S, HD), dtype=bank_dtype, device="cuda")
-             for _ in range(2)]
+    banks = [torch.zeros((B_cache, HKV, S, d), dtype=bank_dtype, device="cuda")
+             for d in (HD, HDV)]
     banks += ([torch.zeros((B_cache, HKV, S), device="cuda") for _ in range(2)] if q8
               else [None, None])
     twin = [None if b is None else b.clone() for b in banks]
@@ -1358,24 +1381,25 @@ def store_row(torch, timer, entries, g, where, path, T, slots, b0, S, q8, heads=
     mae = max(float((a.float() - b.float()).abs().max()) for a, b in live)
     lms = lib_same = None
     if not q8:  # one index_put_ a bank, its indices made before the timing
-        lib = [torch.zeros_like(banks[0]) for _ in range(2)]
         sl = slot[:, None] + torch.arange(T, device="cuda")[None, :]  # all inside the cache
         if ring:
             sl = sl % ring
         idx = ((b0 + torch.arange(B, device="cuda"))[:, None, None].expand(B, T, HKV),
                torch.arange(HKV, device="cuda")[None, None, :].expand(B, T, HKV),
                sl[:, :, None].expand(B, T, HKV))
+        lib = [torch.zeros_like(b) for b in banks[:2]]
         library = lambda: (lib[0].index_put_(idx, k), lib[1].index_put_(idx, v))
         library()
         torch.cuda.synchronize()
         lib_same = torch.equal(lib[0], banks[0]) and torch.equal(lib[1], banks[1])
         lms = timer(library, 20)
     rows = B * T * HKV
-    bound, by = bound_of(rows * 2 * HD * (2 + bank_dtype.itemsize)
+    bound, by = bound_of(rows * (HD + HDV) * (2 + bank_dtype.itemsize)
                          + (rows * 2 * 4 if q8 else 0) + B * 8, 0.0)
     ms = timer(run, 20)
     pms = timer(plain, 3, warmup=1)
-    label = (f"kv_store[{'int8' if q8 else 'bf16'},{where},B={B},T={T},Hkv={HKV},D={HD},"
+    label = (f"kv_store[{'int8' if q8 else 'bf16'},{where},B={B},T={T},Hkv={HKV},"
+             f"D={HD if HDV == HD else f'{HD}/{HDV}'},"
              f"S={S},slots {'/'.join(map(str, slots))},cache rows from {b0}"
              + (f",ring={ring}" if ring else "") + "]")
     log(f"kernel {label}: bit-identical to plain {same} max_abs_err {mae:.4g} ms {ms:.4f} "
@@ -1801,7 +1825,7 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7, n_layer=2):
     return counts
 
 
-def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
+def phase_slice(torch, label, cfg, params, vocab, must, must_not=(), new=33, samples=3):
     """Phases 4 and 7: a 32-layer model answers 4 requests through
     generate, each decode step a replay of the engine's CUDA graph: one run
     with the launch counts (set to 0 just before it; replays add their
@@ -1812,7 +1836,11 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
     (cuda_graphs=False), which must give the same greedy tokens, 4 x 33,
     and the same launch counts, and its timings from one sample each (cut
     from the median of 3 for the script's time limit: eager steps take
-    3-9x a replay's). -> (counts, graph engine, eager engine, prompts)."""
+    3-9x a replay's). ``new`` tokens a request (33: the engines' decode
+    chunk is 32 steps) and ``samples`` a timing (3); with one sample the
+    eager decode is timed from its checked run (DeepSeek-V2-Lite's, cut
+    for the script's time limit: its eager step takes ~1.1-1.3 s). ->
+    (counts, graph engine, eager engine, prompts)."""
     import numpy as np
 
     from tpullm_torch.ops import _cuda
@@ -1821,10 +1849,10 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
     rng = np.random.default_rng(42)
     lens = [512, 300, 200, 100]
     prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
-    eng = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=32)
-    eager = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=32, cuda_graphs=False)
-    new = 33  # the first token from prefill + one chunk of 32 decode steps
-    dec_steps = new - 1
+    dec_steps = new - 1  # the first token from prefill, then one chunk of decode steps
+    eng = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=dec_steps)
+    eager = InferenceEngine(cfg, params, max_seq_len=1024, decode_chunk=dec_steps,
+                            cuda_graphs=False)
 
     def timed(e, n):
         torch.cuda.synchronize()
@@ -1833,7 +1861,7 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
         torch.cuda.synchronize()
         return r, time.perf_counter() - t
 
-    def median_timed(e, n, k=3):
+    def median_timed(e, n, k=samples):
         runs = [timed(e, n) for _ in range(k)]
         return runs[-1][0], sorted(t for _, t in runs)[k // 2]
 
@@ -1851,13 +1879,15 @@ def phase_slice(torch, label, cfg, params, vocab, must, must_not=()):
     in_range = all(0 <= t < vocab for t in flat)
     same = r1.tokens == r2.tokens
     _cuda.reset_counts()
-    r_eager, _ = timed(eager, new)
+    r_eager, t_all = timed(eager, new)
     eager_counts = dict(_cuda.COUNTS)
     _, t_pre = median_timed(eager, 1, k=1)
-    _, t_all = median_timed(eager, new, k=1)
+    if samples > 1:
+        _, t_all = median_timed(eager, new, k=1)
     eager_ms = (t_all - t_pre) / dec_steps * 1e3
     graph_eq = r_eager.tokens == r1.tokens
-    log(f"slice {label} (times: medians of 3 samples, eager one): prefill {sum(lens)} tokens "
+    log(f"slice {label} (times: medians of {samples} samples, eager one): prefill "
+        f"{sum(lens)} tokens "
         f"(bucket 4x512) {pre:.1f} tok/s; decode {len(lens)}x{dec_steps} tokens "
         f"{step_ms:.2f} ms/step ({len(lens) * 1e3 / step_ms:.1f} tok/s) as graph replays "
         f"(first run with its capture {t_capture:.3f} s), eager {eager_ms:.2f} ms/step; "
@@ -1956,21 +1986,22 @@ def http_json(url, body, timeout=600):
     return status, json.loads(raw)
 
 
-def server_burst(base, prompts, label, tok, vocab=VOCAB, first_admitted=None):
+def server_burst(base, prompts, label, tok, vocab=VOCAB, first_admitted=None, new=SERVER_NEW):
     """The burst: one thread per request, all sent at once, token-id prompts
-    with ignore_eos (every request makes SERVER_NEW tokens). Request
+    with ignore_eos (every request makes ``new`` tokens, SERVER_NEW unless
+    given). Request
     SERVER_STREAMED streams, SERVER_SAMPLED samples (temperature 0.8, top_k
     40, seed 1234), the rest are greedy. With ``first_admitted`` (a
     callable) request 0 goes first and the others once it returns true (it
     is admitted: the first free slot is its). Fails on any non-200, error
-    event, completion that is not SERVER_NEW tokens, or text that is not the
+    event, completion that is not ``new`` tokens, or text that is not the
     tokenizer's (``visible``). -> (results, wall s)."""
     import threading
 
     results = [None] * len(prompts)
 
     def one(i):
-        body = {"prompt": prompts[i], "max_tokens": SERVER_NEW, "temperature": 0.0,
+        body = {"prompt": prompts[i], "max_tokens": new, "temperature": 0.0,
                 "ignore_eos": True}
         if i == SERVER_SAMPLED:
             body.update(temperature=0.8, top_k=40, seed=1234)
@@ -1999,14 +2030,14 @@ def server_burst(base, prompts, label, tok, vocab=VOCAB, first_admitted=None):
             text = "".join(e["choices"][0]["text"] for e in r)
             ids = r[-1]["choices"][0]["tokens"]
             stats = r[-1]["timings"]
-            ok = (len(ids) == SERVER_NEW == stats["completion_tokens"]
+            ok = (len(ids) == new == stats["completion_tokens"]
                   and text == visible(tok, ids)
                   and r[-1]["choices"][0]["finish_reason"] == "length"
                   and sum(1 for e in r if e["choices"][0]["text"]) >= 2)
         else:
             ids = r["choices"][0]["tokens"]
             stats = r["timings"]
-            ok = (len(ids) == SERVER_NEW == r["usage"]["completion_tokens"]
+            ok = (len(ids) == new == r["usage"]["completion_tokens"]
                   and r["choices"][0]["text"] == visible(tok, ids))
         if not ok or not all(0 <= x < vocab for x in ids):
             raise AssertionError(f"server {label}: request {i} output check failed: "
@@ -2765,8 +2796,8 @@ def phase_qwen_moe_kernels(torch, entries, cfg, params):
 
 
 def phase_qwen_moe(torch, entries):
-    """Phase 10, the Qwen MoE archs at full width: the 2-layer Qwen3-30B-A3B
-    and 1-layer Qwen2-57B-A14B-width parities (phase 6's rule and routing
+    """Phase 10, the Qwen MoE archs at full width: the 1-layer Qwen3-30B-A3B
+    and Qwen2-57B-A14B-width parities (phase 6's rule and routing
     count; the shared expert, its gate and the biases in the second); then the 48-layer
     Qwen3-30B-A3B model: its kernel rows (phase_qwen_moe_kernels), the slice
     (4 requests, graph replays, then eagerly: the same tokens and launch
@@ -2778,7 +2809,9 @@ def phase_qwen_moe(torch, entries):
     <|im_end|>. -> launch counts by path."""
     counts = {}
     t = time.perf_counter()
-    counts["Qwen3-30B-A3B 2-layer"] = phase_moe_parity(torch, "Qwen3-30B-A3B", QWEN3MOE, seed=11)
+    counts[f"Qwen3-30B-A3B {ONE_LAYER}-layer"] = phase_moe_parity(
+        torch, f"Qwen3-30B-A3B (depth cut from {QWEN3MOE['n_layer']})", QWEN3MOE, seed=11,
+        n_layer=ONE_LAYER)
     log(f"phase parity Qwen3-30B-A3B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     counts[f"Qwen2-57B-A14B {ONE_LAYER}-layer"] = phase_moe_parity(
@@ -2874,8 +2907,12 @@ def phase_gemma_kernels(torch, entries):
     _cuda.reset_counts()
 
 
+SERVER_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
+
+
 def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
-                    kv_dtype="q8", n_ctx=8192, must=()):
+                    kv_dtype="q8", n_ctx=8192, must=(), kernels=SERVER_KERNELS,
+                    must_not=("layer_kernel",), decode_chunk=8, new=SERVER_NEW):
     """Phases 11c, 13c, 14d and 15d (Gemma-2-9B, Command-R 35B,
     StarCoder-15B, ERNIE-4.5-21B-A3B): the model behind serve() on a free
     local port: ServerContext with 4 slots of ``n_ctx`` (8192; ERNIE's
@@ -2895,7 +2932,11 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
     (server_chunk_profile): device ms a step and the busy share. The
     6000-token prefill's profile and the eager chunk's are left out for the
     script's time limit (the profiler's host work on tens of thousands of
-    launches). -> the launch counts of the burst."""
+    launches). ``kernels`` and ``must`` must launch in the burst and
+    ``must_not`` not (DeepSeek-V2-Lite's MLA: A, B and the store; not C, D
+    or E); ``decode_chunk`` is the server's (its chunk is the profiled
+    one); ``new`` the tokens a request (DeepSeek-V2-Lite's 32, cut for the
+    script's time limit). -> the launch counts of the burst."""
     import numpy as np
     import socket
 
@@ -2907,8 +2948,9 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
     server_prompts = server_prompts or GEMMA_SERVER_PROMPTS
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, vocab, n).tolist() for n in server_prompts]
-    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=n_ctx, decode_chunk=8,
-                        prefill_chunk=512, kv_dtype=kv_dtype, iswa=False,
+    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=n_ctx,
+                        decode_chunk=decode_chunk, prefill_chunk=512, kv_dtype=kv_dtype,
+                        iswa=False,
                         model_name=label.lower() + "-shape")
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
@@ -2928,14 +2970,14 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
         torch.cuda.reset_peak_memory_stats()
         m0 = dict(ctx.metrics)
         _cuda.reset_counts()
-        res, wall = server_burst(base, prompts, label, None, vocab=vocab)
+        res, wall = server_burst(base, prompts, label, None, vocab=vocab, new=new)
         torch.cuda.synchronize()
         counts = dict(_cuda.COUNTS)
         gen = ctx.metrics["generated_tokens_total"] - m0["generated_tokens_total"]
         dec_s = ctx.metrics["decode_seconds_total"] - m0["decode_seconds_total"]
         report["burst"] = {
             "requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
-            "burst_wall_s": wall, "burst_completion_tok_per_s": len(prompts) * SERVER_NEW / wall,
+            "burst_wall_s": wall, "burst_completion_tok_per_s": len(prompts) * new / wall,
             "decode_tok_per_s": gen / dec_s if dec_s else None,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
         ctx.stop()  # the loop thread; the chunk profile drives its body from here
@@ -2950,15 +2992,15 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
         ctx.stop()
     swa = ", iswa off (--swa-full)" if cfg.sliding_window else ""
     kv = "q8" if kv_dtype == "q8" else str(kv_dtype).replace("torch.", "")
-    log(f"server {label} (4 slots x {n_ctx}, {kv} KV{swa}, decode_chunk 8, "
-        f"prefill_chunk 512, kernel E; prompts {server_prompts}, {SERVER_NEW} new tokens "
+    log(f"server {label} (4 slots x {n_ctx}, {kv} KV{swa}, decode_chunk {decode_chunk}, "
+        f"prefill_chunk 512, kernel E; prompts {server_prompts}, {new} new tokens "
         f"each): {json.dumps(report)}")
     log(f"server {label}: launches (burst) {counts}")
-    missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
-               + tuple(must) if counts[k] <= 0]
-    if missing or counts["layer_kernel"]:
-        raise AssertionError(f"server {label}: kernels not launched {missing}, layer kernel "
-                             f"{counts['layer_kernel']} (off this model's path)")
+    missing = [k for k in tuple(kernels) + tuple(must) if counts[k] <= 0]
+    extra = [k for k in must_not if counts[k]]
+    if missing or extra:
+        raise AssertionError(f"server {label}: kernels not launched {missing}, launched but "
+                             f"off this model's path {extra}")
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -3608,7 +3650,7 @@ def phase_starcoder_kernels(torch, entries):
               [5632], 2, 8192, False, heads=heads, hd=hd)
     bl = BLOOM
     bheads, bhd = (bl["n_head"], bl["n_head_kv"]), bl["n_embd"] // bl["n_head"]
-    alibi, bpath = bl["cfg_fields"]["alibi_max_bias"], "BLOOM-7b1 width 2-layer"
+    alibi, bpath = bl["cfg_fields"]["alibi_max_bias"], f"BLOOM-7b1 width {ONE_LAYER}-layer"
     attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=engine_vf, path=bpath,
              heads=bheads, hd=bhd, alibi=alibi)
     attn_row(torch, timer, entries, g, B=1, T=512, S=8192, n_past=5632, vf=[0], path=bpath,
@@ -3625,7 +3667,7 @@ def phase_starcoder_kernels(torch, entries):
 
 
 def phase_starcoder(torch, entries):
-    """Phase 14, the decoders without RoPE at full width: (b) the 2-layer
+    """Phase 14, the decoders without RoPE at full width: (b) the 1-layer
     parities against the CPU (phase 3's rule) of StarCoder-15B (the learned
     position table, MQA at G = 48, layernorm and biases, the ungated gelu
     FFN, the tied 49152-row lm_head; E in its decode steps) and of
@@ -3660,9 +3702,9 @@ def phase_starcoder(torch, entries):
         with mock.patch.object(llama, "attention_route", counted):
             c = phase_parity(torch, f"{label} (depth cut from {spec['n_layer']})", seed=seed,
                              flash_decode="1", last_only=True, lens=lens, S=S,
-                             **dict(spec, n_layer=2),
+                             **dict(spec, n_layer=ONE_LAYER),
                              generator=torch.Generator(device="cuda").manual_seed(seed))
-        counts[f"{label} 2-layer"] = c
+        counts[f"{label} {ONE_LAYER}-layer"] = c
         missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode",
                                "kv_store") if c[k] <= 0]
         off = {k: n for k, n in routes.items() if kernel_route[k[0]] != k[1]}
@@ -3854,6 +3896,480 @@ def phase_ernie(torch, entries):
     return counts
 
 
+# DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json): hidden 2048, 27
+# layers, 16 heads, q_lora_rank none (a direct wq), kv_lora_rank 512,
+# qk_nope_head_dim 128, qk_rope_head_dim 64, v_head_dim 128; layer 0 dense of
+# intermediate 10944 (first_k_dense_replace 1), then 64 routed experts of
+# moe_intermediate_size 1408, top-6, softmax, norm_topk_prob false,
+# routed_scaling_factor 1.0, and 2 shared experts (one FFN of 2816); vocab
+# 102400, untied; rope_theta 1e4 with YaRN (factor 40 over 4096,
+# mscale_all_dim 0.707: the GGUF's yarn_log_multiplier 0.0707, parsed to
+# 0.707), max_position_embeddings 163840, rms_norm_eps 1e-6. Q4_K, and Q8_0
+# where K is not a multiple of 256 (the expert down at 1408, the dense down
+# at 10944), as a Q4_K_M file gives them (synth_mla_q4k)
+DEEPSEEK = dict(arch="deepseek2", vocab_size=102400, n_embd=2048, n_layer=27, n_head=16,
+                kv_lora_rank=512, qk_nope=128, qk_rope=64, v_head=128, n_ff=10944,
+                n_expert=64, n_expert_used=6, n_ff_exp=1408, n_ff_shexp=2816,
+                n_expert_shared=2, n_dense_lead=1, rope_base=1e4, rms_eps=1e-6,
+                cfg_fields=dict(n_ctx_train=163840, rope_scaling="yarn", rope_scale=40.0,
+                                rope_orig_ctx=4096, rope_yarn_log_mul=0.707))
+DS_SERVER_PROMPTS = [2000, 700, 300, 40]  # the DeepSeek burst: 4 requests on 4 slots
+# greedy steps of its slice (one decode chunk) and tokens of its server's
+# requests, cut from 32 and 64 for the script's time limit: the expert
+# loop's step takes ~160 ms as a graph replay and ~1.1-1.3 s eagerly on an
+# H100 80GB HBM3 at 700 W
+DS_NEW = 16
+# the kernels of the MLA path, and those off it: MLA attention takes the
+# einsum path (its own scale; Dk 576 != Dv 512), D's gate refuses MLA, and
+# the expert down at K 1408 (planar Q8_0) sends the experts to the loop
+MLA_KERNELS = ("qmm_splitk", "qmm", "kv_store")
+MLA_OFF = ("layer_kernel", "flash_attention", "flash_decode", "moe_gmm", "qmm_experts")
+
+
+def synth_deepseek(torch, n_layer, seed, layout="split", **kw):
+    """synth_mla_q4k of DeepSeek-V2-Lite cut to ``n_layer`` layers (``kw``
+    over the spec). ``layout`` "legacy": each layer group's wk_b and wv_b
+    as a legacy attn_kv_b file gives them, a Q4_K (L, H * (nope + v),
+    kv_lora) weight drawn on the card and split by the loader's own
+    _mla_prepare (dequantized on the card)."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.ops.qtensor import QTensor
+    from tpullm_torch.runtime.loader import _mla_prepare
+    from tpullm_torch.utils.synth import random_kmajor, synth_mla_q4k
+
+    cfg, params = synth_mla_q4k(**dict(DEEPSEEK, n_layer=n_layer, **kw), seed=seed,
+                                device="cuda")
+    if layout == "legacy":
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        groups = params["layers"].get("__groups__") or [params["layers"]]
+        n = cfg.n_head * (cfg.head_dim - cfg.rope_dim + cfg.head_dim_v)
+        out = []
+        for gl in groups:
+            lead = (gl["wk_b"].shape[0],)
+            kvb = random_kmajor(GGMLType.Q4_K, [n], cfg.kv_lora_rank, lead, g, "cuda")
+            gl = {k: v for k, v in gl.items() if k not in ("wk_b", "wv_b")}
+            gl["wkv_b"] = QTensor(GGMLType.Q4_K, lead + (n, cfg.kv_lora_rank), kvb.data)
+            out.append(_mla_prepare(gl, cfg))
+        params["layers"] = {"__groups__": out} if len(out) > 1 else out[0]
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def params_bytes(params) -> int:
+    """Bytes of every tensor of a model's params (a tied lm_head once)."""
+    seen, total = set(), 0
+
+    def walk(v):
+        nonlocal total
+        if isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+        elif isinstance(v, list):
+            for x in v:
+                walk(x)
+        elif hasattr(v, "data") and isinstance(v.data, dict):
+            for t in v.data.values():
+                walk(t)
+        elif hasattr(v, "data_ptr") and v.data_ptr() not in seen:
+            seen.add(v.data_ptr())
+            total += v.numel() * v.element_size()
+
+    walk(params)
+    return total
+
+
+def phase_mla_parity(torch, label, layout, kv, seed, n_layer=2):
+    """Phase 16a: DeepSeek-V2-Lite at full width cut to ``n_layer`` layers
+    (layer 0 dense, layer 1 MoE, YaRN on), kernels on the card against the
+    plain path on a CPU copy in f32, teacher-forced with the card's greedy
+    picks: a prefill of 2 prompts of 128 and 100 tokens (left-padded) and
+    one decode step over a 256-slot cache of ``kv`` (bf16 or "q8"; the CPU
+    sides on the same type: f32 or q8 and bf16 or q8), on a split
+    (``layout`` "split") or a legacy attn_kv_b model. Tolerance: phase 6's
+    rule, 4x the NMSE of the same plain path in bf16. A, B and the store
+    must launch; C, D, E, F and the skip must not. -> the card's launch
+    counts."""
+    import numpy as np
+
+    from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.ops import _cuda
+
+    cfg, params = synth_deepseek(torch, n_layer, seed, layout)
+    cpu = plain_cpu_copy(torch, params)
+    rng = np.random.default_rng(3)
+    lens, S = (128, 100), 256
+    B, T = len(lens), max(lens)
+    tok = np.zeros((B, T), np.int64)
+    posn = np.zeros((B, T), np.int64)
+    for b, n in enumerate(lens):
+        tok[b, T - n:] = rng.integers(0, cfg.vocab_size, n)
+        posn[b, T - n:] = np.arange(n)
+    vf = np.asarray([T - n for n in lens], np.int64)
+    q8 = kv == "q8"
+    sides = {}
+    for name, dev, dtype in (("card", "cuda", torch.bfloat16), ("cpu", "cpu", torch.float32),
+                             ("cpu_bf16", "cpu", torch.bfloat16)):
+        sides[name] = dict(p=params if dev == "cuda" else cpu, dev=dev, dtype=dtype,
+                           cache=KVCache.create(cfg, B, S, "q8" if q8 else dtype, dev),
+                           vf=torch.from_numpy(vf).to(dev))
+    errs, ref_errs, agree = [], [], []
+    cur_tok, cur_pos = torch.from_numpy(tok), torch.from_numpy(posn)
+    slot, T_step = 0, T
+    _cuda.reset_counts()
+    with torch.inference_mode():
+        for step in range(2):
+            out = {}
+            for name, sd in sides.items():
+                dev = sd["dev"]
+                t0 = time.perf_counter()
+                lg, _ = forward(sd["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), sd["cache"],
+                                slot, sd["vf"], sd["dtype"], kv_view_len=None if step == 0 else S)
+                out[name] = lg[:, -1].float().cpu()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                sd.setdefault("sec", []).append(time.perf_counter() - t0)
+            errs.append(nmse(torch, out["card"], out["cpu"]))
+            ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
+            agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
+            nxt = out["card"].argmax(-1)
+            slot += T_step
+            T_step = 1
+            cur_tok = nxt[:, None].to(torch.int64)
+            cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
+    counts = dict(_cuda.COUNTS)
+    tol = TOL_E2E_FACTOR * max(ref_errs)
+    log(f"parity {n_layer}-layer {label} ({layout} absorption banks, {kv} KV cache; prefill "
+        f"T={T}, prompts {list(lens)}, S={S} + 1 decode step): card vs CPU f32 logits nmse per "
+        f"step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
+        f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the largest); "
+        f"greedy agree {agree}; card s {[round(x, 3) for x in sides['card']['sec']]} cpu f32 s "
+        f"{[round(x, 2) for x in sides['cpu']['sec']]} cpu bf16 s "
+        f"{[round(x, 2) for x in sides['cpu_bf16']['sec']]}; launches {counts}")
+    if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
+        raise AssertionError(f"{label} {layout} {kv} parity: nmse {errs}, tolerance {tol}")
+    missing = [k for k in MLA_KERNELS if counts[k] <= 0]
+    extra = [k for k in MLA_OFF if counts[k]]
+    if missing or extra:
+        raise AssertionError(f"{label} {layout} {kv} parity: kernels not launched {missing}, "
+                             f"launched but off the MLA path {extra}")
+    _cuda.reset_counts()
+    del params, cpu, sides
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mla_shift(torch, label, seed):
+    """Phase 16a's context shift on the card: DeepSeek-V2-Lite's attention
+    and dense layer at full width, one layer deep (its K and V rows then
+    depend on their token and position alone), YaRN on. A slot prefilled
+    with 600 tokens is shifted (keep 64, discard 200: the server's
+    context_shift, runtime/memory.py:_mla_shift), then decodes one token;
+    the oracle is a slot prefilled with the 400 kept tokens at their new
+    positions, decoding the same token. For the bf16 and the int8 cache:
+    the kept K rows of both (dequantized) agree within the cache's rounding,
+    and the decode logits within NMSE 1e-3, where a control that moves the
+    rows without rotating k_pe is off by more. -> None."""
+    import numpy as np
+
+    from tpullm_torch.models.llama import forward
+    from tpullm_torch.runtime.memory import SlotMemory
+
+    cfg, params = synth_deepseek(torch, 1, seed, n_expert=0, n_expert_used=0, n_ff_exp=0,
+                                 n_ff_shexp=0)
+    rng = np.random.default_rng(9)
+    seq = rng.integers(0, cfg.vocab_size, 600).tolist()
+    n_keep, nd = 64, 200
+    kept = seq[:n_keep] + seq[n_keep + nd:]
+    vf = torch.zeros(1, dtype=torch.int64, device="cuda")
+    report = {}
+
+    def prefill(mem, toks):
+        forward(params, cfg, torch.tensor([toks], device="cuda"),
+                torch.arange(len(toks), device="cuda")[None], mem.cache, 0, vf, torch.bfloat16,
+                slot0=0)
+        mem.slots[0].n_past, mem.slots[0].tokens = len(toks), list(toks)
+
+    def step(mem):
+        n = mem.slots[0].n_past
+        lg, _ = forward(params, cfg, torch.tensor([[11]], device="cuda"),
+                        torch.tensor([[n]], device="cuda"), mem.cache,
+                        torch.tensor([n], device="cuda"), vf, torch.bfloat16, kv_view_len=1024,
+                        slot0=0)
+        return lg[0, -1].float().cpu()
+
+    def rows(mem, n):
+        c = mem.cache
+        k = c.k.float() * c.ks[..., None] if c.quantized else c.k.float()
+        return k[..., :n, :]
+
+    with torch.inference_mode():
+        for kv in (torch.bfloat16, "q8"):
+            shifted, control, fresh = (SlotMemory(cfg, 1, 1024, kv, "cuda") for _ in range(3))
+            for mem in (shifted, control):
+                prefill(mem, seq)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shifted.context_shift(0, n_keep, nd)
+            torch.cuda.synchronize()
+            shift_ms = (time.perf_counter() - t0) * 1e3
+            idx = torch.arange(1024, device="cuda")  # the control: rows moved, nothing rotated
+            src = torch.where((idx >= n_keep) & (idx < 600 - nd), idx + nd, idx)
+            c = control.cache
+            for buf in (c.k, c.v, c.ks, c.vs):
+                if buf is not None:
+                    buf[:, 0] = buf[:, 0][:, :, src]
+            control.slots[0].n_past = 600 - nd
+            prefill(fresh, kept)
+            n = len(kept)
+            want = rows(fresh, n)
+            k_err = float((rows(shifted, n) - want).abs().max())
+            k_ctl = float((rows(control, n) - want).abs().max())
+            scale = float(want.abs().max())
+            want_lg = step(fresh)
+            err, ctl = nmse(torch, step(shifted), want_lg), nmse(torch, step(control), want_lg)
+            name = "q8" if kv == "q8" else "bf16"
+            report[name] = {"k_max_abs_err": k_err, "k_control_max_abs_err": k_ctl,
+                            "k_max_abs": scale, "logits_nmse": err,
+                            "control_logits_nmse": ctl, "shift_ms": shift_ms}
+            if not (k_err < 0.02 * scale and err < 1e-3 and err < ctl and k_err < k_ctl):
+                raise AssertionError(f"{label} MLA shift ({name} cache) against the re-prefill: "
+                                     f"{report[name]}")
+            del shifted, control, fresh
+    log(f"shift {label} (1 layer at full width, YaRN; 600 tokens, keep {n_keep}, discard {nd}, "
+        f"then one decode step against a re-prefill of the {len(kept)} kept tokens; the "
+        f"control moves the rows without rotating k_pe): {json.dumps(report)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mla_attention_row(torch, timer, cfg, g, slots, S=4096):
+    """The MLA attention of one layer at the server's decode step (no kernel:
+    the einsum path, models/llama.py:attention with mla_scale): 4 rows of one
+    token each at ``slots`` over the int8 cache of S slots, one kv head of
+    576/512, 16 query heads. Timed as forward runs it (the int8 views
+    dequantized, then masked_attention), beside SDPA on the same dequantized
+    K/V (Dk 576 != Dv 512, the shared head broadcast by enable_gqa, a dense
+    mask) held against it, the yardstick for a kernel E at this shape. The
+    bound reads each row's live K/V (int8 with its two scales) and q, writes
+    the output, and counts 2 (Dk + Dv) flops a (query head, key) pair.
+    -> ms."""
+    from tpullm_torch.models.llama import attention, dequant_view, kv_dims, mla_scale
+
+    B, Hq = len(slots), cfg.n_head
+    _, dk, dv = kv_dims(cfg)
+    q = torch.randn((B, 1, Hq, dk), generator=g, device="cuda").to(torch.bfloat16)
+    kq = torch.randint(-127, 128, (B, 1, S, dk), generator=g, device="cuda").to(torch.int8)
+    vq = kq[..., :dv].contiguous()
+    ks = torch.rand((B, 1, S), generator=g, device="cuda") * 0.02
+    vs = ks.clone()
+    qs = torch.tensor(slots, device="cuda")[:, None]
+    vf = torch.zeros(B, dtype=torch.int64, device="cuda")
+    kvp = torch.arange(S, device="cuda")[None, :].expand(B, S)
+    scale = mla_scale(cfg)
+    run = lambda: attention(q, None, None, qs, kvp, qs, vf, cfg, kv_q8=(kq, vq, ks, vs),
+                            scale=scale)
+    want = run()
+    ms = timer(run, 20)
+    k, v = dequant_view(kq, ks, torch.bfloat16), dequant_view(vq, vs, torch.bfloat16)
+    mask = (torch.arange(S, device="cuda")[None, None, None, :] <= qs[:, None, :, None])
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+    try:
+        got = sdpa().transpose(1, 2)
+        lib_err = nmse(torch, got, want)
+        lms = timer(sdpa, 20)
+    except RuntimeError as e:  # no SDPA backend for these dims
+        lib_err, lms = f"SDPA raised: {str(e)[:120]}", None
+    live = sum(s + 1 for s in slots)
+    bound, by = bound_of(live * (dk + dv + 8) + B * Hq * (dk + dv) * 2,
+                         2.0 * (dk + dv) * Hq * live)
+    log(f"mla attention[einsum,server decode,B={B},H={Hq},Hkv=1,Dk={dk},Dv={dv},S={S},slots "
+        f"{'/'.join(map(str, slots))},int8]: ms {ms:.4f} bound_ms {bound:.5f} ({by}) "
+        f"share_of_bound {bound / ms:.4f} sdpa_ms {'null' if lms is None else f'{lms:.4f}'} "
+        f"(sdpa nmse against it {lib_err if isinstance(lib_err, str) else f'{lib_err:.2e}'})")
+    if not isinstance(lib_err, str) and not lib_err < TOL_ATTN_NMSE:
+        raise AssertionError(f"SDPA at the MLA shape: nmse {lib_err} against the einsum path")
+    return ms
+
+
+def moe_loop_row(torch, timer, cfg, lay, li, g, B, T):
+    """One MoE layer's FFN (models/llama.py:moe_ffn) of the MLA model on the
+    card, x (B, T, 2048): the loop route (every expert on every row; gate/up
+    through kernel A or B, the planar Q8_0 down dequantized whole and
+    multiplied, as the expert down at K 1408 has no K-major tile), the router
+    and the shared expert. Timed as its path runs it: a decode call (B*T <=
+    16) as a CUDA graph replay, as the decode steps take it, beside the same
+    call eagerly; a prefill call eagerly. The bound counts the weights the
+    rows' selected experts and the shared expert need, read once. -> ms (the
+    graph replay's at decode)."""
+    from tpullm_torch.models.llama import moe_ffn, moe_route
+
+    qw = {k: v for k, v in lay.items() if hasattr(v, "qtype")}
+    x = torch.randn((B, T, cfg.n_embd), generator=g, device="cuda").to(torch.bfloat16)
+    route = moe_route(True, B * T, qw["moe_gate_exps"], qw["moe_up_exps"], qw["moe_down_exps"],
+                      cfg.n_embd, cfg.n_expert_used)
+    run = lambda: moe_ffn(x, qw, li, cfg, torch.bfloat16)
+    ms = eager_ms = timer(run, 5 if B * T <= 16 else 2, warmup=1)
+    if B * T <= 16:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        ms = timer(graph.replay, 5, warmup=1)
+        del graph
+    per_e = sum(weight_bytes(qw[k]) for k in ("moe_gate_exps", "moe_up_exps", "moe_down_exps"))
+    per_e /= qw["moe_gate_exps"].shape[0] * cfg.n_expert
+    n_sel = min(cfg.n_expert, B * T * cfg.n_expert_used)
+    sh = sum(weight_bytes(qw[k]) for k in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"))
+    sh /= qw["ffn_gate_shexp"].shape[0]
+    bound, by = bound_of(n_sel * per_e + sh, 2.0 * 3 * B * T * cfg.n_embd * (
+        cfg.n_expert_used * cfg.n_ff_exp + qw["ffn_gate_shexp"].shape[-2]))
+    log(f"moe layer[{route},B={B},T={T},E={cfg.n_expert},top-{cfg.n_expert_used},"
+        f"{cfg.n_ff_exp}x{cfg.n_embd},down {qw['moe_down_exps'].qtype.name} "
+        f"{qw['moe_down_exps'].layout}]: ms {ms:.3f}"
+        + (f" (a graph replay; eagerly {eager_ms:.3f})" if B * T <= 16 else " (eagerly)")
+        + f" bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.4f}")
+    if route != "loop":
+        raise AssertionError(f"MoE layer of the MLA model at B*T={B * T}: route {route}")
+    return ms
+
+
+def phase_deepseek_kernels(torch, entries, cfg, params):
+    """Phase 16b's rows, on the 27-layer DeepSeek-V2-Lite model's own
+    weights (its last layer): kernels A (M = 4) and B (M = 2048) on the MLA
+    projections wq (3072 x 2048), wkv_a (576 x 2048) and wo (2048 x 2048),
+    Q4_K; the store at one kv head of 576/512 (the server's int8 decode step
+    at slots 2000/700/300/40 of 4096 and a 512-row chunk, the engine's bf16
+    step); the einsum MLA attention at the server's step, with SDPA beside
+    it; the loop route's ms a MoE layer at M = 4 and at the 4 x 512 prefill.
+    -> {"decode": ms, "prefill": ms} of a MoE layer."""
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.ops.qtensor import QTensor
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2222)
+    lay = params["layers"]["__groups__"][1]
+    li = lay["wq"].data["q"].shape[0] - 1
+    path = "DeepSeek-V2-Lite"
+    for name in ("wq", "wkv_a", "wo"):
+        w = lay[name]
+        qt = QTensor(w.qtype, tuple(w.shape[1:]), {k: v[li] for k, v in w.data.items()})
+        w_bf16 = qt.dequant(torch.bfloat16)
+        K = qt.shape[-1]
+        for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            qmm_row(torch, timer, entries, kname,
+                    f"{kname}[{name} {qt.n_out}x{K},{qt.qtype.name},M={M},{path}]", x, qt,
+                    w_bf16, path=path)
+        del qt, w_bf16
+    heads, hd, hdv = (cfg.n_head, 1), cfg.kv_lora_rank + cfg.rope_dim, cfg.kv_lora_rank
+    store_row(torch, timer, entries, g, "server decode", f"{path} server", 1, DS_SERVER_PROMPTS,
+              0, 4096, True, heads=heads, hd=hd, hdv=hdv)
+    store_row(torch, timer, entries, g, "server prefill chunk", f"{path} server", 512, [1536],
+              2, 4096, True, heads=heads, hd=hd, hdv=hdv)
+    store_row(torch, timer, entries, g, "engine decode", path, 1, [ENGINE_DECODE_SLOT] * 4, 0,
+              1024, False, heads=heads, hd=hd, hdv=hdv)
+    mla_attention_row(torch, timer, cfg, g, DS_SERVER_PROMPTS)
+    loop = {"decode": moe_loop_row(torch, timer, cfg, lay, li, g, 4, 1),
+            "prefill": moe_loop_row(torch, timer, cfg, lay, li, g, 4, 512)}
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+    return loop
+
+
+def phase_deepseek(torch, entries):
+    """Phase 16, MLA at full width (DeepSeek-V2-Lite), the ERNIE weights freed
+    first: (a) the 2-layer parities against the CPU (split banks on the bf16
+    cache, legacy attn_kv_b on the int8 cache) and the context shift
+    against a re-prefill (phase_mla_shift); then the 27-layer model drawn on
+    the card: (b) its kernel rows (phase_deepseek_kernels); (c) the slice
+    (4 requests, graph replays, then eagerly: the same tokens and launch
+    counts; A, B and the store launched, C, D, E, F and the skip not), the
+    decode-step profile as graph replays (A's launches a step: wq, wkv_a and
+    wo a layer, the dense lead's gate/up, every expert's gate and up and the
+    shared expert's a MoE layer, the lm_head; the store once a layer), with
+    the loop's share of the step, and a prefill profile; (d) its server
+    (phase_q8_server: 4 slots of 4096, int8 KV, token ids, a burst of
+    2000/700/300/40 tokens, a decode chunk profiled). -> launch counts by
+    path."""
+    counts = {}
+    label = "DeepSeek-V2-Lite"
+    t = time.perf_counter()
+    counts[f"{label} 2-layer"] = phase_mla_parity(torch, label, "split", "bf16", seed=31)
+    phase_mla_parity(torch, label, "legacy", "q8", seed=37)
+    phase_mla_shift(torch, label, seed=41)
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_deepseek(torch, DEEPSEEK["n_layer"], seed=0)
+    from tpullm_torch.models.llama import kv_dims
+
+    groups = params["layers"]["__groups__"]
+    n_w = sum(math.prod(v.shape) for gl in groups for v in gl.values()) + 2 * (
+        cfg.vocab_size * cfg.n_embd)
+    _, dk, dv = kv_dims(cfg)
+    q8_row = dk + dv + 8  # int8 K and V with their two f32 row scales
+    mha_row = cfg.n_head * (cfg.head_dim + cfg.head_dim_v) * 2
+    slots = 4 * 4096 * cfg.n_layer
+    log(f"slice {label}: synthesized weights {params_bytes(params) / 1e9:.3f} GB "
+        f"({n_w / 1e9:.3f} B weights) in {time.perf_counter() - t:.3f} s; config {cfg.arch} "
+        f"rope {cfg.rope_type} {cfg.rope_base:g} {cfg.rope_scaling} x{cfg.rope_scale:g} "
+        f"mla_scale heads {cfg.n_head} q {cfg.head_dim} v {cfg.head_dim_v} kv_lora "
+        f"{cfg.kv_lora_rank} q_lora {cfg.q_lora_rank} experts {cfg.n_expert} top-"
+        f"{cfg.n_expert_used} of {cfg.n_ff_exp} shared {cfg.n_expert_shared} dense lead "
+        f"{cfg.n_layer_dense_lead}; KV cache a token a layer: int8 {q8_row} B, over 4 x 4096 "
+        f"slots {slots * q8_row / 1e9:.3f} GB; the decompressed MHA cache in bf16 {mha_row} B, "
+        f"{slots * mha_row / 1e9:.3f} GB; layer groups {[sorted(gl) for gl in groups]} with "
+        f"layouts {[{k: v.layout for k, v in gl.items() if hasattr(v, 'qtype')} for gl in groups]}")
+    t = time.perf_counter()
+    loop = phase_deepseek_kernels(torch, entries, cfg, params)
+    log(f"phase kernels {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[label], eng, eager, prompts = phase_slice(
+        torch, label, cfg, params, cfg.vocab_size, MLA_KERNELS, MLA_OFF, new=DS_NEW + 1,
+        samples=1)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = phase_decode(torch, eng, prompts, f" {label} graph", profiled_steps=1)
+    step = out["graph_capture_counts_per_step"] or {}
+    n_dense, n_moe = cfg.n_layer_dense_lead, cfg.n_layer - cfg.n_layer_dense_lead
+    want = {"qmm_splitk": 3 * cfg.n_layer + n_dense + n_moe * (2 * cfg.n_expert + 2) + 1,
+            "kv_store": cfg.n_layer}
+    if {k: step.get(k) for k in want} != want or any(step.get(k) for k in MLA_OFF):
+        raise AssertionError(f"{label} decode step: launches {step}, want {want} (A on wq, "
+                             "wkv_a and wo a layer, the dense lead's gate/up, every expert's "
+                             "gate and up and the shared expert's a MoE layer, the lm_head; "
+                             "the store once a layer)")
+    pre = phase_prefill_profile(torch, eng, prompts, ("qmm", "kv_store"), f" {label}")
+    step_ms = out["wall_ms_q1_median_q3"][1]
+    log(f"moe loop {label}: {n_moe} MoE layers x {loop['decode']:.3f} ms (graph) at M = 4 = "
+        f"{n_moe * loop['decode']:.2f} ms of the {step_ms:.2f} ms graph decode step (share "
+        f"{n_moe * loop['decode'] / step_ms:.3f}); x {loop['prefill']:.2f} ms at the 4 x 512 "
+        f"prefill = {n_moe * loop['prefill']:.1f} ms of its {pre['wall_ms']:.1f} ms (share "
+        f"{n_moe * loop['prefill'] / pre['wall_ms']:.3f})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[f"{label} server"] = phase_q8_server(torch, cfg, params, label, DS_SERVER_PROMPTS,
+                                                n_ctx=4096, kernels=MLA_KERNELS,
+                                                must_not=MLA_OFF, decode_chunk=2, new=DS_NEW)
+    log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
+    del cfg, params, groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
@@ -3963,6 +4479,7 @@ def phase_prefill_profile(torch, eng, prompts, must, label):
     missing = [k for k in must if k not in by]
     if missing or not busy > 0:
         raise AssertionError(f"prefill profile{label}: no device time for {missing}: {out}")
+    return out
 
 
 def graph_pool_gb(torch, eng):
@@ -3982,7 +4499,7 @@ RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaun
                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
-def phase_decode(torch, eng, prompts, label=""):
+def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS):
     """Phases 5 and 8: where a decode step's time goes, on the slice's model
     and batch, through the engine's own decode step (``decode_step``: a
     graph replay, or the same step run eagerly with cuda_graphs=False) at
@@ -3993,10 +4510,14 @@ def phase_decode(torch, eng, prompts, label=""):
     back to back between CUDA events (no host wait between steps) and under
     torch.profiler: device ms, kernels and runtime launch calls per step,
     device-busy share; peak memory over the window (allocated, plus the
-    engine's graph pool, whose blocks replays use without allocating)."""
+    engine's graph pool, whose blocks replays use without allocating).
+    ``profiled_steps``: the steps timed back to back and profiled
+    (DeepSeek-V2-Lite's: one, a step of its expert loop holding ~20000
+    launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpullm_torch.ops.sampling import GREEDY, make_sample_fn
+
     from tpullm_torch.runtime.engine import kv_view_bucket
 
     sample = make_sample_fn(GREEDY)
@@ -4037,21 +4558,21 @@ def phase_decode(torch, eng, prompts, label=""):
         yard1 = host_yardstick_ms()
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
-        for _ in range(PROFILED_STEPS):
+        for _ in range(profiled_steps):
             step()
         ev1.record()
         torch.cuda.synchronize()
-        stream_ms = ev0.elapsed_time(ev1) / PROFILED_STEPS
+        stream_ms = ev0.elapsed_time(ev1) / profiled_steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED_STEPS):
+            for _ in range(profiled_steps):
                 step()
             torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 1e9
     pool = graph_pool_gb(torch, eng)
     kernels = device_kernels(prof)
-    busy = sum(ms for _, ms, _ in kernels) / PROFILED_STEPS
-    launches = sum(c for _, _, c in kernels) / PROFILED_STEPS
-    calls = launch_calls(prof, PROFILED_STEPS)
+    busy = sum(ms for _, ms, _ in kernels) / profiled_steps
+    launches = sum(c for _, _, c in kernels) / profiled_steps
+    calls = launch_calls(prof, profiled_steps)
     w1, wm, w3 = quartiles(wall)
     hz = os.sysconf("SC_CLK_TCK")
     busiest = sorted(((nm, (k - ticks0.get(tid, (nm, 0))[1]) / hz / (t1 - t0))
@@ -4064,12 +4585,12 @@ def phase_decode(torch, eng, prompts, label=""):
         "busiest_threads_cpu_share": busiest,
         "host_yardstick_ms_before_after": [yard0, yard1],
         "back_to_back_ms_per_step": stream_ms,
-        "profiled_steps": PROFILED_STEPS, "device_busy_ms_per_step": busy,
+        "profiled_steps": profiled_steps, "device_busy_ms_per_step": busy,
         "device_busy_share": busy / wm, "kernel_launches_per_step": launches,
         "runtime_launch_calls_per_step": calls,
         "peak_allocated_gb": peak, "graph_pool_gb": pool,
         "peak_gb_with_graph_pool": peak + pool if pool is not None else None,
-        "top_device_ms_per_step": [(k[:60], ms / PROFILED_STEPS) for k, ms, _ in kernels[:6]],
+        "top_device_ms_per_step": [(k[:60], ms / profiled_steps) for k, ms, _ in kernels[:6]],
         "cpus": len(os.sched_getaffinity(0)), "torch_threads": torch.get_num_threads(),
     }
     if eng.cuda_graphs:
@@ -4157,7 +4678,7 @@ def main() -> int:
     log(f"phase decode steps: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    phase_moe_parity(torch)
+    phase_moe_parity(torch, n_layer=ONE_LAYER)
     log(f"phase parity Mixtral: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     cfg, params = synth_mixtral_q4k(vocab_size=M_VOCAB, n_embd=D, n_layer=N_LAYER, n_head=H,
@@ -4185,10 +4706,11 @@ def main() -> int:
     command_r_counts = phase_command_r(torch, entries)
     starcoder_counts = phase_starcoder(torch, entries)
     ernie_counts = phase_ernie(torch, entries)
+    deepseek_counts = phase_deepseek(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
-               **command_r_counts, **starcoder_counts, **ernie_counts}
+               **command_r_counts, **starcoder_counts, **ernie_counts, **deepseek_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

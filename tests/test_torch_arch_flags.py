@@ -25,7 +25,7 @@ from tpullm.runtime.loader import load_model as jload
 from tpullm.server.context import GenParams as JGenParams
 from tpullm.server.context import ServerContext as JServerContext
 from tpullm.server.context import Task as JTask
-from tpullm.utils.synth import build_arch_gguf, build_llama_gguf
+from tpullm.utils.synth import build_arch_gguf, build_deepseek2_gguf, build_llama_gguf
 from tpullm_torch.models.llama import KVCache, forward, layer_routes
 from tpullm_torch.models.registry import ARCH_REGISTRY
 from tpullm_torch.ops.qtensor import QTensor
@@ -64,6 +64,11 @@ AS_IS_ARCHS = ["llama-embed", "qwen2vl", "qwen3vl", "smollm3", "hunyuan_vl", "pa
                "qwen3vlmoe"]
 LEAD_BIAS_ARCHS = ["ernie4_5-moe", "glm4moe", "deepseek2-ocr", "exaone-moe", "dots1",
                    "bailingmoe", "bailingmoe2", "minimax-m2"]
+# the MLA rows (their other cases are in tests/test_torch_mla.py): minicpm3's,
+# mistral4's and plm's snapshots come from build_deepseek2_gguf, as in
+# tests/test_arch_snapshots.py:44-49; glm-dsa's from build_arch_gguf (its
+# dense layers, the router's gating in its row); deepseek2 has no snapshot
+MLA_ARCHS = ["minicpm3", "mistral4", "plm", "glm-dsa"]
 KMAJOR_ARCHS = ["qwen3", "qwen2", "qwen", "glm4", "olmo2"]
 PROMPTS = [[3, 9, 4, 17, 6], [5, 1, 2], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 2, 3, 4, 5,
                                          6, 7, 8, 9, 30]]
@@ -92,21 +97,27 @@ def test_registry_rows_are_the_jax_rows():
     from tpullm.models.registry import ARCH_REGISTRY as JREG
 
     assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS + LAYERNORM_ARCHS
-               + POSITION_ARCHS + AS_IS_ARCHS + LEAD_BIAS_ARCHS
-               + ["llama", "mixtral", "qwen3moe", "qwen2moe"]) == set(ARCH_REGISTRY)
+               + POSITION_ARCHS + AS_IS_ARCHS + LEAD_BIAS_ARCHS + MLA_ARCHS
+               + ["llama", "mixtral", "qwen3moe", "qwen2moe", "deepseek2"]) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch
 
 
 @pytest.mark.parametrize("arch", FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS
-                         + AS_IS_ARCHS + LEAD_BIAS_ARCHS)
+                         + AS_IS_ARCHS + LEAD_BIAS_ARCHS + MLA_ARCHS)
 def test_arch_snapshot(arch, tmp_path):
     """tests/snapshots/{arch}.npz (the JAX package's golden, from
-    build_arch_gguf(seed=11): Q8_0 at n_embd 64, so planar weights) through
-    the port's loader and engine on the CPU in f32, with the bar of
-    tests/test_arch_snapshots.py:69-73."""
+    build_arch_gguf(seed=11), or build_deepseek2_gguf(seed=11) for the MLA
+    rows as tests/test_arch_snapshots.py:44-49 builds them: Q8_0 at n_embd
+    64 or 128, so planar weights) through the port's loader and engine on
+    the CPU in f32, with the bar of tests/test_arch_snapshots.py:69-73."""
     path = str(tmp_path / f"{arch}.gguf")
-    build_arch_gguf(path, arch, seed=11)
+    if arch in ("minicpm3", "mistral4"):
+        build_deepseek2_gguf(path, arch, seed=11)
+    elif arch == "plm":
+        build_deepseek2_gguf(path, arch, seed=11, q_lora=0, gated=False)
+    else:
+        build_arch_gguf(path, arch, seed=11)
     cfg, params, _ = load_model(path, device="cpu")
     assert cfg.arch == arch
     eng = InferenceEngine(cfg, params, max_seq_len=64, compute_dtype=torch.float32,

@@ -1360,6 +1360,11 @@ STORE_SHAPES = {
     # one kv head (StarCoder's multi-query attention): its decode step and chunk
     "mqa_decode": (4, 1, 1, 128, 128, [6000, 2000, 700, 40], 0, 8192, 4),
     "mqa_prefill_512": (1, 512, 1, 128, 128, [5632], 2, 8192, 4),
+    # MLA's compressed rows (DeepSeek-V2-Lite: one head, K [c_kv; k_pe] 576,
+    # V c_kv 512): the server's decode step and chunk, the engine's step
+    "mla_decode": (4, 1, 1, 576, 512, [2000, 700, 300, 40], 0, 4096, 4),
+    "mla_prefill_512": (1, 512, 1, 576, 512, [1536], 2, 4096, 4),
+    "mla_engine_decode": (4, 1, 1, 576, 512, [540] * 4, 0, 1024, 4),
 }
 
 
@@ -1933,3 +1938,95 @@ def test_dequant_on_card_equals_cpu(cuda, qtype):
     assert torch.equal(on_card, on_cpu)
     flat = QTensor(qt.qtype, qt.shape[1:], {k: v[1] for k, v in qt.data.items()})
     assert torch.equal(flat.dequant(torch.float32).cpu(), flat.to("cpu").dequant(torch.float32))
+
+
+def _mla_card(**kw):
+    """A small MLA MoE model (synth_mla_q4k on the CPU): 3 layers over a
+    512-wide stream, 4 heads, kv_lora 256 + rope 64 (K rows of 320, V of
+    256), q_lora 128, layer 0 dense, 8 experts of 352 (planar Q8_0 down, as
+    DeepSeek-V2-Lite's at 1408) top-2 with a shared expert of 512, YaRN."""
+    from tpullm_torch.utils.synth import synth_mla_q4k
+
+    base = dict(vocab_size=500, n_embd=512, n_layer=3, n_head=4, kv_lora_rank=256,
+                qk_nope=64, qk_rope=64, v_head=64, n_ff=1024, q_lora_rank=128, n_expert=8,
+                n_expert_used=2, n_ff_exp=352, n_ff_shexp=512, n_expert_shared=2,
+                n_dense_lead=1, seed=3, device="cpu",
+                cfg_fields=dict(n_ctx_train=163840, rope_scaling="yarn", rope_scale=40.0,
+                                rope_orig_ctx=4096, rope_yarn_log_mul=0.707))
+    base.update(kw)
+    return synth_mla_q4k(**base)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8"])
+def test_mla_engine_on_card_matches_cpu(cuda, monkeypatch, kv):
+    """The MLA MoE model: the engine on the card against the plain path on
+    the CPU (test_engine_on_card_matches_cpu's rule), on the bf16 and the
+    int8 cache; A, B and the store launch, C, D, E, F and the skip do not
+    (MLA attention takes the einsum path, D's gate refuses MLA, the planar
+    down experts take the loop); the same requests with cuda_graphs=False
+    give the graph's tokens and launch counts."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+
+    monkeypatch.setenv("TPULLM_FLASH_DECODE", "1")  # E stays off MLA all the same
+    cfg, params = _mla_card()
+    card = _to(params, "cuda")
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt,
+                              kv_dtype="q8" if kv == "q8" else dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    assert all(c[k] > 0 for k in ("qmm_splitk", "qmm", "kv_store")), c
+    assert not any(c[k] for k in ("layer_kernel", "flash_attention", "flash_decode", "moe_gmm",
+                                  "qmm_experts")), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+
+
+def test_mla_server_graph_matches_eager(cuda):
+    """The MLA model's server decode chunk (int8 cache, 2 slots at other
+    depths) as graph replays and as eager steps from the same state: the
+    same tokens and launch counts."""
+    import numpy as np
+
+    from tpullm_torch.server.context import GenParams, ServerContext, Task
+
+    cfg, params = _mla_card(device="cuda")
+    ctx = ServerContext(cfg, params, None, n_slots=2, max_seq_len=256, decode_chunk=4,
+                        prefill_chunk=64, kv_dtype="q8")
+    for pr in ENGINE_PROMPTS[:2]:
+        ctx.submit(Task(tokens=pr, params=GenParams(max_tokens=100, temperature=0.0,
+                                                    ignore_eos=True)))
+    with torch.inference_mode():
+        ctx._admit()
+        while any(r.pending for r in ctx.rt):
+            for i, r in enumerate(ctx.rt):
+                if r.pending:
+                    ctx._prefill_step(i)
+        st, pen, cache = ctx.state, ctx.penalties, ctx.memory.cache
+        live = [t for t in (cache.k, cache.v, cache.ks, cache.vs, st.logits, st.ctl, st.mu,
+                            st.toks, pen.counts, pen.ring, pen.pos) if t is not None]
+        saved = [t.clone() for t in live]
+        res = {}
+        for way in ("graph", "eager"):
+            ctx.cuda_graphs = way == "graph"
+            for t, c in zip(live, saved):
+                t.copy_(c)
+            ctx._gen.manual_seed(ctx._seed)
+            _cuda.reset_counts()
+            toks = ctx._decode(4, ctx._kv_view_bucket(4), False)[0]
+            res[way] = (np.asarray(toks), dict(_cuda.COUNTS))
+    ctx.stop()
+    (tg, cg), (te, ce) = res["graph"], res["eager"]
+    assert np.array_equal(tg, te) and cg == ce, (tg, te, cg, ce)
+    assert cg["kv_store"] > 0 and cg["qmm_splitk"] > 0 and cg["flash_decode"] == 0

@@ -24,7 +24,7 @@ torch.set_num_threads(2)
     ("n_expert_shared", 2), ("qk_l2_norm", True), ("attn_out_scale", 0.5),
     ("attn_gate_proj", True),
     ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
-    ("swa_dense_first", True), ("kv_lora_rank", 64), ("attn_temp_scale", 0.1)])
+    ("swa_dense_first", True), ("ssm_d_conv", 4), ("attn_temp_scale", 0.1)])
 def test_flag_outside_dense_path_raises(field, value):
     cfg = ModelConfig()
     check_dense(cfg)
@@ -36,13 +36,15 @@ MIXTRAL = ModelConfig(arch="mixtral", n_expert=8, n_expert_used=2, expert_weight
 
 
 @pytest.mark.parametrize("field,value", [
-    ("n_expert_shared", 2), ("n_group_experts", 2), ("n_ff_chexp", 64),
+    ("expert_group_scale", 2.0), ("n_group_experts", 2), ("n_ff_chexp", 64),
     ("moe_router_pre_norm", True), ("moe_dense_parallel", "grok"), ("act_fn", "gelu"),
     ("n_expert_used", 9), ("expert_gating", "softmax_weight")])
 def test_flag_outside_moe_path_raises(field, value):
     """The MoE fields pass only with MoE tensors (moe=True); the other MoE
     features still raise. (The dense lead's count passes since the port
-    runs leading dense layers: test_dense_lead_passes_with_moe_only.)"""
+    runs leading dense layers: test_dense_lead_passes_with_moe_only; so does
+    the shared experts' count, whose width the shared expert's tensors
+    carry.)"""
     check_dense(MIXTRAL, moe=True)
     with pytest.raises(NotImplementedError, match="n_expert|MoE|" + field):
         check_dense(dataclasses.replace(MIXTRAL, **{field: value}), moe=True)
@@ -86,7 +88,7 @@ def test_dense_keys_parse():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("llama.expert_shared_count", 2), ("llama.attention.sliding_window_pattern", [1, 0]),
+    ("llama.expert_group_scale", 2.0), ("llama.attention.sliding_window_pattern", [1, 0]),
     ("llama.attention.sliding_window_pattern", np.array([True, True, False])),
     ("llama.rope.scaling.finetuned", True),
     ("llama.attention.value_scale", 2.0), ("xielu.alpha_n", [0.8]),
@@ -102,12 +104,12 @@ def test_gguf_key_outside_dense_path_raises(key, value):
     ("qwen3vl", "rope.dimension_sections", [24, 20, 20, 0]),
     ("hunyuan_vl", "rope.dimension_sections", [16, 24, 24, 0]),
     ("llama-embed", "pooling_type", 1), ("kimi-linear", "kda.head_dim", 128),
-    ("kimi-linear", "attention.kv_lora_rank", 512)])
+    ("kimi-linear", "ssm.conv_kernel", 4)])
 def test_new_rows_keep_their_refusals(arch, key, value):
     """The rows that run as they are still refuse what they carry beyond
     the covered paths: M-RoPE's sections (text positions reduce to neox;
     the image grid's do not), llama-embed's pooled output, kimi-linear's
-    KDA and MLA keys."""
+    KDA keys (its head dim, its convolution's width)."""
     with pytest.raises(NotImplementedError, match=key):
         config_from_gguf(_Meta({f"{arch}.{key}": value}, arch))
 
@@ -178,6 +180,69 @@ def test_kimi_linear_file_raises(tmp_path):
     path = build_kimi_linear_gguf(str(tmp_path / "kimi.gguf"), pattern="kkak", seed=5)
     with pytest.raises(NotImplementedError):
         load_model(path, device="cpu")
+
+
+@pytest.mark.parametrize("pattern", ["kkak", "aaaa"])
+def test_kimi_linear_mla_layers_raise_with_kda(tmp_path, pattern):
+    """MLA is ported, but a kimi-linear file still raises, with only its
+    rope-less MLA layers too: its KDA keys come with every file, and its
+    per-layer kv head counts (1 on an MLA layer, 0 on a KDA one) are not on
+    the covered paths."""
+    from tpullm.utils.synth import build_kimi_linear_gguf
+
+    path = build_kimi_linear_gguf(str(tmp_path / "kimi.gguf"), pattern=pattern, seed=5)
+    with pytest.raises(NotImplementedError, match="kda.head_dim"):
+        load_model(path, device="cpu")
+    with pytest.raises(NotImplementedError, match="head_count_kv"):
+        config_from_gguf(_Meta({"kimi-linear.attention.head_count_kv": np.array([1, 0]),
+                                "kimi-linear.attention.kv_lora_rank": 512}, "kimi-linear"))
+
+
+def _glm_dsa_gguf(tmp_path, monkeypatch, arch="glm-dsa", extra=None):
+    """A glm-dsa-shaped MLA MoE file with the DSA indexer's tensors
+    (build_deepseek2_gguf's indexer), under ``arch``, with ``extra`` {name:
+    f32 array} tensors."""
+    from tpullm.utils.synth import build_deepseek2_gguf
+
+    write = GGUFWriter.write
+
+    def write_extra(self):
+        for name, arr in (extra or {}).items():
+            self.add_tensor(name, arr)
+        return write(self)
+
+    monkeypatch.setattr(GGUFWriter, "write", write_extra)
+    return build_deepseek2_gguf(str(tmp_path / "dsa.gguf"), arch, moe=True, split_mla=True,
+                                indexer=(2, 16, 8), seed=3)
+
+
+def test_glm_dsa_indexer_is_the_only_extra(tmp_path, monkeypatch):
+    """glm-dsa's indexer tensors (and its attention.indexer.* keys) are the
+    only names the port passes over unread, as the JAX loader leaves them:
+    the file loads and runs; one more indexer-like name raises; the same
+    indexer tensors on a deepseek2 file raise, and so do its keys."""
+    cfg, params, _ = load_model(_glm_dsa_gguf(tmp_path, monkeypatch), device="cpu")
+    assert cfg.kv_lora_rank == 64 and cfg.expert_gating == "sigmoid"
+    assert not any("indexer" in k for gl in params["layers"]["__groups__"] for k in gl)
+    cache = KVCache.create(cfg, 1, 16, torch.float32, "cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    logits, _ = forward(params, cfg, tok, torch.arange(4)[None], cache, 0,
+                        torch.zeros(1, dtype=torch.int64), torch.float32)
+    assert torch.isfinite(logits).all()
+    extra = {"blk.0.indexer.k_proj.weight": np.zeros((16, 128), np.float32)}
+    with pytest.raises(NotImplementedError, match="indexer.k_proj"):
+        load_model(_glm_dsa_gguf(tmp_path, monkeypatch, extra=extra), device="cpu")
+    with pytest.raises(NotImplementedError, match="indexer"):
+        load_model(_glm_dsa_gguf(tmp_path, monkeypatch, arch="deepseek2"), device="cpu")
+
+
+def test_planar_q5_0_raises():
+    """Planar Q5_0, llama.cpp's fallback for the Q4_K rows a Q4_K_M
+    DeepSeek-V2-Lite file carries at K 1408 (the expert down) and 10944 (the
+    dense down), has no K-major tile there and is not ported: it raises."""
+    for K in (1408, 10944):
+        with pytest.raises(NotImplementedError, match="Q5_0"):
+            qtensor_from_bytes(np.zeros(22 * K // 32 * 2, np.uint8), GGMLType.Q5_0, (2, K))
 
 
 def test_selection_bias_on_dense_layer_raises(tmp_path, monkeypatch):

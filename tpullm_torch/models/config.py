@@ -4,9 +4,10 @@ Copy of tpullm/models/config.py for the PyTorch port. ``ModelConfig`` keeps
 every field of the JAX package's (so a config carried across with
 ``dataclasses.asdict`` round-trips); ``config_from_gguf`` reads only the
 keys of the paths the port covers (the dense decoder with the flags its
-registry rows set, and the routed-expert MoE FFN) and raises on any other
-key of the arch. Fields those paths never set
-are rejected by models/llama.py rather than ignored.
+registry rows set, the routed-expert MoE FFN and MLA, the compressed-KV
+attention of the deepseek2 family) and raises on any other key of the arch.
+Fields those paths never set are rejected by models/llama.py rather than
+ignored.
 
 Counterpart of the reference's hparams loader (src/llama-hparams.h:1-359 +
 per-arch KV reads in src/llama-model.cpp). One flat dataclass covers the
@@ -188,7 +189,7 @@ class ModelConfig:
 
 # {arch}.* keys the covered paths read. Any other {arch}.* key, and the
 # arch-unprefixed xielu.* keys, configure a feature the port does not run
-# (the shared-expert count, expert groups, M-RoPE sections, ...): config_from_gguf
+# (expert groups, M-RoPE sections, pooling, ...): config_from_gguf
 # raises on them rather than parsing and ignoring them.
 # attention.layer_norm_epsilon goes to norm_eps as in the JAX parser; the
 # layernorm archs read it (models/llama.py:_norm).
@@ -219,11 +220,28 @@ MOE_KEYS = frozenset({
     "expert_count", "expert_used_count", "expert_feed_forward_length",
     "expert_weights_scale", "expert_weights_norm", "expert_gating_func",
     "expert_shared_feed_forward_length",
+    # the shared experts' count (config.py:239): the width comes from the
+    # shared expert's tensors, which the graph reads as one FFN
+    "expert_shared_count",
     # the dense layers ahead of the MoE layers (config.py:258-259; which FFN
     # a layer runs follows its tensors) and the NextN/MTP layers, which no
     # graph runs: they come off n_layer and their tensors are not read
     # (config.py:260-265)
     "leading_dense_block_count", "nextn_predict_layers",
+})
+# MLA, the compressed-KV attention of the deepseek2 family (config.py:243-257
+# of the JAX parser): the q and kv low ranks, the per-head q and v dims of
+# the split convention (key/value_length then give the compressed cache's
+# row), and YaRN's attention multiplier, stored as 0.1 x its value
+MLA_KEYS = frozenset({
+    "attention.q_lora_rank", "attention.kv_lora_rank", "attention.key_length_mla",
+    "attention.value_length_mla", "rope.scaling.yarn_log_multiplier",
+})
+# glm-dsa's DSA indexer, whose tensors the reference loads and its graph
+# does not run (src/models/glm-dsa.cpp): its keys go through unread, as in
+# the JAX parser
+INDEXER_KEYS = frozenset({
+    "attention.indexer.head_count", "attention.indexer.key_length", "attention.indexer.top_k",
 })
 
 
@@ -234,8 +252,9 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     if arch not in ARCH_REGISTRY:
         raise NotImplementedError(
             f"arch {arch!r}: the PyTorch port covers {sorted(ARCH_REGISTRY)}")
+    known = DENSE_KEYS | MOE_KEYS | MLA_KEYS | (INDEXER_KEYS if arch == "glm-dsa" else set())
     other = sorted(k for k in g.metadata if k.startswith("xielu.") or (
-        k.startswith(arch + ".") and k[len(arch) + 1:] not in DENSE_KEYS | MOE_KEYS))
+        k.startswith(arch + ".") and k[len(arch) + 1:] not in known))
     if other:
         raise NotImplementedError(f"GGUF keys outside the covered {arch} paths: {other}")
 
@@ -274,6 +293,7 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
         n_expert=int(get("expert_count", 0)),
         n_expert_used=int(get("expert_used_count", 0)),
         n_ff_exp=int(get("expert_feed_forward_length", 0)),
+        n_expert_shared=int(get("expert_shared_count", 0)),
         sliding_window=int(get("attention.sliding_window", 0)),
         raw_kv=dict(g.metadata),
     )
@@ -302,6 +322,18 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     gf = get("expert_gating_func")
     if gf is not None:
         cfg.expert_gating = {2: "sigmoid"}.get(int(gf), "softmax")
+    # MLA (config.py:243-257): head_dim and head_dim_v are the per-head q and
+    # v dims, which the split convention's *_mla keys carry
+    cfg.q_lora_rank = int(get("attention.q_lora_rank", 0) or 0)
+    cfg.kv_lora_rank = int(get("attention.kv_lora_rank", 0) or 0)
+    if cfg.kv_lora_rank:
+        k_mla, v_mla = get("attention.key_length_mla"), get("attention.value_length_mla")
+        if k_mla:
+            cfg.head_dim = int(k_mla)
+        if v_mla:
+            cfg.head_dim_v = int(v_mla)
+        cfg.rope_yarn_log_mul = float(
+            get("rope.scaling.yarn_log_multiplier", 0.0) or 0.0) / 0.1
     cfg.n_layer_dense_lead = int(get("leading_dense_block_count", 0) or 0)
     nextn = int(get("nextn_predict_layers", 0) or 0)
     if nextn:

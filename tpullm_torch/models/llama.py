@@ -22,8 +22,14 @@ optional gated SiLU shared expert with an optional per-token sigmoid gate;
 no expert biases, latent or chunk experts; dense layers ahead of the MoE
 layers, each run as its tensors say); optional post-attention and post-FFN
 norms, with or without the pre-norms (``pre_norm``); residual branches
-times residual_scale; logits times logit_scale, then the final softcap. A
-Python loop over layers takes the place of ``lax.scan``; the KV cache
+times residual_scale; logits times logit_scale, then the final softcap.
+MLA layers (the deepseek2 family, ``kv_lora_rank``) take the compressed-KV
+attention in its absorbed form instead (``attend_mla``: a direct or
+low-rank q, the joint kv projection and its latent norm, q_nope absorbed by
+wk_b, one cached kv head of [c_kv; k_pe] and c_kv, attention at
+``mla_scale`` with YaRN's mscale^2, wv_b, then wo) ahead of the pre-normed
+dense or MoE FFN. A Python loop over layers takes the place of
+``lax.scan``; the KV cache
 (bf16, f32 or int8 with row scales; full-context on every layer, or the
 iSWA dual cache: full banks for the full-attention layers and a ring of
 window + chunk slots for the SWA layers) is updated in place, in the
@@ -51,11 +57,15 @@ route too. Decode layers take the layer kernel, folded with the next layer's QKV
 are fused in one group (llama.py:1382-1423, ``layer_routes``); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460) and MoE
 decode (B*T <= 16) kernel A's expert-skip variant over the selected experts
-(llama.py:447-454, ``moe_route``).
+(llama.py:447-454, ``moe_route``). MLA attention takes the einsum path
+(its own scale: the JAX prefill gate wants ``scale is None``,
+llama.py:268; Dk != Dv, which C and E do not build) and no layer kernel
+(llama.py:1395).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -109,20 +119,42 @@ NORM_TYPES = ("rmsnorm", "layernorm")
 # layer runs follows its tensors
 MOE_FIELDS = frozenset({
     "n_expert", "n_expert_used", "expert_gating", "expert_weights_norm",
-    "expert_weights_scale", "n_ff_exp", "n_layer_dense_lead",
+    "expert_weights_scale", "n_ff_exp", "n_layer_dense_lead", "n_expert_shared",
 })
+# MLA, the compressed-KV attention of the deepseek2 family (llama.py:973-1041),
+# on the dense decoder's layers or beside the MoE FFN
+MLA_FIELDS = frozenset({"q_lora_rank", "kv_lora_rank", "rope_yarn_log_mul"})
+# the flags an MLA layer does not read (the JAX layer's MLA branch,
+# llama.py:1159-1174, runs the pre-norms, the attention, wo and the FFN
+# alone, and its attention takes mla_scale): each raises beside MLA
+MLA_UNREAD_FIELDS = ("attn_bias", "attn_qk_norm", "qk_norm_post_rope", "attn_qk_norm_flat",
+                     "post_norms", "parallel_residual", "clamp_kqv", "sliding_window",
+                     "attn_logit_softcap", "alibi_max_bias", "residual_scale", "attn_scale",
+                     "pre_norm", "use_rope", "norm_type")
 MOE_KEYS = frozenset({"moe_gate_inp", "moe_gate_exps", "moe_up_exps", "moe_down_exps"})
 # the shared expert of MoE layers (qwen2moe: with its sigmoid gate), read
 # only beside MOE_KEYS (llama.py:498-510)
 SHEXP_KEYS = frozenset({"ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"})
 
 
+def _informational(cfg: ModelConfig, name: str) -> bool:
+    """A MoE field that describes no expert of a config without MoE
+    tensors, which the JAX graph does not read there: the router's gating
+    (glm-dsa's row sets sigmoid), the expert width of a config with no
+    experts, and a dense lead that covers every layer (the deepseek2
+    family's dense files carry both)."""
+    return (name == "expert_gating" or (name == "n_ff_exp" and cfg.n_expert == 0)
+            or (name == "n_layer_dense_lead" and cfg.n_layer_dense_lead >= cfg.n_layer))
+
+
 def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
     """Raise on any config flag outside the covered paths: the dense decoder
-    path, and with ``moe`` (the layers carry MoE tensors) the MoE FFN."""
-    allowed = DENSE_FIELDS | MOE_FIELDS if moe else DENSE_FIELDS
+    path with its attention or MLA, and with ``moe`` (the layers carry MoE
+    tensors) the MoE FFN. Without MoE tensors the MoE fields that describe
+    no expert pass (``_informational``); every other one raises."""
+    allowed = DENSE_FIELDS | MLA_FIELDS | (MOE_FIELDS if moe else frozenset())
     for f in dataclasses.fields(ModelConfig):
-        if f.name in allowed:
+        if f.name in allowed or (not moe and _informational(cfg, f.name)):
             continue
         default = f.default if f.default is not dataclasses.MISSING else f.default_factory()
         if getattr(cfg, f.name) != default:
@@ -150,6 +182,34 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
         raise NotImplementedError(
             f"MoE with n_expert={cfg.n_expert}, n_expert_used={cfg.n_expert_used}, "
             f"gating {cfg.expert_gating!r}: not on the covered MoE path")
+    if cfg.kv_lora_rank:
+        base = ModelConfig()
+        unread = [f for f in MLA_UNREAD_FIELDS if getattr(cfg, f) != getattr(base, f)]
+        if unread or not 0 < cfg.rope_dim < cfg.head_dim:
+            raise NotImplementedError(
+                f"MLA (kv_lora_rank {cfg.kv_lora_rank}) with {unread or 'rope_dim'} = "
+                f"{[getattr(cfg, f) for f in unread] or cfg.rope_dim} (head_dim "
+                f"{cfg.head_dim}): the MLA layer reads none of these flags and ropes a tail "
+                "of the head")
+
+
+def kv_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(kv heads, K row, V row) of the cache: with MLA one head of the
+    compressed state, K [c_kv; k_pe] (kv_lora + rope_dim) and V c_kv
+    (kv_lora), whatever the head counts (llama.py:82-88); otherwise the
+    config's kv heads and head dims."""
+    if cfg.kv_lora_rank:
+        return 1, cfg.kv_lora_rank + cfg.rope_dim, cfg.kv_lora_rank
+    return cfg.n_head_kv, cfg.head_dim, cfg.head_dim_v
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The MLA attention's scale (llama.py:1024-1034): 1/sqrt(head_dim), times
+    mscale^2 under YaRN with a log multiplier (deepseek2.cpp's kq_scale)."""
+    if cfg.rope_scaling == "yarn" and cfg.rope_scale > 1 and cfg.rope_yarn_log_mul:
+        ms = cfg.rope_attn_factor * (1.0 + 0.1 * cfg.rope_yarn_log_mul * math.log(cfg.rope_scale))
+        return ms * ms / math.sqrt(cfg.head_dim)
+    return 1.0 / math.sqrt(cfg.head_dim)
 
 
 def swa_flags(cfg: ModelConfig) -> list:
@@ -211,13 +271,15 @@ class KVCache:
                device="cuda", iswa: bool = False, max_chunk: int = 0) -> "KVCache":
         """The JAX KVCache.create: with ``iswa`` the dual cache where the
         config has SWA layers, except on the int8 cache and for chunked
-        windows, gemma4's attention and MLA, as in the JAX package."""
+        windows, gemma4's attention and MLA, as in the JAX package. An MLA
+        config's cache holds its compressed rows (``kv_dims``)."""
         flags = swa_flags(cfg)
         dual = (iswa and any(flags) and not cfg.swa_chunked and not cfg.gemma4_attn
                 and not cfg.kv_lora_rank and dtype not in ("q8", "int8"))
         n_full = cfg.n_layer - sum(flags) if dual else cfg.n_layer
-        shape_k = (n_full, batch, cfg.n_head_kv, max_len, cfg.head_dim)
-        shape_v = (n_full, batch, cfg.n_head_kv, max_len, cfg.head_dim_v)
+        hkv, dk, dv = kv_dims(cfg)
+        shape_k = (n_full, batch, hkv, max_len, dk)
+        shape_v = (n_full, batch, hkv, max_len, dv)
         if dtype in ("q8", "int8"):
             return KVCache(torch.zeros(shape_k, dtype=torch.int8, device=device),
                            torch.zeros(shape_v, dtype=torch.int8, device=device),
@@ -333,7 +395,16 @@ def _rot_dim(n_rot: float, cfg: ModelConfig) -> float:
 
 def rope_cache(cfg: ModelConfig, positions):
     """positions (B, T) -> (cos, sin) each (B, T, rope_dim//2), f32
-    (ggml_rope_ext semantics, with linear or YaRN frequency scaling)."""
+    (ggml_rope_ext semantics, with linear or YaRN frequency scaling; YaRN's
+    mscale multiplies both, as in the JAX package)."""
+    theta, mscale = rope_angles(cfg, positions)
+    return torch.cos(theta) * mscale, torch.sin(theta) * mscale
+
+
+def rope_angles(cfg: ModelConfig, positions):
+    """positions (B, T) -> (the rotation angles (B, T, rope_dim//2) f32,
+    YaRN's mscale as a float: 1 without YaRN): rope_cache before the
+    magnitude, for a pure rotation."""
     half = cfg.rope_dim // 2
     inv_freq = cfg.rope_base ** (-np.arange(0, half, dtype=np.float32) * 2.0 / cfg.rope_dim)
     inv_freq = f32_on_device(tuple(np.asarray(inv_freq, np.float32).tolist()), positions.device)
@@ -357,7 +428,7 @@ def rope_cache(cfg: ModelConfig, positions):
         theta = theta_interp * (1 - ramp) + theta_extrap * ramp
         mscale = float(0.1 * np.log(cfg.rope_scale) + 1.0) if cfg.rope_scale > 1 else 1.0
         mscale *= cfg.rope_attn_factor
-    return torch.cos(theta) * mscale, torch.sin(theta) * mscale
+    return theta, mscale
 
 
 def apply_rope(x, cos, sin, rope_type: str, rope_dim: int):
@@ -378,7 +449,7 @@ def apply_rope(x, cos, sin, rope_type: str, rope_dim: int):
 
 
 def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: int,
-                    Hkv: int, kv_dtype, ring: int = 0) -> str:
+                    Hkv: int, kv_dtype, ring: int = 0, scaled: bool = False) -> str:
     """Which attention path a call takes: "flash_decode" (kernel E),
     "flash_attention" (kernel C) or "einsum". A kernel only on the card, and
     only where both the JAX package's gate (flash_decode_supported,
@@ -396,8 +467,13 @@ def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: 
     ``cfg.alibi_max_bias == 0`` (llama.py:268-279), which sends every ALiBi
     call to the einsum path; here C and E take the slopes as one more term
     on each score and the route is the shapes' alone (check_dense keeps
-    ALiBi away from windows, rings and softcaps)."""
-    if not is_cuda:
+    ALiBi away from windows, rings and softcaps).
+
+    ``scaled``: the call brings a scale of its own (MLA's mla_scale), which
+    keeps it off C by the JAX prefill gate (``scale is None``,
+    llama.py:268) and off E, which the port builds with the config's scale
+    alone, whatever the shapes: the einsum path."""
+    if not is_cuda or scaled:
         return "einsum"
     if ring:  # E builds its ring for bf16 only: the int8 cache has no ring
         if (flash_decode_ring_supported(T, Dk, Dv) and kv_dtype == torch.bfloat16
@@ -419,9 +495,11 @@ def decode_route(cfg: ModelConfig, B: int, kv_view: int, kv_dtype, on_card: bool
     """attention_route of one decode step (T = 1) of B rows over a kv view:
     the part of a captured decode step's key that TPULLM_FLASH_DECODE and
     the built shapes decide. With a ring (a dual cache) the pair (the full
-    banks' route, the ring's route)."""
-    r = attention_route(on_card, B, 1, kv_view, cfg.head_dim, cfg.head_dim_v, cfg.n_head,
-                        cfg.n_head_kv, kv_dtype)
+    banks' route, the ring's route). An MLA step's attention is scaled by
+    mla_scale over the compressed rows (kv_dims)."""
+    hkv, dk, dv = kv_dims(cfg)
+    r = attention_route(on_card, B, 1, kv_view, dk, dv, cfg.n_head, hkv, kv_dtype, 0,
+                        bool(cfg.kv_lora_rank))
     if not ring:
         return r
     return r, attention_route(on_card, B, 1, ring, cfg.head_dim, cfg.head_dim_v, cfg.n_head,
@@ -429,7 +507,8 @@ def decode_route(cfg: ModelConfig, B: int, kv_view: int, kv_dtype, on_card: bool
 
 
 def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
-              cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None, ring: int = 0):
+              cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None, ring: int = 0,
+              scale: float | None = None):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv).
 
     Slot mask valid_from[b] <= s <= q_slots[b, t]. The path is
@@ -447,11 +526,15 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
 
     ring: k/v are a ring bank of that many slots (an SWA layer of the dual
     cache), masked by the ring mask (llama.py:313-324) in place of the slot
-    and positional window masks."""
+    and positional window masks.
+
+    scale: the call's own scale in place of the config's (MLA's
+    mla_scale), which sends it to the einsum path (attention_route)."""
     B, T, H, Dk = q.shape
     kref, vref = (kv_q8[0], kv_q8[1]) if kv_q8 is not None else (k_all, v_all)
     Hkv, S, Dv = kref.shape[1], kref.shape[2], vref.shape[-1]
-    route = attention_route(q.is_cuda, B, T, S, Dk, Dv, H, Hkv, kref.dtype, ring)
+    route = attention_route(q.is_cuda, B, T, S, Dk, Dv, H, Hkv, kref.dtype, ring,
+                            scale is not None)
     if route == "flash_decode":
         window = cfg.sliding_window if layer_is_swa else 0
         if kv_q8 is not None:
@@ -466,9 +549,10 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
     if route == "flash_attention":
         return flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                                valid_from, cfg, layer_is_swa, ring)
+    cfg_scale, softcap, window = attention_params(cfg, layer_is_swa)
     return masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
-                            valid_from, *attention_params(cfg, layer_is_swa), ring,
-                            alibi_of(cfg, q.device))
+                            valid_from, cfg_scale if scale is None else scale, softcap, window,
+                            ring, alibi_of(cfg, q.device))
 
 
 def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
@@ -660,6 +744,11 @@ def _expert_mm(x, qt: QTensor, li, e: int, dtype):
     return qmm(x, expert_weight(qt, li, e), dtype)
 
 
+# an MLA layer's attention (runtime/loader.py's names): the q path (wq or its
+# low-rank pair wq_a/wq_b with the norm between), the joint kv projection and
+# the latent's norm, and the absorption banks wk_b (H, kv_lora, nope) and
+# wv_b (H, v, kv_lora) as dense f32
+MLA_KEYS = frozenset({"wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wk_b", "wv_b"})
 # the layernorm archs' biases of the stream norms
 NORM_BIAS_KEYS = frozenset({"attn_norm_b", "ffn_norm_b", "attn_norm_2_b"})
 _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
@@ -667,7 +756,7 @@ _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo"
                          "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
                          "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
                          "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
-                         "moe_probs_b"}) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS
+                         "moe_probs_b"}) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS
 
 
 def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
@@ -678,8 +767,19 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     biases without layernorm; attn_norm_2 without the parallel block, and ffn_norm or
     post_ffn_norm in a parallel block that does not read them; gate
     weights and the gate's bias on an ungated FFN; the dense FFN's biases on
-    a MoE layer; q/k norm biases outside flat layernorm q/k norms (mpt)."""
+    a MoE layer; q/k norm biases outside flat layernorm q/k norms (mpt); the
+    MLA tensors without kv_lora_rank, the low-rank q pair without
+    q_lora_rank, and on an MLA layer the separate or fused k/v projections
+    and wq beside the low-rank pair."""
     unread = {"bq", "bk", "bv"} if not cfg.attn_bias else set()
+    if not cfg.kv_lora_rank:
+        unread |= MLA_KEYS
+    else:
+        unread |= {"wk", "wv", "wqkv", "wqkv_cat", "bqkv_cat", "bo"}
+        if "wq_a" in gl:
+            unread.add("wq")
+    if not cfg.q_lora_rank:
+        unread |= {"wq_a", "q_a_norm", "wq_b"}
     if not (cfg.attn_qk_norm or cfg.attn_qk_norm_flat):
         unread |= {"q_norm", "k_norm"}
     if not (cfg.attn_qk_norm_flat and cfg.norm_type == "layernorm"):
@@ -723,8 +823,10 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     One condition is the port's own: the kernel adds its residuals unscaled,
     so a residual_scale other than 1 (granite, minicpm) keeps the layer off
     it. The JAX gate does not ask (ops/layer_kernel.py:410-428), so on the
-    TPU those layers' decode would drop the scale."""
-    use_block = (B * T <= 16 and on_card and "ffn_norm" in gl and "ffn_norm_b" not in gl
+    TPU those layers' decode would drop the scale. MLA layers stay off it, as
+    in the JAX gate (``kv_lora_rank == 0``, llama.py:1395)."""
+    use_block = (B * T <= 16 and on_card and cfg.kv_lora_rank == 0
+                 and "ffn_norm" in gl and "ffn_norm_b" not in gl
                  and not any(k in gl for k in ("bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
                                                "attn_norm_2"))
                  and not cfg.attn_bias and not cfg.attn_qk_norm_flat
@@ -812,6 +914,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     H, Hkv, hd, hdv = cfg.n_head, cfg.n_head_kv, cfg.head_dim, cfg.head_dim_v
     nq, nk, nv = H * hd, Hkv * hd, Hkv * hdv
     ok, ov = pad256(nq), pad256(nq) + pad256(nk)
+    scale_mla = mla_scale(cfg) if cfg.kv_lora_rank else None
 
     def view(bank):
         """This ubatch's cache rows, first L_view slots (_view, llama.py:820-831)."""
@@ -859,6 +962,48 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                         cfg, bool(windows[li]), kv_q8=kv_q8,
                         ring=cache.ring if on_ring else 0)
         return att.reshape(B, T, H * hdv)
+
+    def attend_mla(h, qw, li, lw, layer):
+        """An MLA layer's attention in the absorbed-MQA form (_attend_mla,
+        llama.py:973-1041) -> (B, T, H * hdv), before wo: the q path (wq, or
+        wq_a, its RMS norm and wq_b) split into nope and pe; wkv_a, then the
+        latent c_kv's RMS norm and RoPE on q_pe and k_pe; q_nope absorbed
+        into the latent space by wk_b in f32; the row [c_kv; k_pe] and c_kv
+        stored as the one kv head's K and V (kv_store); attention over it at
+        mla_scale; the per-head output lifted by wv_b in f32."""
+        lora, rd = cfg.kv_lora_rank, cfg.rope_dim
+        nope = hd - rd
+        if "wq_a" in qw:
+            ql = qmm(h, qw["wq_a"], dtype, li)[..., :cfg.q_lora_rank]
+            q = qmm(rms_norm(ql, lw["q_a_norm"], cfg.rms_eps), qw["wq_b"], dtype, li)
+        else:
+            q = qmm(h, qw["wq"], dtype, li)
+        q = q[..., :nq].reshape(B, T, H, hd)
+        q_nope, q_pe = q[..., :nope], q[..., nope:]
+        kvp = qmm(h, qw["wkv_a"], dtype, li)
+        c_kv = rms_norm(kvp[..., :lora], lw["kv_a_norm"], cfg.rms_eps)
+        k_pe = kvp[..., lora: lora + rd].reshape(B, T, 1, rd)
+        q_pe = apply_rope(q_pe, cos, sin, cfg.rope_type, rd)
+        k_pe = apply_rope(k_pe, cos, sin, cfg.rope_type, rd)
+        q_abs = torch.einsum("bthn,hln->bthl", q_nope.to(torch.float32),
+                             lw["wk_b"].to(torch.float32)).to(dtype)
+        qq = torch.cat([q_abs, q_pe.to(dtype)], dim=-1)
+        k_new = torch.cat([c_kv[:, :, None, :], k_pe.to(dtype)], dim=-1)
+        v_new = c_kv[:, :, None, :]
+        kv_q8 = k_view = v_view = None
+        bi = banks[layer][1]
+        if cache.quantized:
+            kv_store(cache.k[bi], cache.v[bi], k_new, v_new, first, b0, cache.ks[bi],
+                     cache.vs[bi])
+            kv_q8 = tuple(view(t[bi]) for t in (cache.k, cache.v, cache.ks, cache.vs))
+        else:
+            kv_store(cache.k[bi], cache.v[bi], k_new, v_new, first, b0)
+            k_view, v_view = view(cache.k[bi]).to(dtype), view(cache.v[bi]).to(dtype)
+        att = attention(qq, k_view, v_view, q_slots, kv_positions, positions, valid_from,
+                        cfg, kv_q8=kv_q8, scale=scale_mla)  # (B, T, H, lora)
+        o = torch.einsum("bthl,hvl->bthv", att.to(torch.float32),
+                         lw["wv_b"].to(torch.float32)).to(dtype)
+        return o.reshape(B, T, H * hdv)
 
     def qkv_of(h, qw, li, lw):
         """The layer's q, k, v rows (llama.py:1200-1229): the load-time
@@ -919,6 +1064,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         if unread:
             raise NotImplementedError(
                 f"layer tensors {unread}: the config of arch {cfg.arch!r} reads none of them")
+        mla = bool(cfg.kv_lora_rank)
+        lack = sorted({"wkv_a", "kv_a_norm", "wk_b", "wv_b", "wo"} - set(gl)) if mla else []
+        if mla and (lack or not {"wq", "wq_a"} & set(gl)):
+            raise NotImplementedError(f"MLA layers without {lack or ['wq or wq_a']}")
         qw = {k: v for k, v in gl.items() if isinstance(v, QTensor)}
         fl = {k: v for k, v in gl.items() if k not in qw}  # norms, biases
         L_g = next(iter(gl.values())).shape[0]
@@ -939,6 +1088,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             for li in range(L_g):
                 lw = {k: v[li] for k, v in fl.items()}
                 h = pre_norm(x, lw, "attn_norm")
+                if mla:  # llama.py:1159-1174
+                    x = x + qmm(attend_mla(h, qw, li, lw, off + li), qw["wo"], dtype, li)
+                    x = x + ffn_of(pre_norm(x, lw, "ffn_norm"), qw, li, lw)
+                    continue
                 att = attend(*qkv_of(h, qw, li, lw), off + li, lw)
                 if use_block:
                     x = ffn_block(att, x, lw["ffn_norm"], qw, li, cfg).to(dtype)

@@ -157,6 +157,22 @@ ARCH_REGISTRY: dict[str, dict] = {
     # minimax-m2 (src/models/minimax-m2.cpp): flat (full-row) qk RMS before
     # rope, every layer MoE with router probs bias
     "minimax-m2": dict(rope_type="neox", attn_qk_norm_flat=True),
+    # ---- MLA, the compressed-KV attention (src/models/deepseek2.cpp) ----
+    "deepseek2": dict(rope_type="neox"),
+    # minicpm3 (src/models/minicpm3.cpp): MLA attention like deepseek2
+    "minicpm3": dict(rope_type="neox"),
+    # mistral4 subclasses deepseek2 (MLA attention, src/models/models.h
+    # llama_model_mistral4)
+    "mistral4": dict(rope_type="neox"),
+    # plm (src/models/plm.cpp): MLA attention (direct wq + legacy wkv_b)
+    # with a relu^2 ungated MLP
+    "plm": dict(rope_type="norm", act_fn="relu2", ffn_gate=False),
+    # glm-dsa (src/models/glm-dsa.cpp): deepseek2's MLA graph verbatim
+    # (models.h:1013 `using graph = llama_model_deepseek2::graph`) +
+    # sigmoid-gated MoE w/ probs bias; the DSA indexer tensors are loaded
+    # but UNUSED by the reference graph (sparse top-k not implemented
+    # there) — mirrored here by ignoring them at load
+    "glm-dsa": dict(rope_type="neox", expert_gating="sigmoid"),
 }
 
 

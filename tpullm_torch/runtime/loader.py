@@ -19,7 +19,12 @@ output norm's too), falcon-40B's attn_norm_2, the output projection's bias
 and the dense FFN's gate, up and down biases (loader.py:25, 35, 64, 189-215),
 mpt's flat q/k norm biases (loader.py:37-38), the learned position table
 and bloom's embedding layernorm (loader.py:218-221, all f32); glm4moe's
-post_attention_norm becomes its ffn_norm (loader.py:410-414).
+post_attention_norm becomes its ffn_norm (loader.py:410-414). An MLA
+config (kv_lora_rank) also reads its attention's tensors (loader.py:41-48):
+wq or wq_a/q_a_norm/wq_b, wkv_a and kv_a_norm, and the absorption banks
+wk_b and wv_b as dense f32, split from a legacy attn_kv_b where the file
+has one (_mla_prepare, loader.py:268-290); glm-dsa's DSA indexer tensors
+are passed over unread, as the JAX loader leaves them.
 Every other tensor (expert biases, ffn_norm_exps, chunk experts, the
 output bias that phi-2's file carries, ...) raises, and so does a shared
 expert without all of its gate, up and down.
@@ -36,7 +41,7 @@ from ..models.config import config_from_gguf
 from ..models.llama import SHEXP_KEYS
 from ..ops._cuda import resolve_device
 from ..ops.fuse import fuse_layer_weights
-from ..ops.qtensor import QTensor, qtensor_from_bytes
+from ..ops.qtensor import _FLOAT_TYPES, QTensor, qtensor_from_bytes
 from ..quant.numpy_impl import dequantize
 
 # GGUF tensor-name suffix -> params key, for the tensors of a dense llama
@@ -84,13 +89,32 @@ LAYER_TENSORS = {
     # probabilities for the top-k choice only
     "exp_probs_b.bias": "moe_probs_b",
 }
+# MLA's tensors (loader.py:41-48), read where the config has kv_lora_rank:
+# elsewhere they are unknown names and raise. The split attn_k_b/attn_v_b,
+# or the legacy attn_kv_b that _mla_prepare splits
+MLA_TENSORS = {
+    "attn_q_a.weight": "wq_a",
+    "attn_q_b.weight": "wq_b",
+    "attn_q_a_norm.weight": "q_a_norm",
+    "attn_kv_a_mqa.weight": "wkv_a",
+    "attn_kv_a_norm.weight": "kv_a_norm",
+    "attn_k_b.weight": "wk_b",
+    "attn_v_b.weight": "wv_b",
+    "attn_kv_b.weight": "wkv_b",
+}
+# glm-dsa's DSA indexer, which its reference graph loads and does not run
+# (src/models/glm-dsa.cpp; the JAX loader reads none of it): the only names
+# the loader passes over unread, and only for that arch
+INDEXER_TENSORS = ("indexer.k_norm.weight", "indexer.k_norm.bias", "indexer.proj.weight",
+                   "indexer.attn_k.weight", "indexer.attn_q_b.weight")
 # norms, biases, the shared expert's gate and the selection bias load as
 # f32 arrays (loader.py:209-229, 355-362)
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
                      "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp",
                      "moe_probs_b",
                      "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
-                     "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b"}
+                     "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b",
+                     "q_a_norm", "kv_a_norm"}
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -139,6 +163,31 @@ def _place(v, device):
     return v.to(device)
 
 
+def _mla_prepare(layers: dict, cfg) -> dict:
+    """The MLA absorption banks as dense f32 tensors (loader.py:268-290):
+    wk_b (L, H, kv_lora, nope), so that q_nope absorbs into the latent
+    space, and wv_b (L, H, v, kv_lora), which lifts the attention's output
+    back out. A legacy attn_kv_b {kv_lora, H * (nope + v)} is split here;
+    quantized split banks are dequantized."""
+    nope = cfg.head_dim - cfg.rope_dim
+    H, v, lora = cfg.n_head, cfg.head_dim_v, cfg.kv_lora_rank
+    f32 = lambda t: t.dequant(torch.float32) if isinstance(t, QTensor) else t.float()
+    if "wkv_b" in layers:
+        if {"wk_b", "wv_b"} & set(layers):
+            raise NotImplementedError("MLA layers with both attn_kv_b and attn_k_b/attn_v_b")
+        kvb = f32(layers.pop("wkv_b"))
+        kvb = kvb.reshape(kvb.shape[0], H, nope + v, lora)
+        layers["wk_b"] = kvb[:, :, :nope, :].transpose(2, 3).contiguous()
+        layers["wv_b"] = kvb[:, :, nope:, :].contiguous()
+    for k, want in (("wk_b", (H, lora, nope)), ("wv_b", (H, v, lora))):
+        if k not in layers:
+            continue
+        layers[k] = f32(layers[k]).contiguous()
+        if tuple(layers[k].shape[1:]) != want:
+            raise ValueError(f"MLA {k}: shape {tuple(layers[k].shape)}, want (L,) + {want}")
+    return layers
+
+
 def load_model(path: str, device="cuda"):
     """Returns (config, params dict, GGUFFile) with params on ``device``.
 
@@ -149,8 +198,11 @@ def load_model(path: str, device="cuda"):
     g = GGUFFile(path)
     cfg = config_from_gguf(g)
     params: dict[str, Any] = {}
+    layer_tensors = {**LAYER_TENSORS, **(MLA_TENSORS if cfg.kv_lora_rank else {})}
     known = set(GLOBAL_TENSORS) | {f"blk.{i}.{s}" for i in range(cfg.n_layer)
-                                   for s in LAYER_TENSORS}
+                                   for s in layer_tensors}
+    if cfg.arch == "glm-dsa":
+        known |= {f"blk.{i}.{s}" for i in range(cfg.n_layer) for s in INDEXER_TENSORS}
     # the NextN layers past n_layer (config_from_gguf took them off it) are
     # not read, as the JAX loader walks range(n_layer) (loader.py:341)
     n_blocks = int(g.get(f"{cfg.arch}.block_count", cfg.n_layer))
@@ -173,11 +225,12 @@ def load_model(path: str, device="cuda"):
 
     per_key: dict[str, dict[int, Any]] = {}
     for i in range(cfg.n_layer):
-        for suffix, key in LAYER_TENSORS.items():
+        for suffix, key in layer_tensors.items():
             tname = f"blk.{i}.{suffix}"
             if tname not in g.tensors:
                 continue
-            if key in _FLOAT_LAYER_KEYS:
+            if key in _FLOAT_LAYER_KEYS or (key in ("wk_b", "wv_b")
+                                            and g.tensors[tname].ggml_type in _FLOAT_TYPES):
                 per_key.setdefault(key, {})[i] = torch.from_numpy(_to_float_array(g, tname))
             else:
                 per_key.setdefault(key, {})[i] = _load_qtensor(g, tname)
@@ -213,6 +266,8 @@ def load_model(path: str, device="cuda"):
         if cfg.arch == "glm4moe" and "post_attn_norm" in layers and "ffn_norm" not in layers:
             # glm4moe's post_attention_norm is its pre-FFN norm (loader.py:410-414)
             layers["ffn_norm"] = layers.pop("post_attn_norm")
+        if cfg.kv_lora_rank:
+            layers = _mla_prepare(layers, cfg)
         return fuse_layer_weights(layers, cfg)
 
     groups = [build_group(lo, hi) for lo, hi in zip(bounds[:-1], bounds[1:])]

@@ -10,10 +10,12 @@ common prefix with the slot's previous content), copy_slot (seq_cp), and
 context_shift (seq_rm + seq_add with K re-roped by the shift, on the
 device, dequantizing and requantizing an int8 cache; on a model without
 RoPE the rows only move, as llama.cpp shifts K only when the rope type is
-not NONE, where the JAX package rotates them all the same). With ``iswa`` the
-SWA layers keep a ring of window + ``max_chunk`` slots (the dual cache,
-llama_kv_cache_iswa): a prefix is reused only while the ring still holds
-its window, and context_shift refuses (the server reprocesses instead).
+not NONE, where the JAX package rotates them all the same; on an MLA cache
+only K's k_pe tail is rotated, where the JAX package rotates c_kv's head).
+With ``iswa`` the SWA layers keep a ring of window + ``max_chunk`` slots
+(the dual cache, llama_kv_cache_iswa): a prefix is reused only while the
+ring still holds its window, and context_shift refuses (the server
+reprocesses instead).
 Saving and restoring slots and whole-context state are not ported yet and
 raise.
 """
@@ -24,7 +26,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import KVCache, _kv_quant, apply_rope, rope_cache
+from ..models.llama import KVCache, _kv_quant, apply_rope, rope_angles, rope_cache
 
 
 @dataclass
@@ -145,12 +147,15 @@ def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
     llama.cpp does (K is shifted only when the rope type is not NONE). The
     JAX package rotates them all the same (memory.py:301-311: rope_cache
     never reads use_rope), which corrupts K on such a model: a departure
-    from the reference (ROADMAP §3)."""
+    from the reference (ROADMAP §3). An MLA cache shifts by ``_mla_shift``."""
     S = cache.max_len
     dev = cache.k.device
     idx = torch.arange(S, device=dev)
     moved = (idx >= n_keep) & (idx < n_past - n_discard)
     src = torch.where(moved, idx + n_discard, idx)
+    if cfg.kv_lora_rank:
+        _mla_shift(cache, cfg, slot, src, moved, n_discard)
+        return
     if not cfg.use_rope:
         for buf in (cache.k, cache.v, cache.ks, cache.vs):
             if buf is not None:  # head-major (L, B, Hkv, S[, D]): the slot's rows by src
@@ -188,3 +193,41 @@ def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
     k_new = torch.where(mv, k_shifted.to(cache.k.dtype), k_rolled)
     put(cache.k, k_new)
     put(cache.v, v_rolled)
+
+
+def _mla_shift(cache: KVCache, cfg: ModelConfig, slot: int, src, moved, n_discard: int):
+    """The shift of an MLA cache, whose K row is [c_kv (kv_lora); k_pe
+    (rope_dim)] and V row c_kv: every row of the slot moves to its place by
+    ``src``; of the moved rows only the k_pe tail is rotated, by the pure
+    rotation at -n_discard (in f32; the magnitude YaRN's mscale gave k_pe
+    at its write stays once, as the rotation's cos and sin carry no mscale).
+    V, its row scales and the c_kv part of K move bit for bit; on the int8
+    cache a moved K row is requantized after its rotation and the others
+    keep their bits. This is llama.cpp's shift (it views the rope part of
+    the row). The JAX package's shift rotates the first rope_dim dims of
+    each K row (memory.py:301-311), which in this layout are c_kv's, and
+    leaves k_pe unrotated: a departure from the reference (ROADMAP §3)."""
+    lora, rd = cfg.kv_lora_rank, cfg.rope_dim
+    for buf in (cache.v, cache.vs):  # head-major (L, B, 1, S[, D]): the slot's rows by src
+        if buf is not None:
+            buf[:, slot] = buf[:, slot][:, :, src]
+    k = cache.k[:, slot][:, :, src]  # (L, 1, S, Dk)
+    kf = k.to(torch.float32)
+    if cache.quantized:
+        ks = cache.ks[:, slot][:, :, src]
+        kf = kf * ks[..., None]
+    L, S = k.shape[0], k.shape[2]
+    theta, _ = rope_angles(cfg, torch.full((1, 1), -n_discard, dtype=torch.float32,
+                                           device=k.device))
+    half = theta.shape[-1]
+    cos, sin = (f(theta).expand(L, S, half) for f in (torch.cos, torch.sin))
+    tail = kf[..., lora:].transpose(1, 2)  # (L, S, 1, rope_dim): rows as tokens
+    rot = apply_rope(tail, cos, sin, cfg.rope_type, rd).transpose(1, 2)
+    mv = moved[None, None, :, None]
+    if cache.quantized:
+        kq, ksc = _kv_quant(torch.cat([kf[..., :lora], rot], dim=-1))
+        cache.k[:, slot] = torch.where(mv, kq, k)
+        cache.ks[:, slot] = torch.where(mv[..., 0], ksc, ks)
+        return
+    cache.k[:, slot] = torch.cat(
+        [k[..., :lora], torch.where(mv, rot.to(k.dtype), k[..., lora:])], dim=-1)

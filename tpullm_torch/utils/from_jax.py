@@ -36,7 +36,8 @@ def _convert(v, device):
 def params_from_numpy(cfg_dict: dict, params: dict, device="cuda"):
     """-> (ModelConfig, params on ``device``) for the port's forward. Layer
     tensors come across by name, the post-norms (gemma2/3's post_attn_norm,
-    post_ffn_norm) among them. A config with tied embeddings (gemma) gets
+    post_ffn_norm) and MLA's (wq_a, q_a_norm, wq_b, wkv_a, kv_a_norm, and
+    wk_b and wv_b as the f32 arrays of the JAX _mla_prepare) among them. A config with tied embeddings (gemma) gets
     its lm_head as the embedding's own QTensor, as the port's loader binds
     it, not as a second copy of the same weight."""
     device = resolve_device(device)

@@ -13,6 +13,11 @@
   experts drawn on the device so no host array holds them, for any MoE arch
   of the registry (mixtral, qwen3moe, qwen2moe, ernie4_5-moe, ...);
   ``synth_mixtral_q4k`` is its Mixtral form;
+- ``synth_mla_q4k``: an MLA model of the deepseek2 family (a direct or
+  low-rank q, the compressed kv projection, the split absorption banks in
+  f32, optional YaRN, a dense lead, routed experts and a shared expert),
+  each weight Q4_K or, where K is not a multiple of 256, Q8_0, K-major
+  or planar as the loader would lay it out, drawn on the device;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks;
 - ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's or Qwen2's
@@ -303,6 +308,134 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
                               n_layer_dense_lead=n_dense_lead, **(cfg_fields or {}))
     apply_arch_defaults(cfg)
     return cfg, params
+
+
+def _mla_weight(n: int, K: int, lead: tuple, gen: torch.Generator, device) -> QTensor:
+    """One (lead..., n, K) weight of an MLA model as a Q4_K_M file holds it:
+    Q4_K where K is a multiple of 256, else Q8_0 (llama.cpp's fallback for
+    such rows); K-major where the kernels take K (pick_tile_k), else planar,
+    as the loader lays it out. Drawn on ``device`` with ``gen``, centred as
+    random_kmajor draws (a planar Q4_K group's sub-min round(7.5 * sc) with
+    dmin = d)."""
+    from ..ops.qmm import qmm_supported
+
+    qtype = GGMLType.Q4_K if K % 256 == 0 else GGMLType.Q8_0
+    if qmm_supported(qtype, K):
+        qt = random_kmajor(qtype, [n], K, lead, gen, device)
+        return QTensor(qtype, lead + (n, K), qt.data)
+    d = lambda nb, scale: ((torch.rand(lead + (n, nb), generator=gen, device=device) + 0.5)
+                           * scale).to(torch.float16)
+    ints = lambda lo, hi, shape, dt: torch.randint(lo, hi, lead + (n,) + shape, generator=gen,
+                                                   device=device, dtype=torch.int16).to(dt)
+    if qtype == GGMLType.Q8_0:
+        nb = K // 32
+        data = {"qs": ints(-128, 128, (nb, 32), torch.int8), "d": d(nb, _RANDOM[qtype]["d"])}
+    else:
+        nb = K // 256
+        sc = ints(1, 8, (nb, 8), torch.uint8)
+        dd = d(nb, _RANDOM[qtype]["d"])
+        data = {"qs": ints(0, 256, (nb, 128), torch.uint8), "sc": sc,
+                "mn": torch.round(sc.to(torch.float32) * 7.5).to(torch.uint8), "d": dd,
+                "dmin": dd.clone()}
+    return QTensor(qtype, lead + (n, K), data)
+
+
+def synth_mla_q4k(*, arch: str = "deepseek2", vocab_size: int, n_embd: int, n_layer: int,
+                  n_head: int, kv_lora_rank: int, qk_nope: int, qk_rope: int, v_head: int,
+                  n_ff: int, q_lora_rank: int = 0, n_expert: int = 0, n_expert_used: int = 0,
+                  n_ff_exp: int = 0, n_ff_shexp: int = 0, n_expert_shared: int = 1,
+                  n_dense_lead: int = 0, rope_base: float = 1e4, rms_eps: float = 1e-6,
+                  seed: int = 0, device="cuda", cfg_fields: dict | None = None):
+    """-> (ModelConfig, params) of an MLA model of ``arch`` (the deepseek2
+    family) on ``device``, as the loader gives a split attn_k_b/attn_v_b
+    file: each layer's q path (``q_lora_rank`` 0: a direct wq; else wq_a,
+    its f32 norm q_a_norm and wq_b), wkv_a with its f32 kv_a_norm, the
+    absorption banks wk_b (L, H, kv_lora, qk_nope) and wv_b (L, H, v_head,
+    kv_lora) in dense f32 (normal, std 1/sqrt(kv_lora)), wo; the norms
+    (the MLA ones 1 + N(0, 0.1)) as synth_kmajor_q4k_fast has them, an
+    untied Q4_K embedding and lm_head of vocab_size logical rows. With
+    ``n_expert`` the layers past ``n_dense_lead`` are MoE (an F32 router of
+    std 0.02, experts of ``n_ff_exp``, a shared expert of ``n_ff_shexp``
+    where given, the GGUF's ``n_expert_shared`` experts written as one,
+    its gate/up/down unfused and ungated, as the deepseek family's files
+    have it); the dense layers a gate/up of ``n_ff`` (fused where
+    K-major) and its down. params["layers"] is then the loader's two
+    groups, {"__groups__": [dense lead, MoE layers]}.
+
+    Every weight takes _mla_weight's type and layout: Q4_K, Q8_0 where K is
+    not a multiple of 256 (DeepSeek-V2-Lite's expert down at K 1408, its
+    dense down at 10944), planar where no K-major tile fits (those two, and
+    the shared expert's down at K 2816). Everything is drawn with one
+    torch.Generator seeded with ``seed`` on ``device``, so no host array
+    holds a weight. ``cfg_fields`` sets config fields as a file's keys
+    would, before the row's defaults apply (YaRN's rope_scaling,
+    rope_scale, rope_orig_ctx and rope_yarn_log_mul, expert_weights_norm,
+    expert_weights_scale, ...)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    head_dim = qk_nope + qk_rope
+    H, lora, L = n_head, kv_lora_rank, (n_layer,)
+    if not 0 <= n_dense_lead <= n_layer or (n_expert and n_dense_lead == n_layer):
+        raise ValueError(f"n_dense_lead {n_dense_lead} of {n_layer} layers")
+    w = lambda n, K, lead=L: _mla_weight(n, K, lead, gen, device)
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
+    near1 = lambda *s: 1.0 + 0.1 * torch.randn(s, generator=gen, device=device)
+    embd, out = (QTensor(GGMLType.Q4_K, (vocab_size, n_embd), random_kmajor(
+        GGMLType.Q4_K, [vocab_size], n_embd, (), gen, device).data) for _ in range(2))
+    layers = {"attn_norm": ones(n_layer, n_embd), "ffn_norm": ones(n_layer, n_embd)}
+    if q_lora_rank:
+        layers["wq_a"] = w(q_lora_rank, n_embd)
+        layers["q_a_norm"] = near1(n_layer, q_lora_rank)
+        layers["wq_b"] = w(H * head_dim, q_lora_rank)
+    else:
+        layers["wq"] = w(H * head_dim, n_embd)
+    layers["wkv_a"] = w(lora + qk_rope, n_embd)
+    layers["kv_a_norm"] = near1(n_layer, lora)
+    std = lora ** -0.5
+    layers["wk_b"] = torch.randn((n_layer, H, lora, qk_nope), generator=gen, device=device) * std
+    layers["wv_b"] = torch.randn((n_layer, H, v_head, lora), generator=gen, device=device) * std
+    layers["wo"] = w(n_embd, H * v_head)
+    n_moe = n_layer - n_dense_lead if n_expert else 0
+    dense = {}
+    if n_layer - n_moe:  # gate/up fused where K-major, as fuse_layer_weights fuses them
+        n_d = (n_layer - n_moe,)
+        gate = w(n_ff, n_embd, n_d)
+        if gate.layout == "kmajor":
+            gu = random_kmajor(gate.qtype, [n_ff, n_ff], n_embd, n_d, gen, device)
+            dense["ffn_gateup"] = QTensor(gate.qtype, n_d + (pad256(n_ff) * 2, n_embd), gu.data)
+        else:
+            dense["ffn_gate"], dense["ffn_up"] = gate, w(n_ff, n_embd, n_d)
+        dense["ffn_down"] = w(n_embd, n_ff, n_d)
+    moe = {}
+    if n_moe:
+        LE = (n_moe, n_expert)
+        moe["moe_gate_inp"] = QTensor(GGMLType.F32, LE + (n_embd,), {
+            "w": torch.randn(LE + (n_embd,), generator=gen, device=device) * 0.02})
+        moe["moe_gate_exps"] = w(n_ff_exp, n_embd, LE)
+        moe["moe_up_exps"] = w(n_ff_exp, n_embd, LE)
+        moe["moe_down_exps"] = w(n_embd, n_ff_exp, LE)
+        if n_ff_shexp:
+            moe["ffn_gate_shexp"] = w(n_ff_shexp, n_embd, (n_moe,))
+            moe["ffn_up_shexp"] = w(n_ff_shexp, n_embd, (n_moe,))
+            moe["ffn_down_shexp"] = w(n_embd, n_ff_shexp, (n_moe,))
+    cut = lambda v, lo, hi: (QTensor(v.qtype, (hi - lo,) + tuple(v.shape[1:]), {
+        k: d[lo:hi] for k, d in v.data.items()}) if isinstance(v, QTensor) else v[lo:hi])
+    if dense and moe:
+        groups = [{**{k: cut(v, 0, n_dense_lead) for k, v in layers.items()}, **dense},
+                  {**{k: cut(v, n_dense_lead, n_layer) for k, v in layers.items()}, **moe}]
+        params_layers = {"__groups__": groups}
+    else:
+        params_layers = {**layers, **dense, **moe}
+    cfg = ModelConfig(
+        arch=arch, vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer, n_head=n_head,
+        n_head_kv=1, head_dim=head_dim, head_dim_v=v_head, n_ff=n_ff, rope_dim=qk_rope,
+        rope_base=rope_base, rms_eps=rms_eps, q_lora_rank=q_lora_rank,
+        kv_lora_rank=kv_lora_rank, n_expert=n_expert, n_expert_used=n_expert_used,
+        n_ff_exp=n_ff_exp, n_layer_dense_lead=n_dense_lead if n_expert else 0,
+        n_expert_shared=n_expert_shared if n_ff_shexp else 0, **(cfg_fields or {}))
+    apply_arch_defaults(cfg)
+    return cfg, {"tok_embd": embd, "output": out, "output_norm": ones(n_embd),
+                 "layers": params_layers}
 
 
 def synth_mixtral_q4k(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int,

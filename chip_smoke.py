@@ -38,7 +38,7 @@ pass):
    (tolerance: 4x the error of the same plain path in bf16); then the
    server layout on an int8 cache (per-slot prefills through slot0, 2
    decode steps at per-row depths through kernel E) with the same rule
-   (every parity run: PARITY_STEPS decode steps, cut from 4);
+   (every parity run: PARITY_STEPS decode steps, cut from 4, then 2);
 4. the slice: the 32-layer 8B model answers 4 requests (prompts of 512,
    300, 200 and 100 tokens, 32 greedy decode steps) through
    InferenceEngine.generate, each decode step a replay of the engine's
@@ -83,9 +83,9 @@ pass):
    median of 3 samples), with kernels A, B, C, F and A's skip variant
    launched and D not, and once eagerly with the same tokens and launch
    counts;
-8. phase 5's decode-step (graph and eager) and prefill profiles on the MoE
-   slice (the prefill's device time outside the kernels is the routing's
-   cost);
+8. phase 5's decode-step (graph replays; the eager one left out for the
+   script's time limit) and prefill profiles on the MoE slice (the
+   prefill's device time outside the kernels is the routing's cost);
 9. the dense decoder's flags at full width: Qwen3-8B with 2 layers (per-head
    QK norms, untied 151936-row lm_head) against the CPU as phase 3; a
    2-layer run at Qwen2.5-7B's width (q/k/v biases, G = 7, depth cut from
@@ -202,12 +202,28 @@ pass):
    one head of 576/512), the einsum MLA attention at the server's step
    beside SDPA, and the expert loop's ms a MoE layer (the expert down
    planar Q8_0 at K 1408: no K-major tile, so no skip or F); the slice
-   with 16 greedy steps (graph, then eager: the same tokens and launches;
+   with 8 greedy steps (graph, then eager: the same tokens and launches;
    A, B and the store launched, C, D, E, F and the skip not), its decode
    profile (3463 A and 27 store launches a step) and a prefill profile;
    its server (4 slots of 4096, int8 KV): token-id completions of
-   2000/700/300/40 tokens, 16 new each, every request 200, and a decode
-   chunk profiled.
+   2000/700/300/40 tokens, 8 new each, every request 200, and a decode
+   chunk profiled;
+17. the combined [gate; up] and the per-layer SWA array at full width,
+   DeepSeek freed first: Phi-4 (arch phi3: the fused attn_qkv and the
+   combined ffn_up of 2 x 17920 rows as its file holds them, through the
+   loader's fuse step, which renames the combined tensor ffn_gateup; 40/10
+   heads of 128, an untied 100352-row lm_head) with 2 layers against the
+   CPU as phase 3 (D and E in the decode steps); 4 Phi-4-width layers
+   with the aperiodic SWA array (1, 0, 1, 1), the window cut to 128, on
+   the iSWA ring in bf16 and on the full cache against the CPU as phase
+   12b; kernel rows on Phi-4's weights (A and B on wqkv, wo, the combined
+   gate/up, down and the lm_head at K 5120 and 17920; D at its layer; C at
+   G = 4; E at the int8 server step; the store at 10 kv heads); the
+   40-layer slice with E on (A, B, C, D, E and the store launched, F not;
+   D, E and the store once a layer a decode step), its decode profile as
+   graph replays and eagerly, and a prefill profile; its server (4 slots
+   of 8192, int8 KV): token-id completions of 6000/2000/700/40 tokens,
+   every request 200, D launched, and a decode chunk profiled.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
 bench.py's generator, with each Q4_K group centred like trained weights so
@@ -218,14 +234,16 @@ q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
 tied lm_head, Command-R and StarCoder2 with their layernorms, biases and
 blocks, StarCoder-15B and BLOOM-7b1 with their position table, ALiBi and
 embedding norm, the Qwen MoE models and ERNIE synth_moe_q4k's, and
-DeepSeek-V2-Lite synth_mla_q4k's, drawn on the card). The last
+DeepSeek-V2-Lite synth_mla_q4k's, drawn on the card, Phi-4 with
+gguf_layout). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
 slice and server, the Gemma-2-9B slice, server and ring server, the
 Gemma-7B-width run, the Command-R 35B slice and server, the StarCoder-15B
 slice and server, the BLOOM-7b1-width run, the ERNIE-4.5-21B-A3B slice and
-server, the DeepSeek-V2-Lite slice and server), the card's name
+server, the DeepSeek-V2-Lite slice and server, the Phi-4 slice and
+server), the card's name
 and power limit, and the result line.
 """
 import dataclasses
@@ -326,9 +344,10 @@ TOL_DECODE_NMSE = 1e-4  # p rounded to bf16 per 16-slot chunk vs once per row
 TOL_E2E_FACTOR = 4.0
 
 # greedy decode steps of each parity run against the CPU after its prefill
-# (phases 3, 9-14), cut from 4 for the script's time limit: a step's CPU
-# bf16 reference takes 1.5-8 s at these vocabularies
-PARITY_STEPS = 2
+# (phases 3, 9-17), cut from 4, then 2, for the script's time limit: a
+# step's CPU bf16 reference takes 1-5 s at these vocabularies; one step
+# still runs every decode kernel of its path (D, E, the skip)
+PARITY_STEPS = 1
 # the depth of the parity runs of Qwen2-57B-A14B's, Command-R 35B's and
 # StarCoder2-15B's widths, and of Mixtral-8x7B's,
 # Qwen3-30B-A3B's, StarCoder-15B's and BLOOM-7b1's, cut for the script's
@@ -3156,19 +3175,23 @@ def phase_ring_kernels(torch, entries):
     _cuda.reset_counts()
 
 
-def phase_ring_parity(torch, label, spec, n_layer, fields, seed):
-    """Phase 12b: the iSWA ring at full width with the depth and the window
-    cut (phase 3's rule): the ring engine's path on the card (a dual cache,
-    the window cut to 256, prefill in chunks of RING_PARITY_CHUNK: a ring of
-    384 slots) on 2 prompts of RING_PARITY_LENS tokens (left-padded, the
-    896 wrapping the ring twice) and PARITY_STEPS greedy decode steps with
+def phase_ring_parity(torch, label, spec, n_layer, fields, seed, lens=RING_PARITY_LENS,
+                      chunk=RING_PARITY_CHUNK, layer_kernel=False):
+    """Phase 12b (and 17b): the iSWA ring at full width with the depth and
+    the window cut (phase 3's rule): the ring engine's path on the card (a
+    dual cache, the window cut to 256, prefill in chunks of ``chunk``
+    (RING_PARITY_CHUNK): a ring of 384 slots) on 2 prompts of ``lens``
+    (RING_PARITY_LENS) tokens (left-padded, the 896 wrapping the ring twice)
+    and PARITY_STEPS greedy decode steps with
     TPULLM_FLASH_DECODE=1, against the plain path on a CPU copy in f32 on
     the full cache, teacher-forced with the card's picks; the card's
     full-cache path (phase 11's parity: its prefill in one piece through
     C, its decode through E) on the same tokens within the same bound of
     the CPU and of the ring's logits. Every ring-layer attention call on
-    the card goes to kernel C (prefill) or E (decode). -> the launch counts
-    of the ring run and of the full-cache run."""
+    the card goes to kernel C (prefill) or E (decode). The layer kernel
+    launches in both runs' decode steps where ``layer_kernel`` says so (the
+    Phi-4 layer), and in neither otherwise (Gemma's post-norms close it).
+    -> the launch counts of the ring run and of the full-cache run."""
     import numpy as np
     from unittest import mock
 
@@ -3181,8 +3204,7 @@ def phase_ring_parity(torch, label, spec, n_layer, fields, seed):
     cfg, params = synth_kmajor_q4k_fast(**sp, seed=seed, centred=True, device="cuda")
     cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(5)
-    lens = RING_PARITY_LENS
-    B, T, C = len(lens), max(lens), RING_PARITY_CHUNK
+    B, T, C = len(lens), max(lens), chunk
     S = 1280  # a multiple of 256 past the prompts and 4 steps: C and E on the full banks
     tok = np.zeros((B, T), np.int64)
     posn = np.zeros((B, T), np.int64)
@@ -3261,7 +3283,7 @@ def phase_ring_parity(torch, label, spec, n_layer, fields, seed):
     for run, c in counts.items():
         missing = [k for k in ("qmm_splitk", "qmm", "flash_attention", "flash_decode",
                                "kv_store") if c.get(k, 0) <= 0]
-        if missing or c.get("layer_kernel"):
+        if missing or bool(c.get("layer_kernel")) != layer_kernel:
             raise AssertionError(f"{label} ring parity, {run} cache: kernels not launched "
                                  f"{missing}, layer kernel {c.get('layer_kernel')}")
     del params, cpu, sides
@@ -3915,10 +3937,10 @@ DEEPSEEK = dict(arch="deepseek2", vocab_size=102400, n_embd=2048, n_layer=27, n_
                                 rope_orig_ctx=4096, rope_yarn_log_mul=0.707))
 DS_SERVER_PROMPTS = [2000, 700, 300, 40]  # the DeepSeek burst: 4 requests on 4 slots
 # greedy steps of its slice (one decode chunk) and tokens of its server's
-# requests, cut from 32 and 64 for the script's time limit: the expert
-# loop's step takes ~160 ms as a graph replay and ~1.1-1.3 s eagerly on an
-# H100 80GB HBM3 at 700 W
-DS_NEW = 16
+# requests, cut from 32 and 64, then 16, for the script's time limit: the
+# expert loop's step takes ~160 ms as a graph replay and ~1.0-1.3 s eagerly
+# on an H100 80GB HBM3 at 700 W
+DS_NEW = 8
 # the kernels of the MLA path, and those off it: MLA attention takes the
 # einsum path (its own scale; Dk 576 != Dv 512), D's gate refuses MLA, and
 # the expert down at K 1408 (planar Q8_0) sends the experts to the loop
@@ -4370,6 +4392,166 @@ def phase_deepseek(torch, entries):
     return counts
 
 
+# Phi-4 (microsoft/phi-4 config.json; the GGUF's arch phi3): hidden 5120, 40
+# layers, 40/10 heads of 128 (a GQA group of 4), intermediate 17920 (gate and
+# up written as one ffn_up of 2 x 17920 rows, as llama.cpp's phi3 tensors
+# have no ffn_gate), the fused attn_qkv (7680 rows), vocab 100352, untied
+# lm_head, rope_theta 250000 (neox, the arch row), rms_norm_eps 1e-5, no
+# sliding window. gguf_layout draws wqkv_cat and the combined ffn_up, which
+# the loader's fuse step renames ffn_gateup (n_ff a multiple of 256), so the
+# decode layers take kernel D
+PHI4 = dict(arch="phi3", vocab_size=100352, n_embd=5120, n_layer=40, n_head=40, n_head_kv=10,
+            n_ff=17920, rope_base=2.5e5, rms_eps=1e-5, exact_vocab=True, gguf_layout=True)
+PHI4_SERVER_PROMPTS = [6000, 2000, 700, 40]  # the Phi-4 burst (the Gemma server's)
+# phase 17b: the aperiodic SWA array on 4 layers, the window cut to 128 and
+# prefill_chunk 64 (a ring of 192), prompts of 512 and 250 tokens, so the
+# longer wraps the ring twice (and the full cache's one-piece prefill of 512
+# rows takes kernel C) at ~60% of phase 12b's CPU work
+PHI4_SWA = (True, False, True, True)
+PHI4_RING_WINDOW, PHI4_RING_CHUNK, PHI4_RING_LENS = 128, 64, (512, 250)
+PHI4_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel", "flash_decode",
+                "kv_store")
+
+
+def phase_phi4_kernels(torch, entries):
+    """Phase 17c: phase 2's rows at Phi-4's shapes, each held against its
+    plain version and timed beside it, one library call and the bound:
+    kernels A (M = 4) and B (M = 2048) on its wqkv (the fused attn_qkv,
+    7680 x 5120), wo (5120 x 5120), gate/up (the combined ffn_up, 35840 x
+    5120), down (5120 x 17920) and the untied 100352-row lm_head, Q4_K
+    (K 5120 and 17920: the 32-group f32 d and dmin); kernel D at Phi-4's
+    layer (M = 4, plain and folded, beside the unfused layer); kernel C at
+    40/10 heads of 128 (G = 4) at the engine slice's prefill (B 4, T 512, S
+    1024); kernel E at the server's int8 step (rows at 6000/2000/700/40 of
+    8192); the KV store at 10 kv heads of 128, bit for bit, at the server's
+    int8 decode step and a 512-row chunk at 5632."""
+    from tpullm_torch.ops import _cuda
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2323)
+    ph = PHI4
+    d, nq, nkv, n_ff = ph["n_embd"], ph["n_head"], ph["n_head_kv"], ph["n_ff"]
+    hd = d // nq
+    heads, slice_path, server = (nq, nkv), "Phi-4 slice", "Phi-4 server"
+    weight_rows(torch, timer, entries, g, [("wqkv", [(nq + 2 * nkv) * hd], d),
+                                           ("wo", [d], nq * hd),
+                                           ("gateup", [2 * n_ff], d),
+                                           ("down", [d], n_ff),
+                                           ("lm_head", [ph["vocab_size"]], d)], slice_path)
+    layer_rows(torch, timer, entries, g, n_ff=n_ff, path=slice_path, d=d, heads=heads, hd=hd)
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
+             path=slice_path, heads=heads, hd=hd)
+    decode_row(torch, timer, entries, g, server, 8192, PHI4_SERVER_PROMPTS, [0, 0, 0, 0], True,
+               heads=heads, path=server, hd=hd)
+    store_row(torch, timer, entries, g, "Phi-4 server decode", server, 1, PHI4_SERVER_PROMPTS,
+              0, 8192, True, heads=heads, hd=hd)
+    store_row(torch, timer, entries, g, "Phi-4 server prefill chunk", server, 512, [5632], 2,
+              8192, True, heads=heads, hd=hd)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+
+
+def phase_phi4(torch, entries):
+    """Phase 17, the combined [gate; up] and the per-layer SWA array at full
+    width, the DeepSeek weights freed first: (a) Phi-4 with 2 layers against
+    the CPU (phase 3's rule; the fused attn_qkv and the combined ffn_up as
+    the file has them, through the loader's fuse step, so the decode steps
+    take D on the renamed ffn_gateup, and E); (b) 4 Phi-4-width layers with
+    the aperiodic SWA array (1, 0, 1, 1) on the iSWA ring in bf16 and on
+    the card's full cache against the CPU (phase_ring_parity: the window
+    cut to 128, a ring of 192, prompts of 512 and 250, D in the decode
+    steps); (c) the kernel rows (phase_phi4_kernels); (d) the 40-layer
+    Phi-4 model drawn on the card: its engine slice with
+    TPULLM_FLASH_DECODE=1 (A, B, C, D, E and the store launched, F not;
+    every prefill attention call on C), its decode-step profile as graph
+    replays and eagerly, and one prefill profile; (e) its server
+    (phase_q8_server: 4 slots of 8192, int8 KV, E on, a burst of
+    6000/2000/700/40 tokens, D launched, a decode chunk profiled). ->
+    launch counts by path."""
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    counts = {}
+    label = "Phi-4"
+    t = time.perf_counter()
+    c = phase_parity(torch, f"{label} (depth cut from {PHI4['n_layer']})", seed=23,
+                     flash_decode="1", last_only=True, **dict(PHI4, n_layer=2),
+                     generator=torch.Generator(device="cuda").manual_seed(23))
+    counts[f"{label} 2-layer"] = c
+    missing = [k for k in PHI4_KERNELS if c[k] <= 0]
+    if missing or c["moe_gmm"]:
+        raise AssertionError(f"{label} parity: kernels not launched {missing}, moe_gmm "
+                             f"{c['moe_gmm']}")
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[f"{label} 4-layer SWA array ring"] = phase_ring_parity(
+        torch, f"{label} width, SWA array {[int(f) for f in PHI4_SWA]} (depth cut from "
+        f"{PHI4['n_layer']}, window {PHI4_RING_WINDOW})", PHI4, len(PHI4_SWA),
+        dict(sliding_window=PHI4_RING_WINDOW, swa_layer_pattern=PHI4_SWA, swa_pattern=2),
+        seed=24, lens=PHI4_RING_LENS, chunk=PHI4_RING_CHUNK, layer_kernel=True)["ring"]
+    log(f"phase ring parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_phi4_kernels(torch, entries)
+    log(f"phase kernels {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_kmajor_q4k_fast(**PHI4, seed=0, centred=True, device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_w = sum(math.prod(v.shape) for v in params["layers"].values()
+              if hasattr(v, "qtype")) + 2 * cfg.vocab_size * cfg.n_embd
+    kv = 4 * 8192 * cfg.n_layer * cfg.n_head_kv * (cfg.head_dim + cfg.head_dim_v + 8)
+    log(f"slice {label}: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB "
+        f"({n_w / 1e9:.3f} B weights, {model_gb(params) * 1e9 / n_w:.3f} bytes a weight) in "
+        f"{time.perf_counter() - t:.3f} s; config {cfg.arch} heads {cfg.n_head}/"
+        f"{cfg.n_head_kv} of {cfg.head_dim} n_ff {cfg.n_ff} rope {cfg.rope_type} "
+        f"{cfg.rope_base:g} window {cfg.sliding_window} tied {cfg.tie_embeddings}; layer "
+        f"tensors {sorted(params['layers'])}; the q8 server's KV over 4 x 8192 slots "
+        f"{kv / 1e9:.3f} GB")
+    routes = {}
+    counted_route = route_counter(routes, lambda a, r: ("prefill" if a[2] > 1 else "decode", r))
+    set_flash_decode("1")
+    try:
+        with mock.patch.object(llama, "attention_route", counted_route):
+            counts[f"{label} slice"], eng, eager, prompts = phase_slice(
+                torch, label, cfg, params, cfg.vocab_size, PHI4_KERNELS, ("moe_gmm",))
+        log(f"slice {label}: attention routes of every call (prefill or decode, route) "
+            f"{ {f'{a} {b}': n for (a, b), n in routes.items()} }")
+        want = {("prefill", "flash_attention"), ("decode", "flash_decode")}
+        if set(routes) != want:
+            raise AssertionError(f"{label} slice: attention routes {routes}")
+        out = phase_decode(torch, eng, prompts, f" {label} graph")
+        step = out["graph_capture_counts_per_step"] or {}
+        per_step = {"layer_kernel": cfg.n_layer, "kv_store": cfg.n_layer,
+                    "flash_decode": cfg.n_layer}
+        if {k: step.get(k) for k in per_step} != per_step:
+            raise AssertionError(f"{label} decode step: launches {step}, want {per_step} (D, "
+                                 "the store and E once a layer)")
+        phase_decode(torch, eager, prompts, f" {label} eager")
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "kv_store"),
+                              f" {label}")
+    finally:
+        set_flash_decode(None)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[f"{label} server"] = phase_q8_server(torch, cfg, params, label, PHI4_SERVER_PROMPTS,
+                                                must=("layer_kernel",), must_not=("moe_gmm",))
+    log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
@@ -4693,7 +4875,6 @@ def main() -> int:
     log(f"phase slice Mixtral: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_decode(torch, eng, prompts, " Mixtral-8x7B graph")
-    phase_decode(torch, eager, prompts, " Mixtral-8x7B eager")
     phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "moe_gmm"),
                           " Mixtral-8x7B")
     del eng, eager
@@ -4707,10 +4888,12 @@ def main() -> int:
     starcoder_counts = phase_starcoder(torch, entries)
     ernie_counts = phase_ernie(torch, entries)
     deepseek_counts = phase_deepseek(torch, entries)
+    phi4_counts = phase_phi4(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
-               **command_r_counts, **starcoder_counts, **ernie_counts, **deepseek_counts}
+               **command_r_counts, **starcoder_counts, **ernie_counts, **deepseek_counts,
+               **phi4_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

@@ -263,12 +263,22 @@ def test_config_keys_parse_as_jax(tmp_path, arch, keys):
 
 
 def test_per_layer_swa_pattern_raises(tmp_path):
-    """A per-layer sliding_window_pattern array (gemma4, mimo2) stays
-    unported."""
-    path = _meta_gguf(str(tmp_path / "m.gguf"), "gemma3",
-                      {"attention.sliding_window": 512,
-                       "attention.sliding_window_pattern": [1, 1, 0]})
-    with pytest.raises(NotImplementedError, match="sliding_window_pattern"):
+    """A per-layer sliding_window_pattern array parses since the SWA array
+    is ported (exaone4, step35: tests/test_torch_gateup_swa.py), as the JAX
+    parser's flags; one with fewer flags than the file's layers (22 by
+    default) raises, and so does another per-layer array beside it (gemma4's
+    files carry per-layer FFN widths, which stay unported)."""
+    keys = {"attention.sliding_window": 512, "attention.sliding_window_pattern": [1, 1, 0]}
+    path = _meta_gguf(str(tmp_path / "m.gguf"), "gemma3", keys)
+    with pytest.raises(ValueError, match="sliding_window_pattern: 3 flags for 22 layers"):
+        config_from_gguf(GGUFFile(path))
+    path = _meta_gguf(str(tmp_path / "m3.gguf"), "gemma3", dict(keys, block_count=3))
+    cfg = config_from_gguf(GGUFFile(path))
+    assert (cfg.swa_layer_pattern, cfg.swa_pattern) == ((True, True, False), 2)
+    assert swa_flags(cfg) == [True, True, False] and layer_windows(cfg) == [512, 512, 0]
+    path = _meta_gguf(str(tmp_path / "ff.gguf"), "gemma3",
+                      dict(keys, block_count=3, feed_forward_length=[1024, 2048, 1024]))
+    with pytest.raises(NotImplementedError, match="feed_forward_length"):
         config_from_gguf(GGUFFile(path))
 
 

@@ -2030,3 +2030,76 @@ def test_mla_server_graph_matches_eager(cuda):
     (tg, cg), (te, ce) = res["graph"], res["eager"]
     assert np.array_equal(tg, te) and cg == ce, (tg, te, cg, ce)
     assert cg["kv_store"] > 0 and cg["qmm_splitk"] > 0 and cg["flash_decode"] == 0
+
+
+@pytest.mark.parametrize("M", [1, 4, 16])
+def test_layer_kernel_phi4_combined_gateup(cuda, M):
+    """Kernel D at Phi-4's layer (5120 wide, 40/10 heads of 128, n_ff
+    17920; K 5120 and 17920 keep Q4_K's 32-group f32 d/dmin) on the GGUF's
+    combined [gate; up], an ffn_up of 2 x 17920 rows that the loader's fuse
+    step renames ffn_gateup, plain and folded against its plain version."""
+    from tpullm_torch.ops.fuse import fuse_layer_weights
+
+    D, H, Hkv, n_ff, L, hd = 5120, 40, 10, 17920, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(2323 + M)
+    cfg = ModelConfig(arch="phi3", n_embd=D, n_layer=L, n_head=H, n_head_kv=Hkv, head_dim=hd,
+                      head_dim_v=hd, n_ff=n_ff)
+    q = GGMLType.Q4_K
+    up = random_kmajor(q, [2 * n_ff], D, (L,), g, cuda)
+    layers = fuse_layer_weights({"ffn_up": up}, cfg)
+    assert set(layers) == {"ffn_gateup"} and layers["ffn_gateup"] is up
+    qw = {"wo": random_kmajor(q, [D], H * hd, (L,), g, cuda), "ffn_gateup": up,
+          "ffn_down": random_kmajor(q, [D], n_ff, (L,), g, cuda),
+          "wqkv": random_kmajor(q, [H * hd, Hkv * hd, Hkv * hd], D, (L,), g, cuda)}
+    norms = 1 + 0.1 * torch.randn((2, L, D), generator=g, device=cuda)
+    _check_layer(qw, cfg, norms, g, M, 1)
+
+
+@pytest.mark.parametrize("flag", [None, "1"])
+def test_phi3_engine_on_card_matches_cpu(cuda, monkeypatch, flag):
+    """A 2-layer phi3 model as its file lays it out (the fused attn_qkv as
+    wqkv_cat, the combined ffn_up renamed ffn_gateup by the loader's fuse
+    step; 1024 wide, 8/2 heads of 128, n_ff 3072, a 500-row vocab) through
+    the engine on the card against the plain path on the CPU in f32, within
+    4x the plain bf16 error: A, B, C, D and the store launched (E with the
+    flag), F not; then the same requests with cuda_graphs=False give the
+    graph's greedy tokens and launch counts."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = synth_kmajor_q4k_fast(arch="phi3", vocab_size=500, n_embd=1024, n_layer=2,
+                                        n_head=8, n_head_kv=2, n_ff=3072, seed=3, centred=True,
+                                        device="cpu", exact_vocab=True, rope_base=2.5e5,
+                                        gguf_layout=True)
+    assert {"wqkv_cat", "ffn_gateup"} <= set(params["layers"])
+    card = {k: (v.to("cuda") if not isinstance(v, dict) else
+                {n: t.to("cuda") for n, t in v.items()}) for k, v in params.items()}
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    assert logits["card"][0].shape[-1] == 500
+    for k in ("qmm_splitk", "qmm", "flash_attention", "layer_kernel", "kv_store"):
+        assert c[k] > 0, (k, c)
+    assert c["moe_gmm"] == 0 and (c["flash_decode"] > 0) == bool(flag), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+    top2 = torch.topk(logits["cpu"][0], 2, dim=-1).values
+    for b, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+        if gap > 0.05:
+            assert logits["card"][1][b][0] == logits["cpu"][1][b][0]

@@ -22,7 +22,7 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("field,value", [
     ("swa_chunked", True), ("no_rope_interval", 4), ("n_expert", 8),
     ("n_expert_shared", 2), ("qk_l2_norm", True), ("attn_out_scale", 0.5),
-    ("attn_gate_proj", True),
+    ("attn_out_gate", True),
     ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
     ("swa_dense_first", True), ("ssm_d_conv", 4), ("attn_temp_scale", 0.1)])
 def test_flag_outside_dense_path_raises(field, value):
@@ -88,8 +88,8 @@ def test_dense_keys_parse():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("llama.expert_group_scale", 2.0), ("llama.attention.sliding_window_pattern", [1, 0]),
-    ("llama.attention.sliding_window_pattern", np.array([True, True, False])),
+    ("llama.expert_group_scale", 2.0), ("llama.feed_forward_length", [512, 256]),
+    ("llama.attention.head_count", np.array([4, 4, 8])),
     ("llama.rope.scaling.finetuned", True),
     ("llama.attention.value_scale", 2.0), ("xielu.alpha_n", [0.8]),
     ("llama.rope.dimension_sections", [16, 24, 24, 0]), ("llama.pooling_type", 1),
@@ -127,8 +127,10 @@ def test_unported_moe_archs_raise(arch, key):
 def test_afmoe_attention_gate_tensors_raise(tmp_path, monkeypatch):
     """Even with its JAX row added and its keys let through (the dense lead
     and the selection bias now load), an afmoe file raises at load on its
-    attention gate and its own post-norm names, which the port does not
-    run."""
+    own post-norm names, which the port does not run. Its attention gate
+    loads under the per-head gate's name (step35's), and a gate as wide as
+    the attention output raises in forward
+    (test_full_width_attention_gate_raises)."""
     from tpullm.models.registry import ARCH_REGISTRY as JREG
     from tpullm.utils.synth import build_arch_gguf
     from tpullm_torch.models.registry import ARCH_REGISTRY
@@ -138,9 +140,9 @@ def test_afmoe_attention_gate_tensors_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="afmoe"):
         load_model(path, device="cpu")
     monkeypatch.setitem(ARCH_REGISTRY, "afmoe", JREG["afmoe"])
-    with pytest.raises(NotImplementedError, match="attn_gate") as e:
+    with pytest.raises(NotImplementedError, match="attn_post_norm") as e:
         load_model(path, device="cpu")
-    assert "attn_post_norm" in str(e.value) and "ffn_post_norm" in str(e.value)
+    assert "ffn_post_norm" in str(e.value) and "attn_gate" not in str(e.value)
 
 
 def _kimi_gguf(tmp_path, monkeypatch, extra):
@@ -270,8 +272,90 @@ def test_per_layer_head_counts_raise():
 
 
 def test_other_arch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="phi3"):
-        load_model(_gguf(tmp_path, arch="phi3"), device="cpu")
+    with pytest.raises(NotImplementedError, match="llama4"):
+        load_model(_gguf(tmp_path, arch="llama4"), device="cpu")
+
+
+def test_swa_array_is_the_only_per_layer_key():
+    """The SWA pattern loads as a per-layer array; every other per-layer
+    array still raises, the SWA pattern's beside it too."""
+    cfg = config_from_gguf(_Meta({"llama.attention.sliding_window": 64, "llama.block_count": 2,
+                                  "llama.attention.sliding_window_pattern": [1, 0]}))
+    assert cfg.swa_layer_pattern == (True, False) and cfg.swa_pattern == 2
+    check_dense(cfg)
+    for key in ("attention.head_count_kv", "feed_forward_length", "attention.key_length",
+                "rope.freq_base"):
+        with pytest.raises(NotImplementedError, match=key):
+            config_from_gguf(_Meta({"llama.block_count": 2, f"llama.{key}": [8, 4],
+                                    "llama.attention.sliding_window_pattern": [1, 0]}))
+
+
+def _layers(tmp_path, **kw):
+    """A 2-layer llama file loaded on the CPU: (cfg, params)."""
+    cfg, params, _ = load_model(_gguf(tmp_path, n_layer=2, **kw), device="cpu")
+    return cfg, params
+
+
+def _forward(cfg, params):
+    cache = KVCache.create(cfg, 1, 16, torch.float32, "cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    return forward(params, cfg, tok, torch.arange(4)[None], cache, 0,
+                   torch.zeros(1, dtype=torch.int64), torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["up_only", "no_down", "no_ffn"])
+def test_ffn_without_a_gate_layout_raises(tmp_path, layout):
+    """A gated FFN with neither of its layouts (separate or fused gate and
+    up, or a GGUF-combined [gate; up] of 2 x n_ff rows), or without its
+    down, raises NotImplementedError naming the tensors, not a bare
+    KeyError."""
+    cfg, params = _layers(tmp_path)
+    layers = params["layers"]
+    gu = layers.pop("ffn_gateup")
+    if layout == "up_only":  # the gate half alone, n_ff rows: no gate layout
+        layers["ffn_up"] = type(gu)(gu.qtype, (2, cfg.n_ff, cfg.n_embd),
+                                    {k: v[..., :cfg.n_ff] for k, v in gu.data.items()})
+    elif layout == "no_down":
+        layers["ffn_gateup"] = gu
+        del layers["ffn_down"]
+    with pytest.raises(NotImplementedError, match="FFN tensors") as e:
+        _forward(cfg, params)
+    assert ("'ffn_up': (2, 512, 512)" in str(e.value)) == (layout == "up_only")
+
+
+def test_full_width_attention_gate_raises(tmp_path):
+    """The attention output gate runs per head (step35): a gate as wide as
+    the attention output (afmoe's) raises in forward, naming it."""
+    import dataclasses as dc
+
+    cfg, params = _layers(tmp_path)
+    cfg = dc.replace(cfg, attn_gate_proj=True)
+    wide = params["layers"]["wo"]  # (L, n_embd, n_head * head_dim) = (2, 512, 512)
+    params["layers"]["wqkv_gate"] = type(wide)(wide.qtype, wide.shape, dict(wide.data))
+    with pytest.raises(NotImplementedError, match="wqkv_gate"):
+        _forward(cfg, params)
+    del params["layers"]["wqkv_gate"]
+    assert torch.isfinite(_forward(cfg, params)[0]).all()
+    with pytest.raises(NotImplementedError, match="wqkv_gate"):  # and none without the flag
+        params["layers"]["wqkv_gate"] = type(wide)(wide.qtype, (2, 4, 512), dict(wide.data))
+        _forward(dc.replace(cfg, attn_gate_proj=False), params)
+
+
+def test_mimo2_value_scale_raises(tmp_path, monkeypatch):
+    """mimo2 (its SWA array now parses) stays refused: with its JAX row
+    added, its file raises at the key gate on attention.value_scale (its
+    sinks and selection bias wait with it)."""
+    from tpullm.models.registry import ARCH_REGISTRY as JREG
+    from tpullm.utils.synth import build_arch_gguf
+    from tpullm_torch.models.registry import ARCH_REGISTRY
+
+    path = build_arch_gguf(str(tmp_path / "mimo2.gguf"), "mimo2", n_layer=4, seed=11)
+    with pytest.raises(NotImplementedError, match="mimo2"):
+        load_model(path, device="cpu")
+    monkeypatch.setitem(ARCH_REGISTRY, "mimo2", JREG["mimo2"])
+    with pytest.raises(NotImplementedError, match="attention.value_scale") as e:
+        load_model(path, device="cpu")
+    assert "sliding_window_pattern" not in str(e.value)
 
 
 def test_unread_tensor_raises(tmp_path):

@@ -201,9 +201,10 @@ DENSE_KEYS = frozenset({
     "attention.scale", "rope.freq_base",
     "rope.dimension_count", "rope.scaling.type", "rope.scaling.factor",
     "rope.scaling.original_context_length",
-    # the gemma family's sliding windows (a scalar pattern only: a per-layer
-    # array raises in get), softcaps and SWA rope base; the granite/minicpm
-    # scales (gemma's embedding scale comes from its registry row)
+    # the gemma family's sliding windows (the pattern a scalar period or a
+    # per-layer 0/1 array: exaone4, step35), softcaps and SWA rope base; the
+    # granite/minicpm scales (gemma's embedding scale comes from its registry
+    # row)
     "attention.sliding_window", "attention.sliding_window_pattern",
     "attn_logit_softcapping", "final_logit_softcapping", "rope.freq_base_swa",
     "embedding_scale", "residual_scale", "logit_scale",
@@ -304,7 +305,16 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
         v = get(key)
         if v is not None:
             setattr(cfg, attr, float(v))
-    cfg.swa_pattern = int(get("attention.sliding_window_pattern", 0) or 1)
+    # the SWA pattern (config.py:284-291): a scalar period, or a per-layer
+    # 0/1 array (exaone4's published files, step35, mimo2, gemma4), whose
+    # flags swa_flags reads, with swa_pattern 2 as the "any SWA" marker; the
+    # one per-layer array read (get refuses the others)
+    swp = g.get(f"{arch}.attention.sliding_window_pattern", 0)
+    if isinstance(swp, (list, tuple, np.ndarray)):
+        cfg.swa_layer_pattern = tuple(bool(x) for x in swp)
+        cfg.swa_pattern = 2
+    else:
+        cfg.swa_pattern = int(swp or 1)
     cfg.rope_base_swa = float(get("rope.freq_base_swa", 0.0) or 0.0)
     cl = get("attention.clamp_kqv")
     if cl is not None:
@@ -338,6 +348,9 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     nextn = int(get("nextn_predict_layers", 0) or 0)
     if nextn:
         cfg.n_layer -= nextn
+    if cfg.swa_layer_pattern and len(cfg.swa_layer_pattern) < cfg.n_layer:
+        raise ValueError(f"{arch}.attention.sliding_window_pattern: "
+                         f"{len(cfg.swa_layer_pattern)} flags for {cfg.n_layer} layers")
     if arch == "qwen":  # qwen-v1 GGUF stores DOUBLE the ffn width
         cfg.n_ff //= 2
     apply_arch_defaults(cfg)

@@ -11,9 +11,11 @@ norms (per head before or after RoPE, or over the flat rows with their
 biases) -> RoPE (neox or interleaved, full or partial; SWA layers at
 rope_base_swa where the file gives one; none where use_rope is off) -> an
 optional clamp of q, k and v -> GQA attention over a head-major KV cache
-(optional logit softcap; a sliding window on the layers swa_pattern marks;
-or ALiBi, without either) -> output projection and its optional bias ->
-gated SiLU or GELU FFN (optional gate and up biases), ungated GELU or relu2
+(optional logit softcap; a sliding window on the layers swa_pattern or the
+per-layer swa_layer_pattern marks; or ALiBi, without either) -> step35's
+optional per-head sigmoid gate -> output projection and its optional bias ->
+gated SiLU or GELU FFN (optional gate and up biases; gate and up fused,
+separate or GGUF-combined in one ffn_up), ungated GELU or relu2
 FFN (optional up and down biases),
 in sequence or in parallel with attention (the parallel residual), or the
 routed-expert MoE FFN (softmax or sigmoid router, an optional selection
@@ -99,10 +101,14 @@ DENSE_FIELDS = frozenset({
     "attn_bias", "attn_qk_norm", "qk_norm_post_rope", "attn_qk_norm_flat",
     "post_norms", "pre_norm",
     # the gemma family (gelu, the embedding scale, softcaps, sliding windows
-    # every swa_pattern-th layer full, the SWA layers' own rope base) and the
-    # granite/minicpm scales
+    # every swa_pattern-th layer full or by a per-layer array, the SWA layers'
+    # own rope base) and the granite/minicpm scales
     "act_fn", "embedding_scale", "attn_logit_softcap", "final_logit_softcap",
-    "sliding_window", "swa_pattern", "rope_base_swa", "residual_scale", "logit_scale",
+    "sliding_window", "swa_pattern", "swa_layer_pattern", "rope_base_swa", "residual_scale",
+    "logit_scale",
+    # step35's per-head sigmoid gate on the attention output (wqkv_gate, one
+    # column a head; afmoe's gate as wide as the output raises in forward)
+    "attn_gate_proj",
     # the layernorm, bias and parallel-residual decoders (stablelm, starcoder2,
     # phi2, command-r, falcon, olmo's clamp, nemotron's relu2, ...)
     "norm_type", "ffn_gate", "parallel_residual", "clamp_kqv",
@@ -130,7 +136,7 @@ MLA_FIELDS = frozenset({"q_lora_rank", "kv_lora_rank", "rope_yarn_log_mul"})
 MLA_UNREAD_FIELDS = ("attn_bias", "attn_qk_norm", "qk_norm_post_rope", "attn_qk_norm_flat",
                      "post_norms", "parallel_residual", "clamp_kqv", "sliding_window",
                      "attn_logit_softcap", "alibi_max_bias", "residual_scale", "attn_scale",
-                     "pre_norm", "use_rope", "norm_type")
+                     "pre_norm", "use_rope", "norm_type", "attn_gate_proj")
 MOE_KEYS = frozenset({"moe_gate_inp", "moe_gate_exps", "moe_up_exps", "moe_down_exps"})
 # the shared expert of MoE layers (qwen2moe: with its sigmoid gate), read
 # only beside MOE_KEYS (llama.py:498-510)
@@ -561,7 +567,10 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
     cfg.ffn_gate off the ungated GELU or relu(u)**2 on up alone; the gate,
     up and down biases (lw: the layer's float tensors; jais's gate and up
     each on its half of the fused product) added in the compute dtype where
-    the layer has them."""
+    the layer has them. A GGUF-combined [gate; up] (an ffn_up of 2 x n_ff
+    rows and no ffn_gate: phi3, chatglm, plamo3) takes one product, split
+    at n_ff (llama.py:606-610); the loader renames it ffn_gateup where its
+    halves fall on 256-column boundaries (ops/fuse.py)."""
     lw = lw or {}
     if not cfg.ffn_gate:
         u = qmm(x, qw["ffn_up"], dtype, li)
@@ -569,6 +578,9 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
         y = qmm(x, qw["ffn_gateup"], dtype, li)
         g = y[..., : cfg.n_ff]
         u = y[..., pad256(cfg.n_ff): pad256(cfg.n_ff) + cfg.n_ff]
+    elif "ffn_gate" not in qw:
+        y = qmm(x, qw["ffn_up"], dtype, li)
+        g, u = y[..., : cfg.n_ff], y[..., cfg.n_ff: 2 * cfg.n_ff]
     else:
         g = qmm(x, qw["ffn_gate"], dtype, li)
         u = qmm(x, qw["ffn_up"], dtype, li)
@@ -756,7 +768,37 @@ _LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo"
                          "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
                          "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
                          "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
-                         "moe_probs_b"}) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS
+                         "moe_probs_b", "wqkv_gate"}) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS
+
+
+def check_ffn_layout(cfg: ModelConfig, gl) -> None:
+    """Raise NotImplementedError where a dense gated FFN has none of its
+    weight layouts: the load-time fused ffn_gateup, separate ffn_gate and
+    ffn_up, or a GGUF-combined [gate; up] (an ffn_up of 2 x n_ff rows,
+    llama.py:606-610); and where a layer has no ffn_down. Layers with routed
+    experts and ungated FFNs are not asked."""
+    if (cfg.n_expert > 0 and "moe_gate_inp" in gl) or not cfg.ffn_gate:
+        return
+    up = gl.get("ffn_up")
+    ok = ("ffn_gateup" in gl or ("ffn_gate" in gl and up is not None)
+          or ("ffn_gate" not in gl and up is not None and up.n_out == 2 * cfg.n_ff))
+    if not ok or "ffn_down" not in gl:
+        have = {k: tuple(gl[k].shape) for k in ("ffn_gateup", "ffn_gate", "ffn_up", "ffn_down")
+                if k in gl}
+        raise NotImplementedError(
+            f"FFN tensors {have} (n_ff {cfg.n_ff}): the gated FFN needs ffn_down and "
+            "ffn_gateup, ffn_gate with ffn_up, or an ffn_up of 2 x n_ff rows")
+
+
+def check_attn_gate(cfg: ModelConfig, gl) -> None:
+    """The attention output gate (wqkv_gate) runs per head only: step35's
+    (n_head,)-wide projection (llama.py:1231-1245). afmoe's gate as wide as
+    the attention output is not on the covered paths, and raises."""
+    gate = gl.get("wqkv_gate")
+    if gate is not None and gate.n_out != cfg.n_head:
+        raise NotImplementedError(
+            f"wqkv_gate {tuple(gate.shape)}: the port runs the per-head attention gate "
+            f"({cfg.n_head} rows, step35), not one as wide as the attention output (afmoe)")
 
 
 def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
@@ -770,12 +812,15 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     a MoE layer; q/k norm biases outside flat layernorm q/k norms (mpt); the
     MLA tensors without kv_lora_rank, the low-rank q pair without
     q_lora_rank, and on an MLA layer the separate or fused k/v projections
-    and wq beside the low-rank pair."""
+    and wq beside the low-rank pair; the attention output gate without
+    attn_gate_proj."""
     unread = {"bq", "bk", "bv"} if not cfg.attn_bias else set()
+    if not cfg.attn_gate_proj:
+        unread.add("wqkv_gate")
     if not cfg.kv_lora_rank:
         unread |= MLA_KEYS
     else:
-        unread |= {"wk", "wv", "wqkv", "wqkv_cat", "bqkv_cat", "bo"}
+        unread |= {"wk", "wv", "wqkv", "wqkv_cat", "bqkv_cat", "bo", "wqkv_gate"}
         if "wq_a" in gl:
             unread.add("wq")
     if not cfg.q_lora_rank:
@@ -824,7 +869,14 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     so a residual_scale other than 1 (granite, minicpm) keeps the layer off
     it. The JAX gate does not ask (ops/layer_kernel.py:410-428), so on the
     TPU those layers' decode would drop the scale. MLA layers stay off it, as
-    in the JAX gate (``kv_lora_rank == 0``, llama.py:1395)."""
+    in the JAX gate (``kv_lora_rank == 0``, llama.py:1395).
+
+    The combined [gate; up] of a phi3 or chatglm file takes the kernel on the
+    port's own route: where n_ff is a multiple of 256 the loader renames the
+    combined ffn_up ffn_gateup (byte for byte the fused layout,
+    ops/fuse.py:fuse_layer_weights), which block_supported asks for, as the
+    JAX gate does (ops/layer_kernel.py:411). The JAX loader keeps the
+    combined tensor as ffn_up, so there such layers take the plain FFN."""
     use_block = (B * T <= 16 and on_card and cfg.kv_lora_rank == 0
                  and "ffn_norm" in gl and "ffn_norm_b" not in gl
                  and not any(k in gl for k in ("bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
@@ -1064,6 +1116,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         if unread:
             raise NotImplementedError(
                 f"layer tensors {unread}: the config of arch {cfg.arch!r} reads none of them")
+        check_ffn_layout(cfg, gl)
+        check_attn_gate(cfg, gl)
         mla = bool(cfg.kv_lora_rank)
         lack = sorted({"wkv_a", "kv_a_norm", "wk_b", "wv_b", "wo"} - set(gl)) if mla else []
         if mla and (lack or not {"wq", "wq_a"} & set(gl)):
@@ -1093,6 +1147,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                     x = x + ffn_of(pre_norm(x, lw, "ffn_norm"), qw, li, lw)
                     continue
                 att = attend(*qkv_of(h, qw, li, lw), off + li, lw)
+                if "wqkv_gate" in qw:  # llama.py:1231-1245: one sigmoid a head
+                    gate = torch.sigmoid(qmm(h, qw["wqkv_gate"], dtype, li).to(torch.float32))
+                    att = (att.reshape(B, T, H, hdv).to(torch.float32) * gate[..., None]).to(
+                        dtype).reshape(B, T, H * hdv)
                 if use_block:
                     x = ffn_block(att, x, lw["ffn_norm"], qw, li, cfg).to(dtype)
                     continue

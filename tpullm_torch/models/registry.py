@@ -173,6 +173,20 @@ ARCH_REGISTRY: dict[str, dict] = {
     # but UNUSED by the reference graph (sparse top-k not implemented
     # there) — mirrored here by ignoring them at load
     "glm-dsa": dict(rope_type="neox", expert_gating="sigmoid"),
+    # ---- the combined [gate; up] in one ffn_up, the per-layer SWA array ----
+    # phi3 (src/models/phi3.cpp): fused attn_qkv, the combined ffn_up
+    "phi3": dict(rope_type="neox"),
+    # chatglm/glm4 (src/models/{chatglm,glm4}.cpp): partial rope; glm4 adds
+    # gemma2-style post norms
+    "chatglm": dict(rope_type="norm", attn_bias=True),
+    # PLaMo-3 (src/models/plamo3.cpp): dense transformer, fused QKV +
+    # shared per-head-dim q/k norms (pre-rope), sandwich post-norms, fused
+    # swiglu ffn_up, optional SWA pattern
+    "plamo3": dict(rope_type="neox", post_norms=True, attn_qk_norm=True),
+    # step35 (src/models/step35.cpp): qk norms, per-layer SWA array,
+    # per-HEAD sigmoid attention gate (g_proj -> (n_head,)), MoE + shexp
+    "step35": dict(rope_type="neox", attn_qk_norm=True,
+                   attn_gate_proj=True),
 }
 
 

@@ -42,7 +42,13 @@ def concat_kmajor(qts: list[QTensor]) -> QTensor:
 
 def fuse_layer_weights(layers: dict, cfg=None) -> dict:
     """Replace (wq, wk, wv) -> wqkv and (ffn_gate, ffn_up) -> ffn_gateup when
-    fuseable; the unfused originals are dropped."""
+    fuseable; the unfused originals are dropped. A GGUF-combined [gate; up]
+    (one ffn_up of 2 x n_ff rows: phi3, chatglm, plamo3) that is K-major with
+    n_ff a multiple of 256 is, byte for byte, concat_kmajor of its halves
+    (each fills its own 256-padded column range): it is renamed ffn_gateup,
+    so that the layer kernel takes it. That is the port's own route: the JAX
+    loader keeps it as ffn_up, which its layer-kernel gate does not take
+    (layer_kernel.py:411)."""
     out = dict(layers)
     qkv = [layers.get(k) for k in ("wq", "wk", "wv")]
     if can_fuse(qkv):
@@ -54,4 +60,8 @@ def fuse_layer_weights(layers: dict, cfg=None) -> dict:
         out["ffn_gateup"] = concat_kmajor(gu)
         for k in ("ffn_gate", "ffn_up"):
             del out[k]
+    up = layers.get("ffn_up")
+    if (cfg is not None and cfg.ffn_gate and "ffn_gate" not in layers and up is not None
+            and up.layout == "kmajor" and up.n_out == 2 * cfg.n_ff and cfg.n_ff % 256 == 0):
+        out["ffn_gateup"] = out.pop("ffn_up")
     return out

@@ -19,7 +19,11 @@ output norm's too), falcon-40B's attn_norm_2, the output projection's bias
 and the dense FFN's gate, up and down biases (loader.py:25, 35, 64, 189-215),
 mpt's flat q/k norm biases (loader.py:37-38), the learned position table
 and bloom's embedding layernorm (loader.py:218-221, all f32); glm4moe's
-post_attention_norm becomes its ffn_norm (loader.py:410-414). An MLA
+post_attention_norm becomes its ffn_norm (loader.py:410-414), plamo3's
+bare post-norm names load as the post-norms, and step35's per-head
+attention gate as wqkv_gate (loader.py:86-87, 137). A GGUF-combined
+[gate; up] (phi3, chatglm, plamo3) stays ffn_up, or becomes ffn_gateup
+where it is the fused layout already (ops/fuse.py). An MLA
 config (kv_lora_rank) also reads its attention's tensors (loader.py:41-48):
 wq or wq_a/q_a_norm/wq_b, wkv_a and kv_a_norm, and the absorption banks
 wk_b and wv_b as dense f32, split from a legacy attn_kv_b where the file
@@ -74,6 +78,11 @@ LAYER_TENSORS = {
     "ffn_down.bias": "ffn_down_b",
     "post_attention_norm.weight": "post_attn_norm",
     "post_ffw_norm.weight": "post_ffn_norm",
+    # plamo3 writes its sandwich norms without the .weight suffix (loader.py:86-87)
+    "post_attention_norm": "post_attn_norm",
+    "post_ffw_norm": "post_ffn_norm",
+    # step35's per-head attention output gate (loader.py:137)
+    "attn_gate.weight": "wqkv_gate",
     # routed experts (loader.py:91-94); the router is F32 in real GGUFs and
     # takes the dense layout
     "ffn_gate_inp.weight": "moe_gate_inp",

@@ -37,7 +37,7 @@ from ..gguf.constants import GGMLType
 from ..models.config import ModelConfig
 from ..models.registry import apply_arch_defaults
 from ..ops._cuda import resolve_device
-from ..ops.fuse import pad256
+from ..ops.fuse import fuse_layer_weights, pad256
 from ..ops.qtensor import QTensor
 from ..quant.kmajor import KM_SPECS, dstore_for
 from ..tokenizer.tokenizer import _BYTE_ENC
@@ -52,7 +52,7 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
                           exact_vocab: bool = False, head_dim: int | None = None,
                           tied: bool = False, cfg_fields: dict | None = None,
                           generator: torch.Generator | None = None, n_ctx: int = 0,
-                          tok_norm: bool = False):
+                          tok_norm: bool = False, gguf_layout: bool = False):
     """-> (ModelConfig, params) with every tensor on ``device``. Each weight
     is drawn on the host, moved to the device and released before the next,
     so host memory holds one weight at a time.
@@ -110,7 +110,16 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     ``generator`` (a torch.Generator on ``device``) draws every Q4_K
     weight there with random_kmajor, the centred recipe, so no host array
     holds it: a 35B model's 21.9 GB take seconds there, against ~45 s from
-    numpy. The norms and biases still come from ``seed``'s numpy stream."""
+    numpy. The norms and biases still come from ``seed``'s numpy stream.
+
+    ``gguf_layout=True`` lays out the attention and the gated FFN as a
+    phi3 file holds them: the fused attn_qkv as ``wqkv_cat`` (one padded
+    range of n_head + 2 n_head_kv heads) and the combined [gate; up] as one
+    ``ffn_up`` of 2 x n_ff rows, drawn where wqkv and ffn_gateup would be
+    (the same draws where every part is a multiple of 256 wide), then
+    passed through the loader's fuse step (ops/fuse.py:fuse_layer_weights),
+    which renames the combined ffn_up ffn_gateup where n_ff is a multiple
+    of 256."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     head_dim = head_dim or n_embd // n_head
@@ -163,12 +172,17 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         "layers": {
             "attn_norm": ones(n_layer, n_embd),
             "ffn_norm": ones(n_layer, n_embd),
-            "wqkv": qt([nq, nkv, nkv], n_embd, L),
+            "wqkv": (qt([nq + 2 * nkv], n_embd, L, n_out=nq + 2 * nkv) if gguf_layout
+                     else qt([nq, nkv, nkv], n_embd, L)),
             "wo": qt([n_embd], nq, L),
         },
     }
+    if gguf_layout:
+        params["layers"]["wqkv_cat"] = params["layers"].pop("wqkv")
     if dense_ffn:
-        if cfg.ffn_gate:
+        if cfg.ffn_gate and gguf_layout:
+            params["layers"]["ffn_up"] = qt([2 * n_ff], n_embd, L, n_out=2 * n_ff)
+        elif cfg.ffn_gate:
             params["layers"]["ffn_gateup"] = qt([n_ff, n_ff], n_embd, L)
         else:
             params["layers"]["ffn_up"] = qt([n_ff], n_embd, L, n_out=n_ff)
@@ -206,6 +220,8 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
         params["tok_norm"] = 1.0 + normal(n_embd, 0.1, ())
         if cfg.attn_bias:
             params["tok_norm_b"] = normal(n_embd, 0.1, ())
+    if gguf_layout:
+        params["layers"] = fuse_layer_weights(params["layers"], cfg)
     return cfg, params
 
 

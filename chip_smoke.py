@@ -202,11 +202,11 @@ pass):
    one head of 576/512), the einsum MLA attention at the server's step
    beside SDPA, and the expert loop's ms a MoE layer (the expert down
    planar Q8_0 at K 1408: no K-major tile, so no skip or F); the slice
-   with 8 greedy steps (graph, then eager: the same tokens and launches;
+   with 4 greedy steps (graph, then eager: the same tokens and launches;
    A, B and the store launched, C, D, E, F and the skip not), its decode
    profile (3463 A and 27 store launches a step) and a prefill profile;
    its server (4 slots of 4096, int8 KV): token-id completions of
-   2000/700/300/40 tokens, 8 new each, every request 200, and a decode
+   480/200/80/40 tokens, 4 new each, every request 200, and a decode
    chunk profiled;
 17. the combined [gate; up] and the per-layer SWA array at full width,
    DeepSeek freed first: Phi-4 (arch phi3: the fused attn_qkv and the
@@ -223,11 +223,31 @@ pass):
    D, E and the store once a layer a decode step), its decode profile as
    graph replays and eagerly, and a prefill profile; its server (4 slots
    of 8192, int8 KV): token-id completions of 6000/2000/700/40 tokens,
-   every request 200, D launched, and a decode chunk profiled.
+   every request 200, D launched, and a decode chunk profiled;
+18. attention sinks, gpt-oss's clamped SwiGLU with the experts' and the
+   router's biases, planar MXFP4 and kernel E at head dim 64 at full
+   width, Phi-4 freed first: gpt-oss-20b (24 layers, 2880 wide, 64/8 heads
+   of 64, 32 MXFP4 experts of 2880 top-4 with their biases, planar at K
+   2880 as q/k/v, the embedding and the 201088-row lm_head are in Q8_0,
+   wo K-major; per-head sinks; the SWA array 1, 0, 1, ... with a window
+   of 128; YaRN x32) with 1 layer against the CPU as phase 3 (E in the
+   decode step); kernel rows on its weights and heads (A and B on wo, E
+   at head dim 64 with sinks at the q8 server's, the ring server's and
+   the engine's steps beside SDPA with the sink as one more key, the store
+   at 8 kv heads of 64, the planar expert loop a MoE layer and the planar
+   lm_head); the 24-layer slice with E on and 8 greedy steps (graph, then
+   eager; A, B, E and the store launched, C, D, F and the skip not; every
+   prefill attention call on the einsum path, as sinks keep C off, every
+   decode call on E), its decode profile (A, E and the store once a layer
+   a step) with the loop's and the lm_head's share of the step, and a
+   prefill profile; its bf16 iSWA-ring server and its q8 server (4 slots
+   of 4096, a BPE tokenizer of pre-type gpt-4o), each answering token-id
+   completions of 480/200/80/40 tokens and a ~200-token text.
 Weights are random, drawn from fixed seeds
-(tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True:
-bench.py's generator, with each Q4_K group centred like trained weights so
-activations stay in range through 32 layers and greedy tokens vary;
+(tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True, each
+Q4_K group centred like trained weights so activations stay in range
+through 32 layers and greedy tokens vary, every weight drawn on the card
+with a torch.Generator, in seconds where numpy took ~12 s a model;
 synth_mixtral_q4k adds Mixtral's F32 router and Q4_K experts, drawn on the
 card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
 q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
@@ -235,7 +255,7 @@ tied lm_head, Command-R and StarCoder2 with their layernorms, biases and
 blocks, StarCoder-15B and BLOOM-7b1 with their position table, ALiBi and
 embedding norm, the Qwen MoE models and ERNIE synth_moe_q4k's, and
 DeepSeek-V2-Lite synth_mla_q4k's, drawn on the card, Phi-4 with
-gguf_layout). The last
+gguf_layout, gpt-oss-20b synth_gptoss's, drawn on the card). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
@@ -243,7 +263,7 @@ slice and server, the Gemma-2-9B slice, server and ring server, the
 Gemma-7B-width run, the Command-R 35B slice and server, the StarCoder-15B
 slice and server, the BLOOM-7b1-width run, the ERNIE-4.5-21B-A3B slice and
 server, the DeepSeek-V2-Lite slice and server, the Phi-4 slice and
-server), the card's name
+server, the gpt-oss-20b slice and servers), the card's name
 and power limit, and the result line.
 """
 import dataclasses
@@ -1157,7 +1177,8 @@ def decode_operands(torch, g, B, T, Hq, Hk, S, hd, slots, q8, vf=None):
 
 
 def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV),
-               path="8B server", hd=HD, softcap=0.0, window=0, ring=0, alibi=0.0):
+               path="8B server", hd=HD, softcap=0.0, window=0, ring=0, alibi=0.0,
+               sinks=False):
     """One row of kernel E at ``heads`` (Llama-3-8B's 32/8 of 128 unless
     given; T = 1), head dim ``hd``, a softcap and a window where given, over
     an S-slot view, row b's query at slots[b] with keys from vf[b]: against
@@ -1183,7 +1204,11 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     700 W, and its compiles cost the script ~20 s, so it is left out here); the
     kernel is also timed on the same inputs without the slopes, and the
     bound counts the term's FMA a visible (query head, key) pair at the f32
-    rate."""
+    rate. With ``sinks`` each head's sink logit (N(0, 4), gpt-oss's) joins
+    every row's softmax in the kernel, the plain version and the einsum
+    path; the library call is SDPA over the bf16 views with one zero key and
+    value row more, whose score the float mask sets to the sink (rounded to
+    bf16 there), held against the plain version within 1e-3."""
     from tpullm_torch.models.config import ModelConfig
     from tpullm_torch.models.llama import dequant_view
     from tpullm_torch.ops.flash_attention import masked_attention
@@ -1199,6 +1224,8 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
     q, k, v, ks, vs, qs, pos, vft = decode_operands(torch, g, B, 1, H, HKV, S, HD, slots, q8,
                                                     vf)
     rk = {"ring": ring} if ring else {}  # a checkout without the ring takes the rest
+    sk = torch.randn(H, generator=g, device="cuda") * 2.0 if sinks else None
+    skw = {"sinks": sk} if sinks else {}
     ak = {}  # and one without ALiBi the rest
     if alibi:
         from tpullm_torch.ops.flash_attention import alibi_of
@@ -1206,9 +1233,9 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
         cfg = dataclasses.replace(cfg, use_rope=False, alibi_max_bias=alibi)
         ak["slopes"] = alibi_of(cfg, "cuda")
     run = lambda: flash_decode(q, k, v, qs, pos, vft, cfg, window, k_scales=ks, v_scales=vs,
-                               **rk)
+                               **rk, **skw)
     plain = lambda: flash_decode_plain(q, k, v, qs, pos, vft, scale, softcap, window, False,
-                                       None, ks, vs, **rk, **ak)
+                                       sk, ks, vs, **rk, **ak)
     got, again, want = run(), run(), plain()
     torch.cuda.synchronize()
     err = nmse(torch, got, want)
@@ -1261,17 +1288,30 @@ def decode_row(torch, timer, entries, g, where, S, slots, vf, q8, heads=(H, HKV)
         lib_err = nmse(torch, call().transpose(1, 2), want)
         if not lib_err < TOL_DECODE_NMSE:
             raise AssertionError(f"flex_attention: nmse {lib_err} against the plain version")
+    elif sinks:  # the sink as one more key: a zero K/V row whose score the mask sets
+        zero = torch.zeros((B, HKV, 1, HD), dtype=torch.bfloat16, device="cuda")
+        kz, vz = torch.cat([kd, zero], 2), torch.cat([vd, zero], 2)
+        fm = torch.zeros(mask.shape, device="cuda").masked_fill(~mask, -math.inf)
+        fm = torch.cat([fm.expand(B, H, 1, S), sk[None, :, None, None].expand(B, H, 1, 1)],
+                       -1).to(torch.bfloat16)
+        library, call = "SDPA_sink_key", lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kz, vz, attn_mask=fm, enable_gqa=True)
+        lib_err = nmse(torch, call().transpose(1, 2), want)
+        if not lib_err < 1e-3:
+            raise AssertionError(f"SDPA with the sink key: nmse {lib_err} against the plain "
+                                 "version")
     else:
         library, call = "SDPA", lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kd, vd, attn_mask=mask, enable_gqa=True)
     lms = lib[library] if alibi else timer(call, 20)
     ems = timer(lambda: masked_attention(q, kd, vd, qs, kvp, pos, vft, scale, softcap, window,
-                                         **rk, **ak), 10)
+                                         **rk, **ak, **skw), 10)
     label = (f"flash_decode[{'int8' if q8 else 'bf16'},{where},B={B},H={H},Hkv={HKV},T=1,"
              f"S={S},D={HD},slots {'/'.join(map(str, slots))},valid_from "
              f"{'/'.join(map(str, vft.tolist()))}"
              + (f",softcap={softcap:g}" if softcap else "") + (f",alibi={alibi:g}" if alibi else "")
-             + (f",window={window}" if window else "") + (f",ring={ring}" if ring else "") + "]")
+             + (f",window={window}" if window else "") + (f",ring={ring}" if ring else "")
+             + (",sinks" if sinks else "") + "]")
     log(f"kernel {label}: nmse {err:.3e} (tol {TOL_DECODE_NMSE:g}) repeat identical {same} "
         f"max_abs_err {mae:.4g} ms {ms:.4f} plain_ms {pms:.4f} library_ms {lms:.4f} "
         f"({library}, bf16 views) einsum_ms {ems:.4f} bound_ms {bound:.5f} ({by}; {rows} "
@@ -1505,7 +1545,8 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
     from tpullm_torch.ops import _cuda
     from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
 
-    spec = dict(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H, n_head_kv=HKV, n_ff=N_FF)
+    spec = dict(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H, n_head_kv=HKV, n_ff=N_FF,
+                generator=torch.Generator(device="cuda").manual_seed(seed))
     spec.update(model)
     vocab = spec["vocab_size"]
     t0 = time.perf_counter()
@@ -1608,7 +1649,8 @@ def phase_server_parity(torch):
 
     cfg, params = synth_kmajor_q4k_fast(vocab_size=VOCAB, n_embd=D, n_layer=2, n_head=H,
                                         n_head_kv=HKV, n_ff=N_FF, seed=8, centred=True,
-                                        device="cuda")
+                                        device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(8))
     cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(5)
     lens = [700, 300, 100, 40]
@@ -2368,8 +2410,10 @@ def phase_server(torch, cfg, params):
     on the idle server (both land in slot 0; the second prompt extends the
     first's prompt and completion and must reuse it), with A-E and the
     store kernel all launched. Then the same burst with the variable unset
-    (the einsum path over dequantized views), and each way the decode chunk
-    profile, graph and eager (server_chunk_profile). The server carries a
+    (the einsum path over dequantized views), and each way one decode chunk
+    as graph replays against eager steps and its profile as graph replays
+    (server_chunk_profile; the eager chunks' profiles, ~20 s of the
+    profiler's host work, left out for the script's time). The server carries a
     byte-level BPE tokenizer at Llama-3's layout (synth_bpe_vocab(VOCAB)):
     the token-id requests send ignore_eos, and between the bursts and the
     profiles, with E on, the text and chat part runs (phase_server_chat).
@@ -2460,7 +2504,7 @@ def phase_server(torch, cfg, params):
         secs["text_and_chat"] = time.perf_counter() - t0 - sum(secs.values())
         ctx.stop()  # the loop thread; the chunk profiles drive its body from here
         clear_slots()
-        profs = server_chunk_profile(torch, ctx, prompts, modes)
+        profs = server_chunk_profile(torch, ctx, prompts, modes, ("graph",))
         secs["chunk_profiles"] = time.perf_counter() - t0 - sum(secs.values())
         report["lone_prefill_profile"] = profs.pop("lone_prefill")
         report["seconds"] = secs
@@ -2635,7 +2679,8 @@ def phase_qwen(torch):
                              f"{c['layer_kernel']} (the bias archs take no kernel D)")
     log(f"phase parity Qwen2.5-7B width: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    cfg, params = synth_kmajor_q4k_fast(**QWEN3, seed=0, centred=True, device="cuda")
+    cfg, params = synth_kmajor_q4k_fast(**QWEN3, seed=0, centred=True, device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     log(f"slice Qwen3-8B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
         f"{time.perf_counter() - t:.3f} s; config {cfg.arch} rope {cfg.rope_type} "
@@ -3034,9 +3079,9 @@ def route_counter(routes: dict, key):
 
     real = llama.attention_route
 
-    def counted(*a):
-        r = real(*a)
-        k = key(a, r)
+    def counted(*a, **kw):
+        r = real(*a, **kw)
+        k = key(a + tuple(kw.values()), r)
         if k is not None:
             routes[k] = routes.get(k, 0) + 1
         return r
@@ -3089,7 +3134,8 @@ def phase_gemma(torch, entries):
     phase_gemma_kernels(torch, entries)
     log(f"phase kernels Gemma: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    cfg, params = synth_kmajor_q4k_fast(**GEMMA2, seed=0, centred=True, device="cuda")
+    cfg, params = synth_kmajor_q4k_fast(**GEMMA2, seed=0, centred=True, device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     log(f"slice Gemma-2-9B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
         f"{time.perf_counter() - t:.3f} s; config {cfg.arch} head_dim {cfg.head_dim} act "
@@ -3201,6 +3247,7 @@ def phase_ring_parity(torch, label, spec, n_layer, fields, seed, lens=RING_PARIT
     from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
 
     sp = dict(spec, n_layer=n_layer, cfg_fields=fields)
+    sp.setdefault("generator", torch.Generator(device="cuda").manual_seed(seed))
     cfg, params = synth_kmajor_q4k_fast(**sp, seed=seed, centred=True, device="cuda")
     cpu = plain_cpu_copy(torch, params)
     rng = np.random.default_rng(5)
@@ -3935,12 +3982,16 @@ DEEPSEEK = dict(arch="deepseek2", vocab_size=102400, n_embd=2048, n_layer=27, n_
                 n_expert_shared=2, n_dense_lead=1, rope_base=1e4, rms_eps=1e-6,
                 cfg_fields=dict(n_ctx_train=163840, rope_scaling="yarn", rope_scale=40.0,
                                 rope_orig_ctx=4096, rope_yarn_log_mul=0.707))
-DS_SERVER_PROMPTS = [2000, 700, 300, 40]  # the DeepSeek burst: 4 requests on 4 slots
+# the DeepSeek burst, 4 requests on 4 slots: under 512 tokens of depth, so
+# that the server captures one decode graph (the view bucket's least), as
+# each capture of its ~43000-kernel step takes ~4.6 s on an H100 80GB HBM3
+# at 700 W
+DS_SERVER_PROMPTS = [480, 200, 80, 40]
 # greedy steps of its slice (one decode chunk) and tokens of its server's
-# requests, cut from 32 and 64, then 16, for the script's time limit: the
-# expert loop's step takes ~160 ms as a graph replay and ~1.0-1.3 s eagerly
-# on an H100 80GB HBM3 at 700 W
-DS_NEW = 8
+# requests, cut from 32 and 64, then 16 and 8, for the script's time limit:
+# the expert loop's step takes ~160 ms as a graph replay and ~1.0-1.3 s
+# eagerly on an H100 80GB HBM3 at 700 W
+DS_NEW = 4
 # the kernels of the MLA path, and those off it: MLA attention takes the
 # einsum path (its own scale; Dk 576 != Dv 512), D's gate refuses MLA, and
 # the expert down at K 1408 (planar Q8_0) sends the experts to the loop
@@ -4218,21 +4269,26 @@ def mla_attention_row(torch, timer, cfg, g, slots, S=4096):
 
 def moe_loop_row(torch, timer, cfg, lay, li, g, B, T):
     """One MoE layer's FFN (models/llama.py:moe_ffn) of the MLA model on the
-    card, x (B, T, 2048): the loop route (every expert on every row; gate/up
+    card, x (B, T, n_embd): the loop route (every expert on every row; gate/up
     through kernel A or B, the planar Q8_0 down dequantized whole and
     multiplied, as the expert down at K 1408 has no K-major tile), the router
-    and the shared expert. Timed as its path runs it: a decode call (B*T <=
+    and the shared expert where the layer has one (gpt-oss-20b's: no shared
+    expert; its planar MXFP4 experts with their biases and the router's bias,
+    all of layer li of ``lay``). Timed as its path runs it: a decode call (B*T <=
     16) as a CUDA graph replay, as the decode steps take it, beside the same
     call eagerly; a prefill call eagerly. The bound counts the weights the
     rows' selected experts and the shared expert need, read once. -> ms (the
     graph replay's at decode)."""
     from tpullm_torch.models.llama import moe_ffn, moe_route
 
+    from tpullm_torch.models.llama import MOE_BIAS_KEYS
+
     qw = {k: v for k, v in lay.items() if hasattr(v, "qtype")}
+    bias = {k: lay[k][li] for k in MOE_BIAS_KEYS if k in lay}
     x = torch.randn((B, T, cfg.n_embd), generator=g, device="cuda").to(torch.bfloat16)
     route = moe_route(True, B * T, qw["moe_gate_exps"], qw["moe_up_exps"], qw["moe_down_exps"],
-                      cfg.n_embd, cfg.n_expert_used)
-    run = lambda: moe_ffn(x, qw, li, cfg, torch.bfloat16)
+                      cfg.n_embd, cfg.n_expert_used, any(k != "moe_gate_inp_b" for k in bias))
+    run = lambda: moe_ffn(x, qw, li, cfg, torch.bfloat16, bias=bias)
     ms = eager_ms = timer(run, 5 if B * T <= 16 else 2, warmup=1)
     if B * T <= 16:
         side = torch.cuda.Stream()
@@ -4248,17 +4304,21 @@ def moe_loop_row(torch, timer, cfg, lay, li, g, B, T):
     per_e = sum(weight_bytes(qw[k]) for k in ("moe_gate_exps", "moe_up_exps", "moe_down_exps"))
     per_e /= qw["moe_gate_exps"].shape[0] * cfg.n_expert
     n_sel = min(cfg.n_expert, B * T * cfg.n_expert_used)
-    sh = sum(weight_bytes(qw[k]) for k in ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"))
-    sh /= qw["ffn_gate_shexp"].shape[0]
+    shk = ("ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp")
+    sh = sum(weight_bytes(qw[k]) for k in shk if k in qw)
+    sh_ff = 0
+    if "ffn_gate_shexp" in qw:
+        sh /= qw["ffn_gate_shexp"].shape[0]
+        sh_ff = qw["ffn_gate_shexp"].shape[-2]
     bound, by = bound_of(n_sel * per_e + sh, 2.0 * 3 * B * T * cfg.n_embd * (
-        cfg.n_expert_used * cfg.n_ff_exp + qw["ffn_gate_shexp"].shape[-2]))
+        cfg.n_expert_used * cfg.n_ff_exp + sh_ff))
     log(f"moe layer[{route},B={B},T={T},E={cfg.n_expert},top-{cfg.n_expert_used},"
         f"{cfg.n_ff_exp}x{cfg.n_embd},down {qw['moe_down_exps'].qtype.name} "
         f"{qw['moe_down_exps'].layout}]: ms {ms:.3f}"
         + (f" (a graph replay; eagerly {eager_ms:.3f})" if B * T <= 16 else " (eagerly)")
         + f" bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.4f}")
     if route != "loop":
-        raise AssertionError(f"MoE layer of the MLA model at B*T={B * T}: route {route}")
+        raise AssertionError(f"MoE layer of {cfg.arch} at B*T={B * T}: route {route}")
     return ms
 
 
@@ -4267,7 +4327,7 @@ def phase_deepseek_kernels(torch, entries, cfg, params):
     weights (its last layer): kernels A (M = 4) and B (M = 2048) on the MLA
     projections wq (3072 x 2048), wkv_a (576 x 2048) and wo (2048 x 2048),
     Q4_K; the store at one kv head of 576/512 (the server's int8 decode step
-    at slots 2000/700/300/40 of 4096 and a 512-row chunk, the engine's bf16
+    at slots 480/200/80/40 of 4096 and a 512-row chunk, the engine's bf16
     step); the einsum MLA attention at the server's step, with SDPA beside
     it; the loop route's ms a MoE layer at M = 4 and at the 4 x 512 prefill.
     -> {"decode": ms, "prefill": ms} of a MoE layer."""
@@ -4320,7 +4380,7 @@ def phase_deepseek(torch, entries):
     shared expert's a MoE layer, the lm_head; the store once a layer), with
     the loop's share of the step, and a prefill profile; (d) its server
     (phase_q8_server: 4 slots of 4096, int8 KV, token ids, a burst of
-    2000/700/300/40 tokens, a decode chunk profiled). -> launch counts by
+    480/200/80/40 tokens, a decode chunk profiled). -> launch counts by
     path."""
     counts = {}
     label = "DeepSeek-V2-Lite"
@@ -4360,7 +4420,7 @@ def phase_deepseek(torch, entries):
     del eager
     gc.collect()
     torch.cuda.empty_cache()
-    out = phase_decode(torch, eng, prompts, f" {label} graph", profiled_steps=1)
+    out = phase_decode(torch, eng, prompts, f" {label} graph", profiled_steps=1, steps=8)
     step = out["graph_capture_counts_per_step"] or {}
     n_dense, n_moe = cfg.n_layer_dense_lead, cfg.n_layer - cfg.n_layer_dense_lead
     want = {"qmm_splitk": 3 * cfg.n_layer + n_dense + n_moe * (2 * cfg.n_expert + 2) + 1,
@@ -4552,6 +4612,430 @@ def phase_phi4(torch, entries):
     return counts
 
 
+# gpt-oss-20b (openai/gpt-oss-20b config.json; the GGUF's arch gpt-oss):
+# hidden 2880, 24 layers, 64/8 heads of 64 (a GQA group of 8), 32 experts of
+# 2880, top-4, vocab 201088, an untied lm_head, a sliding window of 128 on
+# every other layer (llama.cpp sets that pattern in code for this arch; here
+# the per-layer array 1, 0, 1, 0, ... as a file's key would give it),
+# rope_theta 150000 with YaRN x32 over an original context of 4096, rms
+# 1e-5, q/k/v/o biases, per-head sinks, the experts' and the router's
+# biases, swiglu_oai; expert_weights_norm, the softmax over the selected
+# logits of llama.cpp's routing. K 2880 has no K-major tile, so the experts
+# (MXFP4), q/k/v, the embedding and the lm_head (Q8_0) load planar; wo (K
+# 4096) K-major Q8_0
+GPTOSS = dict(vocab_size=201088, n_embd=2880, n_layer=24, n_head=64, n_head_kv=8, head_dim=64,
+              n_expert=32, n_expert_used=4, n_ff_exp=2880, sliding_window=128,
+              swa_layer_pattern=(1, 0) * 12, rope_base=150000.0, rms_eps=1e-5,
+              cfg_fields=dict(rope_scaling="yarn", rope_scale=32.0, rope_orig_ctx=4096,
+                              n_ctx_train=131072, expert_weights_norm=True))
+# each server's burst, 4 requests on 4 slots: short, as each 512-row chunk
+# takes ~2.5 s through the planar expert loop and each capture of a decode
+# step (~60000 kernels) ~9 s on an H100 80GB HBM3 at 700 W; under 512
+# tokens of depth with the text request, so one view bucket, one capture
+GPTOSS_SERVER_PROMPTS = [480, 200, 80, 40]
+GPTOSS_CTX = 4096  # each server's slots
+# tokens a request, and the slice's (one decode chunk): the planar expert
+# loop makes a step slow, as DeepSeek-V2-Lite's (DS_NEW)
+GPTOSS_NEW = 8
+GPTOSS_TEXT_TOKENS = 200  # each server's text request
+# A on wo and B on its prefill, E at head dim 64 with sinks, the store; C
+# (sinks), D (experts), F and the skip (a biased planar stack) off the path
+GPTOSS_KERNELS = ("qmm_splitk", "qmm", "flash_decode", "kv_store")
+GPTOSS_OFF = ("flash_attention", "layer_kernel", "moe_gmm", "qmm_experts")
+
+
+def synth_gptoss_on_card(torch, n_layer=None, seed=0):
+    """synth_gptoss of gpt-oss-20b on the card, cut to ``n_layer`` layers
+    (the SWA array cut with it)."""
+    from tpullm_torch.utils.synth import synth_gptoss
+
+    spec = dict(GPTOSS)
+    if n_layer is not None:
+        spec.update(n_layer=n_layer, swa_layer_pattern=spec["swa_layer_pattern"][:n_layer])
+    cfg, params = synth_gptoss(**spec, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def phase_gptoss_parity(torch, label, seed):
+    """Phase 18a: gpt-oss-20b at full width cut to one layer (its SWA
+    layer: window 128), kernels on the card against the plain path on a CPU
+    copy in f32, teacher-forced with the card's greedy picks: a prefill of 2
+    prompts of 200 and 150 tokens (past the window; left-padded; the lm_head
+    at the last position alone) and one decode step with
+    TPULLM_FLASH_DECODE=1 over a 256-slot bf16 cache (the CPU sides f32 and
+    bf16). Tolerance: phase 3's rule, 4x the NMSE of the same plain path in
+    bf16. A (wo's decode product), B (its prefill product), E (head dim 64,
+    the sinks, the window) and the store must launch; C, D, F and the skip
+    must not. -> the card's launch counts."""
+    import numpy as np
+
+    from tpullm_torch.models.llama import KVCache, forward
+    from tpullm_torch.ops import _cuda
+
+    cfg, params = synth_gptoss_on_card(torch, 1, seed)
+    cpu = plain_cpu_copy(torch, params)
+    rng = np.random.default_rng(5)
+    lens, S = (200, 150), 256
+    B, T = len(lens), max(lens)
+    tok = np.zeros((B, T), np.int64)
+    posn = np.zeros((B, T), np.int64)
+    for b, n in enumerate(lens):
+        tok[b, T - n:] = rng.integers(0, cfg.vocab_size, n)
+        posn[b, T - n:] = np.arange(n)
+    vf = np.asarray([T - n for n in lens], np.int64)
+    sides = {}
+    for name, dev, dtype in (("card", "cuda", torch.bfloat16), ("cpu", "cpu", torch.float32),
+                             ("cpu_bf16", "cpu", torch.bfloat16)):
+        sides[name] = dict(p=params if dev == "cuda" else cpu, dev=dev, dtype=dtype,
+                           cache=KVCache.create(cfg, B, S, dtype, dev),
+                           vf=torch.from_numpy(vf).to(dev))
+    errs, ref_errs, agree = [], [], []
+    cur_tok, cur_pos = torch.from_numpy(tok), torch.from_numpy(posn)
+    slot, T_step = 0, T
+    _cuda.reset_counts()
+    set_flash_decode("1")
+    try:
+        with torch.inference_mode():
+            for step in range(2):
+                out = {}
+                for name, sd in sides.items():
+                    dev = sd["dev"]
+                    t0 = time.perf_counter()
+                    lg, _ = forward(sd["p"], cfg, cur_tok.to(dev), cur_pos.to(dev), sd["cache"],
+                                    slot, sd["vf"], sd["dtype"],
+                                    kv_view_len=None if step == 0 else S, logits_idx=T_step - 1)
+                    out[name] = lg[:, -1].float().cpu()
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    sd.setdefault("sec", []).append(time.perf_counter() - t0)
+                errs.append(nmse(torch, out["card"], out["cpu"]))
+                ref_errs.append(nmse(torch, out["cpu_bf16"], out["cpu"]))
+                agree.append((out["card"].argmax(-1) == out["cpu"].argmax(-1)).tolist())
+                nxt = out["card"].argmax(-1)
+                slot += T_step
+                T_step = 1
+                cur_tok = nxt[:, None].to(torch.int64)
+                cur_pos = torch.tensor([[n + step] for n in lens], dtype=torch.int64)
+    finally:
+        set_flash_decode(None)
+    counts = dict(_cuda.COUNTS)
+    tol = TOL_E2E_FACTOR * max(ref_errs)
+    log(f"parity 1-layer {label} (its SWA layer, window {cfg.sliding_window}; prefill T={T}, "
+        f"prompts {list(lens)}, S={S} + 1 decode step, E on): card vs CPU f32 logits nmse per "
+        f"step {[f'{e:.3e}' for e in errs]}; CPU bf16 vs CPU f32 "
+        f"{[f'{e:.3e}' for e in ref_errs]}; tol {tol:.3e} ({TOL_E2E_FACTOR:g}x the largest); "
+        f"greedy agree {agree}; card s {[round(x, 3) for x in sides['card']['sec']]} cpu f32 s "
+        f"{[round(x, 2) for x in sides['cpu']['sec']]} cpu bf16 s "
+        f"{[round(x, 2) for x in sides['cpu_bf16']['sec']]}; launches {counts}")
+    if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
+        raise AssertionError(f"{label} parity: nmse {errs}, tolerance {tol}")
+    missing = [k for k in GPTOSS_KERNELS if counts[k] <= 0]
+    extra = [k for k in GPTOSS_OFF if counts[k]]
+    if missing or extra:
+        raise AssertionError(f"{label} parity: kernels not launched {missing}, launched but "
+                             f"off the gpt-oss path {extra}")
+    _cuda.reset_counts()
+    del params, cpu, sides
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def planar_lm_head_row(torch, timer, cfg, params, g, M=4):
+    """The planar Q8_0 lm_head's product at the decode step (no kernel: K
+    2880 has no K-major tile, so models/llama.py:forward's qmm dequantizes
+    the whole 201088 x 2880 weight and multiplies in f32), as a CUDA graph
+    replay as the decode steps take it, beside the bound: the weight's
+    bytes read once. -> ms."""
+    from tpullm_torch.ops.qmm import qmm
+
+    out = params["output"]
+    x = torch.randn((M, 1, cfg.n_embd), generator=g, device="cuda").to(torch.bfloat16)
+    run = lambda: qmm(x, out, torch.bfloat16)
+    eager_ms = timer(run, 3, warmup=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    ms = timer(graph.replay, 5, warmup=1)
+    del graph
+    bound, by = bound_of(weight_bytes(out) + M * cfg.n_embd * 2 + M * cfg.vocab_size * 2,
+                         2.0 * M * cfg.vocab_size * cfg.n_embd)
+    log(f"planar lm_head[{out.qtype.name} {out.layout} {cfg.vocab_size}x{cfg.n_embd},M={M}]: "
+        f"ms {ms:.3f} (a graph replay; eagerly {eager_ms:.3f}) bound_ms {bound:.4f} ({by}) "
+        f"share_of_bound {bound / ms:.4f}")
+    if out.layout != "planar":
+        raise AssertionError(f"gpt-oss lm_head layout {out.layout}")
+    return ms
+
+
+def phase_gptoss_kernels(torch, entries, cfg, params):
+    """Phase 18b's rows, on the 24-layer gpt-oss-20b model's own weights
+    (its last layer) and heads: kernels A (M = 4) and B (M = 2048) on wo
+    (2880 x 4096, Q8_0 K-major); kernel E at head dim 64 with sinks (64/8
+    heads) at the q8 server's step (int8, rows at 480/200/80/40 of 4096),
+    the ring server's (bf16, a 640-slot ring, window 128, the same
+    positions) and the engine slice's (bf16, 4 rows at slot 540 of 1024);
+    the store at 8 kv heads of 64 (the q8 server's step and a 512-row chunk,
+    the engine's bf16 step); the no-kernel rows: the planar expert loop's
+    ms a MoE layer (graph at M = 4, eager at 4 x 512) and the planar
+    lm_head's at M = 4. -> {"decode": ms, "prefill": ms, "lm_head": ms}."""
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.ops.qtensor import QTensor
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2424)
+    lay = params["layers"]
+    li = cfg.n_layer - 1
+    path = "gpt-oss-20b"
+    w = lay["wo"]
+    qt = QTensor(w.qtype, tuple(w.shape[1:]), {k: v[li] for k, v in w.data.items()})
+    w_bf16 = qt.dequant(torch.bfloat16)
+    K = qt.shape[-1]
+    for kname, M in (("qmm_splitk", 4), ("qmm", 2048)):
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        qmm_row(torch, timer, entries, kname,
+                f"{kname}[wo {qt.n_out}x{K},{qt.qtype.name},M={M},{path}]", x, qt, w_bf16,
+                path=path)
+    del qt, w_bf16
+    heads, hd = (cfg.n_head, cfg.n_head_kv), cfg.head_dim
+    zeros = [0] * 4
+    decode_row(torch, timer, entries, g, "gpt-oss-20b q8 server", GPTOSS_CTX,
+               GPTOSS_SERVER_PROMPTS, zeros, True, heads=heads, path=f"{path} q8 server", hd=hd,
+               sinks=True)
+    ring = cfg.sliding_window + 512
+    decode_row(torch, timer, entries, g, "gpt-oss-20b ring server", ring, GPTOSS_SERVER_PROMPTS,
+               zeros, False, heads=heads, path=f"{path} ring server", hd=hd,
+               window=cfg.sliding_window, ring=ring, sinks=True)
+    decode_row(torch, timer, entries, g, "gpt-oss-20b engine", 1024, [ENGINE_DECODE_SLOT] * 4,
+               zeros, False, heads=heads, path=path, hd=hd, sinks=True)
+    store_row(torch, timer, entries, g, "server decode", f"{path} q8 server", 1,
+              GPTOSS_SERVER_PROMPTS, 0, GPTOSS_CTX, True, heads=heads, hd=hd)
+    store_row(torch, timer, entries, g, "server prefill chunk", f"{path} q8 server", 512,
+              [1536], 2, GPTOSS_CTX, True, heads=heads, hd=hd)
+    store_row(torch, timer, entries, g, "engine decode", path, 1, [ENGINE_DECODE_SLOT] * 4, 0,
+              1024, False, heads=heads, hd=hd)
+    out = {"decode": moe_loop_row(torch, timer, cfg, lay, li, g, 4, 1),
+           "prefill": moe_loop_row(torch, timer, cfg, lay, li, g, 4, 512),
+           "lm_head": planar_lm_head_row(torch, timer, cfg, params, g)}
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+    return out
+
+
+def phase_gptoss_server(torch, cfg, params, tok, label, kv_dtype, iswa):
+    """Phase 18d: gpt-oss-20b behind serve() on a free local port:
+    ServerContext with 4 slots of GPTOSS_CTX, decode_chunk 4 (so that the
+    streamed request's 8 tokens come in two deltas at least), prefill_chunk
+    512, kernel E on, each decode step a CUDA graph replay, a byte-level BPE
+    tokenizer of pre-type gpt-4o; ``kv_dtype`` bf16 with ``iswa`` (the
+    CLI's default: the 12 SWA layers on a ring of 640 slots) or "q8" (the
+    full cache). With the launch counts set to 0: a burst of
+    GPTOSS_SERVER_PROMPTS token-id completions (server_burst's checks,
+    GPTOSS_NEW tokens each), then a text completion of ~600 tokens, whose
+    prompt_tokens must be the in-process encode's and whose text the
+    tokenizer's decode of its ids. Every attention call forward makes is
+    counted by route: prefill on the einsum path (sinks keep C off), every
+    decode call on E (the ring's too), none on C. A, B, E and the store
+    launched; C, D, F and the skip not. -> the launch counts."""
+    import numpy as np
+    import socket
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.ops import _cuda
+    from tpullm_torch.server.context import ServerContext
+    from tpullm_torch.server.http import serve
+
+    vocab = cfg.vocab_size
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in GPTOSS_SERVER_PROMPTS]
+    text = english_text(tok, GPTOSS_TEXT_TOKENS, seed=6)
+    ctx = ServerContext(cfg, params, tok, n_slots=4, max_seq_len=GPTOSS_CTX, decode_chunk=4,
+                        prefill_chunk=512, kv_dtype=kv_dtype, iswa=iswa,
+                        model_name=label.lower().replace(" ", "-"))
+    cache = ctx.memory.cache
+    if cache.dual != iswa:
+        raise AssertionError(f"server {label}: dual cache {cache.dual}, want {iswa}")
+    kv = {"kv_bytes": cache.nbytes, "ring": cache.ring,
+          "full_banks": tuple(cache.k.shape), "ring_banks": tuple(cache.kw.shape) if iswa
+          else None}
+    routes = {}
+    counted_route = route_counter(routes, lambda a, r: (
+        "ring" if len(a) > 9 and a[9] else "full", "prefill" if a[2] > 1 else "decode", r))
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = f"http://127.0.0.1:{port}"
+    set_flash_decode("1")
+    srv = serve(ctx, "127.0.0.1", port, block=False)
+    report = {"kv": kv}
+    try:
+        status, r = http_json(base + "/completion", {"prompt": prompts[-1], "max_tokens": 4,
+                                                     "temperature": 0.0})
+        if status != 200:
+            raise AssertionError(f"server {label} warm-up answered {status}: {r}")
+        ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_counts()
+        with mock.patch.object(llama, "attention_route", counted_route):
+            res, wall = server_burst(base, prompts, label, tok, vocab=vocab, new=GPTOSS_NEW)
+            t = time.perf_counter()
+            status, r = http_json(base + "/v1/completions",
+                                  {"prompt": text, "max_tokens": GPTOSS_NEW, "temperature": 0.0,
+                                   "ignore_eos": True})
+            text_wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        counts = dict(_cuda.COUNTS)
+        n_prompt = len(tok.encode(text, add_special=True, parse_special=True))
+        if status != 200:
+            raise AssertionError(f"server {label} text request answered {status}: {r}")
+        ids = r["choices"][0]["tokens"]
+        if not (r["timings"]["prompt_tokens"] == n_prompt and len(ids) == GPTOSS_NEW
+                and r["choices"][0]["text"] == visible(tok, ids)):
+            raise AssertionError(f"server {label} text request: prompt_tokens "
+                                 f"{r['timings']['prompt_tokens']} (want {n_prompt}), "
+                                 f"{len(ids)} ids, text {r['choices'][0]['text']!r}")
+        report["burst"] = {"requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
+                           "wall_s": wall}
+        report["text"] = {"prompt_tokens": n_prompt, "prefill_s": r["timings"]["prefill_s"],
+                          "decode_s": r["timings"]["decode_s"], "wall_s": text_wall,
+                          "text": r["choices"][0]["text"][:80]}
+        report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        set_flash_decode(None)
+        srv.shutdown()
+        srv.server_close()
+        ctx.stop()
+    log(f"server {label} (4 slots x {GPTOSS_CTX}, {kv_dtype if kv_dtype == 'q8' else 'bf16'} "
+        f"KV, iswa {iswa}, decode_chunk 4, prefill_chunk 512, kernel E; prompts "
+        f"{GPTOSS_SERVER_PROMPTS} then a {GPTOSS_TEXT_TOKENS}-token text, {GPTOSS_NEW} new "
+        f"tokens each): {json.dumps(report)}")
+    log(f"server {label}: attention routes of every call forward made (ring or full banks, "
+        f"prefill or decode, route) {({' '.join(k): n for k, n in routes.items()})}; "
+        f"launches {counts}")
+    missing = [k for k in GPTOSS_KERNELS if counts[k] <= 0]
+    extra = [k for k in GPTOSS_OFF if counts[k]]
+    bad = [k for k in routes if (k[1] == "decode") != (k[2] == "flash_decode")
+           or k[2] == "flash_attention"]
+    if missing or extra or bad or (iswa and not any(k[0] == "ring" for k in routes)):
+        raise AssertionError(f"server {label}: kernels not launched {missing}, launched but off "
+                             f"the gpt-oss path {extra}, routes {routes}")
+    del ctx, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gptoss(torch, entries):
+    """Phase 18, attention sinks, the clamped SwiGLU with the experts' and
+    the router's biases, planar MXFP4 and E at head dim 64 at full width
+    (gpt-oss-20b), the Phi-4 weights freed first: (a) the 1-layer parity
+    against the CPU (phase_gptoss_parity); then the 24-layer model drawn on
+    the card: (b) its kernel rows (phase_gptoss_kernels); (c) the engine
+    slice with TPULLM_FLASH_DECODE=1, GPTOSS_NEW greedy tokens (graph, then
+    eager: the same tokens and launches; A, B, E and the store launched, C,
+    D, F and the skip not; every prefill attention call on the einsum path,
+    every decode call on E), its decode-step profile as graph replays (A
+    and E and the store once a layer a step) with the planar loop's and the
+    planar lm_head's share of the step (the prefill's profile is left out
+    for the script's time: its ~63000 launches cost the profiler ~20 s; the
+    loop's row at the 4 x 512 prefill and the slice's prefill rate give the
+    loop's share of it); (d) the bf16
+    iSWA-ring server and the q8 server (phase_gptoss_server), each with a
+    synth BPE tokenizer of pre-type gpt-4o. -> launch counts by path."""
+    from unittest import mock
+
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.tokenizer import Tokenizer
+    from tpullm_torch.utils.synth import synth_bpe_vocab
+
+    counts = {}
+    label = "gpt-oss-20b"
+    t = time.perf_counter()
+    counts[f"{label} 1-layer"] = phase_gptoss_parity(torch, label, seed=43)
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_gptoss_on_card(torch, seed=0)
+    lay = params["layers"]
+    n_w = sum(math.prod(v.shape) for v in lay.values() if hasattr(v, "qtype")) + 2 * (
+        cfg.vocab_size * cfg.n_embd)
+    kinds = {k: (v.layout, v.qtype.name) if hasattr(v, "qtype") else tuple(v.shape)
+             for k, v in lay.items()}
+    log(f"slice {label}: synthesized weights {params_bytes(params) / 1e9:.3f} GB "
+        f"({n_w / 1e9:.3f} B weights) in {time.perf_counter() - t:.3f} s; config {cfg.arch} "
+        f"heads {cfg.n_head}/{cfg.n_head_kv} of {cfg.head_dim} experts {cfg.n_expert} top-"
+        f"{cfg.n_expert_used} of {cfg.n_ff_exp} act {cfg.act_fn} renorm "
+        f"{cfg.expert_weights_norm} rope {cfg.rope_type} {cfg.rope_base:g} {cfg.rope_scaling} "
+        f"x{cfg.rope_scale:g} over {cfg.rope_orig_ctx} window {cfg.sliding_window} on layers "
+        f"{[i for i, f in enumerate(cfg.swa_layer_pattern) if f]}; layer tensors "
+        f"{kinds}; "
+        f"lm_head {params['output'].layout} {params['output'].qtype.name}")
+    t = time.perf_counter()
+    rows = phase_gptoss_kernels(torch, entries, cfg, params)
+    log(f"phase kernels {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    routes = {}
+    counted_route = route_counter(routes, lambda a, r: ("prefill" if a[2] > 1 else "decode", r))
+    set_flash_decode("1")
+    try:
+        with mock.patch.object(llama, "attention_route", counted_route):
+            counts[label], eng, eager, prompts = phase_slice(
+                torch, label, cfg, params, cfg.vocab_size, GPTOSS_KERNELS, GPTOSS_OFF,
+                new=GPTOSS_NEW + 1, samples=1)
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"slice {label}: attention routes of every call (prefill or decode, route) "
+            f"{ {f'{a} {b}': n for (a, b), n in routes.items()} }")
+        if set(routes) != {("prefill", "einsum"), ("decode", "flash_decode")}:
+            raise AssertionError(f"{label} slice: attention routes {routes}")
+        out = phase_decode(torch, eng, prompts, f" {label} graph", profiled_steps=1, steps=4)
+        step = out["graph_capture_counts_per_step"] or {}
+        per_step = {"qmm_splitk": cfg.n_layer, "flash_decode": cfg.n_layer,
+                    "kv_store": cfg.n_layer}
+        if {k: step.get(k) for k in per_step} != per_step or any(step.get(k)
+                                                                  for k in GPTOSS_OFF):
+            raise AssertionError(f"{label} decode step: launches {step}, want {per_step} (A on "
+                                 "wo, E and the store once a layer)")
+    finally:
+        set_flash_decode(None)
+    step_ms = out["wall_ms_q1_median_q3"][1]
+    n_moe = cfg.n_layer
+    log(f"step {label}: planar expert loop {n_moe} MoE layers x {rows['decode']:.3f} ms (graph) "
+        f"at M = 4 = {n_moe * rows['decode']:.2f} ms of the {step_ms:.2f} ms graph decode step "
+        f"(share {n_moe * rows['decode'] / step_ms:.3f}; device busy "
+        f"{out['device_busy_ms_per_step']:.2f} ms); planar lm_head {rows['lm_head']:.3f} ms "
+        f"(share {rows['lm_head'] / step_ms:.3f}); the loop x {rows['prefill']:.2f} ms at the "
+        f"4 x 512 prefill = {n_moe * rows['prefill']:.1f} ms")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    tok = Tokenizer(synth_bpe_vocab(cfg.vocab_size, pre="gpt-4o"))
+    log(f"server {label}: synth_bpe_vocab({cfg.vocab_size}, pre='gpt-4o') and its tokenizer in "
+        f"{time.perf_counter() - t:.3f} s")
+    counts[f"{label} ring server"] = phase_gptoss_server(torch, cfg, params, tok,
+                                                         f"{label} ring", torch.bfloat16, True)
+    counts[f"{label} q8 server"] = phase_gptoss_server(torch, cfg, params, tok, f"{label} q8",
+                                                       "q8", False)
+    log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
+    del cfg, params, lay, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
@@ -4681,7 +5165,8 @@ RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaun
                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
-def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS):
+def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS,
+                 steps=DECODE_STEPS):
     """Phases 5 and 8: where a decode step's time goes, on the slice's model
     and batch, through the engine's own decode step (``decode_step``: a
     graph replay, or the same step run eagerly with cuda_graphs=False) at
@@ -4695,7 +5180,8 @@ def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS):
     engine's graph pool, whose blocks replays use without allocating).
     ``profiled_steps``: the steps timed back to back and profiled
     (DeepSeek-V2-Lite's: one, a step of its expert loop holding ~20000
-    launches)."""
+    launches); ``steps`` the steps timed one by one (DECODE_STEPS; 8 for
+    gpt-oss-20b, whose planar expert loop makes a step ~0.5 s)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpullm_torch.ops.sampling import GREEDY, make_sample_fn
@@ -4730,7 +5216,7 @@ def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS):
         jif0, ticks0 = cpu_jiffies(), thread_ticks()
         c0, p0, t0 = time.thread_time(), time.process_time(), time.perf_counter()
         wall = []
-        for _ in range(DECODE_STEPS):
+        for _ in range(steps):
             t = time.perf_counter()
             step()
             torch.cuda.synchronize()
@@ -4761,7 +5247,7 @@ def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS):
                       for tid, (nm, k) in ticks1.items()), key=lambda x: -x[1])[:4]
     out = {
         "way": "graph" if eng.cuda_graphs else "eager",
-        "steps": DECODE_STEPS, "wall_ms_q1_median_q3": [w1, wm, w3],
+        "steps": steps, "wall_ms_q1_median_q3": [w1, wm, w3],
         "main_thread_cpu_share": (c1 - c0) / (t1 - t0),
         "process_cpus_busy": (p1 - p0) / (t1 - t0),
         "busiest_threads_cpu_share": busiest,
@@ -4841,7 +5327,8 @@ def main() -> int:
 
     cfg, params = synth_kmajor_q4k_fast(vocab_size=VOCAB, n_embd=D, n_layer=N_LAYER,
                                         n_head=H, n_head_kv=HKV, n_ff=N_FF, seed=0,
-                                        centred=True, device="cuda")
+                                        centred=True, device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
     log(f"slice 8B: synthesized Q4_K kmajor weights {model_gb(params):.3f} GB in "
         f"{time.perf_counter() - t:.3f} s")
     counts, eng, eager, prompts = phase_slice(torch, "8B", cfg, params, VOCAB, DENSE_KERNELS)
@@ -4889,11 +5376,12 @@ def main() -> int:
     ernie_counts = phase_ernie(torch, entries)
     deepseek_counts = phase_deepseek(torch, entries)
     phi4_counts = phase_phi4(torch, entries)
+    gptoss_counts = phase_gptoss(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
                **command_r_counts, **starcoder_counts, **ernie_counts, **deepseek_counts,
-               **phi4_counts}
+               **phi4_counts, **gptoss_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

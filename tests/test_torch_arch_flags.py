@@ -73,6 +73,10 @@ MLA_ARCHS = ["minicpm3", "mistral4", "plm", "glm-dsa"]
 # fused attn_qkv) and of the per-layer SWA array with the per-head attention
 # gate (step35); their other cases are in tests/test_torch_gateup_swa.py
 GATEUP_SWA_ARCHS = ["phi3", "chatglm", "plamo3", "step35"]
+# the rows with attention sinks (gpt-oss: the clamped swiglu_oai and q/k/v
+# biases; mimo2: the SWA array, the value scale and a sigmoid MoE with the
+# selection bias); their other cases are in tests/test_torch_sinks.py
+SINK_ARCHS = ["gpt-oss", "mimo2"]
 KMAJOR_ARCHS = ["qwen3", "qwen2", "qwen", "glm4", "olmo2"]
 PROMPTS = [[3, 9, 4, 17, 6], [5, 1, 2], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 2, 3, 4, 5,
                                          6, 7, 8, 9, 30]]
@@ -102,13 +106,14 @@ def test_registry_rows_are_the_jax_rows():
 
     assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS + LAYERNORM_ARCHS
                + POSITION_ARCHS + AS_IS_ARCHS + LEAD_BIAS_ARCHS + MLA_ARCHS + GATEUP_SWA_ARCHS
-               + ["llama", "mixtral", "qwen3moe", "qwen2moe", "deepseek2"]) == set(ARCH_REGISTRY)
+               + SINK_ARCHS + ["llama", "mixtral", "qwen3moe", "qwen2moe", "deepseek2"]) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch
 
 
 @pytest.mark.parametrize("arch", FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS
-                         + AS_IS_ARCHS + LEAD_BIAS_ARCHS + MLA_ARCHS + GATEUP_SWA_ARCHS)
+                         + AS_IS_ARCHS + LEAD_BIAS_ARCHS + MLA_ARCHS + GATEUP_SWA_ARCHS
+                         + SINK_ARCHS)
 def test_arch_snapshot(arch, tmp_path):
     """tests/snapshots/{arch}.npz (the JAX package's golden, from
     build_arch_gguf(seed=11), or build_deepseek2_gguf(seed=11) for the MLA

@@ -3,8 +3,9 @@ over a grid of shapes: a kernel is taken only on the card, and only where
 the JAX package's gate (tpullm/ops/flash_attention.py:flash_supported,
 tpullm/ops/flash_decode.py:flash_decode_supported, TPULLM_FLASH_DECODE
 included) and the shapes its CUDA kernel builds both hold; every other
-shape, and every call on the CPU, takes the einsum path. What each kernel
-builds is written out here from its entry point's checks
+shape, and every call on the CPU, takes the einsum path. Head dim 64 on
+kernel E is the port's own route: the JAX gate's conditions but Dk % 128.
+What each kernel builds is written out here from its entry point's checks
 (csrc/flash_attention.cu, csrc/flash_decode.cu), not read from the port."""
 import pytest
 import torch
@@ -24,8 +25,15 @@ def _c_builds(T, S, Dk, Dv, H, Hkv):
 
 
 def _e_builds(T, Dk, Dv, H, Hkv, kv_dtype):
-    return (Dk == Dv and Dk in (128, 256) and 1 <= T <= 8 and H % Hkv == 0
+    return (Dk == Dv and Dk in (64, 128, 256) and 1 <= T <= 8 and H % Hkv == 0
             and (H // Hkv) * T <= 64 and kv_dtype in (torch.bfloat16, torch.int8))
+
+
+def _e_own(flag, T, S, Dk, Dv):
+    """The port's own route for E at head dim 64 (gpt-oss): the JAX gate's
+    conditions (TPULLM_FLASH_DECODE, T <= 8, S a multiple of 256) with Dk =
+    Dv = 64 in place of Dk % 128 == 0."""
+    return bool(flag) and T <= 8 and Dk == Dv == 64 and S % 256 == 0 and S >= 256
 
 
 @pytest.mark.parametrize("flag", [None, "1"])
@@ -43,7 +51,7 @@ def test_route_takes_a_kernel_only_where_gate_and_build_hold(monkeypatch, flag, 
                     B = 2
                     assert attention_route(False, B, T, S, dk, dv, H, Hkv, dt) == "einsum"
                     got = attention_route(True, B, T, S, dk, dv, H, Hkv, dt)
-                    e = (j_decode_supported(B, T, S, dk, dv, Hkv)
+                    e = ((j_decode_supported(B, T, S, dk, dv, Hkv) or _e_own(flag, T, S, dk, dv))
                          and _e_builds(T, dk, dv, H, Hkv, dt))
                     c = j_flash_supported(T, S, dk, dv) and _c_builds(T, S, dk, dv, H, Hkv)
                     want = "flash_decode" if e else "flash_attention" if c else "einsum"
@@ -52,7 +60,9 @@ def test_route_takes_a_kernel_only_where_gate_and_build_hold(monkeypatch, flag, 
     # the grid reaches each kernel where the head dims are built
     if (dk, dv) in ((128, 128), (256, 256)):
         assert seen == ({"flash_attention", "einsum"} | ({"flash_decode"} if flag else set()))
-    if dk not in (128, 256) or dk != dv:
+    if (dk, dv) == (64, 64):
+        assert seen == {"einsum"} | ({"flash_decode"} if flag else set())
+    elif dk not in (128, 256) or dk != dv:
         assert seen == {"einsum"}
 
 
@@ -149,7 +159,7 @@ def test_ring_route_is_a_kernel_wherever_one_builds(monkeypatch, flag, dk, dv):
     since the JAX package sends every ring call to its einsum path
     (tpullm/models/llama.py:268, 277): kernel E where TPULLM_FLASH_DECODE
     is set and E builds its ring (bf16 K/V), whatever the ring's slot
-    count (T <= 8, head dims multiples of 128 up to 512); else kernel C
+    count (T <= 8, head dims multiples of 128 up to 512, or 64); else kernel C
     wherever it builds over the ring (any T, the ring a multiple of 64);
     the einsum path only where neither builds, and on the CPU. decode_route
     gives the pair (full banks, ring) on a dual cache."""
@@ -167,9 +177,9 @@ def test_ring_route_is_a_kernel_wherever_one_builds(monkeypatch, flag, dk, dv):
                     assert attention_route(False, 2, T, ring, dk, dv, H, Hkv, dt,
                                            ring) == "einsum"
                     got = attention_route(True, 2, T, ring, dk, dv, H, Hkv, dt, ring)
-                    e = (bool(flag) and T <= 8 and dk % 128 == 0 and dv % 128 == 0
-                         and max(dk, dv) <= 512 and dt == torch.bfloat16
-                         and _e_builds(T, dk, dv, H, Hkv, dt))
+                    e = (bool(flag) and T <= 8 and ((dk % 128 == 0 and dv % 128 == 0
+                                                     and max(dk, dv) <= 512) or dk == dv == 64)
+                         and dt == torch.bfloat16 and _e_builds(T, dk, dv, H, Hkv, dt))
                     c = dk == dv and dk in (128, 256) and ring % 64 == 0 and H % Hkv == 0
                     want = "flash_decode" if e else "flash_attention" if c else "einsum"
                     assert got == want, (T, ring, H, Hkv, dt, got, want)

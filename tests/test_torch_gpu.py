@@ -1117,7 +1117,7 @@ def test_flash_decode_kernel_refuses(cuda):
     q, k, v, ks, vs, qs, pos, vf, _ = _decode_inputs(cuda, False, B=1, T=1, S=256)
     cfg = ModelConfig(n_head=8, n_head_kv=2, head_dim=128, head_dim_v=128)
     with pytest.raises(NotImplementedError, match="head dims"):
-        flash_decode(q[..., :64].contiguous(), k[..., :64], v[..., :64], qs, pos, vf, cfg)
+        flash_decode(q[..., :96].contiguous(), k[..., :96], v[..., :96], qs, pos, vf, cfg)
     with pytest.raises(ValueError, match="expected"):
         flash_decode(q, k.float(), v.float(), qs, pos, vf, cfg)
     q9 = torch.zeros((1, 9, 8, 128), dtype=torch.bfloat16, device=cuda)
@@ -1365,6 +1365,9 @@ STORE_SHAPES = {
     "mla_decode": (4, 1, 1, 576, 512, [2000, 700, 300, 40], 0, 4096, 4),
     "mla_prefill_512": (1, 512, 1, 576, 512, [1536], 2, 4096, 4),
     "mla_engine_decode": (4, 1, 1, 576, 512, [540] * 4, 0, 1024, 4),
+    # gpt-oss-20b's 8 kv heads of 64: its q8 server's decode step and chunk
+    "head_dim_64_decode": (4, 1, 8, 64, 64, [2000, 700, 300, 40], 0, 4096, 4),
+    "head_dim_64_prefill_512": (1, 512, 8, 64, 64, [1536], 2, 4096, 4),
 }
 
 
@@ -1642,6 +1645,9 @@ RING_STORE_SHAPES = {
     "server_decode": (4, 1, 8, 256, [12000, 6000, 2000, 40], 4608),
     "chunk_512_wraps": (1, 512, 8, 256, [4400], 4608),
     "small_ring": (2, 16, 2, 128, [40, 100], 48),
+    # gpt-oss-20b's ring server: 8 kv heads of 64, a ring of window 128 + 512
+    "head_dim_64_decode": (4, 1, 8, 64, [2000, 700, 300, 40], 640),
+    "head_dim_64_chunk_wraps": (1, 512, 8, 64, [1536], 640),
 }
 
 
@@ -2103,3 +2109,94 @@ def test_phi3_engine_on_card_matches_cpu(cuda, monkeypatch, flag):
     for b, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
         if gap > 0.05:
             assert logits["card"][1][b][0] == logits["cpu"][1][b][0]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "ring"])
+@pytest.mark.parametrize("T", [1, 8])
+def test_flash_decode_kernel_head_dim_64_sinks(cuda, kind, T):
+    """Kernel E at head dim 64 (gpt-oss's; 16/2 heads here, a GQA group of
+    8, so 8 or 64 query rows a kv head) with sinks and a window of 128,
+    against its plain version: bf16 and int8 on a 1024-slot view, bf16 on a
+    200-slot ring whose windows wrap its end; NMSE < 1e-4, two calls
+    bit-identical, two launches. At T = 1 the last row (slot 5, valid_from
+    7) sees no key and outputs 0, its sink notwithstanding."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    ring = 200 if kind == "ring" else 0
+    q8 = kind == "int8"
+    slots, vf = ((700, 450, 199, 10), (0, 3, 0, 12)) if ring else ((900, 300, 40, 5),
+                                                                    (0, 3, 1, 7))
+    q, k, v, ks, vs, qs, pos, vfa, g = _decode_inputs(cuda, q8, B=4, T=T, H=16, Hkv=2,
+                                                      S=ring or 1024, D=64, slots=slots,
+                                                      valid_from=vf, seed=T)
+    cfg = ModelConfig(n_head=16, n_head_kv=2, head_dim=64, head_dim_v=64, sliding_window=128)
+    sinks = torch.randn(16, generator=g, device=cuda) * 2.0
+    before = _cuda.COUNTS["flash_decode"]
+    a = flash_decode(q, k, v, qs, pos, vfa, cfg, 128, sinks, k_scales=ks, v_scales=vs,
+                     ring=ring)
+    b = flash_decode(q, k, v, qs, pos, vfa, cfg, 128, sinks, k_scales=ks, v_scales=vs,
+                     ring=ring)
+    want = flash_decode_plain(q, k, v, qs, pos, vfa, 64 ** -0.5, 0.0, 128, False, sinks, ks, vs,
+                              ring=ring)
+    torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_decode"] == before + 2
+    assert torch.equal(a, b) and a.shape == want.shape == (4, T, 16, 64)
+    if T == 1 and not ring:
+        assert torch.count_nonzero(a[3]) == 0 and torch.count_nonzero(want[3]) == 0
+    assert _nmse(a, want) < 1e-4
+
+
+def test_gptoss_engine_on_card_matches_cpu(cuda, monkeypatch):
+    """A 2-layer gpt-oss model at gpt-oss-20b's K 2880 (planar MXFP4
+    experts with their biases and the router's bias, planar Q8_0 q/k/v,
+    embedding and lm_head, K-major wo; 8/2 heads of 64 with sinks, the SWA
+    array (1, 0) with a window of 32, YaRN) through the engine on the card
+    with TPULLM_FLASH_DECODE=1 against the plain path on the CPU in f32,
+    within 4x the plain bf16 error: A, B, E and the store launched; C (the
+    sinks), D, F and the skip (the biased stack takes the loop) not; the
+    same requests with cuda_graphs=False give the graph's greedy tokens and
+    launch counts; the iSWA ring engine (E on its ring, C never) is within
+    the same bound of the CPU."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_gptoss
+
+    monkeypatch.setenv("TPULLM_FLASH_DECODE", "1")
+    cfg, params = synth_gptoss(vocab_size=500, n_embd=2880, n_layer=2, n_head=8, n_head_kv=2,
+                               head_dim=64, n_expert=4, n_expert_used=2, n_ff_exp=2880,
+                               sliding_window=32, swa_layer_pattern=(1, 0), seed=5, device="cpu",
+                               cfg_fields=dict(rope_scaling="yarn", rope_scale=32.0,
+                                               rope_orig_ctx=4096, n_ctx_train=131072,
+                                               expert_weights_norm=True))
+    lay = params["layers"]
+    assert lay["moe_gate_exps"].layout == lay["wq"].layout == params["output"].layout == "planar"
+
+    def to(v, dev):
+        return {n: to(t, dev) for n, t in v.items()} if isinstance(v, dict) else v.to(dev)
+
+    card = to(params, "cuda")
+    logits, counts = {}, {}
+    for name, p, dev, dt, kw in (("card", card, "cuda", torch.bfloat16, {}),
+                                 ("card_eager", card, "cuda", torch.bfloat16,
+                                  dict(cuda_graphs=False)),
+                                 ("card_ring", card, "cuda", torch.bfloat16,
+                                  dict(iswa=True, prefill_chunk=64)),
+                                 ("cpu", params, "cpu", torch.float32, {}),
+                                 ("cpu_bf16", params, "cpu", torch.bfloat16, {})):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, **kw)
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    for k in ("qmm_splitk", "qmm", "flash_decode", "kv_store"):
+        assert c[k] > 0, (k, c)
+    for k in ("flash_attention", "layer_kernel", "moe_gmm", "qmm_experts"):
+        assert c[k] == 0, (k, c)
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    assert counts["card_ring"]["flash_decode"] > 0 and counts["card_ring"]["flash_attention"] == 0
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+    assert _nmse(logits["card_ring"][0], logits["cpu"][0]) < 4 * ref

@@ -449,7 +449,7 @@ def test_qwen_moe_keys_parse():
 
 @pytest.mark.parametrize("key,value", [
     ("qwen3moe.interleave_moe_layer_step", 2), ("qwen2moe.experts_per_group", 2),
-    ("qwen3moe.expert_group_count", 4), ("qwen3moe.attention.value_scale", 2.0)])
+    ("qwen3moe.expert_group_count", 4), ("qwen3moe.expert_chunk_feed_forward_length", 64)])
 def test_graph_changing_key_raises(key, value):
     arch = key.split(".")[0]
     with pytest.raises(NotImplementedError, match=key):

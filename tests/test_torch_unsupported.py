@@ -21,7 +21,7 @@ torch.set_num_threads(2)
 
 @pytest.mark.parametrize("field,value", [
     ("swa_chunked", True), ("no_rope_interval", 4), ("n_expert", 8),
-    ("n_expert_shared", 2), ("qk_l2_norm", True), ("attn_out_scale", 0.5),
+    ("n_expert_shared", 2), ("qk_l2_norm", True), ("n_embd_per_layer", 256),
     ("attn_out_gate", True),
     ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
     ("swa_dense_first", True), ("ssm_d_conv", 4), ("attn_temp_scale", 0.1)])
@@ -91,7 +91,7 @@ def test_dense_keys_parse():
     ("llama.expert_group_scale", 2.0), ("llama.feed_forward_length", [512, 256]),
     ("llama.attention.head_count", np.array([4, 4, 8])),
     ("llama.rope.scaling.finetuned", True),
-    ("llama.attention.value_scale", 2.0), ("xielu.alpha_n", [0.8]),
+    ("llama.attention.shared_kv_layers", 2), ("xielu.alpha_n", [0.8]),
     ("llama.rope.dimension_sections", [16, 24, 24, 0]), ("llama.pooling_type", 1),
     ("llama.experts_per_group", 2)])
 def test_gguf_key_outside_dense_path_raises(key, value):
@@ -341,26 +341,40 @@ def test_full_width_attention_gate_raises(tmp_path):
         _forward(dc.replace(cfg, attn_gate_proj=False), params)
 
 
-def test_mimo2_value_scale_raises(tmp_path, monkeypatch):
-    """mimo2 (its SWA array now parses) stays refused: with its JAX row
-    added, its file raises at the key gate on attention.value_scale (its
-    sinks and selection bias wait with it)."""
-    from tpullm.models.registry import ARCH_REGISTRY as JREG
+def test_mimo2_value_scale_raises(tmp_path):
+    """mimo2's file, once refused at the key gate on attention.value_scale,
+    now loads and runs: the scale parses into attn_out_scale (0.9 in the
+    synth) beside its SWA array, its sinks and its sigmoid MoE with the
+    selection bias, as the JAX parser reads them; a value scale on an MLA
+    config still raises (the JAX MLA branch does not read it). Its logits
+    against the JAX package: tests/test_torch_arch_flags.py and
+    tests/test_torch_sinks.py."""
+    from tpullm.runtime.loader import load_model as jload
     from tpullm.utils.synth import build_arch_gguf
-    from tpullm_torch.models.registry import ARCH_REGISTRY
 
     path = build_arch_gguf(str(tmp_path / "mimo2.gguf"), "mimo2", n_layer=4, seed=11)
-    with pytest.raises(NotImplementedError, match="mimo2"):
-        load_model(path, device="cpu")
-    monkeypatch.setitem(ARCH_REGISTRY, "mimo2", JREG["mimo2"])
-    with pytest.raises(NotImplementedError, match="attention.value_scale") as e:
-        load_model(path, device="cpu")
-    assert "sliding_window_pattern" not in str(e.value)
+    cfg, params, _ = load_model(path, device="cpu")
+    jcfg = jload(path)[0]
+    assert cfg.attn_out_scale == jcfg.attn_out_scale == pytest.approx(0.9)
+    assert cfg.swa_layer_pattern == jcfg.swa_layer_pattern and cfg.expert_gating == "sigmoid"
+    assert {"attn_sinks", "moe_probs_b"} <= set(params["layers"])
+    with pytest.raises(NotImplementedError, match="attn_out_scale"):
+        check_dense(ModelConfig(kv_lora_rank=64, rope_dim=32, head_dim=64, attn_out_scale=0.9))
 
 
-def test_unread_tensor_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="attn_sinks"):
-        load_model(_gguf(tmp_path, with_sinks=True), device="cpu")
+def test_unread_tensor_raises(tmp_path, monkeypatch):
+    """A tensor no covered path reads raises at load (the sinks, which this
+    test named before, now load: tests/test_torch_sinks.py): bitnet's
+    attention sub-norm on a llama file."""
+    write = GGUFWriter.write
+
+    def write_extra(self):
+        self.add_tensor("blk.0.attn_sub_norm.weight", np.ones(512, np.float32))
+        return write(self)
+
+    monkeypatch.setattr(GGUFWriter, "write", write_extra)
+    with pytest.raises(NotImplementedError, match="attn_sub_norm"):
+        load_model(_gguf(tmp_path), device="cpu")
 
 
 def test_tied_embeddings_load(tmp_path):
@@ -397,16 +411,44 @@ def _moe_gguf(tmp_path, monkeypatch, extra):
 
 
 @pytest.mark.parametrize("name,shape", [
-    ("blk.0.ffn_gate_exps.bias", (4, 512)), ("blk.0.ffn_down_exps.bias", (4, 512)),
-    ("blk.0.ffn_gate_inp.bias", (4,)), ("blk.0.ffn_gate_shexp.weight", (512, 512)),
+    ("blk.0.ffn_up_chexps.weight", (2, 512, 512)), ("blk.0.ffn_latent_down.weight", (256, 512)),
+    ("blk.0.ffn_latent_up.weight", (512, 256)), ("blk.0.ffn_gate_shexp.weight", (512, 512)),
     ("blk.0.ffn_up_shexp.weight", (512, 512)), ("blk.0.ffn_norm_exps.weight", (512,)),
     ("blk.0.ffn_gate_chexps.weight", (2, 512, 512))])
 def test_moe_tensor_outside_path_raises(tmp_path, monkeypatch, name, shape):
-    """Expert biases, shared experts, the arctic expert norm and chunk
-    experts are not on the covered MoE path: the loader raises."""
+    """Partial shared experts, the arctic expert norm, chunk experts and
+    nemotron-h's latent projections are not on the covered MoE path: the
+    loader raises. (The expert biases and the router's bias, which this test
+    named before, now load: test_moe_biases_load_and_run.)"""
     path = _moe_gguf(tmp_path, monkeypatch, {name: np.zeros(shape, np.float32)})
     with pytest.raises(NotImplementedError, match=name.split(".")[1]):
         load_model(path, device="cpu")
+
+
+@pytest.mark.parametrize("name,shape,key", [
+    ("blk.0.ffn_gate_exps.bias", (4, 512), "moe_gate_exps_b"),
+    ("blk.0.ffn_down_exps.bias", (4, 512), "moe_down_exps_b"),
+    ("blk.0.ffn_gate_inp.bias", (4,), "moe_gate_inp_b")])
+def test_moe_biases_load_and_run(tmp_path, monkeypatch, name, shape, key):
+    """gpt-oss's expert biases and the router's bias, refused before, load
+    as f32 layer tensors beside the routed experts and move the forward's
+    logits; a layer without routed experts does not read them, and they
+    raise there (_unread_tensors)."""
+    from tpullm_torch.models.llama import _unread_tensors
+
+    path = _moe_gguf(tmp_path, monkeypatch, {name: np.full(shape, 0.5, np.float32)})
+    cfg, params, _ = load_model(path, device="cpu")
+    b = params["layers"][key]
+    assert b.dtype == torch.float32 and tuple(b.shape) == (1,) + shape
+    tok = torch.tensor([[3, 1, 4, 1, 5]])
+    vf = torch.zeros(1, dtype=torch.int64)
+    out = []
+    for p in (params, dict(params, layers={k: v for k, v in params["layers"].items()
+                                            if k != key})):
+        cache = KVCache.create(cfg, 1, 16, torch.float32, "cpu")
+        out.append(forward(p, cfg, tok, tok, cache, 0, vf, torch.float32)[0])
+    assert not torch.allclose(out[0], out[1])
+    assert _unread_tensors(ModelConfig(), {key: b, "ffn_down": None}) == [key]
 
 
 def test_moe_config_and_tensors_go_together(tmp_path, monkeypatch):

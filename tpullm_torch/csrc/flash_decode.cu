@@ -65,9 +65,15 @@
 //   the sums: two calls give identical bits. Masked scores use -1e30 and a
 //   masked key contributes exactly 0: a row with no visible key outputs 0
 //   (written by split 0 when the batch row has no visible slot at all).
-// - Splits are 128 slots for bf16 K/V (64 KB a block, 3 blocks an SM) and
-//   256 for int8 (the same bytes: at the server's shape every live block is
-//   resident at once, and the merges halve).
+// - Splits are 128 slots for bf16 K/V (64 KB a block at D = 128, 3 blocks an
+//   SM) and 256 for int8 (the same bytes: at the server's shape every live
+//   block is resident at once, and the merges halve).
+// - Head dims 64 (gpt-oss), 128 and 256 are built, each bf16 and int8 on a
+//   plain view and bf16 on a ring. D = 64 keeps D = 128's splits and warps
+//   (half the bytes a block): the simple instance, not tuned; its int8 rows
+//   take the swizzle cut to their 4 chunks. The JAX package's gate asks
+//   Dk % 128 == 0 (tpullm/ops/flash_decode.py:254), so there D = 64 takes
+//   the einsum path; E at D = 64 is the port's own route.
 // - An iSWA ring bank (ring > 0, S = ring: the SWA layers' window + chunk
 //   slots, position p at slot p % ring; tpullm/models/llama.py:80-117,
 //   313-324) is read in position space: a query at slot q sees the
@@ -155,15 +161,17 @@ struct Smem {
   static constexpr int BYTES = LAST + 16;
 };
 
-// 16-byte chunk c of buffer row j, as stored: bf16 rows (read by ldmatrix,
-// 8 rows at one chunk) xor the chunk with j % 8; int8 rows (read as 16-byte
-// K pieces by 4 lanes on each of 2 rows, and as 4-byte V words by 8 lanes on
-// each of 4 rows 2 apart) with a pattern that spreads both reads over the
-// 32 banks
-template <bool Q8>
+// 16-byte chunk c of buffer row j (VEC chunks a row), as stored: bf16 rows
+// (read by ldmatrix, 8 rows at one chunk; VEC >= 8) xor the chunk with j %
+// 8; int8 rows (read as 16-byte K pieces by 4 lanes on each of 2 rows, and
+// as 4-byte V words by 8 lanes on each of 4 rows 2 apart) with a pattern
+// that spreads both reads over the 32 banks, cut to the row's VEC chunks
+// (the 4 of a 64-wide int8 row: a permutation of them, whatever it costs in
+// conflicts; the wider rows' pattern is unchanged)
+template <bool Q8, int VEC>
 __device__ __forceinline__ int swz(int j, int c) {
   if (!Q8) return c ^ (j & 7);
-  return c ^ ((((j >> 1) & 3) << 1) ^ ((j & 1) << 2));
+  return c ^ (((((j >> 1) & 3) << 1) ^ ((j & 1) << 2)) & (VEC - 1));
 }
 
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -311,7 +319,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
           for (int e = lt; e < E_CK * VEC; e += gthreads) {
             const int j = ch * E_CK + e / VEC, piece = e % VEC, slot = s0 + j;
             const bool ok = slot >= lo && slot < hi;
-            cp16z(sbase + (kv ? L::V : L::K) + j * RB + swz<Q8>(j, piece) * 16,
+            cp16z(sbase + (kv ? L::V : L::K) + j * RB + swz<Q8, VEC>(j, piece) * 16,
                   base + (size_t)slot_of<RING>(a, ok ? slot : lo) * ss + piece * 16, ok);
           }
           if (Q8 && kv == 0 && lt < 2 * E_CK) {
@@ -391,7 +399,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
 #pragma unroll
         for (int p = 0; p < D / 64; ++p) {
           const uint4 w = *reinterpret_cast<const uint4*>(
-              sm + L::K + jr * RB + swz<true>(jr, 4 * p + c) * 16);
+              sm + L::K + jr * RB + swz<true, VEC>(jr, 4 * p + c) * 16);
           const uint32_t wv[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
                                   w.w ^ 0x80808080u};
 #pragma unroll
@@ -406,7 +414,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
 #pragma unroll
         for (int s = 0; s < KS; s += 2) {
           uint32_t r[4];
-          ldsm_x4(r, sbase + L::K + jl * RB + swz<false>(jl, 2 * s + (lane >> 3)) * 16);
+          ldsm_x4(r, sbase + L::K + jl * RB + swz<false, VEC>(jl, 2 * s + (lane >> 3)) * 16);
           mma_16816(sc[jn], qa[s], r[0], r[1]);
           mma_16816(sc[jn], qa[s + 1], r[2], r[3]);
         }
@@ -483,7 +491,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
         for (int u = 0; u < 4; ++u) {
           const int jr = j0 + 2 * c + (u & 1) + 8 * (u >> 1);
           w[u] = *reinterpret_cast<const uint32_t*>(
-                     sm + L::V + jr * RB + swz<true>(jr, 2 * tb + (g >> 2)) * 16 + (g & 3) * 4) ^
+                     sm + L::V + jr * RB + swz<true, VEC>(jr, 2 * tb + (g >> 2)) * 16 + (g & 3) * 4) ^
                  0x80808080u;
         }
 #pragma unroll
@@ -499,7 +507,7 @@ __device__ __forceinline__ void split_partial(const FdArgs& a, unsigned char* sm
 #pragma unroll
       for (int n = 0; n < NT; n += 2) {
         uint32_t r[4];
-        ldsm_x4_t(r, sbase + L::V + jl * RB + swz<false>(jl, n + (lane >> 4)) * 16);
+        ldsm_x4_t(r, sbase + L::V + jl * RB + swz<false, VEC>(jl, n + (lane >> 4)) * 16);
         mma_16816(acc[n], pa, r[0], r[1]);
         mma_16816(acc[n + 1], pa, r[2], r[3]);
       }
@@ -658,7 +666,7 @@ __device__ __forceinline__ bool arrive(int* cnt, int expect, int* flag) {
 }
 
 template <int D, bool Q8, bool RING>
-__global__ void __launch_bounds__(E_THREADS, D == 128 ? 3 : 1) flash_decode_kernel(FdArgs a) {
+__global__ void __launch_bounds__(E_THREADS, D == 256 ? 1 : 3) flash_decode_kernel(FdArgs a) {
   extern __shared__ __align__(128) unsigned char sm[];
   using L = Smem<D, Q8>;
   const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
@@ -747,7 +755,7 @@ extern "C" int tpq_flash_decode(
   const int ch = q8 ? split_of<true>() : split_of<false>();
   const int ns = ring > 0 ? (ring + 7 + ch - 1) / ch + 1 : (S + ch - 1) / ch;
   if (Hkv <= 0 || H % Hkv || (H / Hkv) * T > E_RMAX || T < 1 || T > 8 ||
-      (D != 128 && D != 256) || S < 1 || NS != ns || ring < 0 || (ring > 0 && ring != S) ||
+      (D != 64 && D != 128 && D != 256) || S < 1 || NS != ns || ring < 0 || (ring > 0 && ring != S) ||
       (ring > 0 && (chunked || q8)) || (slopes != nullptr && softcap != 0.f))
     return (int)cudaErrorInvalidValue;
   FdArgs a;
@@ -773,7 +781,11 @@ extern "C" int tpq_flash_decode(
   a.ring = ring;
   a.slopes = reinterpret_cast<const float*>(slopes);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (ring > 0) return D == 128 ? launch<128, false, true>(a, st) : launch<256, false, true>(a, st);
+  if (ring > 0) {
+    if (D == 64) return launch<64, false, true>(a, st);
+    return D == 128 ? launch<128, false, true>(a, st) : launch<256, false, true>(a, st);
+  }
+  if (D == 64) return q8 ? launch<64, true, false>(a, st) : launch<64, false, false>(a, st);
   if (D == 128) return q8 ? launch<128, true, false>(a, st) : launch<128, false, false>(a, st);
   return q8 ? launch<256, true, false>(a, st) : launch<256, false, false>(a, st);
 }

@@ -213,6 +213,8 @@ DENSE_KEYS = frozenset({
     # the ALiBi archs' bias (bloom, mpt, jais; baichuan-13b's files), which
     # turns RoPE off
     "attention.max_alibi_bias",
+    # mimo2's scale on the attention's output after wo (config.py:346-348)
+    "attention.value_scale",
 })
 # the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser).
 # expert_shared_feed_forward_length (qwen2moe) is read by neither parser:
@@ -323,6 +325,9 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     asc = get("attention.scale")
     if asc is not None:
         cfg.attn_scale = float(asc)
+    vsc = get("attention.value_scale")
+    if vsc is not None and float(vsc) != 1.0:  # mimo2 (config.py:346-348)
+        cfg.attn_out_scale = float(vsc)
     ew_scale = get("expert_weights_scale")
     if ew_scale is not None:
         cfg.expert_weights_scale = float(ew_scale)

@@ -12,17 +12,21 @@ biases) -> RoPE (neox or interleaved, full or partial; SWA layers at
 rope_base_swa where the file gives one; none where use_rope is off) -> an
 optional clamp of q, k and v -> GQA attention over a head-major KV cache
 (optional logit softcap; a sliding window on the layers swa_pattern or the
-per-layer swa_layer_pattern marks; or ALiBi, without either) -> step35's
-optional per-head sigmoid gate -> output projection and its optional bias ->
-gated SiLU or GELU FFN (optional gate and up biases; gate and up fused,
-separate or GGUF-combined in one ffn_up), ungated GELU or relu2
-FFN (optional up and down biases),
+per-layer swa_layer_pattern marks; or ALiBi, without either; optional
+per-head sink logits, gpt-oss's and mimo2's, as a key without a value) ->
+step35's optional per-head sigmoid gate -> output projection and its
+optional bias -> mimo2's optional value scale -> gated SiLU, GELU or
+gpt-oss's clamped SwiGLU (swiglu_oai) FFN (optional gate and up biases; gate
+and up fused, separate or GGUF-combined in one ffn_up), ungated GELU or
+relu2 FFN (optional up and down biases),
 in sequence or in parallel with attention (the parallel residual), or the
-routed-expert MoE FFN (softmax or sigmoid router, an optional selection
-bias for the top-k choice, top-k, optional renormalization and scale, an
-optional gated SiLU shared expert with an optional per-token sigmoid gate;
-no expert biases, latent or chunk experts; dense layers ahead of the MoE
-layers, each run as its tensors say); optional post-attention and post-FFN
+routed-expert MoE FFN (softmax or sigmoid router with an optional bias on
+its logits, an optional selection bias for the top-k choice, top-k,
+optional renormalization and scale, gated SiLU or swiglu_oai experts with
+optional gate, up and down biases, an optional gated SiLU shared expert
+with an optional per-token sigmoid gate; no latent or chunk experts; dense
+layers ahead of the MoE layers, each run as its tensors say); optional
+post-attention and post-FFN
 norms, with or without the pre-norms (``pre_norm``); residual branches
 times residual_scale; logits times logit_scale, then the final softcap.
 MLA layers (the deepseek2 family, ``kv_lora_rank``) take the compressed-KV
@@ -55,8 +59,12 @@ JAX package sends them to its einsum path (llama.py:268, 277: ``not
 ring``); that route is the port's own (attention_route). ALiBi takes
 kernels C and E with the slopes as one more term on each score, where the
 JAX package sends it to its einsum path (llama.py:268-279): the port's own
-route too. Decode layers take the layer kernel, folded with the next layer's QKV when the weights
-are fused in one group (llama.py:1382-1423, ``layer_routes``); MoE prefill (B*T > 16) takes
+route too. Head dim 64 (gpt-oss) takes kernel E as the port's own route,
+where the JAX gate asks Dk % 128 == 0 (flash_decode.py:254). Sinks keep a
+call off kernel C, as the JAX prefill gate asks ``sinks is None``
+(llama.py:268). Decode layers take the layer kernel, folded with the next
+layer's QKV when the weights are fused in one group (llama.py:1382-1423,
+``layer_routes``); MoE prefill (B*T > 16) takes
 the grouped kernel F over expert-sorted rows (llama.py:455-460) and MoE
 decode (B*T <= 16) kernel A's expert-skip variant over the selected experts
 (llama.py:447-454, ``moe_route``). MLA attention takes the einsum path
@@ -75,8 +83,8 @@ import torch
 
 from ..ops.flash_attention import (alibi_of, attention_params, flash_attention, flash_builds,
                                    flash_supported, masked_attention)
-from ..ops.flash_decode import (flash_decode, flash_decode_builds, flash_decode_ring_supported,
-                                flash_decode_supported)
+from ..ops.flash_decode import (flash_decode, flash_decode_builds, flash_decode_own_supported,
+                                flash_decode_ring_supported, flash_decode_supported)
 from ..ops.fuse import pad256
 from ..ops.kv_store import kv_quant as _kv_quant  # noqa: F401 (the JAX name)
 from ..ops.kv_store import kv_store
@@ -115,10 +123,14 @@ DENSE_FIELDS = frozenset({
     # the decoders without RoPE: learned positions (gpt2, starcoder) or ALiBi
     # (bloom, mpt, jais, refact, baichuan-13b's files)
     "use_rope", "alibi_max_bias",
+    # mimo2's scale on the attention output after wo (llama.py:1268-1269)
+    "attn_out_scale",
 })
-# act_fn values of the dense FFN (llama.py:624-658): gated silu or gelu,
-# ungated gelu or relu2; the MoE FFN runs gated silu
-GATED_ACTS, UNGATED_ACTS = ("silu", "gelu"), ("gelu", "relu2")
+# act_fn values of the dense FFN (llama.py:624-658): gated silu, gelu or
+# gpt-oss's clamped swiglu_oai, ungated gelu or relu2; the MoE FFN's experts
+# run gated silu or swiglu_oai (llama.py:431-440)
+GATED_ACTS, UNGATED_ACTS = ("silu", "gelu", "swiglu_oai"), ("gelu", "relu2")
+MOE_ACTS = ("silu", "swiglu_oai")
 NORM_TYPES = ("rmsnorm", "layernorm")
 # the routed-expert MoE FFN's fields, accepted only with MoE tensors; the
 # dense lead's count is informational, as in the JAX graph: which FFN a
@@ -136,8 +148,12 @@ MLA_FIELDS = frozenset({"q_lora_rank", "kv_lora_rank", "rope_yarn_log_mul"})
 MLA_UNREAD_FIELDS = ("attn_bias", "attn_qk_norm", "qk_norm_post_rope", "attn_qk_norm_flat",
                      "post_norms", "parallel_residual", "clamp_kqv", "sliding_window",
                      "attn_logit_softcap", "alibi_max_bias", "residual_scale", "attn_scale",
-                     "pre_norm", "use_rope", "norm_type", "attn_gate_proj")
+                     "pre_norm", "use_rope", "norm_type", "attn_gate_proj", "attn_out_scale")
 MOE_KEYS = frozenset({"moe_gate_inp", "moe_gate_exps", "moe_up_exps", "moe_down_exps"})
+# gpt-oss's expert biases (E, n) and the router's bias on its logits (E,),
+# f32 layer tensors read only beside MOE_KEYS (llama.py:385-386, 423-443)
+EXPERT_BIAS_KEYS = frozenset({"moe_gate_exps_b", "moe_up_exps_b", "moe_down_exps_b"})
+MOE_BIAS_KEYS = EXPERT_BIAS_KEYS | {"moe_gate_inp_b"}
 # the shared expert of MoE layers (qwen2moe: with its sigmoid gate), read
 # only beside MOE_KEYS (llama.py:498-510)
 SHEXP_KEYS = frozenset({"ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"})
@@ -168,7 +184,7 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
                 f"ModelConfig.{f.name}={getattr(cfg, f.name)!r}: not on the "
                 f"{'dense decoder or MoE' if moe else 'dense decoder'} path the PyTorch "
                 "port covers")
-    acts = ("silu",) if moe else GATED_ACTS if cfg.ffn_gate else UNGATED_ACTS
+    acts = MOE_ACTS if moe else GATED_ACTS if cfg.ffn_gate else UNGATED_ACTS
     if cfg.act_fn not in acts:
         raise NotImplementedError(
             f"ModelConfig.act_fn={cfg.act_fn!r}: the {'MoE' if moe else 'dense'} "
@@ -455,7 +471,8 @@ def apply_rope(x, cos, sin, rope_type: str, rope_dim: int):
 
 
 def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: int,
-                    Hkv: int, kv_dtype, ring: int = 0, scaled: bool = False) -> str:
+                    Hkv: int, kv_dtype, ring: int = 0, scaled: bool = False,
+                    sinks: bool = False) -> str:
     """Which attention path a call takes: "flash_decode" (kernel E),
     "flash_attention" (kernel C) or "einsum". A kernel only on the card, and
     only where both the JAX package's gate (flash_decode_supported,
@@ -475,46 +492,65 @@ def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: 
     on each score and the route is the shapes' alone (check_dense keeps
     ALiBi away from windows, rings and softcaps).
 
+    Head dim 64 (gpt-oss) on E is the port's own route too: the JAX gate
+    asks Dk % 128 == 0 (flash_decode.py:254), which sends it to the einsum
+    path; here E builds D = 64 and takes it where the JAX gate's other
+    conditions hold (flash_decode_own_supported).
+
     ``scaled``: the call brings a scale of its own (MLA's mla_scale), which
     keeps it off C by the JAX prefill gate (``scale is None``,
     llama.py:268) and off E, which the port builds with the config's scale
-    alone, whatever the shapes: the einsum path."""
+    alone, whatever the shapes: the einsum path.
+
+    ``sinks``: the call's layer carries attention sinks (gpt-oss, mimo2),
+    which keep it off C, plain or ring, by the JAX prefill gate (``sinks is
+    None``, llama.py:268): C has no sink. E takes them (its last merge adds
+    each head's sink to the denominator), so the decode route is unchanged."""
     if not is_cuda or scaled:
         return "einsum"
     if ring:  # E builds its ring for bf16 only: the int8 cache has no ring
         if (flash_decode_ring_supported(T, Dk, Dv) and kv_dtype == torch.bfloat16
                 and flash_decode_builds(T, Dk, Dv, H, Hkv, kv_dtype)):
             return "flash_decode"
-        if flash_builds(T, S, Dk, Dv, H, Hkv, ring):
+        if not sinks and flash_builds(T, S, Dk, Dv, H, Hkv, ring):
             return "flash_attention"
         return "einsum"
-    if (flash_decode_supported(B, T, S, Dk, Dv, Hkv)
+    if ((flash_decode_supported(B, T, S, Dk, Dv, Hkv)
+         or flash_decode_own_supported(B, T, S, Dk, Dv, Hkv))
             and flash_decode_builds(T, Dk, Dv, H, Hkv, kv_dtype)):
         return "flash_decode"
-    if flash_supported(T, S, Dk, Dv) and flash_builds(T, S, Dk, Dv, H, Hkv):
+    if not sinks and flash_supported(T, S, Dk, Dv) and flash_builds(T, S, Dk, Dv, H, Hkv):
         return "flash_attention"
     return "einsum"
 
 
 def decode_route(cfg: ModelConfig, B: int, kv_view: int, kv_dtype, on_card: bool,
-                 ring: int = 0):
+                 ring: int = 0, sinks: bool = False):
     """attention_route of one decode step (T = 1) of B rows over a kv view:
     the part of a captured decode step's key that TPULLM_FLASH_DECODE and
     the built shapes decide. With a ring (a dual cache) the pair (the full
     banks' route, the ring's route). An MLA step's attention is scaled by
-    mla_scale over the compressed rows (kv_dims)."""
+    mla_scale over the compressed rows (kv_dims). ``sinks``: the model's
+    layers carry attention sinks (``has_sinks``), which keep a ring step off
+    C when E is off."""
     hkv, dk, dv = kv_dims(cfg)
     r = attention_route(on_card, B, 1, kv_view, dk, dv, cfg.n_head, hkv, kv_dtype, 0,
-                        bool(cfg.kv_lora_rank))
+                        bool(cfg.kv_lora_rank), sinks)
     if not ring:
         return r
     return r, attention_route(on_card, B, 1, ring, cfg.head_dim, cfg.head_dim_v, cfg.n_head,
-                              cfg.n_head_kv, kv_dtype, ring)
+                              cfg.n_head_kv, kv_dtype, ring, False, sinks)
+
+
+def has_sinks(params: dict) -> bool:
+    """Whether any layer of a model's params carries attention sinks."""
+    groups = params["layers"].get("__groups__") or [params["layers"]]
+    return any("attn_sinks" in gl for gl in groups)
 
 
 def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
               cfg: ModelConfig, layer_is_swa: bool = False, kv_q8=None, ring: int = 0,
-              scale: float | None = None):
+              scale: float | None = None, sinks=None):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv).
 
     Slot mask valid_from[b] <= s <= q_slots[b, t]. The path is
@@ -535,20 +571,25 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
     and positional window masks.
 
     scale: the call's own scale in place of the config's (MLA's
-    mla_scale), which sends it to the einsum path (attention_route)."""
+    mla_scale), which sends it to the einsum path (attention_route).
+
+    sinks: the layer's (H,) f32 sink logits (gpt-oss, mimo2), a device
+    tensor read in place (so a captured step takes it): each head's sink
+    joins its softmax as a key without a value (llama.py:342-348), on the
+    einsum path and on kernel E; it keeps the call off kernel C."""
     B, T, H, Dk = q.shape
     kref, vref = (kv_q8[0], kv_q8[1]) if kv_q8 is not None else (k_all, v_all)
     Hkv, S, Dv = kref.shape[1], kref.shape[2], vref.shape[-1]
     route = attention_route(q.is_cuda, B, T, S, Dk, Dv, H, Hkv, kref.dtype, ring,
-                            scale is not None)
+                            scale is not None, sinks is not None)
     if route == "flash_decode":
         window = cfg.sliding_window if layer_is_swa else 0
         if kv_q8 is not None:
             kq, vq, ksc, vsc = kv_q8
             return flash_decode(q, kq, vq, q_slots, positions, valid_from, cfg, window,
-                                k_scales=ksc, v_scales=vsc)
+                                sinks=sinks, k_scales=ksc, v_scales=vsc)
         return flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window,
-                            ring=ring)
+                            sinks=sinks, ring=ring)
     if kv_q8 is not None:
         k_all = dequant_view(kv_q8[0], kv_q8[2], q.dtype)
         v_all = dequant_view(kv_q8[1], kv_q8[3], q.dtype)
@@ -558,12 +599,29 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
     cfg_scale, softcap, window = attention_params(cfg, layer_is_swa)
     return masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                             valid_from, cfg_scale if scale is None else scale, softcap, window,
-                            ring, alibi_of(cfg, q.device))
+                            ring, alibi_of(cfg, q.device), sinks)
+
+
+def gated_act(g, u, act: str, dtype):
+    """The gated FFN's activation of gate g and up u (llama.py:624-635,
+    431-440): silu or gelu (tanh approximation) of g in f32, rounded to
+    ``dtype``, times u; or gpt-oss's clamped SwiGLU (swiglu_oai) wholly in
+    f32, min(g, 7) * sigmoid(1.702 * min(g, 7)) * (clip(u, -7, 7) + 1), then
+    rounded."""
+    gf = g.to(torch.float32)
+    if act == "swiglu_oai":
+        gf = torch.clamp(gf, max=7.0)
+        uf = torch.clamp(u.to(torch.float32), -7.0, 7.0)
+        return (gf * torch.sigmoid(1.702 * gf) * (uf + 1.0)).to(dtype)
+    if act == "gelu":
+        return torch.nn.functional.gelu(gf, approximate="tanh").to(dtype) * u
+    return torch.nn.functional.silu(gf).to(dtype) * u
 
 
 def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
-    """The dense FFN (llama.py:596-665): gated SiLU or GELU (tanh
-    approximation) on fused (or separate) gate/up weights, or with
+    """The dense FFN (llama.py:596-665): gated SiLU, GELU (tanh
+    approximation) or swiglu_oai (``gated_act``) on fused (or separate)
+    gate/up weights, or with
     cfg.ffn_gate off the ungated GELU or relu(u)**2 on up alone; the gate,
     up and down biases (lw: the layer's float tensors; jais's gate and up
     each on its half of the fused product) added in the compute dtype where
@@ -588,13 +646,12 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
         g = g + lw["ffn_gate_b"].to(dtype)
     if "ffn_up_b" in lw:
         u = u + lw["ffn_up_b"].to(dtype)
-    gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
     if not cfg.ffn_gate:  # the activation of up itself
         uf = u.to(torch.float32)
-        h = (gelu(uf) if cfg.act_fn == "gelu" else torch.relu(uf) ** 2).to(dtype)
+        h = (torch.nn.functional.gelu(uf, approximate="tanh") if cfg.act_fn == "gelu"
+             else torch.relu(uf) ** 2).to(dtype)
     else:
-        gf = g.to(torch.float32)
-        h = (gelu(gf) if cfg.act_fn == "gelu" else torch.nn.functional.silu(gf)).to(dtype) * u
+        h = gated_act(g, u, cfg.act_fn, dtype)
     out = qmm(h, qw["ffn_down"], dtype, li)
     if "ffn_down_b" in lw:
         out = out + lw["ffn_down_b"].to(dtype)
@@ -608,7 +665,8 @@ def top_k(probs, k: int):
     return torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
-def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int, used: int) -> str:
+def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int, used: int,
+              biased: bool = False) -> str:
     """Which path the routed experts of a call take: "skip" (kernel A's
     expert-skip variant over the selected experts, decode: B*T <= 16),
     "ragged" (kernel F over expert-sorted rows, prefill) or "loop" (every
@@ -617,8 +675,11 @@ def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int, used: int)
     TPU", each kernel only on the stacks it takes (the skip over at most
     MAX_SLOTS slots: min(E, rows * used) of the ``used`` experts a row
     selects); the CPU, and a stack a kernel does not take (a planar one),
-    run the loop."""
-    if not on_card:
+    run the loop. A ``biased`` stack (gpt-oss's expert biases) takes the
+    loop: off F as in the JAX gate (_ragged_moe_ok, llama.py:524), and off
+    the skip, whose kernels add no bias (the JAX decode loop adds them in
+    each expert's branch, llama.py:423-443)."""
+    if not on_card or biased:
         return "loop"
     n_ff_e = gate_w.shape[-2]
     if rows <= 16:
@@ -629,12 +690,19 @@ def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int, used: int)
     return "ragged" if _ragged_moe_ok(gate_w, up_w, down_w, D) else "loop"
 
 
-def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None):
+def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, bias=None):
     """Mixture-of-experts FFN (llama.py:371-515; build_moe_ffn contract,
-    src/llama-graph.h:831), gated SiLU experts only.
+    src/llama-graph.h:831), gated experts (SiLU, or gpt-oss's swiglu_oai:
+    ``gated_act``).
 
-    Router: logits = x @ gate_inp^T -> softmax|sigmoid, top-k, optional
-    weight renorm and scale. ``probs_b`` (the layer's f32 (E,) selection
+    Router: logits = x @ gate_inp^T (+ the layer's f32 router bias
+    ``bias["moe_gate_inp_b"]``, gpt-oss, llama.py:385-386) -> softmax|sigmoid,
+    top-k, optional weight renorm and scale. ``bias`` also holds gpt-oss's
+    per-expert biases (E, n) ``moe_{gate,up,down}_exps_b``: each is added to
+    its expert's product in the compute dtype, the down bias before the
+    expert's routing weight (llama.py:423-443); a biased stack takes the
+    loop (``moe_route``). Each is a device tensor read in place, so a
+    captured decode step takes it. ``probs_b`` (the layer's f32 (E,) selection
     bias moe_probs_b: ernie4_5-moe, glm4moe, deepseek2-ocr, dots1, ...) is
     added to the probabilities for the top-k choice only; the combine
     weights are gathered from the unbiased probabilities
@@ -654,7 +722,10 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None):
     given (llama.py:498-510)."""
     B, T, D = x.shape
     E, used = cfg.n_expert, cfg.n_expert_used
+    bias = bias or {}
     router = qmm(x, qw["moe_gate_inp"], dtype, li)[..., :E].to(torch.float32)
+    if "moe_gate_inp_b" in bias:
+        router = router + bias["moe_gate_inp_b"].to(torch.float32)[None, None, :E]
     if cfg.expert_gating == "sigmoid":
         probs = torch.sigmoid(router)
     else:
@@ -666,13 +737,15 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None):
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     w = w * cfg.expert_weights_scale
     gate_w, up_w, down_w = qw["moe_gate_exps"], qw["moe_up_exps"], qw["moe_down_exps"]
-    route = moe_route(x.is_cuda, B * T, gate_w, up_w, down_w, D, used)
+    exp_b = {k: bias[k] for k in EXPERT_BIAS_KEYS if k in bias}
+    route = moe_route(x.is_cuda, B * T, gate_w, up_w, down_w, D, used, bool(exp_b))
+    act = lambda g, u: gated_act(g, u, cfg.act_fn, dtype)
     if route == "skip":
-        out = moe_decode(x, w, top_i, gate_w, up_w, down_w, li, E, dtype)
+        out = moe_decode(x, w, top_i, gate_w, up_w, down_w, li, E, dtype, act)
     elif route == "ragged":
         out = _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg, dtype)
     else:
-        out = _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E, dtype)
+        out = _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E, dtype, act, exp_b)
     if "ffn_gate_shexp" in qw:
         g = qmm(x, qw["ffn_gate_shexp"], dtype, li)
         u = qmm(x, qw["ffn_up_shexp"], dtype, li)
@@ -686,15 +759,21 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None):
     return out
 
 
-def _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E: int, dtype):
+def _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E: int, dtype, act=None, bias=None):
     """Every expert on every row, each weighted by the rows' routing weight
-    of it (exactly 0 where unselected), summed in expert order."""
+    of it (exactly 0 where unselected), summed in expert order. ``act`` (g,
+    u) -> h, SiLU where None; ``bias``: the layer's expert biases (E, n) by
+    key, each added to its product (llama.py:423-443)."""
+    bias = bias or {}
+    act = act or (lambda g, u: gated_act(g, u, "silu", dtype))
+
+    def plus(y, key, e):
+        return y + bias[key][e].to(dtype) if key in bias else y
 
     def one_expert(e):
-        ue = _expert_mm(x, up_w, li, e, dtype)
-        ge = _expert_mm(x, gate_w, li, e, dtype)
-        h = torch.nn.functional.silu(ge.to(torch.float32)).to(dtype) * ue
-        de = _expert_mm(h, down_w, li, e, dtype)
+        ue = plus(_expert_mm(x, up_w, li, e, dtype), "moe_up_exps_b", e)
+        ge = plus(_expert_mm(x, gate_w, li, e, dtype), "moe_gate_exps_b", e)
+        de = plus(_expert_mm(act(ge, ue), down_w, li, e, dtype), "moe_down_exps_b", e)
         we = (w * (top_i == e)).sum(-1)  # (B, T)
         return de * we[..., None].to(dtype)
 
@@ -733,7 +812,7 @@ def _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg: ModelConfig,
     n_ff_e = gate_w.shape[-2]
     g = grouped_qmm(xs_pad, tile_expert, gate_w, n_ff_e, layer=li, live=live)
     u = grouped_qmm(xs_pad, tile_expert, up_w, n_ff_e, layer=li, live=live)
-    h = torch.nn.functional.silu(g.to(torch.float32)) * u.to(torch.float32)
+    h = gated_act(g, u, cfg.act_fn, torch.float32)  # in f32, as llama.py:547-557
     y = grouped_qmm(h.to(torch.bfloat16), tile_expert, down_w, D, layer=li, live=live)
     row_of = torch.empty_like(dest)  # padded row of assignment m * used + j
     row_of[order] = dest
@@ -763,12 +842,13 @@ def _expert_mm(x, qt: QTensor, li, e: int, dtype):
 MLA_KEYS = frozenset({"wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wk_b", "wv_b"})
 # the layernorm archs' biases of the stream norms
 NORM_BIAS_KEYS = frozenset({"attn_norm_b", "ffn_norm_b", "attn_norm_2_b"})
-_LAYER_KEYS = frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
-                         "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
-                         "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
-                         "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
-                         "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
-                         "moe_probs_b", "wqkv_gate"}) | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS
+_LAYER_KEYS = (frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
+                          "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
+                          "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
+                          "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
+                          "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
+                          "moe_probs_b", "wqkv_gate", "attn_sinks"})
+               | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS | MOE_BIAS_KEYS)
 
 
 def check_ffn_layout(cfg: ModelConfig, gl) -> None:
@@ -804,8 +884,9 @@ def check_attn_gate(cfg: ModelConfig, gl) -> None:
 def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     """Layer tensors this config's graph would not read (the JAX package
     ignores them; the port raises rather than drop weights): among them the
-    shared expert and the router's selection bias of a layer without routed
-    experts, and the shared expert's gate without the shared expert; norm
+    shared expert, the router's selection bias, the router's bias and the
+    expert biases of a layer without routed experts, and the shared
+    expert's gate without the shared expert; norm
     biases without layernorm; attn_norm_2 without the parallel block, and ffn_norm or
     post_ffn_norm in a parallel block that does not read them; gate
     weights and the gate's bias on an ungated FFN; the dense FFN's biases on
@@ -847,7 +928,7 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     if moe:
         unread |= {"ffn_up_b", "ffn_down_b", "ffn_gate_b"}
     else:
-        unread |= SHEXP_KEYS | {"moe_gate_inp_shexp", "moe_probs_b"}
+        unread |= SHEXP_KEYS | MOE_BIAS_KEYS | {"moe_gate_inp_shexp", "moe_probs_b"}
     if "ffn_gate_shexp" not in gl:
         unread.add("moe_gate_inp_shexp")
     return sorted(unread & set(gl))
@@ -865,10 +946,12 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     layernorm, the parallel block and the ungated FFN. Folded, it also
     emits the next layer's norm and fused QKV.
 
-    One condition is the port's own: the kernel adds its residuals unscaled,
-    so a residual_scale other than 1 (granite, minicpm) keeps the layer off
-    it. The JAX gate does not ask (ops/layer_kernel.py:410-428), so on the
-    TPU those layers' decode would drop the scale. MLA layers stay off it, as
+    Two conditions are the port's own: the kernel adds its residuals
+    unscaled and its wo product as it is, so a residual_scale other than 1
+    (granite, minicpm) and mimo2's value scale (attn_out_scale) keep the
+    layer off it. The JAX gate asks neither (ops/layer_kernel.py:410-428,
+    llama.py:1382-1397), so on the TPU those layers' decode would drop the
+    scale. MLA layers stay off it, as
     in the JAX gate (``kv_lora_rank == 0``, llama.py:1395).
 
     The combined [gate; up] of a phi3 or chatglm file takes the kernel on the
@@ -882,7 +965,8 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
                  and not any(k in gl for k in ("bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
                                                "attn_norm_2"))
                  and not cfg.attn_bias and not cfg.attn_qk_norm_flat
-                 and cfg.residual_scale == 1.0 and block_supported(cfg, qw))
+                 and cfg.residual_scale == 1.0 and not cfg.attn_out_scale
+                 and block_supported(cfg, qw))
     use_fold = use_block and "wqkv" in qw and n_groups == 1 and "attn_norm" in gl
     return use_block, use_fold
 
@@ -980,7 +1064,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         in the JAX package, llama.py:837-838) or per head (RMS), before RoPE
         or after it (qk_norm_post_rope). No RoPE where use_rope is off
         (llama.py:856-857). clamp_kqv clamps q, k and v after RoPE
-        (llama.py:889-892)."""
+        (llama.py:889-892). The layer's sink logits (attn_sinks, gpt-oss and
+        mimo2, on every layer or some) go to attention (llama.py:922)."""
         qn, kn = lw.get("q_norm"), lw.get("k_norm")
         if cfg.attn_qk_norm_flat:
             q = _norm(q, qn, lw.get("q_norm_b"), cfg)
@@ -1012,7 +1097,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             k_view, v_view = view(cache.k[bi]).to(dtype), view(cache.v[bi]).to(dtype)
         att = attention(q, k_view, v_view, q_slots, kv_positions, positions, valid_from,
                         cfg, bool(windows[li]), kv_q8=kv_q8,
-                        ring=cache.ring if on_ring else 0)
+                        ring=cache.ring if on_ring else 0, sinks=lw.get("attn_sinks"))
         return att.reshape(B, T, H * hdv)
 
     def attend_mla(h, qw, li, lw, layer):
@@ -1098,7 +1183,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         (llama.py:1273-1276), else the dense FFN."""
         if cfg.n_expert > 0 and "moe_gate_inp" in qw:
             return moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"),
-                           lw.get("moe_probs_b"))
+                           lw.get("moe_probs_b"), {k: lw[k] for k in MOE_BIAS_KEYS if k in lw})
         return ffn(h2, qw, li, cfg, dtype, lw)
 
     for key in ("output_norm_b", "tok_norm_b"):
@@ -1157,6 +1242,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 a = qmm(att, qw["wo"], dtype, li)
                 if "bo" in lw:  # llama.py:1264-1265
                     a = a + lw["bo"].to(dtype)
+                if cfg.attn_out_scale:  # mimo2's value scale (llama.py:1268-1269)
+                    a = (a.to(torch.float32) * cfg.attn_out_scale).to(dtype)
                 a = post_norm(a, lw, "post_attn_norm")
                 if cfg.parallel_residual:  # llama.py:1280-1290
                     if "attn_norm_2" in lw:  # falcon-40B

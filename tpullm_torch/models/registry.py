@@ -187,6 +187,12 @@ ARCH_REGISTRY: dict[str, dict] = {
     # per-HEAD sigmoid attention gate (g_proj -> (n_head,)), MoE + shexp
     "step35": dict(rope_type="neox", attn_qk_norm=True,
                    attn_gate_proj=True),
+    # ---- attention sinks, the clamped SwiGLU and the attention value scale ----
+    "gpt-oss": dict(rope_type="neox", act_fn="swiglu_oai", attn_bias=True),
+    # mimo2 (src/models/mimo2.cpp): per-layer SWA array + swa rope base,
+    # optional per-layer attention sinks, attention-output value scale,
+    # sigmoid MoE with probs bias, nextn trim
+    "mimo2": dict(rope_type="neox", expert_gating="sigmoid"),
 }
 
 

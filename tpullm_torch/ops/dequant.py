@@ -6,9 +6,10 @@ KM_SPECS and rows too short for a K tile. Like the JAX package, which leaves
 them to XLA, the port dequantizes the whole tensor and multiplies
 (ops/qmm.py:qmm); no hand-written kernel reads this layout. It is ported for
 Q8_0, the type of the small architecture fixtures
-(tpullm/utils/synth.py:build_arch_gguf), and Q4_K, which has no legal K
-tile at K 768 (Qwen3-30B-A3B's down experts in a Q4_K file); every other
-planar type raises at load (ops/qtensor.py). Numerics are bit-exact with
+(tpullm/utils/synth.py:build_arch_gguf), Q4_K, which has no legal K tile
+at K 768 (Qwen3-30B-A3B's down experts in a Q4_K file), and MXFP4, which
+has none at K 2880 (gpt-oss's experts); every other planar type raises at
+load (ops/qtensor.py). Numerics are bit-exact with
 tpullm/ops/dequant.py:dequant_jax in float32.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..gguf.constants import GGMLType
+from ..quant.kmajor import LUT_MXFP4, f32_on_device
 
 
 def _dq_q8_0(p):
@@ -35,7 +37,23 @@ def _dq_q4_K(p):
             - torch.repeat_interleave(m_sub, 32, dim=-1))
 
 
-_DEQUANT = {GGMLType.Q8_0: _dq_q8_0, GGMLType.Q4_K: _dq_q4_K}
+def _dq_mxfp4(p):
+    """tpullm/ops/dequant.py:155-161: the e8m0 byte e as the f32 of bits
+    (e - 1) << 23 (half of 2^(e - 127), the LUT holding doubled values);
+    each 4-bit code through KVALUES_MXFP4, the 16 low nibbles of a block
+    before its 16 high ones. For e < 2 the JAX function makes the subnormal
+    halves (bits 0x00200000 << e), which XLA reads as zero (its CPU and TPU
+    backends flush subnormal operands): those blocks give +-0 there, and so
+    here, where torch would keep the subnormals (llama.cpp's CPU keeps them
+    too: values below 2^-124, ROADMAP §3)."""
+    e = p["e"].to(torch.int32)
+    d = torch.where(e < 2, torch.zeros_like(e), (e - 1) << 23).view(torch.float32)[..., None]
+    lut = f32_on_device(LUT_MXFP4, e.device)
+    qs = p["qs"].to(torch.int64)
+    return d * torch.cat([lut[qs & 0xF], lut[qs >> 4]], dim=-1)
+
+
+_DEQUANT = {GGMLType.Q8_0: _dq_q8_0, GGMLType.Q4_K: _dq_q4_K, GGMLType.MXFP4: _dq_mxfp4}
 PLANAR_PORTED = frozenset(_DEQUANT)
 
 

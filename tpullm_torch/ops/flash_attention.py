@@ -11,7 +11,10 @@ ring layers to its einsum path (llama.py:268). With ALiBi (a config's
 ``alibi_max_bias``) both add slope_h * (key position - query position) to
 each score after the scale (llama.py:301-307); the kernel takes the slopes
 (``alibi_of``) where the JAX package sends ALiBi to its einsum path
-(llama.py:268-279).
+(llama.py:268-279). With attention sinks (gpt-oss, mimo2) the masked
+softmax takes each head's sink as a key without a value (llama.py:342-348);
+the kernel has no sink, so models/llama.py:attention_route keeps such calls
+off it, as the JAX prefill gate does (``sinks is None``, llama.py:268).
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ def ring_mask(kv_slot, q_slot, valid_from, window: int, ring: int):
 
 def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                      valid_from, scale: float, softcap: float = 0.0,
-                     window: int = 0, ring: int = 0, slopes=None):
+                     window: int = 0, ring: int = 0, slopes=None, sinks=None):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv) in q's dtype.
 
     Key slot s is visible to the query at slot q_slots[b, t] iff
@@ -73,7 +76,9 @@ def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
     position is within the window); on a ring bank (ring = S) by
     ``ring_mask``. GQA groups query heads by reshape. A row with no visible
     key outputs 0. ``slopes`` (H,): the ALiBi term slope_h * (kv_positions -
-    positions), added after the scale and before the softcap."""
+    positions), added after the scale and before the softcap. ``sinks``
+    (H,): each head's sink logit joins the softmax as a key without a value,
+    the max and the denominator taking it (llama.py:342-348)."""
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     G = H // Hkv
@@ -99,7 +104,13 @@ def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
         q_pos = positions[:, None, None, :, None]
         mask = mask & (kv_pos > q_pos - window)
     scores = scores.masked_fill(~mask, -math.inf)
-    probs = torch.nan_to_num(torch.softmax(scores, dim=-1), nan=0.0)  # fully masked rows
+    if sinks is not None:
+        sk = sinks.to(torch.float32).reshape(1, Hkv, G, 1)
+        m = torch.maximum(scores.amax(-1), sk)  # (B, Hkv, G, T)
+        p = torch.exp(scores - m[..., None]).masked_fill(~mask, 0.0)
+        probs = p / (p.sum(-1) + torch.exp(sk - m))[..., None]
+    else:
+        probs = torch.nan_to_num(torch.softmax(scores, dim=-1), nan=0.0)  # fully masked rows
     pm = probs.to(q.dtype).reshape(B, Hkv, G * T, S).to(torch.float32)
     out = torch.einsum("bhrs,bhsd->bhrd", pm, v_all.to(torch.float32))
     out = out.reshape(B, Hkv, G, T, Dv).permute(0, 3, 1, 2, 4)

@@ -15,8 +15,13 @@ slots must be consecutive (first + t). With ALiBi (the config's
 ``alibi_max_bias``) each score gets slope_h * (key position - query
 position) after the scale (llama.py:301-307), a key's position being its
 slot - valid_from: on kernel E, where the JAX package sends ALiBi to its
-einsum path (llama.py:277-279). ``flash_decode_builds`` says which shapes
-the kernel builds; the wrapper raises on any other.
+einsum path (llama.py:277-279). Per-head sink logits (gpt-oss, mimo2) join
+each row's denominator in the last merge. Head dim 64 (gpt-oss) is built
+beside 128 and 256, bf16 and int8 on plain banks and bf16 on the ring: the
+port's own route, as the JAX gate asks Dk % 128 == 0 (flash_decode.py:254)
+and sends it to its einsum path (``flash_decode_own_supported``).
+``flash_decode_builds`` says which shapes the kernel builds; the wrapper
+raises on any other.
 
 ``flash_decode_plain`` is the same function in plain PyTorch: the TPU
 kernel's arithmetic (f32 scores of bf16 or int8 operands, the K scale
@@ -40,7 +45,10 @@ from .flash_attention import alibi_of, ring_mask
 E_CH = {False: 128, True: 256}
 E_GRP = 8  # live splits a first-level merge of the kernel takes (csrc/flash_decode.cu)
 E_RMAX = 64  # most query rows (G * T) per kv head the kernel takes
-E_HEAD_DIMS = (128, 256)  # head dims the kernel is built for (Dk = Dv)
+E_HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for (Dk = Dv)
+# those of them the JAX gate refuses (Dk % 128 != 0): E takes them on the
+# port's own route (flash_decode_own_supported)
+E_OWN_HEAD_DIMS = (64,)
 E_KV_DTYPES = (torch.bfloat16, torch.int8)
 NEG = -1e30
 
@@ -205,7 +213,7 @@ def flash_decode(q, k_all, v_all, q_slots, positions, valid_from, cfg, window: i
     q8 = k_scales is not None
     if Dk != Dv or Dk not in E_HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_decode kernel: head dims {Dk}/{Dv}; 128 and 256 are built")
+            f"flash_decode kernel: head dims {Dk}/{Dv}; {E_HEAD_DIMS} are built (Dk = Dv)")
     want = torch.int8 if q8 else torch.bfloat16
     if k_all.dtype != want or v_all.dtype != want:
         raise ValueError(f"flash_decode kernel: K/V {k_all.dtype}/{v_all.dtype}, "
@@ -251,10 +259,25 @@ def _rows_built(T: int, H: int, Hkv: int) -> bool:
 
 def flash_decode_builds(T: int, Dk: int, Dv: int, H: int, Hkv: int, kv_dtype) -> bool:
     """The shapes the CUDA kernel builds (the wrapper raises on the rest):
-    Dk = Dv in {128, 256}, 1 <= T <= 8, H a multiple of Hkv with G * T <=
+    Dk = Dv in E_HEAD_DIMS (64, 128, 256), 1 <= T <= 8, H a multiple of Hkv with G * T <=
     E_RMAX query rows per kv head, bf16 or int8 K/V."""
     return (Dk == Dv and Dk in E_HEAD_DIMS and _rows_built(T, H, Hkv)
             and kv_dtype in E_KV_DTYPES)
+
+
+def _jax_dims(T: int, Dk: int, Dv: int) -> bool:
+    """The JAX gate's conditions on T and the head dims (flash_decode.py:
+    250-255), under TPULLM_FLASH_DECODE: T <= 8, head dims multiples of 128
+    up to 512."""
+    return (bool(os.environ.get("TPULLM_FLASH_DECODE")) and T <= 8 and Dk % 128 == 0
+            and Dv % 128 == 0 and Dk <= 512 and Dv <= 512)
+
+
+def _own_dims(T: int, Dk: int, Dv: int) -> bool:
+    """The port's own head dims (E_OWN_HEAD_DIMS), under
+    TPULLM_FLASH_DECODE, T <= 8."""
+    return (bool(os.environ.get("TPULLM_FLASH_DECODE")) and T <= 8 and Dk == Dv
+            and Dk in E_OWN_HEAD_DIMS)
 
 
 def flash_decode_ring_supported(T: int, Dk: int, Dv: int) -> bool:
@@ -262,14 +285,21 @@ def flash_decode_ring_supported(T: int, Dk: int, Dv: int) -> bool:
     package's gate says no (``not ring``, llama.py:277): flash_decode_supported
     less its conditions on the view's slot count, which a ring (window +
     chunk slots) need not meet: off unless TPULLM_FLASH_DECODE is set, then
-    T <= 8 and head dims multiples of 128 up to 512."""
-    if not os.environ.get("TPULLM_FLASH_DECODE"):
-        return False
-    return T <= 8 and Dk % 128 == 0 and Dv % 128 == 0 and Dk <= 512 and Dv <= 512
+    T <= 8 and head dims multiples of 128 up to 512, or the port's own head
+    dim 64."""
+    return _jax_dims(T, Dk, Dv) or _own_dims(T, Dk, Dv)
 
 
 def flash_decode_supported(B: int, T: int, S: int, Dk: int, Dv: int, Hkv: int) -> bool:
     """The JAX package's gate as it is (flash_decode.py:243-255): off unless
     TPULLM_FLASH_DECODE is set, then T <= 8, S a multiple of 256, head dims
     multiples of 128 up to 512."""
-    return flash_decode_ring_supported(T, Dk, Dv) and S % 256 == 0 and S >= 256
+    return _jax_dims(T, Dk, Dv) and S % 256 == 0 and S >= 256
+
+
+def flash_decode_own_supported(B: int, T: int, S: int, Dk: int, Dv: int, Hkv: int) -> bool:
+    """The port's own gate for head dim 64 (gpt-oss), which the JAX gate
+    refuses (Dk % 128, flash_decode.py:254): its other conditions as they
+    are (TPULLM_FLASH_DECODE, T <= 8, S a multiple of 256) with Dk = Dv in
+    E_OWN_HEAD_DIMS."""
+    return _own_dims(T, Dk, Dv) and S % 256 == 0 and S >= 256

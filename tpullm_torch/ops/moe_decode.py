@@ -174,18 +174,24 @@ def experts_combine(h, qt, layer, ids, top_i, w, out_dtype=torch.bfloat16):
     return _launch(h, qt, layer, ids, out_dtype, (top_i, w))
 
 
-def moe_decode(x, w, top_i, gate_w, up_w, down_w, layer, n_expert: int, dtype):
+def moe_decode(x, w, top_i, gate_w, up_w, down_w, layer, n_expert: int, dtype, act=None):
     """The routed experts of a decode step over the selected experts only:
     x (B, T, D), w and top_i (B, T, used) -> (B, T, D) in dtype, equal bit
     for bit to the all-expert loop (models/llama.py:moe_ffn) where every
-    row's experts are among the listed ones, as they always are."""
+    row's experts are among the listed ones, as they always are. ``act`` (g,
+    u) -> h is the experts' gated activation (models/llama.py:gated_act:
+    SiLU, or gpt-oss's swiglu_oai), SiLU where None. The kernels add no
+    expert bias: a biased stack keeps the loop (models/llama.py:moe_route)."""
     B, T, D = x.shape
     M = B * T
     ids = expert_slots(top_i, n_expert)
     x2 = x.reshape(M, D)
     g = qmm_experts(x2, gate_w, layer, ids, dtype)
     u = qmm_experts(x2, up_w, layer, ids, dtype)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(dtype) * u
+    if act is None:
+        h = torch.nn.functional.silu(g.to(torch.float32)).to(dtype) * u
+    else:
+        h = act(g, u)
     out = experts_combine(h, down_w, layer, ids, top_i.reshape(M, -1), w.reshape(M, -1), dtype)
     return out.reshape(B, T, -1)
 

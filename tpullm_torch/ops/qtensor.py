@@ -10,7 +10,7 @@ row-major. Layouts:
 - "planar": quant/layout.py's arrays, for weights the K-major kernels do
   not take (block types outside KM_SPECS, rows too short for a K tile);
   dequantized whole by ops/dequant.py before a plain matmul, as the JAX
-  package leaves them to XLA. Ported for Q8_0 and Q4_K only: any other
+  package leaves them to XLA. Ported for Q8_0, Q4_K and MXFP4 only: any other
   weight that would be planar raises;
 - "dense": float weights ({"w": tensor}).
 """

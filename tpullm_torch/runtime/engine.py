@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import (KVCache, check_positions, decode_route, forward, params_device,
-                            swa_flags)
+from ..models.llama import (KVCache, check_positions, decode_route, forward, has_sinks,
+                            params_device, swa_flags)
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import GREEDY, SamplerConfig, make_sample_fn
@@ -86,14 +86,15 @@ def decode_chunks(T: int, max_new_tokens: int, max_seq_len: int, decode_chunk: i
 
 
 def step_key(cfg: ModelConfig, B: int, sampler: SamplerConfig, kv_view: int, kv_dtype,
-             on_card: bool, ring: int = 0) -> tuple:
+             on_card: bool, ring: int = 0, sinks: bool = False) -> tuple:
     """What a captured decode step depends on beyond its buffers: the batch
     size, the sampler, the kv view and the attention routes that forward
     takes there (models/llama.py:decode_route, which reads
-    TPULLM_FLASH_DECODE; a dual cache's ring layers have their own). The JAX
-    key (sampler, chunk, eos, kv_view) less chunk and eos, as one step is
+    TPULLM_FLASH_DECODE; a dual cache's ring layers have their own; a model
+    with attention sinks keeps its ring steps off kernel C). The JAX key
+    (sampler, chunk, eos, kv_view) less chunk and eos, as one step is
     captured, not a chunk."""
-    return (B, sampler, kv_view, decode_route(cfg, B, kv_view, kv_dtype, on_card, ring))
+    return (B, sampler, kv_view, decode_route(cfg, B, kv_view, kv_dtype, on_card, ring, sinks))
 
 
 @dataclass
@@ -211,7 +212,7 @@ class InferenceEngine(_cuda.GraphOwner):
                 self._step(st, make_sample_fn(sampler), kv_view)
             return
         key = step_key(self.cfg, st.tok.shape[0], sampler, kv_view, st.cache.k.dtype, True,
-                       st.cache.ring)
+                       st.cache.ring, has_sinks(self.params))
         graph = self.graphs.get(key)
         if graph is None:
             with _cuda.counters_scope(st.counters):

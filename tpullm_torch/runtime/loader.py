@@ -11,8 +11,12 @@ read.
 Expert weights (E, n, k) are repacked per expert and stacked to
 (L, E, Npad, K); the expert gate/up stay unfused, as in the JAX package,
 and so do the shared expert's (qwen2moe), whose sigmoid gate vector loads
-as f32 (loader.py:103-107, 362), as does the router's selection bias
-``moe_probs_b`` (loader.py:108, 355). The dense decoder's flag tensors load
+as f32 (loader.py:103-107, 362), as do the router's selection bias
+``moe_probs_b`` (loader.py:108, 355), gpt-oss's router bias
+``moe_gate_inp_b`` and expert biases ``moe_{gate,up,down}_exps_b``
+(loader.py:109-112) and the attention sinks ``attn_sinks`` (loader.py:49,
+362). A key that only some layers carry (mimo2's sinks) splits the depth
+into layer groups, as the JAX loader stacks it. The dense decoder's flag tensors load
 as the JAX package names them: q/k biases and norms, the GGUF-fused attn_qkv
 with its bias, the post-norms, the layernorm archs' norm biases (the
 output norm's too), falcon-40B's attn_norm_2, the output projection's bias
@@ -29,8 +33,8 @@ wq or wq_a/q_a_norm/wq_b, wkv_a and kv_a_norm, and the absorption banks
 wk_b and wv_b as dense f32, split from a legacy attn_kv_b where the file
 has one (_mla_prepare, loader.py:268-290); glm-dsa's DSA indexer tensors
 are passed over unread, as the JAX loader leaves them.
-Every other tensor (expert biases, ffn_norm_exps, chunk experts, the
-output bias that phi-2's file carries, ...) raises, and so does a shared
+Every other tensor (ffn_norm_exps, chunk experts, the output bias that
+phi-2's file carries, ...) raises, and so does a shared
 expert without all of its gate, up and down.
 """
 from __future__ import annotations
@@ -97,6 +101,14 @@ LAYER_TENSORS = {
     # the router's selection bias (loader.py:108), added to the
     # probabilities for the top-k choice only
     "exp_probs_b.bias": "moe_probs_b",
+    # gpt-oss: the router's bias on its logits and each expert's gate, up
+    # and down biases (loader.py:109-112), and the per-head attention sink
+    # logits (loader.py:49), on every layer or on some (mimo2)
+    "ffn_gate_inp.bias": "moe_gate_inp_b",
+    "ffn_gate_exps.bias": "moe_gate_exps_b",
+    "ffn_up_exps.bias": "moe_up_exps_b",
+    "ffn_down_exps.bias": "moe_down_exps_b",
+    "attn_sinks.weight": "attn_sinks",
 }
 # MLA's tensors (loader.py:41-48), read where the config has kv_lora_rank:
 # elsewhere they are unknown names and raise. The split attn_k_b/attn_v_b,
@@ -116,11 +128,13 @@ MLA_TENSORS = {
 # the loader passes over unread, and only for that arch
 INDEXER_TENSORS = ("indexer.k_norm.weight", "indexer.k_norm.bias", "indexer.proj.weight",
                    "indexer.attn_k.weight", "indexer.attn_q_b.weight")
-# norms, biases, the shared expert's gate and the selection bias load as
-# f32 arrays (loader.py:209-229, 355-362)
+# norms, biases, the shared expert's gate, the selection bias, the router's
+# and the experts' biases and the sinks load as f32 arrays (loader.py:209-229,
+# 355-362)
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
                      "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp",
-                     "moe_probs_b",
+                     "moe_probs_b", "moe_gate_inp_b", "moe_gate_exps_b", "moe_up_exps_b",
+                     "moe_down_exps_b", "attn_sinks",
                      "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
                      "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b",
                      "q_a_norm", "kv_a_norm"}

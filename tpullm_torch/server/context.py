@@ -52,7 +52,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.llama import (MOE_KEYS, check_dense, check_positions, decode_route, forward,
-                            params_device)
+                            has_sinks, params_device)
 from ..ops import _cuda
 from ..ops._cuda import resolve_device
 from ..ops.sampling import BatchSamplerParams, PenaltyState, SamplerConfig, sample_batch
@@ -183,15 +183,16 @@ class ServerDecodeState:
 
 
 def step_key(cfg: ModelConfig, n_slots: int, kv_view: int, want_probs: bool, kv_dtype,
-             on_card: bool, ring: int = 0) -> tuple:
+             on_card: bool, ring: int = 0, sinks: bool = False) -> tuple:
     """What a captured server decode step depends on beyond its buffers: the
     slots, the kv view, whether it writes logprobs, and the attention routes
     forward takes there (models/llama.py:decode_route, which reads
     TPULLM_FLASH_DECODE at each call; a dual cache's ring layers have their
-    own). The per-row sampler parameters are tensors, so admissions never
-    need a new graph."""
+    own; a model with attention sinks keeps its ring steps off kernel C).
+    The per-row sampler parameters are tensors, so admissions never need a
+    new graph."""
     return (n_slots, kv_view, want_probs,
-            decode_route(cfg, n_slots, kv_view, kv_dtype, on_card, ring))
+            decode_route(cfg, n_slots, kv_view, kv_dtype, on_card, ring, sinks))
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -554,7 +555,8 @@ class ServerContext(_cuda.GraphOwner):
             self._step(kv_view, want_probs)
             return
         key = step_key(self.cfg, self.n_slots, kv_view, want_probs,
-                       self.memory.cache.k.dtype, True, self.memory.cache.ring)
+                       self.memory.cache.k.dtype, True, self.memory.cache.ring,
+                       has_sinks(self.params))
         graph = self.graphs.get(key)
         if graph is None:
             self._warm_up_and_capture(key, kv_view, want_probs)

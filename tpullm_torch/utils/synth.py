@@ -18,6 +18,10 @@
   f32, optional YaRN, a dense lead, routed experts and a shared expert),
   each weight Q4_K or, where K is not a multiple of 256, Q8_0, K-major
   or planar as the loader would lay it out, drawn on the device;
+- ``synth_gptoss``: a gpt-oss model (MXFP4 experts with their biases and
+  the router's bias, Q8_0 attention with q/k/v and output biases and
+  per-head sinks, K-major or planar as the loader would lay each weight
+  out), drawn on the device;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks;
 - ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's or Qwen2's
@@ -452,6 +456,83 @@ def synth_mla_q4k(*, arch: str = "deepseek2", vocab_size: int, n_embd: int, n_la
     apply_arch_defaults(cfg)
     return cfg, {"tok_embd": embd, "output": out, "output_norm": ones(n_embd),
                  "layers": params_layers}
+
+
+def _gptoss_weight(qtype: GGMLType, n: int, K: int, lead: tuple, gen: torch.Generator,
+                   device) -> QTensor:
+    """One (lead..., n, K) weight of a gpt-oss file: K-major where the
+    kernels take K (pick_tile_k), else planar, as the loader lays it out;
+    Q8_0 or MXFP4, drawn on ``device`` with ``gen``. A planar MXFP4 block's
+    e8m0 byte is drawn in [119, 122) (the scale 2^(e - 128) times the
+    doubled LUT values, RMS ~5.9: a weight std near 1/sqrt(2880)), its 16
+    code bytes uniform; a planar Q8_0 block as _mla_weight draws it."""
+    from ..ops.qmm import qmm_supported
+
+    if qmm_supported(qtype, K):
+        qt = random_kmajor(qtype, [n], K, lead, gen, device)
+        return QTensor(qtype, lead + (n, K), qt.data)
+    if qtype == GGMLType.Q8_0:
+        return _mla_weight(n, K, lead, gen, device)
+    nb = K // 32
+    ints = lambda lo, hi, shape: torch.randint(lo, hi, lead + (n,) + shape, generator=gen,
+                                               device=device, dtype=torch.uint8)
+    return QTensor(qtype, lead + (n, K), {"qs": ints(0, 256, (nb, 16)), "e": ints(119, 122, (nb,))})
+
+
+def synth_gptoss(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int, n_head_kv: int,
+                 head_dim: int, n_expert: int, n_expert_used: int, n_ff_exp: int,
+                 sliding_window: int = 0, swa_layer_pattern: tuple = (),
+                 rope_base: float = 150000.0, rms_eps: float = 1e-5, seed: int = 0,
+                 device="cuda", cfg_fields: dict | None = None):
+    """-> (ModelConfig, params) of a gpt-oss model (arch gpt-oss: the
+    clamped swiglu_oai, q/k/v and output biases, per-head attention sinks,
+    routed experts with the router's bias and each expert's gate, up and
+    down biases) on ``device``, as the loader gives a gpt-oss file: MXFP4
+    experts (n_expert of n_ff_exp, top n_expert_used), Q8_0 attention
+    projections, embedding and untied lm_head of vocab_size rows, each
+    K-major where the kernels take its K and planar where no K-major tile
+    fits (gpt-oss-20b's K 2880: the experts, q/k/v, the embedding and the
+    lm_head; wo at K n_head * head_dim = 4096 is K-major), q/k/v fused by
+    the loader's fuse step where K-major; the norms 1 + N(0, 0.1), the
+    biases N(0, 0.02) (the experts' N(0, 0.05)), the sinks N(0, 1), the F32
+    router N(0, 0.02) with its bias N(0, 0.1). ``sliding_window`` and
+    ``swa_layer_pattern`` (one flag a layer: the per-layer array with
+    swa_pattern 2, as config_from_gguf parses it) set the windows;
+    ``cfg_fields`` sets config fields as a file's keys would (YaRN,
+    expert_weights_norm, ...). Everything is drawn with one
+    torch.Generator seeded with ``seed`` on ``device``."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, LE = (n_layer,), (n_layer, n_expert)
+    nq, nkv = n_head * head_dim, n_head_kv * head_dim
+    q8 = lambda n, K, lead=L: _gptoss_weight(GGMLType.Q8_0, n, K, lead, gen, device)
+    normal = lambda std, *s: torch.randn(s, generator=gen, device=device) * std
+    near1 = lambda *s: 1.0 + normal(0.1, *s)
+    embd, out = q8(vocab_size, n_embd, ()), q8(vocab_size, n_embd, ())
+    layers = {"attn_norm": near1(n_layer, n_embd), "ffn_norm": near1(n_layer, n_embd),
+              "wq": q8(nq, n_embd), "wk": q8(nkv, n_embd), "wv": q8(nkv, n_embd),
+              "wo": q8(n_embd, nq), "bq": normal(0.02, n_layer, nq),
+              "bk": normal(0.02, n_layer, nkv), "bv": normal(0.02, n_layer, nkv),
+              "bo": normal(0.02, n_layer, n_embd), "attn_sinks": normal(1.0, n_layer, n_head),
+              "moe_gate_inp": QTensor(GGMLType.F32, LE + (n_embd,),
+                                      {"w": normal(0.02, *LE, n_embd)}),
+              "moe_gate_inp_b": normal(0.1, *LE)}
+    for name, n, K in (("gate", n_ff_exp, n_embd), ("up", n_ff_exp, n_embd),
+                       ("down", n_embd, n_ff_exp)):
+        layers[f"moe_{name}_exps"] = _gptoss_weight(GGMLType.MXFP4, n, K, LE, gen, device)
+        layers[f"moe_{name}_exps_b"] = normal(0.05, *LE, n)
+    fields = dict(cfg_fields or {})
+    if swa_layer_pattern:
+        fields.update(swa_layer_pattern=tuple(bool(f) for f in swa_layer_pattern), swa_pattern=2)
+    cfg = ModelConfig(
+        arch="gpt-oss", vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer, n_head=n_head,
+        n_head_kv=n_head_kv, head_dim=head_dim, head_dim_v=head_dim, n_ff=n_ff_exp,
+        rope_dim=head_dim, rope_base=rope_base, rms_eps=rms_eps, n_expert=n_expert,
+        n_expert_used=n_expert_used, n_ff_exp=n_ff_exp, sliding_window=sliding_window,
+        **fields)
+    apply_arch_defaults(cfg)
+    return cfg, {"tok_embd": embd, "output": out, "output_norm": near1(n_embd),
+                 "layers": fuse_layer_weights(layers, cfg)}
 
 
 def synth_mixtral_q4k(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int,

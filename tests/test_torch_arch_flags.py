@@ -77,6 +77,11 @@ GATEUP_SWA_ARCHS = ["phi3", "chatglm", "plamo3", "step35"]
 # biases; mimo2: the SWA array, the value scale and a sigmoid MoE with the
 # selection bias); their other cases are in tests/test_torch_sinks.py
 SINK_ARCHS = ["gpt-oss", "mimo2"]
+# the iRoPE rows (NoPE layers on a period; llama4's chunked windows,
+# temperature and L2 QK norm; smallthinker's relu experts and router input;
+# afmoe's full-width attention gate); their other cases are in
+# tests/test_torch_irope.py
+IROPE_ARCHS = ["llama4", "smallthinker", "afmoe"]
 KMAJOR_ARCHS = ["qwen3", "qwen2", "qwen", "glm4", "olmo2"]
 PROMPTS = [[3, 9, 4, 17, 6], [5, 1, 2], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 2, 3, 4, 5,
                                          6, 7, 8, 9, 30]]
@@ -106,14 +111,15 @@ def test_registry_rows_are_the_jax_rows():
 
     assert set(FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS + LAYERNORM_ARCHS
                + POSITION_ARCHS + AS_IS_ARCHS + LEAD_BIAS_ARCHS + MLA_ARCHS + GATEUP_SWA_ARCHS
-               + SINK_ARCHS + ["llama", "mixtral", "qwen3moe", "qwen2moe", "deepseek2"]) == set(ARCH_REGISTRY)
+               + SINK_ARCHS + IROPE_ARCHS
+               + ["llama", "mixtral", "qwen3moe", "qwen2moe", "deepseek2"]) == set(ARCH_REGISTRY)
     for arch, row in ARCH_REGISTRY.items():
         assert row == JREG[arch], arch
 
 
 @pytest.mark.parametrize("arch", FLAG_ARCHS + PLAIN_ARCHS + SCALE_ARCHS + GEMMA_ARCHS
                          + AS_IS_ARCHS + LEAD_BIAS_ARCHS + MLA_ARCHS + GATEUP_SWA_ARCHS
-                         + SINK_ARCHS)
+                         + SINK_ARCHS + IROPE_ARCHS)
 def test_arch_snapshot(arch, tmp_path):
     """tests/snapshots/{arch}.npz (the JAX package's golden, from
     build_arch_gguf(seed=11), or build_deepseek2_gguf(seed=11) for the MLA
@@ -238,12 +244,15 @@ def test_server_context_matches_jax(kmajor_models, arch, kv):
 # (glm4, exaone4, olmo2, gemma2, gemma3) fail the kernel's own gate
 # (post_norms), and the no-pre-norm archs (exaone4, olmo2) have no ffn_norm;
 # gemma v1 takes it with gelu; granite and minicpm at the synth's residual
-# scale of 1 take it (test_layer_kernel_off_scaled_residuals holds the rest).
+# scale of 1 take it (test_layer_kernel_off_scaled_residuals holds the rest);
+# llama4's dense synth file takes the block but not the fold (its NoPE layer,
+# llama.py:1422).
 GATES = {"qwen3": (True, True), "hunyuan-dense": (True, True), "maincoder": (True, True),
          "qwen2": (False, False), "qwen": (False, False), "glm4": (False, False),
          "exaone4": (False, False), "olmo2": (False, False), "mistral": (True, True),
          "seed_oss": (True, True), "gemma": (True, True), "gemma2": (False, False),
-         "gemma3": (False, False), "granite": (True, True), "minicpm": (True, True)}
+         "gemma3": (False, False), "granite": (True, True), "minicpm": (True, True),
+         "llama4": (True, False)}
 
 
 @pytest.mark.parametrize("arch", sorted(GATES))

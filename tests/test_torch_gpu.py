@@ -2200,3 +2200,106 @@ def test_gptoss_engine_on_card_matches_cpu(cuda, monkeypatch):
     ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
     assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
     assert _nmse(logits["card_ring"][0], logits["cpu"][0]) < 4 * ref
+
+
+# ------------------------------------------ the iRoPE decoders (llama4)
+
+@pytest.mark.parametrize("heads", [(4, 4), (10, 2), (8, 1)], ids=["G1", "G5", "G8"])
+@pytest.mark.parametrize("window", [64, 128, 8192])
+@pytest.mark.parametrize("T,n_past,S,S_full", [
+    (128, 0, 256, 256), (512, 1000, 2048, 2560), (512, 8000, 16384, 16384),
+    (192, 128, 320, 448)],
+    ids=["T128", "T512-deep", "T512-8000", "T192-odd"])
+def test_flash_attention_kernel_chunked(cuda, heads, window, T, n_past, S, S_full):
+    """Kernel C with llama4's chunked window against its plain version
+    (masked_attention(..., chunked=True)), valid_from 0, 37 and 100: blocks
+    at a chunk's start, straddling one (a 512-row block from slot 1000 over
+    windows of 64 and 128; rows 8000-8511 over the 8192 boundary of a
+    16384-slot view) and wholly past one: NMSE < 1e-4 over rows with a
+    visible key, the rows with none exactly 0, two calls identical. The
+    chunk moves the output from the sliding window's where the block
+    straddles a boundary."""
+    H, Hkv = heads
+    q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda, H, Hkv, T, S, S_full, (0, 37, 100), n_past)
+    cfg = ModelConfig(n_head=H, n_head_kv=Hkv, head_dim=128, head_dim_v=128,
+                      sliding_window=window, swa_chunked=True)
+    before = _cuda.COUNTS["flash_attention"]
+    got = flash_attention(q, k, v, qs, kvp, pos, vf, cfg, layer_is_swa=True)
+    again = flash_attention(q, k, v, qs, kvp, pos, vf, cfg, layer_is_swa=True)
+    want = masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / 128 ** 0.5, 0.0, window,
+                            chunked=True)
+    torch.cuda.synchronize()
+    assert _cuda.COUNTS["flash_attention"] == before + 2
+    assert torch.equal(got, again)
+    for b, f in enumerate(vf.tolist()):
+        live = qs[b] >= f
+        assert torch.count_nonzero(got[b, ~live]) == 0
+        assert _nmse(got[b, live], want[b, live]) < 1e-4
+    live = qs >= vf[:, None]  # a left-padding row's position is negative: no chunk of its own
+    straddles = any(int(p[l].min()) // window != int(p[l].max()) // window
+                    for p, l in zip(pos, live))
+    if straddles:
+        sliding = masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / 128 ** 0.5, 0.0, window)
+        assert _nmse(sliding, want) > 1e-4
+
+
+def test_flash_attention_kernel_chunked_head_dim_256(cuda):
+    """C's head-dim-256 instance with the chunked mask, a 512-row block
+    straddling a chunk boundary of 128: NMSE < 1e-4 against the plain
+    version."""
+    q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda, 8, 4, 512, 2048, 2560, (0, 37), 1000, D=256)
+    cfg = ModelConfig(n_head=8, n_head_kv=4, head_dim=256, head_dim_v=256, sliding_window=128,
+                      swa_chunked=True)
+    got = flash_attention(q, k, v, qs, kvp, pos, vf, cfg, layer_is_swa=True)
+    want = masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / 256 ** 0.5, 0.0, 128, chunked=True)
+    assert _nmse(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("flag", [None, "1"], ids=["E_off", "E_on"])
+def test_llama4_engine_on_card_matches_cpu(cuda, monkeypatch, flag):
+    """A 4-layer llama4 model (synth_moe_q4k: 4 heads of 128 over 2 kv
+    heads, 4 experts of 512 top-1 by sigmoid, an ungated shared expert of
+    512; chunks of 64, layer 3 NoPE with the temperature floor cut to 8,
+    the L2 QK norm): the engine on the card against the plain path on the
+    CPU in f32, within 4x the plain bf16 error, with the 100-token prompt's
+    prefill straddling the chunk boundary at 64 in C (chunked) and its
+    decode steps at temperatures above 1: A, B, C, F, the skip and the
+    store launched, D not (E with TPULLM_FLASH_DECODE=1, chunked); the same
+    requests with cuda_graphs=False give the graph's tokens and launch
+    counts, so the NoPE layer and the temperature ride inside the captured
+    step."""
+    import numpy as np
+
+    from tpullm_torch.models.llama import nope_flags
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_moe_q4k
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = synth_moe_q4k(arch="llama4", vocab_size=500, n_embd=512, n_layer=4,
+                                n_head=4, n_head_kv=2, head_dim=128, n_ff=1024, n_expert=4,
+                                n_expert_used=1, n_ff_exp=512, n_ff_shexp=512, shexp_gate=False,
+                                rope_base=5e5, exact_vocab=True, seed=3, device="cpu",
+                                cfg_fields=dict(sliding_window=64, attn_temp_floor=8))
+    assert nope_flags(cfg) == [False, False, False, True] and cfg.swa_chunked
+    card = _to(params, "cuda")
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    for k in ("qmm_splitk", "qmm", "flash_attention", "moe_gmm", "qmm_experts", "kv_store"):
+        assert c[k] > 0, (k, c)
+    assert c["layer_kernel"] == 0 and (c["flash_decode"] > 0) == bool(flag), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref

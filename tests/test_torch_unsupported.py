@@ -20,12 +20,15 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("swa_chunked", True), ("no_rope_interval", 4), ("n_expert", 8),
-    ("n_expert_shared", 2), ("qk_l2_norm", True), ("n_embd_per_layer", 256),
+    ("gemma4_attn", True), ("altup_n", 4), ("n_expert", 8),
+    ("n_expert_shared", 2), ("diffusion", True), ("n_embd_per_layer", 256),
     ("attn_out_gate", True),
     ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
-    ("swa_dense_first", True), ("ssm_d_conv", 4), ("attn_temp_scale", 0.1)])
+    ("full_attn_interval", 4), ("ssm_d_conv", 4), ("n_rel_attn_bkts", 32)])
 def test_flag_outside_dense_path_raises(field, value):
+    """Every field outside the covered paths raises on the dense path. (The
+    iRoPE fields, llama4's chunk and smallthinker's dense-first pattern
+    pass since the port runs them: tests/test_torch_irope.py.)"""
     cfg = ModelConfig()
     check_dense(cfg)
     with pytest.raises(NotImplementedError, match=field):
@@ -37,14 +40,14 @@ MIXTRAL = ModelConfig(arch="mixtral", n_expert=8, n_expert_used=2, expert_weight
 
 @pytest.mark.parametrize("field,value", [
     ("expert_group_scale", 2.0), ("n_group_experts", 2), ("n_ff_chexp", 64),
-    ("moe_router_pre_norm", True), ("moe_dense_parallel", "grok"), ("act_fn", "gelu"),
+    ("moe_every_n", 2), ("moe_dense_parallel", "grok"), ("act_fn", "gelu"),
     ("n_expert_used", 9), ("expert_gating", "softmax_weight")])
 def test_flag_outside_moe_path_raises(field, value):
     """The MoE fields pass only with MoE tensors (moe=True); the other MoE
     features still raise. (The dense lead's count passes since the port
     runs leading dense layers: test_dense_lead_passes_with_moe_only; so does
     the shared experts' count, whose width the shared expert's tensors
-    carry.)"""
+    carry, and smallthinker's router input, moe_router_pre_norm.)"""
     check_dense(MIXTRAL, moe=True)
     with pytest.raises(NotImplementedError, match="n_expert|MoE|" + field):
         check_dense(dataclasses.replace(MIXTRAL, **{field: value}), moe=True)
@@ -114,35 +117,40 @@ def test_new_rows_keep_their_refusals(arch, key, value):
         config_from_gguf(_Meta({f"{arch}.{key}": value}, arch))
 
 
-@pytest.mark.parametrize("arch,key", [("afmoe", "afmoe.attention.sliding_window"),
+@pytest.mark.parametrize("arch,key", [("dbrx", "dbrx.attention.clamp_kqv"),
                                       ("grovemoe", "grovemoe.experts_per_group"),
-                                      ("smallthinker", "smallthinker.expert_count")])
+                                      ("arctic", "arctic.expert_count")])
 def test_unported_moe_archs_raise(arch, key):
-    """afmoe, grovemoe and smallthinker stay out of the registry: a file of
-    theirs raises at the arch gate, whatever its keys."""
+    """dbrx, grovemoe and arctic stay out of the registry (a dense FFN beside
+    the MoE, dbrx's norm name, chunk experts): a file of theirs raises at the
+    arch gate, whatever its keys. (afmoe and smallthinker run:
+    tests/test_torch_irope.py.)"""
     with pytest.raises(NotImplementedError, match=arch):
         config_from_gguf(_Meta({key: 4}, arch))
 
 
-def test_afmoe_attention_gate_tensors_raise(tmp_path, monkeypatch):
-    """Even with its JAX row added and its keys let through (the dense lead
-    and the selection bias now load), an afmoe file raises at load on its
-    own post-norm names, which the port does not run. Its attention gate
-    loads under the per-head gate's name (step35's), and a gate as wide as
-    the attention output raises in forward
-    (test_full_width_attention_gate_raises)."""
-    from tpullm.models.registry import ARCH_REGISTRY as JREG
+def test_afmoe_attention_gate_tensors_raise(tmp_path):
+    """An afmoe file loads: its post-norm names (attn_post_norm,
+    ffn_post_norm) as the post-norms, its attention gate as wide as the
+    attention output as wqkv_gate, and its forward runs. A gate of another
+    width (here the per-head gate's n_head rows cut to n_head - 1) still
+    raises in forward, naming both widths the port runs."""
     from tpullm.utils.synth import build_arch_gguf
-    from tpullm_torch.models.registry import ARCH_REGISTRY
 
     path = str(tmp_path / "afmoe.gguf")
     build_arch_gguf(path, "afmoe", seed=11)
-    with pytest.raises(NotImplementedError, match="afmoe"):
-        load_model(path, device="cpu")
-    monkeypatch.setitem(ARCH_REGISTRY, "afmoe", JREG["afmoe"])
-    with pytest.raises(NotImplementedError, match="attn_post_norm") as e:
-        load_model(path, device="cpu")
-    assert "ffn_post_norm" in str(e.value) and "attn_gate" not in str(e.value)
+    cfg, params = load_model(path, device="cpu")[:2]
+    groups = params["layers"]["__groups__"]
+    for gl in groups:
+        assert {"post_attn_norm", "post_ffn_norm"} <= set(gl)
+        assert gl["wqkv_gate"].n_out == cfg.n_head * cfg.head_dim_v
+    assert torch.isfinite(_forward(cfg, params)[0]).all()
+    gate = groups[1]["wqkv_gate"]
+    groups[1]["wqkv_gate"] = type(gate)(gate.qtype, (1, cfg.n_head - 1, cfg.n_embd),
+                                        dict(gate.data))
+    with pytest.raises(NotImplementedError, match=f"wqkv_gate.*{cfg.n_head} rows.*"
+                                                  f"{cfg.n_head * cfg.head_dim_v} rows"):
+        _forward(cfg, params)
 
 
 def _kimi_gguf(tmp_path, monkeypatch, extra):
@@ -272,8 +280,8 @@ def test_per_layer_head_counts_raise():
 
 
 def test_other_arch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="llama4"):
-        load_model(_gguf(tmp_path, arch="llama4"), device="cpu")
+    with pytest.raises(NotImplementedError, match="grok"):
+        load_model(_gguf(tmp_path, arch="grok"), device="cpu")
 
 
 def test_swa_array_is_the_only_per_layer_key():
@@ -324,14 +332,18 @@ def test_ffn_without_a_gate_layout_raises(tmp_path, layout):
 
 
 def test_full_width_attention_gate_raises(tmp_path):
-    """The attention output gate runs per head (step35): a gate as wide as
-    the attention output (afmoe's) raises in forward, naming it."""
+    """The attention output gate runs per head (step35) or as wide as the
+    attention output (afmoe's, n_head x head_dim rows: here wo's arrays,
+    512 rows); a gate of any other width (256 rows) raises in forward,
+    naming it."""
     import dataclasses as dc
 
     cfg, params = _layers(tmp_path)
     cfg = dc.replace(cfg, attn_gate_proj=True)
     wide = params["layers"]["wo"]  # (L, n_embd, n_head * head_dim) = (2, 512, 512)
     params["layers"]["wqkv_gate"] = type(wide)(wide.qtype, wide.shape, dict(wide.data))
+    assert torch.isfinite(_forward(cfg, params)[0]).all()
+    params["layers"]["wqkv_gate"] = type(wide)(wide.qtype, (2, 256, 512), dict(wide.data))
     with pytest.raises(NotImplementedError, match="wqkv_gate"):
         _forward(cfg, params)
     del params["layers"]["wqkv_gate"]

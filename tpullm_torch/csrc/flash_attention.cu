@@ -78,6 +78,17 @@
 //   windows). Without slopes
 //   the instance computes what it did before, bit for bit; with them no
 //   softcap (no arch has both).
+// - llama4's chunked window (chunked set; the port's own route: the Pallas
+//   kernel masks such a layer as a sliding window,
+//   tpullm/ops/flash_attention.py:61-64, where the JAX einsum path, the
+//   oracle, masks by chunk, tpullm/models/llama.py:335-337): the query at
+//   position p sees the keys of positions floor(p / w) * w .. p, each row's
+//   first visible key max(valid_from, its chunk's start). The KV loop starts
+//   at the tile of the block's least query position's chunk start (in slots,
+//   valid_from + floor(p_min / w) * w, as kernel E's split range does), so a
+//   block past a chunk boundary reads no tile of the chunks before, and a
+//   block that straddles one masks each row by its own chunk. Never on a
+//   ring (the dual cache builds none for chunked layers).
 // No split over keys and no atomics: repeats are bit-identical.
 #include "hopper.cuh"
 
@@ -105,7 +116,7 @@ struct Tiles {
   static constexpr int Q_BYTES = TQ * HD * 2;      // one warpgroup's Q: HD / 64 atoms
   static constexpr int KV_BYTES = TK * HD * 2;     // one K or V tile: HD / 64 atoms
   static constexpr int SMEM = 1024 + NC * Q_BYTES + STAGES * 2 * KV_BYTES +
-                              (1 + 3 * STAGES) * 8 + 2 * 2 * TQ * 4 + 2 * 4 * 4;
+                              (1 + 3 * STAGES) * 8 + 2 * 2 * TQ * 4 + 3 * 4 * 4;
   static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
@@ -119,6 +130,7 @@ struct FaArgs {
   int T, S, G;
   float scale_log2, softcap_in, softcap_out;  // softcap_in 0: no softcap
   int window;
+  int chunked;  // the window is llama4's chunk (never with a ring)
   int ring;  // > 0: S = ring slots of an iSWA ring bank, read by position
   const float* slopes;  // (H,) ALiBi slopes, or null
 };
@@ -127,6 +139,13 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// a / b rounded toward minus infinity (b > 0): a left-padding row's
+// position is negative
+__device__ __forceinline__ int floordiv(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -178,7 +197,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   uint64_t* empty = vfull + STAGES;
   int* qs_s = reinterpret_cast<int*>(empty + STAGES);  // 128 query slots, then positions
   int* qp_s = qs_s + 2 * TQ;
-  int* red = qp_s + 2 * TQ;  // each warp's least and largest slot of its 32 rows
+  int* red = qp_s + 2 * TQ;  // each warp's least and largest slot and least position
 
   const int tid = threadIdx.x;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -197,13 +216,16 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     const int w = tid / TQ, t = (w ? tile[1] : tile[0]) * TQ + tid % TQ;
     const bool in = (w ? present[1] : present[0]) && t < a.T;
     const int qs = in ? a.qslots[b * a.T + t] : -1;
+    const int qp = in ? a.qpos[b * a.T + t] : 0;
     qs_s[tid] = qs;
-    qp_s[tid] = in ? a.qpos[b * a.T + t] : 0;
+    qp_s[tid] = qp;
     const int wl = __reduce_min_sync(0xffffffffu, in ? qs : 0x7fffffff);
     const int wh = __reduce_max_sync(0xffffffffu, qs);
+    const int wp = __reduce_min_sync(0xffffffffu, in ? qp : 0x7fffffff);
     if (tid % 32 == 0) {
       red[tid / 32] = wl;
       red[4 + tid / 32] = wh;
+      red[8 + tid / 32] = wp;
     }
   }
   __syncthreads();
@@ -213,7 +235,12 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int max_q = max(hi[0], hi[1]);  // an absent pair's rows hold slot -1
   // a ring's window in positions, and the first position any row sees
   const int wr = a.ring > 0 ? (a.window > 0 ? min(a.window, a.ring) : a.ring) : 0;
-  const int s_first = a.ring > 0 ? max(vf, min(lo[0], lo[1]) - wr + 1) : max(vf, 0);
+  // a chunked block: no key before its least query position's chunk
+  const int p_min = min(min(red[8], red[9]), min(red[10], red[11]));
+  const int s_first =
+      a.ring > 0 ? max(vf, min(lo[0], lo[1]) - wr + 1)
+                 : max(vf, a.chunked && p_min != 0x7fffffff
+                               ? vf + floordiv(p_min, a.window) * a.window : 0);
   const int s_begin = (s_first / TK) * TK;
   const int s_end = a.ring > 0 ? max_q + 1 : min(a.S, max_q + 1);
   __nv_bfloat16* ob = a.o + b * a.o_sb;
@@ -285,6 +312,10 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   // ALiBi: the head's slope in log2 units; key k's term is al * (k + ab)
   const float al = a.slopes != nullptr && mine ? __ldg(a.slopes + my_head) * LOG2E : 0.f;
   const int ab0 = -vf - p0, ab1 = -vf - p1;
+  // each row's least visible key position under a window: its chunk's
+  // start, or p - window + 1 for a sliding window
+  const int c0 = a.chunked ? floordiv(p0, a.window) * a.window : p0 - a.window + 1;
+  const int c1 = a.chunked ? floordiv(p1, a.window) * a.window : p1 - a.window + 1;
 
   float o[NH][64];
 #pragma unroll
@@ -354,8 +385,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
             bool ok1 = key >= vf && key <= q1 && key < a.S;
             if (a.window && key < a.S) {
               const int kp = __ldg(kvp + key);
-              ok0 = ok0 && kp > p0 - a.window;
-              ok1 = ok1 && kp > p1 - a.window;
+              ok0 = ok0 && kp >= c0;
+              ok1 = ok1 && kp >= c1;
             }
             if (!ok0) sc[4 * j + e] = NEG;
             if (!ok1) sc[4 * j + 2 + e] = NEG;
@@ -489,13 +520,13 @@ extern "C" int tpq_flash_attention(
     int Hkv, int T, int S, int D, long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_st, float scale,
-    float softcap, int window, int ring, const void* slopes, void* stream) {
+    float softcap, int window, int chunked, int ring, const void* slopes, void* stream) {
   cudaGetLastError();
   // T: any count of rows (the last query tile may be partial); S and a ring
   // multiples of 64
   if ((D != 128 && D != 256) || T < 1 || S % 64 || Hkv < 1 || H % Hkv ||
       (o_sb | o_sh | o_st) % 8 || ring < 0 || (ring > 0 && ring != S) ||
-      (slopes != nullptr && softcap != 0.f))
+      (slopes != nullptr && softcap != 0.f) || (chunked && (ring > 0 || window <= 0)))
     return (int)cudaErrorInvalidValue;
   FaArgs a;
   a.qslots = reinterpret_cast<const int*>(qslots);
@@ -509,6 +540,7 @@ extern "C" int tpq_flash_attention(
   a.softcap_in = softcap != 0.f ? scale / softcap : 0.f;
   a.softcap_out = softcap * LOG2E;
   a.window = window;
+  a.chunked = chunked;
   a.ring = ring;
   a.slopes = reinterpret_cast<const float*>(slopes);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -202,7 +202,10 @@ DENSE_KEYS = frozenset({
     "rope.dimension_count", "rope.scaling.type", "rope.scaling.factor",
     "rope.scaling.original_context_length",
     # the gemma family's sliding windows (the pattern a scalar period or a
-    # per-layer 0/1 array: exaone4, step35), softcaps and SWA rope base; the
+    # per-layer 0/1 array: exaone4, step35; llama4's chunk, as the JAX parser
+    # reads it, config.py:240: llama.cpp appears to fix 8192 in code, so a
+    # file without the key has no chunked layer here either), softcaps and
+    # SWA rope base; the
     # granite/minicpm scales (gemma's embedding scale comes from its registry
     # row)
     "attention.sliding_window", "attention.sliding_window_pattern",
@@ -231,6 +234,9 @@ MOE_KEYS = frozenset({
     # graph runs: they come off n_layer and their tensors are not read
     # (config.py:260-265)
     "leading_dense_block_count", "nextn_predict_layers",
+    # llama4's MoE period: 1 (every layer MoE, Scout's files) passes; any
+    # other value raises (config_from_gguf)
+    "interleave_moe_layer_step",
 })
 # MLA, the compressed-KV attention of the deepseek2 family (config.py:243-257
 # of the JAX parser): the q and kv low ranks, the per-head q and v dims of
@@ -350,6 +356,15 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
         cfg.rope_yarn_log_mul = float(
             get("rope.scaling.yarn_log_multiplier", 0.0) or 0.0) / 0.1
     cfg.n_layer_dense_lead = int(get("leading_dense_block_count", 0) or 0)
+    step = int(get("interleave_moe_layer_step", 1) or 1)
+    if step != 1:
+        # Maverick's files interleave dense and MoE layers (step 2), which no
+        # JAX graph builds: the JAX parser reads no such key and runs every
+        # layer by its tensors
+        raise NotImplementedError(
+            f"{arch}.interleave_moe_layer_step={step}: dense layers interleaved with the "
+            "MoE layers (Llama-4-Maverick's files) are not on the covered paths; 1 (every "
+            "layer MoE, Scout's) is")
     nextn = int(get("nextn_predict_layers", 0) or 0)
     if nextn:
         cfg.n_layer -= nextn
@@ -361,4 +376,7 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     apply_arch_defaults(cfg)
     if cfg.alibi_max_bias > 0:  # ALiBi replaces RoPE, after the row's defaults (refact's bias)
         cfg.use_rope = False
+    if arch == "smallthinker" and cfg.sliding_window:
+        # the SWA layers rope, the periodic dense layers do not (config.py:405-408)
+        cfg.no_rope_interval = cfg.swa_pattern
     return cfg

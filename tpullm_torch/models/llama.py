@@ -90,7 +90,7 @@ from ..ops.kv_store import kv_quant as _kv_quant  # noqa: F401 (the JAX name)
 from ..ops.kv_store import kv_store
 from ..ops.layer_kernel import ffn_block, ffn_block_qkv
 from ..ops.layer_kernel import supported as block_supported
-from ..ops.moe_decode import moe_decode, skip_supported
+from ..ops.moe_decode import MAX_ROWS, moe_decode, skip_supported
 from ..ops.qmm import qmm
 from ..ops.qtensor import QTensor
 from ..quant.kmajor import f32_on_device
@@ -125,19 +125,27 @@ DENSE_FIELDS = frozenset({
     "use_rope", "alibi_max_bias",
     # mimo2's scale on the attention output after wo (llama.py:1268-1269)
     "attn_out_scale",
+    # the iRoPE decoders (llama4, smallthinker, afmoe): NoPE layers on a
+    # period, llama4's attention temperature on them and its weightless L2
+    # QK norm on the roped ones, chunked windows, smallthinker's dense-first
+    # SWA pattern
+    "no_rope_interval", "no_rope_offset", "attn_temp_scale", "attn_temp_floor",
+    "attn_temp_offset", "qk_l2_norm", "swa_chunked", "swa_dense_first",
 })
 # act_fn values of the dense FFN (llama.py:624-658): gated silu, gelu or
 # gpt-oss's clamped swiglu_oai, ungated gelu or relu2; the MoE FFN's experts
-# run gated silu or swiglu_oai (llama.py:431-440)
+# run gated silu, swiglu_oai or smallthinker's relu (llama.py:431-440)
 GATED_ACTS, UNGATED_ACTS = ("silu", "gelu", "swiglu_oai"), ("gelu", "relu2")
-MOE_ACTS = ("silu", "swiglu_oai")
+MOE_ACTS = ("silu", "swiglu_oai", "relu")
 NORM_TYPES = ("rmsnorm", "layernorm")
 # the routed-expert MoE FFN's fields, accepted only with MoE tensors; the
 # dense lead's count is informational, as in the JAX graph: which FFN a
-# layer runs follows its tensors
+# layer runs follows its tensors. smallthinker's router reads the residual
+# stream ahead of ffn_norm (moe_router_pre_norm)
 MOE_FIELDS = frozenset({
     "n_expert", "n_expert_used", "expert_gating", "expert_weights_norm",
     "expert_weights_scale", "n_ff_exp", "n_layer_dense_lead", "n_expert_shared",
+    "moe_router_pre_norm",
 })
 # MLA, the compressed-KV attention of the deepseek2 family (llama.py:973-1041),
 # on the dense decoder's layers or beside the MoE FFN
@@ -261,6 +269,29 @@ def layer_windows(cfg: ModelConfig) -> list:
     if cfg.sliding_window and cfg.swa_pattern > 1:
         return [cfg.sliding_window if f else 0 for f in swa_flags(cfg)]
     return [cfg.sliding_window] * cfg.n_layer
+
+
+def nope_flags(cfg: ModelConfig) -> list:
+    """Each layer's NoPE flag (iRoPE, llama.py:873-885; llama4.cpp's
+    n_no_rope_layer_step): no RoPE where (li + no_rope_offset) %
+    no_rope_interval == 0, li the layer's index in the model, as llama.cpp
+    counts it. The JAX graph takes li as the index within the layer's group
+    (the scan's ids, llama.py:1443), which differs where the depth splits
+    into groups at other than a multiple of the period (afmoe's dense lead
+    ahead of its MoE layers, a mixed-type file): a departure from the
+    reference (ROADMAP §3)."""
+    n = cfg.no_rope_interval
+    return [bool(n) and (li + cfg.no_rope_offset) % n == 0 for li in range(cfg.n_layer)]
+
+
+def attn_temperature(cfg: ModelConfig, positions):
+    """llama4's attention temperature of the NoPE layers' queries (B, T)
+    f32 from the device positions (llama.py:879-882;
+    llm_graph_input_attn_temp): log(floor((pos + offset) / floor) + 1) *
+    scale + 1, so 1 below position floor - offset, exactly 1 at scale 0
+    (smallthinker, afmoe). No host read: a captured step takes it."""
+    pos = positions.to(torch.float32) + cfg.attn_temp_offset
+    return torch.log(torch.floor(pos / cfg.attn_temp_floor) + 1.0) * cfg.attn_temp_scale + 1.0
 
 
 @dataclass
@@ -472,7 +503,7 @@ def apply_rope(x, cos, sin, rope_type: str, rope_dim: int):
 
 def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: int,
                     Hkv: int, kv_dtype, ring: int = 0, scaled: bool = False,
-                    sinks: bool = False) -> str:
+                    sinks: bool = False, chunked: bool = False) -> str:
     """Which attention path a call takes: "flash_decode" (kernel E),
     "flash_attention" (kernel C) or "einsum". A kernel only on the card, and
     only where both the JAX package's gate (flash_decode_supported,
@@ -505,21 +536,31 @@ def attention_route(is_cuda: bool, B: int, T: int, S: int, Dk: int, Dv: int, H: 
     ``sinks``: the call's layer carries attention sinks (gpt-oss, mimo2),
     which keep it off C, plain or ring, by the JAX prefill gate (``sinks is
     None``, llama.py:268): C has no sink. E takes them (its last merge adds
-    each head's sink to the denominator), so the decode route is unchanged."""
+    each head's sink to the denominator), so the decode route is unchanged.
+
+    ``chunked``: the call's layer has llama4's chunked window, which C
+    builds over a plain view (flash_builds): the port's own route again.
+    The JAX prefill gate sends such a layer to its C only where the window
+    is static (llama.py:268-275), and that kernel masks it as a sliding
+    window (flash_attention.py:61-64); its einsum path, the oracle here,
+    masks by chunk (llama.py:335-337), as C and E do. The dual cache builds
+    no ring for chunked layers (KVCache.create), so no chunked call reads
+    one."""
     if not is_cuda or scaled:
         return "einsum"
     if ring:  # E builds its ring for bf16 only: the int8 cache has no ring
         if (flash_decode_ring_supported(T, Dk, Dv) and kv_dtype == torch.bfloat16
                 and flash_decode_builds(T, Dk, Dv, H, Hkv, kv_dtype)):
             return "flash_decode"
-        if not sinks and flash_builds(T, S, Dk, Dv, H, Hkv, ring):
+        if not sinks and flash_builds(T, S, Dk, Dv, H, Hkv, ring, chunked):
             return "flash_attention"
         return "einsum"
     if ((flash_decode_supported(B, T, S, Dk, Dv, Hkv)
          or flash_decode_own_supported(B, T, S, Dk, Dv, Hkv))
             and flash_decode_builds(T, Dk, Dv, H, Hkv, kv_dtype)):
         return "flash_decode"
-    if not sinks and flash_supported(T, S, Dk, Dv) and flash_builds(T, S, Dk, Dv, H, Hkv):
+    if (not sinks and flash_supported(T, S, Dk, Dv)
+            and flash_builds(T, S, Dk, Dv, H, Hkv, chunked=chunked)):
         return "flash_attention"
     return "einsum"
 
@@ -576,12 +617,17 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
     sinks: the layer's (H,) f32 sink logits (gpt-oss, mimo2), a device
     tensor read in place (so a captured step takes it): each head's sink
     joins its softmax as a key without a value (llama.py:342-348), on the
-    einsum path and on kernel E; it keeps the call off kernel C."""
+    einsum path and on kernel E; it keeps the call off kernel C.
+
+    A window layer of a config with swa_chunked (llama4) masks by chunk,
+    the key's position at least the query's floored to a multiple of the
+    window (llama.py:335-337), on every route."""
     B, T, H, Dk = q.shape
     kref, vref = (kv_q8[0], kv_q8[1]) if kv_q8 is not None else (k_all, v_all)
     Hkv, S, Dv = kref.shape[1], kref.shape[2], vref.shape[-1]
+    chunked = bool(cfg.swa_chunked and layer_is_swa and cfg.sliding_window)
     route = attention_route(q.is_cuda, B, T, S, Dk, Dv, H, Hkv, kref.dtype, ring,
-                            scale is not None, sinks is not None)
+                            scale is not None, sinks is not None, chunked)
     if route == "flash_decode":
         window = cfg.sliding_window if layer_is_swa else 0
         if kv_q8 is not None:
@@ -599,15 +645,15 @@ def attention(q, k_all, v_all, q_slots, kv_positions, positions, valid_from,
     cfg_scale, softcap, window = attention_params(cfg, layer_is_swa)
     return masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                             valid_from, cfg_scale if scale is None else scale, softcap, window,
-                            ring, alibi_of(cfg, q.device), sinks)
+                            ring, alibi_of(cfg, q.device), sinks, chunked)
 
 
 def gated_act(g, u, act: str, dtype):
     """The gated FFN's activation of gate g and up u (llama.py:624-635,
-    431-440): silu or gelu (tanh approximation) of g in f32, rounded to
-    ``dtype``, times u; or gpt-oss's clamped SwiGLU (swiglu_oai) wholly in
-    f32, min(g, 7) * sigmoid(1.702 * min(g, 7)) * (clip(u, -7, 7) + 1), then
-    rounded."""
+    431-440): silu, gelu (tanh approximation) or relu (smallthinker's
+    experts) of g in f32, rounded to ``dtype``, times u; or gpt-oss's
+    clamped SwiGLU (swiglu_oai) wholly in f32, min(g, 7) * sigmoid(1.702 *
+    min(g, 7)) * (clip(u, -7, 7) + 1), then rounded."""
     gf = g.to(torch.float32)
     if act == "swiglu_oai":
         gf = torch.clamp(gf, max=7.0)
@@ -615,6 +661,8 @@ def gated_act(g, u, act: str, dtype):
         return (gf * torch.sigmoid(1.702 * gf) * (uf + 1.0)).to(dtype)
     if act == "gelu":
         return torch.nn.functional.gelu(gf, approximate="tanh").to(dtype) * u
+    if act == "relu":
+        return torch.relu(gf).to(dtype) * u
     return torch.nn.functional.silu(gf).to(dtype) * u
 
 
@@ -690,12 +738,15 @@ def moe_route(on_card: bool, rows: int, gate_w, up_w, down_w, D: int, used: int,
     return "ragged" if _ragged_moe_ok(gate_w, up_w, down_w, D) else "loop"
 
 
-def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, bias=None):
+def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, bias=None,
+            router_x=None):
     """Mixture-of-experts FFN (llama.py:371-515; build_moe_ffn contract,
-    src/llama-graph.h:831), gated experts (SiLU, or gpt-oss's swiglu_oai:
-    ``gated_act``).
+    src/llama-graph.h:831), gated experts (SiLU, gpt-oss's swiglu_oai or
+    smallthinker's relu: ``gated_act``).
 
-    Router: logits = x @ gate_inp^T (+ the layer's f32 router bias
+    Router: logits = router_x @ gate_inp^T, router_x the FFN's input x
+    unless given (smallthinker's router reads the residual stream ahead of
+    ffn_norm, llama.py:381-383, 1273-1275) (+ the layer's f32 router bias
     ``bias["moe_gate_inp_b"]``, gpt-oss, llama.py:385-386) -> softmax|sigmoid,
     top-k, optional weight renorm and scale. ``bias`` also holds gpt-oss's
     per-expert biases (E, n) ``moe_{gate,up,down}_exps_b``: each is added to
@@ -714,7 +765,8 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, b
     GEMM (kernel F). Otherwise every expert is evaluated and mask-combined
     in expert order; an unselected expert's weight is exactly 0, so its
     term adds nothing and the sum is the skip's. On the CPU this is the JAX
-    package's dense path off the TPU.
+    package's dense path off the TPU, each expert run on its selected rows
+    only (``_moe_loop``).
 
     A shared expert (ffn_{gate,up,down}_shexp) runs on x beside them and is
     added last, scaled first by the per-token sigmoid gate of
@@ -723,7 +775,8 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, b
     B, T, D = x.shape
     E, used = cfg.n_expert, cfg.n_expert_used
     bias = bias or {}
-    router = qmm(x, qw["moe_gate_inp"], dtype, li)[..., :E].to(torch.float32)
+    router = qmm(x if router_x is None else router_x, qw["moe_gate_inp"], dtype,
+                 li)[..., :E].to(torch.float32)
     if "moe_gate_inp_b" in bias:
         router = router + bias["moe_gate_inp_b"].to(torch.float32)[None, None, :E]
     if cfg.expert_gating == "sigmoid":
@@ -763,24 +816,54 @@ def _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E: int, dtype, act=None, bi
     """Every expert on every row, each weighted by the rows' routing weight
     of it (exactly 0 where unselected), summed in expert order. ``act`` (g,
     u) -> h, SiLU where None; ``bias``: the layer's expert biases (E, n) by
-    key, each added to its product (llama.py:423-443)."""
+    key, each added to its product (llama.py:423-443).
+
+    On the CPU, where the routing can be read on the host, an expert that no
+    row selects is not run (it would add an exact 0, and the JAX decode's
+    lax.cond skips it too, llama.py:447-454); past MAX_ROWS rows (a prefill)
+    each expert runs on the rows that select it alone, each row's sum taken
+    in the same expert order (a row's product may round otherwise in its
+    last bits: another BLAS blocking). Up to MAX_ROWS rows an expert runs on
+    every row, so the sum stays the skip's bit for bit (ops/moe_decode.py).
+    On the card every expert runs on every row: a captured step reads no
+    routing on the host."""
     bias = bias or {}
     act = act or (lambda g, u: gated_act(g, u, "silu", dtype))
 
     def plus(y, key, e):
         return y + bias[key][e].to(dtype) if key in bias else y
 
-    def one_expert(e):
-        ue = plus(_expert_mm(x, up_w, li, e, dtype), "moe_up_exps_b", e)
-        ge = plus(_expert_mm(x, gate_w, li, e, dtype), "moe_gate_exps_b", e)
-        de = plus(_expert_mm(act(ge, ue), down_w, li, e, dtype), "moe_down_exps_b", e)
-        we = (w * (top_i == e)).sum(-1)  # (B, T)
-        return de * we[..., None].to(dtype)
+    def product(xe, e):
+        ue = plus(_expert_mm(xe, up_w, li, e, dtype), "moe_up_exps_b", e)
+        ge = plus(_expert_mm(xe, gate_w, li, e, dtype), "moe_gate_exps_b", e)
+        return plus(_expert_mm(act(ge, ue), down_w, li, e, dtype), "moe_down_exps_b", e)
 
-    out = one_expert(0)
-    for e in range(1, E):
-        out = out + one_expert(e)
-    return out
+    def one_expert(e):
+        we = (w * (top_i == e)).sum(-1)  # (B, T)
+        return product(x, e) * we[..., None].to(dtype)
+
+    if x.is_cuda:
+        out = one_expert(0)
+        for e in range(1, E):
+            out = out + one_expert(e)
+        return out
+    B, T, D = x.shape
+    flat_i, flat_w = top_i.reshape(B * T, -1), w.reshape(B * T, -1)
+    present = torch.unique(flat_i).tolist()
+    if B * T <= MAX_ROWS:
+        out = one_expert(present[0])
+        for e in present[1:]:
+            out = out + one_expert(e)
+        return out
+    flat_x, out = x.reshape(1, B * T, D), None
+    for e in present:
+        rows = (flat_i == e).any(-1).nonzero().flatten()
+        de = product(flat_x[:, rows], e)[0]
+        we = (flat_w[rows] * (flat_i[rows] == e)).sum(-1)
+        if out is None:
+            out = torch.zeros((B * T, de.shape[-1]), dtype=de.dtype)
+        out[rows] = out[rows] + de * we[:, None].to(dtype)
+    return out.reshape(B, T, -1)
 
 
 def _ragged_moe_ok(gate_w, up_w, down_w, D) -> bool:
@@ -812,7 +895,9 @@ def _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg: ModelConfig,
     n_ff_e = gate_w.shape[-2]
     g = grouped_qmm(xs_pad, tile_expert, gate_w, n_ff_e, layer=li, live=live)
     u = grouped_qmm(xs_pad, tile_expert, up_w, n_ff_e, layer=li, live=live)
-    h = gated_act(g, u, cfg.act_fn, torch.float32)  # in f32, as llama.py:547-557
+    # in f32, as llama.py:547-557 (whose relu falls to its silu branch: the
+    # JAX ragged path runs only on the TPU, its CPU loop takes relu)
+    h = gated_act(g, u, cfg.act_fn, torch.float32)
     y = grouped_qmm(h.to(torch.bfloat16), tile_expert, down_w, D, layer=li, live=live)
     row_of = torch.empty_like(dest)  # padded row of assignment m * used + j
     row_of[order] = dest
@@ -871,14 +956,16 @@ def check_ffn_layout(cfg: ModelConfig, gl) -> None:
 
 
 def check_attn_gate(cfg: ModelConfig, gl) -> None:
-    """The attention output gate (wqkv_gate) runs per head only: step35's
-    (n_head,)-wide projection (llama.py:1231-1245). afmoe's gate as wide as
-    the attention output is not on the covered paths, and raises."""
+    """The attention output gate (wqkv_gate, llama.py:1231-1245) is step35's
+    per-head projection (n_head rows, one sigmoid a head) or afmoe's as wide
+    as the attention output (n_head x head_dim_v rows, one a column); a gate
+    of any other width raises."""
     gate = gl.get("wqkv_gate")
-    if gate is not None and gate.n_out != cfg.n_head:
+    if gate is not None and gate.n_out not in (cfg.n_head, cfg.n_head * cfg.head_dim_v):
         raise NotImplementedError(
-            f"wqkv_gate {tuple(gate.shape)}: the port runs the per-head attention gate "
-            f"({cfg.n_head} rows, step35), not one as wide as the attention output (afmoe)")
+            f"wqkv_gate {tuple(gate.shape)}: the attention gate is per head ({cfg.n_head} "
+            f"rows, step35) or as wide as the attention output ({cfg.n_head * cfg.head_dim_v} "
+            "rows, afmoe)")
 
 
 def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
@@ -944,7 +1031,8 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     flat q/k norm (the QK norm per head runs in attention, on the QKV rows
     the kernel emits); its own gate (block_supported) closes it to
     layernorm, the parallel block and the ungated FFN. Folded, it also
-    emits the next layer's norm and fused QKV.
+    emits the next layer's norm and fused QKV; not with NoPE layers
+    (no_rope_interval), as in the JAX gate (llama.py:1422).
 
     Two conditions are the port's own: the kernel adds its residuals
     unscaled and its wo product as it is, so a residual_scale other than 1
@@ -967,7 +1055,8 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
                  and not cfg.attn_bias and not cfg.attn_qk_norm_flat
                  and cfg.residual_scale == 1.0 and not cfg.attn_out_scale
                  and block_supported(cfg, qw))
-    use_fold = use_block and "wqkv" in qw and n_groups == 1 and "attn_norm" in gl
+    use_fold = (use_block and "wqkv" in qw and n_groups == 1 and "attn_norm" in gl
+                and not cfg.no_rope_interval)
     return use_block, use_fold
 
 
@@ -1039,6 +1128,9 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         cos_swa, sin_swa = (t.to(dtype) for t in rope_cache(cfg_swa, positions))
     rope_swa = swa_flags(cfg)
     windows = layer_windows(cfg)
+    nope = nope_flags(cfg)
+    # the NoPE layers' query temperature (B, T, 1, 1), from the device positions
+    temp = attn_temperature(cfg, positions)[..., None, None] if any(nope) else None
     S = cache.max_len
     L_view = kv_view_len if (kv_view_len is not None and kv_view_len < S) else S
     if torch.is_tensor(cache_pos):
@@ -1063,7 +1155,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         (attn_qk_norm_flat: the stream's norm type with q_norm_b/k_norm_b, as
         in the JAX package, llama.py:837-838) or per head (RMS), before RoPE
         or after it (qk_norm_post_rope). No RoPE where use_rope is off
-        (llama.py:856-857). clamp_kqv clamps q, k and v after RoPE
+        (llama.py:856-857). A NoPE layer (nope_flags) takes no RoPE, none of
+        the norms after it and its query times the temperature; the others
+        take llama4's weightless L2 QK norm after RoPE (qk_l2_norm,
+        llama.py:869-885). clamp_kqv clamps q, k and v after RoPE
         (llama.py:889-892). The layer's sink logits (attn_sinks, gpt-oss and
         mimo2, on every layer or some) go to attention (llama.py:922)."""
         qn, kn = lw.get("q_norm"), lw.get("k_norm")
@@ -1073,12 +1168,17 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         q, k = q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd)
         if cfg.attn_qk_norm and not cfg.qk_norm_post_rope:
             q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
-        if cfg.use_rope:
-            c, sn = (cos_swa, sin_swa) if rope_swa[li] else (cos, sin)
-            q = apply_rope(q, c, sn, cfg.rope_type, cfg.rope_dim)
-            k = apply_rope(k, c, sn, cfg.rope_type, cfg.rope_dim)
-        if cfg.attn_qk_norm and cfg.qk_norm_post_rope:
-            q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
+        if nope[li]:
+            q = (q.to(torch.float32) * temp).to(q.dtype)
+        else:
+            if cfg.use_rope:
+                c, sn = (cos_swa, sin_swa) if rope_swa[li] else (cos, sin)
+                q = apply_rope(q, c, sn, cfg.rope_type, cfg.rope_dim)
+                k = apply_rope(k, c, sn, cfg.rope_type, cfg.rope_dim)
+            if cfg.attn_qk_norm and cfg.qk_norm_post_rope:
+                q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
+            if cfg.qk_l2_norm:
+                q, k = rms_norm(q, None, cfg.rms_eps), rms_norm(k, None, cfg.rms_eps)
         v = v.reshape(B, T, Hkv, hdv)
         if cfg.clamp_kqv:
             c = cfg.clamp_kqv
@@ -1178,12 +1278,14 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             y = (y.to(torch.float32) * cfg.residual_scale).to(dtype)
         return y
 
-    def ffn_of(h2, qw, li, lw):
+    def ffn_of(h2, qw, li, lw, x):
         """The layer's FFN: routed experts where it has them
-        (llama.py:1273-1276), else the dense FFN."""
+        (llama.py:1273-1276), their router reading the residual stream x
+        under moe_router_pre_norm (smallthinker), else the dense FFN."""
         if cfg.n_expert > 0 and "moe_gate_inp" in qw:
             return moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"),
-                           lw.get("moe_probs_b"), {k: lw[k] for k in MOE_BIAS_KEYS if k in lw})
+                           lw.get("moe_probs_b"), {k: lw[k] for k in MOE_BIAS_KEYS if k in lw},
+                           x if cfg.moe_router_pre_norm else None)
         return ffn(h2, qw, li, cfg, dtype, lw)
 
     for key in ("output_norm_b", "tok_norm_b"):
@@ -1229,13 +1331,15 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 h = pre_norm(x, lw, "attn_norm")
                 if mla:  # llama.py:1159-1174
                     x = x + qmm(attend_mla(h, qw, li, lw, off + li), qw["wo"], dtype, li)
-                    x = x + ffn_of(pre_norm(x, lw, "ffn_norm"), qw, li, lw)
+                    x = x + ffn_of(pre_norm(x, lw, "ffn_norm"), qw, li, lw, x)
                     continue
                 att = attend(*qkv_of(h, qw, li, lw), off + li, lw)
-                if "wqkv_gate" in qw:  # llama.py:1231-1245: one sigmoid a head
+                if "wqkv_gate" in qw:  # llama.py:1231-1245
                     gate = torch.sigmoid(qmm(h, qw["wqkv_gate"], dtype, li).to(torch.float32))
-                    att = (att.reshape(B, T, H, hdv).to(torch.float32) * gate[..., None]).to(
-                        dtype).reshape(B, T, H * hdv)
+                    if gate.shape[-1] == H:  # step35: one sigmoid a head
+                        gate = gate[..., None].expand(B, T, H, hdv).reshape(B, T, H * hdv)
+                    # afmoe's: one a column of the attention output
+                    att = (att.to(torch.float32) * gate).to(dtype)
                 if use_block:
                     x = ffn_block(att, x, lw["ffn_norm"], qw, li, cfg).to(dtype)
                     continue
@@ -1252,11 +1356,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                         h2 = _norm(x, lw["ffn_norm"], lw.get("ffn_norm_b"), cfg)
                     else:  # phi2, command-r, falcon-7B, gptj, plamo: the attention's input
                         h2 = h
-                    x = x + a + ffn_of(h2, qw, li, lw)
+                    x = x + a + ffn_of(h2, qw, li, lw, x)
                     continue
                 x = x + a
                 h2 = pre_norm(x, lw, "ffn_norm")
-                x = x + post_norm(ffn_of(h2, qw, li, lw), lw, "post_ffn_norm")
+                x = x + post_norm(ffn_of(h2, qw, li, lw, x), lw, "post_ffn_norm")
         off += L_g
     if logits_idx is not None:  # llama.py:1527-1530
         x = x[:, logits_idx: logits_idx + 1]

@@ -193,6 +193,27 @@ ARCH_REGISTRY: dict[str, dict] = {
     # optional per-layer attention sinks, attention-output value scale,
     # sigmoid MoE with probs bias, nextn trim
     "mimo2": dict(rope_type="neox", expert_gating="sigmoid"),
+    # ---- the iRoPE decoders: NoPE layers on a period, chunked windows ----
+    # llama4 (src/models/llama4.cpp): 3-chunked-1-full attention pattern,
+    # iRoPE (every 4th layer NoPE + floor-scaled attn temperature), QK
+    # L2-norm on rope layers, sigmoid-gated MoE
+    "llama4": dict(rope_type="norm", swa_pattern=4, swa_chunked=True,
+                   no_rope_interval=4, attn_temp_scale=0.1,
+                   qk_l2_norm=True, expert_gating="sigmoid"),
+    # smallthinker (src/models/smallthinker.cpp): every-layer relu MoE with
+    # the ROUTER reading the raw layer input (pre-norm), renormalized top-k,
+    # dense-first SWA pattern whose dense layers skip rope
+    "smallthinker": dict(rope_type="neox", act_fn="relu",
+                         expert_weights_norm=True, moe_router_pre_norm=True,
+                         swa_dense_first=True, no_rope_offset=0),
+    # afmoe (src/models/afmoe.cpp): gemma-scaled embeddings, iSWA 3:1 with
+    # iRoPE-style no-rope on every 4th layer, per-head qk-norm, attention
+    # output gate (sigmoid of a separate projection of the attn input),
+    # dual pre/post norms, sigmoid MoE with probs bias + shared expert
+    "afmoe": dict(rope_type="neox", attn_qk_norm=True, post_norms=True,
+                  attn_gate_proj=True, embedding_scale=-1.0,
+                  no_rope_interval=4, swa_pattern=4,
+                  expert_gating="sigmoid"),
 }
 
 

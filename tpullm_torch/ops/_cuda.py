@@ -287,8 +287,8 @@ _SIGNATURES = {
     "tpq_qmm_experts": [_P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I,
                         _P, _P, _I, _I, _P],
     # q k v o qslots kvpos qpos valid_from, B H Hkv T S D,
-    # 12 strides, scale softcap window ring, slopes (ALiBi, or null), stream
-    "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _I, _P, _P],
+    # 12 strides, scale softcap window chunked ring, slopes (ALiBi, or null), stream
+    "tpq_flash_attention": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_F, _F, _I, _I, _I, _P, _P],
     # w_ptrs(4 pools), w_ints, w_floats, plan, att, res, ffn_norm, anrm_next,
     # out, qkv_out, scratch, counters, M, D, Hd, n_ff, act, fold, nscratch,
     # eps, stream

@@ -15,6 +15,11 @@ each score after the scale (llama.py:301-307); the kernel takes the slopes
 softmax takes each head's sink as a key without a value (llama.py:342-348);
 the kernel has no sink, so models/llama.py:attention_route keeps such calls
 off it, as the JAX prefill gate does (``sinks is None``, llama.py:268).
+With llama4's chunked window (``chunked``: a config's swa_chunked on a
+window layer) both mask by chunk, a key visible where its position is at
+least the query's floored to a multiple of the window (the JAX einsum
+path, llama.py:335-337); the Pallas kernel masks such a layer as a sliding
+window (flash_attention.py:61-64), so the port's C on it is its own route.
 """
 from __future__ import annotations
 
@@ -68,7 +73,8 @@ def ring_mask(kv_slot, q_slot, valid_from, window: int, ring: int):
 
 def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
                      valid_from, scale: float, softcap: float = 0.0,
-                     window: int = 0, ring: int = 0, slopes=None, sinks=None):
+                     window: int = 0, ring: int = 0, slopes=None, sinks=None,
+                     chunked: bool = False):
     """q (B,T,H,Dk), k/v HEAD-MAJOR (B,Hkv,S,D*) -> (B,T,H,Dv) in q's dtype.
 
     Key slot s is visible to the query at slot q_slots[b, t] iff
@@ -78,7 +84,9 @@ def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
     key outputs 0. ``slopes`` (H,): the ALiBi term slope_h * (kv_positions -
     positions), added after the scale and before the softcap. ``sinks``
     (H,): each head's sink logit joins the softmax as a key without a value,
-    the max and the denominator taking it (llama.py:342-348)."""
+    the max and the denominator taking it (llama.py:342-348). ``chunked``:
+    the window is llama4's chunk, the key's position at least
+    floor(q_pos / window) * window (llama.py:335-337), never on a ring."""
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
     G = H // Hkv
@@ -102,7 +110,10 @@ def masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
     if window and not ring:
         kv_pos = kv_positions[:, None, None, None, :]
         q_pos = positions[:, None, None, :, None]
-        mask = mask & (kv_pos > q_pos - window)
+        if chunked:
+            mask = mask & (kv_pos >= torch.div(q_pos, window, rounding_mode="floor") * window)
+        else:
+            mask = mask & (kv_pos > q_pos - window)
     scores = scores.masked_fill(~mask, -math.inf)
     if sinks is not None:
         sk = sinks.to(torch.float32).reshape(1, Hkv, G, 1)
@@ -139,16 +150,20 @@ def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
     (= S): an iSWA ring bank, whose query slots must be < ring - window
     apart in a call (a chunk of T <= ring - window rows). The kernel takes a
     key's position as its slot - valid_from (kv_positions as forward makes
-    it) and ALiBi without a softcap."""
+    it) and ALiBi without a softcap; a window layer of a config with
+    swa_chunked (llama4) masks by chunk, never on a ring."""
     scale, softcap, window = attention_params(cfg, layer_is_swa)
+    chunked = bool(cfg.swa_chunked and window)
     B, T, H, Dk = q.shape
     Hkv, S = k_all.shape[1], k_all.shape[2]
-    if ring and ring != S:
-        raise ValueError(f"flash_attention: a ring of {ring} over {S} slots")
+    if ring and (ring != S or chunked):
+        raise ValueError(f"flash_attention: a ring of {ring} over {S} slots"
+                         + (", chunked" if chunked else ""))
     slopes = alibi_of(cfg, q.device)
     if not q.is_cuda:
-        return masked_attention(q, k_all, v_all, q_slots, kv_positions,
-                                positions, valid_from, scale, softcap, window, ring, slopes)
+        return masked_attention(q, k_all, v_all, q_slots, kv_positions, positions,
+                                valid_from, scale, softcap, window, ring, slopes,
+                                chunked=chunked)
     Dv = v_all.shape[-1]
     if Dk != Dv or Dk not in C_HEAD_DIMS:
         raise NotImplementedError(
@@ -169,19 +184,21 @@ def flash_attention(q, k_all, v_all, q_slots, kv_positions, positions,
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
         *(t.data_ptr() for t in i32), B, H, Hkv, T, S, Dk,
         q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_st,
-        scale, softcap, window, int(ring), slopes.data_ptr() if slopes is not None else 0,
-        _cuda.stream_ptr(qh))
+        scale, softcap, window, int(chunked), int(ring),
+        slopes.data_ptr() if slopes is not None else 0, _cuda.stream_ptr(qh))
     _cuda.COUNTS["flash_attention"] += 1
     _cuda.check(err, "flash_attention")
     return out
 
 
-def flash_builds(T: int, S: int, Dk: int, Dv: int, H: int, Hkv: int, ring: int = 0) -> bool:
+def flash_builds(T: int, S: int, Dk: int, Dv: int, H: int, Hkv: int, ring: int = 0,
+                 chunked: bool = False) -> bool:
     """The shapes the CUDA kernel builds (the wrapper raises on the rest):
     Dk = Dv in C_HEAD_DIMS, T and S multiples of 64, H a multiple of Hkv; on
-    a ring (S = ring a multiple of 64) any T >= 1."""
+    a ring (S = ring a multiple of 64) any T >= 1. A chunked window
+    (llama4) only over a plain view, never a ring."""
     return (Dk == Dv and Dk in C_HEAD_DIMS and T >= 1 and (ring or T % 64 == 0)
-            and S % 64 == 0 and Hkv > 0 and H % Hkv == 0)
+            and S % 64 == 0 and Hkv > 0 and H % Hkv == 0 and not (ring and chunked))
 
 
 def flash_supported(T: int, S: int, Dk: int, Dv: int) -> bool:

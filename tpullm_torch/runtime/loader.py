@@ -24,8 +24,9 @@ and the dense FFN's gate, up and down biases (loader.py:25, 35, 64, 189-215),
 mpt's flat q/k norm biases (loader.py:37-38), the learned position table
 and bloom's embedding layernorm (loader.py:218-221, all f32); glm4moe's
 post_attention_norm becomes its ffn_norm (loader.py:410-414), plamo3's
-bare post-norm names load as the post-norms, and step35's per-head
-attention gate as wqkv_gate (loader.py:86-87, 137). A GGUF-combined
+bare post-norm names and afmoe's attn_post_norm/ffn_post_norm load as the
+post-norms, and the attention output gate (step35's per head, afmoe's as
+wide as the attention output) as wqkv_gate (loader.py:86-89, 137). A GGUF-combined
 [gate; up] (phi3, chatglm, plamo3) stays ffn_up, or becomes ffn_gateup
 where it is the fused layout already (ops/fuse.py). An MLA
 config (kv_lora_rank) also reads its attention's tensors (loader.py:41-48):
@@ -85,7 +86,11 @@ LAYER_TENSORS = {
     # plamo3 writes its sandwich norms without the .weight suffix (loader.py:86-87)
     "post_attention_norm": "post_attn_norm",
     "post_ffw_norm": "post_ffn_norm",
-    # step35's per-head attention output gate (loader.py:137)
+    # afmoe's names of the post-norms (loader.py:88-89)
+    "attn_post_norm.weight": "post_attn_norm",
+    "ffn_post_norm.weight": "post_ffn_norm",
+    # the attention output gate (loader.py:137): step35's per head, afmoe's
+    # as wide as the attention output
     "attn_gate.weight": "wqkv_gate",
     # routed experts (loader.py:91-94); the router is F32 in real GGUFs and
     # takes the dense layout

@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..models.config import ModelConfig
-from ..models.llama import KVCache, _kv_quant, apply_rope, rope_angles, rope_cache
+from ..models.llama import KVCache, _kv_quant, apply_rope, nope_flags, rope_angles, rope_cache
 
 
 @dataclass
@@ -147,7 +147,14 @@ def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
     llama.cpp does (K is shifted only when the rope type is not NONE). The
     JAX package rotates them all the same (memory.py:301-311: rope_cache
     never reads use_rope), which corrupts K on such a model: a departure
-    from the reference (ROADMAP §3). An MLA cache shifts by ``_mla_shift``."""
+    from the reference (ROADMAP §3). An MLA cache shifts by ``_mla_shift``.
+
+    The iRoPE decoders' NoPE layers (``nope_flags``: llama4, smallthinker,
+    afmoe) hold K rows without a position too: their moved rows move
+    unrotated (requantized as they were on the int8 cache) while the roped
+    layers' rotate, as llama.cpp shifts only the layers it ropes. The JAX
+    shift rotates every layer's K (memory.py:301-311), the NoPE layers' as
+    well: the same departure (ROADMAP §3)."""
     S = cache.max_len
     dev = cache.k.device
     idx = torch.arange(S, device=dev)
@@ -179,7 +186,9 @@ def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
     half = cos.shape[-1]
     k_shifted = apply_rope(k_rolled.to(torch.bfloat16), cos.expand(L, S, half),
                            sin.expand(L, S, half), cfg.rope_type, cfg.rope_dim)
-    mv = moved[None, :, None, None]
+    # the rows each layer rotates: the moved ones, on the roped layers
+    roped = torch.tensor([not f for f in nope_flags(cfg)], device=dev)
+    mv = moved[None, :, None, None] & roped[:, None, None, None]
 
     def put(buf, val):  # seq-major (L, S, Hkv[, D]) -> the slot's head-major rows
         buf[:, slot] = val.transpose(1, 2).to(buf.dtype)

@@ -206,9 +206,19 @@ def prefill_chunk(params: dict, cfg: ModelConfig, cache, slot: int, n_past: int,
                   chunk: list, dtype):
     """One prompt chunk of a slot through the server layout: padded to its
     bucket, written at the slot's cache row from n_past on (``slot0``),
-    logits for its last real token only. -> (1, 1, vocab) f32."""
+    logits for its last real token only. -> (1, 1, vocab) f32.
+
+    On the dual cache the bucket is cut to the ring's room, ring - window
+    rows (never below the chunk): a padding row's write lands at its
+    position modulo the ring, so more rows than that would overwrite ring
+    slots that the chunk's own queries still see (forward: T <= ring -
+    window). The JAX ServerContext pads to at least 32 rows on any ring
+    (server/context.py), which gives wrong tokens on a ring of fewer than
+    window + 32 slots."""
     Tc = len(chunk)
     Tb = _bucket(Tc)
+    if cache.dual:
+        Tb = max(Tc, min(Tb, cache.ring - cfg.sliding_window))
     toks = np.zeros((1, Tb), np.int64)
     toks[0, :Tc] = chunk
     pos = n_past + np.arange(Tb, dtype=np.int64)[None]

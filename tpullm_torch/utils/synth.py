@@ -236,7 +236,7 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
                   rope_base: float = 1e6, rms_eps: float = 1e-5, exact_vocab: bool = False,
                   seed: int = 0, device="cuda", n_dense_lead: int = 0,
                   probs_b_std: float = 0.0, shexp_gate: bool = True, tied: bool = False,
-                  cfg_fields: dict | None = None):
+                  cfg_fields: dict | None = None, generator: torch.Generator | None = None):
     """-> (ModelConfig, params) of a routed-expert Q4_K model of ``arch`` on
     ``device``.
 
@@ -271,12 +271,15 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
     (expert_weights_norm, expert_gating, ...). With the defaults every draw
     is as it was. The registry row of ``arch`` sets the top-k
     renormalization; rope_base defaults to Mixtral's and Qwen's rope_theta,
-    1e6."""
+    1e6. ``generator`` (a torch.Generator on ``device``) draws the
+    attention's and the embedding's Q4_K weights on the device
+    (synth_kmajor_q4k_fast's option) in place of numpy; the experts' draws
+    do not move."""
     cfg, params = synth_kmajor_q4k_fast(
         vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer, n_head=n_head,
         n_head_kv=n_head_kv, n_ff=n_ff, seed=seed, centred=True, device=device,
         dense_ffn=False, arch="llama" if arch == "mixtral" else arch, rms_eps=rms_eps,
-        exact_vocab=exact_vocab, head_dim=head_dim, tied=tied)
+        exact_vocab=exact_vocab, head_dim=head_dim, tied=tied, generator=generator)
     device = params["output_norm"].device
     gen = torch.Generator(device=device).manual_seed(seed)
     E, width = n_expert, n_ff_exp or n_ff

@@ -273,12 +273,31 @@ pass):
    tokens, 8 new each, every request 200, the 9000-token prompt past the
    8192 chunk and the temperature floor, and a decode chunk graph against
    eager and profiled.
-The model slices of phases 7-8, 10 and 13-18 run cut in depth for the
-script's time limit (SLICE_LAYERS: DeepSeek-V2-Lite 14 of 27 layers and
-gpt-oss-20b 12 of 24; Mixtral-8x7B 8 of 32, Qwen3-30B-A3B 12 of 48,
-Command-R 35B, StarCoder-15B and Phi-4 10 of 40, ERNIE-4.5-21B-A3B 7 of
-28), where the text above gives a published depth; every check holds per
-layer, and the parity runs keep their depth.
+20. the other MoE families at full width, Scout freed first:
+   GroveMoE-Inst (arch grovemoe: Qwen3-30B-A3B's widths, 128 experts of 768
+   top-8 picked by sigmoid and weighted by the softmax, and the chunk-expert
+   bank: 64 chunk experts of 128, chunk = pick // 2, reading the routed
+   experts' output, scaled by 0.05; its chunk down planar Q8_0 at K 128,
+   so the bank runs the loop over every chunk) with 1 layer against the CPU
+   as phase 6, the rows that name one chunk twice counted; kernel rows on
+   the model cut to 12 of its 48 layers: A at M = 4 on one chunk's gate
+   (128 x 2048), the chunk bank's ms a layer (a graph replay at M = 4,
+   eagerly at the 4x512 prefill; no kernel of its own), C and E at
+   grok-1's heads (48/8 of 128, softcap 30) at phase 2's engine prefill
+   and server decode shapes beside flex_attention; the slice (9 tokens a
+   request; graph, then eager; A, B, C, F, the store and
+   the skip launched, D not), its decode profile (the skip 3 a layer; A on
+   wqkv, wo and each chunk's gate and up a layer and the lm_head; the store
+   once a layer) with the chunk bank's share of the step, and a prefill
+   profile; its server as phase 10's (4 slots of 4096, int8 KV, E on, a
+   Qwen2-layout tokenizer): 4 token-id completions (480/200/80/40 tokens,
+   16 new each) and 2 chats.
+The model slices of phases 7-8, 10, 13-18 and 20 run cut in depth for the
+script's time limit (SLICE_LAYERS: DeepSeek-V2-Lite 7 of 27 layers and
+gpt-oss-20b 6 of 24; Mixtral-8x7B 8 of 32, Qwen3-30B-A3B and GroveMoE-Inst
+12 of 48, Command-R 35B, StarCoder-15B and Phi-4 10 of 40,
+ERNIE-4.5-21B-A3B 7 of 28), where the text above gives a published depth;
+every check holds per layer, and the parity runs keep their depth.
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True, each
 Q4_K group centred like trained weights so activations stay in range
@@ -289,7 +308,8 @@ card; the Qwen models take synth_kmajor_q4k_fast's arch rows, with their
 q/k norms or biases, the Gemma models with head_dim 256, post-norms and a
 tied lm_head, Command-R and StarCoder2 with their layernorms, biases and
 blocks, StarCoder-15B and BLOOM-7b1 with their position table, ALiBi and
-embedding norm, the Qwen MoE models and ERNIE synth_moe_q4k's, and
+embedding norm, the Qwen MoE models, ERNIE and GroveMoE-Inst (with its
+chunk bank) synth_moe_q4k's, and
 DeepSeek-V2-Lite synth_mla_q4k's, drawn on the card, Phi-4 with
 gguf_layout, gpt-oss-20b synth_gptoss's and Llama-4-Scout synth_moe_q4k's
 with its generator, all drawn on the card). The last
@@ -301,7 +321,7 @@ Gemma-7B-width run, the Command-R 35B slice and server, the StarCoder-15B
 slice and server, the BLOOM-7b1-width run, the ERNIE-4.5-21B-A3B slice and
 server, the DeepSeek-V2-Lite slice and server, the Phi-4 slice and
 server, the gpt-oss-20b slice and servers, the Llama-4-Scout slice and
-server), the card's name
+server, the GroveMoE-Inst slice and server), the card's name
 and power limit, and the result line.
 """
 import dataclasses
@@ -353,6 +373,21 @@ QWEN3MOE = dict(arch="qwen3moe", vocab_size=151936, n_embd=2048, n_layer=48, n_h
                 n_head_kv=4, head_dim=128, n_ff=6144, n_ff_exp=768, n_expert=128,
                 n_expert_used=8, down_qtype="Q6_K", rope_base=1e6, rms_eps=1e-6,
                 exact_vocab=True)
+# GroveMoE-Inst (inclusionAI/GroveMoE-Inst config.json; llama.cpp's
+# convert_hf_to_gguf.py GroveMoeModel writes experts_per_group,
+# expert_group_scale and expert_chunk_feed_forward_length): Qwen3-30B-A3B's
+# widths above (hidden 2048, 48 layers, 32/4 heads of 128 with per-head q/k
+# norms, 128 experts of 768, top-8, norm_topk_prob, vocab 151936, rope_theta
+# 1e6, rms_norm_eps 1e-6) and the chunk-expert bank: 64 chunk experts of 128,
+# one a group of 2 experts, scaled by 0.05. Q4_K as Qwen3-30B-A3B's, the
+# chunk gate/up Q4_K K-major at K 2048, the chunk down Q8_0 at K 128, planar
+# (no K-major tile there; llama.cpp's quantizer writes Q8_0 for the Q6_K
+# rows whose K is not a multiple of 256). The values are recalled, not read
+# from the published files (PERF.md §6)
+GROVEMOE = dict(QWEN3MOE, arch="grovemoe", n_group_experts=2, n_ff_chexp=128,
+                expert_group_scale=0.05)
+GROK_HEADS = (48, 8)  # grok-1: 48 query heads, 8 kv heads of 128
+GROK_SOFTCAP = 30.0
 # Qwen2-57B-A14B (Qwen/Qwen2-57B-A14B config.json): hidden 3584, 28 layers,
 # 28/4 heads of 128, 64 experts of moe_intermediate_size 2560, top-8, not
 # renormalized, a shared expert of 20480 with its sigmoid gate, q/k/v
@@ -411,15 +446,15 @@ PARITY_STEPS = 1
 # Qwen3-30B-A3B's, StarCoder-15B's and BLOOM-7b1's, cut for the script's
 # time limit: no check of theirs needs a second layer (none takes D)
 ONE_LAYER = 1
-# the depth of the model slices cut for the script's time (with phase 19;
-# from 32, 48, 40, 40, 28, 27, 40 and 24 layers): DeepSeek-V2-Lite and
-# gpt-oss-20b at about half, ~5.5 s a layer each; the others at a quarter,
-# 0.7-1.3 s a layer (PERF.md §6). Each check of these phases holds
-# per layer, and their parity runs keep their depth; --full-depth runs the
-# published depths (past the time limit).
+# the depth of the model slices cut for the script's time (with phases 19
+# and 20; from 32, 48, 40, 40, 28, 27, 40, 24 and 48 layers):
+# DeepSeek-V2-Lite and gpt-oss-20b at about a quarter, ~5.5 s a layer each;
+# the others at a quarter, 0.7-1.3 s a layer (PERF.md §6). Each check of
+# these phases holds per layer, and their parity runs keep their depth;
+# --full-depth runs the published depths (past the time limit).
 SLICE_LAYERS = {"Mixtral-8x7B": 8, "Qwen3-30B-A3B": 12, "Command-R 35B": 10,
-                "StarCoder-15B": 10, "ERNIE-4.5-21B-A3B": 7, "DeepSeek-V2-Lite": 14,
-                "Phi-4": 10, "gpt-oss-20b": 12}
+                "StarCoder-15B": 10, "ERNIE-4.5-21B-A3B": 7, "DeepSeek-V2-Lite": 7,
+                "Phi-4": 10, "gpt-oss-20b": 6, "GroveMoE-Inst": 12}
 FULL_DEPTH = False  # --full-depth
 
 
@@ -447,6 +482,8 @@ SOURCES = {
 DENSE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "layer_kernel", "kv_store")
 # and no layer_kernel
 MOE_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "moe_gmm", "kv_store", "qmm_experts")
+# a MoE server's (phases 10 and 20): kernel E on
+MOE_SERVER_KERNELS = MOE_KERNELS + ("flash_decode",)
 
 
 def log(msg: str) -> None:
@@ -1816,6 +1853,9 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7, n_layer=2,
     picks (teacher-forced routing, as the tokens are); each routing the CPU
     f32 path would pick otherwise is counted as before and must be a
     near-tie there (its probabilities of the two picks within NEAR_TIE).
+    With a chunk-expert bank (n_group_experts: GroveMoE) the real rows
+    whose card picks name one chunk twice (two picks in one group, their
+    chunk's weights summed) are counted, and the prefill must hold some.
     -> the card's launch counts."""
     from unittest import mock
 
@@ -1869,7 +1909,7 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7, n_layer=2,
         return moe_decode(*a)
 
     _cuda.reset_counts()
-    errs, ref_errs, agree, flips, live, sels = [], [], [], [], [], []
+    errs, ref_errs, agree, flips, live, sels, twice = [], [], [], [], [], [], []
     cur_tok = torch.from_numpy(tok)
     cur_pos = torch.from_numpy(posn)
     slot, T_step = 0, T
@@ -1917,6 +1957,11 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7, n_layer=2,
                 real[b, cur_tok.shape[1] - (n if step == 0 else 1):] = True
             flips.append(sum(int(((a != c).any(-1) & real).sum())
                              for a, c in zip(picked["card"], picked["cpu"])))
+            if cfg.n_group_experts:
+                used_ch = min(cfg.n_expert_used, cfg.n_expert // cfg.n_group_experts)
+                ids = [p[..., :used_ch] // cfg.n_group_experts for p in card_picks]
+                twice.append(sum(int(((c[..., :, None] == c[..., None, :]).triu(1).any(-1)
+                                      .any(-1) & real).sum()) for c in ids))
             if force_routing:
                 ties.append(max(float(g[real].max()) for g in gaps))
             if bias is not None:
@@ -1943,12 +1988,17 @@ def phase_moe_parity(torch, label="Mixtral-8x7B", spec=None, seed=7, n_layer=2,
         + (f"routing teacher-forced to the card's picks, the CPU f32 path's own picks' "
            f"probability over the card's at most {[f'{g:.2e}' for g in ties]} (near-tie "
            f"bound {NEAR_TIE:g}); " if force_routing else "")
+        + (f"(token, layer) rows naming one chunk twice {twice} of {n_routes}; "
+           if twice else "")
         + f"card s {[round(x, 3) for x in sides['card']['sec']]} "
         f"cpu f32 s {[round(x, 2) for x in sides['cpu']['sec']]} cpu bf16 s "
         f"{[round(x, 2) for x in sides['cpu_bf16']['sec']]}; launches {counts}")
     if not all(math.isfinite(e) for e in errs + ref_errs) or max(errs) >= tol:
         raise AssertionError(f"{n_layer}-layer {label} parity: nmse {errs}, tolerance {tol}, "
                              f"routing flips {flips}")
+    if cfg.n_group_experts and not twice[0]:
+        raise AssertionError(f"{n_layer}-layer {label} parity: no prefill row names one chunk "
+                             "twice, so the parity does not hold the summed chunk weights")
     if force_routing and not max(ties) < NEAR_TIE:
         raise AssertionError(f"{n_layer}-layer {label} parity: a routing the CPU f32 path "
                              f"picks otherwise is no near-tie: probability gaps {ties}")
@@ -2634,15 +2684,17 @@ QWEN_SERVER_PROMPTS = [2000, 700, 300, 40]  # the Qwen3 burst: 4 requests on 4 s
 
 
 def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
-                      must=DENSE_KERNELS + ("flash_decode",)):
+                      must=DENSE_KERNELS + ("flash_decode",), prompts=QWEN_SERVER_PROMPTS,
+                      new=SERVER_NEW):
     """The Qwen phases' server, on the 36-layer Qwen3-8B model (or the
     model of ``label``; the kernels of ``must`` launched):
     ServerContext (4 slots of 4096, int8 KV, decode_chunk 8, prefill_chunk
     512, its decode steps CUDA graph replays, kernel E on) with a byte-level
     BPE tokenizer at Qwen2's layout (synth_bpe_vocab(151936, layout="qwen2"),
     pre-type qwen2, ChatML) behind serve() on a free local port. With the
-    launch counts set to 0: a burst of QWEN_SERVER_PROMPTS token-id
-    completions (server_burst's checks: 64 tokens each, the tokenizer's
+    launch counts set to 0: a burst of token-id completions of ``prompts``
+    tokens (QWEN_SERVER_PROMPTS unless given; server_burst's checks: ``new``
+    tokens each, SERVER_NEW unless given, the tokenizer's
     text, one streamed, one sampled), then /apply-template and 2 concurrent
     chat completions: one greedy of 16 tokens, and one whose logit_bias
     makes <|im_end|> the greedy choice, which must stop there at once
@@ -2662,7 +2714,7 @@ def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
 
     vocab = cfg.vocab_size
     rng = np.random.default_rng(15)
-    prompts = [rng.integers(0, vocab, n).tolist() for n in QWEN_SERVER_PROMPTS]
+    lens, prompts = prompts, [rng.integers(0, vocab, n).tolist() for n in prompts]
     t = time.perf_counter()
     tok = Tokenizer(synth_bpe_vocab(vocab, layout="qwen2"))
     log(f"server {label}: synth_bpe_vocab({vocab}, layout='qwen2') and its tokenizer in "
@@ -2685,10 +2737,10 @@ def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
         ctx.control(lambda: [ctx.memory.clear_slot(i) for i in range(ctx.n_slots)])
         torch.cuda.synchronize()
         _cuda.reset_counts()
-        res, wall = server_burst(base, prompts, label, tok, vocab=vocab)
+        res, wall = server_burst(base, prompts, label, tok, vocab=vocab, new=new)
         report["burst"] = {"requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
                            "wall_s": wall,
-                           "completion_tok_per_s": len(prompts) * SERVER_NEW / wall}
+                           "completion_tok_per_s": len(prompts) * new / wall}
         convo = [{"role": "user", "content": "Hello! Who are you?"}]
         status, r = http_json(base + "/apply-template", {"messages": convo})
         want = apply_chat_template(ctx, convo)
@@ -2743,7 +2795,7 @@ def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
         srv.server_close()
         ctx.stop()
     log(f"server {label} (4 slots x 4096, q8 KV, decode_chunk 8, prefill_chunk 512, kernel E; "
-        f"prompts {QWEN_SERVER_PROMPTS}, {SERVER_NEW} new tokens each; 2 chats): "
+        f"prompts {lens}, {new} new tokens each; 2 chats): "
         f"{json.dumps(report)}")
     log(f"server {label}: launches (burst + chat) {counts}")
     missing = [k for k in must if counts[k] <= 0]
@@ -3012,10 +3064,8 @@ def phase_qwen_moe(torch, entries):
     torch.cuda.empty_cache()
     log(f"phase slice Qwen3-30B-A3B: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    counts["Qwen3-30B-A3B server"] = phase_qwen_server(
-        torch, cfg, params, "Qwen3-30B-A3B",
-        ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "moe_gmm", "kv_store",
-         "qmm_experts"))
+    counts["Qwen3-30B-A3B server"] = phase_qwen_server(torch, cfg, params, "Qwen3-30B-A3B",
+                                                       MOE_SERVER_KERNELS)
     del cfg, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5390,6 +5440,181 @@ def phase_scout(torch, entries):
     torch.cuda.empty_cache()
     return counts
 
+# phase 20's server: phase 10's chats and a shorter burst on 4 slots of 4096
+# (each prompt one 512-row prefill chunk, 16 new tokens: two decode chunks),
+# and its slice's tokens a request (8 decode steps), each cut for the
+# script's time limit: the chunk bank's loop takes ~51 ms a layer of an
+# eager 512-row chunk and ~0.5 s an eager decode step at 12 layers
+GROVEMOE_SERVER_PROMPTS = [480, 200, 80, 40]
+GROVEMOE_SERVER_NEW = 16
+GROVEMOE_NEW = 9
+
+
+def chunk_bank_row(torch, timer, cfg, lay, li, g, B, T):
+    """GroveMoE's chunk-expert bank a layer (models/llama.py:chunk_bank, no
+    kernel of its own) on the card, on layer li of ``lay``: x (B, T,
+    n_embd) as the routed experts' output, a routing of E top-k by sigmoid
+    from random logits, the bank's loop route (every chunk on every row;
+    gate/up through kernel A or B, the planar Q8_0 down at K 128 dequantized
+    whole and multiplied). Timed as its path runs it: a decode call (B*T <=
+    16) as a CUDA graph replay, beside the same call eagerly; a prefill call
+    eagerly. The bound reads the chunks the rows name, once. Also counts the
+    rows that name one chunk twice. -> ms (the graph replay's at decode)."""
+    from tpullm_torch.models.llama import chunk_bank, moe_route, top_k
+
+    qw = {k: v for k, v in lay.items() if hasattr(v, "qtype")}
+    ch = [qw[k] for k in ("moe_gate_chexps", "moe_up_chexps", "moe_down_chexps")]
+    E, used, grp = cfg.n_expert, cfg.n_expert_used, cfg.n_group_experts
+    x = torch.randn((B, T, cfg.n_embd), generator=g, device="cuda").to(torch.bfloat16)
+    logits = torch.randn((B, T, E), generator=g, device="cuda") * 1.3
+    probs = torch.softmax(logits, -1)
+    top_i = top_k(torch.sigmoid(logits), used)
+    E_ch, used_ch = E // grp, min(used, E // grp)
+    route = moe_route(True, B * T, *ch, cfg.n_embd, used_ch)
+    run = lambda: chunk_bank(x, probs, top_i, qw, li, cfg, torch.bfloat16)
+    ms = eager_ms = timer(run, 5 if B * T <= 16 else 2, warmup=1)
+    if B * T <= 16:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        ms = timer(graph.replay, 5, warmup=1)
+        del graph
+    chunk_i = (top_i[..., :used_ch] // grp).reshape(-1, used_ch)
+    twice = int((chunk_i[:, :, None] == chunk_i[:, None, :]).triu(1).any(-1).any(-1).sum())
+    named = int(torch.unique(chunk_i).numel())
+    per_chunk = sum(weight_bytes(t) for t in ch) / (ch[0].shape[0] * E_ch)
+    bound, by = bound_of(named * per_chunk, 2.0 * 3 * B * T * cfg.n_embd * used_ch
+                         * cfg.n_ff_chexp)
+    log(f"chunk bank[{route},B={B},T={T},{E_ch} chunk experts of {cfg.n_ff_chexp}x"
+        f"{cfg.n_embd},top-{used_ch} by pick // {grp},down {ch[2].qtype.name} "
+        f"{ch[2].layout}]: ms {ms:.3f}"
+        + (f" (a graph replay; eagerly {eager_ms:.3f})" if B * T <= 16 else " (eagerly)")
+        + f" bound_ms {bound:.4f} ({by}) share_of_bound {bound / ms:.4f}; chunks named "
+        f"{named}, rows naming one chunk twice {twice} of {B * T}")
+    if route != "loop":
+        raise AssertionError(f"chunk bank of {cfg.arch} at B*T={B * T}: route {route}")
+    return ms
+
+
+def phase_grovemoe_kernels(torch, entries, cfg, params):
+    """Phase 20's rows, on the cut GroveMoE-Inst model's own weights (its
+    last layer): A at M = 4 on one chunk's gate (128 x 2048, Q4_K); the
+    chunk bank's ms a layer at M = 4 (a graph replay) and at the 4 x 512
+    prefill (chunk_bank_row); C at grok-1's heads (48/8 of 128, softcap 30)
+    on the engine's prefill shape and E at those heads on the server's
+    int8 step (E runs on the server's path only), each beside
+    flex_attention with the softcap (the GroveMoE paths launch C and E at
+    their own heads).
+    -> {"decode": ms, "prefill": ms} of the chunk bank a layer."""
+    from tpullm_torch.models.llama import expert_weight
+    from tpullm_torch.ops import _cuda
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2626)
+    lay, li = params["layers"], cfg.n_layer - 1
+    path = "GroveMoE-Inst"
+    qt = expert_weight(lay["moe_gate_chexps"], li, 0)
+    w_bf16 = qt.dequant(torch.bfloat16)
+    x = torch.randn((4, qt.shape[-1]), generator=g, device="cuda").to(torch.bfloat16)
+    qmm_row(torch, timer, entries, "qmm_splitk",
+            f"qmm_splitk[chunk gate {qt.n_out}x{qt.shape[-1]},{qt.qtype.name},M=4,{path}]", x,
+            qt, w_bf16, path=path)
+    del w_bf16, x
+    bank = {"decode": chunk_bank_row(torch, timer, cfg, lay, li, g, 4, 1),
+            "prefill": chunk_bank_row(torch, timer, cfg, lay, li, g, 4, 512)}
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
+             path=path, heads=GROK_HEADS, softcap=GROK_SOFTCAP)
+    decode_row(torch, timer, entries, g, "grok-1 heads server", 4096, QWEN_SERVER_PROMPTS,
+               [0, 0, 0, 0], True, heads=GROK_HEADS, path=f"{path} server",
+               softcap=GROK_SOFTCAP)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+    return bank
+
+
+def phase_grovemoe(torch, entries):
+    """Phase 20, the other MoE families at full width (GroveMoE-Inst), the
+    Scout weights freed first: (a) the 1-layer parity against the CPU
+    (phase 6's rule and routing count, with the rows that name one chunk
+    twice counted); then the model cut to SLICE_LAYERS layers (of 48),
+    drawn on the card: (b) its kernel rows (phase_grovemoe_kernels); (c) the
+    slice (4 requests of GROVEMOE_NEW tokens, graph replays, then eagerly:
+    the same tokens and launch counts; A, B, C, F, the store and the skip
+    launched, D not), its
+    decode-step profile as graph replays (the skip 3 a layer; A on wqkv, wo
+    and each chunk's gate and up a layer, and the lm_head; the store once a
+    layer) with the chunk bank's share of the step, and a prefill profile;
+    (d) its server (phase_qwen_server: 4 slots of 4096, int8 KV, kernel E,
+    the Qwen2-layout tokenizer) with 4 token-id completions
+    (GROVEMOE_SERVER_PROMPTS) and 2 chats. -> launch counts by path."""
+    counts = {}
+    label = "GroveMoE-Inst"
+    t = time.perf_counter()
+    counts[f"{label} {ONE_LAYER}-layer"] = phase_moe_parity(
+        torch, f"{label} (depth cut from {GROVEMOE['n_layer']})", GROVEMOE, seed=13,
+        n_layer=ONE_LAYER)
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_moe(GROVEMOE, n_layer=slice_depth(label, GROVEMOE["n_layer"]), seed=0,
+                            device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    lay = params["layers"]
+    n_w = sum(math.prod(v.shape) for v in lay.values() if hasattr(v, "qtype")) + 2 * (
+        cfg.vocab_size * cfg.n_embd)
+    log(f"slice {label}: synthesized weights {params_bytes(params) / 1e9:.3f} GB "
+        f"({n_w / 1e9:.3f} B weights) in {time.perf_counter() - t:.3f} s; config {cfg.arch} "
+        f"rope {cfg.rope_type} {cfg.rope_base:g} heads {cfg.n_head}/{cfg.n_head_kv} of "
+        f"{cfg.head_dim} qk_norm {cfg.attn_qk_norm} experts {cfg.n_expert} top-"
+        f"{cfg.n_expert_used} of {cfg.n_ff_exp} renorm {cfg.expert_weights_norm} chunk experts "
+        f"{cfg.n_expert // cfg.n_group_experts} of {cfg.n_ff_chexp} (group "
+        f"{cfg.n_group_experts}, scale {cfg.expert_group_scale:g}); layouts "
+        f"{ {k: (v.qtype.name, v.layout) for k, v in lay.items() if hasattr(v, 'qtype')} }")
+    t = time.perf_counter()
+    bank = phase_grovemoe_kernels(torch, entries, cfg, params)
+    log(f"phase kernels {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[label], eng, eager, prompts = phase_slice(
+        torch, label, cfg, params, cfg.vocab_size, MOE_KERNELS, ("layer_kernel",),
+        new=GROVEMOE_NEW, samples=1)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = phase_decode(torch, eng, prompts, f" {label} graph", profiled_steps=2, steps=16)
+    step = out["graph_capture_counts_per_step"] or {}
+    L, E_ch = cfg.n_layer, cfg.n_expert // cfg.n_group_experts
+    want = {"qmm_experts": 3 * L, "qmm_splitk": (2 + 2 * E_ch) * L + 1, "kv_store": L}
+    if {k: step.get(k) for k in want} != want or step.get("layer_kernel"):
+        raise AssertionError(f"{label} decode step: launches {step}, want {want} (the skip on "
+                             "gate, up and down a layer; A on wqkv, wo and each chunk's gate "
+                             "and up a layer and the lm_head; the store once a layer)")
+    pre = phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "moe_gmm"),
+                                f" {label}")
+    step_ms = out["wall_ms_q1_median_q3"][1]
+    log(f"chunk bank {label}: {L} layers x {bank['decode']:.3f} ms (graph) at M = 4 = "
+        f"{L * bank['decode']:.2f} ms of the {step_ms:.2f} ms graph decode step (share "
+        f"{L * bank['decode'] / step_ms:.3f}); x {bank['prefill']:.2f} ms at the 4 x 512 "
+        f"prefill = {L * bank['prefill']:.1f} ms of its {pre['wall_ms']:.1f} ms (share "
+        f"{L * bank['prefill'] / pre['wall_ms']:.3f})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[f"{label} server"] = phase_qwen_server(torch, cfg, params, label, MOE_SERVER_KERNELS,
+                                                  GROVEMOE_SERVER_PROMPTS, GROVEMOE_SERVER_NEW)
+    log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
+    del cfg, params, lay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
 
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
@@ -5843,11 +6068,12 @@ def main() -> int:
     phi4_counts = phase_phi4(torch, entries)
     gptoss_counts = phase_gptoss(torch, entries)
     scout_counts = phase_scout(torch, entries)
+    grovemoe_counts = phase_grovemoe(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
                **command_r_counts, **starcoder_counts, **ernie_counts, **deepseek_counts,
-               **phi4_counts, **gptoss_counts, **scout_counts}
+               **phi4_counts, **gptoss_counts, **scout_counts, **grovemoe_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

@@ -2303,3 +2303,204 @@ def test_llama4_engine_on_card_matches_cpu(cuda, monkeypatch, flag):
     assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
     ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
     assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+
+
+# -------------------- the other MoE families (grok, arctic, dbrx, grovemoe)
+
+def _moe_stacks(cuda, g, E, n_ff, D, qtype=GGMLType.Q4_K, down_qtype=None, L=2):
+    """(L, E) K-major gate, up and down stacks of qtype, drawn on the card
+    (n_ff wide, K D; down D wide, K n_ff), as the loader stacks them."""
+    from tpullm_torch.ops.qtensor import QTensor
+
+    def stack(qt, n, K):
+        w = random_kmajor(qt, [n], K, (L, E), g, cuda)
+        return QTensor(qt, (L, E, n, K), w.data)
+
+    return (stack(qtype, n_ff, D), stack(qtype, n_ff, D), stack(down_qtype or qtype, D, n_ff))
+
+
+@pytest.mark.parametrize("M", [4, 16, 200])
+def test_moe_gelu_experts_skip_and_ragged_vs_loop(cuda, monkeypatch, M):
+    """grok's GELU experts through the skip (M <= 16: bit for bit the loop,
+    three skip launches) and kernel F (M = 200: within bf16's rounding of the
+    loop, NMSE < 1e-4, F launched), the activation applied outside the
+    kernels; silu gives another output."""
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.models.llama import moe_ffn
+    from tpullm_torch.ops.qtensor import QTensor
+
+    g = torch.Generator(device=cuda).manual_seed(26)
+    E, D, n_ff = 8, 512, 512
+    gate, up, down = _moe_stacks(cuda, g, E, n_ff, D)
+    router = QTensor(GGMLType.F32, (2, E, D), {"w": torch.randn((2, E, D), generator=g,
+                                                               device=cuda) * 0.1})
+    qw = {"moe_gate_inp": router, "moe_gate_exps": gate, "moe_up_exps": up,
+          "moe_down_exps": down}
+    cfg = ModelConfig(arch="grok", n_embd=D, n_expert=E, n_expert_used=2, act_fn="gelu",
+                      expert_weights_norm=True)
+    x = torch.randn((1, M, D), generator=g, device=cuda).to(torch.bfloat16)
+    _cuda.reset_counts()
+    got = moe_ffn(x, qw, 1, cfg, torch.bfloat16)
+    c = dict(_cuda.COUNTS)
+    route = llama.moe_route
+    monkeypatch.setattr(llama, "moe_route", lambda *a, **k: "loop")
+    want = moe_ffn(x, qw, 1, cfg, torch.bfloat16)
+    silu = moe_ffn(x, qw, 1, dataclasses.replace(cfg, act_fn="silu"), torch.bfloat16)
+    monkeypatch.setattr(llama, "moe_route", route)
+    if M <= 16:
+        assert c["qmm_experts"] == 3 and torch.equal(got, want), c
+    else:
+        assert c["moe_gmm"] == 3 and _nmse(got, want) < 1e-4, c
+    assert _nmse(silu, want) > 1e-4
+
+
+@pytest.mark.parametrize("M", [4, 16, 200])
+def test_chunk_bank_skip_and_ragged_vs_loop(cuda, monkeypatch, M):
+    """grovemoe's chunk bank on K-major Q8_0 stacks at a chunk FFN of 256 (8
+    chunk experts, picks // 2 of a top-8 of 16, so rows name a chunk twice,
+    and the first row on purpose): the skip (M <= 16) bit for bit the loop
+    over every chunk, its combine summing a chunk's two weights; kernel F
+    (M = 200) within bf16's rounding of the loop (NMSE < 1e-4) and at NMSE <
+    1e-8 (the bf16 output's last bits) against itself with each chunk's
+    weights summed onto its first naming, where keeping one of the two
+    weights is off by NMSE > 1e-4."""
+    import tpullm_torch.models.llama as llama
+    from tpullm_torch.models.llama import _moe_prefill_ragged, chunk_bank
+
+    g = torch.Generator(device=cuda).manual_seed(27)
+    E, grp, D, n_ch = 16, 2, 512, 256
+    gate, up, down = _moe_stacks(cuda, g, E // grp, n_ch, D, GGMLType.Q8_0)
+    qw = {"moe_gate_chexps": gate, "moe_up_chexps": up, "moe_down_chexps": down}
+    cfg = ModelConfig(arch="grovemoe", n_embd=D, n_expert=E, n_expert_used=8,
+                      expert_weights_norm=True, n_group_experts=grp, expert_group_scale=0.05)
+    x = torch.randn((1, M, D), generator=g, device=cuda).to(torch.bfloat16)
+    probs = torch.softmax(torch.randn((1, M, E), generator=g, device=cuda), -1)
+    top_i = torch.rand((1, M, E), generator=g, device=cuda).argsort(-1)[..., :8]
+    top_i[0, 0, :2] = torch.tensor([4, 5], device=cuda)
+    chunk_i = top_i // grp
+    assert bool((chunk_i[0, 0, 0] == chunk_i[0, 0, 1]))
+    _cuda.reset_counts()
+    got = chunk_bank(x, probs, top_i, qw, 1, cfg, torch.bfloat16)
+    c = dict(_cuda.COUNTS)
+    route = llama.moe_route
+    monkeypatch.setattr(llama, "moe_route", lambda *a, **k: "loop")
+    want = chunk_bank(x, probs, top_i, qw, 1, cfg, torch.bfloat16)
+    monkeypatch.setattr(llama, "moe_route", route)
+    if M <= 16:
+        assert c["qmm_experts"] == 3 and torch.equal(got, want), c
+        return
+    assert c["moe_gmm"] == 3 and _nmse(got, want) < 1e-4, c
+    w = torch.gather(probs, -1, chunk_i)
+    w = w / w.sum(-1, keepdim=True)
+    later = torch.triu(chunk_i[..., :, None] == chunk_i[..., None, :], 1)
+    merged = (w + (later * w[..., None, :]).sum(-1)) * (~later.any(-2))
+    ccfg = dataclasses.replace(cfg, n_expert=E // grp)
+    ragged = lambda wt: _moe_prefill_ragged(x, wt, chunk_i, gate, up, down, 1, ccfg,
+                                            torch.bfloat16)
+    assert _nmse(ragged(w), ragged(merged)) < 1e-8
+    assert _nmse(ragged(w * (~later.any(-2))), ragged(w)) > 1e-4
+
+
+@pytest.mark.parametrize("T,n_past,S,S_full", [(512, 0, 1024, 1024), (512, 1000, 2048, 2560)],
+                         ids=["T512", "T512-deep"])
+def test_flash_attention_kernel_grok_heads_softcap(cuda, T, n_past, S, S_full):
+    """Kernel C at grok-1's heads (48/8 of 128) with its softcap of 30 against
+    the masked softmax: NMSE < 1e-4 on rows with a visible key, the others
+    exactly 0, two calls bit-identical."""
+    q, k, v, qs, kvp, pos, vf = _attn_inputs(cuda, 48, 8, T, S, S_full, (0, 37, 100), n_past)
+    cfg = ModelConfig(n_head=48, n_head_kv=8, head_dim=128, head_dim_v=128,
+                      attn_logit_softcap=30.0)
+    got = flash_attention(q, k, v, qs, kvp, pos, vf, cfg)
+    assert torch.equal(got, flash_attention(q, k, v, qs, kvp, pos, vf, cfg))
+    want = masked_attention(q, k, v, qs, kvp, pos, vf, 1.0 / 128 ** 0.5, 30.0, 0)
+    for b, f in enumerate(vf.tolist()):
+        live = qs[b] >= f
+        assert torch.count_nonzero(got[b, ~live]) == 0
+        assert _nmse(got[b, live], want[b, live]) < 1e-4
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("T", [1, 4])
+def test_flash_decode_kernel_grok_heads_softcap(cuda, q8, T):
+    """Kernel E at grok-1's heads (48/8 of 128, a GQA group of 6) with its
+    softcap of 30, bf16 and int8, against its plain version: NMSE < 1e-4,
+    two calls bit-identical."""
+    from tpullm_torch.ops.flash_decode import flash_decode, flash_decode_plain
+
+    q, k, v, ks, vs, qs, pos, vf, g = _decode_inputs(cuda, q8, T=T, H=48, Hkv=8)
+    cfg = ModelConfig(n_head=48, n_head_kv=8, head_dim=128, head_dim_v=128,
+                      attn_logit_softcap=30.0)
+    a = flash_decode(q, k, v, qs, pos, vf, cfg, 0, None, k_scales=ks, v_scales=vs)
+    assert torch.equal(a, flash_decode(q, k, v, qs, pos, vf, cfg, 0, None, k_scales=ks,
+                                       v_scales=vs))
+    want = flash_decode_plain(q, k, v, qs, pos, vf, 128 ** -0.5, 30.0, 0, False, None, ks, vs)
+    assert _nmse(a, want) < 1e-4
+
+
+def _family_card(arch):
+    """A 2-layer model of ``arch`` at n_embd 512 (8 experts of 512, top-2,
+    Q4_K K-major) on the CPU: grok's and arctic's MoE layers with a dense FFN
+    of 1024 beside the experts (the fused gate/up and down), arctic's
+    ffn_norm_exps; dbrx's layernorm and clamp of 8; grovemoe's chunk bank of
+    4 chunk experts of 256 (Q8_0 down, K-major)."""
+    from tpullm_torch.utils.synth import synth_moe_q4k
+
+    kw = dict(vocab_size=500, n_embd=512, n_layer=2, n_head=4, n_head_kv=2, n_ff=1024,
+              n_expert=8, n_expert_used=2, n_ff_exp=512, rms_eps=1e-6, exact_vocab=True,
+              seed=4, device="cpu")
+    if arch == "dbrx":
+        kw["cfg_fields"] = dict(clamp_kqv=8.0, norm_eps=1e-5)
+    if arch == "grovemoe":
+        kw.update(head_dim=128, n_group_experts=2, n_ff_chexp=256, expert_group_scale=0.05)
+    cfg, params = synth_moe_q4k(arch=arch, **kw)
+    if arch in ("grok", "arctic"):
+        g = torch.Generator().manual_seed(9)
+        lay = params["layers"]
+        lay["ffn_gateup"] = random_kmajor(GGMLType.Q4_K, [cfg.n_ff, cfg.n_ff], 512, (2,), g,
+                                          "cpu")
+        lay["ffn_down"] = random_kmajor(GGMLType.Q4_K, [512], cfg.n_ff, (2,), g, "cpu")
+        if arch == "arctic":
+            lay["ffn_norm_exps"] = 1.0 + 0.1 * torch.randn((2, 512), generator=g)
+    return cfg, params
+
+
+@pytest.mark.parametrize("flag", [None, "1"])
+@pytest.mark.parametrize("arch", ["grok", "arctic", "dbrx", "grovemoe"])
+def test_moe_family_engine_on_card_matches_cpu(cuda, monkeypatch, arch, flag):
+    """grok (GELU experts beside a dense FFN, scaled by sqrt(2)/2; the
+    attention softcap of 30, its embedding and logit scales, post-norms),
+    arctic (the dense FFN plus the MoE on the layer input under
+    ffn_norm_exps), dbrx (layernorm, clamp 8) and grovemoe (the chunk bank,
+    K-major: the skip and F take it too) through the engine on the card
+    (E off and on) against the plain path on the CPU in f32, within 4x the
+    plain bf16 error: A, B, C, F, the store and the skip launched, D not;
+    the same requests with cuda_graphs=False give the graph's tokens and
+    launch counts."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = _family_card(arch)
+    card = _to(params, "cuda")
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    assert all(c[k] > 0 for k in ("qmm_splitk", "qmm", "flash_attention", "moe_gmm",
+                                  "kv_store", "qmm_experts")), c
+    assert c["layer_kernel"] == 0 and (c["flash_decode"] > 0) == bool(flag), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref

@@ -39,15 +39,20 @@ MIXTRAL = ModelConfig(arch="mixtral", n_expert=8, n_expert_used=2, expert_weight
 
 
 @pytest.mark.parametrize("field,value", [
-    ("expert_group_scale", 2.0), ("n_group_experts", 2), ("n_ff_chexp", 64),
-    ("moe_every_n", 2), ("moe_dense_parallel", "grok"), ("act_fn", "gelu"),
+    ("moe_dense_parallel", "nemotron"), ("n_group_experts", 3), ("act_fn", "relu2"),
+    ("moe_every_n", 2), ("sub_norms", True), ("qk_norm_type", "layernorm"),
     ("n_expert_used", 9), ("expert_gating", "softmax_weight")])
 def test_flag_outside_moe_path_raises(field, value):
     """The MoE fields pass only with MoE tensors (moe=True); the other MoE
-    features still raise. (The dense lead's count passes since the port
+    features still raise: a dense-beside-MoE block other than grok's and
+    arctic's, a chunk group size that does not divide the experts, ungated
+    relu^2 experts (nemotron_h_moe), bitnet's sub-norms, chameleon's
+    layernorm QK norms. (The dense lead's count passes since the port
     runs leading dense layers: test_dense_lead_passes_with_moe_only; so does
     the shared experts' count, whose width the shared expert's tensors
-    carry, and smallthinker's router input, moe_router_pre_norm.)"""
+    carry, smallthinker's router input, moe_router_pre_norm, grovemoe's
+    chunk experts, grok's GELU experts and grok's and arctic's blocks:
+    tests/test_torch_moe_families.py.)"""
     check_dense(MIXTRAL, moe=True)
     with pytest.raises(NotImplementedError, match="n_expert|MoE|" + field):
         check_dense(dataclasses.replace(MIXTRAL, **{field: value}), moe=True)
@@ -117,14 +122,16 @@ def test_new_rows_keep_their_refusals(arch, key, value):
         config_from_gguf(_Meta({f"{arch}.{key}": value}, arch))
 
 
-@pytest.mark.parametrize("arch,key", [("dbrx", "dbrx.attention.clamp_kqv"),
-                                      ("grovemoe", "grovemoe.experts_per_group"),
-                                      ("arctic", "arctic.expert_count")])
+@pytest.mark.parametrize("arch,key", [("nemotron_h_moe", "nemotron_h_moe.expert_count"),
+                                      ("lfm2moe", "lfm2moe.expert_count"),
+                                      ("llada-moe", "llada-moe.expert_count")])
 def test_unported_moe_archs_raise(arch, key):
-    """dbrx, grovemoe and arctic stay out of the registry (a dense FFN beside
-    the MoE, dbrx's norm name, chunk experts): a file of theirs raises at the
-    arch gate, whatever its keys. (afmoe and smallthinker run:
-    tests/test_torch_irope.py.)"""
+    """The MoE rows of the hybrid and diffusion families stay out of the
+    registry (nemotron_h_moe's FFN-only and recurrent layers, lfm2moe's
+    short convolutions, llada-moe's diffusion decoding): a file of theirs
+    raises at the arch gate, whatever its keys. (afmoe and smallthinker run:
+    tests/test_torch_irope.py; dbrx, grok, arctic and grovemoe:
+    tests/test_torch_moe_families.py.)"""
     with pytest.raises(NotImplementedError, match=arch):
         config_from_gguf(_Meta({key: 4}, arch))
 
@@ -247,12 +254,13 @@ def test_glm_dsa_indexer_is_the_only_extra(tmp_path, monkeypatch):
 
 
 def test_planar_q5_0_raises():
-    """Planar Q5_0, llama.cpp's fallback for the Q4_K rows a Q4_K_M
-    DeepSeek-V2-Lite file carries at K 1408 (the expert down) and 10944 (the
-    dense down), has no K-major tile there and is not ported: it raises."""
+    """Planar Q5_1 at K 1408 and 10944 (the rows where a Q4_K_M
+    DeepSeek-V2-Lite file falls back to Q5_0) has no K-major tile there and
+    is not ported: it raises. (Planar Q5_0 itself loads since it is ported:
+    tests/test_torch_moe_families.py::test_planar_q5_0_bit_exact.)"""
     for K in (1408, 10944):
-        with pytest.raises(NotImplementedError, match="Q5_0"):
-            qtensor_from_bytes(np.zeros(22 * K // 32 * 2, np.uint8), GGMLType.Q5_0, (2, K))
+        with pytest.raises(NotImplementedError, match="Q5_1"):
+            qtensor_from_bytes(np.zeros(24 * K // 32 * 2, np.uint8), GGMLType.Q5_1, (2, K))
 
 
 def test_selection_bias_on_dense_layer_raises(tmp_path, monkeypatch):
@@ -280,8 +288,8 @@ def test_per_layer_head_counts_raise():
 
 
 def test_other_arch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="grok"):
-        load_model(_gguf(tmp_path, arch="grok"), device="cpu")
+    with pytest.raises(NotImplementedError, match="chameleon"):
+        load_model(_gguf(tmp_path, arch="chameleon"), device="cpu")
 
 
 def test_swa_array_is_the_only_per_layer_key():

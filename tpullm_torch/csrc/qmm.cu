@@ -172,9 +172,11 @@ __global__ void qmm_experts_combine(const float* __restrict__ part, const int* _
     float t = 0.f;
     if (e >= 0 && i < total) {
       const int m = (int)(i / Nout), n = (int)(i % Nout);
+      // a row may name the expert more than once (grovemoe's chunk ids):
+      // its weights add, as the loop's (w * (top_i == e)).sum(-1) adds them
       float we = 0.f;
       for (int j = 0; j < used; ++j)
-        if (top_i[(size_t)m * used + j] == e) we = wts[(size_t)m * used + j];
+        if (top_i[(size_t)m * used + j] == e) we = __fadd_rn(we, wts[(size_t)m * used + j]);
       const float de = rounded(slot_sum(part, slot, nS, M, N, m, n), out_bf16);
       t = rounded(__fmul_rn(de, rounded(we, out_bf16)), out_bf16);
     }

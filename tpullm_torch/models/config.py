@@ -246,6 +246,16 @@ MLA_KEYS = frozenset({
     "attention.q_lora_rank", "attention.kv_lora_rank", "attention.key_length_mla",
     "attention.value_length_mla", "rope.scaling.yarn_log_multiplier",
 })
+# grovemoe's chunk experts (config.py:371-378 of the JAX parser): the group
+# size (a chunk expert a group of experts_per_group routed experts), the
+# scale of the chunk bank's output and its width (read from the tensors; the
+# key is carried as the JAX parser carries it). Read for grovemoe only:
+# llama.cpp's graph reads them in grovemoe's alone, while the JAX graph
+# would switch any arch's top-k to sigmoid selection on them
+# (llama.py:395-397), so another arch's file with these keys raises
+GROVE_KEYS = frozenset({
+    "experts_per_group", "expert_group_scale", "expert_chunk_feed_forward_length",
+})
 # glm-dsa's DSA indexer, whose tensors the reference loads and its graph
 # does not run (src/models/glm-dsa.cpp): its keys go through unread, as in
 # the JAX parser
@@ -261,7 +271,8 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     if arch not in ARCH_REGISTRY:
         raise NotImplementedError(
             f"arch {arch!r}: the PyTorch port covers {sorted(ARCH_REGISTRY)}")
-    known = DENSE_KEYS | MOE_KEYS | MLA_KEYS | (INDEXER_KEYS if arch == "glm-dsa" else set())
+    known = (DENSE_KEYS | MOE_KEYS | MLA_KEYS | (INDEXER_KEYS if arch == "glm-dsa" else set())
+             | (GROVE_KEYS if arch == "grovemoe" else set()))
     other = sorted(k for k in g.metadata if k.startswith("xielu.") or (
         k.startswith(arch + ".") and k[len(arch) + 1:] not in known))
     if other:
@@ -365,6 +376,13 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
             f"{arch}.interleave_moe_layer_step={step}: dense layers interleaved with the "
             "MoE layers (Llama-4-Maverick's files) are not on the covered paths; 1 (every "
             "layer MoE, Scout's) is")
+    nge = get("experts_per_group")
+    if nge is not None:
+        cfg.n_group_experts = int(nge)
+    egs = get("expert_group_scale")
+    if egs is not None:
+        cfg.expert_group_scale = float(egs)
+    cfg.n_ff_chexp = int(get("expert_chunk_feed_forward_length", 0) or 0)
     nextn = int(get("nextn_predict_layers", 0) or 0)
     if nextn:
         cfg.n_layer -= nextn

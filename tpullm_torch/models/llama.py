@@ -134,19 +134,24 @@ DENSE_FIELDS = frozenset({
 })
 # act_fn values of the dense FFN (llama.py:624-658): gated silu, gelu or
 # gpt-oss's clamped swiglu_oai, ungated gelu or relu2; the MoE FFN's experts
-# run gated silu, swiglu_oai or smallthinker's relu (llama.py:431-440)
+# run gated silu, grok's gelu, swiglu_oai or smallthinker's relu
+# (llama.py:431-440)
 GATED_ACTS, UNGATED_ACTS = ("silu", "gelu", "swiglu_oai"), ("gelu", "relu2")
-MOE_ACTS = ("silu", "swiglu_oai", "relu")
+MOE_ACTS = ("silu", "gelu", "swiglu_oai", "relu")
 NORM_TYPES = ("rmsnorm", "layernorm")
 # the routed-expert MoE FFN's fields, accepted only with MoE tensors; the
 # dense lead's count is informational, as in the JAX graph: which FFN a
 # layer runs follows its tensors. smallthinker's router reads the residual
-# stream ahead of ffn_norm (moe_router_pre_norm)
+# stream ahead of ffn_norm (moe_router_pre_norm). grovemoe's chunk experts
+# (the group size, the bank's scale and width) and the dense FFN beside the
+# MoE (grok's and arctic's blocks, moe_dense_parallel)
 MOE_FIELDS = frozenset({
     "n_expert", "n_expert_used", "expert_gating", "expert_weights_norm",
     "expert_weights_scale", "n_ff_exp", "n_layer_dense_lead", "n_expert_shared",
-    "moe_router_pre_norm",
+    "moe_router_pre_norm", "n_group_experts", "expert_group_scale", "n_ff_chexp",
+    "moe_dense_parallel",
 })
+MOE_DENSE_PARALLEL = ("", "grok", "arctic")
 # MLA, the compressed-KV attention of the deepseek2 family (llama.py:973-1041),
 # on the dense decoder's layers or beside the MoE FFN
 MLA_FIELDS = frozenset({"q_lora_rank", "kv_lora_rank", "rope_yarn_log_mul"})
@@ -165,6 +170,12 @@ MOE_BIAS_KEYS = EXPERT_BIAS_KEYS | {"moe_gate_inp_b"}
 # the shared expert of MoE layers (qwen2moe: with its sigmoid gate), read
 # only beside MOE_KEYS (llama.py:498-510)
 SHEXP_KEYS = frozenset({"ffn_gate_shexp", "ffn_up_shexp", "ffn_down_shexp"})
+# grovemoe's chunk-expert bank (E // n_group_experts experts of n_ff_chexp),
+# read only beside MOE_KEYS with n_group_experts (llama.py:466-493)
+CHEXP_KEYS = frozenset({"moe_gate_chexps", "moe_up_chexps", "moe_down_chexps"})
+# the dense FFN's weights, read on a MoE layer by grok's and arctic's blocks
+# only (llama.py:1295-1314)
+DENSE_FFN_KEYS = frozenset({"ffn_gateup", "ffn_gate", "ffn_up", "ffn_down"})
 
 
 def _informational(cfg: ModelConfig, name: str) -> bool:
@@ -208,10 +219,14 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
             f"{cfg.sliding_window}, attn_logit_softcap={cfg.attn_logit_softcap}: ALiBi runs "
             "without a window, a ring or a softcap in the port")
     if moe and (cfg.n_expert < 1 or not 1 <= cfg.n_expert_used <= cfg.n_expert
-                or cfg.expert_gating not in ("softmax", "sigmoid")):
+                or cfg.expert_gating not in ("softmax", "sigmoid")
+                or cfg.moe_dense_parallel not in MOE_DENSE_PARALLEL
+                or cfg.moe_dense_parallel and (cfg.parallel_residual or cfg.kv_lora_rank)
+                or cfg.n_group_experts and cfg.n_expert % cfg.n_group_experts):
         raise NotImplementedError(
             f"MoE with n_expert={cfg.n_expert}, n_expert_used={cfg.n_expert_used}, "
-            f"gating {cfg.expert_gating!r}: not on the covered MoE path")
+            f"gating {cfg.expert_gating!r}, moe_dense_parallel {cfg.moe_dense_parallel!r}, "
+            f"n_group_experts {cfg.n_group_experts}: not on the covered MoE path")
     if cfg.kv_lora_rank:
         base = ModelConfig()
         unread = [f for f in MLA_UNREAD_FIELDS if getattr(cfg, f) != getattr(base, f)]
@@ -768,6 +783,11 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, b
     package's dense path off the TPU, each expert run on its selected rows
     only (``_moe_loop``).
 
+    With n_group_experts (grovemoe) the top-k is chosen by sigmoid(logits)
+    whatever the gating, and the combine weights stay the gating's
+    probabilities (llama.py:394-397); the chunk-expert bank then runs on the
+    routed experts' output and is added to it (``chunk_bank``).
+
     A shared expert (ffn_{gate,up,down}_shexp) runs on x beside them and is
     added last, scaled first by the per-token sigmoid gate of
     ``gate_shexp`` (the layer's f32 moe_gate_inp_shexp, qwen2moe) where
@@ -784,6 +804,8 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, b
     else:
         probs = torch.softmax(router, dim=-1)
     sel = probs if probs_b is None else probs + probs_b.to(torch.float32)[None, None, :]
+    if cfg.n_group_experts > 0:  # grovemoe: selection by sigmoid, weights by probs
+        sel = torch.sigmoid(router)
     top_i = top_k(sel, used)  # (B, T, used)
     w = torch.gather(probs, -1, top_i)
     if cfg.expert_weights_norm:
@@ -799,6 +821,8 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, b
         out = _moe_prefill_ragged(x, w, top_i, gate_w, up_w, down_w, li, cfg, dtype)
     else:
         out = _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E, dtype, act, exp_b)
+    if cfg.n_group_experts > 0 and "moe_gate_chexps" in qw:
+        out = chunk_bank(out, probs, top_i, qw, li, cfg, dtype)
     if "ffn_gate_shexp" in qw:
         g = qmm(x, qw["ffn_gate_shexp"], dtype, li)
         u = qmm(x, qw["ffn_up_shexp"], dtype, li)
@@ -810,6 +834,45 @@ def moe_ffn(x, qw, li, cfg: ModelConfig, dtype, gate_shexp=None, probs_b=None, b
             sh = sh * sg[..., None].to(sh.dtype)
         out = out + sh
     return out
+
+
+def chunk_bank(out, probs, top_i, qw, li, cfg: ModelConfig, dtype):
+    """grovemoe's adjugate chunk experts (llama.py:466-493; grovemoe.cpp):
+    E // n_group_experts SiLU experts, chunk c the group of routed experts
+    [c * g, (c + 1) * g). Each row's chunk ids are its first min(used, E //
+    g) picks // g, so two picks of one group name one chunk twice, and the
+    chunk's weight is then the sum of both, as the JAX mask-sum adds them.
+    The weights are the router's probabilities read at the chunk ids (the
+    full-expert row indexed with chunk indices, as the reference does),
+    renormalized and scaled as the routed experts' are. The bank reads the
+    routed experts' output ``out`` (B, T, D) and returns out + its output x
+    expert_group_scale. Its stacks take ``moe_route``'s path: the skip at
+    decode and kernel F at prefill where all three are K-major stacks those
+    kernels take, else the loop over every chunk (a planar chunk down)."""
+    g = cfg.n_group_experts
+    E_ch = cfg.n_expert // g
+    gate_w, up_w, down_w = (qw[k] for k in ("moe_gate_chexps", "moe_up_chexps",
+                                            "moe_down_chexps"))
+    if gate_w.shape[-3] != E_ch:
+        raise NotImplementedError(
+            f"moe_gate_chexps {tuple(gate_w.shape)}: {gate_w.shape[-3]} chunk experts, the "
+            f"graph reads {cfg.n_expert} // {g} = {E_ch}")
+    used_ch = min(cfg.n_expert_used, E_ch)
+    chunk_i = top_i[..., :used_ch] // g
+    w = torch.gather(probs, -1, chunk_i)
+    if cfg.expert_weights_norm:
+        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    w = w * cfg.expert_weights_scale
+    B, T, D = out.shape
+    route = moe_route(out.is_cuda, B * T, gate_w, up_w, down_w, D, used_ch)
+    if route == "skip":
+        adj = moe_decode(out, w, chunk_i, gate_w, up_w, down_w, li, E_ch, dtype)
+    elif route == "ragged":
+        adj = _moe_prefill_ragged(out, w, chunk_i, gate_w, up_w, down_w, li,
+                                  dataclasses.replace(cfg, n_expert=E_ch, act_fn="silu"), dtype)
+    else:
+        adj = _moe_loop(out, w, chunk_i, gate_w, up_w, down_w, li, E_ch, dtype)
+    return out + adj * cfg.expert_group_scale
 
 
 def _moe_loop(x, w, top_i, gate_w, up_w, down_w, li, E: int, dtype, act=None, bias=None):
@@ -932,17 +995,21 @@ _LAYER_KEYS = (frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo
                           "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
                           "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
                           "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
-                          "moe_probs_b", "wqkv_gate", "attn_sinks"})
-               | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS | MOE_BIAS_KEYS)
+                          "moe_probs_b", "wqkv_gate", "attn_sinks", "ffn_norm_exps"})
+               | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS | MOE_BIAS_KEYS | CHEXP_KEYS)
 
 
 def check_ffn_layout(cfg: ModelConfig, gl) -> None:
     """Raise NotImplementedError where a dense gated FFN has none of its
     weight layouts: the load-time fused ffn_gateup, separate ffn_gate and
     ffn_up, or a GGUF-combined [gate; up] (an ffn_up of 2 x n_ff rows,
-    llama.py:606-610); and where a layer has no ffn_down. Layers with routed
-    experts and ungated FFNs are not asked."""
-    if (cfg.n_expert > 0 and "moe_gate_inp" in gl) or not cfg.ffn_gate:
+    llama.py:606-610); and where a layer has no ffn_down. Ungated FFNs are
+    not asked, nor layers with routed experts, but for the dense FFN beside
+    them: arctic's, which its block always runs, and grok's where the layer
+    has one (llama.py:1295-1314)."""
+    moe = cfg.n_expert > 0 and "moe_gate_inp" in gl
+    if not cfg.ffn_gate or (moe and cfg.moe_dense_parallel != "arctic"
+                            and not DENSE_FFN_KEYS & set(gl)):
         return
     up = gl.get("ffn_up")
     ok = ("ffn_gateup" in gl or ("ffn_gate" in gl and up is not None)
@@ -977,7 +1044,10 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     biases without layernorm; attn_norm_2 without the parallel block, and ffn_norm or
     post_ffn_norm in a parallel block that does not read them; gate
     weights and the gate's bias on an ungated FFN; the dense FFN's biases on
-    a MoE layer; q/k norm biases outside flat layernorm q/k norms (mpt); the
+    a MoE layer, and its weights there outside grok's and arctic's blocks;
+    the chunk experts without n_group_experts or routed experts, and
+    ffn_norm_exps outside arctic's MoE layers; q/k norm biases outside flat
+    layernorm q/k norms (mpt); the
     MLA tensors without kv_lora_rank, the low-rank q pair without
     q_lora_rank, and on an MLA layer the separate or fused k/v projections
     and wq beside the low-rank pair; the attention output gate without
@@ -1014,8 +1084,14 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     moe = cfg.n_expert > 0 and "moe_gate_inp" in gl
     if moe:
         unread |= {"ffn_up_b", "ffn_down_b", "ffn_gate_b"}
+        if not cfg.moe_dense_parallel:
+            unread |= DENSE_FFN_KEYS
     else:
         unread |= SHEXP_KEYS | MOE_BIAS_KEYS | {"moe_gate_inp_shexp", "moe_probs_b"}
+    if not (moe and cfg.n_group_experts > 0):
+        unread |= CHEXP_KEYS
+    if not (moe and cfg.moe_dense_parallel == "arctic"):
+        unread.add("ffn_norm_exps")
     if "ffn_gate_shexp" not in gl:
         unread.add("moe_gate_inp_shexp")
     return sorted(unread & set(gl))
@@ -1094,11 +1170,12 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     moe = [MOE_KEYS & set(gl) for gl in groups]
     if any(m and m != MOE_KEYS for m in moe):
         raise NotImplementedError(f"MoE layers need all of {sorted(MOE_KEYS)}")
-    shexp = [SHEXP_KEYS & set(gl) for gl in groups]
-    if any(sh and sh != SHEXP_KEYS for sh in shexp):
-        raise NotImplementedError(
-            f"shared expert tensors {sorted(set().union(*shexp))}: the gated shared expert "
-            f"needs all of {sorted(SHEXP_KEYS)}")
+    for keys, name, what in ((SHEXP_KEYS, "shared expert", "the gated shared expert"),
+                             (CHEXP_KEYS, "chunk expert", "the chunk-expert bank")):
+        have = [keys & set(gl) for gl in groups]
+        if any(h and h != keys for h in have):
+            raise NotImplementedError(f"{name} tensors {sorted(set().union(*have))}: {what} "
+                                      f"needs all of {sorted(keys)}")
     check_dense(cfg, moe=any(moe))
     banks = bank_map(cfg, cache.dual)
     B, T = tokens.shape
@@ -1278,14 +1355,33 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             y = (y.to(torch.float32) * cfg.residual_scale).to(dtype)
         return y
 
-    def ffn_of(h2, qw, li, lw, x):
+    def ffn_of(h2, qw, li, lw, x, x0=None):
         """The layer's FFN: routed experts where it has them
         (llama.py:1273-1276), their router reading the residual stream x
-        under moe_router_pre_norm (smallthinker), else the dense FFN."""
+        under moe_router_pre_norm (smallthinker), else the dense FFN. On the
+        sequential block (``x0``, the layer's input, given) grok's and
+        arctic's MoE layers run their dense FFN beside the experts
+        (llama.py:1295-1314): grok's (dense + moe) x sqrt(2)/2 in f32 where
+        the layer has a dense FFN, else the MoE alone; arctic's dense FFN
+        plus the MoE on x0 under its own norm, ffn_norm_exps."""
         if cfg.n_expert > 0 and "moe_gate_inp" in qw:
-            return moe_ffn(h2, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"),
-                           lw.get("moe_probs_b"), {k: lw[k] for k in MOE_BIAS_KEYS if k in lw},
-                           x if cfg.moe_router_pre_norm else None)
+            def moe(inp, router_x=None):
+                return moe_ffn(inp, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"),
+                               lw.get("moe_probs_b"),
+                               {k: lw[k] for k in MOE_BIAS_KEYS if k in lw}, router_x)
+
+            mode = cfg.moe_dense_parallel if x0 is not None else ""
+            if mode == "grok":
+                m = moe(h2)
+                if "ffn_up" not in qw and "ffn_gateup" not in qw:
+                    return m
+                dense = ffn(h2, qw, li, cfg, dtype, lw)
+                return ((dense.to(torch.float32) + m.to(torch.float32))
+                        * float(math.sqrt(2) / 2)).to(dtype)
+            if mode == "arctic":
+                return ffn(h2, qw, li, cfg, dtype, lw) + moe(
+                    _norm(x0, lw.get("ffn_norm_exps"), None, cfg))
+            return moe(h2, x if cfg.moe_router_pre_norm else None)
         return ffn(h2, qw, li, cfg, dtype, lw)
 
     for key in ("output_norm_b", "tok_norm_b"):
@@ -1328,6 +1424,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         else:
             for li in range(L_g):
                 lw = {k: v[li] for k, v in fl.items()}
+                x0 = x
                 h = pre_norm(x, lw, "attn_norm")
                 if mla:  # llama.py:1159-1174
                     x = x + qmm(attend_mla(h, qw, li, lw, off + li), qw["wo"], dtype, li)
@@ -1360,7 +1457,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                     continue
                 x = x + a
                 h2 = pre_norm(x, lw, "ffn_norm")
-                x = x + post_norm(ffn_of(h2, qw, li, lw, x), lw, "post_ffn_norm")
+                x = x + post_norm(ffn_of(h2, qw, li, lw, x, x0), lw, "post_ffn_norm")
         off += L_g
     if logits_idx is not None:  # llama.py:1527-1530
         x = x[:, logits_idx: logits_idx + 1]

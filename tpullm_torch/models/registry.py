@@ -214,6 +214,30 @@ ARCH_REGISTRY: dict[str, dict] = {
                   attn_gate_proj=True, embedding_scale=-1.0,
                   no_rope_interval=4, swa_pattern=4,
                   expert_gating="sigmoid"),
+    # the other MoE families
+    "dbrx": dict(rope_type="neox", norm_type="layernorm",
+                 expert_weights_norm=True),
+    # grok-1 (src/models/grok.cpp): attention logits softcapped at 30 with
+    # the scale applied INSIDE the tanh (build_attn LLM_ARCH_GROK branch,
+    # llama-graph.cpp:2009-2020), post-attn/ffn norms, scaled embeddings +
+    # logits, GELU MoE with renormalized router, optional dense FFN summed
+    # with the MoE output at sqrt(2)/2. (The router_logit_softcapping hparam
+    # is loaded by the reference but never applied in its graph.)
+    "grok": dict(rope_type="neox", act_fn="gelu", post_norms=True,
+                 expert_weights_norm=True, attn_logit_softcap=30.0,
+                 attn_scale=0.08838834764831845,
+                 embedding_scale=78.38367176906169,
+                 logit_scale=0.5773502691896257,
+                 moe_dense_parallel="grok"),
+    # arctic (src/models/arctic.cpp): dense n_embd-wide residual MLP plus a
+    # parallel MoE read from its own norm of the LAYER INPUT (ffn_norm_exps)
+    "arctic": dict(rope_type="norm", expert_weights_norm=True,
+                   moe_dense_parallel="arctic"),
+    # grovemoe (src/models/grovemoe.cpp): qwen3-style attention; MoE plus
+    # adjugate "chunk" experts indexed main_id // experts_per_group, scaled
+    # by expert_group_scale, sharing the main router's sigmoid probs
+    "grovemoe": dict(rope_type="neox", attn_qk_norm=True,
+                     expert_weights_norm=True),
 }
 
 

@@ -7,9 +7,11 @@ them to XLA, the port dequantizes the whole tensor and multiplies
 (ops/qmm.py:qmm); no hand-written kernel reads this layout. It is ported for
 Q8_0, the type of the small architecture fixtures
 (tpullm/utils/synth.py:build_arch_gguf), Q4_K, which has no legal K tile
-at K 768 (Qwen3-30B-A3B's down experts in a Q4_K file), and MXFP4, which
-has none at K 2880 (gpt-oss's experts); every other planar type raises at
-load (ops/qtensor.py). Numerics are bit-exact with
+at K 768 (Qwen3-30B-A3B's down experts in a Q4_K file), MXFP4, which
+has none at K 2880 (gpt-oss's experts), and Q5_0, llama.cpp's fallback for
+Q4_K rows whose K is not a multiple of 256 (a Q4_K_M DeepSeek-V2-Lite
+file's downs at K 1408 and 10944, a GroveMoE file's chunk downs at K 128);
+every other planar type raises at load (ops/qtensor.py). Numerics are bit-exact with
 tpullm/ops/dequant.py:dequant_jax in float32.
 """
 from __future__ import annotations
@@ -22,6 +24,18 @@ from ..quant.kmajor import LUT_MXFP4, f32_on_device
 
 def _dq_q8_0(p):
     return p["d"].to(torch.float32)[..., None] * p["qs"].to(torch.float32)
+
+
+def _dq_q5_0(p):
+    """tpullm/ops/dequant.py:_dq_q5_0: d * (q - 16), q a 4-bit nibble (the 16
+    low nibbles of a block before its 16 high ones) with its fifth bit from
+    qh, the block's 32 bits little-endian in element order."""
+    qs = p["qs"].to(torch.int32)
+    qh = p["qh"].to(torch.int64)
+    word = qh[..., 0] | (qh[..., 1] << 8) | (qh[..., 2] << 16) | (qh[..., 3] << 24)
+    bits = (word[..., None] >> torch.arange(32, device=qh.device)) & 1
+    q = (torch.cat([qs & 0xF, qs >> 4], dim=-1) | (bits.to(torch.int32) << 4)) - 16
+    return p["d"].to(torch.float32)[..., None] * q.to(torch.float32)
 
 
 def _dq_q4_K(p):
@@ -53,7 +67,8 @@ def _dq_mxfp4(p):
     return d * torch.cat([lut[qs & 0xF], lut[qs >> 4]], dim=-1)
 
 
-_DEQUANT = {GGMLType.Q8_0: _dq_q8_0, GGMLType.Q4_K: _dq_q4_K, GGMLType.MXFP4: _dq_mxfp4}
+_DEQUANT = {GGMLType.Q8_0: _dq_q8_0, GGMLType.Q4_K: _dq_q4_K, GGMLType.MXFP4: _dq_mxfp4,
+            GGMLType.Q5_0: _dq_q5_0}
 PLANAR_PORTED = frozenset(_DEQUANT)
 
 

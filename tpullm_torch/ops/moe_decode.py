@@ -166,7 +166,8 @@ def experts_combine(h, qt, layer, ids, top_i, w, out_dtype=torch.bfloat16):
     """The down projection of the listed experts (h (cap, M, K), each
     slot's rows) folded into the MoE output (M, n_out): in slot order,
     out + de * we, we the rows' routing weights (w (M, used) f32) of the
-    slot's expert where top_i (M, used) names it, else 0. Kernel A's skip
+    slot's expert where top_i (M, used) names it (summed where it names it
+    twice, as grovemoe's chunk ids may), else 0. Kernel A's skip
     variant with its combining second pass on the card, the plain version
     on the CPU."""
     if not h.is_cuda:

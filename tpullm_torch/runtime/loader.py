@@ -33,9 +33,14 @@ config (kv_lora_rank) also reads its attention's tensors (loader.py:41-48):
 wq or wq_a/q_a_norm/wq_b, wkv_a and kv_a_norm, and the absorption banks
 wk_b and wv_b as dense f32, split from a legacy attn_kv_b where the file
 has one (_mla_prepare, loader.py:268-290); glm-dsa's DSA indexer tensors
-are passed over unread, as the JAX loader leaves them.
-Every other tensor (ffn_norm_exps, chunk experts, the output bias that
-phi-2's file carries, ...) raises, and so does a shared
+and dbrx's FFN norm bias are passed over unread, as the JAX loader
+leaves them. grovemoe's
+chunk-expert bank (n_group_experts), arctic's ffn_norm_exps, and the
+attn_output_norm of grok (its post-attention norm) and dbrx (its FFN norm,
+load for those configs alone (loader.py:95-99, 401-409);
+a layer of grok or arctic loads its dense FFN beside the experts.
+Every other tensor (the output bias that phi-2's file carries, grok's
+layer_output_norm, ...) raises, and so does a shared
 expert without all of its gate, up and down.
 """
 from __future__ import annotations
@@ -128,11 +133,28 @@ MLA_TENSORS = {
     "attn_v_b.weight": "wv_b",
     "attn_kv_b.weight": "wkv_b",
 }
+# grovemoe's chunk-expert bank (loader.py:96-99), read where the config has
+# n_group_experts; arctic's norm of the MoE's input (loader.py:95), read for
+# arctic's block; grok's post-attention norm and dbrx's FFN norm, both
+# shipped as attn_output_norm (loader.py:401-409), read for those two archs.
+# Elsewhere they are unknown names and raise
+CHEXP_TENSORS = {
+    "ffn_gate_chexps.weight": "moe_gate_chexps",
+    "ffn_up_chexps.weight": "moe_up_chexps",
+    "ffn_down_chexps.weight": "moe_down_chexps",
+}
+ARCTIC_TENSORS = {"ffn_norm_exps.weight": "ffn_norm_exps"}
+OUT_NORM_TENSORS = {"grok": {"attn_output_norm.weight": "post_attn_norm"},
+                    "dbrx": {"attn_output_norm.weight": "ffn_norm"}}
+# the only names the loader passes over unread, each for its arch alone:
 # glm-dsa's DSA indexer, which its reference graph loads and does not run
-# (src/models/glm-dsa.cpp; the JAX loader reads none of it): the only names
-# the loader passes over unread, and only for that arch
-INDEXER_TENSORS = ("indexer.k_norm.weight", "indexer.k_norm.bias", "indexer.proj.weight",
-                   "indexer.attn_k.weight", "indexer.attn_q_b.weight")
+# (src/models/glm-dsa.cpp; the JAX loader reads none of it), and the bias
+# of dbrx's FFN norm, which its graph does not read (src/models/dbrx.cpp;
+# the JAX loader drops it, loader.py:405-409)
+UNREAD_TENSORS = {"glm-dsa": ("indexer.k_norm.weight", "indexer.k_norm.bias",
+                              "indexer.proj.weight", "indexer.attn_k.weight",
+                              "indexer.attn_q_b.weight"),
+                  "dbrx": ("attn_output_norm.bias",)}
 # norms, biases, the shared expert's gate, the selection bias, the router's
 # and the experts' biases and the sinks load as f32 arrays (loader.py:209-229,
 # 355-362)
@@ -142,7 +164,7 @@ _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_nor
                      "moe_down_exps_b", "attn_sinks",
                      "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
                      "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b",
-                     "q_a_norm", "kv_a_norm"}
+                     "q_a_norm", "kv_a_norm", "ffn_norm_exps"}
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -226,11 +248,14 @@ def load_model(path: str, device="cuda"):
     g = GGUFFile(path)
     cfg = config_from_gguf(g)
     params: dict[str, Any] = {}
-    layer_tensors = {**LAYER_TENSORS, **(MLA_TENSORS if cfg.kv_lora_rank else {})}
+    layer_tensors = {**LAYER_TENSORS, **(MLA_TENSORS if cfg.kv_lora_rank else {}),
+                     **(CHEXP_TENSORS if cfg.n_group_experts > 0 else {}),
+                     **(ARCTIC_TENSORS if cfg.moe_dense_parallel == "arctic" else {}),
+                     **OUT_NORM_TENSORS.get(cfg.arch, {})}
     known = set(GLOBAL_TENSORS) | {f"blk.{i}.{s}" for i in range(cfg.n_layer)
                                    for s in layer_tensors}
-    if cfg.arch == "glm-dsa":
-        known |= {f"blk.{i}.{s}" for i in range(cfg.n_layer) for s in INDEXER_TENSORS}
+    known |= {f"blk.{i}.{s}" for i in range(cfg.n_layer)
+              for s in UNREAD_TENSORS.get(cfg.arch, ())}
     # the NextN layers past n_layer (config_from_gguf took them off it) are
     # not read, as the JAX loader walks range(n_layer) (loader.py:341)
     n_blocks = int(g.get(f"{cfg.arch}.block_count", cfg.n_layer))

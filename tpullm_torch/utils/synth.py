@@ -236,7 +236,9 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
                   rope_base: float = 1e6, rms_eps: float = 1e-5, exact_vocab: bool = False,
                   seed: int = 0, device="cuda", n_dense_lead: int = 0,
                   probs_b_std: float = 0.0, shexp_gate: bool = True, tied: bool = False,
-                  cfg_fields: dict | None = None, generator: torch.Generator | None = None):
+                  cfg_fields: dict | None = None, generator: torch.Generator | None = None,
+                  n_group_experts: int = 0, n_ff_chexp: int = 0,
+                  expert_group_scale: float = 1.0):
     """-> (ModelConfig, params) of a routed-expert Q4_K model of ``arch`` on
     ``device``.
 
@@ -268,7 +270,14 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
     then, with ``probs_b_std`` > 0, each MoE layer's router selection bias
     ``moe_probs_b`` (E,) f32, normal with that std. ``cfg_fields`` sets
     config fields as a file's keys would, before the row's defaults apply
-    (expert_weights_norm, expert_gating, ...). With the defaults every draw
+    (expert_weights_norm, expert_gating, ...). ``n_group_experts`` > 0 adds
+    grovemoe's chunk-expert bank, drawn after every array above: E //
+    n_group_experts chunk experts of ``n_ff_chexp``, gate and up Q4_K at K
+    n_embd, down Q8_0 (llama.cpp's fallback for a Q6_K row whose K is not a
+    multiple of 256) at K n_ff_chexp, each K-major where the kernels take
+    its K and planar otherwise, as a file loads (_mla_weight: GroveMoE's
+    down at K 128 is planar); the config gets the group size,
+    the chunk width and ``expert_group_scale``. With the defaults every draw
     is as it was. The registry row of ``arch`` sets the top-k
     renormalization; rope_base defaults to Mixtral's and Qwen's rope_theta,
     1e6. ``generator`` (a torch.Generator on ``device``) draws the
@@ -318,6 +327,14 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
         dense["ffn_down"] = stacked(GGMLType.Q4_K, [n_embd], n_ff, n=n_dense_lead)
     if probs_b_std:
         moe["moe_probs_b"] = torch.randn((n_moe, E), generator=gen, device=device) * probs_b_std
+    if n_group_experts:
+        lead = (n_moe, E // n_group_experts)
+        moe.update({"moe_gate_chexps": _mla_weight(n_ff_chexp, n_embd, lead, gen, device,
+                                                   GGMLType.Q4_K),
+                    "moe_up_chexps": _mla_weight(n_ff_chexp, n_embd, lead, gen, device,
+                                                 GGMLType.Q4_K),
+                    "moe_down_chexps": _mla_weight(n_embd, n_ff_chexp, lead, gen, device,
+                                                   GGMLType.Q8_0)})
     if n_dense_lead:
         cut = lambda v, lo, hi: (QTensor(v.qtype, (hi - lo,) + tuple(v.shape[1:]), {
             k: d[lo:hi] for k, d in v.data.items()}) if isinstance(v, QTensor) else v[lo:hi])
@@ -329,20 +346,26 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
     cfg = dataclasses.replace(cfg, arch=arch, n_expert=E, n_expert_used=n_expert_used,
                               n_ff_exp=n_ff_exp or 0, rope_base=rope_base,
                               n_layer_dense_lead=n_dense_lead, **(cfg_fields or {}))
+    if n_group_experts:
+        cfg = dataclasses.replace(cfg, n_group_experts=n_group_experts, n_ff_chexp=n_ff_chexp,
+                                  expert_group_scale=expert_group_scale)
     apply_arch_defaults(cfg)
     return cfg, params
 
 
-def _mla_weight(n: int, K: int, lead: tuple, gen: torch.Generator, device) -> QTensor:
+def _mla_weight(n: int, K: int, lead: tuple, gen: torch.Generator, device,
+                qtype: GGMLType | None = None) -> QTensor:
     """One (lead..., n, K) weight of an MLA model as a Q4_K_M file holds it:
     Q4_K where K is a multiple of 256, else Q8_0 (llama.cpp's fallback for
-    such rows); K-major where the kernels take K (pick_tile_k), else planar,
+    such rows), or ``qtype`` (Q4_K or Q8_0) where given; K-major where the
+    kernels take K (pick_tile_k), else planar,
     as the loader lays it out. Drawn on ``device`` with ``gen``, centred as
     random_kmajor draws (a planar Q4_K group's sub-min round(7.5 * sc) with
     dmin = d)."""
     from ..ops.qmm import qmm_supported
 
-    qtype = GGMLType.Q4_K if K % 256 == 0 else GGMLType.Q8_0
+    if qtype is None:
+        qtype = GGMLType.Q4_K if K % 256 == 0 else GGMLType.Q8_0
     if qmm_supported(qtype, K):
         qt = random_kmajor(qtype, [n], K, lead, gen, device)
         return QTensor(qtype, lead + (n, K), qt.data)

@@ -258,7 +258,7 @@ pass):
    lm_head; its config parsed from the keys a converted file holds,
    llama4.attention.sliding_window 8192 among them) with 4 layers (one
    iRoPE period: layer 3 NoPE) against the CPU as phase 6; kernel rows on
-   the model cut to 24 of its 48 layers (the 48 would not fit beside the
+   the model cut to 12 of its 48 layers (the 48 would not fit beside the
    cache: ~79.8 GB of Q4_K): A at M = 4 on wqkv, wo, the shared expert's
    gate and down and the lm_head, B on wqkv at M = 2048, the skip at 16
    experts top-1 (gate and down, M = 1, 4, 16), F at 2048 top-1
@@ -280,7 +280,7 @@ pass):
    experts' output, scaled by 0.05; its chunk down planar Q8_0 at K 128,
    so the bank runs the loop over every chunk) with 1 layer against the CPU
    as phase 6, the rows that name one chunk twice counted; kernel rows on
-   the model cut to 12 of its 48 layers: A at M = 4 on one chunk's gate
+   the model cut to 6 of its 48 layers: A at M = 4 on one chunk's gate
    (128 x 2048), the chunk bank's ms a layer (a graph replay at M = 4,
    eagerly at the 4x512 prefill; no kernel of its own), C and E at
    grok-1's heads (48/8 of 128, softcap 30) at phase 2's engine prefill
@@ -291,13 +291,35 @@ pass):
    once a layer) with the chunk bank's share of the step, and a prefill
    profile; its server as phase 10's (4 slots of 4096, int8 KV, E on, a
    Qwen2-layout tokenizer): 4 token-id completions (480/200/80/40 tokens,
-   16 new each) and 2 chats.
+   16 new each) and 2 chats;
+21. the per-layer-embedding Gemmas at full width, GroveMoE-Inst freed
+   first: Gemma-3n-E4B (arch gemma3n: AltUp over 4 streams with the router's
+   tanh modalities, the rank-64 LAuReL bypass, the Gaussian top-k cut on the
+   first 10 layers, the per-layer token stream of 35 x 256 from a
+   262144-row table, the weightless V norm, 20 owning layers and 15
+   shared-KV layers that read banks 18 and 19, window 512 with every 5th
+   layer full, SWA rope base 1e4, softcap 30, tied 262400-row lm_head) with
+   10 layers, 5 of them owning (one shared layer of each kind), against the
+   CPU as phase 3; kernel rows: A and B on the per-layer input gate (256 x
+   2048) and the stream's projection (8960 x 2048), C at the engine's
+   prefill and E at the server's int8 and the engine's bf16 decode steps at
+   8/2 heads of 256 (G 4) with the window of 512, and the plain products
+   (the planar per-layer projection at K 256, the f32 LAuReL pair and AltUp
+   projections) timed; the 35-layer slice with E on (17 tokens a request;
+   graph, then eager: the same tokens and launch counts; A, B, C, E and the
+   store launched, D not), its decode profile (A five times a layer and
+   twice more, the store once an owning layer and never on a shared one,
+   E once a layer) and a prefill profile; its server as phase 11's (4 slots
+   of 4096, int8 KV, E on, prompts 2000/700/300/40 past the window) with a
+   Qwen2-layout tokenizer of 262400 rows, 4 token-id completions and 2
+   chats.
 The model slices of phases 7-8, 10, 13-18 and 20 run cut in depth for the
-script's time limit (SLICE_LAYERS: DeepSeek-V2-Lite 7 of 27 layers and
-gpt-oss-20b 6 of 24; Mixtral-8x7B 8 of 32, Qwen3-30B-A3B and GroveMoE-Inst
-12 of 48, Command-R 35B, StarCoder-15B and Phi-4 10 of 40,
+script's time limit (SLICE_LAYERS: DeepSeek-V2-Lite 5 of 27 layers and
+gpt-oss-20b 4 of 24; Mixtral-8x7B 8 of 32, Qwen3-30B-A3B 12 of 48 and
+GroveMoE-Inst 6 of 48, Command-R 35B, StarCoder-15B and Phi-4 10 of 40,
 ERNIE-4.5-21B-A3B 7 of 28), where the text above gives a published depth;
-every check holds per layer, and the parity runs keep their depth.
+every check holds per layer, and the parity runs keep their depth;
+Llama-4-Scout's slice runs 12 of its 48 layers (SCOUT_SLICE_LAYERS).
 Weights are random, drawn from fixed seeds
 (tpullm_torch/utils/synth.py:synth_kmajor_q4k_fast with centred=True, each
 Q4_K group centred like trained weights so activations stay in range
@@ -312,7 +334,7 @@ embedding norm, the Qwen MoE models, ERNIE and GroveMoE-Inst (with its
 chunk bank) synth_moe_q4k's, and
 DeepSeek-V2-Lite synth_mla_q4k's, drawn on the card, Phi-4 with
 gguf_layout, gpt-oss-20b synth_gptoss's and Llama-4-Scout synth_moe_q4k's
-with its generator, all drawn on the card). The last
+with its generator, Gemma-3n-E4B synth_gemma3n's, all drawn on the card). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
@@ -321,7 +343,8 @@ Gemma-7B-width run, the Command-R 35B slice and server, the StarCoder-15B
 slice and server, the BLOOM-7b1-width run, the ERNIE-4.5-21B-A3B slice and
 server, the DeepSeek-V2-Lite slice and server, the Phi-4 slice and
 server, the gpt-oss-20b slice and servers, the Llama-4-Scout slice and
-server, the GroveMoE-Inst slice and server), the card's name
+server, the GroveMoE-Inst slice and server, the Gemma-3n-E4B slice and
+server), the card's name
 and power limit, and the result line.
 """
 import dataclasses
@@ -446,15 +469,17 @@ PARITY_STEPS = 1
 # Qwen3-30B-A3B's, StarCoder-15B's and BLOOM-7b1's, cut for the script's
 # time limit: no check of theirs needs a second layer (none takes D)
 ONE_LAYER = 1
-# the depth of the model slices cut for the script's time (with phases 19
-# and 20; from 32, 48, 40, 40, 28, 27, 40, 24 and 48 layers):
-# DeepSeek-V2-Lite and gpt-oss-20b at about a quarter, ~5.5 s a layer each;
-# the others at a quarter, 0.7-1.3 s a layer (PERF.md §6). Each check of
+# the depth of the model slices cut for the script's time (with phases
+# 19-21; from 32, 48, 40, 40, 28, 27, 40, 24 and 48 layers):
+# DeepSeek-V2-Lite at about a fifth and gpt-oss-20b at a sixth, ~5.5 s a
+# layer each; GroveMoE-Inst at an eighth (~2.8 s a layer of its slice and
+# server), the others at a quarter, 0.7-1.3 s a layer (PERF.md §6).
+# (Llama-4-Scout's slice is SCOUT_SLICE_LAYERS, 12 of 48.) Each check of
 # these phases holds per layer, and their parity runs keep their depth;
 # --full-depth runs the published depths (past the time limit).
 SLICE_LAYERS = {"Mixtral-8x7B": 8, "Qwen3-30B-A3B": 12, "Command-R 35B": 10,
-                "StarCoder-15B": 10, "ERNIE-4.5-21B-A3B": 7, "DeepSeek-V2-Lite": 7,
-                "Phi-4": 10, "gpt-oss-20b": 6, "GroveMoE-Inst": 12}
+                "StarCoder-15B": 10, "ERNIE-4.5-21B-A3B": 7, "DeepSeek-V2-Lite": 5,
+                "Phi-4": 10, "gpt-oss-20b": 4, "GroveMoE-Inst": 6}
 FULL_DEPTH = False  # --full-depth
 
 
@@ -1617,7 +1642,8 @@ def plain_cpu_copy(torch, params):
             return {n: conv(n, t) for n, t in v.items()}
         if isinstance(v, list):  # the layer groups (a dense lead, MoE layers)
             return [conv(k, t) for t in v]
-        if isinstance(v, QTensor) and v.layout == "kmajor" and k != "tok_embd":
+        if isinstance(v, QTensor) and v.layout == "kmajor" and k not in (
+                "tok_embd", "per_layer_tok_embd"):  # the tables: gathered, not multiplied
             # stored K-major in memory, as dequant_kmajor_torch returns it:
             # the same operand layout, so the same BLAS summation order
             w = v.dequant(torch.float32).transpose(-1, -2).contiguous().cpu().transpose(-1, -2)
@@ -1629,7 +1655,7 @@ def plain_cpu_copy(torch, params):
 
 
 def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), S=256,
-                 last_only=False, **model):
+                 last_only=False, synth=None, **model):
     """Phase 3 (and the Qwen and Gemma phases' parity runs): a model cut to
     a few layers at full width (``model``: synth_kmajor_q4k_fast's keywords,
     by default the 8B's with 2 layers), kernels on the card vs the plain
@@ -1639,7 +1665,9 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
     steps with TPULLM_FLASH_DECODE set to ``flash_decode``; with
     ``last_only`` the prefill computes the lm_head at the last position
     alone (logits_idx), sparing the CPU a 256000-row product a token.
-    -> the card's launch counts."""
+    ``synth``: the model's synth function in place of
+    synth_kmajor_q4k_fast (phase 21's synth_gemma3n), given ``model`` with
+    the generator. -> the card's launch counts."""
     import numpy as np
 
     from tpullm_torch.models.llama import KVCache, forward
@@ -1651,7 +1679,10 @@ def phase_parity(torch, label="8B", seed=7, flash_decode=None, lens=(128, 100), 
     spec.update(model)
     vocab = spec["vocab_size"]
     t0 = time.perf_counter()
-    cfg, params = synth_kmajor_q4k_fast(**spec, seed=seed, centred=True, device="cuda")
+    if synth is None:
+        cfg, params = synth_kmajor_q4k_fast(**spec, seed=seed, centred=True, device="cuda")
+    else:
+        cfg, params = synth(**spec, device="cuda")
     torch.cuda.synchronize()
     t_synth = time.perf_counter() - t0
     cpu = plain_cpu_copy(torch, params)
@@ -2683,6 +2714,65 @@ def phase_server(torch, cfg, params):
 QWEN_SERVER_PROMPTS = [2000, 700, 300, 40]  # the Qwen3 burst: 4 requests on 4 slots
 
 
+def server_chats(base, ctx, tok, label, vocab):
+    """The chat part of a server with a Qwen2-layout tokenizer (ChatML):
+    /apply-template, then 2 concurrent chat completions: one greedy of 16
+    tokens, and one whose logit_bias makes <|im_end|> the greedy choice,
+    which must stop there at once ("stop", no text, no tokens); each
+    prompt_tokens the in-process encode of the rendered template. ->
+    {"requests": rows, "wall_s": s}."""
+    import threading
+
+    from tpullm_torch.server.chat import apply_chat_template
+
+    convo = [{"role": "user", "content": "Hello! Who are you?"}]
+    status, r = http_json(base + "/apply-template", {"messages": convo})
+    want = apply_chat_template(ctx, convo)
+    if status != 200 or r["prompt"] != want or want != (
+            "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n<|im_start|>user"
+            "\nHello! Who are you?<|im_end|>\n<|im_start|>assistant\n"):
+        raise AssertionError(f"{label} /apply-template answered {status}: {r}")
+    im_end = tok.vocab.eot_id
+    bodies = [{"messages": [{"role": "user", "content": "Write a short story about a fox."}],
+               "max_tokens": 16, "temperature": 0.0},
+              {"messages": [{"role": "user", "content": "Say nothing at all."}],
+               "max_tokens": 16, "temperature": 0.0, "logit_bias": {str(im_end): 100.0}}]
+    want_prompt = [len(tok.encode(apply_chat_template(ctx, b["messages"]), add_special=True,
+                                  parse_special=True)) for b in bodies]
+    results = [None] * len(bodies)
+
+    def one(i):
+        results[i] = http_json(base + "/v1/chat/completions", bodies[i])
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    chat_wall = time.perf_counter() - t
+    rows = []
+    for kind, n_prompt, (status, r) in zip(("greedy", "forced_im_end"), want_prompt, results):
+        if status != 200:
+            raise AssertionError(f"{label} chat {kind}: answered {status}: {r}")
+        choice, stats = r["choices"][0], r["timings"]
+        ids_out, got = choice["tokens"], choice["message"]["content"]
+        ok = (stats["prompt_tokens"] == n_prompt and got == visible(tok, ids_out)
+              and stats["completion_tokens"] == len(ids_out) <= 16
+              and all(0 <= x < vocab for x in ids_out))
+        if kind == "forced_im_end":
+            ok = ok and choice["finish_reason"] == "stop" and got == "" and not ids_out
+        if not ok:
+            raise AssertionError(f"{label} chat {kind}: check failed: prompt_tokens "
+                                 f"{stats['prompt_tokens']} (want {n_prompt}), text {got!r}, "
+                                 f"finish {choice['finish_reason']}, {len(ids_out)} ids")
+        rows.append({"kind": kind, "prompt_tokens": stats["prompt_tokens"],
+                     "completion_tokens": stats["completion_tokens"],
+                     "finish_reason": choice["finish_reason"],
+                     "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"]})
+    return {"requests": rows, "wall_s": chat_wall}
+
+
 def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
                       must=DENSE_KERNELS + ("flash_decode",), prompts=QWEN_SERVER_PROMPTS,
                       new=SERVER_NEW):
@@ -2703,10 +2793,8 @@ def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
     -> the launch counts."""
     import numpy as np
     import socket
-    import threading
 
     from tpullm_torch.ops import _cuda
-    from tpullm_torch.server.chat import apply_chat_template
     from tpullm_torch.server.context import ServerContext
     from tpullm_torch.server.http import serve
     from tpullm_torch.tokenizer import Tokenizer
@@ -2741,54 +2829,9 @@ def phase_qwen_server(torch, cfg, params, label="Qwen3-8B",
         report["burst"] = {"requests": [{k: v for k, v in x.items() if k != "ids"} for x in res],
                            "wall_s": wall,
                            "completion_tok_per_s": len(prompts) * new / wall}
-        convo = [{"role": "user", "content": "Hello! Who are you?"}]
-        status, r = http_json(base + "/apply-template", {"messages": convo})
-        want = apply_chat_template(ctx, convo)
-        if status != 200 or r["prompt"] != want or want != (
-                "<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n<|im_start|>user"
-                "\nHello! Who are you?<|im_end|>\n<|im_start|>assistant\n"):
-            raise AssertionError(f"{label} /apply-template answered {status}: {r}")
-        im_end = tok.vocab.eot_id
-        bodies = [{"messages": [{"role": "user", "content": "Write a short story about a fox."}],
-                   "max_tokens": 16, "temperature": 0.0},
-                  {"messages": [{"role": "user", "content": "Say nothing at all."}],
-                   "max_tokens": 16, "temperature": 0.0, "logit_bias": {str(im_end): 100.0}}]
-        want_prompt = [len(tok.encode(apply_chat_template(ctx, b["messages"]), add_special=True,
-                                      parse_special=True)) for b in bodies]
-        results = [None] * len(bodies)
-
-        def one(i):
-            results[i] = http_json(base + "/v1/chat/completions", bodies[i])
-
-        t = time.perf_counter()
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        chat_wall = time.perf_counter() - t
+        report["chat"] = server_chats(base, ctx, tok, label, vocab)
         torch.cuda.synchronize()
         counts = dict(_cuda.COUNTS)
-        rows = []
-        for kind, n_prompt, (status, r) in zip(("greedy", "forced_im_end"), want_prompt, results):
-            if status != 200:
-                raise AssertionError(f"{label} chat {kind}: answered {status}: {r}")
-            choice, stats = r["choices"][0], r["timings"]
-            ids_out, got = choice["tokens"], choice["message"]["content"]
-            ok = (stats["prompt_tokens"] == n_prompt and got == visible(tok, ids_out)
-                  and stats["completion_tokens"] == len(ids_out) <= 16
-                  and all(0 <= x < vocab for x in ids_out))
-            if kind == "forced_im_end":
-                ok = ok and choice["finish_reason"] == "stop" and got == "" and not ids_out
-            if not ok:
-                raise AssertionError(f"{label} chat {kind}: check failed: prompt_tokens "
-                                     f"{stats['prompt_tokens']} (want {n_prompt}), text {got!r}, "
-                                     f"finish {choice['finish_reason']}, {len(ids_out)} ids")
-            rows.append({"kind": kind, "prompt_tokens": stats["prompt_tokens"],
-                         "completion_tokens": stats["completion_tokens"],
-                         "finish_reason": choice["finish_reason"],
-                         "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"]})
-        report["chat"] = {"requests": rows, "wall_s": chat_wall}
     finally:
         set_flash_decode(None)
         srv.shutdown()
@@ -3130,7 +3173,7 @@ SERVER_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_st
 
 def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
                     kv_dtype="q8", n_ctx=8192, must=(), kernels=SERVER_KERNELS,
-                    must_not=("layer_kernel",), decode_chunk=8, new=SERVER_NEW):
+                    must_not=("layer_kernel",), decode_chunk=8, new=SERVER_NEW, tok=None):
     """Phases 11c, 13c, 14d and 15d (Gemma-2-9B, Command-R 35B,
     StarCoder-15B, ERNIE-4.5-21B-A3B): the model behind serve() on a free
     local port: ServerContext with 4 slots of ``n_ctx`` (8192; ERNIE's
@@ -3154,7 +3197,10 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
     ``must_not`` not (DeepSeek-V2-Lite's MLA: A, B and the store; not C, D
     or E); ``decode_chunk`` is the server's (its chunk is the profiled
     one); ``new`` the tokens a request (DeepSeek-V2-Lite's 32, cut for the
-    script's time limit). -> the launch counts of the burst."""
+    script's time limit). With ``tok`` (a Qwen2-layout tokenizer: phase
+    21's) the server has it, the burst's checks read its text, and 2 chats
+    follow the burst (server_chats), counted with it. -> the launch counts
+    of the burst."""
     import numpy as np
     import socket
 
@@ -3166,7 +3212,7 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
     server_prompts = server_prompts or GEMMA_SERVER_PROMPTS
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, vocab, n).tolist() for n in server_prompts]
-    ctx = ServerContext(cfg, params, None, n_slots=4, max_seq_len=n_ctx,
+    ctx = ServerContext(cfg, params, tok, n_slots=4, max_seq_len=n_ctx,
                         decode_chunk=decode_chunk, prefill_chunk=512, kv_dtype=kv_dtype,
                         iswa=False,
                         model_name=label.lower() + "-shape")
@@ -3188,7 +3234,9 @@ def phase_q8_server(torch, cfg, params, label="Gemma-2-9B", server_prompts=None,
         torch.cuda.reset_peak_memory_stats()
         m0 = dict(ctx.metrics)
         _cuda.reset_counts()
-        res, wall = server_burst(base, prompts, label, None, vocab=vocab, new=new)
+        res, wall = server_burst(base, prompts, label, tok, vocab=vocab, new=new)
+        if tok is not None:
+            report["chat"] = server_chats(base, ctx, tok, label, vocab)
         torch.cuda.synchronize()
         counts = dict(_cuda.COUNTS)
         gen = ctx.metrics["generated_tokens_total"] - m0["generated_tokens_total"]
@@ -5230,7 +5278,7 @@ SCOUT_KEYS = {"context_length": 10485760, "embedding_length": 5120, "block_count
 # ~79.8 GB (1.627 GB a layer and 1.68 GB of embedding and lm_head: Q4_K's f32
 # d a 32-group at K 5120), no room beside the cache on 80 GB; 24 (six iRoPE
 # periods) take ~40.7 GB
-SCOUT_SLICE_LAYERS = 24
+SCOUT_SLICE_LAYERS = 12  # cut from 24 for phase 21's seconds
 SCOUT_PARITY_LAYERS = 4  # one iRoPE period: layer 3 NoPE
 # the server's burst, 4 requests on 4 slots of 16384: the 9000-token prompt
 # past the 8192 chunk and the temperature floor (positions 8191 on)
@@ -5611,6 +5659,209 @@ def phase_grovemoe(torch, entries):
                                                   GROVEMOE_SERVER_PROMPTS, GROVEMOE_SERVER_NEW)
     log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
     del cfg, params, lay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# Gemma-3n-E4B (google/gemma-3n-E4B-it config.json, text_config): hidden 2048,
+# 35 layers, 8/2 heads of 256 (a GQA group of 4), intermediate 16384, vocab
+# 262400, the per-layer table's vocab_size_per_layer_input 262144 rows of
+# hidden_size_per_layer_input 256 a layer, num_kv_shared_layers 15 (20 owning
+# layers, the GGUF parser's min(20, n_layer)), sliding_window 512 with every
+# 5th layer full, rope_theta 1e6, rope_local_base_freq 1e4, AltUp over 4
+# streams (altup_active_idx 0), laurel_rank 64, activation sparsity 0.95 on
+# the first 10 layers (the arch row's n_layer_sparsity and icdf(0.95)),
+# final_logit_softcapping 30, rms_norm_eps 1e-6, tied embeddings. The values
+# are recalled, not read from the published files (PERF.md §6). Q4_K: the
+# layer matrices K-major, the per-layer projection (K 256) and the per-layer
+# table (K 8960) planar, the embedding and the stream's projection K-major
+GEMMA3N = dict(vocab_size=262400, n_embd=2048, n_layer=35, n_head=8, n_head_kv=2,
+               head_dim=256, n_ff=16384, table_rows=262144, n_embd_per_layer=256,
+               sliding_window=512, rope_base=1e6, rope_base_swa=1e4, rms_eps=1e-6)
+# the parity run's depth cut: 10 layers, the first 5 owning (layers 0-3 SWA,
+# layer 4 full), so layers 5-8 read bank 3 and layer 9 bank 4, and every
+# layer takes the sparsity cut
+GEMMA3N_PARITY = dict(n_layer=10, n_layer_kv_from_start=5)
+GEMMA3N_NEW = 17  # tokens a slice request (the first from the prefill)
+GEMMA3N_CTX = 4096  # each server slot
+GEMMA3N_SERVER_PROMPTS = [2000, 700, 300, 40]  # the burst: past the 512 window
+GEMMA3N_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
+
+
+def plain_products_rows(torch, timer, cfg, params, g):
+    """The products of phase 21's path that no kernel runs, on the slice
+    model's last layer, each timed (eagerly) at the decode step's M = 4
+    and the 4 x 512 prefill's M = 2048 beside its bound: the per-layer
+    projection back to n_embd (planar Q4_K at K 256: dequantized whole,
+    then torch.matmul), the f32 LAuReL pair (n_embd -> 64 -> n_embd), and
+    AltUp's f32 stream expansion (3 x n_embd x n_embd, once a forward).
+    -> {name: {M: ms}}."""
+    from tpullm_torch.models.llama import altup_expand
+    from tpullm_torch.ops.qmm import qmm
+
+    lay = params["layers"]["__groups__"][-1]
+    li = next(iter(lay.values())).shape[0] - 1
+    d, P, R = cfg.n_embd, cfg.n_embd_per_layer, lay["laurel_l"].shape[-2]
+    proj = lay["per_layer_proj"]
+    ll, lr = lay["laurel_l"][li], lay["laurel_r"][li]
+    out = {}
+    for M in (4, 2048):
+        xp = torch.randn((M, P), generator=g, device="cuda").to(torch.bfloat16)
+        xd = torch.randn((1, M, d), generator=g, device="cuda").to(torch.bfloat16)
+        runs = {
+            "per_layer_proj (planar Q4_K, K 256)": (
+                lambda: qmm(xp, proj, torch.bfloat16, li),
+                weight_bytes(proj) / proj.shape[0], 2.0 * M * P * d, 0.0),
+            "LAuReL pair (f32)": (
+                lambda: (xd.float() @ ll.t()) @ lr.t(), 8.0 * d * R, 0.0, 4.0 * M * d * R),
+            "AltUp expansion (f32)": (
+                lambda: altup_expand(xd, params["altup_proj"], cfg, torch.bfloat16),
+                4.0 * 3 * d * d, 0.0, 2.0 * 3 * M * d * d)}
+        for name, (fn, nbytes, flops, f32_flops) in runs.items():
+            ms = timer(fn, 5, warmup=1)
+            bound, by = bound_of(nbytes, flops, f32_flops)
+            out.setdefault(name, {})[M] = ms
+            log(f"plain product [{name},M={M},Gemma-3n-E4B]: ms {ms:.4f} bound_ms {bound:.4f} "
+                f"({by}) share_of_bound {bound / ms:.4f}")
+    return out
+
+
+def phase_gemma3n_kernels(torch, entries, cfg, params):
+    """Phase 21's rows: A (M = 4) and B (M = 2048) on random Q4_K weights at
+    Gemma-3n-E4B's per-layer input gate (256 x 2048) and the token stream's
+    projection (8960 x 2048); C at 8/2 heads of 256 with the window of 512
+    on the engine slice's prefill shape (B 4, T 512, S 1024) and E at those
+    heads and window on the server's int8 step (rows at 2000/700/300/40 of
+    4096) and the engine's bf16 step, each held against its plain version;
+    then the plain products on the model's own weights
+    (plain_products_rows). -> the plain products' ms."""
+    from tpullm_torch.ops import _cuda
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2727)
+    path, heads, hd = "Gemma-3n-E4B", (cfg.n_head, cfg.n_head_kv), cfg.head_dim
+    d, win = cfg.n_embd, cfg.sliding_window
+    weight_rows(torch, timer, entries, g,
+                [("per_layer_inp_gate", [cfg.n_embd_per_layer], d),
+                 ("per_layer_model_proj", [cfg.n_layer * cfg.n_embd_per_layer], d)], path)
+    attn_row(torch, timer, entries, g, B=4, T=512, S=1024, n_past=0, vf=[0, 212, 312, 412],
+             path=path, heads=heads, hd=hd, window=win)
+    decode_row(torch, timer, entries, g, "Gemma-3n-E4B server", GEMMA3N_CTX,
+               GEMMA3N_SERVER_PROMPTS, [0, 0, 0, 0], True, heads=heads, path=f"{path} server",
+               hd=hd, window=win)
+    decode_row(torch, timer, entries, g, "Gemma-3n-E4B engine", 1024, [527] * 4,
+               [0, 212, 312, 412], False, heads=heads, path=path, hd=hd, window=win)
+    plain = plain_products_rows(torch, timer, cfg, params, g)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+    return plain
+
+
+def phase_gemma3n(torch, entries):
+    """Phase 21, the per-layer-embedding Gemmas at full width
+    (Gemma-3n-E4B), the GroveMoE weights freed first: (a) the parity against
+    the CPU (phase 3's rule) of 10 layers, 5 of them owning, so one shared
+    layer of each kind (SWA: bank 3; full: bank 4) runs, with E on in the
+    decode step (A, B, C, E and the store launched, D not); then the
+    35-layer model drawn on the card: (b) its kernel rows
+    (phase_gemma3n_kernels); (c) the slice with E on (4 requests of
+    GEMMA3N_NEW tokens, graph replays, then eagerly: the same tokens and
+    launch counts; A, B, C, E and the store launched, D not); (d) its
+    decode-step profile as graph replays, whose capture counts a step must
+    be A five times a layer (wqkv or the shared layers' wq, wo, gate/up,
+    down, the per-layer input gate) plus the stream's projection and the
+    lm_head, the store once an owning layer and never on a shared one, E
+    once a layer, and no D; and a prefill profile; (e) its server
+    (phase_q8_server: 4 slots of GEMMA3N_CTX, int8 KV, E on, the burst of
+    GEMMA3N_SERVER_PROMPTS past the window) with a Qwen2-layout tokenizer
+    of the model's 262400 rows: 4 token-id completions and 2 chats. ->
+    launch counts by path."""
+    from tpullm_torch.models.llama import kv_owners, swa_flags
+    from tpullm_torch.tokenizer import Tokenizer
+    from tpullm_torch.utils.synth import synth_bpe_vocab, synth_gemma3n
+
+    counts = {}
+    label = "Gemma-3n-E4B"
+    t = time.perf_counter()
+    spec = dict(GEMMA3N, **GEMMA3N_PARITY)
+    c = phase_parity(torch, f"{label} (depth cut from {GEMMA3N['n_layer']}, owning layers from "
+                     f"20 to {GEMMA3N_PARITY['n_layer_kv_from_start']})", seed=21,
+                     flash_decode="1", last_only=True, synth=synth_gemma3n, **spec)
+    counts[f"{label} {spec['n_layer']}-layer"] = c
+    missing = [k for k in GEMMA3N_KERNELS if c[k] <= 0]
+    if missing or c["layer_kernel"]:
+        raise AssertionError(f"{label} parity: kernels not launched {missing}, layer kernel "
+                             f"{c['layer_kernel']}")
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    n_layer = GEMMA3N["n_layer"]
+    cfg, params = synth_gemma3n(**GEMMA3N, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    own, shared = params["layers"]["__groups__"]
+    layouts = {k: (v.qtype.name, v.layout) for k, v in {**own, **shared}.items()
+               if hasattr(v, "qtype")}
+    layouts.update({k: (params[k].qtype.name, params[k].layout)
+                    for k in ("tok_embd", "per_layer_tok_embd", "per_layer_model_proj")})
+    log(f"slice {label}: synthesized weights {params_bytes(params) / 1e9:.3f} GB in "
+        f"{time.perf_counter() - t:.3f} s; config {cfg.arch} heads {cfg.n_head}/{cfg.n_head_kv} "
+        f"of {cfg.head_dim} n_ff {cfg.n_ff} vocab {cfg.vocab_size} (table "
+        f"{params['per_layer_tok_embd'].n_out} rows of {cfg.n_layer} x {cfg.n_embd_per_layer}) "
+        f"owning layers {kv_owners(cfg)} windows "
+        f"{[cfg.sliding_window if f else 0 for f in swa_flags(cfg)][:5]}... rope "
+        f"{cfg.rope_base:g}/{cfg.rope_base_swa:g} altup {cfg.altup_n} sparsity "
+        f"{cfg.n_layer_sparsity} layers softcap {cfg.final_logit_softcap:g} embedding_scale "
+        f"{cfg.embedding_scale:.4f} attn_scale {cfg.attn_scale:g}; types and layouts {layouts}")
+    if n_layer != cfg.n_layer or kv_owners(cfg) != 20:
+        raise AssertionError(f"{label}: {cfg.n_layer} layers, {kv_owners(cfg)} owning")
+    t = time.perf_counter()
+    plain = phase_gemma3n_kernels(torch, entries, cfg, params)
+    log(f"phase kernels {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    set_flash_decode("1")
+    try:
+        counts[label], eng, eager, prompts = phase_slice(
+            torch, label, cfg, params, cfg.vocab_size, GEMMA3N_KERNELS, ("layer_kernel",),
+            new=GEMMA3N_NEW, samples=1)
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = phase_decode(torch, eng, prompts, f" {label} graph", profiled_steps=2, steps=16)
+    finally:
+        set_flash_decode(None)
+    step = out["graph_capture_counts_per_step"] or {}
+    L, nks = cfg.n_layer, kv_owners(cfg)
+    want = {"qmm_splitk": 5 * L + 2, "kv_store": nks, "flash_decode": L}
+    if {k: step.get(k) for k in want} != want or step.get("layer_kernel"):
+        raise AssertionError(f"{label} decode step: launches {step}, want {want} (A on wqkv or "
+                             "wq, wo, gate/up, down and the per-layer input gate a layer, the "
+                             "stream's projection and the lm_head; the store once an owning "
+                             "layer, none on the shared ones; E once a layer)")
+    pre = phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention"), f" {label}")
+    step_ms = out["wall_ms_q1_median_q3"][1]
+    log(f"plain products {label}: the LAuReL pair {L} x {plain['LAuReL pair (f32)'][4]:.4f} ms "
+        f"and the per-layer projection {L} x "
+        f"{plain['per_layer_proj (planar Q4_K, K 256)'][4]:.4f} ms at M = 4 against the "
+        f"{step_ms:.2f} ms graph decode step; at the 4 x 512 prefill {L} x "
+        f"{plain['LAuReL pair (f32)'][2048]:.3f} and {L} x "
+        f"{plain['per_layer_proj (planar Q4_K, K 256)'][2048]:.3f} ms of its "
+        f"{pre['wall_ms']:.1f} ms")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    tok = Tokenizer(synth_bpe_vocab(cfg.vocab_size, layout="qwen2"))
+    log(f"server {label}: synth_bpe_vocab({cfg.vocab_size}, layout='qwen2') and its tokenizer "
+        f"in {time.perf_counter() - t:.3f} s")
+    counts[f"{label} server"] = phase_q8_server(torch, cfg, params, label,
+                                                GEMMA3N_SERVER_PROMPTS, n_ctx=GEMMA3N_CTX,
+                                                kernels=GEMMA3N_KERNELS, tok=tok)
+    log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
+    del cfg, params, own, shared
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -6069,11 +6320,13 @@ def main() -> int:
     gptoss_counts = phase_gptoss(torch, entries)
     scout_counts = phase_scout(torch, entries)
     grovemoe_counts = phase_grovemoe(torch, entries)
+    gemma3n_counts = phase_gemma3n(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
                **command_r_counts, **starcoder_counts, **ernie_counts, **deepseek_counts,
-               **phi4_counts, **gptoss_counts, **scout_counts, **grovemoe_counts}
+               **phi4_counts, **gptoss_counts, **scout_counts, **grovemoe_counts,
+               **gemma3n_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

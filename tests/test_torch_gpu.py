@@ -2504,3 +2504,52 @@ def test_moe_family_engine_on_card_matches_cpu(cuda, monkeypatch, arch, flag):
     assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
     ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
     assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+
+
+# ----------------------------------- the per-layer-embedding Gemmas (gemma3n)
+
+@pytest.mark.parametrize("flag", [None, "1"])
+def test_gemma3n_engine_on_card_matches_cpu(cuda, monkeypatch, flag):
+    """A 10-layer gemma3n model (synth_gemma3n at n_embd 512, 8/2 heads of
+    256, n_ff 1024, 5 owning layers: layers 5-8 read bank 3, layer 9 bank
+    4; the per-layer table cut to 96 rows, so the prompts' ids past it read
+    its last row on the card as on the CPU): the engine on the card against
+    the plain path on the CPU in f32, within 4x the plain bf16 error; A, B,
+    C and the store launched, D not (E with TPULLM_FLASH_DECODE=1); the
+    same requests with cuda_graphs=False give the graph's tokens and launch
+    counts, so the per-layer gather, AltUp and the shared layers ride
+    inside the captured step."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+    from tpullm_torch.utils.synth import synth_gemma3n
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = synth_gemma3n(vocab_size=1024, n_embd=512, n_layer=10, n_head=8, n_head_kv=2,
+                                head_dim=256, n_ff=1024, table_rows=96, n_layer_kv_from_start=5,
+                                sliding_window=64, device="cpu",
+                                generator=torch.Generator().manual_seed(3))
+    card = _to(params, "cuda")
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+        if name == "card":
+            assert eng.states[len(ENGINE_PROMPTS)].cache.k.shape[0] == 5
+    c = counts["card"]
+    for k in ("qmm_splitk", "qmm", "flash_attention", "kv_store"):
+        assert c[k] > 0, (k, c)
+    assert c["layer_kernel"] == 0 and (c["flash_decode"] > 0) == bool(flag), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref

@@ -20,19 +20,32 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("gemma4_attn", True), ("altup_n", 4), ("n_expert", 8),
-    ("n_expert_shared", 2), ("diffusion", True), ("n_embd_per_layer", 256),
+    ("xielu", ((0.8, 0.8, 0.5, -1e-6),)), ("hybrid_graph", True), ("n_expert", 8),
+    ("n_expert_shared", 2), ("diffusion", True), ("mrope_sections", (16, 24, 24, 0)),
     ("attn_out_gate", True),
     ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
     ("full_attn_interval", 4), ("ssm_d_conv", 4), ("n_rel_attn_bkts", 32)])
 def test_flag_outside_dense_path_raises(field, value):
     """Every field outside the covered paths raises on the dense path. (The
     iRoPE fields, llama4's chunk and smallthinker's dense-first pattern
-    pass since the port runs them: tests/test_torch_irope.py.)"""
+    pass since the port runs them: tests/test_torch_irope.py; so do the
+    per-layer-embedding Gemmas' fields: test_gemma_fields_pass. Apertus's
+    xIELU parameters, the hybrid walker and M-RoPE's sections take their
+    cases.)"""
     cfg = ModelConfig()
     check_dense(cfg)
     with pytest.raises(NotImplementedError, match=field):
         check_dense(dataclasses.replace(cfg, **{field: value}))
+
+
+def test_gemma_fields_pass():
+    """gemma4's attention, the per-layer token stream, the shared-KV layers
+    and gemma3n's AltUp with its sparsity pass check_dense (the port runs
+    them: tests/test_torch_gemma_ple.py)."""
+    check_dense(ModelConfig(n_layer=6, gemma4_attn=True, n_embd_per_layer=256,
+                            n_layer_kv_from_start=4))
+    check_dense(ModelConfig(n_layer=25, gemma4_attn=True, n_embd_per_layer=256,
+                            n_layer_kv_from_start=20, altup_n=4, n_layer_sparsity=10))
 
 
 MIXTRAL = ModelConfig(arch="mixtral", n_expert=8, n_expert_used=2, expert_weights_norm=True)

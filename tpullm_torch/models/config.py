@@ -219,6 +219,17 @@ DENSE_KEYS = frozenset({
     # mimo2's scale on the attention's output after wo (config.py:346-348)
     "attention.value_scale",
 })
+# gemma4's and gemma3n's per-layer token stream width and the trailing layers
+# that read an earlier layer's cache (config.py:330-339); gemma4's SWA head
+# dims, which no JAX graph reads, held equal to the head dims. Read for those
+# two archs only: the JAX parser reads the first two for any arch, whose graph
+# then runs shared layers only under gemma4's attention (llama.py:1396-1398),
+# so another arch's file with these keys raises
+GEMMA_PLE_KEYS = frozenset({
+    "embedding_length_per_layer_input", "attention.shared_kv_layers",
+    "attention.key_length_swa", "attention.value_length_swa",
+})
+GEMMA_PLE_ARCHS = ("gemma4", "gemma3n")
 # the routed-expert MoE FFN (config.py:236-238, 272-280 of the JAX parser).
 # expert_shared_feed_forward_length (qwen2moe) is read by neither parser:
 # the shared expert's width comes from its tensors
@@ -272,7 +283,8 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
         raise NotImplementedError(
             f"arch {arch!r}: the PyTorch port covers {sorted(ARCH_REGISTRY)}")
     known = (DENSE_KEYS | MOE_KEYS | MLA_KEYS | (INDEXER_KEYS if arch == "glm-dsa" else set())
-             | (GROVE_KEYS if arch == "grovemoe" else set()))
+             | (GROVE_KEYS if arch == "grovemoe" else set())
+             | (GEMMA_PLE_KEYS if arch in GEMMA_PLE_ARCHS else set()))
     other = sorted(k for k in g.metadata if k.startswith("xielu.") or (
         k.startswith(arch + ".") and k[len(arch) + 1:] not in known))
     if other:
@@ -386,6 +398,24 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     nextn = int(get("nextn_predict_layers", 0) or 0)
     if nextn:
         cfg.n_layer -= nextn
+    # the per-layer token stream and the shared-KV layers (config.py:330-339):
+    # gemma3n's graph fixes its first 20 layers as the cache's owners whatever
+    # the file says
+    pl = get("embedding_length_per_layer_input")
+    if pl:
+        cfg.n_embd_per_layer = int(pl)
+    shared_kv = get("attention.shared_kv_layers")
+    if shared_kv:
+        cfg.n_layer_kv_from_start = cfg.n_layer - int(shared_kv)
+    if arch == "gemma3n":
+        cfg.n_layer_kv_from_start = min(20, cfg.n_layer)
+    for key, want in (("attention.key_length_swa", cfg.head_dim),
+                      ("attention.value_length_swa", cfg.head_dim_v)):
+        v = get(key)
+        if v is not None and int(v) != want:
+            raise NotImplementedError(
+                f"{arch}.{key}={v}: SWA layers with their own head dim ({want} elsewhere) are "
+                "not on the covered paths")
     if cfg.swa_layer_pattern and len(cfg.swa_layer_pattern) < cfg.n_layer:
         raise ValueError(f"{arch}.attention.sliding_window_pattern: "
                          f"{len(cfg.swa_layer_pattern)} flags for {cfg.n_layer} layers")

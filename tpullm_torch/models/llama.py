@@ -34,7 +34,15 @@ attention in its absorbed form instead (``attend_mla``: a direct or
 low-rank q, the joint kv projection and its latent norm, q_nope absorbed by
 wk_b, one cached kv head of [c_kv; k_pe] and c_kv, attention at
 ``mla_scale`` with YaRN's mscale^2, wv_b, then wo) ahead of the pre-normed
-dense or MoE FFN. A Python loop over layers takes the place of
+dense or MoE FFN. The per-layer-embedding Gemmas (gemma4, gemma3n) add the
+per-layer token stream (a (vocab, n_layer x P) table gathered by token and a
+projection of the embedded input, ``per_layer_inputs``) that each layer's
+per-layer input block adds in (``per_layer_block``), gemma4's attention (a
+weightless V norm, V as the raw K where a layer has no wv) and output scale,
+the shared-KV layers (Q alone over an earlier layer's bank, ``bank_map``),
+and gemma3n's AltUp stream stack with LAuReL and the activation sparsity
+(``altup_expand``, ``altup_layer``, ``altup_merge``: plain ops beside the
+layer's products). A Python loop over layers takes the place of
 ``lax.scan``; the KV cache
 (bf16, f32 or int8 with row scales; full-context on every layer, or the
 iSWA dual cache: full banks for the full-attention layers and a ring of
@@ -131,6 +139,12 @@ DENSE_FIELDS = frozenset({
     # SWA pattern
     "no_rope_interval", "no_rope_offset", "attn_temp_scale", "attn_temp_floor",
     "attn_temp_offset", "qk_l2_norm", "swa_chunked", "swa_dense_first",
+    # the per-layer-embedding Gemmas (gemma4, gemma3n): the per-layer token
+    # stream, the trailing layers that read an earlier layer's cache, gemma4's
+    # attention (the weightless V norm, V as K where a layer has no wv) and
+    # gemma3n's AltUp stream stack with its activation sparsity
+    "n_embd_per_layer", "n_layer_kv_from_start", "gemma4_attn", "altup_n", "altup_act",
+    "n_layer_sparsity", "sparsity_std_mul",
 })
 # act_fn values of the dense FFN (llama.py:624-658): gated silu, gelu or
 # gpt-oss's clamped swiglu_oai, ungated gelu or relu2; the MoE FFN's experts
@@ -176,6 +190,18 @@ CHEXP_KEYS = frozenset({"moe_gate_chexps", "moe_up_chexps", "moe_down_chexps"})
 # the dense FFN's weights, read on a MoE layer by grok's and arctic's blocks
 # only (llama.py:1295-1314)
 DENSE_FFN_KEYS = frozenset({"ffn_gateup", "ffn_gate", "ffn_up", "ffn_down"})
+# the per-layer input block of gemma4's and gemma3n's layers (its weights and
+# its post-norm), read beside the per-layer token stream (n_embd_per_layer);
+# gemma3n's AltUp and LAuReL tensors, read where the config has altup_n
+# (llama.py:1042-1147)
+PLE_KEYS = frozenset({"per_layer_inp_gate", "per_layer_proj", "per_layer_post_norm"})
+ALTUP_KEYS = frozenset({"altup_correct_coef", "altup_correct_scale", "altup_predict_coef",
+                        "altup_router", "altup_router_norm", "laurel_l", "laurel_r",
+                        "laurel_post_norm"})
+# the model-wide tables of the per-layer token stream and of the AltUp
+# streams' expansion and merge (llama.py:734-766, 1531-1541)
+PLE_TABLES = ("per_layer_tok_embd", "per_layer_model_proj", "per_layer_proj_norm")
+ALTUP_TABLES = ("altup_proj", "altup_unembd_proj")
 
 
 def _informational(cfg: ModelConfig, name: str) -> bool:
@@ -227,6 +253,25 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
             f"MoE with n_expert={cfg.n_expert}, n_expert_used={cfg.n_expert_used}, "
             f"gating {cfg.expert_gating!r}, moe_dense_parallel {cfg.moe_dense_parallel!r}, "
             f"n_group_experts {cfg.n_group_experts}: not on the covered MoE path")
+    nks = cfg.n_layer_kv_from_start
+    if 0 <= nks < cfg.n_layer and (not cfg.gemma4_attn or nks < 2 or cfg.kv_lora_rank):
+        # the JAX graph runs shared layers under gemma4's attention alone
+        # (llama.py:1396-1398), reading banks nks - 1 and nks - 2
+        raise NotImplementedError(
+            f"n_layer_kv_from_start={nks} of {cfg.n_layer} layers (gemma4_attn "
+            f"{cfg.gemma4_attn}, kv_lora_rank {cfg.kv_lora_rank}): shared-KV layers read the "
+            "banks of two owning layers under gemma4's attention")
+    if cfg.altup_n and not (cfg.altup_n > 1 and 0 <= cfg.altup_act < cfg.altup_n
+                            and cfg.n_embd_per_layer and cfg.pre_norm
+                            and not (moe or cfg.kv_lora_rank or cfg.parallel_residual)):
+        raise NotImplementedError(
+            f"altup_n={cfg.altup_n}, altup_act={cfg.altup_act}, n_embd_per_layer="
+            f"{cfg.n_embd_per_layer}: the AltUp layer runs 2 or more streams beside the "
+            "per-layer token stream, on the sequential dense block")
+    if cfg.n_layer_sparsity and not cfg.altup_n:
+        raise NotImplementedError(
+            f"n_layer_sparsity={cfg.n_layer_sparsity}: the activation sparsity is read by "
+            "the AltUp layer alone (llama.py:1116-1124)")
     if cfg.kv_lora_rank:
         base = ModelConfig()
         unread = [f for f in MLA_UNREAD_FIELDS if getattr(cfg, f) != getattr(base, f)]
@@ -340,11 +385,15 @@ class KVCache:
         """The JAX KVCache.create: with ``iswa`` the dual cache where the
         config has SWA layers, except on the int8 cache and for chunked
         windows, gemma4's attention and MLA, as in the JAX package. An MLA
-        config's cache holds its compressed rows (``kv_dims``)."""
-        flags = swa_flags(cfg)
+        config's cache holds its compressed rows (``kv_dims``). A config
+        with shared-KV layers (gemma4, gemma3n) has banks for its first
+        n_layer_kv_from_start layers alone (llama.py:91-96): the others read
+        two of them (``bank_map``)."""
+        n_kv = kv_owners(cfg)
+        flags = swa_flags(cfg)[:n_kv]
         dual = (iswa and any(flags) and not cfg.swa_chunked and not cfg.gemma4_attn
                 and not cfg.kv_lora_rank and dtype not in ("q8", "int8"))
-        n_full = cfg.n_layer - sum(flags) if dual else cfg.n_layer
+        n_full = n_kv - sum(flags) if dual else n_kv
         hkv, dk, dv = kv_dims(cfg)
         shape_k = (n_full, batch, hkv, max_len, dk)
         shape_v = (n_full, batch, hkv, max_len, dv)
@@ -384,15 +433,29 @@ class KVCache:
                    if t is not None)
 
 
+def kv_owners(cfg: ModelConfig) -> int:
+    """The layers that own cache banks: the first n_layer_kv_from_start
+    where the config sets it (gemma4, gemma3n), else every layer."""
+    nks = cfg.n_layer_kv_from_start
+    return nks if 0 <= nks < cfg.n_layer else cfg.n_layer
+
+
 def bank_map(cfg: ModelConfig, dual: bool) -> list:
     """Each layer's bank and its index there, [(ring, index)]: on the dual
     cache the SWA layers (swa_flags) index the ring banks in layer order and
     the others the full banks (the JAX forward's bank_off, llama.py:1374-1508);
-    otherwise every layer its own index of the full banks."""
+    otherwise every layer its own index of the full banks. A shared-KV
+    layer (from kv_owners on) reads the bank of the last owning layer, or of
+    the one before it where the layer is SWA (llama.py:1447-1465; llama.cpp's
+    reuse callback): it writes none."""
     flags = swa_flags(cfg)
+    n_kv = kv_owners(cfg)
     seen = {False: 0, True: 0}
     out = []
-    for f in flags:
+    for li, f in enumerate(flags):
+        if li >= n_kv:
+            out.append((False, n_kv - 2 if f else n_kv - 1))
+            continue
         r = bool(dual and f)
         out.append((r, seen[r]))
         seen[r] += 1
@@ -695,16 +758,8 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
     lw = lw or {}
     if not cfg.ffn_gate:
         u = qmm(x, qw["ffn_up"], dtype, li)
-    elif "ffn_gateup" in qw:
-        y = qmm(x, qw["ffn_gateup"], dtype, li)
-        g = y[..., : cfg.n_ff]
-        u = y[..., pad256(cfg.n_ff): pad256(cfg.n_ff) + cfg.n_ff]
-    elif "ffn_gate" not in qw:
-        y = qmm(x, qw["ffn_up"], dtype, li)
-        g, u = y[..., : cfg.n_ff], y[..., cfg.n_ff: 2 * cfg.n_ff]
     else:
-        g = qmm(x, qw["ffn_gate"], dtype, li)
-        u = qmm(x, qw["ffn_up"], dtype, li)
+        g, u = gate_up(x, qw, li, cfg, dtype)
     if "ffn_gate_b" in lw:  # llama.py:620-621
         g = g + lw["ffn_gate_b"].to(dtype)
     if "ffn_up_b" in lw:
@@ -719,6 +774,133 @@ def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
     if "ffn_down_b" in lw:
         out = out + lw["ffn_down_b"].to(dtype)
     return out
+
+
+def gate_up(x, qw, li, cfg: ModelConfig, dtype):
+    """The gated FFN's gate and up products (g, u): from the fused ffn_gateup
+    (sliced at n_ff and at its 256-padded offset), a GGUF-combined [gate;
+    up] ffn_up (split at n_ff) or separate ffn_gate and ffn_up."""
+    if "ffn_gateup" in qw:
+        y = qmm(x, qw["ffn_gateup"], dtype, li)
+        return y[..., : cfg.n_ff], y[..., pad256(cfg.n_ff): pad256(cfg.n_ff) + cfg.n_ff]
+    if "ffn_gate" not in qw:
+        y = qmm(x, qw["ffn_up"], dtype, li)
+        return y[..., : cfg.n_ff], y[..., cfg.n_ff: 2 * cfg.n_ff]
+    return qmm(x, qw["ffn_gate"], dtype, li), qmm(x, qw["ffn_up"], dtype, li)
+
+
+def per_layer_inputs(params: dict, cfg: ModelConfig, tokens, x, dtype):
+    """gemma4's and gemma3n's per-layer token stream (llama.py:734-755;
+    build_inp_per_layer + project_per_layer_inputs) -> (B, T, n_layer, P) in
+    ``dtype``: the token's rows of the (vocab, n_layer x P) table times
+    sqrt(P), and the projection of the embedded input x over sqrt(n_embd),
+    RMS-normed per layer by per_layer_proj_norm, added and divided by
+    sqrt(2). An id past the table's rows reads its last row, as the JAX
+    take_rows of an unpadded table does (the published Gemma 3n vocabulary,
+    262400, is larger than its table, 262144): the ids are clamped on the
+    device, so no gather reads out of range."""
+    B, T = tokens.shape
+    P, L = cfg.n_embd_per_layer, cfg.n_layer
+    table = params["per_layer_tok_embd"]
+    ids = tokens.clamp(0, table.n_out - 1)
+    ple = table.take_rows(ids, dtype).to(torch.float32).reshape(B, T, L, P) * math.sqrt(P)
+    proj = qmm(x, params["per_layer_model_proj"], dtype).to(torch.float32) / math.sqrt(cfg.n_embd)
+    proj = rms_norm(proj.reshape(B, T, L, P), params["per_layer_proj_norm"], cfg.rms_eps)
+    return ((proj + ple) / math.sqrt(2.0)).to(dtype)
+
+
+def per_layer_block(x, pli, qw, li, lw, cfg: ModelConfig, dtype):
+    """The per-layer input block of gemma4's layers (llama.py:1042-1053) and
+    of gemma3n's streams 1..A-1 (llama.py:1130-1139): gelu(x @ inp_gate) (in
+    f32) times the layer's slice of the token stream ``pli`` (B, T, P),
+    projected back to n_embd and RMS-normed by per_layer_post_norm, in f32
+    (the caller adds it)."""
+    g = torch.nn.functional.gelu(qmm(x.to(dtype), qw["per_layer_inp_gate"], dtype, li)
+                                 .to(torch.float32), approximate="tanh")
+    cur = qmm((g * pli.to(torch.float32)).to(dtype), qw["per_layer_proj"], dtype, li)
+    return rms_norm(cur.to(torch.float32), lw["per_layer_post_norm"], cfg.rms_eps)
+
+
+def altup_expand(x, proj, cfg: ModelConfig, dtype):
+    """gemma3n's AltUp stream expansion (llama.py:756-766): the embedded
+    input (B, T, D) and altup_n - 1 projections of it (altup_proj, (A - 1,
+    D, D)), each rescaled to the input's per-token L2 norm -> the streams
+    packed as (B, T, A * D)."""
+    B, T, _ = x.shape
+    xf = x.to(torch.float32)
+    tm = torch.sqrt((xf * xf).sum(-1, keepdim=True))
+    added = torch.einsum("btd,jkd->btjk", xf, proj.to(torch.float32))
+    added = added * (tm[..., None] / torch.sqrt((added * added).sum(-1, keepdim=True)))
+    return torch.cat([xf[..., None, :], added], dim=-2).reshape(B, T, -1).to(dtype)
+
+
+def altup_merge(x, unembd, cfg: ModelConfig, dtype):
+    """gemma3n's AltUp merge (llama.py:1531-1541): streams 1..A-1 projected
+    back by altup_unembd_proj, each rescaled to the active stream's L2 norm,
+    then the mean of stream 0 and them -> (B, T, D)."""
+    A, D = cfg.altup_n, cfg.n_embd
+    s = x.reshape(x.shape[0], x.shape[1], A, D).to(torch.float32)
+    act = s[..., cfg.altup_act, :]
+    tm = torch.sqrt((act * act).sum(-1, keepdim=True))
+    un = torch.einsum("btjd,jkd->btjk", s[..., 1:, :], unembd.to(torch.float32))
+    un = un * (tm[..., None] / torch.sqrt((un * un).sum(-1, keepdim=True)))
+    return ((s[..., 0, :] + un.sum(-2)) / A).to(dtype)
+
+
+def altup_layer(x, qw, li, lw, layer: int, pli, attend_wo, cfg: ModelConfig, dtype):
+    """gemma3n's AltUp layer (llama.py:1071-1147; gemma3n.cpp:133-262), plain
+    PyTorch ops on x's device beside the layer's products (kernels A and B).
+    x packs altup_n residual streams as (B, T, A * D). The router's tanh
+    modalities of the active stream predict each stream as a mix of all
+    (altup_predict_coef, plus the stream); the active prediction runs the
+    layer: attention (``attend_wo``: the attention's input -> its output
+    after wo, a shared-KV layer's Q-only read included) with its post-norm,
+    beside the rank-64 LAuReL bypass (laurel_l, laurel_r, its post-norm, plus
+    the input), averaged by 1/sqrt(2); the gelu FFN, whose gate on the first
+    n_layer_sparsity layers (``layer`` the index in the model) is cut at its
+    per-token mean + std x sparsity_std_mul over n_ff (std over n_ff - 1)
+    and relu'd; the FFN's post-norm. The innovation (the output less the
+    prediction) corrects every stream by the modalities of the output
+    (altup_correct_coef, plus 1), and the per-layer block of the corrected
+    active stream (times altup_correct_scale) is added into streams 1..A-1.
+    The f32 arrays (router, coefficients, LAuReL) take torch.matmul; the
+    gate, up and down products come from a fused ffn_gateup as from
+    separate weights (``gate_up``)."""
+    A, D = cfg.altup_n, cfg.n_embd
+    B, T, _ = x.shape
+    f32 = torch.float32
+    eps = cfg.rms_eps
+    s = x.reshape(B, T, A, D).to(f32)
+
+    def modalities(y):  # compute_router_modalities (gemma3n.cpp:402-410)
+        ri = rms_norm(y, lw["altup_router_norm"], eps) / D
+        return torch.tanh(ri @ lw["altup_router"].to(f32).t())
+
+    cp = (modalities(s[..., cfg.altup_act, :]) @ lw["altup_predict_coef"].to(f32).t())
+    preds = torch.einsum("btji,btid->btjd", cp.reshape(B, T, A, A), s) + s
+    ap = preds[..., cfg.altup_act, :]
+    h = rms_norm(ap, lw["attn_norm"], eps).to(dtype)
+    hf = h.to(f32)
+    lau = (hf @ lw["laurel_l"].to(f32).t()) @ lw["laurel_r"].to(f32).t()
+    lau = rms_norm(lau, lw["laurel_post_norm"], eps) + hf
+    att = rms_norm(attend_wo(h), lw["post_attn_norm"], eps)
+    attn_laurel = (att.to(f32) + ap + lau) * float(1.0 / np.sqrt(2.0))
+    g, u = gate_up(rms_norm(attn_laurel, lw["ffn_norm"], eps).to(dtype), qw, li, cfg, dtype)
+    g, u = g.to(f32), u.to(f32)
+    if layer < cfg.n_layer_sparsity:  # gaussian_topk (gemma3n.cpp:387-393)
+        mean = g.mean(-1, keepdim=True)
+        std = torch.sqrt(((g - mean) ** 2).sum(-1, keepdim=True) / (g.shape[-1] - 1))
+        g = torch.relu(g - (mean + std * cfg.sparsity_std_mul))
+    f = qmm((torch.nn.functional.gelu(g, approximate="tanh") * u).to(dtype), qw["ffn_down"],
+            dtype, li)
+    gated = rms_norm(f.to(f32), lw["post_ffn_norm"], eps) + attn_laurel
+    cc = modalities(gated) @ lw["altup_correct_coef"].to(f32).t() + 1.0
+    corrected = preds + (gated - ap)[..., None, :] * cc[..., None]
+    fp = per_layer_block(corrected[..., cfg.altup_act, :] * lw["altup_correct_scale"].to(f32),
+                         pli, qw, li, lw, cfg, dtype)
+    corrected = torch.cat([corrected[..., :1, :], corrected[..., 1:, :] + fp[..., None, :]],
+                          dim=-2)
+    return corrected.to(dtype).reshape(B, T, A * D)
 
 
 def top_k(probs, k: int):
@@ -995,8 +1177,10 @@ _LAYER_KEYS = (frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo
                           "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
                           "k_norm_b", "post_attn_norm", "post_ffn_norm", "moe_gate_inp_shexp",
                           "attn_norm_2", "bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
-                          "moe_probs_b", "wqkv_gate", "attn_sinks", "ffn_norm_exps"})
-               | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS | MOE_BIAS_KEYS | CHEXP_KEYS)
+                          "moe_probs_b", "wqkv_gate", "attn_sinks", "ffn_norm_exps",
+                          "out_scale"})
+               | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS | MOE_BIAS_KEYS | CHEXP_KEYS
+               | PLE_KEYS | ALTUP_KEYS)
 
 
 def check_ffn_layout(cfg: ModelConfig, gl) -> None:
@@ -1094,7 +1278,44 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
         unread.add("ffn_norm_exps")
     if "ffn_gate_shexp" not in gl:
         unread.add("moe_gate_inp_shexp")
+    if not cfg.n_embd_per_layer:
+        unread |= PLE_KEYS
+    if not cfg.altup_n:
+        unread |= ALTUP_KEYS
+    else:  # the AltUp layer applies no output scale (llama.py:1071-1147)
+        unread.add("out_scale")
     return sorted(unread & set(gl))
+
+
+def check_stream_tables(params: dict, cfg: ModelConfig) -> None:
+    """Raise NotImplementedError where the per-layer token stream's tables
+    or AltUp's projections do not match the config: each set present exactly
+    where the config reads it (n_embd_per_layer, altup_n), as the JAX
+    forward reads them (llama.py:734-766)."""
+    for tables, on, field in ((PLE_TABLES, cfg.n_embd_per_layer, "n_embd_per_layer"),
+                              (ALTUP_TABLES, cfg.altup_n, "altup_n")):
+        have = [k for k in tables if k in params]
+        if (have and not on) or (on and len(have) < len(tables)):
+            raise NotImplementedError(
+                f"tables {have} with {field}={on}: the config reads all of {list(tables)} "
+                "or none")
+
+
+def check_shared_group(cfg: ModelConfig, gl, off: int, L_g: int) -> bool:
+    """Whether layers [off, off + L_g) of a group are shared-KV layers (from
+    kv_owners on), which must hold Q alone (wq, no K or V projection), while
+    an owning layer holds its K projection; a group may not straddle the
+    first shared layer. The JAX forward tells them by their tensors
+    (llama.py:1396-1398); the loader gives them a group of their own."""
+    n_kv = kv_owners(cfg)
+    shared = off >= n_kv
+    kv = {"wk", "wv", "wqkv", "wqkv_cat", "k_norm", "bk", "bv", "bqkv_cat"} & set(gl)
+    if off < n_kv < off + L_g or (shared and (kv or "wq" not in gl)) or (
+            not shared and cfg.gemma4_attn and not kv & {"wk", "wqkv", "wqkv_cat"}):
+        raise NotImplementedError(
+            f"layers [{off}, {off + L_g}) with {sorted(kv) or 'no K/V projection'}: the first "
+            f"{n_kv} layers own the cache and hold K, the shared-KV layers after them Q alone")
+    return shared
 
 
 def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
@@ -1116,7 +1337,12 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     layer off it. The JAX gate asks neither (ops/layer_kernel.py:410-428,
     llama.py:1382-1397), so on the TPU those layers' decode would drop the
     scale. MLA layers stay off it, as
-    in the JAX gate (``kv_lora_rank == 0``, llama.py:1395).
+    in the JAX gate (``kv_lora_rank == 0``, llama.py:1395), and so does
+    gemma3n's AltUp layer (``not cfg.altup_n``, llama.py:1396). The layer
+    kernel ends at the FFN's residual, so a layer with gemma4's per-layer
+    input block or output scale stays off it too: the port's own condition,
+    where the JAX gate keeps such layers off by ``post_norms`` alone
+    (ops/layer_kernel.py:413), which both gemma rows set.
 
     The combined [gate; up] of a phi3 or chatglm file takes the kernel on the
     port's own route: where n_ff is a multiple of 256 the loader renames the
@@ -1124,10 +1350,11 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     ops/fuse.py:fuse_layer_weights), which block_supported asks for, as the
     JAX gate does (ops/layer_kernel.py:411). The JAX loader keeps the
     combined tensor as ffn_up, so there such layers take the plain FFN."""
-    use_block = (B * T <= 16 and on_card and cfg.kv_lora_rank == 0
+    use_block = (B * T <= 16 and on_card and cfg.kv_lora_rank == 0 and not cfg.altup_n
                  and "ffn_norm" in gl and "ffn_norm_b" not in gl
                  and not any(k in gl for k in ("bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
-                                               "attn_norm_2"))
+                                               "attn_norm_2", "per_layer_inp_gate",
+                                               "out_scale"))
                  and not cfg.attn_bias and not cfg.attn_qk_norm_flat
                  and cfg.residual_scale == 1.0 and not cfg.attn_out_scale
                  and block_supported(cfg, qw))
@@ -1192,6 +1419,13 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                                               table).to(dtype)
     if "tok_norm" in params:  # bloom's layernorm on the embedding (llama.py:718-720)
         x = _norm(x, params["tok_norm"], params.get("tok_norm_b"), cfg)
+    check_stream_tables(params, cfg)
+    # the per-layer token stream (B, T, n_layer, P) and AltUp's streams
+    # (llama.py:734-766): device ops on the device tokens, so a captured
+    # step takes them
+    pli = per_layer_inputs(params, cfg, tokens, x, dtype) if cfg.n_embd_per_layer else None
+    if cfg.altup_n:
+        x = altup_expand(x, params["altup_proj"], cfg, dtype)
     # cast once here rather than in each apply_rope (same values: q and k
     # are in the compute dtype); none without RoPE
     cos = sin = None
@@ -1257,6 +1491,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             if cfg.qk_l2_norm:
                 q, k = rms_norm(q, None, cfg.rms_eps), rms_norm(k, None, cfg.rms_eps)
         v = v.reshape(B, T, Hkv, hdv)
+        if cfg.gemma4_attn:  # gemma4's weightless V RMS norm (llama.py:853-855)
+            v = rms_norm(v, None, cfg.rms_eps)
         if cfg.clamp_kqv:
             c = cfg.clamp_kqv
             q, k, v = (torch.clamp(t, -c, c) for t in (q, k, v))
@@ -1275,6 +1511,31 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         att = attention(q, k_view, v_view, q_slots, kv_positions, positions, valid_from,
                         cfg, bool(windows[li]), kv_q8=kv_q8,
                         ring=cache.ring if on_ring else 0, sinks=lw.get("attn_sinks"))
+        return att.reshape(B, T, H * hdv)
+
+    def attend_shared(h, qw, li, lw, layer):
+        """A shared-KV layer's attention (_attend_shared, llama.py:953-974)
+        -> (B, T, H * hdv), before wo: Q alone, its per-head norm, RoPE at
+        the layer's own base, attention at the layer's own window over the
+        bank that bank_map names (an owning layer's, written earlier in this
+        forward); no store. The view is this ubatch's rows and first L_view
+        slots, as every layer reads its own bank (the JAX shared layer reads
+        the bank whole: every row and slot, which fails where a server
+        prefills one slot of several, and an int8 bank without its row
+        scales; ROADMAP §3)."""
+        q = qmm(h, qw["wq"], dtype, li).reshape(B, T, H, hd)
+        if cfg.attn_qk_norm and "q_norm" in lw:
+            q = rms_norm(q, lw["q_norm"], cfg.rms_eps)
+        c, sn = (cos_swa, sin_swa) if rope_swa[layer] else (cos, sin)
+        q = apply_rope(q, c, sn, cfg.rope_type, cfg.rope_dim)
+        bi = banks[layer][1]
+        kv_q8 = k_view = v_view = None
+        if cache.quantized:
+            kv_q8 = tuple(view(t[bi]) for t in (cache.k, cache.v, cache.ks, cache.vs))
+        else:
+            k_view, v_view = view(cache.k[bi]).to(dtype), view(cache.v[bi]).to(dtype)
+        att = attention(q, k_view, v_view, q_slots, kv_positions, positions, valid_from, cfg,
+                        bool(windows[layer]), kv_q8=kv_q8)
         return att.reshape(B, T, H * hdv)
 
     def attend_mla(h, qw, li, lw, layer):
@@ -1333,7 +1594,10 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 y = y + lw["bqkv_cat"].to(dtype)
             q, k, v = y[..., :nq], y[..., nq: nq + nk], y[..., nq + nk: nq + nk + nv]
         else:
-            q, k, v = (qmm(h, qw[k], dtype, li) for k in ("wq", "wk", "wv"))
+            q, k = qmm(h, qw["wq"], dtype, li), qmm(h, qw["wk"], dtype, li)
+            # gemma4's layer without wv: V is the raw K projection, taken
+            # before k_norm (llama.py:1212-1218)
+            v = k if cfg.gemma4_attn and "wv" not in qw else qmm(h, qw["wv"], dtype, li)
         if cfg.attn_bias and "bq" in lw:
             q, k, v = (t + lw[b].to(dtype) for t, b in ((q, "bq"), (k, "bk"), (v, "bv")))
         return q, k, v
@@ -1408,6 +1672,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         qw = {k: v for k, v in gl.items() if isinstance(v, QTensor)}
         fl = {k: v for k, v in gl.items() if k not in qw}  # norms, biases
         L_g = next(iter(gl.values())).shape[0]
+        shared = check_shared_group(cfg, gl, off, L_g)
         use_block, use_fold = layer_routes(cfg, gl, qw, B, T, x.is_cuda, len(groups))
         if use_fold:
             # prime layer 0's norm + fused qkv; each layer kernel then emits
@@ -1424,13 +1689,24 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         else:
             for li in range(L_g):
                 lw = {k: v[li] for k, v in fl.items()}
+                layer = off + li
+
+                def attend_of(h):  # the attention's output before wo
+                    if shared:
+                        return attend_shared(h, qw, li, lw, layer)
+                    return attend(*qkv_of(h, qw, li, lw), layer, lw)
+
+                if cfg.altup_n:  # llama.py:1071-1147
+                    x = altup_layer(x, qw, li, lw, layer, pli[:, :, layer],
+                                    lambda h: qmm(attend_of(h), qw["wo"], dtype, li), cfg, dtype)
+                    continue
                 x0 = x
                 h = pre_norm(x, lw, "attn_norm")
                 if mla:  # llama.py:1159-1174
-                    x = x + qmm(attend_mla(h, qw, li, lw, off + li), qw["wo"], dtype, li)
+                    x = x + qmm(attend_mla(h, qw, li, lw, layer), qw["wo"], dtype, li)
                     x = x + ffn_of(pre_norm(x, lw, "ffn_norm"), qw, li, lw, x)
                     continue
-                att = attend(*qkv_of(h, qw, li, lw), off + li, lw)
+                att = attend_of(h)
                 if "wqkv_gate" in qw:  # llama.py:1231-1245
                     gate = torch.sigmoid(qmm(h, qw["wqkv_gate"], dtype, li).to(torch.float32))
                     if gate.shape[-1] == H:  # step35: one sigmoid a head
@@ -1454,13 +1730,20 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                     else:  # phi2, command-r, falcon-7B, gptj, plamo: the attention's input
                         h2 = h
                     x = x + a + ffn_of(h2, qw, li, lw, x)
-                    continue
-                x = x + a
-                h2 = pre_norm(x, lw, "ffn_norm")
-                x = x + post_norm(ffn_of(h2, qw, li, lw, x, x0), lw, "post_ffn_norm")
+                else:
+                    x = x + a
+                    h2 = pre_norm(x, lw, "ffn_norm")
+                    x = x + post_norm(ffn_of(h2, qw, li, lw, x, x0), lw, "post_ffn_norm")
+                if "per_layer_inp_gate" in qw:  # gemma4 (llama.py:1042-1053, 1324)
+                    x = x + per_layer_block(x, pli[:, :, layer], qw, li, lw, cfg,
+                                            dtype).to(dtype)
+                if "out_scale" in lw:  # gemma4's per-layer output scale (llama.py:1325-1327)
+                    x = (x.to(torch.float32) * lw["out_scale"].to(torch.float32)).to(dtype)
         off += L_g
     if logits_idx is not None:  # llama.py:1527-1530
         x = x[:, logits_idx: logits_idx + 1]
+    if cfg.altup_n:  # the streams' merge (llama.py:1531-1541)
+        x = altup_merge(x, params["altup_unembd_proj"], cfg, dtype)
     x = _norm(x, params.get("output_norm"), params.get("output_norm_b"), cfg)
     logits = qmm(x, params["output"], dtype).to(torch.float32)
     if cfg.logit_scale != 1.0:  # llama.py:1546-1547: a product, as in the JAX package

@@ -238,6 +238,22 @@ ARCH_REGISTRY: dict[str, dict] = {
     # by expert_group_scale, sharing the main router's sigmoid probs
     "grovemoe": dict(rope_type="neox", attn_qk_norm=True,
                      expert_weights_norm=True),
+    # gemma4 (src/models/gemma4.cpp): per-layer token-embedding stream
+    # (gated into each layer's output), trailing layers share the last KV
+    # layers' caches, optional wv (v = k), WEIGHTLESS V rms-norm, NO
+    # attention scaling (f_attention_scale = 1.0), gelu FFN, sandwich
+    # norms, per-layer out_scale, final logit softcap
+    "gemma4": dict(rope_type="neox", act_fn="gelu", post_norms=True,
+                   attn_qk_norm=True, attn_scale=1.0, gemma4_attn=True,
+                   embedding_scale=-1.0),
+    # gemma3n (src/models/gemma3n.cpp): AltUp 4-stream residual stack +
+    # laurel low-rank bypass + per-layer token-embedding stream +
+    # activation sparsity on the first 10 layers + trailing shared-KV
+    # layers (>=20); weightless V norm, no attention scaling, swa period 5
+    "gemma3n": dict(rope_type="neox", act_fn="gelu", post_norms=True,
+                    attn_qk_norm=True, attn_scale=1.0, gemma4_attn=True,
+                    embedding_scale=-1.0, swa_pattern=5, altup_n=4,
+                    n_layer_sparsity=10, final_logit_softcap=30.0),
 }
 
 

@@ -42,7 +42,11 @@ def concat_kmajor(qts: list[QTensor]) -> QTensor:
 
 def fuse_layer_weights(layers: dict, cfg=None) -> dict:
     """Replace (wq, wk, wv) -> wqkv and (ffn_gate, ffn_up) -> ffn_gateup when
-    fuseable; the unfused originals are dropped. A GGUF-combined [gate; up]
+    fuseable; the unfused originals are dropped. gemma3n's gate and up fuse
+    as every K-major dense FFN's do, and its AltUp layer slices ffn_gateup at
+    n_ff (models/llama.py:gate_up): the port's own route, where the JAX
+    AltUp layer reads ffn_gate and ffn_up and fails on a fused load
+    (llama.py:1114-1115; ROADMAP §3). A GGUF-combined [gate; up]
     (one ffn_up of 2 x n_ff rows: phi3, chatglm, plamo3) that is K-major with
     n_ff a multiple of 256 is, byte for byte, concat_kmajor of its halves
     (each fills its own 256-padded column range): it is renamed ffn_gateup,

@@ -39,6 +39,12 @@ chunk-expert bank (n_group_experts), arctic's ffn_norm_exps, and the
 attn_output_norm of grok (its post-attention norm) and dbrx (its FFN norm,
 load for those configs alone (loader.py:95-99, 401-409);
 a layer of grok or arctic loads its dense FFN beside the experts.
+gemma4's and gemma3n's per-layer input block (inp_gate, proj and post_norm;
+the first two as weights, the norm f32) and gemma4's layer_output_scale
+load for those configs, and so do the per-layer token stream's tables
+(loader.py:71-74, 207-212); gemma3n's AltUp and LAuReL tensors load as f32
+(loader.py:76-83, 355-358), as do its AltUp stream projections, and the
+dead K/V projections of its shared-KV layers are dropped (loader.py:334-348).
 Every other tensor (the output bias that phi-2's file carries, grok's
 layer_output_norm, ...) raises, and so does a shared
 expert without all of its gate, up and down.
@@ -144,6 +150,30 @@ CHEXP_TENSORS = {
     "ffn_down_chexps.weight": "moe_down_chexps",
 }
 ARCTIC_TENSORS = {"ffn_norm_exps.weight": "ffn_norm_exps"}
+# gemma4's and gemma3n's per-layer input block and gemma4's layer output
+# scale (loader.py:71-74), read where the config has the per-layer token
+# stream or gemma4's attention; gemma3n's AltUp and LAuReL tensors
+# (loader.py:76-83), read where it has altup_n. Elsewhere they are unknown
+# names and raise
+PLE_TENSORS = {
+    "inp_gate.weight": "per_layer_inp_gate",
+    "proj.weight": "per_layer_proj",
+    "post_norm.weight": "per_layer_post_norm",
+    "layer_output_scale.weight": "out_scale",
+}
+ALTUP_TENSORS = {
+    "altup_correct_coef.weight": "altup_correct_coef",
+    "altup_correct_scale.weight": "altup_correct_scale",
+    "altup_predict_coef.weight": "altup_predict_coef",
+    "altup_router.weight": "altup_router",
+    "altup_router_norm.weight": "altup_router_norm",
+    "laurel_l.weight": "laurel_l",
+    "laurel_r.weight": "laurel_r",
+    "laurel_post_norm.weight": "laurel_post_norm",
+}
+# gemma3n's shared-KV layers ship K/V projections its graph never runs
+# (loader.py:334-348): they are dropped, so those layers form their own group
+SHARED_KV_DEAD = frozenset({"wk", "wv", "k_norm", "bk", "bv"})
 OUT_NORM_TENSORS = {"grok": {"attn_output_norm.weight": "post_attn_norm"},
                     "dbrx": {"attn_output_norm.weight": "ffn_norm"}}
 # the only names the loader passes over unread, each for its arch alone:
@@ -164,7 +194,11 @@ _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_nor
                      "moe_down_exps_b", "attn_sinks",
                      "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
                      "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b",
-                     "q_a_norm", "kv_a_norm", "ffn_norm_exps"}
+                     "q_a_norm", "kv_a_norm", "ffn_norm_exps",
+                     # the per-layer input block's norm and the output scale;
+                     # AltUp's router, coefficients and scale and LAuReL's
+                     # low-rank pair and norm (loader.py:355-358)
+                     "per_layer_post_norm", "out_scale", *ALTUP_TENSORS.values()}
 
 GLOBAL_TENSORS = {
     "token_embd.weight": "tok_embd",
@@ -175,9 +209,17 @@ GLOBAL_TENSORS = {
     "position_embd.weight": "pos_embd",  # gpt2, starcoder: learned positions
     "token_embd_norm.weight": "tok_norm",  # bloom: a layernorm on the embedding
     "token_embd_norm.bias": "tok_norm_b",
+    # gemma4's and gemma3n's per-layer token stream: the (vocab, n_layer x P)
+    # table, the projection of the embedded input and its norm; gemma3n's
+    # AltUp stream expansion and merge (loader.py:207-212)
+    "per_layer_token_embd.weight": "per_layer_tok_embd",
+    "per_layer_model_proj.weight": "per_layer_model_proj",
+    "per_layer_proj_norm.weight": "per_layer_proj_norm",
+    "altup_proj.weight": "altup_proj",
+    "altup_unembd_proj.weight": "altup_unembd_proj",
 }
 _FLOAT_GLOBALS = {"output_norm", "output_norm_b", "rope_freqs", "pos_embd", "tok_norm",
-                  "tok_norm_b"}
+                  "tok_norm_b", "per_layer_proj_norm", "altup_proj", "altup_unembd_proj"}
 
 
 def _to_float_array(g: GGUFFile, name: str) -> np.ndarray:
@@ -251,7 +293,9 @@ def load_model(path: str, device="cuda"):
     layer_tensors = {**LAYER_TENSORS, **(MLA_TENSORS if cfg.kv_lora_rank else {}),
                      **(CHEXP_TENSORS if cfg.n_group_experts > 0 else {}),
                      **(ARCTIC_TENSORS if cfg.moe_dense_parallel == "arctic" else {}),
-                     **OUT_NORM_TENSORS.get(cfg.arch, {})}
+                     **OUT_NORM_TENSORS.get(cfg.arch, {}),
+                     **(PLE_TENSORS if cfg.n_embd_per_layer or cfg.gemma4_attn else {}),
+                     **(ALTUP_TENSORS if cfg.altup_n else {})}
     known = set(GLOBAL_TENSORS) | {f"blk.{i}.{s}" for i in range(cfg.n_layer)
                                    for s in layer_tensors}
     known |= {f"blk.{i}.{s}" for i in range(cfg.n_layer)
@@ -277,10 +321,12 @@ def load_model(path: str, device="cuda"):
         cfg.tie_embeddings = True
 
     per_key: dict[str, dict[int, Any]] = {}
+    nks = cfg.n_layer_kv_from_start
+    dead = SHARED_KV_DEAD if cfg.altup_n and 0 <= nks < cfg.n_layer else frozenset()
     for i in range(cfg.n_layer):
         for suffix, key in layer_tensors.items():
             tname = f"blk.{i}.{suffix}"
-            if tname not in g.tensors:
+            if tname not in g.tensors or (i >= nks and key in dead):
                 continue
             if key in _FLOAT_LAYER_KEYS or (key in ("wk_b", "wv_b")
                                             and g.tensors[tname].ggml_type in _FLOAT_TYPES):

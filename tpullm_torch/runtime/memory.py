@@ -154,7 +154,13 @@ def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
     unrotated (requantized as they were on the int8 cache) while the roped
     layers' rotate, as llama.cpp shifts only the layers it ropes. The JAX
     shift rotates every layer's K (memory.py:301-311), the NoPE layers' as
-    well: the same departure (ROADMAP §3)."""
+    well: the same departure (ROADMAP §3).
+
+    A shared-KV cache (gemma4, gemma3n) holds banks for its first
+    n_layer_kv_from_start layers alone; bank i is layer i's, and the shared
+    layers read two of them, so each bank shifts as its owning layer's. As
+    in the JAX shift, every bank rotates at rope_base, the SWA layers'
+    (rope_base_swa) too (ROADMAP §3)."""
     S = cache.max_len
     dev = cache.k.device
     idx = torch.arange(S, device=dev)
@@ -186,8 +192,9 @@ def _context_shift(cache: KVCache, cfg: ModelConfig, slot: int, n_keep: int,
     half = cos.shape[-1]
     k_shifted = apply_rope(k_rolled.to(torch.bfloat16), cos.expand(L, S, half),
                            sin.expand(L, S, half), cfg.rope_type, cfg.rope_dim)
-    # the rows each layer rotates: the moved ones, on the roped layers
-    roped = torch.tensor([not f for f in nope_flags(cfg)], device=dev)
+    # the rows each bank rotates: the moved ones, on the roped layers' banks
+    # (a shared-KV cache has banks for its first kv_owners layers alone)
+    roped = torch.tensor([not f for f in nope_flags(cfg)][:L], device=dev)
     mv = moved[None, :, None, None] & roped[:, None, None, None]
 
     def put(buf, val):  # seq-major (L, S, Hkv[, D]) -> the slot's head-major rows

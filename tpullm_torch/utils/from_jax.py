@@ -37,7 +37,12 @@ def params_from_numpy(cfg_dict: dict, params: dict, device="cuda"):
     """-> (ModelConfig, params on ``device``) for the port's forward. Layer
     tensors come across by name, the post-norms (gemma2/3's post_attn_norm,
     post_ffn_norm) and MLA's (wq_a, q_a_norm, wq_b, wkv_a, kv_a_norm, and
-    wk_b and wv_b as the f32 arrays of the JAX _mla_prepare) among them. A config with tied embeddings (gemma) gets
+    wk_b and wv_b as the f32 arrays of the JAX _mla_prepare) among them, and
+    so do the per-layer-embedding Gemmas' tensors: the token stream's tables
+    (per_layer_tok_embd, per_layer_model_proj and the f32
+    per_layer_proj_norm), AltUp's f32 stream projections and each layer's
+    per-layer input block, output scale and f32 AltUp and LAuReL arrays. A
+    config with tied embeddings (gemma) gets
     its lm_head as the embedding's own QTensor, as the port's loader binds
     it, not as a second copy of the same weight."""
     device = resolve_device(device)

@@ -22,6 +22,10 @@
   the router's bias, Q8_0 attention with q/k/v and output biases and
   per-head sinks, K-major or planar as the loader would lay each weight
   out), drawn on the device;
+- ``synth_gemma3n``: a gemma3n model (AltUp and LAuReL in f32, the per-layer
+  token table and its projections, owning and shared-KV layer groups, Q4_K
+  K-major or planar as the loader would lay each weight out), drawn on the
+  device with a torch.Generator;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks;
 - ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's or Qwen2's
@@ -559,6 +563,97 @@ def synth_gptoss(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int, n_h
     apply_arch_defaults(cfg)
     return cfg, {"tok_embd": embd, "output": out, "output_norm": near1(n_embd),
                  "layers": fuse_layer_weights(layers, cfg)}
+
+
+def synth_gemma3n(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int, n_head_kv: int,
+                  head_dim: int, n_ff: int, generator: torch.Generator, device="cuda",
+                  n_embd_per_layer: int = 256, table_rows: int | None = None,
+                  n_layer_kv_from_start: int | None = None, sliding_window: int = 512,
+                  rope_base: float = 1e6, rope_base_swa: float = 1e4, rms_eps: float = 1e-6,
+                  laurel_rank: int = 64):
+    """-> (ModelConfig, params) of a gemma3n model (the registry row: AltUp
+    over 4 streams, activation sparsity on the first 10 layers, the final
+    softcap of 30, the SWA period 5), every tensor drawn on ``device`` with
+    ``generator``. The layer matrices are Q4_K: the fused wqkv of the owning
+    layers (the first ``n_layer_kv_from_start``, min(20, n_layer) as
+    config_from_gguf fixes it, by default), wq alone on the shared-KV layers,
+    wo, the fused gate/up, down and the per-layer input gate K-major; the
+    per-layer projection back (K = n_embd_per_layer, 256: Q4_K has no K-major
+    tile there) planar. The embedding (tied lm_head) is Q4_K K-major with its
+    logical vocab_size rows; the per-layer token table (``table_rows``,
+    vocab_size by default, x n_layer * n_embd_per_layer) Q4_K, planar where
+    no K-major tile fits (K 8960 at 35 layers); its projection of the input
+    Q4_K K-major. The norms are 1 + N(0, 0.1), the per-head q and k norms
+    that times head_dim^-1/4: the row's attention scale is 1, so those
+    weights set the softmax's temperature (at 1 a score's spread is
+    sqrt(head_dim), attention picks one key, and bf16's rounding flips the
+    pick: the CPU's bf16 and f32 logits of a 10-layer model at n_embd 1024
+    part at NMSE 0.2, against 9e-4 so drawn). AltUp's stream projections
+    (A - 1, D, D) and LAuReL's pair N(0, 1/sqrt(K)); the router N(0, 1), the
+    coefficients N(0, 0.05), the correction scale 1 + N(0, 0.1), all f32.
+    The owning and the shared layers are two layer groups, as the loader
+    groups a converted file."""
+    device = resolve_device(device)
+    P, A, q4k = n_embd_per_layer, 4, GGMLType.Q4_K
+    nks = min(20, n_layer) if n_layer_kv_from_start is None else n_layer_kv_from_start
+    rows = table_rows or vocab_size
+    cfg = ModelConfig(arch="gemma3n", vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
+                      n_head=n_head, n_head_kv=n_head_kv, head_dim=head_dim,
+                      head_dim_v=head_dim, n_ff=n_ff, rope_dim=head_dim, rope_base=rope_base,
+                      rms_eps=rms_eps, tie_embeddings=True, sliding_window=sliding_window,
+                      rope_base_swa=rope_base_swa, n_embd_per_layer=P,
+                      n_layer_kv_from_start=nks)
+    apply_arch_defaults(cfg)
+    g = generator
+    normal = lambda shape, std: torch.randn(shape, generator=g, device=device) * std
+    nq, nkv = n_head * head_dim, n_head_kv * head_dim
+
+    def kq(parts, K, lead):
+        qt = random_kmajor(q4k, parts, K, lead, g, device)
+        return QTensor(q4k, qt.shape, qt.data)
+
+    def group(L, owners):
+        lead = (L,)
+        lay = {"attn_norm": 1.0 + normal(lead + (n_embd,), 0.1),
+               "ffn_norm": 1.0 + normal(lead + (n_embd,), 0.1),
+               "post_attn_norm": 1.0 + normal(lead + (n_embd,), 0.1),
+               "post_ffn_norm": 1.0 + normal(lead + (n_embd,), 0.1),
+               "q_norm": (1.0 + normal(lead + (head_dim,), 0.1)) * head_dim ** -0.25}
+        if owners:
+            lay["k_norm"] = (1.0 + normal(lead + (head_dim,), 0.1)) * head_dim ** -0.25
+            lay["wqkv"] = kq([nq, nkv, nkv], n_embd, lead)
+        else:
+            lay["wq"] = QTensor(q4k, lead + (nq, n_embd),
+                                random_kmajor(q4k, [nq], n_embd, lead, g, device).data)
+        lay["wo"] = kq([n_embd], nq, lead)
+        lay["ffn_gateup"] = kq([n_ff, n_ff], n_embd, lead)
+        lay["ffn_down"] = kq([n_embd], n_ff, lead)
+        lay["per_layer_inp_gate"] = _mla_weight(P, n_embd, lead, g, device, q4k)
+        lay["per_layer_proj"] = _mla_weight(n_embd, P, lead, g, device, q4k)
+        lay["per_layer_post_norm"] = 1.0 + normal(lead + (n_embd,), 0.1)
+        lay["altup_router"] = normal(lead + (A, n_embd), 1.0)
+        lay["altup_router_norm"] = 1.0 + normal(lead + (n_embd,), 0.1)
+        lay["altup_predict_coef"] = normal(lead + (A * A, A), 0.05)
+        lay["altup_correct_coef"] = normal(lead + (A, A), 0.05)
+        lay["altup_correct_scale"] = 1.0 + normal(lead + (n_embd,), 0.1)
+        lay["laurel_l"] = normal(lead + (laurel_rank, n_embd), n_embd ** -0.5)
+        lay["laurel_r"] = normal(lead + (n_embd, laurel_rank), laurel_rank ** -0.5)
+        lay["laurel_post_norm"] = 1.0 + normal(lead + (n_embd,), 0.1)
+        return lay
+
+    embd = QTensor(q4k, (vocab_size, n_embd), random_kmajor(q4k, [vocab_size], n_embd, (), g,
+                                                           device).data)
+    groups = [group(nks, True)] + ([group(n_layer - nks, False)] if nks < n_layer else [])
+    params = {
+        "tok_embd": embd, "output": embd, "output_norm": 1.0 + normal((n_embd,), 0.1),
+        "per_layer_tok_embd": _mla_weight(rows, n_layer * P, (), g, device, q4k),
+        "per_layer_model_proj": _mla_weight(n_layer * P, n_embd, (), g, device, q4k),
+        "per_layer_proj_norm": 1.0 + normal((P,), 0.1),
+        "altup_proj": normal((A - 1, n_embd, n_embd), n_embd ** -0.5),
+        "altup_unembd_proj": normal((A - 1, n_embd, n_embd), n_embd ** -0.5),
+        "layers": groups[0] if len(groups) == 1 else {"__groups__": groups},
+    }
+    return cfg, params
 
 
 def synth_mixtral_q4k(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int,

@@ -313,6 +313,29 @@ pass):
    of 4096, int8 KV, E on, prompts 2000/700/300/40 past the window) with a
    Qwen2-layout tokenizer of 262400 rows, 4 token-id completions and 2
    chats.
+22. the dense singles' full-width model, Gemma-3n-E4B freed first:
+   Apertus-8B (arch apertus: 4096 wide, 32 layers, 32/8 heads of 128, an
+   ungated xIELU FFN of 21504 on every layer with the JAX synth's per-layer
+   parameters, per-head q/k RMS norms, rope base 1.2e7, vocab 131072; its
+   config checked against config_from_gguf of the keys and xielu.* arrays a
+   converted file holds) with 2 layers against the CPU as phase 3; kernel
+   rows: A and B on up (21504 x 4096) and down (4096 x 21504) beside cuBLAS,
+   and xIELU's ms at M = 4 and 2048 against its byte bound; the 32-layer
+   slice with E on (4x512 prefill, 32 greedy steps, graph then eager: the
+   same tokens and launch counts; A, B, C, E and the store launched, D not:
+   xIELU's ungated FFN closes it), its decode profile (A four times a layer
+   and the lm_head, E and the store once a layer; the step's device ms by
+   kernel, xIELU's share from its row) and a prefill profile; its q8 server
+   (4 slots of 4096, E on, 4 token-id requests of 2000/700/300/40 tokens, 32
+   new each, every one 200);
+   22b. the other three at published width, 2 layers each, against the CPU
+   as phase 3 with their route through D: Chameleon-7B (per-head layernorm
+   q/k norms; down planar Q4_K at K 11008, so D is off), BitNet b1.58 2B-4T
+   (every projection planar TQ2_0 with the sub-norms and scales: D off; the
+   planar TQ2_0 products at gate and down timed beside cuBLAS and their
+   bound) and CogVLM2-Llama3-19B's text side, loaded from a GGUF file
+   written here with its vision expert's five tensors a layer: the device
+   bytes the load adds are the params' and not the vis_* tensors' (D on).
 The model slices of phases 7-8, 10, 13-18 and 20 run cut in depth for the
 script's time limit (SLICE_LAYERS: DeepSeek-V2-Lite 5 of 27 layers and
 gpt-oss-20b 4 of 24; Mixtral-8x7B 8 of 32, Qwen3-30B-A3B 12 of 48 and
@@ -334,7 +357,9 @@ embedding norm, the Qwen MoE models, ERNIE and GroveMoE-Inst (with its
 chunk bank) synth_moe_q4k's, and
 DeepSeek-V2-Lite synth_mla_q4k's, drawn on the card, Phi-4 with
 gguf_layout, gpt-oss-20b synth_gptoss's and Llama-4-Scout synth_moe_q4k's
-with its generator, Gemma-3n-E4B synth_gemma3n's, all drawn on the card). The last
+with its generator, Gemma-3n-E4B synth_gemma3n's, Apertus-8B synth_kmajor_q4k_fast's,
+Chameleon-7B and BitNet synth_dense_single's, all drawn on the card;
+CogVLM2's file's blocks drawn on the card too). The last
 lines are the kernel table as JSON (each row's launches on the run of its
 path: the 8B engine slice, the 8B server slice for kernel E, the Mixtral
 slice, the Qwen3-8B slice, the Qwen2.5-7B-width run, the Qwen3-30B-A3B
@@ -344,7 +369,7 @@ slice and server, the BLOOM-7b1-width run, the ERNIE-4.5-21B-A3B slice and
 server, the DeepSeek-V2-Lite slice and server, the Phi-4 slice and
 server, the gpt-oss-20b slice and servers, the Llama-4-Scout slice and
 server, the GroveMoE-Inst slice and server, the Gemma-3n-E4B slice and
-server), the card's name
+server, the Apertus-8B slice and server), the card's name
 and power limit, and the result line.
 """
 import dataclasses
@@ -5867,6 +5892,435 @@ def phase_gemma3n(torch, entries):
     return counts
 
 
+# Apertus-8B (swiss-ai/Apertus-8B-2509 config.json, recalled, not read from
+# the published file: PERF.md §6): hidden 4096, 32 layers, 32/8 heads of 128,
+# an ungated xIELU MLP of intermediate 21504, vocab 131072, rope_theta 1.2e7,
+# rms_norm_eps 1e-5, per-head q/k RMS norms, an untied lm_head; Q4_K (K 21504
+# takes a 1536 tile with a 32-group f32 d), the per-layer xielu.* arrays as
+# the JAX synth writes them (utils/synth.py:jax_synth_xielu); no rope_freqs
+# tensor, which no JAX graph reads
+APERTUS = dict(arch="apertus", vocab_size=131072, n_embd=4096, n_layer=32, n_head=32,
+               n_head_kv=8, n_ff=21504, rope_base=1.2e7, rms_eps=1e-5, exact_vocab=True,
+               cfg_fields=dict(n_ctx_train=65536))
+APERTUS_KEYS = {"context_length": 65536, "embedding_length": 4096, "block_count": 32,
+                "feed_forward_length": 21504, "attention.head_count": 32,
+                "attention.head_count_kv": 8, "attention.key_length": 128,
+                "attention.value_length": 128, "rope.freq_base": 1.2e7,
+                "rope.dimension_count": 128, "attention.layer_norm_rms_epsilon": 1e-5,
+                "vocab_size": 131072}
+APERTUS_CTX = 4096  # each server slot
+APERTUS_SERVER_PROMPTS = [2000, 700, 300, 40]  # 4 requests on 4 slots
+APERTUS_NEW = 33  # tokens a slice request: the prefill's, then 32 greedy steps
+APERTUS_SERVER_NEW = 32
+APERTUS_KERNELS = ("qmm_splitk", "qmm", "flash_attention", "flash_decode", "kv_store")
+# phase 22b: the other dense singles at published width, 2 layers each, from
+# memory (PERF.md §6). Chameleon-7B (facebook/chameleon-7b): 4096, 32/32 heads,
+# n_ff 11008 (Q4_K: no K-major tile there, so its down loads planar), vocab
+# 65536, rope_theta 1e4, per-head layernorm q/k norms; BitNet b1.58 2B-4T
+# (microsoft/bitnet-b1.58-2B-4T): 2560, 20/5 heads, n_ff 6912, vocab 128256,
+# rope_theta 5e5, tied, every projection TQ2_0 (planar: no K-major tile at K
+# 2560 or 6912), the embedding Q4_K (llama.cpp's quantizer keeps the
+# embedding of a TQ2_0 file at Q4_K), sub-norms and scales; CogVLM2-Llama3-19B's
+# text side (THUDM/cogvlm2-llama3-chat-19B): Llama-3-8B's widths, 4096, 32/8
+# heads, n_ff 14336, vocab 128256, rope_theta 5e5, the fused attn_qkv, and
+# the vision expert's five tensors a layer in the file
+CHAMELEON = dict(arch="chameleon", vocab_size=65536, n_embd=4096, n_head=32, n_head_kv=32,
+                 n_ff=11008, rope_base=1e4, rms_eps=1e-5)
+BITNET = dict(arch="bitnet", vocab_size=128256, n_embd=2560, n_head=20, n_head_kv=5, n_ff=6912,
+              rope_base=5e5, rms_eps=1e-5, tied=True, qtype="TQ2_0")
+COGVLM = dict(vocab_size=128256, n_embd=4096, n_head=32, n_head_kv=8, n_ff=14336,
+              rope_base=5e5, rms_eps=1e-5)
+SINGLES_LAYERS = 2
+SINGLES_KERNELS = ("qmm_splitk", "flash_attention", "flash_decode", "kv_store")
+
+
+def xielu_rows(torch, timer, cfg, g):
+    """apertus's xIELU (models/llama.py:xielu: plain ops, no kernel) at the
+    decode step's M = 4 and the 4 x 512 prefill's M = 2048 over n_ff 21504,
+    timed beside its byte bound (bf16 up read, bf16 hidden written). ->
+    {M: ms}."""
+    from tpullm_torch.models.llama import xielu
+
+    out = {}
+    for M in (4, 2048):
+        u = torch.randn((1, M, cfg.n_ff), generator=g, device="cuda").to(torch.bfloat16)
+        ms = timer(lambda: xielu(u, 0, cfg, torch.bfloat16), 10)
+        bound, by = bound_of(4.0 * M * cfg.n_ff, 0.0, 9.0 * M * cfg.n_ff)
+        out[M] = ms
+        log(f"plain op [xIELU,M={M},n_ff={cfg.n_ff},Apertus-8B]: ms {ms:.4f} bound_ms "
+            f"{bound:.4f} ({by}) share_of_bound {bound / ms:.4f}")
+    return out
+
+
+def phase_apertus_kernels(torch, entries, cfg):
+    """Phase 22's rows: A (M = 4) and B (M = 2048) on random Q4_K weights at
+    Apertus-8B's up (21504 x 4096) and down (4096 x 21504: a 1536 K tile, the
+    32-group f32 d), each held against its plain version beside cuBLAS on the
+    pre-dequantized weight and its bound; then xIELU's ms (xielu_rows). ->
+    xIELU's {M: ms}."""
+    from tpullm_torch.ops import _cuda
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2828)
+    d, n_ff = cfg.n_embd, cfg.n_ff
+    weight_rows(torch, timer, entries, g, [("up", [n_ff], d), ("down", [d], n_ff)], "Apertus-8B")
+    xi = xielu_rows(torch, timer, cfg, g)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cuda.reset_counts()
+    return xi
+
+
+def synth_apertus(torch, n_layer, seed):
+    """Apertus-8B cut to ``n_layer`` layers, drawn on the card
+    (synth_kmajor_q4k_fast with a torch.Generator), its config checked field
+    for field against config_from_gguf of the keys a converted file holds
+    (APERTUS_KEYS and the JAX synth's xielu.* arrays) at that depth. ->
+    (cfg, params)."""
+    import numpy as np
+
+    from tpullm_torch.models.config import config_from_gguf
+    from tpullm_torch.utils.synth import synth_kmajor_q4k_fast
+
+    cfg, params = synth_kmajor_q4k_fast(**dict(APERTUS, n_layer=n_layer), seed=seed,
+                                        centred=True, device="cuda",
+                                        generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    meta = GGUFMeta("apertus", dict(APERTUS_KEYS, block_count=n_layer))
+    li = np.arange(n_layer)
+    meta.metadata.update({"xielu.alpha_n": (0.8 + 0.02 * li).astype(np.float32),
+                          "xielu.alpha_p": (0.8 - 0.01 * li).astype(np.float32),
+                          "xielu.beta": np.full(n_layer, 0.5, np.float32),
+                          "xielu.eps": np.full(n_layer, -1e-6, np.float32)})
+    parsed = config_from_gguf(meta)
+    fields = lambda c: {k: v for k, v in dataclasses.asdict(c).items() if k != "raw_kv"}
+    if fields(parsed) != fields(cfg):
+        diff = {k: (v, fields(cfg)[k]) for k, v in fields(parsed).items() if fields(cfg)[k] != v}
+        raise AssertionError(f"Apertus-8B: the synth's config differs from its keys' {diff}")
+    return cfg, params
+
+
+def phase_apertus(torch, entries):
+    """Phase 22, the dense singles' full-width model (Apertus-8B: xIELU on
+    the ungated FFN of every layer, per-head q/k RMS norms), the Gemma-3n
+    weights freed first: (a) 2 layers against the CPU (phase 3's rule, E on
+    in the decode step: A, B, C, E and the store launched, D not: xIELU's
+    ungated FFN closes it); then the 32-layer model drawn on the card: (b)
+    its kernel rows (phase_apertus_kernels); (c) the slice with E on (4
+    requests of 512/300/200/100 tokens, 32 greedy steps, graph replays,
+    then eagerly: the same tokens and launch counts); (d) its decode-step
+    profile as graph replays (A four times a layer and the lm_head, E and
+    the store once a layer; D never), the step's device ms split by kernel
+    with xIELU's share from its row, and a prefill profile; (e) its q8
+    server (4 slots of APERTUS_CTX, E on, 4 token-id requests of
+    APERTUS_SERVER_PROMPTS, APERTUS_SERVER_NEW new tokens each). -> launch
+    counts by path."""
+    counts = {}
+    label = "Apertus-8B"
+    t = time.perf_counter()
+    c = phase_parity(torch, f"{label} (depth cut from {APERTUS['n_layer']})", seed=28,
+                     flash_decode="1", last_only=True, **dict(APERTUS, n_layer=2))
+    counts[f"{label} 2-layer"] = c
+    missing = [k for k in APERTUS_KERNELS if c[k] <= 0]
+    if missing or c["layer_kernel"] or c["moe_gmm"]:
+        raise AssertionError(f"{label} parity: kernels not launched {missing}, layer kernel "
+                             f"{c['layer_kernel']}, moe_gmm {c['moe_gmm']}")
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cfg, params = synth_apertus(torch, APERTUS["n_layer"], 0)
+    lay = params["layers"]
+    n_w = sum(math.prod(v.shape) for v in lay.values() if hasattr(v, "qtype")) + (
+        2 * cfg.vocab_size * cfg.n_embd)
+    gb = model_gb(params)
+    kinds = {k: (v.qtype.name, v.layout, tuple(v.shape)) if hasattr(v, "qtype")
+             else tuple(v.shape) for k, v in lay.items()}
+    log(f"slice {label}: synthesized Q4_K kmajor weights {gb:.3f} GB ({n_w / 1e9:.3f} B "
+        f"weights, {gb * 1e9 / n_w:.3f} bytes a weight) in {time.perf_counter() - t:.3f} s; "
+        f"config {cfg.arch} heads {cfg.n_head}/{cfg.n_head_kv} of {cfg.head_dim} n_ff "
+        f"{cfg.n_ff} ({'gated' if cfg.ffn_gate else 'ungated'} {cfg.act_fn}) rope "
+        f"{cfg.rope_type} {cfg.rope_base:g} vocab {cfg.vocab_size}; xIELU (alpha_n, alpha_p, "
+        f"beta, eps) of layers 0 and 31 {cfg.xielu[0]} {cfg.xielu[-1]}; layer tensors {kinds}")
+    t = time.perf_counter()
+    xi = phase_apertus_kernels(torch, entries, cfg)
+    log(f"phase kernels {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    set_flash_decode("1")
+    try:
+        counts[label], eng, eager, prompts = phase_slice(
+            torch, label, cfg, params, cfg.vocab_size, APERTUS_KERNELS,
+            ("layer_kernel", "moe_gmm"), new=APERTUS_NEW)
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = phase_decode(torch, eng, prompts, f" {label} graph")
+    finally:
+        set_flash_decode(None)
+    step = out["graph_capture_counts_per_step"] or {}
+    L = cfg.n_layer
+    want = {"qmm_splitk": 4 * L + 1, "kv_store": L, "flash_decode": L}
+    if {k: step.get(k) for k in want} != want or step.get("layer_kernel"):
+        raise AssertionError(f"{label} decode step: launches {step}, want {want} (A on wqkv, "
+                             "wo, up and down a layer and the lm_head; the store and E once a "
+                             "layer; no D)")
+    split = out["device_ms_by_kernel_per_step"]
+    dev = out["device_busy_ms_per_step"]
+    log(f"decode step {label}: device {dev:.3f} ms a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f"; xIELU {L} x {xi[4]:.4f} = {L * xi[4]:.3f} ms ({L * xi[4] / dev:.1%} of the "
+        f"step, from its row); at the 4 x 512 prefill {L} x {xi[2048]:.4f} ms")
+    phase_prefill_profile(torch, eng, prompts, ("qmm", "flash_attention", "kv_store"),
+                          f" {label}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase slice {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts[f"{label} server"] = phase_q8_server(torch, cfg, params, label,
+                                                APERTUS_SERVER_PROMPTS, n_ctx=APERTUS_CTX,
+                                                kernels=APERTUS_KERNELS,
+                                                must_not=("layer_kernel", "moe_gmm"),
+                                                new=APERTUS_SERVER_NEW)
+    log(f"phase server {label}: {time.perf_counter() - t:.1f} s")
+    del cfg, params, lay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def q4k_blocks(torch, n, K, g):
+    """Raw Q4_K blocks of an (n, K) weight as a GGUF file holds them (f16 d
+    and dmin, 12 bytes of packed 6-bit sub-scales and sub-mins, 128 bytes of
+    nibbles), drawn on the card with ``g`` and centred as random_kmajor
+    draws: sub-scales in [1, 8), sub-mins round(7.5 x sub-scale), dmin = d
+    near 1e-3. -> uint8 numpy (n * K // 256 * 144,)."""
+    nb = K // 256
+    ints = lambda lo, hi, *s: torch.randint(lo, hi, (n, nb) + s, generator=g, device="cuda",
+                                            dtype=torch.int16).to(torch.uint8)
+    sc = ints(1, 8, 8)
+    mn = torch.round(sc.float() * 7.5).to(torch.uint8)
+    # get_scale_min_k4's packing: bytes 0-3 the sub-scales 0-3, 4-7 the
+    # sub-mins 0-3 with the top bits of sub-mins 4-7, 8-11 the low nibbles of
+    # sub-scales 4-7 and of sub-mins 4-7 (sub-scales below 16 need no top bits)
+    packed = torch.cat([sc[..., :4], mn[..., :4] | ((mn[..., 4:] >> 4) << 6),
+                        (sc[..., 4:] & 15) | ((mn[..., 4:] & 15) << 4)], dim=-1)
+    d = ((torch.rand((n, nb), generator=g, device="cuda") + 0.5) * 1e-3).to(torch.float16)
+    dd = d.view(torch.uint8).reshape(n, nb, 2)
+    blocks = torch.cat([dd, dd, packed, ints(0, 256, 128)], dim=-1)
+    return blocks.reshape(-1).cpu().numpy()
+
+
+def write_gguf(path, arch: str, keys: dict, tensors) -> int:
+    """A little-endian GGUF v3 file at ``path``: general.architecture, then
+    ``keys`` (ints as uint32, floats as float32), then each (name, numpy
+    shape (rows, row length), GGMLType, uint8 payload) of ``tensors`` at a
+    32-byte aligned offset. -> the bytes written."""
+    import struct
+
+    def s(t):
+        b = t.encode()
+        return struct.pack("<Q", len(b)) + b
+
+    head = [b"GGUF", struct.pack("<IQQ", 3, len(tensors), len(keys) + 1),
+            s("general.architecture"), struct.pack("<I", 8), s(arch)]
+    for k, v in keys.items():
+        head += [s(k), struct.pack("<If", 6, v) if isinstance(v, float)
+                 else struct.pack("<II", 4, v)]
+    off, offsets = 0, []
+    for name, shape, qtype, payload in tensors:
+        head += [s(name), struct.pack("<I", len(shape)),
+                 *(struct.pack("<Q", x) for x in reversed(shape)),
+                 struct.pack("<IQ", int(qtype), off)]
+        offsets.append(off)
+        off += -(-payload.nbytes // 32) * 32
+    head = b"".join(head)
+    with open(path, "wb") as f:
+        f.write(head + b"\0" * (-len(head) % 32))
+        for (_, _, _, payload), o in zip(tensors, offsets):
+            f.write(payload.tobytes())
+            f.write(b"\0" * (-payload.nbytes % 32))
+    return os.path.getsize(path)
+
+
+def cogvlm_file(torch, path, n_layer, seed):
+    """A CogVLM2-Llama3-19B-width GGUF (COGVLM, ``n_layer`` layers) with its
+    text side (token_embd, output and the fused attn_qkv, attn_output,
+    ffn_gate, ffn_up, ffn_down Q4_K; the norms F32 1 + N(0, 0.1)) and the
+    vision expert's five Q4_K tensors a layer (vis_attn_qkv 3 x 4096 rows,
+    vis_attn_output, vis_gate, vis_up, vis_down, the JAX synth's shapes),
+    written to ``path``. -> (file bytes, the vis_* tensors' bytes)."""
+    from tpullm_torch.gguf.constants import GGMLType
+
+    c = COGVLM
+    d, hd, ff, V = c["n_embd"], c["n_embd"] // c["n_head"], c["n_ff"], c["vocab_size"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q4k = lambda n, K: (GGMLType.Q4_K, (n, K), q4k_blocks(torch, n, K, g))
+    norm = lambda n: (GGMLType.F32, (n,), (1.0 + torch.randn(n, generator=g, device="cuda")
+                                           * 0.1).cpu().numpy().view("uint8"))
+    tensors = []
+
+    def add(name, spec):
+        qtype, shape, payload = spec
+        tensors.append((name, shape, qtype, payload))
+
+    add("token_embd.weight", q4k(V, d))
+    add("output.weight", q4k(V, d))
+    add("output_norm.weight", norm(d))
+    vis = 0
+    for i in range(n_layer):
+        p = f"blk.{i}."
+        add(p + "attn_norm.weight", norm(d))
+        add(p + "ffn_norm.weight", norm(d))
+        add(p + "attn_qkv.weight", q4k((c["n_head"] + 2 * c["n_head_kv"]) * hd, d))
+        add(p + "attn_output.weight", q4k(d, c["n_head"] * hd))
+        add(p + "ffn_gate.weight", q4k(ff, d))
+        add(p + "ffn_up.weight", q4k(ff, d))
+        add(p + "ffn_down.weight", q4k(d, ff))
+        for name, n, K in (("vis_attn_qkv", 3 * c["n_head"] * hd, d),
+                           ("vis_attn_output", d, c["n_head"] * hd), ("vis_gate", ff, d),
+                           ("vis_up", ff, d), ("vis_down", d, ff)):
+            spec = q4k(n, K)
+            vis += spec[2].nbytes
+            add(p + name + ".weight", spec)
+    keys = {"cogvlm.context_length": 8192, "cogvlm.embedding_length": d,
+            "cogvlm.block_count": n_layer, "cogvlm.feed_forward_length": ff,
+            "cogvlm.attention.head_count": c["n_head"],
+            "cogvlm.attention.head_count_kv": c["n_head_kv"],
+            "cogvlm.rope.freq_base": float(c["rope_base"]),
+            "cogvlm.rope.dimension_count": hd,
+            "cogvlm.attention.layer_norm_rms_epsilon": float(c["rms_eps"]),
+            "cogvlm.vocab_size": V}
+    return write_gguf(path, "cogvlm", keys, tensors), vis
+
+
+def planar_tq2_rows(torch, timer, cfg, params, g):
+    """The planar TQ2_0 products of BitNet b1.58 2B-4T (no kernel: each
+    weight dequantized whole, then torch.matmul) on the model's last layer,
+    gate (6912 x 2560) and down (2560 x 6912), at the decode step's M = 4
+    and a 4 x 512 prefill's M = 2048, each timed beside its bound (the
+    planar bytes once, the product's bf16 operations) and cuBLAS on the
+    pre-dequantized bf16 weight. -> {name: {M: ms}}."""
+    from tpullm_torch.ops.qmm import qmm
+
+    lay = params["layers"]
+    li = next(iter(lay.values())).shape[0] - 1
+    out = {}
+    for name in ("ffn_gate", "ffn_down"):
+        qt = lay[name]
+        N, K = qt.shape[-2:]
+        w = type(qt)(qt.qtype, (N, K), {k: v[li] for k, v in qt.data.items()}).dequant(
+            torch.bfloat16)
+        for M in (4, 2048):
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            ms = timer(lambda: qmm(x, qt, torch.bfloat16, li), 5, warmup=1)
+            lms = timer(lambda: torch.matmul(x, w.t()), 10)
+            bound, by = bound_of(weight_bytes(qt) / qt.shape[0] + 2.0 * M * (N + K),
+                                 2.0 * M * N * K)
+            out.setdefault(f"{name} {N}x{K}", {})[M] = ms
+            log(f"plain product [{name} {N}x{K},planar TQ2_0,M={M},BitNet b1.58 2B-4T]: ms "
+                f"{ms:.4f} library_ms {lms:.4f} bound_ms {bound:.4f} ({by}) share_of_bound "
+                f"{bound / ms:.4f}")
+            del x
+        del w
+    return out
+
+
+def phase_dense_singles(torch, entries):
+    """Phase 22b, the other dense singles at published width, 2 layers each,
+    against the CPU (phase 3's rule, E on in the decode step), each with its
+    route through D: (a) Chameleon-7B (synth_dense_single: the per-head
+    layernorm q/k norms; its down planar Q4_K at K 11008, so D is off); (b)
+    BitNet b1.58 2B-4T (every projection planar TQ2_0, so B has nothing to
+    run, the sub-norms and the scales, which keep D off in any case; a tied
+    Q4_K embedding), then its
+    planar TQ2_0 products timed (planar_tq2_rows); (c) CogVLM2-Llama3-19B's
+    text side from a GGUF file written here with its vision expert's tensors
+    (cogvlm_file), loaded through the port's loader onto the card: the
+    device bytes the load added against the params' bytes and the vis_*
+    tensors' bytes, which stay in the file, then the parity (D on, unfolded:
+    the fused attn_qkv is no wqkv). -> launch counts by path."""
+    from tpullm_torch.gguf.constants import GGMLType
+    from tpullm_torch.runtime.loader import load_model
+    from tpullm_torch.utils.synth import synth_dense_single
+
+    counts = {}
+    L = SINGLES_LAYERS
+    # the kernels each run launches, and those it may not: D stays off both
+    # (Chameleon's planar down, BitNet's sub-norms and scales); BitNet's
+    # projections are all planar, so B has nothing to run (its tied lm_head
+    # computes the last position alone, on A)
+    for label, spec, seed, must, must_not in (
+            ("Chameleon-7B", CHAMELEON, 29, SINGLES_KERNELS + ("qmm",), ("layer_kernel",)),
+            ("BitNet b1.58 2B-4T", BITNET, 30, SINGLES_KERNELS, ("layer_kernel", "qmm"))):
+        t = time.perf_counter()
+        spec = dict(spec, n_layer=L, generator=torch.Generator(device="cuda").manual_seed(seed))
+        spec["qtype"] = GGMLType[spec.get("qtype", "Q4_K")]
+        c = phase_parity(torch, f"{label} (2 layers)", seed=seed, flash_decode="1",
+                         last_only=True, synth=synth_dense_single, **spec)
+        counts[f"{label} 2-layer"] = c
+        log(f"route {label}: D {'on' if c['layer_kernel'] else 'off'} (launches "
+            f"{c['layer_kernel']}), E {c['flash_decode']}, C {c['flash_attention']}, A "
+            f"{c['qmm_splitk']}, B {c['qmm']}, the store {c['kv_store']}")
+        missing = [k for k in must if c[k] <= 0]
+        extra = [k for k in must_not + ("moe_gmm",) if c[k]]
+        if missing or extra:
+            raise AssertionError(f"{label}: kernels not launched {missing}, launched but off "
+                                 f"its path {extra}")
+        log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    spec = dict(BITNET, n_layer=L, qtype=GGMLType.TQ2_0)
+    cfg, params = synth_dense_single(**spec, generator=torch.Generator(device="cuda")
+                                     .manual_seed(31), device="cuda")
+    timer = Timer(torch)
+    planar_tq2_rows(torch, timer, cfg, params, torch.Generator(device="cuda").manual_seed(32))
+    del timer, cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase planar TQ2_0 rows: {time.perf_counter() - t:.1f} s")
+    label = "CogVLM2-Llama3-19B text"
+    t = time.perf_counter()
+    build = ROOT / "tpullm_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    path = build / "cogvlm_smoke.gguf"
+    try:
+        size, vis = cogvlm_file(torch, str(path), L, 33)
+        t_write = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cfg, params, g = load_model(str(path), device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        added = torch.cuda.memory_allocated() - before
+        g.close()
+    finally:
+        path.unlink(missing_ok=True)
+    held = params_bytes(params)
+    names = sorted({k for k in params["layers"]})
+    log(f"load {label}: a {size / 1e9:.3f} GB file ({vis / 1e9:.3f} GB of vis_* tensors, "
+        f"written in {t_write:.1f} s) loaded in {t_load:.1f} s; device bytes added by the load "
+        f"{added / 1e9:.4f} GB, the params' {held / 1e9:.4f} GB; layer tensors {names}")
+    if any("vis" in k for k in names) or not 0.99 * held <= added < held + vis / 2:
+        raise AssertionError(f"{label}: the load added {added} device bytes for {held} bytes "
+                             f"of params, {vis} bytes of vis_* tensors in the file: {names}")
+    counts[f"{label} 2-layer"] = c = phase_parity(
+        torch, f"{label} (2 layers, from its file)", seed=33, flash_decode="1", last_only=True,
+        synth=lambda **kw: (cfg, params), **dict(COGVLM, n_layer=L))
+    del cfg, params
+    log(f"route {label}: D {'on' if c['layer_kernel'] else 'off'} (launches "
+        f"{c['layer_kernel']}), E {c['flash_decode']}, C {c['flash_attention']}, A "
+        f"{c['qmm_splitk']}, B {c['qmm']}, the store {c['kv_store']}")
+    missing = [k for k in SINGLES_KERNELS + ("qmm", "layer_kernel") if c[k] <= 0]
+    if missing or c["moe_gmm"]:
+        raise AssertionError(f"{label}: kernels not launched {missing}, F {c['moe_gmm']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase parity {label}: {time.perf_counter() - t:.1f} s")
+    return counts
+
+
 def model_gb(params) -> float:
     """GB of a synthesized model's quantized weights (a tied lm_head once)."""
     groups = params["layers"].get("__groups__") or [params["layers"]]
@@ -6006,7 +6460,8 @@ def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS,
     CPU seconds of the main thread, of the whole process and of each of its
     threads, and the busy and steal shares of all CPUs. Then the same steps
     back to back between CUDA events (no host wait between steps) and under
-    torch.profiler: device ms, kernels and runtime launch calls per step,
+    torch.profiler: device ms (and by kernel, the ops between kernels as
+    "other"), kernels and runtime launch calls per step,
     device-busy share; peak memory over the window (allocated, plus the
     engine's graph pool, whose blocks replays use without allocating).
     ``profiled_steps``: the steps timed back to back and profiled
@@ -6070,6 +6525,10 @@ def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS,
     pool = graph_pool_gb(torch, eng)
     kernels = device_kernels(prof)
     busy = sum(ms for _, ms, _ in kernels) / profiled_steps
+    by_kernel = {}
+    for name, ms, _ in kernels:
+        k = KERNEL_OF.get(name.split("<")[0], "other")
+        by_kernel[k] = by_kernel.get(k, 0.0) + ms / profiled_steps
     launches = sum(c for _, _, c in kernels) / profiled_steps
     calls = launch_calls(prof, profiled_steps)
     w1, wm, w3 = quartiles(wall)
@@ -6090,6 +6549,7 @@ def phase_decode(torch, eng, prompts, label="", profiled_steps=PROFILED_STEPS,
         "peak_allocated_gb": peak, "graph_pool_gb": pool,
         "peak_gb_with_graph_pool": peak + pool if pool is not None else None,
         "top_device_ms_per_step": [(k[:60], ms / profiled_steps) for k, ms, _ in kernels[:6]],
+        "device_ms_by_kernel_per_step": by_kernel,
         "cpus": len(os.sched_getaffinity(0)), "torch_threads": torch.get_num_threads(),
     }
     if eng.cuda_graphs:
@@ -6321,12 +6781,14 @@ def main() -> int:
     scout_counts = phase_scout(torch, entries)
     grovemoe_counts = phase_grovemoe(torch, entries)
     gemma3n_counts = phase_gemma3n(torch, entries)
+    apertus_counts = phase_apertus(torch, entries)
+    singles_counts = phase_dense_singles(torch, entries)
 
     by_path = {"8B": counts, "Mixtral-8x7B": moe_counts, "8B server": server_counts,
                "8B server chat": chat_counts, **qwen_counts, **qwen_moe_counts, **gemma_counts,
                **command_r_counts, **starcoder_counts, **ernie_counts, **deepseek_counts,
                **phi4_counts, **gptoss_counts, **scout_counts, **grovemoe_counts,
-               **gemma3n_counts}
+               **gemma3n_counts, **apertus_counts, **singles_counts}
     for e in entries:  # each row's launches on the slice of its shapes
         k = e.pop("kernel")
         e["launches_by_path"] = {p: c[k] for p, c in by_path.items()}

@@ -76,17 +76,18 @@ def test_planar_experts_stacked():
 
 
 # block types that the JAX package would hold planar at these rows: no
-# K-major layout (Q8_K, IQ4_XS, TQ2_0) or rows too short for a K tile
-# (Q5_0 loads planar since it is ported: tests/test_torch_moe_families.py)
+# K-major layout (Q8_K, IQ4_XS) or rows too short for a K tile (Q5_0
+# loads planar since it is ported: tests/test_torch_moe_families.py; TQ2_0
+# too: tests/test_torch_dense_singles.py; IQ4_XS at K 6912 takes its case)
 PLANAR_ELSEWHERE = [(GGMLType.Q4_0, 64), (GGMLType.Q4_1, 64), (GGMLType.Q5_1, 128),
                     (GGMLType.Q5_1, 64), (GGMLType.IQ4_NL, 64), (GGMLType.IQ4_NL, 128),
                     (GGMLType.Q4_1, 128), (GGMLType.Q8_K, 256), (GGMLType.IQ4_XS, 256),
-                    (GGMLType.TQ2_0, 256)]
+                    (GGMLType.IQ4_XS, 6912)]
 
 
 @pytest.mark.parametrize("qtype,K", PLANAR_ELSEWHERE, ids=lambda v: getattr(v, "name", v))
 def test_other_planar_types_raise(qtype, K):
-    """The planar layout is ported for Q8_0, Q4_K, MXFP4 and Q5_0 only: a weight
+    """The planar layout is ported for Q8_0, Q4_K, MXFP4, Q5_0 and TQ2_0 only: a weight
     of another type that the JAX package would hold planar raises at load,
     naming its type (planar MXFP4: tests/test_torch_sinks.py)."""
     shape = (4, K)

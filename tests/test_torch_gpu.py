@@ -2553,3 +2553,82 @@ def test_gemma3n_engine_on_card_matches_cpu(cuda, monkeypatch, flag):
     assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
     ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
     assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+
+
+def _dense_single(arch):
+    """A 2-layer model of a dense single at kernel widths on the CPU:
+    chameleon (per-head layernorm q/k norms, every weight K-major, so its
+    decode takes D folded), apertus (xIELU's ungated FFN) and bitnet (planar
+    TQ2_0 projections, sub-norms and scales; a K-major Q4_K tied embedding),
+    1024 wide, 8/2 heads of 128, n_ff 1024, 2048 or 1536, a 500-row vocab."""
+    from tpullm_torch.utils.synth import synth_dense_single, synth_kmajor_q4k_fast
+
+    g = torch.Generator().manual_seed(5)
+    common = dict(vocab_size=500, n_embd=1024, n_layer=2, n_head=8, n_head_kv=2, device="cpu",
+                  generator=g)
+    if arch == "apertus":
+        return synth_kmajor_q4k_fast(arch=arch, n_ff=2048, exact_vocab=True, rope_base=1.2e7,
+                                     centred=True, **common)
+    if arch == "bitnet":
+        return synth_dense_single(arch=arch, n_ff=1536, qtype=GGMLType.TQ2_0, tied=True,
+                                  rope_base=5e5, **common)
+    return synth_dense_single(arch=arch, n_ff=1024, **common)
+
+
+@pytest.mark.parametrize("flag", [None, "1"], ids=["E_off", "E_on"])
+@pytest.mark.parametrize("arch", ["chameleon", "apertus", "bitnet"])
+def test_dense_single_engine_on_card_matches_cpu(cuda, monkeypatch, arch, flag):
+    """The dense singles (_dense_single) through the engine on the card
+    against the plain path on the CPU in f32, within 4x the plain bf16
+    error: chameleon's QK norm on the rows D's folded launch emits (D
+    launched), apertus's xIELU and bitnet's sub-norms and scales off D (D
+    not launched); A, C and the store launched (E with the flag), F not;
+    the same requests with cuda_graphs=False give the graph's greedy tokens
+    and launch counts, so xIELU's parameters, the scales and the norms ride
+    inside the captured step."""
+    import numpy as np
+
+    from tpullm_torch.runtime.engine import InferenceEngine
+
+    if flag:
+        monkeypatch.setenv("TPULLM_FLASH_DECODE", flag)
+    else:
+        monkeypatch.delenv("TPULLM_FLASH_DECODE", raising=False)
+    cfg, params = _dense_single(arch)
+    card = _to(params, "cuda")
+    logits, counts = {}, {}
+    for name, p, dev, dt in (("card", card, "cuda", torch.bfloat16),
+                             ("card_eager", card, "cuda", torch.bfloat16),
+                             ("cpu", params, "cpu", torch.float32),
+                             ("cpu_bf16", params, "cpu", torch.bfloat16)):
+        _cuda.reset_counts()
+        eng = InferenceEngine(cfg, p, max_seq_len=256, compute_dtype=dt, decode_chunk=4,
+                              device=dev, cuda_graphs=name != "card_eager")
+        r = eng.generate(ENGINE_PROMPTS, max_new_tokens=9, return_logits=True)
+        counts[name] = dict(_cuda.COUNTS)
+        logits[name] = (torch.from_numpy(np.asarray(r.logits)), r.tokens)
+    c = counts["card"]
+    for k in ("qmm_splitk", "flash_attention", "kv_store"):
+        assert c[k] > 0, (k, c)
+    assert c["moe_gmm"] == 0 and (c["flash_decode"] > 0) == bool(flag), c
+    assert (c["layer_kernel"] > 0) == (arch == "chameleon"), c
+    assert logits["card_eager"][1] == logits["card"][1] and counts["card_eager"] == c
+    ref = _nmse(logits["cpu_bf16"][0], logits["cpu"][0])
+    assert _nmse(logits["card"][0], logits["cpu"][0]) < 4 * ref
+
+
+@pytest.mark.parametrize("K", [2560, 6912])
+def test_planar_tq2_0_on_card_equals_cpu(cuda, K):
+    """Planar TQ2_0 (BitNet b1.58 2B-4T's K 2560 and 6912: no K-major tile)
+    dequantizes on the card to the CPU's bits, and its product (dequantize,
+    then an f32 matmul) agrees with the CPU's within 1e-6."""
+    from tpullm_torch.ops.qmm import qmm
+    from tpullm_torch.utils.synth import _mla_weight
+
+    g = torch.Generator(device=cuda).manual_seed(K)
+    qt = _mla_weight(640, K, (), g, cuda, GGMLType.TQ2_0)
+    assert qt.layout == "planar"
+    cpu = qt.to("cpu")
+    assert torch.equal(qt.dequant(torch.float32).cpu(), cpu.dequant(torch.float32))
+    x = torch.randn((4, K), generator=g, device=cuda)
+    assert _nmse(qmm(x, qt, torch.float32).cpu(), qmm(x.cpu(), cpu, torch.float32)) < 1e-6

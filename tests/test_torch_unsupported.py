@@ -23,15 +23,18 @@ torch.set_num_threads(2)
     ("xielu", ((0.8, 0.8, 0.5, -1e-6),)), ("hybrid_graph", True), ("n_expert", 8),
     ("n_expert_shared", 2), ("diffusion", True), ("mrope_sections", (16, 24, 24, 0)),
     ("attn_out_gate", True),
-    ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("sub_norms", True),
+    ("qk_norm_type", "layernorm"), ("act_fn", "xielu"), ("wkv_head_size", 64),
     ("full_attn_interval", 4), ("ssm_d_conv", 4), ("n_rel_attn_bkts", 32)])
 def test_flag_outside_dense_path_raises(field, value):
     """Every field outside the covered paths raises on the dense path. (The
     iRoPE fields, llama4's chunk and smallthinker's dense-first pattern
     pass since the port runs them: tests/test_torch_irope.py; so do the
-    per-layer-embedding Gemmas' fields: test_gemma_fields_pass. Apertus's
-    xIELU parameters, the hybrid walker and M-RoPE's sections take their
-    cases.)"""
+    per-layer-embedding Gemmas' fields: test_gemma_fields_pass. The hybrid
+    walker and M-RoPE's sections take their cases. The dense singles' fields
+    raise off their blocks: xIELU's parameters without the ungated xIELU FFN,
+    the layernorm QK norm without a per-head QK norm before RoPE, an xIELU
+    act_fn on the gated FFN; bitnet's sub_norms pass on the dense block, so
+    RWKV's head size takes its case: tests/test_torch_dense_singles.py.)"""
     cfg = ModelConfig()
     check_dense(cfg)
     with pytest.raises(NotImplementedError, match=field):
@@ -59,8 +62,8 @@ def test_flag_outside_moe_path_raises(field, value):
     """The MoE fields pass only with MoE tensors (moe=True); the other MoE
     features still raise: a dense-beside-MoE block other than grok's and
     arctic's, a chunk group size that does not divide the experts, ungated
-    relu^2 experts (nemotron_h_moe), bitnet's sub-norms, chameleon's
-    layernorm QK norms. (The dense lead's count passes since the port
+    relu^2 experts (nemotron_h_moe), bitnet's sub-norms (the dense block's
+    alone), chameleon's layernorm QK norm without a per-head QK norm. (The dense lead's count passes since the port
     runs leading dense layers: test_dense_lead_passes_with_moe_only; so does
     the shared experts' count, whose width the shared expert's tensors
     carry, smallthinker's router input, moe_router_pre_norm, grovemoe's
@@ -301,8 +304,8 @@ def test_per_layer_head_counts_raise():
 
 
 def test_other_arch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="chameleon"):
-        load_model(_gguf(tmp_path, arch="chameleon"), device="cpu")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        load_model(_gguf(tmp_path, arch="mamba"), device="cpu")
 
 
 def test_swa_array_is_the_only_per_layer_key():

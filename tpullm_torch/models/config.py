@@ -188,9 +188,9 @@ class ModelConfig:
 
 
 # {arch}.* keys the covered paths read. Any other {arch}.* key, and the
-# arch-unprefixed xielu.* keys, configure a feature the port does not run
-# (expert groups, M-RoPE sections, pooling, ...): config_from_gguf
-# raises on them rather than parsing and ignoring them.
+# arch-unprefixed xielu.* keys outside apertus, configure a feature the port
+# does not run (expert groups, M-RoPE sections, pooling, ...):
+# config_from_gguf raises on them rather than parsing and ignoring them.
 # attention.layer_norm_epsilon goes to norm_eps as in the JAX parser; the
 # layernorm archs read it (models/llama.py:_norm).
 DENSE_KEYS = frozenset({
@@ -273,6 +273,28 @@ GROVE_KEYS = frozenset({
 INDEXER_KEYS = frozenset({
     "attention.indexer.head_count", "attention.indexer.key_length", "attention.indexer.top_k",
 })
+# apertus's xIELU parameters, arch-unprefixed per-layer arrays (config.py:357-370
+# of the JAX parser, which reads them for any arch's file; llama.cpp's graph
+# reads them in apertus's alone, so another arch's file with them raises)
+XIELU_KEYS = frozenset({"xielu.alpha_n", "xielu.alpha_p", "xielu.beta", "xielu.eps"})
+
+
+def xielu_params(alpha_n, alpha_p, beta, eps, n_layer: int) -> tuple:
+    """Each layer's (alpha_n, alpha_p, beta, eps) after the build-time
+    softplus fold (config.py:357-370; ggml_xielu): alpha_p' = softplus(alpha_p),
+    alpha_n' = beta + softplus(alpha_n), softplus(x) = x from 30 up. A scalar
+    stands for every layer; beta defaults to 0.5 and eps to -1e-6 where None."""
+    def arr(v, default):
+        v = default if v is None else v
+        v = [v] * n_layer if np.isscalar(v) else list(v)
+        if len(v) < n_layer:
+            raise ValueError(f"xielu: {len(v)} values for {n_layer} layers")
+        return [float(x) for x in v]
+
+    sp = lambda x: float(np.log1p(np.exp(min(x, 30.0))) if x < 30 else x)
+    a_n, a_p = arr(alpha_n, None), arr(alpha_p, None)
+    b, e = arr(beta, 0.5), arr(eps, -1e-6)
+    return tuple((b[i] + sp(a_n[i]), sp(a_p[i]), b[i], e[i]) for i in range(n_layer))
 
 
 def config_from_gguf(g: GGUFFile) -> ModelConfig:
@@ -285,7 +307,8 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
     known = (DENSE_KEYS | MOE_KEYS | MLA_KEYS | (INDEXER_KEYS if arch == "glm-dsa" else set())
              | (GROVE_KEYS if arch == "grovemoe" else set())
              | (GEMMA_PLE_KEYS if arch in GEMMA_PLE_ARCHS else set()))
-    other = sorted(k for k in g.metadata if k.startswith("xielu.") or (
+    other = sorted(k for k in g.metadata if (
+        k.startswith("xielu.") and not (arch == "apertus" and k in XIELU_KEYS)) or (
         k.startswith(arch + ".") and k[len(arch) + 1:] not in known))
     if other:
         raise NotImplementedError(f"GGUF keys outside the covered {arch} paths: {other}")
@@ -416,6 +439,9 @@ def config_from_gguf(g: GGUFFile) -> ModelConfig:
             raise NotImplementedError(
                 f"{arch}.{key}={v}: SWA layers with their own head dim ({want} elsewhere) are "
                 "not on the covered paths")
+    if g.get("xielu.alpha_n") is not None:  # apertus (config.py:357-370)
+        cfg.xielu = xielu_params(*(g.get(k) for k in ("xielu.alpha_n", "xielu.alpha_p",
+                                                      "xielu.beta", "xielu.eps")), cfg.n_layer)
     if cfg.swa_layer_pattern and len(cfg.swa_layer_pattern) < cfg.n_layer:
         raise ValueError(f"{arch}.attention.sliding_window_pattern: "
                          f"{len(cfg.swa_layer_pattern)} flags for {cfg.n_layer} layers")

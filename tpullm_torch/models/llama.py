@@ -7,18 +7,22 @@ minicpm), plus a learned position table (gpt2, starcoder) and a layernorm
 on the embedding (bloom) -> RMSNorm or layernorm (with or without weight
 and bias) -> fused
 QKV (or the GGUF-fused attn_qkv) -> optional q/k/v biases -> optional q/k
-norms (per head before or after RoPE, or over the flat rows with their
-biases) -> RoPE (neox or interleaved, full or partial; SWA layers at
-rope_base_swa where the file gives one; none where use_rope is off) -> an
+norms (per head before or after RoPE, RMS or chameleon's layernorm with
+per-head weights and biases, or over the flat rows with their biases) ->
+BitNet's optional per-tensor q/k/v scales -> RoPE (neox or interleaved,
+full or partial; SWA layers at rope_base_swa where the file gives one; none
+where use_rope is off) -> an
 optional clamp of q, k and v -> GQA attention over a head-major KV cache
 (optional logit softcap; a sliding window on the layers swa_pattern or the
 per-layer swa_layer_pattern marks; or ALiBi, without either; optional
 per-head sink logits, gpt-oss's and mimo2's, as a key without a value) ->
-step35's optional per-head sigmoid gate -> output projection and its
-optional bias -> mimo2's optional value scale -> gated SiLU, GELU or
-gpt-oss's clamped SwiGLU (swiglu_oai) FFN (optional gate and up biases; gate
-and up fused, separate or GGUF-combined in one ffn_up), ungated GELU or
-relu2 FFN (optional up and down biases),
+step35's optional per-head sigmoid gate -> BitNet's optional attention
+sub-norm -> output projection, its optional scale and bias -> mimo2's
+optional value scale -> gated SiLU, GELU or gpt-oss's clamped SwiGLU
+(swiglu_oai) FFN (optional gate and up biases and scales; gate and up fused,
+separate or GGUF-combined in one ffn_up), ungated GELU, relu2 or apertus's
+xIELU FFN (optional up and down biases), BitNet's optional FFN sub-norm
+before down and down's scale,
 in sequence or in parallel with attention (the parallel residual), or the
 routed-expert MoE FFN (softmax or sigmoid router with an optional bias on
 its logits, an optional selection bias for the top-k choice, top-k,
@@ -145,12 +149,16 @@ DENSE_FIELDS = frozenset({
     # gemma3n's AltUp stream stack with its activation sparsity
     "n_embd_per_layer", "n_layer_kv_from_start", "gemma4_attn", "altup_n", "altup_act",
     "n_layer_sparsity", "sparsity_std_mul",
+    # the dense singles: chameleon's per-head layernorm QK norm, apertus's
+    # xIELU parameters, bitnet's sub-norms (check_dense holds each to its
+    # block)
+    "qk_norm_type", "xielu", "sub_norms",
 })
 # act_fn values of the dense FFN (llama.py:624-658): gated silu, gelu or
-# gpt-oss's clamped swiglu_oai, ungated gelu or relu2; the MoE FFN's experts
-# run gated silu, grok's gelu, swiglu_oai or smallthinker's relu
-# (llama.py:431-440)
-GATED_ACTS, UNGATED_ACTS = ("silu", "gelu", "swiglu_oai"), ("gelu", "relu2")
+# gpt-oss's clamped swiglu_oai, ungated gelu, relu2 or apertus's xielu; the
+# MoE FFN's experts run gated silu, grok's gelu, swiglu_oai or smallthinker's
+# relu (llama.py:431-440)
+GATED_ACTS, UNGATED_ACTS = ("silu", "gelu", "swiglu_oai"), ("gelu", "relu2", "xielu")
 MOE_ACTS = ("silu", "gelu", "swiglu_oai", "relu")
 NORM_TYPES = ("rmsnorm", "layernorm")
 # the routed-expert MoE FFN's fields, accepted only with MoE tensors; the
@@ -268,6 +276,28 @@ def check_dense(cfg: ModelConfig, moe: bool = False) -> None:
             f"altup_n={cfg.altup_n}, altup_act={cfg.altup_act}, n_embd_per_layer="
             f"{cfg.n_embd_per_layer}: the AltUp layer runs 2 or more streams beside the "
             "per-layer token stream, on the sequential dense block")
+    if (cfg.act_fn == "xielu" or cfg.xielu) and not (
+            cfg.act_fn == "xielu" and len(cfg.xielu) == cfg.n_layer and not moe):
+        # apertus: the JAX ffn reads layer li's (alpha_n, alpha_p, beta, eps)
+        # on the ungated path alone (llama.py:645-655)
+        raise NotImplementedError(
+            f"ModelConfig.act_fn={cfg.act_fn!r} with xielu parameters for {len(cfg.xielu)} of "
+            f"{cfg.n_layer} layers: xIELU runs on the ungated dense FFN with one (alpha_n, "
+            "alpha_p, beta, eps) a layer")
+    if cfg.qk_norm_type not in NORM_TYPES or cfg.qk_norm_type == "layernorm" and not (
+            cfg.attn_qk_norm and not cfg.qk_norm_post_rope):
+        # the JAX graph reads qk_norm_type in the per-head norm before RoPE
+        # alone (llama.py:843-850): chameleon's layernorm with per-head weights
+        raise NotImplementedError(
+            f"ModelConfig.qk_norm_type={cfg.qk_norm_type!r} (attn_qk_norm {cfg.attn_qk_norm}, "
+            f"qk_norm_post_rope {cfg.qk_norm_post_rope}): the layernorm QK norm runs per head "
+            "before RoPE")
+    if cfg.sub_norms and (moe or cfg.kv_lora_rank or cfg.altup_n):
+        # bitnet's sub-norms: the JAX MoE FFN, MLA layer and AltUp layer read
+        # none (llama.py:1159-1174, 371-515, 1071-1147)
+        raise NotImplementedError(
+            "ModelConfig.sub_norms=True with MoE, MLA or AltUp layers: the sub-norms run on the "
+            "dense block")
     if cfg.n_layer_sparsity and not cfg.altup_n:
         raise NotImplementedError(
             f"n_layer_sparsity={cfg.n_layer_sparsity}: the activation sparsity is read by "
@@ -744,33 +774,64 @@ def gated_act(g, u, act: str, dtype):
     return torch.nn.functional.silu(gf).to(dtype) * u
 
 
-def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None):
+def xielu(u, layer: int, cfg: ModelConfig, dtype):
+    """apertus's xIELU of the ungated FFN's up u (llama.py:645-655;
+    ggml-cpu's op_xielu) in f32 at layer ``layer``'s folded (alpha_n,
+    alpha_p, beta, eps), each rounded to f32 as the JAX package's array holds
+    it: alpha_p u^2 + beta u where u > 0, else alpha_n (expm1(min(u, eps)) -
+    u) + beta u; rounded to ``dtype``. The parameters are Python floats, so a
+    captured decode step holds them as constants."""
+    a_n, a_p, b, eps = (float(np.float32(v)) for v in cfg.xielu[layer])
+    uf = u.to(torch.float32)
+    pos = a_p * uf * uf + b * uf
+    neg = a_n * (torch.expm1(torch.clamp(uf, max=eps)) - uf) + b * uf
+    return torch.where(uf > 0, pos, neg).to(dtype)
+
+
+def ffn(x, qw, li, cfg: ModelConfig, dtype, lw=None, layer=None):
     """The dense FFN (llama.py:596-665): gated SiLU, GELU (tanh
     approximation) or swiglu_oai (``gated_act``) on fused (or separate)
     gate/up weights, or with
-    cfg.ffn_gate off the ungated GELU or relu(u)**2 on up alone; the gate,
+    cfg.ffn_gate off the ungated GELU, relu(u)**2 or xIELU (``xielu``, at
+    the model's layer ``layer``, li where None) on up alone; the gate,
     up and down biases (lw: the layer's float tensors; jais's gate and up
     each on its half of the fused product) added in the compute dtype where
-    the layer has them. A GGUF-combined [gate; up] (an ffn_up of 2 x n_ff
-    rows and no ffn_gate: phi3, chatglm, plamo3) takes one product, split
-    at n_ff (llama.py:606-610); the loader renames it ffn_gateup where its
-    halves fall on 256-column boundaries (ops/fuse.py)."""
+    the layer has them. BitNet's per-tensor scales (ffn_gate_s and ffn_up_s
+    on the gated path, ffn_down_s) multiply their products in the compute
+    dtype ahead of the biases, and its RMS sub-norm (ffn_sub_norm) takes the
+    hidden before down (llama.py:616-619, 656-661). A GGUF-combined [gate;
+    up] (an ffn_up of 2 x n_ff rows and no ffn_gate: phi3, chatglm, plamo3)
+    takes one product, split at n_ff (llama.py:606-610); the loader renames
+    it ffn_gateup where its halves fall on 256-column boundaries
+    (ops/fuse.py). The JAX package reads xIELU's parameters at the index
+    within the layer group, the model's where the depth is one group
+    (ROADMAP §3)."""
     lw = lw or {}
     if not cfg.ffn_gate:
         u = qmm(x, qw["ffn_up"], dtype, li)
     else:
         g, u = gate_up(x, qw, li, cfg, dtype)
+        if "ffn_gate_s" in lw:
+            g = g * lw["ffn_gate_s"].to(dtype)
+        if "ffn_up_s" in lw:
+            u = u * lw["ffn_up_s"].to(dtype)
     if "ffn_gate_b" in lw:  # llama.py:620-621
         g = g + lw["ffn_gate_b"].to(dtype)
     if "ffn_up_b" in lw:
         u = u + lw["ffn_up_b"].to(dtype)
-    if not cfg.ffn_gate:  # the activation of up itself
+    if not cfg.ffn_gate and cfg.act_fn == "xielu":
+        h = xielu(u, li if layer is None else layer, cfg, dtype)
+    elif not cfg.ffn_gate:  # the activation of up itself
         uf = u.to(torch.float32)
         h = (torch.nn.functional.gelu(uf, approximate="tanh") if cfg.act_fn == "gelu"
              else torch.relu(uf) ** 2).to(dtype)
     else:
         h = gated_act(g, u, cfg.act_fn, dtype)
+    if cfg.sub_norms and "ffn_sub_norm" in lw:
+        h = rms_norm(h, lw["ffn_sub_norm"], cfg.rms_eps)
     out = qmm(h, qw["ffn_down"], dtype, li)
+    if "ffn_down_s" in lw:
+        out = out * lw["ffn_down_s"].to(dtype)
     if "ffn_down_b" in lw:
         out = out + lw["ffn_down_b"].to(dtype)
     return out
@@ -1172,6 +1233,12 @@ def _expert_mm(x, qt: QTensor, li, e: int, dtype):
 MLA_KEYS = frozenset({"wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wk_b", "wv_b"})
 # the layernorm archs' biases of the stream norms
 NORM_BIAS_KEYS = frozenset({"attn_norm_b", "ffn_norm_b", "attn_norm_2_b"})
+# bitnet's RMS sub-norms (on the attention output before wo, on the FFN's
+# hidden before down) and its per-tensor (1,) output scales (llama.py:616-619,
+# 656-661, 1222-1225, 1256-1263)
+SUB_NORM_KEYS = frozenset({"attn_sub_norm", "ffn_sub_norm"})
+ATTN_SCALE_KEYS = frozenset({"wq_s", "wk_s", "wv_s"})
+SCALE_KEYS = ATTN_SCALE_KEYS | {"wo_s", "ffn_gate_s", "ffn_up_s", "ffn_down_s"}
 _LAYER_KEYS = (frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo",
                           "ffn_gateup", "ffn_gate", "ffn_up", "ffn_down", "wqkv_cat",
                           "bqkv_cat", "bq", "bk", "bv", "q_norm", "k_norm", "q_norm_b",
@@ -1180,7 +1247,7 @@ _LAYER_KEYS = (frozenset({"attn_norm", "ffn_norm", "wqkv", "wq", "wk", "wv", "wo
                           "moe_probs_b", "wqkv_gate", "attn_sinks", "ffn_norm_exps",
                           "out_scale"})
                | MOE_KEYS | SHEXP_KEYS | NORM_BIAS_KEYS | MLA_KEYS | MOE_BIAS_KEYS | CHEXP_KEYS
-               | PLE_KEYS | ALTUP_KEYS)
+               | PLE_KEYS | ALTUP_KEYS | SUB_NORM_KEYS | SCALE_KEYS)
 
 
 def check_ffn_layout(cfg: ModelConfig, gl) -> None:
@@ -1235,7 +1302,10 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
     MLA tensors without kv_lora_rank, the low-rank q pair without
     q_lora_rank, and on an MLA layer the separate or fused k/v projections
     and wq beside the low-rank pair; the attention output gate without
-    attn_gate_proj."""
+    attn_gate_proj; q/k norm biases outside chameleon's layernorm QK norm and
+    the flat layernorm ones; BitNet's sub-norms and scales without sub_norms
+    (which check_dense keeps off MoE, MLA and AltUp layers), its k/v scales
+    without wq_s and its gate and up scales on an ungated FFN."""
     unread = {"bq", "bk", "bv"} if not cfg.attn_bias else set()
     if not cfg.attn_gate_proj:
         unread.add("wqkv_gate")
@@ -1249,8 +1319,13 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
         unread |= {"wq_a", "q_a_norm", "wq_b"}
     if not (cfg.attn_qk_norm or cfg.attn_qk_norm_flat):
         unread |= {"q_norm", "k_norm"}
-    if not (cfg.attn_qk_norm_flat and cfg.norm_type == "layernorm"):
+    if not ((cfg.attn_qk_norm_flat and cfg.norm_type == "layernorm")
+            or (cfg.attn_qk_norm and cfg.qk_norm_type == "layernorm")):
         unread |= {"q_norm_b", "k_norm_b"}
+    if not cfg.sub_norms:
+        unread |= SUB_NORM_KEYS | SCALE_KEYS
+    if "wq_s" not in gl:
+        unread |= ATTN_SCALE_KEYS
     if not cfg.post_norms:
         unread |= {"post_attn_norm", "post_ffn_norm"}
     if not cfg.pre_norm:
@@ -1264,7 +1339,7 @@ def _unread_tensors(cfg: ModelConfig, gl) -> list[str]:
         if "attn_norm_2" in gl:
             unread |= {"ffn_norm", "ffn_norm_b"}
     if not cfg.ffn_gate:
-        unread |= {"ffn_gate", "ffn_gateup", "ffn_gate_b"}
+        unread |= {"ffn_gate", "ffn_gateup", "ffn_gate_b", "ffn_gate_s", "ffn_up_s"}
     moe = cfg.n_expert > 0 and "moe_gate_inp" in gl
     if moe:
         unread |= {"ffn_up_b", "ffn_down_b", "ffn_gate_b"}
@@ -1342,7 +1417,13 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
     kernel ends at the FFN's residual, so a layer with gemma4's per-layer
     input block or output scale stays off it too: the port's own condition,
     where the JAX gate keeps such layers off by ``post_norms`` alone
-    (ops/layer_kernel.py:413), which both gemma rows set.
+    (ops/layer_kernel.py:413), which both gemma rows set. BitNet's sub-norms
+    and per-tensor scales keep a layer off the kernel and the fold, another
+    of the port's own conditions: the kernel runs wo, gate/up and down as
+    they are, and the JAX gate asks for none of them (llama.py:1382-1397,
+    ops/layer_kernel.py:409-428), while its kernel branch returns before the
+    attention sub-norm and wo's scale (llama.py:1246-1263), so a TPU decode of
+    a bitnet file there drops them (ROADMAP §3).
 
     The combined [gate; up] of a phi3 or chatglm file takes the kernel on the
     port's own route: where n_ff is a multiple of 256 the loader renames the
@@ -1354,7 +1435,7 @@ def layer_routes(cfg: ModelConfig, gl, qw, B: int, T: int, on_card: bool,
                  and "ffn_norm" in gl and "ffn_norm_b" not in gl
                  and not any(k in gl for k in ("bo", "ffn_up_b", "ffn_down_b", "ffn_gate_b",
                                                "attn_norm_2", "per_layer_inp_gate",
-                                               "out_scale"))
+                                               "out_scale", *SUB_NORM_KEYS, *SCALE_KEYS))
                  and not cfg.attn_bias and not cfg.attn_qk_norm_flat
                  and cfg.residual_scale == 1.0 and not cfg.attn_out_scale
                  and block_supported(cfg, qw))
@@ -1469,16 +1550,25 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         (llama.py:856-857). A NoPE layer (nope_flags) takes no RoPE, none of
         the norms after it and its query times the temperature; the others
         take llama4's weightless L2 QK norm after RoPE (qk_l2_norm,
-        llama.py:869-885). clamp_kqv clamps q, k and v after RoPE
-        (llama.py:889-892). The layer's sink logits (attn_sinks, gpt-oss and
-        mimo2, on every layer or some) go to attention (llama.py:922)."""
+        llama.py:869-885). chameleon's per-head QK norm before RoPE is a
+        layernorm over the head dim with (H, hd) weights and biases at
+        norm_eps, or 1e-5 where the file gives none (qk_norm_type,
+        llama.py:843-850); it runs here, on the q/k rows of every route (the
+        QKV rows of D's folded launch too). clamp_kqv clamps q, k and v after
+        RoPE (llama.py:889-892). The layer's sink logits (attn_sinks, gpt-oss
+        and mimo2, on every layer or some) go to attention (llama.py:922)."""
         qn, kn = lw.get("q_norm"), lw.get("k_norm")
         if cfg.attn_qk_norm_flat:
             q = _norm(q, qn, lw.get("q_norm_b"), cfg)
             k = _norm(k, kn, lw.get("k_norm_b"), cfg)
         q, k = q.reshape(B, T, H, hd), k.reshape(B, T, Hkv, hd)
         if cfg.attn_qk_norm and not cfg.qk_norm_post_rope:
-            q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
+            if cfg.qk_norm_type == "layernorm":
+                eps = cfg.norm_eps or 1e-5
+                q = layer_norm(q, qn, lw.get("q_norm_b"), eps)
+                k = layer_norm(k, kn, lw.get("k_norm_b"), eps)
+            else:
+                q, k = rms_norm(q, qn, cfg.rms_eps), rms_norm(k, kn, cfg.rms_eps)
         if nope[li]:
             q = (q.to(torch.float32) * temp).to(q.dtype)
         else:
@@ -1583,8 +1673,9 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
     def qkv_of(h, qw, li, lw):
         """The layer's q, k, v rows (llama.py:1200-1229): the load-time
         fused wqkv (padded offsets), the GGUF-fused wqkv_cat with its bias
-        (unpadded offsets) or separate weights; then the split biases. lw:
-        the layer's float tensors."""
+        (unpadded offsets) or separate weights; then BitNet's per-tensor
+        scales and the split biases (llama.py:1222-1229). lw: the layer's
+        float tensors."""
         if "wqkv" in qw:
             y = qmm(h, qw["wqkv"], dtype, li)
             q, k, v = y[..., :nq], y[..., ok: ok + nk], y[..., ov: ov + nv]
@@ -1598,6 +1689,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             # gemma4's layer without wv: V is the raw K projection, taken
             # before k_norm (llama.py:1212-1218)
             v = k if cfg.gemma4_attn and "wv" not in qw else qmm(h, qw["wv"], dtype, li)
+        if "wq_s" in lw:
+            q, k, v = (t * lw[s].to(dtype) for t, s in ((q, "wq_s"), (k, "wk_s"), (v, "wv_s")))
         if cfg.attn_bias and "bq" in lw:
             q, k, v = (t + lw[b].to(dtype) for t, b in ((q, "bq"), (k, "bk"), (v, "bv")))
         return q, k, v
@@ -1619,7 +1712,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
             y = (y.to(torch.float32) * cfg.residual_scale).to(dtype)
         return y
 
-    def ffn_of(h2, qw, li, lw, x, x0=None):
+    def ffn_of(h2, qw, li, lw, layer, x, x0=None):
         """The layer's FFN: routed experts where it has them
         (llama.py:1273-1276), their router reading the residual stream x
         under moe_router_pre_norm (smallthinker), else the dense FFN. On the
@@ -1627,7 +1720,8 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
         arctic's MoE layers run their dense FFN beside the experts
         (llama.py:1295-1314): grok's (dense + moe) x sqrt(2)/2 in f32 where
         the layer has a dense FFN, else the MoE alone; arctic's dense FFN
-        plus the MoE on x0 under its own norm, ffn_norm_exps."""
+        plus the MoE on x0 under its own norm, ffn_norm_exps. ``layer``:
+        the model's index of the layer (xIELU's parameters)."""
         if cfg.n_expert > 0 and "moe_gate_inp" in qw:
             def moe(inp, router_x=None):
                 return moe_ffn(inp, qw, li, cfg, dtype, lw.get("moe_gate_inp_shexp"),
@@ -1639,14 +1733,14 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 m = moe(h2)
                 if "ffn_up" not in qw and "ffn_gateup" not in qw:
                     return m
-                dense = ffn(h2, qw, li, cfg, dtype, lw)
+                dense = ffn(h2, qw, li, cfg, dtype, lw, layer)
                 return ((dense.to(torch.float32) + m.to(torch.float32))
                         * float(math.sqrt(2) / 2)).to(dtype)
             if mode == "arctic":
-                return ffn(h2, qw, li, cfg, dtype, lw) + moe(
+                return ffn(h2, qw, li, cfg, dtype, lw, layer) + moe(
                     _norm(x0, lw.get("ffn_norm_exps"), None, cfg))
             return moe(h2, x if cfg.moe_router_pre_norm else None)
-        return ffn(h2, qw, li, cfg, dtype, lw)
+        return ffn(h2, qw, li, cfg, dtype, lw, layer)
 
     for key in ("output_norm_b", "tok_norm_b"):
         if key in params and (cfg.norm_type != "layernorm" or (
@@ -1704,7 +1798,7 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 h = pre_norm(x, lw, "attn_norm")
                 if mla:  # llama.py:1159-1174
                     x = x + qmm(attend_mla(h, qw, li, lw, layer), qw["wo"], dtype, li)
-                    x = x + ffn_of(pre_norm(x, lw, "ffn_norm"), qw, li, lw, x)
+                    x = x + ffn_of(pre_norm(x, lw, "ffn_norm"), qw, li, lw, layer, x)
                     continue
                 att = attend_of(h)
                 if "wqkv_gate" in qw:  # llama.py:1231-1245
@@ -1716,7 +1810,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                 if use_block:
                     x = ffn_block(att, x, lw["ffn_norm"], qw, li, cfg).to(dtype)
                     continue
+                if cfg.sub_norms and "attn_sub_norm" in lw:  # bitnet (llama.py:1256-1260)
+                    att = rms_norm(att, lw["attn_sub_norm"], cfg.rms_eps)
                 a = qmm(att, qw["wo"], dtype, li)
+                if "wo_s" in lw:  # llama.py:1262-1263
+                    a = a * lw["wo_s"].to(dtype)
                 if "bo" in lw:  # llama.py:1264-1265
                     a = a + lw["bo"].to(dtype)
                 if cfg.attn_out_scale:  # mimo2's value scale (llama.py:1268-1269)
@@ -1729,11 +1827,11 @@ def forward(params: dict, cfg: ModelConfig, tokens, positions, cache: KVCache,
                         h2 = _norm(x, lw["ffn_norm"], lw.get("ffn_norm_b"), cfg)
                     else:  # phi2, command-r, falcon-7B, gptj, plamo: the attention's input
                         h2 = h
-                    x = x + a + ffn_of(h2, qw, li, lw, x)
+                    x = x + a + ffn_of(h2, qw, li, lw, layer, x)
                 else:
                     x = x + a
                     h2 = pre_norm(x, lw, "ffn_norm")
-                    x = x + post_norm(ffn_of(h2, qw, li, lw, x, x0), lw, "post_ffn_norm")
+                    x = x + post_norm(ffn_of(h2, qw, li, lw, layer, x, x0), lw, "post_ffn_norm")
                 if "per_layer_inp_gate" in qw:  # gemma4 (llama.py:1042-1053, 1324)
                     x = x + per_layer_block(x, pli[:, :, layer], qw, li, lw, cfg,
                                             dtype).to(dtype)

@@ -254,6 +254,20 @@ ARCH_REGISTRY: dict[str, dict] = {
                     attn_qk_norm=True, attn_scale=1.0, gemma4_attn=True,
                     embedding_scale=-1.0, swa_pattern=5, altup_n=4,
                     n_layer_sparsity=10, final_logit_softcap=30.0),
+    # cogvlm (src/models/cogvlm.cpp): fused-QKV llama block with a
+    # parallel VISION-EXPERT weight set (visexp_*) selected per token
+    # kind; text serving uses the language weights
+    "cogvlm": dict(rope_type="neox"),
+    # bitnet b1.58 (src/models/bitnet.cpp): RMS sub-norms inside the
+    # attention/FFN blocks, per-tensor output scales, tied lm_head
+    "bitnet": dict(rope_type="neox", sub_norms=True),
+    # chameleon (src/models/chameleon.cpp): per-head LAYERNORM q/k-norm
+    # (with bias) before rope; swin_norm variant not fabricated
+    "chameleon": dict(rope_type="norm", attn_qk_norm=True,
+                      qk_norm_type="layernorm"),
+    # apertus (src/models/apertus.cpp): qk RMS norm + ungated xIELU MLP
+    "apertus": dict(rope_type="neox", attn_qk_norm=True, ffn_gate=False,
+                    act_fn="xielu"),
 }
 
 

@@ -10,8 +10,9 @@ Q8_0, the type of the small architecture fixtures
 at K 768 (Qwen3-30B-A3B's down experts in a Q4_K file), MXFP4, which
 has none at K 2880 (gpt-oss's experts), and Q5_0, llama.cpp's fallback for
 Q4_K rows whose K is not a multiple of 256 (a Q4_K_M DeepSeek-V2-Lite
-file's downs at K 1408 and 10944, a GroveMoE file's chunk downs at K 128);
-every other planar type raises at load (ops/qtensor.py). Numerics are bit-exact with
+file's downs at K 1408 and 10944, a GroveMoE file's chunk downs at K 128),
+and TQ2_0, which has none at K 2560 and 6912 (BitNet b1.58 2B-4T's every
+projection); every other planar type raises at load (ops/qtensor.py). Numerics are bit-exact with
 tpullm/ops/dequant.py:dequant_jax in float32.
 """
 from __future__ import annotations
@@ -67,8 +68,19 @@ def _dq_mxfp4(p):
     return d * torch.cat([lut[qs & 0xF], lut[qs >> 4]], dim=-1)
 
 
+def _dq_tq2_0(p):
+    """tpullm/ops/dequant.py:170 _dq_tq2_0: d * (t - 1), each byte's four
+    2-bit trits t at shifts 0, 2, 4 and 6, in ggml's element order (each
+    32-byte half of a block: its 32 bytes' shift-0 trits, then shift 2, 4
+    and 6)."""
+    q = p["qs"].to(torch.int32).reshape(*p["qs"].shape[:-1], 2, 32)
+    grid = torch.stack([((q >> s) & 3) - 1 for s in (0, 2, 4, 6)], dim=-2)
+    return p["d"].to(torch.float32)[..., None] * grid.reshape(
+        *p["qs"].shape[:-1], 256).to(torch.float32)
+
+
 _DEQUANT = {GGMLType.Q8_0: _dq_q8_0, GGMLType.Q4_K: _dq_q4_K, GGMLType.MXFP4: _dq_mxfp4,
-            GGMLType.Q5_0: _dq_q5_0}
+            GGMLType.Q5_0: _dq_q5_0, GGMLType.TQ2_0: _dq_tq2_0}
 PLANAR_PORTED = frozenset(_DEQUANT)
 
 

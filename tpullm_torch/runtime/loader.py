@@ -45,6 +45,13 @@ load for those configs, and so do the per-layer token stream's tables
 (loader.py:71-74, 207-212); gemma3n's AltUp and LAuReL tensors load as f32
 (loader.py:76-83, 355-358), as do its AltUp stream projections, and the
 dead K/V projections of its shared-KV layers are dropped (loader.py:334-348).
+bitnet's sub-norms (attn_sub_norm, ffn_sub_norm) and the per-tensor scales
+of its seven projections (wq_s, wk_s, wv_s, wo_s, ffn_gate_s, ffn_up_s,
+ffn_down_s) load as f32 for configs with sub_norms (loader.py:50-59: the
+JAX loader reads the names for any arch), and so do chameleon's per-head
+(H, hd) q/k norms and their biases. cogvlm's vision-expert weights (vis_*)
+are passed over unread: the text path reads none of them, as the JAX loader
+leaves them, so they stay in the file and never reach the device.
 Every other tensor (the output bias that phi-2's file carries, grok's
 layer_output_norm, ...) raises, and so does a shared
 expert without all of its gate, up and down.
@@ -150,6 +157,20 @@ CHEXP_TENSORS = {
     "ffn_down_chexps.weight": "moe_down_chexps",
 }
 ARCTIC_TENSORS = {"ffn_norm_exps.weight": "ffn_norm_exps"}
+# bitnet's sub-norms and per-tensor output scales (loader.py:50-59), read
+# where the config has sub_norms (bitnet's row); elsewhere they are unknown
+# names and raise
+BITNET_TENSORS = {
+    "attn_sub_norm.weight": "attn_sub_norm",
+    "ffn_sub_norm.weight": "ffn_sub_norm",
+    "attn_q.scale": "wq_s",
+    "attn_k.scale": "wk_s",
+    "attn_v.scale": "wv_s",
+    "attn_output.scale": "wo_s",
+    "ffn_gate.scale": "ffn_gate_s",
+    "ffn_up.scale": "ffn_up_s",
+    "ffn_down.scale": "ffn_down_s",
+}
 # gemma4's and gemma3n's per-layer input block and gemma4's layer output
 # scale (loader.py:71-74), read where the config has the per-layer token
 # stream or gemma4's attention; gemma3n's AltUp and LAuReL tensors
@@ -178,16 +199,20 @@ OUT_NORM_TENSORS = {"grok": {"attn_output_norm.weight": "post_attn_norm"},
                     "dbrx": {"attn_output_norm.weight": "ffn_norm"}}
 # the only names the loader passes over unread, each for its arch alone:
 # glm-dsa's DSA indexer, which its reference graph loads and does not run
-# (src/models/glm-dsa.cpp; the JAX loader reads none of it), and the bias
+# (src/models/glm-dsa.cpp; the JAX loader reads none of it), the bias
 # of dbrx's FFN norm, which its graph does not read (src/models/dbrx.cpp;
-# the JAX loader drops it, loader.py:405-409)
+# the JAX loader drops it, loader.py:405-409), and cogvlm's vision-expert
+# weights, which only image tokens read (src/models/cogvlm.cpp; the JAX
+# loader's name map has none of them): the text path leaves them in the file
 UNREAD_TENSORS = {"glm-dsa": ("indexer.k_norm.weight", "indexer.k_norm.bias",
                               "indexer.proj.weight", "indexer.attn_k.weight",
                               "indexer.attn_q_b.weight"),
-                  "dbrx": ("attn_output_norm.bias",)}
+                  "dbrx": ("attn_output_norm.bias",),
+                  "cogvlm": ("vis_attn_qkv.weight", "vis_attn_output.weight", "vis_gate.weight",
+                             "vis_up.weight", "vis_down.weight")}
 # norms, biases, the shared expert's gate, the selection bias, the router's
-# and the experts' biases and the sinks load as f32 arrays (loader.py:209-229,
-# 355-362)
+# and the experts' biases, the sinks and bitnet's scales load as f32 arrays
+# (loader.py:209-229, 355-362)
 _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_norm",
                      "post_ffn_norm", "bq", "bk", "bv", "bqkv_cat", "moe_gate_inp_shexp",
                      "moe_probs_b", "moe_gate_inp_b", "moe_gate_exps_b", "moe_up_exps_b",
@@ -195,6 +220,9 @@ _FLOAT_LAYER_KEYS = {"attn_norm", "ffn_norm", "q_norm", "k_norm", "post_attn_nor
                      "attn_norm_b", "ffn_norm_b", "attn_norm_2", "attn_norm_2_b", "bo",
                      "ffn_up_b", "ffn_down_b", "ffn_gate_b", "q_norm_b", "k_norm_b",
                      "q_a_norm", "kv_a_norm", "ffn_norm_exps",
+                     # bitnet's sub-norms and per-tensor scales
+                     "attn_sub_norm", "ffn_sub_norm", "wq_s", "wk_s", "wv_s", "wo_s",
+                     "ffn_gate_s", "ffn_up_s", "ffn_down_s",
                      # the per-layer input block's norm and the output scale;
                      # AltUp's router, coefficients and scale and LAuReL's
                      # low-rank pair and norm (loader.py:355-358)
@@ -293,6 +321,7 @@ def load_model(path: str, device="cuda"):
     layer_tensors = {**LAYER_TENSORS, **(MLA_TENSORS if cfg.kv_lora_rank else {}),
                      **(CHEXP_TENSORS if cfg.n_group_experts > 0 else {}),
                      **(ARCTIC_TENSORS if cfg.moe_dense_parallel == "arctic" else {}),
+                     **(BITNET_TENSORS if cfg.sub_norms else {}),
                      **OUT_NORM_TENSORS.get(cfg.arch, {}),
                      **(PLE_TENSORS if cfg.n_embd_per_layer or cfg.gemma4_attn else {}),
                      **(ALTUP_TENSORS if cfg.altup_n else {})}

@@ -14,6 +14,7 @@ import torch
 
 from ..gguf.constants import GGMLType
 from ..models.config import ModelConfig
+from ..models.llama import SCALE_KEYS
 from ..ops._cuda import resolve_device
 from ..ops.qtensor import QTensor
 
@@ -33,6 +34,18 @@ def _convert(v, device):
     raise TypeError(f"params_from_numpy: unexpected leaf {type(v).__name__}")
 
 
+def _scales_as_arrays(layers):
+    """BitNet's per-tensor scales (wq_s, ..., ffn_down_s) come from the JAX
+    loader as F32 weights, since its float rule (loader.py:350-366) misses
+    their names, and its forward, which reads them among the float arrays,
+    then passes over them (ROADMAP §3): each is carried across as the f32
+    (L, 1) array the port's loader holds, so the port applies it."""
+    if "__groups__" in layers:
+        return {"__groups__": [_scales_as_arrays(g) for g in layers["__groups__"]]}
+    return {k: v["data"]["w"] if (k in SCALE_KEYS and isinstance(v, dict) and set(v) == _QT_KEYS)
+            else v for k, v in layers.items()}
+
+
 def params_from_numpy(cfg_dict: dict, params: dict, device="cuda"):
     """-> (ModelConfig, params on ``device``) for the port's forward. Layer
     tensors come across by name, the post-norms (gemma2/3's post_attn_norm,
@@ -41,12 +54,16 @@ def params_from_numpy(cfg_dict: dict, params: dict, device="cuda"):
     so do the per-layer-embedding Gemmas' tensors: the token stream's tables
     (per_layer_tok_embd, per_layer_model_proj and the f32
     per_layer_proj_norm), AltUp's f32 stream projections and each layer's
-    per-layer input block, output scale and f32 AltUp and LAuReL arrays. A
-    config with tied embeddings (gemma) gets
+    per-layer input block, output scale and f32 AltUp and LAuReL arrays,
+    and the dense singles' tensors: chameleon's (H, hd) q/k norms and their
+    biases, bitnet's sub-norms and its per-tensor scales (as f32 arrays,
+    ``_scales_as_arrays``). A config with tied embeddings (gemma) gets
     its lm_head as the embedding's own QTensor, as the port's loader binds
     it, not as a second copy of the same weight."""
     device = resolve_device(device)
     cfg = ModelConfig(**cfg_dict)
+    if "layers" in params:
+        params = dict(params, layers=_scales_as_arrays(params["layers"]))
     out = {k: _convert(v, device) for k, v in params.items() if not (
         cfg.tie_embeddings and k == "output")}
     if cfg.tie_embeddings:

@@ -26,6 +26,10 @@
   token table and its projections, owning and shared-KV layer groups, Q4_K
   K-major or planar as the loader would lay each weight out), drawn on the
   device with a torch.Generator;
+- ``synth_dense_single``: a chameleon or bitnet model (chameleon's per-head
+  layernorm q/k norms with their biases; bitnet's sub-norms and per-tensor
+  scales over planar TQ2_0), K-major or planar as the loader would lay each
+  weight out, drawn on the device with a torch.Generator;
 - ``random_kmajor``: one weight of any K-major type, drawn on the device
   with a torch.Generator and centred the same way, for the kernel checks;
 - ``synth_bpe_vocab``: a byte-level BPE vocab at Llama-3's or Qwen2's
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from ..gguf.constants import GGMLType
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, xielu_params
 from ..models.registry import apply_arch_defaults
 from ..ops._cuda import resolve_device
 from ..ops.fuse import fuse_layer_weights, pad256
@@ -127,7 +131,12 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     (the same draws where every part is a multiple of 256 wide), then
     passed through the loader's fuse step (ops/fuse.py:fuse_layer_weights),
     which renames the combined ffn_up ffn_gateup where n_ff is a multiple
-    of 256."""
+    of 256.
+
+    A row with apertus's xIELU (act_fn xielu) gets the per-layer parameters
+    that the JAX synth writes into its files (alpha_n 0.8 + 0.02 li, alpha_p
+    0.8 - 0.01 li, beta 0.5, eps -1e-6; tpullm/utils/synth.py:2249-2253),
+    folded as config_from_gguf folds them; no array is drawn for them."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     head_dim = head_dim or n_embd // n_head
@@ -172,6 +181,8 @@ def synth_kmajor_q4k_fast(*, vocab_size: int, n_embd: int, n_layer: int,
     apply_arch_defaults(cfg)
     if cfg.alibi_max_bias > 0:  # as config_from_gguf: ALiBi replaces RoPE
         cfg.use_rope = False
+    if cfg.act_fn == "xielu" and not cfg.xielu:
+        cfg.xielu = jax_synth_xielu(n_layer)
     embd = qt([vocab_size], n_embd, n_out=exact_vocab and vocab_size)
     params = {
         "tok_embd": embd,
@@ -357,15 +368,24 @@ def synth_moe_q4k(*, arch: str = "mixtral", vocab_size: int, n_embd: int, n_laye
     return cfg, params
 
 
+def jax_synth_xielu(n_layer: int) -> tuple:
+    """apertus's folded xIELU parameters from the arrays the JAX synth
+    writes (tpullm/utils/synth.py:2249-2253)."""
+    li = np.arange(n_layer)
+    return xielu_params((0.8 + 0.02 * li).astype(np.float32), (0.8 - 0.01 * li).astype(np.float32),
+                        np.full(n_layer, 0.5, np.float32), np.full(n_layer, -1e-6, np.float32),
+                        n_layer)
+
+
 def _mla_weight(n: int, K: int, lead: tuple, gen: torch.Generator, device,
                 qtype: GGMLType | None = None) -> QTensor:
     """One (lead..., n, K) weight of an MLA model as a Q4_K_M file holds it:
     Q4_K where K is a multiple of 256, else Q8_0 (llama.cpp's fallback for
-    such rows), or ``qtype`` (Q4_K or Q8_0) where given; K-major where the
+    such rows), or ``qtype`` (Q4_K, Q8_0 or TQ2_0) where given; K-major where the
     kernels take K (pick_tile_k), else planar,
     as the loader lays it out. Drawn on ``device`` with ``gen``, centred as
     random_kmajor draws (a planar Q4_K group's sub-min round(7.5 * sc) with
-    dmin = d)."""
+    dmin = d; a planar TQ2_0 block's 256 trits uniform over -1, 0 and 1)."""
     from ..ops.qmm import qmm_supported
 
     if qtype is None:
@@ -380,6 +400,11 @@ def _mla_weight(n: int, K: int, lead: tuple, gen: torch.Generator, device,
     if qtype == GGMLType.Q8_0:
         nb = K // 32
         data = {"qs": ints(-128, 128, (nb, 32), torch.int8), "d": d(nb, _RANDOM[qtype]["d"])}
+    elif qtype == GGMLType.TQ2_0:  # 2-bit fields t + 1: each byte's 4 at shifts 0, 2, 4, 6
+        nb = K // 256
+        t = ints(0, 3, (nb, 4, 64), torch.uint8)
+        data = {"qs": t[..., 0, :] | (t[..., 1, :] << 2) | (t[..., 2, :] << 4)
+                | (t[..., 3, :] << 6), "d": d(nb, _RANDOM[qtype]["d"])}
     else:
         nb = K // 256
         sc = ints(1, 8, (nb, 8), torch.uint8)
@@ -654,6 +679,52 @@ def synth_gemma3n(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int, n_
         "layers": groups[0] if len(groups) == 1 else {"__groups__": groups},
     }
     return cfg, params
+
+
+def synth_dense_single(*, arch: str, vocab_size: int, n_embd: int, n_layer: int, n_head: int,
+                       n_head_kv: int, n_ff: int, generator: torch.Generator, device="cuda",
+                       qtype: GGMLType = GGMLType.Q4_K, embd_qtype: GGMLType = GGMLType.Q4_K,
+                       rope_base: float = 1e4, rms_eps: float = 1e-5, tied: bool = False):
+    """-> (ModelConfig, params) of a chameleon or bitnet model as the loader
+    holds a converted file, every tensor drawn on ``device`` with
+    ``generator``: each layer matrix of ``qtype``, K-major where the kernels
+    take its K and planar otherwise (_mla_weight: Chameleon-7B's Q4_K down at
+    K 11008, every TQ2_0 matrix of BitNet b1.58 2B-4T at K 2560 and 6912),
+    q/k/v and gate/up fused where their parts are K-major (the loader's
+    fuse step); the embedding (and an untied lm_head) of ``embd_qtype``,
+    K-major over its logical vocab_size rows; the norms 1 + N(0, 0.1).
+    The row's own tensors as the JAX synth's hints draw them: chameleon's
+    per-head (H, hd) layernorm q/k norms 1 + N(0, 0.1) and their biases
+    N(0, 0.1); bitnet's sub-norms 1 + N(0, 0.1) (attn_sub_norm n_embd,
+    ffn_sub_norm n_ff) and its seven (1,) per-tensor scales 0.9 + 0.05 li
+    (tpullm/utils/synth.py:2318-2327)."""
+    device = resolve_device(device)
+    cfg = ModelConfig(arch=arch, vocab_size=vocab_size, n_embd=n_embd, n_layer=n_layer,
+                      n_head=n_head, n_head_kv=n_head_kv, head_dim=n_embd // n_head,
+                      head_dim_v=n_embd // n_head, n_ff=n_ff, rope_dim=n_embd // n_head,
+                      rope_base=rope_base, rms_eps=rms_eps, tie_embeddings=tied)
+    apply_arch_defaults(cfg)
+    g, L, hd = generator, (n_layer,), cfg.head_dim
+    near1 = lambda *shape: 1.0 + torch.randn(shape, generator=g, device=device) * 0.1
+    w = lambda n, K: _mla_weight(n, K, L, g, device, qtype)
+    embd = _mla_weight(vocab_size, n_embd, (), g, device, embd_qtype)
+    layers = {"attn_norm": near1(n_layer, n_embd), "ffn_norm": near1(n_layer, n_embd),
+              "wq": w(n_head * hd, n_embd), "wk": w(n_head_kv * hd, n_embd),
+              "wv": w(n_head_kv * hd, n_embd), "wo": w(n_embd, n_head * hd),
+              "ffn_gate": w(n_ff, n_embd), "ffn_up": w(n_ff, n_embd), "ffn_down": w(n_embd, n_ff)}
+    if cfg.qk_norm_type == "layernorm":
+        layers.update(q_norm=near1(n_layer, n_head, hd), k_norm=near1(n_layer, n_head_kv, hd),
+                      q_norm_b=torch.randn((n_layer, n_head, hd), generator=g, device=device)
+                      * 0.1, k_norm_b=torch.randn((n_layer, n_head_kv, hd), generator=g,
+                                                  device=device) * 0.1)
+    if cfg.sub_norms:
+        layers.update(attn_sub_norm=near1(n_layer, n_embd), ffn_sub_norm=near1(n_layer, n_ff))
+        scale = (0.9 + 0.05 * torch.arange(n_layer, dtype=torch.float32, device=device))[:, None]
+        layers.update({k: scale.clone() for k in ("wq_s", "wk_s", "wv_s", "wo_s", "ffn_gate_s",
+                                                  "ffn_up_s", "ffn_down_s")})
+    out = embd if tied else _mla_weight(vocab_size, n_embd, (), g, device, embd_qtype)
+    return cfg, {"tok_embd": embd, "output": out, "output_norm": near1(n_embd),
+                 "layers": fuse_layer_weights(layers, cfg)}
 
 
 def synth_mixtral_q4k(*, vocab_size: int, n_embd: int, n_layer: int, n_head: int,
